@@ -1,10 +1,12 @@
-"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slice 1.
+"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 and 2.
 
 Matrix-free linear operators in PyTorch: a lazy operator graph (scale, sum,
 compose, adjoint wrappers over dense, function, identity, diagonal and
-block-sparse operators), compact L-BFGS operators and a preconditioned CG.
-The block-sparse products run hand-written CUDA kernels for Hopper
-(``kernels/csrc/bsr_spmv.cu``) on CUDA tensors and plain PyTorch on the CPU.
+sparse operators: COO, CSR, ELL and block-sparse rows, built by
+``opSparse``), compact L-BFGS operators and a preconditioned CG. The
+block-sparse products run hand-written CUDA kernels for Hopper
+(``kernels/csrc/``: K1/K2, and the windowed K3-K6 for large x) on CUDA
+tensors and plain PyTorch on the CPU.
 
 Names follow ``linops_tpu`` so each module has an obvious counterpart; this
 package imports ``torch`` and numpy, never ``jax``. The rest of the
@@ -21,7 +23,9 @@ from .core.apply import matvec, matmat, mul, to_dense
 from .core.precision import matmul_precision, f32_exact, check_f32_exact
 from .ops.eye import Eye, UniversalEye, opEye
 from .ops.diagonal import DiagonalOperator, opDiagonal
-from .sparse import BSR, bsr_from_dense, BSROperator
+from .sparse import (BSR, COO, CSR, ELL, bsr_from_dense, coo_from_dense, csr_from_dense,
+                     csr_from_parts, ell_from_csr_parts, ell_from_dense, BSROperator,
+                     COOOperator, CSROperator, ELLOperator, opSparse)
 from .qn import LBFGSState, LBFGSOperator, InverseLBFGSOperator
 from .utils.krylov import matvec_chain, cg
 
@@ -61,8 +65,20 @@ __all__ = [
     "DiagonalOperator",
     "opDiagonal",
     "BSR",
+    "COO",
+    "CSR",
+    "ELL",
     "bsr_from_dense",
+    "coo_from_dense",
+    "csr_from_dense",
+    "csr_from_parts",
+    "ell_from_csr_parts",
+    "ell_from_dense",
     "BSROperator",
+    "COOOperator",
+    "CSROperator",
+    "ELLOperator",
+    "opSparse",
     "LBFGSState",
     "LBFGSOperator",
     "InverseLBFGSOperator",

@@ -17,9 +17,10 @@ import torch
 from .ops.diagonal import DiagonalOperator
 from .qn.lbfgs import LBFGSState
 from .sparse.formats import BSR
+from .sparse.ops import BSROperator
 
-__all__ = ["from_numpy", "to_numpy", "bsr_from_reference", "lbfgs_state_from_reference",
-           "diagonal_from_reference"]
+__all__ = ["from_numpy", "to_numpy", "bsr_from_reference", "bsr_operator_from_reference",
+           "lbfgs_state_from_reference", "diagonal_from_reference"]
 
 
 def from_numpy(a, *, dtype=None, device=None) -> torch.Tensor:
@@ -46,6 +47,21 @@ def bsr_from_reference(blocks, block_cols, shape, *, dtype=None, device=None) ->
     return BSR(blocks=from_numpy(blocks, dtype=dtype, device=device),
                block_cols=from_numpy(block_cols, dtype=torch.int32, device=device),
                shape=(int(shape[0]), int(shape[1])))
+
+
+def bsr_operator_from_reference(blocks, block_cols, shape, *, win_q=None, cols_local=None,
+                                win_q_t=None, win_valid_t=None, wb=0, x_pad_blocks=0,
+                                x_pad_blocks_t=0, symmetric=False, hermitian=False,
+                                backend="auto", dtype=None, device=None) -> BSROperator:
+    """A reference ``BSROperator`` as this package's, window plan included:
+    its (padded) ``data`` fields, ``win_q``, ``cols_local``, ``win_q_t``,
+    ``win_valid_t`` (numpy arrays or None) and ``_wb``, ``_x_pad_blocks``,
+    ``_x_pad_blocks_t``. The operator runs the plan it is given; it does
+    not plan again."""
+    return BSROperator(bsr_from_reference(blocks, block_cols, shape, dtype=dtype, device=device),
+                       symmetric, hermitian, backend=backend, win_q=win_q,
+                       cols_local=cols_local, win_q_t=win_q_t, win_valid_t=win_valid_t,
+                       _wb=wb, _x_pad_blocks=x_pad_blocks, _x_pad_blocks_t=x_pad_blocks_t)
 
 
 def lbfgs_state_from_reference(fields: Mapping[str, np.ndarray], *, device=None) -> LBFGSState:

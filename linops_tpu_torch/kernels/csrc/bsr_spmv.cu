@@ -29,22 +29,11 @@
 // 67M-value benchmark shape). Each entry point launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError() of its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bsr_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // K1: warps (output rows) per thread block
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T narrow(float v);
-template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename TB, typename TX>
 __global__ void bsr_matvec_kernel(const TB* __restrict__ blocks,
@@ -63,8 +52,7 @@ __global__ void bsr_matvec_kernel(const TB* __restrict__ blocks,
     const TX* xrow = x + static_cast<int64_t>(cols[slot]) * bn;
     for (int n = lane; n < bn; n += 32) acc = fmaf(widen(brow[n]), widen(xrow[n]), acc);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  acc = warp_sum(acc);
   if (lane == 0) y[r * bm + m] = narrow<TX>(acc);
 }
 
@@ -129,9 +117,7 @@ int launch_rmatvec(const void* blocks, const void* perm, const void* colptr,
 
 }  // namespace
 
-// dtype codes shared with the Python wrapper: 0 = float32, 1 = bfloat16.
-// Supported (blocks, vector) pairs: (0, 0), (1, 0), (1, 1); the vector type is
-// also the output type.
+// dtype codes: see bsr_common.cuh (dispatch_dtypes).
 extern "C" {
 
 int linops_bsr_matvec(const void* blocks, const void* cols, const void* x, void* y,
@@ -140,13 +126,11 @@ int linops_bsr_matvec(const void* blocks, const void* cols, const void* x, void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_dtype == 0 && vec_dtype == 0)
-    return launch_matvec<float, float>(blocks, cols, x, y, nbrow, kmax, bm, bn, s);
-  if (block_dtype == 1 && vec_dtype == 0)
-    return launch_matvec<__nv_bfloat16, float>(blocks, cols, x, y, nbrow, kmax, bm, bn, s);
-  if (block_dtype == 1 && vec_dtype == 1)
-    return launch_matvec<__nv_bfloat16, __nv_bfloat16>(blocks, cols, x, y, nbrow, kmax, bm, bn, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    return launch_matvec<TB, TX>(blocks, cols, x, y, nbrow, kmax, bm, bn, s);
+  });
 }
 
 int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* colptr,
@@ -156,17 +140,12 @@ int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* colptr,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_dtype == 0 && vec_dtype == 0)
-    return launch_rmatvec<float, float>(blocks, perm, colptr, u, out, nbcol, kmax, bm, bn, tile_n, split, s);
-  if (block_dtype == 1 && vec_dtype == 0)
-    return launch_rmatvec<__nv_bfloat16, float>(blocks, perm, colptr, u, out, nbcol, kmax, bm, bn, tile_n, split, s);
-  if (block_dtype == 1 && vec_dtype == 1)
-    return launch_rmatvec<__nv_bfloat16, __nv_bfloat16>(blocks, perm, colptr, u, out, nbcol, kmax, bm, bn, tile_n, split, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-const char* linops_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    return launch_rmatvec<TB, TX>(blocks, perm, colptr, u, out, nbcol, kmax, bm, bn,
+                                  tile_n, split, s);
+  });
 }
 
 }  // extern "C"

@@ -1,9 +1,14 @@
-"""Block sparse rows (BSR) storage.
+"""Sparse storage formats: COO, CSR, ELL and BSR.
 
-Counterpart of ``linops_tpu/sparse/formats.py`` (BSR only; COO/CSR/ELL come
-with a later slice). Every block row holds the same number of (bm, bn)
-blocks; padding blocks are zero and point at block column 0, so they add
-nothing.
+Counterpart of ``linops_tpu/sparse/formats.py``. The builders run on the host
+(numpy) and return CPU tensors; move the operator built on them with
+``.to(device)``. Index arrays are int32, as on the reference's device.
+
+- COO/CSR carry an explicit per-entry ``rows`` vector (CSR keeps ``indptr``
+  too), so a product is a gather plus an ``index_add_``.
+- ELL pads every row to one slot count (pads: column 0, value 0).
+- BSR holds dense (bm, bn) blocks, the same number per block row; padding
+  blocks are zero and point at block column 0, so they add nothing.
 """
 
 from __future__ import annotations
@@ -13,7 +18,47 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-__all__ = ["BSR", "bsr_from_dense"]
+__all__ = [
+    "COO",
+    "CSR",
+    "BSR",
+    "ELL",
+    "coo_from_dense",
+    "csr_from_dense",
+    "csr_from_parts",
+    "bsr_from_dense",
+    "check_int32_range",
+    "ell_from_csr_parts",
+    "ell_from_dense",
+]
+
+
+class COO(NamedTuple):
+    """Coordinate format: ``vals[k] = A[rows[k], cols[k]]``."""
+
+    vals: torch.Tensor  # (nnz,)
+    rows: torch.Tensor  # (nnz,) int32
+    cols: torch.Tensor  # (nnz,) int32
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return self.vals.shape[0]
+
+
+class CSR(NamedTuple):
+    """Compressed sparse rows, with the ``rows`` vector expanded from
+    ``indptr`` at build time."""
+
+    vals: torch.Tensor  # (nnz,)
+    cols: torch.Tensor  # (nnz,) int32
+    indptr: torch.Tensor  # (nrow+1,) int32
+    rows: torch.Tensor  # (nnz,) int32
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return self.vals.shape[0]
 
 
 class BSR(NamedTuple):
@@ -34,10 +79,67 @@ class BSR(NamedTuple):
         return (self.blocks.shape[0] * self.blocks.shape[2], -(-self.shape[1] // bn) * bn)
 
 
+class ELL(NamedTuple):
+    """ELLPACK: every row padded to ``kmax`` slots; pads carry column 0 and
+    value 0 and add nothing."""
+
+    vals: torch.Tensor  # (nrow, kmax)
+    cols: torch.Tensor  # (nrow, kmax) int32
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        """Stored (padded) entries."""
+        return self.vals.numel()
+
+
+def _t(a, dtype=None) -> torch.Tensor:
+    """A numpy array as a CPU tensor (copied)."""
+    return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
+
+
+def _nonzero(A, tol: float):
+    return np.nonzero(np.abs(A) > tol) if tol > 0 else np.nonzero(A)
+
+
+def coo_from_dense(A, tol: float = 0.0) -> COO:
+    A = np.asarray(A)
+    rows, cols = _nonzero(A, tol)
+    return COO(vals=_t(A[rows, cols]), rows=_t(rows, np.int32), cols=_t(cols, np.int32),
+               shape=tuple(A.shape))
+
+
+def csr_from_dense(A, tol: float = 0.0) -> CSR:
+    A = np.asarray(A)
+    rows, cols = _nonzero(A, tol)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=A.shape[0]))])
+    return CSR(vals=_t(A[rows, cols]), cols=_t(cols, np.int32), indptr=_t(indptr, np.int32),
+               rows=_t(rows, np.int32), shape=tuple(A.shape))
+
+
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def check_int32_range(shape, nnz: int) -> None:
+    """Index arrays are int32: dims or nnz beyond 2^31-1 would wrap."""
+    if max(int(shape[0]), int(shape[1]), int(nnz)) > _I32_MAX:
+        raise OverflowError(
+            f"sparse dims/nnz {tuple(shape)}/{nnz} exceed int32 range "
+            "(2^31-1); int64 sparse indexing is not supported")
+
+
+def csr_from_parts(vals, cols, indptr, shape) -> CSR:
+    """Build from standard CSR arrays (e.g. a scipy ``csr_matrix``'s parts)."""
+    indptr = np.asarray(indptr)
+    check_int32_range(shape, len(np.asarray(vals)))
+    rows = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+    return CSR(vals=_t(vals), cols=_t(cols, np.int32), indptr=_t(indptr, np.int32),
+               rows=_t(rows, np.int32), shape=(int(shape[0]), int(shape[1])))
+
+
 def bsr_from_dense(A, block_shape: Tuple[int, int] = (8, 128), tol: float = 0.0) -> BSR:
     """Tile A (numpy) into (bm, bn) blocks, keep the nonzero ones, pad each
-    block row to the largest block count. Returns CPU tensors; move the
-    operator built on it with ``.to(device)``."""
+    block row to the largest block count."""
     A = np.asarray(A)
     nrow, ncol = A.shape
     bm, bn = block_shape
@@ -58,3 +160,28 @@ def bsr_from_dense(A, block_shape: Tuple[int, int] = (8, 128), tol: float = 0.0)
         block_cols[i, : len(js)] = js
     return BSR(blocks=torch.from_numpy(blocks), block_cols=torch.from_numpy(block_cols),
                shape=(nrow, ncol))
+
+
+def ell_from_csr_parts(vals, cols, indptr, shape) -> ELL:
+    """Pack CSR arrays into ELL (every row padded to the largest degree)."""
+    vals = np.asarray(vals)
+    indptr = np.asarray(indptr)
+    check_int32_range(shape, len(vals))
+    counts = np.diff(indptr)
+    nrow = len(counts)
+    kmax = max(int(counts.max()) if nrow else 0, 1)
+    out_v = np.zeros((nrow, kmax), vals.dtype)
+    out_c = np.zeros((nrow, kmax), np.int32)
+    pos = np.arange(len(vals)) - np.repeat(indptr[:-1], counts)
+    rows = np.repeat(np.arange(nrow), counts)
+    out_v[rows, pos] = vals
+    out_c[rows, pos] = np.asarray(cols)
+    return ELL(vals=torch.from_numpy(out_v), cols=torch.from_numpy(out_c),
+               shape=(int(shape[0]), int(shape[1])))
+
+
+def ell_from_dense(A, tol: float = 0.0) -> ELL:
+    A = np.asarray(A)
+    rows, cols = _nonzero(A, tol)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=A.shape[0]))])
+    return ell_from_csr_parts(A[rows, cols], cols, indptr, A.shape)

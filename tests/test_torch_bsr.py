@@ -155,7 +155,8 @@ def test_backend_names_and_dispatch(rng):
     y_auto = lt.BSROperator(data) * v
     y_plain = lt.BSROperator(data, backend="torch") * v
     assert torch.equal(y_auto, y_plain)  # CPU tensors take the plain version
-    assert K.launch_counts() == {"bsr_matvec": 0, "bsr_rmatvec": 0}
+    assert set(K.launch_counts()) >= {"bsr_matvec", "bsr_rmatvec"}
+    assert all(n == 0 for n in K.launch_counts().values())
 
 
 def test_kernel_dtype_rule():
