@@ -71,6 +71,22 @@ WIN_KERNELS = {  # name -> (replaces, bench shape whose f32 case it is reported 
 WIN_N = 1 << 22
 WIN_KMAX = {"banded": 2, "band+cluster": 3}
 GRID = 1536  # phase 7: Laplacian grid width and height
+LG_SOURCE = "linops_tpu_torch/kernels/csrc/lane_gather.cu"
+LANE_KERNELS = {  # name -> the TPU kernel it replaces (def line)
+    "lane_gather": "linops_tpu/kernels/lane_gather.py:68",  # K7
+    "lane_gather_mul": "linops_tpu/kernels/lane_gather.py:368",  # K8
+    "lane_gather_mul_t_batched": "linops_tpu/kernels/lane_gather.py:324",  # K9
+    "lane_gather_sum": "linops_tpu/kernels/lane_gather.py:158",  # K10
+    "lane_segsum": "linops_tpu/kernels/lane_gather.py:232",  # K11
+    "lane_gather_mul_segsum": "linops_tpu/kernels/lane_gather.py:263",  # K12
+}
+N3 = 1 << 20  # phase 9 step 1: the unstructured SPD matrix
+N_AUTO8M = 1 << 19  # phase 9 step 2
+N_RCM, BW_RCM = 1 << 18, 56  # phase 9 step 3
+N_K8 = 1500  # phase 8: the 3-stage operator that runs K8
+# H100 SXM peaks (NVIDIA's data sheet): device memory rate, f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_PEAK = 67e12
 
 
 def check(cond, msg):
@@ -160,6 +176,55 @@ def marginal_ms(fn):
     deltas = [(event_ms(fn, I_LONG) - event_ms(fn, I_SHORT)) / (I_LONG - I_SHORT)
               for _ in range(REPS)]
     return float(np.median(deltas))
+
+
+def graph_ms(fn, n=20):
+    """ms per call with the host's launch cost out of the way: n calls
+    captured in one CUDA graph, the graph replayed and timed with CUDA
+    events; median of REPS replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    del g
+    return float(np.median(times))
+
+
+def profiled_ms(fn, kernel, n=20):
+    """Mean device duration in ms of the CUDA kernel named ``kernel`` (the
+    function name in the .cu file) over n calls, from a torch.profiler trace;
+    None when the trace holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if f"::{kernel}<" in e.key:  # "(anonymous namespace)::segsum_kernel<float>(...)"
+            t = getattr(e, "device_time_total", None)
+            total += t if t is not None else e.cuda_time_total
+            count += e.count
+    return total / count / 1e3 if count and total > 0 else None
 
 
 def np_inverse_lbfgs(pairs, mem, v):
@@ -401,13 +466,509 @@ def phase5_windows(lt, K, dev, card):
                     d.blocks, d.block_cols, ub, nbcol, perm=op.col_perm, colptr=op.col_ptr)),
             }
             if dtype == torch.float32:
-                out[name] = row
+                ops_ = 2 * d.blocks.numel()
+                row[fwd + " bound"] = bound_ms(nbytes(d.blocks, d.block_cols, xb) + nbrow * 8 * 4, ops_)
+                row[tr + " bound"] = bound_ms(nbytes(d.blocks, d.block_cols, ub) + nbcol * 128 * 4,
+                                              ops_)
+                out[name] = dict(row)
+                print(f"[5 times] {name} f32 bounds: {fwd} {row[fwd + ' bound'][0] * 1e3:.1f} us, "
+                      f"{tr} {row[tr + ' bound'][0] * 1e3:.1f} us (bytes); {card}", flush=True)
+                del row[fwd + " bound"], row[tr + " bound"]
             print(f"[5 times] {name} kmax={WIN_KMAX[name]} n=2^22 blocks {str(dtype)[6:]} "
                   f"({gb * 1e3:.1f} MB stored): "
                   + ", ".join(f"{k} {v * 1e3:.1f} us = {gb / (v / 1e3):.0f} GB/s" for k, v in row.items())
                   + f"; {card}", flush=True)
             del op, d, xb, ub
     return out
+
+
+# ----------------------------------------------------------------------------
+# Slice 3: the Clos-routed unstructured path and the lane-gather kernels
+# ----------------------------------------------------------------------------
+
+
+def tree_bytes(obj) -> int:
+    """Bytes of every tensor in a routing program (NamedTuples, tuples)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, tuple):
+        return sum(tree_bytes(v) for v in obj)
+    return 0
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(n_bytes, n_ops=0, peak_ops=F32_PEAK):
+    """(least time in ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def spd_unstructured(n, per_row, seed):
+    """A = R + Rᵀ + D (scipy CSR, f32): R with Poisson(per_row) entries per
+    row at uniform columns with normal values, D making A strictly
+    diagonally dominant."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(per_row, n)
+    nnz = int(counts.sum())
+    rows = np.repeat(np.arange(n, dtype=np.int32), counts)
+    R = sps.csr_matrix((rng.standard_normal(nnz).astype(np.float32),
+                        (rows, rng.integers(0, n, nnz, dtype=np.int32))), shape=(n, n))
+    S = (R + R.T).tocsr()
+    d = np.asarray(abs(S).sum(axis=1)).ravel() + 1.0
+    return (S + sps.diags(d.astype(np.float32))).tocsr().astype(np.float32)
+
+
+def auto_8m(seed):
+    """The reference bench's auto_8m matrix (bench.py:942-973): n = 2^19,
+    Poisson(16) uniform columns per row, normal f32 values, not symmetric."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    na = N_AUTO8M
+    counts = rng.poisson(16, na)
+    nnz = int(counts.sum())
+    indptr = np.zeros(na + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    cols = rng.integers(0, na, nnz)
+    order = np.lexsort((cols, np.repeat(np.arange(na), counts)))
+    return sps.csr_matrix((rng.standard_normal(nnz).astype(np.float32),
+                           cols[order].astype(np.int32), indptr), shape=(na, na))
+
+
+def scrambled_banded(seed):
+    """A banded f32 matrix (half-bandwidth BW_RCM, n = N_RCM) under a random
+    symmetric permutation: the shape reorder.py:7 and bench.py:915-940 name."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    offs = range(-BW_RCM, BW_RCM + 1)
+    A = sps.diags([rng.standard_normal(N_RCM - abs(k)).astype(np.float32) for k in offs], offs,
+                  format="csr", dtype=np.float32)
+    sig = rng.permutation(N_RCM)
+    return A[sig][:, sig].tocsr()
+
+
+def dev_vec(n, dev, seed, k=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n,) if k is None else (n, k), generator=g, device=dev)
+
+
+def phase9(lt, K, LG, dev):
+    """Slice 3's path through the entry points a user calls. Returns the
+    operators (for phases 8 and 5) and the lane-kernel launches of the run
+    (counts set to 0 just before, read just after)."""
+    import warnings
+
+    from linops_tpu_torch.sparse.routed import RoutedTranspose, routed_matvec
+
+    out = {}
+    LG.reset_launch_counts()
+    K.reset_launch_counts()
+    totals = dict.fromkeys(LG.launch_counts(), 0)
+
+    def take_counts():
+        c = LG.launch_counts()
+        for k_, v_ in c.items():
+            totals[k_] += v_
+        LG.reset_launch_counts()
+        return c
+
+    # --- 1. CG on an unstructured SPD matrix -------------------------------
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A1 = spd_unstructured(N3, 8, SEED + 40)
+    t1 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        op1 = lt.opSparse(A1, format="auto", symmetric=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    p1 = op1.routed
+    check(isinstance(op1, lt.RoutedCSROperator), f"auto picked {type(op1).__name__}")
+    check(any("pack" in str(w.message) for w in wl), "format='auto' did not warn about the pack")
+    check(p1.vals.is_cuda and p1.vals.shape[0] > 1 and p1.vals.shape[1] > 128
+          and len(p1.stages) == 4 and p1.comb_lo is not None,
+          f"not a multi-chunk 5-stage tiled program: vals "
+          f"{tuple(p1.vals.shape)}, {len(p1.stages)} stages")
+    print(f"[9 slice-3 path] A = R + Rᵀ + D, n = 2^20, {A1.nnz} nnz (scipy, {t1 - t0:.2f} s); "
+          f"opSparse(format='auto', symmetric=True) -> {type(op1).__name__} on {p1.vals.device}: "
+          f"{p1.vals.shape[0]} chunks x {p1.vals.shape[1]} windows (5-stage), w {p1.w}, "
+          f"{tree_bytes(p1) / 1e6:.1f} MB program; host pack {op1.pack_seconds['host']:.2f} s, "
+          f"upload {op1.pack_seconds['upload']:.2f} s, total {t2 - t1:.2f} s incl. the BSR test; "
+          f"warned: {str(wl[0].message)[:60]}...", flush=True)
+    b = dev_vec(N3, dev, SEED + 41)
+    t0 = time.perf_counter()
+    x, k, res = lt.cg(op1, b, tol=1e-5, maxiter=2000)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    c1 = take_counts()
+    for name in ("lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum"):
+        check(c1[name] > 0, f"{name} never ran in the slice-3 cg: {c1}")
+    check(k < 2000 and torch.isfinite(x).all() and tuple(x.shape) == (N3,),
+          f"slice-3 cg: {k} iterations, finite {bool(torch.isfinite(x).all())}")
+    x_host, b_host = x.double().cpu().numpy(), b.double().cpu().numpy()
+    true_res = float(np.linalg.norm(b_host - A1.astype(np.float64) @ x_host)
+                     / np.linalg.norm(b_host))
+    check(true_res <= 1e-4, f"slice-3 cg f64 residual {true_res:.3e} > 1e-4")
+    plain = lt.FunctionOperator(N3, N3, lambda v: routed_matvec(p1, v, use_kernel=False),
+                                symmetric=True, hermitian=True, dtype=torch.float32)
+    x_p, k_p, _ = lt.cg(plain, b, tol=1e-5, maxiter=2000)
+    dx = float(torch.linalg.vector_norm(x_p - x) / torch.linalg.vector_norm(x_p))
+    check(sum(LG.launch_counts().values()) == 0, "the plain pipeline launched a kernel")
+    check(abs(k_p - k) <= 1 and dx <= 1e-4,
+          f"plain-pipeline cg: {k_p} iterations (kernels {k}), |Δx|/|x| {dx:.2e}")
+    print(f"[9 slice-3 path] cg(tol 1e-5): {k} iterations, f64 residual (scipy) {true_res:.3e} "
+          f"(limit 1e-4), {t_cg:.3f} s incl. first calls; plain pipeline {k_p} iterations, "
+          f"|Δx|/|x| {dx:.2e} (limit 1e-4); launches {c1}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    out["op1"], out["nnz1"] = op1, A1.nnz
+    del A1, x, x_p, b, plain
+
+    # --- 2. transpose and multi-RHS on the bench's auto_8m matrix -----------
+    free()
+    A2 = auto_8m(SEED + 42)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        op2 = lt.opSparse(A2, format="auto")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(isinstance(op2, lt.RoutedCSROperator) and isinstance(op2.routed_t, RoutedTranspose),
+          "auto_8m: not a routed operator with a derived transpose")
+    check(any("pack" in str(w.message) for w in wl), "auto_8m: no pack warning")
+    A2d = A2.astype(np.float64)
+    v = dev_vec(A2.shape[0], dev, SEED + 43)
+    errs = {}
+    for mode in ("N", "T"):
+        got = lt.matvec_chain(op2, v, 5, mode=mode)
+        ref = v.double().cpu().numpy()
+        for _ in range(5):
+            ref = (A2d @ ref) if mode == "N" else (A2d.T @ ref)
+            ref = ref / np.linalg.norm(ref)
+        errs[f"chain {mode}"] = float(np.abs(got.double().cpu().numpy() - ref).max()
+                                      / np.abs(ref).max())
+    c2 = take_counts()
+    LG.reset_launch_counts()
+    op2.T * v
+    cT = take_counts()
+    check(cT["lane_gather"] > 0 and cT["lane_gather_mul_segsum"] > 0,
+          f"auto_8m transpose did not run K7 and K12: {cT}")
+    X = dev_vec(A2.shape[1], dev, SEED + 44, k=8)
+    Xh = X.double().cpu().numpy()
+    check(op2.matrix_path("N") == "routed" and op2.matrix_path("T", panel=True) == "routed_panel",
+          "the matrix applies do not take the routed pipeline on the card")
+    for tag, got, ref in (("apply_matrix N", lt.matmat(op2, X), A2d @ Xh),
+                          ("apply_matrix T", lt.matmat(op2, X, mode="T"), A2d.T @ Xh),
+                          ("apply_matrix_t N", op2.apply_matrix_t(X.t().contiguous()),
+                           (A2d @ Xh).T),
+                          ("apply_matrix_t T", op2.apply_matrix_t(X.t().contiguous(), "T"),
+                           (A2d.T @ Xh).T)):
+        errs[tag] = float(np.abs(got.double().cpu().numpy() - ref).max() / np.abs(ref).max())
+    take_counts()
+    check(all(e <= 1e-5 for e in errs.values()), f"auto_8m disagrees with scipy: {errs}")
+    print(f"[9 slice-3 path] auto_8m: n = 2^19, {A2.nnz} nnz -> {type(op2).__name__}, "
+          f"{op2.routed.vals.shape[0]} chunks, derived transpose, built in {t_build:.2f} s (host "
+          f"pack {op2.pack_seconds['host']:.2f} s, upload {op2.pack_seconds['upload']:.2f} s); "
+          + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items())
+          + f" (max|Δ|/max against scipy f64, limit 1e-5); launches of one T apply {cT}",
+          flush=True)
+    out["op2"], out["nnz2"] = op2, A2.nnz
+    del A2, A2d, X
+
+    # --- 3. the RCM sandwich --------------------------------------------------
+    free()
+    Asc = scrambled_banded(SEED + 45)
+    t0 = time.perf_counter()
+    op3 = lt.opSparse(Asc, format="auto", reorder="rcm")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(isinstance(op3, lt.ReorderedOperator) and isinstance(op3.inner, lt.BSROperator),
+          f"rcm: inner {type(getattr(op3, 'inner', None)).__name__}, expected BSROperator")
+    K.reset_launch_counts()
+    v = dev_vec(N_RCM, dev, SEED + 46)
+    A3d = Asc.astype(np.float64)
+    vh = v.double().cpu().numpy()
+    e3 = {}
+    for mode, ref in (("N", A3d @ vh), ("T", A3d.T @ vh)):
+        got = lt.matvec(op3, v, mode=mode).double().cpu().numpy()
+        e3[mode] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    c3, k3 = take_counts(), K.launch_counts()
+    check(all(e <= 1e-5 for e in e3.values()), f"rcm sandwich disagrees with scipy: {e3}")
+    check(c3["lane_gather"] > 0 and c3["lane_gather_sum"] > 0, f"rcm: P did not run K7/K10: {c3}")
+    check(sum(k3.values()) > 0, f"rcm: the inner BSR ran no kernel: {k3}")
+    d3 = op3.inner.data
+    print(f"[9 slice-3 path] rcm: scrambled band n = 2^18, half-bandwidth {BW_RCM}, {Asc.nnz} nnz "
+          f"-> ReorderedOperator(BSR {d3.block_shape[0]}x{d3.block_shape[1]} kmax "
+          f"{d3.blocks.shape[1]}, window plan {op3.inner.win_q is not None}) in {t_build:.2f} s; "
+          f"N {e3['N']:.2e}, T {e3['T']:.2e} (max|Δ|/max against scipy f64, limit 1e-5); "
+          f"lane launches {c3}; BSR launches {k3}", flush=True)
+    del Asc, A3d, op3, d3
+
+    # --- 4. a permutation of 2^20 --------------------------------------------
+    free()
+    perm = np.random.default_rng(SEED + 47).permutation(1 << 20)
+    t0 = time.perf_counter()
+    P = lt.opPermutation(perm)
+    t_build = time.perf_counter() - t0
+    x = dev_vec(1 << 20, dev, SEED + 48)
+    pt = torch.from_numpy(perm).to(dev)
+    inv = torch.empty_like(pt)
+    inv[pt] = torch.arange(1 << 20, device=dev)
+    check(torch.equal(lt.matvec(P, x), x[pt]), "P x != x[perm]")
+    check(torch.equal(lt.matvec(P, x, mode="T"), x[inv]), "Pᵀ x != x[perm⁻¹]")
+    c4 = take_counts()
+    check(c4["lane_gather"] > 0 and c4["lane_gather_sum"] == 2, f"permutation launches {c4}")
+    print(f"[9 slice-3 path] opPermutation(2^20): N and T exactly x[perm], x[perm⁻¹]; routed in "
+          f"{t_build:.2f} s (forward program; the inverse packs at the first T); launches {c4}",
+          flush=True)
+    out["perm"] = (P, x)
+    out["launches"] = totals
+    print(f"[9 slice-3 path] lane-kernel launches over steps 1-4: {totals}", flush=True)
+    return out
+
+
+def lane_cases(p1, p2t, p3s):
+    """{kernel: (rows of its data operand, dtype -> its other arguments)} at
+    the main path's shapes: K7/K9/K10/K11 from step 1's program, K12 from
+    step 2's derived transpose, K8 from the 3-stage operator's program."""
+    C1, m1 = p1.vals.shape[0], p1.vals.shape[1]
+    C3, m3 = p3s.vals.shape[0], p3s.vals.shape[1]
+    C2, m2 = p2t.vals_pre.shape[0], p2t.vals_pre.shape[1]
+    T8, Kt = p1.rowid.shape
+    flat = lambda t, rows: t.reshape(rows, 128)  # noqa: E731
+    return {
+        "lane_gather": (C1 * m1, lambda dt: (flat(p1.stages[0], C1 * m1),)),
+        "lane_gather_mul": (C3 * m3, lambda dt: (flat(p3s.lane_idx, C3 * m3),
+                                                 flat(p3s.vals, C3 * m3).to(dt))),
+        "lane_gather_mul_t_batched": (C1 * m1, lambda dt: (flat(p1.lane_idx, C1 * m1),
+                                                           flat(p1.vals, C1 * m1).to(dt), C1, m1)),
+        "lane_gather_sum": (C1 * m1, lambda dt: (flat(p1.stages[3], C1 * m1), p1.w)),
+        "lane_segsum": (T8 * Kt // 128, lambda dt: (p1.comb_lo, p1.comb_hi)),
+        "lane_gather_mul_segsum": (C2 * m2, lambda dt: (
+            flat(p2t.g1inv, C2 * m2), flat(p2t.vals_pre, C2 * m2).to(dt),
+            flat(p2t.bnd_lo, C2 * m2), flat(p2t.bnd_hi, C2 * m2))),
+    }
+
+
+def segsum_limit(z, lo, rep, dt, ref):
+    """8·eps_f32·Σ|window| per element (the prefix difference), plus one ulp
+    of a bf16 result."""
+    r0 = lo.shape[0]
+    win = z.double().abs().reshape(rep, r0, 128).sum(2, keepdim=True).expand(rep, r0, 128)
+    lim = 8 * torch.finfo(torch.float32).eps * win.reshape(rep * r0, 128)
+    if dt == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.double().abs()
+    return lim
+
+
+def phase8(lt, LG, dev, ops):
+    """K7-K12 against their plain versions on the card, f32 and bf16, rep 1
+    and 8, at the shapes of phase 9's programs; K8 also on a 3-stage
+    operator's path and at a synthetic (8·65536, 128). Returns (max|Δ| of
+    each f32 rep-1 case, K8's launches on its operator's path, the 3-stage
+    program)."""
+    import scipy.sparse as sps
+
+    # K8 runs only on 3-stage routes (at most 16384 slots): at 0.4 % density,
+    # n = 2000 packs 5-stage and n = N_K8 (about 9000 nnz) is near the largest
+    # that stays 3-stage
+    A = sps.random(N_K8, N_K8, density=0.004, format="csr", random_state=SEED + 50,
+                   dtype=np.float32)
+    op3s = lt.opSparse(A, format="routed")
+    p3s = op3s.routed
+    check(p3s.vals.shape[1] <= 128 and len(p3s.stages) == 2, "the K8 operator is not 3-stage")
+    v = dev_vec(N_K8, dev, SEED + 51)
+    LG.reset_launch_counts()
+    y = lt.matvec(op3s, v)
+    k8_launches = LG.launch_counts()["lane_gather_mul"]
+    check(k8_launches > 0, "the 3-stage operator did not run K8")
+    e = float((y.double().cpu() - torch.from_numpy(A.astype(np.float64) @ v.double().cpu()
+                                                   .numpy())).abs().max())
+    check(e <= 1e-5 * float(y.abs().max()), f"3-stage operator: max|Δ| {e:.2e} against scipy")
+    print(f"[8 lane kernels] 3-stage operator: n = {N_K8}, {A.nnz} nnz at 0.4 %, "
+          f"{p3s.vals.shape[1]} windows; one apply launched K8 {k8_launches} time(s); max|Δ| "
+          f"{e:.2e} against scipy (limit 1e-5·max|y|)", flush=True)
+
+    cases = lane_cases(ops["op1"].routed, ops["op2"].routed_t, p3s)
+    err = {}
+    for name, (rows, extra) in cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            for rep in (1, 8):
+                free()
+                args = extra(dt)
+                a = dev_vec(rep * rows, dev, SEED + 52, k=128).to(dt)
+                kern, plain = getattr(LG, name), getattr(LG, name + "_plain")
+                got, again = kern(a, *args, rep=rep), kern(a, *args, rep=rep)
+                ref = plain(a, *args, rep=rep)
+                check(torch.equal(got, again), f"{name} {dt} rep {rep}: not bit-identical on rerun")
+                check(got.dtype == ref.dtype and got.shape == ref.shape,
+                      f"{name}: {got.dtype}{tuple(got.shape)} vs {ref.dtype}{tuple(ref.shape)}")
+                d = (got.double() - ref.double()).abs()
+                if name in ("lane_gather", "lane_gather_mul", "lane_gather_mul_t_batched"):
+                    ok, lim = torch.equal(got, ref), "exact"
+                elif name == "lane_gather_sum":
+                    tol = 1e-6 if dt == torch.float32 else 2.0 ** -7
+                    ok, lim = bool(d.max() <= tol * ref.double().abs().max()), f"{tol:g}·max|y|"
+                elif name == "lane_segsum":
+                    ok, lim = bool((d <= segsum_limit(a, args[0], rep, dt, ref)).all()), "eps·Σ|window|"
+                else:
+                    z = LG.lane_gather_mul_plain(a.float(), args[0], args[1].float(), rep=rep)
+                    ok, lim = bool((d <= segsum_limit(z, args[2], rep, dt, ref)).all()), "eps·Σ|window|"
+                check(ok, f"{name} {str(dt)[6:]} rep {rep}: max|Δ| {float(d.max()):.3e} ({lim})")
+                if dt == torch.float32 and rep == 1:
+                    err[name] = float(d.max())
+                print(f"[8 lane kernels] {name} {str(dt)[6:]} rep {rep}: ({rep}x{rows}, 128) "
+                      f"max|Δ| {float(d.max()):.2e} against plain ({lim}); bit-identical on rerun",
+                      flush=True)
+                del a, got, again, ref, d
+    # K8 at a large synthetic shape
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    idx = torch.randint(0, 128, (65536, 128), generator=g, device=dev, dtype=torch.int8)
+    vals = dev_vec(65536, dev, SEED + 54, k=128)
+    xw = dev_vec(8 * 65536, dev, SEED + 55, k=128)
+    check(torch.equal(LG.lane_gather_mul(xw, idx, vals, rep=8),
+                      LG.lane_gather_mul_plain(xw, idx, vals, rep=8)),
+          "lane_gather_mul differs from plain at (8·65536, 128)")
+    print("[8 lane kernels] lane_gather_mul f32 rep 8 at (8·65536, 128): equal to plain", flush=True)
+    return err, k8_launches, p3s
+
+
+# the CUDA function of each lane kernel's wrapper in lane_gather.cu
+LANE_FUNCS = {"lane_gather": "gather_kernel", "lane_gather_mul": "gather_mul_kernel",
+              "lane_gather_mul_t_batched": "gather_mul_t_kernel",
+              "lane_gather_sum": "gather_sum_kernel", "lane_segsum": "segsum_kernel",
+              "lane_gather_mul_segsum": "gather_mul_segsum_kernel"}
+
+
+def lane_row(name, kern, plain, library, n_bytes):
+    """A lane kernel's times: ``ms``, ``plain_ms`` and ``library_ms`` per call
+    under a CUDA graph (the card's time: these kernels take 4-130 us, where
+    back-to-back eager calls are timed at the wrapper's host cost), the
+    kernel's marginal event time (``event_ms``) and its device duration in a
+    torch.profiler trace (``profiler_ms``)."""
+    row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+           "library_ms": graph_ms(library) if library else None,
+           "event_ms": marginal_ms(kern), "profiler_ms": profiled_ms(kern, LANE_FUNCS[name])}
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes)
+    return row
+
+
+def phase5_lanes(lt, LG, dev, ops, p3s, card):
+    """Times of K7-K12 at step 1's and step 2's shapes (K8 at a synthetic
+    shape), beside their plain versions, their bound and, for K7,
+    torch.gather; and the routed apply per call. Returns {kernel: row of the
+    main-path shape}."""
+    p1, p2, p2t = ops["op1"].routed, ops["op2"].routed, ops["op2"].routed_t
+    rows = {}
+
+    def show(name, where, row, n_bytes):
+        prof = row["profiler_ms"]
+        print(f"[5 times] {name} at {where} f32: {row['ms'] * 1e3:.1f} us per call in a CUDA "
+              f"graph = {n_bytes / row['ms'] / 1e6:.0f} GB/s ({n_bytes / 1e6:.1f} MB; bound "
+              f"{row['bound_ms'] * 1e3:.1f} us, {row['bound_ms'] / row['ms'] * 100:.0f}% of it); "
+              f"profiler {'not measured' if prof is None else f'{prof * 1e3:.1f} us'}; eager "
+              f"events {row['event_ms'] * 1e3:.1f} us; plain {row['plain_ms'] * 1e3:.1f} us"
+              + (f", torch.gather {row['library_ms'] * 1e3:.1f} us" if row["library_ms"] else "")
+              + f"; {card}", flush=True)
+
+    for tag, fwd, tr in (("step 1", p1, p2t), ("step 2", p2, p2t)):
+        for name, (n_rows, extra) in lane_cases(fwd, tr, p3s).items():
+            if name == "lane_gather_mul" or (tag == "step 1" and name == "lane_gather_mul_segsum"):
+                continue  # K8 is timed below; K12 runs on step 2's transpose only
+            free()
+            args = extra(torch.float32)
+            a = dev_vec(n_rows, dev, SEED + 60, k=128)
+            kern, plain = getattr(LG, name), getattr(LG, name + "_plain")
+            out = kern(a, *args)
+            n_bytes = nbytes(a, out) + sum(nbytes(t) for t in args if isinstance(t, torch.Tensor))
+            library = None
+            if name == "lane_gather":
+                idx_long = args[0].long()
+                library = lambda: torch.gather(a, 1, idx_long)  # noqa: E731
+            row = lane_row(name, lambda: kern(a, *args), lambda: plain(a, *args), library,
+                           n_bytes)
+            show(name, f"{tag}'s shape ({n_rows}, 128)", row, n_bytes)
+            if tag == "step 1" or name == "lane_gather_mul_segsum":
+                rows[name] = row
+            del a, out
+    # K8 at the synthetic shape
+    free()
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    idx = torch.randint(0, 128, (65536, 128), generator=g, device=dev, dtype=torch.int8)
+    vals, xw = dev_vec(65536, dev, SEED + 62, k=128), dev_vec(8 * 65536, dev, SEED + 63, k=128)
+    out = LG.lane_gather_mul(xw, idx, vals, rep=8)
+    n_bytes = nbytes(xw, idx, vals, out)
+    rows["lane_gather_mul"] = lane_row(
+        "lane_gather_mul", lambda: LG.lane_gather_mul(xw, idx, vals, rep=8),
+        lambda: LG.lane_gather_mul_plain(xw, idx, vals, rep=8), None, n_bytes)
+    show("lane_gather_mul", "(8·65536, 128)", rows["lane_gather_mul"], n_bytes)
+    del xw, vals, idx, out
+    # the routed apply per call
+    for tag, op, nnz in (("step 1 (N = T, symmetric)", ops["op1"], ops["nnz1"]),
+                         ("auto_8m", ops["op2"], ops["nnz2"])):
+        for mode in ("N", "T") if tag == "auto_8m" else ("N",):
+            v = dev_vec(op.shape[1], dev, SEED + 64)
+            LG.reset_launch_counts()
+            op.apply(v, mode)
+            per = {k_: c for k_, c in LG.launch_counts().items() if c}
+            t, tg = marginal_ms(lambda: op.apply(v, mode)), graph_ms(lambda: op.apply(v, mode))
+            print(f"[5 times] routed apply {tag} mode {mode}: {t * 1e3:.1f} us per eager call = "
+                  f"{nnz / t / 1e6:.2f} Gnnz/s, {tg * 1e3:.1f} us in a CUDA graph ({tg / t * 100:.0f}% of "
+                  f"eager) = {nnz / tg / 1e6:.2f} Gnnz/s; launches per apply "
+                  f"{per}; {card}", flush=True)
+    P, x = ops["perm"]
+    for mode in ("N", "T"):
+        idx = P.perm.long()
+        t, tg = marginal_ms(lambda: P.apply(x, mode)), graph_ms(lambda: P.apply(x, mode))
+        print(f"[5 times] opPermutation(2^20) mode {mode}: {t * 1e3:.1f} us per eager call, "
+              f"{tg * 1e3:.1f} us in a CUDA graph; plain x[perm] {marginal_ms(lambda: x[idx]) * 1e3:.1f} "
+              f"us eager, {graph_ms(lambda: x[idx]) * 1e3:.1f} us in a graph; {card}", flush=True)
+    return rows
+
+
+def library_ms(blocks, cols, xb, ub, K):
+    """(K1's, K2's) yardstick: ms of one cuSPARSE CSR matvec through
+    ``torch.mv`` on the same blocks held as a ``torch.sparse_csr_tensor``
+    (BSR needs square blocks there), and of the transposed matvec through
+    the same tensor's transpose; None where PyTorch refuses the call or
+    disagrees with the plain version. Timed only here; the port never calls
+    them."""
+    import warnings
+
+    nbrow, kmax, bm, bn = blocks.shape
+    dev = blocks.device
+    width = kmax * bn
+    crow = torch.arange(0, nbrow * bm * width + 1, width, device=dev, dtype=torch.int32)
+    col = (cols.long()[:, None, :, None] * bn + torch.arange(bn, device=dev)).expand(
+        nbrow, bm, kmax, bn).reshape(-1).int()
+    vals = blocks.permute(0, 2, 1, 3).reshape(-1)
+    out = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        A = torch.sparse_csr_tensor(crow, col, vals, size=(nbrow * bm, xb.numel()))
+        for name, op, v, plain in (
+                ("K1", A, xb.reshape(-1), lambda: K.bsr_matvec_plain(blocks, cols, xb)),
+                ("K2", A.t(), ub.reshape(-1),
+                 lambda: K.bsr_rmatvec_plain(blocks, cols, ub, xb.shape[0]))):
+            try:
+                e = rel_err(torch.mv(op, v), plain().reshape(-1))
+            except RuntimeError as err:
+                print(f"[5 times] {name}'s library call refused: {err}", flush=True)
+                out.append(None)
+                continue
+            if e > KERNEL_RTOL:
+                print(f"[5 times] {name}'s library call disagrees ({e:.2e}); no time", flush=True)
+                out.append(None)
+                continue
+            out.append(marginal_ms(lambda: torch.mv(op, v)))
+    return tuple(out)
 
 
 def main() -> int:
@@ -418,6 +979,7 @@ def main() -> int:
     import linops_tpu_torch as lt
     from linops_tpu_torch.kernels import bsr_spmv as K
     from linops_tpu_torch.kernels import build
+    from linops_tpu_torch.kernels import lane_gather as LG
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -434,12 +996,13 @@ def main() -> int:
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_all(["bsr_spmv", "bsr_window"])  # one nvcc per source, in parallel
-    K._lib(), K._win_lib()
+    sources = ("bsr_spmv", "bsr_window", "lane_gather")
+    build.build_all(sources)  # one nvcc per source, in parallel
+    K._lib(), K._win_lib(), LG._lib()
     print("[2 build] -> sm_90a: " + ", ".join(
         f"{n}.cu " + (f"{build.build_seconds[n]:.2f} s" if build.build_seconds[n]
                       else "already built from this source hash")
-        for n in ("bsr_spmv", "bsr_window"))
+        for n in sources)
         + f" (wall {time.perf_counter() - t0:.2f} s)", flush=True)
 
     # --- 3. kernels vs plain vs f64 -------------------------------------------
@@ -564,6 +1127,8 @@ def main() -> int:
 
     win_err = phase6(lt, K, dev)
     win_launches = phase7(lt, K, dev)
+    ops = phase9(lt, K, LG, dev)
+    lane_err, k8_launches, p3s = phase8(lt, LG, dev, ops)
 
     # --- 5. times ---------------------------------------------------------------
     times = {}
@@ -583,10 +1148,21 @@ def main() -> int:
                     blk, cl, ub, nbcol, perm=perm, colptr=colptr)),
                 "K2 plain": marginal_ms(lambda: K.bsr_rmatvec_plain(blk, cl, ub, nbcol)),
             }
+            if name == "8x128" and dtype == torch.float32:  # the main path's case
+                row["K1 bound"] = bound_ms(nbytes(blk, cl, xb) + N * 4, 2 * blk.numel())
+                row["K2 bound"] = bound_ms(nbytes(blk, cl, ub) + nbcol * bn * 4, 2 * blk.numel())
+                row["K1 library"], row["K2 library"] = library_ms(blk, cl, xb, ub, K)
             times[(name, dtype)] = row
             print(f"[5 times] {name} kmax={kmax} blocks {str(dtype)[6:]} ({gb * 1e3:.1f} MB stored): "
-                  + ", ".join(f"{k} {v * 1e3:.1f} us = {gb / (v / 1e3):.0f} GB/s" for k, v in row.items())
+                  + ", ".join(f"{k} {v * 1e3:.1f} us = {gb / (v / 1e3):.0f} GB/s"
+                              for k, v in row.items() if " " not in k or k.endswith("plain"))
                   + f"; {card}", flush=True)
+            if "K1 bound" in row:
+                libs = ", ".join(f"{k} {row[k + ' library'] * 1e3:.1f} us" if row[k + " library"]
+                                 else f"{k} none" for k in ("K1", "K2"))
+                print(f"[5 times] {name} f32 bounds: K1 {row['K1 bound'][0] * 1e3:.1f} us, K2 "
+                      f"{row['K2 bound'][0] * 1e3:.1f} us ({row['K1 bound'][1]}); cuSPARSE CSR "
+                      f"matvec of the same blocks through torch.mv: {libs}; {card}", flush=True)
             del blk, cl, xb, ub, perm, colptr
 
     def cg_iter_ms(op):
@@ -606,21 +1182,34 @@ def main() -> int:
           flush=True)
 
     win_times = phase5_windows(lt, K, dev, card)
+    lane_times = phase5_lanes(lt, LG, dev, ops, p3s, card)
 
     main_case = times[("8x128", torch.float32)]
+
+    def entry(name, source, replaces, launches_, err, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
+
     kernels = [
-        {"name": "bsr_matvec", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["bsr_matvec"], "max_abs_err": err_abs["bsr_matvec"],
-         "ms": main_case["K1"], "plain_ms": main_case["K1 plain"]},
-        {"name": "bsr_rmatvec", "route": "cuda", "source": K1_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["bsr_rmatvec"], "max_abs_err": err_abs["bsr_rmatvec"],
-         "ms": main_case["K2"], "plain_ms": main_case["K2 plain"]},
+        entry("bsr_matvec", K1_SOURCE, K1_REPLACES, launches["bsr_matvec"],
+              err_abs["bsr_matvec"], main_case["K1"], main_case["K1 plain"],
+              main_case["K1 bound"], main_case["K1 library"]),
+        entry("bsr_rmatvec", K1_SOURCE, K2_REPLACES, launches["bsr_rmatvec"],
+              err_abs["bsr_rmatvec"], main_case["K2"], main_case["K2 plain"],
+              main_case["K2 bound"], main_case["K2 library"]),
     ]
     for name, (replaces, shape) in WIN_KERNELS.items():
         t = win_times[shape]
-        kernels.append({"name": name, "route": "cuda", "source": WIN_SOURCE, "replaces": replaces,
-                        "launches": win_launches[name], "max_abs_err": win_err[name],
-                        "ms": t[name], "plain_ms": t[name + " plain"]})
+        kernels.append(entry(name, WIN_SOURCE, replaces, win_launches[name], win_err[name],
+                             t[name], t[name + " plain"], t[name + " bound"], None))
+    for name, replaces in LANE_KERNELS.items():
+        t = lane_times[name]
+        n_launch = k8_launches if name == "lane_gather_mul" else ops["launches"][name]
+        kernels.append({**entry(name, LG_SOURCE, replaces, n_launch, lane_err[name], t["ms"],
+                                t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"]),
+                        "timing": "cuda_graph", "event_ms": t["event_ms"],
+                        "profiler_ms": t["profiler_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,15 @@
-"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 and 2.
+"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 3.
 
 Matrix-free linear operators in PyTorch: a lazy operator graph (scale, sum,
-compose, adjoint wrappers over dense, function, identity, diagonal and
-sparse operators: COO, CSR, ELL and block-sparse rows, built by
-``opSparse``), compact L-BFGS operators and a preconditioned CG. The
+compose, adjoint wrappers over dense, function, identity, diagonal,
+permutation and sparse operators: COO, CSR, ELL, block-sparse rows and the
+Clos-routed CSR for unstructured patterns, built by ``opSparse``, with an
+RCM reordering), compact L-BFGS operators and a preconditioned CG. The
 block-sparse products run hand-written CUDA kernels for Hopper
-(``kernels/csrc/``: K1/K2, and the windowed K3-K6 for large x) on CUDA
-tensors and plain PyTorch on the CPU.
+(``kernels/csrc/``: K1/K2, the windowed K3-K6 for large x) and the routed
+ones the lane-gather kernels K7-K12, on CUDA tensors; CPU tensors take
+their plain PyTorch versions. Factories build on the CUDA device unless
+given ``device="cpu"``.
 
 Names follow ``linops_tpu`` so each module has an obvious counterpart; this
 package imports ``torch`` and numpy, never ``jax``. The rest of the
@@ -25,7 +28,9 @@ from .ops.eye import Eye, UniversalEye, opEye
 from .ops.diagonal import DiagonalOperator, opDiagonal
 from .sparse import (BSR, COO, CSR, ELL, bsr_from_dense, coo_from_dense, csr_from_dense,
                      csr_from_parts, ell_from_csr_parts, ell_from_dense, BSROperator,
-                     COOOperator, CSROperator, ELLOperator, opSparse)
+                     COOOperator, CSROperator, ELLOperator, RoutedCSROperator,
+                     ReorderedOperator, opSparse)
+from .ops.permutation import PermutationOperator, opPermutation
 from .qn import LBFGSState, LBFGSOperator, InverseLBFGSOperator
 from .utils.krylov import matvec_chain, cg
 
@@ -78,6 +83,10 @@ __all__ = [
     "COOOperator",
     "CSROperator",
     "ELLOperator",
+    "RoutedCSROperator",
+    "ReorderedOperator",
+    "PermutationOperator",
+    "opPermutation",
     "opSparse",
     "LBFGSState",
     "LBFGSOperator",

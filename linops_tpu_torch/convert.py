@@ -5,6 +5,9 @@ never imports jax. A bf16 array crosses as f32 (exact) and is narrowed back
 here: pass ``dtype=torch.bfloat16``, or hand over a numpy array whose dtype
 is named ``bfloat16`` (ml_dtypes, as ``np.asarray`` of a JAX bf16 array
 gives) and it is converted through f32 on the way.
+
+Every function builds on ``device``: the CUDA device by default,
+``device="cpu"`` for the CPU (see ``core.base.default_device``).
 """
 
 from __future__ import annotations
@@ -14,17 +17,20 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .core.base import default_device
 from .ops.diagonal import DiagonalOperator
 from .qn.lbfgs import LBFGSState
 from .sparse.formats import BSR
 from .sparse.ops import BSROperator
+from .sparse.routed import ReducePass, RoutedSpMV, RoutedTranspose
 
 __all__ = ["from_numpy", "to_numpy", "bsr_from_reference", "bsr_operator_from_reference",
-           "lbfgs_state_from_reference", "diagonal_from_reference"]
+           "lbfgs_state_from_reference", "diagonal_from_reference", "routed_from_reference"]
 
 
 def from_numpy(a, *, dtype=None, device=None) -> torch.Tensor:
     """A numpy array (or scalar) as a tensor, copied, on ``device``."""
+    device = default_device(device, "from_numpy")
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
@@ -35,7 +41,7 @@ def from_numpy(a, *, dtype=None, device=None) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a numpy array on the host; bf16 comes back as f32."""
-    t = t.detach().cpu()
+    t = t.detach().cpu().resolve_conj()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
@@ -44,6 +50,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def bsr_from_reference(blocks, block_cols, shape, *, dtype=None, device=None) -> BSR:
     """A reference ``BSR`` (its ``blocks``, ``block_cols`` and ``shape``) as
     this package's ``BSR``. Padding the reference added is kept."""
+    device = default_device(device, "bsr_from_reference")
     return BSR(blocks=from_numpy(blocks, dtype=dtype, device=device),
                block_cols=from_numpy(block_cols, dtype=torch.int32, device=device),
                shape=(int(shape[0]), int(shape[1])))
@@ -58,6 +65,7 @@ def bsr_operator_from_reference(blocks, block_cols, shape, *, win_q=None, cols_l
     ``win_valid_t`` (numpy arrays or None) and ``_wb``, ``_x_pad_blocks``,
     ``_x_pad_blocks_t``. The operator runs the plan it is given; it does
     not plan again."""
+    device = default_device(device, "bsr_operator_from_reference")
     return BSROperator(bsr_from_reference(blocks, block_cols, shape, dtype=dtype, device=device),
                        symmetric, hermitian, backend=backend, win_q=win_q,
                        cols_local=cols_local, win_q_t=win_q_t, win_valid_t=win_valid_t,
@@ -68,6 +76,7 @@ def lbfgs_state_from_reference(fields: Mapping[str, np.ndarray], *, device=None)
     """A reference ``LBFGSState`` as this package's: ``fields`` maps each of
     the 13 field names to a numpy array (``{f: np.asarray(getattr(st, f))
     for f in st._fields}``)."""
+    device = default_device(device, "lbfgs_state_from_reference")
     missing = set(LBFGSState._fields) - set(fields)
     if missing:
         raise ValueError(f"L-BFGS state fields missing: {sorted(missing)}")
@@ -79,3 +88,30 @@ def lbfgs_state_from_reference(fields: Mapping[str, np.ndarray], *, device=None)
 def diagonal_from_reference(d, *, dtype=None, device=None) -> DiagonalOperator:
     """A reference ``opDiagonal``'s vector ``d`` as a ``DiagonalOperator``."""
     return DiagonalOperator(from_numpy(d, dtype=dtype, device=device))
+
+
+_PROGRAMS = {cls.__name__: cls for cls in (RoutedSpMV, RoutedTranspose, ReducePass)}
+
+
+def _program_leaf(v, device):
+    """A reference program leaf in this package's form: arrays (numpy or,
+    for ``ReducePass`` stages, device arrays passed through numpy) become
+    tensors, program NamedTuples this package's, tuples recurse, the rest
+    (ints, None) is kept."""
+    if v is None or isinstance(v, (int, np.integer)):
+        return v
+    if isinstance(v, tuple):
+        items = [_program_leaf(x, device) for x in v]
+        if hasattr(v, "_fields"):
+            return _PROGRAMS[type(v).__name__](*items)
+        return tuple(items)
+    return from_numpy(np.asarray(v), device=device)
+
+
+def routed_from_reference(fwd_np, der_np=None, *, device=None):
+    """The reference's routing programs (``pack_routed_csr(...,
+    to_device=False)``: a ``RoutedSpMV`` and, optionally, its derived
+    ``RoutedTranspose``) as this package's, on ``device``. Returns
+    ``(fwd, der)``; ``der`` is None when ``der_np`` is."""
+    device = default_device(device, "routed_from_reference")
+    return _program_leaf(fwd_np, device), _program_leaf(der_np, device)

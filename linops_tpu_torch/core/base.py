@@ -41,6 +41,7 @@ __all__ = [
     "mode_transposed",
     "mode_conjugated",
     "MODES",
+    "default_device",
 ]
 
 
@@ -78,6 +79,18 @@ def _conj(x):
     return x.conj() if x.is_complex() else x
 
 
+def default_device(device=None, what: str = "this factory") -> torch.device:
+    """The device an operator factory builds on: ``device`` when given, else
+    the current CUDA device. Without a CUDA device the caller must ask for
+    the CPU with ``device="cpu"``: nothing falls back to it silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise LinearOperatorException(
+            f'{what}: no CUDA device is available; pass device="cpu" to build on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 # ----------------------------------------------------------------------------
 # Counters
 # ----------------------------------------------------------------------------
@@ -109,8 +122,9 @@ def _move(value, device):
         return value.to(device)
     if isinstance(value, LinearOperator):
         return value.to(device)
-    if isinstance(value, tuple) and hasattr(value, "_fields"):  # NamedTuple of tensors
-        return type(value)(*(_move(v, device) for v in value))
+    if isinstance(value, tuple):  # a NamedTuple or a plain tuple, recursively
+        items = (_move(v, device) for v in value)
+        return type(value)(*items) if hasattr(value, "_fields") else tuple(items)
     return value
 
 
@@ -303,6 +317,11 @@ class LinearOperator(abc.ABC):
         """Column-batched apply. Default: one vector apply per column."""
         return torch.stack([self.apply(M[:, j], mode) for j in range(M.shape[1])], dim=1)
 
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """Row-panel apply: ``Mt`` is (k, n), the result (k, m). Default: the
+        column-batched apply between two transposes."""
+        return self.apply_matrix(Mt.t(), mode).t()
+
     # ------------------------------------------------------------------
     # Counters
     # ------------------------------------------------------------------
@@ -399,13 +418,15 @@ class LinearOperator(abc.ABC):
     # ------------------------------------------------------------------
 
     def _wrap_operand(self, other):
-        """Auto-wrap bare matrices as operators."""
+        """Auto-wrap bare matrices as operators (host data lands on this
+        operator's device, or the default one)."""
         from .dense import MatrixOperator
 
         if isinstance(other, LinearOperator):
             return other
         if getattr(other, "ndim", None) == 2:
-            return MatrixOperator(other)
+            host = not isinstance(other, torch.Tensor)
+            return MatrixOperator(other, device=self.device if host else None)
         return None
 
     @staticmethod

@@ -9,7 +9,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .base import LinearOperator, LinearOperatorException
+from .base import LinearOperator, LinearOperatorException, default_device
 from .precision import pmatmul
 
 __all__ = ["MatrixOperator", "FunctionOperator", "make_operator", "aslinearoperator"]
@@ -22,9 +22,14 @@ class MatrixOperator(LinearOperator):
     _fields_tensors = ("A",)
     _fields_static = ("_symmetric", "_hermitian")
 
-    def __init__(self, A, *, symmetric: Optional[bool] = None, hermitian: Optional[bool] = None):
+    def __init__(self, A, *, symmetric: Optional[bool] = None, hermitian: Optional[bool] = None,
+                 device=None):
+        """A tensor A keeps its device unless ``device`` is given; host data
+        goes to ``device``, the CUDA device by default (``device="cpu"`` for
+        the CPU)."""
         super().__init__()
-        A = torch.as_tensor(A)
+        if device is not None or not isinstance(A, torch.Tensor):
+            A = torch.as_tensor(A, device=default_device(device, "LinearOperator"))
         if A.ndim != 2:
             raise LinearOperatorException("MatrixOperator requires a 2-D array")
         self.A = A

@@ -1,4 +1,4 @@
-// Helpers shared by the BSR kernel sources (bsr_spmv.cu, bsr_window.cu).
+// Helpers shared by the kernel sources (bsr_spmv.cu, bsr_window.cu, lane_gather.cu).
 //
 // - widen/narrow: f32 accumulation for f32 and bf16 values; bf16 is widened
 //   per element and the result narrowed once at the store.
@@ -11,7 +11,7 @@
 //   wrappers' exceptions.
 //
 // The build (kernels/build.py) hashes this header together with every source
-// that includes it, so an edit here rebuilds both libraries.
+// that includes it, so an edit here rebuilds every library.
 
 #pragma once
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException
+from ..core.base import LinearOperator, LinearOperatorException, default_device
 
 __all__ = ["DiagonalOperator", "opDiagonal"]
 
@@ -17,9 +17,13 @@ class DiagonalOperator(LinearOperator):
     _fields_tensors = ("d",)
     _fields_static = ("_nrow", "_ncol")
 
-    def __init__(self, d, nrow: int = None, ncol: int = None):
+    def __init__(self, d, nrow: int = None, ncol: int = None, *, device=None):
+        """A tensor d keeps its device unless ``device`` is given; host data
+        goes to ``device``, the CUDA device by default (``device="cpu"`` for
+        the CPU)."""
         super().__init__()
-        d = torch.as_tensor(d)
+        if device is not None or not isinstance(d, torch.Tensor):
+            d = torch.as_tensor(d, device=default_device(device, "opDiagonal"))
         if d.ndim != 1:
             raise LinearOperatorException("diagonal must be a vector")
         n = d.shape[0]
@@ -95,11 +99,12 @@ class DiagonalOperator(LinearOperator):
         return "Diagonal operator"
 
 
-def opDiagonal(*args):
-    """``opDiagonal(d)`` or ``opDiagonal(nrow, ncol, d)``."""
+def opDiagonal(*args, device=None):
+    """``opDiagonal(d)`` or ``opDiagonal(nrow, ncol, d)``; ``device`` as in
+    ``DiagonalOperator``."""
     if len(args) == 1:
-        return DiagonalOperator(args[0])
+        return DiagonalOperator(args[0], device=device)
     if len(args) == 3:
         nrow, ncol, d = args
-        return DiagonalOperator(d, nrow, ncol)
+        return DiagonalOperator(d, nrow, ncol, device=device)
     raise TypeError("opDiagonal(d) or opDiagonal(nrow, ncol, d)")

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException
+from ..core.base import LinearOperator, LinearOperatorException, default_device
 from ..core.precision import pdot, pmatmul
 
 __all__ = [
@@ -387,7 +387,8 @@ class LBFGSOperator(LinearOperator):
 
     ``LBFGSOperator(n, mem=5, scaling=True, damped=False, device=None)`` or
     ``LBFGSOperator(dtype, n, ...)``. Symmetric positive definite by
-    construction. Every ``push``/``reset`` swaps ``self.state`` for a new
+    construction. The state lives on ``device``: the CUDA device by default,
+    ``device="cpu"`` for the CPU. Every ``push``/``reset`` swaps ``self.state`` for a new
     state.
     """
 
@@ -423,6 +424,7 @@ class LBFGSOperator(LinearOperator):
         # lazy a-vectors (forward form only): pushes skip the O(mem²·n)
         # recompute; diag and the a/b form trigger it on demand
         self._lazy_ab = bool(lazy_ab) and not self._inverse
+        device = default_device(device, type(self).__name__)
         self.state = _init_state(self._n, self._mem, dt, self._inverse, device)
         object.__setattr__(self, "_ab_fresh", True)  # empty memory is fresh
 

@@ -1,8 +1,11 @@
 """Sparse storage formats: COO, CSR, ELL and BSR.
 
-Counterpart of ``linops_tpu/sparse/formats.py``. The builders run on the host
-(numpy) and return CPU tensors; move the operator built on them with
-``.to(device)``. Index arrays are int32, as on the reference's device.
+Counterpart of ``linops_tpu/sparse/formats.py``. The ``*_from_dense`` and
+``*_from_parts`` functions pack on the host (numpy) and return tensors on
+``device``: the CUDA device by default, ``device="cpu"`` for the CPU;
+without a card and without ``device`` they raise
+(``core/base.py::default_device``). Index arrays are int32, as on the
+reference's device.
 
 - COO/CSR carry an explicit per-entry ``rows`` vector (CSR keeps ``indptr``
   too), so a product is a gather plus an ``index_add_``.
@@ -17,6 +20,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ..core.base import default_device
 
 __all__ = [
     "COO",
@@ -93,28 +98,31 @@ class ELL(NamedTuple):
         return self.vals.numel()
 
 
-def _t(a, dtype=None) -> torch.Tensor:
-    """A numpy array as a CPU tensor (copied)."""
-    return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
+def _t(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (copied)."""
+    return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
 
 
 def _nonzero(A, tol: float):
     return np.nonzero(np.abs(A) > tol) if tol > 0 else np.nonzero(A)
 
 
-def coo_from_dense(A, tol: float = 0.0) -> COO:
+def coo_from_dense(A, tol: float = 0.0, *, device=None) -> COO:
+    dev = default_device(device, "coo_from_dense")
     A = np.asarray(A)
     rows, cols = _nonzero(A, tol)
-    return COO(vals=_t(A[rows, cols]), rows=_t(rows, np.int32), cols=_t(cols, np.int32),
-               shape=tuple(A.shape))
+    return COO(vals=_t(A[rows, cols], dev), rows=_t(rows, dev, np.int32),
+               cols=_t(cols, dev, np.int32), shape=tuple(A.shape))
 
 
-def csr_from_dense(A, tol: float = 0.0) -> CSR:
+def csr_from_dense(A, tol: float = 0.0, *, device=None) -> CSR:
+    dev = default_device(device, "csr_from_dense")
     A = np.asarray(A)
     rows, cols = _nonzero(A, tol)
     indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=A.shape[0]))])
-    return CSR(vals=_t(A[rows, cols]), cols=_t(cols, np.int32), indptr=_t(indptr, np.int32),
-               rows=_t(rows, np.int32), shape=tuple(A.shape))
+    return CSR(vals=_t(A[rows, cols], dev), cols=_t(cols, dev, np.int32),
+               indptr=_t(indptr, dev, np.int32), rows=_t(rows, dev, np.int32),
+               shape=tuple(A.shape))
 
 
 _I32_MAX = np.iinfo(np.int32).max
@@ -128,18 +136,22 @@ def check_int32_range(shape, nnz: int) -> None:
             "(2^31-1); int64 sparse indexing is not supported")
 
 
-def csr_from_parts(vals, cols, indptr, shape) -> CSR:
+def csr_from_parts(vals, cols, indptr, shape, *, device=None) -> CSR:
     """Build from standard CSR arrays (e.g. a scipy ``csr_matrix``'s parts)."""
+    dev = default_device(device, "csr_from_parts")
     indptr = np.asarray(indptr)
     check_int32_range(shape, len(np.asarray(vals)))
     rows = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
-    return CSR(vals=_t(vals), cols=_t(cols, np.int32), indptr=_t(indptr, np.int32),
-               rows=_t(rows, np.int32), shape=(int(shape[0]), int(shape[1])))
+    return CSR(vals=_t(vals, dev), cols=_t(cols, dev, np.int32),
+               indptr=_t(indptr, dev, np.int32), rows=_t(rows, dev, np.int32),
+               shape=(int(shape[0]), int(shape[1])))
 
 
-def bsr_from_dense(A, block_shape: Tuple[int, int] = (8, 128), tol: float = 0.0) -> BSR:
+def bsr_from_dense(A, block_shape: Tuple[int, int] = (8, 128), tol: float = 0.0, *,
+                   device=None) -> BSR:
     """Tile A (numpy) into (bm, bn) blocks, keep the nonzero ones, pad each
     block row to the largest block count."""
+    dev = default_device(device, "bsr_from_dense")
     A = np.asarray(A)
     nrow, ncol = A.shape
     bm, bn = block_shape
@@ -158,12 +170,13 @@ def bsr_from_dense(A, block_shape: Tuple[int, int] = (8, 128), tol: float = 0.0)
         js = np.nonzero(nz_mask[i])[0]
         blocks[i, : len(js)] = tiles[i, js]
         block_cols[i, : len(js)] = js
-    return BSR(blocks=torch.from_numpy(blocks), block_cols=torch.from_numpy(block_cols),
-               shape=(nrow, ncol))
+    return BSR(blocks=torch.from_numpy(blocks).to(dev),
+               block_cols=torch.from_numpy(block_cols).to(dev), shape=(nrow, ncol))
 
 
-def ell_from_csr_parts(vals, cols, indptr, shape) -> ELL:
+def ell_from_csr_parts(vals, cols, indptr, shape, *, device=None) -> ELL:
     """Pack CSR arrays into ELL (every row padded to the largest degree)."""
+    dev = default_device(device, "ell_from_csr_parts")
     vals = np.asarray(vals)
     indptr = np.asarray(indptr)
     check_int32_range(shape, len(vals))
@@ -176,12 +189,13 @@ def ell_from_csr_parts(vals, cols, indptr, shape) -> ELL:
     rows = np.repeat(np.arange(nrow), counts)
     out_v[rows, pos] = vals
     out_c[rows, pos] = np.asarray(cols)
-    return ELL(vals=torch.from_numpy(out_v), cols=torch.from_numpy(out_c),
+    return ELL(vals=torch.from_numpy(out_v).to(dev), cols=torch.from_numpy(out_c).to(dev),
                shape=(int(shape[0]), int(shape[1])))
 
 
-def ell_from_dense(A, tol: float = 0.0) -> ELL:
+def ell_from_dense(A, tol: float = 0.0, *, device=None) -> ELL:
+    dev = default_device(device, "ell_from_dense")
     A = np.asarray(A)
     rows, cols = _nonzero(A, tol)
     indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=A.shape[0]))])
-    return ell_from_csr_parts(A[rows, cols], cols, indptr, A.shape)
+    return ell_from_csr_parts(A[rows, cols], cols, indptr, A.shape, device=dev)

@@ -1,4 +1,5 @@
-"""Sparse linear operators over COO / CSR / ELL / BSR storage, and ``opSparse``.
+"""Sparse linear operators over COO / CSR / ELL / BSR storage, the
+Clos-routed CSR operator, and ``opSparse``.
 
 Counterpart of ``linops_tpu/sparse/ops.py``. Transpose and adjoint products
 reuse the same storage; no transposed copy is made.
@@ -7,19 +8,22 @@ reuse the same storage; no transposed copy is made.
   ``segment_sum``); ELL: gather plus a row sum forward, ``index_add_`` for
   the transpose. Plain PyTorch; no kernel.
 - BSR: the hand-written kernels K1-K6 on CUDA (see ``BSROperator``).
+- Routed CSR: the Clos-routed pipeline of ``sparse/routed.py`` over the
+  lane-gather kernels K7-K12 on CUDA (see ``RoutedCSROperator``).
 
-The Clos-routed CSR operator (``format="routed"``) and the RCM reorder come
-with slice 3 of the port; asking for them raises.
+``opSparse`` builds on the CUDA device unless asked for another with
+``device=`` (``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Tuple, Union
 
 import numpy as np
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException, _conj
+from ..core.base import LinearOperator, LinearOperatorException, _conj, _move, default_device
 from ..kernels import bsr_spmv as K
 from ..kernels.bsr_spmv import (
     bsr_column_index,
@@ -44,8 +48,9 @@ from .formats import (
     ell_from_dense,
 )
 
-__all__ = ["COOOperator", "CSROperator", "ELLOperator", "BSROperator", "opSparse",
-           "bsr_matvec", "bsr_rmatvec", "bsr_matmat"]
+__all__ = ["COOOperator", "CSROperator", "RoutedCSROperator", "ELLOperator", "BSROperator",
+           "opSparse", "bsr_matvec", "bsr_rmatvec", "bsr_matmat", "ROUTED_AUTO_WARN_NNZ",
+           "ROUTED_AUTO_MAX_NNZ"]
 
 
 def coo_matvec(vals, rows, cols, nrow: int, x):
@@ -170,6 +175,223 @@ class ELLOperator(_SparseBase):
         contrib = (vals[:, :, None] * M[:, None, :]).reshape(-1, M.shape[1])
         out = torch.zeros((d.shape[1], M.shape[1]), dtype=contrib.dtype, device=contrib.device)
         return out.index_add_(0, cols.reshape(-1), contrib)
+
+
+def _on_card(t) -> bool:  # patchable seam: the CPU tests reach the routed matrix branch
+    return t.is_cuda
+
+
+def _numpy_vals(vals: torch.Tensor) -> np.ndarray:
+    """A value tensor on the host as numpy; bf16 crosses as f32 (exact)."""
+    vals = vals.detach().cpu()
+    return (vals.float() if vals.dtype == torch.bfloat16 else vals).numpy()
+
+
+class RoutedCSROperator(CSROperator):
+    """CSR operator whose products run through the Clos-routed lane-gather
+    pipeline (``sparse/routed.py``) instead of gather + ``index_add_``: the
+    path for genuinely unstructured patterns.
+
+    Storage: the plain CSR (matrix right-hand sides off the card, dense
+    conversion and the ``backend="xla"`` path reuse it) plus the packed
+    forward routing program ``routed``. The transpose program is derived
+    from the forward pack at construction (``RoutedTranspose``: the inverse
+    network, no second router run), so ``op.T`` runs at full speed at once.
+
+    ``backend``: ``"auto"`` or ``"routed"`` take the routed pipeline (the
+    kernels on CUDA for f32/bf16 results, their plain versions otherwise);
+    ``"xla"`` (alias ``"torch"``) the inherited CSR gather path. When the
+    derived program is unavailable (ReducePass-fallback combines, extreme
+    column skew) or ``defer_transpose=True``, the first T/H ``bump`` packs
+    the transpose as a full CSC re-pack (``_ensure_transpose``).
+
+    ``host_parts`` = (vals, cols, indptr) as host arrays spares the pack a
+    copy back from the device; it is dropped after construction. The
+    program lands on the device of ``data``; ``pack_seconds`` holds the
+    host seconds spent packing (``"host"``) and uploading (``"upload"``).
+    """
+
+    _fields_tensors = ("data", "routed", "routed_t")
+    _fields_static = ("_symmetric", "_hermitian", "_backend", "_w", "_defer_t")
+
+    def __init__(self, data, symmetric=False, hermitian=False, routed=None, routed_t=None,
+                 w="auto", backend="auto", defer_transpose=False, host_parts=None):
+        super().__init__(data, symmetric, hermitian)
+        backend = {"torch": "xla"}.get(backend, backend)
+        if backend not in ("auto", "routed", "xla"):
+            raise ValueError(f"unknown routed backend {backend!r}")
+        self._backend = backend
+        self._w = w
+        self._defer_t = bool(defer_transpose)
+        self.routed = routed
+        self.routed_t = routed_t
+        self.pack_seconds = {"host": 0.0, "upload": 0.0}
+        self._host_parts = host_parts
+        try:
+            if routed is None and backend != "xla":
+                want_t = (routed_t is None and not defer_transpose
+                          and not (symmetric or hermitian))
+                packed = self._pack(transpose=False, with_transpose=want_t)
+                if want_t:
+                    self.routed, derived = packed
+                    if derived is not None:
+                        self.routed_t = derived
+                else:
+                    self.routed = packed
+        finally:
+            self._host_parts = None
+
+    def _host_csr(self):
+        """(vals, cols, indptr) on the host; vals in the numpy type that
+        carries the stored dtype (f32 for bf16)."""
+        want = _numpy_vals(torch.empty(0, dtype=self.data.vals.dtype)).dtype
+        hp = self._host_parts
+        if hp is not None:
+            v, c, i = hp
+            return np.asarray(v).astype(want, copy=False), np.asarray(c), np.asarray(i)
+        d = self.data
+        return _numpy_vals(d.vals), d.cols.cpu().numpy(), d.indptr.cpu().numpy()
+
+    def _upload(self, prog):
+        """A host program on the data's device, values in the stored dtype."""
+        from .routed import RoutedTranspose, upload_program
+
+        if prog is None:
+            return None
+        t0 = time.perf_counter()
+        prog = upload_program(prog, self.data.vals.device)
+        dt = self.data.vals.dtype
+        if isinstance(prog, RoutedTranspose):
+            prog = prog._replace(vals_pre=prog.vals_pre.to(dt))
+        else:
+            prog = prog._replace(vals=prog.vals.to(dt))
+        self.pack_seconds["upload"] += time.perf_counter() - t0
+        return prog
+
+    def _pack(self, transpose: bool, with_transpose: bool = False):
+        from .routed import pack_routed_csr
+
+        d = self.data
+        t0 = time.perf_counter()
+        vals, cols, indptr = self._host_csr()
+        if not transpose:
+            packed = pack_routed_csr(vals, cols, indptr, d.shape, w=self._w,
+                                     with_transpose=with_transpose, to_device=False)
+            self.pack_seconds["host"] += time.perf_counter() - t0
+            if with_transpose:
+                return self._upload(packed[0]), self._upload(packed[1])
+            return self._upload(packed)
+        # transpose pack: re-sort by (col, row), a stable CSC build
+        rows = np.asarray(cols, np.int64)
+        cols = np.repeat(np.arange(d.shape[0], dtype=np.int64), np.diff(indptr))
+        shp = (d.shape[1], d.shape[0])
+        order = np.argsort(rows, kind="stable")
+        indptr = np.zeros(shp[0] + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=shp[0]), out=indptr[1:])
+        packed = pack_routed_csr(vals[order], cols[order], indptr, shp, w=self._w,
+                                 to_device=False)
+        self.pack_seconds["host"] += time.perf_counter() - t0
+        return self._upload(packed)
+
+    def _use_routed(self) -> bool:
+        return self._backend != "xla"
+
+    def _ensure_transpose(self):
+        if self.routed_t is None and self._use_routed():
+            self.routed_t = self._pack(transpose=True)
+
+    def bump(self, mode: str, n: int = 1):
+        # the transpose program is packed on the host before the first T/H
+        # apply; mode "C" is served by the forward program (conj∘prod∘conj)
+        if mode in ("T", "H") and not (self._symmetric or self._hermitian):
+            self._ensure_transpose()
+        super().bump(mode, n)
+
+    def _prod(self, v):
+        if not self._use_routed() or self.routed is None:
+            return super()._prod(v)
+        from .routed import routed_matvec
+
+        return routed_matvec(self.routed, v)
+
+    def _tprod_routed(self, u, conj_vals: bool):
+        if self._use_routed() and not (self._symmetric or self._hermitian):
+            self._ensure_transpose()  # an apply that skipped bump
+        if not self._use_routed() or self.routed_t is None:
+            return super()._ctprod(u) if conj_vals else super()._tprod(u)
+        from .routed import RoutedTranspose, routed_matvec, routed_rmatvec
+
+        rt = self.routed_t
+        if isinstance(rt, RoutedTranspose):
+            if conj_vals and rt.vals_pre.is_complex():
+                rt = rt._replace(vals_pre=rt.vals_pre.conj_physical())
+            return routed_rmatvec(rt, u)
+        if conj_vals and rt.vals.is_complex():
+            rt = rt._replace(vals=rt.vals.conj_physical())
+        return routed_matvec(rt, u)
+
+    def _tprod(self, u):
+        return self._tprod_routed(u, conj_vals=False)
+
+    def _ctprod(self, w):
+        return self._tprod_routed(w, conj_vals=True)
+
+    def _matrix_prog(self, mode: str):
+        """(prog, conj_vals, conj_io) for a matrix apply in ``mode``;
+        symmetric/hermitian operators serve T/H with the forward program."""
+        return {
+            "N": (self.routed, False, False),
+            "C": (self.routed, False, True),
+            "T": ((self.routed, False, False) if self._symmetric
+                  else (self.routed_t, False, False)),
+            "H": ((self.routed, False, False) if self._hermitian
+                  else (self.routed_t, True, False)),
+        }[mode]
+
+    def matrix_path(self, mode: str = "N", panel: bool = False) -> str:
+        """Which implementation a matrix apply takes: ``"routed_panel"`` /
+        ``"routed"`` (the routed pipeline with ``rep=k`` kernels, on CUDA) or
+        ``"csr_fallback"`` (the CSR gather path, as the reference takes off
+        its accelerator)."""
+        if not (self._use_routed() and _on_card(self.data.vals)):
+            return "csr_fallback"
+        if self._matrix_prog(mode)[0] is None:
+            return "csr_fallback"
+        return "routed_panel" if panel else "routed"
+
+    def _routed_apply_matrix(self, M, mode: str, panel: bool):
+        """The routed matrix apply, or None where the CSR path serves it."""
+        if self.matrix_path(mode, panel) == "csr_fallback":
+            return None
+        from .routed import RoutedTranspose, routed_matmat, routed_rmatmat
+
+        prog, conj_vals, conj_io = self._matrix_prog(mode)
+        apply_fn = routed_matmat
+        if isinstance(prog, RoutedTranspose):
+            apply_fn = routed_rmatmat
+            if conj_vals and prog.vals_pre.is_complex():
+                prog = prog._replace(vals_pre=prog.vals_pre.conj_physical())
+        elif conj_vals and prog.vals.is_complex():
+            prog = prog._replace(vals=prog.vals.conj_physical())
+        X = _conj(M) if conj_io else M
+        Y = apply_fn(prog, X, panel=panel)
+        return _conj(Y) if conj_io else Y
+
+    def apply_matrix(self, M, mode: str = "N"):
+        self._check_mat(M, mode)
+        Y = self._routed_apply_matrix(M, mode, panel=False)
+        return Y if Y is not None else super().apply_matrix(M, mode)
+
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """Row-panel apply, (k, n) in, (k, m) out: the routed pipeline's own
+        layout on both ends."""
+        if Mt.ndim != 2 or Mt.shape[1] != self.in_dim(mode):
+            raise LinearOperatorException("shape mismatch")
+        Y = self._routed_apply_matrix(Mt, mode, panel=True)
+        return Y if Y is not None else super().apply_matrix(Mt.t(), mode).t()
+
+    def _name(self):
+        return "Routed CSR sparse operator"
 
 
 # reference backend names, so reference call sites port unchanged
@@ -456,7 +678,13 @@ class BSROperator(_SparseBase):
 
 # largest tile first: on equal stored bytes the bigger tile streams faster
 _BSR_AUTO_CANDIDATES = ((128, 128), (32, 128), (16, 128), (8, 128))
-_SLICE3 = "comes with slice 3 of the PyTorch port (the Clos-routed path)"
+
+# format="auto" picks the Clos-routed layout for unstructured patterns up to
+# ROUTED_AUTO_MAX_NNZ, announcing the host pack above ROUTED_AUTO_WARN_NNZ;
+# beyond the cap it falls to the CSR gather path with a warning. The
+# reference's thresholds, so both packages choose alike.
+ROUTED_AUTO_WARN_NNZ = 4_000_000
+ROUTED_AUTO_MAX_NNZ = 32_000_000
 
 
 def _itemsize(dtype, fallback) -> int:
@@ -517,34 +745,67 @@ def opSparse(
     dtype=None,
     w="auto",
     reorder=None,
+    device=None,
 ):
     """A sparse operator from a dense array, a scipy sparse matrix or a
     prebuilt COO/CSR/ELL/BSR. ``format`` in {'coo', 'csr', 'ell', 'bsr',
-    'auto'}; ``block_shape="auto"`` picks the BSR tile that stores the
-    fewest bytes; ``backend`` selects the BSR apply (see ``BSROperator``);
-    ``dtype`` (a torch dtype) the stored value type. A scipy matrix goes to
-    BSR through the native packer (no dense intermediate). The result lives
-    on the CPU: move it with ``.to(device)``.
+    'routed', 'auto'}; ``block_shape="auto"`` picks the BSR tile that stores
+    the fewest bytes; ``format="auto"`` sends block-structured patterns to
+    BSR and scattered ones to the Clos-routed pipeline ('routed', ``w`` the
+    row-slot width); ``backend`` selects the BSR apply (see
+    ``BSROperator``); ``dtype`` (a
+    torch dtype) the stored value type. A scipy matrix goes to BSR or to the
+    routed layout through the host packers (no dense intermediate).
+    ``reorder="rcm"`` (square matrices) builds ``Pᵀ·op(A[perm][:, perm])·P``
+    with a reverse-Cuthill-McKee permutation (``sparse/reorder.py``).
 
-    Not ported yet, and raising: ``format="routed"``, ``format="auto"``
-    where it would pick the routed layout, and ``reorder="rcm"`` (slice 3).
-    ``w`` (the routed slot width) is accepted for call-site parity."""
-    del w
+    The operator lands on ``device``: the CUDA device by default,
+    ``device="cpu"`` for the CPU; without a card and without ``device`` it
+    raises. A prebuilt format keeps its tensors' device unless ``device`` is
+    given."""
+    prebuilt = isinstance(A, (COO, CSR, ELL, BSR))
+    dev = None if prebuilt and device is None else default_device(device, "opSparse")
     if reorder is not None:
-        raise LinearOperatorException(f"opSparse(reorder={reorder!r}) {_SLICE3}")
-    if format == "routed":
-        raise LinearOperatorException(f"opSparse(format='routed') {_SLICE3}")
-    if isinstance(A, (COO, CSR, ELL, BSR)):
+        if reorder != "rcm":
+            raise ValueError(f"unknown reorder {reorder!r} (only 'rcm')")
+        from .reorder import rcm_reordered_operator
+
+        if not hasattr(A, "tocsr"):
+            import scipy.sparse as sps
+
+            if prebuilt:
+                raise LinearOperatorException(
+                    "reorder='rcm' takes a scipy sparse matrix or a dense array "
+                    "(the permutation is computed on the host)")
+            Ad = np.asarray(A)
+            if tol > 0:
+                Ad = np.where(np.abs(Ad) > tol, Ad, 0.0)
+            A = sps.csr_matrix(Ad)
+        return rcm_reordered_operator(A.tocsr(), dict(
+            format=format, block_shape=block_shape, symmetric=symmetric, hermitian=hermitian,
+            tol=tol, backend=backend, dtype=dtype, w=w), device=dev)
+    if prebuilt:
         if dtype is not None:
             A = (A._replace(blocks=A.blocks.to(dtype)) if isinstance(A, BSR)
                  else A._replace(vals=A.vals.to(dtype)))
+        if dev is not None:
+            A = _move(A, dev)
         if isinstance(A, COO):
             return COOOperator(A, symmetric, hermitian)
         if isinstance(A, CSR):
+            if format == "routed":
+                return RoutedCSROperator(A, symmetric, hermitian, w=w)
             return CSROperator(A, symmetric, hermitian)
         if isinstance(A, ELL):
             return ELLOperator(A, symmetric, hermitian)
         return BSROperator(A, symmetric, hermitian, backend=backend)
+
+    # the format functions below stage on the host (device="cpu"); on_dev casts to the
+    # asked dtype there and uploads once
+    def on_dev(data):
+        field = "blocks" if isinstance(data, BSR) else "vals"
+        data = data._replace(**{field: _to_dtype(getattr(data, field), dtype)})
+        return _move(data, dev)
 
     if format == "auto" and not hasattr(A, "tocsr"):
         import scipy.sparse as sps
@@ -561,28 +822,45 @@ def opSparse(
             itemsize = _itemsize(dtype, sp.data.dtype)
             if stored is not None and stored * itemsize < sp.nnz * (itemsize + 8):
                 format, block_shape = "bsr", shape_best
-            elif sp.nnz > 0:
-                raise LinearOperatorException(
-                    f"opSparse(format='auto') picks the routed layout for this unstructured "
-                    f"pattern, which {_SLICE3}; pass format='csr' or 'bsr'")
+            elif 0 < sp.nnz <= ROUTED_AUTO_MAX_NNZ:
+                format = "routed"
+                if sp.nnz > ROUTED_AUTO_WARN_NNZ:
+                    import warnings
+
+                    warnings.warn(
+                        f"opSparse(format='auto'): unstructured pattern with {sp.nnz} nnz "
+                        f"routes through the Clos pipeline, which first packs a routing "
+                        f"program on the host (a one-time cost that grows with nnz). Pass "
+                        f"format='csr' to skip packing, or reorder='rcm' if the pattern is "
+                        f"bandable.", stacklevel=2)
             else:
                 format = "csr"
-        if format == "csr":
-            data = csr_from_parts(sp.data, sp.indices, sp.indptr, sp.shape)
-            return CSROperator(data._replace(vals=_to_dtype(data.vals, dtype)),
-                               symmetric, hermitian)
+                if sp.nnz > ROUTED_AUTO_MAX_NNZ:
+                    import warnings
+
+                    warnings.warn(
+                        f"opSparse(format='auto'): {sp.nnz} nnz exceeds the auto-routing cap "
+                        f"({ROUTED_AUTO_MAX_NNZ}); using the gather + index_add CSR path. "
+                        f"Pass format='routed' to pack anyway, or reorder='rcm' if the "
+                        f"pattern is bandable.", stacklevel=2)
+        if format in ("csr", "routed"):
+            data = on_dev(csr_from_parts(sp.data, sp.indices, sp.indptr, sp.shape,
+                                         device="cpu"))
+            if format == "csr":
+                return CSROperator(data, symmetric, hermitian)
+            return RoutedCSROperator(data, symmetric, hermitian, w=w,
+                                     host_parts=(sp.data, sp.indices, sp.indptr))
         if format == "ell":
-            data = ell_from_csr_parts(sp.data, sp.indices, sp.indptr, sp.shape)
-            return ELLOperator(data._replace(vals=_to_dtype(data.vals, dtype)),
-                               symmetric, hermitian)
+            return ELLOperator(on_dev(ell_from_csr_parts(sp.data, sp.indices, sp.indptr,
+                                                         sp.shape, device="cpu")), symmetric, hermitian)
         if format == "coo":
             sc = sp.tocoo()
             check_int32_range(sc.shape, sc.nnz)
-            data = COO(vals=_to_dtype(torch.from_numpy(np.array(sc.data)), dtype),
+            data = COO(vals=torch.from_numpy(np.array(sc.data)),
                        rows=torch.from_numpy(sc.row.astype(np.int32)),
                        cols=torch.from_numpy(sc.col.astype(np.int32)),
                        shape=(int(sc.shape[0]), int(sc.shape[1])))
-            return COOOperator(data, symmetric, hermitian)
+            return COOOperator(on_dev(data), symmetric, hermitian)
         if format == "bsr":
             from .. import native
 
@@ -590,28 +868,27 @@ def opSparse(
             if native.available() and sp.data.dtype in (np.float32, np.float64):
                 if block_shape == "auto":
                     block_shape = _auto_block_shape(sp, dtype=dtype)
-                return BSROperator(_bsr_from_scipy(sp, tuple(block_shape), dtype),
+                return BSROperator(on_dev(_bsr_from_scipy(sp, tuple(block_shape), dtype)),
                                    symmetric, hermitian, backend=backend)
         A = sp.toarray()
 
     A = np.asarray(A)
     if format == "coo":
-        data = coo_from_dense(A, tol)
-        return COOOperator(data._replace(vals=_to_dtype(data.vals, dtype)), symmetric, hermitian)
+        return COOOperator(on_dev(coo_from_dense(A, tol, device="cpu")), symmetric, hermitian)
     if format == "csr":
-        data = csr_from_dense(A, tol)
-        return CSROperator(data._replace(vals=_to_dtype(data.vals, dtype)), symmetric, hermitian)
+        return CSROperator(on_dev(csr_from_dense(A, tol, device="cpu")), symmetric, hermitian)
+    if format == "routed":
+        return RoutedCSROperator(on_dev(csr_from_dense(A, tol, device="cpu")), symmetric,
+                                 hermitian, w=w)
     if format == "ell":
-        data = ell_from_dense(A, tol)
-        return ELLOperator(data._replace(vals=_to_dtype(data.vals, dtype)), symmetric, hermitian)
+        return ELLOperator(on_dev(ell_from_dense(A, tol, device="cpu")), symmetric, hermitian)
     if format == "bsr":
         if block_shape == "auto":
             import scipy.sparse as sps
 
             return opSparse(sps.csr_matrix(A), format="bsr", block_shape="auto",
                             symmetric=symmetric, hermitian=hermitian, backend=backend,
-                            dtype=dtype)
-        data = bsr_from_dense(A, block_shape, tol)
-        return BSROperator(data._replace(blocks=_to_dtype(data.blocks, dtype)), symmetric,
+                            dtype=dtype, device=dev)
+        return BSROperator(on_dev(bsr_from_dense(A, block_shape, tol, device="cpu")), symmetric,
                            hermitian, backend=backend)
     raise ValueError(f"unknown sparse format {format!r}")

@@ -44,7 +44,7 @@ def sprand(rng, m, n, density=0.15, complex_=False):
 
 def both_ops(A, block_shape, **kw):
     op_j = lo.BSROperator(jax_bsr_from_dense(A, block_shape), backend="xla")
-    op_t = lt.BSROperator(lt.bsr_from_dense(A, block_shape), **kw)
+    op_t = lt.BSROperator(lt.bsr_from_dense(A, block_shape, device="cpu"), **kw)
     return op_j, op_t
 
 
@@ -88,7 +88,7 @@ def test_plain_kernels_vs_pallas_interpret_f32(rng, block, variant):
     bm, bn = block
     xb = rng.standard_normal((n // bn, bn)).astype(np.float32)
     ub = rng.standard_normal((blocks.shape[0], bm)).astype(np.float32)
-    bt, ct = from_numpy(blocks), from_numpy(cols)
+    bt, ct = from_numpy(blocks, device="cpu"), from_numpy(cols, device="cpu")
 
     yj = bsr_matvec_pallas(blocks, cols, jnp.asarray(xb), interpret=True, variant=variant)
     yt = K.bsr_matvec_kernel(bt, ct, torch.from_numpy(xb))  # CPU tensors: the plain K1
@@ -109,8 +109,8 @@ def test_plain_kernels_vs_pallas_interpret_bf16_blocks(rng, vec_dtype):
     xb = rng.standard_normal((n // 128, 128)).astype(np.float32)
     ub = rng.standard_normal((blocks.shape[0], 8)).astype(np.float32)
     jdt, tdt = jnp.dtype(vec_dtype), getattr(torch, vec_dtype)
-    bt = from_numpy(blocks.astype(jnp.float32), dtype=torch.bfloat16)
-    ct = from_numpy(cols)
+    bt = from_numpy(blocks.astype(jnp.float32), dtype=torch.bfloat16, device="cpu")
+    ct = from_numpy(cols, device="cpu")
 
     yj = bsr_matvec_pallas(blocks, cols, jnp.asarray(xb).astype(jdt), interpret=True,
                            variant="onehot_fast")  # what the reference runs for bf16
@@ -133,7 +133,7 @@ def test_reference_padded_data_f64(rng):
     d = op_j.data
     assert d.blocks.shape[0] * 8 > n  # the reference did pad
     op_t = lt.BSROperator(bsr_from_reference(np.asarray(d.blocks), np.asarray(d.block_cols),
-                                             d.shape))
+                                             d.shape, device="cpu"))
     for mode in ("N", "T"):
         v = rng.standard_normal(op_t.in_dim(mode))
         yj = lo.BSROperator(d, backend="xla").matvec(jnp.asarray(v), mode=mode)
@@ -142,7 +142,7 @@ def test_reference_padded_data_f64(rng):
 
 def test_backend_names_and_dispatch(rng):
     A = sprand(rng, 32, 32).astype(np.float32)
-    data = lt.bsr_from_dense(A, (8, 16))
+    data = lt.bsr_from_dense(A, (8, 16), device="cpu")
     for name, canon in (("auto", "auto"), ("pallas", "kernel"), ("pallas_fast", "kernel"),
                         ("kernel", "kernel"), ("xla", "torch"), ("torch", "torch")):
         assert lt.BSROperator(data, backend=name)._backend == canon
@@ -171,7 +171,7 @@ def test_kernel_dtype_rule():
 
 
 def test_bad_block_cols_rejected(rng):
-    data = lt.bsr_from_dense(sprand(rng, 16, 32), (8, 16))
+    data = lt.bsr_from_dense(sprand(rng, 16, 32), (8, 16), device="cpu")
     bad = data._replace(block_cols=data.block_cols + 5)
     with pytest.raises(lt.LinearOperatorException, match="must lie in"):
         lt.BSROperator(bad)
@@ -204,7 +204,7 @@ def test_column_index_orders_slots_by_column(rng):
 
 
 def test_operator_to_device_keeps_index(rng):
-    op = lt.BSROperator(lt.bsr_from_dense(sprand(rng, 24, 40), (8, 16)))
+    op = lt.BSROperator(lt.bsr_from_dense(sprand(rng, 24, 40), (8, 16), device="cpu"))
     moved = op.to("cpu")
     assert moved.col_perm is not None and moved.device == torch.device("cpu")
     v = torch.from_numpy(rng.standard_normal(24))

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 and the port's dispatch, on a CUDA card.
+"""The CUDA kernels K1-K12 and the port's dispatch, on a CUDA card.
 
 Every test here is marked ``gpu`` and skips without a card. They import no
 jax, so they also run where jax is not installed:
@@ -8,7 +8,11 @@ jax, so they also run where jax is not installed:
 Kernel against plain version, same inputs on the card: max|Δ| ≤ 1e-5·max|y|
 for f32 results (both accumulate in f32, in different orders), 1e-2 for
 bf16 results (bf16 rounding of the output, 2^-8). The transposes (K2, K4,
-K6) must be bit-identical on a rerun.
+K6) must be bit-identical on a rerun. The lane kernels K7-K12: gathers and
+products exact; lane-group sums (K10) within 1e-6·max|y| (f32) or 2^-7
+(bf16); segment sums (K11, K12) within 8·eps_f32·Σ|window| per element, plus,
+in bf16, one ulp of the result (2^-7·|y|: two f32 sums that differ slightly
+can round to neighbouring bf16 values); K11/K12 bit-identical on a rerun.
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 import linops_tpu_torch as lt
 from linops_tpu_torch.kernels import bsr_spmv as K
+from linops_tpu_torch.kernels import lane_gather as LG
 
 pytestmark = pytest.mark.gpu
 
@@ -77,7 +82,7 @@ def test_operator_dispatch_on_cuda(dev):
     rng = np.random.default_rng(0)
     n = 300
     A = (rng.standard_normal((n, n + 20)) * (rng.random((n, n + 20)) < 0.1)).astype(np.float32)
-    op = lt.BSROperator(lt.bsr_from_dense(A, (8, 64))).to(dev)
+    op = lt.BSROperator(lt.bsr_from_dense(A, (8, 64)))  # on the card by default
     assert op.col_perm.is_cuda
     A64 = torch.from_numpy(A).double().to(dev)
     v = torch.randn(n + 20, device=dev)
@@ -257,3 +262,189 @@ def test_window_backend_kernel_raises_off_cuda(monkeypatch):
         op * torch.ones(nbcol * 128)
     with pytest.raises(lt.LinearOperatorException, match="backend='kernel' needs"):
         op.T * torch.ones(512)
+
+
+# ----------------------------------------------------------------------------
+# K7-K12: the lane-gather kernels of the routed path
+# ----------------------------------------------------------------------------
+
+LANE_R0 = [128, 37, 300]  # a TPU tile multiple, and two ragged row counts
+
+
+def lane_case(dev, r0, rep, dtype, seed=0):
+    """(a, idx, vals, lo, hi) on the card: data (rep·r0, 128) in ``dtype``,
+    shared int8 lane indices and values (r0, 128), and per-window segment
+    boundaries of random contiguous runs (−1 = empty), as the pack makes them."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((rep * r0, 128)).astype(np.float32)).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(0, 128, (r0, 128)).astype(np.int8)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((r0, 128)).astype(np.float32)).to(dev, dtype)
+    lo = np.full((r0, 128), -1, np.int8)
+    hi = np.full((r0, 128), -1, np.int8)
+    for i in range(r0):
+        cuts = np.sort(rng.choice(np.arange(1, 128), 20, replace=False))
+        starts, ends = np.r_[0, cuts], np.r_[cuts, 128] - 1
+        keep = rng.random(starts.shape[0]) < 0.8  # some output lanes get no run
+        outs = np.sort(rng.choice(128, keep.sum(), replace=False))
+        hi[i, outs] = ends[keep]
+        lo[i, outs] = starts[keep] - 1
+    return (a, idx, vals, torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev))
+
+
+def segsum_bound(z, lo, rep, dtype, ref):
+    """Elementwise limit for K11/K12 against the plain version: the prefix
+    difference errs by about eps·Σ|window| (lane_gather.py:197-202 of the
+    reference), plus one ulp of a bf16 result."""
+    r0 = lo.shape[0]
+    win = z.double().abs().reshape(rep, r0, 128).sum(2, keepdim=True).expand(rep, r0, 128)
+    bound = 8 * torch.finfo(torch.float32).eps * win.reshape(rep * r0, 128)
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * ref.double().abs()
+    return bound
+
+
+@pytest.mark.parametrize("r0", LANE_R0)
+@pytest.mark.parametrize("rep", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_kernels_match_plain(dev, r0, rep, dtype):
+    a, idx, vals, lo, hi = lane_case(dev, r0, rep, dtype)
+    # gathers and products: exact (one rounding of an f32 product, both sides)
+    out = LG.lane_gather(a, idx, rep=rep)
+    assert out.dtype == dtype and torch.equal(out, LG.lane_gather_plain(a, idx, rep))
+    out = LG.lane_gather_mul(a, idx, vals, rep=rep)
+    assert torch.equal(out, LG.lane_gather_mul_plain(a, idx, vals, rep))
+    out = LG.lane_gather_mul_t_batched(a, idx, vals, 1, r0, rep=rep)
+    assert tuple(out.shape) == (rep * 128, r0)
+    assert torch.equal(out, LG.lane_gather_mul_t_batched_plain(a, idx, vals, 1, r0, rep))
+    # sums: f32 accumulation in another order
+    for w in (1, 2, 4, 8, 32, 128):
+        out = LG.lane_gather_sum(a, idx, w, rep=rep)
+        ref = LG.lane_gather_sum_plain(a, idx, w, rep)
+        assert tuple(out.shape) == (rep * r0, 128 // w)
+        tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+        assert rel_err(out, ref) <= tol, w
+    out = LG.lane_segsum(a, lo, hi, rep=rep)
+    ref = LG.lane_segsum_plain(a, lo, hi, rep)
+    assert ((out.double() - ref.double()).abs() <= segsum_bound(a, lo, rep, dtype, ref)).all()
+    assert torch.equal(out, LG.lane_segsum(a, lo, hi, rep=rep))  # deterministic
+    out = LG.lane_gather_mul_segsum(a, idx, vals, lo, hi, rep=rep)
+    ref = LG.lane_gather_mul_segsum_plain(a, idx, vals, lo, hi, rep)
+    z = LG.lane_gather_mul_plain(a.float(), idx, vals.float(), rep)
+    assert ((out.double() - ref.double()).abs() <= segsum_bound(z, lo, rep, dtype, ref)).all()
+    assert torch.equal(out, LG.lane_gather_mul_segsum(a, idx, vals, lo, hi, rep=rep))
+
+
+def test_lane_kernels_chunked_transpose_and_launch_counts(dev):
+    C, m, rep = 3, 256, 2
+    a, idx, vals, _, _ = lane_case(dev, C * m, rep, torch.float32, seed=1)
+    LG.reset_launch_counts()
+    out = LG.lane_gather_mul_t_batched(a, idx, vals, C, m, rep=rep)
+    assert torch.equal(out, LG.lane_gather_mul_t_batched_plain(a, idx, vals, C, m, rep))
+    assert LG.launch_counts() == {**dict.fromkeys(LG.launch_counts(), 0),
+                                  "lane_gather_mul_t_batched": 1}
+
+
+@pytest.mark.parametrize("data_dt,vals_dt", [(torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+def test_lane_kernels_take_values_in_their_own_dtype(dev, data_dt, vals_dt):
+    """K8/K9/K12 read bf16 values beside f32 data (and the reverse) and write
+    f32; a shared operand is never converted or copied: misaligned, it raises."""
+    r0, rep = 300, 2
+    a, idx, vals, lo, hi = lane_case(dev, r0, rep, torch.float32, seed=2)
+    a, vals = a.to(data_dt), vals.to(vals_dt)
+    out = LG.lane_gather_mul(a, idx, vals, rep=rep)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, LG.lane_gather_mul_plain(a, idx, vals, rep))
+    out = LG.lane_gather_mul_t_batched(a, idx, vals, 1, r0, rep=rep)
+    assert torch.equal(out, LG.lane_gather_mul_t_batched_plain(a, idx, vals, 1, r0, rep))
+    out = LG.lane_gather_mul_segsum(a, idx, vals, lo, hi, rep=rep)
+    ref = LG.lane_gather_mul_segsum_plain(a, idx, vals, lo, hi, rep)
+    z = LG.lane_gather_mul_plain(a, idx, vals, rep)
+    assert out.dtype == torch.float32
+    assert ((out.double() - ref.double()).abs()
+            <= segsum_bound(z, lo, rep, torch.float32, ref)).all()
+    r = r0 - 1
+    shifted = vals.reshape(-1)[1:1 + r * 128].view(r, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        LG.lane_gather_mul(a[:r].contiguous(), idx[:r].contiguous(), shifted)
+
+
+def test_routed_bf16_program_on_f32_data(dev):
+    """A bf16 routed operator applied to f32 vectors runs the kernels in f32
+    and agrees with the plain pipeline."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.sparse.routed import routed_matvec, routed_rmatvec
+
+    A = sps.random(6000, 5000, density=0.004, format="csr", random_state=5, dtype=np.float32)
+    op = lt.opSparse(A, format="routed", dtype=torch.bfloat16, device=dev)
+    assert op.routed.vals.dtype == torch.bfloat16
+    v = torch.randn(5000, device=dev)
+    u = torch.randn(6000, device=dev)
+    LG.reset_launch_counts()
+    y, o = routed_matvec(op.routed, v), routed_rmatvec(op.routed_t, u)
+    assert y.dtype == o.dtype == torch.float32 and sum(LG.launch_counts().values()) > 0
+    assert rel_err(y, routed_matvec(op.routed, v, use_kernel=False)) <= 1e-5
+    assert rel_err(o, routed_rmatvec(op.routed_t, u, use_kernel=False)) <= 1e-5
+
+
+def test_lane_wrappers_reject_what_the_kernels_do_not_take(dev):
+    a, idx, vals, lo, hi = lane_case(dev, 64, 1, torch.float32)
+    with pytest.raises(TypeError, match="f32/bf16"):
+        LG.lane_gather(a.double(), idx)
+    with pytest.raises(TypeError, match="int8"):
+        LG.lane_gather(a, idx.long())
+    with pytest.raises(ValueError, match="rows"):
+        LG.lane_gather(a[:, :64].contiguous(), idx[:, :64].contiguous())
+    with pytest.raises(ValueError, match="rep="):
+        LG.lane_gather(a, idx, rep=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        LG.lane_segsum(a.t().contiguous().t(), lo, hi)
+    with pytest.raises(ValueError, match="is on"):
+        LG.lane_gather_mul(a, idx, vals.cpu())
+    with pytest.raises(ValueError, match="power of two"):
+        LG.lane_gather_sum(a, idx, 3)
+
+
+def test_routed_dispatch_on_cuda(dev):
+    """opSparse(format="routed") on the card: forward through K8/K9 and the
+    crossbars, the derived transpose through K12, plain pipeline agrees."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.sparse.routed import routed_matvec, routed_rmatvec
+
+    A = sps.random(5000, 4000, density=0.005, format="csr", random_state=3, dtype=np.float32)
+    op = lt.opSparse(A, format="routed", device=dev)
+    assert op.routed.vals.is_cuda and op.routed.vals.shape[1] > 128  # 5-stage
+    v = torch.randn(4000, device=dev)
+    u = torch.randn(5000, device=dev)
+    LG.reset_launch_counts()
+    y, o = op * v, op.T * u
+    counts = LG.launch_counts()
+    for name in ("lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum",
+                 "lane_gather_mul_segsum"):
+        assert counts[name] > 0, counts
+    A64 = torch.from_numpy(A.toarray()).double().to(dev)
+    assert rel_err(y, A64 @ v.double()) <= 1e-5
+    assert rel_err(o, A64.T @ u.double()) <= 1e-5
+    LG.reset_launch_counts()
+    y_plain = routed_matvec(op.routed, v, use_kernel=False)
+    o_plain = routed_rmatvec(op.routed_t, u, use_kernel=False)
+    assert sum(LG.launch_counts().values()) == 0
+    assert rel_err(y, y_plain) <= 1e-5 and rel_err(o, o_plain) <= 1e-5
+
+
+def test_permutation_on_cuda(dev):
+    rng = np.random.default_rng(4)
+    n = 70000  # 5-stage (padded to 131072 slots)
+    perm = rng.permutation(n)
+    P = lt.opPermutation(perm, device=dev)
+    x = torch.randn(n, device=dev)
+    LG.reset_launch_counts()
+    pt = torch.from_numpy(perm).to(dev)
+    assert torch.equal(P * x, x[pt])
+    inv = torch.empty_like(pt)
+    inv[pt] = torch.arange(n, device=dev)
+    assert torch.equal(P.T * x, x[inv])
+    counts = LG.launch_counts()
+    assert counts["lane_gather"] > 0 and counts["lane_gather_sum"] == 2

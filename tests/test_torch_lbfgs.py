@@ -58,7 +58,7 @@ def test_plain_push_states_and_applies(rng, inverse, scaling, lazy_ab):
     pj = jq.InverseLBFGSOperator if inverse else jq.LBFGSOperator
     pt = tq.InverseLBFGSOperator if inverse else tq.LBFGSOperator
     op_j = pj(n, mem=mem, scaling=scaling, lazy_ab=lazy_ab)
-    op_t = pt(n, mem=mem, scaling=scaling, lazy_ab=lazy_ab)
+    op_t = pt(n, mem=mem, scaling=scaling, lazy_ab=lazy_ab, device="cpu")
     v = rng.standard_normal(n)
     for i, (s, y) in enumerate(pairs(rng, n, mem + 3, bad_at=(2,))):
         op_j.push(jnp.asarray(s), jnp.asarray(y))
@@ -89,7 +89,7 @@ def test_compact_applies_equal_reference_forms(rng):
     for s, y in pairs(rng, n, mem + 2):
         op_j.push(jnp.asarray(s), jnp.asarray(y))
     st_t = lbfgs_state_from_reference({f: np.asarray(getattr(op_j.state, f))
-                                       for f in jq.LBFGSState._fields})
+                                       for f in jq.LBFGSState._fields}, device="cpu")
     v = rng.standard_normal(n)
     M = rng.standard_normal((n, 3))
     for fj, ft in ((jq.forward_apply_compact, tq.forward_apply_compact),
@@ -97,7 +97,7 @@ def test_compact_applies_equal_reference_forms(rng):
         assert_rel(ft(st_t, torch.from_numpy(v)), fj(op_j.state, jnp.asarray(v)))
         assert_rel(ft(st_t, torch.from_numpy(M)), fj(op_j.state, jnp.asarray(M)))
     # the carried state drives the port's operator; its G serves both forms
-    op_t = tq.InverseLBFGSOperator(n, mem=mem)
+    op_t = tq.InverseLBFGSOperator(n, mem=mem, device="cpu")
     op_t.state = st_t
     assert_rel(op_t * torch.from_numpy(v), jq.inverse_apply(op_j.state, jnp.asarray(v)))
     assert_rel(op_t.matmat(torch.from_numpy(M)),
@@ -110,7 +110,7 @@ def test_damped_push(rng, inverse):
     cls_j = jq.InverseLBFGSOperator if inverse else jq.LBFGSOperator
     cls_t = tq.InverseLBFGSOperator if inverse else tq.LBFGSOperator
     op_j = cls_j(n, mem=mem, damped=True, lazy_ab=False)
-    op_t = cls_t(n, mem=mem, damped=True, lazy_ab=False)
+    op_t = cls_t(n, mem=mem, damped=True, lazy_ab=False, device="cpu")
     for s, y in pairs(rng, n, mem + 2, bad_at=(1,)):
         if inverse:
             alpha, g = 0.7, rng.standard_normal(n)
@@ -124,7 +124,7 @@ def test_damped_push(rng, inverse):
 
 def test_lazy_ab_invalidation_and_reset(rng):
     n, mem = 16, 3
-    op = tq.LBFGSOperator(n, mem=mem)
+    op = tq.LBFGSOperator(n, mem=mem, device="cpu")
     assert op._ab_fresh
     for s, y in pairs(rng, n, 2):
         op.push(torch.from_numpy(s), torch.from_numpy(y))
@@ -140,13 +140,13 @@ def test_lazy_ab_invalidation_and_reset(rng):
 
 def test_errors():
     with pytest.raises(lt.LinearOperatorException, match="complex"):
-        tq.LBFGSOperator(torch.complex128, 4)
+        tq.LBFGSOperator(torch.complex128, 4, device="cpu")
     with pytest.raises(ValueError, match="alpha, g"):
-        tq.InverseLBFGSOperator(4, damped=True).push(torch.ones(4), torch.ones(4))
+        tq.InverseLBFGSOperator(4, damped=True, device="cpu").push(torch.ones(4), torch.ones(4))
     with pytest.raises(ValueError, match="requires a damped"):
-        tq.LBFGSOperator(4).push(torch.ones(4), torch.ones(4), torch.ones(4))
+        tq.LBFGSOperator(4, device="cpu").push(torch.ones(4), torch.ones(4), torch.ones(4))
     with pytest.raises(lt.LinearOperatorException, match="only the diagonal"):
-        tq.InverseLBFGSOperator(4).diag()
-    op = tq.InverseLBFGSOperator(torch.float32, 6, mem=2)
+        tq.InverseLBFGSOperator(4, device="cpu").diag()
+    op = tq.InverseLBFGSOperator(torch.float32, 6, mem=2, device="cpu")
     assert op.dtype == torch.float32 and op.state.S.dtype == torch.float32
     assert op.state.insert.dtype == torch.int32

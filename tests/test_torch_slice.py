@@ -6,7 +6,12 @@
   iterates drift apart by rounding only);
 - the step of ``__graft_entry__.entry()`` in f32, within 1e-5·max|x|
   (f32 rounding of sums over n = 8192 in different orders);
-- ``import linops_tpu_torch`` leaves jax out of ``sys.modules``.
+- slice 3's path: CG on an unstructured SPD matrix A = R + Rᵀ + D through
+  ``opSparse(format="auto", symmetric=True)`` (the Clos-routed operator),
+  in f64: the same iteration count (±1) and x within 1e-9·max|x|; the
+  operator's N and T applies within 1e-10 of the reference's;
+- ``import linops_tpu_torch`` (and each slice-3 module) leaves jax and the
+  JAX package out of ``sys.modules``.
 """
 
 import os
@@ -46,13 +51,13 @@ def test_main_path_graph_cg_lbfgs_f64(rng):
     Dj = lo.opDiagonal(jnp.asarray(d))
     Aj = _graph(lo, Dj, bsr_j, sigma, jnp.float64)
     # the port's diagonal and blocks are carried across from the reference's
-    At = _graph(lt, diagonal_from_reference(np.asarray(Dj.d)),
+    At = _graph(lt, diagonal_from_reference(np.asarray(Dj.d), device="cpu"),
                 bsr_from_reference(np.asarray(bsr_j.blocks), np.asarray(bsr_j.block_cols),
-                                   bsr_j.shape), sigma, torch.float64)
+                                   bsr_j.shape, device="cpu"), sigma, torch.float64)
     dense = np.diag(d) @ A.T @ A @ np.diag(d) + sigma * np.eye(n)
 
     Hj = lo.InverseLBFGSOperator(n, mem=mem)
-    Ht = lt.InverseLBFGSOperator(n, mem=mem)
+    Ht = lt.InverseLBFGSOperator(n, mem=mem, device="cpu")
     for _ in range(mem):
         s = rng.standard_normal(n)
         Hj.push(jnp.asarray(s), Aj * jnp.asarray(s))
@@ -99,9 +104,9 @@ def test_entry_step_matches_graft_entry():
     n = 8192
     f32 = torch.float32
     rng = np.random.default_rng(0)  # entry()'s pair stream
-    d1 = from_numpy(jnp.linspace(1.0, 2.0, n, dtype=jnp.float32))
-    d2 = from_numpy(jnp.linspace(0.5, 1.5, n, dtype=jnp.float32))
-    H = lt.InverseLBFGSOperator(f32, n, mem=8)
+    d1 = from_numpy(jnp.linspace(1.0, 2.0, n, dtype=jnp.float32), device="cpu")
+    d2 = from_numpy(jnp.linspace(0.5, 1.5, n, dtype=jnp.float32), device="cpu")
+    H = lt.InverseLBFGSOperator(f32, n, mem=8, device="cpu")
     for _ in range(8):
         s = rng.standard_normal(n).astype(np.float32)
         y = (s + 0.1 * rng.standard_normal(n)).astype(np.float32)
@@ -116,9 +121,48 @@ def test_entry_step_matches_graft_entry():
     assert rel_err(got, ref.astype(np.float64)) <= 1e-5
 
 
+def spd_unstructured(n, per_row, seed):
+    """A = R + Rᵀ + D: R with Poisson(per_row) uniform columns per row and
+    normal values, D making A strictly diagonally dominant (chip_smoke's
+    slice-3 matrix, small)."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(per_row, n)
+    rows = np.repeat(np.arange(n), counts)
+    R = sps.csr_matrix((rng.standard_normal(counts.sum()), (rows, rng.integers(0, n, counts.sum()))),
+                       shape=(n, n))
+    S = (R + R.T).tocsr()
+    return (S + sps.diags(np.asarray(abs(S).sum(axis=1)).ravel() + 1.0)).tocsr()
+
+
+def test_slice3_path_cg_on_routed_unstructured_f64():
+    A = spd_unstructured(3000, 4, seed=7)
+    op_t = lt.opSparse(A, format="auto", symmetric=True, device="cpu")
+    op_j = lo.opSparse(A, format="auto", symmetric=True)
+    assert isinstance(op_t, lt.RoutedCSROperator) and isinstance(op_j, lo.RoutedCSROperator)
+    assert op_t.routed.vals.shape[1] > 128  # a 5-stage route
+    rng = np.random.default_rng(8)
+    b = rng.standard_normal(3000)
+    xj, kj, _ = lo.cg(op_j, jnp.asarray(b), tol=1e-10, maxiter=500)
+    xt, kt, _ = lt.cg(op_t, torch.from_numpy(b), tol=1e-10, maxiter=500)
+    assert abs(kt - int(kj)) <= 1 and kt < 500
+    assert rel_err(xt, xj) <= 1e-9
+    assert np.linalg.norm(A @ xt.numpy() - b) <= 1e-9 * np.linalg.norm(b)
+    v = rng.standard_normal(3000)
+    for mode in ("N", "T"):
+        assert rel_err(op_t.matvec(torch.from_numpy(v), mode=mode),
+                       op_j.matvec(jnp.asarray(v), mode=mode)) <= 1e-10
+
+
 def test_import_does_not_load_jax():
-    code = ("import sys, linops_tpu_torch, linops_tpu_torch.convert; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
+    code = ("import sys, linops_tpu_torch, linops_tpu_torch.convert, "
+            "linops_tpu_torch.sparse.routed, linops_tpu_torch.sparse.routing, "
+            "linops_tpu_torch.sparse.reorder, linops_tpu_torch.ops.permutation, "
+            "linops_tpu_torch.kernels.lane_gather, linops_tpu_torch.native; "
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
+            "assert not any(m == 'linops_tpu' or m.startswith('linops_tpu.') "
+            "for m in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

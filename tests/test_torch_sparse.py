@@ -62,7 +62,7 @@ def check_modes(op_t, op_j, rng, complex_, tol=1e-10):
 def test_opsparse_from_dense_f64(rng, fmt, complex_):
     A = sprand(rng, 45, 70, complex_=complex_)
     op_j = lo.opSparse(A, format=fmt, block_shape=(8, 16), backend="xla")
-    op_t = lt.opSparse(A, format=fmt, block_shape=(8, 16))
+    op_t = lt.opSparse(A, format=fmt, block_shape=(8, 16), device="cpu")
     check_modes(op_t, op_j, rng, complex_)
     assert rel_err(op_t.to_dense(), A) <= 1e-12
 
@@ -72,7 +72,7 @@ def test_opsparse_from_scipy_f64(rng, fmt):
     A = sprand(rng, 130, 90)
     sp = sps.csr_matrix(A)
     op_j = lo.opSparse(sp, format=fmt, block_shape=(8, 32), backend="xla")
-    op_t = lt.opSparse(sp, format=fmt, block_shape=(8, 32))
+    op_t = lt.opSparse(sp, format=fmt, block_shape=(8, 32), device="cpu")
     check_modes(op_t, op_j, rng, False)
     if fmt == "bsr":  # the native packer's layout, padding included
         assert op_t.data.blocks.shape == op_j.data.blocks.shape
@@ -87,7 +87,7 @@ def test_opsparse_from_prebuilt_formats(rng, fmt):
              "bsr": "bsr_from_dense"}[fmt]
     args = (A, (8, 16)) if fmt == "bsr" else (A,)
     op_j = lo.opSparse(getattr(JF, build)(*args), backend="xla")
-    op_t = lt.opSparse(getattr(TF, build)(*args))
+    op_t = lt.opSparse(getattr(TF, build)(*args, device="cpu"))
     assert type(op_t).__name__ == type(op_j).__name__
     check_modes(op_t, op_j, rng, False)
 
@@ -98,16 +98,16 @@ def test_builders_match_reference(rng, tol):
     for name, fields in (("coo_from_dense", ("vals", "rows", "cols")),
                          ("csr_from_dense", ("vals", "cols", "indptr", "rows")),
                          ("ell_from_dense", ("vals", "cols"))):
-        dj, dt = getattr(JF, name)(A, tol), getattr(TF, name)(A, tol)
+        dj, dt = getattr(JF, name)(A, tol), getattr(TF, name)(A, tol, device="cpu")
         assert tuple(dt.shape) == tuple(dj.shape) and dt.nnz == dj.nnz
         for f in fields:
             a, b = to_numpy(getattr(dt, f)), np.asarray(getattr(dj, f))
             assert a.dtype == b.dtype and np.array_equal(a, b), (name, f)
     sp = sps.csr_matrix(np.where(np.abs(A) > tol, A, 0.0))
     cj = JF.csr_from_parts(sp.data, sp.indices, sp.indptr, sp.shape)
-    ct = TF.csr_from_parts(sp.data, sp.indices, sp.indptr, sp.shape)
+    ct = TF.csr_from_parts(sp.data, sp.indices, sp.indptr, sp.shape, device="cpu")
     ej = JF.ell_from_csr_parts(sp.data, sp.indices, sp.indptr, sp.shape)
-    et = TF.ell_from_csr_parts(sp.data, sp.indices, sp.indptr, sp.shape)
+    et = TF.ell_from_csr_parts(sp.data, sp.indices, sp.indptr, sp.shape, device="cpu")
     for dt, dj in ((ct, cj), (et, ej)):
         for f in dt._fields[:-1]:
             assert np.array_equal(to_numpy(getattr(dt, f)), np.asarray(getattr(dj, f))), f
@@ -132,7 +132,8 @@ def test_native_packer_builds_outside_the_reference(rng):
     assert native.available()
     assert native._BUILD.endswith("_native_build") and "linops_tpu_torch" in native._BUILD
     before = native.pack_calls
-    lt.opSparse(sps.csr_matrix(sprand(rng, 20, 20)), format="bsr", block_shape=(8, 16))
+    lt.opSparse(sps.csr_matrix(sprand(rng, 20, 20)), format="bsr", block_shape=(8, 16),
+                device="cpu")
     assert native.pack_calls == before + 1
 
 
@@ -148,7 +149,7 @@ def test_auto_block_shape_matches_reference(rng, dtype):
     assert _auto_block_shape(sp, return_stored=True, dtype=td) == \
         jax_auto_block_shape(sp, return_stored=True, dtype=jd)
     op_j = lo.opSparse(sp, format="bsr", block_shape="auto", dtype=jd, backend="xla")
-    op_t = lt.opSparse(sp, format="bsr", block_shape="auto", dtype=td)
+    op_t = lt.opSparse(sp, format="bsr", block_shape="auto", dtype=td, device="cpu")
     assert op_t.data.block_shape == op_j.data.block_shape
     assert op_t.data.blocks.dtype == (torch.float32 if dtype is None else torch.bfloat16)
     v = rng.standard_normal(n).astype(np.float32)
@@ -159,7 +160,7 @@ def test_auto_block_shape_matches_reference(rng, dtype):
 
 def test_format_auto_picks_bsr_for_blocks(rng):
     A = np.kron(np.eye(16), rng.standard_normal((8, 128)))  # block diagonal, fully dense blocks
-    op_t = lt.opSparse(sps.csr_matrix(A), format="auto")
+    op_t = lt.opSparse(sps.csr_matrix(A), format="auto", device="cpu")
     op_j = lo.opSparse(sps.csr_matrix(A), format="auto", backend="xla")
     assert isinstance(op_t, lt.BSROperator) and type(op_j).__name__ == "BSROperator"
     assert op_t.data.block_shape == op_j.data.block_shape
@@ -171,27 +172,32 @@ def test_dtype_kwarg_casts_values(rng):
     A = sprand(rng, 64, 64).astype(np.float32)
     v = rng.standard_normal(64).astype(np.float32)
     for fmt in FORMATS:
-        op = lt.opSparse(sps.csr_matrix(A), format=fmt, dtype=torch.float64, block_shape=(8, 16))
+        op = lt.opSparse(sps.csr_matrix(A), format=fmt, dtype=torch.float64, block_shape=(8, 16),
+                         device="cpu")
         assert op.dtype == torch.float64
         assert rel_err(op * torch.from_numpy(v).double(), A.astype(np.float64) @ v) <= 1e-12
 
 
 def test_unported_paths_raise_naming_slice_3(rng):
+    """The paths slices 1-2 left raising (slice 3) now build, like the
+    reference's; only unknown formats and reorders raise."""
     A = sprand(rng, 32, 32)
-    for kw in (dict(format="routed"), dict(format="csr", reorder="rcm")):
-        with pytest.raises(lt.LinearOperatorException, match="slice 3"):
-            lt.opSparse(A, **kw)
+    assert isinstance(lt.opSparse(A, format="routed", device="cpu"), lt.RoutedCSROperator)
+    assert isinstance(lt.opSparse(A, format="csr", reorder="rcm", device="cpu"),
+                      lt.ReorderedOperator)
     scattered = sps.random(600, 600, density=0.01, random_state=1, format="csr")
-    with pytest.raises(lt.LinearOperatorException, match="slice 3"):
-        lt.opSparse(scattered, format="auto")
+    assert isinstance(lt.opSparse(scattered, format="auto", device="cpu"), lt.RoutedCSROperator)
+    assert isinstance(lo.opSparse(scattered, format="auto"), lo.RoutedCSROperator)
     with pytest.raises(ValueError, match="unknown sparse format"):
-        lt.opSparse(A, format="dia")
+        lt.opSparse(A, format="dia", device="cpu")
+    with pytest.raises(ValueError, match="unknown reorder"):
+        lt.opSparse(A, reorder="amd", device="cpu")
 
 
 def test_int32_range_and_shape_checks(rng):
     with pytest.raises(OverflowError):
         TF.check_int32_range((2**31, 4), 10)
-    op = lt.opSparse(sprand(rng, 10, 12), format="csr")
+    op = lt.opSparse(sprand(rng, 10, 12), format="csr", device="cpu")
     with pytest.raises(lt.LinearOperatorException, match="shape mismatch"):
         op * torch.ones(11, dtype=torch.float64)
     with pytest.raises(lt.LinearOperatorException, match="shape mismatch"):
@@ -201,7 +207,7 @@ def test_int32_range_and_shape_checks(rng):
 def test_sparse_operators_move_with_to(rng):
     A = sprand(rng, 24, 24)
     for fmt in FORMATS:
-        op = lt.opSparse(A, format=fmt, block_shape=(8, 8), symmetric=False)
+        op = lt.opSparse(A, format=fmt, block_shape=(8, 8), symmetric=False, device="cpu")
         moved = op.to("cpu")
         v = torch.from_numpy(rng.standard_normal(24))
         assert torch.equal(moved * v, op * v) and moved.device == torch.device("cpu")

@@ -258,7 +258,7 @@ def test_plain_windowed_vs_pallas_interpret(rng, caps, dtype):
     blocks, cols, nbcol, R = _kernel_case(rng, caps, multi=False)
     q, cl, wb, xpb = BK.bsr_window_plan(cols, R, nbcol, wb_max=64)
     jb = jnp.asarray(blocks).astype(jnp.dtype(dtype))
-    tb = from_numpy(np.asarray(jb.astype(jnp.float32)), dtype=getattr(torch, dtype))
+    tb = from_numpy(np.asarray(jb.astype(jnp.float32)), dtype=getattr(torch, dtype), device="cpu")
     xb = rng.standard_normal((nbcol, 128)).astype(np.float32)
     ub = rng.standard_normal((blocks.shape[0], 8)).astype(np.float32)
     yj = BK.bsr_matvec_pallas_windowed(jb, jnp.asarray(cl), jnp.asarray(q), jnp.asarray(xb),
@@ -287,7 +287,7 @@ def test_plain_multiwin_vs_pallas_interpret(rng, caps, dtype):
     qt, vt, xpbt = BK.bsr_window_plan_multi_t(cols, R, nbcol, wb, 4)
     assert vt.min() == 0  # the skipped cluster: a repeated, invalid lane step
     jb = jnp.asarray(blocks).astype(jnp.dtype(dtype))
-    tb = from_numpy(np.asarray(jb.astype(jnp.float32)), dtype=getattr(torch, dtype))
+    tb = from_numpy(np.asarray(jb.astype(jnp.float32)), dtype=getattr(torch, dtype), device="cpu")
     xb = rng.standard_normal((nbcol, 128)).astype(np.float32)
     ub = rng.standard_normal((blocks.shape[0], 8)).astype(np.float32)
     tdt = getattr(torch, dtype)
@@ -329,7 +329,7 @@ def test_windowed_forward_banded(rng, caps):
     sp = sps.bsr_matrix((blocks.reshape(-1, 8, 128), cols.reshape(-1),
                          np.arange(nbrow + 1) * cols.shape[1]), shape=shape).tocsr()
     op_j = lo.opSparse(sp, format="bsr", block_shape=(8, 128), backend="pallas")
-    op_t = lt.opSparse(sp, format="bsr", block_shape=(8, 128))
+    op_t = lt.opSparse(sp, format="bsr", block_shape=(8, 128), device="cpu")
     assert op_t.win_q is not None and op_t.cols_local is not None and op_t._wb > 0
     assert_same_plan(op_t, op_j)
     check_applies(op_t, op_j, rng, 3e-6)
@@ -340,7 +340,7 @@ def test_windowed_forward_banded(rng, caps):
     S = sps.csr_matrix((np.ones(shape[0]), (np.arange(shape[0]),
                         ((idx.repeat(8) * 997) % 40) * 128 + rng.integers(0, 128, shape[0]))),
                        shape=shape)
-    op2_t = lt.opSparse(S, format="bsr", block_shape=(8, 128))
+    op2_t = lt.opSparse(S, format="bsr", block_shape=(8, 128), device="cpu")
     op2_j = lo.opSparse(S, format="bsr", block_shape=(8, 128), backend="pallas")
     assert_same_plan(op2_t, op2_j)
     v2 = rng.standard_normal(shape[1])
@@ -536,14 +536,14 @@ def test_carried_plan_equals_the_ports_own(rng, caps):
         np.asarray(op_j.data.blocks), np.asarray(op_j.data.block_cols), op_j.data.shape,
         win_q=np.asarray(op_j.win_q), cols_local=None, win_q_t=np.asarray(op_j.win_q_t),
         win_valid_t=np.asarray(op_j.win_valid_t), wb=op_j._wb, x_pad_blocks=op_j._x_pad_blocks,
-        x_pad_blocks_t=op_j._x_pad_blocks_t)
+        x_pad_blocks_t=op_j._x_pad_blocks_t, device="cpu")
     own = lt.BSROperator(lt.BSR(torch.from_numpy(blocks), torch.from_numpy(cols), shape))
     assert_same_plan(carried, op_j)
     assert_same_plan(own, op_j)
     u = torch.from_numpy(rng.standard_normal(shape[0]).astype(np.float32))
     assert torch.equal(carried.T * u, own.T * u)
     with pytest.raises(lt.LinearOperatorException, match="needs win_q"):
-        bsr_operator_from_reference(blocks, cols, shape, cols_local=np.zeros_like(cols), wb=8)
+        bsr_operator_from_reference(blocks, cols, shape, cols_local=np.zeros_like(cols), wb=8, device="cpu")
 
 
 def _emulate_partials(blocks, u, perm, ptr, nrows):
