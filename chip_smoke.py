@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
-7, 5 (the times come last, after every kernel has been checked):
+7, 9, 8, 5, 10 (the times come after every kernel has been checked; phase
+10 comes last because its torch.profiler traces of whole solves, run
+before phase 5, left phase 5's own traces without device time):
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
@@ -22,7 +24,8 @@ Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 5. times: CUDA events after warm-up, marginal method (long minus short run
    over the difference in count), for K1/K2 beside their plain versions and
    for one CG iteration; for K3-K6 beside their plain versions and beside
-   K1/K2 on the same operator, at both n = 2^22 window shapes.
+   K1/K2 on the same operator, at both n = 2^22 window shapes; K7-K14 also
+   per call in a CUDA graph of 20 calls and in a torch.profiler trace.
 6. window kernels: K3-K6 through ``BSROperator`` at the reference bench's
    large-n shapes (n = 2^22, 8x128: banded kmax 2, ``bench.py:636-647``;
    band + far cluster kmax 3, ``bench.py:674-688``), f32 and bf16 blocks,
@@ -35,6 +38,24 @@ Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
    CG to a tolerance of 1e-5, checked against a plain-backend rerun and an
    f64 residual computed by scipy; then ``matvec_chain`` in modes N and T on
    both bench operators, so that K3-K6 each run on a path.
+8. lane kernels: K7-K12 against their plain versions at phase 9's shapes
+   (f32, bf16; rep 1 and 8); K13 (``tiled_combine``) on step 1's program
+   with its segment bounds dropped, against the same program through K11
+   and the plain pipeline, alone against its plain version (also on a
+   shuffled rowid with trash slots), bit-identical on a rerun, and in a CG
+   on that program; K14 (``lane_gather_mul_t``) on one chunk of step 1, bit
+   for bit against K9 with C = 1 and its plain version.
+9. main path of slice 3: CG on an unstructured SPD matrix at n = 2^20
+   through ``opSparse(format="auto")`` (the Clos-routed pipeline), auto_8m
+   N/T and 8 right-hand sides, an RCM sandwich, a routed permutation.
+10. main path of slice 4, at the reference bench's sizes: GMRES(30) and
+   BiCGSTAB on ``ShiftedOperator(auto_8m, 8)``; damped LSQR on a 2^20 x 2^19
+   unstructured matrix (derived transpose, K12); MINRES on the saddle-point
+   system ``vcat(hcat(I + L, Bᵀ), hcat(B, opZeros))`` (phase 7's Laplacian,
+   B an ``opRestriction`` to every 8th point) and a slice of it; CG with 8
+   right-hand sides (routed kernels at rep 8); the shifted L-BFGS solves
+   (compact, EJM, several σ at once, MINRES) at n = 10^6, mem 16. Each solve
+   against an f64 residual and the plain pipeline, with its launches.
 
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
@@ -79,11 +100,14 @@ LANE_KERNELS = {  # name -> the TPU kernel it replaces (def line)
     "lane_gather_sum": "linops_tpu/kernels/lane_gather.py:158",  # K10
     "lane_segsum": "linops_tpu/kernels/lane_gather.py:232",  # K11
     "lane_gather_mul_segsum": "linops_tpu/kernels/lane_gather.py:263",  # K12
+    "tiled_combine": "linops_tpu/kernels/lane_gather.py:119",  # K13
+    "lane_gather_mul_t": "linops_tpu/kernels/lane_gather.py:301",  # K14
 }
 N3 = 1 << 20  # phase 9 step 1: the unstructured SPD matrix
 N_AUTO8M = 1 << 19  # phase 9 step 2
 N_RCM, BW_RCM = 1 << 18, 56  # phase 9 step 3
 N_K8 = 1500  # phase 8: the 3-stage operator that runs K8
+N_LSQ_ROWS = 1 << 20  # phase 10b: the least-squares matrix is N_LSQ_ROWS x N_AUTO8M
 # H100 SXM peaks (NVIDIA's data sheet): device memory rate, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_PEAK = 67e12
@@ -362,7 +386,8 @@ def laplacian(grid):
 
 def phase7(lt, K, dev):
     """Slice 2's path through the entry points a user calls. Returns the
-    launch counts of the run (reset just before it)."""
+    launch counts of the run (reset just before it) and (the Laplacian's
+    operator, its scipy matrix) for phase 10."""
     from linops_tpu_torch import native
 
     free()
@@ -418,7 +443,8 @@ def phase7(lt, K, dev):
           f"(limit 1e-4), {t_cg:.3f} s incl. first calls; plain backend {k_t} iterations, "
           f"|Δx|/|x| {dx:.2e} (limit 1e-4); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    del op, d, plain, x, x_t, b, A
+    laplacian_op = (op, A)  # phase 10's saddle-point block
+    del d, plain, x, x_t, b
     for name in WIN_KMAX:  # matvec_chain N and T on both bench operators
         free()
         op = win_operator(lt, name, torch.float32, dev, SEED + 21)
@@ -439,7 +465,7 @@ def phase7(lt, K, dev):
     check(counts["bsr_matvec"] == 0 and counts["bsr_rmatvec"] == 0,
           f"K1/K2 ran on the slice-2 path: {counts}")
     print(f"[7 slice-2 path] launches {counts}", flush=True)
-    return counts
+    return counts, laplacian_op
 
 
 def phase5_windows(lt, K, dev, card):
@@ -628,8 +654,8 @@ def phase9(lt, K, LG, dev):
           f"(limit 1e-4), {t_cg:.3f} s incl. first calls; plain pipeline {k_p} iterations, "
           f"|Δx|/|x| {dx:.2e} (limit 1e-4); launches {c1}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    out["op1"], out["nnz1"] = op1, A1.nnz
-    del A1, x, x_p, b, plain
+    out["op1"], out["nnz1"], out["A1"], out["cg_iters1"] = op1, A1.nnz, A1, k
+    del x, x_p, b, plain
 
     # --- 2. transpose and multi-RHS on the bench's auto_8m matrix -----------
     free()
@@ -679,8 +705,8 @@ def phase9(lt, K, LG, dev):
           + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items())
           + f" (max|Δ|/max against scipy f64, limit 1e-5); launches of one T apply {cT}",
           flush=True)
-    out["op2"], out["nnz2"] = op2, A2.nnz
-    del A2, A2d, X
+    out["op2"], out["nnz2"], out["A2"] = op2, A2.nnz, A2
+    del A2d, X
 
     # --- 3. the RCM sandwich --------------------------------------------------
     free()
@@ -840,11 +866,130 @@ def phase8(lt, LG, dev, ops):
     return err, k8_launches, p3s
 
 
+def tiled_limit(q, rowid, rep, ref):
+    """K13 against its plain version: 4·eps_f32·Σ|q| over each row's slots
+    (two f32 sums of the same terms in other orders), plus one ulp of a bf16
+    result."""
+    T, K = rowid.shape
+    rid = rowid.long()
+    seg = torch.where(rid >= 0, torch.arange(T, device=rid.device)[:, None] * 128 + rid,
+                      T * 128).reshape(-1)
+    absq = torch.zeros((rep, T * 128 + 1), dtype=torch.float64, device=q.device)
+    absq.index_add_(1, seg, q.double().abs().reshape(rep, T * K))
+    lim = 4 * torch.finfo(torch.float32).eps * absq[:, :T * 128].reshape(-1)
+    if q.dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.double().abs()
+    return lim
+
+
+def phase8_k13_k14(lt, LG, dev, ops):
+    """K13 and K14 on the card at the main path's shapes. K13: step 1's
+    program with its segment bounds dropped (the reference's pack always
+    keeps them, so this is the only way a routed apply reaches K13) through
+    ``routed_matvec`` against the same program through K11 and the plain
+    pipeline, a rerun for the bits, K13 alone against its plain version (f32
+    and bf16, rep 1 and 8, the pack's rowid and a shuffled one with trash
+    slots), then CG on the forced program, whose K13 launches the kernels
+    line reports. K14: one chunk of step 1 against K9 with C = 1 (bit for
+    bit) and its plain version. Returns ({kernel: max|Δ| against plain, f32
+    rep 1}, K13's launches in the forced CG)."""
+    from linops_tpu_torch.sparse.routed import routed_matvec
+
+    op1 = ops["op1"]
+    p1 = op1.routed
+    pf = p1._replace(comb_lo=None, comb_hi=None)
+    T8, Kt = p1.rowid.shape
+    err = {}
+    v = dev_vec(N3, dev, SEED + 56)
+    LG.reset_launch_counts()
+    y13 = routed_matvec(pf, v)
+    c = LG.launch_counts()
+    check(c["tiled_combine"] == 1 and c["lane_segsum"] == 0,
+          f"the program without bounds did not combine through K13: {c}")
+    y11, y_plain = routed_matvec(p1, v), routed_matvec(pf, v, use_kernel=False)
+    e11, ep = rel_err(y13, y11), rel_err(y13, y_plain)
+    check(e11 <= 1e-5 and ep <= 1e-5, f"K13 routed apply: against K11 {e11:.2e}, plain {ep:.2e}")
+    check(torch.equal(y13, routed_matvec(pf, v)), "K13's routed apply is not bit-identical on rerun")
+    print(f"[8 lane kernels] tiled_combine (K13) in routed_matvec on step 1's program without "
+          f"bounds (T = {T8} tiles, K = {Kt} slots): max|Δ|/max against the same program through "
+          f"K11 {e11:.2e}, against the plain pipeline {ep:.2e} (limit 1e-5); bit-identical on "
+          f"rerun", flush=True)
+    del y13, y11, y_plain
+    g = torch.Generator(device=dev).manual_seed(SEED + 57)
+    shuffled = torch.gather(p1.rowid, 1, torch.argsort(torch.rand(p1.rowid.shape, generator=g,
+                                                                  device=dev), dim=1))
+    shuffled = torch.where(torch.rand(shuffled.shape, generator=g, device=dev) < 0.25,
+                           torch.full_like(shuffled, -1), shuffled)
+    for tag, rowid in (("the pack's rowid", p1.rowid), ("shuffled, 1/4 more trash", shuffled)):
+        for dt in (torch.float32, torch.bfloat16):
+            for rep in (1, 8):
+                free()
+                q = dev_vec(rep * T8 * Kt, dev, SEED + 58).to(dt)
+                got, again = LG.tiled_combine(q, rowid, rep=rep), LG.tiled_combine(q, rowid, rep=rep)
+                ref = LG.tiled_combine_plain(q, rowid, rep)
+                check(torch.equal(got, again), f"K13 {dt} rep {rep}: not bit-identical on rerun")
+                d = (got.double() - ref.double()).abs()
+                check(got.dtype == ref.dtype and bool((d <= tiled_limit(q, rowid, rep, ref)).all()),
+                      f"K13 {tag} {dt} rep {rep}: max|Δ| {float(d.max()):.3e} against plain")
+                if dt == torch.float32 and rep == 1 and rowid is p1.rowid:
+                    err["tiled_combine"] = float(d.max())
+                print(f"[8 lane kernels] tiled_combine {str(dt)[6:]} rep {rep}, {tag}: "
+                      f"({rep}·{T8}·{Kt},) -> ({rep}·{T8}·128,), max|Δ| {float(d.max()):.2e} "
+                      f"against plain (4·eps_f32·Σ|row|); bit-identical on rerun", flush=True)
+                del q, got, again, ref, d
+    # K14 on one chunk of step 1
+    m1 = p1.vals.shape[1]
+    xw = dev_vec(m1, dev, SEED + 59, k=128)
+    idx, vals = p1.lane_idx[0], p1.vals[0]
+    LG.reset_launch_counts()
+    out = LG.lane_gather_mul_t(xw, idx, vals)
+    c = LG.launch_counts()
+    check(c["lane_gather_mul_t"] == 1 and c["lane_gather_mul_t_batched"] == 0, f"K14 launches {c}")
+    k9 = LG.lane_gather_mul_t_batched(xw, idx, vals, 1, m1)
+    plain = LG.lane_gather_mul_t_plain(xw, idx, vals)
+    check(torch.equal(out, k9), "K14 differs from K9 with C = 1")
+    check(torch.equal(out, plain), "K14 differs from its plain version")
+    err["lane_gather_mul_t"] = float((out - plain).abs().max())
+    print(f"[8 lane kernels] lane_gather_mul_t (K14) on one chunk of step 1 ({m1}, 128) -> "
+          f"(128, {m1}): bit-identical to K9 with C = 1 and to its plain version", flush=True)
+    del xw, out, k9, plain
+    # CG on the forced program: K13 on a solve's path
+    free()
+    op_f = lt.RoutedCSROperator(op1.data, symmetric=True, hermitian=True, routed=pf)
+    b = dev_vec(N3, dev, SEED + 41)  # phase 9's right-hand side
+    LG.reset_launch_counts()
+    t0 = time.perf_counter()
+    x, k, _ = lt.cg(op_f, b, tol=1e-5, maxiter=2000)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    c = LG.launch_counts()
+    A1 = ops["A1"]
+    bh = b.double().cpu().numpy()
+    res = float(np.linalg.norm(bh - A1.astype(np.float64) @ x.double().cpu().numpy())
+                / np.linalg.norm(bh))
+    check(c["tiled_combine"] > 0 and c["lane_segsum"] == 0, f"forced-program cg launches {c}")
+    check(abs(k - ops["cg_iters1"]) <= 1 and res <= 1e-4,
+          f"forced-program cg: {k} iterations (phase 9: {ops['cg_iters1']}), residual {res:.3e}")
+    print(f"[8 lane kernels] cg(tol 1e-5) on step 1's matrix through the program without bounds: "
+          f"{k} iterations (phase 9's {ops['cg_iters1']}), f64 residual {res:.3e} (limit 1e-4), "
+          f"{t_cg:.3f} s; launches {c}", flush=True)
+    return err, c["tiled_combine"]
+
+
+# where a lane kernel's launch count comes from when not from phase 9's run
+LAUNCH_SOURCES = {
+    "lane_gather_mul": "one apply of phase 8's 3-stage operator (no main path runs K8)",
+    "tiled_combine": "phase 8's CG on step 1's program with its segment bounds dropped "
+                     "(no pack builds a program without them)",
+    "lane_gather_mul_t": "none: no path calls it (its reference caller is dead code)",
+}
+
 # the CUDA function of each lane kernel's wrapper in lane_gather.cu
 LANE_FUNCS = {"lane_gather": "gather_kernel", "lane_gather_mul": "gather_mul_kernel",
               "lane_gather_mul_t_batched": "gather_mul_t_kernel",
               "lane_gather_sum": "gather_sum_kernel", "lane_segsum": "segsum_kernel",
-              "lane_gather_mul_segsum": "gather_mul_segsum_kernel"}
+              "lane_gather_mul_segsum": "gather_mul_segsum_kernel",
+              "tiled_combine": "tiled_combine_kernel", "lane_gather_mul_t": "gather_mul_t_kernel"}
 
 
 def lane_row(name, kern, plain, library, n_bytes):
@@ -875,7 +1020,7 @@ def phase5_lanes(lt, LG, dev, ops, p3s, card):
               f"{row['bound_ms'] * 1e3:.1f} us, {row['bound_ms'] / row['ms'] * 100:.0f}% of it); "
               f"profiler {'not measured' if prof is None else f'{prof * 1e3:.1f} us'}; eager "
               f"events {row['event_ms'] * 1e3:.1f} us; plain {row['plain_ms'] * 1e3:.1f} us"
-              + (f", torch.gather {row['library_ms'] * 1e3:.1f} us" if row["library_ms"] else "")
+              + (f", library {row['library_ms'] * 1e3:.1f} us" if row["library_ms"] else "")
               + f"; {card}", flush=True)
 
     for tag, fwd, tr in (("step 1", p1, p2t), ("step 2", p2, p2t)):
@@ -910,6 +1055,35 @@ def phase5_lanes(lt, LG, dev, ops, p3s, card):
         lambda: LG.lane_gather_mul_plain(xw, idx, vals, rep=8), None, n_bytes)
     show("lane_gather_mul", "(8·65536, 128)", rows["lane_gather_mul"], n_bytes)
     del xw, vals, idx, out
+    # K13 at step 1's combine shape; its yardstick is index_add_ over segment
+    # ids computed beforehand (not deterministic on the card: atomics)
+    free()
+    T8, Kt = p1.rowid.shape
+    q = dev_vec(T8 * Kt, dev, SEED + 65)
+    out = LG.tiled_combine(q, p1.rowid)
+    rid = p1.rowid.long()
+    seg = torch.where(rid >= 0, torch.arange(T8, device=dev)[:, None] * 128 + rid,
+                      T8 * 128).reshape(-1)
+    n_bytes = nbytes(q, p1.rowid, out)
+    rows["tiled_combine"] = lane_row(
+        "tiled_combine", lambda: LG.tiled_combine(q, p1.rowid),
+        lambda: LG.tiled_combine_plain(q, p1.rowid),
+        lambda: torch.zeros(T8 * 128 + 1, device=dev).index_add_(0, seg, q), n_bytes)
+    show("tiled_combine", f"step 1's combine ({T8} tiles x {Kt} slots)", rows["tiled_combine"],
+         n_bytes)
+    del q, out, rid, seg
+    # K14 on one chunk of step 1
+    m1 = p1.vals.shape[1]
+    xw = dev_vec(m1, dev, SEED + 66, k=128)
+    idx, vals = p1.lane_idx[0], p1.vals[0]
+    out = LG.lane_gather_mul_t(xw, idx, vals)
+    n_bytes = nbytes(xw, idx, vals, out)
+    rows["lane_gather_mul_t"] = lane_row(
+        "lane_gather_mul_t", lambda: LG.lane_gather_mul_t(xw, idx, vals),
+        lambda: LG.lane_gather_mul_t_plain(xw, idx, vals), None, n_bytes)
+    show("lane_gather_mul_t", f"one chunk of step 1 ({m1}, 128)", rows["lane_gather_mul_t"],
+         n_bytes)
+    del xw, out
     # the routed apply per call
     for tag, op, nnz in (("step 1 (N = T, symmetric)", ops["op1"], ops["nnz1"]),
                          ("auto_8m", ops["op2"], ops["nnz2"])):
@@ -931,6 +1105,321 @@ def phase5_lanes(lt, LG, dev, ops, p3s, card):
               f"{tg * 1e3:.1f} us in a CUDA graph; plain x[perm] {marginal_ms(lambda: x[idx]) * 1e3:.1f} "
               f"us eager, {graph_ms(lambda: x[idx]) * 1e3:.1f} us in a graph; {card}", flush=True)
     return rows
+
+
+# ----------------------------------------------------------------------------
+# Slice 4: the Krylov suite on the block algebra
+# ----------------------------------------------------------------------------
+
+
+def lsq_matrix(seed):
+    """A rectangular least-squares matrix (scipy CSR, f32): N_LSQ_ROWS x N_AUTO8M,
+    Poisson(8) uniform columns per row, normal values."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(8, N_LSQ_ROWS)
+    nnz = int(counts.sum())
+    rows = np.repeat(np.arange(N_LSQ_ROWS, dtype=np.int32), counts)
+    A = sps.csr_matrix((rng.standard_normal(nnz).astype(np.float32),
+                        (rows, rng.integers(0, N_AUTO8M, nnz, dtype=np.int32))),
+                       shape=(N_LSQ_ROWS, N_AUTO8M))
+    A.sum_duplicates()
+    return A
+
+
+def timed_solve(solve):
+    """(result, seconds) of one solve, from the host clock around work that
+    ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kernel_label(key: str) -> str:
+    """A device activity's short name: the first identifier followed by a
+    template or argument list ("...::gather_kernel<float>(...)" ->
+    "gather_kernel"), with the functor of an elementwise kernel, else the
+    key's start."""
+    import re
+
+    m = re.search(r"(\w+)[<(]", key)
+    if m is None:
+        return key[:32]
+    inner = re.search(r"(direct_copy_kernel_cuda|\w*Functor\w*|\w+_kernel_cuda)", key)
+    if "elementwise" in m.group(1) and inner:
+        return f"{m.group(1)}[{inner.group(1)}]"
+    return m.group(1)
+
+
+def device_profile(fn, top=3):
+    """(device ms, the ``top`` kernels by device ms) of one call of fn, from
+    a torch.profiler trace: the sum of every device activity's own time;
+    (None, []) when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            name = kernel_label(e.key)
+            per[name] = per.get(name, 0.0) + t / 1e3
+    if not per:
+        return None, []
+    return sum(per.values()), sorted(per.items(), key=lambda kv: -kv[1])[:top]
+
+
+def solve_line(tag, k, unit, secs, res, lim, k_p, secs_p, dx, counts, syncs, prof):
+    per = secs / max(k, 1) * 1e6
+    dev_ms, ranked = prof
+    busy = ("device busy not measured" if dev_ms is None else
+            f"device busy {dev_ms:.1f} ms of a rerun (torch.profiler; "
+            f"{dev_ms / (secs * 1e3) * 100:.0f}% of the wall time above), top: "
+            + ", ".join(f"{n} {ms:.1f} ms" for n, ms in ranked))
+    print(f"[10 slice-4 path] {tag}: {k} {unit}, {secs:.3f} s = {per:.1f} us per {unit[:-1]} "
+          f"({syncs} host sync per {unit[:-1]}); f64 residual {res:.3e} (limit {lim:g}); plain "
+          f"pipeline {k_p} {unit} in {secs_p:.3f} s, |Δx|/|x| {dx:.2e}; launches "
+          f"{ {n: c for n, c in counts.items() if c} }; {busy}", flush=True)
+    return {"iters": k, "s": secs, "us_per_iter": per, "plain_iters": k_p, "plain_s": secs_p,
+            "device_ms": dev_ms}
+
+
+def phase10(lt, K, LG, dev, ops, laplacian_op):
+    """Slice 4's path through the entry points a user calls, at the
+    reference bench's sizes: GMRES and BiCGSTAB on a shifted unstructured
+    operator (10a), damped LSQR on a rectangular one (10b), MINRES on a
+    saddle-point block system (10c), CG with 8 right-hand sides (10d) and the
+    shifted L-BFGS solves (10e). Each solve: its iterations, an f64 residual
+    computed off the kernel path (scipy, or an f64 operator), the same solve
+    on the plain pipeline, its kernel launches. Returns (the launches of the
+    whole phase, its solve records)."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.sparse.routed import routed_matvec, routed_rmatvec
+
+    LG.reset_launch_counts()
+    K.reset_launch_counts()
+    totals = dict.fromkeys(list(LG.launch_counts()) + list(K.launch_counts()), 0)
+    rec = {}
+
+    def take():
+        c = {**LG.launch_counts(), **K.launch_counts()}
+        for name, n in c.items():
+            totals[name] += n
+        LG.reset_launch_counts()
+        K.reset_launch_counts()
+        return c
+
+    def dx_of(x, x_p):
+        return float(torch.linalg.vector_norm(x_p.double() - x.double())
+                     / torch.linalg.vector_norm(x_p.double()))
+
+    # --- 10a. shifted unstructured: GMRES(30) and BiCGSTAB ---------------------
+    free()
+    op2, A2 = ops["op2"], ops["A2"]
+    n2 = A2.shape[0]
+    S = lt.ShiftedOperator(op2, 8.0)
+    p2 = op2.routed
+    S_plain = lt.ShiftedOperator(lt.FunctionOperator(
+        n2, n2, lambda v: routed_matvec(p2, v, use_kernel=False), dtype=torch.float32), 8.0)
+    b = dev_vec(n2, dev, SEED + 70)
+    bh = b.double().cpu().numpy()
+    S64 = A2.astype(np.float64) + 8.0 * sps.identity(n2)
+    for name, run in (("gmres", lambda op: lt.gmres(op, b, tol=1e-5, restart=30, maxiter=20)),
+                      ("bicgstab", lambda op: lt.bicgstab(op, b, tol=1e-5, maxiter=500))):
+        take()
+        (x, k, _), secs = timed_solve(lambda: run(S))
+        c = take()
+        (x_p, k_p, _), secs_p = timed_solve(lambda: run(S_plain))
+        check(sum(take().values()) == 0, f"10a {name}: the plain pipeline launched a kernel")
+        res = float(np.linalg.norm(bh - S64 @ x.double().cpu().numpy()) / np.linalg.norm(bh))
+        dx = dx_of(x, x_p)
+        check(torch.isfinite(x).all() and res <= 1e-4 and abs(k - k_p) <= 1 and dx <= 1e-3,
+              f"10a {name}: {k} (plain {k_p}), residual {res:.3e}, |Δx|/|x| {dx:.2e}")
+        check(c["lane_gather"] > 0 and c["lane_gather_sum"] > 0, f"10a {name} launches {c}")
+        unit = "restarts" if name == "gmres" else "iterations"
+        prof = device_profile(lambda: run(S))
+        take()
+        rec[f"10a {name}"] = solve_line(
+            f"10a {name}(A + 8I), A auto_8m (n = 2^19, {A2.nnz} nnz), tol 1e-5", k, unit, secs,
+            res, 1e-4, k_p, secs_p, dx, c, "1" if name == "bicgstab" else "1 (+1 SVD)", prof)
+    del S, S_plain, S64, b, x, x_p
+
+    # --- 10b. damped LSQR on a rectangular unstructured matrix -----------------
+    free()
+    t0 = time.perf_counter()
+    Al = lsq_matrix(SEED + 71)
+    t1 = time.perf_counter()
+    op_l = lt.opSparse(Al, format="auto")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(isinstance(op_l, lt.RoutedCSROperator) and op_l.routed_t is not None,
+          f"10b: {type(op_l).__name__} without a derived transpose")
+    pl, plt_ = op_l.routed, op_l.routed_t
+    mrow, ncol = Al.shape
+    L_plain = lt.FunctionOperator(mrow, ncol, lambda v: routed_matvec(pl, v, use_kernel=False),
+                                  lambda u: routed_rmatvec(plt_, u, use_kernel=False),
+                                  dtype=torch.float32)
+    b = dev_vec(mrow, dev, SEED + 72)
+    bh = b.double().cpu().numpy()
+    damp = 1e-3
+    take()
+    (x, k, _), secs = timed_solve(lambda: lt.lsqr(op_l, b, damp=damp, tol=1e-5, maxiter=500))
+    c = take()
+    (x_p, k_p, _), secs_p = timed_solve(lambda: lt.lsqr(L_plain, b, damp=damp, tol=1e-5,
+                                                        maxiter=500))
+    check(sum(take().values()) == 0, "10b: the plain pipeline launched a kernel")
+    A64 = Al.astype(np.float64)
+    xh = x.double().cpu().numpy()
+    r = bh - A64 @ xh
+    res = float(np.linalg.norm(A64.T @ r - damp ** 2 * xh)
+                / (sps.linalg.norm(A64) * np.linalg.norm(r)))
+    dx = dx_of(x, x_p)
+    check(torch.isfinite(x).all() and res <= 1e-4 and abs(k - k_p) <= 1,
+          f"10b lsqr: {k} (plain {k_p}), residual {res:.3e}")
+    check(c["lane_gather_mul_segsum"] > 0 and c["lane_gather_sum"] > 0, f"10b launches {c}")
+    print(f"[10 slice-4 path] 10b matrix {mrow} x {ncol}, {Al.nnz} nnz (scipy {t1 - t0:.2f} s), "
+          f"opSparse(format='auto') -> routed, {pl.vals.shape[0]} chunks, derived transpose, "
+          f"{t2 - t1:.2f} s (host pack {op_l.pack_seconds['host']:.2f} s)", flush=True)
+    prof = device_profile(lambda: lt.lsqr(op_l, b, damp=damp, tol=1e-5, maxiter=500))
+    take()
+    rec["10b lsqr"] = solve_line(
+        f"10b lsqr(damp {damp:g}), tol 1e-5, ‖Aᵀr − damp²x‖/(‖A‖_F‖r‖)", k, "iterations", secs,
+        res, 1e-4, k_p, secs_p, dx, c, "1", prof)
+    del op_l, L_plain, pl, plt_, Al, A64, b, x, x_p, r
+
+    # --- 10c. saddle-point system under MINRES ------------------------------------
+    free()
+    A_op, Alap = laplacian_op
+    n = Alap.shape[0]
+    idx = np.arange(0, n, 8)
+    p = idx.size
+    B = lt.opRestriction(idx, n)
+    Kop = lt.vcat(lt.hcat(A_op, B.T), lt.hcat(B, lt.opZeros(p, p, dtype=torch.float32)))
+    A_plain = lt.BSROperator(A_op.data, symmetric=True, backend="torch")
+    K_plain = lt.vcat(lt.hcat(A_plain, B.T), lt.hcat(B, lt.opZeros(p, p, dtype=torch.float32)))
+    b = dev_vec(n + p, dev, SEED + 73)
+    bh = b.double().cpu().numpy()
+    take()
+    (x, k, _), secs = timed_solve(lambda: lt.minres(Kop, b, tol=1e-5, maxiter=2000))
+    c = take()
+    (x_p, k_p, _), secs_p = timed_solve(lambda: lt.minres(K_plain, b, tol=1e-5, maxiter=2000))
+    check(sum(take().values()) == 0, "10c: the plain backend launched a kernel")
+    Bs = sps.csr_matrix((np.ones(p), (np.arange(p), idx)), shape=(p, n))
+    K64 = sps.bmat([[Alap.astype(np.float64), Bs.T], [Bs, None]]).tocsr()
+    res = float(np.linalg.norm(bh - K64 @ x.double().cpu().numpy()) / np.linalg.norm(bh))
+    dx = dx_of(x, x_p)
+    check(torch.isfinite(x).all() and res <= 1e-4 and abs(k - k_p) <= 1 and dx <= 1e-3,
+          f"10c minres: {k} (plain {k_p}), residual {res:.3e}, |Δx|/|x| {dx:.2e}")
+    check(c["bsr_matvec_windowed"] > 0 and c["bsr_matvec"] == 0, f"10c launches {c}")
+    r0, c0 = n - 500, n - 500
+    v = dev_vec(1000, dev, SEED + 74)
+    pad = torch.zeros(n + p, device=dev)
+    pad[c0:c0 + 1000] = v
+    e_sl = rel_err(Kop[r0:r0 + 1000, c0:c0 + 1000] * v, (Kop * pad)[r0:r0 + 1000])
+    check(e_sl <= 1e-6, f"10c slice: {e_sl:.2e}")
+    take()
+    prof = device_profile(lambda: lt.minres(Kop, b, tol=1e-5, maxiter=2000))
+    take()
+    rec["10c minres"] = solve_line(
+        f"10c minres on [[I + L, Bᵀ], [B, 0]] ({GRID}², n = {n}, p = {p} pinned points, "
+        f"{n + p} unknowns), tol 1e-5", k, "iterations", secs, res, 1e-4, k_p, secs_p, dx, c, "1",
+        prof)
+    print(f"[10 slice-4 path] 10c slice K[{r0}:{r0 + 1000}, {c0}:{c0 + 1000}] applied = rows of K "
+          f"applied to the zero-padded vector: max|Δ|/max {e_sl:.2e} (limit 1e-6)", flush=True)
+    del Kop, K_plain, A_plain, B, K64, Bs, b, x, x_p, v, pad
+
+    # --- 10d. CG with 8 right-hand sides on the routed SPD matrix ----------------
+    free()
+    op1, A1 = ops["op1"], ops["A1"]
+    p1 = op1.routed
+    check(op1.matrix_path("N") == "routed", "10d: the matrix apply does not take the routed path")
+    P_plain = lt.FunctionOperator(N3, N3, lambda v: routed_matvec(p1, v, use_kernel=False),
+                                  symmetric=True, hermitian=True, dtype=torch.float32)
+    Bm = dev_vec(N3, dev, SEED + 75, k=8)
+    take()
+    (X, k, _), secs = timed_solve(lambda: lt.cg(op1, Bm, tol=1e-5, maxiter=2000))
+    c = take()
+    (X_p, k_p, _), secs_p = timed_solve(lambda: lt.cg(P_plain, Bm, tol=1e-5, maxiter=2000))
+    check(sum(take().values()) == 0, "10d: the plain pipeline launched a kernel")
+    Bh, Xh = Bm.double().cpu().numpy(), X.double().cpu().numpy()
+    res_cols = np.linalg.norm(Bh - A1.astype(np.float64) @ Xh, axis=0) / np.linalg.norm(Bh, axis=0)
+    dx = dx_of(X, X_p)
+    check(torch.isfinite(X).all() and float(res_cols.max()) <= 1e-4 and abs(k - k_p) <= 1,
+          f"10d cg: {k} (plain {k_p}), residuals {res_cols}")
+    check(c["lane_gather_mul_t_batched"] > 0 and c["lane_segsum"] > 0, f"10d launches {c}")
+    prof = device_profile(lambda: lt.cg(op1, Bm, tol=1e-5, maxiter=2000))
+    take()
+    rec["10d cg k=8"] = solve_line(
+        f"10d cg with 8 right-hand sides on step 1's matrix (n = 2^20, {ops['nnz1']} nnz), "
+        f"routed kernels at rep 8, tol 1e-5, worst column", k, "iterations", secs,
+        float(res_cols.max()), 1e-4, k_p, secs_p, dx, c, "1", prof)
+    del Bm, X, X_p, P_plain
+
+    # --- 10e. shifted L-BFGS solves --------------------------------------------
+    free()
+    nq, mem = 1_000_000, 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 76)
+    Bq = lt.LBFGSOperator(torch.float32, nq, mem=mem, device=dev)
+    B64 = lt.LBFGSOperator(torch.float64, nq, mem=mem, device=dev)
+    for _ in range(mem):  # the bench's pairs: y = s + 0.1·noise
+        s_ = torch.randn(nq, generator=g, device=dev)
+        y_ = s_ + 0.1 * torch.randn(nq, generator=g, device=dev)
+        Bq.push(s_, y_)
+        B64.push(s_.double(), y_.double())
+    b = dev_vec(nq, dev, SEED + 77)
+    sigmas = (0.1, 1.0, 10.0)
+    take()
+    xs = {}
+    times = {}
+    for sg in sigmas:
+        x_c = lt.solve_shifted_system(Bq, b, sg)
+        x_e = lt.solve_shifted_system(Bq, b, sg, method="ejm")
+        r64 = float(torch.linalg.vector_norm(b.double() - B64 * x_c.double() - sg * x_c.double())
+                    / torch.linalg.vector_norm(b.double()))
+        e_e = rel_err(x_e, x_c)
+        check(torch.isfinite(x_c).all() and r64 <= 1e-4 and e_e <= 1e-4,
+              f"10e σ {sg}: residual {r64:.3e}, EJM {e_e:.2e}")
+        xs[sg] = x_c
+        times[sg] = (marginal_ms(lambda: lt.solve_shifted_system(Bq, b, sg)),
+                     marginal_ms(lambda: lt.solve_shifted_system(Bq, b, sg, method="ejm")))
+        dev_c = device_profile(lambda: lt.solve_shifted_system(Bq, b, sg))
+        dev_e = device_profile(lambda: lt.solve_shifted_system(Bq, b, sg, method="ejm"))
+        busy = ("device busy not measured" if dev_c[0] is None or dev_e[0] is None else
+                f"device busy {dev_c[0] * 1e3:.1f} us compact (top: "
+                + ", ".join(f"{n_} {ms * 1e3:.1f} us" for n_, ms in dev_c[1])
+                + f"), {dev_e[0] * 1e3:.1f} us EJM (torch.profiler)")
+        print(f"[10 slice-4 path] 10e solve_shifted_system(L-BFGS n = {nq}, mem {mem}, σ {sg:g}): "
+              f"f64 residual {r64:.3e} (limit 1e-4); EJM max|Δ|/max {e_e:.2e} (limit 1e-4); card "
+              f"time per solve {times[sg][0] * 1e3:.1f} us compact, {times[sg][1] * 1e3:.1f} us "
+              f"EJM (eager events); {busy}", flush=True)
+    X3 = lt.solve_shifted_systems(Bq, b, list(sigmas))
+    e3 = max(rel_err(X3[i], xs[sg]) for i, sg in enumerate(sigmas))
+    check(e3 <= 1e-4, f"10e solve_shifted_systems: {e3:.2e}")
+    t3 = marginal_ms(lambda: lt.solve_shifted_systems(Bq, b, list(sigmas)))
+    (x_m, k_m, _), secs_m = timed_solve(
+        lambda: lt.minres(lt.ShiftedOperator(Bq, 1.0), b, tol=1e-6, maxiter=200))
+    e_m = rel_err(x_m, xs[1.0])
+    check(e_m <= 1e-4, f"10e minres(B + I): {k_m} iterations, {e_m:.2e} from compact")
+    c = take()
+    print(f"[10 slice-4 path] 10e solve_shifted_systems(σ = {list(sigmas)}): max|Δ|/max against "
+          f"the single solves {e3:.2e}, {t3 * 1e3:.1f} us per call for all three (eager events); "
+          f"minres(ShiftedOperator(B, 1)) {k_m} iterations in {secs_m:.3f} s, max|Δ|/max against "
+          f"compact {e_m:.2e} (limit 1e-4); launches {c}", flush=True)
+    rec["10e"] = {"compact_ms": {sg: t[0] for sg, t in times.items()},
+                  "ejm_ms": {sg: t[1] for sg, t in times.items()}, "batched3_ms": t3,
+                  "minres_iters": k_m}
+    del Bq, B64, b, xs, X3, x_m
+    print(f"[10 slice-4 path] launches over 10a-10e: { {n: c for n, c in totals.items() if c} }",
+          flush=True)
+    return totals, rec
 
 
 def library_ms(blocks, cols, xb, ub, K):
@@ -1126,9 +1615,11 @@ def main() -> int:
     print(f"[4 entry step] n={ne}: max|Δ|/max|x| vs numpy f64 {e_rel:.2e} (limit 1e-4)", flush=True)
 
     win_err = phase6(lt, K, dev)
-    win_launches = phase7(lt, K, dev)
+    win_launches, laplacian_op = phase7(lt, K, dev)
     ops = phase9(lt, K, LG, dev)
     lane_err, k8_launches, p3s = phase8(lt, LG, dev, ops)
+    k1314_err, k13_launches = phase8_k13_k14(lt, LG, dev, ops)
+    lane_err.update(k1314_err)
 
     # --- 5. times ---------------------------------------------------------------
     times = {}
@@ -1184,6 +1675,13 @@ def main() -> int:
     win_times = phase5_windows(lt, K, dev, card)
     lane_times = phase5_lanes(lt, LG, dev, ops, p3s, card)
 
+    # --- 10. slice 4 (after the times: its profiler traces come last) ---------
+    slice4_launches, _ = phase10(lt, K, LG, dev, ops, laplacian_op)
+    del laplacian_op
+    for name in ("lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum",
+                 "lane_gather_mul_segsum", "bsr_matvec_windowed"):
+        check(slice4_launches[name] > 0, f"{name} never ran on the slice-4 path")
+
     main_case = times[("8x128", torch.float32)]
 
     def entry(name, source, replaces, launches_, err, ms, plain, bound, library):
@@ -1205,11 +1703,16 @@ def main() -> int:
                              t[name], t[name + " plain"], t[name + " bound"], None))
     for name, replaces in LANE_KERNELS.items():
         t = lane_times[name]
-        n_launch = k8_launches if name == "lane_gather_mul" else ops["launches"][name]
-        kernels.append({**entry(name, LG_SOURCE, replaces, n_launch, lane_err[name], t["ms"],
-                                t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"]),
-                        "timing": "cuda_graph", "event_ms": t["event_ms"],
-                        "profiler_ms": t["profiler_ms"]})
+        # K8: its 3-stage operator's apply; K13: the CG on step 1's program
+        # without bounds (no pack builds one); K14: no path calls it
+        n_launch = {"lane_gather_mul": k8_launches, "tiled_combine": k13_launches,
+                    "lane_gather_mul_t": 0}.get(name, ops["launches"][name])
+        row = {**entry(name, LG_SOURCE, replaces, n_launch, lane_err[name], t["ms"],
+                       t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"]),
+               "timing": "cuda_graph", "event_ms": t["event_ms"], "profiler_ms": t["profiler_ms"]}
+        if name in LAUNCH_SOURCES:
+            row["launches_from"] = LAUNCH_SOURCES[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -514,7 +514,12 @@ class LinearOperator(abc.ABC):
         wrapped = self._wrap_operand(other)
         if wrapped is not None:
             return Sum(self, wrapped)
-        # op + scalar (op + x·opOnes) comes with opOnes in a later slice
+        if self._is_scalar(other):
+            # op + x == op + x·opOnes, the ones on this operator's device
+            from ..ops.eye import Ones
+
+            return Sum(self, other * Ones(self.nrow, self.ncol, dtype=self.dtype,
+                                          device=self.device))
         return NotImplemented
 
     def __radd__(self, other):
@@ -526,6 +531,8 @@ class LinearOperator(abc.ABC):
         wrapped = self._wrap_operand(other)
         if wrapped is not None:
             return self + (-wrapped)
+        if self._is_scalar(other):
+            return self + (-other)
         return NotImplemented
 
     def __rsub__(self, other):
@@ -538,6 +545,15 @@ class LinearOperator(abc.ABC):
 
     def __pos__(self):
         return self
+
+    def __getitem__(self, key):
+        """Slicing returns an operator: ``op[rows, cols] == R @ op @ E`` with
+        0-based ints, slices or index arrays (``ops/restriction.py``)."""
+        from ..ops.restriction import op_getindex
+
+        if not (isinstance(key, tuple) and len(key) == 2):
+            raise LinearOperatorException("operators are sliced with op[rows, cols]")
+        return op_getindex(self, key[0], key[1])
 
     # ------------------------------------------------------------------
     # Symmetrizers

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["matmul_precision", "f32_exact", "check_f32_exact", "pdot", "pmatmul",
-           "pvdot"]
+           "pvdot", "pcolumn_dot"]
 
 
 def matmul_precision(*dtypes) -> str:
@@ -70,3 +70,10 @@ def pvdot(a, b):
     """``conj(a)·b`` of two vectors (``jnp.vdot``) under the policy."""
     a, b = _promoted(a, b)
     return torch.vdot(a, b)
+
+
+def pcolumn_dot(U, V):
+    """Per-column ``<u_j, v_j>`` (conjugating U) of two (n, k) blocks: an
+    elementwise product and a column sum, in the promoted dtype."""
+    U, V = _promoted(U, V)
+    return (U.conj() * V).sum(dim=0)

@@ -22,8 +22,14 @@
 //       (terms at -1 read as 0)
 // K12 linops_lane_gather_mul_segsum replaces lane_gather.py::lane_gather_mul_segsum:
 //       K8, then K11 on the products
+// K13 linops_tiled_combine replaces lane_gather.py::tiled_combine:
+//       y[j, t*128 + i] = sum over k of q[j, t*K + k] * [rowid[t, k] == i] for T
+//       tiles of 128 rows, K slots each (rowid -1 = trash), repeat j of rep
+// K14 lane_gather.py::lane_gather_mul_t (K9 for one chunk, one repeat) has no
+//       entry point of its own: its wrapper launches linops_lane_gather_mul_t
+//       with C = 1 and rep = 1, as the TPU kernel ran K9's kernel body
 //
-// What bounds them: all six move each input byte once and do one or two flops
+// What bounds them: all seven move each input byte once and do one or two flops
 // per element, so each is bound by device-memory bytes: (bytes read once +
 // bytes written) / 3.35 TB/s. A row of 128 f32 values is 512 bytes, of int8
 // indices 128 bytes; the shared arrays are read once per repeat (they stay in
@@ -42,6 +48,18 @@
 // values in their own type (f32 or bf16) beside data of either type, and write
 // the promoted type (f32 unless both are bf16), so a bf16 program applied to f32
 // data is never converted on the host.
+//
+// K13 takes any rowid per tile, not only the contiguous runs the pack makes
+// (the TPU kernel was a one-hot contraction over each tile's slots). One
+// thread block per (repeat, tile) walks the tile's K slots in order, 256 at a
+// time, one slot per thread, with coalesced loads of q and rowid. Inside a
+// warp, __match_any_sync groups the lanes of one row and every lane of a
+// group sums the group's values in lane order (shuffles); the group's lowest
+// lane adds the sum into its warp's 128-row partial in shared memory. At the
+// end thread i sums the eight warps' partials of row i in warp order and
+// writes row i once. So the result is the same bits on every run: no float
+// atomics, and every sum is taken in a fixed order. Sums are in f32; the
+// output is q's type.
 //
 // The TPU kernels required R0 to be a multiple of 128 rows (their VMEM tile,
 // lane_gather.py::_tile_rows). These take any R0 and any row count: a thread
@@ -272,6 +290,46 @@ gather_mul_segsum_kernel(const TA* __restrict__ a, const int8_t* __restrict__ id
   }
 }
 
+// one block per (repeat j, tile t): blockIdx.x = j*T + t
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tiled_combine_kernel(const T* __restrict__ q, const int8_t* __restrict__ rowid,
+                     T* __restrict__ out, int64_t tiles, int64_t K) {
+  __shared__ float part[kWarps][kLanes];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t jt = blockIdx.x;
+  const int64_t t = jt % tiles;
+  for (int i = threadIdx.x; i < kWarps * kLanes; i += kThreads) (&part[0][0])[i] = 0.f;
+  __syncthreads();
+  const T* qt = q + jt * K;
+  const int8_t* rt = rowid + t * K;
+  for (int64_t k0 = 0; k0 < K; k0 += kThreads) {
+    const int64_t k = k0 + threadIdx.x;
+    int r = -1;
+    float v = 0.f;
+    if (k < K) {
+      r = rt[k];
+      v = widen(qt[k]);
+    }
+    const unsigned group = __match_any_sync(0xffffffffu, r);
+    float s = 0.f;
+#pragma unroll
+    for (int src = 0; src < 32; ++src) {  // lane order: the same sum on every lane of a group
+      const float u = __shfl_sync(0xffffffffu, v, src);
+      if (group >> src & 1u) s += u;
+    }
+    if (r >= 0 && lane == __ffs(group) - 1) part[warp][r & 127] += s;
+    __syncwarp();
+  }
+  __syncthreads();
+  if (threadIdx.x < kLanes) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) acc += part[w][threadIdx.x];
+    out[jt * kLanes + threadIdx.x] = narrow<T>(acc);
+  }
+}
+
 unsigned row_blocks(int64_t rows) {
   const int64_t b = (rows + kWarps - 1) / kWarps;
   return static_cast<unsigned>(b < kMaxBlocks ? b : kMaxBlocks);
@@ -399,6 +457,22 @@ int linops_lane_gather_mul_segsum(const void* a, const void* idx, const void* va
         static_cast<const TA*>(a), static_cast<const int8_t*>(idx), static_cast<const TV*>(vals),
         static_cast<const int8_t*>(lo), static_cast<const int8_t*>(hi), static_cast<TO*>(out),
         rows, r0);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K13: q (rep*T*K) in dtype, rowid (T, K) int8, out (rep*T*128) in dtype.
+int linops_tiled_combine(const void* q, const void* rowid, void* out, int64_t tiles, int64_t K,
+                         int64_t rep, int dtype, int device, void* stream) {
+  if (int err = begin(device)) return err;
+  if (tiles <= 0 || rep <= 0) return 0;
+  if (rep * tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    tiled_combine_kernel<T><<<static_cast<unsigned>(rep * tiles), kThreads, 0, s>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(rowid), static_cast<T*>(out), tiles,
+        K);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -1,4 +1,4 @@
-"""Lane-gather kernels K7-K12, their plain versions and launch counts.
+"""Lane-gather kernels K7-K14, their plain versions and launch counts.
 
 Counterparts of ``linops_tpu/kernels/lane_gather.py``, the crossbar primitive
 of the Clos-routed unstructured SpMV (``sparse/routing.py``,
@@ -9,7 +9,11 @@ of the Clos-routed unstructured SpMV (``sparse/routing.py``,
 - ``lane_gather_mul_t_batched`` replaces ``lane_gather_mul_t_batched`` (K9);
 - ``lane_gather_sum`` replaces ``lane_gather_sum`` (K10);
 - ``lane_segsum`` replaces ``lane_segsum`` (K11);
-- ``lane_gather_mul_segsum`` replaces ``lane_gather_mul_segsum`` (K12).
+- ``lane_gather_mul_segsum`` replaces ``lane_gather_mul_segsum`` (K12);
+- ``tiled_combine`` replaces ``tiled_combine`` (K13): the row combine over
+  128-row tiles for a routed program without segment bounds;
+- ``lane_gather_mul_t`` replaces ``lane_gather_mul_t`` (K14): K9 for one
+  chunk and one repeat, launched through K9's kernel.
 
 All work on rows of 128 lanes with int8 lane indices. Index, value and
 boundary arrays are shared by every repeat of the data (the reference's
@@ -45,12 +49,16 @@ __all__ = [
     "lane_gather_sum",
     "lane_segsum",
     "lane_gather_mul_segsum",
+    "tiled_combine",
+    "lane_gather_mul_t",
     "lane_gather_plain",
     "lane_gather_mul_plain",
     "lane_gather_mul_t_batched_plain",
     "lane_gather_sum_plain",
     "lane_segsum_plain",
     "lane_gather_mul_segsum_plain",
+    "tiled_combine_plain",
+    "lane_gather_mul_t_plain",
     "launch_counts",
     "reset_launch_counts",
     "RADIX",
@@ -61,7 +69,8 @@ RADIX = 128
 # kernel name -> launches since the last reset; bumped only where a kernel
 # is launched (never by the plain versions)
 _LAUNCHES = {"lane_gather": 0, "lane_gather_mul": 0, "lane_gather_mul_t_batched": 0,
-             "lane_gather_sum": 0, "lane_segsum": 0, "lane_gather_mul_segsum": 0}
+             "lane_gather_sum": 0, "lane_segsum": 0, "lane_gather_mul_segsum": 0,
+             "tiled_combine": 0, "lane_gather_mul_t": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -152,6 +161,24 @@ def lane_gather_mul_segsum_plain(a, idx, vals, lo, hi, rep: int = 1):
     return _segsum(z, lo, hi, rep).to(res)
 
 
+def tiled_combine_plain(q, rowid, rep: int = 1):
+    """out[j, t·128 + i] = Σ_k q[j, t·K + k]·[rowid[t, k] == i] over T tiles of
+    K slots (rowid < 0 = trash): q (rep·T·K,) -> (rep·T·128,), summed in at
+    least f32 and rounded once to q's dtype."""
+    T, K = rowid.shape
+    rid = rowid.long()
+    seg = torch.where(rid >= 0, torch.arange(T, device=rid.device)[:, None] * RADIX + rid,
+                      T * RADIX).reshape(-1)
+    out = torch.zeros((rep, T * RADIX + 1), dtype=_acc(q.dtype), device=q.device)
+    out.index_add_(1, seg, q.reshape(rep, T * K).to(out.dtype))
+    return out[:, :T * RADIX].reshape(-1).to(q.dtype)
+
+
+def lane_gather_mul_t_plain(xw, idx, vals):
+    """K8 on one (m, L) chunk, transposed: (L, m) in ``promote(vals, xw)``."""
+    return lane_gather_mul_plain(xw, idx, vals).t().contiguous()
+
+
 # ----------------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------------
@@ -170,9 +197,10 @@ def _lib():
         lib.linops_lane_gather_sum.argtypes = [p, p, p, i64, i64, i32] + tail
         lib.linops_lane_segsum.argtypes = [p, p, p, p, i64, i64] + tail
         lib.linops_lane_gather_mul_segsum.argtypes = [p, p, p, p, p, p, i64, i64, i32] + tail
+        lib.linops_tiled_combine.argtypes = [p, p, p, i64, i64, i64] + tail
         for name in ("linops_lane_gather", "linops_lane_gather_mul", "linops_lane_gather_mul_t",
                      "linops_lane_gather_sum", "linops_lane_segsum",
-                     "linops_lane_gather_mul_segsum"):
+                     "linops_lane_gather_mul_segsum", "linops_tiled_combine"):
             getattr(lib, name).restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
@@ -368,6 +396,59 @@ def lane_gather_mul_segsum(a, idx, vals, lo, hi, rep: int = 1):
                                            lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
                                            a.shape[0], r0, *_codes(vals, a),
                                            *_device_stream(a))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return out
+
+
+def tiled_combine(q, rowid, rep: int = 1):
+    """K13: the row combine over 128-row tiles, for any ``rowid`` per tile:
+    q (rep·T·K,) partials, tile t of repeat j owning slots [(j·T + t)·K, ...),
+    over a shared int8 rowid (T, K) (row within the tile, −1 = trash); returns
+    (rep·T·128,) row sums in q's dtype, summed in f32 in a fixed order (the
+    same bits on every run). CPU tensors take ``tiled_combine_plain``."""
+    if _on_cpu(q, "tiled_combine"):
+        return tiled_combine_plain(q, rowid, rep)
+    what = "tiled_combine"
+    dt = _kernel_dtype(what, q.dtype)
+    if rowid.dim() != 2:
+        raise ValueError(f"{what}: rowid must be (T, K), got {tuple(rowid.shape)}")
+    T, K = rowid.shape
+    if rowid.dtype != torch.int8:
+        raise TypeError(f"{what}: rowid must be int8, got {rowid.dtype}")
+    if q.device != rowid.device:
+        raise ValueError(f"{what}: rowid is on {rowid.device}, expected {q.device}")
+    if rep < 1 or q.dim() != 1 or q.shape[0] != rep * T * K:
+        raise ValueError(f"{what}: q must be (rep·T·K,) = ({rep * T * K},), got "
+                         f"{tuple(q.shape)}")
+    if not (q.is_contiguous() and rowid.is_contiguous()):
+        raise ValueError(f"{what}: q and rowid must be contiguous")
+    out = torch.empty(rep * T * RADIX, dtype=dt, device=q.device)
+    lib = _lib()
+    rc = lib.linops_tiled_combine(q.data_ptr(), rowid.data_ptr(), out.data_ptr(), T, K, rep,
+                                  _DTYPE_CODE[dt], *_device_stream(q))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return out
+
+
+def lane_gather_mul_t(xw, idx, vals):
+    """K14: K8 on one chunk with a transposed output: xw, idx, vals (m, 128)
+    -> (128, m) in ``promote(vals, xw)``, any m. On the card it launches K9's
+    kernel with C = 1 and rep = 1 and counts as K14. CPU tensors take
+    ``lane_gather_mul_t_plain``."""
+    if _on_cpu(xw, "lane_gather_mul_t"):
+        return lane_gather_mul_t_plain(xw, idx, vals)
+    what = "lane_gather_mul_t"
+    m = idx.shape[0]
+    if xw.shape[0] != m:
+        raise ValueError(f"{what}: xw has {xw.shape[0]} rows, idx {m}")
+    xw, idx, vals, dt = _mul_operands(xw, idx, vals, 1, what)
+    out = torch.empty((RADIX, m), dtype=dt, device=xw.device)
+    lib = _lib()
+    rc = lib.linops_lane_gather_mul_t(xw.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+                                      out.data_ptr(), 1, m, 1, *_codes(vals, xw),
+                                      *_device_stream(xw))
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out

@@ -1,1 +1,2 @@
-"""Special operators: identity and diagonal."""
+"""Special operators: identity, ones and zeros, diagonal, permutation,
+restriction and extension, shift, and block concatenation."""

@@ -204,6 +204,29 @@ def _compact_middle(state: LBFGSState, inverse: bool):
     return _block([[-Minv, -MLdi], [-MLdi.T, G22]])
 
 
+def _forward_compact_parts(state: LBFGSState):
+    """The forward compact form B = θI − U K⁻¹ Uᵀ, U = [θS Y],
+    K = [[θSᵀS, L], [Lᵀ, −D]] (L the strict lower triangle of SᵀY, D its
+    diagonal; BNS 1994 thm 2.3), in oldest → newest order, for the shifted
+    solves: (θ, K, W = Uᵀ as (2mem, n), SᵀS, SᵀY, YᵀY, valid). Built from
+    the push-maintained Grams; empty slots get a unit K diagonal and zero
+    Gram rows and columns."""
+    order = _oldest_first(state)
+    valid = state.ys[order] != 0
+    vmask2 = valid[:, None] & valid[None, :]
+    theta = 1.0 / state.gamma
+    SY_o = _where0(vmask2, state.SY[order][:, order])
+    SS_o = _where0(vmask2, state.SS[order][:, order])
+    YY_o = _where0(vmask2, state.YY[order][:, order])
+    L = torch.tril(SY_o, diagonal=-1)
+    K = _block([[theta * SS_o, L], [L.T, -torch.diag(torch.diagonal(SY_o))]])
+    valid2 = torch.cat([valid, valid])
+    K = _where0(valid2[:, None] & valid2[None, :], K) + torch.diag(
+        torch.where(valid2, 0.0, 1.0).to(K.dtype))
+    W = torch.cat([theta * state.S[order], state.Y[order]], dim=0)
+    return theta, K, W, SS_o, SY_o, YY_o, valid
+
+
 def _compact_apply(state: LBFGSState, x, inverse: bool):
     """One (2mem, n) pass over W, one (2mem)² mat-vec with ``state.G``, one
     pass over Wᵀ:  forward  B v = θv + Wᵀ G (W v),  W = [θS; Y];

@@ -1,0 +1,120 @@
+"""Shifted L-BFGS systems: (B + σI) x = b for a forward L-BFGS operator B.
+
+Counterpart of ``linops_tpu/qn/shifted_solve.py`` (Erway, Jain and Marcia,
+"Shifted L-BFGS systems", Optim. Methods Softw. 29(5), 2014). Two methods:
+
+- ``compact`` (default): Woodbury on the forward compact form,
+  (B + σI)⁻¹ b = b/c + U (cK − UᵀU)⁻¹ Uᵀb / c with c = θ + σ: two
+  (2·mem, n) passes and one (2·mem)² dense solve. Exact for every σ ≥ 0,
+  σ = 0 on a partly filled ring included. ``solve_shifted_systems`` solves
+  several σ at once and shares both passes among them.
+- ``ejm``: the EJM recursion, 2·mem sequential rank-1 corrections (a host
+  loop of small tensor ops). At σ = 0 on a partly filled ring it is
+  degenerate (the oldest pair's unit a-vector makes 1 − x₀⟨a, p⟩ = 0), and
+  it raises there; prefer ``compact``.
+
+The compact method reads the state's Grams (SᵀS, SᵀY, YᵀY), which every push
+keeps; the EJM method reads the a/b vectors, materialized first if a lazy
+push deferred them. Everything runs on the state's device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.precision import pdot, pmatmul
+from .lbfgs import LBFGSOperator, LBFGSState, _forward_compact_parts
+
+__all__ = ["solve_shifted_system", "solve_shifted_systems", "ldiv"]
+
+
+def _solve_shifted(state: LBFGSState, b, sigma):
+    """The EJM recursion. The pair of step i (0-based) is slot
+    (insert + i//2 + 1) mod mem; even steps use its a-vector, odd steps its
+    b-vector, with signs +1 and −1."""
+    mem, n = state.S.shape
+    dt = b.dtype
+    x0 = 1.0 / (1.0 / state.gamma + sigma)
+    x = x0 * b
+    two_mem = 2 * mem
+    t_signs = torch.where(torch.arange(two_mem, device=b.device) % 2 == 0, 1.0, -1.0).to(dt)
+    P = torch.zeros((two_mem, n), dtype=dt, device=b.device)
+    v = torch.zeros((two_mem,), dtype=dt, device=b.device)
+    insert = int(state.insert)
+    for i in range(two_mem):
+        k = (insert + i // 2 + 1) % mem
+        sign = 1.0 if i % 2 == 0 else -1.0
+        u = state.A[k] if sign == 1.0 else state.B[k]
+        # p_i = x0·u + Σ_{t<i} sign_t·v_t·⟨p_t, u⟩·p_t, one (2mem, n) pass each way
+        c = torch.zeros_like(v)
+        c[:i] = t_signs[:i] * v[:i] * pmatmul(P[:i], u)
+        p_i = x0 * u + pmatmul(P.T, c)
+        v_i = 1.0 / (1.0 - sign * pdot(u, p_i))
+        x = x + sign * v_i * pdot(p_i, b) * p_i
+        P[i] = p_i
+        v[i] = v_i
+    return x
+
+
+def _solve_shifted_compact(state: LBFGSState, b, sigmas):
+    """Woodbury on the forward compact form for a vector of shifts:
+    returns (len(sigmas), n). The two (2·mem, n) passes, Uᵀb and U·coef, are
+    shared by every σ."""
+    theta, K, W, SS_o, SY_o, YY_o, valid = _forward_compact_parts(state)
+    c = theta + sigmas  # (S,)
+    UtU = torch.cat([torch.cat([theta ** 2 * SS_o, theta * SY_o], dim=1),
+                     torch.cat([theta * SY_o.T, YY_o], dim=1)], dim=0)
+    Mk = c[:, None, None] * K[None] - UtU[None]
+    # a unit diagonal on empty coordinates keeps each system nonsingular
+    valid2 = torch.cat([valid, valid])
+    fix = torch.diag(torch.where(valid2, 0.0, 1.0).to(Mk.dtype))
+    Mk = torch.where((valid2[:, None] & valid2[None, :])[None], Mk, torch.zeros_like(Mk)) + fix
+    Utb = pmatmul(W, b)  # (2mem,)
+    # solve_ex: no host sync for an error check (a singular system gives
+    # non-finite values, as the reference's jnp.linalg.solve does)
+    coef = torch.linalg.solve_ex(Mk, Utb.expand(Mk.shape[0], -1).unsqueeze(-1))[0].squeeze(-1)
+    return b[None, :] / c[:, None] + pmatmul(coef, W) / c[:, None]
+
+
+def _check(B: LBFGSOperator, what: str):
+    if B.inverse:
+        raise ValueError(f"{what} requires a forward L-BFGS operator")
+
+
+def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact"):
+    """Solve ``(B + σI) x = b`` for a forward L-BFGS operator B and σ ≥ 0.
+    ``method="compact"`` (default) is the Woodbury solve, ``method="ejm"``
+    the Erway-Jain-Marcia recursion. Returns x (n,) on B's device."""
+    _check(B, "solve_shifted_system")
+    if float(sigma) < 0:
+        raise ValueError("σ must be nonnegative")
+    dev = B.state.S.device
+    b = torch.as_tensor(b, dtype=B.dtype, device=dev)
+    sigma_t = torch.as_tensor(sigma, dtype=B.dtype, device=dev)
+    if method == "compact":
+        return _solve_shifted_compact(B.state, b, sigma_t.reshape(1))[0]
+    if method == "ejm":
+        state = B._materialized_state()
+        if float(sigma) == 0 and bool((state.ys == 0).any()):
+            raise ValueError(
+                "EJM is degenerate at sigma=0 on a partially-filled ring (the oldest pair's "
+                "unit a-vector makes 1 - x0<a,p> = 0); use the default compact method")
+        return _solve_shifted(state, b, sigma_t)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def solve_shifted_systems(B: LBFGSOperator, b, sigmas):
+    """Solve ``(B + σᵢI) x = b`` for a batch of shifts at once (the compact
+    solve, both (2·mem, n) passes shared). Returns (len(sigmas), n)."""
+    _check(B, "solve_shifted_systems")
+    dev = B.state.S.device
+    sig = torch.as_tensor(sigmas, dtype=B.dtype, device=dev).reshape(-1)
+    if bool((sig < 0).any()):
+        raise ValueError("σ must be nonnegative")
+    b = torch.as_tensor(b, dtype=B.dtype, device=dev)
+    return _solve_shifted_compact(B.state, b, sig)
+
+
+def ldiv(B: LBFGSOperator, b):
+    """Solve ``B x = b`` (the σ = 0 case)."""
+    return solve_shifted_system(B, b, 0.0)

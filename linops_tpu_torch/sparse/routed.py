@@ -3,7 +3,7 @@
 Counterpart of ``linops_tpu/sparse/routed.py``. ``x[cols]`` over scattered
 columns is a fine-grained gather; this module turns an unstructured SpMV into
 a fixed sequence of gathers within rows of 128 lanes (the lane-gather kernels
-K7-K12, ``kernels/lane_gather.py``):
+K7-K13, ``kernels/lane_gather.py``):
 
 1. **Pack (host, numpy):** nnz are laid out column-block-major, each
    128-column block's segment padded to a multiple of 128, so fetching
@@ -19,8 +19,10 @@ K7-K12, ``kernels/lane_gather.py``):
    crossbar fused with the width-w slot sum (K10).
 4. **Combine:** rows are tiled by 128 and each tile's sub-rows padded to a
    shared slot count K at pack time, so the partial→row reduction is a
-   per-window contiguous segment sum (K11). Pathological tiles fall back to
-   a chain of routed ``ReducePass`` rounds.
+   per-window contiguous segment sum (K11); a program whose segment bounds
+   were dropped takes the tiled combine (K13), which accepts any row order
+   within a tile. Pathological tiles fall back to a chain of routed
+   ``ReducePass`` rounds.
 
 The transpose runs the same network backwards (``RoutedTranspose``), ending
 in K12. Matrices beyond one routing domain (2^21 slots) are chunked by row
@@ -706,13 +708,6 @@ def _take(a, idx, use_kernel, rep: int = 1):
     return LG.lane_gather_plain(a, idx, rep)
 
 
-def _segment_sum(q, seg, n: int):
-    """Sum of q's entries per segment id (ids ≥ n are dropped)."""
-    out = torch.zeros((n + 1,) + tuple(q.shape[1:]), dtype=q.dtype, device=q.device)
-    out.index_add_(0, seg.clamp(max=n), q)
-    return out[:n]
-
-
 def _crossbar_chain(a, mids, use_kernel, C: int, m: int, rep: int, pre_w1=False):
     """The crossbars between the first and the last (``routing.py::clos_apply``)
     with their wirings, over all chunks and repeats at once: one gather per
@@ -817,18 +812,14 @@ def _tiled_combine(q, p: RoutedSpMV, use_kernel, rep: int):
     T8, K = p.rowid.shape
     if q.shape[1] < T8 * K:
         q = torch.nn.functional.pad(q, (0, T8 * K - q.shape[1]))
-    if use_kernel:
-        if p.comb_lo is None:  # every tiled pack sets comb_lo
-            raise NotImplementedError(
-                "a tiled combine without segment bounds needs the one-hot tiled combine (K13, "
-                "linops_tpu/kernels/lane_gather.py::tiled_combine), which is not ported yet")
+    if use_kernel and p.comb_lo is not None:
         S = LG.lane_segsum(q.reshape(rep * T8 * K // RADIX, RADIX).contiguous(), p.comb_lo,
                            p.comb_hi, rep=rep)
         return S.reshape(rep, T8, K // RADIX, RADIX).sum(dim=2).reshape(rep, -1)
-    rid = p.rowid.long()
-    seg = torch.where(rid >= 0, torch.arange(T8, device=rid.device)[:, None] * RADIX + rid,
-                      T8 * RADIX).reshape(-1)
-    return _segment_sum(q.t(), seg, T8 * RADIX).t()
+    # any rowid per tile (the pack always sets the bounds): K13, or its plain
+    # version, a segment sum, on the plain pipeline
+    combine = LG.tiled_combine if use_kernel else LG.tiled_combine_plain
+    return combine(q.reshape(-1).contiguous(), p.rowid, rep=rep).reshape(rep, -1)
 
 
 def routed_matvec(p: RoutedSpMV, x, use_kernel=None):

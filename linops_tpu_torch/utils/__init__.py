@@ -1,1 +1,1 @@
-"""Iterative methods: the matvec chain and conjugate gradients."""
+"""Iterative methods: the matvec chain and the Krylov solvers."""

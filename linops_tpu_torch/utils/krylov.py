@@ -1,20 +1,30 @@
-"""Krylov methods: the matvec chain and preconditioned conjugate gradients.
+"""Krylov methods: the matvec chain, CG (one or several right-hand sides),
+GMRES, MINRES (one or several right-hand sides), BiCGSTAB, LSQR, power
+iteration and Chebyshev iteration.
 
-Counterpart of ``linops_tpu/utils/krylov.py`` (``matvec_chain`` and
-single-RHS ``cg``; the other solvers come with a later slice). PyTorch runs
-eagerly, so the loops are host loops that enqueue device work; ``cg``
-reads one scalar back per iteration (its stopping test). The reference's
-TPU residency hint (``chain_resident``) has no counterpart.
+Counterpart of ``linops_tpu/utils/krylov.py``: the same recurrences, the same
+stopping tests and the same returned tuples. PyTorch runs eagerly, so each
+solver is a host loop that enqueues device work and reads one scalar back
+per iteration (its stopping test; GMRES once per restart cycle, Chebyshev
+and power iteration never). Every solver works on the operator's device,
+in ``promote(b, op)``; a preconditioner's output is cast to that dtype. The
+reference's TPU residency hint (``chain_resident``) has no counterpart.
+
+GMRES keeps the reference's scheme: one Arnoldi cycle of ``restart`` steps
+with full (classical Gram-Schmidt) orthogonalization against the whole
+basis, then the small least-squares problem solved through an SVD with the
+reference's cutoff, and it counts restarts, not iterations.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException
-from ..core.precision import pvdot
+from ..core.base import LinearOperator
+from ..core.precision import pcolumn_dot, pmatmul, pvdot
 
-__all__ = ["matvec_chain", "cg"]
+__all__ = ["matvec_chain", "cg", "gmres", "minres", "bicgstab", "lsqr", "chebyshev",
+           "power_iteration"]
 
 
 def matvec_chain(op: LinearOperator, v, iters: int = 100, mode: str = "N",
@@ -29,21 +39,40 @@ def matvec_chain(op: LinearOperator, v, iters: int = 100, mode: str = "N",
     return x
 
 
+def _setup(op, b, M=None):
+    """(b in the solver dtype, that dtype, its real dtype, the preconditioner
+    as a function)."""
+    dt = torch.promote_types(b.dtype, op.dtype)
+    rdt = torch.empty((), dtype=dt).real.dtype
+
+    def prec(v, matrix=False):
+        if M is None:
+            return v
+        return (M.apply_matrix(v, "N") if matrix else M.apply(v, "N")).to(dt)
+
+    return b.to(dt), dt, rdt, prec
+
+
+def _nonzero(x):
+    """x, with exact zeros replaced by 1 (the reference's guarded divisor)."""
+    return torch.where(x == 0, torch.ones_like(x), x)
+
+
 def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
        M: LinearOperator = None):
     """Conjugate gradients on a symmetric positive-definite operator, with an
     optional preconditioner ``M ≈ A⁻¹`` (e.g. an ``InverseLBFGSOperator``).
     Stops when ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations. Returns
-    (x, iterations, final residual norm as a 0-dim tensor)."""
-    if b.ndim != 1:
-        raise LinearOperatorException("cg takes a vector b (multi-RHS cg is not ported yet)")
-    dt = torch.promote_types(b.dtype, op.dtype)
-    b = b.to(dt)
+    (x, iterations, final residual norm as a 0-dim tensor).
+
+    A 2-D ``b`` of shape (n, k) solves the k systems at once over
+    ``apply_matrix`` (``_cg_multi``) and returns per-column residual norms."""
+    if b.ndim == 2:
+        return _cg_multi(op, b, x0, tol=tol, maxiter=maxiter, M=M)
+    b, dt, _, prec = _setup(op, b, M)
     x = torch.zeros_like(b) if x0 is None else x0.to(dt)
     r = b - op.apply(x, "N")
-    # the preconditioner's output is cast to the solver dtype so the
-    # recurrence stays in one dtype even for a mixed-precision M
-    z = M.apply(r, "N").to(dt) if M is not None else r
+    z = prec(r)
     p = z
     rz = pvdot(r, z)
     tol2 = (tol * torch.linalg.vector_norm(b)) ** 2
@@ -54,10 +83,340 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
         alpha = rz / pvdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = M.apply(r, "N").to(dt) if M is not None else r
+        z = prec(r)
         rz_new = pvdot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         rr = pvdot(r, r).real
         k += 1
     return x, k, torch.sqrt(rr)
+
+
+def _cg_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int = 100,
+              M: LinearOperator = None):
+    """Multi-RHS CG: k independent per-column recurrences over
+    ``apply_matrix`` (each operator read serves the k columns). A column
+    that has converged or broken down freezes (its α is 0), so a late column
+    cannot poison an early one. Returns (X, iterations, per-column residual
+    norms)."""
+    B, dt, _, prec = _setup(op, B, M)
+    X = torch.zeros_like(B) if X0 is None else X0.to(dt)
+    R = B - op.apply_matrix(X, "N")
+    Z = prec(R, matrix=True)
+    P = Z
+    rz = pcolumn_dot(R, Z)
+    tol2 = (tol * torch.linalg.vector_norm(B, dim=0)) ** 2
+    act = pcolumn_dot(R, R).real > tol2
+    k = 0
+    while k < maxiter and bool(act.any()):
+        AP = op.apply_matrix(P, "N")
+        pAp = pcolumn_dot(P, AP)
+        zero = torch.zeros_like(rz)
+        alpha = torch.where(act, rz / torch.where(act & (pAp != 0), pAp, torch.ones_like(pAp)),
+                            zero)
+        X = X + P * alpha[None, :]
+        R = R - AP * alpha[None, :]
+        Z = prec(R, matrix=True)
+        rz_new = pcolumn_dot(R, Z)
+        beta = torch.where(act & (rz != 0), rz_new / _nonzero(rz), zero)
+        P = Z + P * beta[None, :]
+        rz = rz_new
+        act = pcolumn_dot(R, R).real > tol2
+        k += 1
+    return X, k, torch.sqrt(pcolumn_dot(R, R).real)
+
+
+def _lstsq(a, b):
+    """min ‖a y − b‖ through the SVD, singular values below
+    eps·max(a.shape)·s₀ dropped (``jnp.linalg.lstsq``'s default)."""
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    mask = s >= torch.finfo(s.dtype).eps * max(a.shape) * s[0]
+    s_inv = torch.where(mask, 1.0 / torch.where(mask, s, torch.ones_like(s)),
+                        torch.zeros_like(s)).to(a.dtype)
+    return pmatmul(vh.conj().T, s_inv * pmatmul(u.conj().T, b))
+
+
+def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 30,
+          maxiter: int = 10, M: LinearOperator = None):
+    """Restarted GMRES(m) for general square operators, with an optional
+    left preconditioner ``M ≈ A⁻¹``. Each restart cycle runs ``restart``
+    Arnoldi steps with full orthogonalization, then solves the small
+    least-squares problem. Stops when ‖b − Ax‖ ≤ tol·‖b‖ or after
+    ``maxiter`` cycles. Returns (x, restarts used, final residual norm)."""
+    n = b.shape[0]
+    b, dt, _, prec = _setup(op, b, M)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    m = min(restart, n)
+    bnorm = torch.linalg.vector_norm(b)
+    tol_abs = tol * _nonzero(bnorm)
+    rows = torch.arange(m + 1, device=b.device)
+
+    def cycle(x):
+        r = prec(b - op.apply(x, "N"))
+        beta = torch.linalg.vector_norm(r)
+        V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
+        H = torch.zeros((m + 1, m), dtype=dt, device=b.device)
+        V[0] = r / _nonzero(beta)
+        for j in range(m):
+            w = prec(op.apply(V[j], "N"))
+            hcol = torch.where(rows <= j, pmatmul(V.conj(), w), torch.zeros((), dtype=dt,
+                                                                             device=b.device))
+            w = w - pmatmul(V.T, hcol)
+            hj1 = torch.linalg.vector_norm(w)
+            V[j + 1] = w / _nonzero(hj1)
+            H[:, j] = hcol
+            H[j + 1, j] = hj1
+        e1 = torch.zeros((m + 1,), dtype=dt, device=b.device)
+        e1[0] = beta
+        return x + pmatmul(V[:m].T, _lstsq(H, e1))
+
+    res = torch.linalg.vector_norm(b - op.apply(x, "N"))
+    k = 0
+    while k < maxiter and bool(res > tol_abs):
+        x = cycle(x)
+        res = torch.linalg.vector_norm(b - op.apply(x, "N"))
+        k += 1
+    return x, k, res
+
+
+class _MinresState:
+    """The Paige–Saunders recurrence's scalars for k columns (0-dim for one):
+    previous β, current β, d̄, ε, φ̄, cos, sin."""
+
+    def __init__(self, beta1, rdt):
+        zero = torch.zeros_like(beta1, dtype=rdt)
+        self.oldb, self.beta, self.dbar, self.epsln = zero, beta1, zero, zero
+        self.phibar, self.cs, self.sn = beta1, -torch.ones_like(zero), zero
+
+
+def _minres_step(op, s: _MinresState, V, R1, R2, W, W2, k, dt, eps, prec, cdot, matrix,
+                 act=None):
+    """One Lanczos step and Givens update, for one vector or k columns
+    (per-column scalars broadcast over rows). Returns the new vectors
+    (Y, R1, R2, W, W2) and phi, the solution step's coefficient."""
+    expand = (lambda t: t[None, :]) if matrix else (lambda t: t)
+    safe_beta = _nonzero(s.beta)
+    Y = op.apply_matrix(V, "N") if matrix else op.apply(V, "N")
+    if k >= 1:
+        Y = Y - expand(s.beta / _nonzero(s.oldb)).to(dt) * R1
+    alfa = cdot(V, Y).real  # real for a hermitian operator
+    Y = Y - expand(alfa / safe_beta).to(dt) * R2
+    R1, R2 = R2, Y
+    Y = prec(R2, matrix=matrix)
+    s.oldb = s.beta
+    s.beta = torch.sqrt(torch.clamp_min(cdot(R2, Y).real, 0.0))
+    # the previous Givens rotation on the new Lanczos column, then the next one
+    oldeps = s.epsln
+    delta = s.cs * s.dbar + s.sn * alfa
+    gbar = s.sn * s.dbar - s.cs * alfa
+    s.epsln = s.sn * s.beta
+    s.dbar = -s.cs * s.beta
+    gamma = torch.clamp_min(torch.sqrt(gbar * gbar + s.beta * s.beta), eps)
+    s.cs = gbar / gamma
+    s.sn = s.beta / gamma
+    phi = s.cs * s.phibar
+    if act is None:
+        s.phibar = s.sn * s.phibar
+    else:  # frozen columns stop moving
+        phi = torch.where(act, phi, torch.zeros_like(phi))
+        s.phibar = torch.where(act, s.sn * s.phibar, s.phibar)
+    W1, W2 = W2, W
+    W = (V - expand(oldeps).to(dt) * W1 - expand(delta).to(dt) * W2) / expand(gamma).to(dt)
+    return Y, R1, R2, W, W2, expand(phi).to(dt)
+
+
+def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
+           M: LinearOperator = None):
+    """MINRES (Paige–Saunders) for symmetric or hermitian, possibly
+    indefinite operators, with an optional SPD preconditioner ``M ≈ A⁻¹``.
+    Stops when the preconditioned residual estimate φ̄ ≤ tol·β₁ or after
+    ``maxiter`` iterations. Returns (x, iterations, φ̄).
+
+    A 2-D ``b`` of shape (n, k) solves the k systems at once over
+    ``apply_matrix`` (``_minres_multi``) and returns per-column φ̄."""
+    if b.ndim == 2:
+        return _minres_multi(op, b, x0, tol=tol, maxiter=maxiter, M=M)
+    b, dt, rdt, prec = _setup(op, b, M)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    eps = torch.finfo(rdt).eps
+    R1 = b - op.apply(x, "N")
+    Y = prec(R1)
+    beta1 = torch.sqrt(torch.clamp_min(pvdot(R1, Y).real, 0.0))
+    tol_abs = tol * _nonzero(beta1)
+    s = _MinresState(beta1, rdt)
+    R2, W, W2 = R1, torch.zeros_like(b), torch.zeros_like(b)
+    k = 0
+    while k < maxiter and bool(s.phibar > tol_abs):
+        V = Y / _nonzero(s.beta).to(dt)
+        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec, pvdot,
+                                             matrix=False)
+        x = x + phi * W
+        k += 1
+    return x, k, s.phibar
+
+
+def _minres_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int = 100,
+                  M: LinearOperator = None):
+    """Multi-RHS MINRES: k independent Paige–Saunders recurrences over
+    ``apply_matrix``; a converged column freezes its solution update (φ = 0).
+    Returns (X, iterations, per-column φ̄)."""
+    B, dt, rdt, prec = _setup(op, B, M)
+    X = torch.zeros_like(B) if X0 is None else X0.to(dt)
+    eps = torch.finfo(rdt).eps
+    R1 = B - op.apply_matrix(X, "N")
+    Y = prec(R1, matrix=True)
+    beta1 = torch.sqrt(torch.clamp_min(pcolumn_dot(R1, Y).real, 0.0))
+    tol_abs = tol * _nonzero(beta1)
+    s = _MinresState(beta1, rdt)
+    R2, W, W2 = R1, torch.zeros_like(B), torch.zeros_like(B)
+    k = 0
+    while k < maxiter:
+        act = s.phibar > tol_abs
+        if not bool(act.any()):
+            break
+        V = Y / _nonzero(s.beta)[None, :].to(dt)
+        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec,
+                                             pcolumn_dot, matrix=True, act=act)
+        X = X + phi * W
+        k += 1
+    return X, k, s.phibar
+
+
+def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
+             M: LinearOperator = None):
+    """BiCGSTAB (van der Vorst) for general square operators, with an
+    optional right preconditioner ``M ≈ A⁻¹``: two operator applies (and two
+    M applies) per iteration. Stops when ‖r‖ ≤ tol·‖b‖, after ``maxiter``
+    iterations, or at a breakdown (ρ = r̂·r, r̂·v or ω about 0, e.g. a
+    skew-symmetric A): then the last iterate stays, with its true residual
+    norm, so non-convergence shows as ``res > tol·‖b‖``, never as NaN.
+    Returns (x, iterations, final residual norm)."""
+    b, dt, rdt, prec = _setup(op, b, M)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    tiny = torch.finfo(rdt).tiny ** 0.5  # catches exact and denormal zeros
+    r = b - op.apply(x, "N")
+    rhat = r  # the shadow residual, fixed
+    one = torch.ones((), dtype=dt, device=b.device)
+    tol_abs = tol * _nonzero(torch.linalg.vector_norm(b))
+    p, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho = alpha = omega = one
+    brk = torch.zeros((), dtype=torch.bool, device=b.device)
+    k = 0
+    while k < maxiter and bool((torch.linalg.vector_norm(r) > tol_abs) & ~brk):
+        rho_new = pvdot(rhat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p_new = r + beta * (p - omega * v)
+        phat = prec(p_new)
+        v_new = op.apply(phat, "N")
+        rhv = pvdot(rhat, v_new)
+        brk = (rho_new.abs() <= tiny) | (rhv.abs() <= tiny)
+        alpha_new = rho_new / torch.where(brk, one, rhv)
+        s = r - alpha_new * v_new
+        shat = prec(s)
+        t = op.apply(shat, "N")
+        tt = pvdot(t, t)
+        omega_new = pvdot(t, s) / _nonzero(tt)
+        brk = brk | (omega_new.abs() <= tiny)
+        # on a breakdown the iterate freezes (the loop test ends the solve)
+        x = torch.where(brk, x, x + alpha_new * phat + omega_new * shat)
+        r = torch.where(brk, r, s - omega_new * t)
+        p, v = torch.where(brk, p, p_new), torch.where(brk, v, v_new)
+        rho = torch.where(brk, rho, rho_new)
+        alpha = torch.where(brk, alpha, alpha_new)
+        omega = torch.where(brk, omega, omega_new)
+        k += 1
+    return x, k, torch.linalg.vector_norm(r)
+
+
+def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter: int = 100):
+    """LSQR (Paige–Saunders): min ‖Ax − b‖² + damp²‖x‖² for a general
+    (rectangular) operator by Golub–Kahan bidiagonalization; it needs only
+    the N and adjoint applies. Stops when the ‖Aᴴr‖ estimate ≤ tol·‖Aᴴb‖ or
+    after ``maxiter`` iterations. Returns (x, iterations, ‖Aᴴr‖ estimate)."""
+    b, dt, rdt, _ = _setup(op, b)
+    n = op.shape[1]
+    dampf = torch.tensor(damp, dtype=rdt, device=b.device)
+
+    def nrm(v):
+        return torch.linalg.vector_norm(v).to(rdt)
+
+    beta = nrm(b)
+    u = b / _nonzero(beta).to(dt)
+    v = op.apply(u, "H")
+    alpha = nrm(v)
+    v = v / _nonzero(alpha).to(dt)
+    arnorm = alpha * beta  # ‖Aᴴb‖, the scale of the stopping test
+    tol_abs = tol * _nonzero(arnorm)
+    x = torch.zeros((n,), dtype=dt, device=b.device)
+    w, phibar, rhobar = v, beta, alpha
+    k = 0
+    while k < maxiter and bool(arnorm > tol_abs):
+        # bidiagonalization step
+        u = op.apply(v, "N") - alpha.to(dt) * u
+        beta = nrm(u)
+        u = u / _nonzero(beta).to(dt)
+        v = op.apply(u, "H") - beta.to(dt) * v
+        alpha = nrm(v)
+        v = v / _nonzero(alpha).to(dt)
+        # eliminate the damping term (a rotation into the rhobar row)
+        rhobar1 = torch.sqrt(rhobar * rhobar + dampf * dampf)
+        phibar1 = (rhobar / rhobar1) * phibar
+        # QR rotation on the lower-bidiagonal column
+        rho = torch.sqrt(rhobar1 * rhobar1 + beta * beta)
+        c, s_ = rhobar1 / rho, beta / rho
+        theta = s_ * alpha
+        rhobar = -c * alpha
+        phi = c * phibar1
+        phibar = s_ * phibar1
+        x = x + (phi / rho).to(dt) * w
+        w = v - (theta / rho).to(dt) * w
+        # (rhobar, phibar) are defined up to a joint sign flip: take |·|
+        arnorm = (phibar * alpha * c).abs()
+        k += 1
+    return x, k, arnorm
+
+
+def power_iteration(op: LinearOperator, v0, iters: int = 50):
+    """Largest-|eigenvalue| estimate of a square operator by power
+    iteration (no host sync). Returns (eigenvalue estimate, eigenvector)."""
+    v = v0 / torch.linalg.vector_norm(v0)
+    lam = torch.zeros((), dtype=v.dtype, device=v.device)
+    for _ in range(iters):
+        w = op.apply(v, "N")
+        lam = pvdot(v, w)
+        v = w / torch.linalg.vector_norm(w)
+    return lam, v
+
+
+def chebyshev(op: LinearOperator, b, lam_min, lam_max, x0=None, *, iters: int = 50,
+              M: LinearOperator = None):
+    """Chebyshev iteration for SPD operators with spectral bounds
+    ``0 < lam_min <= lam(A) <= lam_max`` (of ``M A`` when preconditioned).
+    The loop has no inner products, so it reads nothing back: a fixed
+    ``iters`` steps, then the residual norm once. Classical form (Saad,
+    algorithm 12.1) with the first-step special case β₁ = (cα)²/2. Returns
+    (x, iters, final residual norm)."""
+    b, dt, rdt, prec = _setup(op, b, M)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    lam_min = torch.as_tensor(lam_min, dtype=rdt, device=b.device)
+    lam_max = torch.as_tensor(lam_max, dtype=rdt, device=b.device)
+    d = (lam_max + lam_min) / 2.0
+    c = (lam_max - lam_min) / 2.0
+    if iters >= 1:
+        r = prec(b - op.apply(x, "N"))
+        alpha = 1.0 / d
+        p = r
+        x = x + alpha.to(dt) * p
+    if iters >= 2:
+        r = r - alpha.to(dt) * prec(op.apply(p, "N"))
+        beta = 0.5 * (c * alpha) ** 2
+        alpha = 1.0 / (d - beta / alpha)
+        p = r + beta.to(dt) * p
+        x = x + alpha.to(dt) * p
+        for _ in range(iters - 2):
+            r = r - alpha.to(dt) * prec(op.apply(p, "N"))
+            beta = (c * alpha / 2.0) ** 2
+            alpha = 1.0 / (d - beta / alpha)
+            p = r + beta.to(dt) * p
+            x = x + alpha.to(dt) * p
+    return x, max(iters, 0), torch.linalg.vector_norm(b - op.apply(x, "N"))

@@ -3,7 +3,8 @@
 Without ``device=``, every factory that builds from host data (``opSparse``,
 ``opPermutation``, the L-BFGS operators, the ``convert`` functions,
 ``pack_routed_csr``, the format functions ``*_from_dense``/``*_from_parts``,
-and ``opDiagonal``/``LinearOperator`` given host data) takes the current CUDA
+``opOnes``/``opZeros``, ``opRestriction``/``opExtension``, and
+``opDiagonal``/``LinearOperator`` given host data) takes the current CUDA
 device; with no CUDA device it
 raises an error naming ``device="cpu"``, and never builds on the CPU
 silently. ``device="cpu"`` builds on the CPU. Constructors that take
@@ -53,6 +54,10 @@ FACTORIES = {
     "opDiagonal": lambda **kw: lt.opDiagonal(np.ones(4), **kw),
     "opDiagonal rect": lambda **kw: lt.opDiagonal(4, 6, [1.0, 2.0, 3.0, 4.0], **kw),
     "LinearOperator": lambda **kw: lt.LinearOperator(np.ones((3, 4)), **kw),
+    "opOnes": lambda **kw: lt.opOnes(3, 4, **kw),
+    "opZeros": lambda **kw: lt.opZeros(3, 4, **kw),
+    "opRestriction": lambda **kw: lt.opRestriction([0, 2], 4, **kw),
+    "opExtension": lambda **kw: lt.opExtension(np.array([1, 3]), 4, **kw),
 }
 
 
@@ -111,3 +116,9 @@ def test_tensor_constructors_follow_their_tensors(monkeypatch):
     assert M.device == torch.device("cpu")
     # a bare host matrix in the algebra lands on the operator's device
     assert (M @ np.eye(3)).device == torch.device("cpu")
+    # and so do the ones of op + x, the indices of a slice, a block's matrix
+    assert (M + 2.0).op2.op.device == torch.device("cpu")
+    assert M[0:2, 1].device == torch.device("cpu")
+    assert lt.hcat(M, np.ones((3, 2))).device == torch.device("cpu")
+    assert lt.opRestriction(torch.tensor([0, 1]), 3).device == torch.device("cpu")
+    assert lt.ShiftedOperator(M, 2.0).sigma.device == torch.device("cpu")

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K12 and the port's dispatch, on a CUDA card.
+"""The CUDA kernels K1-K14 and the port's dispatch, on a CUDA card.
 
 Every test here is marked ``gpu`` and skips without a card. They import no
 jax, so they also run where jax is not installed:
@@ -13,6 +13,9 @@ products exact; lane-group sums (K10) within 1e-6·max|y| (f32) or 2^-7
 (bf16); segment sums (K11, K12) within 8·eps_f32·Σ|window| per element, plus,
 in bf16, one ulp of the result (2^-7·|y|: two f32 sums that differ slightly
 can round to neighbouring bf16 values); K11/K12 bit-identical on a rerun.
+K13 (the tiled combine) within 4·eps_f32·Σ|q| per row of its plain version
+(plus one bf16 rounding of a bf16 result) and bit-identical on a rerun; K14
+equal to its plain version and to K9 with C = 1.
 """
 
 import numpy as np
@@ -448,3 +451,85 @@ def test_permutation_on_cuda(dev):
     assert torch.equal(P.T * x, x[inv])
     counts = LG.launch_counts()
     assert counts["lane_gather"] > 0 and counts["lane_gather_sum"] == 2
+
+
+def tiled_case(dev, T, K, rep, dtype, seed=0):
+    """q (rep·T·K,) and a rowid (T, K) in any order within a tile, a third of
+    the slots trash (−1)."""
+    rng = np.random.default_rng(seed)
+    rowid = rng.integers(0, 128, (T, K)).astype(np.int8)
+    rowid[rng.random((T, K)) < 1 / 3] = -1
+    q = torch.from_numpy(rng.standard_normal(rep * T * K).astype(np.float32)).to(dev, dtype)
+    return q, torch.from_numpy(rowid).to(dev)
+
+
+def tiled_bound(q, rowid, rep, ref):
+    """4·eps_f32·Σ|q| over each row's slots, plus one ulp of a bf16 result."""
+    T, K = rowid.shape
+    rid = rowid.long()
+    seg = torch.where(rid >= 0, torch.arange(T, device=rid.device)[:, None] * 128 + rid,
+                      T * 128).reshape(-1)
+    absq = torch.zeros((rep, T * 128 + 1), dtype=torch.float64, device=q.device)
+    absq.index_add_(1, seg, q.double().abs().reshape(rep, T * K))
+    bound = 4 * torch.finfo(torch.float32).eps * absq[:, :T * 128].reshape(-1)
+    if q.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * ref.double().abs()
+    return bound
+
+
+@pytest.mark.parametrize("T,K", [(8, 384), (37, 1000), (5, 7)])
+@pytest.mark.parametrize("rep", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_combine_matches_plain(dev, T, K, rep, dtype):
+    q, rowid = tiled_case(dev, T, K, rep, dtype)
+    LG.reset_launch_counts()
+    out = LG.tiled_combine(q, rowid, rep=rep)
+    assert LG.launch_counts()["tiled_combine"] == 1
+    ref = LG.tiled_combine_plain(q, rowid, rep)
+    assert out.dtype == dtype and out.shape == ref.shape == (rep * T * 128,)
+    assert ((out.double() - ref.double()).abs() <= tiled_bound(q, rowid, rep, ref)).all()
+    assert torch.equal(out, LG.tiled_combine(q, rowid, rep=rep))  # the same bits
+
+
+@pytest.mark.parametrize("m", [128, 300, 15360])
+def test_lane_gather_mul_t_matches_plain_and_k9(dev, m):
+    a, idx, vals, _, _ = lane_case(dev, m, 1, torch.float32, seed=3)
+    LG.reset_launch_counts()
+    out = LG.lane_gather_mul_t(a, idx, vals)
+    assert LG.launch_counts()["lane_gather_mul_t"] == 1
+    assert LG.launch_counts()["lane_gather_mul_t_batched"] == 0
+    assert tuple(out.shape) == (128, m)
+    assert torch.equal(out, LG.lane_gather_mul_t_plain(a, idx, vals))
+    assert torch.equal(out, LG.lane_gather_mul_t_batched(a, idx, vals, 1, m))
+
+
+def test_routed_program_without_bounds_runs_k13(dev):
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.sparse.routed import routed_matmat, routed_matvec
+
+    A = sps.random(5000, 4000, density=0.005, format="csr", random_state=3, dtype=np.float32)
+    p = lt.opSparse(A, format="routed", device=dev).routed
+    assert p.comb_lo is not None
+    q = p._replace(comb_lo=None, comb_hi=None)
+    v = torch.randn(4000, device=dev)
+    LG.reset_launch_counts()
+    y = routed_matvec(q, v)
+    assert LG.launch_counts()["tiled_combine"] == 1 and LG.launch_counts()["lane_segsum"] == 0
+    assert rel_err(y, routed_matvec(p, v)) <= 1e-5
+    assert rel_err(y, routed_matvec(q, v, use_kernel=False)) <= 1e-5
+    assert torch.equal(y, routed_matvec(q, v))
+    X = torch.randn(4000, 3, device=dev)
+    assert rel_err(routed_matmat(q, X), routed_matmat(p, X)) <= 1e-5
+
+
+def test_tiled_combine_rejects_what_the_kernel_does_not_take(dev):
+    q, rowid = tiled_case(dev, 8, 128, 1, torch.float32)
+    with pytest.raises(TypeError, match="f32/bf16"):
+        LG.tiled_combine(q.double(), rowid)
+    with pytest.raises(TypeError, match="int8"):
+        LG.tiled_combine(q, rowid.long())
+    with pytest.raises(ValueError, match="rep"):
+        LG.tiled_combine(q, rowid, rep=2)
+    with pytest.raises(ValueError, match="is on"):
+        LG.tiled_combine(q, rowid.cpu())

@@ -149,3 +149,60 @@ def test_wrappers_check_their_arguments():
         LG.lane_gather_sum(a, torch.zeros(128, 128, dtype=torch.int8), 3)
     with pytest.raises(ValueError, match="no kernel for device"):
         LG.lane_gather(a.to("meta"), torch.zeros(128, 128, dtype=torch.int8, device="meta"))
+
+
+def tiled_case(rng, T, K, rep, dt):
+    """q (rep·T·K,) and a rowid (T, K) in any order within a tile, with
+    trash slots (−1): rows drawn at random, a third of the slots trash."""
+    rowid = rng.integers(0, 128, (T, K)).astype(np.int8)
+    rowid[rng.random((T, K)) < 1 / 3] = -1
+    qh, qj, qt = data(rng, rep * T * K // 128, dt)
+    return rowid, qh.reshape(-1), qj.reshape(-1), qt.reshape(-1)
+
+
+@pytest.mark.parametrize("T", [8, 16])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tiled_combine_matches_the_reference(T, dt):
+    """K13's plain version against the reference's one-hot kernel in
+    interpret mode: per row, |Δ| ≤ 4·eps_f32·Σ|q| over the row's slots. In
+    bf16 the reference sums in bf16, so the port (an f32 sum rounded once)
+    is held against the reference run on the same values in f32, plus one
+    bf16 rounding of the result."""
+    rng = np.random.default_rng(T)
+    K = 384
+    rowid, qh, qj, qt = tiled_case(rng, T, K, 1, dt)
+    got = LG.tiled_combine(qt, torch.from_numpy(rowid))
+    assert got.dtype == qt.dtype and tuple(got.shape) == (T * 128,)
+    ref = jnp_np(JL.tiled_combine(jnp.asarray(qh), jnp.asarray(rowid), interpret=True))
+    absq = np.zeros(T * 128)
+    rid = rowid.astype(np.int64)
+    keep = rid >= 0
+    np.add.at(absq, (np.arange(T)[:, None] * 128 + rid)[keep], np.abs(qh.reshape(T, K))[keep])
+    limit = 4 * np.finfo(np.float32).eps * absq
+    if dt == "bf16":
+        limit = limit + 2.0 ** -8 * np.abs(ref)
+    assert (np.abs(as_np(got) - ref) <= limit).all()
+    # the same sums, repeated: rep = 3 over one shared rowid
+    rowid, qh, _, qt = tiled_case(rng, T, K, 3, dt)
+    got = LG.tiled_combine(qt, torch.from_numpy(rowid), rep=3)
+    for j in range(3):
+        ref = jnp_np(JL.tiled_combine(jnp.asarray(qh[j * T * K:(j + 1) * T * K]),
+                                      jnp.asarray(rowid), interpret=True))
+        part = as_np(got[j * T * 128:(j + 1) * T * 128])
+        assert np.abs(part - ref).max() <= 4 * np.finfo(np.float32).eps * (
+            np.abs(qh).max() * K) + (2.0 ** -8 * np.abs(ref).max() if dt == "bf16" else 0)
+
+
+@pytest.mark.parametrize("m", [128, 256, 384])
+def test_lane_gather_mul_t_matches_the_reference_exactly(m):
+    """K14's plain version equals the reference kernel bit for bit in f32."""
+    rng = np.random.default_rng(m)
+    xh, xj, xt = data(rng, m, "f32")
+    vh, vj, vt = data(rng, m, "f32")
+    idx = rng.integers(0, 128, (m, 128)).astype(np.int8)
+    got = LG.lane_gather_mul_t(xt, torch.from_numpy(idx), vt)
+    assert tuple(got.shape) == (128, m) and got.is_contiguous()
+    ref = np.asarray(JL.lane_gather_mul_t(xj, jnp.asarray(idx), vj, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # and it is K9 for one chunk and one repeat
+    assert torch.equal(got, LG.lane_gather_mul_t_batched(xt, torch.from_numpy(idx), vt, 1, m))

@@ -208,14 +208,32 @@ def test_pack_defaults_to_the_card_and_checks_its_input(monkeypatch):
         TR.pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=7, device="cpu")
 
 
-def test_tiled_combine_without_bounds_names_k13():
+def test_tiled_combine_without_bounds_names_k13(monkeypatch):
+    """A tiled program whose segment bounds were dropped combines through K13
+    (``tiled_combine``) on the kernel pipeline, as the reference's takes its
+    one-hot kernel: against the reference's ``use_pallas="interpret"`` on the
+    same program within 1e-6 relative in f32, and against the plain
+    pipeline; the multi-column apply runs K13 with rep = k."""
     A = random_csr(700, 900, 0.05, seed=3).astype(np.float32)
-    p = TR.pack_routed_csr(A.data, A.indices, A.indptr, A.shape, w=4, device="cpu")
-    x = torch.ones(900)
-    with pytest.raises(NotImplementedError, match="K13"):
-        TR.routed_matvec(p._replace(comb_lo=None, comb_hi=None), x, use_kernel=True)
-    y = TR.routed_matvec(p._replace(comb_lo=None, comb_hi=None), x, use_kernel=False)
-    assert rel(y, A @ np.ones(900)) <= 1e-5
+    (fwd, _), (fwd_j, _) = both_packs(A, 4)
+    assert fwd.comb_lo is not None and fwd.rowid is not None
+    p = TR.upload_program(fwd, "cpu")._replace(comb_lo=None, comb_hi=None)
+    p_j = fwd_j._replace(comb_lo=None, comb_hi=None)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal(900).astype(np.float32)
+    calls = []
+    real = TR.LG.tiled_combine
+    monkeypatch.setattr(TR.LG, "tiled_combine", lambda *a, **k: (calls.append(k), real(*a, **k))[1])
+    y = TR.routed_matvec(p, torch.from_numpy(x), use_kernel=True)
+    assert calls == [{"rep": 1}]
+    ref = np.asarray(JR.routed_matvec(p_j, jnp.asarray(x), use_pallas="interpret"))
+    assert rel(y, ref) <= 1e-6
+    assert rel(y, TR.routed_matvec(p, torch.from_numpy(x), use_kernel=False)) <= 1e-6
+    assert rel(y, A.astype(np.float64) @ x) <= 1e-5
+    X = rng.standard_normal((900, 3)).astype(np.float32)
+    Y = TR.routed_matmat(p, torch.from_numpy(X), use_kernel=True)
+    assert calls[-1] == {"rep": 3}
+    assert rel(Y, np.asarray(JR.routed_matmat(p_j, jnp.asarray(X), use_pallas="interpret"))) <= 1e-6
 
 
 # ----------------------------------------------------------------------------

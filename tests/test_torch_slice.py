@@ -10,8 +10,16 @@
   ``opSparse(format="auto", symmetric=True)`` (the Clos-routed operator),
   in f64: the same iteration count (±1) and x within 1e-9·max|x|; the
   operator's N and T applies within 1e-10 of the reference's;
-- ``import linops_tpu_torch`` (and each slice-3 module) leaves jax and the
-  JAX package out of ``sys.modules``.
+- slice 4's path, small: a saddle-point system
+  ``vcat(hcat(A, Bᵀ), hcat(B, opZeros))`` (A = I + L a 2-D Laplacian through
+  ``opSparse(format="bsr", symmetric=True)``, B an ``opRestriction``) under
+  MINRES, a shifted non-symmetric routed operator under GMRES and BiCGSTAB,
+  LSQR with damping on a 2:1 rectangular routed operator (its transpose the
+  derived one), and multi-RHS CG over the routed matrix apply (reached on
+  the CPU through the ``_on_card`` seam); in f64, iterations equal (±1) and
+  x within 1e-8·‖x‖ of the reference's;
+- ``import linops_tpu_torch`` (and each slice-3 and slice-4 module) leaves
+  jax and the JAX package out of ``sys.modules``.
 """
 
 import os
@@ -155,11 +163,113 @@ def test_slice3_path_cg_on_routed_unstructured_f64():
                        op_j.matvec(jnp.asarray(v), mode=mode)) <= 1e-10
 
 
+def laplacian(g):
+    """I + L, L the 5-point Laplacian on a g x g grid (scipy CSR, f64)."""
+    import scipy.sparse as sps
+
+    t = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    eye = sps.identity(g)
+    return (sps.kron(eye, t) + sps.kron(t, eye) + sps.identity(g * g)).tocsr()
+
+
+def unstructured(n_r, n_c, per_row, seed):
+    """Poisson(per_row) uniform columns per row, normal values (scipy CSR)."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(per_row, n_r)
+    rows = np.repeat(np.arange(n_r), counts)
+    A = sps.csr_matrix((rng.standard_normal(counts.sum()),
+                        (rows, rng.integers(0, n_c, counts.sum()))), shape=(n_r, n_c))
+    A.sum_duplicates()
+    return A
+
+
+def same_x(got, ref, k_got, k_ref, slack=1):
+    assert abs(int(k_got) - int(k_ref)) <= slack, (int(k_got), int(k_ref))
+    assert np.linalg.norm(got.numpy() - np.asarray(ref)) <= 1e-8 * np.linalg.norm(ref)
+
+
+def test_slice4_saddle_point_minres_f64():
+    g = 24
+    Ad = laplacian(g)
+    n = g * g
+    idx = np.arange(0, n, 8)
+    p = idx.size
+    A_j = lo.opSparse(Ad, format="bsr", symmetric=True)
+    A_t = lt.opSparse(Ad, format="bsr", symmetric=True, device="cpu")
+    B_j, B_t = lo.opRestriction(jnp.asarray(idx), n), lt.opRestriction(idx, n, device="cpu")
+    K_j = lo.vcat(lo.hcat(A_j, B_j.T), lo.hcat(B_j, lo.opZeros(p, p)))
+    K_t = lt.vcat(lt.hcat(A_t, B_t.T), lt.hcat(B_t, lt.opZeros(p, p, device="cpu")))
+    rng = np.random.default_rng(30)
+    b = rng.standard_normal(n + p)
+    xj, kj, _ = lo.minres(K_j, jnp.asarray(b), tol=1e-10, maxiter=1000)
+    xt, kt, _ = lt.minres(K_t, torch.from_numpy(b), tol=1e-10, maxiter=1000)
+    same_x(xt, xj, kt, kj)
+    Kd = np.block([[Ad.toarray(), np.eye(n)[idx].T], [np.eye(n)[idx], np.zeros((p, p))]])
+    assert np.linalg.norm(Kd @ xt.numpy() - b) <= 1e-8 * np.linalg.norm(b)
+    v = torch.from_numpy(rng.standard_normal(50))
+    pad = torch.zeros(n + p, dtype=torch.float64)
+    pad[n - 20:n + 30] = v
+    assert rel_err(K_t[100:n + 40, n - 20:n + 30] * v, (K_t * pad)[100:n + 40].numpy()) <= 1e-12
+
+
+def test_slice4_shifted_routed_gmres_and_bicgstab_f64():
+    Ad = unstructured(3000, 3000, 4, seed=31)
+    A_j, A_t = lo.opSparse(Ad, format="routed"), lt.opSparse(Ad, format="routed", device="cpu")
+    assert isinstance(A_t, lt.RoutedCSROperator)
+    S_j, S_t = lo.ShiftedOperator(A_j, 8.0), lt.ShiftedOperator(A_t, 8.0)
+    b = np.random.default_rng(32).standard_normal(3000)
+    xj, kj, _ = lo.gmres(S_j, jnp.asarray(b), tol=1e-10, restart=30, maxiter=20)
+    xt, kt, rt = lt.gmres(S_t, torch.from_numpy(b), tol=1e-10, restart=30, maxiter=20)
+    same_x(xt, xj, kt, kj)
+    Sd = Ad + 8.0 * np.eye(3000)
+    assert np.linalg.norm(Sd @ xt.numpy() - b) <= 1e-9 * np.linalg.norm(b)
+    xj, kj, _ = lo.bicgstab(S_j, jnp.asarray(b), tol=1e-10, maxiter=200)
+    xt, kt, _ = lt.bicgstab(S_t, torch.from_numpy(b), tol=1e-10, maxiter=200)
+    same_x(xt, xj, kt, kj)
+
+
+def test_slice4_rectangular_routed_lsqr_f64():
+    Ad = unstructured(4000, 2000, 8, seed=33)
+    A_j, A_t = lo.opSparse(Ad, format="routed"), lt.opSparse(Ad, format="routed", device="cpu")
+    assert A_t.routed_t is not None  # the 2:1 matrix passes the skew guard
+    b = np.random.default_rng(34).standard_normal(4000)
+    xj, kj, aj = lo.lsqr(A_j, jnp.asarray(b), damp=1e-3, tol=1e-10, maxiter=500)
+    xt, kt, at = lt.lsqr(A_t, torch.from_numpy(b), damp=1e-3, tol=1e-10, maxiter=500)
+    same_x(xt, xj, kt, kj)
+    x = xt.numpy()
+    r = b - Ad @ x
+    assert np.linalg.norm(Ad.T @ r - 1e-6 * x) <= 1e-8 * np.linalg.norm(Ad.T @ b)
+
+
+def test_slice4_multi_rhs_cg_on_the_routed_matrix_apply(monkeypatch):
+    from linops_tpu.sparse import ops as JO
+    from linops_tpu_torch.sparse import ops as TO
+
+    Ad = spd_unstructured(2000, 4, seed=35)
+    A_j = lo.opSparse(Ad, format="routed", symmetric=True)
+    A_t = lt.opSparse(Ad, format="routed", symmetric=True, device="cpu")
+    monkeypatch.setattr(TO, "_on_card", lambda t: True)
+    monkeypatch.setattr(JO, "_on_tpu", lambda: True)
+    assert A_t.matrix_path("N") == "routed"
+    B = np.random.default_rng(36).standard_normal((2000, 8))
+    Xj, kj, rj = lo.cg(A_j, jnp.asarray(B), tol=1e-10, maxiter=500)
+    Xt, kt, rt = lt.cg(A_t, torch.from_numpy(B), tol=1e-10, maxiter=500)
+    same_x(Xt, Xj, kt, kj)
+    assert tuple(rt.shape) == (8,)
+    assert np.all(np.linalg.norm(Ad @ Xt.numpy() - B, axis=0)
+                  <= 1e-9 * np.linalg.norm(B, axis=0))
+
+
 def test_import_does_not_load_jax():
     code = ("import sys, linops_tpu_torch, linops_tpu_torch.convert, "
             "linops_tpu_torch.sparse.routed, linops_tpu_torch.sparse.routing, "
             "linops_tpu_torch.sparse.reorder, linops_tpu_torch.ops.permutation, "
-            "linops_tpu_torch.kernels.lane_gather, linops_tpu_torch.native; "
+            "linops_tpu_torch.kernels.lane_gather, linops_tpu_torch.native, "
+            "linops_tpu_torch.ops.eye, linops_tpu_torch.ops.cat, "
+            "linops_tpu_torch.ops.restriction, linops_tpu_torch.ops.shifted, "
+            "linops_tpu_torch.utils.krylov, linops_tpu_torch.qn.shifted_solve; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
             "assert not any(m == 'linops_tpu' or m.startswith('linops_tpu.') "
             "for m in sys.modules)")
