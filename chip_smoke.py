@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
-7, 9, 8, 5, 10 (the times come after every kernel has been checked; phase
-10 comes last because its torch.profiler traces of whole solves, run
-before phase 5, left phase 5's own traces without device time):
+7, 9, 8, 5, 10, then one profiled slice-1 CG (the times come after every
+kernel has been checked; phase 10 and the profiled CG come last because
+torch.profiler traces of whole solves, run before phase 5, left phase 5's
+own traces without device time):
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
@@ -25,13 +26,18 @@ before phase 5, left phase 5's own traces without device time):
    over the difference in count), for K1/K2 beside their plain versions and
    for one CG iteration; for K3-K6 beside their plain versions and beside
    K1/K2 on the same operator, at both n = 2^22 window shapes; K7-K14 also
-   per call in a CUDA graph of 20 calls and in a torch.profiler trace.
+   per call in a CUDA graph of 20 calls and in a torch.profiler trace. The
+   library yardstick of K1-K6 is cuSPARSE's CSR matvec through torch.mv: on
+   a CSR of A for the forwards, on a CSR of Aᵀ built once (outside the
+   timing, as K2's plan is built once per operator) for the transposes.
 6. window kernels: K3-K6 through ``BSROperator`` at the reference bench's
    large-n shapes (n = 2^22, 8x128: banded kmax 2, ``bench.py:636-647``;
    band + far cluster kmax 3, ``bench.py:674-688``), f32 and bf16 blocks,
    made on the card from a seed: the plan's kind, agreement with the plain
    versions and with f64 (max|Δ|/max|y| ≤ 1e-5), K4/K6 bit-identical on a
-   rerun, and launch counts showing K3-K6 ran and K1/K2 did not.
+   rerun, and launch counts showing K3-K6 ran and K1/K2 did not; then K2
+   through its column plan on the band + cluster operator (a hot column of
+   2^19 slots) against the same plain and f64 sums, bit-identical on rerun.
 7. main path of slice 2: a 5-point Laplacian on a 1536² grid (implicit
    diffusion operator I + L, n = 2,359,296) from scipy through
    ``opSparse(format="bsr", symmetric=True)`` (native packer, banded plan),
@@ -369,6 +375,23 @@ def phase6(lt, K, dev):
                   + f" (limit {KERNEL_RTOL:g}); {tr} bit-identical on rerun; launches {fwd} 1, "
                   f"{tr} 2, K1/K2 0; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
                   flush=True)
+            if not banded:  # K2 on the hot column: its column plan against the same sums
+                plan = op.col_plan
+                k2 = K.bsr_rmatvec_kernel(d.blocks, d.block_cols, ub, nbcol, plan=plan).reshape(-1)
+                k2b = K.bsr_rmatvec_kernel(d.blocks, d.block_cols, ub, nbcol, plan=plan).reshape(-1)
+                e2 = {"plain": rel_err(k2, o_plain), "f64": rel_err(k2, o64)}
+                check(torch.isfinite(k2).all() and all(e <= KERNEL_RTOL for e in e2.values()),
+                      f"{name} {dtype}: K2 disagrees on the hot column: {e2}")
+                check(torch.equal(k2, k2b), f"{name} {dtype}: K2 is not deterministic")
+                counts = (plan.colptr[1:] - plan.colptr[:-1]).long()
+                hot = int(counts.argmax())
+                print(f"[6 window kernels] {name} {str(dtype)[6:]}: bsr_rmatvec (K2) through its "
+                      f"column plan ({plan.chunk_col.numel()} chunks of at most "
+                      f"{plan.chunk_slots} slots; hot column {hot} holds {int(counts[hot])} "
+                      f"slots in {int(plan.col_chunk[hot + 1] - plan.col_chunk[hot])} chunks): "
+                      + ", ".join(f"{k} {e:.2e}" for k, e in e2.items())
+                      + f" (limit {KERNEL_RTOL:g}); bit-identical on rerun", flush=True)
+                del k2, k2b
             del op, d, y, o, o2, y_plain, o_plain, y64, o64, v, u, xb, ub
     return err_abs
 
@@ -410,7 +433,7 @@ def phase7(lt, K, dev):
     d = op.data
     host_csr = A.data.nbytes + A.indices.nbytes + A.indptr.nbytes
     dev_bytes = sum(t.numel() * t.element_size() for t in
-                    (d.blocks, d.block_cols, op.win_q, op.cols_local, op.col_perm, op.col_ptr,
+                    (d.blocks, d.block_cols, op.win_q, op.cols_local, *op.col_plan[:-1],
                      op.t_perm, op.t_ptr))
     print(f"[7 slice-2 path] I + L, 5-point Laplacian on {GRID}² (n = {n}, {A.nnz} nnz): "
           f"scipy CSR {host_csr / 1e9:.3f} GB on the host ({t1 - t0:.2f} s); opSparse(bsr 8x128) "
@@ -470,7 +493,9 @@ def phase7(lt, K, dev):
 
 def phase5_windows(lt, K, dev, card):
     """Times of K3-K6 beside their plain versions and K1/K2 on the same
-    operator. Returns {shape: {name: ms}} for the f32 cases."""
+    operator, and (f32) the cuSPARSE CSR matvec of A (K3/K5's yardstick) and
+    of Aᵀ built once (K4/K6's). Returns {shape: {name: ms}} for the f32
+    cases."""
     out = {}
     for name in WIN_KMAX:
         for dtype in (torch.float32, torch.bfloat16):
@@ -489,7 +514,7 @@ def phase5_windows(lt, K, dev, card):
                 tr: marginal_ms(lambda: win_kernel(K, op, ub=ub)),
                 tr + " plain": marginal_ms(lambda: win_plain(K, op, ub=ub)),
                 "K2": marginal_ms(lambda: K.bsr_rmatvec_kernel(
-                    d.blocks, d.block_cols, ub, nbcol, perm=op.col_perm, colptr=op.col_ptr)),
+                    d.blocks, d.block_cols, ub, nbcol, plan=op.col_plan)),
             }
             if dtype == torch.float32:
                 ops_ = 2 * d.blocks.numel()
@@ -504,6 +529,19 @@ def phase5_windows(lt, K, dev, card):
                   f"({gb * 1e3:.1f} MB stored): "
                   + ", ".join(f"{k} {v * 1e3:.1f} us = {gb / (v / 1e3):.0f} GB/s" for k, v in row.items())
                   + f"; {card}", flush=True)
+            if dtype == torch.float32:  # cuSPARSE yardsticks: a CSR of A, a CSR of Aᵀ
+                lib = out[name]
+                lib[fwd + " library"], lib[fwd + " library note"] = library_time(
+                    fwd, lambda: csr_of_bsr(d.blocks, d.block_cols, WIN_N), xb.reshape(-1),
+                    win_plain(K, op, xb=xb).reshape(-1))
+                lib[tr + " library"], lib[tr + " library note"] = library_time(
+                    tr, lambda: csr_t_of_bsr(K, d.blocks, d.block_cols, nbcol), ub.reshape(-1),
+                    win_plain(K, op, ub=ub).reshape(-1))
+                shown = {k: "null" if lib[k + " library"] is None
+                         else f"{lib[k + ' library'] * 1e3:.1f} us" for k in (fwd, tr)}
+                print(f"[5 times] {name} f32 cuSPARSE CSR torch.mv ({d.blocks.numel() / 1e9:.2f}G "
+                      f"values, int32 indices): {fwd} on a CSR of A {shown[fwd]}, {tr} on a CSR "
+                      f"of Aᵀ built once {shown[tr]}; {card}", flush=True)
             del op, d, xb, ub
     return out
 
@@ -1422,42 +1460,91 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     return totals, rec
 
 
-def library_ms(blocks, cols, xb, ub, K):
-    """(K1's, K2's) yardstick: ms of one cuSPARSE CSR matvec through
-    ``torch.mv`` on the same blocks held as a ``torch.sparse_csr_tensor``
-    (BSR needs square blocks there), and of the transposed matvec through
-    the same tensor's transpose; None where PyTorch refuses the call or
-    disagrees with the plain version. Timed only here; the port never calls
-    them."""
-    import warnings
-
+def csr_of_bsr(blocks, cols, ncol):
+    """A as a ``torch.sparse_csr_tensor`` with int32 indices, on the blocks'
+    device: the blocks' values row by row (one copy), the column array made
+    in int32 (no int64 copy of it)."""
     nbrow, kmax, bm, bn = blocks.shape
+    check(blocks.numel() < 2**31, "a CSR of 2^31 or more values needs int64 indices")
     dev = blocks.device
     width = kmax * bn
     crow = torch.arange(0, nbrow * bm * width + 1, width, device=dev, dtype=torch.int32)
-    col = (cols.long()[:, None, :, None] * bn + torch.arange(bn, device=dev)).expand(
-        nbrow, bm, kmax, bn).reshape(-1).int()
+    col = (cols[:, None, :, None] * bn + torch.arange(bn, device=dev, dtype=torch.int32)).expand(
+        nbrow, bm, kmax, bn).reshape(-1)
     vals = blocks.permute(0, 2, 1, 3).reshape(-1)
-    out = []
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        A = torch.sparse_csr_tensor(crow, col, vals, size=(nbrow * bm, xb.numel()))
-        for name, op, v, plain in (
-                ("K1", A, xb.reshape(-1), lambda: K.bsr_matvec_plain(blocks, cols, xb)),
-                ("K2", A.t(), ub.reshape(-1),
-                 lambda: K.bsr_rmatvec_plain(blocks, cols, ub, xb.shape[0]))):
-            try:
-                e = rel_err(torch.mv(op, v), plain().reshape(-1))
-            except RuntimeError as err:
-                print(f"[5 times] {name}'s library call refused: {err}", flush=True)
-                out.append(None)
-                continue
-            if e > KERNEL_RTOL:
-                print(f"[5 times] {name}'s library call disagrees ({e:.2e}); no time", flush=True)
-                out.append(None)
-                continue
-            out.append(marginal_ms(lambda: torch.mv(op, v)))
-    return tuple(out)
+    return torch.sparse_csr_tensor(crow, col, vals, size=(nbrow * bm, ncol))
+
+
+def csr_t_of_bsr(K, blocks, cols, nbcol, piece=1 << 14):
+    """Aᵀ as a ``torch.sparse_csr_tensor`` with int32 indices, built once from
+    the block-column index (``bsr_column_index``), ``piece`` slots at a time:
+    row (c, n) of Aᵀ holds, for each slot of block column c in index order,
+    the bm values blocks[slot, :, n] at columns row(slot)·bm + m."""
+    nbrow, kmax, bm, bn = blocks.shape
+    check(blocks.numel() < 2**31, "a CSR of 2^31 or more values needs int64 indices")
+    dev = blocks.device
+    perm, colptr = K.bsr_column_index(cols, nbcol)
+    cp = colptr.long()
+    cnt = cp[1:] - cp[:-1]
+    crow = torch.zeros(nbcol * bn + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum((cnt * bm)[:, None].expand(nbcol, bn).reshape(-1), 0)
+    vals = torch.empty(blocks.numel(), dtype=blocks.dtype, device=dev)
+    col = torch.empty(blocks.numel(), dtype=torch.int32, device=dev)
+    flat, flat_cols = blocks.reshape(-1, bm, bn), cols.reshape(-1)
+    m_i, n_i = torch.arange(bm, device=dev), torch.arange(bn, device=dev)
+    for p0 in range(0, perm.numel(), piece):
+        slot = perm[p0:p0 + piece].long()
+        c = flat_cols[slot].long()
+        j = torch.arange(p0, p0 + slot.numel(), device=dev) - cp[c]  # rank in its column
+        # value (j, m) of row (c, n) sits at crow[c·bn + n] + j·bm + m
+        dest = ((cp[c] * (bm * bn) + j * bm)[:, None, None]
+                + (cnt[c] * bm)[:, None, None] * n_i + m_i[:, None]).reshape(-1)
+        vals[dest] = flat[slot].reshape(-1)
+        col[dest] = ((slot // kmax) * bm)[:, None, None].add(m_i[:, None]).expand(
+            -1, bm, bn).reshape(-1).int()
+        del slot, c, j, dest
+    del perm, colptr
+    return torch.sparse_csr_tensor(crow.int(), col, vals, size=(nbcol * bn, nbrow * bm))
+
+
+def library_time(what, build, v, ref):
+    """ms of one cuSPARSE CSR matvec through ``torch.mv`` on the CSR that
+    ``build()`` makes once, outside the timing, after a check against
+    ``ref``: (ms, None), or (None, the reason) where PyTorch refuses the
+    call, memory runs out or the result disagrees. Timed only here; the port
+    never calls it."""
+    import warnings
+
+    A, reason = None, None
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            A = build()
+            e = rel_err(torch.mv(A, v), ref)
+            if e <= KERNEL_RTOL:
+                return marginal_ms(lambda: torch.mv(A, v)), None
+            reason = f"disagrees with the plain version ({e:.2e})"
+    except RuntimeError as err:  # includes torch.cuda.OutOfMemoryError
+        reason = f"refused: {type(err).__name__}: {str(err).splitlines()[0][:160]}"
+    finally:
+        del A
+        free()
+    print(f"[5 times] {what}'s library call: {reason}; recorded as null", flush=True)
+    return None, reason
+
+
+def library_ms(blocks, cols, xb, ub, K):
+    """(K1's, K2's) yardstick: ms of one cuSPARSE CSR matvec through
+    ``torch.mv`` on a CSR of A (BSR needs square blocks there), and on a CSR
+    of Aᵀ built once (as K2's column plan is built once per operator);
+    None where PyTorch refuses the call or disagrees with the plain
+    version."""
+    nbcol = xb.shape[0]
+    t1, _ = library_time("K1", lambda: csr_of_bsr(blocks, cols, xb.numel()), xb.reshape(-1),
+                         K.bsr_matvec_plain(blocks, cols, xb).reshape(-1))
+    t2, _ = library_time("K2", lambda: csr_t_of_bsr(K, blocks, cols, nbcol), ub.reshape(-1),
+                         K.bsr_rmatvec_plain(blocks, cols, ub, nbcol).reshape(-1))
+    return t1, t2
 
 
 def main() -> int:
@@ -1505,10 +1592,10 @@ def main() -> int:
             g = torch.Generator(device=dev).manual_seed(SEED + 1)
             xb = torch.randn((nbcol, bn), generator=g, device=dev)
             ub = torch.randn((N // bm, bm), generator=g, device=dev)
-            perm, colptr = K.bsr_column_index(cols, nbcol)
+            plan = K.bsr_column_plan(cols, nbcol, bm * bn * blocks.element_size())
             y = K.bsr_matvec_kernel(blocks, cols, xb)
-            o = K.bsr_rmatvec_kernel(blocks, cols, ub, nbcol, perm=perm, colptr=colptr)
-            o2 = K.bsr_rmatvec_kernel(blocks, cols, ub, nbcol, perm=perm, colptr=colptr)
+            o = K.bsr_rmatvec_kernel(blocks, cols, ub, nbcol, plan=plan)
+            o2 = K.bsr_rmatvec_kernel(blocks, cols, ub, nbcol, plan=plan)
             torch.cuda.synchronize()
             y_plain = K.bsr_matvec_plain(blocks, cols, xb)
             o_plain = K.bsr_rmatvec_plain(blocks, cols, ub, nbcol)
@@ -1530,7 +1617,7 @@ def main() -> int:
                   + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
                   + f" (max|Δ|/max|y|, limit {KERNEL_RTOL:g}); K2 bit-identical on rerun; "
                   f"peak {peak:.0f} MiB", flush=True)
-            del blocks, cols, y, o, o2, y_plain, o_plain, y64, o64, perm, colptr
+            del blocks, cols, y, o, o2, y_plain, o_plain, y64, o64, plan
 
     # --- 4. main path ---------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1630,13 +1717,12 @@ def main() -> int:
             blk, cl = make_bsr(name, dtype, dev)
             xb = torch.randn((nbcol, bn), device=dev)
             ub = torch.randn((N // bm, bm), device=dev)
-            perm, colptr = K.bsr_column_index(cl, nbcol)
+            plan = K.bsr_column_plan(cl, nbcol, bm * bn * blk.element_size())
             gb = blk.numel() * blk.element_size() / 1e9
             row = {
                 "K1": marginal_ms(lambda: K.bsr_matvec_kernel(blk, cl, xb)),
                 "K1 plain": marginal_ms(lambda: K.bsr_matvec_plain(blk, cl, xb)),
-                "K2": marginal_ms(lambda: K.bsr_rmatvec_kernel(
-                    blk, cl, ub, nbcol, perm=perm, colptr=colptr)),
+                "K2": marginal_ms(lambda: K.bsr_rmatvec_kernel(blk, cl, ub, nbcol, plan=plan)),
                 "K2 plain": marginal_ms(lambda: K.bsr_rmatvec_plain(blk, cl, ub, nbcol)),
             }
             if name == "8x128" and dtype == torch.float32:  # the main path's case
@@ -1653,8 +1739,9 @@ def main() -> int:
                                  else f"{k} none" for k in ("K1", "K2"))
                 print(f"[5 times] {name} f32 bounds: K1 {row['K1 bound'][0] * 1e3:.1f} us, K2 "
                       f"{row['K2 bound'][0] * 1e3:.1f} us ({row['K1 bound'][1]}); cuSPARSE CSR "
-                      f"matvec of the same blocks through torch.mv: {libs}; {card}", flush=True)
-            del blk, cl, xb, ub, perm, colptr
+                      f"matvec through torch.mv (K1: a CSR of A; K2: a CSR of Aᵀ, built once): "
+                      f"{libs}; {card}", flush=True)
+            del blk, cl, xb, ub, plan
 
     def cg_iter_ms(op):
         def run(iters):
@@ -1682,6 +1769,21 @@ def main() -> int:
                  "lane_gather_mul_segsum", "bsr_matvec_windowed"):
         check(slice4_launches[name] > 0, f"{name} never ran on the slice-4 path")
 
+    # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
+    # comes after phase 5's profiler readings, as phase 10's do)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lt.cg(A, b, M=H, tol=0.0, maxiter=I_LONG)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / I_LONG
+    dev_ms, top = device_profile(lambda: lt.cg(A, b, M=H, tol=0.0, maxiter=I_LONG), top=4)
+    check(dev_ms is not None, "the slice-1 CG's trace holds no device time")
+    dev_us = dev_ms * 1e3 / I_LONG
+    print(f"[5 times] cg iteration, 8x128 f32, profiled over {I_LONG} iterations: device "
+          f"{dev_us:.1f} us per iteration of {wall_us:.1f} us wall (busy {dev_us / wall_us:.2f}); "
+          "top: " + ", ".join(f"{k} {v * 1e3 / I_LONG:.1f} us ({v / dev_ms * 100:.0f}%)"
+                             for k, v in top) + f"; {card}", flush=True)
+
     main_case = times[("8x128", torch.float32)]
 
     def entry(name, source, replaces, launches_, err, ms, plain, bound, library):
@@ -1699,8 +1801,11 @@ def main() -> int:
     ]
     for name, (replaces, shape) in WIN_KERNELS.items():
         t = win_times[shape]
-        kernels.append(entry(name, WIN_SOURCE, replaces, win_launches[name], win_err[name],
-                             t[name], t[name + " plain"], t[name + " bound"], None))
+        row = entry(name, WIN_SOURCE, replaces, win_launches[name], win_err[name], t[name],
+                    t[name + " plain"], t[name + " bound"], t[name + " library"])
+        if t[name + " library note"]:  # why library_ms is null
+            row["library_note"] = t[name + " library note"]
+        kernels.append(row)
     for name, replaces in LANE_KERNELS.items():
         t = lane_times[name]
         # K8: its 3-stage operator's apply; K13: the CG on step 1's program

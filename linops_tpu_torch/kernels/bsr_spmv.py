@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +54,8 @@ __all__ = [
     "bsr_matvec_multiwin_plain",
     "bsr_rmatvec_multiwin_plain",
     "bsr_column_index",
+    "bsr_column_plan",
+    "BSRColumnPlan",
     "bsr_multiwin_index",
     "bsr_window_t_index",
     "bsr_multiwin_t_index",
@@ -80,9 +83,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                  (torch.bfloat16, torch.bfloat16)}
 
-# K2 thread block: up to 128 lanes over n, _T_SPLIT rows of threads over m
-_T_TILE_MAX = 128
-_T_SPLIT = 4
+# K2's chunks: about _T_CHUNK_BYTES of blocks each (16 slots of 8x128 f32),
+# longer when the operator has more than that many slots times
+# _T_MAX_COL_CHUNKS, so that no column has more than _T_MAX_COL_CHUNKS
+# partial rows for the combine pass to add
+_T_CHUNK_BYTES = 65536
+_T_MAX_COL_CHUNKS = 8192
 
 # x (padded block columns × bn) above which BSROperator plans windows. The
 # reference's VMEM bound, kept at its value so the same operators take the
@@ -171,15 +177,14 @@ def bsr_rmatvec_plain(blocks, block_cols, u_blocks, nbcol: int):
 
 
 # ----------------------------------------------------------------------------
-# K2's block-column index
+# K2's block-column index and chunk plan
 # ----------------------------------------------------------------------------
 
 
 def bsr_column_index(block_cols, nbcol: int):
     """(perm, colptr), both int32 on ``block_cols``' device: ``perm`` lists the
     flattened (r·kmax + k) block slots sorted stably by block column, and
-    ``colptr[c]:colptr[c+1]`` is the range of column c in it. Built once per
-    operator; K2 walks each column's slots in this fixed order."""
+    ``colptr[c]:colptr[c+1]`` is the range of column c in it."""
     flat = block_cols.reshape(-1).long()
     if flat.numel() >= 2**31:
         raise OverflowError("BSR with 2^31 or more block slots is not supported")
@@ -188,6 +193,56 @@ def bsr_column_index(block_cols, nbcol: int):
     colptr = torch.zeros(nbcol + 1, dtype=torch.int64, device=flat.device)
     colptr[1:] = torch.cumsum(counts, 0)
     return perm, colptr.to(torch.int32)
+
+
+class BSRColumnPlan(NamedTuple):
+    """K2's work plan, built once per operator (``bsr_column_plan``); every
+    tensor int32 on the blocks' device.
+
+    - ``perm``, ``colptr``: ``bsr_column_index``.
+    - ``chunk_ptr`` (nchunks + 1): chunk i is ``perm[chunk_ptr[i]:chunk_ptr[i+1]]``,
+      at most ``chunk_slots`` consecutive slots of one column (S in
+      ``bsr_column_plan``); chunks follow the columns in order and cover
+      ``perm`` once.
+    - ``chunk_col`` (nchunks): the column of each chunk.
+    - ``col_chunk`` (nbcol + 1): column c's chunks are ``col_chunk[c]:col_chunk[c+1]``.
+    - ``combine_cols``: the columns with no chunk or several, which the
+      combine pass writes (a column with one chunk is written by its chunk).
+    """
+
+    perm: torch.Tensor
+    colptr: torch.Tensor
+    chunk_ptr: torch.Tensor
+    chunk_col: torch.Tensor
+    col_chunk: torch.Tensor
+    combine_cols: torch.Tensor
+    chunk_slots: int
+
+
+def bsr_column_plan(block_cols, nbcol: int, block_bytes: int = 4096) -> BSRColumnPlan:
+    """K2's plan: each column's slots (in ``bsr_column_index`` order) cut into
+    chunks of at most S slots, S holding 64 KiB of blocks of ``block_bytes``
+    each (16 slots of 8x128 f32, 1 of 128x128 f32), raised to ⌈slots / 8192⌉
+    on larger operators so that a column never has more than 8192 chunks: a
+    chunk is one thread block's work, balanced however the slots fall into
+    columns, and a column's chunks are added in chunk order by a second pass
+    (``csrc/bsr_spmv.cu``)."""
+    perm, colptr = bsr_column_index(block_cols, nbcol)
+    nslots = perm.numel()
+    S = max(_T_CHUNK_BYTES // max(int(block_bytes), 1), 1, -(-nslots // _T_MAX_COL_CHUNKS))
+    dev = perm.device
+    cp = colptr.long()
+    nch = (cp[1:] - cp[:-1] + S - 1) // S  # chunks per column, 0 for an empty one
+    col_chunk = torch.zeros(nbcol + 1, dtype=torch.int64, device=dev)
+    col_chunk[1:] = torch.cumsum(nch, 0)
+    chunk_col = torch.repeat_interleave(torch.arange(nbcol, device=dev), nch)
+    rank = torch.arange(chunk_col.numel(), device=dev) - col_chunk[chunk_col]
+    chunk_ptr = torch.full((chunk_col.numel() + 1,), nslots, dtype=torch.int64, device=dev)
+    chunk_ptr[:-1] = cp[chunk_col] + rank * S
+    combine_cols = torch.nonzero(nch != 1).reshape(-1)
+    i32 = torch.int32
+    return BSRColumnPlan(perm, colptr, chunk_ptr.to(i32), chunk_col.to(i32), col_chunk.to(i32),
+                         combine_cols.to(i32), S)
 
 
 # ----------------------------------------------------------------------------
@@ -203,8 +258,8 @@ def _lib():
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.linops_bsr_matvec.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, i32, i32, p]
         lib.linops_bsr_matvec.restype = ctypes.c_int
-        lib.linops_bsr_rmatvec.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32, i32,
-                                           i32, i32, i32, p]
+        lib.linops_bsr_rmatvec.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32, i32,
+                                           i32, i32, i32, i32, p]
         lib.linops_bsr_rmatvec.restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
@@ -274,32 +329,33 @@ def bsr_matvec_kernel(blocks, block_cols, x_blocks, *, fast: bool = False,
     return y
 
 
-def bsr_rmatvec_kernel(blocks, block_cols, u_blocks, nbcol: int, *, perm=None,
-                       colptr=None):
+def bsr_rmatvec_kernel(blocks, block_cols, u_blocks, nbcol: int, *, plan=None):
     """K2: out (nbcol, bn) = Σ_{r,k} blocks[r,k]ᵀ · u[r] summed into block
     column ``block_cols[r,k]``, in ``promote(blocks, u)``. CPU tensors take
     ``bsr_rmatvec_plain``; CUDA tensors launch the deterministic kernel
-    (f32/bf16 only) or raise. ``perm``/``colptr`` are the column index from
-    ``bsr_column_index`` (built here when not given)."""
+    (f32/bf16 only) or raise. ``plan`` is the column plan from
+    ``bsr_column_plan`` (built here when not given)."""
     if blocks.device.type == "cpu":
         return bsr_rmatvec_plain(blocks, block_cols, u_blocks, nbcol)
     if blocks.device.type != "cuda":
         raise ValueError(f"bsr_rmatvec: no kernel for device {blocks.device}")
     nbrow, kmax, bm, bn = blocks.shape
     u, (bdt, vdt) = _cuda_args(blocks, block_cols, u_blocks, nbrow, "bsr_rmatvec", transpose=True)
-    if perm is None or colptr is None:
-        perm, colptr = bsr_column_index(block_cols, nbcol)
-    if (perm.dtype != torch.int32 or colptr.dtype != torch.int32
-            or perm.numel() != nbrow * kmax or colptr.numel() != nbcol + 1
-            or perm.device != blocks.device or colptr.device != blocks.device):
-        raise ValueError("bsr_rmatvec: perm/colptr do not index these blocks "
-                         "(see bsr_column_index)")
+    if plan is None:
+        plan = bsr_column_plan(block_cols, nbcol, bm * bn * blocks.element_size())
+    tensors = (plan.perm, plan.chunk_ptr, plan.chunk_col, plan.col_chunk, plan.combine_cols)
+    nchunks = plan.chunk_col.numel()
+    if (any(t.dtype != torch.int32 or t.device != blocks.device for t in tensors)
+            or plan.perm.numel() != nbrow * kmax or plan.col_chunk.numel() != nbcol + 1
+            or plan.chunk_ptr.numel() != nchunks + 1):
+        raise ValueError("bsr_rmatvec: the plan does not index these blocks "
+                         "(see bsr_column_plan)")
     out = torch.empty((nbcol, bn), dtype=vdt, device=blocks.device)
-    tile = min(_T_TILE_MAX, -(-bn // 32) * 32)
+    partial = torch.empty((nchunks, bn), dtype=torch.float32, device=blocks.device)
     lib = _lib()
     rc = lib.linops_bsr_rmatvec(
-        blocks.data_ptr(), perm.data_ptr(), colptr.data_ptr(), u.data_ptr(),
-        out.data_ptr(), nbcol, kmax, bm, bn, tile, _T_SPLIT,
+        blocks.data_ptr(), *(t.data_ptr() for t in tensors), u.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn,
         _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
     _check_launch(lib, rc, "bsr_rmatvec")
     _LAUNCHES["bsr_rmatvec"] += 1

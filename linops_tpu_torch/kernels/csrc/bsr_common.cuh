@@ -2,6 +2,9 @@
 //
 // - widen/narrow: f32 accumulation for f32 and bf16 values; bf16 is widened
 //   per element and the result narrowed once at the store.
+// - load4/store4: four consecutive values as one 16-byte (f32) or 8-byte
+//   (bf16) access, widened to / narrowed from f32; the address must be
+//   aligned to the access.
 // - dispatch_dtypes: the (block, vector) dtype pairs every entry point takes,
 //   as codes shared with the Python wrappers (0 = float32, 1 = bfloat16):
 //   (0, 0), (1, 0), (1, 1). The vector type is also the output type.
@@ -28,6 +31,31 @@ template <typename T> __device__ __forceinline__ T narrow(float v);
 template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&a);
+  t.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -15,25 +15,48 @@
 //   read directly through block_cols: a Hopper gather is exact, so the TPU's
 //   one-hot selector matmuls and the bf16 split of x have no counterpart here.
 //   The warp sum is a shuffle tree: no atomics, no shared memory.
-// - K2: deterministic. The host builds, once per operator, the slots of the
-//   flattened (nbrow*kmax) block list sorted stably by block column (`perm`)
-//   and the offsets of each column in that order (`colptr`, nbcol+1 entries).
-//   One thread block owns one (block column, tile of bn) output: thread
-//   (x = n, y = j) sums blocks[slot, m, n] * u[row(slot), m] over the
-//   column's slots in order and over m = j, j+blockDim.y, ...; the blockDim.y
-//   partial sums are added in a fixed order through shared memory. No float
-//   atomics, so the result is bit-identical from run to run.
+// - K2: deterministic, balanced over the stored blocks, no float atomics.
+//   The host builds a column plan once per operator (bsr_spmv.py::
+//   bsr_column_plan): the flattened (nbrow*kmax) slots sorted stably by block
+//   column (`perm`), cut into chunks of at most S consecutive slots of one
+//   column (`chunk_ptr`, `chunk_col`; S slots hold about 64 KB of blocks,
+//   16 at 8x128 f32, more when the operator has more than 8192*S slots, so
+//   no column has more than 8192 chunks), and each column's chunk range
+//   (`col_chunk`). Two launches:
+//   1. rmatvec_chunk_kernel, one thread block per (chunk, 128-wide n tile):
+//      the block stages up to kStage of the chunk's slot offsets and block
+//      rows in shared memory, then warp w takes m = w, w + kT2Warps, ... and
+//      lane l the four n values 4l..4l+3 of each block row: kUnroll block
+//      rows (of several slots, and for bm > kT2Warps several m) are loaded
+//      at once (16-byte f32 or 8-byte bf16 loads, so 2-4 KB in flight per
+//      warp) and multiplied by u[row(slot), m]. The warps'
+//      partial sums are added in warp order through shared memory. A column
+//      with one chunk gets its output row written here; every other chunk
+//      writes an f32 partial row.
+//   2. rmatvec_combine_kernel, one thread block per column with no chunk or
+//      several: warp w sums the column's partial rows w, w + kT2Warps, ... in
+//      order, the warps are added in warp order, and the row is written
+//      (zeros for a column no slot reaches).
+//   So a column of 2^19 slots is spread over thousands of thread blocks
+//   (the old design walked it in one), and every sum has a fixed order: the
+//   result is bit-identical from run to run. The partial rows (f32, one per
+//   chunk) are the design's own bytes, about 1 % of the blocks' at 8x128.
 //
 // Accumulation is f32 for f32 and bf16 blocks; bf16 is widened per element.
 // Element offsets are 64-bit (nbrow*kmax*bm*bn passes 2^31 soon after the
 // 67M-value benchmark shape). Each entry point launches on the caller's stream,
-// does not synchronise, and returns cudaGetLastError() of its launch.
+// does not synchronise, and returns the first nonzero cudaGetLastError() of its
+// launches.
 
 #include "bsr_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // K1: warps (output rows) per thread block
+constexpr int kWarps = 8;    // K1: warps (output rows) per thread block
+constexpr int kT2Warps = 8;  // K2: warps per thread block, each a slice of m
+constexpr int kT2Tile = 128; // K2: n values per thread block (4 per lane)
+constexpr int kStage = 64;   // K2: chunk slots whose offsets are staged at a time
+constexpr int kUnroll = 8;   // K2: block rows (or partial rows) a warp loads at once
 
 template <typename TB, typename TX>
 __global__ void bsr_matvec_kernel(const TB* __restrict__ blocks,
@@ -56,34 +79,148 @@ __global__ void bsr_matvec_kernel(const TB* __restrict__ blocks,
   if (lane == 0) y[r * bm + m] = narrow<TX>(acc);
 }
 
-template <typename TB, typename TX>
-__global__ void bsr_rmatvec_kernel(const TB* __restrict__ blocks,
-                                   const int32_t* __restrict__ perm,
-                                   const int32_t* __restrict__ colptr,
-                                   const TX* __restrict__ u, TX* __restrict__ out,
-                                   int kmax, int bm, int bn) {
-  extern __shared__ float partial[];  // blockDim.y * blockDim.x
-  const int64_t c = blockIdx.x;
-  const int n = blockIdx.y * blockDim.x + threadIdx.x;
-  const int j = threadIdx.y;
-  float acc = 0.f;
-  if (n < bn) {
-    const int s1 = colptr[c + 1];
-    for (int s = colptr[c]; s < s1; ++s) {
-      const int64_t slot = perm[s];
-      const TB* blk = blocks + slot * bm * static_cast<int64_t>(bn) + n;
-      const TX* urow = u + (slot / kmax) * bm;
-      for (int m = j; m < bm; m += blockDim.y)
-        acc = fmaf(widen(blk[static_cast<int64_t>(m) * bn]), widen(urow[m]), acc);
+// Four values n0..n0+3 of a row (zeros past bn): one vector load when
+// `vec` (bn % 4 == 0 and an aligned base), else four scalar loads.
+template <typename T>
+__device__ __forceinline__ void load_n4(const T* __restrict__ row, int n0, int bn, bool vec,
+                                        float v[4]) {
+  if (vec) {
+    if (n0 < bn) {
+      load4(row + n0, v);
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = n0 + q < bn ? widen(row[n0 + q]) : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_n4(T* __restrict__ row, int n0, int bn, bool vec,
+                                         const float v[4]) {
+  if (vec) {
+    if (n0 < bn) store4(row + n0, v);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (n0 + q < bn) row[n0 + q] = narrow<T>(v[q]);
+}
+
+// The warps' four sums per lane, added in warp order by warp 0 (into v).
+// Every thread of the block must call it.
+__device__ __forceinline__ bool sum_warps(float (*red)[kT2Tile], float v[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  *reinterpret_cast<float4*>(&red[warp][4 * lane]) = make_float4(v[0], v[1], v[2], v[3]);
+  __syncthreads();
+  if (warp != 0) return false;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = red[0][4 * lane + q];
+  for (int w = 1; w < kT2Warps; ++w) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] += red[w][4 * lane + q];
+  }
+  return true;
+}
+
+// K2 pass 1: blockIdx.x = chunk, blockIdx.y = n tile. A warp's block rows
+// are (staged slot i, m = warp + j * kT2Warps); it loads US slots x UM of its
+// m values (kUnroll rows) at once: kUnroll slots when it has one m (bm <=
+// kT2Warps), else kUnroll m values of one slot (a chunk of 128x128 f32 blocks
+// is one slot). Registers capped so that four thread blocks (32 warps) fit
+// an SM.
+template <typename TB, typename TX, int US, int UM>
+__global__ void __launch_bounds__(kT2Warps * 32, 4)
+rmatvec_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
+                     const int32_t* __restrict__ chunk_ptr,
+                     const int32_t* __restrict__ chunk_col,
+                     const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
+                     float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
+                     int bn, bool vec) {
+  static_assert(US * UM == kUnroll, "a warp loads kUnroll block rows at once");
+  __shared__ int64_t slot_s[kStage];  // element offset of each staged slot's block
+  __shared__ int64_t urow_s[kStage];  // offset of its block row in u
+  __shared__ __align__(16) float red[kT2Warps][kT2Tile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ch = blockIdx.x;
+  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
+  const int s0 = chunk_ptr[ch], s1 = chunk_ptr[ch + 1];
+  const int64_t bsize = static_cast<int64_t>(bm) * bn;
+  const int mw = warp < bm ? (bm - warp + kT2Warps - 1) / kT2Warps : 0;  // this warp's m values
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int b0 = s0; b0 < s1; b0 += kStage) {
+    const int nb = min(kStage, s1 - b0);
+    __syncthreads();  // the previous stage's reads are done
+    if (threadIdx.x < nb) {
+      const int64_t slot = perm[b0 + threadIdx.x];
+      slot_s[threadIdx.x] = slot * bsize;
+      urow_s[threadIdx.x] = (slot / kmax) * bm;
+    }
+    __syncthreads();
+    for (int i0 = 0; i0 < nb; i0 += US) {
+      for (int j0 = 0; j0 < mw; j0 += UM) {
+        float v[US][UM][4], um[US][UM];
+#pragma unroll
+        for (int a = 0; a < US; ++a) {
+#pragma unroll
+          for (int b = 0; b < UM; ++b) {
+            if (i0 + a < nb && j0 + b < mw) {
+              const int m = warp + (j0 + b) * kT2Warps;
+              load_n4(blocks + slot_s[i0 + a] + static_cast<int64_t>(m) * bn, n0, bn, vec,
+                      v[a][b]);
+              um[a][b] = widen(u[urow_s[i0 + a] + m]);
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < US; ++a) {
+#pragma unroll
+          for (int b = 0; b < UM; ++b) {
+            if (i0 + a < nb && j0 + b < mw) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[q] = fmaf(v[a][b][q], um[a][b], acc[q]);
+            }
+          }
+        }
+      }
     }
   }
-  partial[j * blockDim.x + threadIdx.x] = acc;
-  __syncthreads();
-  if (j == 0 && n < bn) {
-    float total = 0.f;
-    for (int q = 0; q < static_cast<int>(blockDim.y); ++q) total += partial[q * blockDim.x + threadIdx.x];
-    out[c * bn + n] = narrow<TX>(total);
+  if (!sum_warps(red, acc)) return;
+  const int64_t c = chunk_col[ch];
+  if (col_chunk[c + 1] - col_chunk[c] == 1)
+    store_n4(out + c * bn, n0, bn, vec, acc);
+  else
+    store_n4(partial + ch * bn, n0, bn, vec, acc);
+}
+
+// K2 pass 2: blockIdx.x = a column with no chunk or several, blockIdx.y = n tile.
+template <typename TX>
+__global__ void __launch_bounds__(kT2Warps * 32)
+rmatvec_combine_kernel(const float* __restrict__ partial, const int32_t* __restrict__ cols,
+                       const int32_t* __restrict__ col_chunk, TX* __restrict__ out, int bn,
+                       bool vec) {
+  __shared__ __align__(16) float red[kT2Warps][kT2Tile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t c = cols[blockIdx.x];
+  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
+  const int k1 = col_chunk[c + 1];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = col_chunk[c] + warp; k < k1; k += kT2Warps * kUnroll) {
+    float v[kUnroll][4];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      if (k + i * kT2Warps < k1)
+        load_n4(partial + static_cast<int64_t>(k + i * kT2Warps) * bn, n0, bn, vec, v[i]);
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      if (k + i * kT2Warps < k1) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] += v[i][q];
+      }
+    }
   }
+  if (sum_warps(red, acc)) store_n4(out + c * bn, n0, bn, vec, acc);
 }
 
 template <typename TB, typename TX>
@@ -100,19 +237,33 @@ int launch_matvec(const void* blocks, const void* cols, const void* x, void* y,
 }
 
 template <typename TB, typename TX>
-int launch_rmatvec(const void* blocks, const void* perm, const void* colptr,
-                   const void* u, void* out, int64_t nbcol, int kmax, int bm,
-                   int bn, int tile_n, int split, cudaStream_t stream) {
-  if (nbcol <= 0) return 0;
-  if (nbcol > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid(static_cast<unsigned>(nbcol), static_cast<unsigned>((bn + tile_n - 1) / tile_n));
-  const dim3 block(tile_n, split);
-  const size_t shared = sizeof(float) * tile_n * split;
-  bsr_rmatvec_kernel<TB, TX><<<grid, block, shared, stream>>>(
-      static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
-      static_cast<const int32_t*>(colptr), static_cast<const TX*>(u),
-      static_cast<TX*>(out), kmax, bm, bn);
-  return static_cast<int>(cudaGetLastError());
+int launch_rmatvec(const void* blocks, const void* perm, const void* chunk_ptr,
+                   const void* chunk_col, const void* col_chunk, const void* combine_cols,
+                   const void* u, float* partial, void* out, int64_t nchunks,
+                   int64_t ncombine, int kmax, int bm, int bn, cudaStream_t stream) {
+  if (nchunks > 0x7fffffffLL || ncombine > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned tiles = static_cast<unsigned>((bn + kT2Tile - 1) / kT2Tile);
+  const bool vec = bn % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % (4 * sizeof(TB)) == 0;
+  if (nchunks > 0) {
+    const dim3 grid(static_cast<unsigned>(nchunks), tiles);
+    auto kernel = bm <= kT2Warps ? rmatvec_chunk_kernel<TB, TX, kUnroll, 1>
+                                 : rmatvec_chunk_kernel<TB, TX, 1, kUnroll>;
+    kernel<<<grid, kT2Warps * 32, 0, stream>>>(
+        static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
+        static_cast<const int32_t*>(chunk_ptr), static_cast<const int32_t*>(chunk_col),
+        static_cast<const int32_t*>(col_chunk), static_cast<const TX*>(u), partial,
+        static_cast<TX*>(out), kmax, bm, bn, vec);
+    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+  }
+  if (ncombine > 0) {
+    rmatvec_combine_kernel<TX><<<dim3(static_cast<unsigned>(ncombine), tiles), kT2Warps * 32, 0,
+                                 stream>>>(
+        partial, static_cast<const int32_t*>(combine_cols),
+        static_cast<const int32_t*>(col_chunk), static_cast<TX*>(out), bn, bn % 4 == 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }
 
 }  // namespace
@@ -133,9 +284,13 @@ int linops_bsr_matvec(const void* blocks, const void* cols, const void* x, void*
   });
 }
 
-int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* colptr,
-                       const void* u, void* out, int64_t nbcol, int kmax, int bm,
-                       int bn, int tile_n, int split, int block_dtype,
+// K2. perm, chunk_ptr, chunk_col, col_chunk, combine_cols: the column plan
+// (bsr_spmv.py::bsr_column_plan); partial is (nchunks, bn) f32 scratch; out
+// is (nbcol, bn).
+int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* chunk_ptr,
+                       const void* chunk_col, const void* col_chunk, const void* combine_cols,
+                       const void* u, float* partial, void* out, int64_t nchunks,
+                       int64_t ncombine, int kmax, int bm, int bn, int block_dtype,
                        int vec_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -143,8 +298,8 @@ int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* colptr,
   return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
     using TB = typename decltype(tb)::type;
     using TX = typename decltype(tx)::type;
-    return launch_rmatvec<TB, TX>(blocks, perm, colptr, u, out, nbcol, kmax, bm, bn,
-                                  tile_n, split, s);
+    return launch_rmatvec<TB, TX>(blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
+                                  u, partial, out, nchunks, ncombine, kmax, bm, bn, s);
   });
 }
 

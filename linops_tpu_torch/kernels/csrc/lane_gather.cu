@@ -49,18 +49,33 @@
 // the promoted type (f32 unless both are bf16), so a bf16 program applied to f32
 // data is never converted on the host.
 //
-// K13 takes any rowid per tile, not only the contiguous runs the pack makes
-// (the TPU kernel was a one-hot contraction over each tile's slots). One
-// thread block per (repeat, tile) walks the tile's K slots in order, 256 at a
-// time, one slot per thread, with coalesced loads of q and rowid. Inside a
-// warp, __match_any_sync groups the lanes of one row and every lane of a
-// group sums the group's values in lane order (shuffles); the group's lowest
-// lane adds the sum into its warp's 128-row partial in shared memory. At the
-// end thread i sums the eight warps' partials of row i in warp order and
-// writes row i once. So the result is the same bits on every run: no float
-// atomics, and every sum is taken in a fixed order. Sums are in f32; the
-// output is q's type.
-//
+// K13 takes any rowid per tile, not only the runs the pack makes (the TPU
+// kernel was a one-hot contraction over each tile's slots), and sums each
+// row's slots one after another in slot order, in f32, starting from zero:
+// the same bits on every run, with no float atomics, and the same bits
+// whichever of the two paths below a segment takes. One warp per (repeat,
+// tile), kCombWarps tiles per thread block, with a 128-row running sum per
+// warp in shared memory. The warp stages kCombSeg slots at a time in shared
+// memory with cp.async 16-byte copies (no registers hold them, so many warps
+// fit an SM; plain loads where K % 16 != 0); the main path's K = 640 is one
+// segment. Then:
+// - runs (what the pack builds: rowid nondecreasing as bytes over the
+//   segment, trash -1 = 255 last; a byte-wise compare per lane and a warp
+//   vote): each row's slots are one contiguous run. Lanes mark where each
+//   row's run starts and ends, and lane l adds the runs of rows l, l + 32,
+//   l + 64 and l + 96 (rows 32 apart, so the lanes' reads of the staged q
+//   spread over the banks), four loads at a time. A few instructions per
+//   slot.
+// - any other order: for every 32 slots in order, __match_any_sync groups
+//   the lanes holding the same row, and the group's lowest lane adds the
+//   group's q, in lane order, to the row's running sum.
+// At the end lane l writes rows 4l..4l+3 with one vector store, in q's type.
+// Each segment's path is found again for every repeat rather than kept: the
+// vote costs a few instructions per 128 slots. What bounds K13: the bytes
+// of q (read once) and of the output; the first version (one thread block
+// per tile and a 32-step shuffle sweep per 32 slots) was bound by
+// instructions at 23 % of that bound.
+
 // The TPU kernels required R0 to be a multiple of 128 rows (their VMEM tile,
 // lane_gather.py::_tile_rows). These take any R0 and any row count: a thread
 // block walks rows in a grid-stride loop and K9 masks the ragged window tile.
@@ -77,32 +92,9 @@ constexpr int kLanes = 128;
 constexpr int kWarps = 8;           // rows in flight per thread block (one per warp)
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = 32;       // K9: window rows per transposed tile
+constexpr int kCombSeg = 1024;      // K13: slots a warp stages at once
+constexpr int kCombWarps = 4;       // K13: tiles (one per warp) per thread block
 constexpr int64_t kMaxBlocks = 1 << 20;
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<const uint32_t*>(&a);
-  t.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = t;
-}
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -290,44 +282,119 @@ gather_mul_segsum_kernel(const TA* __restrict__ a, const int8_t* __restrict__ id
   }
 }
 
-// one block per (repeat j, tile t): blockIdx.x = j*T + t
+// 16 bytes global -> shared without registers; cp_async_wait makes this
+// thread's copies complete (a __syncwarp then shows them to the warp).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 4 packed rowid bytes (as unsigned: trash -1 = 255, last in order)
+__device__ __forceinline__ unsigned bytes4(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// one warp per (repeat j, tile t) = j*T + t; kCombWarps of them per thread block
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCombWarps * 32)
 tiled_combine_kernel(const T* __restrict__ q, const int8_t* __restrict__ rowid,
-                     T* __restrict__ out, int64_t tiles, int64_t K) {
-  __shared__ float part[kWarps][kLanes];
+                     T* __restrict__ out, int64_t tiles, int64_t K, int64_t units, bool vec) {
+  __shared__ __align__(16) float acc_s[kCombWarps][kLanes];     // running row sums
+  __shared__ __align__(16) T q_s[kCombWarps][kCombSeg];         // the segment's q
+  __shared__ __align__(16) int8_t r_s[kCombWarps][kCombSeg];    // the segment's rowid
+  __shared__ __align__(16) int16_t run_s[kCombWarps][2][kLanes];  // runs: [start, end) per row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t jt = blockIdx.x;
-  const int64_t t = jt % tiles;
-  for (int i = threadIdx.x; i < kWarps * kLanes; i += kThreads) (&part[0][0])[i] = 0.f;
-  __syncthreads();
+  const int64_t jt = int64_t(blockIdx.x) * kCombWarps + warp;
+  if (jt >= units) return;  // whole warps leave; nothing below syncs the block
   const T* qt = q + jt * K;
-  const int8_t* rt = rowid + t * K;
-  for (int64_t k0 = 0; k0 < K; k0 += kThreads) {
-    const int64_t k = k0 + threadIdx.x;
-    int r = -1;
-    float v = 0.f;
-    if (k < K) {
-      r = rt[k];
-      v = widen(qt[k]);
+  const int8_t* rt = rowid + (jt % tiles) * K;
+  float* acc = acc_s[warp];
+  const T* qs = q_s[warp];
+  int8_t* rs = r_s[warp];
+  int16_t* start = run_s[warp][0];
+  int16_t* end = run_s[warp][1];
+  *reinterpret_cast<float4*>(acc + 4 * lane) = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int64_t k0 = 0; k0 < K; k0 += kCombSeg) {
+    const int n = K - k0 < kCombSeg ? static_cast<int>(K - k0) : kCombSeg;  // slots here
+    const int n128 = (n + kLanes - 1) / kLanes * kLanes;
+    __syncwarp();  // the previous segment's reads of the shared rows are done
+    if (vec) {  // K % 16 == 0: whole 16-byte pieces of q and of rowid
+      constexpr int kQ = 16 / sizeof(T);  // q values per 16 bytes
+      for (int i = lane; i < n / kQ; i += 32) cp_async16(&q_s[warp][i * kQ], qt + k0 + i * kQ);
+      for (int i = lane; i < n / 16; i += 32) cp_async16(rs + i * 16, rt + k0 + i * 16);
+      cp_async_wait();
+    } else {
+      for (int i = lane; i < n; i += 32) {
+        q_s[warp][i] = qt[k0 + i];
+        rs[i] = rt[k0 + i];
+      }
     }
-    const unsigned group = __match_any_sync(0xffffffffu, r);
-    float s = 0.f;
-#pragma unroll
-    for (int src = 0; src < 32; ++src) {  // lane order: the same sum on every lane of a group
-      const float u = __shfl_sync(0xffffffffu, v, src);
-      if (group >> src & 1u) s += u;
-    }
-    if (r >= 0 && lane == __ffs(group) - 1) part[warp][r & 127] += s;
+    for (int i = n + lane; i < n128; i += 32) rs[i] = -1;  // the last piece's tail: trash
     __syncwarp();
-  }
-  __syncthreads();
-  if (threadIdx.x < kLanes) {
-    float acc = 0.f;
+    // runs iff every rowid byte is at least the one before it (trash = 255 last)
+    bool runs = true;
+    for (int p = 0; p < n128 / kLanes; ++p) {
+      const int b = p * kLanes + 4 * lane;
+      const unsigned w = bytes4(rs + b);
+      const unsigned left = b > 0 ? static_cast<uint8_t>(rs[b - 1]) : 0u;
+      runs = runs && __vcmpleu4(__byte_perm(w, left, 0x2104), w) == 0xffffffffu;
+    }
+    if (__all_sync(0xffffffffu, runs)) {
+      *reinterpret_cast<uint2*>(start + 4 * lane) = make_uint2(0u, 0u);
+      *reinterpret_cast<uint2*>(end + 4 * lane) = make_uint2(0u, 0u);
+      __syncwarp();
+      // the bytes that start or end a run mark it (the segment's ends always do)
+      for (int p = 0; p < n128 / kLanes; ++p) {
+        const int b = p * kLanes + 4 * lane;
+        const unsigned w = bytes4(rs + b);
+        const unsigned left = b > 0 ? static_cast<uint8_t>(rs[b - 1]) : 256u;
+        const unsigned right = b + 4 < n128 ? static_cast<uint8_t>(rs[b + 4]) : 256u;
+        const unsigned first = __vcmpne4(__byte_perm(w, left, 0x2104), w) | (left >> 8);
+        const unsigned last = __vcmpne4(__byte_perm(w, right, 0x4321), w) | (right >> 8 << 24);
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) acc += part[w][threadIdx.x];
-    out[jt * kLanes + threadIdx.x] = narrow<T>(acc);
+        for (int j = 0; j < 4; ++j) {
+          const unsigned row = (w >> (8 * j)) & 0xffu;
+          if (row < kLanes && (first >> (8 * j) & 1u)) start[row] = static_cast<int16_t>(b + j);
+          if (row < kLanes && (last >> (8 * j) & 1u)) end[row] = static_cast<int16_t>(b + j + 1);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // rows 32 apart: their runs fall in other banks
+        const int row = lane + 32 * i;
+        float a = acc[row];
+        int k = start[row];
+        const int e = end[row];
+        for (; k + 4 <= e; k += 4) {  // four loads at once, added in slot order
+          const float b0 = widen(qs[k]), b1 = widen(qs[k + 1]);
+          const float b2 = widen(qs[k + 2]), b3 = widen(qs[k + 3]);
+          a = (((a + b0) + b1) + b2) + b3;
+        }
+        for (; k < e; ++k) a += widen(qs[k]);
+        acc[row] = a;
+      }
+    } else {
+      for (int c0 = 0; c0 < n; c0 += 32) {
+        const int rrow = rs[c0 + lane];  // -1 past K
+        const unsigned group = __match_any_sync(0xffffffffu, rrow);
+        if (rrow >= 0 && lane == __ffs(group) - 1) {
+          float a = acc[rrow];
+          for (unsigned g = group; g; g &= g - 1) a += widen(qs[c0 + __ffs(g) - 1]);
+          acc[rrow] = a;
+        }
+        __syncwarp();  // the next 32 slots' groups may add to the same row
+      }
+    }
   }
+  __syncwarp();
+  float o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = acc[4 * lane + i];
+  store4(out + jt * kLanes + 4 * lane, o);
 }
 
 unsigned row_blocks(int64_t rows) {
@@ -466,13 +533,17 @@ int linops_tiled_combine(const void* q, const void* rowid, void* out, int64_t ti
                          int64_t rep, int dtype, int device, void* stream) {
   if (int err = begin(device)) return err;
   if (tiles <= 0 || rep <= 0) return 0;
-  if (rep * tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t units = rep * tiles;
+  const int64_t blocks = (units + kCombWarps - 1) / kCombWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_dtype(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    tiled_combine_kernel<T><<<static_cast<unsigned>(rep * tiles), kThreads, 0, s>>>(
+    const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(rowid) % 16 == 0;
+    tiled_combine_kernel<T><<<static_cast<unsigned>(blocks), kCombWarps * 32, 0, s>>>(
         static_cast<const T*>(q), static_cast<const int8_t*>(rowid), static_cast<T*>(out), tiles,
-        K);
+        K, units, vec);
     return static_cast<int>(cudaGetLastError());
   });
 }

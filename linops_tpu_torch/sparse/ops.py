@@ -26,7 +26,7 @@ import torch
 from ..core.base import LinearOperator, LinearOperatorException, _conj, _move, default_device
 from ..kernels import bsr_spmv as K
 from ..kernels.bsr_spmv import (
-    bsr_column_index,
+    bsr_column_plan,
     bsr_matmat_plain as bsr_matmat,
     bsr_matvec_kernel,
     bsr_matvec_plain as bsr_matvec,
@@ -432,13 +432,13 @@ class BSROperator(_SparseBase):
     reference's keyword arguments), e.g. one carried over by
     ``convert.bsr_operator_from_reference``.
 
-    Construction builds K2's block-column index, K5's lane rows for a multi
+    Construction builds K2's column plan, K5's lane rows for a multi
     plan and, with a transpose plan, K4/K6's slot index, on the data's
     device, once. Data padded by the reference (extra zero block rows at
     block column 0) is accepted: applies truncate to ``shape``.
     """
 
-    _fields_tensors = ("data", "col_perm", "col_ptr", "win_q", "cols_local", "win_q_t",
+    _fields_tensors = ("data", "col_plan", "win_q", "cols_local", "win_q_t",
                        "win_valid_t", "lane_rows", "t_perm", "t_ptr")
     _fields_static = ("_symmetric", "_hermitian", "_backend", "_wb", "_x_pad_blocks",
                       "_x_pad_blocks_t")
@@ -483,7 +483,8 @@ class BSROperator(_SparseBase):
             self._plan()
         self._check_plan()
         d = self.data
-        self.col_perm, self.col_ptr = bsr_column_index(d.block_cols, nbcol)
+        self.col_plan = bsr_column_plan(d.block_cols, nbcol,
+                                        bm * bn * d.blocks.element_size())
         self.lane_rows = self.t_perm = self.t_ptr = None
         if self.win_q is not None and self.cols_local is None:
             self.lane_rows = K.bsr_multiwin_index(d.block_cols, self.win_q, self._wb)
@@ -642,8 +643,7 @@ class BSROperator(_SparseBase):
                 else:
                     x = K.bsr_rmatvec_multiwin_plain(*args, **plan)
         elif kern:
-            x = bsr_rmatvec_kernel(blocks, d.block_cols, ub, nbcol,
-                                   perm=self.col_perm, colptr=self.col_ptr)
+            x = bsr_rmatvec_kernel(blocks, d.block_cols, ub, nbcol, plan=self.col_plan)
         else:
             x = bsr_rmatvec(blocks, d.block_cols, ub, nbcol)
         return x.reshape(nbcol * bn)[: d.shape[1]]

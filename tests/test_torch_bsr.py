@@ -11,6 +11,10 @@ with the JAX reference, on the CPU.
   ``onehot_fast`` split of x (about 16 mantissa bits, 2^-17 ≈ 7.6e-6 relative
   per element; measured 2-4e-6 of max|y|), the port an exact gather, so the
   forward is held to 3e-5; the transpose has no split and is held to 1e-5.
+- K2's column plan (``bsr_column_plan``): its invariants, and a walk of it
+  in the CUDA kernel's order (chunks, then the combine pass) in f64, held to
+  1e-12 of the plain transpose and to the tolerances above against the
+  reference's Pallas kernel.
 """
 
 import jax.numpy as jnp
@@ -203,9 +207,139 @@ def test_column_index_orders_slots_by_column(rng):
     assert rel_err(out, K.bsr_rmatvec_plain(blocks, cols, u, nbcol).numpy()) <= 1e-12
 
 
+def _check_plan(plan, cols, nbcol):
+    """The plan's invariants: every slot in exactly one chunk, the chunks in
+    column order, none longer than ``chunk_slots``, each column's chunk
+    range, and the combine pass's columns."""
+    S = plan.chunk_slots
+    flat = cols.reshape(-1).numpy()
+    perm = plan.perm.numpy()
+    ptr, ccol, colc = plan.chunk_ptr.numpy(), plan.chunk_col.numpy(), plan.col_chunk.numpy()
+    assert all(t.dtype == torch.int32 for t in plan[:-1])
+    assert np.array_equal(np.sort(perm), np.arange(flat.size))  # each slot once
+    assert ptr[0] == 0 and ptr[-1] == flat.size and ptr.size == ccol.size + 1
+    lens = np.diff(ptr)
+    assert (lens >= 1).all() and (lens <= S).all()
+    assert (np.diff(ccol) >= 0).all()  # column order
+    for ch in range(ccol.size):
+        assert (flat[perm[ptr[ch]:ptr[ch + 1]]] == ccol[ch]).all()
+    counts = np.bincount(flat, minlength=nbcol)
+    assert np.array_equal(np.diff(colc), -(-counts // S))
+    assert np.array_equal(np.diff(colc), np.bincount(ccol, minlength=nbcol))
+    assert np.array_equal(plan.combine_cols.numpy(), np.flatnonzero(np.diff(colc) != 1))
+    return lens
+
+
+@pytest.mark.parametrize("case", ["random", "hot", "one column"])
+def test_column_plan_cuts_columns_into_chunks(rng, case):
+    """K2's chunk plan. A hot column of 10^4 slots is cut into 625 chunks of
+    16 (8x128 f32 blocks); an operator of more than 8192·16 slots gets longer
+    chunks, so that even a single column keeps at most 8192 of them."""
+    if case == "random":
+        nbrow, kmax, nbcol = 13, 5, 9
+        cols = rng.integers(0, nbcol - 2, (nbrow, kmax))  # the last two columns are empty
+    elif case == "hot":
+        nbrow, kmax, nbcol = 10_000, 3, 40
+        cols = rng.integers(0, 30, (nbrow, kmax))
+        cols[:, 0] = 33  # a hot column of 10^4 slots; columns 30-32, 34-39 empty
+    else:
+        nbrow, kmax, nbcol = 60_000, 3, 4
+        cols = np.zeros((nbrow, kmax))
+    cols = torch.from_numpy(cols.astype(np.int32))
+    plan = K.bsr_column_plan(cols, nbcol)
+    lens = _check_plan(plan, cols, nbcol)
+    colc = plan.col_chunk.numpy()
+    if case == "hot":
+        assert plan.chunk_slots == 16
+        hot = slice(colc[33], colc[34])
+        assert colc[34] - colc[33] == 625 and (lens[hot] == 16).all()
+        assert {30, 31, 32, 33, 34, 39} <= set(plan.combine_cols.tolist())
+    if case == "one column":
+        assert plan.chunk_slots == -(-nbrow * kmax // 8192) == 22
+        assert colc[1] == -(-nbrow * kmax // 22) <= 8192
+    # wider blocks, shorter chunks: 64 KiB of 128x128 f32 is one slot
+    wide = K.bsr_column_plan(cols, nbcol, block_bytes=128 * 128 * 4)
+    assert wide.chunk_slots == max(1, -(-cols.numel() // 8192))
+    _check_plan(wide, cols, nbcol)
+
+
+def _walk_plan(blocks, cols, u, nbcol, plan):
+    """K2 walked on the CPU in f64, in the CUDA kernel's order: pass 1 sums
+    each chunk's slots in plan order (a column with one chunk is written
+    there), pass 2 adds the partial rows of every other column as the
+    combine kernel does (warp w of 8 takes rows w, w + 8, ... in order, then
+    the eight sums in warp order; a column with no chunk gets zeros)."""
+    nbrow, kmax, bm, bn = blocks.shape
+    flat = blocks.reshape(-1, bm, bn).double()
+    u = u.double()
+    perm, ptr = plan.perm.tolist(), plan.chunk_ptr.tolist()
+    ccol, colc = plan.chunk_col.tolist(), plan.col_chunk.tolist()
+    out = torch.zeros((nbcol, bn), dtype=torch.float64)
+    written = np.zeros(nbcol, np.int64)
+    partial = []
+    for ch, c in enumerate(ccol):
+        acc = torch.zeros(bn, dtype=torch.float64)
+        for slot in perm[ptr[ch]:ptr[ch + 1]]:
+            acc = acc + flat[slot].T @ u[slot // kmax]
+        partial.append(acc)
+        if colc[c + 1] - colc[c] == 1:
+            out[c], written[c] = acc, written[c] + 1
+    for c in plan.combine_cols.tolist():
+        rows = partial[colc[c]:colc[c + 1]]
+        warps = [sum(rows[w::8], torch.zeros(bn, dtype=torch.float64)) for w in range(8)]
+        out[c], written[c] = sum(warps, torch.zeros(bn, dtype=torch.float64)), written[c] + 1
+    assert (written == 1).all()  # every column written once, by one of the passes
+    return out
+
+
+def _hot_cols(cols, nbcol):
+    """The reference data's columns with a hot column (block column 1 in every
+    real block row) and two empty ones (the last two)."""
+    cols = np.asarray(cols) % (nbcol - 2)
+    cols[:, 0] = 1
+    return cols.astype(np.int32)
+
+
+@pytest.mark.parametrize("block", [(8, 32), (8, 128)])
+def test_plan_walk_matches_plain_and_pallas_interpret_f32(rng, block):
+    n = 1024
+    _, blocks, cols = _padded_reference(rng, n, block, jnp.float32)
+    bm, bn = block
+    nbcol = n // bn
+    cols = _hot_cols(cols, nbcol)
+    ub = rng.standard_normal((blocks.shape[0], bm)).astype(np.float32)
+    bt, ct = from_numpy(blocks, device="cpu"), torch.from_numpy(cols)
+    for S in (16, 2):  # the 8x128 f32 plan, and one that cuts the hot column into chunks
+        plan = K.bsr_column_plan(ct, nbcol, block_bytes=65536 // S)
+        walked = _walk_plan(bt, ct, torch.from_numpy(ub), nbcol, plan)
+        plain = K.bsr_rmatvec_plain(bt.double(), ct, torch.from_numpy(ub).double(), nbcol)
+        assert rel_err(walked, plain.numpy()) <= 1e-12
+        oj = bsr_rmatvec_pallas(blocks, jnp.asarray(cols), jnp.asarray(ub), nbcol, interpret=True)
+        assert rel_err(walked, oj) <= 1e-5
+
+
+@pytest.mark.parametrize("vec_dtype", ["float32", "bfloat16"])
+def test_plan_walk_matches_pallas_interpret_bf16_blocks(rng, vec_dtype):
+    n = 512
+    _, blocks, cols = _padded_reference(rng, n, (8, 128), jnp.bfloat16)
+    nbcol = n // 128
+    cols = _hot_cols(cols, nbcol)
+    ub = rng.standard_normal((blocks.shape[0], 8)).astype(np.float32)
+    jdt, tdt = jnp.dtype(vec_dtype), getattr(torch, vec_dtype)
+    bt = from_numpy(blocks.astype(jnp.float32), dtype=torch.bfloat16, device="cpu")
+    ct, ut = torch.from_numpy(cols), torch.from_numpy(ub).to(tdt)
+    plan = K.bsr_column_plan(ct, nbcol, block_bytes=65536 // 2)
+    walked = _walk_plan(bt, ct, ut, nbcol, plan)
+    assert rel_err(walked, K.bsr_rmatvec_plain(bt.double(), ct, ut.double(), nbcol).numpy()) <= 1e-12
+    oj = bsr_rmatvec_pallas(blocks, jnp.asarray(cols), jnp.asarray(ub).astype(jdt), nbcol,
+                            interpret=True)
+    assert rel_err(walked, oj.astype(jnp.float32)) <= (1e-5 if vec_dtype == "float32" else 1e-2)
+
+
 def test_operator_to_device_keeps_index(rng):
     op = lt.BSROperator(lt.bsr_from_dense(sprand(rng, 24, 40), (8, 16), device="cpu"))
     moved = op.to("cpu")
-    assert moved.col_perm is not None and moved.device == torch.device("cpu")
+    assert isinstance(moved.col_plan, K.BSRColumnPlan)
+    assert moved.col_plan.perm is not None and moved.device == torch.device("cpu")
     v = torch.from_numpy(rng.standard_normal(24))
     assert torch.equal(moved.T * v, op.T * v)

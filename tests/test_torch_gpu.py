@@ -8,14 +8,17 @@ jax, so they also run where jax is not installed:
 Kernel against plain version, same inputs on the card: max|Δ| ≤ 1e-5·max|y|
 for f32 results (both accumulate in f32, in different orders), 1e-2 for
 bf16 results (bf16 rounding of the output, 2^-8). The transposes (K2, K4,
-K6) must be bit-identical on a rerun. The lane kernels K7-K12: gathers and
+K6) must be bit-identical on a rerun; K2 also on a hot column (every block
+row) cut into many chunks and beside empty columns. The lane kernels K7-K12: gathers and
 products exact; lane-group sums (K10) within 1e-6·max|y| (f32) or 2^-7
 (bf16); segment sums (K11, K12) within 8·eps_f32·Σ|window| per element, plus,
 in bf16, one ulp of the result (2^-7·|y|: two f32 sums that differ slightly
 can round to neighbouring bf16 values); K11/K12 bit-identical on a rerun.
 K13 (the tiled combine) within 4·eps_f32·Σ|q| per row of its plain version
-(plus one bf16 rounding of a bf16 result) and bit-identical on a rerun; K14
-equal to its plain version and to K9 with C = 1.
+(plus one bf16 rounding of a bf16 result) and bit-identical on a rerun, and
+equal bit for bit to an f32 walk of its order (each row's slots added in
+slot order) for K up to 2049; K14 equal to its plain version and to K9 with
+C = 1.
 """
 
 import numpy as np
@@ -81,12 +84,42 @@ def test_empty_columns_and_pad_blocks(dev):
     assert rel_err(o, K.bsr_rmatvec_plain(blocks, cols, u, nbcol)) <= 1e-5
 
 
+@pytest.mark.parametrize("chunk_slots", [None, 1, 100])
+@pytest.mark.parametrize("block", [(8, 128, 200, 3), (128, 128, 80, 2)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_k2_hot_and_empty_columns(dev, block, dtypes, chunk_slots):
+    """A column every block row reaches (200 or 80 slots, at least 4 chunks'
+    worth of the default plan: 16 slots of 8x128 f32, 1 of 128x128 f32; 1
+    slot per chunk gives the combine pass hundreds of rows; 100 stages a
+    chunk in two pieces) and two columns no slot reaches."""
+    bm, bn, nbrow, kmax = block
+    bdt, vdt = dtypes
+    nbcol = 12
+    blocks, cols = random_bsr(dev, nbrow, kmax, bm, bn, nbcol - 2, bdt, seed=5)
+    cols[:, 0] = 4  # the hot column; 10 and 11 stay empty
+    u = torch.randn((nbrow, bm), device=dev).to(vdt)
+    size = bm * bn * blocks.element_size() if chunk_slots is None else 65536 // chunk_slots
+    plan = K.bsr_column_plan(cols, nbcol, size)
+    S = plan.chunk_slots
+    assert int(plan.col_chunk[5] - plan.col_chunk[4]) >= -(-nbrow // S)
+    o = K.bsr_rmatvec_kernel(blocks, cols, u, nbcol, plan=plan)
+    torch.cuda.synchronize()
+    assert o.dtype == vdt and torch.count_nonzero(o[10:]) == 0
+    tol = 1e-5 if vdt == torch.float32 else 1e-2
+    assert rel_err(o, K.bsr_rmatvec_plain(blocks, cols, u, nbcol)) <= tol
+    o64 = K.bsr_rmatvec_plain(blocks.double(), cols, u.double(), nbcol)
+    assert rel_err(o, o64) <= tol
+    assert torch.equal(o, K.bsr_rmatvec_kernel(blocks, cols, u, nbcol, plan=plan))
+
+
 def test_operator_dispatch_on_cuda(dev):
     rng = np.random.default_rng(0)
     n = 300
     A = (rng.standard_normal((n, n + 20)) * (rng.random((n, n + 20)) < 0.1)).astype(np.float32)
     op = lt.BSROperator(lt.bsr_from_dense(A, (8, 64)))  # on the card by default
-    assert op.col_perm.is_cuda
+    assert op.col_plan.perm.is_cuda and op.col_plan.chunk_ptr.is_cuda
     A64 = torch.from_numpy(A).double().to(dev)
     v = torch.randn(n + 20, device=dev)
     u = torch.randn(n, device=dev)
@@ -521,6 +554,45 @@ def test_routed_program_without_bounds_runs_k13(dev):
     assert torch.equal(y, routed_matvec(q, v))
     X = torch.randn(4000, 3, device=dev)
     assert rel_err(routed_matmat(q, X), routed_matmat(p, X)) <= 1e-5
+
+
+def walk_rows(q, rowid, rep):
+    """K13's order on the card: each row's slots added in slot order, from
+    zero, in f32, rounded once to q's dtype."""
+    T, K = rowid.shape
+    qf = q.float().reshape(rep, T, K)
+    out = torch.zeros((rep, T, 128), device=q.device)
+    rid = rowid.long()
+    for k in range(K):
+        t = torch.nonzero(rid[:, k] >= 0).reshape(-1)
+        out[:, t, rid[t, k]] += qf[:, t, k]
+    return out.reshape(-1).to(q.dtype)
+
+
+@pytest.mark.parametrize("K", [1, 33, 640, 2049, 32768])
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("order", ["runs", "shuffled"])
+def test_tiled_combine_runs_and_shuffled(dev, K, rep, order):
+    """Runs as the pack makes them (rows in order, trash last), or shuffled
+    rows with trash; K from 1 to TILED_MAX_K (odd K takes the scalar loads)."""
+    rng = np.random.default_rng(K + rep)
+    T = 3 if K > 4096 else 9
+    rowid = np.full((T, K), -1, np.int8)
+    for t in range(T):
+        rows = np.sort(rng.integers(0, 128, K - K // 5)).astype(np.int8)
+        rowid[t, :rows.size] = rows
+        if order == "shuffled":
+            rowid[t] = rng.permutation(rowid[t])
+    rowid = torch.from_numpy(rowid).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.from_numpy(rng.standard_normal(rep * T * K).astype(np.float32)).to(dev, dtype)
+        out = LG.tiled_combine(q, rowid, rep=rep)
+        ref = LG.tiled_combine_plain(q, rowid, rep)
+        assert out.dtype == dtype and out.shape == ref.shape == (rep * T * 128,)
+        assert ((out.double() - ref.double()).abs() <= tiled_bound(q, rowid, rep, ref)).all()
+        assert torch.equal(out, LG.tiled_combine(q, rowid, rep=rep))
+        if K <= 2049:
+            assert torch.equal(out, walk_rows(q, rowid, rep))
 
 
 def test_tiled_combine_rejects_what_the_kernel_does_not_take(dev):

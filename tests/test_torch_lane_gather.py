@@ -16,6 +16,10 @@ crosses between the packages as f32, which is exact). Tolerances:
   8·eps_f32·Σ|window| per element, and in bf16, where the reference's
   prefix is bf16, eps_bf16·Σ|window| more plus one bf16 rounding of the
   result.
+- the tiled combine (K13): the CUDA kernel's order (each row's slots added
+  one after another in slot order, from zero, in f32) walked on the CPU: in
+  f64 within 1e-12 of the plain version, in f32 within 4·eps_f32·Σ|q| per
+  row of the reference (plus one bf16 rounding of a bf16 result).
 """
 
 import jax.numpy as jnp
@@ -191,6 +195,64 @@ def test_tiled_combine_matches_the_reference(T, dt):
         part = as_np(got[j * T * 128:(j + 1) * T * 128])
         assert np.abs(part - ref).max() <= 4 * np.finfo(np.float32).eps * (
             np.abs(qh).max() * K) + (2.0 ** -8 * np.abs(ref).max() if dt == "bf16" else 0)
+
+
+def walk_rows(q, rowid, rep, dtype):
+    """K13's order: each row's slots added one after another in slot order,
+    from zero, in ``dtype``; q (rep·T·K,) -> (rep·T·128,)."""
+    T, K = rowid.shape
+    q = q.reshape(rep, T, K).to(dtype)
+    out = torch.zeros((rep, T, 128), dtype=dtype)
+    rid = rowid.long()
+    for k in range(K):  # slot order; one slot per tile at a time
+        t = torch.nonzero(rid[:, k] >= 0).reshape(-1)
+        out[:, t, rid[t, k]] += q[:, t, k]
+    return out.reshape(-1)
+
+
+def mixed_rowid(rng, T, K):
+    """Tiles of every kind K13 must take: all trash; one row holding the
+    whole tile; runs as the pack makes them (rows in order, trash last);
+    shuffled rows with a third of the slots trash."""
+    rowid = np.full((T, K), -1, np.int8)
+    rowid[1] = 77
+    for t in range(2, T):
+        rows = np.sort(rng.integers(0, 128, K - K // 4)).astype(np.int8)
+        rowid[t, :rows.size] = rows
+        if t >= T // 2:
+            rowid[t] = rng.permutation(rowid[t])
+            rowid[t, rng.random(K) < 1 / 3] = -1
+    return rowid
+
+
+@pytest.mark.parametrize("rep", [1, 3])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tiled_combine_order_walk(rep, dt):
+    """K13's summation order, walked on the CPU, against the plain version
+    (f64, 1e-12) and the reference's one-hot kernel in interpret mode (f32
+    sums, the limits of ``test_tiled_combine_matches_the_reference``)."""
+    rng = np.random.default_rng(rep)
+    T, K = 8, 384
+    rowid = mixed_rowid(rng, T, K)
+    qh, _, qt = data(rng, rep * T * K // 128, dt)
+    qh, qt = qh.reshape(-1), qt.reshape(-1)
+    rt = torch.from_numpy(rowid)
+    walked64 = walk_rows(qt, rt, rep, torch.float64)
+    plain64 = LG.tiled_combine_plain(qt.double(), rt, rep)
+    assert float((walked64 - plain64).abs().max()) <= 1e-12 * float(plain64.abs().max())
+    assert torch.count_nonzero(walked64.reshape(rep, T, 128)[:, 0]) == 0  # the all-trash tile
+    walked = walk_rows(qt, rt, rep, torch.float32).to(qt.dtype)  # rounded once, as K13
+    for j in range(rep):
+        qj = qh[j * T * K:(j + 1) * T * K]
+        ref = jnp_np(JL.tiled_combine(jnp.asarray(qj), jnp.asarray(rowid), interpret=True))
+        absq = np.zeros(T * 128)
+        rid = rowid.astype(np.int64)
+        keep = rid >= 0
+        np.add.at(absq, (np.arange(T)[:, None] * 128 + rid)[keep], np.abs(qj.reshape(T, K))[keep])
+        limit = 4 * np.finfo(np.float32).eps * absq
+        if dt == "bf16":
+            limit = limit + 2.0 ** -8 * np.abs(ref)
+        assert (np.abs(as_np(walked[j * T * 128:(j + 1) * T * 128]) - ref) <= limit).all()
 
 
 @pytest.mark.parametrize("m", [128, 256, 384])
