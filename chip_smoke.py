@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
-7, 9, 8, 5, 10, then one profiled slice-1 CG (the times come after every
-kernel has been checked; phase 10 and the profiled CG come last because
-torch.profiler traces of whole solves, run before phase 5, left phase 5's
-own traces without device time):
+7, 9, 8, 5, 11, 10, then one profiled slice-1 CG (the times come after
+every kernel has been checked; phase 10 and the profiled CG come last
+because torch.profiler traces of whole solves, run before phase 5, left
+phase 5's own traces without device time; phase 11 runs no profiler):
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
@@ -62,6 +62,23 @@ own traces without device time):
    right-hand sides (routed kernels at rep 8); the shifted L-BFGS solves
    (compact, EJM, several σ at once, MINRES) at n = 10^6, mem 16. Each solve
    against an f64 residual and the plain pipeline, with its launches.
+11. main path of slice 6, at the reference bench's sizes: (a) the 5-point
+   Laplacian on 2048² as a stencil, as DIA and as L1⊗I + I⊗L1, N/T and a
+   width-6 row panel against scipy f64, with apply times; (b) LOBPCG (k = 2)
+   on it against the closed-form eigenvalues, with its time per iteration;
+   svds, normest and estimate_opnorm of phase 4's BSR operator (K1/K2)
+   against each other and the plain backend; rsvd of auto_8m through the
+   routed matrix applies against the plain pipeline; (c) trace, diagonal
+   and log-determinant estimates of I + L against their exact values, and
+   funm_apply on phase 4's graph; (d) L-SR1 at n = 10^6, mem 16 against an
+   f64 recomputation, timed; the diagonal quasi-Newton updates against f64;
+   checkpoints reloaded bit for bit; (e) opCholesky/opLDL (4096²),
+   opIterativeInverse against cg, opSparseInverse (512²), TimedOperator,
+   the property checks; (f) the fixed-order sums bit-identical over five
+   reruns (CSR N/T at n = 2^20, the plain K2 in f64, a restriction's
+   transpose, the f64 routed combine), and the CSR apply against the
+   index_add_ apply it replaced. Its launches must include K1, K2 and the
+   routed kernels.
 
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
@@ -275,6 +292,48 @@ def np_inverse_lbfgs(pairs, mem, v):
     return q
 
 
+def sr1_apply_recursive(pairs, v):
+    """B v in f64 for the SR1 matrix that ``pairs`` (oldest first) build
+    from B₀ = I/γ, γ = ⟨s,y⟩/⟨y,y⟩ of the newest pair, one rank-1 update at a
+    time: aᵢ = yᵢ − Bᵢ₋₁sᵢ, Bᵢ = Bᵢ₋₁ + aᵢaᵢᵀ/⟨aᵢ,sᵢ⟩. No compact form."""
+    pairs = [(s.double(), y.double()) for s, y in pairs]
+    s_new, y_new = pairs[-1]
+    gamma = float(s_new @ y_new) / float(y_new @ y_new)
+    terms = []  # (aᵢ, ⟨aᵢ, sᵢ⟩)
+
+    def apply(x):
+        out = x / gamma
+        for a, a_s in terms:
+            out = out + a * (float(a @ x) / a_s)
+        return out
+
+    for s, y in pairs:
+        a = y - apply(s)
+        terms.append((a, float(a @ s)))
+    return apply(v.double())
+
+
+def diagonal_qn_recursive(cls, pairs, d):
+    """The diagonal ``cls`` holds after pushing ``pairs`` onto ``d``, in
+    f64, from each update's closed form: the weak-secant updates add
+    c·(s⊙s) with ⟨s, d s⟩ = ⟨s, y⟩ after (Andrei's from d − 1 with ⟨s, s⟩
+    added to the gap), the Barzilai-Borwein σ = ⟨s,y⟩/⟨s,s⟩, and the
+    diagonal BFGS |y|·Σ|y|·⟨s,s⟩/⟨s,y⟩."""
+    d = d.double()
+    for s, y in pairs:
+        s, y = s.double(), y.double()
+        s2, sy, ss = s * s, float(s @ y), float(s @ s)
+        if cls == "DiagonalPSB":
+            d = d + (sy - float(s2 @ d)) / float(s2 @ s2) * s2
+        elif cls == "DiagonalAndrei":
+            d = d + (sy - float(s2 @ d) + ss) / float(s2 @ s2) * s2 - 1.0
+        elif cls == "SpectralGradient":
+            d = torch.full_like(d, sy / ss)
+        else:
+            d = y.abs() * (float(y.abs().sum()) * ss / sy)
+    return d
+
+
 def free():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -288,7 +347,8 @@ def win_names(op):
 
 
 def win_plain(K, op, xb=None, ub=None):
-    """The plain version of the operator's window kernel, forward or transpose."""
+    """The plain version of the operator's window kernel, forward or
+    transpose (with the summation order the operator keeps)."""
     d = op.data
     nbcol = op.shape[1] // 128
     if op.cols_local is not None:
@@ -296,12 +356,14 @@ def win_plain(K, op, xb=None, ub=None):
             return K.bsr_matvec_windowed_plain(d.blocks, op.cols_local, op.win_q, xb, wb=op._wb,
                                                x_pad_blocks=op._x_pad_blocks)
         return K.bsr_rmatvec_windowed_plain(d.blocks, op.cols_local, op.win_q, ub, wb=op._wb,
-                                            x_pad_blocks=op._x_pad_blocks, nbcol=nbcol)
+                                            x_pad_blocks=op._x_pad_blocks, nbcol=nbcol,
+                                            sum_plan=op.plain_transpose_plan())
     if xb is not None:
         return K.bsr_matvec_multiwin_plain(d.blocks, d.block_cols, op.win_q, xb, wb=op._wb,
                                            x_pad_blocks=op._x_pad_blocks)
     return K.bsr_rmatvec_multiwin_plain(d.blocks, d.block_cols, op.win_q_t, op.win_valid_t, ub,
-                                        wb=op._wb, x_pad_blocks=op._x_pad_blocks_t, nbcol=nbcol)
+                                        wb=op._wb, x_pad_blocks=op._x_pad_blocks_t, nbcol=nbcol,
+                                        sum_plan=op.plain_transpose_plan())
 
 
 def win_kernel(K, op, xb=None, ub=None):
@@ -396,15 +458,21 @@ def phase6(lt, K, dev):
     return err_abs
 
 
-def laplacian(grid):
-    """I + L for the 5-point Laplacian L on a grid x grid mesh (Dirichlet),
-    scipy CSR, f32: diagonal 5, off-diagonals -1."""
+def five_point(grid):
+    """The 5-point Laplacian L on a grid x grid mesh (Dirichlet), scipy CSR
+    f64: diagonal 4, off-diagonals -1."""
     import scipy.sparse as sps
 
     t = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(grid, grid))
     eye = sps.identity(grid)
-    A = sps.kron(eye, t) + sps.kron(t, eye) + sps.identity(grid * grid)
-    return A.tocsr().astype(np.float32)
+    return (sps.kron(eye, t) + sps.kron(t, eye)).tocsr()
+
+
+def laplacian(grid):
+    """I + L on a grid x grid mesh, scipy CSR, f32: diagonal 5, off-diagonals -1."""
+    import scipy.sparse as sps
+
+    return (five_point(grid) + sps.identity(grid * grid)).tocsr().astype(np.float32)
 
 
 def phase7(lt, K, dev):
@@ -1460,6 +1528,379 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     return totals, rec
 
 
+GRID11 = 2048  # phase 11: the reference bench's stencil grid (bench.py:306-316)
+N_LSR1, MEM_LSR1 = 10 ** 6, 16  # phase 11d (bench.py:363-369)
+N_DENSE11 = 4096  # phase 11e: opCholesky / opLDL
+GRID_SPLU = 512  # phase 11e: phase 7's Laplacian cut for the host SuperLU factor
+
+
+def host_rel(got, ref) -> float:
+    got = got.double().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def host_ms(fn, short, long_):
+    """ms per step: the median over REPS of (t(long_) - t(short)) / (long_ - short),
+    each run synchronized and timed on the host clock (for loops that read
+    the device every step)."""
+    def run(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(k)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run(short)
+    return float(np.median([(run(long_) - run(short)) / (long_ - short) for _ in range(REPS)]))
+
+
+def bits_stable(fn, times=5) -> bool:
+    first = fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(first, fn()) for _ in range(times - 1))
+
+
+def phase11(lt, K, LG, dev, card, ops, main):
+    """Slice 6's path through the entry points a user calls, at the reference
+    bench's sizes: stencil and DIA operators (11a), spectra (11b), the
+    stochastic estimators (11c), L-SR1 and the diagonal quasi-Newton family
+    (11d), the linear-algebra operators and checks (11e), and the fixed-order
+    sums of COO/CSR/ELL, the plain K2 and the routed combine (11f). Every
+    check raises; the launch counts are set to 0 before the phase and read
+    after it. Returns those counts."""
+    import tempfile
+
+    from linops_tpu_torch.sparse.routed import routed_matmat, routed_rmatmat
+    from linops_tpu_torch.utils import checkpoint as ckpt
+
+    f32 = torch.float32
+    LG.reset_launch_counts()
+    K.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # --- 11a. stencil and DIA at 2048² -------------------------------------------
+    free()
+    g = GRID11
+    n = g * g
+    S = lt.laplacian_2d(g, g)
+    D = lt.laplacian_2d_dia(g, g)
+    L1 = lt.laplacian_1d(g)
+    I1 = lt.opEye(g, dtype=f32)
+    Kr = lt.kron(L1, I1) + lt.kron(I1, L1)
+    check(S.coeffs.is_cuda and D.diags.is_cuda and L1.diags.is_cuda, "a builder left the card")
+    L64 = five_point(g)
+    x = dev_vec(n, dev, SEED + 110)
+    xh = x.double().cpu().numpy()
+    yN, yT = L64 @ xh, L64.T @ xh
+    e11a = {}
+    for tag, op in (("stencil", S), ("DIA", D), ("kron", Kr)):
+        e11a[f"{tag} N"] = host_rel(lt.matvec(op, x), yN)
+        e11a[f"{tag} T"] = host_rel(lt.matvec(op, x, mode="T"), yT)
+    check(all(e <= 1e-6 for e in e11a.values()), f"11a: the Laplacians disagree: {e11a}")
+    P6 = dev_vec(n, dev, SEED + 111, k=6).t().contiguous()  # (6, n) row panel
+    e11a["stencil panel"] = host_rel(S.apply_matrix_t(P6), (L64 @ P6.double().cpu().numpy().T).T)
+    e11a["DIA panel"] = host_rel(D.apply_matrix_t(P6), (L64 @ P6.double().cpu().numpy().T).T)
+    check(e11a["stencil panel"] <= 1e-6 and e11a["DIA panel"] <= 1e-6,
+          f"11a: the row-panel applies disagree: {e11a}")
+    t11a = {}
+    for tag, op in (("stencil", S), ("DIA", D)):
+        t11a[f"{tag} apply"] = marginal_ms(lambda: op.apply(x))
+        t11a[f"{tag} panel 6"] = marginal_ms(lambda: op.apply_matrix_t(P6))
+        t11a[f"{tag} 6 applies"] = marginal_ms(lambda: [op.apply(P6[i]) for i in range(6)])
+    print(f"[11a stencil/DIA] 5-point Laplacian on {g}² (n = {n}, f32): "
+          + ", ".join(f"{k_} {v:.2e}" for k_, v in e11a.items())
+          + " (max|Δ|/max against scipy f64, limit 1e-6; kron = L1⊗I + I⊗L1); "
+          + ", ".join(f"{k_} {v * 1e3:.1f} us" for k_, v in t11a.items())
+          + f" (marginal CUDA events; panel 6 = apply_matrix_t of a (6, n) panel); {card}",
+          flush=True)
+    del P6, Kr, L1
+
+    # --- 11b. spectra -------------------------------------------------------------
+    free()
+    gen = torch.Generator(device=dev)
+
+    def lob(iters):
+        gen.manual_seed(SEED + 112)
+        return lt.lobpcg(S, k=2, largest=True, tol=0.0, maxiter=iters, generator=gen)
+
+    theta, X, res, it = lob(40)
+    check(it == 40 and torch.isfinite(theta).all() and torch.isfinite(X).all(),
+          f"11b lobpcg: {it} iterations, finite {bool(torch.isfinite(X).all())}")
+    i = np.arange(1, g + 1)
+    c = np.cos(i * np.pi / (g + 1))
+    lam = np.sort((4.0 - 2.0 * c[:, None] - 2.0 * c[None, :]).ravel())
+    Xh = X.double().cpu().numpy()
+    r64 = np.linalg.norm(L64 @ Xh - Xh * theta.double().cpu().numpy(), axis=0)
+    gaps = []
+    for th, r in zip(theta.double().cpu().numpy(), r64):
+        j = np.searchsorted(lam, th)
+        gaps.append(min(abs(lam[max(j - 1, 0)] - th), abs(lam[min(j, lam.size - 1)] - th)))
+        # a Ritz value of a unit vector lies within its residual norm of an eigenvalue
+        check(gaps[-1] <= r + 1e-5 * abs(th), f"11b lobpcg: θ {th} is {gaps[-1]:.3e} from every "
+              f"eigenvalue, residual {r:.3e}")
+    us_lob = host_ms(lob, 5, 25) * 1e3
+    print(f"[11b spectra] lobpcg(k=2, largest, basis gram, tol 0) on the {g}² stencil: θ "
+          f"{[round(float(t_), 6) for t_ in theta]}, f64 residuals {[float(f'{r:.3e}') for r in r64]}, "
+          f"distance to the nearest closed-form eigenvalue {[float(f'{d:.3e}') for d in gaps]} "
+          f"(limit: residual + 1e-5·θ); {us_lob:.1f} us per iteration (marginal, 25 − 5 "
+          f"iterations, host clock around synchronized runs); {card}", flush=True)
+    del X
+
+    bk, bc = main["blocks"], main["cols"]
+    B = lt.BSROperator(lt.BSR(bk, bc, (N, N)))
+    B_plain = lt.BSROperator(lt.BSR(bk, bc, (N, N)), backend="torch")
+    est = {}
+    for tag, op in (("kernels", B), ("torch", B_plain)):
+        gen.manual_seed(SEED + 113)
+        _, s, _, sres, s_it = lt.svds(op, k=4, tol=1e-4, maxiter=150, generator=gen)
+        gen.manual_seed(SEED + 114)
+        ne, ne_it = lt.normest(op, tol=1e-6, maxiter=300, generator=gen)
+        gen.manual_seed(SEED + 115)
+        eo, ok = lt.estimate_opnorm(op, rtol=1e-3, generator=gen)
+        est[tag] = {"svds": float(s[0]), "normest": ne, "opnorm": eo, "svds_it": s_it,
+                    "normest_it": ne_it, "opnorm_ok": ok, "svds_res": float(sres[0])}
+    kk = est["kernels"]
+    vals = [kk["svds"], kk["normest"], kk["opnorm"]]
+    spread = (max(vals) - min(vals)) / max(vals)
+    check(kk["opnorm_ok"] and np.isfinite(vals).all() and spread <= 1e-2,
+          f"11b: the estimates of ‖B‖₂ disagree: {kk}")
+    dev_t = max(abs(est["kernels"][k_] - est["torch"][k_]) / est["torch"][k_]
+                for k_ in ("svds", "normest", "opnorm"))
+    check(dev_t <= 1e-3, f"11b: kernels and backend='torch' disagree: {est}")
+    print(f"[11b spectra] ‖B‖₂ of phase 4's BSR B (8x128, n = {N}): svds(k=4, tol 1e-4) "
+          f"{kk['svds']:.6f} ({kk['svds_it']} iterations, residual {kk['svds_res']:.2e}), normest "
+          f"(tol 1e-6) {kk['normest']:.6f} ({kk['normest_it']} iterations), estimate_opnorm "
+          f"(rtol 1e-3) {kk['opnorm']:.6f}: spread {spread:.2e} (limit 1e-2); backend='torch' "
+          f"within {dev_t:.2e} (limit 1e-3)", flush=True)
+
+    op2 = ops["op2"]
+    check(op2.matrix_path("N") == "routed" and op2.matrix_path("H") == "routed",
+          f"11b rsvd: the matrix applies take {op2.matrix_path('N')}/{op2.matrix_path('H')}")
+    p2, p2t = op2.routed, op2.routed_t
+
+    class PlainRouted(lt.FunctionOperator):
+        def apply_matrix(self, M, mode="N"):
+            if mode == "N":
+                return routed_matmat(p2, M, use_kernel=False)
+            return routed_rmatmat(p2t, M, use_kernel=False)
+
+    n2 = op2.nrow
+    plain2 = PlainRouted(n2, n2, lambda v: None, dtype=f32)
+    svals = {}
+    for tag, op in (("kernels", op2), ("plain", plain2)):
+        gen.manual_seed(SEED + 116)
+        launches0 = sum(LG.launch_counts().values())
+        _, s, _ = lt.rsvd(op, 4, oversample=4, power_iters=1, generator=gen)
+        svals[tag] = s.double().cpu().numpy()
+        if tag == "plain":
+            check(sum(LG.launch_counts().values()) == launches0,
+                  "11b rsvd: the plain pipeline launched a kernel")
+    ds = float(np.abs(svals["kernels"] - svals["plain"]).max() / svals["plain"].max())
+    check(np.isfinite(svals["kernels"]).all() and ds <= 1e-4,
+          f"11b rsvd: σ {svals['kernels']} against plain {svals['plain']}: {ds:.2e}")
+    print(f"[11b spectra] rsvd(k=4, oversample 4, power_iters 1) on auto_8m (n = 2^19, routed, "
+          f"matrix path {op2.matrix_path('N')}): σ {[round(float(v), 5) for v in svals['kernels']]}, "
+          f"plain pipeline within {ds:.2e} (limit 1e-4)", flush=True)
+
+    # --- 11c. estimators on I + L over the 2048² stencil, exact truth ------------
+    free()
+    A11 = S + lt.opEye(n, dtype=f32)
+    check(A11.hermitian, "I + L is not flagged hermitian")
+    gen.manual_seed(SEED + 117)
+    tr, tr_se = lt.estimate_trace(A11, probes=36, generator=gen)
+    check(abs(tr - 5 * n) < 6 * tr_se, f"11c trace {tr} against {5 * n}, stderr {tr_se}")
+    kd = 64
+    gen.manual_seed(SEED + 118)
+    dg, dg_se = lt.estimate_diagonal(A11, probes=kd, generator=gen)
+    d_err = float((dg.double() - 5.0).abs().max())
+    d_lim = 6 * (4.0 / kd) ** 0.5  # six exact standard errors: four unit neighbours a row
+    over = int(((dg.double() - 5.0).abs() > 6 * dg_se.double()).sum())
+    check(d_err <= d_lim, f"11c diagonal: max|Δ| {d_err:.3f} > {d_lim:.3f}")
+    lam64 = 1.0 + lam
+    ld_true = float(np.sum(np.log(lam64)))
+    gen.manual_seed(SEED + 119)
+    ld, ld_se = lt.estimate_logdet(A11, probes=16, lanczos_steps=30, generator=gen)
+    check(abs(ld - ld_true) < 6 * ld_se, f"11c logdet {ld} against {ld_true}, stderr {ld_se}")
+    print(f"[11c estimators] I + L on {g}²: trace {tr:.1f} against 5n = {5 * n} (stderr "
+          f"{tr_se:.1f}, limit 6 stderr), diagonal max|Δ| from 5 {d_err:.3f} over {kd} probes "
+          f"(limit 6·sqrt(4/{kd}) = {d_lim:.3f}; {over} of {n} entries beyond 6 estimated "
+          f"stderr), logdet {ld:.1f} against {ld_true:.1f} (stderr {ld_se:.1f}, limit 6 stderr)",
+          flush=True)
+    del A11, dg, dg_se
+
+    A4, A4p, b4 = main["A"], main["A_plain"], main["b"]
+    herm = {tag: lt.FunctionOperator(N, N, op.apply, symmetric=True, hermitian=True, dtype=f32)
+            for tag, op in (("kernels", A4), ("torch", A4p))}
+    b_unit = b4 / torch.linalg.vector_norm(b4)
+    fe = {tag: lt.funm_apply(op, lambda t: torch.exp(-t), b_unit, lanczos_steps=30)
+          for tag, op in herm.items()}
+    e_funm = rel_err(fe["kernels"], fe["torch"])
+    check(torch.isfinite(fe["kernels"]).all() and e_funm <= 1e-4,
+          f"11c funm_apply: kernels against backend='torch' {e_funm:.2e}")
+    print(f"[11c estimators] funm_apply(exp(−A), b), A phase 4's graph (K1/K2 in its Lanczos "
+          f"applies), 30 steps: kernels against backend='torch' {e_funm:.2e} (limit 1e-4)",
+          flush=True)
+
+    # --- 11d. quasi-Newton at n = 10^6, mem 16 -------------------------------------
+    free()
+    nq = N_LSR1
+    Bq = lt.LSR1Operator(f32, nq, mem=MEM_LSR1, scaling=True)
+    gq = torch.Generator(device=dev).manual_seed(SEED + 120)
+    pairs = []
+    for _ in range(MEM_LSR1 + 2):
+        s = torch.randn(nq, generator=gq, device=dev)
+        y = 2.0 * s + 0.5 * torch.randn(nq, generator=gq, device=dev)
+        pairs.append((s, y))
+        Bq.push(s, y)
+    # the ring holds the newest MEM_LSR1 pairs, oldest at the insert slot
+    held = pairs[-MEM_LSR1:]
+    ins = int(Bq.state.insert)
+    check(all(torch.equal(Bq.state.S[(ins + i) % MEM_LSR1], s) and
+              torch.equal(Bq.state.Y[(ins + i) % MEM_LSR1], y) for i, (s, y) in enumerate(held)),
+          "11d L-SR1: the memory does not hold the newest pairs in push order")
+    v = torch.randn(nq, generator=gq, device=dev)
+    e_lsr1 = rel_err(Bq * v, sr1_apply_recursive(held, v))
+    check(e_lsr1 <= 1e-5, f"11d L-SR1: apply against the f64 SR1 recursion {e_lsr1:.2e}")
+    ms_lsr1 = marginal_ms(lambda: Bq.apply(v))
+    e_dqn = {}
+    for cls in ("DiagonalPSB", "DiagonalAndrei", "DiagonalBFGS", "SpectralGradient"):
+        if cls == "SpectralGradient":
+            op_ = lt.SpectralGradient(1.0, nq, dtype=f32)
+        else:
+            op_ = getattr(lt, cls)(torch.ones(nq, device=dev))
+        for s, y in pairs[:3]:
+            op_.push(s, y)
+        want = diagonal_qn_recursive(cls, pairs[:3], torch.ones(nq, device=dev))
+        e_dqn[cls] = rel_err(op_.diag(), want)
+    check(all(e <= 1e-5 for e in e_dqn.values()),
+          f"11d diagonal QN against the f64 closed forms: {e_dqn}")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        H = main["H"]
+        for tag, op, fresh in (
+                ("L-SR1", Bq, lambda: lt.LSR1Operator(f32, nq, mem=MEM_LSR1, scaling=True)),
+                ("L-BFGS", H, lambda: lt.InverseLBFGSOperator(f32, N, mem=8))):
+            path = os.path.join(tmp, "op.npz")
+            lt.save_operator(path, op)
+            back = lt.load_operator_state(path, fresh())
+            a, _ = ckpt._walk(op, [], [])
+            b_, _ = ckpt._walk(back, [], [])
+            check(len(a) == len(b_) and all(torch.equal(p, q) for p, q in zip(a, b_)),
+                  f"11d: the {tag} checkpoint does not reload bit-identical")
+    print(f"[11d quasi-Newton] L-SR1 n = 10^6, mem {MEM_LSR1}, y = 2s + 0.5·noise, scaling: "
+          f"apply against the f64 SR1 recursion over the held pairs {e_lsr1:.2e} (limit 1e-5), "
+          f"{ms_lsr1 * 1e3:.1f} us per apply (marginal CUDA events); diagonal QN after 3 pushes "
+          "against the f64 closed forms: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in e_dqn.items())
+          + " (limit 1e-5); L-SR1 and phase 4's inverse L-BFGS reload bit-identical from "
+          f"save_operator; {card}", flush=True)
+    del Bq, held, pairs
+
+    # --- 11e. linear-algebra operators --------------------------------------------
+    free()
+    gd = torch.Generator(device=dev).manual_seed(SEED + 121)
+    G = torch.randn(N_DENSE11, N_DENSE11, generator=gd, device=dev)
+    M = G @ G.T / N_DENSE11 + torch.eye(N_DENSE11, device=dev)
+    bd = torch.randn(N_DENSE11, generator=gd, device=dev)
+    res_d = {}
+    for tag, op in (("cholesky", lt.opCholesky(M)), ("ldl", lt.opLDL(M))):
+        xd = op * bd
+        res_d[tag] = float(torch.linalg.vector_norm(M.double() @ xd.double() - bd.double())
+                           / torch.linalg.vector_norm(bd.double()))
+    check(all(r <= 1e-4 for r in res_d.values()), f"11e dense solves: {res_d}")
+    Ch = lt.opCholesky(M)
+    checks = {"check_hermitian(opCholesky)": lt.check_hermitian(Ch, generator=gd),
+              "check_positive_definite(opCholesky)": lt.check_positive_definite(Ch, generator=gd),
+              "check_ctranspose(B)": lt.check_ctranspose(B, generator=gd),
+              "check_hermitian(stencil)": lt.check_hermitian(S, generator=gd)}
+    check(all(checks.values()), f"11e checks: {checks}")
+    del G, M, Ch
+
+    inv = lt.opIterativeInverse(A4, tol=1e-5, maxiter=500, solver="cg")
+    xi, ki, _ = inv.solve_info(b4)
+    xc, kc, _ = lt.cg(A4, b4, tol=1e-5, maxiter=500)
+    dxi = rel_err(inv * b4, xc)
+    check(abs(ki - kc) <= 1 and dxi <= 1e-4,
+          f"11e opIterativeInverse: {ki} iterations against cg's {kc}, |Δx| {dxi:.2e}")
+
+    Lc = laplacian(GRID_SPLU)
+    t0 = time.perf_counter()
+    Si = lt.opSparseInverse(Lc)
+    t_lu = time.perf_counter() - t0
+    bs = dev_vec(GRID_SPLU ** 2, dev, SEED + 122)
+    xs = Si * bs
+    check(xs.is_cuda, "opSparseInverse did not return to the card")
+    bsh = bs.double().cpu().numpy()
+    res_s = float(np.linalg.norm(Lc.astype(np.float64) @ xs.double().cpu().numpy() - bsh)
+                  / np.linalg.norm(bsh))
+    check(res_s <= 1e-5, f"11e opSparseInverse residual {res_s:.3e}")
+
+    Tm = lt.TimedOperator(B)
+    B.reset_counters()
+    xb = dev_vec(N, dev, SEED + 123)
+    for _ in range(5):
+        Tm.matvec(xb)
+    for _ in range(3):
+        Tm.matvec(xb, mode="T")
+    tm = Tm.timings
+    check(tm["prod"][0] == 5 and tm["tprod"][0] == 3 and B.nprod == 5 and B.ntprod == 3
+          and tm["prod"][1] > 0 and tm["tprod"][1] > 0, f"11e TimedOperator: {tm}")
+    print(f"[11e linalg] opCholesky / opLDL of a {N_DENSE11}² SPD f32 matrix: residuals "
+          f"{res_d['cholesky']:.2e} / {res_d['ldl']:.2e} (limit 1e-4); opIterativeInverse(cg, tol "
+          f"1e-5) on phase 4's graph: {ki} iterations, cg {kc}, |Δx|/max {dxi:.2e}; "
+          f"opSparseInverse of I + L on {GRID_SPLU}² (phase 7's operator cut from 1536², SuperLU "
+          f"on the host, factor {t_lu:.2f} s): residual {res_s:.2e} (limit 1e-5); TimedOperator(B): "
+          f"5 prod {tm['prod'][1] * 1e6 / 5:.1f} us, 3 tprod {tm['tprod'][1] * 1e6 / 3:.1f} us per "
+          f"apply (CUDA events, one wait each); checks {checks}; {card}", flush=True)
+
+    # --- 11f. fixed-order sums: bit-identical reruns, and the CSR apply's cost -----
+    free()
+    A1 = ops["A1"]
+    csr = lt.opSparse(A1, format="csr")
+    d1 = csr.data
+    v1 = dev_vec(N3, dev, SEED + 124)
+    V1 = dev_vec(N3, dev, SEED + 125, k=4)
+
+    def atomic(transpose):  # the apply before the fixed-order sums
+        rows, cols = (d1.cols, d1.rows) if transpose else (d1.rows, d1.cols)
+        contrib = d1.vals * v1[cols.long()]
+        return torch.zeros(N3, dtype=contrib.dtype, device=dev).index_add_(0, rows.long(),
+                                                                          contrib)
+
+    stable = {"CSR N": bits_stable(lambda: csr * v1), "CSR T": bits_stable(lambda: csr.T * v1),
+              "CSR N k=4": bits_stable(lambda: csr.matmat(V1)),
+              "CSR T k=4": bits_stable(lambda: csr.matmat(V1, mode="T"))}
+    e_csr = rel_err(csr * v1, atomic(False))
+    bk64, u64 = bk.double(), torch.randn((N // 8, 8), dtype=torch.float64, device=dev)
+    stable["plain K2 f64"] = bits_stable(lambda: K.bsr_rmatvec_plain(bk64, bc, u64, N // 128))
+    idx = torch.randint(0, 4096, (1 << 20,), device=dev)
+    R = lt.opRestriction(idx, 4096)
+    stable["restriction T"] = bits_stable(lambda: R.T * v1)
+    p1 = ops["op1"].routed
+    q64 = torch.randn(p1.rowid.numel() * 2, dtype=torch.float64, device=dev)
+    stable["f64 routed combine"] = bits_stable(lambda: LG.tiled_combine_plain(q64, p1.rowid, 2))
+    check(all(stable.values()), f"11f: a fixed-order sum changed its bits on rerun: {stable}")
+    atomic_stable = bits_stable(lambda: atomic(True))
+    t11f = {"CSR N": marginal_ms(lambda: csr.apply(v1)),
+            "CSR T": marginal_ms(lambda: csr.apply(v1, "T")),
+            "index_add_ N": marginal_ms(lambda: atomic(False)),
+            "index_add_ T": marginal_ms(lambda: atomic(True))}
+    print(f"[11f fixed-order sums] bit-identical over 5 reruns: {stable}; CSR n = 2^20 "
+          f"({A1.nnz} nnz) against the index_add_ apply {e_csr:.2e}; the index_add_ transpose "
+          f"bit-identical over 5 reruns: {atomic_stable}; "
+          + ", ".join(f"{k_} {v_ * 1e3:.1f} us" for k_, v_ in t11f.items())
+          + f" (marginal CUDA events); {card}", flush=True)
+    del csr, d1, V1, bk64
+
+    counts = {**LG.launch_counts(), **K.launch_counts()}
+    for name in ("bsr_matvec", "bsr_rmatvec", "lane_gather", "lane_gather_mul_t_batched",
+                 "lane_gather_sum", "lane_segsum", "lane_gather_mul_segsum"):
+        check(counts[name] > 0, f"{name} never ran on the slice-6 path: {counts}")
+    print(f"[11 slice-6 path] launches {counts}; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, {"stencil_us_per_apply": t11a["stencil apply"] * 1e3,
+                    "lobpcg_us_per_iter_k2": us_lob, "lsr1_fwd_us": ms_lsr1 * 1e3}
+
+
 def csr_of_bsr(blocks, cols, ncol):
     """A as a ``torch.sparse_csr_tensor`` with int32 indices, on the blocks'
     device: the blocks' values row by row (one copy), the column array made
@@ -1556,6 +1997,7 @@ def main() -> int:
     from linops_tpu_torch.kernels import bsr_spmv as K
     from linops_tpu_torch.kernels import build
     from linops_tpu_torch.kernels import lane_gather as LG
+    from linops_tpu_torch.core.segsum import segment_plan
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1718,12 +2160,14 @@ def main() -> int:
             xb = torch.randn((nbcol, bn), device=dev)
             ub = torch.randn((N // bm, bm), device=dev)
             plan = K.bsr_column_plan(cl, nbcol, bm * bn * blk.element_size())
+            seg_plan = segment_plan(cl, nbcol)  # the plain K2's order, built once as K2's plan
             gb = blk.numel() * blk.element_size() / 1e9
             row = {
                 "K1": marginal_ms(lambda: K.bsr_matvec_kernel(blk, cl, xb)),
                 "K1 plain": marginal_ms(lambda: K.bsr_matvec_plain(blk, cl, xb)),
                 "K2": marginal_ms(lambda: K.bsr_rmatvec_kernel(blk, cl, ub, nbcol, plan=plan)),
-                "K2 plain": marginal_ms(lambda: K.bsr_rmatvec_plain(blk, cl, ub, nbcol)),
+                "K2 plain": marginal_ms(lambda: K.bsr_rmatvec_plain(blk, cl, ub, nbcol,
+                                                                    plan=seg_plan)),
             }
             if name == "8x128" and dtype == torch.float32:  # the main path's case
                 row["K1 bound"] = bound_ms(nbytes(blk, cl, xb) + N * 4, 2 * blk.numel())
@@ -1741,7 +2185,7 @@ def main() -> int:
                       f"{row['K2 bound'][0] * 1e3:.1f} us ({row['K1 bound'][1]}); cuSPARSE CSR "
                       f"matvec through torch.mv (K1: a CSR of A; K2: a CSR of Aᵀ, built once): "
                       f"{libs}; {card}", flush=True)
-            del blk, cl, xb, ub, plan
+            del blk, cl, xb, ub, plan, seg_plan
 
     def cg_iter_ms(op):
         def run(iters):
@@ -1761,6 +2205,10 @@ def main() -> int:
 
     win_times = phase5_windows(lt, K, dev, card)
     lane_times = phase5_lanes(lt, LG, dev, ops, p3s, card)
+
+    # --- 11. slice 6 (after the times; it runs no profiler) ---------------------
+    phase11(lt, K, LG, dev, card, ops, {"blocks": blocks, "cols": cols, "A": A,
+                                        "A_plain": A_plain, "H": H, "b": b})
 
     # --- 10. slice 4 (after the times: its profiler traces come last) ---------
     slice4_launches, _ = phase10(lt, K, LG, dev, ops, laplacian_op)

@@ -1,33 +1,30 @@
-"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 4.
+"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 6.
 
 Matrix-free linear operators in PyTorch: a lazy operator graph (scale, sum,
 compose, adjoint wrappers over dense, function, identity, ones, zeros,
-diagonal, permutation, restriction/extension, shifted and sparse operators:
-COO, CSR, ELL, block-sparse rows and the Clos-routed CSR for unstructured
-patterns, built by ``opSparse``, with an RCM reordering), block
-concatenation (``hcat``, ``vcat``, ``hvcat``, block diagonal) and slicing
-(``op[rows, cols]``), compact L-BFGS operators with shifted solves, and the
-Krylov solvers (``cg`` for one or several right-hand sides, ``gmres``,
-``minres``, ``bicgstab``, ``lsqr``, ``chebyshev``, ``power_iteration``).
-The block-sparse products run hand-written CUDA kernels for Hopper
-(``kernels/csrc/``: K1/K2, the windowed K3-K6 for large x) and the routed
-ones the lane-gather kernels K7-K14, on CUDA tensors; CPU tensors take their
-plain PyTorch versions. Factories build on the CUDA device unless given
-``device="cpu"``.
+diagonal, permutation, restriction/extension, shifted, Kronecker, timed,
+factorization-backed inverse (Cholesky, LDL, dense, iterative, sparse host
+factor), Householder and hermitian operators, and sparse operators: COO,
+CSR, ELL, block-sparse rows and the Clos-routed CSR for unstructured
+patterns, built by ``opSparse``, with an RCM reordering; DIA diagonals and
+grid stencils with the ``laplacian_*`` builders), block concatenation
+(``hcat``, ``vcat``, ``hvcat``, block diagonal) and slicing
+(``op[rows, cols]``); quasi-Newton operators (compact L-BFGS with shifted
+solves, L-SR1, the diagonal family); the Krylov solvers (``cg`` for one or
+several right-hand sides, ``gmres``, ``minres``, ``bicgstab``, ``lsqr``,
+``chebyshev``, ``power_iteration``); norm, trace, diagonal and spectral-sum
+estimators, ``funm_apply``, ``lobpcg``, ``svds``, ``rsvd`` and the Nyström
+preconditioner; property checks and checkpointing. The block-sparse
+products run hand-written CUDA kernels for Hopper (``kernels/csrc/``:
+K1/K2, the windowed K3-K6 for large x) and the routed ones the lane-gather
+kernels K7-K14, on CUDA tensors; CPU tensors take their plain PyTorch
+versions. Every scatter-add sums in a fixed order. Factories build on the
+CUDA device unless given ``device="cpu"``.
 
 Names follow ``linops_tpu`` so each module has an obvious counterpart; this
 package imports ``torch`` and numpy, never ``jax``. Of the reference's
-``__all__`` these are still missing: ``apply_cache_sizes`` (no jit cache to
-count) and ``apply_linear``; ``KronOperator``/``kron``; the ``linalg_ops``
-operators (``opInverse``, ``opIterativeInverse``, ``opCholesky``, ``opLDL``,
-``opHouseholder``, ``opHermitian`` and their classes); ``TimedOperator``;
-the sparse factor operators (``opSparseInverse``, ``opSparseLDL``,
-``SparseInverseOperator``); ``LSR1State``/``LSR1Operator`` and the diagonal
-quasi-Newton operators; the DIA and stencil operators and the
-``laplacian_*`` builders; ``normest``, ``estimate_*`` and ``funm_apply``;
-``lobpcg``, ``svds``, ``rsvd`` and the Nyström preconditioner;
-``save_operator``, ``load_operator_state`` and ``op_state``; the property
-checks ``check_*``; and the reference-name aliases ``*LinearOperator``.
+``__all__`` two are still missing: ``apply_cache_sizes`` (no jit cache to
+count) and ``apply_linear`` (the AD slice).
 """
 
 from .core.base import LinearOperatorException, Counters, compose_modes, MODES
@@ -52,9 +49,31 @@ from .qn import (LBFGSState, LBFGSOperator, InverseLBFGSOperator, solve_shifted_
                  solve_shifted_systems, ldiv)
 from .utils.krylov import (matvec_chain, cg, gmres, minres, bicgstab, lsqr, chebyshev,
                            power_iteration)
+from .ops.kron import KronOperator, kron
+from .ops.linalg_ops import (InverseOperator, IterativeInverseOperator, CholeskyOperator,
+                             LDLOperator, HouseholderOperator, HermitianOperator, opInverse,
+                             opIterativeInverse, opCholesky, opLDL, opHouseholder, opHermitian)
+from .ops.timed import TimedOperator
+from .ops.sparse_factor import SparseInverseOperator, opSparseInverse, opSparseLDL
+from .qn import (LSR1State, LSR1Operator, DiagonalQNOperator, DiagonalPSB, DiagonalAndrei,
+                 SpectralGradient, DiagonalBFGS)
+from .sparse import (DIAOperator, opDIA, dia_from_dense, laplacian_1d, laplacian_2d,
+                     laplacian_2d_dia, StencilOperator, Stencil2DOperator, opStencil, opStencil2D)
+from .utils.norm import normest, estimate_opnorm
+from .utils.estimate import (estimate_trace, estimate_diagonal, estimate_spectral_sum,
+                             estimate_logdet, funm_apply)
+from .utils.eig import lobpcg, svds, rsvd, nystrom_preconditioner, NystromPreconditioner
+from .utils.checks import check_ctranspose, check_hermitian, check_positive_definite
+from .utils.checkpoint import save_operator, load_operator_state, op_state
 
 # reference spelling: the polymorphic constructor is exported as LinearOperator
 LinearOperator = make_operator
+
+# the reference's names for the same classes
+TimedLinearOperator = TimedOperator
+AdjointLinearOperator = AdjointOperator
+TransposeLinearOperator = TransposeOperator
+ConjugateLinearOperator = ConjugateOperator
 
 __all__ = [
     "LinearOperatorException",
@@ -135,4 +154,61 @@ __all__ = [
     "lsqr",
     "chebyshev",
     "power_iteration",
+    "KronOperator",
+    "kron",
+    "InverseOperator",
+    "IterativeInverseOperator",
+    "CholeskyOperator",
+    "LDLOperator",
+    "HouseholderOperator",
+    "HermitianOperator",
+    "opInverse",
+    "opIterativeInverse",
+    "opCholesky",
+    "opLDL",
+    "opHouseholder",
+    "opHermitian",
+    "TimedOperator",
+    "TimedLinearOperator",
+    "AdjointLinearOperator",
+    "TransposeLinearOperator",
+    "ConjugateLinearOperator",
+    "SparseInverseOperator",
+    "opSparseInverse",
+    "opSparseLDL",
+    "LSR1State",
+    "LSR1Operator",
+    "DiagonalQNOperator",
+    "DiagonalPSB",
+    "DiagonalAndrei",
+    "SpectralGradient",
+    "DiagonalBFGS",
+    "DIAOperator",
+    "opDIA",
+    "dia_from_dense",
+    "laplacian_1d",
+    "laplacian_2d",
+    "laplacian_2d_dia",
+    "StencilOperator",
+    "Stencil2DOperator",
+    "opStencil",
+    "opStencil2D",
+    "normest",
+    "estimate_opnorm",
+    "estimate_trace",
+    "estimate_diagonal",
+    "estimate_spectral_sum",
+    "estimate_logdet",
+    "funm_apply",
+    "lobpcg",
+    "svds",
+    "rsvd",
+    "nystrom_preconditioner",
+    "NystromPreconditioner",
+    "check_ctranspose",
+    "check_hermitian",
+    "check_positive_definite",
+    "save_operator",
+    "load_operator_state",
+    "op_state",
 ]

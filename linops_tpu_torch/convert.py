@@ -19,13 +19,19 @@ import torch
 
 from .core.base import default_device
 from .ops.diagonal import DiagonalOperator
+from .qn import diagonal as _dqn
 from .qn.lbfgs import LBFGSState
+from .qn.lsr1 import LSR1State
+from .sparse.dia import DIAOperator
 from .sparse.formats import BSR
 from .sparse.ops import BSROperator
 from .sparse.routed import ReducePass, RoutedSpMV, RoutedTranspose
+from .sparse.stencil import StencilOperator
 
 __all__ = ["from_numpy", "to_numpy", "bsr_from_reference", "bsr_operator_from_reference",
-           "lbfgs_state_from_reference", "diagonal_from_reference", "routed_from_reference"]
+           "lbfgs_state_from_reference", "lsr1_state_from_reference", "diagonal_from_reference",
+           "diagonal_qn_from_reference", "dia_from_reference", "stencil_from_reference",
+           "routed_from_reference"]
 
 
 def from_numpy(a, *, dtype=None, device=None) -> torch.Tensor:
@@ -76,13 +82,51 @@ def lbfgs_state_from_reference(fields: Mapping[str, np.ndarray], *, device=None)
     """A reference ``LBFGSState`` as this package's: ``fields`` maps each of
     the 13 field names to a numpy array (``{f: np.asarray(getattr(st, f))
     for f in st._fields}``)."""
-    device = default_device(device, "lbfgs_state_from_reference")
-    missing = set(LBFGSState._fields) - set(fields)
+    return _state_from_reference(LBFGSState, fields, device, "lbfgs_state_from_reference")
+
+
+def _state_from_reference(cls, fields, device, what):
+    device = default_device(device, what)
+    missing = set(cls._fields) - set(fields)
     if missing:
-        raise ValueError(f"L-BFGS state fields missing: {sorted(missing)}")
-    return LBFGSState(**{
-        f: from_numpy(fields[f], dtype=torch.int32 if f == "insert" else None, device=device)
-        for f in LBFGSState._fields})
+        raise ValueError(f"{cls.__name__} fields missing: {sorted(missing)}")
+    return cls(**{f: from_numpy(fields[f], dtype=torch.int32 if f == "insert" else None,
+                                device=device) for f in cls._fields})
+
+
+def lsr1_state_from_reference(fields: Mapping[str, np.ndarray], *, device=None) -> LSR1State:
+    """A reference ``LSR1State`` as this package's: ``fields`` maps each of
+    the 11 field names to a numpy array."""
+    return _state_from_reference(LSR1State, fields, device, "lsr1_state_from_reference")
+
+
+def dia_from_reference(diags, offsets, *, symmetric=False, hermitian=False, dtype=None,
+                       device=None) -> DIAOperator:
+    """A reference ``DIAOperator`` (its ``diags`` and ``offsets``) as this
+    package's."""
+    device = default_device(device, "dia_from_reference")
+    return DIAOperator(from_numpy(diags, dtype=dtype, device=device), offsets,
+                       symmetric=symmetric, hermitian=hermitian)
+
+
+def stencil_from_reference(grid_shape, offsets, coeffs, *, dtype=None,
+                           device=None) -> StencilOperator:
+    """A reference ``StencilOperator`` (its grid, offsets and coefficients)
+    as this package's."""
+    device = default_device(device, "stencil_from_reference")
+    return StencilOperator(grid_shape, offsets, from_numpy(coeffs, dtype=dtype, device=device))
+
+
+def diagonal_qn_from_reference(cls_name: str, d, *, device=None):
+    """A reference diagonal quasi-Newton operator (``DiagonalPSB``,
+    ``DiagonalAndrei``, ``SpectralGradient`` or ``DiagonalBFGS``, by class
+    name) with its current diagonal ``d``."""
+    if cls_name not in ("DiagonalPSB", "DiagonalAndrei", "SpectralGradient", "DiagonalBFGS"):
+        raise ValueError(f"unknown diagonal quasi-Newton class {cls_name!r}")
+    cls = getattr(_dqn, cls_name)
+    op = cls.__new__(cls)
+    _dqn.DiagonalQNOperator.__init__(op, from_numpy(d, device=device))
+    return op
 
 
 def diagonal_from_reference(d, *, dtype=None, device=None) -> DiagonalOperator:

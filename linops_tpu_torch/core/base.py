@@ -5,9 +5,12 @@ object holding tensors; a lazy expression (compose / sum / scale / adjoint)
 is a tree of such objects whose ``apply`` walks the tree eagerly.
 
 Each class declares which attributes hold tensors (or nested operators,
-or NamedTuples of tensors) in ``_fields_tensors`` and which hold static
-metadata in ``_fields_static``. The split drives ``.to(device)``, which
-returns a copy with every tensor moved.
+or NamedTuples of tensors) in ``_fields_tensors``, which hold static
+metadata in ``_fields_static``, and which hold state derived from the
+tensors and built at first use in ``_fields_derived``. The split drives
+``.to(device)``, which returns a copy with every tensor moved and the
+derived state dropped, and the checkpoints, which also leave out the
+tensor fields named in ``_fields_index`` (built from the others).
 
 Modes
 -----
@@ -157,6 +160,13 @@ class LinearOperator(abc.ABC):
 
     _fields_tensors: Tuple[str, ...] = ()
     _fields_static: Tuple[str, ...] = ()
+    # derived from the tensor fields and rebuilt at first use (segment plans):
+    # no state of their own, so ``.to`` drops them and checkpoints skip them
+    _fields_derived: Tuple[str, ...] = ()
+    # tensor fields built from the others at construction (a kernel's index):
+    # ``.to`` moves them; checkpoints leave them out and ``_build_index``
+    # rebuilds them after a load
+    _fields_index: Tuple[str, ...] = ()
 
     # numpy defers binary ops (u @ op, x * op, ...) to the reflected methods
     __array_ufunc__ = None
@@ -177,6 +187,8 @@ class LinearOperator(abc.ABC):
         new = copy.copy(self)
         for f in self._fields_tensors:
             object.__setattr__(new, f, _move(getattr(self, f), device))
+        for f in self._fields_derived:
+            object.__setattr__(new, f, None)
         object.__setattr__(new, "_counters", Counters())
         return new
 

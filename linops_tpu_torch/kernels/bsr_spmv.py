@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core.precision import check_f32_exact
+from ..core.segsum import segment_plan, segment_sum
 
 __all__ = [
     "bsr_matvec_kernel",
@@ -51,6 +52,7 @@ __all__ = [
     "bsr_matmat_plain",
     "bsr_matvec_windowed_plain",
     "bsr_rmatvec_windowed_plain",
+    "bsr_rmatvec_windowed_plan",
     "bsr_matvec_multiwin_plain",
     "bsr_rmatvec_multiwin_plain",
     "bsr_column_index",
@@ -163,17 +165,19 @@ def bsr_matmat_plain(blocks, block_cols, X_blocks):
     return torch.einsum("rkmn,rknc->rmc", blocks.to(acc), Xg).to(res)
 
 
-def bsr_rmatvec_plain(blocks, block_cols, u_blocks, nbcol: int):
+def bsr_rmatvec_plain(blocks, block_cols, u_blocks, nbcol: int, plan=None):
     """out (nbcol, bn) = Σ_{(r,k): cols[r,k]=c} blocks[r,k]ᵀ @ u[r]: per-block
-    contributions summed into their block column by index."""
+    contributions summed into their block column in a fixed order
+    (``core/segsum.py``; ``plan`` is ``segment_plan(block_cols, nbcol)``,
+    built here when not given), so a rerun gives the same bits."""
     check_f32_exact(blocks, u_blocks)
     res = torch.promote_types(blocks.dtype, u_blocks.dtype)
     acc = _acc_dtype(res)
     contrib = torch.einsum("rkmn,rm->rkn", blocks.to(acc), u_blocks.to(acc))
     bn = blocks.shape[3]
-    out = torch.zeros((nbcol, bn), dtype=acc, device=blocks.device)
-    out.index_add_(0, block_cols.reshape(-1).long(), contrib.reshape(-1, bn))
-    return out.to(res)
+    if plan is None:
+        plan = segment_plan(block_cols, nbcol)
+    return segment_sum(contrib.reshape(-1, bn), plan).to(res)
 
 
 # ----------------------------------------------------------------------------
@@ -626,14 +630,14 @@ def bsr_matvec_multiwin_plain(blocks, block_cols, win_q, x_blocks, *, wb: int,
     return torch.einsum("rkmn,rkn->rm", blocks.to(acc), xg).to(res)
 
 
-def _scatter(blocks, u_blocks, targets, weight, rows: int):
+def _scatter(blocks, u_blocks, targets, weight, rows: int, sum_plan=None):
     """Σ over slots of weight·blocks[r,k]ᵀ u[r] into row ``targets[r,k]`` of
     a (rows, bn) result. Each slot's contribution is formed in at least f32;
-    the sum into the rows is taken in f64 and rounded once. (On the card
-    ``index_add_`` adds with atomics in no fixed order: a column that
-    gathers 2^19 slots, as the far cluster of the band + cluster benchmark
-    does, would carry about 2e-5 of max|y| in f32 rounding, twenty times the
-    kernels' own.)"""
+    the sum into the rows is taken in f64, in slot order, and rounded once.
+    (A column that gathers 2^19 slots, as the far cluster of the band +
+    cluster benchmark does, would carry about 2e-5 of max|y| in f32
+    rounding, twenty times the kernels' own.) ``sum_plan`` is
+    ``segment_plan(targets, rows)``, built here when not given."""
     check_f32_exact(blocks, u_blocks)
     res = torch.promote_types(blocks.dtype, u_blocks.dtype)
     acc = _acc_dtype(res)
@@ -642,29 +646,44 @@ def _scatter(blocks, u_blocks, targets, weight, rows: int):
                           torch.zeros((), dtype=acc, device=contrib.device))
     bn = blocks.shape[3]
     wide = torch.promote_types(acc, torch.float64)
-    out = torch.zeros((rows, bn), dtype=wide, device=blocks.device)
-    out.index_add_(0, targets.reshape(-1).long(), contrib.reshape(-1, bn).to(wide))
+    if sum_plan is None:
+        sum_plan = segment_plan(targets, rows)
+    out = segment_sum(contrib.reshape(-1, bn).to(wide), sum_plan)
     return out.to(res)
 
 
+def bsr_rmatvec_windowed_plan(cols_local, win_q, *, wb: int, x_pad_blocks: int):
+    """The plain K4's summation order (slots by their global block column),
+    for ``bsr_rmatvec_windowed_plain(..., sum_plan=)``; an operator builds
+    it once."""
+    gcols, _ = _windowed_cols(cols_local, win_q, wb)
+    return segment_plan(gcols, x_pad_blocks)
+
+
 def bsr_rmatvec_windowed_plain(blocks, cols_local, win_q, u_blocks, *, wb: int,
-                               x_pad_blocks: int, nbcol: int, t_in: bool = False):
+                               x_pad_blocks: int, nbcol: int, t_in: bool = False,
+                               sum_plan=None):
     """K4's product: out[q[g]·wb + cols_local[r,k]] += blocks[r,k]ᵀ u[r] over
     an (x_pad_blocks, bn) output, cut to nbcol block rows. Every target lies
-    in a window the plan visits, so unvisited windows stay exactly zero."""
+    in a window the plan visits, so unvisited windows stay exactly zero.
+    ``sum_plan``: ``bsr_rmatvec_windowed_plan``'s, built here when not given."""
     del t_in
     gcols, inside = _windowed_cols(cols_local, win_q, wb)
-    return _scatter(blocks, u_blocks, gcols, inside.to(torch.int32), x_pad_blocks)[:nbcol]
+    return _scatter(blocks, u_blocks, gcols, inside.to(torch.int32), x_pad_blocks,
+                    sum_plan)[:nbcol]
 
 
 def bsr_rmatvec_multiwin_plain(blocks, block_cols, win_q_t, win_valid_t, u_blocks, *, wb: int,
-                               x_pad_blocks: int, nbcol: int, t_in: bool = False):
+                               x_pad_blocks: int, nbcol: int, t_in: bool = False,
+                               sum_plan=None):
     """K6's product: the transpose scatter, each slot added once for every
     valid lane step whose window holds its block column (a repeated lane
-    step, valid 0, adds nothing)."""
+    step, valid 0, adds nothing). ``sum_plan``: ``segment_plan(block_cols,
+    max(x_pad_blocks, nbcol))``, built here when not given."""
     del t_in
     weight = _lane_weights(block_cols, win_q_t, wb, valid=win_valid_t)
-    return _scatter(blocks, u_blocks, block_cols, weight, max(x_pad_blocks, nbcol))[:nbcol]
+    rows = max(x_pad_blocks, nbcol)
+    return _scatter(blocks, u_blocks, block_cols, weight, rows, sum_plan)[:nbcol]
 
 
 # ----------------------------------------------------------------------------

@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..core.segsum import SegmentPlan, segment_plan, segment_sum
 from .bsr_spmv import _check_launch, _device_stream
 
 __all__ = [
@@ -58,6 +59,7 @@ __all__ = [
     "lane_segsum_plain",
     "lane_gather_mul_segsum_plain",
     "tiled_combine_plain",
+    "tiled_combine_plan",
     "lane_gather_mul_t_plain",
     "launch_counts",
     "reset_launch_counts",
@@ -161,17 +163,32 @@ def lane_gather_mul_segsum_plain(a, idx, vals, lo, hi, rep: int = 1):
     return _segsum(z, lo, hi, rep).to(res)
 
 
+def tiled_combine_plan(rowid) -> SegmentPlan:
+    """The plain combine's summation order for ``rowid``: slot (t, k) adds
+    into segment t·128 + rowid[t, k], trash slots into a last one. Built at
+    the first call for a ``rowid`` tensor and kept on it as an attribute, so
+    a routed program builds it once and a copy of ``rowid`` on another
+    device builds its own."""
+    plan = getattr(rowid, "_combine_plan", None)
+    if plan is None:
+        T = rowid.shape[0]
+        rid = rowid.long()
+        seg = torch.where(rid >= 0, torch.arange(T, device=rid.device)[:, None] * RADIX + rid,
+                          T * RADIX)
+        plan = segment_plan(seg, T * RADIX + 1)
+        rowid._combine_plan = plan
+    return plan
+
+
 def tiled_combine_plain(q, rowid, rep: int = 1):
     """out[j, t·128 + i] = Σ_k q[j, t·K + k]·[rowid[t, k] == i] over T tiles of
     K slots (rowid < 0 = trash): q (rep·T·K,) -> (rep·T·128,), summed in at
-    least f32 and rounded once to q's dtype."""
+    least f32, in slot order (``tiled_combine_plan``), and rounded once to
+    q's dtype."""
     T, K = rowid.shape
-    rid = rowid.long()
-    seg = torch.where(rid >= 0, torch.arange(T, device=rid.device)[:, None] * RADIX + rid,
-                      T * RADIX).reshape(-1)
-    out = torch.zeros((rep, T * RADIX + 1), dtype=_acc(q.dtype), device=q.device)
-    out.index_add_(1, seg, q.reshape(rep, T * K).to(out.dtype))
-    return out[:, :T * RADIX].reshape(-1).to(q.dtype)
+    qt = q.reshape(rep, T * K).t().to(_acc(q.dtype))  # (T·K, rep): slots lead
+    out = segment_sum(qt, tiled_combine_plan(rowid))
+    return out[:T * RADIX].t().reshape(-1).to(q.dtype)
 
 
 def lane_gather_mul_t_plain(xw, idx, vals):

@@ -2,7 +2,8 @@
 
 Counterpart of ``linops_tpu/ops/restriction.py``. ``R = opRestriction(I,
 ncol)`` gives ``R @ v == v[I]`` (a gather); its transpose scatters with
-addition, the true adjoint of a gather when indices repeat. ``opExtension``
+addition, the true adjoint of a gather when indices repeat, as a segment
+sum in index order (``core/segsum.py``), so a rerun gives the same bits. ``opExtension``
 is the adjoint. ``op[rows, cols] == R @ op @ E``, so slices are always
 operators. Indices are 0-based; an index outside ``[0, ncol)`` raises.
 
@@ -18,16 +19,19 @@ import numpy as np
 import torch
 
 from ..core.base import LinearOperator, LinearOperatorException, default_device
+from ..core.segsum import segment_plan, segment_sum
 
 __all__ = ["RestrictionOperator", "opRestriction", "opExtension", "op_getindex"]
 
 
 class RestrictionOperator(LinearOperator):
     """Gather the entries ``idx`` of a length-``ncol`` vector. The transpose
-    scatter-adds into zeros."""
+    sums the entries of each target in index order, through a plan built at
+    its first use."""
 
     _fields_tensors = ("idx",)
     _fields_static = ("_ncol",)
+    _fields_derived = ("sum_t",)
 
     def __init__(self, idx, ncol: int, *, device=None):
         super().__init__()
@@ -47,6 +51,12 @@ class RestrictionOperator(LinearOperator):
             raise LinearOperatorException(f"indices should be between 0 and {ncol - 1}")
         self.idx = idx_t.long()
         self._ncol = int(ncol)
+        self.sum_t = None
+
+    def _scatter(self, u):
+        if self.sum_t is None:
+            self.sum_t = segment_plan(self.idx, self._ncol)
+        return segment_sum(u, self.sum_t)
 
     @property
     def nrow(self):
@@ -66,8 +76,7 @@ class RestrictionOperator(LinearOperator):
         return v.index_select(0, self.idx)
 
     def _tprod(self, u):
-        return torch.zeros((self._ncol,), dtype=u.dtype, device=u.device).index_add_(
-            0, self.idx, u)
+        return self._scatter(u)
 
     def _ctprod(self, w):
         return self._tprod(w)
@@ -75,8 +84,7 @@ class RestrictionOperator(LinearOperator):
     def apply_matrix(self, M, mode: str = "N"):
         if mode in ("N", "C"):
             return M.index_select(0, self.idx)
-        return torch.zeros((self._ncol, M.shape[1]), dtype=M.dtype, device=M.device).index_add_(
-            0, self.idx, M)
+        return self._scatter(M)
 
     def _name(self):
         return "Restriction operator"

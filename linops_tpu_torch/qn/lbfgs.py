@@ -580,6 +580,9 @@ class LBFGSOperator(LinearOperator):
         self._materialized_state()
         return self
 
+    def _before_save(self):
+        self.ensure_ab()
+
     def diag(self):
         """Diagonal of a forward L-BFGS approximation."""
         if self._inverse:

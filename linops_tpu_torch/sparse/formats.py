@@ -8,7 +8,7 @@ without a card and without ``device`` they raise
 reference's device.
 
 - COO/CSR carry an explicit per-entry ``rows`` vector (CSR keeps ``indptr``
-  too), so a product is a gather plus an ``index_add_``.
+  too), so a product is a gather plus a segment sum.
 - ELL pads every row to one slot count (pads: column 0, value 0).
 - BSR holds dense (bm, bn) blocks, the same number per block row; padding
   blocks are zero and point at block column 0, so they add nothing.

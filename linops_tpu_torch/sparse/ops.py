@@ -4,9 +4,11 @@ Clos-routed CSR operator, and ``opSparse``.
 Counterpart of ``linops_tpu/sparse/ops.py``. Transpose and adjoint products
 reuse the same storage; no transposed copy is made.
 
-- COO/CSR: gather plus ``index_add_`` (the reference's gather +
-  ``segment_sum``); ELL: gather plus a row sum forward, ``index_add_`` for
-  the transpose. Plain PyTorch; no kernel.
+- COO/CSR: gather plus a segment sum in a fixed order (the reference's
+  gather + ``segment_sum``); ELL: gather plus a row sum forward, a segment
+  sum for the transpose. Each sum follows a plan built once per operator
+  and direction (``core/segsum.py``), so a rerun on the card gives the same
+  bits. Plain PyTorch; no kernel.
 - BSR: the hand-written kernels K1-K6 on CUDA (see ``BSROperator``).
 - Routed CSR: the Clos-routed pipeline of ``sparse/routed.py`` over the
   lane-gather kernels K7-K12 on CUDA (see ``RoutedCSROperator``).
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.base import LinearOperator, LinearOperatorException, _conj, _move, default_device
+from ..core.segsum import SegmentPlan, segment_plan, segment_sum
 from ..kernels import bsr_spmv as K
 from ..kernels.bsr_spmv import (
     bsr_column_plan,
@@ -53,13 +56,11 @@ __all__ = ["COOOperator", "CSROperator", "RoutedCSROperator", "ELLOperator", "BS
            "ROUTED_AUTO_MAX_NNZ"]
 
 
-def coo_matvec(vals, rows, cols, nrow: int, x):
-    """y[r] = Σ vals[k]·x[cols[k]] over k with rows[k] = r (x may carry a
-    trailing column dimension)."""
+def coo_matvec(vals, cols, plan: SegmentPlan, x):
+    """y[r] = Σ vals[k]·x[cols[k]] over the k of row r, summed in ``plan``'s
+    order (x may carry a trailing column dimension)."""
     v = vals if x.dim() == 1 else vals[:, None]
-    contrib = v * x[cols.long()]
-    y = torch.zeros((nrow,) + tuple(x.shape[1:]), dtype=contrib.dtype, device=contrib.device)
-    return y.index_add_(0, rows.long(), contrib)
+    return segment_sum(v * x.index_select(0, cols), plan)
 
 
 class _SparseBase(LinearOperator):
@@ -108,30 +109,56 @@ class _SparseBase(LinearOperator):
         return self.data.nnz
 
 
-class _IndexedSparse(_SparseBase):
-    """COO/CSR applies (gather + ``index_add_``)."""
+class _Summed(_SparseBase):
+    """Sparse storage whose products sum through ``segment_sum``: the
+    forward plan (``sum_n``) and the transpose plan (``sum_t``) are built at
+    their first use and kept, once per operator."""
+
+    _fields_derived = ("sum_n", "sum_t")
+
+    def __init__(self, data, symmetric: bool = False, hermitian: bool = False):
+        super().__init__(data, symmetric, hermitian)
+        self.sum_n = self.sum_t = None
+
+    def _plan_for(self, transpose: bool) -> SegmentPlan:
+        field = "sum_t" if transpose else "sum_n"
+        plan = getattr(self, field)
+        if plan is None:
+            plan = self._build_plan(transpose)
+            setattr(self, field, plan)
+        return plan
+
+
+class _IndexedSparse(_Summed):
+    """COO/CSR applies (gather + a segment sum in a fixed order): the
+    forward sums each row in stored order (CSR rows are sorted; COO takes a
+    stable sort by row), the transpose each column in a stable sort by
+    column."""
+
+    def _build_plan(self, transpose: bool) -> SegmentPlan:
+        d = self.data
+        if transpose:
+            return segment_plan(d.cols, d.shape[1])
+        return segment_plan(d.rows, d.shape[0], is_sorted=isinstance(d, CSR))
 
     def _prod(self, v):
-        d = self.data
-        return coo_matvec(d.vals, d.rows, d.cols, d.shape[0], v)
+        return coo_matvec(self.data.vals, self.data.cols, self._plan_for(False), v)
 
     def _tprod(self, u):
-        d = self.data
-        return coo_matvec(d.vals, d.cols, d.rows, d.shape[1], u)
+        return coo_matvec(self.data.vals, self.data.rows, self._plan_for(True), u)
 
     def _ctprod(self, w):
-        d = self.data
-        return coo_matvec(_conj(d.vals), d.cols, d.rows, d.shape[1], w)
+        return coo_matvec(_conj(self.data.vals), self.data.rows, self._plan_for(True), w)
 
     def apply_matrix(self, M, mode: str = "N"):
         self._check_mat(M, mode)
         d = self.data
         if mode == "N":
-            return coo_matvec(d.vals, d.rows, d.cols, d.shape[0], M)
+            return coo_matvec(d.vals, d.cols, self._plan_for(False), M)
         if mode == "C":  # conj(A) M = conj(A conj(M))
-            return _conj(coo_matvec(d.vals, d.rows, d.cols, d.shape[0], _conj(M)))
+            return _conj(coo_matvec(d.vals, d.cols, self._plan_for(False), _conj(M)))
         vals = d.vals if mode == "T" else _conj(d.vals)
-        return coo_matvec(vals, d.cols, d.rows, d.shape[1], M)
+        return coo_matvec(vals, d.rows, self._plan_for(True), M)
 
 
 class COOOperator(_IndexedSparse):
@@ -140,22 +167,23 @@ class COOOperator(_IndexedSparse):
 
 class CSROperator(_IndexedSparse):
     """Sparse operator over CSR storage (its expanded ``rows`` drive the
-    same gather + ``index_add_`` as COO)."""
+    same gather + segment sum as COO)."""
 
 
-class ELLOperator(_SparseBase):
+class ELLOperator(_Summed):
     """ELLPACK operator: forward is a gather plus a row sum (no scatter);
-    the transpose scatters with ``index_add_``."""
+    the transpose is a segment sum over a stable sort of the slots by
+    column."""
+
+    def _build_plan(self, transpose: bool) -> SegmentPlan:
+        return segment_plan(self.data.cols, self.data.shape[1])
 
     def _prod(self, v):
         d = self.data
         return torch.sum(d.vals * v[d.cols.long()], dim=1)
 
     def _tprod_vals(self, vals, u):
-        d = self.data
-        contrib = (vals * u[:, None]).reshape(-1)
-        out = torch.zeros(d.shape[1], dtype=contrib.dtype, device=contrib.device)
-        return out.index_add_(0, d.cols.reshape(-1).long(), contrib)
+        return segment_sum((vals * u[:, None]).reshape(-1), self._plan_for(True))
 
     def _tprod(self, u):
         return self._tprod_vals(self.data.vals, u)
@@ -173,8 +201,7 @@ class ELLOperator(_SparseBase):
             return _conj(torch.sum(d.vals[:, :, None] * _conj(M)[cols], dim=1))
         vals = d.vals if mode == "T" else _conj(d.vals)
         contrib = (vals[:, :, None] * M[:, None, :]).reshape(-1, M.shape[1])
-        out = torch.zeros((d.shape[1], M.shape[1]), dtype=contrib.dtype, device=contrib.device)
-        return out.index_add_(0, cols.reshape(-1), contrib)
+        return segment_sum(contrib, self._plan_for(True))
 
 
 def _on_card(t) -> bool:  # patchable seam: the CPU tests reach the routed matrix branch
@@ -189,7 +216,7 @@ def _numpy_vals(vals: torch.Tensor) -> np.ndarray:
 
 class RoutedCSROperator(CSROperator):
     """CSR operator whose products run through the Clos-routed lane-gather
-    pipeline (``sparse/routed.py``) instead of gather + ``index_add_``: the
+    pipeline (``sparse/routed.py``) instead of gather + segment sum: the
     path for genuinely unstructured patterns.
 
     Storage: the plain CSR (matrix right-hand sides off the card, dense
@@ -442,6 +469,8 @@ class BSROperator(_SparseBase):
                        "win_valid_t", "lane_rows", "t_perm", "t_ptr")
     _fields_static = ("_symmetric", "_hermitian", "_backend", "_wb", "_x_pad_blocks",
                       "_x_pad_blocks_t")
+    _fields_derived = ("_plain_t_plan",)
+    _fields_index = ("col_plan", "lane_rows", "t_perm", "t_ptr")
 
     def __init__(self, data: BSR, symmetric: bool = False, hermitian: bool = False,
                  backend: str = "auto", win_q=None, cols_local=None, win_q_t=None,
@@ -482,9 +511,17 @@ class BSROperator(_SparseBase):
         if not given and maybe_kernel and nbcol * bn > K.BSR_PALLAS_MAX_X_ELEMS:
             self._plan()
         self._check_plan()
+        self._build_index()
+
+    def _build_index(self):
+        """K2's column plan, K5's lane rows and K4/K6's slot index from the
+        block columns and the window plan; the plain transpose's segment
+        plan is dropped, to be built at its next use."""
         d = self.data
-        self.col_plan = bsr_column_plan(d.block_cols, nbcol,
+        bm, bn = d.block_shape
+        self.col_plan = bsr_column_plan(d.block_cols, self._nbcol,
                                         bm * bn * d.blocks.element_size())
+        self._plain_t_plan = None
         self.lane_rows = self.t_perm = self.t_ptr = None
         if self.win_q is not None and self.cols_local is None:
             self.lane_rows = K.bsr_multiwin_index(d.block_cols, self.win_q, self._wb)
@@ -633,6 +670,7 @@ class BSROperator(_SparseBase):
                                                       index=(self.t_perm, self.t_ptr), **plan)
                 else:
                     x = K.bsr_rmatvec_windowed_plain(blocks, self.cols_local, self.win_q, ub,
+                                                     sum_plan=self.plain_transpose_plan(),
                                                      **plan)
             else:
                 plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks_t, nbcol=nbcol)
@@ -641,12 +679,28 @@ class BSROperator(_SparseBase):
                     x = K.bsr_rmatvec_multiwin_kernel(*args, index=(self.t_perm, self.t_ptr),
                                                       **plan)
                 else:
-                    x = K.bsr_rmatvec_multiwin_plain(*args, **plan)
+                    x = K.bsr_rmatvec_multiwin_plain(*args, sum_plan=self.plain_transpose_plan(),
+                                                     **plan)
         elif kern:
             x = bsr_rmatvec_kernel(blocks, d.block_cols, ub, nbcol, plan=self.col_plan)
         else:
-            x = bsr_rmatvec(blocks, d.block_cols, ub, nbcol)
+            x = bsr_rmatvec(blocks, d.block_cols, ub, nbcol, plan=self.plain_transpose_plan())
         return x.reshape(nbcol * bn)[: d.shape[1]]
+
+    def plain_transpose_plan(self) -> SegmentPlan:
+        """The summation order of the plain transpose this operator takes
+        (plain K2, K4 or K6): built at its first use and kept."""
+        if self._plain_t_plan is None:
+            d, nbcol = self.data, self._nbcol
+            if not self._windowed(transpose=True):
+                plan = segment_plan(d.block_cols, nbcol)
+            elif self.cols_local is not None:
+                plan = K.bsr_rmatvec_windowed_plan(self.cols_local, self.win_q, wb=self._wb,
+                                                   x_pad_blocks=self._x_pad_blocks)
+            else:
+                plan = segment_plan(d.block_cols, max(self._x_pad_blocks_t, nbcol))
+            self._plain_t_plan = plan
+        return self._plain_t_plan
 
     def _tprod(self, u):
         return self._tprod_impl(self.data.blocks, u)
@@ -840,7 +894,7 @@ def opSparse(
 
                     warnings.warn(
                         f"opSparse(format='auto'): {sp.nnz} nnz exceeds the auto-routing cap "
-                        f"({ROUTED_AUTO_MAX_NNZ}); using the gather + index_add CSR path. "
+                        f"({ROUTED_AUTO_MAX_NNZ}); using the gather + segment-sum CSR path. "
                         f"Pass format='routed' to pack anyway, or reorder='rcm' if the "
                         f"pattern is bandable.", stacklevel=2)
         if format in ("csr", "routed"):

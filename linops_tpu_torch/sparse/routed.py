@@ -31,7 +31,7 @@ tiles; chunks share shapes and every kernel call spans all of them.
 The pack's arrays are bit-identical to the reference's. ``use_kernel``
 (the reference's ``use_pallas``) selects the kernel pipeline; by default it
 is taken for CUDA tensors whose result is f32 or bf16, and the plain
-pipeline (``torch.gather`` and ``index_add_``) otherwise. On CPU tensors
+pipeline (``torch.gather`` and fixed-order segment sums) otherwise. On CPU tensors
 the kernel pipeline runs the kernels' plain versions.
 """
 

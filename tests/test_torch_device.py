@@ -3,9 +3,12 @@
 Without ``device=``, every factory that builds from host data (``opSparse``,
 ``opPermutation``, the L-BFGS operators, the ``convert`` functions,
 ``pack_routed_csr``, the format functions ``*_from_dense``/``*_from_parts``,
-``opOnes``/``opZeros``, ``opRestriction``/``opExtension``, and
-``opDiagonal``/``LinearOperator`` given host data) takes the current CUDA
-device; with no CUDA device it
+``opOnes``/``opZeros``, ``opRestriction``/``opExtension``,
+``opDiagonal``/``LinearOperator`` given host data, and since slice 6 the
+``laplacian_*`` builders, ``opDIA``/``dia_from_dense``, ``opStencil``/
+``opStencil2D``, ``LSR1Operator``, the diagonal quasi-Newton operators,
+``opCholesky``/``opLDL``/``opInverse``/``opHouseholder``/``opHermitian``
+and ``kron`` given host data) takes the current CUDA device; with no CUDA device it
 raises an error naming ``device="cpu"``, and never builds on the CPU
 silently. ``device="cpu"`` builds on the CPU. Constructors that take
 tensors follow their tensors.
@@ -58,6 +61,33 @@ FACTORIES = {
     "opZeros": lambda **kw: lt.opZeros(3, 4, **kw),
     "opRestriction": lambda **kw: lt.opRestriction([0, 2], 4, **kw),
     "opExtension": lambda **kw: lt.opExtension(np.array([1, 3]), 4, **kw),
+    "laplacian_1d": lambda **kw: lt.laplacian_1d(8, **kw),
+    "laplacian_2d": lambda **kw: lt.laplacian_2d(4, 5, **kw),
+    "laplacian_2d_dia": lambda **kw: lt.laplacian_2d_dia(4, 5, **kw),
+    "opDIA": lambda **kw: lt.opDIA(np.ones((2, 6)), (0, 1), **kw),
+    "dia_from_dense": lambda **kw: lt.dia_from_dense(np.eye(5), **kw),
+    "opStencil": lambda **kw: lt.opStencil((3, 4), [(0, 0), (1, 0)], [2.0, -1.0], **kw),
+    "opStencil2D": lambda **kw: lt.opStencil2D(3, 4, [(0, 0)], [2.0], **kw),
+    "LSR1Operator": lambda **kw: lt.LSR1Operator(10, mem=3, **kw),
+    "DiagonalPSB": lambda **kw: lt.DiagonalPSB(np.ones(5), **kw),
+    "DiagonalAndrei": lambda **kw: lt.DiagonalAndrei(np.ones(5), **kw),
+    "DiagonalBFGS": lambda **kw: lt.DiagonalBFGS(np.ones(5), **kw),
+    "SpectralGradient": lambda **kw: lt.SpectralGradient(1.0, 5, **kw),
+    "opCholesky": lambda **kw: lt.opCholesky(np.eye(4), **kw),
+    "opLDL": lambda **kw: lt.opLDL(np.eye(4), **kw),
+    "opInverse": lambda **kw: lt.opInverse(np.eye(4), **kw),
+    "opHouseholder": lambda **kw: lt.opHouseholder(np.ones(4) / 2, **kw),
+    "opHermitian": lambda **kw: lt.opHermitian(np.eye(4), **kw),
+    "kron": lambda **kw: lt.kron(np.eye(2), np.ones((2, 2)), **kw),
+    "KronOperator": lambda **kw: lt.KronOperator(np.eye(2), np.ones((2, 2)), **kw),
+    "lsr1_state_from_reference": lambda **kw: convert.lsr1_state_from_reference(
+        {f: np.zeros(()) if f in ("gamma", "opnorm_ub", "insert") else np.zeros((2, 4))
+         for f in lt.LSR1State._fields}, **kw),
+    "dia_from_reference": lambda **kw: convert.dia_from_reference(np.ones((1, 4)), (0,), **kw),
+    "stencil_from_reference": lambda **kw: convert.stencil_from_reference(
+        (2, 3), [(0, 0)], np.ones(1), **kw),
+    "diagonal_qn_from_reference": lambda **kw: convert.diagonal_qn_from_reference(
+        "DiagonalBFGS", np.ones(3), **kw),
 }
 
 

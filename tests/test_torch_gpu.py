@@ -19,6 +19,13 @@ K13 (the tiled combine) within 4·eps_f32·Σ|q| per row of its plain version
 equal bit for bit to an f32 walk of its order (each row's slots added in
 slot order) for K up to 2049; K14 equal to its plain version and to K9 with
 C = 1.
+
+The fixed-order sums (``core/segsum.py``): COO, CSR and ELL applies in N and
+T (vector and matrix), the plain K2 in f64, the f64 routed combine and a
+restriction's transpose with repeated indices are bit-identical over five
+reruns. The slice-6 operators (stencil, DIA, L-SR1, diagonal quasi-Newton)
+on the card in f32 agree with the same operators on the CPU in f64 within
+1e-5·max|y|.
 """
 
 import numpy as np
@@ -605,3 +612,141 @@ def test_tiled_combine_rejects_what_the_kernel_does_not_take(dev):
         LG.tiled_combine(q, rowid, rep=2)
     with pytest.raises(ValueError, match="is on"):
         LG.tiled_combine(q, rowid.cpu())
+
+
+def reruns_equal(fn, times=5):
+    first = fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(first, fn()) for _ in range(times - 1))
+
+
+@pytest.mark.parametrize("fmt", ["coo", "csr", "ell"])
+def test_fixed_order_sparse_applies_are_bit_identical(dev, fmt):
+    import scipy.sparse as sps
+
+    # a hot column and hot rows: many contributions into one sum
+    A = sps.random(3000, 2500, density=0.01, format="lil", random_state=5, dtype=np.float32)
+    A[:, 7] = np.random.default_rng(1).standard_normal((3000, 1)).astype(np.float32)
+    A[11, :] = np.random.default_rng(2).standard_normal((1, 2500)).astype(np.float32)
+    A = A.tocsr()
+    op = lt.opSparse(A, format=fmt, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    v = torch.randn(2500, generator=g, device=dev)
+    u = torch.randn(3000, generator=g, device=dev)
+    V = torch.randn(2500, 4, generator=g, device=dev)
+    U = torch.randn(3000, 4, generator=g, device=dev)
+    A64 = torch.from_numpy(A.toarray()).double().to(dev)
+    for fn, ref in ((lambda: op * v, A64 @ v.double()), (lambda: op.T * u, A64.T @ u.double()),
+                    (lambda: op.matmat(V), A64 @ V.double()),
+                    (lambda: op.matmat(U, mode="T"), A64.T @ U.double())):
+        assert reruns_equal(fn)
+        assert rel_err(fn(), ref) <= 1e-5
+
+
+def test_fixed_order_plain_k2_f64_and_restriction(dev):
+    blocks, cols = random_bsr(dev, 300, 4, 8, 128, 20, torch.float64, seed=3)
+    cols[:, 0] = 5  # a hot column
+    u = torch.randn((300, 8), dtype=torch.float64, device=dev)
+    o = K.bsr_rmatvec_plain(blocks, cols, u, 20)
+    assert reruns_equal(lambda: K.bsr_rmatvec_plain(blocks, cols, u, 20))
+    op = lt.BSROperator(lt.BSR(blocks, cols, (2400, 2560)))
+    uu = u.reshape(-1)
+    assert torch.equal(op.T * uu, o.reshape(-1)) and reruns_equal(lambda: op.T * uu)
+    idx = torch.randint(0, 50, (20000,), device=dev)
+    R = lt.opRestriction(idx, 50)
+    w = torch.randn(20000, device=dev)
+    W = torch.randn(20000, 3, device=dev)
+    assert reruns_equal(lambda: R.T * w) and reruns_equal(lambda: R.matmat(W, mode="T"))
+    want = torch.zeros(50, dtype=torch.float64, device=dev).index_add_(0, idx, w.double())
+    assert rel_err(R.T * w, want) <= 1e-6
+
+
+def test_fixed_order_f64_routed_combine(dev):
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.sparse.routed import routed_matvec
+
+    T, Kt, rep = 40, 640, 2
+    rowid = torch.randint(-1, LG.RADIX, (T, Kt), device=dev, dtype=torch.int32)
+    q = torch.randn(rep * T * Kt, dtype=torch.float64, device=dev)
+    assert reruns_equal(lambda: LG.tiled_combine_plain(q, rowid, rep))
+    A = sps.random(5000, 4000, density=0.005, format="csr", random_state=3, dtype=np.float64)
+    p = lt.opSparse(A, format="routed", device=dev).routed
+    q64 = p._replace(comb_lo=None, comb_hi=None)
+    v = torch.randn(4000, dtype=torch.float64, device=dev)
+    LG.reset_launch_counts()
+    y = routed_matvec(q64, v)
+    assert sum(LG.launch_counts().values()) == 0  # f64: the plain pipeline
+    assert reruns_equal(lambda: routed_matvec(q64, v))
+    A64 = torch.from_numpy(A.toarray()).to(dev)
+    assert rel_err(y, A64 @ v) <= 1e-12
+
+
+def test_slice6_operators_on_card_match_cpu(dev):
+    cpu = torch.device("cpu")
+    g = 96
+    n = g * g
+    x = torch.randn(n, dtype=torch.float64)
+    X = torch.randn(n, 6, dtype=torch.float64)
+    for build in (lt.laplacian_2d, lt.laplacian_2d_dia):
+        op32 = build(g, g, dtype=torch.float32, device=dev)
+        op64 = build(g, g, dtype=torch.float64, device=cpu)
+        assert rel_err((op32 * x.float().to(dev)).cpu(), op64 * x) <= 1e-5
+        assert rel_err((op32.T * x.float().to(dev)).cpu(), op64.T * x) <= 1e-5
+        assert rel_err(op32.apply_matrix_t(X.T.float().to(dev).contiguous()).cpu(),
+                       op64.apply_matrix_t(X.T.contiguous())) <= 1e-5
+        assert rel_err(op32.matmat(X.float().to(dev)).cpu(), op64.matmat(X)) <= 1e-5
+    rng = np.random.default_rng(0)
+    B32 = lt.LSR1Operator(torch.float32, n, mem=6, scaling=True, device=dev)
+    B64 = lt.LSR1Operator(torch.float64, n, mem=6, scaling=True, device=cpu)
+    Q32 = lt.DiagonalBFGS(np.ones(n, np.float32), device=dev)
+    Q64 = lt.DiagonalBFGS(np.ones(n), device=cpu)
+    for _ in range(8):
+        s = rng.standard_normal(n)
+        y = 2 * s + 0.5 * rng.standard_normal(n)
+        B32.push(torch.from_numpy(s).float(), torch.from_numpy(y).float())
+        B64.push(torch.from_numpy(s), torch.from_numpy(y))
+        Q32.push(torch.from_numpy(s).float(), torch.from_numpy(y).float())
+        Q64.push(torch.from_numpy(s), torch.from_numpy(y))
+    assert B32.insert == B64.insert
+    assert rel_err((B32 * x.float().to(dev)).cpu(), B64 * x) <= 1e-5
+    assert rel_err(B32.diag().cpu(), B64.diag()) <= 1e-5
+    assert rel_err(Q32.diag().cpu(), Q64.diag()) <= 1e-5
+
+
+def test_checkpoint_roundtrip_on_card(dev, tmp_path):
+    """save_operator / load_operator_state reload card state bit for bit:
+    L-BFGS, L-SR1, diagonal QN, BSR and DIA operators."""
+    from linops_tpu_torch.utils.checkpoint import _walk
+
+    n = 4096
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def pushed(op, count=5):
+        for _ in range(count):
+            s = torch.randn(n, generator=g, device=dev)
+            op.push(s, 2 * s + 0.5 * torch.randn(n, generator=g, device=dev))
+        return op
+
+    blocks, cols = random_bsr(dev, n // 8, 4, 8, 128, n // 128, torch.float32, seed=9)
+    diags = torch.randn(3, n, generator=g, device=dev)
+    cases = [
+        (pushed(lt.LBFGSOperator(torch.float32, n, mem=4, device=dev)),
+         lambda: lt.LBFGSOperator(torch.float32, n, mem=4, device=dev)),
+        (pushed(lt.LSR1Operator(torch.float32, n, mem=4, scaling=True, device=dev)),
+         lambda: lt.LSR1Operator(torch.float32, n, mem=4, scaling=True, device=dev)),
+        (pushed(lt.DiagonalAndrei(torch.ones(n, device=dev)), 2),
+         lambda: lt.DiagonalAndrei(torch.ones(n, device=dev))),
+        (lt.BSROperator(lt.BSR(blocks, cols, (n, n))),
+         lambda: lt.BSROperator(lt.BSR(torch.zeros_like(blocks), cols.clone(), (n, n)))),
+        (lt.opDIA(diags, (-1, 0, 5)), lambda: lt.opDIA(torch.zeros_like(diags), (-1, 0, 5))),
+    ]
+    v = torch.randn(n, generator=g, device=dev)
+    for i, (op, fresh) in enumerate(cases):
+        path = str(tmp_path / f"op{i}.npz")
+        lt.save_operator(path, op)
+        back = lt.load_operator_state(path, fresh())
+        a, _ = _walk(op, [], [])
+        b, _ = _walk(back, [], [])
+        assert len(a) == len(b) and all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(back @ v, op @ v)

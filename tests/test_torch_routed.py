@@ -236,6 +236,29 @@ def test_tiled_combine_without_bounds_names_k13(monkeypatch):
     assert rel(Y, np.asarray(JR.routed_matmat(p_j, jnp.asarray(X), use_pallas="interpret"))) <= 1e-6
 
 
+def test_plain_combine_builds_its_order_once_per_program(monkeypatch):
+    """The plain pipeline's tiled combine builds its segment plan at the
+    program's first apply and keeps it with the program's ``rowid``: later
+    applies (vector and matrix, forward and conjugate) build none and give
+    the same bits; a copy of the program on another tensor builds its own."""
+    A = random_csr(700, 900, 0.05, seed=3)
+    fwd, _ = both_packs(A, 4)[0]
+    p = TR.upload_program(fwd, "cpu")
+    assert p.rowid is not None
+    built = []
+    real = TR.LG.segment_plan
+    monkeypatch.setattr(TR.LG, "segment_plan", lambda *a, **k: built.append(1) or real(*a, **k))
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(900))
+    y = TR.routed_matvec(p, x)
+    assert len(built) == 1 and rel(y, A @ x.numpy()) <= 1e-12
+    assert torch.equal(TR.routed_matvec(p, x), y)
+    TR.routed_matmat(p, torch.stack([x, 2 * x], dim=1))
+    TR.routed_matvec(p._replace(vals=p.vals.conj()), x)
+    assert len(built) == 1
+    TR.routed_matvec(p._replace(rowid=p.rowid.clone()), x)
+    assert len(built) == 2
+
+
 # ----------------------------------------------------------------------------
 # Operators
 # ----------------------------------------------------------------------------

@@ -18,7 +18,7 @@
   derived one), and multi-RHS CG over the routed matrix apply (reached on
   the CPU through the ``_on_card`` seam); in f64, iterations equal (±1) and
   x within 1e-8·‖x‖ of the reference's;
-- ``import linops_tpu_torch`` (and each slice-3 and slice-4 module) leaves
+- ``import linops_tpu_torch`` (and each module of slices 3, 4 and 6) leaves
   jax and the JAX package out of ``sys.modules``.
 """
 
@@ -269,7 +269,15 @@ def test_import_does_not_load_jax():
             "linops_tpu_torch.kernels.lane_gather, linops_tpu_torch.native, "
             "linops_tpu_torch.ops.eye, linops_tpu_torch.ops.cat, "
             "linops_tpu_torch.ops.restriction, linops_tpu_torch.ops.shifted, "
-            "linops_tpu_torch.utils.krylov, linops_tpu_torch.qn.shifted_solve; "
+            "linops_tpu_torch.utils.krylov, linops_tpu_torch.qn.shifted_solve, "
+            "linops_tpu_torch.core.segsum, linops_tpu_torch.ops.kron, "
+            "linops_tpu_torch.ops.timed, linops_tpu_torch.ops.linalg_ops, "
+            "linops_tpu_torch.ops.sparse_factor, linops_tpu_torch.qn.lsr1, "
+            "linops_tpu_torch.qn.diagonal, linops_tpu_torch.sparse.dia, "
+            "linops_tpu_torch.sparse.stencil, linops_tpu_torch.utils.rng, "
+            "linops_tpu_torch.utils.timing, linops_tpu_torch.utils.checks, "
+            "linops_tpu_torch.utils.norm, linops_tpu_torch.utils.estimate, "
+            "linops_tpu_torch.utils.eig, linops_tpu_torch.utils.checkpoint; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
             "assert not any(m == 'linops_tpu' or m.startswith('linops_tpu.') "
             "for m in sys.modules)")

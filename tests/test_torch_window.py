@@ -523,6 +523,30 @@ def test_dispatch_takes_the_plans_branch(rng, caps, monkeypatch):
         lt.BSROperator(band.data, backend="kernel") * torch.ones(band.ncol)
 
 
+def test_plain_transposes_build_their_order_once(rng, caps, monkeypatch):
+    """Each operator's plain transpose (K4's, K6's or K2's plain version)
+    builds its segment plan at its first apply and keeps it: later applies
+    build none and give the same bits."""
+    from linops_tpu_torch.sparse import ops as sparse_ops
+
+    caps(window_blocks=16, tile=65536)
+    built = []
+    for mod in (K, sparse_ops):
+        real = mod.segment_plan
+        monkeypatch.setattr(mod, "segment_plan",
+                            lambda *a, _f=real, **k: built.append(1) or _f(*a, **k))
+    multi = lt.BSROperator(lt.BSR(*map(torch.from_numpy, band_cluster(rng)[:2]), (512, 8192)))
+    b_blocks, b_cols, b_shape = banded(rng)
+    band = lt.BSROperator(lt.BSR(torch.from_numpy(b_blocks), torch.from_numpy(b_cols), b_shape))
+    plain = lt.BSROperator(band.data, backend="torch")
+    for op in (band, multi, plain):
+        built.clear()
+        u = torch.from_numpy(rng.standard_normal(op.nrow).astype(np.float32))
+        first = op.T * u
+        assert torch.equal(op.T * u, first) and torch.equal(op.T * u, first)
+        assert len(built) == 1
+
+
 def test_no_plan_below_the_bound_or_for_wide_blocks(rng):
     blocks, cols, shape = banded(rng)  # 5120 x elements < 2e6: K1/K2
     assert lt.BSROperator(lt.BSR(torch.from_numpy(blocks), torch.from_numpy(cols), shape)).win_q is None
