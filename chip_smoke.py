@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
-7, 9, 8, 5, 11, 10, then one profiled slice-1 CG (the times come after
-every kernel has been checked; phase 10 and the profiled CG come last
-because torch.profiler traces of whole solves, run before phase 5, left
-phase 5's own traces without device time; phase 11 runs no profiler):
+7, 9, 8, 5, 11, 12, 10, then one profiled slice-1 CG (the times come after
+every kernel has been checked; phases 12 and 10 and the profiled CG come
+after phase 5 because torch.profiler traces of whole solves, run before
+phase 5, left phase 5's own traces without device time; phase 11 runs no
+profiler):
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
@@ -79,6 +80,19 @@ phase 5's own traces without device time; phase 11 runs no profiler):
    transpose, the f64 routed combine), and the CSR apply against the
    index_add_ apply it replaced. Its launches must include K1, K2 and the
    routed kernels.
+12. main path of slice 7, gradients taken with ``torch.autograd`` through
+   the kernel applies: (a) L = ½‖Ax − b‖² on phase 3's 8x128 operator
+   (modes N and T, f32 and bf16 blocks): the x-gradient bit-identical to the
+   explicit adjoint apply, x and block gradients against the plain backend's
+   autograd (max|Δ|/max ≤ 1e-5 for x, 1e-6 for f32 blocks, 1e-2 for bf16
+   blocks), one transpose kernel per backward; a mixed graph; times by
+   marginal CUDA events beside the device time of a profiled run; (b) K3-K6
+   at n = 2^22, x-gradients bit-identical to the explicit applies; (c) the
+   phase-10b routed matrix (K7, K12 in the backward) and a 2^20 permutation,
+   a value gradient refused; (d) the implicit backward of
+   ``opIterativeInverse(cg, tol 1e-6)`` on slice 1's graph against the closed
+   form and the plain backend (‖Δ‖/‖g‖ ≤ 1e-4), with its times; (e)
+   ``apply_linear``. Its backward launches must include K1-K6, K7, K10, K12.
 
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
@@ -1901,6 +1915,312 @@ def phase11(lt, K, LG, dev, card, ops, main):
                     "lobpcg_us_per_iter_k2": us_lob, "lsr1_fwd_us": ms_lsr1 * 1e3}
 
 
+# ----------------------------------------------------------------------------
+# Slice 7: gradients through the kernels
+# ----------------------------------------------------------------------------
+
+GRAD_X_RTOL, GRAD_BLOCKS_RTOL, GRAD_BF16_RTOL = 1e-5, 1e-6, 1e-2
+IMPLICIT_RTOL = 1e-4
+
+
+def rel_vec(a, b) -> float:
+    """‖a − b‖/‖b‖ in f64."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase12(lt, K, LG, dev, card):
+    """Slice 7's path: gradients through the kernel-backed applies, taken
+    with ``torch.autograd`` as a user takes them. (a) K1/K2 under L = ½‖Ax −
+    b‖² on phase 3's 8x128 operator, modes N and T, f32 and bf16 blocks, and
+    a mixed graph; (b) K3-K6 at n = 2^22; (c) the routed 2^20 x 2^19 matrix
+    of phase 10b, a 2^20 permutation and a refused value gradient; (d) the
+    implicit backward of opIterativeInverse on slice 1's graph; (e)
+    apply_linear. Returns (the backward launches per kernel, the times)."""
+    from linops_tpu_torch.sparse.routed import routed_matvec
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    LG.reset_launch_counts()
+    backward = dict.fromkeys(list(K.launch_counts()) + list(LG.launch_counts()), 0)
+
+    def counts():
+        return {**K.launch_counts(), **LG.launch_counts()}
+
+    def reset():
+        K.reset_launch_counts()
+        LG.reset_launch_counts()
+
+    def grad_launches(fn):
+        """fn() with the counts set to 0 just before and read just after;
+        they are added to the phase's backward launches."""
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        c = counts()
+        for k_, v_ in c.items():
+            backward[k_] += v_
+        return out, {k_: v_ for k_, v_ in c.items() if v_}
+
+    # --- 12a. K1/K2 under autograd ---------------------------------------------
+    free()
+    bm, bn, kmax = SHAPES["8x128"]
+    times = {}
+    for dtype in (f32, torch.bfloat16):
+        blocks, cols = make_bsr("8x128", dtype, dev, scale=(kmax * bn) ** -0.5)
+        leaf = blocks.clone().requires_grad_(True)
+        op = lt.BSROperator(lt.BSR(leaf, cols, (N, N)))
+        op_plain = lt.BSROperator(lt.BSR(leaf, cols, (N, N)), backend="torch")
+        b = dev_vec(N, dev, SEED + 90)
+        for mode in ("N", "T"):
+            fwd_k, bwd_k = ("bsr_matvec", "bsr_rmatvec")[::1 if mode == "N" else -1]
+
+            def loss(o, x_, m=mode):
+                r = (o @ x_ if m == "N" else o.T @ x_) - b
+                return 0.5 * torch.dot(r, r)
+
+            x = dev_vec(N, dev, SEED + 91).requires_grad_(True)
+            reset()
+            L = loss(op, x)
+            torch.cuda.synchronize()
+            c_fwd = {k_: v_ for k_, v_ in counts().items() if v_}
+            (gx, gB), c_bwd = grad_launches(lambda: torch.autograd.grad(L, (x, leaf)))
+            check(c_fwd == {fwd_k: 1} and c_bwd == {bwd_k: 1},
+                  f"12a {mode} {dtype}: forward launches {c_fwd}, backward {c_bwd}")
+            with torch.no_grad():
+                xd = x.detach()
+                r = (op @ xd if mode == "N" else op.T @ xd) - b
+                explicit = op.T @ r if mode == "N" else op @ r
+            check(torch.equal(gx, explicit),
+                  f"12a {mode} {dtype}: the x-gradient is not the explicit adjoint apply bit for bit")
+            gx_p, gB_p = torch.autograd.grad(loss(op_plain, x), (x, leaf))
+            e_x, e_b = rel_err(gx, gx_p), rel_err(gB, gB_p)
+            lim_b = GRAD_BLOCKS_RTOL if dtype == f32 else GRAD_BF16_RTOL
+            check(gB.dtype == dtype and gx.dtype == f32 and torch.isfinite(gB).all(),
+                  f"12a {mode} {dtype}: gradient dtypes {gx.dtype}, {gB.dtype}")
+            check(e_x <= GRAD_X_RTOL and e_b <= lim_b,
+                  f"12a {mode} {dtype}: against the plain backend x {e_x:.2e}, blocks {e_b:.2e}")
+            print(f"[12a K1/K2 grads] L = ½‖{'A' if mode == 'N' else 'Aᵀ'}x − b‖², 8x128 kmax 8, "
+                  f"n = {N}, blocks {str(dtype)[6:]}: x-gradient = explicit "
+                  f"{'Aᵀ(Ax − b)' if mode == 'N' else 'A(Aᵀx − b)'} bit for bit; against the plain "
+                  f"backend's autograd x {e_x:.2e} (limit {GRAD_X_RTOL:g}), blocks {e_b:.2e} (limit "
+                  f"{lim_b:g}, max|Δ|/max); launches forward {c_fwd}, backward {c_bwd}", flush=True)
+            if dtype == f32 and mode == "N":
+                # x alone on an operator whose blocks want no gradient
+                op_x, xg = lt.BSROperator(lt.BSR(blocks, cols, (N, N))), x
+                times["12a forward"] = marginal_ms(lambda: loss(op_x, xg))
+                times["12a forward + x-backward"] = marginal_ms(
+                    lambda: torch.autograd.grad(loss(op_x, xg), xg))
+                times["12a forward + x and blocks backward"] = marginal_ms(
+                    lambda: torch.autograd.grad(loss(op, xg), (xg, leaf)))
+                xd = xg.detach()
+                times["12a explicit Aᵀ(Ax − b)"] = marginal_ms(lambda: op_x.T @ (op_x @ xd - b))
+                # the card's share: device time of 20 calls from a profiler trace
+                for key, fn in (("forward", lambda: loss(op_x, xg)),
+                                ("forward + x-backward",
+                                 lambda: torch.autograd.grad(loss(op_x, xg), xg)),
+                                ("forward + x and blocks backward",
+                                 lambda: torch.autograd.grad(loss(op, xg), (xg, leaf)))):
+                    dev_ms, _ = device_profile(lambda f=fn: [f() for _ in range(20)])
+                    times[f"12a device {key}"] = None if dev_ms is None else dev_ms / 20
+                del op_x
+            del gx, gB, gx_p, gB_p, L, explicit, r, x
+        if dtype == f32:  # a mixed graph: the kernel's share and the diagonal's
+            d = torch.linspace(1.0, 2.0, N, device=dev)
+            x = dev_vec(N, dev, SEED + 92).requires_grad_(True)
+            g = dev_vec(N, dev, SEED + 93)
+            y = (op + lt.opDiagonal(d)) @ x
+            (gx,), c_mix = grad_launches(lambda: torch.autograd.grad(y, x, g))
+            with torch.no_grad():
+                want = op.T @ g + d * g
+            e_mix = rel_err(gx, want)
+            check(e_mix <= 1e-6 and c_mix == {"bsr_rmatvec": 1},
+                  f"12a mixed graph: {e_mix:.2e} from Aᵀg + d⊙g, launches {c_mix}")
+            print(f"[12a K1/K2 grads] (A + opDiagonal(d)) @ x: x-gradient against Aᵀg + d⊙g "
+                  f"{e_mix:.2e} (limit 1e-6); backward launches {c_mix}", flush=True)
+            del x, g, y, gx, want
+        del blocks, cols, leaf, op, op_plain, b
+    t = times
+
+    def us(key):
+        return "not measured" if t[key] is None else f"{t[key] * 1e3:.1f} us"
+
+    print(f"[12a K1/K2 grads] times, 8x128 f32 N, per call (marginal CUDA events; device time "
+          f"from a torch.profiler trace of 20 calls): forward {us('12a forward')} (device "
+          f"{us('12a device forward')}), forward + x-backward {us('12a forward + x-backward')} "
+          f"(device {us('12a device forward + x-backward')}), forward + x and blocks backward "
+          f"{us('12a forward + x and blocks backward')} (device "
+          f"{us('12a device forward + x and blocks backward')}); the same without autograd, "
+          f"explicit Aᵀ(Ax − b): {us('12a explicit Aᵀ(Ax − b)')}; {card}", flush=True)
+
+    # --- 12b. the windowed kernels ------------------------------------------------
+    for name in WIN_KMAX:
+        free()
+        op = win_operator(lt, name, f32, dev, SEED + 10)
+        fwd_k, tr_k = win_names(op)
+        u = dev_vec(WIN_N, dev, SEED + 94)
+        for mode, want_k in (("N", tr_k), ("T", fwd_k)):
+            x = dev_vec(WIN_N, dev, SEED + 95).requires_grad_(True)
+            y = op @ x if mode == "N" else op.T @ x
+            (gx,), c_bwd = grad_launches(lambda: torch.autograd.grad(y, x, u))
+            with torch.no_grad():
+                explicit = op.T @ u if mode == "N" else op @ u
+            check(torch.equal(gx, explicit) and c_bwd == {want_k: 1},
+                  f"12b {name} {mode}: equal to the explicit apply {torch.equal(gx, explicit)}, "
+                  f"backward launches {c_bwd}")
+            print(f"[12b window grads] {name} n = 2^22, y = {'A' if mode == 'N' else 'Aᵀ'}x: "
+                  f"x-gradient = the explicit {'Aᵀ' if mode == 'N' else 'A'}g bit for bit; backward "
+                  f"launches {c_bwd}", flush=True)
+            del x, y, gx, explicit
+        del op, u
+
+    # --- 12c. routed ----------------------------------------------------------------
+    free()
+    Al = lsq_matrix(SEED + 71)
+    op_l = lt.opSparse(Al, format="auto")
+    check(isinstance(op_l, lt.RoutedCSROperator) and op_l.routed_t is not None,
+          "12c: not a routed operator with a derived transpose")
+    mrow, ncol = Al.shape
+    b = dev_vec(mrow, dev, SEED + 96)
+    x = dev_vec(ncol, dev, SEED + 97).requires_grad_(True)
+    r = op_l @ x - b
+    (gx,), c_bwd = grad_launches(lambda: torch.autograd.grad(0.5 * torch.dot(r, r), x))
+    with torch.no_grad():
+        explicit = op_l.T @ (op_l @ x.detach() - b)
+    r_p = routed_matvec(op_l.routed, x, use_kernel=False) - b
+    (gx_p,) = torch.autograd.grad(0.5 * torch.dot(r_p, r_p), x)
+    e_l = rel_err(gx, gx_p)
+    check(torch.equal(gx, explicit), "12c: the routed x-gradient is not Aᵀ(Ax − b) bit for bit")
+    check(e_l <= GRAD_X_RTOL, f"12c: routed x-gradient against the plain pipeline {e_l:.2e}")
+    check(c_bwd.get("lane_gather_mul_segsum") == 1 and c_bwd.get("lane_gather", 0) > 0
+          and "lane_gather_mul_t_batched" not in c_bwd and "lane_gather_sum" not in c_bwd,
+          f"12c: backward launches {c_bwd}")
+    op_l.data.vals.requires_grad_(True)
+    try:
+        op_l @ x
+        check(False, "12c: a value gradient on the routed kernels was not refused")
+    except NotImplementedError as err:
+        refused = str(err).splitlines()[0][:90]
+    finally:
+        op_l.data.vals.requires_grad_(False)
+    print(f"[12c routed grads] {mrow} x {ncol}, {Al.nnz} nnz, derived transpose: x-gradient of "
+          f"½‖Ax − b‖² = explicit Aᵀ(Ax − b) bit for bit, against the plain pipeline's autograd "
+          f"{e_l:.2e} (limit {GRAD_X_RTOL:g}); backward launches {c_bwd}; a value gradient "
+          f"refused: NotImplementedError({refused!r}...)", flush=True)
+    del op_l, Al, b, x, r, gx, explicit, r_p, gx_p
+    free()
+    perm = np.random.default_rng(SEED + 47).permutation(1 << 20)
+    P = lt.opPermutation(perm)
+    pt = torch.from_numpy(perm).to(dev)
+    inv = torch.empty_like(pt)
+    inv[pt] = torch.arange(1 << 20, device=dev)
+    x = dev_vec(1 << 20, dev, SEED + 98).requires_grad_(True)
+    g = dev_vec(1 << 20, dev, SEED + 99)
+    y = P @ x
+    (gx,), c_perm = grad_launches(lambda: torch.autograd.grad(y, x, g))
+    check(torch.equal(gx, g[inv]) and c_perm.get("lane_gather_sum") == 1,
+          f"12c: permutation gradient equal to g[perm⁻¹] {torch.equal(gx, g[inv])}, "
+          f"launches {c_perm}")
+    print(f"[12c routed grads] opPermutation(2^20): x-gradient = g[perm⁻¹] exactly; backward "
+          f"launches {c_perm}", flush=True)
+    del P, x, g, y, gx
+
+    # --- 12d. the implicit backward of opIterativeInverse ------------------------------
+    free()
+    blocks, cols = make_bsr("8x128", f32, dev, scale=(kmax * bn) ** -0.5)
+    sigma = 2.0
+
+    def graph(d_, backend="auto"):
+        B = lt.BSROperator(lt.BSR(blocks, cols, (N, N)), backend=backend)
+        D = lt.opDiagonal(d_)
+        return D @ (B.T @ B) @ D + sigma * lt.opEye(N, dtype=f32)
+
+    d = torch.linspace(1.0, 2.0, N, device=dev).requires_grad_(True)
+    b = dev_vec(N, dev, SEED + 100).requires_grad_(True)
+    w = dev_vec(N, dev, SEED + 101)
+
+    def loss(backend="auto"):
+        inv_ = lt.opIterativeInverse(graph(d, backend), solver="cg", tol=1e-6, maxiter=500)
+        return torch.dot(w, inv_ @ b)
+
+    inv = lt.opIterativeInverse(graph(d), solver="cg", tol=1e-6, maxiter=500)
+    with torch.no_grad():
+        _, k_fwd, _ = inv.solve_info(b)
+        _, k_bwd, _ = inv.solve_info(w, "H")
+    L = loss()
+    (gd, gb), c_imp = grad_launches(lambda: torch.autograd.grad(L, (d, b)))
+    with torch.no_grad():
+        A = graph(d.detach())
+        z = lt.cg(A, w, tol=1e-6, maxiter=500)[0]
+        xs = lt.cg(A, b.detach(), tol=1e-6, maxiter=500)[0]
+        M = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
+        MtM = M.T @ M
+        dd = d.detach()
+        gd_c = -(z * (MtM @ (dd * xs)) + xs * (MtM @ (dd * z)))
+    gd_p, gb_p = torch.autograd.grad(loss("torch"), (d, b))
+    errs = {"d closed form": rel_vec(gd, gd_c), "b closed form": rel_vec(gb, z),
+            "d plain": rel_vec(gd, gd_p), "b plain": rel_vec(gb, gb_p)}
+    check(all(e <= IMPLICIT_RTOL for e in errs.values()) and c_imp.get("bsr_rmatvec", 0) > 0,
+          f"12d implicit backward: {errs}, launches {c_imp}")
+
+    def run_fwd():
+        return inv @ b
+
+    def run_both():
+        return torch.autograd.grad(torch.dot(w, inv @ b), (d, b))
+
+    reps = [(timed_solve(run_fwd)[1], timed_solve(run_both)[1]) for _ in range(REPS)]
+    t_fwd = float(np.median([a for a, _ in reps]))
+    t_bwd = float(np.median([bo - a for a, bo in reps]))
+    times["12d forward solve"], times["12d backward"] = t_fwd * 1e3, t_bwd * 1e3
+    print(f"[12d implicit backward] ⟨w, A(d)⁻¹b⟩, A(d) = D (BᵀB) D + {sigma}·I, n = {N}, "
+          f"opIterativeInverse(cg, tol 1e-6): inner iterations {k_fwd} forward, {k_bwd} in the "
+          f"backward solve; ‖Δ‖/‖g‖: " + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items())
+          + f" (limit {IMPLICIT_RTOL:g}); backward launches {c_imp}; forward solve "
+          f"{t_fwd * 1e3:.2f} ms, backward {t_bwd * 1e3:.2f} ms (host clock around synchronized "
+          f"runs, median of {REPS}; backward = forward + backward − forward); {card}", flush=True)
+    del inv, A, M, MtM, z, xs, gd, gb, gd_p, gb_p, gd_c, d, b, w, L
+
+    # --- 12e. apply_linear ---------------------------------------------------------
+    leaf = blocks.clone().requires_grad_(True)
+    op = lt.BSROperator(lt.BSR(leaf, cols, (N, N)))
+    x = dev_vec(N, dev, SEED + 102).requires_grad_(True)
+    g = dev_vec(N, dev, SEED + 103)
+    y = lt.apply_linear(op, x)
+    (gx, gB), c_al = grad_launches(lambda: torch.autograd.grad(y, (x, leaf), g,
+                                                                allow_unused=True))
+    with torch.no_grad():
+        want = op.T @ g
+    check(torch.equal(gx, want) and gB is None and c_al == {"bsr_rmatvec": 1},
+          f"12e apply_linear on BSR: equal {torch.equal(gx, want)}, blocks gradient "
+          f"{gB is not None}, launches {c_al}")
+    n_f = 4096
+    Ad = torch.randn((n_f, n_f), generator=torch.Generator(device=dev).manual_seed(SEED + 104),
+                     device=dev)
+    calls = {"t": 0}
+
+    def tprod(u_):
+        calls["t"] += 1
+        return Ad.T @ u_
+
+    F = lt.FunctionOperator(n_f, n_f, lambda v_: Ad @ v_, tprod, dtype=f32)
+    xf = dev_vec(n_f, dev, SEED + 105).requires_grad_(True)
+    gf = dev_vec(n_f, dev, SEED + 106)
+    (gxf,) = torch.autograd.grad(lt.apply_linear(F, xf), xf, gf)
+    check(calls["t"] == 1 and torch.equal(gxf, Ad.T @ gf),
+          f"12e apply_linear on a FunctionOperator: {calls['t']} tprod calls")
+    print(f"[12e apply_linear] BSR 8x128 n = {N}: backward = one K2 ({c_al}), bit for bit "
+          f"Aᵀg, no gradient into the blocks; FunctionOperator {n_f}²: backward = one call of "
+          f"its tprod, bit for bit", flush=True)
+    del leaf, op, x, g, y, gx, want, Ad, F, xf, gf, gxf, blocks, cols
+    free()
+    print(f"[12 slice-7 path] backward launches over 12a-12e "
+          f"{ {k_: v_ for k_, v_ in backward.items() if v_} }; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return backward, times
+
+
 def csr_of_bsr(blocks, cols, ncol):
     """A as a ``torch.sparse_csr_tensor`` with int32 indices, on the blocks'
     device: the blocks' values row by row (one copy), the column array made
@@ -2210,6 +2530,13 @@ def main() -> int:
     phase11(lt, K, LG, dev, card, ops, {"blocks": blocks, "cols": cols, "A": A,
                                         "A_plain": A_plain, "H": H, "b": b})
 
+    # --- 12. slice 7: gradients (after the times; it runs no profiler) ------------
+    ad_launches, _ = phase12(lt, K, LG, dev, card)
+    for name in ("bsr_matvec", "bsr_rmatvec", "bsr_matvec_windowed", "bsr_rmatvec_windowed",
+                 "bsr_matvec_multiwin", "bsr_rmatvec_multiwin", "lane_gather",
+                 "lane_gather_mul_segsum", "lane_gather_sum"):
+        check(ad_launches[name] > 0, f"{name} never ran in a backward on the slice-7 path")
+
     # --- 10. slice 4 (after the times: its profiler traces come last) ---------
     slice4_launches, _ = phase10(lt, K, LG, dev, ops, laplacian_op)
     del laplacian_op
@@ -2266,6 +2593,8 @@ def main() -> int:
         if name in LAUNCH_SOURCES:
             row["launches_from"] = LAUNCH_SOURCES[name]
         kernels.append(row)
+    for row in kernels:  # launches inside phase 12's backward passes
+        row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

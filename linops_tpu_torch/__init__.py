@@ -1,4 +1,4 @@
-"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 6.
+"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 7.
 
 Matrix-free linear operators in PyTorch: a lazy operator graph (scale, sum,
 compose, adjoint wrappers over dense, function, identity, ones, zeros,
@@ -21,10 +21,15 @@ kernels K7-K14, on CUDA tensors; CPU tensors take their plain PyTorch
 versions. Every scatter-add sums in a fixed order. Factories build on the
 CUDA device unless given ``device="cpu"``.
 
+Gradients (``core/ad.py``): ``torch.autograd`` and ``torch.func`` go through
+every apply, with respect to the inputs and the operators' tensors; a kernel
+branch's backward is the operator's adjoint apply (the transpose kernel).
+``apply_linear`` is the reference's rule: one adjoint apply, no gradient into
+the operator. ``opIterativeInverse`` differentiates its solve implicitly.
+
 Names follow ``linops_tpu`` so each module has an obvious counterpart; this
 package imports ``torch`` and numpy, never ``jax``. Of the reference's
-``__all__`` two are still missing: ``apply_cache_sizes`` (no jit cache to
-count) and ``apply_linear`` (the AD slice).
+``__all__`` one is missing: ``apply_cache_sizes`` (no jit cache to count).
 """
 
 from .core.base import LinearOperatorException, Counters, compose_modes, MODES
@@ -34,6 +39,7 @@ from .core.algebra import Scale, Sum, Compose
 from .core.adjoint import (AdjointOperator, TransposeOperator, ConjugateOperator,
                            adjoint, transpose, conj)
 from .core.apply import matvec, matmat, mul, to_dense
+from .core.ad import apply_linear
 from .core.precision import matmul_precision, f32_exact, check_f32_exact
 from .ops.eye import Eye, UniversalEye, Ones, Zeros, opEye, opOnes, opZeros
 from .ops.diagonal import DiagonalOperator, opDiagonal
@@ -99,6 +105,7 @@ __all__ = [
     "matmat",
     "mul",
     "to_dense",
+    "apply_linear",
     "matmul_precision",
     "f32_exact",
     "check_f32_exact",

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException, default_device
+from ..core.base import LinearOperator, LinearOperatorException, compose_modes, default_device
 from ..core.precision import check_f32_exact, pmatmul, pvdot
 
 __all__ = [
@@ -364,7 +364,8 @@ def opHermitian(d, A=None, *, device=None):
 
 
 def _op_tensors(x, out):
-    """Every tensor an operator graph holds (for the backward guard)."""
+    """Every tensor an operator graph holds (the implicit backward's
+    candidates for operator-data gradients)."""
     if isinstance(x, torch.Tensor):
         out.append(x)
     elif isinstance(x, LinearOperator):
@@ -376,19 +377,38 @@ def _op_tensors(x, out):
     return out
 
 
-class _NoImplicitBackward(torch.autograd.Function):
-    """Passes the inner solve's result through; a backward raises."""
+class _ImplicitSolve(torch.autograd.Function):
+    """``x = A_mode⁻¹ v`` by the inner Krylov solve, differentiated
+    implicitly (the reference's rule, ``linops_tpu/ops/linalg_ops.py:522-534``,
+    in torch's conjugate-Wirtinger convention): the v-gradient is one more
+    solve, ``w = A_{H∘mode}⁻¹ g``, and the operator tensors' gradient is the
+    pullback of one apply ``A_mode(tensors) x`` against ``−w``. The inner
+    loop itself is never differentiated."""
 
     @staticmethod
-    def forward(ctx, x, *inputs):
-        return x.clone()
+    def forward(node, v, mode, *tensors):
+        return node.solve_info(v, mode)[0]
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "IterativeInverseOperator has no backward yet: its implicit "
-            "differentiation arrives with the port's AD slice (core/ad.py); "
-            "the inner Krylov loop is not differentiated")
+    def setup_context(ctx, inputs, output):
+        node, _, mode, *tensors = inputs
+        ctx.node, ctx.mode, ctx.tensors = node, mode, tensors
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        node, mode = ctx.node, ctx.mode
+        w = node.solve_info(g, compose_modes("H", mode))[0]
+        needs = ctx.needs_input_grad[3:]
+        d_tensors = [None] * len(needs)
+        wanted = [t for t, need in zip(ctx.tensors, needs) if need]
+        if wanted:
+            with torch.enable_grad():
+                y = node._inner(mode).apply(x.detach(), "N")
+                grads = iter(torch.autograd.grad(y, wanted, -w, allow_unused=True))
+            d_tensors = [next(grads) if need else None for need in needs]
+        return (None, w if ctx.needs_input_grad[1] else None, None, *d_tensors)
 
 
 class IterativeInverseOperator(LinearOperator):
@@ -402,9 +422,10 @@ class IterativeInverseOperator(LinearOperator):
     inverse is still a preconditioner); ``solve_info`` returns the inner
     solve's iterations and residual.
 
-    Forward only for now: the reference differentiates the solve
-    implicitly; here the inner loop runs without autograd, and a backward
-    through the result raises ``NotImplementedError`` until the AD slice.
+    Gradients, as in the reference, come from implicit differentiation
+    (``_ImplicitSolve``): with respect to v one more inner solve, with
+    respect to the wrapped operator's tensors the pullback of one apply. The
+    inner loop runs without autograd.
     """
 
     _fields_tensors = ("op",)
@@ -470,12 +491,12 @@ class IterativeInverseOperator(LinearOperator):
             return getattr(krylov, name)(inner, v, tol=self._tol, maxiter=self._maxiter)
 
     def apply(self, v, mode: str = "N"):
-        x = self.solve_info(v, mode)[0]
         if torch.is_grad_enabled():
-            needs = [t for t in _op_tensors(self.op, [v]) if t.requires_grad]
-            if needs:
-                x = _NoImplicitBackward.apply(x, *needs)
-        return x
+            # each tensor once, however often the graph holds it
+            needs = list({id(t): t for t in _op_tensors(self.op, []) if t.requires_grad}.values())
+            if needs or v.requires_grad:
+                return _ImplicitSolve.apply(self, v, mode, *needs)
+        return self.solve_info(v, mode)[0]
 
     def _has_tprod(self):
         return True

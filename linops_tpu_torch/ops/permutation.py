@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException, default_device
+from ..core.ad import KernelApply, kernel_graph_wanted
+from ..core.base import LinearOperator, LinearOperatorException, default_device, mode_transposed
 from ..sparse.routed import _clos_size, _route_and_sum, _route_int8
 from ..sparse.routing import RADIX
 
@@ -81,11 +82,28 @@ class PermutationOperator(LinearOperator):
     def dtype(self):
         return torch.float32  # placeholder: see the dtype contract above
 
-    def _route(self, x, stages):
-        use_kernel = (self._npad >= _TINY and x.is_cuda
-                      and x.dtype in (torch.float32, torch.bfloat16))
+    def _use_kernel(self, x) -> bool:
+        return self._npad >= _TINY and x.is_cuda and x.dtype in (torch.float32, torch.bfloat16)
+
+    def _route(self, x, mode: str):
+        """x through the forward (mode N) or the inverse (mode T) stages; on
+        the kernels through ``KernelApply`` when gradients or a ``torch.func``
+        transform need the graph (its backward routes through the other
+        stages)."""
+        if self._use_kernel(x) and kernel_graph_wanted(x):
+            return KernelApply.apply(self, (mode, "vec"), x)
+        return self._kernel_apply(x, (mode, "vec"), ())
+
+    def _kernel_apply(self, x, how, tensors=()):
+        # a real permutation: C acts like N, H like T
+        if mode_transposed(how[0]):
+            self._ensure_inverse()
+            stages = self.stages_inv
+        else:
+            stages = self.stages
         xp = torch.nn.functional.pad(x, (0, self._npad - self._n)) if self._n < self._npad else x
-        a = _route_and_sum(xp.reshape(-1, RADIX), stages, use_kernel, g1_folded=False, w=1)
+        a = _route_and_sum(xp.reshape(-1, RADIX), stages, self._use_kernel(x), g1_folded=False,
+                           w=1)
         return a.reshape(-1)[: self._n]
 
     def _ensure_inverse(self):
@@ -101,11 +119,10 @@ class PermutationOperator(LinearOperator):
         super().bump(mode, n)
 
     def _prod(self, v):
-        return self._route(v, self.stages)
+        return self._route(v, "N")
 
     def _tprod(self, u):
-        self._ensure_inverse()  # an apply that skipped bump
-        return self._route(u, self.stages_inv)
+        return self._route(u, "T")  # packs the inverse when an apply skipped bump
 
     def _ctprod(self, w):
         return self._tprod(w)

@@ -25,7 +25,9 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from ..core.base import LinearOperator, LinearOperatorException, _conj, _move, default_device
+from ..core.ad import KernelApply, kernel_graph_wanted
+from ..core.base import (LinearOperator, LinearOperatorException, _conj, _move, compose_modes,
+                         default_device, mode_conjugated, mode_transposed)
 from ..core.segsum import SegmentPlan, segment_plan, segment_sum
 from ..kernels import bsr_spmv as K
 from ..kernels.bsr_spmv import (
@@ -334,18 +336,70 @@ class RoutedCSROperator(CSROperator):
             self._ensure_transpose()
         super().bump(mode, n)
 
-    def _prod(self, v):
-        if not self._use_routed() or self.routed is None:
-            return super()._prod(v)
+    def _routed_ready(self) -> bool:
+        return self._use_routed() and self.routed is not None
+
+    def _value_tensors(self):
+        """The value tensors a routed apply reads: the CSR's and the programs'."""
+        from .routed import RoutedTranspose
+
+        out = [self.data.vals]
+        for prog in (self.routed, self.routed_t):
+            if prog is not None:
+                out.append(prog.vals_pre if isinstance(prog, RoutedTranspose) else prog.vals)
+        return out
+
+    def _routed_graph(self, x, how):
+        """The routed apply ``how`` = (mode, kind) of x. Where it runs the
+        kernels and gradients (or a ``torch.func`` transform) need the graph,
+        it goes through ``KernelApply``, whose backward is the apply in the
+        adjoint mode; the kernels give no value gradient, so one that is asked
+        for raises. Otherwise the apply runs as it is."""
+        from .routed import _use_kernel
+
+        if _use_kernel(None, self.routed.vals, x) and kernel_graph_wanted(
+                x, *(vals := self._value_tensors())):
+            if torch.is_grad_enabled() and any(t.requires_grad for t in vals):
+                raise NotImplementedError(
+                    "RoutedCSROperator: gradients with respect to the values are not computed "
+                    "on the routed kernel path (the lane-gather kernels give x-gradients only; "
+                    "ROADMAP.md §3). Build the operator on the CPU, or with backend='xla', to "
+                    "differentiate the values")
+            return KernelApply.apply(self, how, x)
+        return self._kernel_apply(x, how, ())
+
+    def _kernel_apply(self, x, how, tensors=()):
+        """The routed apply of x in ``how`` = (mode, kind), kind ``"vec"``,
+        ``"mat"`` (a matrix of columns) or ``"panel"`` (rows). A symmetric
+        (hermitian) operator serves T and H (H and T) with the forward
+        program, as ``apply`` does; a vector apply packs a transpose program
+        not yet packed, as ``bump`` packs it."""
+        mode, kind = how
+        if mode_transposed(mode) and self._symmetric:
+            mode = compose_modes("T", mode)
+        elif mode_transposed(mode) and self._hermitian:
+            mode = compose_modes("H", mode)
+        if kind != "vec":
+            panel = kind == "panel"
+            Y = self._routed_apply_matrix(x, mode, panel)
+            if Y is not None:
+                return Y
+            return super().apply_matrix(x.t(), mode).t() if panel else super().apply_matrix(x, mode)
         from .routed import routed_matvec
 
-        return routed_matvec(self.routed, v)
+        if mode == "N":
+            return routed_matvec(self.routed, x)
+        if mode == "C":
+            return _conj(routed_matvec(self.routed, _conj(x)))
+        return self._tprod_routed(x, conj_vals=mode == "H")
+
+    def _prod(self, v):
+        if not self._routed_ready():
+            return super()._prod(v)
+        return self._routed_graph(v, ("N", "vec"))
 
     def _tprod_routed(self, u, conj_vals: bool):
-        if self._use_routed() and not (self._symmetric or self._hermitian):
-            self._ensure_transpose()  # an apply that skipped bump
-        if not self._use_routed() or self.routed_t is None:
-            return super()._ctprod(u) if conj_vals else super()._tprod(u)
+        self._ensure_transpose()  # an apply that skipped bump
         from .routed import RoutedTranspose, routed_matvec, routed_rmatvec
 
         rt = self.routed_t
@@ -358,10 +412,14 @@ class RoutedCSROperator(CSROperator):
         return routed_matvec(rt, u)
 
     def _tprod(self, u):
-        return self._tprod_routed(u, conj_vals=False)
+        if not self._routed_ready():
+            return super()._tprod(u)
+        return self._routed_graph(u, ("T", "vec"))
 
     def _ctprod(self, w):
-        return self._tprod_routed(w, conj_vals=True)
+        if not self._routed_ready():
+            return super()._ctprod(w)
+        return self._routed_graph(w, ("H", "vec"))
 
     def _matrix_prog(self, mode: str):
         """(prog, conj_vals, conj_io) for a matrix apply in ``mode``;
@@ -406,16 +464,18 @@ class RoutedCSROperator(CSROperator):
 
     def apply_matrix(self, M, mode: str = "N"):
         self._check_mat(M, mode)
-        Y = self._routed_apply_matrix(M, mode, panel=False)
-        return Y if Y is not None else super().apply_matrix(M, mode)
+        if not self._routed_ready():
+            return super().apply_matrix(M, mode)
+        return self._routed_graph(M, (mode, "mat"))
 
     def apply_matrix_t(self, Mt, mode: str = "N"):
         """Row-panel apply, (k, n) in, (k, m) out: the routed pipeline's own
         layout on both ends."""
         if Mt.ndim != 2 or Mt.shape[1] != self.in_dim(mode):
             raise LinearOperatorException("shape mismatch")
-        Y = self._routed_apply_matrix(Mt, mode, panel=True)
-        return Y if Y is not None else super().apply_matrix(Mt.t(), mode).t()
+        if not self._routed_ready():
+            return super().apply_matrix(Mt.t(), mode).t()
+        return self._routed_graph(Mt, (mode, "panel"))
 
     def _name(self):
         return "Routed CSR sparse operator"
@@ -634,26 +694,32 @@ class BSROperator(_SparseBase):
         return v
 
     def _prod(self, v):
+        blocks = self.data.blocks
+        if self._use_kernel(v) and kernel_graph_wanted(v, blocks):
+            return KernelApply.apply(self, ("N", "vec"), v, blocks)
+        return self._prod_impl(blocks, v)
+
+    def _prod_impl(self, blocks, v):
         d = self.data
         bm, bn = d.block_shape
-        nbrow, nbcol = d.blocks.shape[0], self._nbcol
+        nbrow, nbcol = blocks.shape[0], self._nbcol
         xb = self._pad_to(v, nbcol * bn).reshape(nbcol, bn)
         kern = self._use_kernel(v)
         if self._windowed(transpose=False):
             plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks)
             if self.cols_local is not None:
                 f = K.bsr_matvec_windowed_kernel if kern else K.bsr_matvec_windowed_plain
-                y = f(d.blocks, self.cols_local, self.win_q, xb, **plan)
+                y = f(blocks, self.cols_local, self.win_q, xb, **plan)
             else:
                 if kern:
-                    y = K.bsr_matvec_multiwin_kernel(d.blocks, d.block_cols, self.win_q, xb,
+                    y = K.bsr_matvec_multiwin_kernel(blocks, d.block_cols, self.win_q, xb,
                                                      index=self.lane_rows, **plan)
                 else:
-                    y = K.bsr_matvec_multiwin_plain(d.blocks, d.block_cols, self.win_q, xb, **plan)
+                    y = K.bsr_matvec_multiwin_plain(blocks, d.block_cols, self.win_q, xb, **plan)
         elif kern:
-            y = bsr_matvec_kernel(d.blocks, d.block_cols, xb)
+            y = bsr_matvec_kernel(blocks, d.block_cols, xb)
         else:
-            y = bsr_matvec(d.blocks, d.block_cols, xb)
+            y = bsr_matvec(blocks, d.block_cols, xb)
         return y.reshape(nbrow * bm)[: d.shape[0]]
 
     def _tprod_impl(self, blocks, u):
@@ -703,12 +769,72 @@ class BSROperator(_SparseBase):
         return self._plain_t_plan
 
     def _tprod(self, u):
-        return self._tprod_impl(self.data.blocks, u)
+        blocks = self.data.blocks
+        if not blocks.is_complex() and self._use_kernel(u) and kernel_graph_wanted(u, blocks):
+            return KernelApply.apply(self, ("T", "vec"), u, blocks)
+        return self._tprod_impl(blocks, u)
 
     def _ctprod(self, w):
         if not self.data.blocks.is_complex():
             return self._tprod(w)
         return self._tprod_impl(self.data.blocks.conj(), w)
+
+    def _kernel_apply(self, x, how, tensors):
+        """The apply of x in ``how`` = (mode, "vec") with ``tensors`` =
+        (blocks,): K1/K3/K5 for N, K2/K4/K6 for T on the card (their plain
+        versions on the CPU); ``KernelApply`` runs it."""
+        mode = how[0]
+        (blocks,) = tensors
+        if mode == "N":
+            return self._prod_impl(blocks, x)
+        if mode == "T":
+            return self._tprod_impl(blocks, x)
+        if mode == "H":
+            return self._tprod_impl(_conj(blocks), x)
+        return _conj(self._prod_impl(blocks, _conj(x)))
+
+    def _slot_columns(self, transpose: bool):
+        """Per block slot, what the apply in this direction reads or writes:
+        (block column (nbrow, kmax), weight (nbrow, kmax) or None for 1, the
+        block rows of the padded x or output). The windowed kernels address
+        columns through their plan (K3/K4: window base + local column, 0
+        outside both windows; K5/K6: the block column, once per lane window
+        that holds it)."""
+        d = self.data
+        if not self._windowed(transpose):
+            return d.block_cols.long(), None, self._nbcol
+        if self.cols_local is not None:
+            gcols, inside = K._windowed_cols(self.cols_local, self.win_q, self._wb)
+            return gcols, inside, self._x_pad_blocks
+        if transpose:
+            weight = K._lane_weights(d.block_cols, self.win_q_t, self._wb, valid=self.win_valid_t)
+            return d.block_cols.long(), weight, max(self._x_pad_blocks_t, self._nbcol)
+        return (d.block_cols.long(), K._lane_weights(d.block_cols, self.win_q, self._wb),
+                self._x_pad_blocks)
+
+    def _kernel_tensor_grads(self, x, g, how, tensors):
+        """The blocks' gradient for ``KernelApply``: ``g[r] ⊗ x[col[r,k]]`` for
+        mode N and ``x[r] ⊗ g[col[r,k]]`` for T, conjugated as torch's
+        convention asks for C and H, each slot weighted as the apply weighs
+        it, padding slots included: what autograd of the plain version
+        gives. Each slot is written once (deterministic); a gather and a
+        batched outer product in plain torch, in the blocks' dtype."""
+        mode = how[0]
+        (blocks,) = tensors
+        bm, bn = self.data.block_shape
+        nbrow = blocks.shape[0]
+        transpose = mode_transposed(mode)
+        cols, weight, xrows = self._slot_columns(transpose)
+        rows_vec, cols_vec = (x, g) if transpose else (g, x)
+        acc = torch.promote_types(torch.promote_types(blocks.dtype, g.dtype), torch.float32)
+        rv = self._pad_to(rows_vec, nbrow * bm).reshape(nbrow, bm).to(acc)
+        cv = self._pad_to(cols_vec, xrows * bn).reshape(xrows, bn)[cols].to(acc)
+        if weight is not None:
+            cv = cv * weight[..., None].to(acc)
+        grad = torch.einsum("rm,rkn->rkmn", rv, _conj(cv))
+        if transpose != mode_conjugated(mode):
+            grad = _conj(grad)
+        return (grad.to(blocks.dtype),)
 
     def apply_matrix(self, M, mode: str = "N"):
         self._check_mat(M, mode)

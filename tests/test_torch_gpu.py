@@ -26,6 +26,15 @@ restriction's transpose with repeated indices are bit-identical over five
 reruns. The slice-6 operators (stencil, DIA, L-SR1, diagonal quasi-Newton)
 on the card in f32 agree with the same operators on the CPU in f64 within
 1e-5·max|y|.
+
+Gradients (slice 7): a kernel apply's x-gradient is the explicit adjoint
+apply bit for bit (the same kernel on the same cotangent), and launches one
+transpose kernel; x-gradients against the plain backend's autograd within
+1e-5·max|g| (f32 sums in other orders), block gradients within 1e-6 (f32;
+one product per entry, the residual differs in its last bits) or 1e-2 (bf16
+blocks: one bf16 rounding); window block gradients against the CPU's f64
+autograd of the plain windowed versions within 1e-5. A routed value
+gradient and ``vmap`` over a kernel apply raise.
 """
 
 import numpy as np
@@ -750,3 +759,205 @@ def test_checkpoint_roundtrip_on_card(dev, tmp_path):
         b, _ = _walk(back, [], [])
         assert len(a) == len(b) and all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
         assert torch.equal(back @ v, op @ v)
+
+
+# ----------------------------------------------------------------------------
+# Slice 7: gradients through the kernel applies (core/ad.py)
+# ----------------------------------------------------------------------------
+
+
+def launches():
+    return {k: v for k, v in {**K.launch_counts(), **LG.launch_counts()}.items() if v}
+
+
+def reset_launches():
+    K.reset_launch_counts()
+    LG.reset_launch_counts()
+
+
+@pytest.mark.parametrize("mode", ["N", "T"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_gradients_on_card(dev, mode, dtype):
+    """½‖op(A)x − b‖²: the x-gradient is the explicit adjoint apply bit for
+    bit and launches one transpose kernel (K2 for N, K1 for T); x and block
+    gradients agree with the plain backend's autograd (x 1e-5; blocks 1e-6
+    in f32, 1e-2 for bf16 blocks, one bf16 rounding)."""
+    nbrow, kmax, bm, bn, nbcol = 40, 3, 8, 128, 7
+    blocks, cols = random_bsr(dev, nbrow, kmax, bm, bn, nbcol, dtype, seed=11)
+    leaf = blocks.clone().requires_grad_(True)
+    shape = (nbrow * bm - 5, nbcol * bn - 3)
+    op = lt.BSROperator(lt.BSR(leaf, cols, shape))
+    plain = lt.BSROperator(lt.BSR(leaf, cols, shape), backend="torch")
+    n_in = shape[1] if mode == "N" else shape[0]
+    b = torch.randn(shape[0] if mode == "N" else shape[1], device=dev)
+
+    def loss(o, x):
+        r = (o @ x if mode == "N" else o.T @ x) - b
+        return 0.5 * torch.dot(r, r)
+
+    x = torch.randn(n_in, device=dev, requires_grad=True)
+    L = loss(op, x)
+    reset_launches()
+    gx, gB = torch.autograd.grad(L, (x, leaf))
+    assert launches() == {("bsr_rmatvec" if mode == "N" else "bsr_matvec"): 1}
+    with torch.no_grad():
+        r = (op @ x if mode == "N" else op.T @ x) - b
+        assert torch.equal(gx, op.T @ r if mode == "N" else op @ r)
+    gx_p, gB_p = torch.autograd.grad(loss(plain, x), (x, leaf))
+    assert gx.dtype == torch.float32 and gB.dtype == dtype
+    assert rel_err(gx, gx_p) <= 1e-5
+    assert rel_err(gB, gB_p) <= (1e-6 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_window_gradients_on_card(dev, monkeypatch, multi):
+    """K3-K6 under autograd: x-gradients equal the explicit transpose (K4/K6)
+    or forward (K3/K5) bit for bit; block gradients agree with autograd of
+    the plain windowed versions, on the CPU in f64, within 1e-5."""
+    monkeypatch.setattr(K, "BSR_PALLAS_MAX_X_ELEMS", 1024)
+    monkeypatch.setattr(K, "_TILE_BYTES_TARGET", 65536)
+    monkeypatch.setattr(K, "BSR_PALLAS_MAX_WINDOW_BLOCKS", 32 if multi else 192)
+    blocks, cols, nbcol = window_case((256, 4, 8, 128), multi=multi)
+    shape = (256 * 8, nbcol * 128)
+    host = lt.BSROperator(lt.BSR(torch.from_numpy(blocks).double(), torch.from_numpy(cols),
+                                 shape))
+    op = host.to(dev)
+    op.data = op.data._replace(blocks=op.data.blocks.float().requires_grad_(True))
+    host.data = host.data._replace(blocks=host.data.blocks.requires_grad_(True))
+    assert op.win_q is not None and (op.cols_local is None) == multi
+    names = (("bsr_matvec_multiwin", "bsr_rmatvec_multiwin") if multi
+             else ("bsr_matvec_windowed", "bsr_rmatvec_windowed"))
+    for mode, want in (("N", names[1]), ("T", names[0])):
+        n_in = shape[1] if mode == "N" else shape[0]
+        x = torch.randn(n_in, device=dev, requires_grad=True)
+        g = torch.randn(shape[0] if mode == "N" else shape[1], device=dev)
+        y = op @ x if mode == "N" else op.T @ x
+        reset_launches()
+        gx, gB = torch.autograd.grad(y, (x, op.data.blocks), g)
+        assert launches() == {want: 1}
+        with torch.no_grad():
+            assert torch.equal(gx, op.T @ g if mode == "N" else op @ g)
+        xh = x.detach().double().cpu().requires_grad_(True)
+        yh = host @ xh if mode == "N" else host.T @ xh
+        gx_h, gB_h = torch.autograd.grad(yh, (xh, host.data.blocks), g.double().cpu())
+        assert rel_err(gx.cpu(), gx_h) <= 1e-5 and rel_err(gB.cpu(), gB_h) <= 1e-5
+
+
+def test_mixed_graph_gradient_on_card(dev):
+    """(A + opDiagonal(d)) @ x: the kernel's share of the gradient is there."""
+    blocks, cols = random_bsr(dev, 32, 3, 8, 128, 2, torch.float32, seed=12)
+    op = lt.BSROperator(lt.BSR(blocks, cols, (256, 256)))
+    d = torch.linspace(1.0, 2.0, 256, device=dev)
+    x = torch.randn(256, device=dev, requires_grad=True)
+    g = torch.randn(256, device=dev)
+    (gx,) = torch.autograd.grad((op + lt.opDiagonal(d)) @ x, x, g)
+    with torch.no_grad():
+        assert rel_err(gx, op.T @ g + d * g) <= 1e-6
+    gf = torch.func.grad(lambda v: torch.dot(g, (op + lt.opDiagonal(d)) @ v))(x.detach())
+    assert rel_err(gf, gx) <= 1e-6
+
+
+def test_routed_gradients_on_card(dev):
+    """The routed x-gradient is the explicit derived-transpose apply bit for
+    bit (K12 in the backward, no forward kernel) and agrees with the plain
+    pipeline's autograd within 1e-5; a value gradient is refused; a
+    symmetric operator's backward runs its forward program."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.sparse.routed import routed_matvec
+
+    A = sps.random(5000, 4000, density=0.005, format="csr", random_state=3, dtype=np.float32)
+    op = lt.opSparse(A, format="routed", device=dev)
+    b = torch.randn(5000, device=dev)
+    x = torch.randn(4000, device=dev, requires_grad=True)
+    r = op @ x - b
+    reset_launches()
+    (gx,) = torch.autograd.grad(0.5 * torch.dot(r, r), x)
+    c = launches()
+    assert c.get("lane_gather_mul_segsum") == 1 and "lane_gather_mul_t_batched" not in c
+    with torch.no_grad():
+        assert torch.equal(gx, op.T @ (op @ x - b))
+    r_p = routed_matvec(op.routed, x, use_kernel=False) - b
+    (gx_p,) = torch.autograd.grad(0.5 * torch.dot(r_p, r_p), x)
+    assert rel_err(gx, gx_p) <= 1e-5
+    for vals in (op.data.vals, op.routed.vals):
+        vals.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            op @ x.detach()
+        vals.requires_grad_(False)
+    S = sps.random(3000, 3000, density=0.004, format="csr", random_state=4, dtype=np.float32)
+    S = (S + S.T).tocsr()
+    op_s = lt.opSparse(S, format="routed", symmetric=True, hermitian=True, device=dev)
+    xs = torch.randn(3000, device=dev, requires_grad=True)
+    g = torch.randn(3000, device=dev)
+    (gs,) = torch.autograd.grad(op_s @ xs, xs, g)
+    assert op_s.routed_t is None
+    with torch.no_grad():
+        assert torch.equal(gs, op_s @ g)
+
+
+def test_routed_matrix_gradient_on_card(dev):
+    """A routed matrix apply's gradient is the adjoint matrix apply."""
+    import scipy.sparse as sps
+
+    A = sps.random(3000, 2500, density=0.005, format="csr", random_state=5, dtype=np.float32)
+    op = lt.opSparse(A, format="routed", device=dev)
+    X = torch.randn(2500, 4, device=dev, requires_grad=True)
+    G = torch.randn(3000, 4, device=dev)
+    (gX,) = torch.autograd.grad(lt.matmat(op, X), X, G)
+    with torch.no_grad():
+        assert torch.equal(gX, lt.matmat(op, G, mode="T"))
+
+
+def test_permutation_gradient_on_card(dev):
+    n = 70000
+    perm = np.random.default_rng(4).permutation(n)
+    P = lt.opPermutation(perm, device=dev)
+    x = torch.randn(n, device=dev, requires_grad=True)
+    g = torch.randn(n, device=dev)
+    pt = torch.from_numpy(perm).to(dev)
+    inv = torch.empty_like(pt)
+    inv[pt] = torch.arange(n, device=dev)
+    y = P @ x
+    reset_launches()
+    (gx,) = torch.autograd.grad(y, x, g)
+    assert torch.equal(gx, g[inv]) and launches().get("lane_gather_sum") == 1
+
+
+def test_vmap_over_a_kernel_apply_raises_on_card(dev):
+    blocks, cols = random_bsr(dev, 16, 2, 8, 128, 1, torch.float32, seed=13)
+    op = lt.BSROperator(lt.BSR(blocks, cols, (128, 128)))
+    with pytest.raises(NotImplementedError, match="vmap"):
+        torch.func.vmap(lambda v: op @ v)(torch.randn(3, 128, device=dev))
+
+
+def test_iterative_inverse_and_apply_linear_gradients_on_card(dev):
+    """The implicit backward through a kernel-backed graph against the
+    dense solve's gradient (1e-4: CG to 1e-6 in f32); apply_linear's
+    backward is one K2 and gives the blocks no gradient."""
+    blocks, cols = random_bsr(dev, 32, 3, 8, 128, 2, torch.float32, seed=14)
+    blocks = blocks * 0.05
+    B = lt.BSROperator(lt.BSR(blocks, cols, (256, 256)))
+    Bd = lt.to_dense(B).double()
+    d = torch.linspace(1.0, 2.0, 256, device=dev, requires_grad=True)
+    b = torch.randn(256, device=dev, requires_grad=True)
+    w = torch.randn(256, device=dev)
+    A = lt.opDiagonal(d) @ (B.T @ B) @ lt.opDiagonal(d) + 2.0 * lt.opEye(256, dtype=torch.float32)
+    inv = lt.opIterativeInverse(A, solver="cg", tol=1e-6, maxiter=500)
+    gd, gb = torch.autograd.grad(torch.dot(w, inv @ b), (d, b))
+    d64 = d.detach().double().requires_grad_(True)
+    b64 = b.detach().double().requires_grad_(True)
+    A64 = d64[:, None] * (Bd.T @ Bd) * d64[None, :] + 2.0 * torch.eye(256, device=dev,
+                                                                      dtype=torch.float64)
+    gd64, gb64 = torch.autograd.grad(torch.dot(w.double(), torch.linalg.solve(A64, b64)),
+                                     (d64, b64))
+    assert rel_err(gd, gd64) <= 1e-4 and rel_err(gb, gb64) <= 1e-4
+    leaf = blocks.clone().requires_grad_(True)
+    op = lt.BSROperator(lt.BSR(leaf, cols, (256, 256)))
+    x = torch.randn(256, device=dev, requires_grad=True)
+    y = lt.apply_linear(op, x)
+    reset_launches()
+    gx, gB = torch.autograd.grad(y, (x, leaf), w, allow_unused=True)
+    assert launches() == {"bsr_rmatvec": 1} and gB is None
+    with torch.no_grad():
+        assert torch.equal(gx, op.T @ w)

@@ -277,7 +277,8 @@ def test_import_does_not_load_jax():
             "linops_tpu_torch.sparse.stencil, linops_tpu_torch.utils.rng, "
             "linops_tpu_torch.utils.timing, linops_tpu_torch.utils.checks, "
             "linops_tpu_torch.utils.norm, linops_tpu_torch.utils.estimate, "
-            "linops_tpu_torch.utils.eig, linops_tpu_torch.utils.checkpoint; "
+            "linops_tpu_torch.utils.eig, linops_tpu_torch.utils.checkpoint, "
+            "linops_tpu_torch.core.ad; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
             "assert not any(m == 'linops_tpu' or m.startswith('linops_tpu.') "
             "for m in sys.modules)")

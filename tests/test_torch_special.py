@@ -234,7 +234,7 @@ def test_export_parity():
               "chebyshev", "power_iteration"}
     assert slice4 <= set(lt.__all__)
     missing = set(lo.__all__) - set(lt.__all__)
-    assert missing == {"apply_cache_sizes", "apply_linear"}
+    assert missing == {"apply_cache_sizes"}
     for alias, cls in (("TimedLinearOperator", "TimedOperator"),
                        ("AdjointLinearOperator", "AdjointOperator"),
                        ("TransposeLinearOperator", "TransposeOperator"),

@@ -302,23 +302,6 @@ def test_iterative_inverse_validation_and_skew(rng):
     _iter_parity(inv_t, inv_j, simple_vector(np.float64, n))
 
 
-def test_iterative_inverse_backward_waits_for_the_ad_slice(rng):
-    n = 8
-    S = rng.standard_normal((n, n))
-    S = S @ S.T + 5 * np.eye(n)
-    A = torch.tensor(S, requires_grad=True)
-    inv = lt.opIterativeInverse(lt.LinearOperator(A, symmetric=True, hermitian=True),
-                                tol=1e-12, maxiter=100)
-    v = torch.ones(n, dtype=torch.float64, requires_grad=True)
-    y = inv @ v
-    np.testing.assert_allclose(y.detach().numpy(), np.linalg.solve(S, np.ones(n)), rtol=1e-8)
-    with pytest.raises(NotImplementedError, match="AD slice"):
-        y.sum().backward()
-    # without gradients wanted, no guard is attached
-    with torch.no_grad():
-        assert (inv @ v).grad_fn is None
-
-
 def test_timing_helpers_on_the_cpu():
     from linops_tpu_torch.utils.timing import Stopwatch, marginal_chain_time, sync
 
