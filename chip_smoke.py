@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
-7, 9, 8, 5, 11, 12, 10, then one profiled slice-1 CG (the times come after
+7, 9, 8, 5, 11, 12, 13, 10, then one profiled slice-1 CG (the times come after
 every kernel has been checked; phases 12 and 10 and the profiled CG come
 after phase 5 because torch.profiler traces of whole solves, run before
-phase 5, left phase 5's own traces without device time; phase 11 runs no
-profiler):
+phase 5, left phase 5's own traces without device time; phases 11-13 run
+no profiler):
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
@@ -89,10 +89,26 @@ profiler):
    marginal CUDA events beside the device time of a profiled run; (b) K3-K6
    at n = 2^22, x-gradients bit-identical to the explicit applies; (c) the
    phase-10b routed matrix (K7, K12 in the backward) and a 2^20 permutation,
-   a value gradient refused; (d) the implicit backward of
-   ``opIterativeInverse(cg, tol 1e-6)`` on slice 1's graph against the closed
-   form and the plain backend (‖Δ‖/‖g‖ ≤ 1e-4), with its times; (e)
-   ``apply_linear``. Its backward launches must include K1-K6, K7, K10, K12.
+   and the routed values' gradients (the forward program's through N, the
+   derived transpose's through T: K7 and K8 in the backward) against the
+   plain pipeline's autograd (max|Δ|/max ≤ 1e-5); (f) ``torch.func.vmap``
+   over 8 vectors of K1 and K2 (bit for bit 8 vector applies) and of the
+   routed N apply (the matrix kind, ≤ 1e-6); (g) ``vmap(cg)`` over 4
+   systems of slice 1's size against 4 solves (iterations ±1, |Δx|/|x| ≤
+   1e-3); (d) the implicit backward of ``opIterativeInverse(cg, tol 1e-6)``
+   on slice 1's graph against the closed form and the plain backend
+   (‖Δ‖/‖g‖ ≤ 1e-4), with its times; (e) ``apply_linear``. Its backward
+   launches must include K1-K6, K7, K10, K12.
+13. main path of slice 8, the distributed layer (``linops_tpu_torch.parallel``)
+   in a world of one NCCL rank (one card: two ranks cannot share it): slice
+   1's graph and preconditioner through ``shard_operator`` (the dryrun step;
+   CG with the unsharded iterations and x bit for bit, the same K1/K2
+   launches; collectives per apply; µs per iteration against unsharded),
+   the 2^22 window operators sharded (K3-K6 bit for bit), auto_8m replicated
+   (K7-K12 bit for bit), ``banded_partition`` at n = 16384 with CG,
+   ``stencil_partition_2d`` on 2048² against the stencil operator (≤ 1e-6)
+   and Chebyshev without an all-reduce, ``scaling_report(1)`` and the card's
+   copy rate. Its launches must include K1-K6 and K7, K9-K12.
 
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
@@ -1112,17 +1128,32 @@ LANE_FUNCS = {"lane_gather": "gather_kernel", "lane_gather_mul": "gather_mul_ker
               "tiled_combine": "tiled_combine_kernel", "lane_gather_mul_t": "gather_mul_t_kernel"}
 
 
-def lane_row(name, kern, plain, library, n_bytes):
+def lane_row(name, kern, plain, library, n_bytes, library_in_graph=True):
     """A lane kernel's times: ``ms``, ``plain_ms`` and ``library_ms`` per call
     under a CUDA graph (the card's time: these kernels take 4-130 us, where
     back-to-back eager calls are timed at the wrapper's host cost), the
     kernel's marginal event time (``event_ms``) and its device duration in a
-    torch.profiler trace (``profiler_ms``)."""
-    row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain),
-           "library_ms": graph_ms(library) if library else None,
+    torch.profiler trace (``profiler_ms``). A library call that cannot be
+    captured in a graph (``torch.segment_reduce`` reads its lengths back to
+    the host) takes marginal events instead: ``library_in_graph=False``."""
+    lib_ms = None if not library else graph_ms(library) if library_in_graph else \
+        marginal_ms(library)
+    row = {"ms": graph_ms(kern), "plain_ms": graph_ms(plain), "library_ms": lib_ms,
            "event_ms": marginal_ms(kern), "profiler_ms": profiled_ms(kern, LANE_FUNCS[name])}
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes)
     return row
+
+
+def segsum_lengths(lo, hi):
+    """K11's segments as ``torch.segment_reduce`` lengths over the flat data:
+    every column run (lanes lo+1..hi of its window) one segment, the lanes
+    between runs segments of their own (their sums are not read)."""
+    lo_, hi_ = lo.long().cpu().numpy(), hi.long().cpu().numpy()
+    base = np.arange(lo_.shape[0])[:, None] * 128
+    run = hi_ >= 0
+    cuts = np.unique(np.concatenate([(base + lo_ + 1)[run], (base + hi_ + 1)[run],
+                                     base[:, 0], [lo_.size]]))
+    return torch.from_numpy(np.diff(cuts)).to(lo.device)
 
 
 def phase5_lanes(lt, LG, dev, ops, p3s, card):
@@ -1157,8 +1188,12 @@ def phase5_lanes(lt, LG, dev, ops, p3s, card):
             if name == "lane_gather":
                 idx_long = args[0].long()
                 library = lambda: torch.gather(a, 1, idx_long)  # noqa: E731
+            if name == "lane_segsum":  # the same segments as lengths, built beforehand
+                lengths = segsum_lengths(*args)
+                library = lambda: torch.segment_reduce(a.reshape(-1), "sum",  # noqa: E731
+                                                       lengths=lengths)
             row = lane_row(name, lambda: kern(a, *args), lambda: plain(a, *args), library,
-                           n_bytes)
+                           n_bytes, library_in_graph=name != "lane_segsum")
             show(name, f"{tag}'s shape ({n_rows}, 128)", row, n_bytes)
             if tag == "step 1" or name == "lane_gather_mul_segsum":
                 rows[name] = row
@@ -1934,9 +1969,10 @@ def phase12(lt, K, LG, dev, card):
     with ``torch.autograd`` as a user takes them. (a) K1/K2 under L = ½‖Ax −
     b‖² on phase 3's 8x128 operator, modes N and T, f32 and bf16 blocks, and
     a mixed graph; (b) K3-K6 at n = 2^22; (c) the routed 2^20 x 2^19 matrix
-    of phase 10b, a 2^20 permutation and a refused value gradient; (d) the
-    implicit backward of opIterativeInverse on slice 1's graph; (e)
-    apply_linear. Returns (the backward launches per kernel, the times)."""
+    of phase 10b, a 2^20 permutation and the routed values' gradients; (f)
+    vmap over K1/K2 and the routed apply; (g) vmap(cg); (d) the implicit
+    backward of opIterativeInverse on slice 1's graph; (e) apply_linear.
+    Returns (the backward launches per kernel, the times)."""
     from linops_tpu_torch.sparse.routed import routed_matvec
 
     f32 = torch.float32
@@ -2096,19 +2132,38 @@ def phase12(lt, K, LG, dev, card):
     check(c_bwd.get("lane_gather_mul_segsum") == 1 and c_bwd.get("lane_gather", 0) > 0
           and "lane_gather_mul_t_batched" not in c_bwd and "lane_gather_sum" not in c_bwd,
           f"12c: backward launches {c_bwd}")
-    op_l.data.vals.requires_grad_(True)
-    try:
-        op_l @ x
-        check(False, "12c: a value gradient on the routed kernels was not refused")
-    except NotImplementedError as err:
-        refused = str(err).splitlines()[0][:90]
-    finally:
-        op_l.data.vals.requires_grad_(False)
     print(f"[12c routed grads] {mrow} x {ncol}, {Al.nnz} nnz, derived transpose: x-gradient of "
           f"½‖Ax − b‖² = explicit Aᵀ(Ax − b) bit for bit, against the plain pipeline's autograd "
-          f"{e_l:.2e} (limit {GRAD_X_RTOL:g}); backward launches {c_bwd}; a value gradient "
-          f"refused: NotImplementedError({refused!r}...)", flush=True)
-    del op_l, Al, b, x, r, gx, explicit, r_p, gx_p
+          f"{e_l:.2e} (limit {GRAD_X_RTOL:g}); backward launches {c_bwd}", flush=True)
+    del b, x, r, gx, explicit, r_p, gx_p
+    # the values' gradients: the forward program's through N, the derived
+    # transpose's through T, routed back by K7 and gathered by K8, against
+    # autograd of the plain pipeline
+    import linops_tpu_torch.sparse.routed as TR
+
+    for mode, slot, what in (("N", 0, "forward program vals"), ("T", 1, "derived transpose vals_pre")):
+        xin = dev_vec(op_l.in_dim(mode), dev, SEED + 107)
+        gout = dev_vec(op_l.out_dim(mode), dev, SEED + 108)
+        leaf = op_l._program_values()[slot].requires_grad_(True)
+        y = op_l.apply(xin, mode)
+        (gv,), c_v = grad_launches(lambda: torch.autograd.grad(y, leaf, gout))
+        t_v = marginal_ms(lambda: torch.autograd.grad(op_l.apply(xin, mode), leaf, gout))
+        kernel_use = TR._use_kernel
+        TR._use_kernel = lambda uk, vals, x_: False if uk is None else bool(uk)
+        try:
+            (gv_p,) = torch.autograd.grad(op_l.apply(xin, mode), leaf, gout)
+        finally:
+            TR._use_kernel = kernel_use
+            leaf.requires_grad_(False)
+        e_v = rel_err(gv, gv_p)
+        check(e_v <= GRAD_X_RTOL and c_v.get("lane_gather", 0) > 0
+              and c_v.get("lane_gather_mul", 0) > 0 and torch.isfinite(gv).all(),
+              f"12c value gradient {mode}: against the plain pipeline {e_v:.2e}, launches {c_v}")
+        print(f"[12c routed grads] value gradient of ⟨g, {'A' if mode == 'N' else 'Aᵀ'}x⟩ "
+              f"({what}, {gv.numel()} slots): against the plain pipeline's autograd {e_v:.2e} "
+              f"(limit {GRAD_X_RTOL:g}, max|Δ|/max); backward launches {c_v}; forward + value "
+              f"backward {t_v * 1e3:.1f} us (marginal CUDA events); {card}", flush=True)
+        del xin, gout, y, gv, gv_p
     free()
     perm = np.random.default_rng(SEED + 47).permutation(1 << 20)
     P = lt.opPermutation(perm)
@@ -2125,6 +2180,58 @@ def phase12(lt, K, LG, dev, card):
     print(f"[12c routed grads] opPermutation(2^20): x-gradient = g[perm⁻¹] exactly; backward "
           f"launches {c_perm}", flush=True)
     del P, x, g, y, gx
+
+    # --- 12f. torch.func.vmap over kernel applies -------------------------------------
+    blocks, cols = make_bsr("8x128", f32, dev, scale=(kmax * bn) ** -0.5)
+    op = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
+    V = torch.stack([dev_vec(N, dev, SEED + 110 + i) for i in range(8)])
+    for mode, kern in (("N", "bsr_matvec"), ("T", "bsr_rmatvec")):
+        reset()
+        Y = torch.func.vmap(lambda v, m=mode: op.apply(v, m))(V)
+        torch.cuda.synchronize()
+        c_vm = {k_: v_ for k_, v_ in counts().items() if v_}
+        with torch.no_grad():
+            ref = torch.stack([op.apply(v, mode) for v in V])
+        check(torch.equal(Y, ref) and c_vm == {kern: 8},
+              f"12f vmap {mode}: bit-equal {torch.equal(Y, ref)}, launches {c_vm}")
+        print(f"[12f vmap] torch.func.vmap over 8 vectors of {'A' if mode == 'N' else 'Aᵀ'}x, "
+              f"8x128 n = {N}: bit for bit 8 vector applies; launches {c_vm}", flush=True)
+    W = torch.stack([dev_vec(ncol, dev, SEED + 120 + i) for i in range(8)])
+    reset()
+    Yr = torch.func.vmap(lambda v: op_l @ v)(W)
+    torch.cuda.synchronize()
+    c_vr = {k_: v_ for k_, v_ in counts().items() if v_}
+    with torch.no_grad():
+        ref = torch.stack([op_l @ w_ for w_ in W])
+    e_vr = rel_err(Yr, ref)
+    check(e_vr <= 1e-6 and c_vr.get("lane_gather_sum", 0) > 0,
+          f"12f vmap routed: {e_vr:.2e} from 8 vector applies, launches {c_vr}")
+    print(f"[12f vmap] torch.func.vmap over 8 vectors of the 12c routed matrix (N): the matrix "
+          f"kind on a row panel, against 8 vector applies {e_vr:.2e} (limit 1e-6); launches "
+          f"{c_vr}", flush=True)
+    del op_l, Al, W, Yr, ref, V, Y
+
+    # --- 12g. torch.func.vmap over cg ------------------------------------------------------
+    free()
+    dg = torch.linspace(1.0, 2.0, N, device=dev)
+    A1 = lt.opDiagonal(dg) @ (op.T @ op) @ lt.opDiagonal(dg) + 2.0 * lt.opEye(N, dtype=f32)
+    B4 = torch.stack([dev_vec(N, dev, SEED + 130 + i) for i in range(4)])
+    reset()
+    t0 = time.perf_counter()
+    xs, ks, _ = torch.func.vmap(lambda b_: lt.cg(A1, b_, tol=1e-5, maxiter=500))(B4)
+    torch.cuda.synchronize()
+    t_vm = time.perf_counter() - t0
+    c_cg = {k_: v_ for k_, v_ in counts().items() if v_}
+    seq = [lt.cg(A1, b_, tol=1e-5, maxiter=500) for b_ in B4]
+    ks_seq = [k_ for _, k_, _ in seq]
+    dx = max(rel_vec(xs[i], seq[i][0]) for i in range(4))
+    check(all(abs(int(ks[i]) - ks_seq[i]) <= 1 for i in range(4)) and dx <= 1e-3
+          and torch.isfinite(xs).all(),
+          f"12g vmap(cg): iterations {ks.tolist()} against {ks_seq}, |Δx|/|x| {dx:.2e}")
+    print(f"[12g vmap(cg)] 4 systems D (BᵀB) D + 2·I, n = {N}, tol 1e-5: per-member iterations "
+          f"{ks.tolist()} (one by one: {ks_seq}), max |Δx|/|x| {dx:.2e} (limit 1e-3); launches "
+          f"{c_cg}; {t_vm * 1e3:.1f} ms incl. first calls; {card}", flush=True)
+    del op, A1, B4, xs, seq, blocks, cols
 
     # --- 12d. the implicit backward of opIterativeInverse ------------------------------
     free()
@@ -2219,6 +2326,217 @@ def phase12(lt, K, LG, dev, card):
           f"{ {k_: v_ for k_, v_ in backward.items() if v_} }; {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return backward, times
+
+
+# ----------------------------------------------------------------------------
+# Slice 8: the distributed layer at world size 1
+# ----------------------------------------------------------------------------
+
+HALO_N, HALO_BAND = 16384, 3  # 13e: the banded matrix
+
+
+def phase13(lt, K, LG, dev, card, ops):
+    """Slice 8's path on one card: a world of one NCCL rank. (a) the process
+    group and its topology; (b) slice 1's graph and its inverse L-BFGS
+    preconditioner through ``shard_operator``: the port's dryrun step, CG to
+    1e-5 against the unsharded solve (iterations, x bit for bit, K1/K2 per
+    iteration), collectives per apply, µs per iteration; (c) the 2^22
+    banded and band + cluster operators sharded: K3-K6, bit for bit; (d)
+    auto_8m replicated: N and T through K7-K12, bit for bit; (e)
+    ``banded_partition`` of a band-3 matrix at n = 16384 (a 1 GiB dense
+    slab) and CG on it; (f) ``stencil_partition_2d`` of the 5-point
+    Laplacian on 2048² against the stencil operator, and Chebyshev with no
+    all-reduce; (g) ``scaling_report(1)``, the card's copy rate and the
+    projection from it. Returns the launches of (b)-(d)."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.parallel import (NamedSharding, P, banded_partition,
+                                           collective_counts, initialize_distributed,
+                                           make_mesh, make_mesh2d, row_sharding, runtime_info,
+                                           scaling_report, shard_operator, stencil_partition_2d)
+    from linops_tpu_torch.parallel.comm import gather_full
+    from linops_tpu_torch.parallel.dryrun import dryrun_multichip
+    from linops_tpu_torch.parallel.scaling_bench import ici_projection
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {k_: v_ for k_, v_ in {**K.launch_counts(), **LG.launch_counts()}.items() if v_}
+
+    def reset():
+        K.reset_launch_counts()
+        LG.reset_launch_counts()
+
+    # --- 13a. the process group ------------------------------------------------------
+    initialize_distributed()
+    info = runtime_info()
+    check(info["process_count"] == 1 and info["platform"] == "gpu", f"13a: {info}")
+    mesh = make_mesh()
+    place = row_sharding(mesh).place
+    print(f"[13a init] initialize_distributed(): NCCL, {info}; mesh {mesh}", flush=True)
+    launches = {}
+
+    # --- 13b. slice 1 sharded ---------------------------------------------------------
+    free()
+    step = dryrun_multichip(1)
+    check(np.isfinite(step["x_norm"]), f"13b dryrun: {step}")
+    print(f"[13b dryrun] dryrun_multichip(1): {step}", flush=True)
+    bm, bn, kmax = SHAPES["8x128"]
+    blocks, cols = make_bsr("8x128", f32, dev, scale=(kmax * bn) ** -0.5)
+    d = torch.linspace(1.0, 2.0, N, dtype=f32, device=dev)
+    B = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
+    A = lt.opDiagonal(d) @ (B.T @ B) @ lt.opDiagonal(d) + 2.0 * lt.opEye(N, dtype=f32)
+    b = dev_vec(N, dev, SEED + 140)
+    H = lt.InverseLBFGSOperator(f32, N, mem=8, device=dev)
+    for i in range(8):
+        s_ = dev_vec(N, dev, SEED + 141 + i)
+        H.push(s_, A @ s_)
+    A_sh, H_sh = shard_operator(A, mesh), shard_operator(H, mesh)
+    b_sh = place(b)
+    reset()
+    x_un, k_un, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
+    torch.cuda.synchronize()
+    c_un = counts()
+    reset()
+    x_sh, k_sh, _ = lt.cg(A_sh, b_sh, M=H_sh, tol=1e-5, maxiter=500)
+    torch.cuda.synchronize()
+    c_sh = counts()
+    launches["13b"] = c_sh
+    same = torch.equal(gather_full(x_sh), x_un)
+    check(k_sh == k_un and same and c_sh == c_un and c_sh.get("bsr_matvec", 0) > 0,
+          f"13b: iterations {k_sh} against {k_un}, x bit for bit {same}, launches {c_sh} "
+          f"against {c_un}")
+    coll = {"A": collective_counts(lambda: A_sh.apply(b_sh, "N")),
+            "M": collective_counts(lambda: H_sh.apply(b_sh, "N"))}
+
+    def cg_iter_us(op, rhs, M_):
+        def run(iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lt.cg(op, rhs, M=M_, tol=0.0, maxiter=iters)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e6
+        run(3)
+        return float(np.median([(run(I_LONG) - run(I_SHORT)) / (I_LONG - I_SHORT)
+                                for _ in range(REPS)]))
+
+    us_un, us_sh = cg_iter_us(A, b, H), cg_iter_us(A_sh, b_sh, H_sh)
+    print(f"[13b slice 1 sharded] cg(D (BᵀB) D + 2·I, M = inverse L-BFGS mem 8), n = {N}, "
+          f"both through shard_operator on a 1-rank mesh: {k_sh} iterations (unsharded {k_un}), "
+          f"x bit for bit; launches {c_sh} (unsharded {c_un}: "
+          f"{c_sh.get('bsr_matvec', 0) / max(k_sh + 1, 1):.2f} K1 and "
+          f"{c_sh.get('bsr_rmatvec', 0) / max(k_sh + 1, 1):.2f} K2 per iteration); collectives "
+          f"per apply {coll}; {us_sh:.1f} us per iteration sharded, {us_un:.1f} us unsharded "
+          f"(host clock, marginal {I_LONG} − {I_SHORT}, median of {REPS}); {card}", flush=True)
+    del A, A_sh, H, H_sh, B, blocks, cols, x_un, x_sh, b, b_sh
+
+    # --- 13c. the windowed operators sharded ----------------------------------------------
+    for name in WIN_KMAX:
+        free()
+        op = win_operator(lt, name, f32, dev, SEED + 10)
+        fwd_k, tr_k = win_names(op)
+        op_sh = shard_operator(op, mesh)
+        x = dev_vec(WIN_N, dev, SEED + 150)
+        reset()
+        y, yt = op_sh @ place(x), op_sh.T @ place(x)
+        torch.cuda.synchronize()
+        c_w = counts()
+        launches[f"13c {name}"] = c_w
+        same = torch.equal(gather_full(y), op @ x) and torch.equal(gather_full(yt), op.T @ x)
+        check(same and c_w == {fwd_k: 1, tr_k: 1},
+              f"13c {name}: bit for bit {same}, launches {c_w}")
+        print(f"[13c windows sharded] {name} n = 2^22 through shard_operator: N and T bit for "
+              f"bit the unsharded applies; launches {c_w}; collectives N "
+              f"{collective_counts(lambda: op_sh @ place(x))}", flush=True)
+        del op, op_sh, x, y, yt
+
+    # --- 13d. auto_8m replicated ----------------------------------------------------------
+    free()
+    op2 = ops["op2"]
+    op2_sh = shard_operator(op2, mesh)
+    v = dev_vec(op2.shape[1], dev, SEED + 151)
+    reset()
+    y, yt = op2_sh @ place(v), op2_sh.T @ place(v)
+    torch.cuda.synchronize()
+    c_r = counts()
+    launches["13d"] = c_r
+    same = torch.equal(gather_full(y), op2 @ v) and torch.equal(gather_full(yt), op2.T @ v)
+    check(same and all(c_r.get(k_, 0) > 0 for k_ in (
+        "lane_gather", "lane_gather_sum", "lane_segsum", "lane_gather_mul_segsum"))
+          and c_r.get("lane_gather_mul_t_batched", 0) + c_r.get("lane_gather_mul", 0) > 0,
+          f"13d: bit for bit {same}, launches {c_r}")
+    print(f"[13d routed replicated] auto_8m (n = 2^19, {ops['nnz2']} nnz) through shard_operator "
+          f"(routing programs replicated): N and T bit for bit the unsharded applies; launches "
+          f"{c_r}", flush=True)
+    del op2_sh, v, y, yt
+
+    # --- 13e. banded_partition ---------------------------------------------------------------
+    free()
+    rng = np.random.default_rng(SEED + 152)
+    n = HALO_N
+    offs = [rng.uniform(-1.0, 1.0, n - k).astype(np.float32) for k in range(1, HALO_BAND + 1)]
+    diag = np.ones(n, np.float32)
+    for k, o in enumerate(offs, 1):
+        diag[:-k] += np.abs(o)
+        diag[k:] += np.abs(o)
+    S = sps.diags([diag] + offs + offs, [0] + list(range(1, HALO_BAND + 1))
+                  + [-k for k in range(1, HALO_BAND + 1)], format="csr", dtype=np.float32)
+    t0 = time.perf_counter()
+    hop = banded_partition(S.toarray(), mesh, symmetric=True, hermitian=True)
+    t_part = time.perf_counter() - t0
+    bh = dev_vec(n, dev, SEED + 153)
+    xh, kh, _ = lt.cg(hop, place(bh), tol=1e-5, maxiter=500)
+    xh = gather_full(xh).double().cpu().numpy()
+    bh64 = bh.double().cpu().numpy()
+    res_h = float(np.linalg.norm(S.astype(np.float64) @ xh - bh64) / np.linalg.norm(bh64))
+    check(res_h <= 1e-4 and np.isfinite(xh).all(), f"13e: f64 residual {res_h:.3e}")
+    us_h = cg_iter_us(hop, place(bh), None)
+    c_h = collective_counts(lambda: hop @ place(bh))
+    print(f"[13e banded_partition] band-{HALO_BAND} SPD, n = {n}, halo {hop.halo}: a "
+          f"{n}x{n} f32 interior slab ({n * n * 4 / 2**30:.2f} GiB, built in {t_part:.2f} s); "
+          f"cg to 1e-5: {kh} iterations, f64 residual {res_h:.2e} (limit 1e-4), {us_h:.1f} us per "
+          f"iteration; collectives per apply {c_h}; {card}", flush=True)
+    del hop, S, xh
+
+    # --- 13f. stencil_partition_2d --------------------------------------------------------
+    free()
+    g2 = 2048
+    mesh2 = make_mesh2d(1, 1)
+    L2 = stencil_partition_2d(torch.tensor([4.0, -1.0, -1.0, -1.0, -1.0], device=dev), g2, g2,
+                              mesh2)
+    L1 = lt.laplacian_2d(g2, g2, dtype=f32)
+    U = dev_vec(g2 * g2, dev, SEED + 154)
+    v2 = NamedSharding(mesh2, P(("gy", "gx"))).place(L2.grid_to_vec(U.reshape(g2, g2)))
+    y2 = L2.vec_to_grid(L2 @ v2).reshape(-1)
+    e2 = rel_err(y2, L1 @ U)
+    cheb = collective_counts(lambda: lt.chebyshev(L2, v2, 0.05, 8.0, iters=30)[0])
+    c2 = collective_counts(lambda: L2 @ v2)
+    t2 = marginal_ms(lambda: L2 @ v2)
+    check(e2 <= 1e-6 and cheb["all-reduce"] == 0 and cheb["all-gather"] == 0,
+          f"13f: against the stencil {e2:.2e}, chebyshev collectives {cheb}")
+    print(f"[13f stencil_partition_2d] 5-point Laplacian on {g2}², a 1x1 mesh: against "
+          f"laplacian_2d (the stencil operator) {e2:.2e} (limit 1e-6, max|Δ|/max); "
+          f"{t2 * 1e3:.1f} us per apply (marginal CUDA events); collectives per apply {c2}; "
+          f"chebyshev (30 iterations) collectives {cheb}; {card}", flush=True)
+    del L2, L1, U, v2, y2
+
+    # --- 13g. scaling report, the card's copy rate, the projection ----------------------------
+    free()
+    report = scaling_report(1)
+    a = torch.empty(1 << 28, device=dev)
+    c = torch.empty_like(a)
+    copy_ms = marginal_ms(lambda: c.copy_(a))
+    hbm = 2 * a.numel() * 4 / (copy_ms / 1e3)
+    proj = ici_projection(n_devices=8, hbm_bps=hbm)
+    del a, c
+    print(f"[13g scaling] scaling_report(1): {json.dumps(report)}", flush=True)
+    print(f"[13g scaling] device-to-device copy of 1 GiB: {copy_ms * 1e3:.1f} us = "
+          f"{hbm / 1e9:.1f} GB/s moved (read + write; marginal CUDA events); projection at 8 "
+          f"devices from it: {json.dumps(proj)}; {card}", flush=True)
+    print(f"[13 slice-8 path] launches {launches}; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 
 def csr_of_bsr(blocks, cols, ncol):
@@ -2537,6 +2855,14 @@ def main() -> int:
                  "lane_gather_mul_segsum", "lane_gather_sum"):
         check(ad_launches[name] > 0, f"{name} never ran in a backward on the slice-7 path")
 
+    # --- 13. slice 8: the distributed layer, world size 1 (no profiler) -----------------
+    dist_launches = phase13(lt, K, LG, dev, card, ops)
+    for name in ("bsr_matvec", "bsr_rmatvec", "bsr_matvec_windowed", "bsr_rmatvec_windowed",
+                 "bsr_matvec_multiwin", "bsr_rmatvec_multiwin", "lane_gather",
+                 "lane_gather_sum", "lane_segsum", "lane_gather_mul_segsum"):
+        check(any(c_.get(name, 0) > 0 for c_ in dist_launches.values()),
+              f"{name} never ran under shard_operator on the slice-8 path")
+
     # --- 10. slice 4 (after the times: its profiler traces come last) ---------
     slice4_launches, _ = phase10(lt, K, LG, dev, ops, laplacian_op)
     del laplacian_op
@@ -2592,10 +2918,16 @@ def main() -> int:
                "timing": "cuda_graph", "event_ms": t["event_ms"], "profiler_ms": t["profiler_ms"]}
         if name in LAUNCH_SOURCES:
             row["launches_from"] = LAUNCH_SOURCES[name]
+        if name == "lane_segsum":  # torch.segment_reduce cannot be captured in a graph
+            row["library_timing"] = "marginal CUDA events: torch.segment_reduce on the same segments"
         kernels.append(row)
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 7.
+"""linops_tpu_torch: the PyTorch/CUDA port of linops_tpu, slices 1 to 8.
 
 Matrix-free linear operators in PyTorch: a lazy operator graph (scale, sum,
 compose, adjoint wrappers over dense, function, identity, ones, zeros,
@@ -26,6 +26,12 @@ every apply, with respect to the inputs and the operators' tensors; a kernel
 branch's backward is the operator's adjoint apply (the transpose kernel).
 ``apply_linear`` is the reference's rule: one adjoint apply, no gradient into
 the operator. ``opIterativeInverse`` differentiates its solve implicitly.
+``torch.func.vmap`` runs over the applies, kernel branches included, and over
+the solvers.
+
+The distributed layer is ``linops_tpu_torch.parallel`` (the reference's
+``linops_tpu.parallel``): process groups, device meshes, sharded operators
+with the kernels on every shard, halo exchanges, collective counts.
 
 Names follow ``linops_tpu`` so each module has an obvious counterpart; this
 package imports ``torch`` and numpy, never ``jax``. Of the reference's

@@ -7,7 +7,8 @@ is named ``bfloat16`` (ml_dtypes, as ``np.asarray`` of a JAX bf16 array
 gives) and it is converted through f32 on the way.
 
 Every function builds on ``device``: the CUDA device by default,
-``device="cpu"`` for the CPU (see ``core.base.default_device``).
+``device="cpu"`` for the CPU (see ``core.base.default_device``); the
+distributed operators land on their mesh's devices.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from .sparse.stencil import StencilOperator
 __all__ = ["from_numpy", "to_numpy", "bsr_from_reference", "bsr_operator_from_reference",
            "lbfgs_state_from_reference", "lsr1_state_from_reference", "diagonal_from_reference",
            "diagonal_qn_from_reference", "dia_from_reference", "stencil_from_reference",
-           "routed_from_reference"]
+           "routed_from_reference", "halo_from_reference", "halo2d_from_reference"]
 
 
 def from_numpy(a, *, dtype=None, device=None) -> torch.Tensor:
@@ -159,3 +160,21 @@ def routed_from_reference(fwd_np, der_np=None, *, device=None):
     ``(fwd, der)``; ``der`` is None when ``der_np`` is."""
     device = default_device(device, "routed_from_reference")
     return _program_leaf(fwd_np, device), _program_leaf(der_np, device)
+
+
+def halo_from_reference(A_int, A_left, A_right, mesh, *, symmetric=False, hermitian=False):
+    """A reference ``HaloPartitionedOperator``'s slabs (``A_int`` (n, n/P),
+    ``A_left``/``A_right`` (n, h), as numpy, from a mesh of P devices) as
+    this package's on ``mesh`` (P ranks): each rank keeps its rows."""
+    from .parallel.halo import HaloPartitionedOperator
+
+    slabs = [from_numpy(a, device="cpu") for a in (A_int, A_left, A_right)]
+    return HaloPartitionedOperator(*slabs, mesh, symmetric=symmetric, hermitian=hermitian)
+
+
+def halo2d_from_reference(coeffs, ny: int, nx: int, mesh):
+    """A reference ``HaloStencil2DOperator``'s coefficients ``[c, n, s, w, e]``
+    (numpy) as this package's over the 2-D ``mesh``."""
+    from .parallel.halo2d import HaloStencil2DOperator
+
+    return HaloStencil2DOperator(from_numpy(coeffs, device="cpu"), ny, nx, mesh)

@@ -82,7 +82,7 @@ class KernelApply(torch.autograd.Function):
     wanted, so a second derivative works; the tensors' gradients come from
     ``op._kernel_tensor_grads``. Neither falls back to a plain version: a
     kernel that fails raises, forward and backward alike. ``torch.func.vmap``
-    over it raises (the kernels take one vector)."""
+    over it runs the kernels (``vmap`` below)."""
 
     @staticmethod
     def forward(op, how, x, *tensors):
@@ -101,17 +101,35 @@ class KernelApply(torch.autograd.Function):
         need_x, need_t = ctx.needs_input_grad[2], ctx.needs_input_grad[3:]
         dx = None
         if need_x:  # through the node again when a second derivative needs the graph
-            how = (compose_modes("H", mode), kind)
-            dx = (KernelApply.apply(ctx.op, how, g, *tensors) if kernel_graph_wanted(g, *tensors)
-                  else ctx.op._kernel_apply(g, how, tuple(tensors)))
+            dx = _node(ctx.op, (compose_modes("H", mode), kind), g, tensors)
         dts = (ctx.op._kernel_tensor_grads(x, g, ctx.how, tensors) if any(need_t)
                else (None,) * len(tensors))
         return (None, None, dx, *dts)
 
     @staticmethod
     def vmap(info, in_dims, op, how, x, *tensors):
-        raise NotImplementedError(
-            f"torch.func.vmap over a kernel apply of {type(op).__name__} on the card is not "
-            "supported: the CUDA kernels take one vector. Apply the operator to the batch "
-            "as the columns of a matrix (matmat / apply_matrix), or loop over it")
+        """A batch of x over unbatched operator tensors runs the operator's
+        batched kind where it has one (``op._kernel_batch_kind``: the routed
+        operators' matrix kind, a row panel of the B vectors), else the
+        kernel once per member; batched operator tensors (a batch of
+        operators) run once per member. Every member goes through the same
+        kernels as an unbatched apply."""
+        x_dim, t_dims = in_dims[2], in_dims[3:]
+        n = info.batch_size
+        if x_dim is not None and all(d is None for d in t_dims):
+            batch_kind = getattr(op, "_kernel_batch_kind", None)
+            if how[1] == "vec" and batch_kind is not None:
+                return _node(op, (how[0], batch_kind), x.movedim(x_dim, 0), tensors), 0
+        outs = [_node(op, how, x if x_dim is None else x.select(x_dim, i),
+                      tuple(t if d is None else t.select(d, i) for t, d in zip(tensors, t_dims)))
+                for i in range(n)]
+        return torch.stack(outs), 0
+
+
+def _node(op, how, x, tensors):
+    """One kernel apply: through ``KernelApply`` when the graph is wanted
+    (gradients, or a transform still wrapping its inputs), else directly."""
+    if kernel_graph_wanted(x, *tensors):
+        return KernelApply.apply(op, how, x, *tensors)
+    return op._kernel_apply(x, how, tuple(tensors))
 

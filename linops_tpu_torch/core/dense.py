@@ -60,12 +60,14 @@ class MatrixOperator(LinearOperator):
         return pmatmul(self.A, v)
 
     def _tprod(self, u):
-        return pmatmul(u, self.A)  # u @ A == Aᵀ u without a transpose copy
+        # Aᵀ as a view: no transpose copy. Not u @ A: for a row-split DTensor A
+        # and u, DTensor gives that product a partial sum it cannot reduce.
+        return pmatmul(self.A.T, u)
 
     def _ctprod(self, w):
         if self.A.is_complex() or w.is_complex():
-            return pmatmul(w.conj(), self.A).conj()
-        return pmatmul(w, self.A)
+            return pmatmul(self.A.T, w.conj()).conj()
+        return pmatmul(self.A.T, w)
 
     def apply_matrix(self, M, mode: str = "N"):
         if mode == "N":

@@ -104,11 +104,17 @@ def _elem(x, i):
 
 
 def _set_row(X, i, value):
-    return X.index_copy(0, _idx(i), value.reshape(1, *X.shape[1:]).to(X.dtype))
+    """X with row i replaced by ``value``: a select on a one-hot row mask,
+    which DTensor shards as any elementwise op (it has no rule for an
+    indexed write)."""
+    hit = (torch.arange(X.shape[0], device=X.device) == _idx(i)).reshape(-1, *[1] * (X.ndim - 1))
+    return torch.where(hit, value.reshape(1, *X.shape[1:]).to(X.dtype), X)
 
 
 def _set_col(X, i, value):
-    return X.index_copy(1, _idx(i), value.reshape(X.shape[0], 1).to(X.dtype))
+    """X with column i replaced by ``value`` (as ``_set_row``)."""
+    hit = torch.arange(X.shape[1], device=X.device) == _idx(i)
+    return torch.where(hit[None, :], value.reshape(X.shape[0], 1).to(X.dtype), X)
 
 
 def _oldest_first(state: LBFGSState):
@@ -233,12 +239,13 @@ def _compact_apply(state: LBFGSState, x, inverse: bool):
     inverse  H v = γv + Wᵀ G (W v),  W = [S; γY]  (rows oldest → newest).
     ``x`` may be a vector (n,) or a column block (n, k)."""
     order = _oldest_first(state)
+    S, Y = state.S.index_select(0, order), state.Y.index_select(0, order)
     if inverse:
         scale = state.gamma
-        W = torch.cat([state.S[order], scale * state.Y[order]], dim=0)
+        W = torch.cat([S, scale * Y], dim=0)
     else:
         scale = 1.0 / state.gamma
-        W = torch.cat([scale * state.S[order], state.Y[order]], dim=0)
+        W = torch.cat([scale * S, Y], dim=0)
     coef = pmatmul(state.G[1 if inverse else 0], pmatmul(W, x))
     return scale * x + pmatmul(W.T, coef)
 
@@ -355,8 +362,24 @@ def _push_common(state: LBFGSState, s, y, ys, *, scaling: bool, inverse: bool,
     new = LBFGSState(S=S, Y=Y, ys=ysv, A=A, B=B, norm_b2=nb2, SY=SY, YY=YY, SS=SS,
                      gamma=gamma, insert=ins_new, opnorm_ub=ub, G=state.G)
     # refresh both compact middles, so either operator form can apply the state
-    return new._replace(G=torch.stack([_compact_middle(new, False),
-                                       _compact_middle(new, True)]))
+    return new._replace(G=_compact_middles(new))
+
+
+def _compact_middles(state: LBFGSState):
+    """Both compact middles, stacked. Of a sharded state (DTensor leaves,
+    ``parallel.shard_operator``) they read only the small (mem, mem) and
+    (mem,) fields: each rank factors its own whole copy of them (the
+    factorizations have no distributed form) and the result is placed back
+    as replicated."""
+    G = state.G
+    if not hasattr(G, "to_local"):
+        return torch.stack([_compact_middle(state, False), _compact_middle(state, True)])
+    from torch.distributed.tensor import DTensor
+
+    local = state._replace(**{f: getattr(state, f).full_tensor()  # a partial sum is reduced
+                              for f in ("ys", "SY", "YY", "SS", "gamma", "insert")})
+    Gl = torch.stack([_compact_middle(local, False), _compact_middle(local, True)])
+    return DTensor.from_local(Gl, G.device_mesh, G.placements, run_check=False)
 
 
 def _push_plain(state, s, y, *, scaling, inverse, with_ab=True):

@@ -19,6 +19,7 @@ reuse the same storage; no transposed copy is made.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Tuple, Union
 
@@ -242,6 +243,7 @@ class RoutedCSROperator(CSROperator):
 
     _fields_tensors = ("data", "routed", "routed_t")
     _fields_static = ("_symmetric", "_hermitian", "_backend", "_w", "_defer_t")
+    _fields_derived = ("sum_n", "sum_t", "_grad_plans")
 
     def __init__(self, data, symmetric=False, hermitian=False, routed=None, routed_t=None,
                  w="auto", backend="auto", defer_transpose=False, host_parts=None):
@@ -254,6 +256,7 @@ class RoutedCSROperator(CSROperator):
         self._defer_t = bool(defer_transpose)
         self.routed = routed
         self.routed_t = routed_t
+        self._grad_plans = None
         self.pack_seconds = {"host": 0.0, "upload": 0.0}
         self._host_parts = host_parts
         try:
@@ -339,46 +342,66 @@ class RoutedCSROperator(CSROperator):
     def _routed_ready(self) -> bool:
         return self._use_routed() and self.routed is not None
 
-    def _value_tensors(self):
-        """The value tensors a routed apply reads: the CSR's and the programs'."""
+    def _program_values(self):
+        """The value tensors the routed applies read: the forward program's,
+        then the transpose program's where one is packed."""
         from .routed import RoutedTranspose
 
-        out = [self.data.vals]
-        for prog in (self.routed, self.routed_t):
-            if prog is not None:
-                out.append(prog.vals_pre if isinstance(prog, RoutedTranspose) else prog.vals)
+        out = [self.routed.vals]
+        rt = self.routed_t
+        if rt is not None:
+            out.append(rt.vals_pre if isinstance(rt, RoutedTranspose) else rt.vals)
         return out
+
+    def _programs_with(self, tensors):
+        """(routed, routed_t) reading their values from ``tensors`` (as
+        ``_program_values`` orders them), or as they are for ()."""
+        from .routed import RoutedTranspose
+
+        routed, rt = self.routed, self.routed_t
+        if tensors:
+            routed = routed._replace(vals=tensors[0])
+            if rt is not None:
+                rt = (rt._replace(vals_pre=tensors[1]) if isinstance(rt, RoutedTranspose)
+                      else rt._replace(vals=tensors[1]))
+        return routed, rt
 
     def _routed_graph(self, x, how):
         """The routed apply ``how`` = (mode, kind) of x. Where it runs the
         kernels and gradients (or a ``torch.func`` transform) need the graph,
-        it goes through ``KernelApply``, whose backward is the apply in the
-        adjoint mode; the kernels give no value gradient, so one that is asked
-        for raises. Otherwise the apply runs as it is."""
+        it goes through ``KernelApply``, with the programs' values as its
+        tensors: its backward is the apply in the adjoint mode and, for the
+        values, ``_kernel_tensor_grads``. Otherwise the apply runs as it is."""
         from .routed import _use_kernel
 
-        if _use_kernel(None, self.routed.vals, x) and kernel_graph_wanted(
-                x, *(vals := self._value_tensors())):
-            if torch.is_grad_enabled() and any(t.requires_grad for t in vals):
-                raise NotImplementedError(
-                    "RoutedCSROperator: gradients with respect to the values are not computed "
-                    "on the routed kernel path (the lane-gather kernels give x-gradients only; "
-                    "ROADMAP.md §3). Build the operator on the CPU, or with backend='xla', to "
-                    "differentiate the values")
-            return KernelApply.apply(self, how, x)
+        vals = self._program_values()
+        if _use_kernel(None, self.routed.vals, x) and kernel_graph_wanted(x, *vals):
+            return KernelApply.apply(self, how, x, *vals)
         return self._kernel_apply(x, how, ())
+
+    # torch.func.vmap over a vector apply runs the matrix kind on the B
+    # vectors as a row panel (``KernelApply.vmap``)
+    _kernel_batch_kind = "panel"
+
+    def _program_mode(self, mode: str) -> str:
+        """The mode a program serves: a symmetric (hermitian) operator serves
+        T and H (H and T) with the forward program, as ``apply`` does."""
+        if mode_transposed(mode) and self._symmetric:
+            return compose_modes("T", mode)
+        if mode_transposed(mode) and self._hermitian:
+            return compose_modes("H", mode)
+        return mode
 
     def _kernel_apply(self, x, how, tensors=()):
         """The routed apply of x in ``how`` = (mode, kind), kind ``"vec"``,
-        ``"mat"`` (a matrix of columns) or ``"panel"`` (rows). A symmetric
-        (hermitian) operator serves T and H (H and T) with the forward
-        program, as ``apply`` does; a vector apply packs a transpose program
-        not yet packed, as ``bump`` packs it."""
-        mode, kind = how
-        if mode_transposed(mode) and self._symmetric:
-            mode = compose_modes("T", mode)
-        elif mode_transposed(mode) and self._hermitian:
-            mode = compose_modes("H", mode)
+        ``"mat"`` (a matrix of columns) or ``"panel"`` (rows), the programs
+        reading their values from ``tensors`` when given. A vector apply packs
+        a transpose program not yet packed, as ``bump`` packs it."""
+        if tensors:
+            op = copy.copy(self)
+            op.routed, op.routed_t = self._programs_with(tensors)
+            return op._kernel_apply(x, how, ())
+        mode, kind = self._program_mode(how[0]), how[1]
         if kind != "vec":
             panel = kind == "panel"
             Y = self._routed_apply_matrix(x, mode, panel)
@@ -392,6 +415,48 @@ class RoutedCSROperator(CSROperator):
         if mode == "C":
             return _conj(routed_matvec(self.routed, _conj(x)))
         return self._tprod_routed(x, conj_vals=mode == "H")
+
+    def _grad_plan(self, which: str, prog):
+        """``routed.value_grad_plan`` of a program, built at its first use and
+        kept (rebuilt when the program's index arrays change)."""
+        from .routed import RoutedTranspose, value_grad_plan
+
+        key = (prog.g1inv if isinstance(prog, RoutedTranspose) else prog.lane_idx).data_ptr()
+        plans = self._grad_plans or {}
+        if which not in plans or plans[which][0] != key:
+            plans[which] = (key, value_grad_plan(prog))
+            self._grad_plans = plans
+        return plans[which][1]
+
+    def _kernel_tensor_grads(self, x, g, how, tensors):
+        """The values' gradients for ``KernelApply``, in torch's convention:
+        per packed slot ``g[row] · conj(x[col])`` for the program the apply
+        read (the forward program for N and C; the transpose program for T
+        and H, where for the derived transpose x is indexed by row and g by
+        column), conjugated for C and H; None for a program the apply did not
+        read. The routing runs on the kernels: g back to the slots through the
+        inverse crossbars (K7), times the phase-1 gather of x (K8); see
+        ``routed.routed_value_grad`` and ``routed_t_value_grad``."""
+        from .routed import RoutedTranspose, routed_t_value_grad, routed_value_grad
+
+        mode, kind = self._program_mode(how[0]), how[1]
+        routed, rt = self._programs_with(tensors)
+
+        def rows(t):
+            return t[None] if kind == "vec" else (t.t() if kind == "mat" else t)
+
+        X, G = rows(x), rows(g)
+        if mode in ("N", "C"):
+            slot, grad = 0, routed_value_grad(routed, self._grad_plan("fwd", routed), X, G)
+        elif isinstance(rt, RoutedTranspose):
+            slot, grad = 1, routed_t_value_grad(rt, routed, self._grad_plan("t", rt), X, G)
+        else:
+            slot, grad = 1, routed_value_grad(rt, self._grad_plan("t", rt), X, G)
+        if mode_conjugated(mode):
+            grad = _conj(grad)
+        out = [None] * len(tensors)
+        out[slot] = grad.to(tensors[slot].dtype)
+        return tuple(out)
 
     def _prod(self, v):
         if not self._routed_ready():

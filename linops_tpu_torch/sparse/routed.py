@@ -43,14 +43,14 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..core.base import default_device
+from ..core.base import _conj, default_device
 from ..kernels import lane_gather as LG
 from .formats import check_int32_range
 from .routing import RADIX, clos_route
 
 __all__ = ["ReducePass", "RoutedSpMV", "RoutedTranspose", "pack_routed_csr", "upload_program",
            "routed_matvec", "routed_rmatvec", "routed_matmat", "routed_rmatmat",
-           "CLOS_MAX_SLOTS"]
+           "value_grad_plan", "routed_value_grad", "routed_t_value_grad", "CLOS_MAX_SLOTS"]
 
 CLOS_MID = RADIX * RADIX          # 16384: largest 3-stage domain
 CLOS_MAX_SLOTS = RADIX ** 3       # 2^21: largest single routing domain
@@ -831,19 +831,34 @@ def routed_matvec(p: RoutedSpMV, x, use_kernel=None):
     if x.shape[0] < nb * RADIX:
         x = torch.nn.functional.pad(x, (0, nb * RADIX - x.shape[0]))
     x2 = x.reshape(nb, RADIX)
-    C = p.vals.shape[0]
     xw = torch.index_select(x2, 0, p.win_block.reshape(-1))  # (C·m, 128) x-block fetch
-    P = _phase1(p, xw, use_kernel, rep=1)
+    return _combine(_phase1(p, xw, use_kernel, rep=1), p, use_kernel)
+
+
+def _combine(P, p: RoutedSpMV, use_kernel):
+    """Sub-row partials (C, m·128/w) -> the rows of y."""
+    n_r = p.shape[0]
     if p.passes:  # fallback routed combine (pathological tiles)
         q = P.reshape(-1)
         for rp in p.passes:
             q = _reduce_pass(q, rp, use_kernel)
         return q[:n_r]
     kept = [P[c, :k] for c, k in enumerate(p.chunk_keep)]
-    q = kept[0] if C == 1 else torch.cat(kept)
+    q = kept[0] if len(kept) == 1 else torch.cat(kept)
     if p.rowid is None:
         return q[:n_r]  # trivial: every row is exactly one sub-row
     return _tiled_combine(q[None], p, use_kernel, rep=1)[0, :n_r]
+
+
+def _rmat_route(pt: RoutedTranspose, U2, use_kernel):
+    """k stacked u's, U2 (k, n_tiles, 128), expanded to the row slots and
+    routed back through the inverse crossbars: (k·C·m, 128) in the forward
+    program's post-G1 layout, u[row] at each entry's position."""
+    k = U2.shape[0]
+    C, m = pt.vals_pre.shape[0], pt.vals_pre.shape[1]
+    uw = U2[:, pt.expand_tile.reshape(-1).long()].reshape(k * C * m, RADIX)
+    a = _take(uw, pt.expand_idx.reshape(C * m, RADIX), use_kernel, k)
+    return _crossbar_chain(a, pt.stages_t, use_kernel, C, m, k)  # inverse middle crossbars
 
 
 def _rmat(pt: RoutedTranspose, U2, use_kernel):
@@ -851,9 +866,7 @@ def _rmat(pt: RoutedTranspose, U2, use_kernel):
     n_r, n_c = pt.shape
     k = U2.shape[0]
     C, m = pt.vals_pre.shape[0], pt.vals_pre.shape[1]
-    uw = U2[:, pt.expand_tile.reshape(-1).long()].reshape(k * C * m, RADIX)
-    a = _take(uw, pt.expand_idx.reshape(C * m, RADIX), use_kernel, k)
-    a = _crossbar_chain(a, pt.stages_t, use_kernel, C, m, k)  # inverse middle crossbars
+    a = _rmat_route(pt, U2, use_kernel)
     # final: G1⁻¹ ∘ multiply(vals_pre) ∘ per-column segment sums
     args = (pt.g1inv.reshape(C * m, RADIX), pt.vals_pre.reshape(C * m, RADIX),
             pt.bnd_lo.reshape(C * m, RADIX), pt.bnd_hi.reshape(C * m, RADIX))
@@ -928,3 +941,112 @@ def routed_rmatmat(pt: RoutedTranspose, U, use_kernel=None, panel=False):
         U = torch.nn.functional.pad(U, (0, pt.n_tiles * RADIX - U.shape[1]))
     Y = _rmat(pt, U.reshape(k, pt.n_tiles, RADIX), use_kernel)
     return Y if panel else Y.t()
+
+
+# ----------------------------------------------------------------------------
+# Value gradients
+# ----------------------------------------------------------------------------
+
+
+def _invert_stage(g, lanes=None):
+    """Per-row inverse of a crossbar's (..., L) int8 lane permutations over
+    their first ``lanes`` lanes (all by default; a lane-padded middle
+    crossbar permutes its first B), padded lanes 0: ``inv[r, g[r, c]] = c``."""
+    L = g.shape[-1]
+    lanes = L if lanes is None else lanes
+    g2 = g.reshape(-1, L)[:, :lanes].long()
+    inv = torch.zeros((g2.shape[0], L), dtype=torch.long, device=g.device)
+    inv.scatter_(1, g2, torch.arange(lanes, device=g.device).expand_as(g2).contiguous())
+    return inv.to(torch.int8).reshape(g.shape)
+
+
+def value_grad_plan(p):
+    """What the value gradient of a forward program needs besides its own
+    arrays, built once per program: the row of every sub-row partial (n_r
+    for a partial no row keeps), found by pulling the row numbers back
+    through the plain combine, and the inverse crossbars (the last one, then
+    the middle ones in reverse order, as the derived transpose holds them)."""
+    if isinstance(p, RoutedTranspose):  # its real lanes: inside a column run
+        lo = p.bnd_lo.reshape(-1, RADIX).long()
+        hi = p.bnd_hi.reshape(-1, RADIX).long()
+        has = hi >= 0
+        d = torch.zeros((lo.shape[0], RADIX + 1), dtype=torch.int32, device=lo.device)
+        d.scatter_add_(1, torch.where(has, lo + 1, RADIX), has.int())
+        d.scatter_add_(1, torch.where(has, hi + 1, RADIX), -has.int())
+        return d[:, :RADIX].cumsum(dim=1) > 0
+    n_r = p.shape[0]
+    C, m = p.vals.shape[0], p.vals.shape[1]
+    dev = p.vals.device
+    P = torch.zeros((C, m * RADIX // p.w), dtype=torch.float64, device=dev, requires_grad=True)
+    with torch.enable_grad():
+        y = _combine(P, p, use_kernel=False)
+        (rows,) = torch.autograd.grad(y, P, torch.arange(1, n_r + 1, dtype=torch.float64,
+                                                          device=dev))
+    rows = rows.round().long() - 1
+    rows = torch.where(rows < 0, n_r, rows).reshape(-1)
+    if not p.stages:
+        return rows, None, ()
+    mids = list(p.stages[:-1])
+    if len(mids) == 3 and m // RADIX < RADIX:  # the lane-padded middle crossbar
+        inv_mids = [_invert_stage(mids[2]), _invert_stage(mids[1], m // RADIX),
+                    _invert_stage(mids[0])]
+    else:
+        inv_mids = [_invert_stage(g) for g in reversed(mids)]
+    return rows, _invert_stage(p.stages[-1]).reshape(C * m, RADIX), tuple(inv_mids)
+
+
+def _gathered_mul(p: RoutedSpMV, V, a, use_kernel):
+    """Σ over the k rows of V (k, n_c) of conj(V[col]) ⊙ a at each packed
+    position, a (k·C·m, 128): the phase-1 gather of each V (K8, the products'
+    factor a in place of the values), summed in row order."""
+    k, n_c = V.shape
+    C, m = p.vals.shape[0], p.vals.shape[1]
+    nb = -(-n_c // RADIX)
+    if n_c < nb * RADIX:
+        V = torch.nn.functional.pad(V, (0, nb * RADIX - n_c))
+    Vw = V.reshape(k, nb, RADIX)[:, p.win_block.reshape(-1).long()]
+    lane = p.lane_idx.reshape(C * m, RADIX)
+    mul = LG.lane_gather_mul if use_kernel else LG.lane_gather_mul_plain
+    a = a.reshape(k, C * m, RADIX)
+    out = None
+    for j in range(k):
+        z = mul(_conj(Vw[j]).contiguous(), lane, a[j].contiguous())
+        out = z if out is None else out + z
+    return out
+
+
+def routed_value_grad(p: RoutedSpMV, plan, X, G, use_kernel=None):
+    """The gradient of ⟨G, A Xᵀ⟩ (summed over the k rows of X (k, n_c) and
+    G (k, n_r)) with respect to ``p.vals``, in torch's convention: per
+    packed slot ``G[row] · conj(X[col])``, 0 where the combine drops the
+    slot. G is routed back to the slots through the inverse crossbars (K7)
+    and multiplied by the phase-1 gather of X (K8). (C, m, 128)."""
+    rows, inv_last, inv_mids = plan
+    k = X.shape[0]
+    C, m = p.vals.shape[0], p.vals.shape[1]
+    use_kernel = _use_kernel(use_kernel, p.vals, X)
+    G = torch.cat([G, torch.zeros((k, 1), dtype=G.dtype, device=G.device)], dim=1)
+    S = rows.shape[0] // C
+    a = G[:, rows].reshape(k, C * S, 1).expand(k, C * S, p.w).reshape(k * C * m, RADIX)
+    if inv_last is not None:
+        a = _take(a.contiguous(), inv_last, use_kernel, k)
+    a = _crossbar_chain(a, inv_mids, use_kernel, C, m, k)
+    return _gathered_mul(p, X, a, use_kernel).reshape(C, m, RADIX)
+
+
+def routed_t_value_grad(pt: RoutedTranspose, p: RoutedSpMV, live, U, G, use_kernel=None):
+    """The gradient of ⟨G, Aᵀ Uᵀ⟩ (U (k, n_r), G (k, n_c)) with respect to
+    ``pt.vals_pre``, in torch's convention: per entry ``G[col] ·
+    conj(U[row])``, 0 at pad lanes (``live`` is False there). U takes the
+    transpose's own route to the entries (K7), G the forward program's
+    phase-1 gather (K8), and the product moves to the pre-G1 layout through
+    G1⁻¹ (K7). (C, m, 128)."""
+    k = U.shape[0]
+    C, m = pt.vals_pre.shape[0], pt.vals_pre.shape[1]
+    use_kernel = _use_kernel(use_kernel, pt.vals_pre, U)
+    if U.shape[1] < pt.n_tiles * RADIX:
+        U = torch.nn.functional.pad(U, (0, pt.n_tiles * RADIX - U.shape[1]))
+    a = _conj(_rmat_route(pt, U.reshape(k, pt.n_tiles, RADIX), use_kernel))
+    z = _take(_gathered_mul(p, _conj(G), a, use_kernel), pt.g1inv.reshape(C * m, RADIX),
+              use_kernel)
+    return (z * live).reshape(C, m, RADIX)

@@ -9,6 +9,9 @@ per iteration (its stopping test; GMRES once per restart cycle, Chebyshev
 and power iteration never). Every solver works on the operator's device,
 in ``promote(b, op)``; a preconditioner's output is cast to that dtype. The
 reference's TPU residency hint (``chain_resident``) has no counterpart.
+Under ``torch.func.vmap`` the solvers with a stopping test (all but GMRES,
+which writes its Arnoldi basis in place) stop as ``jax.vmap`` of a while
+loop does (``_while``).
 
 GMRES keeps the reference's scheme: one Arnoldi cycle of ``restart`` steps
 with full (classical Gram-Schmidt) orthogonalization against the whole
@@ -58,6 +61,56 @@ def _nonzero(x):
     return torch.where(x == 0, torch.ones_like(x), x)
 
 
+def _batched(t) -> bool:
+    """Whether ``t`` carries a ``torch.func.vmap`` batch at some level."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(t):
+        if F.is_batchedtensor(t):
+            return True
+        t = F.get_unwrapped(t)
+    return False
+
+
+def _any_member(t) -> bool:
+    """Whether any member of a vmapped boolean is true: one host read of the
+    whole unwrapped batch."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(t):
+        t = F.get_unwrapped(t)
+    return bool(t.any())
+
+
+def _while(cond, body, state: tuple, maxiter: int):
+    """``state = body(state, j)`` while ``cond(state)`` holds, at most
+    ``maxiter`` times (j counts the iterations). Returns (state, iterations).
+
+    Outside ``torch.func.vmap`` it is a host loop reading one bool per
+    iteration, and the count is an ``int``. Under vmap it does what
+    ``jax.vmap`` of a ``lax.while_loop`` does: every member runs until all
+    have stopped, a member whose test fails keeps its state from then on
+    (``torch.where`` on a per-member mask, on the device), "any member still
+    running" is read from the unwrapped batch once per iteration, and the
+    count is a per-member tensor."""
+    go = cond(state)
+    if not _batched(go):
+        k = 0
+        while k < maxiter and bool(go):
+            state = body(state, k)
+            k += 1
+            go = cond(state)
+        return state, k
+    k = torch.zeros_like(go, dtype=torch.int64)
+    act = go & (k < maxiter)
+    j = 0
+    while _any_member(act):
+        new = body(state, j)
+        state = tuple(torch.where(act, a, b) for a, b in zip(new, state))
+        k = k + act.long()
+        act = cond(state) & (k < maxiter)
+        j += 1
+    return state, k
+
+
 def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
        M: LinearOperator = None):
     """Conjugate gradients on a symmetric positive-definite operator, with an
@@ -77,8 +130,9 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
     rz = pvdot(r, z)
     tol2 = (tol * torch.linalg.vector_norm(b)) ** 2
     rr = pvdot(r, r).real
-    k = 0
-    while k < maxiter and bool(rr > tol2):
+
+    def body(state, _):
+        x, r, p, rz, _ = state
         Ap = op.apply(p, "N")
         alpha = rz / pvdot(p, Ap)
         x = x + alpha * p
@@ -86,9 +140,9 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
         z = prec(r)
         rz_new = pvdot(r, z)
         p = z + (rz_new / rz) * p
-        rz = rz_new
-        rr = pvdot(r, r).real
-        k += 1
+        return x, r, p, rz_new, pvdot(r, r).real
+
+    (x, _, _, _, rr), k = _while(lambda s: s[4] > tol2, body, (x, r, p, rz, rr), maxiter)
     return x, k, torch.sqrt(rr)
 
 
@@ -183,10 +237,21 @@ class _MinresState:
     """The Paige–Saunders recurrence's scalars for k columns (0-dim for one):
     previous β, current β, d̄, ε, φ̄, cos, sin."""
 
+    PHIBAR = 4  # position of φ̄ in ``fields()``
+
     def __init__(self, beta1, rdt):
         zero = torch.zeros_like(beta1, dtype=rdt)
         self.oldb, self.beta, self.dbar, self.epsln = zero, beta1, zero, zero
         self.phibar, self.cs, self.sn = beta1, -torch.ones_like(zero), zero
+
+    def fields(self) -> tuple:
+        return self.oldb, self.beta, self.dbar, self.epsln, self.phibar, self.cs, self.sn
+
+    @classmethod
+    def of(cls, fields):
+        s = cls.__new__(cls)
+        s.oldb, s.beta, s.dbar, s.epsln, s.phibar, s.cs, s.sn = fields
+        return s
 
 
 def _minres_step(op, s: _MinresState, V, R1, R2, W, W2, k, dt, eps, prec, cdot, matrix,
@@ -243,16 +308,19 @@ def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 
     Y = prec(R1)
     beta1 = torch.sqrt(torch.clamp_min(pvdot(R1, Y).real, 0.0))
     tol_abs = tol * _nonzero(beta1)
-    s = _MinresState(beta1, rdt)
-    R2, W, W2 = R1, torch.zeros_like(b), torch.zeros_like(b)
-    k = 0
-    while k < maxiter and bool(s.phibar > tol_abs):
+    s0 = _MinresState(beta1, rdt)
+
+    def body(state, j):
+        x, Y, R1, R2, W, W2, *scalars = state
+        s = _MinresState.of(scalars)
         V = Y / _nonzero(s.beta).to(dt)
-        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec, pvdot,
+        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, j, dt, eps, prec, pvdot,
                                              matrix=False)
-        x = x + phi * W
-        k += 1
-    return x, k, s.phibar
+        return (x + phi * W, Y, R1, R2, W, W2, *s.fields())
+
+    init = (x, Y, R1, R1, torch.zeros_like(b), torch.zeros_like(b), *s0.fields())
+    state, k = _while(lambda st: st[6 + _MinresState.PHIBAR] > tol_abs, body, init, maxiter)
+    return state[0], k, state[6 + _MinresState.PHIBAR]
 
 
 def _minres_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int = 100,
@@ -298,11 +366,10 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
     rhat = r  # the shadow residual, fixed
     one = torch.ones((), dtype=dt, device=b.device)
     tol_abs = tol * _nonzero(torch.linalg.vector_norm(b))
-    p, v = torch.zeros_like(b), torch.zeros_like(b)
-    rho = alpha = omega = one
     brk = torch.zeros((), dtype=torch.bool, device=b.device)
-    k = 0
-    while k < maxiter and bool((torch.linalg.vector_norm(r) > tol_abs) & ~brk):
+
+    def body(state, _):
+        x, r, p, v, rho, alpha, omega, brk = state
         rho_new = pvdot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p_new = r + beta * (p - omega * v)
@@ -318,13 +385,16 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
         omega_new = pvdot(t, s) / _nonzero(tt)
         brk = brk | (omega_new.abs() <= tiny)
         # on a breakdown the iterate freezes (the loop test ends the solve)
-        x = torch.where(brk, x, x + alpha_new * phat + omega_new * shat)
-        r = torch.where(brk, r, s - omega_new * t)
-        p, v = torch.where(brk, p, p_new), torch.where(brk, v, v_new)
-        rho = torch.where(brk, rho, rho_new)
-        alpha = torch.where(brk, alpha, alpha_new)
-        omega = torch.where(brk, omega, omega_new)
-        k += 1
+        return (torch.where(brk, x, x + alpha_new * phat + omega_new * shat),
+                torch.where(brk, r, s - omega_new * t), torch.where(brk, p, p_new),
+                torch.where(brk, v, v_new), torch.where(brk, rho, rho_new),
+                torch.where(brk, alpha, alpha_new), torch.where(brk, omega, omega_new), brk)
+
+    def cond(state):
+        return (torch.linalg.vector_norm(state[1]) > tol_abs) & ~state[7]
+
+    zero = torch.zeros_like(b)
+    (x, r, *_), k = _while(cond, body, (x, r, zero, zero, one, one, one, brk), maxiter)
     return x, k, torch.linalg.vector_norm(r)
 
 
@@ -348,9 +418,9 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
     arnorm = alpha * beta  # ‖Aᴴb‖, the scale of the stopping test
     tol_abs = tol * _nonzero(arnorm)
     x = torch.zeros((n,), dtype=dt, device=b.device)
-    w, phibar, rhobar = v, beta, alpha
-    k = 0
-    while k < maxiter and bool(arnorm > tol_abs):
+
+    def body(state, _):
+        x, u, v, w, phibar, rhobar, alpha, _ = state
         # bidiagonalization step
         u = op.apply(v, "N") - alpha.to(dt) * u
         beta = nrm(u)
@@ -371,9 +441,11 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
         x = x + (phi / rho).to(dt) * w
         w = v - (theta / rho).to(dt) * w
         # (rhobar, phibar) are defined up to a joint sign flip: take |·|
-        arnorm = (phibar * alpha * c).abs()
-        k += 1
-    return x, k, arnorm
+        return x, u, v, w, phibar, rhobar, alpha, (phibar * alpha * c).abs()
+
+    state, k = _while(lambda st: st[7] > tol_abs, body, (x, u, v, v, beta, alpha, alpha, arnorm),
+                      maxiter)
+    return state[0], k, state[7]
 
 
 def power_iteration(op: LinearOperator, v0, iters: int = 50):

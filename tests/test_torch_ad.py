@@ -468,23 +468,96 @@ def test_kernel_branch_blocks_gradient_and_second_derivative(rng, kernels_on_cpu
 
 
 def test_kernel_branch_refusals_and_transforms(rng, kernels_on_cpu):
-    """On the kernel path a routed value gradient is refused and vmap over a
-    kernel apply raises; torch.func.grad goes through."""
+    """On the kernel path a routed value gradient is computed (it was refused
+    before) and equals the plain pipeline's autograd, vmap over a kernel
+    apply runs it per member (BSR) or as a row panel (routed), and
+    torch.func.grad goes through."""
     A_r = sps.random(300, 260, density=0.03, format="csr", random_state=63)
     routed = lt.opSparse(A_r, format="routed", **CPU)
-    x = t_(rng.standard_normal(260))
-    for vals in (routed.data.vals, routed.routed.vals):
-        vals.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            routed @ x
-        with torch.no_grad():
-            routed @ x  # no gradient wanted: no refusal
-        vals.requires_grad_(False)
+    x, g = t_(rng.standard_normal(260)), t_(rng.standard_normal(300))
+    vals = routed.routed.vals.requires_grad_(True)
+    assert "KernelApplyBackward" in grad_fn_names(routed @ x)
+    (gv,) = torch.autograd.grad(routed @ x, vals, g)
+    vals.requires_grad_(False)
+    close(gv, plain_routed_value_grad(routed, "N", "vec", x, g, 0))
+    with torch.no_grad():
+        routed @ x  # no gradient wanted: no node
     op, A = bsr_case(rng)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        torch.func.vmap(lambda v: op @ v)(t_(rng.standard_normal((3, op.ncol))))
+    V = rng.standard_normal((3, op.ncol))
+    close(torch.func.vmap(lambda v: op @ v)(t_(V)), V @ A.T, rtol=1e-12)
+    W = rng.standard_normal((4, 260))
+    close(torch.func.vmap(lambda v: routed @ v)(t_(W)), W @ A_r.T.toarray(), rtol=1e-12)
     g = torch.func.grad(lambda v: (op @ v).sum())(t_(rng.standard_normal(op.ncol)))
     close(g, A.T @ np.ones(op.nrow), rtol=1e-12)
+
+
+def plain_routed_value_grad(op, mode, kind, x, g, slot):
+    """The value gradient of ``op``'s routed apply by autograd through the
+    plain pipeline (the kernel branch off, the matrix kinds on the routed
+    layout), for the program value tensor ``slot``."""
+    leaf = op._program_values()[slot]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TR, "_use_kernel", lambda uk, vals, x_: False if uk is None else bool(uk))
+        mp.setattr(TO, "_on_card", lambda t: True)
+        leaf.requires_grad_(True)
+        y = {"vec": op.apply, "mat": op.apply_matrix, "panel": op.apply_matrix_t}[kind](x, mode)
+        (gv,) = torch.autograd.grad(y, leaf, g)
+        leaf.requires_grad_(False)
+    return gv
+
+
+@pytest.mark.parametrize("kind", ["vec", "mat", "panel"])
+@pytest.mark.parametrize("layout", ["3-stage", "5-stage", "symmetric", "repacked T", "complex"])
+def test_routed_kernel_value_gradients(rng, kernels_on_cpu, monkeypatch, layout, kind):
+    """The value gradient on the routed kernel path (g routed back to the
+    slots through the inverse crossbars, times the phase-1 gather of x) in
+    every mode: equal to autograd of the plain pipeline, padding slots
+    included, and, for vectors, to jax's gradient of the reference's
+    program values (rtol 1e-10). The forward program's values serve N and
+    C, the derived transpose's (or a re-packed transpose's) T and H."""
+    monkeypatch.setattr(TO, "_on_card", lambda t: True)  # the routed matrix kinds
+    n, m = (2000, 1900) if layout == "5-stage" else (300, 260)
+    sym = layout == "symmetric"
+    A = sps.random(n, n if sym else m, density=(10.0 if n > 1000 else 4.0) / m, format="csr",
+                   random_state=71)
+    A.data[:] = rng.standard_normal(A.nnz)
+    if layout == "complex":
+        A = A.astype(np.complex128)
+        A.data += 1j * rng.standard_normal(A.nnz)
+    if sym:
+        A = (A + A.T).tocsr()
+    kw = dict(symmetric=sym, hermitian=sym)
+    if layout == "repacked T":
+        op = TO.RoutedCSROperator(lt.csr_from_parts(A.data, A.indices, A.indptr, A.shape,
+                                                    **CPU), defer_transpose=True)
+        op._ensure_transpose()
+        assert isinstance(op.routed_t, TR.RoutedSpMV)
+    else:
+        op = lt.opSparse(A, format="routed", **kw, **CPU)
+    assert len(op.routed.stages) == (4 if layout == "5-stage" else 2)
+    op_j = lo.opSparse(A, format="routed", **kw) if layout != "repacked T" else None
+    cplx = layout == "complex"
+    for mode in MODES:
+        slot = 0 if op._program_mode(mode) in ("N", "C") else 1
+        ni, no = op.in_dim(mode), op.out_dim(mode)
+        if kind == "vec":
+            x, g = rvec(rng, ni, cplx), rvec(rng, no, cplx)
+        else:
+            x = rvec(rng, 3 * ni, cplx).reshape(3, ni)
+            g = rvec(rng, 3 * no, cplx).reshape(3, no)
+            if kind == "mat":
+                x, g = x.T, g.T
+        leaf = op._program_values()[slot].requires_grad_(True)
+        y = {"vec": op.apply, "mat": op.apply_matrix, "panel": op.apply_matrix_t}[kind](
+            t_(x), mode)
+        assert "KernelApplyBackward" in grad_fn_names(y)
+        (gv,) = torch.autograd.grad(y, leaf, t_(g))
+        leaf.requires_grad_(False)
+        close(gv, plain_routed_value_grad(op, mode, kind, t_(x), t_(g), slot))
+        if op_j is not None and kind == "vec":
+            prog_j = op_j.routed if slot == 0 else op_j.routed_t
+            leaf_j = prog_j.vals if slot == 0 else prog_j.vals_pre
+            close(gv, jax_leaf_vjp(op_j, leaf_j, lambda o: o.apply(jnp.asarray(x), mode), g))
 
 
 # --------------------------------------------------------------------------

@@ -33,8 +33,12 @@ transpose kernel; x-gradients against the plain backend's autograd within
 1e-5·max|g| (f32 sums in other orders), block gradients within 1e-6 (f32;
 one product per entry, the residual differs in its last bits) or 1e-2 (bf16
 blocks: one bf16 rounding); window block gradients against the CPU's f64
-autograd of the plain windowed versions within 1e-5. A routed value
-gradient and ``vmap`` over a kernel apply raise.
+autograd of the plain windowed versions within 1e-5. Routed value
+gradients (slice 8) within 1e-5 of the plain pipeline's autograd; ``vmap``
+over a kernel apply runs the kernels (bit for bit per member for K1/K2,
+within 1e-6 for the routed matrix kind). The distributed layer at world
+size 1 (NCCL): a sharded BSR apply bit for bit the unsharded one, through
+K1/K2; kernel and sharded applies make no implicit host synchronisation.
 """
 
 import numpy as np
@@ -857,13 +861,17 @@ def test_mixed_graph_gradient_on_card(dev):
     assert rel_err(gf, gx) <= 1e-6
 
 
-def test_routed_gradients_on_card(dev):
+def test_routed_gradients_on_card(dev, monkeypatch):
     """The routed x-gradient is the explicit derived-transpose apply bit for
     bit (K12 in the backward, no forward kernel) and agrees with the plain
-    pipeline's autograd within 1e-5; a value gradient is refused; a
-    symmetric operator's backward runs its forward program."""
+    pipeline's autograd within 1e-5; the value gradients of the forward
+    program (N, and mat/panel kinds) and of the derived transpose (T) agree
+    with the plain pipeline's autograd within 1e-5, routed back through K7
+    and gathered by K8; a symmetric operator's backward runs its forward
+    program."""
     import scipy.sparse as sps
 
+    from linops_tpu_torch.sparse import routed as TR
     from linops_tpu_torch.sparse.routed import routed_matvec
 
     A = sps.random(5000, 4000, density=0.005, format="csr", random_state=3, dtype=np.float32)
@@ -880,11 +888,27 @@ def test_routed_gradients_on_card(dev):
     r_p = routed_matvec(op.routed, x, use_kernel=False) - b
     (gx_p,) = torch.autograd.grad(0.5 * torch.dot(r_p, r_p), x)
     assert rel_err(gx, gx_p) <= 1e-5
-    for vals in (op.data.vals, op.routed.vals):
-        vals.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            op @ x.detach()
-        vals.requires_grad_(False)
+
+    def value_grad(mode, kind, xin, g, slot):
+        leaf = op._program_values()[slot].requires_grad_(True)
+        f = {"vec": op.apply, "mat": op.apply_matrix, "panel": op.apply_matrix_t}[kind]
+        (gv,) = torch.autograd.grad(f(xin, mode), leaf, g)
+        leaf.requires_grad_(False)
+        return gv
+
+    cases = [("N", "vec", torch.randn(4000, device=dev), torch.randn(5000, device=dev), 0),
+             ("T", "vec", torch.randn(5000, device=dev), torch.randn(4000, device=dev), 1),
+             ("N", "mat", torch.randn(4000, 3, device=dev), torch.randn(5000, 3, device=dev), 0),
+             ("N", "panel", torch.randn(3, 4000, device=dev), torch.randn(3, 5000, device=dev), 0)]
+    for mode, kind, xin, g, slot in cases:
+        reset_launches()
+        got = value_grad(mode, kind, xin, g, slot)
+        c = launches()
+        assert c.get("lane_gather", 0) > 0 and c.get("lane_gather_mul", 0) > 0, c
+        with monkeypatch.context() as mp:  # the plain pipeline, autograd into the values
+            mp.setattr(TR, "_use_kernel", lambda uk, vals, x_: False if uk is None else bool(uk))
+            want = value_grad(mode, kind, xin, g, slot)
+        assert rel_err(got, want) <= 1e-5, (mode, kind)
     S = sps.random(3000, 3000, density=0.004, format="csr", random_state=4, dtype=np.float32)
     S = (S + S.T).tocsr()
     op_s = lt.opSparse(S, format="routed", symmetric=True, hermitian=True, device=dev)
@@ -925,10 +949,94 @@ def test_permutation_gradient_on_card(dev):
 
 
 def test_vmap_over_a_kernel_apply_raises_on_card(dev):
-    blocks, cols = random_bsr(dev, 16, 2, 8, 128, 1, torch.float32, seed=13)
-    op = lt.BSROperator(lt.BSR(blocks, cols, (128, 128)))
-    with pytest.raises(NotImplementedError, match="vmap"):
-        torch.func.vmap(lambda v: op @ v)(torch.randn(3, 128, device=dev))
+    """(The name is kept from when vmap over a kernel apply raised; it now
+    runs.) vmap over 8 vectors: K1 and K2 once per member, bit for bit the
+    vector applies; the routed N apply as a row panel (rep-8 kernels)
+    within 1e-6 of the vector applies; a batch of operators (batched
+    blocks) once per member through K1."""
+    import scipy.sparse as sps
+
+    blocks, cols = random_bsr(dev, 512, 4, 8, 128, 32, torch.float32, seed=13)
+    op = lt.BSROperator(lt.BSR(blocks, cols, (4096, 4096)))
+    V = torch.randn(8, 4096, device=dev)
+    for mode, kernel in (("N", "bsr_matvec"), ("T", "bsr_rmatvec")):
+        reset_launches()
+        Y = torch.func.vmap(lambda v: op.apply(v, mode))(V)
+        assert launches().get(kernel) == 8
+        assert torch.equal(Y, torch.stack([op.apply(v, mode) for v in V]))
+    A = sps.random(6000, 5000, density=0.004, format="csr", random_state=8, dtype=np.float32)
+    routed = lt.opSparse(A, format="routed", device=dev)
+    W = torch.randn(8, 5000, device=dev)
+    reset_launches()
+    Y = torch.func.vmap(lambda v: routed @ v)(W)
+    assert launches().get("lane_gather_sum", 0) > 0
+    assert rel_err(Y, torch.stack([routed @ w for w in W])) <= 1e-6
+    Bs = torch.stack([blocks, 2 * blocks])
+    x = torch.randn(4096, device=dev)
+    Yb = torch.func.vmap(lambda b: lt.BSROperator(lt.BSR(b, cols, (4096, 4096))) @ x)(Bs)
+    assert torch.equal(Yb[0], op @ x) and torch.equal(Yb[1], lt.BSROperator(
+        lt.BSR(2 * blocks, cols, (4096, 4096))) @ x)
+
+
+def _world_of_one():
+    """This process as a world of one NCCL rank (idempotent) and its mesh."""
+    from linops_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed()
+    return make_mesh()
+
+
+def test_sharded_bsr_world_of_one_on_card(dev):
+    """A sharded BSR operator at world size 1 runs K1/K2 on its shard and
+    equals the unsharded operator bit for bit."""
+    from linops_tpu_torch.parallel import row_sharding, shard_operator
+
+    mesh = _world_of_one()
+    blocks, cols = random_bsr(dev, 1024, 8, 8, 128, 64, torch.float32, seed=15)
+    op = lt.BSROperator(lt.BSR(blocks, cols, (8192, 8192)))
+    op_sh = shard_operator(op, mesh)
+    x = torch.randn(8192, device=dev)
+    xs = row_sharding(mesh).place(x)
+    reset_launches()
+    y, yt = op_sh @ xs, op_sh.T @ xs
+    assert launches() == {"bsr_matvec": 1, "bsr_rmatvec": 1}
+    assert torch.equal(y.full_tensor(), op @ x) and torch.equal(yt.full_tensor(), op.T @ x)
+
+
+def test_kernel_and_sharded_applies_read_nothing_back(dev):
+    """The mirror of ``tests/test_no_transfers.py``: after a warm-up, the
+    kernel applies (K1/K2, a routed operator, a permutation) and a sharded
+    BSR apply make no implicit device-to-host synchronisation
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one). Solver
+    loops are left out: their stopping test reads one scalar per
+    iteration (ROADMAP.md §3, fault 3)."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.parallel import row_sharding, shard_operator
+
+    mesh = _world_of_one()
+    blocks, cols = random_bsr(dev, 256, 4, 8, 128, 16, torch.float32, seed=16)
+    op = lt.BSROperator(lt.BSR(blocks, cols, (2048, 2048)))
+    A = sps.random(3000, 3000, density=0.003, format="csr", random_state=9, dtype=np.float32)
+    routed = lt.opSparse(A, format="routed", device=dev)
+    P = lt.opPermutation(np.random.default_rng(5).permutation(70000), device=dev)
+    op_sh = shard_operator(op, mesh)
+    x, xr, xp = (torch.randn(n, device=dev) for n in (2048, 3000, 70000))
+    xs = row_sharding(mesh).place(x)
+
+    def applies():
+        return (op @ x, op.T @ x, routed @ xr, routed.T @ xr, P @ xp, P.T @ xp, op_sh @ xs,
+                op_sh.T @ xs)
+
+    applies()  # warm-up: plans, builds, first launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = applies()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(t.full_tensor() if hasattr(t, "full_tensor") else t).all()
+               for t in out)
 
 
 def test_iterative_inverse_and_apply_linear_gradients_on_card(dev):

@@ -1,12 +1,15 @@
-"""``torch.func.vmap`` over the port's operators, against ``jax.vmap`` of
-the reference (``tests/test_vmap_operators.py``), on the CPU in f64.
+"""``torch.func.vmap`` over the port's operators and solvers, against
+``jax.vmap`` of the reference (``tests/test_vmap_operators.py``), on the CPU
+in f64.
 
 A batch axis on an operator's tensors gives a batch of operators: the
-applies and ``vmap(grad(...))`` run through ``torch.func.vmap``. The
-batched CG does not: the port's solvers read one scalar per iteration to
-stop (ROADMAP.md §3, fault 3), which ``vmap`` refuses as data-dependent
-control flow, so the test solves the B systems one by one against
-``jax.vmap``'s result and asserts that ``vmap(cg)`` raises.
+applies and ``vmap(grad(...))`` run through ``torch.func.vmap``. The solvers
+run under vmap as ``jax.vmap`` of a ``lax.while_loop`` does: every member
+iterates until all have stopped, each frozen once its own test fails, with
+per-member iteration counts (``utils/krylov.py::_while``). A kernel apply
+under vmap (the kernel branches forced on the CPU, where the wrappers run
+their plain versions) runs the kernel once per member, or the routed
+matrix kind on the batch.
 """
 
 import jax
@@ -47,30 +50,107 @@ def test_vmap_graph_batch(rng):
     np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), atol=1e-12)
 
 
-def test_vmap_batched_cg(rng):
-    """B SPD systems, each with its own operator: the port solves them one
-    by one and agrees with jax.vmap(cg); torch.func.vmap(cg) raises (the
-    stopping test reads a scalar on the host)."""
-    B, n = 6, 14
+def spd_batch(rng, B=6, n=14):
     As = rng.standard_normal((B, n, n))
-    spd = np.einsum("bij,bkj->bik", As, As) + 10.0 * np.eye(n)[None]
-    bs = rng.standard_normal((B, n))
+    return np.einsum("bij,bkj->bik", As, As) + 10.0 * np.eye(n)[None], rng.standard_normal((B, n))
+
+
+def test_vmap_batched_cg(rng):
+    """B SPD systems, each with its own operator: torch.func.vmap(cg) solves
+    the batch as jax.vmap(cg) does, with the same x and the same per-member
+    iteration counts; outside vmap the count stays an int."""
+    spd, bs = spd_batch(rng)
 
     def solve_j(A, b):
         return lo.cg(lo.MatrixOperator(A, symmetric=True, hermitian=True), b, tol=1e-12,
-                     maxiter=200)[0]
+                     maxiter=200)
 
     def solve_t(A, b):
         return lt.cg(lt.MatrixOperator(A, symmetric=True, hermitian=True), b, tol=1e-12,
-                     maxiter=200)[0]
+                     maxiter=200)
 
-    xs_j = np.asarray(jax.vmap(solve_j)(jnp.asarray(spd), jnp.asarray(bs)))
-    xs_t = torch.stack([solve_t(t_(spd[i]), t_(bs[i])) for i in range(B)]).numpy()
-    res = np.einsum("bij,bj->bi", spd, xs_t) - bs
-    assert np.linalg.norm(res) < 1e-8
-    assert np.abs(xs_t - xs_j).max() <= 1e-8 * np.abs(xs_j).max()
-    with pytest.raises(RuntimeError, match="data-dependent control flow"):
-        torch.func.vmap(solve_t)(t_(spd), t_(bs))
+    xs_j, ks_j, _ = jax.vmap(solve_j)(jnp.asarray(spd), jnp.asarray(bs))
+    xs_t, ks_t, res_t = torch.func.vmap(solve_t)(t_(spd), t_(bs))
+    xs_j = np.asarray(xs_j)
+    assert np.abs(xs_t.numpy() - xs_j).max() <= 1e-8 * np.abs(xs_j).max()
+    np.testing.assert_array_equal(ks_t.numpy(), np.asarray(ks_j))
+    assert res_t.shape == (spd.shape[0],)
+    assert np.linalg.norm(np.einsum("bij,bj->bi", spd, xs_t.numpy()) - bs) < 1e-8
+    _, k1, _ = solve_t(t_(spd[0]), t_(bs[0]))
+    assert isinstance(k1, int) and k1 == int(ks_t[0])
+
+
+@pytest.mark.parametrize("solver", ["bicgstab", "minres", "lsqr", "chebyshev"])
+def test_vmap_batched_solvers(rng, solver):
+    """The other solvers with a stopping test under vmap, and Chebyshev (no
+    test: a fixed count), against jax.vmap of the reference: x within 1e-8
+    relative and the same per-member counts."""
+    spd, bs = spd_batch(rng)
+    kw = {"bicgstab": dict(tol=1e-10, maxiter=200), "minres": dict(tol=1e-10, maxiter=200),
+          "lsqr": dict(tol=1e-8, maxiter=200)}.get(solver, dict(iters=40))
+    herm = dict(symmetric=True, hermitian=True)
+    bounds = (5.0, 200.0) if solver == "chebyshev" else ()
+
+    def solve(pkg, A, b):
+        return getattr(pkg, solver)(pkg.MatrixOperator(A, **herm), b, *bounds, **kw)
+
+    xs_j, ks_j, _ = jax.vmap(lambda A, b: solve(lo, A, b))(jnp.asarray(spd), jnp.asarray(bs))
+    out_dims = (0, None, 0) if solver == "chebyshev" else 0
+    xs_t, ks_t, _ = torch.func.vmap(lambda A, b: solve(lt, A, b), out_dims=out_dims)(
+        t_(spd), t_(bs))
+    xs_j = np.asarray(xs_j)
+    assert np.abs(xs_t.numpy() - xs_j).max() <= 1e-8 * np.abs(xs_j).max()
+    np.testing.assert_array_equal(np.broadcast_to(np.asarray(ks_t), (len(bs),)),
+                                  np.broadcast_to(np.asarray(ks_j), (len(bs),)))
+
+
+@pytest.fixture
+def kernels_on_cpu(monkeypatch):
+    """The operators' kernel branches on CPU tensors (their wrappers take the
+    plain versions there): KernelApply and its vmap rule run as on a card."""
+    from linops_tpu_torch.ops import permutation as TP
+    from linops_tpu_torch.sparse import ops as TO
+    from linops_tpu_torch.sparse import routed as TR
+
+    monkeypatch.setattr(TO.BSROperator, "_use_kernel", lambda self, v: self._backend != "torch")
+    monkeypatch.setattr(TR, "_use_kernel", lambda uk, vals, x: True if uk is None else bool(uk))
+    monkeypatch.setattr(TO, "_on_card", lambda t: True)
+    monkeypatch.setattr(TP.PermutationOperator, "_use_kernel", lambda self, x: True)
+
+
+def test_vmap_over_kernel_applies(rng, kernels_on_cpu):
+    """vmap over a kernel apply: BSR (N and T) and a permutation run the
+    vector apply once per member, bit for bit; a routed operator runs its
+    matrix kind on the batch (a row panel) and agrees with the vector applies;
+    a batch of BSR operators (batched blocks) runs once per member."""
+    import scipy.sparse as sps
+
+    A = np.where(rng.random((40, 48)) < 0.3, rng.standard_normal((40, 48)), 0.0)
+    op = lt.BSROperator(lt.bsr_from_dense(A, (4, 8), device="cpu"))
+    for mode in ("N", "T"):
+        V = t_(rng.standard_normal((5, op.in_dim(mode))))
+        Y = torch.func.vmap(lambda v: op.apply(v, mode))(V)
+        assert torch.equal(Y, torch.stack([op.apply(v, mode) for v in V]))
+    P = lt.opPermutation(rng.permutation(700), device="cpu")
+    V = t_(rng.standard_normal((3, 700)))
+    assert torch.equal(torch.func.vmap(lambda v: P @ v)(V), torch.stack([P @ v for v in V]))
+    R = sps.random(300, 260, density=0.03, format="csr", random_state=81)
+    routed = lt.opSparse(R, format="routed", device="cpu")
+    for mode in ("N", "T"):
+        V = t_(rng.standard_normal((6, routed.in_dim(mode))))
+        Y = torch.func.vmap(lambda v: routed.apply(v, mode))(V)
+        ref = torch.stack([routed.apply(v, mode) for v in V])
+        np.testing.assert_allclose(Y.numpy(), ref.numpy(), rtol=1e-12, atol=1e-12)
+    blocks = op.data.blocks
+    Bs = torch.stack([blocks, 2.0 * blocks, -blocks])
+    x = t_(rng.standard_normal(48))
+
+    def apply_one(b):
+        return lt.BSROperator(lt.BSR(b, op.data.block_cols, op.data.shape)) @ x
+
+    np.testing.assert_allclose(torch.func.vmap(apply_one)(Bs).numpy(),
+                               np.stack([A @ x.numpy() * s for s in (1.0, 2.0, -1.0)]),
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_vmap_composes_with_grad(rng):
