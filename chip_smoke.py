@@ -4,11 +4,18 @@
     python3 chip_smoke.py
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
-7, 9, 8, 5, 11, 12, 13, 10, then one profiled slice-1 CG (the times come after
-every kernel has been checked; phases 12 and 10 and the profiled CG come
-after phase 5 because torch.profiler traces of whole solves, run before
+7, 9, 8, 5 (with phase 4's main path rerun under the profiler at its end),
+11, 12, 13, 10, 14, then one profiled slice-1 CG (the times come
+after every kernel has been checked; phases 12, 10, 14 and the profiled CG
+come after phase 5 because torch.profiler traces of whole solves, run before
 phase 5, left phase 5's own traces without device time; phases 11-13 run
-no profiler):
+no profiler). Every solve runs on ``utils/loop.py``: the first solve of a
+signature runs the plain loop (one read per iteration), its next one
+captures a block of ``loop.BLOCK`` masked iterations in a CUDA graph and
+replays it, reading the host once per block. Launch counts are the wrappers' (a replay adds none); phase 4's
+are held against a profiler trace of a rerun, and each captured block's
+against the kernel nodes of its graph (and a trace of one replay, which
+shows them run but can lose records).
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
@@ -21,7 +28,8 @@ no profiler):
 4. main path of slice 1: A = D (BᵀB) D + σI over the 8x128 BSR operator, an
    inverse L-BFGS preconditioner built by pushing pairs (s, A s), and
    preconditioned CG; checked in f64, against a second run on the plain
-   backend, and for kernel launches. Then the step of
+   backend, and for kernel launches (rerun at the end under torch.profiler:
+   the same counts, equal to the kernels its trace counts). Then the step of
    ``__graft_entry__.entry()`` in the port at n = 8192 against a numpy oracle.
 5. times: CUDA events after warm-up, marginal method (long minus short run
    over the difference in count), for K1/K2 beside their plain versions and
@@ -110,11 +118,31 @@ no profiler):
    and Chebyshev without an all-reduce, ``scaling_report(1)`` and the card's
    copy rate. Its launches must include K1-K6 and K7, K9-K12.
 
+14. main path of slice 9, the device-resident solve loop: slice 1's CG and
+   each phase-10 solve (GMRES(30) and BiCGSTAB on auto_8m + 8I, damped LSQR,
+   the saddle-point MINRES, CG with 8 right-hand sides), CGs on step 1's
+   routed matrix (K7, K9-K11) and on its program without bounds (K13),
+   matvec chains on the 2^22 window operators (K3-K6), MINRES on B + I and a
+   trust-region σ-search (example 04's) on the n = 10^6 L-BFGS model, each
+   in the per-iteration loop (``loop.BLOCK = 1``, no capture) and in
+   graph blocks: a first solve (the plain loop), a second (it captures) and
+   cached ones: the same count, x bit for bit, the launches each captured
+   block recorded against its graph's kernel nodes and a profiler trace of
+   one replay, one replay under
+   ``torch.cuda.set_sync_debug_mode("error")``, wall and device µs per
+   iteration, busy shares, host reads and synchronizing calls per solve,
+   capture ms; slice 1's CG at block lengths 1-16, and solves right after an
+   L-BFGS push (a new signature each), the plain and default loops
+   interleaved round by round;
+   shifted L-BFGS solves with σ on the card (no synchronisation, the same
+   bits as a Python σ). The captured blocks must hold K1-K7 and K9-K13.
+
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
 on any failure, and when no CUDA device is present: there is no CPU path.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -131,6 +159,7 @@ SHAPES = {  # name -> (bm, bn, kmax)
 }
 KERNEL_RTOL = 1e-5
 I_SHORT, I_LONG, REPS = 10, 60, 3
+TRACE_TRIES = 3  # profiler traces taken to count a run's kernels (trace_until)
 SEED = 0
 K1_SOURCE = "linops_tpu_torch/kernels/csrc/bsr_spmv.cu"
 K1_REPLACES = "linops_tpu/kernels/bsr_spmv.py:207"  # bsr_matvec_pallas
@@ -365,6 +394,9 @@ def diagonal_qn_recursive(cls, pairs, d):
 
 
 def free():
+    from linops_tpu_torch.utils import loop
+
+    loop.clear_cache()  # captured blocks hold their operators and memory pools
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1331,6 +1363,110 @@ def device_profile(fn, top=3):
     return sum(per.values()), sorted(per.items(), key=lambda kv: -kv[1])[:top]
 
 
+def kernel_symbols() -> dict:
+    """kernel name -> the device function each of its launches runs once."""
+    from linops_tpu_torch.kernels import bsr_spmv, lane_gather
+
+    return {**bsr_spmv.LAUNCH_SYMBOLS, **lane_gather.LAUNCH_SYMBOLS}
+
+
+def by_symbol(counts: dict) -> dict:
+    """Launch counts per kernel name -> per device function (K9 and K14
+    share one), the nonzero ones."""
+    out = {}
+    for name, c in counts.items():
+        sym = kernel_symbols()[name]
+        out[sym] = out.get(sym, 0) + c
+    return {k: v for k, v in out.items() if v}
+
+
+def traced_launches(prof) -> dict:
+    """The port's kernels a torch.profiler trace ran, per device function:
+    the count of each one's activities."""
+    syms = set(kernel_symbols().values())
+    out = {}
+    for e in prof.key_averages():
+        name = kernel_label(e.key)
+        if name in syms:
+            out[name] = out.get(name, 0) + e.count
+    return {k: v for k, v in out.items() if v}
+
+
+def graph_kernels(g) -> dict:
+    """The port's kernels a captured block holds, per device function: the
+    kernel nodes of its CUDA graph, read through the driver API
+    (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``, then
+    ``cuFuncGetName`` or ``cuKernelGetName`` for the node's mangled name)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(rc, what):
+        check(rc == 0, f"graph_kernels: {what} returned CUDA driver error {rc}")
+
+    graph = vp(g.graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (vp * count.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    wanted = {f"{len(s_)}{s_}": s_ for s_ in set(kernel_symbols().values())}
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_uint8 * 128)()  # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at 56
+        ok(cu.cuGraphKernelNodeGetParams_v2(vp(node), params), "cuGraphKernelNodeGetParams")
+        func = vp.from_buffer(params, 0).value
+        kern = vp.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)), "cuKernelGetName")
+        mangled = name.value.decode()
+        for tag, sym in wanted.items():
+            if tag in mangled:
+                out[sym] = out.get(sym, 0) + 1
+    return out
+
+
+def trace_until(fn, want, tries=TRACE_TRIES):
+    """(fn's last result, its torch.profiler trace, the port's kernels the
+    trace counted per device function, the traces taken) for the first of up
+    to ``tries`` traced calls of fn whose count is ``want``, else the last.
+    A trace can lose activity records (on the H100: a replay traced with 3
+    of its 4 K1, another trace with none) but never counts a kernel that did
+    not run, so one trace that counts ``want`` shows that ``want`` ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for n in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        got = traced_launches(prof)
+        if got == want:
+            break
+    return out, prof, got, n
+
+
+def replay_trace(g, want, top=6):
+    """(the ``top`` kernels by device µs, the port's kernels per device
+    function, the traces taken) of one replay of a captured block, from a
+    torch.profiler trace that counts ``want`` (``trace_until``)."""
+    _, prof, got, n = trace_until(g.replay, want)
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            per[kernel_label(e.key)] = per.get(kernel_label(e.key), 0.0) + t / 1e3
+    return sorted(per.items(), key=lambda kv: -kv[1])[:top], got, n
+
+
 def solve_line(tag, k, unit, secs, res, lim, k_p, secs_p, dx, counts, syncs, prof):
     per = secs / max(k, 1) * 1e6
     dev_ms, ranked = prof
@@ -1339,7 +1475,7 @@ def solve_line(tag, k, unit, secs, res, lim, k_p, secs_p, dx, counts, syncs, pro
             f"{dev_ms / (secs * 1e3) * 100:.0f}% of the wall time above), top: "
             + ", ".join(f"{n} {ms:.1f} ms" for n, ms in ranked))
     print(f"[10 slice-4 path] {tag}: {k} {unit}, {secs:.3f} s = {per:.1f} us per {unit[:-1]} "
-          f"({syncs} host sync per {unit[:-1]}); f64 residual {res:.3e} (limit {lim:g}); plain "
+          f"({syncs} host reads in the solve); f64 residual {res:.3e} (limit {lim:g}); plain "
           f"pipeline {k_p} {unit} in {secs_p:.3f} s, |Δx|/|x| {dx:.2e}; launches "
           f"{ {n: c for n, c in counts.items() if c} }; {busy}", flush=True)
     return {"iters": k, "s": secs, "us_per_iter": per, "plain_iters": k_p, "plain_s": secs_p,
@@ -1358,6 +1494,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     import scipy.sparse as sps
 
     from linops_tpu_torch.sparse.routed import routed_matvec, routed_rmatvec
+    from linops_tpu_torch.utils import loop
 
     LG.reset_launch_counts()
     K.reset_launch_counts()
@@ -1391,6 +1528,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
                       ("bicgstab", lambda op: lt.bicgstab(op, b, tol=1e-5, maxiter=500))):
         take()
         (x, k, _), secs = timed_solve(lambda: run(S))
+        reads = loop.stats["reads"]
         c = take()
         (x_p, k_p, _), secs_p = timed_solve(lambda: run(S_plain))
         check(sum(take().values()) == 0, f"10a {name}: the plain pipeline launched a kernel")
@@ -1404,7 +1542,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
         take()
         rec[f"10a {name}"] = solve_line(
             f"10a {name}(A + 8I), A auto_8m (n = 2^19, {A2.nnz} nnz), tol 1e-5", k, unit, secs,
-            res, 1e-4, k_p, secs_p, dx, c, "1" if name == "bicgstab" else "1 (+1 SVD)", prof)
+            res, 1e-4, k_p, secs_p, dx, c, reads, prof)
     del S, S_plain, S64, b, x, x_p
 
     # --- 10b. damped LSQR on a rectangular unstructured matrix -----------------
@@ -1427,6 +1565,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     damp = 1e-3
     take()
     (x, k, _), secs = timed_solve(lambda: lt.lsqr(op_l, b, damp=damp, tol=1e-5, maxiter=500))
+    reads = loop.stats["reads"]
     c = take()
     (x_p, k_p, _), secs_p = timed_solve(lambda: lt.lsqr(L_plain, b, damp=damp, tol=1e-5,
                                                         maxiter=500))
@@ -1447,7 +1586,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     take()
     rec["10b lsqr"] = solve_line(
         f"10b lsqr(damp {damp:g}), tol 1e-5, ‖Aᵀr − damp²x‖/(‖A‖_F‖r‖)", k, "iterations", secs,
-        res, 1e-4, k_p, secs_p, dx, c, "1", prof)
+        res, 1e-4, k_p, secs_p, dx, c, reads, prof)
     del op_l, L_plain, pl, plt_, Al, A64, b, x, x_p, r
 
     # --- 10c. saddle-point system under MINRES ------------------------------------
@@ -1464,6 +1603,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     bh = b.double().cpu().numpy()
     take()
     (x, k, _), secs = timed_solve(lambda: lt.minres(Kop, b, tol=1e-5, maxiter=2000))
+    reads = loop.stats["reads"]
     c = take()
     (x_p, k_p, _), secs_p = timed_solve(lambda: lt.minres(K_plain, b, tol=1e-5, maxiter=2000))
     check(sum(take().values()) == 0, "10c: the plain backend launched a kernel")
@@ -1485,7 +1625,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     take()
     rec["10c minres"] = solve_line(
         f"10c minres on [[I + L, Bᵀ], [B, 0]] ({GRID}², n = {n}, p = {p} pinned points, "
-        f"{n + p} unknowns), tol 1e-5", k, "iterations", secs, res, 1e-4, k_p, secs_p, dx, c, "1",
+        f"{n + p} unknowns), tol 1e-5", k, "iterations", secs, res, 1e-4, k_p, secs_p, dx, c, reads,
         prof)
     print(f"[10 slice-4 path] 10c slice K[{r0}:{r0 + 1000}, {c0}:{c0 + 1000}] applied = rows of K "
           f"applied to the zero-padded vector: max|Δ|/max {e_sl:.2e} (limit 1e-6)", flush=True)
@@ -1501,6 +1641,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     Bm = dev_vec(N3, dev, SEED + 75, k=8)
     take()
     (X, k, _), secs = timed_solve(lambda: lt.cg(op1, Bm, tol=1e-5, maxiter=2000))
+    reads = loop.stats["reads"]
     c = take()
     (X_p, k_p, _), secs_p = timed_solve(lambda: lt.cg(P_plain, Bm, tol=1e-5, maxiter=2000))
     check(sum(take().values()) == 0, "10d: the plain pipeline launched a kernel")
@@ -1515,7 +1656,7 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     rec["10d cg k=8"] = solve_line(
         f"10d cg with 8 right-hand sides on step 1's matrix (n = 2^20, {ops['nnz1']} nnz), "
         f"routed kernels at rep 8, tol 1e-5, worst column", k, "iterations", secs,
-        float(res_cols.max()), 1e-4, k_p, secs_p, dx, c, "1", prof)
+        float(res_cols.max()), 1e-4, k_p, secs_p, dx, c, reads, prof)
     del Bm, X, X_p, P_plain
 
     # --- 10e. shifted L-BFGS solves --------------------------------------------
@@ -1575,6 +1716,341 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     print(f"[10 slice-4 path] launches over 10a-10e: { {n: c for n, c in totals.items() if c} }",
           flush=True)
     return totals, rec
+
+
+def sync_warnings(fn) -> int:
+    """How many synchronizing CUDA calls one call of fn makes: warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def replay_without_sync(g) -> None:
+    """One replay of a captured block under sync-debug mode "error": it
+    raises if the block holds a host synchronisation."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def median_solve(solve, reps=REPS):
+    """(the last result, the median seconds) of ``reps`` timed solves."""
+    runs = [timed_solve(solve) for _ in range(reps)]
+    return runs[-1][0], float(np.median([t for _, t in runs]))
+
+
+def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why=""):
+    """``solve`` (returning (x, k, res)) in the per-iteration loop (BLOCK 1,
+    no capture: one read per iteration, every kernel launched from the
+    host) and in graph blocks: a first solve of the signature (the plain
+    loop), a second (it captures), then cached ones. Checks the same
+    count and x bit for bit (or within ``x_rtol``, for ``why``), the cached
+    block's recorded launches against a profiler trace of one replay, and
+    one replay under sync-debug "error"; prints wall (median of REPS solves)
+    and device (one profiled solve) µs per iteration, busy shares, host
+    reads and syncs per solve, the first solve's, the capturing solve's
+    (and its capture ms) and the cached wall time. Returns the record."""
+    block = loop.BLOCK
+    loop.clear_cache()
+    loop.BLOCK, loop.CAPTURE = 1, False
+    try:
+        solve()  # the allocator's blocks after free(); lazy plans
+        (x1, k1, _), s1 = median_solve(solve)
+        st1 = dict(loop.stats)
+        d1 = device_profile(solve)[0]
+    finally:
+        loop.BLOCK, loop.CAPTURE = block, True
+    loop.clear_cache()
+    (x2, k2, _), s2 = timed_solve(solve)  # the signature's first solve: the plain loop
+    st2 = dict(loop.stats)
+    (xc, kc, _), sc = timed_solve(solve)  # its second: captures
+    stc = dict(loop.stats)
+    (x3, k3, _), s3 = median_solve(solve)
+    st3 = dict(loop.stats)
+    syncs = sync_warnings(solve)
+    d3, top3 = device_profile(solve, top=4)
+    g = loop.last_graph()
+    check(g is not None and st3["captures"] == 0 and st3["replays"] > 0,
+          f"14 {tag}: the cached solve replayed no captured block: {st3}")
+    held = dict(g.launches)
+    nodes = graph_kernels(g)
+    check(nodes == by_symbol(held), f"14 {tag}: the cached block's graph holds {nodes}; its "
+                                    f"capture recorded {held}")
+    in_replay, traced, tries = replay_trace(g, nodes)
+    check(traced.keys() == nodes.keys() and all(traced[s_] <= nodes[s_] for s_ in traced),
+          f"14 {tag}: one replay of the cached block traced {traced} ({tries} traces); its "
+          f"graph holds {nodes}")
+    replay_without_sync(g)
+    check(k1 == k2 == kc == k3, f"14 {tag}: {k1} {unit} per iteration, {k2} in the first "
+                                f"solve, {kc} capturing, {k3} cached")
+    dx = max(rel_err(x, x1) for x in (x2, xc, x3))
+    same = all(torch.equal(x, x1) for x in (x2, xc, x3))
+    check(same or dx <= x_rtol, f"14 {tag}: graph blocks differ from the per-iteration loop "
+                                f"by {dx:.2e} (allowed {x_rtol:g}{': ' + why if why else ''})")
+    k = max(k1, 1)
+    capture_ms = st2["capture_ms"] + stc["capture_ms"]
+    busy = ("device time not measured" if d1 is None or d3 is None else
+            f"device {d1 * 1e3 / k:.1f} -> {d3 * 1e3 / k:.1f} us per {unit[:-1]}, busy "
+            f"{d1 / (s1 * 1e3):.2f} -> {d3 / (s3 * 1e3):.2f}; cached top: "
+            + ", ".join(f"{n_} {ms * 1e3 / k:.1f} us" for n_, ms in top3))
+    print(f"[14 device loop] {tag}: {k1} {unit}; x {'bit for bit' if same else f'{dx:.2e}'}; "
+          f"wall {s1 * 1e6 / k:.1f} us per {unit[:-1]} per-iteration -> {s3 * 1e6 / k:.1f} us "
+          f"cached graph blocks of {block}; {busy}; host reads per solve {st1['reads']} -> "
+          f"{st3['reads']} ({st3['blocks']} blocks), synchronizing calls seen in the cached solve "
+          f"{syncs}; first solve {s2 * 1e3:.1f} ms ({st2['path']}, {st2['reads']} reads, "
+          f"{st2['captures']} captures), second {sc * 1e3:.1f} ms incl. capture "
+          f"{capture_ms:.1f} ms, cached {s3 * 1e3:.1f} ms; the graph holds {nodes} (kernel "
+          f"nodes; the capture recorded {held}), one replay traced {traced} (trace {tries} of up "
+          f"to {TRACE_TRIES}): "
+          + ", ".join(f"{n_} {ms * 1e3:.1f} us" for n_, ms in in_replay)
+          + "; replay under sync-debug error: no sync", flush=True)
+    return {"iters": k1, "wall_us_per_iter": (s1 * 1e6 / k, s3 * 1e6 / k),
+            "device_us_per_iter": (None if d1 is None else d1 * 1e3 / k,
+                                   None if d3 is None else d3 * 1e3 / k),
+            "busy": (None if d1 is None else d1 / (s1 * 1e3),
+                     None if d3 is None else d3 / (s3 * 1e3)),
+            "reads": (st1["reads"], st3["reads"]), "syncs_seen": syncs,
+            "capture_ms": capture_ms, "first_ms": s2 * 1e3, "capturing_ms": sc * 1e3,
+            "cached_ms": s3 * 1e3, "held": held, "nodes": nodes, "traced": traced,
+            "in_replay": [n_ for n_, _ in in_replay],
+            "bits": same}
+
+
+def push_solve_modes(lt, loop, A, b, dev, card, rounds=10, seed=SEED + 78):
+    """A quasi-Newton outer loop's traffic, in the plain loop and in the
+    default one, interleaved: two inverse L-BFGS models of A built from the
+    same 8 pairs; each round pushes one more pair into both, then solves
+    once with each (alternating which goes first, so both see the same
+    host): with the plain loop (one read per iteration, as before the
+    device loop: the preconditioner is declared not capture-safe for that
+    solve) and with the default loop (a push makes a new signature, whose
+    first solve runs the plain loop; a signature repeats when a push's new
+    tensors take an earlier state's addresses). Checks the same count and
+    bits each round; prints the medians and the per-round ratios."""
+    from linops_tpu_torch.qn.lbfgs import InverseLBFGSOperator
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Hs = {m: lt.InverseLBFGSOperator(torch.float32, A.nrow, mem=8, device=dev)
+          for m in ("plain", "default")}
+
+    def push():
+        s_ = torch.randn(A.nrow, generator=g, device=dev)
+        y_ = A * s_
+        for H in Hs.values():
+            H.push(s_, y_)
+
+    def solve(mode):
+        if mode == "plain":
+            InverseLBFGSOperator.capture_safe = False
+        try:
+            (x, k, _), secs = timed_solve(lambda: lt.cg(A, b, M=Hs[mode], tol=1e-5, maxiter=500))
+        finally:
+            if mode == "plain":
+                del InverseLBFGSOperator.capture_safe
+        return x, k, secs, dict(loop.stats)
+
+    for _ in range(8):
+        push()
+    loop.clear_cache()
+    rec = []
+    for r in range(rounds):
+        push()
+        order = ("plain", "default") if r % 2 == 0 else ("default", "plain")
+        got = {m: solve(m) for m in order}
+        (xp, kp, tp, stp), (xd, kd, td, std) = got["plain"], got["default"]
+        check(kp == kd and torch.equal(xp, xd) and stp["path"] == "per_iteration",
+              f"14a push-then-solve round {r}: {kp} / {kd} iterations, bits "
+              f"{torch.equal(xp, xd)}, plain path {stp['path']}")
+        rec.append((tp, td, kp, std))
+    ratios = sorted(td / tp for tp, td, _, _ in rec)
+    ms = {"plain": float(np.median([tp for tp, _, _, _ in rec])) * 1e3,
+          "default": float(np.median([td for _, td, _, _ in rec])) * 1e3}
+    paths = collections.Counter(st["path"] for *_, st in rec)
+    captures = sum(st["captures"] for *_, st in rec)
+    ratio = float(np.median(ratios))
+    print(f"[14 device loop] 14a push then solve (slice 1's CG, inverse L-BFGS mem 8, one push "
+          f"before each of {rounds} rounds, iterations {[k for _, _, k, _ in rec]}; the two "
+          f"loops interleaved): plain loop {ms['plain']:.2f} ms per solve, default loop "
+          f"{ms['default']:.2f} ms (paths {dict(paths)}, {captures} captures); per-round ratio "
+          f"median {ratio:.3f}, range {ratios[0]:.3f}-{ratios[-1]:.3f}; x bit for bit; {card}",
+          flush=True)
+    return {"plain_ms": ms["plain"], "default_ms": ms["default"], "ratio": ratio,
+            "ratios": ratios, "paths": dict(paths), "captures": captures}
+
+
+def phase14(lt, K, LG, dev, card, ops, main, laplacian_op):
+    """Slice 9's path: the device-resident solve loop (``utils/loop.py``).
+    Slice 1's CG and each phase-10 solve run in the per-iteration loop and
+    in captured graph blocks (first while capturing, then cached): the same
+    count, x bit for bit, the kernels each captured block holds, one replay
+    under sync-debug "error", times, busy shares, host reads. Then the
+    block length on slice 1's CG, K3-K6 in captured matvec chains, K7-K13 in
+    captured routed CGs, and the shifted solves and a trust-region σ-search
+    with σ on the card. Returns (records, the union of the kernels the
+    captured blocks held)."""
+    import importlib.util
+
+    from linops_tpu_torch.utils import loop
+
+    rec, held = {}, {}
+
+    def run(tag, solve, **kw):
+        r = loop_modes(loop, tag, solve, **kw)
+        for n_, c_ in r["held"].items():
+            held[n_] = held.get(n_, 0) + c_
+        rec[tag] = r
+        return r
+
+    # --- 14a. slice 1's CG, and the block length --------------------------------
+    free()
+    A, H, b = main["A"], main["H"], main["b"]
+    run("14a slice-1 cg(D (BᵀB) D + 2I, M = inverse L-BFGS mem 8), n = 65536, tol 1e-5",
+        lambda: lt.cg(A, b, M=H, tol=1e-5, maxiter=500))
+    block = loop.BLOCK
+    sweep = {}
+    try:
+        for j in (1, 2, 4, 8, 16):
+            loop.BLOCK = j
+            loop.clear_cache()
+            for _ in range(2):  # the first solve runs the plain loop, the second captures
+                lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
+            (_, k, _), secs = median_solve(lambda: lt.cg(A, b, M=H, tol=1e-5, maxiter=500))
+            marg = [timed_solve(lambda: lt.cg(A, b, M=H, tol=0.0, maxiter=I_LONG))[1]
+                    - timed_solve(lambda: lt.cg(A, b, M=H, tol=0.0, maxiter=I_SHORT))[1]
+                    for _ in range(REPS)]
+            sweep[j] = (secs * 1e6 / k, float(np.median(marg)) * 1e6 / (I_LONG - I_SHORT), k)
+    finally:
+        loop.BLOCK = block
+        loop.clear_cache()
+    print("[14 device loop] 14a block length on slice 1's CG (cached graphs, medians of "
+          f"{REPS}): "
+          + "; ".join(f"BLOCK {j}: {w:.1f} us per useful iteration at tol 1e-5 ({k} iterations, "
+                      f"{-(-k // j) * j} run), {m:.1f} us marginal (tol 0, {I_LONG} − {I_SHORT})"
+                      for j, (w, m, k) in sweep.items()) + f"; {card}", flush=True)
+    rec["14a block sweep"] = sweep
+    rec["14a push then solve"] = push_solve_modes(lt, loop, A, b, dev, card)
+
+    # --- 14b. K3-K6 in captured matvec chains ------------------------------------
+    for name in WIN_KMAX:
+        free()
+        op = win_operator(lt, name, torch.float32, dev, SEED + 21)
+        v = torch.ones(WIN_N, device=dev)
+        for mode in ("N", "T"):
+            run(f"14b matvec_chain(12, mode {mode}) on the {name} operator (n = 2^22)",
+                lambda: (lt.matvec_chain(op, v, 12, mode=mode), 12, None), unit="applies")
+        del op, v
+
+    # --- 14c. routed CGs: step 1 (K7, K9-K11) and its program without bounds (K13)
+    free()
+    op1, b1 = ops["op1"], dev_vec(N3, dev, SEED + 41)
+    run("14c cg on step 1's routed matrix (n = 2^20), tol 1e-5",
+        lambda: lt.cg(op1, b1, tol=1e-5, maxiter=2000))
+    pf = op1.routed._replace(comb_lo=None, comb_hi=None)
+    op_f = lt.RoutedCSROperator(op1.data, symmetric=True, hermitian=True, routed=pf)
+    run("14c cg on step 1's program without segment bounds (K13), tol 1e-5",
+        lambda: lt.cg(op_f, b1, tol=1e-5, maxiter=2000))
+    del op_f, pf, b1
+
+    # --- 14d. the phase-10 solves -----------------------------------------------
+    free()
+    S = lt.ShiftedOperator(ops["op2"], 8.0)
+    b = dev_vec(ops["A2"].shape[0], dev, SEED + 70)
+    run("14d 10a gmres(30) on auto_8m + 8I, tol 1e-5",
+        lambda: lt.gmres(S, b, tol=1e-5, restart=30, maxiter=20), unit="restarts")
+    run("14d 10a bicgstab on auto_8m + 8I, tol 1e-5", lambda: lt.bicgstab(S, b, tol=1e-5,
+                                                                          maxiter=500))
+    del S, b
+    free()
+    op_l = lt.opSparse(lsq_matrix(SEED + 71), format="auto")
+    b = dev_vec(op_l.nrow, dev, SEED + 72)
+    run("14d 10b damped lsqr on the 2^20 x 2^19 routed matrix, tol 1e-5",
+        lambda: lt.lsqr(op_l, b, damp=1e-3, tol=1e-5, maxiter=500))
+    del op_l, b
+    free()
+    A_op, Alap = laplacian_op
+    n = Alap.shape[0]
+    idx = np.arange(0, n, 8)
+    B = lt.opRestriction(idx, n)
+    Kop = lt.vcat(lt.hcat(A_op, B.T), lt.hcat(B, lt.opZeros(idx.size, idx.size,
+                                                            dtype=torch.float32)))
+    b = dev_vec(n + idx.size, dev, SEED + 73)
+    run("14d 10c minres on the saddle-point system (K3), tol 1e-5",
+        lambda: lt.minres(Kop, b, tol=1e-5, maxiter=2000))
+    del Kop, B, b
+    free()
+    Bm = dev_vec(N3, dev, SEED + 75, k=8)
+    run("14d 10d cg with 8 right-hand sides on step 1's matrix, tol 1e-5",
+        lambda: lt.cg(op1, Bm, tol=1e-5, maxiter=2000))
+    del Bm
+
+    # --- 14e. shifted solves and a trust-region σ-search with σ on the card --------
+    free()
+    nq, mem = 1_000_000, 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 76)
+    Bq = lt.LBFGSOperator(torch.float32, nq, mem=mem, device=dev)
+    for _ in range(mem):
+        s_ = torch.randn(nq, generator=g, device=dev)
+        Bq.push(s_, s_ + 0.1 * torch.randn(nq, generator=g, device=dev))
+    b = dev_vec(nq, dev, SEED + 77)
+    sig = torch.tensor(1.0, device=dev)
+    x_py = {m: lt.solve_shifted_system(Bq, b, 1.0, method=m) for m in ("compact", "ejm")}
+    x_dev = {m: lt.solve_shifted_system(Bq, b, sig, method=m) for m in ("compact", "ejm")}
+    for m in x_py:
+        check(torch.equal(x_py[m], x_dev[m]), f"14e {m}: a σ on the card changes x")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for m in ("compact", "ejm"):
+            lt.solve_shifted_system(Bq, b, sig, method=m)
+        lt.solve_shifted_systems(Bq, b, torch.stack([sig, 2 * sig, 4 * sig]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_py = {m: marginal_ms(lambda: lt.solve_shifted_system(Bq, b, 1.0, method=m))
+            for m in ("compact", "ejm")}
+    t_dev = {m: marginal_ms(lambda: lt.solve_shifted_system(Bq, b, sig, method=m))
+             for m in ("compact", "ejm")}
+    print(f"[14 device loop] 14e solve_shifted_system(L-BFGS n = {nq}, mem {mem}) with σ a "
+          f"tensor on the card: x bit for bit the Python σ's; compact, EJM and three σ at once "
+          f"run under sync-debug error with no sync; per solve (eager events) compact "
+          f"{t_py['compact'] * 1e3:.1f} us (Python σ) / {t_dev['compact'] * 1e3:.1f} us (σ on "
+          f"the card), EJM {t_py['ejm'] * 1e3:.1f} / {t_dev['ejm'] * 1e3:.1f} us; {card}",
+          flush=True)
+    rec["14e shifted"] = {"py_ms": t_py, "dev_ms": t_dev}
+    spec = importlib.util.spec_from_file_location(
+        "example_04", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "examples", "torch", "04_trust_region_on_device.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    radius = 0.25 * float(torch.linalg.vector_norm(lt.solve_shifted_system(Bq, b, 0.0)))
+
+    def tr():
+        p, sigma = ex.tr_subproblem(Bq, -b, radius)
+        return p, loop.stats["iterations"], sigma
+
+    r = run(f"14e trust-region σ-search (example 04's tr_subproblem) on the n = {nq} model, "
+            f"radius {radius:.3g}", tr, unit="iterations")
+    check(r["iters"] >= 2, f"14e: the σ-search took {r['iters']} steps")
+    Sq = lt.ShiftedOperator(Bq, 1.0)
+    run(f"14e minres(ShiftedOperator(B, 1)) on the n = {nq} model, tol 1e-6",
+        lambda: lt.minres(Sq, b, tol=1e-6, maxiter=200))
+    del Bq, Sq, b, x_py, x_dev
+    free()
+    print(f"[14 device loop] kernels held by the captured blocks: {held}", flush=True)
+    return rec, held
 
 
 GRID11 = 2048  # phase 11: the reference bench's stencil grid (bench.py:306-316)
@@ -2357,6 +2833,7 @@ def phase13(lt, K, LG, dev, card, ops):
     from linops_tpu_torch.parallel.comm import gather_full
     from linops_tpu_torch.parallel.dryrun import dryrun_multichip
     from linops_tpu_torch.parallel.scaling_bench import ici_projection
+    from linops_tpu_torch.utils import loop
 
     f32 = torch.float32
     t_phase = time.perf_counter()
@@ -2394,19 +2871,29 @@ def phase13(lt, K, LG, dev, card, ops):
         H.push(s_, A @ s_)
     A_sh, H_sh = shard_operator(A, mesh), shard_operator(H, mesh)
     b_sh = place(b)
-    reset()
-    x_un, k_un, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
-    torch.cuda.synchronize()
-    c_un = counts()
+    # a sharded operator is not capture-safe: its solve takes the per-iteration
+    # loop, so the unsharded launches to match are that loop's (a graph block
+    # also runs the frozen iterations of its last block)
+    block = loop.BLOCK
+    loop.BLOCK, loop.CAPTURE = 1, False
+    try:
+        reset()
+        x_un, k_un, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
+        torch.cuda.synchronize()
+        c_un = counts()
+    finally:
+        loop.BLOCK, loop.CAPTURE = block, True
+    x_g, k_g, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
     reset()
     x_sh, k_sh, _ = lt.cg(A_sh, b_sh, M=H_sh, tol=1e-5, maxiter=500)
     torch.cuda.synchronize()
     c_sh = counts()
+    check(loop.stats["path"] == "per_iteration", f"13b: the sharded solve took {loop.stats}")
     launches["13b"] = c_sh
-    same = torch.equal(gather_full(x_sh), x_un)
-    check(k_sh == k_un and same and c_sh == c_un and c_sh.get("bsr_matvec", 0) > 0,
-          f"13b: iterations {k_sh} against {k_un}, x bit for bit {same}, launches {c_sh} "
-          f"against {c_un}")
+    same = torch.equal(gather_full(x_sh), x_un) and torch.equal(x_g, x_un)
+    check(k_sh == k_un == k_g and same and c_sh == c_un and c_sh.get("bsr_matvec", 0) > 0,
+          f"13b: iterations {k_sh} against {k_un} ({k_g} in graph blocks), x bit for bit "
+          f"{same}, launches {c_sh} against {c_un}")
     coll = {"A": collective_counts(lambda: A_sh.apply(b_sh, "N")),
             "M": collective_counts(lambda: H_sh.apply(b_sh, "N"))}
 
@@ -2417,19 +2904,22 @@ def phase13(lt, K, LG, dev, card, ops):
             lt.cg(op, rhs, M=M_, tol=0.0, maxiter=iters)
             torch.cuda.synchronize()
             return (time.perf_counter() - t) * 1e6
-        run(3)
+        run(I_SHORT)  # the plain loop (the unsharded signature's first solve)
+        run(I_SHORT)  # captures the unsharded block
         return float(np.median([(run(I_LONG) - run(I_SHORT)) / (I_LONG - I_SHORT)
                                 for _ in range(REPS)]))
 
     us_un, us_sh = cg_iter_us(A, b, H), cg_iter_us(A_sh, b_sh, H_sh)
     print(f"[13b slice 1 sharded] cg(D (BᵀB) D + 2·I, M = inverse L-BFGS mem 8), n = {N}, "
           f"both through shard_operator on a 1-rank mesh: {k_sh} iterations (unsharded {k_un}), "
-          f"x bit for bit; launches {c_sh} (unsharded {c_un}: "
+          f"x bit for bit (and the unsharded graph blocks'); launches {c_sh} (unsharded "
+          f"per-iteration loop {c_un}: "
           f"{c_sh.get('bsr_matvec', 0) / max(k_sh + 1, 1):.2f} K1 and "
           f"{c_sh.get('bsr_rmatvec', 0) / max(k_sh + 1, 1):.2f} K2 per iteration); collectives "
-          f"per apply {coll}; {us_sh:.1f} us per iteration sharded, {us_un:.1f} us unsharded "
-          f"(host clock, marginal {I_LONG} − {I_SHORT}, median of {REPS}); {card}", flush=True)
-    del A, A_sh, H, H_sh, B, blocks, cols, x_un, x_sh, b, b_sh
+          f"per apply {coll}; {us_sh:.1f} us per iteration sharded (per-iteration loop), "
+          f"{us_un:.1f} us unsharded (graph blocks) (host clock, marginal {I_LONG} − {I_SHORT}, "
+          f"median of {REPS}); {card}", flush=True)
+    del A, A_sh, H, H_sh, B, blocks, cols, x_un, x_sh, x_g, b, b_sh
 
     # --- 13c. the windowed operators sharded ----------------------------------------------
     for name in WIN_KMAX:
@@ -2716,17 +3206,20 @@ def main() -> int:
     b = torch.randn(N, generator=g, device=dev)
     pair_s = [torch.randn(N, generator=g, device=dev) for _ in range(8)]
 
-    K.reset_launch_counts()
-    A = graph("auto")
-    H = lt.InverseLBFGSOperator(f32, N, mem=8, device=dev)
-    for s in pair_s:
-        H.push(s, A * s)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x, k, res = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
-    torch.cuda.synchronize()
-    t_cg = time.perf_counter() - t0
-    launches = K.launch_counts()
+    def drive_main():
+        """The main path, counted: build A and the preconditioner, solve."""
+        K.reset_launch_counts()
+        A = graph("auto")
+        H = lt.InverseLBFGSOperator(f32, N, mem=8, device=dev)
+        for s in pair_s:
+            H.push(s, A * s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, k, res = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
+        torch.cuda.synchronize()
+        return A, H, x, k, res, time.perf_counter() - t0, K.launch_counts()
+
+    A, H, x, k, res, t_cg, launches = drive_main()
     check(launches["bsr_matvec"] > 0 and launches["bsr_rmatvec"] > 0,
           f"a kernel never ran on the main path: {launches}")
     check(k < 500, f"cg did not converge in 500 iterations (residual {float(res):.3e})")
@@ -2832,17 +3325,30 @@ def main() -> int:
             lt.cg(op, b, M=H, tol=0.0, maxiter=iters)
             torch.cuda.synchronize()
             return (time.perf_counter() - t) * 1e3
-        run(3)
+        run(I_SHORT)  # the plain loop (the signature's first solve)
+        run(I_SHORT)  # captures the block
         return float(np.median([(run(I_LONG) - run(I_SHORT)) / (I_LONG - I_SHORT)
                                 for _ in range(REPS)]))
 
     cg_kernel, cg_plain = cg_iter_ms(A), cg_iter_ms(A_plain)
-    print(f"[5 times] cg iteration (2 BSR applies, 1 L-BFGS apply, 1 host sync), 8x128 f32: "
+    print(f"[5 times] cg iteration (2 BSR applies, 1 L-BFGS apply; captured blocks of "
+          f"{lt.utils.loop.BLOCK}, 1 host read per block), 8x128 f32: "
           f"kernels {cg_kernel * 1e3:.1f} us, plain backend {cg_plain * 1e3:.1f} us; {card}",
           flush=True)
 
     win_times = phase5_windows(lt, K, dev, card)
     lane_times = phase5_lanes(lt, LG, dev, ops, p3s, card)
+
+    # the main path once more under torch.profiler (after phase 5's traces):
+    # the same launch counts as phase 4's run, and those the trace counts
+    free()
+    (*_, k_again, _, _, counted), _, traced, tries = trace_until(drive_main, by_symbol(launches))
+    check(counted == launches and k_again == k and traced == by_symbol(launches),
+          f"the main path's launch counts {launches} (rerun {counted}, {k_again} iterations) "
+          f"are not the kernels its trace ran {traced} ({tries} traces)")
+    print(f"[4 main path] rerun under torch.profiler: {k_again} iterations, launch counts "
+          f"{ {n_: c_ for n_, c_ in counted.items() if c_} } = the trace's kernels {traced} "
+          f"(trace {tries} of up to {TRACE_TRIES})", flush=True)
 
     # --- 11. slice 6 (after the times; it runs no profiler) ---------------------
     phase11(lt, K, LG, dev, card, ops, {"blocks": blocks, "cols": cols, "A": A,
@@ -2865,13 +3371,23 @@ def main() -> int:
 
     # --- 10. slice 4 (after the times: its profiler traces come last) ---------
     slice4_launches, _ = phase10(lt, K, LG, dev, ops, laplacian_op)
+    # --- 14. slice 9: the device loop (profiler traces, after phase 5) ----------
+    _, held = phase14(lt, K, LG, dev, card, ops, {"A": A, "H": H, "b": b}, laplacian_op)
     del laplacian_op
+    for name in ("bsr_matvec", "bsr_rmatvec", "bsr_matvec_windowed", "bsr_rmatvec_windowed",
+                 "bsr_matvec_multiwin", "bsr_rmatvec_multiwin", "lane_gather",
+                 "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum",
+                 "lane_gather_mul_segsum", "tiled_combine"):
+        check(held.get(name, 0) > 0, f"{name} is in no captured block of the slice-9 path")
     for name in ("lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum",
                  "lane_gather_mul_segsum", "bsr_matvec_windowed"):
         check(slice4_launches[name] > 0, f"{name} never ran on the slice-4 path")
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
-    # comes after phase 5's profiler readings, as phase 10's do)
+    # comes after phase 5's profiler readings, as phase 10's do), its blocks
+    # captured by a second run (the first runs the plain loop)
+    lt.cg(A, b, M=H, tol=0.0, maxiter=I_LONG)
+    lt.cg(A, b, M=H, tol=0.0, maxiter=I_LONG)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lt.cg(A, b, M=H, tol=0.0, maxiter=I_LONG)

@@ -34,6 +34,7 @@ import abc
 import copy
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -45,6 +46,7 @@ __all__ = [
     "mode_conjugated",
     "MODES",
     "default_device",
+    "capture_signature",
 ]
 
 
@@ -144,6 +146,80 @@ def _first_device(value):
     return None
 
 
+def _walk(value, sig: list, tensors: list, seen: set):
+    """Append ``value``'s signature to ``sig`` (and its tensors to
+    ``tensors``): tensors by address, version, shape, strides, dtype and
+    device (a CPU scalar by value as well: an apply reads it on the host),
+    operators by identity and fields, containers item by item, plans (any
+    other object with fields) by their fields, numbers and strings by value,
+    anything else by identity."""
+    if isinstance(value, torch.Tensor):
+        tensors.append(value)
+        item = (value.data_ptr(), value._version, tuple(value.shape), value.stride(),
+                value.dtype, value.device)
+        if not value.is_cuda and value.numel() == 1:
+            item += (value.item(),)
+        sig.append(item)
+        plan = getattr(value, "_combine_plan", None)  # kernels/lane_gather.py
+        if plan is not None:
+            _walk(plan, sig, tensors, seen)
+    elif isinstance(value, LinearOperator):
+        if id(value) in seen:
+            sig.append(("seen", id(value)))
+            return
+        seen.add(id(value))
+        cls = type(value)
+        sig.append((cls, id(value)))
+        for f in (cls._fields_tensors + cls._fields_static + cls._fields_derived
+                  + cls._fields_index):
+            _walk(getattr(value, f, None), sig, tensors, seen)
+    elif isinstance(value, (tuple, list)):
+        sig.append((type(value), len(value)))
+        for v in value:
+            _walk(v, sig, tensors, seen)
+    elif isinstance(value, dict):
+        sig.append((dict, len(value)))
+        for k, v in value.items():
+            sig.append(k if isinstance(k, (int, float, str, bool, tuple)) else id(k))
+            _walk(v, sig, tensors, seen)
+    elif value is None or isinstance(value, (bool, int, float, complex, str, torch.dtype,
+                                             torch.device)):
+        sig.append(value)
+    elif isinstance(value, np.generic):
+        sig.append(value.item())
+    elif hasattr(value, "__dict__") and not callable(value) and id(value) not in seen:
+        seen.add(id(value))
+        sig.append((type(value), id(value)))
+        for v in vars(value).values():
+            _walk(v, sig, tensors, seen)
+    else:
+        sig.append((type(value), id(value)))
+
+
+def capture_signature(op: "LinearOperator") -> tuple:
+    """(key, tensors) of one walk of ``op``'s graph. The key is what a CUDA
+    graph captured over ``op``'s applies depends on, hashable: every node's
+    class, identity and fields (static values by value), and every tensor it
+    reads by address, version and layout. A new tensor (an L-BFGS push), an
+    in-place edit (a bumped ``_version``) or a rebuilt plan changes the key,
+    so a captured graph never replays over memory it no longer owns
+    (``utils/loop.py`` holds the operators of each graph it keeps). The
+    tensors are every tensor the graph holds (fields, derived plans,
+    indices)."""
+    sig: list = []
+    tensors: list = []
+    _walk(op, sig, tensors, set())
+    return tuple(sig), tensors
+
+
+def _is_capture_safe(value) -> bool:
+    if isinstance(value, LinearOperator):
+        return value.capture_safe
+    if isinstance(value, tuple):
+        return all(_is_capture_safe(v) for v in value)
+    return type(value).__name__ != "DTensor"
+
+
 # ----------------------------------------------------------------------------
 # Base class
 # ----------------------------------------------------------------------------
@@ -200,6 +276,16 @@ class LinearOperator(abc.ABC):
             if d is not None:
                 return d
         return None
+
+    @property
+    def capture_safe(self) -> bool:
+        """Whether an apply can run inside a CUDA graph: it reads nothing
+        back to the host and does no host work per call (after its lazy
+        plans exist). A composite is safe when everything it holds is; a leaf
+        that is not (a host factorization, a timer, a nested solve, a
+        sharded operator) says so, and solves over it run the per-iteration
+        loop (``utils/loop.py``)."""
+        return all(_is_capture_safe(getattr(self, f, None)) for f in self._fields_tensors)
 
     # ------------------------------------------------------------------
     # Static metadata

@@ -86,11 +86,19 @@ class FunctionOperator(LinearOperator):
     """Operator backed by product functions on tensors.
 
     ``prod(v) -> y`` is required; ``tprod``/``ctprod`` are optional and the
-    inference lattice fills the gaps (or raises 'unable to infer ...')."""
+    inference lattice fills the gaps (or raises 'unable to infer ...').
+
+    ``capture_safe=True`` declares that the functions may be captured in a
+    CUDA graph and replayed by the solve loops (``utils/loop.py``): they read
+    nothing back to the host, their result depends on their argument and on
+    tensors they hold that stay alive and change only in place (a replay
+    reads those at the addresses it captured), and on no Python value that
+    changes between calls (a capture bakes it in). The default, False, runs
+    solves over the operator in the per-iteration loop."""
 
     _fields_tensors = ()
     _fields_static = ("_nrow", "_ncol", "_symmetric", "_hermitian", "_dtype",
-                      "_prod_fn", "_tprod_fn", "_ctprod_fn")
+                      "_prod_fn", "_tprod_fn", "_ctprod_fn", "_capture_safe")
 
     def __init__(
         self,
@@ -103,8 +111,10 @@ class FunctionOperator(LinearOperator):
         symmetric: bool = False,
         hermitian: bool = False,
         dtype=None,
+        capture_safe: bool = False,
     ):
         super().__init__()
+        self._capture_safe = bool(capture_safe)
         self._nrow = int(nrow)
         self._ncol = int(ncol)
         self._symmetric = bool(symmetric)
@@ -133,6 +143,10 @@ class FunctionOperator(LinearOperator):
     @property
     def hermitian(self):
         return self._hermitian
+
+    @property
+    def capture_safe(self) -> bool:
+        return self._capture_safe
 
     def _prod(self, v):
         return self._prod_fn(v)

@@ -39,6 +39,7 @@ import torch
 
 from ..core.precision import check_f32_exact
 from ..core.segsum import segment_plan, segment_sum
+from ..utils import loop
 
 __all__ = [
     "bsr_matvec_kernel",
@@ -75,10 +76,21 @@ __all__ = [
 ]
 
 # kernel name -> launches since the last reset; bumped only where a kernel
-# is launched (never by the plain versions)
+# is launched (never by the plain versions), a launch recorded into a CUDA
+# graph being captured included; a replay of that graph runs the kernel
+# without the wrapper and is not counted (``utils/loop.py``)
 _LAUNCHES = {"bsr_matvec": 0, "bsr_rmatvec": 0, "bsr_matvec_windowed": 0,
              "bsr_rmatvec_windowed": 0, "bsr_matvec_multiwin": 0,
              "bsr_rmatvec_multiwin": 0}
+loop.register_launches(_LAUNCHES)
+# kernel name -> the device function each of its launches runs once: the name
+# a profiler trace or a CUDA graph's kernel node gives it (K2, K4 and K6 also
+# run a combine pass)
+LAUNCH_SYMBOLS = {"bsr_matvec": "bsr_matvec_kernel", "bsr_rmatvec": "rmatvec_chunk_kernel",
+                  "bsr_matvec_windowed": "bsr_matvec_windowed_kernel",
+                  "bsr_rmatvec_windowed": "windowed_combine_kernel",
+                  "bsr_matvec_multiwin": "bsr_matvec_multiwin_kernel",
+                  "bsr_rmatvec_multiwin": "multiwin_combine_kernel"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (block dtype, vector/output dtype) pairs the kernels are instantiated for
@@ -115,7 +127,9 @@ _MAX_LANES = 8  # K5/K6 lanes the CUDA kernels take
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last ``reset_launch_counts()``."""
+    """Kernel launches since the last ``reset_launch_counts()``: one per
+    wrapper call that launched its kernel or recorded it into a CUDA graph
+    being captured (a replay is not counted)."""
     return dict(_LAUNCHES)
 
 

@@ -41,6 +41,7 @@ import ctypes
 import torch
 
 from ..core.segsum import SegmentPlan, segment_plan, segment_sum
+from ..utils import loop
 from .bsr_spmv import _check_launch, _device_stream
 
 __all__ = [
@@ -69,16 +70,29 @@ __all__ = [
 RADIX = 128
 
 # kernel name -> launches since the last reset; bumped only where a kernel
-# is launched (never by the plain versions)
+# is launched (never by the plain versions), a launch recorded into a CUDA
+# graph being captured included; a replay of that graph runs the kernel
+# without the wrapper and is not counted (``utils/loop.py``)
 _LAUNCHES = {"lane_gather": 0, "lane_gather_mul": 0, "lane_gather_mul_t_batched": 0,
              "lane_gather_sum": 0, "lane_segsum": 0, "lane_gather_mul_segsum": 0,
              "tiled_combine": 0, "lane_gather_mul_t": 0}
+loop.register_launches(_LAUNCHES)
+# kernel name -> the device function each of its launches runs once: the name
+# a profiler trace or a CUDA graph's kernel node gives it (K9 and K14 share one)
+LAUNCH_SYMBOLS = {"lane_gather": "gather_kernel", "lane_gather_mul": "gather_mul_kernel",
+                  "lane_gather_mul_t_batched": "gather_mul_t_kernel",
+                  "lane_gather_sum": "gather_sum_kernel", "lane_segsum": "segsum_kernel",
+                  "lane_gather_mul_segsum": "gather_mul_segsum_kernel",
+                  "tiled_combine": "tiled_combine_kernel",
+                  "lane_gather_mul_t": "gather_mul_t_kernel"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last ``reset_launch_counts()``."""
+    """Kernel launches since the last ``reset_launch_counts()``: one per
+    wrapper call that launched its kernel or recorded it into a CUDA graph
+    being captured (a replay is not counted)."""
     return dict(_LAUNCHES)
 
 

@@ -430,6 +430,9 @@ class IterativeInverseOperator(LinearOperator):
 
     _fields_tensors = ("op",)
     _fields_static = ("_tol", "_maxiter", "_solver")
+    # each apply is a solve that reads its stopping test back (its own
+    # loop still runs in captured blocks)
+    capture_safe = False
 
     _SOLVERS = ("auto", "cg", "minres", "bicgstab", "gmres")
 

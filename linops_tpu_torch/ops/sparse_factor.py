@@ -26,6 +26,8 @@ class SparseInverseOperator(LinearOperator):
 
     _fields_tensors = ()
     _fields_static = ("_n", "_np_dtype", "_symmetric", "_hermitian", "_lu")
+    # each apply copies v to the host for SuperLU and the result back
+    capture_safe = False
 
     def __init__(self, A, *, symmetric: bool = False, hermitian: bool = False):
         super().__init__()

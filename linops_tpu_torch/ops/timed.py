@@ -25,6 +25,8 @@ _SLOT = {"N": "prod", "T": "tprod", "H": "ctprod", "C": "prod"}
 class TimedOperator(LinearOperator):
     _fields_tensors = ("op",)
     _fields_static = ()
+    # CUDA events and a host clock around every apply
+    capture_safe = False
 
     def __init__(self, op):
         super().__init__()

@@ -9,7 +9,7 @@ Counterpart of ``linops_tpu/qn/shifted_solve.py`` (Erway, Jain and Marcia,
   σ = 0 on a partly filled ring included. ``solve_shifted_systems`` solves
   several σ at once and shares both passes among them.
 - ``ejm``: the EJM recursion, 2·mem sequential rank-1 corrections (a host
-  loop of small tensor ops). At σ = 0 on a partly filled ring it is
+  loop of small tensor ops that reads nothing back). At σ = 0 on a partly filled ring it is
   degenerate (the oldest pair's unit a-vector makes 1 − x₀⟨a, p⟩ = 0), and
   it raises there; prefer ``compact``.
 
@@ -20,6 +20,7 @@ push deferred them. Everything runs on the state's device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.precision import pdot, pmatmul
@@ -30,21 +31,21 @@ __all__ = ["solve_shifted_system", "solve_shifted_systems", "ldiv"]
 
 def _solve_shifted(state: LBFGSState, b, sigma):
     """The EJM recursion. The pair of step i (0-based) is slot
-    (insert + i//2 + 1) mod mem; even steps use its a-vector, odd steps its
-    b-vector, with signs +1 and −1."""
+    (insert + i//2 + 1) mod mem, gathered on the device (no read of
+    ``insert``); even steps use its a-vector, odd steps its b-vector, with
+    signs +1 and −1."""
     mem, n = state.S.shape
     dt = b.dtype
     x0 = 1.0 / (1.0 / state.gamma + sigma)
     x = x0 * b
     two_mem = 2 * mem
     t_signs = torch.where(torch.arange(two_mem, device=b.device) % 2 == 0, 1.0, -1.0).to(dt)
+    slots = torch.remainder(state.insert.long() + torch.arange(1, mem + 1, device=b.device), mem)
     P = torch.zeros((two_mem, n), dtype=dt, device=b.device)
     v = torch.zeros((two_mem,), dtype=dt, device=b.device)
-    insert = int(state.insert)
     for i in range(two_mem):
-        k = (insert + i // 2 + 1) % mem
         sign = 1.0 if i % 2 == 0 else -1.0
-        u = state.A[k] if sign == 1.0 else state.B[k]
+        u = (state.A if sign == 1.0 else state.B).index_select(0, slots[i // 2:i // 2 + 1])[0]
         # p_i = x0·u + Σ_{t<i} sign_t·v_t·⟨p_t, u⟩·p_t, one (2mem, n) pass each way
         c = torch.zeros_like(v)
         c[:i] = t_signs[:i] * v[:i] * pmatmul(P[:i], u)
@@ -81,12 +82,29 @@ def _check(B: LBFGSOperator, what: str):
         raise ValueError(f"{what} requires a forward L-BFGS operator")
 
 
+def _host_values(x):
+    """σ as numpy when it can be read without waiting on the device (a
+    Python number, a sequence, numpy, a CPU tensor), else None: a σ on the
+    card, or one under a ``torch.func`` transform, is the counterpart of the
+    reference's traced σ (``_is_concrete``), left unchecked."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu" or torch._C._functorch.is_functorch_wrapped_tensor(x):
+            return None
+        return x.detach().numpy()
+    return np.asarray(x)
+
+
 def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact"):
     """Solve ``(B + σI) x = b`` for a forward L-BFGS operator B and σ ≥ 0.
     ``method="compact"`` (default) is the Woodbury solve, ``method="ejm"``
-    the Erway-Jain-Marcia recursion. Returns x (n,) on B's device."""
+    the Erway-Jain-Marcia recursion. Returns x (n,) on B's device.
+
+    σ may be a tensor on the card (a trust-region loop's own value): then
+    nothing is read back, and σ ≥ 0 is the caller's contract, as under the
+    reference's jit. A Python or CPU σ is checked."""
     _check(B, "solve_shifted_system")
-    if float(sigma) < 0:
+    host = _host_values(sigma)
+    if host is not None and float(host) < 0:
         raise ValueError("σ must be nonnegative")
     dev = B.state.S.device
     b = torch.as_tensor(b, dtype=B.dtype, device=dev)
@@ -95,7 +113,7 @@ def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact")
         return _solve_shifted_compact(B.state, b, sigma_t.reshape(1))[0]
     if method == "ejm":
         state = B._materialized_state()
-        if float(sigma) == 0 and bool((state.ys == 0).any()):
+        if host is not None and float(host) == 0 and bool((state.ys == 0).any()):
             raise ValueError(
                 "EJM is degenerate at sigma=0 on a partially-filled ring (the oldest pair's "
                 "unit a-vector makes 1 - x0<a,p> = 0); use the default compact method")
@@ -105,12 +123,14 @@ def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact")
 
 def solve_shifted_systems(B: LBFGSOperator, b, sigmas):
     """Solve ``(B + σᵢI) x = b`` for a batch of shifts at once (the compact
-    solve, both (2·mem, n) passes shared). Returns (len(sigmas), n)."""
+    solve, both (2·mem, n) passes shared). Returns (len(sigmas), n). Shifts
+    on the card are not read back (see ``solve_shifted_system``)."""
     _check(B, "solve_shifted_systems")
+    host = _host_values(sigmas)
+    if host is not None and bool((host < 0).any()):
+        raise ValueError("σ must be nonnegative")
     dev = B.state.S.device
     sig = torch.as_tensor(sigmas, dtype=B.dtype, device=dev).reshape(-1)
-    if bool((sig < 0).any()):
-        raise ValueError("σ must be nonnegative")
     b = torch.as_tensor(b, dtype=B.dtype, device=dev)
     return _solve_shifted_compact(B.state, b, sig)
 

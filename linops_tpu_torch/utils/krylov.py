@@ -3,20 +3,23 @@ GMRES, MINRES (one or several right-hand sides), BiCGSTAB, LSQR, power
 iteration and Chebyshev iteration.
 
 Counterpart of ``linops_tpu/utils/krylov.py``: the same recurrences, the same
-stopping tests and the same returned tuples. PyTorch runs eagerly, so each
-solver is a host loop that enqueues device work and reads one scalar back
-per iteration (its stopping test; GMRES once per restart cycle, Chebyshev
-and power iteration never). Every solver works on the operator's device,
-in ``promote(b, op)``; a preconditioner's output is cast to that dtype. The
+stopping tests and the same returned tuples. Where the reference runs each
+solve as one ``lax.while_loop``/``fori_loop`` on the device, the port runs
+its loops on ``utils/loop.py``: masked iterations in blocks, one host read
+per block (none for Chebyshev, power iteration and the matvec chain), each
+block a CUDA-graph replay on the card. The counts and bits are those of a
+plain per-iteration loop. Every solver works on the operator's device, in
+``promote(b, op)``; a preconditioner's output is cast to that dtype. The
 reference's TPU residency hint (``chain_resident``) has no counterpart.
-Under ``torch.func.vmap`` the solvers with a stopping test (all but GMRES,
-which writes its Arnoldi basis in place) stop as ``jax.vmap`` of a while
-loop does (``_while``).
+Under ``torch.func.vmap`` the solvers with a stopping test stop as
+``jax.vmap`` of a while loop does (``loop.device_while``).
 
 GMRES keeps the reference's scheme: one Arnoldi cycle of ``restart`` steps
 with full (classical Gram-Schmidt) orthogonalization against the whole
-basis, then the small least-squares problem solved through an SVD with the
-reference's cutoff, and it counts restarts, not iterations.
+basis (one captured graph on the card), then the small least-squares
+problem solved eagerly through an SVD with the reference's cutoff
+(``torch.linalg.svd`` checks its status on the host), and it counts
+restarts, not iterations: one host read per restart.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ..core.base import LinearOperator
 from ..core.precision import pcolumn_dot, pmatmul, pvdot
+from . import loop
 
 __all__ = ["matvec_chain", "cg", "gmres", "minres", "bicgstab", "lsqr", "chebyshev",
            "power_iteration"]
@@ -33,13 +37,14 @@ __all__ = ["matvec_chain", "cg", "gmres", "minres", "bicgstab", "lsqr", "chebysh
 def matvec_chain(op: LinearOperator, v, iters: int = 100, mode: str = "N",
                  normalize: bool = True):
     """Apply ``op`` ``iters`` times (normalizing each step by default to keep
-    magnitudes bounded). Returns the final vector."""
-    x = v
-    for _ in range(iters):
-        x = op.apply(x, mode)
-        if normalize:
-            x = x / torch.linalg.vector_norm(x)
-    return x
+    magnitudes bounded), with no host read. Returns the final vector."""
+
+    def body(state, _):
+        x = op.apply(state[0], mode)
+        return (x / torch.linalg.vector_norm(x),) if normalize else (x,)
+
+    return loop.device_fori(body, (v,), iters, ops=(op,), key=("matvec_chain", mode,
+                                                               normalize))[0]
 
 
 def _setup(op, b, M=None):
@@ -59,56 +64,6 @@ def _setup(op, b, M=None):
 def _nonzero(x):
     """x, with exact zeros replaced by 1 (the reference's guarded divisor)."""
     return torch.where(x == 0, torch.ones_like(x), x)
-
-
-def _batched(t) -> bool:
-    """Whether ``t`` carries a ``torch.func.vmap`` batch at some level."""
-    F = torch._C._functorch
-    while F.is_functorch_wrapped_tensor(t):
-        if F.is_batchedtensor(t):
-            return True
-        t = F.get_unwrapped(t)
-    return False
-
-
-def _any_member(t) -> bool:
-    """Whether any member of a vmapped boolean is true: one host read of the
-    whole unwrapped batch."""
-    F = torch._C._functorch
-    while F.is_functorch_wrapped_tensor(t):
-        t = F.get_unwrapped(t)
-    return bool(t.any())
-
-
-def _while(cond, body, state: tuple, maxiter: int):
-    """``state = body(state, j)`` while ``cond(state)`` holds, at most
-    ``maxiter`` times (j counts the iterations). Returns (state, iterations).
-
-    Outside ``torch.func.vmap`` it is a host loop reading one bool per
-    iteration, and the count is an ``int``. Under vmap it does what
-    ``jax.vmap`` of a ``lax.while_loop`` does: every member runs until all
-    have stopped, a member whose test fails keeps its state from then on
-    (``torch.where`` on a per-member mask, on the device), "any member still
-    running" is read from the unwrapped batch once per iteration, and the
-    count is a per-member tensor."""
-    go = cond(state)
-    if not _batched(go):
-        k = 0
-        while k < maxiter and bool(go):
-            state = body(state, k)
-            k += 1
-            go = cond(state)
-        return state, k
-    k = torch.zeros_like(go, dtype=torch.int64)
-    act = go & (k < maxiter)
-    j = 0
-    while _any_member(act):
-        new = body(state, j)
-        state = tuple(torch.where(act, a, b) for a, b in zip(new, state))
-        k = k + act.long()
-        act = cond(state) & (k < maxiter)
-        j += 1
-    return state, k
 
 
 def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
@@ -131,7 +86,7 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
     tol2 = (tol * torch.linalg.vector_norm(b)) ** 2
     rr = pvdot(r, r).real
 
-    def body(state, _):
+    def body(state, consts, _):
         x, r, p, rz, _ = state
         Ap = op.apply(p, "N")
         alpha = rz / pvdot(p, Ap)
@@ -142,7 +97,8 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
         p = z + (rz_new / rz) * p
         return x, r, p, rz_new, pvdot(r, r).real
 
-    (x, _, _, _, rr), k = _while(lambda s: s[4] > tol2, body, (x, r, p, rz, rr), maxiter)
+    (x, _, _, _, rr), k = loop.device_while(lambda s, c: s[4] > c[0], body, (x, r, p, rz, rr),
+                                            maxiter, consts=(tol2,), ops=(op, M), key=("cg",))
     return x, k, torch.sqrt(rr)
 
 
@@ -161,8 +117,9 @@ def _cg_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int
     rz = pcolumn_dot(R, Z)
     tol2 = (tol * torch.linalg.vector_norm(B, dim=0)) ** 2
     act = pcolumn_dot(R, R).real > tol2
-    k = 0
-    while k < maxiter and bool(act.any()):
+
+    def body(state, consts, _):
+        X, R, P, rz, act = state
         AP = op.apply_matrix(P, "N")
         pAp = pcolumn_dot(P, AP)
         zero = torch.zeros_like(rz)
@@ -174,9 +131,10 @@ def _cg_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int
         rz_new = pcolumn_dot(R, Z)
         beta = torch.where(act & (rz != 0), rz_new / _nonzero(rz), zero)
         P = Z + P * beta[None, :]
-        rz = rz_new
-        act = pcolumn_dot(R, R).real > tol2
-        k += 1
+        return X, R, P, rz_new, pcolumn_dot(R, R).real > consts[0]
+
+    (X, R, *_), k = loop.device_while(lambda s, c: s[4].any(), body, (X, R, P, rz, act), maxiter,
+                                      consts=(tol2,), ops=(op, M), key=("cg_multi",))
     return X, k, torch.sqrt(pcolumn_dot(R, R).real)
 
 
@@ -196,40 +154,63 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
     left preconditioner ``M ≈ A⁻¹``. Each restart cycle runs ``restart``
     Arnoldi steps with full orthogonalization, then solves the small
     least-squares problem. Stops when ‖b − Ax‖ ≤ tol·‖b‖ or after
-    ``maxiter`` cycles. Returns (x, restarts used, final residual norm)."""
+    ``maxiter`` cycles. Returns (x, restarts used, final residual norm).
+
+    The Arnoldi cycle writes its basis in place, one captured graph on the
+    card (``loop.device_call``; the first cycle of a signature runs
+    eagerly). Under ``torch.func.vmap`` it stacks the rows instead (vmap
+    cannot write a batched row in place), and the restarts stop per member
+    as ``jax.vmap`` of a while loop does."""
     n = b.shape[0]
     b, dt, _, prec = _setup(op, b, M)
     x = torch.zeros_like(b) if x0 is None else x0.to(dt)
     m = min(restart, n)
     bnorm = torch.linalg.vector_norm(b)
     tol_abs = tol * _nonzero(bnorm)
-    rows = torch.arange(m + 1, device=b.device)
 
-    def cycle(x):
+    def arnoldi(x, b):
+        """(V, H, β) of one cycle from x (every tensor it reads is an
+        argument or made here: it may be captured)."""
+        rows = torch.arange(m + 1, device=b.device)
+        zero = torch.zeros((), dtype=dt, device=b.device)
         r = prec(b - op.apply(x, "N"))
         beta = torch.linalg.vector_norm(r)
+        if loop._batched(r):  # functional: rows stacked, columns of H stacked
+            Vrows = [r / _nonzero(beta)]
+            cols = []
+            for j in range(m):
+                V = torch.stack(Vrows + [torch.zeros_like(r)] * (m + 1 - len(Vrows)))
+                w = prec(op.apply(Vrows[j], "N"))
+                hcol = torch.where(rows <= j, pmatmul(V.conj(), w), zero)
+                w = w - pmatmul(V.T, hcol)
+                hj1 = torch.linalg.vector_norm(w)
+                Vrows.append(w / _nonzero(hj1))
+                cols.append(torch.where(rows == j + 1, hj1.to(dt), hcol))
+            return torch.stack(Vrows), torch.stack(cols, dim=1), beta
         V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
         H = torch.zeros((m + 1, m), dtype=dt, device=b.device)
         V[0] = r / _nonzero(beta)
         for j in range(m):
             w = prec(op.apply(V[j], "N"))
-            hcol = torch.where(rows <= j, pmatmul(V.conj(), w), torch.zeros((), dtype=dt,
-                                                                             device=b.device))
+            hcol = torch.where(rows <= j, pmatmul(V.conj(), w), zero)
             w = w - pmatmul(V.T, hcol)
             hj1 = torch.linalg.vector_norm(w)
             V[j + 1] = w / _nonzero(hj1)
             H[:, j] = hcol
             H[j + 1, j] = hj1
-        e1 = torch.zeros((m + 1,), dtype=dt, device=b.device)
-        e1[0] = beta
-        return x + pmatmul(V[:m].T, _lstsq(H, e1))
+        return V, H, beta
+
+    def body(state, consts, _):
+        x, _ = state
+        b = consts[0]
+        V, H, beta = loop.device_call(arnoldi, (x, b), ops=(op, M), key=("gmres", m))
+        e1 = torch.where(torch.arange(m + 1, device=b.device) == 0, beta.to(dt), 0.0)
+        x = x + pmatmul(V[:m].T, _lstsq(H, e1))
+        return x, torch.linalg.vector_norm(b - op.apply(x, "N"))
 
     res = torch.linalg.vector_norm(b - op.apply(x, "N"))
-    k = 0
-    while k < maxiter and bool(res > tol_abs):
-        x = cycle(x)
-        res = torch.linalg.vector_norm(b - op.apply(x, "N"))
-        k += 1
+    (x, res), k = loop.host_while(lambda s, c: s[1] > c[1], body, (x, res), maxiter,
+                                  consts=(b, tol_abs))
     return x, k, res
 
 
@@ -258,12 +239,12 @@ def _minres_step(op, s: _MinresState, V, R1, R2, W, W2, k, dt, eps, prec, cdot, 
                  act=None):
     """One Lanczos step and Givens update, for one vector or k columns
     (per-column scalars broadcast over rows). Returns the new vectors
-    (Y, R1, R2, W, W2) and phi, the solution step's coefficient."""
+    (Y, R1, R2, W, W2) and phi, the solution step's coefficient. ``k`` is
+    the iteration's index (a 0-dim tensor): step 0 has no previous vector."""
     expand = (lambda t: t[None, :]) if matrix else (lambda t: t)
     safe_beta = _nonzero(s.beta)
     Y = op.apply_matrix(V, "N") if matrix else op.apply(V, "N")
-    if k >= 1:
-        Y = Y - expand(s.beta / _nonzero(s.oldb)).to(dt) * R1
+    Y = torch.where(k >= 1, Y - expand(s.beta / _nonzero(s.oldb)).to(dt) * R1, Y)
     alfa = cdot(V, Y).real  # real for a hermitian operator
     Y = Y - expand(alfa / safe_beta).to(dt) * R2
     R1, R2 = R2, Y
@@ -310,16 +291,17 @@ def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 
     tol_abs = tol * _nonzero(beta1)
     s0 = _MinresState(beta1, rdt)
 
-    def body(state, j):
+    def body(state, consts, k):
         x, Y, R1, R2, W, W2, *scalars = state
         s = _MinresState.of(scalars)
         V = Y / _nonzero(s.beta).to(dt)
-        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, j, dt, eps, prec, pvdot,
+        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec, pvdot,
                                              matrix=False)
         return (x + phi * W, Y, R1, R2, W, W2, *s.fields())
 
     init = (x, Y, R1, R1, torch.zeros_like(b), torch.zeros_like(b), *s0.fields())
-    state, k = _while(lambda st: st[6 + _MinresState.PHIBAR] > tol_abs, body, init, maxiter)
+    state, k = loop.device_while(lambda st, c: st[6 + _MinresState.PHIBAR] > c[0], body, init,
+                                 maxiter, consts=(tol_abs,), ops=(op, M), key=("minres",))
     return state[0], k, state[6 + _MinresState.PHIBAR]
 
 
@@ -335,19 +317,22 @@ def _minres_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter:
     Y = prec(R1, matrix=True)
     beta1 = torch.sqrt(torch.clamp_min(pcolumn_dot(R1, Y).real, 0.0))
     tol_abs = tol * _nonzero(beta1)
-    s = _MinresState(beta1, rdt)
-    R2, W, W2 = R1, torch.zeros_like(B), torch.zeros_like(B)
-    k = 0
-    while k < maxiter:
-        act = s.phibar > tol_abs
-        if not bool(act.any()):
-            break
+    s0 = _MinresState(beta1, rdt)
+
+    def body(state, consts, k):
+        X, Y, R1, R2, W, W2, *scalars = state
+        s = _MinresState.of(scalars)
+        act = s.phibar > consts[0]
         V = Y / _nonzero(s.beta)[None, :].to(dt)
         Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec,
                                              pcolumn_dot, matrix=True, act=act)
-        X = X + phi * W
-        k += 1
-    return X, k, s.phibar
+        return (X + phi * W, Y, R1, R2, W, W2, *s.fields())
+
+    init = (X, Y, R1, R1, torch.zeros_like(B), torch.zeros_like(B), *s0.fields())
+    state, k = loop.device_while(
+        lambda st, c: (st[6 + _MinresState.PHIBAR] > c[0]).any(), body, init, maxiter,
+        consts=(tol_abs,), ops=(op, M), key=("minres_multi",))
+    return state[0], k, state[6 + _MinresState.PHIBAR]
 
 
 def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
@@ -368,8 +353,9 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
     tol_abs = tol * _nonzero(torch.linalg.vector_norm(b))
     brk = torch.zeros((), dtype=torch.bool, device=b.device)
 
-    def body(state, _):
+    def body(state, consts, _):
         x, r, p, v, rho, alpha, omega, brk = state
+        rhat, _, one = consts
         rho_new = pvdot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p_new = r + beta * (p - omega * v)
@@ -390,11 +376,13 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
                 torch.where(brk, v, v_new), torch.where(brk, rho, rho_new),
                 torch.where(brk, alpha, alpha_new), torch.where(brk, omega, omega_new), brk)
 
-    def cond(state):
-        return (torch.linalg.vector_norm(state[1]) > tol_abs) & ~state[7]
+    def cond(state, consts):
+        return (torch.linalg.vector_norm(state[1]) > consts[1]) & ~state[7]
 
     zero = torch.zeros_like(b)
-    (x, r, *_), k = _while(cond, body, (x, r, zero, zero, one, one, one, brk), maxiter)
+    (x, r, *_), k = loop.device_while(cond, body, (x, r, zero, zero, one, one, one, brk),
+                                      maxiter, consts=(rhat, tol_abs, one), ops=(op, M),
+                                      key=("bicgstab",))
     return x, k, torch.linalg.vector_norm(r)
 
 
@@ -419,8 +407,9 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
     tol_abs = tol * _nonzero(arnorm)
     x = torch.zeros((n,), dtype=dt, device=b.device)
 
-    def body(state, _):
+    def body(state, consts, _):
         x, u, v, w, phibar, rhobar, alpha, _ = state
+        dampf = consts[0]
         # bidiagonalization step
         u = op.apply(v, "N") - alpha.to(dt) * u
         beta = nrm(u)
@@ -443,20 +432,24 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
         # (rhobar, phibar) are defined up to a joint sign flip: take |·|
         return x, u, v, w, phibar, rhobar, alpha, (phibar * alpha * c).abs()
 
-    state, k = _while(lambda st: st[7] > tol_abs, body, (x, u, v, v, beta, alpha, alpha, arnorm),
-                      maxiter)
+    state, k = loop.device_while(lambda st, c: st[7] > c[1], body,
+                                 (x, u, v, v, beta, alpha, alpha, arnorm), maxiter,
+                                 consts=(dampf, tol_abs), ops=(op,), key=("lsqr",))
     return state[0], k, state[7]
 
 
 def power_iteration(op: LinearOperator, v0, iters: int = 50):
     """Largest-|eigenvalue| estimate of a square operator by power
-    iteration (no host sync). Returns (eigenvalue estimate, eigenvector)."""
+    iteration (no host read). Returns (eigenvalue estimate, eigenvector)."""
     v = v0 / torch.linalg.vector_norm(v0)
     lam = torch.zeros((), dtype=v.dtype, device=v.device)
-    for _ in range(iters):
+
+    def body(state, _):
+        v, _ = state
         w = op.apply(v, "N")
-        lam = pvdot(v, w)
-        v = w / torch.linalg.vector_norm(w)
+        return w / torch.linalg.vector_norm(w), pvdot(v, w)
+
+    v, lam = loop.device_fori(body, (v, lam), iters, ops=(op,), key=("power_iteration",))
     return lam, v
 
 
@@ -485,10 +478,16 @@ def chebyshev(op: LinearOperator, b, lam_min, lam_max, x0=None, *, iters: int = 
         alpha = 1.0 / (d - beta / alpha)
         p = r + beta.to(dt) * p
         x = x + alpha.to(dt) * p
-        for _ in range(iters - 2):
+
+        def body(state, consts):
+            x, r, p, alpha = state
+            d, c = consts
             r = r - alpha.to(dt) * prec(op.apply(p, "N"))
             beta = (c * alpha / 2.0) ** 2
             alpha = 1.0 / (d - beta / alpha)
             p = r + beta.to(dt) * p
-            x = x + alpha.to(dt) * p
+            return x + alpha.to(dt) * p, r, p, alpha
+
+        x, *_ = loop.device_fori(body, (x, r, p, alpha), iters - 2, consts=(d, c), ops=(op, M),
+                                 key=("chebyshev",))
     return x, max(iters, 0), torch.linalg.vector_norm(b - op.apply(x, "N"))

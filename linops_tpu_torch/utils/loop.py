@@ -1,0 +1,566 @@
+"""Device-resident loops: the counterparts of ``lax.while_loop`` and
+``lax.fori_loop`` for the solvers of ``utils/krylov.py``.
+
+The reference runs every solve as one compiled loop on the device
+(``linops_tpu/utils/krylov.py:3-11``). PyTorch runs eagerly, so a plain
+host loop enqueues each iteration's kernels from Python and reads its
+stopping test back every iteration. Here an iteration is *masked* and the
+host reads once per block of ``BLOCK`` iterations:
+
+    act = cond(state) & (k < maxiter)          # on the device
+    state = where(act, body(state, k), state)  # a frozen iteration changes nothing
+    k = k + act
+
+Over an active iteration ``where`` selects the body's value exactly, so x,
+the residual and the count are bit-identical to the plain per-iteration
+loop, and the count is the reference's.
+
+On a CUDA device a block is one replay of a ``torch.cuda.CUDAGraph``
+holding ``BLOCK`` masked iterations. The graph reads its loop state from
+static buffers and writes it back with ``copy_``, so replays chain with
+nothing on the host between them but the one read of (still active, k).
+Every device value that differs between solves of one signature (the state,
+``tol2``-like scalars, ``maxiter``) lives in those buffers and is never baked
+into the graph. A signature is captured when it repeats, as the reference's
+jit cache compiles a structure once and reuses it: the first solve of a
+signature runs the plain per-iteration loop (on the capture stream, so its
+lazy plans, kernel libraries and cuBLAS's workspace there exist before
+anything is captured; eager masked blocks cost more host time per
+iteration than the reads they save), and the next solve of that signature
+captures. A solve whose operator changed since (an L-BFGS push, an
+in-place edit) is a new signature, so a quasi-Newton loop that pushes
+between solves runs the plain loop and pays no capture, unless the
+allocator hands a push the addresses of an earlier state (the key is taken
+from the operator's current tensors, so a replay then reads those). The
+cache is a small LRU
+keyed by the solve's signature (``core/base.py::capture_signature`` of
+every operator, the state's shapes and dtypes, the solver's own static
+arguments and ``BLOCK``); it holds both kinds of entry, a signature seen
+once and a captured block, and an eviction drops the graph and its private
+memory pool.
+
+On the CPU the same masked blocks run eagerly. Under ``torch.func.vmap``,
+when a gradient is wanted, or when an operator is not ``capture_safe`` (a
+host factorization, a timer, a nested solve, a sharded operator, a
+``FunctionOperator`` not declared safe), the plain per-iteration loop runs
+(``host_while``; ``stats["path"]`` says which path ran). ``CAPTURE = False``
+is a test hook: the card then runs eager blocks, as the CPU does.
+
+``BLOCK`` is 4. A solve of I iterations runs ⌈I/4⌉ blocks, the last one
+partly frozen, so it spends at most 3 frozen iterations of device time and
+reads the host ⌈I/4⌉ + 1 times (the initial test, then once per block;
+the CPU's blocks and a capturing solve), where the plain loop reads I + 1
+times (a signature's first solve on the card). A replay of a cached block
+does not wait for the initial test: it runs, and its read says whether
+anything moved, so a cached solve reads max(⌈I/4⌉, 1) times (a solve that
+starts converged spends one frozen block). The choice weighs the card's
+numbers (NVIDIA H100 80GB HBM3): a read and a replay leave the card idle
+some tens of µs per block, against 273 µs of device time per slice-1 CG
+iteration; a longer block halves that idle share and doubles the worst-case
+waste (``PERF.md`` §5-§6 give the measured values).
+
+Launch counts stay the wrappers' own (``kernels/*.py::launch_counts``): a
+wrapper counts each launch it issues, one recorded into a graph being
+captured included, and a replay runs the graph's kernels without the
+wrappers, so it adds nothing. Each kernel module registers its table here
+(``register_launches``), and a captured block lists the launches its
+capture recorded (``.launches``); a profiler trace of a replay shows them
+(``chip_smoke.py`` phase 14 counts them there).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+
+import torch
+
+BLOCK = 4  # masked iterations per block (one host read per block)
+CAPTURE = True  # test hook: False runs the card's blocks eagerly, as on the CPU
+_CACHE_SIZE = 8  # signatures kept (seen once, or captured), least recently used first
+
+# what the last loop to finish did: its path ("graph", "blocks",
+# "per_iteration", "vmap"), host reads, blocks run, captures, replays and
+# capture milliseconds (a nested loop keeps its own)
+stats: dict = {}
+_active: list = []  # the stats of the loops running, innermost last
+
+# signature -> its captured block, or None for a signature seen once
+_CACHE: "collections.OrderedDict[tuple, _Graph | None]" = collections.OrderedDict()
+_STREAMS: dict = {}
+_LAUNCH_TABLES: list = []  # the kernel modules' launch counts (register_launches)
+_last_graph = None
+
+
+def clear_cache() -> None:
+    """Drop every captured block (and its memory pool) and every signature
+    seen."""
+    global _last_graph
+    _CACHE.clear()
+    _last_graph = None
+
+
+def last_graph():
+    """The captured block the last loop replayed (None when it replayed
+    none): ``.replay()`` runs it once more on its static buffers, and
+    ``.launches`` maps each kernel its capture recorded to its launches."""
+    return _last_graph
+
+
+def register_launches(table: dict) -> None:
+    """Register a kernel module's launch counts (kernel name -> launches,
+    bumped by its wrappers), so a capture can list what it recorded."""
+    _LAUNCH_TABLES.append(table)
+
+
+def _bump(what: str, n=1) -> None:
+    if _active:
+        _active[-1][what] += n
+
+
+def _read(t):
+    """One host read (a device-to-host copy and its wait), counted."""
+    _bump("reads")
+    if hasattr(t, "full_tensor"):  # a DTensor (a sharded operator's solve)
+        t = t.full_tensor()
+    return t.tolist()
+
+
+class _Loop:
+    """The stats of one loop while it runs; published to ``stats`` when it
+    ends."""
+
+    def __init__(self, path: str):
+        self.d = dict(path=path, reads=0, blocks=0, captures=0, replays=0, capture_ms=0.0,
+                      iterations=None)
+
+    def __enter__(self):
+        _active.append(self.d)
+        return self.d
+
+    def __exit__(self, *exc):
+        _active.remove(self.d)
+        stats.clear()
+        stats.update(self.d)
+        return False
+
+
+# ----------------------------------------------------------------------------
+# Which path a loop takes
+# ----------------------------------------------------------------------------
+
+
+def _batched(t) -> bool:
+    """Whether ``t`` carries a ``torch.func.vmap`` batch at some level."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(t):
+        if F.is_batchedtensor(t):
+            return True
+        t = F.get_unwrapped(t)
+    return False
+
+
+def _any_member(t) -> bool:
+    """Whether any member of a vmapped boolean is true: one host read of the
+    whole unwrapped batch."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(t):
+        t = F.get_unwrapped(t)
+    return bool(_read(t.any()))
+
+
+def _traced(tensors) -> bool:
+    """A ``torch.func`` transform or autograd needs the loop's graph."""
+    F = torch._C._functorch
+    grad = torch.is_grad_enabled()
+    return any(F.is_functorch_wrapped_tensor(t) or (grad and t.requires_grad)
+               for t in tensors)
+
+
+def _walk_ops(ops) -> tuple:
+    """(the operators' part of a cache key, every tensor they hold): one
+    walk of each graph."""
+    from ..core.base import capture_signature
+
+    keys, tensors = [], []
+    for op in ops:
+        if op is None:
+            keys.append(None)
+            continue
+        k, ts = capture_signature(op)
+        keys.append(k)
+        tensors += ts
+    return tuple(keys), tensors
+
+
+def _path(tensors, ops) -> tuple:
+    """(the path a loop takes, the operators' key part for the graph path)."""
+    if _traced(tensors) or not all(op is None or op.capture_safe for op in ops):
+        return "per_iteration", None
+    graph = bool(tensors) and tensors[0].is_cuda and CAPTURE
+    opkey = None
+    if graph or torch.is_grad_enabled():
+        opkey, leaves = _walk_ops(ops)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return "per_iteration", None
+    return ("graph" if graph else "blocks"), opkey
+
+
+# ----------------------------------------------------------------------------
+# Captured blocks
+# ----------------------------------------------------------------------------
+
+
+def _stream(device):
+    s = _STREAMS.get(device)
+    if s is None:
+        s = _STREAMS[device] = torch.cuda.Stream(device)
+    return s
+
+
+@contextlib.contextmanager
+def _on_capture_stream(device):
+    """Run an eager loop on the capture stream (after the caller's stream's
+    work; the caller's stream then waits for it). Every use of that stream
+    outside a capture comes through here, so a block it frees was last used
+    by work it has waited for."""
+    stream = _stream(device)
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        yield
+    current.wait_stream(stream)
+
+
+class _Graph:
+    """One captured function over static input buffers: ``run(args)``
+    copies ``args`` in (those given) and replays. Holds the operators it was
+    captured with, so their ids in its key stay theirs."""
+
+    def __init__(self, fn, args, ops, what: str):
+        self.ops = tuple(ops)
+        self.inputs = [a.clone() for a in args]
+        device = args[0].device
+        before = [dict(t) for t in _LAUNCH_TABLES]
+        t0 = time.perf_counter()
+        # keep_graph: the captured graph stays readable (raw_cuda_graph), so its
+        # kernel nodes can be listed (chip_smoke.py counts them per block)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        torch.cuda.synchronize(device)
+        err = None
+        with torch.cuda.stream(_stream(device)):
+            self.graph.capture_begin()
+            try:
+                self.outputs = fn(*self.inputs)
+            except Exception as e:
+                err = e
+            try:
+                self.graph.capture_end()  # ends a capture the error invalidated too
+            except Exception as e:
+                err = err or e
+                try:  # capture_end raised before handing the allocator back
+                    torch._C._cuda_endAllocateToPool(device.index, self.graph.pool())
+                except RuntimeError:
+                    pass
+        if err is None:
+            self.graph.instantiate()
+        else:
+            del self.graph
+            names = ", ".join(_describe(op) for op in ops if op is not None)
+            raise RuntimeError(
+                f"{what}: capturing the iteration in a CUDA graph failed on {names}: {err}. "
+                "An operator whose apply reads the host is not capture-safe: a class says so "
+                "with capture_safe = False, a FunctionOperator with capture_safe=False (its "
+                "default)") from err
+        torch.cuda.synchronize(device)
+        _bump("capture_ms", (time.perf_counter() - t0) * 1e3)
+        _bump("captures")
+        self.launches = {k: t[k] - b.get(k, 0) for t, b in zip(_LAUNCH_TABLES, before)
+                         for k in t if t[k] != b.get(k, 0)}
+
+    def run(self, args=()):
+        global _last_graph
+        for s, a in zip(self.inputs, args):
+            if a is not None:
+                s.copy_(a)
+        self.replay()
+        _last_graph = self
+        return self.outputs
+
+    def replay(self):
+        self.graph.replay()
+        _bump("replays")
+
+
+def _describe(op) -> str:
+    from ..core.base import LinearOperator
+
+    leaves = []
+
+    def walk(o):
+        held = [v for f in type(o)._fields_tensors for v in _operators(getattr(o, f, None))]
+        if not held:
+            leaves.append(type(o).__name__)
+        for c in held:
+            walk(c)
+
+    if isinstance(op, LinearOperator):
+        walk(op)
+        return f"{type(op).__name__} (leaves: {', '.join(dict.fromkeys(leaves))})"
+    return type(op).__name__
+
+
+def _operators(value):
+    from ..core.base import LinearOperator
+
+    if isinstance(value, LinearOperator):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [o for v in value for o in _operators(v)]
+    return []
+
+
+def _signature(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+
+
+def _key(kind, key, opkey, tensors) -> tuple:
+    return (kind, key, BLOCK, _signature(tensors), opkey)
+
+
+def _lookup(key) -> tuple:
+    """(whether the signature was seen, its captured block or None)."""
+    if key not in _CACHE:
+        return False, None
+    _CACHE.move_to_end(key)
+    return True, _CACHE[key]
+
+
+def _store(key, g) -> None:
+    _CACHE[key] = g
+    _CACHE.move_to_end(key)
+    while len(_CACHE) > _CACHE_SIZE:
+        _CACHE.popitem(last=False)
+
+
+def _remember(kind, key, ops, tensors) -> None:
+    """Note a signature whose eager run built its plans (its key is taken
+    now, with them): its next run captures."""
+    ckey = _key(kind, key, _walk_ops(ops)[0], tensors)
+    if ckey in _CACHE:
+        _CACHE.move_to_end(ckey)
+    else:
+        _store(ckey, None)
+
+
+# ----------------------------------------------------------------------------
+# while
+# ----------------------------------------------------------------------------
+
+
+def _select(act, new, old):
+    out = []
+    for a, b in zip(new, old):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise TypeError(f"loop body changed a state entry from {b.dtype}{tuple(b.shape)} "
+                            f"to {a.dtype}{tuple(a.shape)}")
+        out.append(torch.where(act, a, b))
+    return tuple(out)
+
+
+def _while_block(cond, body, state, consts, k, act, lim, n: int):
+    for _ in range(n):
+        state = _select(act, body(state, consts, k), state)
+        k = k + act.to(k.dtype)
+        act = cond(state, consts) & (k < lim)
+    return state, k, act
+
+
+def _plain_while(cond, body, state, consts, maxiter, go, path):
+    """The plain loop: one host read per iteration. Under vmap (``path``
+    "vmap") every member runs until all have stopped, each frozen once its
+    own test fails, and the count is a per-member tensor."""
+    dev = state[0].device
+    j = torch.zeros((), dtype=torch.int64, device=dev)
+    with _Loop(path) as st:
+        if path == "vmap":
+            k = torch.zeros_like(go, dtype=torch.int64)
+            act = go & (k < maxiter)
+            while _any_member(act):
+                state = _select(act, body(state, consts, j), state)
+                k = k + act.long()
+                act = cond(state, consts) & (k < maxiter)
+                j = j + 1
+                st["blocks"] += 1
+            return state, k
+        k = 0
+        while k < maxiter and _read(go):
+            state = body(state, consts, j)
+            k += 1
+            j = j + 1
+            go = cond(state, consts)
+            st["blocks"] += 1
+        st["iterations"] = k
+        return state, k
+
+
+def host_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = ()):
+    """``device_while``'s semantics in the plain loop: the host reads the
+    test every iteration (for a body that reads the host itself, such as
+    GMRES's restart with its SVD). Returns (state, iterations)."""
+    state, consts = tuple(state), tuple(consts)
+    go = cond(state, consts)
+    return _plain_while(cond, body, state, consts, maxiter, go,
+                        "vmap" if _batched(go) else "per_iteration")
+
+
+def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), ops=(),
+                 key=()):
+    """``state = body(state, consts, k)`` while ``cond(state, consts)``
+    holds, at most ``maxiter`` times; ``k`` is the iteration's index as a
+    0-dim int64 tensor on the state's device. ``consts`` are tensors the
+    body reads and never changes; ``ops`` the operators it applies (their
+    ``capture_signature`` keys the captured block, ``capture_safe`` picks
+    the path); ``key`` the caller's static arguments the body depends on. The
+    body reads no other tensor made per call: a captured block would replay
+    over it.
+
+    Returns (state, iterations): an ``int``, or under ``torch.func.vmap`` a
+    per-member tensor (every member runs until all have stopped, each frozen
+    once its own test fails, as ``jax.vmap`` of a ``lax.while_loop``)."""
+    state, consts = tuple(state), tuple(consts)
+    go = cond(state, consts)
+    if _batched(go):
+        return _plain_while(cond, body, state, consts, maxiter, go, "vmap")
+    path, opkey = _path(state + consts, ops)
+    if path == "per_iteration":
+        return _plain_while(cond, body, state, consts, maxiter, go, path)
+    dev = state[0].device
+    ckey = _key("while", key, opkey, state + consts) if path == "graph" else None
+    seen, g = _lookup(ckey) if path == "graph" else (False, None)
+    if path == "graph" and not seen:  # a signature's first solve: the plain loop
+        with _on_capture_stream(dev):
+            state, count = _plain_while(cond, body, state, consts, maxiter, go, "per_iteration")
+        _remember("while", key, ops, state + consts)
+        return state, count
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    lim = torch.full((), maxiter, dtype=torch.int64, device=dev)
+    act = go & (k < lim)
+    with _Loop(path) as st:
+        if g is None and not _read(act):  # a cached block runs first and reads after
+            st["iterations"] = 0
+            return state, 0
+        if path == "blocks":  # the CPU (or CAPTURE off): eager blocks
+            while True:
+                state, k, act = _while_block(cond, body, state, consts, k, act, lim, BLOCK)
+                st["blocks"] += 1
+                more, count = _read(torch.stack((act.to(torch.int64), k)))
+                if not more:
+                    st["iterations"] = count
+                    return state, count
+        if g is None:
+            ns, nc, n = len(state), len(consts), BLOCK
+
+            def block(*bufs):
+                s_in, c_in, (k_in, a_in, l_in) = bufs[:ns], bufs[ns:ns + nc], bufs[ns + nc:]
+                s_out, k_out, a_out = _while_block(cond, body, s_in, c_in, k_in, a_in, l_in, n)
+                for s, s2 in zip(s_in, s_out):
+                    s.copy_(s2)
+                k_in.copy_(k_out)
+                a_in.copy_(a_out)
+                return torch.stack((a_out.to(torch.int64), k_out))
+
+            g = _Graph(block, state + consts + (k, act, lim), ops, f"device_while{key!r}")
+            _store(ckey, g)
+            status = g.run()
+        else:
+            status = g.run(state + consts + (k, act, lim))
+        while True:
+            st["blocks"] += 1
+            more, count = _read(status)
+            if not more:
+                break
+            status = g.run()
+        st["iterations"] = count
+        return tuple(s.clone() for s in g.inputs[:len(state)]), count
+
+
+def _fori_block(body, state, consts, n: int):
+    for _ in range(n):
+        state = tuple(body(state, consts))
+    return state
+
+
+def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), key=()):
+    """``state = body(state, consts)`` ``iters`` times, with no host read.
+    On a CUDA device, once this signature has run before, blocks of
+    ``BLOCK`` iterations replay a captured graph and the last ``iters mod
+    BLOCK`` run eagerly; its first run is eager throughout. Returns the
+    state."""
+    state, consts = tuple(state), tuple(consts)
+    path, opkey = _path(state + consts, ops) if iters > 0 else ("blocks", None)
+    n = BLOCK
+    ckey = _key("fori", key, opkey, state + consts) if path == "graph" else None
+    seen, g = _lookup(ckey) if path == "graph" else (False, None)
+    label = path if path != "graph" else "graph" if seen and iters >= n else "blocks"
+    with _Loop(label) as st:
+        if path != "graph":
+            st["blocks"] += iters > 0
+            return _fori_block(body, state, consts, max(iters, 0))
+        dev = state[0].device
+        if not seen or iters < n:  # eagerly, on the capture stream
+            st["blocks"] += 1
+            with _on_capture_stream(dev):
+                first = _fori_block(body, state, consts, 1)
+                out = _fori_block(body, first, consts, iters - 1)
+            if _signature(first) == _signature(state):  # type-stable: it can be captured
+                _remember("fori", key, ops, state + consts)
+            return out
+        ns = len(state)
+        if g is None:
+
+            def block(*bufs):
+                s_out = _fori_block(body, bufs[:ns], bufs[ns:], n)
+                for s, s2 in zip(bufs[:ns], s_out):
+                    s.copy_(s2)
+                return ()
+
+            g = _Graph(block, state + consts, ops, f"device_fori{key!r}")
+            _store(ckey, g)
+            g.run()
+        else:
+            g.run(state + consts)
+        done = n
+        st["blocks"] += 1
+        while iters - done >= n:
+            g.run()
+            done += n
+            st["blocks"] += 1
+        state = tuple(s.clone() for s in g.inputs[:ns])
+        return _fori_block(body, state, consts, iters - done)
+
+
+def device_call(fn, args: tuple, *, ops=(), key=()):
+    """``fn(*args)`` (a tuple of tensors out) as a captured graph on a CUDA
+    device: replayed when this signature was captured before, captured when
+    it ran before, else run eagerly on the capture stream. The outputs of a
+    replay are the graph's own buffers, valid until its next replay: callers
+    copy out what they keep. On the CPU, under a transform, or for operators
+    that are not capture-safe, a plain call."""
+    args = tuple(args)
+    path, opkey = _path(args, ops)
+    if path != "graph":
+        return tuple(fn(*args))
+    ckey = _key("call", key, opkey, args)
+    seen, g = _lookup(ckey)
+    if g is not None:
+        return g.run(args)
+    if not seen:
+        with _on_capture_stream(args[0].device):
+            out = tuple(fn(*args))
+        _remember("call", key, ops, args)
+        return out
+    g = _Graph(lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}")
+    _store(ckey, g)
+    return g.run()

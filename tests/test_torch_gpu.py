@@ -39,6 +39,12 @@ over a kernel apply runs the kernels (bit for bit per member for K1/K2,
 within 1e-6 for the routed matrix kind). The distributed layer at world
 size 1 (NCCL): a sharded BSR apply bit for bit the unsharded one, through
 K1/K2; kernel and sharded applies make no implicit host synchronisation.
+
+The device loop (slice 9): a solve in captured blocks gives the count and
+bits of the eager blocks and of the per-iteration loop (slice 1's CG over
+K1/K2, a routed CG over K7, K9-K11), a cached solve captures nothing, a
+replay makes no host synchronisation, and an L-BFGS push or an in-place edit
+between solves leads to a new capture, never a stale replay.
 """
 
 import numpy as np
@@ -1008,8 +1014,8 @@ def test_kernel_and_sharded_applies_read_nothing_back(dev):
     kernel applies (K1/K2, a routed operator, a permutation) and a sharded
     BSR apply make no implicit device-to-host synchronisation
     (``torch.cuda.set_sync_debug_mode("error")`` raises on one). Solver
-    loops are left out: their stopping test reads one scalar per
-    iteration (ROADMAP.md §3, fault 3)."""
+    loops read their stopping test once per block; a block's replay is
+    checked in ``test_replay_raises_nothing_under_sync_debug_error``."""
     import scipy.sparse as sps
 
     from linops_tpu_torch.parallel import row_sharding, shard_operator
@@ -1069,3 +1075,237 @@ def test_iterative_inverse_and_apply_linear_gradients_on_card(dev):
     assert launches() == {"bsr_rmatvec": 1} and gB is None
     with torch.no_grad():
         assert torch.equal(gx, op.T @ w)
+
+
+# ---------------------------------------------------------------- slice 9: device loops
+
+
+@pytest.fixture
+def loop_mod():
+    """``utils/loop.py`` with an empty cache, its settings restored after."""
+    from linops_tpu_torch.utils import loop
+
+    saved = loop.BLOCK, loop.CAPTURE
+    loop.clear_cache()
+    yield loop
+    loop.BLOCK, loop.CAPTURE = saved
+    loop.clear_cache()
+
+
+def slice1_graph(dev, n=8192, seed=30):
+    """Slice 1's graph D (BᵀB) D + 2·I over an 8x128 BSR operator, with an
+    inverse L-BFGS preconditioner of 8 pairs (s, A s), and b."""
+    blocks, cols = random_bsr(dev, n // 8, 8, 8, 128, n // 128, torch.float32, seed=seed)
+    B = lt.BSROperator(lt.BSR(blocks * (8 * 128) ** -0.5, cols, (n, n)))
+    D = lt.opDiagonal(torch.linspace(1.0, 2.0, n, device=dev))
+    A = D @ (B.T @ B) @ D + 2.0 * lt.opEye(n, dtype=torch.float32)
+    H = lt.InverseLBFGSOperator(torch.float32, n, mem=8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    for _ in range(8):
+        s = torch.randn(n, generator=g, device=dev)
+        H.push(s, A * s)
+    return A, H, torch.randn(n, generator=g, device=dev)
+
+
+def routed_spd(dev, n=6000, seed=32):
+    """A routed SPD matrix R + Rᵀ + D (K7, K9-K11 in its apply) and b."""
+    import scipy.sparse as sps
+
+    R = sps.random(n, n, density=4.0 / n, format="csr", random_state=seed, dtype=np.float32)
+    S = (R + R.T).tocsr()
+    A = (S + sps.diags(np.asarray(abs(S).sum(axis=1)).ravel().astype(np.float32) + 1.0)).tocsr()
+    op = lt.opSparse(A, format="routed", symmetric=True, hermitian=True, device=dev)
+    return op, torch.randn(n, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+def solve_modes(loop, solve):
+    """(x, k, stats) of ``solve`` in eager blocks, in the per-iteration loop
+    (blocks of 1), as the first solve of its signature on the graph path
+    (the plain loop), as the second (it captures) and cached."""
+    out = {}
+    for name, (block, capture) in (("eager", (loop.BLOCK, False)), ("per_iteration", (1, False)),
+                                   ("first", (loop.BLOCK, True)),
+                                   ("capture", (loop.BLOCK, True)),
+                                   ("cached", (loop.BLOCK, True))):
+        saved = loop.BLOCK, loop.CAPTURE
+        loop.BLOCK, loop.CAPTURE = block, capture
+        if name == "first":
+            loop.clear_cache()
+        try:
+            x, k, _ = solve()
+        finally:
+            loop.BLOCK, loop.CAPTURE = saved
+        out[name] = (x, k, dict(loop.stats))
+    return out
+
+
+def traced_kernels(fn, want, tries=3) -> dict:
+    """The port's kernels one call of fn ran, per device function, counted
+    in a torch.profiler trace: the first of up to ``tries`` traces that
+    counts ``want``, else the last (a trace can lose activity records, and
+    never counts a kernel that did not run)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    syms = set(K.LAUNCH_SYMBOLS.values()) | set(LG.LAUNCH_SYMBOLS.values())
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            m = re.search(r"(\w+)[<(]", e.key)
+            if m and m.group(1) in syms:
+                out[m.group(1)] = out.get(m.group(1), 0) + e.count
+        if out == want:
+            break
+    return out
+
+
+@pytest.mark.parametrize("case", ["slice1", "routed"])
+def test_graph_blocks_match_eager_blocks_bit_for_bit(dev, loop_mod, case):
+    """Slice 1's preconditioned CG (K1/K2) and a routed CG (K7, K9-K11):
+    the same count and the same bits from eager blocks, the per-iteration
+    loop, the signature's first solve (the plain loop), its second (it
+    captures) and a cached one; the cached solve captures nothing, and one
+    replay runs the launches its capture recorded (a profiler trace counts
+    them), which the wrappers' counts do not see again."""
+    if case == "slice1":
+        A, H, b = slice1_graph(dev)
+        solve = lambda: lt.cg(A, b, M=H, tol=1e-5, maxiter=300)  # noqa: E731
+        kernels, tables = ("bsr_matvec", "bsr_rmatvec"), K
+    else:
+        A, b = routed_spd(dev)
+        solve = lambda: lt.cg(A, b, tol=1e-6, maxiter=300)  # noqa: E731
+        kernels, tables = ("lane_gather", "lane_gather_sum"), LG
+    solve()  # warm-up: plans and builds
+    runs = solve_modes(loop_mod, solve)
+    x0, k0, _ = runs["eager"]
+    assert k0 > 2 * loop_mod.BLOCK
+    for name, (x, k, st) in runs.items():
+        assert k == k0 and torch.equal(x, x0), name
+    assert runs["eager"][2]["path"] == "blocks"
+    assert runs["first"][2]["path"] == "per_iteration" and runs["first"][2]["reads"] == k0 + 1
+    assert runs["first"][2]["captures"] == 0 and runs["capture"][2]["captures"] == 1
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["captures"] == 0 and st["replays"] == st["blocks"]
+    assert st["reads"] == st["blocks"] == -(-k0 // loop_mod.BLOCK)  # no initial read
+    g = loop_mod.last_graph()
+    assert all(g.launches.get(name, 0) > 0 for name in kernels), g.launches
+    symbols = {**K.LAUNCH_SYMBOLS, **LG.LAUNCH_SYMBOLS}
+    want = {}
+    for name, c in g.launches.items():
+        want[symbols[name]] = want.get(symbols[name], 0) + c
+    assert traced_kernels(g.replay, want) == want
+    tables.reset_launch_counts()
+    A.apply(torch.zeros_like(b))  # the setup's r = b - A x0, eager in every solve
+    setup = tables.launch_counts()
+    tables.reset_launch_counts()
+    solve()
+    assert tables.launch_counts() == setup  # the replays added nothing
+
+
+def test_replay_raises_nothing_under_sync_debug_error(dev, loop_mod):
+    """A captured block holds no host synchronisation: a replay under
+    ``set_sync_debug_mode("error")`` raises nothing; so does a shifted
+    L-BFGS solve with σ on the card."""
+    A, H, b = slice1_graph(dev)
+    for _ in range(2):  # the second solve captures
+        lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    g = loop_mod.last_graph()
+    assert g is not None
+    B = lt.LBFGSOperator(torch.float32, 4096, mem=5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for _ in range(5):
+        s = torch.randn(4096, generator=gen, device=dev)
+        B.push(s, 2.0 * s + 0.1 * torch.randn(4096, generator=gen, device=dev))
+    v = torch.randn(4096, generator=gen, device=dev)
+    sigma = torch.tensor(0.5, device=dev)
+    ref = {m: lt.solve_shifted_system(B, v, sigma, method=m) for m in ("compact", "ejm")}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+        out = {m: lt.solve_shifted_system(B, v, sigma, method=m) for m in ("compact", "ejm")}
+        X = lt.solve_shifted_systems(B, v, torch.stack([sigma, 2 * sigma]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for m in out:
+        assert torch.equal(out[m], ref[m])
+    assert torch.equal(X[0], ref["compact"]) or rel_err(X[0], ref["compact"]) <= 1e-6
+
+
+def test_push_between_solves_recaptures(dev, loop_mod):
+    """An L-BFGS push replaces M's state tensors: the next solve is a new
+    signature and must not replay the old graph over them. It runs the
+    plain loop, the solve after it captures anew, and both give a fresh eager
+    solve's result bit for bit."""
+    A, H, b = slice1_graph(dev)
+    for _ in range(3):
+        lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["path"] == "graph" and loop_mod.stats["captures"] == 0  # cached
+    s = torch.randn(A.nrow, generator=torch.Generator(device=dev).manual_seed(34), device=dev)
+    H.push(s, A * s)
+    x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["path"] == "per_iteration" and loop_mod.stats["replays"] == 0
+    x2, k2, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["captures"] == 1
+    loop_mod.CAPTURE = False
+    x_e, k_e, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert k == k2 == k_e and torch.equal(x, x_e) and torch.equal(x2, x_e)
+
+
+def test_in_place_edit_of_a_leaf_recaptures(dev, loop_mod):
+    """An in-place edit bumps the leaf's version: the next solve is a new
+    signature (the plain loop, no stale replay), the one after captures anew,
+    and both give the eager result of the edited operator."""
+    from linops_tpu_torch.core.base import capture_signature
+
+    A, H, b = slice1_graph(dev)
+    for _ in range(2):
+        lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["captures"] == 1
+    leaf = next(t for t in capture_signature(A)[1] if t.ndim == 1 and t.numel() == A.nrow)  # d
+    leaf.mul_(1.5)
+    x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["path"] == "per_iteration" and loop_mod.stats["replays"] == 0
+    x2, k2, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["captures"] == 1
+    loop_mod.CAPTURE = False
+    x_e, k_e, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+    assert k == k2 == k_e and torch.equal(x, x_e) and torch.equal(x2, x_e)
+
+
+def test_a_capture_failure_names_the_operator(dev, loop_mod):
+    """A FunctionOperator declared ``capture_safe=True`` whose apply reads
+    the host fails at its capture (the second solve) with an error that
+    names it; the solve never falls back to the eager loop. The capture is
+    ended cleanly: a capture after it succeeds and matches eager blocks.
+    Undeclared, the same operator takes the per-iteration loop."""
+    n = 512
+    d = torch.linspace(1.0, 2.0, n, device=dev)
+
+    def reads_host(v):
+        return v * float(d[0]) + d * v  # float() reads the card
+
+    F = lt.FunctionOperator(n, n, reads_host, symmetric=True, hermitian=True,
+                            dtype=torch.float32, capture_safe=True)
+    b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(35), device=dev)
+    x_first, k_first, _ = lt.cg(F, b, tol=1e-7, maxiter=100)  # the plain loop
+    with pytest.raises(RuntimeError, match="FunctionOperator"):
+        lt.cg(F, b, tol=1e-7, maxiter=100)
+    F_plain = lt.FunctionOperator(n, n, reads_host, symmetric=True, hermitian=True,
+                                  dtype=torch.float32)
+    x, k, _ = lt.cg(F_plain, b, tol=1e-7, maxiter=100)
+    assert loop_mod.stats["path"] == "per_iteration" and k == k_first
+    assert torch.equal(x, x_first)
+    A, H, b1 = slice1_graph(dev, n=2048)
+    loop_mod.clear_cache()
+    for _ in range(3):
+        x1, k1, _ = lt.cg(A, b1, M=H, tol=1e-6, maxiter=300)
+    assert loop_mod.stats["path"] == "graph" and loop_mod.stats["replays"] > 0
+    loop_mod.CAPTURE = False
+    x_e, k_e, _ = lt.cg(A, b1, M=H, tol=1e-6, maxiter=300)
+    assert k1 == k_e and torch.equal(x1, x_e)

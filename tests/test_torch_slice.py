@@ -270,6 +270,7 @@ def test_import_does_not_load_jax():
             "linops_tpu_torch.ops.eye, linops_tpu_torch.ops.cat, "
             "linops_tpu_torch.ops.restriction, linops_tpu_torch.ops.shifted, "
             "linops_tpu_torch.utils.krylov, linops_tpu_torch.qn.shifted_solve, "
+            "linops_tpu_torch.utils.loop, "
             "linops_tpu_torch.core.segsum, linops_tpu_torch.ops.kron, "
             "linops_tpu_torch.ops.timed, linops_tpu_torch.ops.linalg_ops, "
             "linops_tpu_torch.ops.sparse_factor, linops_tpu_torch.qn.lsr1, "

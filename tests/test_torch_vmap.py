@@ -6,7 +6,8 @@ A batch axis on an operator's tensors gives a batch of operators: the
 applies and ``vmap(grad(...))`` run through ``torch.func.vmap``. The solvers
 run under vmap as ``jax.vmap`` of a ``lax.while_loop`` does: every member
 iterates until all have stopped, each frozen once its own test fails, with
-per-member iteration counts (``utils/krylov.py::_while``). A kernel apply
+per-member iteration counts (``utils/loop.py::device_while``); GMRES
+builds its Arnoldi basis by stacking rows there. A kernel apply
 under vmap (the kernel branches forced on the CPU, where the wrappers run
 their plain versions) runs the kernel once per member, or the routed
 matrix kind on the batch.
@@ -102,6 +103,27 @@ def test_vmap_batched_solvers(rng, solver):
     assert np.abs(xs_t.numpy() - xs_j).max() <= 1e-8 * np.abs(xs_j).max()
     np.testing.assert_array_equal(np.broadcast_to(np.asarray(ks_t), (len(bs),)),
                                   np.broadcast_to(np.asarray(ks_j), (len(bs),)))
+
+
+def test_vmap_batched_gmres(rng):
+    """vmap(gmres): the Arnoldi basis built by stacking rows under vmap, the
+    restarts stopping per member, against jax.vmap of the reference's gmres:
+    x within 1e-8 relative and the same per-member restart counts."""
+    B, n = 4, 14
+    As = 4.0 * np.eye(n)[None] + rng.standard_normal((B, n, n)) / np.sqrt(n)
+    As[0] += 2.0 * np.eye(n)  # members converge after different restart counts
+    bs = rng.standard_normal((B, n))
+
+    def solve(pkg, A, b):
+        return pkg.gmres(pkg.MatrixOperator(A), b, tol=1e-10, restart=4, maxiter=30)
+
+    xs_j, ks_j, _ = jax.vmap(lambda A, b: solve(lo, A, b))(jnp.asarray(As), jnp.asarray(bs))
+    xs_t, ks_t, res_t = torch.func.vmap(lambda A, b: solve(lt, A, b))(t_(As), t_(bs))
+    xs_j = np.asarray(xs_j)
+    assert np.abs(xs_t.numpy() - xs_j).max() <= 1e-8 * np.abs(xs_j).max()
+    np.testing.assert_array_equal(ks_t.numpy(), np.asarray(ks_j))
+    assert len(set(ks_t.tolist())) > 1 and res_t.shape == (B,)
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", As, xs_t.numpy()), bs, atol=1e-8)
 
 
 @pytest.fixture
