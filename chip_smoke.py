@@ -5,7 +5,7 @@
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 7, 9, 8, 5 (with phase 4's main path rerun under the profiler at its end),
-11, 12, 13, 10, 14, then one profiled slice-1 CG (the times come
+11, 12, 13, 10, 14, 15, then one profiled slice-1 CG (the times come
 after every kernel has been checked; phases 12, 10, 14 and the profiled CG
 come after phase 5 because torch.profiler traces of whole solves, run before
 phase 5, left phase 5's own traces without device time; phases 11-13 run
@@ -136,6 +136,28 @@ shows them run but can lose records).
    interleaved round by round;
    shifted L-BFGS solves with σ on the card (no synchronisation, the same
    bits as a Python σ). The captured blocks must hold K1-K7 and K9-K13.
+15. main path of slice 10, LOBPCG, svds and normest on the device loop:
+   (a) E1 (``kernels/small_eigh.py``, the small Hermitian eigensolver) against
+   its plain version torch.linalg.eigh for f32, f64, c64, c128 at m = 1, 2,
+   6, 24, 96, 150 (|Δλ|, ‖AV − VΛ‖₂ ≤ 50·eps·‖A‖₂, max|VᴴV − I| ≤ 50·eps), a
+   NaN input that ends, its gradient against eigh's, and its time at m = 2,
+   6, 24, 96 (f32) beside torch.linalg.eigh's and the bound of what an
+   eigendecomposition needs (about 9 m³ operations); (b) LOBPCG (k = 2,
+   gram basis, f32) on phase 11's 2048² stencil in the per-iteration loop and
+   in captured blocks (``loop_modes``: same count, θ and X bit for bit, E1
+   four times per iteration in the block's graph and no cuSOLVER kernel, a
+   replay under sync-debug error, wall and device µs per iteration, busy
+   share, reads and syncs per solve), θ within its residual of the
+   closed-form eigenvalues, and the marginal wall time per iteration; E1's
+   launch count is this step's; every matrix E1 got in one solve against
+   eigh, and the solves with eigh in E1's place (the eigh loop) and with
+   eigh on inputs widened to f64: the same count, θ within 16 f32 ulps of
+   ‖A‖₂; (c) svds and normest of phase 4's BSR operator in captured blocks
+   against phase 11b's values, svds also against the solve with eigh in
+   E1's place; (d) every ported example's ``main()`` on the card (03 and 08 in the world of one rank); (e) LOBPCG
+   at k = 32 on the stencil (E1 at m = 32 and 96): wall µs per iteration,
+   the per-iteration loop with eigh against cached blocks with E1; E1 on
+   every matrix one solve gives it, θ against eigh widened to f64.
 
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
@@ -143,8 +165,10 @@ on any failure, and when no CUDA device is present: there is no CPU path.
 """
 
 import collections
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1365,9 +1389,10 @@ def device_profile(fn, top=3):
 
 def kernel_symbols() -> dict:
     """kernel name -> the device function each of its launches runs once."""
-    from linops_tpu_torch.kernels import bsr_spmv, lane_gather
+    from linops_tpu_torch.kernels import bsr_spmv, lane_gather, small_eigh
 
-    return {**bsr_spmv.LAUNCH_SYMBOLS, **lane_gather.LAUNCH_SYMBOLS}
+    return {**bsr_spmv.LAUNCH_SYMBOLS, **lane_gather.LAUNCH_SYMBOLS,
+            **small_eigh.LAUNCH_SYMBOLS}
 
 
 def by_symbol(counts: dict) -> dict:
@@ -1392,11 +1417,11 @@ def traced_launches(prof) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
-def graph_kernels(g) -> dict:
-    """The port's kernels a captured block holds, per device function: the
-    kernel nodes of its CUDA graph, read through the driver API
-    (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``, then
-    ``cuFuncGetName`` or ``cuKernelGetName`` for the node's mangled name)."""
+def graph_kernel_names(g) -> list:
+    """The mangled name of every kernel node of a captured block's CUDA
+    graph, read through the driver API (``cuGraphGetNodes``,
+    ``cuGraphKernelNodeGetParams``, then ``cuFuncGetName`` or
+    ``cuKernelGetName``)."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
@@ -1410,8 +1435,7 @@ def graph_kernels(g) -> dict:
     ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
     nodes = (vp * count.value)()
     ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
-    wanted = {f"{len(s_)}{s_}": s_ for s_ in set(kernel_symbols().values())}
-    out = {}
+    names = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
@@ -1426,7 +1450,16 @@ def graph_kernels(g) -> dict:
             ok(cu.cuFuncGetName(ctypes.byref(name), vp(func)), "cuFuncGetName")
         else:
             ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)), "cuKernelGetName")
-        mangled = name.value.decode()
+        names.append(name.value.decode())
+    return names
+
+
+def graph_kernels(g) -> dict:
+    """The port's kernels a captured block holds, per device function: its
+    CUDA graph's kernel nodes (``graph_kernel_names``)."""
+    wanted = {f"{len(s_)}{s_}": s_ for s_ in set(kernel_symbols().values())}
+    out = {}
+    for mangled in graph_kernel_names(g):
         for tag, sym in wanted.items():
             if tag in mangled:
                 out[sym] = out.get(sym, 0) + 1
@@ -1753,7 +1786,8 @@ def median_solve(solve, reps=REPS):
     return runs[-1][0], float(np.median([t for _, t in runs]))
 
 
-def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why=""):
+def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="14",
+               inspect=None):
     """``solve`` (returning (x, k, res)) in the per-iteration loop (BLOCK 1,
     no capture: one read per iteration, every kernel launched from the
     host) and in graph blocks: a first solve of the signature (the plain
@@ -1763,17 +1797,15 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why=""):
     one replay under sync-debug "error"; prints wall (median of REPS solves)
     and device (one profiled solve) µs per iteration, busy shares, host
     reads and syncs per solve, the first solve's, the capturing solve's
-    (and its capture ms) and the cached wall time. Returns the record."""
+    (and its capture ms) and the cached wall time; ``inspect(g)`` may check
+    the cached block further. Returns the record."""
     block = loop.BLOCK
     loop.clear_cache()
-    loop.BLOCK, loop.CAPTURE = 1, False
-    try:
+    with per_iteration(loop):
         solve()  # the allocator's blocks after free(); lazy plans
         (x1, k1, _), s1 = median_solve(solve)
         st1 = dict(loop.stats)
         d1 = device_profile(solve)[0]
-    finally:
-        loop.BLOCK, loop.CAPTURE = block, True
     loop.clear_cache()
     (x2, k2, _), s2 = timed_solve(solve)  # the signature's first solve: the plain loop
     st2 = dict(loop.stats)
@@ -1785,21 +1817,23 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why=""):
     d3, top3 = device_profile(solve, top=4)
     g = loop.last_graph()
     check(g is not None and st3["captures"] == 0 and st3["replays"] > 0,
-          f"14 {tag}: the cached solve replayed no captured block: {st3}")
+          f"{phase} {tag}: the cached solve replayed no captured block: {st3}")
     held = dict(g.launches)
     nodes = graph_kernels(g)
-    check(nodes == by_symbol(held), f"14 {tag}: the cached block's graph holds {nodes}; its "
+    check(nodes == by_symbol(held), f"{phase} {tag}: the cached block's graph holds {nodes}; its "
                                     f"capture recorded {held}")
+    if inspect is not None:
+        inspect(g)
     in_replay, traced, tries = replay_trace(g, nodes)
     check(traced.keys() == nodes.keys() and all(traced[s_] <= nodes[s_] for s_ in traced),
-          f"14 {tag}: one replay of the cached block traced {traced} ({tries} traces); its "
+          f"{phase} {tag}: one replay of the cached block traced {traced} ({tries} traces); its "
           f"graph holds {nodes}")
     replay_without_sync(g)
-    check(k1 == k2 == kc == k3, f"14 {tag}: {k1} {unit} per iteration, {k2} in the first "
+    check(k1 == k2 == kc == k3, f"{phase} {tag}: {k1} {unit} per iteration, {k2} in the first "
                                 f"solve, {kc} capturing, {k3} cached")
     dx = max(rel_err(x, x1) for x in (x2, xc, x3))
     same = all(torch.equal(x, x1) for x in (x2, xc, x3))
-    check(same or dx <= x_rtol, f"14 {tag}: graph blocks differ from the per-iteration loop "
+    check(same or dx <= x_rtol, f"{phase} {tag}: graph blocks differ from the per-iteration loop "
                                 f"by {dx:.2e} (allowed {x_rtol:g}{': ' + why if why else ''})")
     k = max(k1, 1)
     capture_ms = st2["capture_ms"] + stc["capture_ms"]
@@ -1807,7 +1841,7 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why=""):
             f"device {d1 * 1e3 / k:.1f} -> {d3 * 1e3 / k:.1f} us per {unit[:-1]}, busy "
             f"{d1 / (s1 * 1e3):.2f} -> {d3 / (s3 * 1e3):.2f}; cached top: "
             + ", ".join(f"{n_} {ms * 1e3 / k:.1f} us" for n_, ms in top3))
-    print(f"[14 device loop] {tag}: {k1} {unit}; x {'bit for bit' if same else f'{dx:.2e}'}; "
+    print(f"[{phase} device loop] {tag}: {k1} {unit}; x {'bit for bit' if same else f'{dx:.2e}'}; "
           f"wall {s1 * 1e6 / k:.1f} us per {unit[:-1]} per-iteration -> {s3 * 1e6 / k:.1f} us "
           f"cached graph blocks of {block}; {busy}; host reads per solve {st1['reads']} -> "
           f"{st3['reads']} ({st3['blocks']} blocks), synchronizing calls seen in the cached solve "
@@ -2151,18 +2185,7 @@ def phase11(lt, K, LG, dev, card, ops, main):
     theta, X, res, it = lob(40)
     check(it == 40 and torch.isfinite(theta).all() and torch.isfinite(X).all(),
           f"11b lobpcg: {it} iterations, finite {bool(torch.isfinite(X).all())}")
-    i = np.arange(1, g + 1)
-    c = np.cos(i * np.pi / (g + 1))
-    lam = np.sort((4.0 - 2.0 * c[:, None] - 2.0 * c[None, :]).ravel())
-    Xh = X.double().cpu().numpy()
-    r64 = np.linalg.norm(L64 @ Xh - Xh * theta.double().cpu().numpy(), axis=0)
-    gaps = []
-    for th, r in zip(theta.double().cpu().numpy(), r64):
-        j = np.searchsorted(lam, th)
-        gaps.append(min(abs(lam[max(j - 1, 0)] - th), abs(lam[min(j, lam.size - 1)] - th)))
-        # a Ritz value of a unit vector lies within its residual norm of an eigenvalue
-        check(gaps[-1] <= r + 1e-5 * abs(th), f"11b lobpcg: θ {th} is {gaps[-1]:.3e} from every "
-              f"eigenvalue, residual {r:.3e}")
+    r64, gaps = closed_form_gaps(L64, g, theta, X)
     us_lob = host_ms(lob, 5, 25) * 1e3
     print(f"[11b spectra] lobpcg(k=2, largest, basis gram, tol 0) on the {g}² stencil: θ "
           f"{[round(float(t_), 6) for t_ in theta]}, f64 residuals {[float(f'{r:.3e}') for r in r64]}, "
@@ -2241,7 +2264,7 @@ def phase11(lt, K, LG, dev, card, ops, main):
     d_lim = 6 * (4.0 / kd) ** 0.5  # six exact standard errors: four unit neighbours a row
     over = int(((dg.double() - 5.0).abs() > 6 * dg_se.double()).sum())
     check(d_err <= d_lim, f"11c diagonal: max|Δ| {d_err:.3f} > {d_lim:.3f}")
-    lam64 = 1.0 + lam
+    lam64 = 1.0 + laplacian_eigenvalues(g)
     ld_true = float(np.sum(np.log(lam64)))
     gen.manual_seed(SEED + 119)
     ld, ld_se = lt.estimate_logdet(A11, probes=16, lanczos_steps=30, generator=gen)
@@ -2423,7 +2446,8 @@ def phase11(lt, K, LG, dev, card, ops, main):
     print(f"[11 slice-6 path] launches {counts}; {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return counts, {"stencil_us_per_apply": t11a["stencil apply"] * 1e3,
-                    "lobpcg_us_per_iter_k2": us_lob, "lsr1_fwd_us": ms_lsr1 * 1e3}
+                    "lobpcg_us_per_iter_k2": us_lob, "lsr1_fwd_us": ms_lsr1 * 1e3,
+                    "spectra": est["kernels"]}
 
 
 # ----------------------------------------------------------------------------
@@ -3029,6 +3053,502 @@ def phase13(lt, K, LG, dev, card, ops):
     return launches
 
 
+
+# ----------------------------------------------------------------------------
+# Slice 10: LOBPCG, svds and normest on the device loop, with E1
+# ----------------------------------------------------------------------------
+
+E1_SOURCE = "linops_tpu_torch/kernels/csrc/small_eigh.cu"
+# E1 has no Pallas site: it replaces the jnp.linalg.eigh that XLA lowers inside
+# the reference's LOBPCG loop (the Rayleigh-Ritz step; also :76, the SVQB transforms)
+E1_REPLACES = "linops_tpu/utils/eig.py:130"
+E1_SIZES = (1, 2, 6, 24, 96, 150)
+E1_TIMED = (2, 6, 24, 96)
+E1_TOL = 50  # |Δλ|, ‖AV − VΛ‖₂ over eps·‖A‖₂, and max|VᴴV − I| over eps
+LOB_ITERS = 40  # phase 15b: LOBPCG iterations per solve (tol 0), as phase 11b
+# 15b, 15c (15e: or the eigh loop's distance): θ of a solve with eigh in E1's
+# place, within this many f32 ulps of ‖A‖₂ (a rounding-level change to the
+# small eigensolver moves a 40-iteration tol-0 LOBPCG's θ by a few ulps: X
+# drifts inside clusters of eigenvalues 1e-6 apart)
+SWAP_ULPS = 16
+LOB32_K, LOB32_ITERS = 32, 8  # phase 15e: the wide block, iterations per solve
+SOLVER_KERNELS = re.compile(r"syev|sytrd|stedc|ormtr|orgtr|potrf|geqrf|cusolver", re.I)
+
+
+def eigh_ops(m, complex_=False) -> int:
+    """Real operations an eigendecomposition of one Hermitian m x m matrix
+    needs, whatever the method: about 9 m³ (tridiagonal reduction, implicit
+    QR with vectors, back-transformation; Golub & Van Loan §8.3), 4 real for
+    each complex one."""
+    return 9 * m ** 3 * (4 if complex_ else 1)
+
+
+def e1_errors(A, w, V):
+    """(max |Δλ| against the plain version on A widened to f64/c128 over
+    eps·‖A‖₂, ‖AV − VΛ‖₂ over eps·‖A‖₂, max|VᴴV − I| over eps), eps of A's
+    precision; the lower triangle of A read, as eigh reads it."""
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    eps = torch.finfo(w.dtype).eps
+    Ah = A.to(wide).tril()
+    Ah = Ah + Ah.tril(-1).mH
+    if Ah.is_complex():
+        Ah.diagonal(dim1=-2, dim2=-1).imag.zero_()
+    w_ref = torch.linalg.eigh(Ah)[0].double()
+    norm2 = w_ref.abs().amax(-1).clamp_min(1e-300)
+    Vw = V.to(wide)
+    dl = ((w.double() - w_ref).abs().amax(-1) / norm2).max() / eps
+    res = (torch.linalg.matrix_norm(Ah @ Vw - Vw * w.to(wide)[..., None, :], ord=2)
+           / norm2).max() / eps
+    orth = (Vw.mH @ Vw - torch.eye(A.shape[-1], dtype=wide, device=A.device)).abs().max() / eps
+    return float(dl), float(res), float(orth)
+
+
+def hermitian(gen, dev, m, dtype, batch):
+    rdt = torch.float64 if dtype in (torch.float64, torch.complex128) else torch.float32
+    A = torch.randn((batch, m, m), generator=gen, device=dev, dtype=rdt)
+    if dtype.is_complex:
+        A = torch.complex(A, torch.randn((batch, m, m), generator=gen, device=dev, dtype=rdt))
+    return A
+
+
+def phase15a(E1, dev, card):
+    """E1 against its plain version (torch.linalg.eigh) on the same inputs:
+    f32, f64, c64, c128 at m in E1_SIZES, a batch of 2 random matrices each
+    (not Hermitian: both read the lower triangle), within E1_TOL; sorted;
+    a NaN matrix ends with NaN out. Then, in f32 at m in E1_TIMED, its time
+    per call in a CUDA graph of 20 calls and in eager marginal events, the
+    plain version's (the library call: torch.linalg.eigh, eager, marginal
+    events), and the bound: A, w and V's bytes over the memory rate against
+    ``eigh_ops`` over 67 TFLOP/s. E1's gradient under autograd against
+    eigh's (f64 and c128, m = 6). Returns (times by m, errors)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 150)
+    worst = {}
+    for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        for m in E1_SIZES:
+            A = hermitian(gen, dev, m, dt, 2)
+            w, V, sw = E1.small_eigh(A, sweeps=True)
+            torch.cuda.synchronize()
+            errs = e1_errors(A, w, V)
+            check(all(e <= E1_TOL for e in errs) and bool((w[:, 1:] >= w[:, :-1]).all()),
+                  f"15a E1 {dt} m={m}: |Δλ|, residual, orthogonality {errs} (limit {E1_TOL})")
+            worst[(str(dt)[6:], m)] = errs + (int(sw.max()),)
+    A = hermitian(gen, dev, 96, torch.float32, 1)
+    plain96 = e1_errors(A, *torch.linalg.eigh(A))
+    A_nan = hermitian(gen, dev, 24, torch.float32, 2)
+    A_nan[1, 4, 2] = float("nan")
+    w, V, sw = E1.small_eigh(A_nan, sweeps=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(w[1]).all()) and int(sw[1]) == 0
+          and torch.equal(w[0], E1.small_eigh(A_nan[:1])[0][0]),
+          "15a E1: a NaN matrix did not end with NaN out, or changed its batch's other matrix")
+    print("[15a E1] small_eigh against torch.linalg.eigh (eigenvalues: on the inputs widened "
+          "to f64/c128), |Δλ|/(eps‖A‖₂), ‖AV − VΛ‖₂/(eps‖A‖₂), max|VᴴV − I|/eps, sweeps: "
+          + "; ".join(f"{d_} m={m_} " + "/".join(f"{e:.1f}" for e in v[:3]) + f" ({v[3]})"
+                      for (d_, m_), v in worst.items())
+          + f" (limit {E1_TOL}); the plain version in f32 at m = 96: "
+          + "/".join(f"{e:.1f}" for e in plain96)
+          + "; a NaN matrix ends with NaN out (0 sweeps), its batch's other matrix unchanged",
+          flush=True)
+    grads = {}
+    for dt in (torch.float64, torch.complex128):
+        A = hermitian(gen, dev, 6, dt, 2)
+        A = 0.5 * (A + A.mH)
+        cw = torch.randn((2, 6), generator=gen, device=dev, dtype=torch.float64)
+        cV = torch.randn((2, 6, 6), generator=gen, device=dev, dtype=torch.float64)
+
+        def grad(eigh):
+            A_ = A.clone().requires_grad_()
+            w, V = eigh(A_)  # a loss of w and |V|²: blind to V's phases
+            return torch.autograd.grad((cw * w).sum() + (cV * V.abs() ** 2).sum(), A_)[0]
+
+        g_ref = grad(torch.linalg.eigh)
+        grads[str(dt)[6:]] = float((grad(E1.small_eigh) - g_ref).abs().max() / g_ref.abs().max())
+        check(grads[str(dt)[6:]] <= 1e-9, f"15a E1 {dt}: its gradient is {grads} off eigh's")
+    print(f"[15a E1] gradient under autograd (eigh's backward on E1's w, V) against "
+          f"torch.linalg.eigh's, max relative difference: {grads} (limit 1e-9)", flush=True)
+    rows = {}
+    for m in E1_TIMED:
+        A = hermitian(gen, dev, m, torch.float32, 1)[0]
+        w, V, sw = E1.small_eigh(A, sweeps=True)
+        w_p, _ = torch.linalg.eigh(A)
+        sweeps = int(sw)
+        rows[m] = {
+            "ms": graph_ms(lambda: E1.small_eigh(A)),
+            "event_ms": marginal_ms(lambda: E1.small_eigh(A)),
+            "plain_ms": marginal_ms(lambda: torch.linalg.eigh(A)),
+            "bound": bound_ms(nbytes(A, w, V), eigh_ops(m)),
+            "sweeps": sweeps, "max_abs_err": float((w - w_p).abs().max()),
+        }
+    print("[15a E1] f32 per call (CUDA graph of 20 / eager marginal events; torch.linalg.eigh "
+          "eager marginal events, the plain version and the library call; bound = 9 m³ "
+          "operations over 67 TFLOP/s against the bytes of A, w and V over 3.35 TB/s): "
+          + "; ".join(f"m={m} {r['ms'] * 1e3:.1f} / {r['event_ms'] * 1e3:.1f} us, eigh "
+                      f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound'][0] * 1e3:.3f} us "
+                      f"({r['bound'][1]}, {r['sweeps']} sweeps), max|Δλ| {r['max_abs_err']:.1e}"
+                      for m, r in rows.items()) + f"; {card}", flush=True)
+    return rows, worst
+
+
+def laplacian_eigenvalues(g):
+    """The eigenvalues of the 5-point Laplacian on g², ascending (closed form)."""
+    c = np.cos(np.arange(1, g + 1) * np.pi / (g + 1))
+    return np.sort((4.0 - 2.0 * c[:, None] - 2.0 * c[None, :]).ravel())
+
+
+def closed_form_gaps(L64, g, theta, X):
+    """(f64 residuals through L64, distance of each θ to the nearest
+    eigenvalue of the 5-point Laplacian on g²), checked: a Ritz value of a
+    unit vector lies within its residual norm of an eigenvalue."""
+    lam = laplacian_eigenvalues(g)
+    Xh = X.double().cpu().numpy()
+    r64 = np.linalg.norm(L64 @ Xh - Xh * theta.double().cpu().numpy(), axis=0)
+    gaps = []
+    for th, r in zip(theta.double().cpu().numpy(), r64):
+        j = np.searchsorted(lam, th)
+        gaps.append(min(abs(lam[max(j - 1, 0)] - th), abs(lam[min(j, lam.size - 1)] - th)))
+        check(gaps[-1] <= r + 1e-5 * abs(th), f"lobpcg: θ {th} is {gaps[-1]:.3e} from every "
+              f"eigenvalue, residual {r:.3e}")
+    return r64, gaps
+
+
+@contextlib.contextmanager
+def small_eigh_as(fn):
+    """LOBPCG's small eigendecompositions (``utils/eig.py``) through ``fn``
+    in place of E1 for the block's duration."""
+    from linops_tpu_torch.utils import eig as eig_mod
+
+    kept = eig_mod.small_eigh
+    eig_mod.small_eigh = fn
+    try:
+        yield
+    finally:
+        eig_mod.small_eigh = kept
+
+
+@contextlib.contextmanager
+def per_iteration(loop):
+    """The per-iteration loop (BLOCK 1, no capture), as ``loop_modes`` runs it."""
+    block = loop.BLOCK
+    loop.BLOCK, loop.CAPTURE = 1, False
+    try:
+        yield
+    finally:
+        loop.BLOCK, loop.CAPTURE = block, True
+
+
+def eigh_wide(A):
+    """The plain version on A widened to f64/c128, its results cast back:
+    eigenvalues and vectors within an ulp of A's precision."""
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    w, V = torch.linalg.eigh(A.to(wide))
+    return w.to(A.real.dtype), V.to(A.dtype)
+
+
+def with_eigh(loop, solve, eigh=torch.linalg.eigh):
+    """One solve in the per-iteration loop with ``eigh`` in E1's place; by
+    default torch.linalg.eigh (eager, cuSOLVER), as LOBPCG ran before E1:
+    "the eigh loop"."""
+    with per_iteration(loop), small_eigh_as(eigh):
+        return solve()
+
+
+def swap_ulps(got, ref, norm) -> float:
+    """max |Δθ| in f32 ulps of ``norm``."""
+    return float((got.double() - ref.double()).abs().max()) / (torch.finfo(torch.float32).eps
+                                                               * norm)
+
+
+def swap_check(tag, got, ref, it, it_ref, norm, count_slack=0, what="eigh"):
+    """θ of a solve with ``what`` in E1's place (``ref``) against E1's:
+    counts within ``count_slack``, |Δθ| within SWAP_ULPS f32 ulps of
+    ``norm``. Returns |Δθ| in those ulps."""
+    ulps = swap_ulps(got, ref, norm)
+    check(abs(it - it_ref) <= count_slack and ulps <= SWAP_ULPS,
+          f"{tag}: with E1 {it} iterations and θ {got.tolist()}, with {what} in its place "
+          f"{it_ref} and {ref.tolist()}: {ulps:.1f} ulps of ‖A‖₂ apart (limit {SWAP_ULPS})")
+    return ulps
+
+
+def fed_check(tag, loop, E1, solve, calls):
+    """E1 against eigh (``e1_errors``, E1_TOL) on every matrix one
+    per-iteration ``solve`` gives it, which must be ``calls``. Returns the
+    worst errors by m."""
+    fed = []
+
+    def recording(A):
+        fed.append(A.clone())
+        return E1.small_eigh(A)
+
+    with per_iteration(loop), small_eigh_as(recording):
+        solve()
+    worst = {}
+    for A in fed:
+        m = A.shape[-1]
+        errs = e1_errors(A, *E1.small_eigh(A))
+        worst[m] = tuple(max(a, b) for a, b in zip(worst.get(m, (0.0,) * 3), errs))
+    check(len(fed) == calls and all(e <= E1_TOL for v in worst.values() for e in v),
+          f"{tag}: E1 on the {len(fed)} matrices one solve gave it ({calls} expected): {worst} "
+          f"(limit {E1_TOL})")
+    return worst
+
+
+def worst_line(worst) -> str:
+    return "{" + ", ".join(f"{m}: " + "/".join(f"{e:.1f}" for e in v)
+                           for m, v in worst.items()) + "}"
+
+
+def phase15b(lt, loop, E1, dev, card):
+    """The slice's main path: LOBPCG (k = 2, largest, gram basis, tol 0,
+    LOB_ITERS iterations) on phase 11's 2048² stencil in f32, in the
+    per-iteration loop and in captured blocks (first, second and cached
+    solves; ``loop_modes``): the same count, θ and X bit for bit, the cached
+    block's kernel nodes holding E1 (4 per iteration) and no cuSOLVER kernel,
+    a replay under sync-debug error; θ within its residual of the closed-form
+    eigenvalues (weak: near θ the eigenvalues lie about 1e-6 apart); E1 on
+    every matrix one solve gave it against eigh (E1_TOL); the solves with
+    eigh in E1's place (the eigh loop) and with eigh on inputs widened to f64:
+    the same count, θ within SWAP_ULPS f32 ulps of ‖A‖₂; and the marginal
+    wall time per iteration in cached blocks (25 − 5 iterations, the method
+    of phase 11b).
+    E1's launch counts are set to 0 before and read after. Returns (record,
+    marginal µs per iteration, E1 launches)."""
+    free()
+    g = GRID11
+    S = lt.laplacian_2d(g, g)
+    gen = torch.Generator(device=dev)
+
+    def lob(iters=LOB_ITERS):
+        gen.manual_seed(SEED + 112)
+        return lt.lobpcg(S, k=2, largest=True, tol=0.0, maxiter=iters, generator=gen)
+
+    def solve():
+        th, X, res, it = lob()
+        return torch.cat([th, X.reshape(-1)]), it, res
+
+    seen = {}
+
+    def no_solver_kernels(gr):
+        names = graph_kernel_names(gr)
+        bad = sorted({n_ for n_ in names if SOLVER_KERNELS.search(n_)})
+        check(not bad, f"15b: the captured LOBPCG block holds library solver kernels {bad}")
+        seen["nodes"] = len(names)
+
+    E1.reset_launch_counts()
+    r = loop_modes(loop, f"15b lobpcg(k=2, largest, gram, tol 0, {LOB_ITERS} iterations) on the "
+                   f"{g}² stencil, f32", solve, phase="15b", inspect=no_solver_kernels)
+    launches = E1.launch_counts()["small_eigh"]
+    check(launches > 0, "15b: E1 never ran on the slice-10 path")
+    check(r["nodes"].get("small_eigh_kernel", 0) == 4 * loop.BLOCK,
+          f"15b: the cached block holds {r['nodes']}: not 4 E1 per iteration")
+    th, X, res, it = lob()
+    r64, gaps = closed_form_gaps(five_point(g), g, th, X)
+    # E1 on the matrices the path gives it (the SVQB Grams at m = 2, the
+    # Rayleigh-Ritz matrices at m = 6): two at the start, four per iteration
+    calls = 4 * LOB_ITERS + 2
+    worst = fed_check("15b", loop, E1, lob, calls)
+    norm = float(laplacian_eigenvalues(g)[-1])
+    th_e, _, _, it_e = with_eigh(loop, lob)
+    ulps = swap_check("15b lobpcg", th, th_e, it, it_e, norm)
+    th_w, _, _, it_w = with_eigh(loop, lob, eigh_wide)
+    ulps_w = swap_check("15b lobpcg", th, th_w, it, it_w, norm, what="eigh in f64")
+    us_marg = host_ms(lob, 5, 25) * 1e3
+    print(f"[15b device loop] LOBPCG on the {g}² stencil: θ {[round(float(t_), 6) for t_ in th]}, "
+          f"f64 residuals {[float(f'{x:.3e}') for x in r64]}, distance to the nearest closed-form "
+          f"eigenvalue {[float(f'{x:.3e}') for x in gaps]} (limit: residual + 1e-5·θ); E1 on the "
+          f"{calls} matrices one solve gave it, worst |Δλ|, residual, orthogonality over eps "
+          f"by m: {worst_line(worst)} (limit {E1_TOL}); with torch.linalg.eigh in E1's place (the "
+          f"eigh loop) {it_e} iterations, θ {[round(float(t_), 6) for t_ in th_e]}, {ulps:.1f} f32 "
+          f"ulps of ‖A‖₂ from E1's, with it on inputs widened to f64 {ulps_w:.1f} (limit "
+          f"{SWAP_ULPS}); cached "
+          f"block: {seen['nodes']} kernel nodes, no cuSOLVER kernel; {us_marg:.1f} us per "
+          f"iteration marginal in cached blocks (25 − 5 iterations, host clock; the host loop "
+          f"with four cuSOLVER calls per iteration took 8967.4 us on an NVIDIA H100 80GB HBM3 "
+          f"at 700 W); E1 launches on this path "
+          f"{launches}; {card}", flush=True)
+    return r, us_marg, launches
+
+
+def phase15c(lt, loop, dev, main, spectra):
+    """svds and normest of phase 4's BSR operator in captured blocks
+    (``loop_modes``), with phase 11b's seeds: the same counts and bits as
+    their per-iteration loop, and phase 11b's values (which ran the
+    per-iteration loop, a signature's first solve). The blocks must hold E1
+    and K2 (svds: the Gram operator's adjoint applies, column by column; its
+    forward matrix apply is the plain gather, as the reference's XLA matmat),
+    K1 and K2 (normest's vector applies). svds also against the solve with
+    torch.linalg.eigh in E1's place (the eigh loop): counts within 1 (its
+    tol-1e-4 test may pass an iteration apart), s² within SWAP_ULPS f32 ulps
+    of s₀²."""
+    free()
+    B = lt.BSROperator(lt.BSR(main["blocks"], main["cols"], (N, N)))
+    gen = torch.Generator(device=dev)
+
+    def svd():
+        gen.manual_seed(SEED + 113)
+        _, s, V, sres, it = lt.svds(B, k=4, tol=1e-4, maxiter=150, generator=gen)
+        return torch.cat([s, V.reshape(-1)]), it, sres
+
+    def ne():
+        gen.manual_seed(SEED + 114)
+        e, c = lt.normest(B, tol=1e-6, maxiter=300, generator=gen)
+        return torch.tensor([e], dtype=torch.float64), c, None
+
+    out = {}
+    for tag, solve, ref, syms in (
+            ("svds(k=4, tol 1e-4)", svd, spectra["svds"], ("rmatvec_chunk_kernel",
+                                                             "small_eigh_kernel")),
+            ("normest(tol 1e-6)", ne, spectra["normest"], ("bsr_matvec_kernel",
+                                                           "rmatvec_chunk_kernel"))):
+        r = loop_modes(loop, f"15c {tag} of phase 4's BSR B (n = {N})", solve, phase="15c")
+        for sym in syms:
+            check(r["nodes"].get(sym, 0) > 0, f"15c {tag}: {sym} is not in the captured block")
+        x, it, _ = solve()
+        got = float(x[0])
+        check(abs(got - ref) <= 1e-6 * abs(ref), f"15c {tag}: {got} against phase 11b's {ref}")
+        swapped = ""
+        if solve is svd:
+            x_e, it_e, _ = with_eigh(loop, svd)
+            ulps = swap_check(f"15c {tag}", x[:4] ** 2, x_e[:4] ** 2, it, it_e,
+                              float(x[0]) ** 2, count_slack=1)
+            x_w, it_w, _ = with_eigh(loop, svd, eigh_wide)
+            ulps_w = swap_check(f"15c {tag}", x[:4] ** 2, x_w[:4] ** 2, it, it_w,
+                                float(x[0]) ** 2, count_slack=1, what="eigh in f64")
+            swapped = (f"; with torch.linalg.eigh in E1's place {it_e} iterations (E1 {it}), "
+                       f"s² {ulps:.1f} f32 ulps of s₀² apart; with it on inputs widened to f64 "
+                       f"{it_w} iterations, {ulps_w:.1f} ulps (limit {SWAP_ULPS})")
+        print(f"[15c device loop] {tag}: {got:.9f} in cached blocks, phase 11b {ref:.9f} "
+              f"({'bit for bit' if got == ref else f'{abs(got - ref) / abs(ref):.1e} apart'})"
+              f"{swapped}", flush=True)
+        out[tag] = r
+    del B
+    free()
+    return out
+
+
+def phase15e(lt, loop, E1, dev, card):
+    """LOBPCG at k = LOB32_K (largest, gram basis, tol 0, LOB32_ITERS
+    iterations) on phase 11's 2048² stencil in f32, where E1 runs at m = 32
+    (SVQB) and 96 (Rayleigh-Ritz): wall µs per iteration (median of REPS
+    solves, host clock around synchronized solves) of the eigh loop (per
+    iteration, torch.linalg.eigh) against cached captured blocks with E1,
+    and E1's own time at those sizes. E1 on every matrix one solve gives it
+    against eigh. θ against the solve with eigh on inputs widened to f64 in
+    E1's place: within SWAP_ULPS f32 ulps of ‖A‖₂, or no farther than the
+    eigh loop's θ (torch.linalg.eigh in f32, whose eigenvalues at m = 96
+    are themselves some 180 eps·‖A‖₂ off, 15a). Returns the record."""
+    free()
+    g = GRID11
+    S = lt.laplacian_2d(g, g)
+    gen = torch.Generator(device=dev)
+
+    def lob():
+        gen.manual_seed(SEED + 115)
+        th, X, res, it = lt.lobpcg(S, k=LOB32_K, largest=True, tol=0.0, maxiter=LOB32_ITERS,
+                                   generator=gen)
+        return th, it
+
+    with per_iteration(loop), small_eigh_as(torch.linalg.eigh):
+        lob()
+        (th_e, it_e), s_e = median_solve(lob)
+    loop.clear_cache()
+    for _ in range(2):  # the signature's first solve, then its capture
+        lob()
+    (th, it), s_c = median_solve(lob)
+    check(loop.stats["replays"] > 0 and loop.stats["captures"] == 0 and it == it_e,
+          f"15e: the k = {LOB32_K} solve did not replay cached blocks: {loop.stats}")
+    worst = fed_check("15e", loop, E1, lob, 4 * LOB32_ITERS + 2)
+    norm = float(laplacian_eigenvalues(g)[-1])
+    th_w, it_w = with_eigh(loop, lob, eigh_wide)
+    ulps, ulps_e = swap_ulps(th, th_w, norm), swap_ulps(th_e, th_w, norm)
+    e1 = {}
+    for m in (LOB32_K, 3 * LOB32_K):
+        A = torch.randn((m, m), generator=gen, device=dev)
+        e1[m] = (graph_ms(lambda: E1.small_eigh(A)), marginal_ms(lambda: torch.linalg.eigh(A)))
+    rec = {"eigh_us": s_e * 1e6 / it, "e1_us": s_c * 1e6 / it, "e1_calls": e1, "ulps": ulps,
+           "ulps_pr9": ulps_e}
+    print(f"[15e k = {LOB32_K}] lobpcg(k={LOB32_K}, largest, gram, tol 0, {it} iterations) on the "
+          f"{g}² stencil, f32: wall {rec['eigh_us']:.1f} us per iteration in the eigh loop (per "
+          f"iteration, torch.linalg.eigh) -> {rec['e1_us']:.1f} us in cached blocks with E1 "
+          f"({rec['e1_us'] / rec['eigh_us']:.2f}x); θ from the solve with eigh on inputs widened "
+          f"to f64: E1's {ulps:.1f} f32 ulps of ‖A‖₂, the eigh loop's {ulps_e:.1f} (limit: the "
+          f"larger of {SWAP_ULPS} and the eigh loop's); E1 on the matrices one solve gave it "
+          f"{worst_line(worst)} (limit {E1_TOL}); per "
+          f"call E1 / eigh: " + ", ".join(f"m = {m} {a * 1e3:.1f} / {b * 1e3:.1f} us"
+                                          for m, (a, b) in e1.items()) + f"; {card}", flush=True)
+    check(it == it_w and ulps <= max(SWAP_ULPS, ulps_e),
+          f"15e: with E1 {it} iterations and θ {th.tolist()}, with eigh in f64 in its place "
+          f"{it_w} and {th_w.tolist()}: {ulps:.1f} ulps of ‖A‖₂ apart, the eigh loop {ulps_e:.1f}")
+    del S
+    free()
+    return rec
+
+
+def example_checks(name, r):
+    """What each ported example's result must show on the card (their own
+    asserts run too): name -> (passed, what was checked)."""
+    if name.startswith("01"):
+        return bool(torch.isfinite(r["dense"]).all()), "finite dense(expr)"
+    if name.startswith("02"):
+        return r["resid"] <= 1e-10 and r["it1"] <= r["it0"] + 1, "shifted residual ≤ 1e-10, PCG ≤ CG"
+    if name.startswith("03"):
+        return (r["world"] == 1 and r["rel"] <= 1e-6 and r["halo_err"] <= 1e-6
+                and np.isfinite(r["chain"]).all()), "world 1, csr/bsr and halo ≤ 1e-6"
+    if name.startswith("04"):
+        return True, "its own asserts (step inside the radius, shifted residual)"
+    if name.startswith("05"):
+        return r["err"] < 1e-6, "Tikhonov oracle ≤ 1e-6"
+    if name.startswith("06"):
+        return r["finite"] == (True, True) and r["rel"] <= 1e-2, "finite chains, bf16 ≤ 1e-2"
+    if name.startswith("07"):
+        est, se = r["trace"]
+        return (abs(est - r["tr_true"]) <= 6 * se and r["it_nys"] < r["it_plain"]
+                and r["cg_residual"] <= 1e-9 and r["opnorm"][1]), \
+            "trace within 6 se, Nyström CG faster and converged, opnorm converged"
+    if name.startswith("08"):
+        return (r["mesh"] == (1, 1) and abs(r["theta"][0] - r["lam0"]) <= 1e-8
+                and r["res"] <= 1e-10), "1 x 1 mesh, λ₀ within 1e-8, CG converged"
+    if name.startswith("09"):
+        return all(r[k_] <= 1e-12 for k_ in ("forward", "adjoint", "chain")) and \
+            r["perm_exact"], "routed N/T/chain ≤ 1e-12, permutation exact"
+    return False, "unknown example"
+
+
+def phase15d(dev, card):
+    """Every ported example (``examples/torch/0*.py``) through its
+    ``main()`` on the card; 03 and 08 in the world of one NCCL rank that
+    phase 13 started (08 on a 1 x 1 mesh). Each must run, pass its own
+    asserts and ``example_checks``. Returns {example: seconds}."""
+    import glob
+    import importlib.util
+    import io
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(root, "examples", "torch", "0*.py")))
+    check(len(paths) == 9, f"15d: {len(paths)} ported examples, not 9")
+    secs = {}
+    for path in paths:
+        free()
+        name = os.path.basename(path)[:-3]
+        spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            r = mod.main(dev)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if name.startswith("04"):
+            r = None
+        ok, what = example_checks(name, r)
+        last = buf.getvalue().strip().splitlines()[-1]
+        check(ok, f"15d {name}: {what} failed; its output ends: {last}")
+        print(f"[15d examples] {name}: {secs[name]:.2f} s, {what}: ok; its last line: {last}",
+              flush=True)
+    print(f"[15d examples] all 9 ran on the card; {card}", flush=True)
+    return secs
+
+
 def csr_of_bsr(blocks, cols, ncol):
     """A as a ``torch.sparse_csr_tensor`` with int32 indices, on the blocks'
     device: the blocks' values row by row (one copy), the column array made
@@ -3142,9 +3662,11 @@ def main() -> int:
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("bsr_spmv", "bsr_window", "lane_gather")
+    from linops_tpu_torch.kernels import small_eigh as E1
+
+    sources = ("bsr_spmv", "bsr_window", "lane_gather", "small_eigh")
     build.build_all(sources)  # one nvcc per source, in parallel
-    K._lib(), K._win_lib(), LG._lib()
+    K._lib(), K._win_lib(), LG._lib(), E1._lib()
     print("[2 build] -> sm_90a: " + ", ".join(
         f"{n}.cu " + (f"{build.build_seconds[n]:.2f} s" if build.build_seconds[n]
                       else "already built from this source hash")
@@ -3351,8 +3873,8 @@ def main() -> int:
           f"(trace {tries} of up to {TRACE_TRIES})", flush=True)
 
     # --- 11. slice 6 (after the times; it runs no profiler) ---------------------
-    phase11(lt, K, LG, dev, card, ops, {"blocks": blocks, "cols": cols, "A": A,
-                                        "A_plain": A_plain, "H": H, "b": b})
+    _, slice6 = phase11(lt, K, LG, dev, card, ops, {"blocks": blocks, "cols": cols, "A": A,
+                                                    "A_plain": A_plain, "H": H, "b": b})
 
     # --- 12. slice 7: gradients (after the times; it runs no profiler) ------------
     ad_launches, _ = phase12(lt, K, LG, dev, card)
@@ -3382,6 +3904,15 @@ def main() -> int:
     for name in ("lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum",
                  "lane_gather_mul_segsum", "bsr_matvec_windowed"):
         check(slice4_launches[name] > 0, f"{name} never ran on the slice-4 path")
+
+    # --- 15. slice 10: LOBPCG, svds and normest on the device loop, with E1 --------
+    from linops_tpu_torch.utils import loop as loop_mod
+
+    e1_times, _ = phase15a(E1, dev, card)
+    _, _, e1_launches = phase15b(lt, loop_mod, E1, dev, card)
+    phase15c(lt, loop_mod, dev, {"blocks": blocks, "cols": cols}, slice6["spectra"])
+    phase15d(dev, card)
+    phase15e(lt, loop_mod, E1, dev, card)
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
     # comes after phase 5's profiler readings, as phase 10's do), its blocks
@@ -3437,6 +3968,15 @@ def main() -> int:
         if name == "lane_segsum":  # torch.segment_reduce cannot be captured in a graph
             row["library_timing"] = "marginal CUDA events: torch.segment_reduce on the same segments"
         kernels.append(row)
+    t = e1_times[6]  # f32, m = 6: the Rayleigh-Ritz step of LOBPCG at k = 2
+    kernels.append({**entry("small_eigh", E1_SOURCE, E1_REPLACES, e1_launches,
+                            t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["plain_ms"]),
+                    "timing": "cuda_graph", "event_ms": t["event_ms"],
+                    "shape": "f32, m = 6 (the Rayleigh-Ritz step of LOBPCG at k = 2)",
+                    "launches_from": "phase 15b: LOBPCG on the 2048² stencil",
+                    "replaces_note": "no pallas_call site: the jnp.linalg.eigh XLA lowers in "
+                                     "the reference's LOBPCG loop; plain version and library "
+                                     "call are both torch.linalg.eigh"})
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))

@@ -150,9 +150,10 @@ def _walk(value, sig: list, tensors: list, seen: set):
     """Append ``value``'s signature to ``sig`` (and its tensors to
     ``tensors``): tensors by address, version, shape, strides, dtype and
     device (a CPU scalar by value as well: an apply reads it on the host),
-    operators by identity and fields, containers item by item, plans (any
-    other object with fields) by their fields, numbers and strings by value,
-    anything else by identity."""
+    operators by identity and fields (a node whose apply reads nothing but
+    its fields, ``_key_by_fields``, by its fields alone), containers item by
+    item, plans (any other object with fields) by their fields, numbers and
+    strings by value, anything else by identity."""
     if isinstance(value, torch.Tensor):
         tensors.append(value)
         item = (value.data_ptr(), value._version, tuple(value.shape), value.stride(),
@@ -164,12 +165,15 @@ def _walk(value, sig: list, tensors: list, seen: set):
         if plan is not None:
             _walk(plan, sig, tensors, seen)
     elif isinstance(value, LinearOperator):
-        if id(value) in seen:
+        cls = type(value)
+        if cls._key_by_fields:
+            sig.append((cls,))
+        elif id(value) in seen:
             sig.append(("seen", id(value)))
             return
-        seen.add(id(value))
-        cls = type(value)
-        sig.append((cls, id(value)))
+        else:
+            seen.add(id(value))
+            sig.append((cls, id(value)))
         for f in (cls._fields_tensors + cls._fields_static + cls._fields_derived
                   + cls._fields_index):
             _walk(getattr(value, f, None), sig, tensors, seen)
@@ -243,6 +247,9 @@ class LinearOperator(abc.ABC):
     # ``.to`` moves them; checkpoints leave them out and ``_build_index``
     # rebuilds them after a load
     _fields_index: Tuple[str, ...] = ()
+    # a node whose apply reads nothing but its fields: a capture key sees it
+    # by them, so a fresh node over the same fields replays a captured graph
+    _key_by_fields: bool = False
 
     # numpy defers binary ops (u @ op, x * op, ...) to the reflected methods
     __array_ufunc__ = None

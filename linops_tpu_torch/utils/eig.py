@@ -12,9 +12,18 @@ Stathopoulos & Wu's method). Directions with negligible weight are zeroed
 and pushed past the Gershgorin edge so the selection never picks them.
 ``basis="gram"`` (the default) does that orthonormalization in coefficient
 space on one fresh (6k)² joint Gram per iteration; ``basis="direct"`` on
-the big panels. Each reference ``lax.while_loop`` is a host loop here, with
-one stopping-test read per iteration (the convention of
-``utils/krylov.py``); the returned iteration count is the reference's.
+the big panels.
+
+Each reference ``lax.while_loop`` runs on ``utils/loop.py::device_while``,
+as the Krylov solvers do: the stopping test is a device boolean, the host
+reads it once per block of ``loop.BLOCK`` masked iterations, and on a CUDA
+device a block is a CUDA-graph replay (the per-iteration loop for operators
+that are not ``capture_safe``). The small eigendecompositions inside the
+loop (per iteration the SVQB transforms, three in the gram basis and two in
+the direct one, and one Rayleigh–Ritz step) go through ``kernels/small_eigh.py``: E1, a hand-written Jacobi kernel, on a
+CUDA tensor (``torch.linalg.eigh`` reads cuSOLVER's status back to the host,
+which a capture refuses), ``torch.linalg.eigh`` on the CPU. The count and
+the bits are the per-iteration loop's; the count is the reference's.
 
 ``basis="gram"`` squares the basis condition number, so hold f32 runs to
 well-conditioned problems.
@@ -27,6 +36,8 @@ import torch
 from ..core.base import LinearOperator, LinearOperatorException
 from ..core.dense import aslinearoperator
 from ..core.precision import pmatmul
+from ..kernels.small_eigh import small_eigh
+from . import loop
 from .estimate import _device, _probe_dtype, _real
 from .rng import fresh_generator
 
@@ -44,16 +55,16 @@ def _svqb_transform_g(G):
     m = G.shape[0]
     rdt = _real(G.dtype)
     eps = torch.finfo(rdt).eps
-    tiny = torch.tensor(torch.finfo(rdt).tiny * 100, dtype=rdt, device=G.device)
+    tiny = torch.finfo(rdt).tiny * 100  # a kernel argument: no host-to-device copy
     d = torch.diagonal(G).real
     dmax = torch.max(d)
     # scale-invariant column keep: only hard zeros drop here
-    keep = d > torch.maximum(dmax * 1e-28, tiny)
+    keep = d > torch.clamp(dmax * 1e-28, min=tiny)
     Dinv = torch.where(keep, 1.0 / torch.sqrt(torch.where(keep, d, torch.ones_like(d))),
                        torch.zeros_like(d))
     Gn = Dinv[:, None].to(G.dtype) * G * Dinv[None, :].to(G.dtype)
-    w, V = torch.linalg.eigh(Gn)
-    clipped = w < torch.maximum(torch.max(w) * (m * 10) * eps, tiny)
+    w, V = small_eigh(Gn)
+    clipped = w < torch.clamp(torch.max(w) * (m * 10) * eps, min=tiny)
     winv = torch.where(clipped, torch.zeros_like(w),
                        1.0 / torch.sqrt(torch.where(clipped, torch.ones_like(w), w)))
     T = (Dinv[:, None].to(V.dtype) * V) * winv[None, :].to(V.dtype)
@@ -84,7 +95,7 @@ def _rr_from_H(H, clipped, k: int, largest: bool):
     big = 2.0 * torch.max(torch.sum(torch.abs(H), dim=1)) + 1.0
     sign = -1.0 if largest else 1.0
     H = H + torch.diag(torch.where(clipped, sign * big, torch.zeros_like(big))).to(H.dtype)
-    w, C = torch.linalg.eigh(H)
+    w, C = small_eigh(H)
     m = w.shape[0]
     idx = (torch.arange(m - 1, m - 1 - k, -1, device=w.device) if largest
            else torch.arange(k, device=w.device))
@@ -98,30 +109,46 @@ def _gs_t(Yt, Zt, passes: int = 2):
     return Yt
 
 
-def _not_converged(res, theta, kc: int, tol: float) -> bool:
-    """The stopping test: one host read per iteration."""
-    return bool(torch.max(res[:kc] / torch.clamp(torch.abs(theta[:kc]), min=1.0)) > tol)
+def _converged_test(kc: int):
+    """The stopping test on (…, θ, res) as a device boolean: some requested
+    pair's resnorm above tol·max(|θ|, 1) (tol is ``consts[0]``)."""
+    def cond(state, consts):
+        theta, res = state[3], state[4]
+        return torch.max(res[:kc] / torch.clamp(torch.abs(theta[:kc]), min=1.0)) > consts[0]
+    return cond
 
 
-def _lobpcg_start(op, X0, Yct, k, largest):
-    deflate = (lambda Bt: _gs_t(Bt, Yct)) if Yct is not None else (lambda Bt: Bt)
-    Xt, clip0 = _svqb_t(deflate(X0.T))
+def _deflate(Bt, consts):
+    """Project the constraint block (``consts[1]``, orthonormal rows) out
+    of the rows of Bt."""
+    return _gs_t(Bt, consts[1]) if len(consts) > 1 else Bt
+
+
+def _lobpcg_start(op, X0, consts, k, largest):
+    Xt, clip0 = _svqb_t(_deflate(X0.T, consts))
     AXt = op.apply_matrix_t(Xt, "N")
     theta, C = _rr_from_H(pmatmul(Xt.conj(), AXt.T), clip0, k, largest)
-    return pmatmul(C.T, Xt), pmatmul(C.T, AXt), theta, deflate
+    return pmatmul(C.T, Xt), pmatmul(C.T, AXt), theta
 
 
-def _lobpcg_gram(op, Mop, X0, Yc, tol, k, maxiter, largest, k_conv=None):
+def _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, basis):
+    """Run ``body`` on (Xt, AXt, Pt, θ, res) from the start block's
+    Rayleigh–Ritz pairs, on ``loop.device_while``; returns (θ, X, res,
+    iterations)."""
+    rdt = _real(X0.dtype)
+    Xt, AXt, theta = _lobpcg_start(op, X0, consts, k, largest)
+    res = torch.full((k,), float("inf"), dtype=rdt, device=X0.device)
+    (Xt, _, _, theta, res), it = loop.device_while(
+        _converged_test(kc), body, (Xt, AXt, torch.zeros_like(Xt), theta, res), maxiter,
+        consts=consts, ops=(op, Mop), key=("lobpcg", basis, k, largest, kc))
+    return theta, Xt.T, res, it
+
+
+def _lobpcg_gram(op, Mop, X0, consts, k, maxiter, largest, kc):
     """LOBPCG with the basis kept in coefficient space: per iteration one
     fresh image of the raw basis, one joint (6k)² Gram of [S; A S] and one
     fused update; the orthonormalization is (6k)² arithmetic."""
     rdt = _real(X0.dtype)
-    Yct = Yc.T if Yc is not None else None
-    Xt, AXt, theta, deflate = _lobpcg_start(op, X0, Yct, k, largest)
-    Pt = torch.zeros_like(Xt)
-    kw = dict(dtype=X0.dtype, device=X0.device)
-    eyek, zk = torch.eye(k, **kw), torch.zeros((k, k), **kw)
-    kc = k if k_conv is None else k_conv
 
     def small_gs(E, G, Zc, passes=2):
         # rows of E @ S_raw against rows of Zc @ S_raw through the Gram G
@@ -130,11 +157,12 @@ def _lobpcg_gram(op, Mop, X0, Yc, tol, k, maxiter, largest, k_conv=None):
             E = E - pmatmul(pmatmul(pmatmul(E, Gb), _H(Zc)), Zc)
         return E
 
-    res = torch.full((k,), float("inf"), dtype=rdt, device=X0.device)
-    it = 0
-    while it < maxiter and _not_converged(res, theta, kc, tol):
+    def body(state, consts, _):
+        Xt, AXt, Pt, theta, _ = state
+        kw = dict(dtype=Xt.dtype, device=Xt.device)
+        eyek, zk = torch.eye(k, **kw), torch.zeros((k, k), **kw)
         Rt = AXt - theta[:, None].to(Xt.dtype) * Xt
-        Wt = deflate(Mop.apply_matrix_t(Rt, "N") if Mop is not None else Rt)
+        Wt = _deflate(Mop.apply_matrix_t(Rt, "N") if Mop is not None else Rt, consts)
         St = torch.cat([Xt, Wt, Pt], dim=0)  # raw basis (3k, n)
         ASt = op.apply_matrix_t(St, "N")  # fresh image
         B = torch.cat([St, ASt], dim=0)  # (6k, n)
@@ -164,28 +192,24 @@ def _lobpcg_gram(op, Mop, X0, Yc, tol, k, maxiter, largest, k_conv=None):
         # residuals from the materialized Ritz pieces (the small-space formula
         # cancels in f32 near convergence)
         res = torch.linalg.vector_norm(AXt - theta[:, None].to(Xt.dtype) * Xt, dim=1).to(rdt)
-        it += 1
-    return theta, Xt.T, res, it
+        return Xt, AXt, Pt, theta, res
+
+    return _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, "gram")
 
 
-def _lobpcg_direct(op, Mop, X0, Yc, tol, k, maxiter, largest, k_conv=None):
+def _lobpcg_direct(op, Mop, X0, consts, k, maxiter, largest, kc):
     """LOBPCG with the blockwise orthonormalization on the (·, n) panels."""
-    rdt = _real(X0.dtype)
-    Yct = Yc.T if Yc is not None else None
-    Xt, AXt, theta, deflate = _lobpcg_start(op, X0, Yct, k, largest)
-    Pt = torch.zeros_like(Xt)
-    kc = k if k_conv is None else k_conv
-    res = torch.full((k,), float("inf"), dtype=rdt, device=X0.device)
-    it = 0
-    while it < maxiter and _not_converged(res, theta, kc, tol):
+
+    def body(state, consts, _):
+        Xt, AXt, Pt, theta, _ = state
         Rt = AXt - theta[:, None].to(Xt.dtype) * Xt
         Wt = Mop.apply_matrix_t(Rt, "N") if Mop is not None else Rt
-        Wt = _gs_t(deflate(Wt), Xt)
+        Wt = _gs_t(_deflate(Wt, consts), Xt)
         Wt, cW = _svqb_t(Wt)
         XWt = torch.cat([Xt, Wt], dim=0)
         Pbt, cP = _svqb_t(_gs_t(Pt, XWt))
         St = torch.cat([XWt, Pbt], dim=0)  # (3k, n)
-        clipped = torch.cat([torch.zeros((k,), dtype=torch.bool, device=X0.device), cW, cP])
+        clipped = torch.cat([torch.zeros((k,), dtype=torch.bool, device=Xt.device), cW, cP])
         ASt = op.apply_matrix_t(St, "N")  # fresh image
         theta, C = _rr_from_H(pmatmul(St.conj(), ASt.T), clipped, k, largest)
         Cp = C.clone()
@@ -194,8 +218,9 @@ def _lobpcg_direct(op, Mop, X0, Yc, tol, k, maxiter, largest, k_conv=None):
         Xt, Pt = OUT[:k], OUT[k:]
         AXt = pmatmul(C.T, ASt)
         res = torch.linalg.vector_norm(AXt - theta[:, None].to(Xt.dtype) * Xt, dim=1)
-        it += 1
-    return theta, Xt.T, res, it
+        return Xt, AXt, Pt, theta, res
+
+    return _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, "direct")
 
 
 def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
@@ -269,9 +294,13 @@ def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
         g = g if g is not None else fresh_generator(dev)
         X0 = torch.cat([X0, torch.randn((n, k_int - k), generator=g, device=dev,
                                         dtype=rdt).to(dt)], dim=1)
+    # per-solve values the loop reads (a captured block replays over them):
+    # tol, and the constraint block as orthonormal rows
+    consts = (torch.full((), float(tol), dtype=rdt, device=dev),)
+    if Y is not None:
+        consts += (Y.T,)
     impl = _lobpcg_gram if basis == "gram" else _lobpcg_direct
-    theta, X, res, it = impl(op, M, X0, Y, float(tol), k_int, int(maxiter), bool(largest),
-                             k_conv=k)
+    theta, X, res, it = impl(op, M, X0, consts, k_int, int(maxiter), bool(largest), k)
     return theta[:k], X[:, :k], res[:k], int(it)
 
 
@@ -281,6 +310,9 @@ class _GramOperator(LinearOperator):
 
     _fields_tensors = ("base",)
     _fields_static = ("side",)
+    # each svds makes a fresh node; its capture key is (base, side), so a
+    # repeated svds over one operator replays
+    _key_by_fields = True
 
     def __init__(self, base: LinearOperator, side: str = "right"):
         super().__init__()

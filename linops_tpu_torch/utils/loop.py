@@ -1,5 +1,6 @@
 """Device-resident loops: the counterparts of ``lax.while_loop`` and
-``lax.fori_loop`` for the solvers of ``utils/krylov.py``.
+``lax.fori_loop`` for the solvers of ``utils/krylov.py`` and the spectral
+loops of ``utils/eig.py`` (LOBPCG) and ``utils/norm.py`` (``normest``).
 
 The reference runs every solve as one compiled loop on the device
 (``linops_tpu/utils/krylov.py:3-11``). PyTorch runs eagerly, so a plain

@@ -2,8 +2,10 @@
 
 Counterpart of ``linops_tpu/utils/norm.py``:
 
-- ``normest``: power iteration on SᴴS, a host loop with one stopping-test
-  read per iteration (``_normest_loop`` takes its start vector and reseed
+- ``normest``: power iteration on SᴴS on ``utils/loop.py::device_while``
+  (one host read per block of masked iterations; on a CUDA device each
+  block a CUDA-graph replay), as the reference's one compiled
+  ``lax.while_loop`` (``_normest_loop`` takes its start vector and reseed
   noise explicitly);
 - ``estimate_opnorm``: a tiny dense fallback, Lanczos with full
   reorthogonalization on hermitian operators, Lanczos on the Gram operator
@@ -19,6 +21,7 @@ import torch
 
 from ..core.base import LinearOperatorException
 from ..core.dense import aslinearoperator
+from . import loop
 from .estimate import _device, _lanczos_tridiag, _probe_dtype, _real, _tridiag
 from .rng import fresh_generator
 
@@ -30,23 +33,31 @@ def _real_eps(dtype) -> float:
 
 
 def _normest_loop(op, v0, reseed_noise, tol: float, maxiter: int):
-    """The power iteration of ``normest`` from start ``v0`` (length m);
-    returns (estimate, iterations) as Python numbers."""
+    """The power iteration of ``normest`` from start ``v0`` (length m), at
+    most ``maxiter + 1`` steps as the reference's; returns (estimate,
+    iterations) as Python numbers, read once the loop has ended. A zero
+    first image stops it before any step (a device ``where``, no read)."""
     x = op.apply(v0, "H")
     e0 = torch.linalg.vector_norm(x)
-    if float(e0) == 0:
-        return 0.0, 0
-    x = x / e0
-    e, e_prev, cnt = e0, torch.zeros_like(e0), 0
-    while cnt <= maxiter and bool(torch.abs(e - e_prev) > tol * e):
+    x = x / torch.where(e0 == 0, torch.ones_like(e0), e0)
+    tol_t = torch.full((), float(tol), dtype=e0.dtype, device=e0.device)
+
+    def cond(state, consts):
+        _, e, e_prev = state
+        return torch.abs(e - e_prev) > consts[0] * e
+
+    def body(state, consts, _):
+        x, e, _ = state
         Sx = op.apply(x, "N")
         # reseed on an exactly zero image
-        Sx = torch.where(torch.all(Sx == 0), reseed_noise, Sx)
+        Sx = torch.where(torch.all(Sx == 0), consts[1], Sx)
         x = op.apply(Sx, "H")
         normx = torch.linalg.vector_norm(x)
-        e, e_prev = normx / torch.linalg.vector_norm(Sx), e
-        x = x / normx
-        cnt += 1
+        return x / normx, normx / torch.linalg.vector_norm(Sx), e
+
+    (_, e, _), cnt = loop.device_while(cond, body, (x, e0, torch.zeros_like(e0)), maxiter + 1,
+                                       consts=(tol_t, reseed_noise), ops=(op,),
+                                       key=("normest",))
     return float(e), cnt
 
 

@@ -392,3 +392,46 @@ def test_loop_cache_remembers_a_signature_then_holds_its_graph(monkeypatch):
     loop._remember("while", ("case", loop._CACHE_SIZE), (), t)
     assert len(loop._CACHE) == loop._CACHE_SIZE
     assert loop._lookup(key(0)) == (True, block) and loop._lookup(key(1)) == (False, None)
+
+
+# ----------------------------------------------------------------------------
+# LOBPCG and normest over an operator that is not capture-safe (their blocked
+# loops are held in tests/test_torch_eig.py and tests/test_torch_estimate.py)
+# ----------------------------------------------------------------------------
+
+
+def spectrum(rng, n, lam, complex_=False):
+    Z = rng.standard_normal((n, n))
+    if complex_:
+        Z = Z + 1j * rng.standard_normal((n, n))
+    Q, _ = np.linalg.qr(Z)
+    A = (Q * lam) @ Q.conj().T
+    return (A + A.conj().T) / 2
+
+
+def test_spectral_loops_over_an_undeclared_function_operator_run_per_iteration(rng):
+    """A FunctionOperator that is not declared capture-safe sends LOBPCG and
+    normest to the per-iteration loop (one read per iteration), with the
+    blocked loop's results."""
+    n = 40
+    A = spectrum(rng, n, np.linspace(1.0, 30.0, n))
+    At = t_(A)
+    zero = lt.opDiagonal(torch.zeros(n, dtype=torch.float64))  # puts the sum on the CPU
+    safe = lt.FunctionOperator(n, n, lambda v: At @ v, dtype=torch.float64, symmetric=True,
+                               hermitian=True, capture_safe=True) + zero
+    plain = lt.FunctionOperator(n, n, lambda v: At @ v, dtype=torch.float64, symmetric=True,
+                                hermitian=True) + zero
+    assert safe.hermitian and safe.capture_safe and not plain.capture_safe
+    X0 = t_(rng.standard_normal((n, 2)))
+    out = {}
+    for tag, op in (("safe", safe), ("plain", plain)):
+        th, X, _, it = lt.lobpcg(op, k=2, X0=X0, tol=1e-8, maxiter=200)
+        st = dict(loop.stats)
+        e, c = lt.normest(op, tol=1e-10, maxiter=500, generator=torch.Generator().manual_seed(1))
+        out[tag] = (th, X, it, st, e, c, dict(loop.stats))
+    th, X, it, st, e, c, ste = out["plain"]
+    assert st["path"] == ste["path"] == "per_iteration"
+    assert st["reads"] == it + 1 and ste["reads"] == c + 1
+    ths, Xs, its, sts, es, cs, stes = out["safe"]
+    assert sts["path"] == stes["path"] == "blocks"
+    assert it == its and torch.equal(th, ths) and torch.equal(X, Xs) and (e, c) == (es, cs)

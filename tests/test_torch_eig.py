@@ -8,7 +8,14 @@ relative, and their eigenvector blocks span the same space (the projectors
 agree within 1e-6). ``svds`` goes through the same LOBPCG; ``rsvd`` and the
 Nyström sketch take the same Gaussian block through ``_rsvd`` /
 ``_nystrom_sketch`` and agree within 1e-10 relative in the singular values
-and eigenvalues."""
+and eigenvalues.
+
+LOBPCG and svds run on ``utils/loop.py::device_while``: in blocks of
+``loop.BLOCK`` masked iterations they give the count and every bit of one
+masked iteration per host read (the per-iteration loop), with ⌈I/4⌉ + 1
+host reads."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +26,7 @@ import linops_tpu as lo
 import linops_tpu_torch as lt
 from linops_tpu.utils import eig as jeig
 from linops_tpu_torch.utils import eig as teig
+from linops_tpu_torch.utils import loop
 
 CPU = dict(device="cpu")
 
@@ -183,6 +191,33 @@ def test_gram_operator_matches_reference(rng):
         assert lt.check_hermitian(g_t)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_small_eigh_backward_is_eighs(rng, dtype):
+    """E1's backward (``eigh_vjp``, which a card launch runs under autograd)
+    gives ``torch.linalg.eigh``'s gradient for a gauge-invariant loss of w
+    and |V|², within 1e-10."""
+    from linops_tpu_torch.kernels.small_eigh import eigh_vjp
+
+    m = 7
+    A = torch.from_numpy(rng.standard_normal((2, m, m))).to(dtype)
+    if dtype.is_complex:
+        A = A + 1j * torch.from_numpy(rng.standard_normal((2, m, m)))
+    A = 0.5 * (A + A.mH)
+    cw = torch.from_numpy(rng.standard_normal((2, m)))
+    cV = torch.from_numpy(rng.standard_normal((2, m, m)))
+
+    def loss(w, V):
+        return (cw * w).sum() + (cV * V.abs() ** 2).sum()
+
+    A_ = A.clone().requires_grad_()
+    (g_ref,) = torch.autograd.grad(loss(*torch.linalg.eigh(A_)), A_)
+    w, V = torch.linalg.eigh(A)
+    w_, V_ = w.clone().requires_grad_(), V.clone().requires_grad_()
+    gw, gV = torch.autograd.grad(loss(w_, V_), (w_, V_))
+    g = eigh_vjp(w, V, gw, gV)
+    assert (g - g_ref).abs().max() <= 1e-10 * g_ref.abs().max()
+
+
 @pytest.mark.parametrize("power_iters", [0, 2])
 def test_rsvd_same_block(rng, power_iters):
     m, n, l = 60, 40, 12
@@ -235,3 +270,105 @@ def test_nystrom_rank_truncates(rng):
     with pytest.raises(lt.LinearOperatorException):
         lt.nystrom_preconditioner(lt.LinearOperator(np.zeros((10, 10)), symmetric=True,
                                                     hermitian=True, **CPU), 2, generator=gen())
+
+
+# ----------------------------------------------------------------------------
+# On the device loop
+# ----------------------------------------------------------------------------
+
+
+def t_(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+LOBPCG_CASES = {  # name -> (basis, complex, extra: "M", "Y" or "block_size")
+    "gram": ("gram", False, None), "direct": ("direct", False, None),
+    "gram_complex": ("gram", True, None), "direct_complex": ("direct", True, None),
+    "gram_M": ("gram", False, "M"), "direct_M": ("direct", False, "M"),
+    "gram_Y": ("gram", False, "Y"), "direct_Y": ("direct", True, "Y"),
+    "gram_k_conv": ("gram", False, "block_size"),
+}
+
+
+@pytest.mark.parametrize("name", list(LOBPCG_CASES))
+def test_lobpcg_blocks_match_per_iteration_loop_and_reference(rng, monkeypatch, name):
+    """LOBPCG (both bases, real and complex, with M, with Y, with an internal
+    block wider than k) in blocks of 4 against one masked iteration per
+    read: the same count and θ, X and resnorm bits, ⌈I/4⌉ + 1 host reads;
+    and the reference's count (±1), θ (1e-8) and span (1e-6), as
+    ``lobpcg_parity`` holds them."""
+    basis, complex_, extra = LOBPCG_CASES[name]
+    n, k = 60, 2
+    lam = np.linspace(1.0, 100.0, n)
+    A, opt, opj = spectrum_op(rng, lam, complex_)
+    X0 = rng.standard_normal((n, k)) + (1j * rng.standard_normal((n, k)) if complex_ else 0)
+    args = dict(k=k, tol=1e-8, maxiter=300, basis=basis)
+    jargs, targs = dict(args), dict(args)
+    if extra == "M":
+        Minv = np.linalg.inv(A + 5 * np.eye(n))
+        jargs["M"], targs["M"] = lo.LinearOperator(Minv), lt.LinearOperator(Minv, **CPU)
+    elif extra == "Y":
+        Y = np.linalg.eigh(A)[1][:, :2]  # the two lowest eigenvectors: the next two are sought
+        jargs["Y"], targs["Y"] = jnp.asarray(Y), t_(Y)
+    elif extra == "block_size":
+        jargs["block_size"] = targs["block_size"] = 4  # k_conv = 2 < k = 4
+
+    def port(block):
+        monkeypatch.setattr(loop, "BLOCK", block)
+        out = lt.lobpcg(opt, X0=t_(X0), **targs)
+        return out, dict(loop.stats)
+
+    if extra == "block_size":  # the padded columns come from a generator: the same one twice
+        def port(block):  # noqa: F811
+            monkeypatch.setattr(loop, "BLOCK", block)
+            out = lt.lobpcg(opt, k=k, tol=1e-8, maxiter=300, basis=basis, block_size=4,
+                            generator=torch.Generator().manual_seed(3))
+            return out, dict(loop.stats)
+
+    (th1, X1, r1, it1), st1 = port(1)
+    (th4, X4, r4, it4), st4 = port(4)
+    assert isinstance(it4, int) and it4 == it1 and 1 < it4 < 300
+    assert torch.equal(th4, th1) and torch.equal(X4, X1) and torch.equal(r4, r1)
+    assert st4["path"] == "blocks" and st4["iterations"] == it4
+    assert st4["reads"] == st4["blocks"] + 1 == math.ceil(it4 / 4) + 1
+    assert st1["reads"] == it1 + 1
+    if extra == "block_size":  # no shared start block: the converged pairs
+        np.testing.assert_allclose(th4.numpy(), lam[:k], rtol=1e-7)
+        return
+    thj, Xj, _, itj = lo.lobpcg(opj, X0=jnp.asarray(X0), **jargs)
+    assert abs(it4 - int(itj)) <= 1
+    thj = np.asarray(thj)
+    assert np.abs(th4.numpy() - thj).max() <= 1e-8 * max(np.abs(thj).max(), 1.0)
+    assert np.abs(proj(X4.numpy()) - proj(Xj)).max() <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(50, 30), (30, 50)])
+def test_svds_blocks_match_per_iteration_loop_and_reference(rng, monkeypatch, shape):
+    """svds runs LOBPCG on the Gram operator: in blocks of 4 the bits and
+    count of one iteration per read, and the reference's singular values
+    (1e-8, as above); a second svds of the same operator makes a fresh
+    Gram node with the same capture signature, and keeps nothing on it."""
+    A = rng.standard_normal(shape)
+    op = lt.LinearOperator(t_(A))
+    attrs = set(vars(op))
+
+    def port(block):
+        monkeypatch.setattr(loop, "BLOCK", block)
+        out = lt.svds(op, k=3, tol=1e-9, maxiter=500, generator=torch.Generator().manual_seed(0))
+        return out, dict(loop.stats)
+
+    (U1, s1, V1, r1, it1), _ = port(1)
+    (U4, s4, V4, r4, it4), st4 = port(4)
+    assert it4 == it1 and all(torch.equal(a, b) for a, b in ((U4, U1), (s4, s1), (V4, V1),
+                                                             (r4, r1)))
+    assert st4["path"] == "blocks" and st4["reads"] == math.ceil(it4 / 4) + 1
+    _, sj, _, _, _ = lo.svds(lo.LinearOperator(jnp.asarray(A)), k=3, tol=1e-9, maxiter=500)
+    np.testing.assert_allclose(s4.numpy(), np.asarray(sj), rtol=1e-8)
+    from linops_tpu_torch.core.base import capture_signature
+    from linops_tpu_torch.utils.eig import _GramOperator
+
+    side = "right" if shape[1] <= shape[0] else "left"
+    key = capture_signature(_GramOperator(op, side))[0]
+    assert capture_signature(_GramOperator(op, side))[0] == key  # a fresh node, one key
+    assert capture_signature(_GramOperator(op.to("cpu"), side))[0] != key  # a copy's own
+    assert set(vars(op)) == attrs  # svds keeps nothing on the operator

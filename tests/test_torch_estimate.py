@@ -11,6 +11,8 @@ within 1e-10 relative (the power iteration: its count ±1 and 1e-8); the
 public functions, on the port's own probes, meet the reference tests'
 accuracy targets against dense truth."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from linops_tpu.utils import estimate as jest
 from linops_tpu.utils import norm as jnorm
 from linops_tpu_torch.utils import checks as tchecks
 from linops_tpu_torch.utils import estimate as test_
+from linops_tpu_torch.utils import loop
 from linops_tpu_torch.utils import norm as tnorm
 
 RTOL = 1e-10
@@ -353,3 +356,47 @@ def test_funm_complex_and_edge_cases(rng):
     close(e, np.log(2.0) * np.ones(n), rtol=1e-12)
     with pytest.raises(lt.LinearOperatorException):
         lt.funm_apply(op_r, torch.exp, torch.ones(n + 1, dtype=torch.float64))
+
+
+# normest on the device loop (blocks of loop.BLOCK against one iteration per read)
+
+
+@pytest.mark.parametrize("shape", [(40, 40), (60, 25)])
+def test_normest_blocks_match_per_iteration_loop_and_reference(rng, monkeypatch, shape):
+    """normest's power iteration in blocks of 4: the count and estimate of
+    one iteration per read, ⌈I/4⌉ + 1 reads, and the reference's
+    ``_normest_jit`` (count ±1, estimate 1e-8, as above)."""
+    A = rng.standard_normal(shape)
+    opt, opj = pair(A)
+    m = shape[0]
+    v0 = np.where(rng.standard_normal(m) < 0, -1.0, 1.0)
+    noise = rng.standard_normal(m)
+
+    def port(block):
+        monkeypatch.setattr(loop, "BLOCK", block)
+        out = tnorm._normest_loop(opt, torch.from_numpy(v0), torch.from_numpy(noise), 1e-10, 1000)
+        return out, dict(loop.stats)
+
+    (e1, c1), st1 = port(1)
+    (e4, c4), st4 = port(4)
+    assert c4 == c1 and e4 == e1 and 1 < c4 <= 1001
+    assert st4["path"] == "blocks" and st4["reads"] == math.ceil(c4 / 4) + 1
+    assert st1["reads"] == c1 + 1
+    e_j, c_j = jnorm._normest_jit(opj, jnp.asarray(v0), jnp.asarray(noise), jnp.asarray(1e-10),
+                                  1000)
+    assert abs(c4 - int(c_j)) <= 1
+    assert abs(e4 - float(e_j)) <= 1e-8 * float(e_j)
+
+
+def test_normest_stops_at_maxiter_plus_one_and_on_a_zero_operator(rng, monkeypatch):
+    """The reference's bounds: at most maxiter + 1 steps (the cap falls in
+    the middle of a block), and a zero first image runs no step (one read,
+    the initial test)."""
+    monkeypatch.setattr(loop, "BLOCK", 4)
+    A = lt.LinearOperator(rng.standard_normal((40, 40)), **CPU)
+    with pytest.warns(UserWarning, match="did not converge"):
+        _, cnt = lt.normest(A, tol=1e-16, maxiter=5, generator=torch.Generator().manual_seed(0))
+    assert cnt == 6 and loop.stats["reads"] == 1 + 2
+    Z = lt.opZeros(7, 7, dtype=torch.float64, device="cpu")
+    assert lt.normest(Z, generator=torch.Generator().manual_seed(0)) == (0.0, 0)
+    assert loop.stats["reads"] == 1 and loop.stats["blocks"] == 0

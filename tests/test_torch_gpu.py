@@ -45,6 +45,20 @@ bits of the eager blocks and of the per-iteration loop (slice 1's CG over
 K1/K2, a routed CG over K7, K9-K11), a cached solve captures nothing, a
 replay makes no host synchronisation, and an L-BFGS push or an in-place edit
 between solves leads to a new capture, never a stale replay.
+
+E1, the small Hermitian eigensolver (slice 10), against its plain version
+``torch.linalg.eigh`` on the same (not Hermitian: both read the lower
+triangle) inputs, for f32, f64, c64 and c128 at m in {1, 2, 6, 24, 96, 150}
+(c128 at 96 and everything at 150 works from global memory):
+|Δλ| ≤ 50·eps·‖A‖₂ (the plain version run on the inputs widened to f64 or
+c128: in f32 at m = 96 the plain version itself is about 200·eps off on
+the H100), ‖AV − VΛ‖₂ ≤ 50·eps·‖A‖₂ and max|VᴴV − I| ≤ 50·eps
+(eps of the working precision; eigenvectors are compared through these,
+since sign, phase and vectors inside a cluster are not unique); a NaN input
+ends with NaN out and leaves the other matrices of its batch alone.
+LOBPCG, svds and normest on the device loop: the first, capturing and
+cached solves give the same count and bits, the captured block holds E1,
+and a replay under ``set_sync_debug_mode("error")`` raises nothing.
 """
 
 import numpy as np
@@ -54,6 +68,7 @@ import torch
 import linops_tpu_torch as lt
 from linops_tpu_torch.kernels import bsr_spmv as K
 from linops_tpu_torch.kernels import lane_gather as LG
+from linops_tpu_torch.kernels import small_eigh as E1
 
 pytestmark = pytest.mark.gpu
 
@@ -1309,3 +1324,162 @@ def test_a_capture_failure_names_the_operator(dev, loop_mod):
     loop_mod.CAPTURE = False
     x_e, k_e, _ = lt.cg(A, b1, M=H, tol=1e-6, maxiter=300)
     assert k1 == k_e and torch.equal(x1, x_e)
+
+
+# ---------------------------------------------------------------- slice 10: E1 and the spectral loops
+
+
+def hermitian_batch(dev, m, dtype, batch=3, seed=40):
+    g = torch.Generator(device=dev).manual_seed(seed + m)
+    rdt = torch.float64 if dtype in (torch.float64, torch.complex128) else torch.float32
+    A = torch.randn((batch, m, m), generator=g, device=dev, dtype=rdt)
+    if dtype.is_complex:
+        A = torch.complex(A, torch.randn((batch, m, m), generator=g, device=dev, dtype=rdt))
+    return A
+
+
+def eigh_errors(A, w, V):
+    """(max |Δλ| against torch.linalg.eigh of A widened to f64/c128,
+    ‖AV − VΛ‖₂, max|VᴴV − I|), the first two over ‖A‖₂, all over the eps of
+    A's precision; A's lower triangle read."""
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    eps = torch.finfo(w.dtype).eps
+    Ah = A.to(wide).tril()
+    Ah = Ah + Ah.tril(-1).mH
+    if Ah.is_complex():
+        Ah.diagonal(dim1=-2, dim2=-1).imag.zero_()
+    w_ref = torch.linalg.eigh(A.to(wide))[0].double()
+    norm2 = w_ref.abs().amax(-1).clamp_min(1e-300)
+    Vw = V.to(wide)
+    dl = ((w.double() - w_ref).abs().amax(-1) / norm2).max() / eps
+    res = (torch.linalg.matrix_norm(Ah @ Vw - Vw * w.to(wide)[..., None, :], ord=2)
+           / norm2).max() / eps
+    eye = torch.eye(A.shape[-1], dtype=wide, device=A.device)
+    orth = (Vw.mH @ Vw - eye).abs().max() / eps
+    return float(dl), float(res), float(orth)
+
+
+@pytest.mark.parametrize("m", [1, 2, 6, 24, 96, 150])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_small_eigh_matches_torch_eigh(dev, dtype, m):
+    A = hermitian_batch(dev, m, dtype)
+    E1.reset_launch_counts()
+    w, V, sweeps = E1.small_eigh(A, sweeps=True)
+    torch.cuda.synchronize()
+    assert E1.launch_counts()["small_eigh"] == 1
+    assert w.shape == (3, m) and V.shape == (3, m, m) and V.dtype == dtype
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    assert int(sweeps.max()) < 30
+    dl, res, orth = eigh_errors(A, w, V)
+    assert dl <= 50 and res <= 50 and orth <= 50, (dl, res, orth)
+    w2, V2 = E1.small_eigh(A)
+    assert torch.equal(w, w2) and torch.equal(V, V2)  # the same bits on a rerun
+
+
+def test_small_eigh_nan_input_ends(dev):
+    """A NaN matrix ends without a sweep, NaN out; its batch's other
+    matrices are solved as alone."""
+    A = hermitian_batch(dev, 24, torch.float32, batch=2)
+    A_nan = A.clone()
+    A_nan[1, 5, 3] = float("nan")
+    w, V, sweeps = E1.small_eigh(A_nan, sweeps=True)
+    torch.cuda.synchronize()
+    assert torch.isnan(w[1]).all() and torch.isnan(V[1]).all() and int(sweeps[1]) == 0
+    w0, V0 = E1.small_eigh(A[:1])
+    assert torch.equal(w[0], w0[0]) and torch.equal(V[0], V0[0])
+    w, V = E1.small_eigh(torch.full((6, 6), float("nan"), device=dev, dtype=torch.complex128))
+    torch.cuda.synchronize()
+    assert torch.isnan(w).all()
+
+
+def test_small_eigh_captures_in_a_graph(dev):
+    """E1 inside a CUDA graph: a replay gives the eager bits, with no host
+    synchronisation."""
+    A = hermitian_batch(dev, 6, torch.float32, batch=1)
+    w_e, V_e = E1.small_eigh(A)
+    static = A.clone()
+    g = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        w_g, V_g = E1.small_eigh(static)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(w_g, w_e) and torch.equal(V_g, V_e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_small_eigh_gradient_matches_eigh(dev, dtype):
+    """Under autograd E1 launches inside an autograd node whose backward is
+    eigh's: the gradient of a gauge-invariant loss of (w, |V|²) matches
+    ``torch.linalg.eigh``'s on the CPU within 1e-9, and the launch counts."""
+    A = hermitian_batch(dev, 6, dtype, batch=2)
+    A = 0.5 * (A + A.mH)
+    g = torch.Generator(device="cpu").manual_seed(45)
+    cw = torch.randn((2, 6), generator=g, dtype=torch.float64)
+    cV = torch.randn((2, 6, 6), generator=g, dtype=torch.float64)
+
+    def grad(eigh, A):
+        A = A.clone().requires_grad_()
+        w, V = eigh(A)
+        loss = (cw.to(A.device) * w).sum() + (cV.to(A.device) * V.abs() ** 2).sum()
+        return torch.autograd.grad(loss, A)[0]
+
+    E1.reset_launch_counts()
+    g_card = grad(E1.small_eigh, A).cpu()
+    assert E1.launch_counts()["small_eigh"] == 1
+    g_cpu = grad(torch.linalg.eigh, A.cpu())
+    assert (g_card - g_cpu).abs().max() <= 1e-9 * g_cpu.abs().max()
+
+
+@pytest.mark.parametrize("basis", ["gram", "direct"])
+def test_lobpcg_replays_in_captured_blocks(dev, loop_mod, basis):
+    """LOBPCG (k = 2, largest) on a 64² stencil: the signature's first
+    solve (the plain loop), its second (it captures) and a cached one give
+    the same count and θ, X bits; the cached block holds E1 and no host
+    synchronisation (a replay under sync-debug error). svds and normest of a
+    BSR operator replay too."""
+    S = lt.laplacian_2d(64, 64, device=dev)
+    gen = torch.Generator(device=dev)
+
+    def solve():
+        gen.manual_seed(41)
+        return lt.lobpcg(S, k=2, largest=True, tol=1e-5, maxiter=200, generator=gen,
+                         basis=basis)
+
+    runs = []
+    for _ in range(3):
+        th, X, res, it = solve()
+        runs.append((th, X, it, dict(loop_mod.stats)))
+    th0, X0, it0, st0 = runs[0]
+    assert st0["path"] == "per_iteration" and 4 < it0 < 200
+    for th, X, it, _ in runs[1:]:
+        assert it == it0 and torch.equal(th, th0) and torch.equal(X, X0)
+    assert runs[1][3]["captures"] == 1
+    st = runs[2][3]
+    assert st["path"] == "graph" and st["captures"] == 0 and st["reads"] == -(-it0 // 4)
+    g = loop_mod.last_graph()
+    per_iteration = 4 if basis == "gram" else 3  # SVQB of X (gram only), W and P; one RR
+    assert g.launches.get("small_eigh", 0) == per_iteration * loop_mod.BLOCK
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    B = lt.BSROperator(lt.BSR(*random_bsr(dev, 64, 4, 8, 128, 4, torch.float32, seed=42),
+                              (512, 512)))
+    for fn in (lambda: lt.svds(B, k=2, tol=1e-4, maxiter=100,
+                               generator=torch.Generator(device=dev).manual_seed(43))[:2],
+               lambda: lt.normest(B, tol=1e-6, maxiter=200,
+                                  generator=torch.Generator(device=dev).manual_seed(44))):
+        outs = [fn() for _ in range(3)]
+        assert loop_mod.stats["path"] == "graph" and loop_mod.stats["captures"] == 0
+        for o in outs[1:]:
+            assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                       for a, b in zip(o, outs[0]))

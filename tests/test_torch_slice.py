@@ -279,13 +279,20 @@ def test_import_does_not_load_jax():
             "linops_tpu_torch.utils.timing, linops_tpu_torch.utils.checks, "
             "linops_tpu_torch.utils.norm, linops_tpu_torch.utils.estimate, "
             "linops_tpu_torch.utils.eig, linops_tpu_torch.utils.checkpoint, "
+            "linops_tpu_torch.kernels.small_eigh, "
             "linops_tpu_torch.core.ad, linops_tpu_torch.parallel, "
             "linops_tpu_torch.parallel.mesh, linops_tpu_torch.parallel.sharded, "
             "linops_tpu_torch.parallel.halo, linops_tpu_torch.parallel.halo2d, "
             "linops_tpu_torch.parallel.init, linops_tpu_torch.parallel.introspect, "
             "linops_tpu_torch.parallel.comm, linops_tpu_torch.parallel.scaling_bench, "
-            "linops_tpu_torch.parallel.launch, linops_tpu_torch.parallel.dryrun; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
+            "linops_tpu_torch.parallel.launch, linops_tpu_torch.parallel.dryrun\n"
+            "import glob, importlib.util\n"
+            "examples = sorted(glob.glob('examples/torch/*.py'))\n"
+            "assert len(examples) == 9, examples\n"
+            "for i, f in enumerate(examples):  # the ported examples, imported, not run\n"
+            "    spec = importlib.util.spec_from_file_location(f'example_{i}', f)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert not any(m == 'linops_tpu' or m.startswith('linops_tpu.') "
             "for m in sys.modules)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

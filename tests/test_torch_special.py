@@ -240,3 +240,26 @@ def test_export_parity():
                        ("TransposeLinearOperator", "TransposeOperator"),
                        ("ConjugateLinearOperator", "ConjugateOperator")):
         assert getattr(lt, alias) is getattr(lt, cls)
+
+
+def test_api_reference_covers_every_export():
+    """``linops_tpu_torch/API.md`` (the port's API reference; ``docs/`` is the
+    reference's) names every export of the package and of ``parallel``, has
+    the sections of ``docs/api.md``, and says why ``apply_cache_sizes`` is
+    not ported."""
+    import os
+    import re
+
+    import linops_tpu_torch.parallel as par
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "linops_tpu_torch", "API.md")) as f:
+        api = f.read()
+    with open(os.path.join(root, "docs", "api.md")) as f:
+        sections = [line for line in f if line.startswith("## ")]
+    named = set(re.findall(r"\b[A-Za-z_][A-Za-z0-9_]*\b", " ".join(re.findall(r"`[^`]*`", api))))
+    assert not [n for n in list(lt.__all__) + list(par.__all__) if n not in named]
+    for sec in sections:
+        title = sec[3:].split("(")[0].strip()
+        assert any(line.startswith("## " + title.split()[0]) for line in api.splitlines()), title
+    assert "apply_cache_sizes" in api
