@@ -164,7 +164,6 @@ limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
 on any failure, and when no CUDA device is present: there is no CPU path.
 """
 
-import collections
 import contextlib
 import json
 import os
@@ -1864,66 +1863,146 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="1
             "bits": same}
 
 
+def state_copy_us(g, reps=REPS) -> float:
+    """µs of device time that refreshing a captured block's static state
+    takes when every state tensor is new (after a push): the copies a
+    solve's first replay makes, median of ``reps`` (each forced by marking
+    the copies stale)."""
+    times = []
+    for _ in range(reps):
+        for st in g.states:
+            st.last = [(lambda: None, -1)] * len(st.last)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for st in g.states:
+            st.refresh()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) * 1e3)
+    return float(np.median(times))
+
+
 def push_solve_modes(lt, loop, A, b, dev, card, rounds=10, seed=SEED + 78):
-    """A quasi-Newton outer loop's traffic, in the plain loop and in the
-    default one, interleaved: two inverse L-BFGS models of A built from the
-    same 8 pairs; each round pushes one more pair into both, then solves
-    once with each (alternating which goes first, so both see the same
-    host): with the plain loop (one read per iteration, as before the
-    device loop: the preconditioner is declared not capture-safe for that
-    solve) and with the default loop (a push makes a new signature, whose
-    first solve runs the plain loop; a signature repeats when a push's new
-    tensors take an earlier state's addresses). Checks the same count and
-    bits each round; prints the medians and the per-round ratios."""
+    """A quasi-Newton outer loop's traffic: an inverse L-BFGS model of A
+    (mem 8, 8 pairs in); each round pushes one pair, then solves
+    cg(A, b, M = the model) three ways: in the plain loop (one read per
+    iteration: the model declared not capture-safe for that solve, what a
+    solve after a push ran before the state was keyed by layout), in the
+    default loop (the push keeps the signature: the captured block copies
+    the new state in and replays), and once more in the default loop with
+    no push between (a cached solve of the same graph). Checks, every round,
+    the same count and x bit for bit in the plain and the default loop; from
+    the third round on the default solve replays and captures nothing, and
+    over all rounds the signature is captured once; one round's default
+    solve makes no synchronizing call but its reads. Prints the medians, the
+    per-round ratios, the state copy's µs per solve and the bytes of static
+    state the cached block holds."""
     from linops_tpu_torch.qn.lbfgs import InverseLBFGSOperator
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    Hs = {m: lt.InverseLBFGSOperator(torch.float32, A.nrow, mem=8, device=dev)
-          for m in ("plain", "default")}
+    H = lt.InverseLBFGSOperator(torch.float32, A.nrow, mem=8, device=dev)
 
     def push():
         s_ = torch.randn(A.nrow, generator=g, device=dev)
-        y_ = A * s_
-        for H in Hs.values():
-            H.push(s_, y_)
+        H.push(s_, A * s_)
 
-    def solve(mode):
-        if mode == "plain":
-            InverseLBFGSOperator.capture_safe = False
+    def solve():
+        return lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
+
+    def plain():
+        InverseLBFGSOperator.capture_safe = False
         try:
-            (x, k, _), secs = timed_solve(lambda: lt.cg(A, b, M=Hs[mode], tol=1e-5, maxiter=500))
+            return timed_solve(solve)
         finally:
-            if mode == "plain":
-                del InverseLBFGSOperator.capture_safe
-        return x, k, secs, dict(loop.stats)
+            del InverseLBFGSOperator.capture_safe
 
     for _ in range(8):
         push()
     loop.clear_cache()
-    rec = []
+    sizes0 = lt.apply_cache_sizes()
+    rec, syncs = [], None
     for r in range(rounds):
         push()
-        order = ("plain", "default") if r % 2 == 0 else ("default", "plain")
-        got = {m: solve(m) for m in order}
-        (xp, kp, tp, stp), (xd, kd, td, std) = got["plain"], got["default"]
-        check(kp == kd and torch.equal(xp, xd) and stp["path"] == "per_iteration",
-              f"14a push-then-solve round {r}: {kp} / {kd} iterations, bits "
-              f"{torch.equal(xp, xd)}, plain path {stp['path']}")
-        rec.append((tp, td, kp, std))
-    ratios = sorted(td / tp for tp, td, _, _ in rec)
-    ms = {"plain": float(np.median([tp for tp, _, _, _ in rec])) * 1e3,
-          "default": float(np.median([td for _, td, _, _ in rec])) * 1e3}
-    paths = collections.Counter(st["path"] for *_, st in rec)
-    captures = sum(st["captures"] for *_, st in rec)
-    ratio = float(np.median(ratios))
+        (xp, kp, _), tp = plain()
+        stp = dict(loop.stats)
+        (xd, kd, _), td = timed_solve(solve)
+        std = dict(loop.stats)
+        (xc, kc, _), tc = timed_solve(solve)
+        stc = dict(loop.stats)
+        check(kp == kd == kc and torch.equal(xp, xd) and torch.equal(xp, xc)
+              and stp["path"] == "per_iteration",
+              f"14a push-then-solve round {r}: {kp} / {kd} / {kc} iterations, bits "
+              f"{torch.equal(xp, xd)} {torch.equal(xp, xc)}, plain path {stp['path']}")
+        if r >= 2:
+            check(std["path"] == "graph" and std["captures"] == 0 and std["replays"] > 0
+                  and std["state_bytes"] > 0 and stc["state_bytes"] == 0,
+                  f"14a push-then-solve round {r}: the solve after the push did not replay "
+                  f"over its copied state: {std}; the next: {stc}")
+        if r == rounds - 1:
+            syncs_cached = sync_warnings(solve)
+            push()
+            syncs = sync_warnings(solve)
+            check(syncs == syncs_cached and loop.stats["replays"] > 0,
+                  f"14a: a solve after a push made {syncs} synchronizing calls, a cached one "
+                  f"{syncs_cached} ({loop.stats})")
+        rec.append((tp, td, tc, kd, std, stc))
+    sizes = lt.apply_cache_sizes()
+    captures = sum(r_[4]["captures"] + r_[5]["captures"] for r_ in rec)
+    check(captures == 1 and sizes["captures"] - sizes0["captures"] == 1,
+          f"14a: {captures} captures over {rounds} push-then-solve rounds ({sizes0} -> {sizes})")
+    gr = loop.last_graph()
+    copy_us = state_copy_us(gr)
+    tail = rec[2:]
+    ms = {k_: float(np.median([r_[i] for r_ in tail])) * 1e3
+          for i, k_ in ((0, "plain"), (1, "push"), (2, "cached"))}
+    vs_cached = sorted(r_[1] / r_[2] for r_ in tail)
+    vs_plain = sorted(r_[1] / r_[0] for r_ in tail)
     print(f"[14 device loop] 14a push then solve (slice 1's CG, inverse L-BFGS mem 8, one push "
-          f"before each of {rounds} rounds, iterations {[k for _, _, k, _ in rec]}; the two "
-          f"loops interleaved): plain loop {ms['plain']:.2f} ms per solve, default loop "
-          f"{ms['default']:.2f} ms (paths {dict(paths)}, {captures} captures); per-round ratio "
-          f"median {ratio:.3f}, range {ratios[0]:.3f}-{ratios[-1]:.3f}; x bit for bit; {card}",
-          flush=True)
-    return {"plain_ms": ms["plain"], "default_ms": ms["default"], "ratio": ratio,
-            "ratios": ratios, "paths": dict(paths), "captures": captures}
+          f"before each of {rounds} rounds, iterations {[r_[3] for r_ in rec]}): paths "
+          f"{[r_[4]['path'] for r_ in rec]}, captures {[r_[4]['captures'] for r_ in rec]}, "
+          f"replays {[r_[4]['replays'] for r_ in rec]}; from round 3: plain loop "
+          f"{ms['plain']:.2f} ms per solve, push then replay {ms['push']:.2f} ms, cached solve "
+          f"with no push {ms['cached']:.2f} ms; push-then-solve over the cached solve median "
+          f"{float(np.median(vs_cached)):.3f} (range {vs_cached[0]:.3f}-{vs_cached[-1]:.3f}), "
+          f"over the plain loop median {float(np.median(vs_plain)):.3f} (range "
+          f"{vs_plain[0]:.3f}-{vs_plain[-1]:.3f}); state copied per solve "
+          f"{rec[-1][4]['state_bytes']} bytes in {copy_us:.1f} us of device time; static state "
+          f"held by the cached block {gr.state_bytes} bytes; synchronizing calls in a solve "
+          f"after a push {syncs} (a cached solve's {syncs_cached}); apply_cache_sizes {sizes0} -> "
+          f"{sizes}; x bit for bit the plain loop's every round; {card}", flush=True)
+    return {"ms": ms, "vs_cached": vs_cached, "vs_plain": vs_plain, "copy_us": copy_us,
+            "state_bytes": gr.state_bytes, "captures": captures}
+
+
+def sigma_rounds(lt, loop, tag, solve, update, values, card):
+    """``update(v)`` then ``solve()`` (returning (x, k, res)) for each v in
+    ``values``, in the default loop and in the per-iteration loop: the same
+    count and x bit for bit each round; from the third round on the default
+    solve replays and captures nothing. Prints the paths, captures, replays
+    and times. Returns the record."""
+    loop.clear_cache()
+    rec = []
+    for i, v in enumerate(values):
+        update(v)
+        (x, k, _), secs = timed_solve(solve)
+        st = dict(loop.stats)
+        with per_iteration(loop):
+            (x1, k1, _), secs1 = timed_solve(solve)
+        check(k == k1 and torch.equal(x, x1), f"{tag}, round {i}: {k} / {k1} iterations, bits "
+                                              f"{torch.equal(x, x1)}")
+        if i >= 2:
+            check(st["path"] == "graph" and st["captures"] == 0 and st["replays"] > 0,
+                  f"{tag}, round {i}: no replay across the update: {st}")
+        rec.append((secs, secs1, k, st))
+    ms = [float(np.median([r[i] for r in rec[2:]])) * 1e3 for i in (0, 1)]
+    print(f"[14 device loop] {tag}: rounds {len(values)}, iterations {[r[2] for r in rec]}, "
+          f"paths {[r[3]['path'] for r in rec]}, captures {[r[3]['captures'] for r in rec]}, "
+          f"replays {[r[3]['replays'] for r in rec]}, state bytes copied "
+          f"{[r[3]['state_bytes'] for r in rec]}; from round 3 {ms[0]:.2f} ms per solve against "
+          f"{ms[1]:.2f} ms in the per-iteration loop; x bit for bit the per-iteration loop's every "
+          f"round; {card}", flush=True)
+    return rec
 
 
 def phase14(lt, K, LG, dev, card, ops, main, laplacian_op):
@@ -2081,6 +2160,19 @@ def phase14(lt, K, LG, dev, card, ops, main, laplacian_op):
     Sq = lt.ShiftedOperator(Bq, 1.0)
     run(f"14e minres(ShiftedOperator(B, 1)) on the n = {nq} model, tol 1e-6",
         lambda: lt.minres(Sq, b, tol=1e-6, maxiter=200))
+    # state updates between solves: a new σ (set_sigma), a push into the model
+    rec["14e across σ"] = sigma_rounds(
+        lt, loop, f"14e minres(ShiftedOperator(B, σ)) on the n = {nq} model across σ",
+        lambda: lt.minres(Sq, b, tol=1e-6, maxiter=200), Sq.set_sigma,
+        (1.0, 2.0, 4.0, 8.0, 0.5, 3.0), card)
+
+    def push_model(_):
+        s_ = torch.randn(nq, generator=g, device=dev)
+        Bq.push(s_, s_ + 0.1 * torch.randn(nq, generator=g, device=dev))
+
+    rec["14e σ-search across pushes"] = sigma_rounds(
+        lt, loop, f"14e trust-region σ-search (example 04) on the n = {nq} model, a push before "
+        "each", tr, push_model, range(6), card)
     del Bq, Sq, b, x_py, x_dev
     free()
     print(f"[14 device loop] kernels held by the captured blocks: {held}", flush=True)
@@ -3063,7 +3155,8 @@ E1_SOURCE = "linops_tpu_torch/kernels/csrc/small_eigh.cu"
 # the reference's LOBPCG loop (the Rayleigh-Ritz step; also :76, the SVQB transforms)
 E1_REPLACES = "linops_tpu/utils/eig.py:130"
 E1_SIZES = (1, 2, 6, 24, 96, 150)
-E1_TIMED = (2, 6, 24, 96)
+E1_BLOCKED_SIZES = (24, 32, 33, 48, 64, 96, 100, 128, 150)  # the blocked kernel, named
+E1_TIMED = (2, 6, 24, 32, 48, 64, 96, 128, 150)  # the Jacobi kernel (blocked from 24), eigh
 E1_TOL = 50  # |Δλ|, ‖AV − VΛ‖₂ over eps·‖A‖₂, and max|VᴴV − I| over eps
 LOB_ITERS = 40  # phase 15b: LOBPCG iterations per solve (tol 0), as phase 11b
 # 15b, 15c (15e: or the eigh loop's distance): θ of a solve with eigh in E1's
@@ -3111,14 +3204,32 @@ def hermitian(gen, dev, m, dtype, batch):
     return A
 
 
+def blocked_cases(gen, dev, m, dt):
+    """A batch of 4 matrices of one size for the blocked kernel: random,
+    diagonal (nothing to rotate), a repeated eigenvalue (Q diag(1, 1, 2, 2,
+    ...) Qᴴ) and zero."""
+    A = hermitian(gen, dev, m, dt, 4)
+    A[1] = torch.diag(torch.randn(m, generator=gen, device=dev).to(dt))
+    Q = torch.linalg.qr(hermitian(gen, dev, m, dt, 1)[0])[0]
+    lam = (torch.arange(m, device=dev) // 2 + 1).to(Q.dtype)
+    A[2] = (Q * lam) @ Q.mH
+    A[3] = 0
+    return A
+
+
 def phase15a(E1, dev, card):
     """E1 against its plain version (torch.linalg.eigh) on the same inputs:
-    f32, f64, c64, c128 at m in E1_SIZES, a batch of 2 random matrices each
-    (not Hermitian: both read the lower triangle), within E1_TOL; sorted;
-    a NaN matrix ends with NaN out. Then, in f32 at m in E1_TIMED, its time
-    per call in a CUDA graph of 20 calls and in eager marginal events, the
-    plain version's (the library call: torch.linalg.eigh, eager, marginal
-    events), and the bound: A, w and V's bytes over the memory rate against
+    f32, f64, c64, c128 at m in E1_SIZES through the dispatch by m, a batch
+    of 2 random matrices each (not Hermitian: both read the lower triangle),
+    within E1_TOL; sorted; a NaN matrix ends with NaN out. The blocked kernel,
+    named, in the four dtypes at m in E1_BLOCKED_SIZES on a batch of mixed
+    matrices (``blocked_cases``) within E1_TOL, the same bits on a rerun and
+    as each matrix alone, a NaN matrix, and inside a CUDA graph (the eager
+    bits, no sync). Then, in f32 at m in E1_TIMED, the Jacobi kernel's time
+    and (from m = 24) the blocked kernel's per call in a CUDA graph of 20
+    calls, their eager marginal events at the dispatch's choice, the plain
+    version's (the library call: torch.linalg.eigh, eager, marginal events),
+    and the bound: A, w and V's bytes over the memory rate against
     ``eigh_ops`` over 67 TFLOP/s. E1's gradient under autograd against
     eigh's (f64 and c128, m = 6). Returns (times by m, errors)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 150)
@@ -3149,6 +3260,53 @@ def phase15a(E1, dev, card):
           + "/".join(f"{e:.1f}" for e in plain96)
           + "; a NaN matrix ends with NaN out (0 sweeps), its batch's other matrix unchanged",
           flush=True)
+    blocked = {}
+    for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        for m in E1_BLOCKED_SIZES:
+            A = blocked_cases(gen, dev, m, dt)
+            w, V, sw = E1.small_eigh(A, sweeps=True, kernel="blocked")
+            torch.cuda.synchronize()
+            errs = e1_errors(A, w, V)
+            check(all(e <= E1_TOL for e in errs) and bool((w[:, 1:] >= w[:, :-1]).all())
+                  and int(sw.max()) < 30,
+                  f"15a blocked E1 {dt} m={m}: |Δλ|, residual, orthogonality {errs} (limit "
+                  f"{E1_TOL}), sweeps {sw.tolist()}")
+            w2, V2 = E1.small_eigh(A, kernel="blocked")
+            w3, V3 = E1.small_eigh(A[2:3], kernel="blocked")
+            check(torch.equal(w, w2) and torch.equal(V, V2) and torch.equal(w[2], w3[0])
+                  and torch.equal(V[2], V3[0]),
+                  f"15a blocked E1 {dt} m={m}: other bits on a rerun or alone")
+            blocked[(str(dt)[6:], m)] = errs + (sw.tolist(),)
+    A_nan = hermitian(gen, dev, 64, torch.float32, 2)
+    A_nan[0, 40, 3] = float("inf")
+    w, V, sw = E1.small_eigh(A_nan, sweeps=True, kernel="blocked")
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(w[0]).all() and torch.isnan(V[0]).all()) and int(sw[0]) == 0
+          and torch.equal(w[1], E1.small_eigh(A_nan[1:], kernel="blocked")[0][0]),
+          "15a blocked E1: an infinite entry did not end with NaN out")
+    A = hermitian(gen, dev, 96, torch.float32, 1)
+    w_e, V_e = E1.small_eigh(A, kernel="blocked")
+    static = A.clone()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        w_g, V_g = E1.small_eigh(static, kernel="blocked")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(torch.equal(w_g, w_e) and torch.equal(V_g, V_e),
+          "15a blocked E1: a replay in a CUDA graph gave other bits")
+    del graph
+    print("[15a E1] the blocked kernel (named) on batches of 4 (random, diagonal, a repeated "
+          "eigenvalue, zero) against torch.linalg.eigh, |Δλ|, residual, orthogonality over eps "
+          "and sweeps per matrix: "
+          + "; ".join(f"{d_} m={m_} " + "/".join(f"{e:.1f}" for e in v[:3]) + f" {v[3]}"
+                      for (d_, m_), v in blocked.items())
+          + f" (limit {E1_TOL}); the same bits on a rerun and alone; an infinite entry ends "
+          "with NaN out; a replay in a CUDA graph gives the eager bits, no sync", flush=True)
     grads = {}
     for dt in (torch.float64, torch.complex128):
         A = hermitian(gen, dev, 6, dt, 2)
@@ -3169,23 +3327,33 @@ def phase15a(E1, dev, card):
     rows = {}
     for m in E1_TIMED:
         A = hermitian(gen, dev, m, torch.float32, 1)[0]
-        w, V, sw = E1.small_eigh(A, sweeps=True)
-        w_p, _ = torch.linalg.eigh(A)
-        sweeps = int(sw)
-        rows[m] = {
-            "ms": graph_ms(lambda: E1.small_eigh(A)),
-            "event_ms": marginal_ms(lambda: E1.small_eigh(A)),
-            "plain_ms": marginal_ms(lambda: torch.linalg.eigh(A)),
-            "bound": bound_ms(nbytes(A, w, V), eigh_ops(m)),
-            "sweeps": sweeps, "max_abs_err": float((w - w_p).abs().max()),
-        }
-    print("[15a E1] f32 per call (CUDA graph of 20 / eager marginal events; torch.linalg.eigh "
-          "eager marginal events, the plain version and the library call; bound = 9 m³ "
-          "operations over 67 TFLOP/s against the bytes of A, w and V over 3.35 TB/s): "
-          + "; ".join(f"m={m} {r['ms'] * 1e3:.1f} / {r['event_ms'] * 1e3:.1f} us, eigh "
+        w_p, V_p = torch.linalg.eigh(A)
+        row = {"kernel": E1.kernel_for(m), "plain_ms": marginal_ms(lambda: torch.linalg.eigh(A)),
+               "bound": bound_ms(nbytes(A, w_p, V_p), eigh_ops(m))}
+        for kern in ("jacobi", "blocked") if m >= 24 else ("jacobi",):
+            w, V, sw = E1.small_eigh(A, sweeps=True, kernel=kern)
+            row[kern] = {"ms": graph_ms(lambda: E1.small_eigh(A, kernel=kern)),
+                         "sweeps": int(sw), "max_abs_err": float((w - w_p).abs().max())}
+        row["event_ms"] = marginal_ms(lambda: E1.small_eigh(A))
+        row.update(row[row["kernel"]])  # the dispatch's kernel: the row's ms, sweeps, error
+        rows[m] = row
+    print("[15a E1] f32 per call (CUDA graph of 20: the Jacobi kernel / the blocked kernel; "
+          "eager marginal events of the dispatch's choice; torch.linalg.eigh eager marginal "
+          "events, the plain version and the library call; bound = 9 m³ operations over 67 "
+          "TFLOP/s against the bytes of A, w and V over 3.35 TB/s): "
+          + "; ".join(f"m={m} jacobi {r['jacobi']['ms'] * 1e3:.1f} us ({r['jacobi']['sweeps']} "
+                      f"sweeps)"
+                      + (f" / blocked {r['blocked']['ms'] * 1e3:.1f} us ({r['blocked']['sweeps']} "
+                         f"sweeps)" if "blocked" in r else "")
+                      + f", dispatch {r['kernel']} {r['event_ms'] * 1e3:.1f} us eager, eigh "
                       f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound'][0] * 1e3:.3f} us "
-                      f"({r['bound'][1]}, {r['sweeps']} sweeps), max|Δλ| {r['max_abs_err']:.1e}"
+                      f"({r['bound'][1]}), max|Δλ| {r['max_abs_err']:.1e}"
                       for m, r in rows.items()) + f"; {card}", flush=True)
+    r96 = rows[96]
+    print(f"[15a E1] m = 96, f32: the blocked kernel {r96['blocked']['ms'] * 1e3:.1f} us, the "
+          f"Jacobi kernel {r96['jacobi']['ms'] * 1e3:.1f} us, torch.linalg.eigh "
+          f"{r96['plain_ms'] * 1e3:.1f} us: blocked / eigh "
+          f"{r96['blocked']['ms'] / r96['plain_ms']:.3f}; {card}", flush=True)
     return rows, worst
 
 
@@ -3451,11 +3619,15 @@ def phase15e(lt, loop, E1, dev, card):
         lob()
         (th_e, it_e), s_e = median_solve(lob)
     loop.clear_cache()
+    E1.reset_launch_counts()
     for _ in range(2):  # the signature's first solve, then its capture
         lob()
     (th, it), s_c = median_solve(lob)
+    launches = E1.launch_counts()
     check(loop.stats["replays"] > 0 and loop.stats["captures"] == 0 and it == it_e,
           f"15e: the k = {LOB32_K} solve did not replay cached blocks: {loop.stats}")
+    check(launches["small_eigh_blocked"] > 0,
+          f"15e: E1's blocked kernel (m = {LOB32_K} and {3 * LOB32_K}) did not run: {launches}")
     worst = fed_check("15e", loop, E1, lob, 4 * LOB32_ITERS + 2)
     norm = float(laplacian_eigenvalues(g)[-1])
     th_w, it_w = with_eigh(loop, lob, eigh_wide)
@@ -3465,7 +3637,7 @@ def phase15e(lt, loop, E1, dev, card):
         A = torch.randn((m, m), generator=gen, device=dev)
         e1[m] = (graph_ms(lambda: E1.small_eigh(A)), marginal_ms(lambda: torch.linalg.eigh(A)))
     rec = {"eigh_us": s_e * 1e6 / it, "e1_us": s_c * 1e6 / it, "e1_calls": e1, "ulps": ulps,
-           "ulps_pr9": ulps_e}
+           "ulps_eigh_loop": ulps_e, "launches": launches}
     print(f"[15e k = {LOB32_K}] lobpcg(k={LOB32_K}, largest, gram, tol 0, {it} iterations) on the "
           f"{g}² stencil, f32: wall {rec['eigh_us']:.1f} us per iteration in the eigh loop (per "
           f"iteration, torch.linalg.eigh) -> {rec['e1_us']:.1f} us in cached blocks with E1 "
@@ -3474,7 +3646,8 @@ def phase15e(lt, loop, E1, dev, card):
           f"larger of {SWAP_ULPS} and the eigh loop's); E1 on the matrices one solve gave it "
           f"{worst_line(worst)} (limit {E1_TOL}); per "
           f"call E1 / eigh: " + ", ".join(f"m = {m} {a * 1e3:.1f} / {b * 1e3:.1f} us"
-                                          for m, (a, b) in e1.items()) + f"; {card}", flush=True)
+                                          for m, (a, b) in e1.items())
+          + f"; E1 launches in the first and capturing solves {launches}; {card}", flush=True)
     check(it == it_w and ulps <= max(SWAP_ULPS, ulps_e),
           f"15e: with E1 {it} iterations and θ {th.tolist()}, with eigh in f64 in its place "
           f"{it_w} and {th_w.tolist()}: {ulps:.1f} ulps of ‖A‖₂ apart, the eigh loop {ulps_e:.1f}")
@@ -3912,7 +4085,7 @@ def main() -> int:
     _, _, e1_launches = phase15b(lt, loop_mod, E1, dev, card)
     phase15c(lt, loop_mod, dev, {"blocks": blocks, "cols": cols}, slice6["spectra"])
     phase15d(dev, card)
-    phase15e(lt, loop_mod, E1, dev, card)
+    lob32 = phase15e(lt, loop_mod, E1, dev, card)
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
     # comes after phase 5's profiler readings, as phase 10's do), its blocks
@@ -3977,6 +4150,16 @@ def main() -> int:
                     "replaces_note": "no pallas_call site: the jnp.linalg.eigh XLA lowers in "
                                      "the reference's LOBPCG loop; plain version and library "
                                      "call are both torch.linalg.eigh"})
+    t = e1_times[96]  # f32, m = 96: the Rayleigh-Ritz step of LOBPCG at k = 32
+    kernels.append({**entry("small_eigh_blocked", E1_SOURCE, E1_REPLACES,
+                            lob32["launches"]["small_eigh_blocked"], t["blocked"]["max_abs_err"],
+                            t["blocked"]["ms"], t["plain_ms"], t["bound"], t["plain_ms"]),
+                    "timing": "cuda_graph", "event_ms": t["event_ms"],
+                    "shape": "f32, m = 96 (the Rayleigh-Ritz step of LOBPCG at k = 32)",
+                    "launches_from": "phase 15e: LOBPCG at k = 32 on the 2048² stencil",
+                    "replaces_note": "no pallas_call site: the jnp.linalg.eigh XLA lowers in "
+                                     "the reference's LOBPCG loop, for m > 24; plain version "
+                                     "and library call are both torch.linalg.eigh"})
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))

@@ -34,8 +34,10 @@ The distributed layer is ``linops_tpu_torch.parallel`` (the reference's
 with the kernels on every shard, halo exchanges, collective counts.
 
 Names follow ``linops_tpu`` so each module has an obvious counterpart; this
-package imports ``torch`` and numpy, never ``jax``. Of the reference's
-``__all__`` one is missing: ``apply_cache_sizes`` (no jit cache to count).
+package imports ``torch`` and numpy, never ``jax``; it exports every name of
+the reference's ``__all__``. ``apply_cache_sizes`` counts what the port
+compiles: the solve loop's cache of signatures and captured CUDA graphs
+(``utils/loop.py``), where the reference counts its jit caches.
 """
 
 from .core.base import LinearOperatorException, Counters, compose_modes, MODES
@@ -44,7 +46,7 @@ from .core.dense import MatrixOperator, FunctionOperator, make_operator, aslinea
 from .core.algebra import Scale, Sum, Compose
 from .core.adjoint import (AdjointOperator, TransposeOperator, ConjugateOperator,
                            adjoint, transpose, conj)
-from .core.apply import matvec, matmat, mul, to_dense
+from .core.apply import matvec, matmat, mul, to_dense, apply_cache_sizes
 from .core.ad import apply_linear
 from .core.precision import matmul_precision, f32_exact, check_f32_exact
 from .ops.eye import Eye, UniversalEye, Ones, Zeros, opEye, opOnes, opZeros
@@ -108,6 +110,7 @@ __all__ = [
     "transpose",
     "conj",
     "matvec",
+    "apply_cache_sizes",
     "matmat",
     "mul",
     "to_dense",

@@ -1,7 +1,9 @@
 """The apply engine: eager entry points and 5-arg ``mul`` semantics.
 
-Counterpart of ``linops_tpu/core/apply.py``. PyTorch runs eagerly, so there
-is no compiled cache (``apply_cache_sizes`` has no counterpart). What stays:
+Counterpart of ``linops_tpu/core/apply.py``. PyTorch runs eagerly, so an
+apply compiles nothing; what the port does compile is a solve's captured
+CUDA graph, and ``apply_cache_sizes`` counts those (``utils/loop.py``). What
+stays:
 the shape checks, the eltype check on what an operator returns, and the
 5-arg ``mul`` with the NaN-safe β == 0 rule: a β that is statically zero
 (None or 0) never reads ``res``, and a tensor β that is zero selects
@@ -14,7 +16,7 @@ import torch
 
 from .base import LinearOperator, LinearOperatorException
 
-__all__ = ["matvec", "matmat", "mul", "to_dense"]
+__all__ = ["matvec", "matmat", "mul", "to_dense", "apply_cache_sizes"]
 
 
 def _checked(op: LinearOperator, v, y):
@@ -120,3 +122,17 @@ def to_dense(op: LinearOperator, block_size: int = 4096):
         eye_blk[j0:j0 + bs] = torch.eye(bs, **kw)
         blocks.append(op.apply_matrix(eye_blk, "N"))
     return _checked(op, torch.empty(0, **kw), torch.cat(blocks, dim=1))
+
+
+def apply_cache_sizes() -> dict:
+    """What the port has compiled, for no-recompile checks (the
+    reference's counts its jit caches; an apply here compiles nothing):
+    ``{"signatures": solve-loop cache entries, "graphs": captured blocks
+    kept, "captures": captures so far}`` from ``utils/loop.py``'s cache. A
+    signature is a solve's structure (operators by identity, state fields
+    such as an L-BFGS state or a shift σ by layout), recorded on the CPU as
+    on the card, so none of the three grows over repeated solves of one
+    structure, pushes and new shifts between them included."""
+    from ..utils import loop
+
+    return loop.cache_sizes()

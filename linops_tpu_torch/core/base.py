@@ -146,14 +146,16 @@ def _first_device(value):
     return None
 
 
-def _walk(value, sig: list, tensors: list, seen: set):
-    """Append ``value``'s signature to ``sig`` (and its tensors to
-    ``tensors``): tensors by address, version, shape, strides, dtype and
-    device (a CPU scalar by value as well: an apply reads it on the host),
-    operators by identity and fields (a node whose apply reads nothing but
-    its fields, ``_key_by_fields``, by its fields alone), containers item by
-    item, plans (any other object with fields) by their fields, numbers and
-    strings by value, anything else by identity."""
+def _walk(value, sig: list, tensors: list, seen: set, states: list):
+    """Append ``value``'s signature to ``sig`` (its tensors to ``tensors``,
+    and each state field it reaches to ``states`` as (operator, field)):
+    tensors by address, version, shape, strides, dtype and device (a CPU
+    scalar by value as well: an apply reads it on the host), operators by
+    identity and fields (a node whose apply reads nothing but its fields,
+    ``_key_by_fields``, by its fields alone; a state field, ``_fields_state``,
+    by the layout of its tensors alone), containers item by item, plans (any
+    other object with fields) by their fields, numbers and strings by value,
+    anything else by identity."""
     if isinstance(value, torch.Tensor):
         tensors.append(value)
         item = (value.data_ptr(), value._version, tuple(value.shape), value.stride(),
@@ -163,7 +165,7 @@ def _walk(value, sig: list, tensors: list, seen: set):
         sig.append(item)
         plan = getattr(value, "_combine_plan", None)  # kernels/lane_gather.py
         if plan is not None:
-            _walk(plan, sig, tensors, seen)
+            _walk(plan, sig, tensors, seen, states)
     elif isinstance(value, LinearOperator):
         cls = type(value)
         if cls._key_by_fields:
@@ -176,16 +178,20 @@ def _walk(value, sig: list, tensors: list, seen: set):
             sig.append((cls, id(value)))
         for f in (cls._fields_tensors + cls._fields_static + cls._fields_derived
                   + cls._fields_index):
-            _walk(getattr(value, f, None), sig, tensors, seen)
+            if f in cls._fields_state:
+                states.append((value, f))
+                _walk_layout(getattr(value, f), sig, tensors)
+            else:
+                _walk(getattr(value, f, None), sig, tensors, seen, states)
     elif isinstance(value, (tuple, list)):
         sig.append((type(value), len(value)))
         for v in value:
-            _walk(v, sig, tensors, seen)
+            _walk(v, sig, tensors, seen, states)
     elif isinstance(value, dict):
         sig.append((dict, len(value)))
         for k, v in value.items():
             sig.append(k if isinstance(k, (int, float, str, bool, tuple)) else id(k))
-            _walk(v, sig, tensors, seen)
+            _walk(v, sig, tensors, seen, states)
     elif value is None or isinstance(value, (bool, int, float, complex, str, torch.dtype,
                                              torch.device)):
         sig.append(value)
@@ -195,25 +201,61 @@ def _walk(value, sig: list, tensors: list, seen: set):
         seen.add(id(value))
         sig.append((type(value), id(value)))
         for v in vars(value).values():
-            _walk(v, sig, tensors, seen)
+            _walk(v, sig, tensors, seen, states)
     else:
         sig.append((type(value), id(value)))
 
 
+def _walk_layout(value, sig: list, tensors: list):
+    """A state field's signature: each tensor by shape, strides (those that
+    address anything: a dimension of one entry, or an empty tensor, has
+    none), dtype and device, never by address, version or value; tuples
+    item by item."""
+    if isinstance(value, torch.Tensor):
+        tensors.append(value)
+        shape = tuple(value.shape)
+        empty = value.numel() == 0
+        stride = tuple(0 if empty or n == 1 else st for n, st in zip(shape, value.stride()))
+        sig.append((shape, stride, value.dtype, value.device))
+    elif isinstance(value, tuple):
+        sig.append((type(value), len(value)))
+        for v in value:
+            _walk_layout(v, sig, tensors)
+    elif value is None:
+        sig.append(None)
+    else:
+        raise TypeError(f"a state field holds {type(value).__name__}: tensors or tuples of them")
+
+
+def state_leaves(value) -> list:
+    """The tensors of a state field (a tensor or a tuple of them), in order."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if value is None:
+        return []
+    return [t for v in value for t in state_leaves(v)]
+
+
 def capture_signature(op: "LinearOperator") -> tuple:
-    """(key, tensors) of one walk of ``op``'s graph. The key is what a CUDA
-    graph captured over ``op``'s applies depends on, hashable: every node's
-    class, identity and fields (static values by value), and every tensor it
-    reads by address, version and layout. A new tensor (an L-BFGS push), an
-    in-place edit (a bumped ``_version``) or a rebuilt plan changes the key,
-    so a captured graph never replays over memory it no longer owns
-    (``utils/loop.py`` holds the operators of each graph it keeps). The
-    tensors are every tensor the graph holds (fields, derived plans,
-    indices)."""
+    """(key, tensors, states) of one walk of ``op``'s graph. The key is what
+    a CUDA graph captured over ``op``'s applies depends on, hashable: every
+    node's class, identity and fields (static values by value), and every
+    tensor it reads by address, version and layout, except the tensors of
+    state fields (``_fields_state``: an L-BFGS state, a shift σ), which it
+    sees by layout alone. A new tensor outside state (a rebuilt plan), an
+    in-place edit there (a bumped ``_version``) changes the key, so a
+    captured graph never replays over memory it no longer owns
+    (``utils/loop.py`` holds the operators of each graph it keeps); an update
+    of state (a push, ``set_sigma``) keeps it, and the graph replays over
+    static copies of the state that ``utils/loop.py`` refreshes before a
+    replay. The tensors are every tensor the graph holds (fields, state,
+    derived plans, indices); the states are the (operator, field) pairs of
+    the state fields reached."""
     sig: list = []
     tensors: list = []
-    _walk(op, sig, tensors, set())
-    return tuple(sig), tensors
+    states: list = []
+    _walk(op, sig, tensors, set(), states)
+    return tuple(sig), tensors, states
 
 
 def _is_capture_safe(value) -> bool:
@@ -250,6 +292,10 @@ class LinearOperator(abc.ABC):
     # a node whose apply reads nothing but its fields: a capture key sees it
     # by them, so a fresh node over the same fields replays a captured graph
     _key_by_fields: bool = False
+    # tensor fields that updates replace with new tensors of the same layout
+    # (a push, a new shift): a capture key sees them by layout, and a
+    # captured solve replays over static copies of them (``utils/loop.py``)
+    _fields_state: Tuple[str, ...] = ()
 
     # numpy defers binary ops (u @ op, x * op, ...) to the reflected methods
     __array_ufunc__ = None

@@ -99,6 +99,12 @@ template <typename R> __device__ __forceinline__ Cx<R> phase(Cx<R> x, R ab) {
   return {x.re / ab, x.im / ab};
 }
 
+// the unit phase of x given 1/|x|
+__device__ __forceinline__ double phase_by(double x, double) { return x >= 0.0 ? 1.0 : -1.0; }
+__device__ __forceinline__ Cx<double> phase_by(Cx<double> x, double inv) {
+  return {x.re * inv, x.im * inv};
+}
+
 __device__ __forceinline__ float scale(float s, float x) { return s * x; }
 __device__ __forceinline__ double scale(double s, double x) { return s * x; }
 template <typename R> __device__ __forceinline__ Cx<R> scale(R s, Cx<R> x) {
@@ -308,14 +314,586 @@ __global__ void small_eigh_kernel(const T* __restrict__ a, real_t<T>* __restrict
   if (tid == 0 && sweeps_out) sweeps_out[blockIdx.x] = sweep;
 }
 
-template <typename T> size_t layout_bytes(int m) { return layout<T>(m).total; }
+// ---------------------------------------------------------------------------
+// The blocked kernel (m > kJacobiMaxM): block Jacobi, a warp per block pair.
+//
+// The Jacobi kernel above takes 2 (M - 1) barrier-separated passes a sweep,
+// each a few instructions per thread on shared memory: at m = 96 a step is
+// latency, not work (PERF.md section 6). Here the matrix is cut into nb block
+// columns of kB = 8 (nb rounded up to even; the padding is zero, so a pad
+// index never rotates with a real one: its a_pq is exactly 0, and the pads
+// stay out of every product below). An outer step pairs the blocks by the
+// circle method, the ordering the Jacobi kernel uses for indices, and takes
+// three block-wide barriers:
+//   1. each pair's 2kB x 2kB diagonal block S goes to a warp, which runs
+//      kInnerSweeps cyclic Jacobi sweeps on it (pair_solve: 15 steps of 8
+//      rotations, two __syncwarp a step) and writes the rotated S and their
+//      product Q;
+//   2. A <- A Q and V <- V Q: each block-column pair times its Q, a half-warp
+//      per row with Q's column in registers and the row's two 8-entry
+//      segments in 16-byte loads;
+//   3. A <- Q^H A: each block-row pair times Q^H, a lane per column, and the
+//      pair's own diagonal block set to the rotated S of step 1 (the exact
+//      zeros of its last rotations).
+// A and V stay in the input's precision and steps 2-3 are plain
+// multiply-adds in it (f32: FFMA, no TF32); step 1 works in f64 (c128) for
+// f32 (c64) input and rounds Q and S once. Q and S come from the same
+// rotations, so the two descriptions of a step agree to that rounding: in
+// f32 throughout they drift apart by a few eps a step, and at m = 150 that
+// drift broke the contract's 50 eps (a host emulation of this kernel,
+// tests/test_torch_e1_emulation.py's harness), against a few eps this way. The rest is the Jacobi kernel's: the stopping test at each
+// sweep's start (off-diagonal mass <= eps ||A||_F, both squared and summed in
+// f64, at most kMaxSweeps sweeps), NaN out for a non-finite input, unit
+// columns, the in-kernel ascending sort, one thread block per matrix, no
+// host read, no allocation (a global workspace from the wrapper when the
+// buffer passes the shared-memory limit); f64 and c128 add one
+// Newton-Schulz step on V. A step's arithmetic is 3 m_p^2 2kB multiply-adds
+// (m_p the padded size) in steps 2-3, many per barrier, and step 1's chain of
+// 15 dependent rotations per warp; at m = 96 the two take about equal time,
+// and step 1's chain bounds it: each step waits on its rotation's
+// special-function estimates, two exchanges through shared memory and the
+// warp's f64 multiply-adds (PERF.md section 6 has the measured split).
+// ---------------------------------------------------------------------------
 
-size_t bytes_for(int m, int dtype) {
+constexpr int kB = 8;             // block width; a pair's block is 2kB = 16 wide
+constexpr int kB2 = 2 * kB;
+constexpr unsigned kFull = 0xffffffffu;
+#ifndef E1_INNER_SWEEPS
+#define E1_INNER_SWEEPS 1
+#endif
+constexpr int kInnerSweeps = E1_INNER_SWEEPS;  // Jacobi sweeps on each pair's block per step
+
+// step 1 works in f64 (c128) for f32 (c64) input
+template <typename T> struct WideOf { using type = T; };
+template <> struct WideOf<float> { using type = double; };
+template <> struct WideOf<Cx<float>> { using type = Cx<double>; };
+template <typename T> using wide_t = typename WideOf<T>::type;
+
+// (bsr_common.cuh's widen/narrow are its bf16 helpers)
+__device__ __forceinline__ double to_wide(float x) { return x; }
+__device__ __forceinline__ double to_wide(double x) { return x; }
+template <typename R> __device__ __forceinline__ Cx<double> to_wide(Cx<R> x) {
+  return {(double)x.re, (double)x.im};
+}
+template <typename T> __device__ __forceinline__ T from_wide(double x) { return (T)x; }
+template <typename T> __device__ __forceinline__ T from_wide(Cx<double> x) {
+  return {(real_t<T>)x.re, (real_t<T>)x.im};
+}
+
+struct BLayout {
+  size_t a, v, sq, rot, d, nrm, rank, total;
+  unsigned mp, np;  // padded size (a multiple of 2kB), block pairs
+};
+
+// the rotation of a pair, as step 1 shares it between lanes: c, s and the
+// phase e of G = diag(1, conj(e)) [[c, s], [-s, c]], and tab = t |a_pq|
+// (a_pp -= tab, a_qq += tab)
+template <typename W> struct Rot2 {
+  real_t<W> c, s, tab;
+  W e;
+};
+
+// per matrix: A and V (m_p x m_p, in the input's type), each pair's S and Q
+// side by side (16 x 16 each, the input's type; while the pair is solved the
+// same bytes hold its 16 x 16 S in the working type), each pair's 8
+// rotations, then the sort's arrays
+template <typename T> __host__ __device__ inline BLayout blayout(int m) {
+  using W = wide_t<T>;
+  BLayout L;
+  const unsigned nb = ((unsigned)m + kB - 1) / kB;
+  L.np = (nb + 1) / 2;
+  L.mp = 2 * L.np * kB;
+  const size_t mm = (size_t)L.mp * L.mp, tile = (size_t)L.np * kB2 * kB2;
+  size_t off = 0;
+  L.a = take(off, sizeof(T) * mm);
+  L.v = take(off, sizeof(T) * mm);
+  static_assert(2 * sizeof(T) >= sizeof(W), "a pair's S and Q hold its S in the working type");
+  L.sq = take(off, sizeof(T) * 2 * tile);
+  L.rot = take(off, sizeof(Rot2<W>) * L.np * kB);
+  L.d = take(off, sizeof(real_t<T>) * m);
+  L.nrm = take(off, sizeof(real_t<T>) * m);
+  L.rank = take(off, sizeof(int) * m);
+  L.total = off;
+  return L;
+}
+
+// x * y and a x + b y
+__device__ __forceinline__ double mul(double x, double y) { return x * y; }
+__device__ __forceinline__ Cx<double> mul(Cx<double> x, Cx<double> y) {
+  return {x.re * y.re - x.im * y.im, x.re * y.im + x.im * y.re};
+}
+__device__ __forceinline__ double axpby(double a, double x, double b, double y) {
+  return fma(a, x, b * y);
+}
+__device__ __forceinline__ Cx<double> axpby(Cx<double> a, Cx<double> x, Cx<double> b,
+                                            Cx<double> y) {
+  const Cx<double> u = mul(a, x), w = mul(b, y);
+  return {u.re + w.re, u.im + w.im};
+}
+
+// 8 consecutive entries (16-byte aligned) in 16-byte loads
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w; x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const double* p, double* x) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double2 a = reinterpret_cast<const double2*>(p)[i];
+    x[2 * i] = a.x;
+    x[2 * i + 1] = a.y;
+  }
+}
+__device__ __forceinline__ void load8(const Cx<float>* p, Cx<float>* x) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 a = reinterpret_cast<const float4*>(p)[i];
+    x[2 * i] = {a.x, a.y};
+    x[2 * i + 1] = {a.z, a.w};
+  }
+}
+__device__ __forceinline__ void load8(const Cx<double>* p, Cx<double>* x) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const double2 a = reinterpret_cast<const double2*>(p)[i];
+    x[i] = {a.x, a.y};
+  }
+}
+
+// acc += x * y
+__device__ __forceinline__ void mac(float& acc, float x, float y) { acc = fmaf(x, y, acc); }
+__device__ __forceinline__ void mac(double& acc, double x, double y) { acc = fma(x, y, acc); }
+template <typename R> __device__ __forceinline__ void mac(Cx<R>& acc, Cx<R> x, Cx<R> y) {
+  acc.re = fma(x.re, y.re, acc.re);
+  acc.re = fma(-x.im, y.im, acc.re);
+  acc.im = fma(x.re, y.im, acc.im);
+  acc.im = fma(x.im, y.re, acc.im);
+}
+
+// 1.5 v - 0.5 acc, the Newton-Schulz step's entry
+__device__ __forceinline__ double ns_step(double v, double acc) { return fma(1.5, v, -0.5 * acc); }
+__device__ __forceinline__ Cx<double> ns_step(Cx<double> v, Cx<double> acc) {
+  return {fma(1.5, v.re, -0.5 * acc.re), fma(1.5, v.im, -0.5 * acc.im)};
+}
+__device__ __forceinline__ float ns_step(float v, float acc) { return fmaf(1.5f, v, -0.5f * acc); }
+__device__ __forceinline__ Cx<float> ns_step(Cx<float> v, Cx<float> acc) {
+  return {fmaf(1.5f, v.re, -0.5f * acc.re), fmaf(1.5f, v.im, -0.5f * acc.im)};
+}
+
+// global index of a pair's local index l (0 .. 2kB - 1): block P's, then block Q's
+__device__ __forceinline__ unsigned pair_index(unsigned l, unsigned P, unsigned Qb) {
+  return l < kB ? P * kB + l : Qb * kB + (l - kB);
+}
+
+// the blocks of pair k at outer step r among nb blocks (the circle method)
+__device__ __forceinline__ void block_pair(unsigned r, unsigned k, unsigned nb, unsigned& P,
+                                           unsigned& Qb) {
+  P = k == 0 ? r : (r + k) % (nb - 1);
+  Qb = k == 0 ? nb - 1 : (r + (nb - 1) - k) % (nb - 1);
+}
+
+// the rotation of (p, q) that zeroes a_pq = o, with a_pp = app, a_qq = aqq:
+// the Jacobi kernel's t = sign(tau) / (|tau| + sqrt(1 + tau^2)), tau =
+// (a_qq - a_pp) / (2 |a_pq|), and c = 1 / sqrt(1 + t^2), to the working
+// precision without a double division or square root in the step's chain:
+// each from its f32 estimate on the special-function unit and two Newton
+// steps in the working type (t as the small root of t^2 + 2 tau t - 1; a
+// huge tau, or a |a_pq| outside f32's range, takes the divisions), or, with
+// kNewtonT = 0 (f32 and c64 input, whose results are rounded to f32), t in
+// f32 and c from one Newton step. a_pq = 0
+// gives the identity. An a_pq below eps sqrt(|a_pp a_qq|) (eps of the working
+// type) gives the identity too, and the caller sets it to 0, as Jacobi's
+// relative-accuracy test allows: rotating two equal diagonal entries by the
+// angle such noise gives (up to 45 degrees) moves the mass of their
+// couplings to a third index back and forth every sweep, and the sweeps then
+// shrink it by 1/sqrt(2) each (a matrix with repeated eigenvalues took 30
+// sweeps on the card).
+template <int kNewtonT, typename W>
+__device__ __forceinline__ Rot2<W> make_rot2(W o, real_t<W> app, real_t<W> aqq) {
+  using R = real_t<W>;
+  Rot2<W> z;
+  z.c = (R)1;
+  z.s = (R)0;
+  z.tab = (R)0;
+  z.e = from_real<W>((R)1);
+  if constexpr (kNewtonT == 0) {
+    // f32 and c64 input: the angle in f32; c orthonormal in f64 by one Newton
+    // step, the phase unit in f64 by two
+    const R n2 = sq(o);  // |a_pq|^2
+    if (!(n2 > (R)0) || n2 <= (R)(Eps<R>::value * Eps<R>::value) * fabs(app * aqq)) return z;
+    R ab;
+    float tau;
+    if constexpr (sizeof(W) == sizeof(R)) {
+      ab = fabs(o);
+      z.e = phase_by(o, (R)1);
+      tau = __fdividef(0.5f * (float)(aqq - app), (float)ab);
+    } else {
+      R inv = (R)rsqrtf((float)n2);
+      inv = inv * fma((R)-0.5 * n2, inv * inv, (R)1.5);
+      inv = inv * fma((R)-0.5 * n2, inv * inv, (R)1.5);
+      ab = n2 * inv;
+      z.e = phase_by(o, inv);
+      tau = 0.5f * (float)(aqq - app) * (float)inv;
+    }
+    const float tf = __fdividef(copysignf(1.f, tau), fabsf(tau) + sqrtf(fmaf(tau, tau, 1.f)));
+    const R t = (R)tf, u = fma(t, t, (R)1);
+    R c = (R)rsqrtf(fmaf(tf, tf, 1.f));
+    c = c * fma((R)-0.5 * u, c * c, (R)1.5);
+    z.c = c;
+    z.s = t * c;
+    z.tab = t * ab;
+    return z;
+  }
+  const R ab = absval(o);
+  if (!(ab > (R)0) || ab * ab <= (R)(Eps<R>::value * Eps<R>::value) * fabs(app * aqq)) return z;
+  R inv;  // 1 / |a_pq|
+  if (ab > (R)1e-30 && ab < (R)1e30) {
+    inv = (R)__fdividef(1.f, (float)ab);
+    inv = inv * fma(-ab, inv, (R)2);
+    inv = inv * fma(-ab, inv, (R)2);
+  } else {
+    inv = (R)1 / ab;
+  }
+  z.e = phase_by(o, inv);
+  const R tau = (R)0.5 * (aqq - app) * inv;
+  R t;
+  if (fabs(tau) < (R)1e15) {
+    const float tf = (float)tau;
+    t = (R)__fdividef(copysignf(1.f, tf), fabsf(tf) + sqrtf(fmaf(tf, tf, 1.f)));
+#pragma unroll
+    for (int i = 0; i < kNewtonT; ++i)
+      t -= fma(t, t + (R)2 * tau, (R)-1) * (R)__fdividef(0.5f, (float)(t + tau));
+  } else {
+    t = (R)0.5 / tau;
+  }
+  const R u = fma(t, t, (R)1);
+  R c = (R)rsqrtf((float)u);
+  c = c * fma((R)-0.5 * u, c * c, (R)1.5);
+  c = c * fma((R)-0.5 * u, c * c, (R)1.5);
+  z.c = c;
+  z.s = t * c;
+  z.tab = t * ab;
+  return z;
+}
+
+// the slot of entry (i, c) in row i of a pair's working S: a column of
+// 8-byte entries spread over the banks two by two, of 16-byte ones one by one
+template <typename W> __device__ __forceinline__ unsigned swz(unsigned i, unsigned c) {
+  return (c + (sizeof(W) == 8 ? 2 * i : i)) & (kB2 - 1);
+}
+
+// step 1 for one pair, by one warp: lane i < 16 handles row i of the pair's
+// 2kB x 2kB diagonal block S (widened), kept in xbuf; lane 16 + i holds row
+// i of the rotation Q (from I) in registers. At each step every
+// index i meets its partner j (the circle method on 16 indices): lanes
+// p = min(i, j) and q = max(i, j) read the pair's 2 x 2 block and compute the
+// same rotation (lane p also puts it in rot[k] for the others), rotate their
+// two rows of the old S (S <- G^H S), then every lane rotates its row's
+// column pairs (S <- S G, Q <- Q G), and the pair's 2 x 2 block is set
+// exactly (a_pq = 0). Two __syncwarp a step, no shuffle. f32 (c64) input
+// takes t to f32 accuracy (its special-function estimate, no Newton step on
+// it) and rounds the result to f32 anyway; f64 (c128) input takes two Newton
+// steps. Writes S and Q, rounded to the storage type, over sq (row-major
+// 16 x 16 each).
+template <typename T>
+__device__ __forceinline__ void pair_solve(const T* A, unsigned mp, unsigned P, unsigned Qb,
+                                           T* sq, Rot2<wide_t<T>>* rot, unsigned lane) {
+  using W = wide_t<T>;
+  using R = real_t<W>;
+  constexpr int kNewtonT = sizeof(real_t<T>) == 8 ? 2 : 0;
+  const unsigned row = lane & (kB2 - 1);
+  const bool is_s = lane < (unsigned)kB2;
+  // S in the working type, over the pair's S and Q; entry (i, c) at row i,
+  // slot swz(i, c), so the 16 lanes that read one column of their own rows
+  // hit 16 different banks (rows of 16 entries would put a column in one)
+  W* xbuf = reinterpret_cast<W*>(sq);
+  W v[kB2];  // lane < 16: a row of S for the step; lane >= 16: its row of Q
+  W* own_row = xbuf + row * kB2;
+  if (is_s) {
+    T t[kB2];
+    const T* src = A + (size_t)pair_index(row, P, Qb) * mp;
+    load8(src + P * kB, t);
+    load8(src + Qb * kB, t + kB);
+#pragma unroll
+    for (int c = 0; c < kB2; ++c) own_row[swz<W>(row, c)] = to_wide(t[c]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kB2; ++c) v[c] = from_real<W>(c == (int)row ? (R)1 : (R)0);
+  }
+  __syncwarp();
+  for (int sweep = 0; sweep < kInnerSweeps; ++sweep) {
+#pragma unroll
+    for (int r = 0; r < kB2 - 1; ++r) {
+      const unsigned j = row == kB2 - 1 ? (unsigned)r
+                         : row == (unsigned)r ? kB2 - 1
+                                              : (2 * r + (kB2 - 1) - row) % (kB2 - 1);
+      const unsigned p = min(row, j), q = max(row, j);
+      R own = (R)0;
+      if (is_s) {
+        const R app = real_part(xbuf[p * kB2 + swz<W>(p, p)]);
+        const R aqq = real_part(xbuf[q * kB2 + swz<W>(q, q)]);
+        const Rot2<W> z = make_rot2<kNewtonT>(xbuf[p * kB2 + swz<W>(p, q)], app, aqq);
+        // the pair's index k: (r + k, r - k) mod 15, or (r, 15) for k = 0
+        const unsigned kp = q == kB2 - 1 ? 0u : (p + (kB2 - 1) - r) % (kB2 - 1);
+        if (row == p) rot[kp <= (unsigned)kB - 1 ? kp : (kB2 - 1) - kp] = z;
+        own = row == p ? app - z.tab : aqq + z.tab;
+        // S <- G^H S on rows p and q: v = alpha (own row) + beta (partner's row)
+        const W alpha = row == p ? from_real<W>(z.c) : mul(from_real<W>(z.c), z.e);
+        const W beta = row == p ? mul(from_real<W>(-z.s), z.e) : from_real<W>(z.s);
+        const W* other = xbuf + j * kB2;
+#pragma unroll
+        for (int c = 0; c < kB2; ++c)
+          v[c] = axpby(alpha, own_row[swz<W>(row, c)], beta, other[swz<W>(j, c)]);
+      }
+      __syncwarp();  // rot[] complete; every lane done reading the old S
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {  // S <- S G, Q <- Q G
+        const int a = k == 0 ? r : (r + k) % (kB2 - 1);
+        const int b = k == 0 ? kB2 - 1 : (r + (kB2 - 1) - k) % (kB2 - 1);
+        const Rot2<W> zk = rot[k];
+        rotate(v[a < b ? a : b], v[a < b ? b : a], zk.c, zk.s, cj(zk.e));
+      }
+      if (is_s) {  // the new row, with the pair's 2 x 2 block set exactly
+#pragma unroll
+        for (int c = 0; c < kB2; ++c) own_row[swz<W>(row, c)] = v[c];
+        own_row[swz<W>(row, row)] = from_real<W>(own);
+        own_row[swz<W>(row, j)] = from_real<W>((R)0);
+      }
+      __syncwarp();
+    }
+  }
+  if (is_s) {
+#pragma unroll
+    for (int c = 0; c < kB2; ++c) v[c] = own_row[swz<W>(row, c)];
+  }
+  __syncwarp();  // S and Q now overwrite the working copy
+  T* dst = sq + (is_s ? 0 : kB2 * kB2) + row * kB2;
+#pragma unroll
+  for (int c = 0; c < kB2; ++c) dst[c] = from_wide<T>(v[c]);
+}
+
+// step 2: the columns of every block pair of X0 (and X1, if given) times
+// that pair's Q, for all rows: a half-warp per row, Q's column in registers,
+// the row's two 8-entry segments in 16-byte loads
+template <typename T>
+__device__ __forceinline__ void right_multiply(T* X0, T* X1, unsigned mp, unsigned nb, unsigned r,
+                                               const T* SQ, unsigned warp, unsigned nw,
+                                               unsigned lane) {
+  const unsigned np = nb / 2, chunks = mp / kB2, mats = X1 ? 2u : 1u;
+  const unsigned c = lane & (kB2 - 1), h = lane >> 4;
+  for (unsigned item = warp; item < np * chunks * mats; item += nw) {
+    const unsigned k = item % np, rest = item / np;
+    T* X = rest >= chunks ? X1 : X0;
+    const unsigned row0 = (rest % chunks) * kB2;
+    unsigned P, Qb;
+    block_pair(r, k, nb, P, Qb);
+    const T* Qk = SQ + (size_t)(2 * k + 1) * kB2 * kB2;
+    T q[kB2];
+#pragma unroll
+    for (int i = 0; i < kB2; ++i) q[i] = Qk[i * kB2 + c];
+    const unsigned col = pair_index(c, P, Qb);
+    for (unsigned i = h; i < kB2; i += 2) {
+      const unsigned row = row0 + i;
+      T x[kB2];
+      load8(X + (size_t)row * mp + P * kB, x);
+      load8(X + (size_t)row * mp + Qb * kB, x + kB);
+      T acc = from_real<T>((real_t<T>)0), acc2 = acc;  // two chains: half the latency
+#pragma unroll
+      for (int j = 0; j < kB2; j += 2) {
+        mac(acc, x[j], q[j]);
+        mac(acc2, x[j + 1], q[j + 1]);
+      }
+      mac(acc, acc2, from_real<T>((real_t<T>)1));
+      __syncwarp();  // the whole row read before any lane writes it
+      X[(size_t)row * mp + col] = acc;
+    }
+  }
+}
+
+// step 3: the rows of every block pair of X times that pair's Q^H, for all
+// columns, a lane per column; the pair's own diagonal block from S
+template <typename T>
+__device__ __forceinline__ void left_multiply(T* X, unsigned mp, unsigned nb, unsigned r,
+                                              const T* SQ, unsigned warp, unsigned nw,
+                                              unsigned lane) {
+  const unsigned np = nb / 2, chunks = (mp + 31) / 32;
+  for (unsigned item = warp; item < np * chunks; item += nw) {
+    const unsigned k = item % np, col = (item / np) * 32 + lane;
+    if (col >= mp) continue;
+    unsigned P, Qb;
+    block_pair(r, k, nb, P, Qb);
+    const T* Qk = SQ + (size_t)(2 * k + 1) * kB2 * kB2;
+    T acc[kB2];
+#pragma unroll
+    for (int i = 0; i < kB2; ++i) acc[i] = from_real<T>((real_t<T>)0);
+#pragma unroll
+    for (int l = 0; l < kB2; ++l) {
+      const T b = X[(size_t)pair_index(l, P, Qb) * mp + col];
+      T qrow[kB2];
+      load8(Qk + l * kB2, qrow);
+      load8(Qk + l * kB2 + kB, qrow + kB);
+#pragma unroll
+      for (int i = 0; i < kB2; ++i) mac(acc[i], cj(qrow[i]), b);
+    }
+    const unsigned cb = col / kB;
+    if (cb == P || cb == Qb) {
+      const T* Sk = SQ + (size_t)2 * k * kB2 * kB2 + (cb == P ? col - P * kB : kB + col - Qb * kB);
+#pragma unroll
+      for (int i = 0; i < kB2; ++i) acc[i] = Sk[i * kB2];
+    }
+#pragma unroll
+    for (int i = 0; i < kB2; ++i) X[(size_t)pair_index(i, P, Qb) * mp + col] = acc[i];
+  }
+}
+
+// kSmem: the buffer is in shared memory (a template argument, so every
+// access is a shared-memory instruction, not a generic one)
+template <typename T, int NT, bool kSmem>
+__global__ void __launch_bounds__(NT)
+    blocked_eigh_kernel(const T* __restrict__ a, real_t<T>* __restrict__ w, T* __restrict__ v,
+                        unsigned char* __restrict__ work, int* __restrict__ sweeps_out, int m) {
+  using R = real_t<T>;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ double red[32];
+  const BLayout L = blayout<T>(m);
+  unsigned char* base = kSmem ? dyn : work + (size_t)blockIdx.x * L.total;
+  T* A = reinterpret_cast<T*>(base + L.a);
+  T* V = reinterpret_cast<T*>(base + L.v);
+  T* SQ = reinterpret_cast<T*>(base + L.sq);  // pair k: S at 2k * 256, Q after it
+  Rot2<wide_t<T>>* Rall = reinterpret_cast<Rot2<wide_t<T>>*>(base + L.rot);
+  R* d = reinterpret_cast<R*>(base + L.d);
+  R* nrm = reinterpret_cast<R*>(base + L.nrm);
+  int* rank = reinterpret_cast<int*>(base + L.rank);
+  const unsigned tid = threadIdx.x, nt = blockDim.x, um = (unsigned)m, mp = L.mp;
+  const unsigned lane = tid & 31u, warp = tid >> 5, nw = nt >> 5;
+  const unsigned mm = mp * mp, nb = 2 * L.np;
+  const T* src = a + (size_t)blockIdx.x * um * um;
+  R* w_out = w + (size_t)blockIdx.x * um;
+  T* v_out = v + (size_t)blockIdx.x * um * um;
+
+  // the Hermitian matrix of the lower triangle (real diagonal), padded with
+  // zeros, and V = I
+  double local = 0.0;
+  for (unsigned it = tid; it < mm; it += nt) {
+    const unsigned i = it / mp, j = it - i * mp;
+    T x = from_real<T>((R)0);
+    if (i < um && j < um) {
+      const unsigned ij = i * um + j;
+      x = i > j ? src[ij] : i == j ? from_real<T>(real_part(src[ij])) : cj(src[j * um + i]);
+    }
+    A[it] = x;
+    V[it] = from_real<T>(i == j ? (R)1 : (R)0);
+    local += sq(x);
+  }
+  const double fro2 = block_sum(local, red);
+  if (!(fro2 <= DBL_MAX)) {  // an entry that is NaN or infinite: NaN out, no sweep
+    for (unsigned it = tid; it < um * um; it += nt) v_out[it] = from_real<T>((R)NAN);
+    for (unsigned j = tid; j < um; j += nt) w_out[j] = (R)NAN;
+    if (tid == 0 && sweeps_out) sweeps_out[blockIdx.x] = 0;
+    return;
+  }
+  const double tol2 = Eps<R>::value * Eps<R>::value * fro2;
+  int sweep = 0;
+  for (; sweep < kMaxSweeps; ++sweep) {
+    double off = 0.0;
+    for (unsigned it = tid; it < mm; it += nt)
+      if (it % (mp + 1) != 0) off += sq(A[it]);
+    if (!(block_sum(off, red) > tol2)) break;
+    for (unsigned r = 0; r + 1 < nb; ++r) {
+      for (unsigned k = warp; k < L.np; k += nw) {
+        unsigned P, Qb;
+        block_pair(r, k, nb, P, Qb);
+        pair_solve(A, mp, P, Qb, SQ + (size_t)k * 2 * kB2 * kB2, Rall + (size_t)k * kB, lane);
+      }
+      __syncthreads();
+      right_multiply<T>(A, V, mp, nb, r, SQ, warp, nw, lane);
+      __syncthreads();
+      left_multiply<T>(A, mp, nb, r, SQ, warp, nw, lane);
+      __syncthreads();
+    }
+  }
+
+  for (unsigned j = tid; j < um; j += nt) d[j] = real_part(A[j * mp + j]);
+  __syncthreads();
+  if constexpr (sizeof(R) == 8) {
+    // f64 and c128: one Newton-Schulz step V <- V (3I - V^H V) / 2. The
+    // dense products that apply each step's Q to V leave its columns some
+    // tens of eps from orthogonal after a solve's ~100 steps (47.8 eps at
+    // m = 150 in c128, against the contract's 50); the step squares that.
+    // G = V^H V goes where A was (its diagonal is in d now), the new rows,
+    // 16 at a time, where the pairs' S and Q were (np 512 >= 16 m_p).
+    T* G = A;
+    for (unsigned it = tid; it < um * um; it += nt) {
+      const unsigned i = it / um, j = it - i * um;
+      if (i > j) continue;
+      T acc = from_real<T>((R)0);
+      for (unsigned k = 0; k < um; ++k) mac(acc, cj(V[k * mp + i]), V[k * mp + j]);
+      G[i * mp + j] = acc;
+      G[j * mp + i] = cj(acc);
+    }
+    __syncthreads();
+    for (unsigned r0 = 0; r0 < um; r0 += kB2) {
+      const unsigned rows = um - r0 < (unsigned)kB2 ? um - r0 : (unsigned)kB2;
+      for (unsigned it = tid; it < rows * um; it += nt) {
+        const unsigned i = it / um, j = it - i * um;
+        T acc = from_real<T>((R)0);
+        for (unsigned k = 0; k < um; ++k) mac(acc, V[(r0 + i) * mp + k], G[k * mp + j]);
+        SQ[i * mp + j] = ns_step(V[(r0 + i) * mp + j], acc);
+      }
+      __syncthreads();
+      for (unsigned it = tid; it < rows * um; it += nt) {
+        const unsigned i = it / um, j = it - i * um;
+        V[(r0 + i) * mp + j] = SQ[i * mp + j];
+      }
+      __syncthreads();
+    }
+  }
+
+  // unit columns, then the ascending order
+  for (unsigned j = tid; j < um; j += nt) {
+    double s2 = 0.0;
+    for (unsigned i = 0; i < um; ++i) s2 += sq(V[i * mp + j]);
+    nrm[j] = (R)(1.0 / sqrt(s2));
+  }
+  __syncthreads();
+  for (unsigned j = tid; j < um; j += nt) {
+    const R kj = sort_key(d[j]);
+    int rk = 0;
+    for (unsigned i = 0; i < um; ++i) {
+      const R ki = sort_key(d[i]);
+      rk += ki < kj || (ki == kj && i < j);
+    }
+    rank[j] = rk;
+    w_out[rk] = d[j];
+  }
+  __syncthreads();
+  for (unsigned it = tid; it < um * um; it += nt) {
+    const unsigned i = it / um, j = it - i * um;
+    v_out[i * um + rank[j]] = scale(nrm[j], V[i * mp + j]);
+  }
+  if (tid == 0 && sweeps_out) sweeps_out[blockIdx.x] = sweep;
+}
+
+// ---- launch ----
+
+// the kernel the dispatch takes at size m: 0 the Jacobi kernel, 1 the blocked
+// one. m0 = kJacobiMaxM: at m = 24 the Jacobi kernel is the faster, at m = 32
+// (the blocked kernel's padded size for m = 17 .. 32) the blocked one
+// (chip_smoke.py phase 15a times both at m = 24 .. 150; PERF.md section 6)
+constexpr int kJacobiMaxM = 24;
+
+int kernel_for(int m) { return m <= kJacobiMaxM ? 0 : 1; }
+
+template <typename T> size_t layout_bytes(int m, int kernel) {
+  return kernel == 0 ? layout<T>(m).total : blayout<T>(m).total;
+}
+
+size_t bytes_for(int m, int dtype, int kernel) {
   switch (dtype) {
-    case 0: return layout_bytes<float>(m);
-    case 1: return layout_bytes<double>(m);
-    case 2: return layout_bytes<Cx<float>>(m);
-    case 3: return layout_bytes<Cx<double>>(m);
+    case 0: return layout_bytes<float>(m, kernel);
+    case 1: return layout_bytes<double>(m, kernel);
+    case 2: return layout_bytes<Cx<float>>(m, kernel);
+    case 3: return layout_bytes<Cx<double>>(m, kernel);
   }
   return 0;
 }
@@ -329,15 +907,30 @@ int threads_for(int m) {
 
 template <typename T>
 int launch(const void* a, void* w, void* v, void* work, int* sweeps, int m, int64_t batch,
-           cudaStream_t stream) {
-  const size_t bytes = layout_bytes<T>(m);
+           cudaStream_t stream, int kernel) {
+  const size_t bytes = layout_bytes<T>(m, kernel);
   const bool in_smem = bytes <= kSmemLimit;
   if (!in_smem && work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = in_smem ? bytes : 0;
-  if (int rc = set_dynamic_smem(small_eigh_kernel<T>, smem)) return rc;
-  small_eigh_kernel<T><<<static_cast<unsigned>(batch), threads_for(m), smem, stream>>>(
-      static_cast<const T*>(a), static_cast<real_t<T>*>(w), static_cast<T*>(v),
-      static_cast<unsigned char*>(work), sweeps, m, in_smem ? 1 : 0);
+  const T* A = static_cast<const T*>(a);
+  real_t<T>* W = static_cast<real_t<T>*>(w);
+  T* Vo = static_cast<T*>(v);
+  unsigned char* ws = static_cast<unsigned char*>(work);
+  const unsigned grid = static_cast<unsigned>(batch);
+  if (kernel == 0) {
+    if (int rc = set_dynamic_smem(small_eigh_kernel<T>, smem)) return rc;
+    small_eigh_kernel<T><<<grid, threads_for(m), smem, stream>>>(A, W, Vo, ws, sweeps, m,
+                                                                 in_smem ? 1 : 0);
+  } else {
+    // 16 warps; 8 for the complex types, whose passes hold twice the registers
+    constexpr int nt = sizeof(wide_t<T>) > 8 ? 256 : 512;
+    if (in_smem) {
+      if (int rc = set_dynamic_smem(blocked_eigh_kernel<T, nt, true>, smem)) return rc;
+      blocked_eigh_kernel<T, nt, true><<<grid, nt, smem, stream>>>(A, W, Vo, ws, sweeps, m);
+    } else {
+      blocked_eigh_kernel<T, nt, false><<<grid, nt, 0, stream>>>(A, W, Vo, ws, sweeps, m);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -345,30 +938,49 @@ int launch(const void* a, void* w, void* v, void* work, int* sweeps, int m, int6
 
 extern "C" {
 
-// Bytes of global workspace per matrix the kernel needs at size m (0 when
-// its buffer fits in shared memory). dtype: 0 f32, 1 f64, 2 c64, 3 c128.
-int64_t linops_small_eigh_workspace(int m, int dtype) {
-  const size_t bytes = bytes_for(m, dtype);
+// The kernel linops_small_eigh runs at size m: 0 the Jacobi kernel, 1 the
+// blocked kernel.
+int linops_small_eigh_kernel(int m) { return kernel_for(m); }
+
+// Bytes of global workspace per matrix the given kernel needs at size m (0
+// when its buffer fits in shared memory). dtype: 0 f32, 1 f64, 2 c64, 3 c128.
+int64_t linops_small_eigh_workspace_with(int m, int dtype, int kernel) {
+  const size_t bytes = bytes_for(m, dtype, kernel);
   return bytes <= kSmemLimit ? 0 : static_cast<int64_t>(bytes);
 }
 
+// The same for the kernel the dispatch takes at size m.
+int64_t linops_small_eigh_workspace(int m, int dtype) {
+  return linops_small_eigh_workspace_with(m, dtype, kernel_for(m));
+}
+
 // a (batch, m, m) -> w (batch, m) ascending, v (batch, m, m) with the
-// eigenvectors as columns; work: batch * linops_small_eigh_workspace(m) bytes
-// (or null when that is 0); sweeps: the sweeps each matrix ran (or null).
-int linops_small_eigh(const void* a, void* w, void* v, void* work, void* sweeps, int m,
-                      int64_t batch, int dtype, int device, void* stream) {
+// eigenvectors as columns, by the given kernel; work: batch *
+// linops_small_eigh_workspace_with(m, dtype, kernel) bytes (or null when that
+// is 0); sweeps: the sweeps each matrix ran (or null).
+int linops_small_eigh_with(const void* a, void* w, void* v, void* work, void* sweeps, int m,
+                           int64_t batch, int dtype, int device, void* stream, int kernel) {
   if (int err = static_cast<int>(cudaSetDevice(device))) return err;
   if (m <= 0 || batch <= 0) return 0;
-  if (batch > 0x7fffffffLL || m > 46340) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (batch > 0x7fffffffLL || m > 46340 || (kernel != 0 && kernel != 1))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* sw = static_cast<int*>(sweeps);
   switch (dtype) {
-    case 0: return launch<float>(a, w, v, work, sw, m, batch, s);
-    case 1: return launch<double>(a, w, v, work, sw, m, batch, s);
-    case 2: return launch<Cx<float>>(a, w, v, work, sw, m, batch, s);
-    case 3: return launch<Cx<double>>(a, w, v, work, sw, m, batch, s);
+    case 0: return launch<float>(a, w, v, work, sw, m, batch, s, kernel);
+    case 1: return launch<double>(a, w, v, work, sw, m, batch, s, kernel);
+    case 2: return launch<Cx<float>>(a, w, v, work, sw, m, batch, s, kernel);
+    case 3: return launch<Cx<double>>(a, w, v, work, sw, m, batch, s, kernel);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same by the kernel the dispatch takes at size m (kernel_for: m <= m0 the
+// Jacobi kernel, else the blocked one).
+int linops_small_eigh(const void* a, void* w, void* v, void* work, void* sweeps, int m,
+                      int64_t batch, int dtype, int device, void* stream) {
+  return linops_small_eigh_with(a, w, v, work, sweeps, m, batch, dtype, device, stream,
+                                kernel_for(m));
 }
 
 }  // extern "C"

@@ -12,9 +12,14 @@ a CUDA graph cannot hold it; the kernel reads nothing back, allocates
 nothing and calls no library, so ``utils/eig.py`` can run LOBPCG's
 iterations in captured blocks (``utils/loop.py``).
 
-The kernel is hand-written CUDA C++ for ``sm_90a`` in ``csrc/small_eigh.cu``
-(parallel cyclic Jacobi, one thread block per matrix; design notes there),
-built with ``nvcc`` at first use (``build.py``). The wrapper dispatches on
+The kernels are hand-written CUDA C++ for ``sm_90a`` in ``csrc/small_eigh.cu``
+(design notes there), built with ``nvcc`` at first use (``build.py``): up to
+m = 24 parallel cyclic Jacobi on scalar rotations (``small_eigh_kernel``),
+above it block Jacobi, a warp per pair of 8-wide blocks with each pair's
+rotation applied as a dense product (``blocked_eigh_kernel``; the rotations
+in f64 for f32 input); one thread block per matrix for both. The C entry picks the
+kernel by m; ``kernel=`` names one (the card tests and ``chip_smoke.py``
+time and check each). The wrapper dispatches on
 the tensor's device: a CPU tensor takes ``small_eigh_plain``
 (``torch.linalg.eigh``); a CUDA tensor launches the kernel or raises. There
 is no fallback from a CUDA tensor to the plain version. The kernel writes
@@ -36,10 +41,12 @@ __all__ = ["small_eigh", "small_eigh_plain", "launch_counts", "reset_launch_coun
 
 # kernel name -> launches since the last reset (bumped only where the kernel
 # is launched, one recorded into a CUDA graph being captured included)
-_LAUNCHES = {"small_eigh": 0}
+_LAUNCHES = {"small_eigh": 0, "small_eigh_blocked": 0}
 loop.register_launches(_LAUNCHES)
 # kernel name -> the device function each launch runs once
-LAUNCH_SYMBOLS = {"small_eigh": "small_eigh_kernel"}
+LAUNCH_SYMBOLS = {"small_eigh": "small_eigh_kernel", "small_eigh_blocked": "blocked_eigh_kernel"}
+# kernel= name -> the C entry's kernel code, and the launch count it bumps
+_KERNELS = {"jacobi": (0, "small_eigh"), "blocked": (1, "small_eigh_blocked")}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 2, torch.complex128: 3}
 
@@ -66,10 +73,12 @@ def _lib():
     lib = load_library("small_eigh")
     if not getattr(lib, "_linops_typed", False):
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.linops_small_eigh.argtypes = [p, p, p, p, p, i32, i64, i32, i32, p]
-        lib.linops_small_eigh.restype = ctypes.c_int
-        lib.linops_small_eigh_workspace.argtypes = [i32, i32]
-        lib.linops_small_eigh_workspace.restype = ctypes.c_int64
+        lib.linops_small_eigh_with.argtypes = [p, p, p, p, p, i32, i64, i32, i32, p, i32]
+        lib.linops_small_eigh_with.restype = ctypes.c_int
+        lib.linops_small_eigh_workspace_with.argtypes = [i32, i32, i32]
+        lib.linops_small_eigh_workspace_with.restype = ctypes.c_int64
+        lib.linops_small_eigh_kernel.argtypes = [i32]
+        lib.linops_small_eigh_kernel.restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
         lib._linops_typed = True
@@ -93,24 +102,33 @@ class _SmallEigh(torch.autograd.Function):
     ``eigh_vjp``, plain tensor operations)."""
 
     @staticmethod
-    def forward(ctx, A):
-        w, V, _ = _launch(A, False)
+    def forward(ctx, A, kernel):
+        w, V, _ = _launch(A, False, kernel)
         ctx.save_for_backward(w, V)
         return w, V
 
     @staticmethod
     def backward(ctx, gw, gV):
         w, V = ctx.saved_tensors
-        return eigh_vjp(w, V, gw, gV)
+        return eigh_vjp(w, V, gw, gV), None
 
 
-def small_eigh(A, *, sweeps: bool = False):
+def kernel_for(m: int) -> str:
+    """The kernel the C entry takes at size m: "jacobi" (m ≤ 24) or
+    "blocked"."""
+    return ("jacobi", "blocked")[_lib().linops_small_eigh_kernel(int(m))]
+
+
+def small_eigh(A, *, sweeps: bool = False, kernel: str = "auto"):
     """E1: ``(w, V)`` of the Hermitian matrices ``A`` (..., m, m), w
     ascending, V's columns orthonormal eigenvectors; ``sweeps=True`` also
     returns the Jacobi sweeps each matrix ran (an int32 tensor of the batch
     shape; on the CPU and under autograd, ``None``). CPU tensors take
-    ``small_eigh_plain``.
+    ``small_eigh_plain``. ``kernel`` is "auto" (the C entry's choice by m),
+    "jacobi" or "blocked".
     A matrix with a NaN or infinite entry gets NaN eigenvalues and vectors."""
+    if kernel not in ("auto", *_KERNELS):
+        raise ValueError(f"small_eigh: kernel {kernel!r} is not auto, jacobi or blocked")
     if A.device.type == "cpu":
         out = small_eigh_plain(A)
         return (*out, None) if sweeps else out
@@ -121,13 +139,13 @@ def small_eigh(A, *, sweeps: bool = False):
     if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"small_eigh: expected (..., m, m) matrices, got {tuple(A.shape)}")
     if torch.is_grad_enabled() and A.requires_grad:
-        out = _SmallEigh.apply(A)
+        out = _SmallEigh.apply(A, kernel)
         return (*out, None) if sweeps else out
-    w, V, nsweeps = _launch(A, sweeps)
+    w, V, nsweeps = _launch(A, sweeps, kernel)
     return (w, V, nsweeps) if sweeps else (w, V)
 
 
-def _launch(A, sweeps: bool):
+def _launch(A, sweeps: bool, kernel: str):
     """One launch of E1 on the CUDA matrices A: (w, V, sweeps or None)."""
     m = A.shape[-1]
     batch_shape = tuple(A.shape[:-2])
@@ -140,13 +158,14 @@ def _launch(A, sweeps: bool):
     if B and m:
         lib = _lib()
         code = _DTYPE_CODE[A.dtype]
-        per = lib.linops_small_eigh_workspace(m, code)
+        which, name = _KERNELS[kernel_for(m) if kernel == "auto" else kernel]
+        per = lib.linops_small_eigh_workspace_with(m, code, which)
         work = torch.empty(B * per, dtype=torch.uint8, device=A.device) if per else None
-        rc = lib.linops_small_eigh(A3.data_ptr(), w.data_ptr(), V.data_ptr(),
-                                   None if work is None else work.data_ptr(),
-                                   None if nsweeps is None else nsweeps.data_ptr(),
-                                   m, B, code, *_device_stream(A3))
-        _check_launch(lib, rc, "small_eigh")
-        _LAUNCHES["small_eigh"] += 1
+        rc = lib.linops_small_eigh_with(A3.data_ptr(), w.data_ptr(), V.data_ptr(),
+                                        None if work is None else work.data_ptr(),
+                                        None if nsweeps is None else nsweeps.data_ptr(),
+                                        m, B, code, *_device_stream(A3), which)
+        _check_launch(lib, rc, name)
+        _LAUNCHES[name] += 1
     return (w.reshape(batch_shape + (m,)), V.reshape(batch_shape + (m, m)),
             None if nsweeps is None else nsweeps.reshape(batch_shape))

@@ -4,8 +4,12 @@ construction.
 Counterpart of ``linops_tpu/ops/shifted.py``. σ is a 0-dim tensor in the
 operator's dtype on the operator's device, read at every apply, so
 ``set_sigma`` (or assigning ``op.sigma``) changes the applied value and
-rebuilds nothing. The hermitian flag follows the current σ (a complex σ
-breaks it); T and H applies shift by σ and conj(σ).
+rebuilds nothing. σ is a state field: a capture key sees it by layout, so a
+captured solve replays across new σ (``utils/loop.py`` copies the new value
+into the graph's own σ). The hermitian flag follows the current σ (a complex
+σ breaks it): whether σ is real is found when σ is set, so reading the flag
+never reads the device (inside a capture it could not); T and H applies
+shift by σ and conj(σ).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ __all__ = ["ShiftedOperator"]
 
 class ShiftedOperator(LinearOperator):
     _fields_tensors = ("op", "sigma")
+    _fields_static = ("_sigma_real",)
+    _fields_state = ("sigma",)
 
     def __init__(self, op, sigma=0.0):
         super().__init__()
@@ -48,7 +54,14 @@ class ShiftedOperator(LinearOperator):
 
     @property
     def hermitian(self):
-        return self.op.hermitian and _scalar_is_real(self.sigma)
+        return self.op.hermitian and self._sigma_real
+
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        if name == "sigma":
+            # the one read of a complex σ on the card, where it is set: never
+            # in an apply (a captured solve swaps σ past this hook)
+            object.__setattr__(self, "_sigma_real", _scalar_is_real(value))
 
     def _sigma_for(self, mode: str):
         s = self.sigma
@@ -72,8 +85,9 @@ class ShiftedOperator(LinearOperator):
         self.op.bump(mode, n)
 
     def set_sigma(self, sigma):
-        """Set the shift in place: a 0-dim tensor in the operator's dtype, on
-        the operator's device. Nothing else is rebuilt."""
+        """Set the shift: a new 0-dim tensor in the operator's dtype, on the
+        operator's device (a tensor the caller holds is not written). Nothing
+        else is rebuilt, and the capture key is unchanged."""
         self.sigma = torch.as_tensor(sigma, dtype=self.op.dtype, device=self.op.device)
         return self
 

@@ -65,6 +65,7 @@ class DiagonalQNOperator(LinearOperator):
 
     _fields_tensors = ("d",)
     _fields_static = ("_n",)
+    _fields_state = ("d",)  # a push or reset swaps in a new d
 
     _update = None  # subclasses set a staticmethod
 

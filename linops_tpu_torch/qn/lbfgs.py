@@ -441,6 +441,7 @@ class LBFGSOperator(LinearOperator):
     _fields_tensors = ("state",)
     _fields_static = ("_n", "_mem", "_scaling", "_damped", "_inverse", "_dtype",
                       "_sigma2", "_sigma3", "_lazy_ab")
+    _fields_state = ("state",)  # a push or reset swaps in a new state
 
     _is_inverse_ctor = False
 

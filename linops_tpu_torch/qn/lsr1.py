@@ -203,6 +203,7 @@ class LSR1Operator(LinearOperator):
 
     _fields_tensors = ("state",)
     _fields_static = ("_n", "_mem", "_scaling", "_dtype", "_lazy_a")
+    _fields_state = ("state",)  # a push or reset swaps in a new state
 
     def __init__(self, *args, mem: int = 5, scaling: bool = False, dtype=None,
                  lazy_a: bool = True, device=None):

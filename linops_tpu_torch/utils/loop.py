@@ -28,19 +28,28 @@ signature runs the plain per-iteration loop (on the capture stream, so its
 lazy plans, kernel libraries and cuBLAS's workspace there exist before
 anything is captured; eager masked blocks cost more host time per
 iteration than the reads they save), and the next solve of that signature
-captures. A solve whose operator changed since (an L-BFGS push, an
-in-place edit) is a new signature, so a quasi-Newton loop that pushes
-between solves runs the plain loop and pays no capture, unless the
-allocator hands a push the addresses of an earlier state (the key is taken
-from the operator's current tensors, so a replay then reads those). The
-cache is a small LRU
-keyed by the solve's signature (``core/base.py::capture_signature`` of
-every operator, the state's shapes and dtypes, the solver's own static
-arguments and ``BLOCK``); it holds both kinds of entry, a signature seen
-once and a captured block, and an eviction drops the graph and its private
-memory pool.
+captures. An operator's state fields (``_fields_state``: an L-BFGS, L-SR1
+or diagonal QN state, a shift σ) are keyed by layout alone, so a push or a
+new σ keeps the signature, as the reference's traced state keeps its jit
+cache: the captured block owns static copies of those fields (its capture
+ran with the operator's fields pointed at them), and before a solve's first
+replay the loop copies in every state tensor that is not the one it copied
+last (another object, or a bumped ``_version``; an address alone could be a
+freed state's), so a quasi-Newton loop that pushes between solves replays
+from its third solve on, and a solve with no update since copies nothing.
+The operators keep value semantics: a push still makes new tensors, so a
+state the caller holds (``saved = B.state``) is never written. Any other
+change (a new tensor outside state, an in-place edit there) is a new
+signature. The cache is a small LRU keyed by the solve's signature
+(``core/base.py::capture_signature`` of every operator, the state's shapes
+and dtypes, the solver's own static arguments and ``BLOCK``); it holds both
+kinds of entry, a signature seen once and a captured block, and an eviction
+drops the graph, its static state and its private memory pool.
+``apply_cache_sizes()`` (``core/apply.py``) counts them.
 
-On the CPU the same masked blocks run eagerly. Under ``torch.func.vmap``,
+On the CPU the same masked blocks run eagerly, and each signature they run
+is recorded in the cache as a card's first solve records it, so the
+counters mean the same on both devices. Under ``torch.func.vmap``,
 when a gradient is wanted, or when an operator is not ``capture_safe`` (a
 host factorization, a timer, a nested solve, a sharded operator, a
 ``FunctionOperator`` not declared safe), the plain per-iteration loop runs
@@ -74,6 +83,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
+import weakref
 
 import torch
 
@@ -82,8 +92,9 @@ CAPTURE = True  # test hook: False runs the card's blocks eagerly, as on the CPU
 _CACHE_SIZE = 8  # signatures kept (seen once, or captured), least recently used first
 
 # what the last loop to finish did: its path ("graph", "blocks",
-# "per_iteration", "vmap"), host reads, blocks run, captures, replays and
-# capture milliseconds (a nested loop keeps its own)
+# "per_iteration", "vmap"), host reads, blocks run, captures, replays,
+# capture milliseconds and the bytes of state copied into a captured block
+# (a nested loop keeps its own)
 stats: dict = {}
 _active: list = []  # the stats of the loops running, innermost last
 
@@ -92,6 +103,7 @@ _CACHE: "collections.OrderedDict[tuple, _Graph | None]" = collections.OrderedDic
 _STREAMS: dict = {}
 _LAUNCH_TABLES: list = []  # the kernel modules' launch counts (register_launches)
 _last_graph = None
+_captures = 0  # captures since the process started
 
 
 def clear_cache() -> None:
@@ -100,6 +112,15 @@ def clear_cache() -> None:
     global _last_graph
     _CACHE.clear()
     _last_graph = None
+
+
+def cache_sizes() -> dict:
+    """{"signatures": cache entries (signatures seen, captured or not),
+    "graphs": captured blocks kept, "captures": captures since the process
+    started}: none grows over repeated solves of one signature, state
+    updates between them included."""
+    return {"signatures": len(_CACHE), "graphs": sum(g is not None for g in _CACHE.values()),
+            "captures": _captures}
 
 
 def last_graph():
@@ -134,7 +155,7 @@ class _Loop:
 
     def __init__(self, path: str):
         self.d = dict(path=path, reads=0, blocks=0, captures=0, replays=0, capture_ms=0.0,
-                      iterations=None)
+                      state_bytes=0, iterations=None)
 
     def __enter__(self):
         _active.append(self.d)
@@ -180,32 +201,35 @@ def _traced(tensors) -> bool:
 
 
 def _walk_ops(ops) -> tuple:
-    """(the operators' part of a cache key, every tensor they hold): one
-    walk of each graph."""
+    """(the operators' part of a cache key, every tensor they hold, their
+    state fields as (operator, field) pairs): one walk of each graph."""
     from ..core.base import capture_signature
 
-    keys, tensors = [], []
+    keys, tensors, states, seen = [], [], [], set()
     for op in ops:
         if op is None:
             keys.append(None)
             continue
-        k, ts = capture_signature(op)
+        k, ts, st = capture_signature(op)
         keys.append(k)
         tensors += ts
-    return tuple(keys), tensors
+        for owner, f in st:
+            if (id(owner), f) not in seen:
+                seen.add((id(owner), f))
+                states.append((owner, f))
+    return tuple(keys), tensors, states
 
 
 def _path(tensors, ops) -> tuple:
-    """(the path a loop takes, the operators' key part for the graph path)."""
+    """(the path a loop takes, the operators' key part, their state
+    fields)."""
     if _traced(tensors) or not all(op is None or op.capture_safe for op in ops):
-        return "per_iteration", None
+        return "per_iteration", None, ()
     graph = bool(tensors) and tensors[0].is_cuda and CAPTURE
-    opkey = None
-    if graph or torch.is_grad_enabled():
-        opkey, leaves = _walk_ops(ops)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-            return "per_iteration", None
-    return ("graph" if graph else "blocks"), opkey
+    opkey, leaves, states = _walk_ops(ops)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return "per_iteration", None, ()
+    return ("graph" if graph else "blocks"), opkey, states
 
 
 # ----------------------------------------------------------------------------
@@ -234,14 +258,83 @@ def _on_capture_stream(device):
     current.wait_stream(stream)
 
 
+def _static_like(value, leaves):
+    """``value`` (a state field) rebuilt from the tensors ``leaves``."""
+    if isinstance(value, torch.Tensor):
+        return next(leaves)
+    if value is None:
+        return None
+    items = [_static_like(v, leaves) for v in value]
+    return type(value)(*items) if hasattr(value, "_fields") else type(value)(items)
+
+
+class _State:
+    """A captured block's own copy of one state field: static tensors of
+    the field's layout, and which of the operator's tensors each last
+    copied (a weak reference and its ``_version``)."""
+
+    def __init__(self, owner, field: str):
+        from ..core.base import state_leaves
+
+        self.owner, self.field = owner, field
+        value = getattr(owner, field)
+        leaves = state_leaves(value)
+        self.static = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+                       for t in leaves]
+        for s, t in zip(self.static, leaves):
+            s.copy_(t)
+        self.value = _static_like(value, iter(self.static))
+        self.last = [(weakref.ref(t), t._version) for t in leaves]
+        self.nbytes = sum(t.untyped_storage().nbytes() for t in self.static)
+
+    def refresh(self) -> int:
+        """Copy in every tensor of the field that is not the one copied last;
+        returns the bytes copied."""
+        from ..core.base import state_leaves
+
+        n = 0
+        for i, t in enumerate(state_leaves(getattr(self.owner, self.field))):
+            ref, version = self.last[i]
+            if ref() is not t or version != t._version:
+                self.static[i].copy_(t)
+                self.last[i] = (weakref.ref(t), t._version)
+                n += t.numel() * t.element_size()
+        return n
+
+
+@contextlib.contextmanager
+def _static_state(states):
+    """Point every state field at its block's static copy (past the
+    operators' own ``__setattr__`` hooks, which would mark lazy state stale)
+    and give the operators back their own tensors after."""
+    own = [getattr(st.owner, st.field) for st in states]
+    for st in states:
+        object.__setattr__(st.owner, st.field, st.value)
+    try:
+        yield
+    finally:
+        moved = [st for st in states if getattr(st.owner, st.field) is not st.value]
+        for st, value in zip(states, own):
+            object.__setattr__(st.owner, st.field, value)
+        if moved:
+            raise RuntimeError(
+                "a captured block replaced the state " + ", ".join(
+                    f"{type(st.owner).__name__}.{st.field}" for st in moved)
+                + " while capturing: state updates belong outside a solve")
+
+
 class _Graph:
     """One captured function over static input buffers: ``run(args)``
-    copies ``args`` in (those given) and replays. Holds the operators it was
-    captured with, so their ids in its key stay theirs."""
+    copies ``args`` in (those given), refreshes the static state and
+    replays. Holds the operators it was captured with, so their ids in its
+    key stay theirs, and its own copies of their state fields."""
 
-    def __init__(self, fn, args, ops, what: str):
+    def __init__(self, fn, args, ops, what: str, states=()):
+        global _captures
         self.ops = tuple(ops)
         self.inputs = [a.clone() for a in args]
+        self.states = [_State(owner, f) for owner, f in states]
+        self.state_bytes = sum(st.nbytes for st in self.states)  # held by this block
         device = args[0].device
         before = [dict(t) for t in _LAUNCH_TABLES]
         t0 = time.perf_counter()
@@ -250,12 +343,18 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         torch.cuda.synchronize(device)
         err = None
-        with torch.cuda.stream(_stream(device)):
+        debug = torch.cuda.get_sync_debug_mode()
+        with _static_state(self.states), torch.cuda.stream(_stream(device)):
+            # a host read inside the capture would bake a value into the graph:
+            # any synchronizing call raises there
+            torch.cuda.set_sync_debug_mode("error")
             self.graph.capture_begin()
             try:
                 self.outputs = fn(*self.inputs)
             except Exception as e:
                 err = e
+            finally:
+                torch.cuda.set_sync_debug_mode(debug)
             try:
                 self.graph.capture_end()  # ends a capture the error invalidated too
             except Exception as e:
@@ -275,16 +374,21 @@ class _Graph:
                 "with capture_safe = False, a FunctionOperator with capture_safe=False (its "
                 "default)") from err
         torch.cuda.synchronize(device)
+        _captures += 1
         _bump("capture_ms", (time.perf_counter() - t0) * 1e3)
         _bump("captures")
         self.launches = {k: t[k] - b.get(k, 0) for t, b in zip(_LAUNCH_TABLES, before)
                          for k in t if t[k] != b.get(k, 0)}
 
     def run(self, args=()):
+        """Replay; with ``args`` (a solve's first replay) copy them in and
+        refresh the static state first."""
         global _last_graph
         for s, a in zip(self.inputs, args):
             if a is not None:
                 s.copy_(a)
+        if args:
+            _bump("state_bytes", sum(st.refresh() for st in self.states))
         self.replay()
         _last_graph = self
         return self.outputs
@@ -345,10 +449,10 @@ def _store(key, g) -> None:
         _CACHE.popitem(last=False)
 
 
-def _remember(kind, key, ops, tensors) -> None:
+def _remember(kind, key, ops, tensors, opkey=None) -> None:
     """Note a signature whose eager run built its plans (its key is taken
-    now, with them): its next run captures."""
-    ckey = _key(kind, key, _walk_ops(ops)[0], tensors)
+    now, with them, unless given): on the card its next run captures."""
+    ckey = _key(kind, key, _walk_ops(ops)[0] if opkey is None else opkey, tensors)
     if ckey in _CACHE:
         _CACHE.move_to_end(ckey)
     else:
@@ -434,7 +538,7 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
     go = cond(state, consts)
     if _batched(go):
         return _plain_while(cond, body, state, consts, maxiter, go, "vmap")
-    path, opkey = _path(state + consts, ops)
+    path, opkey, states = _path(state + consts, ops)
     if path == "per_iteration":
         return _plain_while(cond, body, state, consts, maxiter, go, path)
     dev = state[0].device
@@ -451,6 +555,8 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
     with _Loop(path) as st:
         if g is None and not _read(act):  # a cached block runs first and reads after
             st["iterations"] = 0
+            if path == "blocks":
+                _remember("while", key, ops, state + consts)
             return state, 0
         if path == "blocks":  # the CPU (or CAPTURE off): eager blocks
             while True:
@@ -459,6 +565,7 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
                 more, count = _read(torch.stack((act.to(torch.int64), k)))
                 if not more:
                     st["iterations"] = count
+                    _remember("while", key, ops, state + consts)
                     return state, count
         if g is None:
             ns, nc, n = len(state), len(consts), BLOCK
@@ -472,7 +579,8 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
                 a_in.copy_(a_out)
                 return torch.stack((a_out.to(torch.int64), k_out))
 
-            g = _Graph(block, state + consts + (k, act, lim), ops, f"device_while{key!r}")
+            g = _Graph(block, state + consts + (k, act, lim), ops, f"device_while{key!r}",
+                       states)
             _store(ckey, g)
             status = g.run()
         else:
@@ -500,7 +608,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
     BLOCK`` run eagerly; its first run is eager throughout. Returns the
     state."""
     state, consts = tuple(state), tuple(consts)
-    path, opkey = _path(state + consts, ops) if iters > 0 else ("blocks", None)
+    path, opkey, states = _path(state + consts, ops) if iters > 0 else ("blocks", None, ())
     n = BLOCK
     ckey = _key("fori", key, opkey, state + consts) if path == "graph" else None
     seen, g = _lookup(ckey) if path == "graph" else (False, None)
@@ -508,7 +616,10 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
     with _Loop(label) as st:
         if path != "graph":
             st["blocks"] += iters > 0
-            return _fori_block(body, state, consts, max(iters, 0))
+            out = _fori_block(body, state, consts, max(iters, 0))
+            if path == "blocks" and iters > 0:
+                _remember("fori", key, ops, state + consts)
+            return out
         dev = state[0].device
         if not seen or iters < n:  # eagerly, on the capture stream
             st["blocks"] += 1
@@ -527,7 +638,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
                     s.copy_(s2)
                 return ()
 
-            g = _Graph(block, state + consts, ops, f"device_fori{key!r}")
+            g = _Graph(block, state + consts, ops, f"device_fori{key!r}", states)
             _store(ckey, g)
             g.run()
         else:
@@ -550,9 +661,12 @@ def device_call(fn, args: tuple, *, ops=(), key=()):
     copy out what they keep. On the CPU, under a transform, or for operators
     that are not capture-safe, a plain call."""
     args = tuple(args)
-    path, opkey = _path(args, ops)
+    path, opkey, states = _path(args, ops)
     if path != "graph":
-        return tuple(fn(*args))
+        out = tuple(fn(*args))
+        if path == "blocks":
+            _remember("call", key, ops, args)
+        return out
     ckey = _key("call", key, opkey, args)
     seen, g = _lookup(ckey)
     if g is not None:
@@ -562,6 +676,6 @@ def device_call(fn, args: tuple, *, ops=(), key=()):
             out = tuple(fn(*args))
         _remember("call", key, ops, args)
         return out
-    g = _Graph(lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}")
+    g = _Graph(lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}", states)
     _store(ckey, g)
     return g.run()

@@ -248,9 +248,11 @@ def test_operators_that_are_not_capture_safe_take_the_per_iteration_path(rng):
 
 
 def test_capture_key_follows_pushes_and_in_place_edits(rng):
-    """The key a captured block is cached under changes with a push (new
-    state tensors), an in-place edit (a bumped version) and a Python
-    coefficient, and not with an apply."""
+    """The key a captured block is cached under changes with an in-place
+    edit of a tensor outside state (a bumped version) and a Python
+    coefficient, and not with an apply or a push: the push's new state
+    tensors have the old ones' layout, and a state field is keyed by layout
+    (a captured block replays over its own copy of the state)."""
     from linops_tpu_torch.core.base import capture_signature
 
     def capture_key(op):
@@ -265,8 +267,10 @@ def test_capture_key_follows_pushes_and_in_place_edits(rng):
     H.apply(t_(rng.standard_normal(n)))
     graph.apply(t_(rng.standard_normal(n)))
     assert [capture_key(H), capture_key(graph)] == keys
+    state = H.state
     H.push(t_(rng.standard_normal(n)), t_(rng.standard_normal(n) + 3.0))
-    assert capture_key(H) != keys[0]
+    assert H.state is not state
+    assert capture_key(H) == keys[0]
     d.mul_(2.0)
     assert capture_key(graph) != keys[1]
     assert capture_key(3.0 * D) != capture_key(2.0 * D)

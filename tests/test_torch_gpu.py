@@ -1253,23 +1253,130 @@ def test_replay_raises_nothing_under_sync_debug_error(dev, loop_mod):
 
 
 def test_push_between_solves_recaptures(dev, loop_mod):
-    """An L-BFGS push replaces M's state tensors: the next solve is a new
-    signature and must not replay the old graph over them. It runs the
-    plain loop, the solve after it captures anew, and both give a fresh eager
-    solve's result bit for bit."""
+    """An L-BFGS push replaces M's state tensors with new ones of the same
+    layout: the next solve keeps its signature, copies the new state into
+    the captured block's own and replays (no capture, no stale state), and
+    gives a fresh eager solve's result bit for bit; a solve with no push
+    since copies nothing. The state the caller held is unchanged."""
     A, H, b = slice1_graph(dev)
     for _ in range(3):
         lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
     assert loop_mod.stats["path"] == "graph" and loop_mod.stats["captures"] == 0  # cached
+    held = H.state
+    copies = [t.clone() for t in held]
     s = torch.randn(A.nrow, generator=torch.Generator(device=dev).manual_seed(34), device=dev)
     H.push(s, A * s)
     x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
-    assert loop_mod.stats["path"] == "per_iteration" and loop_mod.stats["replays"] == 0
+    st = dict(loop_mod.stats)
+    assert st["path"] == "graph" and st["captures"] == 0 and st["replays"] > 0
+    assert st["state_bytes"] > 0
     x2, k2, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
-    assert loop_mod.stats["captures"] == 1
+    assert loop_mod.stats["captures"] == 0 and loop_mod.stats["state_bytes"] == 0
+    assert all(torch.equal(a, c) for a, c in zip(held, copies))
     loop_mod.CAPTURE = False
     x_e, k_e, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
     assert k == k2 == k_e and torch.equal(x, x_e) and torch.equal(x2, x_e)
+
+
+@pytest.mark.parametrize("case", ["lbfgs_reset", "lsr1", "diagonal", "sigma"])
+def test_state_updates_replay_bit_for_bit(dev, loop_mod, case):
+    """Updates of each kind of state field between solves (an L-BFGS reset
+    and pushes, L-SR1 pushes, diagonal QN pushes, new shifts σ): from the
+    third solve on each replays with no capture, and every solve gives the
+    per-iteration loop's count and bits."""
+    n = 4096
+    gen = torch.Generator(device=dev).manual_seed(36)
+    d = torch.linspace(1.0, 10.0, n, device=dev)
+    A = lt.opDiagonal(d)
+    b = torch.randn(n, generator=gen, device=dev)
+    if case == "sigma":
+        op, M = lt.ShiftedOperator(A, 0.5), None
+    elif case == "lbfgs_reset":
+        op, M = A, lt.InverseLBFGSOperator(torch.float32, n, mem=4, device=dev)
+    elif case == "lsr1":
+        op, M = lt.ShiftedOperator(lt.LSR1Operator(torch.float32, n, mem=4, device=dev), 20.0), None
+    else:
+        op, M = A, lt.DiagonalBFGS(torch.ones(n, device=dev))
+
+    def update(i):
+        if case == "sigma":
+            op.set_sigma(0.5 + i)
+            return
+        target = M if M is not None else op.op
+        if case == "lbfgs_reset" and i == 3:
+            target.reset()
+            return
+        s = torch.randn(n, generator=gen, device=dev)
+        target.push(s, (d if case != "lsr1" else 0.1 * d) * s)
+
+    solve = (lambda: lt.minres(op, b, tol=1e-6, maxiter=400)) if case in ("sigma", "lsr1") \
+        else (lambda: lt.cg(op, b, M=M, tol=1e-6, maxiter=400))
+    for i in range(6):
+        update(i)
+        x, k, _ = solve()
+        st = dict(loop_mod.stats)
+        if i >= 2:
+            assert st["path"] == "graph" and st["captures"] == 0 and st["replays"] > 0, (i, st)
+        saved = loop_mod.BLOCK, loop_mod.CAPTURE
+        loop_mod.BLOCK, loop_mod.CAPTURE = 1, False
+        try:
+            x1, k1, _ = solve()
+        finally:
+            loop_mod.BLOCK, loop_mod.CAPTURE = saved
+        assert k == k1 and torch.equal(x, x1), (i, k, k1)
+    assert lt.apply_cache_sizes()["graphs"] >= 1
+
+
+def test_capture_runs_under_sync_debug_error(dev, loop_mod):
+    """A capture runs with ``set_sync_debug_mode("error")``: a host read in an
+    apply is refused where it would be baked into the graph, and the mode
+    the caller had is back after, a failed capture included."""
+    A, H, b = slice1_graph(dev, n=2048)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for _ in range(2):
+            lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+        assert loop_mod.stats["captures"] == 1
+        assert torch.cuda.get_sync_debug_mode() == 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = 256
+    d = torch.linspace(1.0, 2.0, n, device=dev)
+    F = lt.FunctionOperator(n, n, lambda v: v * d[:1].item() + d * v, symmetric=True,
+                            hermitian=True, dtype=torch.float32, capture_safe=True)
+    rhs = torch.ones(n, device=dev)
+    lt.cg(F, rhs, tol=1e-7, maxiter=100)
+    with pytest.raises(RuntimeError, match="FunctionOperator"):
+        lt.cg(F, rhs, tol=1e-7, maxiter=100)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_chain_timer_waits_for_the_card(dev):
+    """``marginal_chain_time`` on a run that returns CUDA tensors, with no
+    ``device=``, times with CUDA events and waits for each run: it agrees
+    with the device time of the same chain measured by events around a
+    synchronized run, where timing only the enqueue would report far less."""
+    from linops_tpu_torch.utils import timing
+
+    M = torch.randn(8192, 8192, device=dev)  # 268 MB a product: the card sets the pace
+    v = torch.randn(8192, device=dev)
+
+    def run(iters):
+        x = v
+        for _ in range(iters):
+            x = torch.tanh(M @ x)
+        return x
+
+    per = timing.marginal_chain_time(run, iters_short=5, iters_long=105, reps=3)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    run(5)
+    torch.cuda.synchronize()
+    e0.record()
+    run(100)
+    e1.record()
+    torch.cuda.synchronize()
+    ref = e0.elapsed_time(e1) / 1e3 / 100
+    assert 0.5 * ref <= per <= 2.0 * ref, (per, ref)
 
 
 def test_in_place_edit_of_a_leaf_recaptures(dev, loop_mod):
@@ -1367,7 +1474,8 @@ def test_small_eigh_matches_torch_eigh(dev, dtype, m):
     E1.reset_launch_counts()
     w, V, sweeps = E1.small_eigh(A, sweeps=True)
     torch.cuda.synchronize()
-    assert E1.launch_counts()["small_eigh"] == 1
+    which = "small_eigh_blocked" if E1.kernel_for(m) == "blocked" else "small_eigh"
+    assert E1.launch_counts()[which] == 1 and sum(E1.launch_counts().values()) == 1
     assert w.shape == (3, m) and V.shape == (3, m, m) and V.dtype == dtype
     assert bool((w[:, 1:] >= w[:, :-1]).all())
     assert int(sweeps.max()) < 30
@@ -1375,6 +1483,59 @@ def test_small_eigh_matches_torch_eigh(dev, dtype, m):
     assert dl <= 50 and res <= 50 and orth <= 50, (dl, res, orth)
     w2, V2 = E1.small_eigh(A)
     assert torch.equal(w, w2) and torch.equal(V, V2)  # the same bits on a rerun
+
+
+@pytest.mark.parametrize("m", [24, 32, 33, 48, 64, 96, 128, 150])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_small_eigh_blocked_kernel(dev, dtype, m):
+    """The blocked kernel, named, on a batch of mixed matrices (random,
+    diagonal, a repeated eigenvalue, zero): within 50 eps of eigh, ascending,
+    the same bits on a rerun and for each matrix alone; m up to 24 goes to the
+    Jacobi kernel, above it to the blocked one."""
+    g = torch.Generator(device=dev).manual_seed(47 + m)
+    A = hermitian_batch(dev, m, dtype, batch=4)
+    A[1] = torch.diag(torch.randn(m, generator=g, device=dev).to(dtype))
+    Q = torch.linalg.qr(hermitian_batch(dev, m, dtype, batch=1, seed=48)[0])[0]
+    A[2] = (Q * (torch.arange(m, device=dev) // 2 + 1).to(Q.dtype)) @ Q.mH
+    A[3] = 0
+    E1.reset_launch_counts()
+    w, V, sweeps = E1.small_eigh(A, sweeps=True, kernel="blocked")
+    torch.cuda.synchronize()
+    assert E1.launch_counts() == {"small_eigh": 0, "small_eigh_blocked": 1}
+    assert bool((w[:, 1:] >= w[:, :-1]).all()) and int(sweeps.max()) < 30
+    dl, res, orth = eigh_errors(A, w, V)
+    assert dl <= 50 and res <= 50 and orth <= 50, (dl, res, orth)
+    w2, V2 = E1.small_eigh(A, kernel="blocked")
+    assert torch.equal(w, w2) and torch.equal(V, V2)
+    for i in range(4):
+        wi, Vi = E1.small_eigh(A[i:i + 1], kernel="blocked")
+        assert torch.equal(wi[0], w[i]) and torch.equal(Vi[0], V[i])
+    assert E1.kernel_for(m) == ("jacobi" if m <= 24 else "blocked")
+
+
+def test_small_eigh_blocked_in_a_graph(dev):
+    """The blocked kernel inside a CUDA graph at m = 96: a replay gives the
+    eager bits with no host synchronisation; an infinite entry gives NaN out
+    with no sweep."""
+    A = hermitian_batch(dev, 96, torch.float32, batch=1)
+    w_e, V_e = E1.small_eigh(A)
+    static = A.clone()
+    g = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        w_g, V_g = E1.small_eigh(static)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(w_g, w_e) and torch.equal(V_g, V_e)
+    A[0, 50, 7] = float("inf")
+    w, V, sw = E1.small_eigh(A, sweeps=True)
+    torch.cuda.synchronize()
+    assert torch.isnan(w).all() and torch.isnan(V).all() and int(sw[0]) == 0
 
 
 def test_small_eigh_nan_input_ends(dev):
