@@ -3155,8 +3155,9 @@ E1_SOURCE = "linops_tpu_torch/kernels/csrc/small_eigh.cu"
 # the reference's LOBPCG loop (the Rayleigh-Ritz step; also :76, the SVQB transforms)
 E1_REPLACES = "linops_tpu/utils/eig.py:130"
 E1_SIZES = (1, 2, 6, 24, 96, 150)
-E1_BLOCKED_SIZES = (24, 32, 33, 48, 64, 96, 100, 128, 150)  # the blocked kernel, named
-E1_TIMED = (2, 6, 24, 32, 48, 64, 96, 128, 150)  # the Jacobi kernel (blocked from 24), eigh
+E1_BLOCKED_SIZES = (24, 32, 33, 48, 64, 96, 100, 128, 150)  # the blocked kernels, named
+E1_BLOCKED = ("blocked", "cluster")  # E1's kernels above m0: one CTA, a cluster
+E1_TIMED = (2, 6, 24, 32, 48, 64, 96, 128, 150)  # the Jacobi kernel (both blocked from 24), eigh
 E1_TOL = 50  # |Δλ|, ‖AV − VΛ‖₂ over eps·‖A‖₂, and max|VᴴV − I| over eps
 LOB_ITERS = 40  # phase 15b: LOBPCG iterations per solve (tol 0), as phase 11b
 # 15b, 15c (15e: or the eigh loop's distance): θ of a solve with eigh in E1's
@@ -3221,17 +3222,19 @@ def phase15a(E1, dev, card):
     """E1 against its plain version (torch.linalg.eigh) on the same inputs:
     f32, f64, c64, c128 at m in E1_SIZES through the dispatch by m, a batch
     of 2 random matrices each (not Hermitian: both read the lower triangle),
-    within E1_TOL; sorted; a NaN matrix ends with NaN out. The blocked kernel,
-    named, in the four dtypes at m in E1_BLOCKED_SIZES on a batch of mixed
+    within E1_TOL; sorted; a NaN matrix ends with NaN out. The blocked and
+    cluster kernels, each named, in the four dtypes at m in E1_BLOCKED_SIZES
+    (the cluster kernel's c128 to m = 128, where it fits) on a batch of mixed
     matrices (``blocked_cases``) within E1_TOL, the same bits on a rerun and
     as each matrix alone, a NaN matrix, and inside a CUDA graph (the eager
     bits, no sync). Then, in f32 at m in E1_TIMED, the Jacobi kernel's time
-    and (from m = 24) the blocked kernel's per call in a CUDA graph of 20
+    and (from m = 24) both blocked kernels' per call in a CUDA graph of 20
     calls, their eager marginal events at the dispatch's choice, the plain
     version's (the library call: torch.linalg.eigh, eager, marginal events),
     and the bound: A, w and V's bytes over the memory rate against
     ``eigh_ops`` over 67 TFLOP/s. E1's gradient under autograd against
-    eigh's (f64 and c128, m = 6). Returns (times by m, errors)."""
+    eigh's (f64 and c128, m = 6). Both blocked kernels and eigh in f64 from
+    m = 24 (printed). Returns (times by m, errors)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 150)
     worst = {}
     for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
@@ -3260,53 +3263,57 @@ def phase15a(E1, dev, card):
           + "/".join(f"{e:.1f}" for e in plain96)
           + "; a NaN matrix ends with NaN out (0 sweeps), its batch's other matrix unchanged",
           flush=True)
-    blocked = {}
-    for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
-        for m in E1_BLOCKED_SIZES:
-            A = blocked_cases(gen, dev, m, dt)
-            w, V, sw = E1.small_eigh(A, sweeps=True, kernel="blocked")
-            torch.cuda.synchronize()
-            errs = e1_errors(A, w, V)
-            check(all(e <= E1_TOL for e in errs) and bool((w[:, 1:] >= w[:, :-1]).all())
-                  and int(sw.max()) < 30,
-                  f"15a blocked E1 {dt} m={m}: |Δλ|, residual, orthogonality {errs} (limit "
-                  f"{E1_TOL}), sweeps {sw.tolist()}")
-            w2, V2 = E1.small_eigh(A, kernel="blocked")
-            w3, V3 = E1.small_eigh(A[2:3], kernel="blocked")
-            check(torch.equal(w, w2) and torch.equal(V, V2) and torch.equal(w[2], w3[0])
-                  and torch.equal(V[2], V3[0]),
-                  f"15a blocked E1 {dt} m={m}: other bits on a rerun or alone")
-            blocked[(str(dt)[6:], m)] = errs + (sw.tolist(),)
-    A_nan = hermitian(gen, dev, 64, torch.float32, 2)
-    A_nan[0, 40, 3] = float("inf")
-    w, V, sw = E1.small_eigh(A_nan, sweeps=True, kernel="blocked")
-    torch.cuda.synchronize()
-    check(bool(torch.isnan(w[0]).all() and torch.isnan(V[0]).all()) and int(sw[0]) == 0
-          and torch.equal(w[1], E1.small_eigh(A_nan[1:], kernel="blocked")[0][0]),
-          "15a blocked E1: an infinite entry did not end with NaN out")
-    A = hermitian(gen, dev, 96, torch.float32, 1)
-    w_e, V_e = E1.small_eigh(A, kernel="blocked")
-    static = A.clone()
-    graph = torch.cuda.CUDAGraph()
-    torch.cuda.synchronize()
-    with torch.cuda.graph(graph):
-        w_g, V_g = E1.small_eigh(static, kernel="blocked")
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        graph.replay()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    check(torch.equal(w_g, w_e) and torch.equal(V_g, V_e),
-          "15a blocked E1: a replay in a CUDA graph gave other bits")
-    del graph
-    print("[15a E1] the blocked kernel (named) on batches of 4 (random, diagonal, a repeated "
-          "eigenvalue, zero) against torch.linalg.eigh, |Δλ|, residual, orthogonality over eps "
-          "and sweeps per matrix: "
-          + "; ".join(f"{d_} m={m_} " + "/".join(f"{e:.1f}" for e in v[:3]) + f" {v[3]}"
-                      for (d_, m_), v in blocked.items())
-          + f" (limit {E1_TOL}); the same bits on a rerun and alone; an infinite entry ends "
-          "with NaN out; a replay in a CUDA graph gives the eager bits, no sync", flush=True)
+    for kern in E1_BLOCKED:
+        blocked = {}
+        for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+            for m in E1_BLOCKED_SIZES:
+                if kern == "cluster" and dt == torch.complex128 and m > 128:
+                    continue  # its buffers pass the shared memory: the dispatch takes "blocked"
+                A = blocked_cases(gen, dev, m, dt)
+                w, V, sw = E1.small_eigh(A, sweeps=True, _kernel=kern)
+                torch.cuda.synchronize()
+                errs = e1_errors(A, w, V)
+                check(all(e <= E1_TOL for e in errs) and bool((w[:, 1:] >= w[:, :-1]).all())
+                      and int(sw.max()) < 30,
+                      f"15a {kern} E1 {dt} m={m}: |Δλ|, residual, orthogonality {errs} (limit "
+                      f"{E1_TOL}), sweeps {sw.tolist()}")
+                w2, V2 = E1.small_eigh(A, _kernel=kern)
+                w3, V3 = E1.small_eigh(A[2:3], _kernel=kern)
+                check(torch.equal(w, w2) and torch.equal(V, V2) and torch.equal(w[2], w3[0])
+                      and torch.equal(V[2], V3[0]),
+                      f"15a {kern} E1 {dt} m={m}: other bits on a rerun or alone")
+                blocked[(str(dt)[6:], m)] = errs + (sw.tolist(),)
+        A_nan = hermitian(gen, dev, 64, torch.float32, 2)
+        A_nan[0, 40, 3] = float("inf")
+        w, V, sw = E1.small_eigh(A_nan, sweeps=True, _kernel=kern)
+        torch.cuda.synchronize()
+        check(bool(torch.isnan(w[0]).all() and torch.isnan(V[0]).all()) and int(sw[0]) == 0
+              and torch.equal(w[1], E1.small_eigh(A_nan[1:], _kernel=kern)[0][0]),
+              f"15a {kern} E1: an infinite entry did not end with NaN out")
+        A = hermitian(gen, dev, 96, torch.float32, 1)
+        w_e, V_e = E1.small_eigh(A, _kernel=kern)
+        static = A.clone()
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            w_g, V_g = E1.small_eigh(static, _kernel=kern)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        check(torch.equal(w_g, w_e) and torch.equal(V_g, V_e),
+              f"15a {kern} E1: a replay in a CUDA graph gave other bits")
+        del graph
+        print(f"[15a E1] the {kern} kernel (named) on batches of 4 (random, diagonal, a "
+              "repeated eigenvalue, zero) against torch.linalg.eigh, |Δλ|, residual, "
+              "orthogonality over eps and sweeps per matrix: "
+              + "; ".join(f"{d_} m={m_} " + "/".join(f"{e:.1f}" for e in v[:3]) + f" {v[3]}"
+                          for (d_, m_), v in blocked.items())
+              + f" (limit {E1_TOL}); the same bits on a rerun and alone; an infinite entry "
+              "ends with NaN out; a replay in a CUDA graph gives the eager bits, no sync",
+              flush=True)
     grads = {}
     for dt in (torch.float64, torch.complex128):
         A = hermitian(gen, dev, 6, dt, 2)
@@ -3330,30 +3337,48 @@ def phase15a(E1, dev, card):
         w_p, V_p = torch.linalg.eigh(A)
         row = {"kernel": E1.kernel_for(m), "plain_ms": marginal_ms(lambda: torch.linalg.eigh(A)),
                "bound": bound_ms(nbytes(A, w_p, V_p), eigh_ops(m))}
-        for kern in ("jacobi", "blocked") if m >= 24 else ("jacobi",):
-            w, V, sw = E1.small_eigh(A, sweeps=True, kernel=kern)
-            row[kern] = {"ms": graph_ms(lambda: E1.small_eigh(A, kernel=kern)),
+        for kern in ("jacobi", *E1_BLOCKED) if m >= 24 else ("jacobi",):
+            w, V, sw = E1.small_eigh(A, sweeps=True, _kernel=kern)
+            row[kern] = {"ms": graph_ms(lambda: E1.small_eigh(A, _kernel=kern)),
                          "sweeps": int(sw), "max_abs_err": float((w - w_p).abs().max())}
         row["event_ms"] = marginal_ms(lambda: E1.small_eigh(A))
         row.update(row[row["kernel"]])  # the dispatch's kernel: the row's ms, sweeps, error
         rows[m] = row
-    print("[15a E1] f32 per call (CUDA graph of 20: the Jacobi kernel / the blocked kernel; "
-          "eager marginal events of the dispatch's choice; torch.linalg.eigh eager marginal "
-          "events, the plain version and the library call; bound = 9 m³ operations over 67 "
-          "TFLOP/s against the bytes of A, w and V over 3.35 TB/s): "
+    print("[15a E1] f32 per call (CUDA graph of 20: the Jacobi kernel / the blocked kernel / "
+          "the cluster kernel; eager marginal events of the dispatch's choice; "
+          "torch.linalg.eigh eager marginal events, the plain version and the library call; "
+          "bound = 9 m³ operations over 67 TFLOP/s against the bytes of A, w and V over 3.35 "
+          "TB/s): "
           + "; ".join(f"m={m} jacobi {r['jacobi']['ms'] * 1e3:.1f} us ({r['jacobi']['sweeps']} "
                       f"sweeps)"
-                      + (f" / blocked {r['blocked']['ms'] * 1e3:.1f} us ({r['blocked']['sweeps']} "
-                         f"sweeps)" if "blocked" in r else "")
+                      + "".join(f" / {k} {r[k]['ms'] * 1e3:.1f} us ({r[k]['sweeps']} sweeps)"
+                                for k in E1_BLOCKED if k in r)
                       + f", dispatch {r['kernel']} {r['event_ms'] * 1e3:.1f} us eager, eigh "
                       f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound'][0] * 1e3:.3f} us "
                       f"({r['bound'][1]}), max|Δλ| {r['max_abs_err']:.1e}"
                       for m, r in rows.items()) + f"; {card}", flush=True)
+    f64 = {}
+    for m in E1_TIMED[2:]:  # from m = 24: both blocked kernels against eigh in f64
+        A = hermitian(gen, dev, m, torch.float64, 1)[0]
+        f64[m] = {"eigh": marginal_ms(lambda: torch.linalg.eigh(A))}
+        for kern in E1_BLOCKED:
+            f64[m][kern] = (graph_ms(lambda: E1.small_eigh(A, _kernel=kern)),
+                            int(E1.small_eigh(A, sweeps=True, _kernel=kern)[2]))
+    print("[15a E1] f64 per call (CUDA graph of 20: the blocked kernel / the cluster kernel "
+          "(sweeps); torch.linalg.eigh eager marginal events): "
+          + "; ".join(f"m={m} " + " / ".join(f"{k} {r[k][0] * 1e3:.1f} us ({r[k][1]})"
+                                             for k in E1_BLOCKED)
+                      + f", eigh {r['eigh'] * 1e3:.1f} us" for m, r in f64.items())
+          + f"; {card}", flush=True)
     r96 = rows[96]
-    print(f"[15a E1] m = 96, f32: the blocked kernel {r96['blocked']['ms'] * 1e3:.1f} us, the "
-          f"Jacobi kernel {r96['jacobi']['ms'] * 1e3:.1f} us, torch.linalg.eigh "
-          f"{r96['plain_ms'] * 1e3:.1f} us: blocked / eigh "
+    print(f"[15a E1] m = 96, f32: the cluster kernel {r96['cluster']['ms'] * 1e3:.1f} us, the "
+          f"blocked kernel {r96['blocked']['ms'] * 1e3:.1f} us, the Jacobi kernel "
+          f"{r96['jacobi']['ms'] * 1e3:.1f} us, torch.linalg.eigh "
+          f"{r96['plain_ms'] * 1e3:.1f} us: cluster / eigh "
+          f"{r96['cluster']['ms'] / r96['plain_ms']:.3f}, blocked / eigh "
           f"{r96['blocked']['ms'] / r96['plain_ms']:.3f}; {card}", flush=True)
+    check(r96["cluster"]["ms"] < r96["plain_ms"],
+          "15a E1: at m = 96 the dispatch's kernel is not faster than torch.linalg.eigh")
     return rows, worst
 
 
@@ -3626,8 +3651,8 @@ def phase15e(lt, loop, E1, dev, card):
     launches = E1.launch_counts()
     check(loop.stats["replays"] > 0 and loop.stats["captures"] == 0 and it == it_e,
           f"15e: the k = {LOB32_K} solve did not replay cached blocks: {loop.stats}")
-    check(launches["small_eigh_blocked"] > 0,
-          f"15e: E1's blocked kernel (m = {LOB32_K} and {3 * LOB32_K}) did not run: {launches}")
+    check(launches["small_eigh_cluster"] > 0,
+          f"15e: E1's cluster kernel (m = {LOB32_K} and {3 * LOB32_K}) did not run: {launches}")
     worst = fed_check("15e", loop, E1, lob, 4 * LOB32_ITERS + 2)
     norm = float(laplacian_eigenvalues(g)[-1])
     th_w, it_w = with_eigh(loop, lob, eigh_wide)
@@ -4150,16 +4175,24 @@ def main() -> int:
                     "replaces_note": "no pallas_call site: the jnp.linalg.eigh XLA lowers in "
                                      "the reference's LOBPCG loop; plain version and library "
                                      "call are both torch.linalg.eigh"})
-    t = e1_times[96]  # f32, m = 96: the Rayleigh-Ritz step of LOBPCG at k = 32
-    kernels.append({**entry("small_eigh_blocked", E1_SOURCE, E1_REPLACES,
-                            lob32["launches"]["small_eigh_blocked"], t["blocked"]["max_abs_err"],
-                            t["blocked"]["ms"], t["plain_ms"], t["bound"], t["plain_ms"]),
-                    "timing": "cuda_graph", "event_ms": t["event_ms"],
-                    "shape": "f32, m = 96 (the Rayleigh-Ritz step of LOBPCG at k = 32)",
-                    "launches_from": "phase 15e: LOBPCG at k = 32 on the 2048² stencil",
-                    "replaces_note": "no pallas_call site: the jnp.linalg.eigh XLA lowers in "
-                                     "the reference's LOBPCG loop, for m > 24; plain version "
-                                     "and library call are both torch.linalg.eigh"})
+    for name, kern in (("small_eigh_cluster", "cluster"), ("small_eigh_blocked", "blocked")):
+        t = e1_times[96]  # f32, m = 96: the Rayleigh-Ritz step of LOBPCG at k = 32
+        row = {**entry(name, E1_SOURCE, E1_REPLACES, lob32["launches"][name],
+                       t[kern]["max_abs_err"], t[kern]["ms"], t["plain_ms"], t["bound"],
+                       t["plain_ms"]),
+               "timing": "cuda_graph",
+               "shape": "f32, m = 96 (the Rayleigh-Ritz step of LOBPCG at k = 32)",
+               "launches_from": "phase 15e: LOBPCG at k = 32 on the 2048² stencil",
+               "replaces_note": "no pallas_call site: the jnp.linalg.eigh XLA lowers in the "
+                                "reference's LOBPCG loop, for m > 24; plain version and library "
+                                "call are both torch.linalg.eigh"}
+        if kern == "cluster":
+            row["event_ms"] = t["event_ms"]
+        else:  # the dispatch takes it only where the cluster kernel does not fit
+            row["launches_note"] = ("the dispatch takes the one-CTA kernel only where the "
+                                    "cluster kernel's buffers pass the shared memory (c128 "
+                                    "above m = 128): no main path launches it")
+        kernels.append(row)
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))

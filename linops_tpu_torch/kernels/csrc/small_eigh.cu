@@ -48,7 +48,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "bsr_common.cuh"  // linops_cuda_error_string, set_dynamic_smem
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -315,7 +319,8 @@ __global__ void small_eigh_kernel(const T* __restrict__ a, real_t<T>* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// The blocked kernel (m > kJacobiMaxM): block Jacobi, a warp per block pair.
+// The blocked kernel (m > m0 where the cluster kernel's buffers do not fit
+// in shared memory: c128 above m = 128): block Jacobi, a warp per block pair.
 //
 // The Jacobi kernel above takes 2 (M - 1) barrier-separated passes a sweep,
 // each a few instructions per thread on shared memory: at m = 96 a step is
@@ -325,10 +330,10 @@ __global__ void small_eigh_kernel(const T* __restrict__ a, real_t<T>* __restrict
 // stay out of every product below). An outer step pairs the blocks by the
 // circle method, the ordering the Jacobi kernel uses for indices, and takes
 // three block-wide barriers:
-//   1. each pair's 2kB x 2kB diagonal block S goes to a warp, which runs
-//      kInnerSweeps cyclic Jacobi sweeps on it (pair_solve: 15 steps of 8
-//      rotations, two __syncwarp a step) and writes the rotated S and their
-//      product Q;
+//   1. each pair's 2kB x 2kB diagonal block S goes to a warp, which rotates
+//      it (pair_solve: 8 steps of 8 rotations on the pairs across the two
+//      blocks, 15 steps at a sweep's first outer step, two __syncwarp a
+//      step) and writes the rotated S and their product Q;
 //   2. A <- A Q and V <- V Q: each block-column pair times its Q, a half-warp
 //      per row with Q's column in registers and the row's two 8-entry
 //      segments in 16-byte loads;
@@ -358,10 +363,6 @@ __global__ void small_eigh_kernel(const T* __restrict__ a, real_t<T>* __restrict
 constexpr int kB = 8;             // block width; a pair's block is 2kB = 16 wide
 constexpr int kB2 = 2 * kB;
 constexpr unsigned kFull = 0xffffffffu;
-#ifndef E1_INNER_SWEEPS
-#define E1_INNER_SWEEPS 1
-#endif
-constexpr int kInnerSweeps = E1_INNER_SWEEPS;  // Jacobi sweeps on each pair's block per step
 
 // step 1 works in f64 (c128) for f32 (c64) input
 template <typename T> struct WideOf { using type = T; };
@@ -475,10 +476,6 @@ __device__ __forceinline__ double ns_step(double v, double acc) { return fma(1.5
 __device__ __forceinline__ Cx<double> ns_step(Cx<double> v, Cx<double> acc) {
   return {fma(1.5, v.re, -0.5 * acc.re), fma(1.5, v.im, -0.5 * acc.im)};
 }
-__device__ __forceinline__ float ns_step(float v, float acc) { return fmaf(1.5f, v, -0.5f * acc); }
-__device__ __forceinline__ Cx<float> ns_step(Cx<float> v, Cx<float> acc) {
-  return {fmaf(1.5f, v.re, -0.5f * acc.re), fmaf(1.5f, v.im, -0.5f * acc.im)};
-}
 
 // global index of a pair's local index l (0 .. 2kB - 1): block P's, then block Q's
 __device__ __forceinline__ unsigned pair_index(unsigned l, unsigned P, unsigned Qb) {
@@ -582,22 +579,104 @@ template <typename W> __device__ __forceinline__ unsigned swz(unsigned i, unsign
   return (c + (sizeof(W) == 8 ? 2 * i : i)) & (kB2 - 1);
 }
 
+// The inner schedule of a pair's 2kB indices: 8 rotations a step on
+// disjoint index pairs. A within step u (0 .. 6) pairs each half's 8 indices
+// by the circle method (slots 0-3 block P's, 4-7 block Qb's); a cross step s
+// (0 .. 7) pairs index i of block P with index kB + (i + s) mod kB of block
+// Qb (slot i). 7 within steps and 8 cross steps rotate all 120 pairs once.
+enum { kWithin = 0, kCross = 1 };
+
+// the index that `row` meets at step t
+__device__ __forceinline__ unsigned partner(int kind, int t, unsigned row) {
+  if (kind == kCross) return row < kB ? kB + ((row + t) & (kB - 1)) : (row + kB - t) & (kB - 1);
+  const unsigned h = row & kB, l = row & (kB - 1);
+  return h | (l == kB - 1 ? (unsigned)t : l == (unsigned)t ? kB - 1 : (2 * t + (kB - 1) - l) % (kB - 1));
+}
+
+// the slot of the pair p < q at step t
+__device__ __forceinline__ unsigned slot_of(int kind, int t, unsigned p, unsigned q) {
+  if (kind == kCross) return p;
+  const unsigned pl = p & (kB - 1), ql = q & (kB - 1);
+  const unsigned kp = ql == kB - 1 ? 0u : (pl + (kB - 1) - t) % (kB - 1);
+  return (p & kB ? kB / 2 : 0) + (kp < kB / 2 ? kp : (kB - 1) - kp);
+}
+
+// the pair a < b of slot k at step t
+__device__ __forceinline__ void slot_pair(int kind, int t, int k, int& a, int& b) {
+  if (kind == kCross) {
+    a = k;
+    b = kB + ((k + t) & (kB - 1));
+    return;
+  }
+  const int h = k >= kB / 2 ? kB : 0, kk = k & (kB / 2 - 1);
+  const int x = kk == 0 ? t : (t + kk) % (kB - 1), y = kk == 0 ? kB - 1 : (t + (kB - 1) - kk) % (kB - 1);
+  a = h + (x < y ? x : y);
+  b = h + (x < y ? y : x);
+}
+
+// one step of pair_solve (see there)
+template <int kNewtonT, typename W>
+__device__ __forceinline__ void pair_step(int kind, int t, W* xbuf, W* own_row, W (&v)[kB2],
+                                          Rot2<W>* rot, unsigned row, bool is_s) {
+  using R = real_t<W>;
+  const unsigned j = partner(kind, t, row);
+  const unsigned p = min(row, j), q = max(row, j);
+  R own = (R)0;
+  if (is_s) {
+    const R app = real_part(xbuf[p * kB2 + swz<W>(p, p)]);
+    const R aqq = real_part(xbuf[q * kB2 + swz<W>(q, q)]);
+    const Rot2<W> z = make_rot2<kNewtonT>(xbuf[p * kB2 + swz<W>(p, q)], app, aqq);
+    if (row == p) rot[slot_of(kind, t, p, q)] = z;
+    own = row == p ? app - z.tab : aqq + z.tab;
+    // S <- G^H S on rows p and q: v = alpha (own row) + beta (partner's row)
+    const W alpha = row == p ? from_real<W>(z.c) : mul(from_real<W>(z.c), z.e);
+    const W beta = row == p ? mul(from_real<W>(-z.s), z.e) : from_real<W>(z.s);
+    const W* other = xbuf + j * kB2;
+#pragma unroll
+    for (int c = 0; c < kB2; ++c)
+      v[c] = axpby(alpha, own_row[swz<W>(row, c)], beta, other[swz<W>(j, c)]);
+  }
+  __syncwarp();  // rot[] complete; every lane done reading the old S
+#pragma unroll
+  for (int k = 0; k < kB; ++k) {  // S <- S G, Q <- Q G
+    int a, b;
+    slot_pair(kind, t, k, a, b);
+    const Rot2<W> zk = rot[k];
+    rotate(v[a], v[b], zk.c, zk.s, cj(zk.e));
+  }
+  if (is_s) {  // the new row, with the pair's 2 x 2 block set exactly
+#pragma unroll
+    for (int c = 0; c < kB2; ++c) own_row[swz<W>(row, c)] = v[c];
+    own_row[swz<W>(row, row)] = from_real<W>(own);
+    own_row[swz<W>(row, j)] = from_real<W>((R)0);
+  }
+  __syncwarp();
+}
+
 // step 1 for one pair, by one warp: lane i < 16 handles row i of the pair's
 // 2kB x 2kB diagonal block S (widened), kept in xbuf; lane 16 + i holds row
-// i of the rotation Q (from I) in registers. At each step every
-// index i meets its partner j (the circle method on 16 indices): lanes
-// p = min(i, j) and q = max(i, j) read the pair's 2 x 2 block and compute the
-// same rotation (lane p also puts it in rot[k] for the others), rotate their
-// two rows of the old S (S <- G^H S), then every lane rotates its row's
-// column pairs (S <- S G, Q <- Q G), and the pair's 2 x 2 block is set
-// exactly (a_pq = 0). Two __syncwarp a step, no shuffle. f32 (c64) input
-// takes t to f32 accuracy (its special-function estimate, no Newton step on
-// it) and rounds the result to f32 anyway; f64 (c128) input takes two Newton
-// steps. Writes S and Q, rounded to the storage type, over sq (row-major
-// 16 x 16 each).
+// i of the rotation Q (from I) in registers. At each step (pair_step) every
+// index i meets its partner j: lanes p = min(i, j) and q = max(i, j) read
+// the pair's 2 x 2 block and compute the same rotation (lane p also puts it
+// in rot[k] for the others), rotate their two rows of the old S (S <- G^H S),
+// then every lane rotates its row's column pairs (S <- S G, Q <- Q G), and
+// the pair's 2 x 2 block is set exactly (a_pq = 0). Two __syncwarp a step,
+// no shuffle. With `within` (the first outer step of a sweep, where every
+// block is in a pair) the 7 within steps run before the 8 cross steps, so a
+// sweep rotates every pair of indices once or more; the other outer steps
+// take the cross steps alone: the couplings inside a block wait for the
+// next sweep's first step, as in a scalar cyclic sweep, which rotates each
+// pair once (every step rotating the 56 pairs inside the two blocks as
+// well took 15 steps a pair solve, not 8). f32 (c64) input takes t to f32
+// accuracy (its special-function estimate, no Newton step on it) and rounds
+// the result to f32 anyway; f64 (c128) input takes two Newton steps. Writes
+// S and Q, rounded to the storage type, over sq (row-major 16 x 16 each). A
+// holds the pair's rows with stride ld (global row indices), block P's 8
+// columns at c0 and block Qb's at c1.
 template <typename T>
-__device__ __forceinline__ void pair_solve(const T* A, unsigned mp, unsigned P, unsigned Qb,
-                                           T* sq, Rot2<wide_t<T>>* rot, unsigned lane) {
+__device__ __forceinline__ void pair_solve(const T* A, unsigned ld, unsigned c0, unsigned c1,
+                                           unsigned P, unsigned Qb, bool within, T* sq,
+                                           Rot2<wide_t<T>>* rot, unsigned lane) {
   using W = wide_t<T>;
   using R = real_t<W>;
   constexpr int kNewtonT = sizeof(real_t<T>) == 8 ? 2 : 0;
@@ -611,9 +690,9 @@ __device__ __forceinline__ void pair_solve(const T* A, unsigned mp, unsigned P, 
   W* own_row = xbuf + row * kB2;
   if (is_s) {
     T t[kB2];
-    const T* src = A + (size_t)pair_index(row, P, Qb) * mp;
-    load8(src + P * kB, t);
-    load8(src + Qb * kB, t + kB);
+    const T* src = A + (size_t)pair_index(row, P, Qb) * ld;
+    load8(src + c0, t);
+    load8(src + c1, t + kB);
 #pragma unroll
     for (int c = 0; c < kB2; ++c) own_row[swz<W>(row, c)] = to_wide(t[c]);
   } else {
@@ -621,47 +700,13 @@ __device__ __forceinline__ void pair_solve(const T* A, unsigned mp, unsigned P, 
     for (int c = 0; c < kB2; ++c) v[c] = from_real<W>(c == (int)row ? (R)1 : (R)0);
   }
   __syncwarp();
-  for (int sweep = 0; sweep < kInnerSweeps; ++sweep) {
+  if (within) {
 #pragma unroll
-    for (int r = 0; r < kB2 - 1; ++r) {
-      const unsigned j = row == kB2 - 1 ? (unsigned)r
-                         : row == (unsigned)r ? kB2 - 1
-                                              : (2 * r + (kB2 - 1) - row) % (kB2 - 1);
-      const unsigned p = min(row, j), q = max(row, j);
-      R own = (R)0;
-      if (is_s) {
-        const R app = real_part(xbuf[p * kB2 + swz<W>(p, p)]);
-        const R aqq = real_part(xbuf[q * kB2 + swz<W>(q, q)]);
-        const Rot2<W> z = make_rot2<kNewtonT>(xbuf[p * kB2 + swz<W>(p, q)], app, aqq);
-        // the pair's index k: (r + k, r - k) mod 15, or (r, 15) for k = 0
-        const unsigned kp = q == kB2 - 1 ? 0u : (p + (kB2 - 1) - r) % (kB2 - 1);
-        if (row == p) rot[kp <= (unsigned)kB - 1 ? kp : (kB2 - 1) - kp] = z;
-        own = row == p ? app - z.tab : aqq + z.tab;
-        // S <- G^H S on rows p and q: v = alpha (own row) + beta (partner's row)
-        const W alpha = row == p ? from_real<W>(z.c) : mul(from_real<W>(z.c), z.e);
-        const W beta = row == p ? mul(from_real<W>(-z.s), z.e) : from_real<W>(z.s);
-        const W* other = xbuf + j * kB2;
-#pragma unroll
-        for (int c = 0; c < kB2; ++c)
-          v[c] = axpby(alpha, own_row[swz<W>(row, c)], beta, other[swz<W>(j, c)]);
-      }
-      __syncwarp();  // rot[] complete; every lane done reading the old S
-#pragma unroll
-      for (int k = 0; k < kB; ++k) {  // S <- S G, Q <- Q G
-        const int a = k == 0 ? r : (r + k) % (kB2 - 1);
-        const int b = k == 0 ? kB2 - 1 : (r + (kB2 - 1) - k) % (kB2 - 1);
-        const Rot2<W> zk = rot[k];
-        rotate(v[a < b ? a : b], v[a < b ? b : a], zk.c, zk.s, cj(zk.e));
-      }
-      if (is_s) {  // the new row, with the pair's 2 x 2 block set exactly
-#pragma unroll
-        for (int c = 0; c < kB2; ++c) own_row[swz<W>(row, c)] = v[c];
-        own_row[swz<W>(row, row)] = from_real<W>(own);
-        own_row[swz<W>(row, j)] = from_real<W>((R)0);
-      }
-      __syncwarp();
-    }
+    for (int u = 0; u < kB - 1; ++u)
+      pair_step<kNewtonT>(kWithin, u, xbuf, own_row, v, rot, row, is_s);
   }
+#pragma unroll
+  for (int s = 0; s < kB; ++s) pair_step<kNewtonT>(kCross, s, xbuf, own_row, v, rot, row, is_s);
   if (is_s) {
 #pragma unroll
     for (int c = 0; c < kB2; ++c) v[c] = own_row[swz<W>(row, c)];
@@ -803,7 +848,8 @@ __global__ void __launch_bounds__(NT)
       for (unsigned k = warp; k < L.np; k += nw) {
         unsigned P, Qb;
         block_pair(r, k, nb, P, Qb);
-        pair_solve(A, mp, P, Qb, SQ + (size_t)k * 2 * kB2 * kB2, Rall + (size_t)k * kB, lane);
+        pair_solve(A, mp, P * kB, Qb * kB, P, Qb, r == 0, SQ + (size_t)k * 2 * kB2 * kB2,
+                   Rall + (size_t)k * kB, lane);
       }
       __syncthreads();
       right_multiply<T>(A, V, mp, nb, r, SQ, warp, nw, lane);
@@ -874,18 +920,369 @@ __global__ void __launch_bounds__(NT)
   if (tid == 0 && sweeps_out) sweeps_out[blockIdx.x] = sweep;
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernel: the blocked kernel's method on a thread-block cluster of
+// C <= 8 CTAs per matrix, on neighbouring SMs, where its buffers fit in
+// shared memory.
+//
+// The blocked kernel runs a matrix on one SM, and its dense passes are bound
+// by that SM's shared-memory wavefronts. Here CTA c of a matrix's cluster
+// owns the block pairs k = c, c + C, ... (ppc = ceil(np / C) slots) and holds
+// each pair's 16 columns of A and of V: all m_p rows, row-major, 16 entries a
+// row (block P's 8, then block Qb's). An outer step takes two cluster
+// barriers:
+//   1. each slot's 16 x 16 diagonal block S goes to a warp, pair_solve as in
+//      the blocked kernel, which writes the rotated S and Q; each CTA then
+//      writes its Q's into every CTA's shared memory (distributed shared
+//      memory), and the cluster syncs;
+//   2. each slot's new columns, a warp per 16 x 16 tile: A'[I, J] =
+//      Q_I^H A[I, J] Q_J for every row pair I (the pair's own block from S)
+//      and V'[:, J] = V[:, J] Q_J; each result column goes straight to the
+//      CTA and slot its block has at the next step (the circle method moves
+//      blocks between pairs), into the other of two buffers, and the cluster
+//      syncs.
+// The stopping test's sums and the diagonal go to every CTA the same way;
+// each CTA adds the sums in rank order, so all take the same branch with the
+// same bits. f64 and c128 take the blocked kernel's Newton-Schulz step, with
+// V shared through v_out (each CTA writes its columns there, then reads them
+// all). The rest is the blocked kernel's.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxCluster = 8;       // the portable cluster size
+constexpr int kClusterThreads = 256;
+
+struct CLayout {
+  size_t a, v, sq, qall, rot, red, csum, d, nrm, rank, total;
+  unsigned mp, np, C, ppc;
+};
+
+// per CTA: A's and V's columns of its slots (two buffers each), each slot's
+// S and Q (the working S while solved, as in the blocked kernel), every
+// pair's Q, the slots' rotations, the block and cluster sums, the whole
+// diagonal, the slots' column scales and ranks
+template <typename T> __host__ __device__ inline CLayout clayout(int m) {
+  using W = wide_t<T>;
+  CLayout L;
+  const unsigned nb = ((unsigned)m + kB - 1) / kB;
+  L.np = (nb + 1) / 2;
+  L.mp = 2 * L.np * kB;
+  L.ppc = (L.np + kMaxCluster - 1) / kMaxCluster;
+  L.C = (L.np + L.ppc - 1) / L.ppc;
+  const size_t cols = (size_t)L.ppc * L.mp * kB2;
+  size_t off = 0;
+  L.a = take(off, sizeof(T) * 2 * cols);
+  L.v = take(off, sizeof(T) * 2 * cols);
+  L.sq = take(off, sizeof(T) * L.ppc * 2 * kB2 * kB2);
+  L.qall = take(off, sizeof(T) * L.np * kB2 * kB2);
+  L.rot = take(off, sizeof(Rot2<W>) * L.ppc * kB);
+  L.red = take(off, sizeof(double) * 32);
+  L.csum = take(off, sizeof(double) * 2 * kMaxCluster);
+  L.d = take(off, sizeof(real_t<T>) * L.mp);
+  L.nrm = take(off, sizeof(real_t<T>) * L.ppc * kB2);
+  L.rank = take(off, sizeof(int) * L.ppc * kB2);
+  L.total = off;
+  return L;
+}
+
+// the pair k and half (0: P, 1: Qb) of block b at step r among nb blocks, the
+// inverse of block_pair
+__device__ __forceinline__ void block_slot(unsigned b, unsigned r, unsigned nb, unsigned& k,
+                                           unsigned& half) {
+  if (b == nb - 1 || b == r) {
+    k = 0;
+    half = b == nb - 1;
+    return;
+  }
+  const unsigned dist = (b + (nb - 1) - r) % (nb - 1);
+  k = dist < nb / 2 ? dist : nb - 1 - dist;
+  half = dist >= nb / 2;
+}
+
+// lane ^ 16's x
+__device__ __forceinline__ float xor16(float x) { return __shfl_xor_sync(kFull, x, 16); }
+__device__ __forceinline__ double xor16(double x) { return __shfl_xor_sync(kFull, x, 16); }
+template <typename R> __device__ __forceinline__ Cx<R> xor16(Cx<R> x) {
+  return {xor16(x.re), xor16(x.im)};
+}
+
+__device__ __forceinline__ float plus(float x, float y) { return x + y; }
+__device__ __forceinline__ double plus(double x, double y) { return x + y; }
+template <typename R> __device__ __forceinline__ Cx<R> plus(Cx<R> x, Cx<R> y) {
+  return {x.re + y.re, x.im + y.im};
+}
+
+// a load that another CTA's stores reach after a cluster barrier (through L2)
+__device__ __forceinline__ double load_cg(const double* p) { return __ldcg(p); }
+__device__ __forceinline__ Cx<double> load_cg(const Cx<double>* p) {
+  const double2 x = __ldcg(reinterpret_cast<const double2*>(p));
+  return {x.x, x.y};
+}
+
+// the cluster-wide sum of every thread's v, the same bits in every thread of
+// every CTA: each CTA's sum goes to slot c of every CTA's sums (two uses in a
+// row need other sums), and each CTA adds them in rank order
+__device__ double cluster_sum(cg::cluster_group& cl, double v, double* red, double* sums) {
+  const double s = block_sum(v, red);
+  const unsigned C = cl.num_blocks();
+  if (threadIdx.x < C) cl.map_shared_rank(sums, threadIdx.x)[cl.block_rank()] = s;
+  cl.sync();
+  double t = 0.0;
+  for (unsigned i = 0; i < C; ++i) t += sums[i];
+  return t;
+}
+
+// step 2 for one 16 x 16 tile of slot s's new columns, by one warp: A'[I, J] =
+// Q_I^H X Q_J with X = A[I, J], I the row pair kr (I = J: S), or V'[rows, J] =
+// X Q_J with X = V's rows 16 kr .. 16 kr + 15. Lane (c, h) = (lane % 16,
+// lane / 16) makes column c of Y = X Q_J on rows h, h + 2, ..., then its
+// share of Q_I^H Y over those rows for all 16 rows, and adds lane ^ 16's share
+// of its own. The results of column c go to dst (rows at stride 16).
+template <typename T>
+__device__ __forceinline__ void column_tile(const T* X, const T* Qj, const T* Qi, const T* S,
+                                            unsigned Pi, unsigned Qbi, unsigned kr, T* dst,
+                                            unsigned lane) {
+  const unsigned c = lane & (kB2 - 1), h = lane >> 4;
+  T z[kB];  // rows h + 2u, u = 0 .. 7, of column c
+  if (S) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) z[u] = S[(h + 2 * u) * kB2 + c];
+  } else {
+    T q[kB2];
+#pragma unroll
+    for (int l = 0; l < kB2; ++l) q[l] = Qj[l * kB2 + c];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const unsigned i = h + 2 * u;
+      T x[kB2];
+      const T* row = X + (size_t)(Qi ? pair_index(i, Pi, Qbi) : kr * kB2 + i) * kB2;
+      load8(row, x);
+      load8(row + kB, x + kB);
+      T acc = from_real<T>((real_t<T>)0), acc2 = acc;
+#pragma unroll
+      for (int l = 0; l < kB2; l += 2) {
+        mac(acc, x[l], q[l]);
+        mac(acc2, x[l + 1], q[l + 1]);
+      }
+      mac(acc, acc2, from_real<T>((real_t<T>)1));
+      z[u] = acc;
+    }
+    if (Qi) {
+      T part[kB2];
+#pragma unroll
+      for (int i = 0; i < kB2; ++i) part[i] = from_real<T>((real_t<T>)0);
+#pragma unroll
+      for (int u = 0; u < kB; ++u) {
+        T qrow[kB2];
+        load8(Qi + (h + 2 * u) * kB2, qrow);
+        load8(Qi + (h + 2 * u) * kB2 + kB, qrow + kB);
+#pragma unroll
+        for (int i = 0; i < kB2; ++i) mac(part[i], cj(qrow[i]), z[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kB; ++u) {  // keep rows h + 2u, send rows (1 - h) + 2u
+        const T keep = h ? part[2 * u + 1] : part[2 * u];
+        const T send = h ? part[2 * u] : part[2 * u + 1];
+        z[u] = plus(keep, xor16(send));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kB; ++u) {
+    const unsigned i = h + 2 * u;
+    dst[(size_t)(Qi || S ? pair_index(i, Pi, Qbi) : kr * kB2 + i) * kB2] = z[u];
+  }
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
+    cluster_eigh_kernel(const T* __restrict__ a, real_t<T>* __restrict__ w, T* __restrict__ v,
+                        int* __restrict__ sweeps_out, int m) {
+  using R = real_t<T>;
+  using W = wide_t<T>;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  cg::cluster_group cl = cg::this_cluster();
+  const CLayout L = clayout<T>(m);
+  const unsigned C = L.C, ppc = L.ppc, np = L.np, mp = L.mp, nb = 2 * np, um = (unsigned)m;
+  const unsigned me = cl.block_rank(), mat = blockIdx.x / C;
+  const unsigned tid = threadIdx.x, lane = tid & 31u, warp = tid >> 5, nw = NT / 32;
+  const unsigned slot = mp * kB2, cols = ppc * slot, tile = kB2 * kB2;
+  T* Abuf = reinterpret_cast<T*>(dyn + L.a);  // [2][ppc][m_p][16]
+  T* Vbuf = reinterpret_cast<T*>(dyn + L.v);
+  T* SQ = reinterpret_cast<T*>(dyn + L.sq);  // slot s: S at 2s * 256, Q after it
+  T* Qall = reinterpret_cast<T*>(dyn + L.qall);  // pair k's Q at 256 k
+  Rot2<W>* Rall = reinterpret_cast<Rot2<W>*>(dyn + L.rot);
+  double* red = reinterpret_cast<double*>(dyn + L.red);
+  double* sums = reinterpret_cast<double*>(dyn + L.csum);
+  R* d = reinterpret_cast<R*>(dyn + L.d);
+  R* nrm = reinterpret_cast<R*>(dyn + L.nrm);
+  int* rank = reinterpret_cast<int*>(dyn + L.rank);
+  const T* src = a + (size_t)mat * um * um;
+  R* w_out = w + (size_t)mat * um;
+  T* v_out = v + (size_t)mat * um * um;
+
+  // slot s's pair k = me + s C (none when k >= np) and the global column of
+  // its local column l at step 0, where every sweep starts
+  auto column = [&](unsigned s, unsigned l) -> unsigned {
+    const unsigned k = me + s * C;
+    if (k >= np) return ~0u;
+    unsigned P, Qb;
+    block_pair(0, k, nb, P, Qb);
+    return pair_index(l, P, Qb);
+  };
+
+  // the Hermitian matrix of the lower triangle (real diagonal), padded with
+  // zeros, and V = I, in buffer 0
+  double local = 0.0;
+  for (unsigned it = tid; it < cols; it += NT) {
+    const unsigned s = it / slot, i = (it - s * slot) / kB2, j = column(s, it % kB2);
+    T x = from_real<T>((R)0), e = x;
+    if (i < um && j < um) {
+      const unsigned ij = i * um + j;
+      x = i > j ? src[ij] : i == j ? from_real<T>(real_part(src[ij])) : cj(src[j * um + i]);
+    }
+    if (i == j) e = from_real<T>((R)1);
+    Abuf[it] = x;
+    Vbuf[it] = e;
+    local += sq(x);
+  }
+  const double fro2 = cluster_sum(cl, local, red, sums);
+  if (!(fro2 <= DBL_MAX)) {  // an entry that is NaN or infinite: NaN out, no sweep
+    if (me == 0) {
+      for (unsigned it = tid; it < um * um; it += NT) v_out[it] = from_real<T>((R)NAN);
+      for (unsigned j = tid; j < um; j += NT) w_out[j] = (R)NAN;
+      if (tid == 0 && sweeps_out) sweeps_out[mat] = 0;
+    }
+    return;
+  }
+  const double tol2 = Eps<R>::value * Eps<R>::value * fro2;
+  unsigned cb = 0;
+  int sweep = 0;
+  for (; sweep < kMaxSweeps; ++sweep) {
+    double off = 0.0;
+    for (unsigned it = tid; it < cols; it += NT) {
+      const unsigned s = it / slot, i = (it - s * slot) / kB2, j = column(s, it % kB2);
+      if (j != ~0u && i != j) off += sq(Abuf[cb * cols + it]);
+    }
+    if (!(cluster_sum(cl, off, red, sums + kMaxCluster) > tol2)) break;
+    for (unsigned r = 0; r + 1 < nb; ++r) {
+      const unsigned rn = r + 2 < nb ? r + 1 : 0;  // the next step: the next sweep's first
+      const T* Acur = Abuf + cb * cols;
+      const T* Vcur = Vbuf + cb * cols;
+      for (unsigned s = warp; s < ppc; s += nw) {
+        const unsigned k = me + s * C;
+        if (k >= np) continue;
+        unsigned P, Qb;
+        block_pair(r, k, nb, P, Qb);
+        pair_solve(Acur + s * slot, kB2, 0, kB, P, Qb, r == 0, SQ + 2 * s * tile, Rall + s * kB,
+                   lane);
+      }
+      __syncthreads();
+      for (unsigned it = tid; it < ppc * C * tile; it += NT) {  // every CTA gets the Q's
+        const unsigned e = it % tile, to = (it / tile) % C, s = it / (tile * C);
+        const unsigned k = me + s * C;
+        if (k < np) cl.map_shared_rank(Qall, to)[k * tile + e] = SQ[(2 * s + 1) * tile + e];
+      }
+      cl.sync();
+      for (unsigned item = warp; item < ppc * 2 * np; item += nw) {
+        const unsigned s = item / (2 * np), kr = item % np, k = me + s * C;
+        const bool is_v = item % (2 * np) >= np;
+        if (k >= np) continue;
+        unsigned P, Qb, Pi, Qbi, k2, half;
+        block_pair(r, k, nb, P, Qb);
+        block_pair(r, kr, nb, Pi, Qbi);
+        const unsigned c = lane & (kB2 - 1);
+        block_slot(c < kB ? P : Qb, rn, nb, k2, half);
+        T* next = (is_v ? Vbuf : Abuf) + (cb ^ 1) * cols;
+        T* dst = cl.map_shared_rank(next, k2 % C) + (k2 / C) * slot + half * kB + (c & (kB - 1));
+        const T* S = !is_v && kr == k ? SQ + 2 * s * tile : nullptr;
+        column_tile<T>((is_v ? Vcur : Acur) + s * slot, SQ + (2 * s + 1) * tile,
+                       is_v ? nullptr : Qall + kr * tile, S, Pi, Qbi, kr, dst, lane);
+      }
+      cl.sync();
+      cb ^= 1;
+    }
+  }
+
+  // the diagonal, to every CTA
+  T* Af = Abuf + cb * cols;
+  T* Vf = Vbuf + cb * cols;
+  for (unsigned it = tid; it < cols / mp * C; it += NT) {
+    const unsigned to = it % C, sl = it / C, s = sl / kB2, j = column(s, sl % kB2);
+    if (j != ~0u) cl.map_shared_rank(d, to)[j] = real_part(Af[s * slot + j * kB2 + sl % kB2]);
+  }
+  cl.sync();
+  if constexpr (sizeof(R) == 8) {
+    // f64 and c128: the blocked kernel's Newton-Schulz step V <- V (3I -
+    // V^H V) / 2, with V through v_out: G's columns of the slots go to the
+    // other buffer
+    for (unsigned it = tid; it < cols; it += NT) {
+      const unsigned s = it / slot, i = (it - s * slot) / kB2, j = column(s, it % kB2);
+      if (i < um && j < um) v_out[i * um + j] = Vf[it];
+    }
+    cl.sync();
+    T* G = Abuf + (cb ^ 1) * cols;
+    for (unsigned it = tid; it < cols; it += NT) {
+      const unsigned s = it / slot, i = (it - s * slot) / kB2, l = it % kB2, j = column(s, l);
+      if (i >= um || j >= um) continue;
+      T acc = from_real<T>((R)0);
+      for (unsigned k = 0; k < um; ++k)
+        mac(acc, cj(load_cg(v_out + k * um + i)), Vf[s * slot + k * kB2 + l]);
+      G[it] = acc;
+    }
+    __syncthreads();
+    for (unsigned it = tid; it < cols; it += NT) {
+      const unsigned s = it / slot, i = (it - s * slot) / kB2, l = it % kB2, j = column(s, l);
+      if (i >= um || j >= um) continue;
+      T acc = from_real<T>((R)0);
+      for (unsigned k = 0; k < um; ++k) mac(acc, load_cg(v_out + i * um + k), G[s * slot + k * kB2 + l]);
+      Vf[it] = ns_step(Vf[it], acc);
+    }
+    cl.sync();  // every CTA done reading v_out
+  }
+
+  // unit columns, then the ascending order, each CTA its own columns
+  for (unsigned t = tid; t < ppc * kB2; t += NT) {
+    const unsigned s = t / kB2, l = t % kB2, j = column(s, l);
+    if (j >= um) continue;
+    double s2 = 0.0;
+    for (unsigned i = 0; i < um; ++i) s2 += sq(Vf[s * slot + i * kB2 + l]);
+    nrm[t] = (R)(1.0 / sqrt(s2));
+    const R kj = sort_key(d[j]);
+    int rk = 0;
+    for (unsigned i = 0; i < um; ++i) {
+      const R ki = sort_key(d[i]);
+      rk += ki < kj || (ki == kj && i < j);
+    }
+    rank[t] = rk;
+    w_out[rk] = d[j];
+  }
+  __syncthreads();
+  for (unsigned it = tid; it < cols; it += NT) {
+    const unsigned s = it / slot, i = (it - s * slot) / kB2, l = it % kB2, j = column(s, l);
+    if (i < um && j < um) v_out[i * um + rank[s * kB2 + l]] = scale(nrm[s * kB2 + l], Vf[it]);
+  }
+  if (me == 0 && tid == 0 && sweeps_out) sweeps_out[mat] = sweep;
+}
+
 // ---- launch ----
 
-// the kernel the dispatch takes at size m: 0 the Jacobi kernel, 1 the blocked
-// one. m0 = kJacobiMaxM: at m = 24 the Jacobi kernel is the faster, at m = 32
-// (the blocked kernel's padded size for m = 17 .. 32) the blocked one
-// (chip_smoke.py phase 15a times both at m = 24 .. 150; PERF.md section 6)
+// The kernels, by code: 0 the Jacobi kernel, 1 the blocked kernel on one CTA,
+// 2 the blocked kernel on a cluster.
+enum { kJacobi = 0, kBlocked = 1, kCluster = 2 };
+
+// m0: at m = 24 the Jacobi kernel is the faster, at m = 32 (the blocked
+// kernels' padded size for m = 17 .. 32) a blocked one. Above m0 the cluster
+// kernel: in f32 it beats the one-CTA kernel at every m timed (171.3 /
+// 275.6 / 436.0 / 853.6 us against 238.4 / 399.5 / 658.7 / 1636.6 at m =
+// 32 / 48 / 64 / 96). chip_smoke.py phase 15a times the three kernels in
+// f32 at m = 2 .. 150 and both blocked kernels in f64 (NVIDIA H100 80GB
+// HBM3; PERF.md section 6).
 constexpr int kJacobiMaxM = 24;
 
-int kernel_for(int m) { return m <= kJacobiMaxM ? 0 : 1; }
-
 template <typename T> size_t layout_bytes(int m, int kernel) {
-  return kernel == 0 ? layout<T>(m).total : blayout<T>(m).total;
+  return kernel == kJacobi ? layout<T>(m).total
+         : kernel == kBlocked ? blayout<T>(m).total
+                              : clayout<T>(m).total;
 }
 
 size_t bytes_for(int m, int dtype, int kernel) {
@@ -896,6 +1293,14 @@ size_t bytes_for(int m, int dtype, int kernel) {
     case 3: return layout_bytes<Cx<double>>(m, kernel);
   }
   return 0;
+}
+
+// the kernel the dispatch takes: m <= m0 the Jacobi kernel; above it the
+// cluster kernel where its buffers fit in shared memory (c128 to m = 128),
+// else the blocked kernel on one CTA
+int kernel_for(int m, int dtype) {
+  if (m <= kJacobiMaxM) return kJacobi;
+  return bytes_for(m, dtype, kCluster) <= kSmemLimit ? kCluster : kBlocked;
 }
 
 int threads_for(int m) {
@@ -910,18 +1315,19 @@ int launch(const void* a, void* w, void* v, void* work, int* sweeps, int m, int6
            cudaStream_t stream, int kernel) {
   const size_t bytes = layout_bytes<T>(m, kernel);
   const bool in_smem = bytes <= kSmemLimit;
-  if (!in_smem && work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_smem && (work == nullptr || kernel == kCluster))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = in_smem ? bytes : 0;
   const T* A = static_cast<const T*>(a);
   real_t<T>* W = static_cast<real_t<T>*>(w);
   T* Vo = static_cast<T*>(v);
   unsigned char* ws = static_cast<unsigned char*>(work);
   const unsigned grid = static_cast<unsigned>(batch);
-  if (kernel == 0) {
+  if (kernel == kJacobi) {
     if (int rc = set_dynamic_smem(small_eigh_kernel<T>, smem)) return rc;
     small_eigh_kernel<T><<<grid, threads_for(m), smem, stream>>>(A, W, Vo, ws, sweeps, m,
                                                                  in_smem ? 1 : 0);
-  } else {
+  } else if (kernel == kBlocked) {
     // 16 warps; 8 for the complex types, whose passes hold twice the registers
     constexpr int nt = sizeof(wide_t<T>) > 8 ? 256 : 512;
     if (in_smem) {
@@ -930,6 +1336,24 @@ int launch(const void* a, void* w, void* v, void* work, int* sweeps, int m, int6
     } else {
       blocked_eigh_kernel<T, nt, false><<<grid, nt, 0, stream>>>(A, W, Vo, ws, sweeps, m);
     }
+  } else {
+    const CLayout L = clayout<T>(m);
+    if ((int64_t)L.C * batch > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    auto kern = cluster_eigh_kernel<T, kClusterThreads>;
+    if (int rc = set_dynamic_smem(kern, smem)) return rc;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(L.C * batch), 1, 1);
+    cfg.blockDim = dim3(kClusterThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = L.C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (int rc = static_cast<int>(cudaLaunchKernelEx(&cfg, kern, A, W, Vo, sweeps, m))) return rc;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -938,31 +1362,30 @@ int launch(const void* a, void* w, void* v, void* work, int* sweeps, int m, int6
 
 extern "C" {
 
-// The kernel linops_small_eigh runs at size m: 0 the Jacobi kernel, 1 the
-// blocked kernel.
-int linops_small_eigh_kernel(int m) { return kernel_for(m); }
-
-// Bytes of global workspace per matrix the given kernel needs at size m (0
-// when its buffer fits in shared memory). dtype: 0 f32, 1 f64, 2 c64, 3 c128.
-int64_t linops_small_eigh_workspace_with(int m, int dtype, int kernel) {
+// The kernel linops_small_eigh runs for `kernel` (-1: the dispatch's choice
+// by m and dtype; 0 Jacobi, 1 blocked, 2 cluster), or -1 when that kernel
+// cannot take the size; *work gets the bytes of global workspace per matrix
+// it needs (0 when its buffer fits in shared memory). dtype: 0 f32, 1 f64,
+// 2 c64, 3 c128.
+int linops_small_eigh_plan(int m, int dtype, int kernel, int64_t* work) {
+  if (dtype < 0 || dtype > 3 || kernel < -1 || kernel > kCluster || m <= 0) return -1;
+  if (kernel < 0) kernel = kernel_for(m, dtype);
   const size_t bytes = bytes_for(m, dtype, kernel);
-  return bytes <= kSmemLimit ? 0 : static_cast<int64_t>(bytes);
-}
-
-// The same for the kernel the dispatch takes at size m.
-int64_t linops_small_eigh_workspace(int m, int dtype) {
-  return linops_small_eigh_workspace_with(m, dtype, kernel_for(m));
+  if (kernel == kCluster && bytes > kSmemLimit) return -1;
+  *work = bytes <= kSmemLimit ? 0 : static_cast<int64_t>(bytes);
+  return kernel;
 }
 
 // a (batch, m, m) -> w (batch, m) ascending, v (batch, m, m) with the
-// eigenvectors as columns, by the given kernel; work: batch *
-// linops_small_eigh_workspace_with(m, dtype, kernel) bytes (or null when that
-// is 0); sweeps: the sweeps each matrix ran (or null).
-int linops_small_eigh_with(const void* a, void* w, void* v, void* work, void* sweeps, int m,
-                           int64_t batch, int dtype, int device, void* stream, int kernel) {
+// eigenvectors as columns, by the kernel linops_small_eigh_plan names; work:
+// batch times its bytes (or null when that is 0); sweeps: the sweeps each
+// matrix ran (or null).
+int linops_small_eigh(const void* a, void* w, void* v, void* work, void* sweeps, int m,
+                      int64_t batch, int dtype, int device, void* stream, int kernel) {
   if (int err = static_cast<int>(cudaSetDevice(device))) return err;
   if (m <= 0 || batch <= 0) return 0;
-  if (batch > 0x7fffffffLL || m > 46340 || (kernel != 0 && kernel != 1))
+  if (kernel < 0) kernel = kernel_for(m, dtype);
+  if (batch > 0x7fffffffLL || m > 46340 || kernel > kCluster)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* sw = static_cast<int*>(sweeps);
@@ -973,14 +1396,6 @@ int linops_small_eigh_with(const void* a, void* w, void* v, void* work, void* sw
     case 3: return launch<Cx<double>>(a, w, v, work, sw, m, batch, s, kernel);
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The same by the kernel the dispatch takes at size m (kernel_for: m <= m0 the
-// Jacobi kernel, else the blocked one).
-int linops_small_eigh(const void* a, void* w, void* v, void* work, void* sweeps, int m,
-                      int64_t batch, int dtype, int device, void* stream) {
-  return linops_small_eigh_with(a, w, v, work, sweeps, m, batch, dtype, device, stream,
-                                kernel_for(m));
 }
 
 }  // extern "C"

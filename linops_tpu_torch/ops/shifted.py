@@ -3,8 +3,8 @@ construction.
 
 Counterpart of ``linops_tpu/ops/shifted.py``. σ is a 0-dim tensor in the
 operator's dtype on the operator's device, read at every apply, so
-``set_sigma`` (or assigning ``op.sigma``) changes the applied value and
-rebuilds nothing. σ is a state field: a capture key sees it by layout, so a
+``set_sigma`` (or assigning ``op.sigma``, which moves a number or a tensor
+from elsewhere there) changes the applied value and rebuilds nothing. σ is a state field: a capture key sees it by layout, so a
 captured solve replays across new σ (``utils/loop.py`` copies the new value
 into the graph's own σ). The hermitian flag follows the current σ (a complex
 σ breaks it): whether σ is real is found when σ is set, so reading the flag
@@ -57,6 +57,17 @@ class ShiftedOperator(LinearOperator):
         return self.op.hermitian and self._sigma_real
 
     def __setattr__(self, name, value):
+        if name == "sigma":
+            # σ goes to the operator's device, at least in its dtype: a host
+            # scalar would be read on the host in an apply, so a captured
+            # solve would keep the value it was captured with
+            device = self.op.device
+            if isinstance(value, torch.Tensor):
+                value = value.to(device=device,
+                                 dtype=torch.promote_types(value.dtype, self.op.dtype))
+            else:
+                value = torch.as_tensor(value, dtype=_scalar_dtype(value, self.op.dtype),
+                                        device=device)
         object.__setattr__(self, name, value)
         if name == "sigma":
             # the one read of a complex σ on the card, where it is set: never

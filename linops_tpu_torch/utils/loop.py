@@ -221,14 +221,17 @@ def _walk_ops(ops) -> tuple:
 
 
 def _path(tensors, ops) -> tuple:
-    """(the path a loop takes, the operators' key part, their state
-    fields)."""
+    """(the path a loop takes, and for the graph path the operators' key
+    part and their state fields). The blocks path walks the operators only
+    under autograd: ``_remember`` takes its key after the eager run."""
     if _traced(tensors) or not all(op is None or op.capture_safe for op in ops):
         return "per_iteration", None, ()
     graph = bool(tensors) and tensors[0].is_cuda and CAPTURE
-    opkey, leaves, states = _walk_ops(ops)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        return "per_iteration", None, ()
+    opkey, states = None, ()
+    if graph or torch.is_grad_enabled():
+        opkey, leaves, states = _walk_ops(ops)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+            return "per_iteration", None, ()
     return ("graph" if graph else "blocks"), opkey, states
 
 
@@ -270,16 +273,18 @@ def _static_like(value, leaves):
 
 class _State:
     """A captured block's own copy of one state field: static tensors of
-    the field's layout, and which of the operator's tensors each last
-    copied (a weak reference and its ``_version``)."""
+    the field's layout on the block's device (a host scalar there would be
+    read on the host at capture, its value baked into the graph), and which
+    of the operator's tensors each last copied (a weak reference and its
+    ``_version``)."""
 
-    def __init__(self, owner, field: str):
+    def __init__(self, owner, field: str, device):
         from ..core.base import state_leaves
 
         self.owner, self.field = owner, field
         value = getattr(owner, field)
         leaves = state_leaves(value)
-        self.static = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
+        self.static = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=device)
                        for t in leaves]
         for s, t in zip(self.static, leaves):
             s.copy_(t)
@@ -333,9 +338,9 @@ class _Graph:
         global _captures
         self.ops = tuple(ops)
         self.inputs = [a.clone() for a in args]
-        self.states = [_State(owner, f) for owner, f in states]
-        self.state_bytes = sum(st.nbytes for st in self.states)  # held by this block
         device = args[0].device
+        self.states = [_State(owner, f, device) for owner, f in states]
+        self.state_bytes = sum(st.nbytes for st in self.states)  # held by this block
         before = [dict(t) for t in _LAUNCH_TABLES]
         t0 = time.perf_counter()
         # keep_graph: the captured graph stays readable (raw_cuda_graph), so its
@@ -449,10 +454,10 @@ def _store(key, g) -> None:
         _CACHE.popitem(last=False)
 
 
-def _remember(kind, key, ops, tensors, opkey=None) -> None:
+def _remember(kind, key, ops, tensors) -> None:
     """Note a signature whose eager run built its plans (its key is taken
-    now, with them, unless given): on the card its next run captures."""
-    ckey = _key(kind, key, _walk_ops(ops)[0] if opkey is None else opkey, tensors)
+    now, with them): on the card its next run captures."""
+    ckey = _key(kind, key, _walk_ops(ops)[0], tensors)
     if ckey in _CACHE:
         _CACHE.move_to_end(ckey)
     else:

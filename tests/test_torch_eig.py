@@ -374,18 +374,19 @@ def test_svds_blocks_match_per_iteration_loop_and_reference(rng, monkeypatch, sh
     assert set(vars(op)) == attrs  # svds keeps nothing on the operator
 
 
-@pytest.mark.parametrize("kernel", ["auto", "jacobi", "blocked"])
+@pytest.mark.parametrize("kernel", ["auto", "jacobi", "blocked", "cluster"])
 def test_small_eigh_kernel_choice_on_the_cpu(rng, kernel):
-    """``small_eigh(A, kernel=...)`` names E1's Jacobi or blocked kernel on the
-    card; a CPU tensor takes the plain version whichever is named, so each
-    gives the reference's eigenvalues (f64 at m = 40, within 1e-12 of
-    numpy); another name raises before anything runs."""
+    """``small_eigh(A, _kernel=...)`` names E1's Jacobi, blocked or cluster
+    kernel on the card ("auto": the C entry's choice); a CPU tensor takes the
+    plain version whichever is named, so each gives the reference's
+    eigenvalues (f64 at m = 40, within 1e-12 of numpy); another name raises
+    before anything runs."""
     from linops_tpu_torch.kernels import small_eigh as E1
 
     A = rng.standard_normal((40, 40))
     A = A + A.T
-    w, V = E1.small_eigh(torch.from_numpy(A), kernel=kernel)
+    w, V = E1.small_eigh(torch.from_numpy(A), _kernel=None if kernel == "auto" else kernel)
     np.testing.assert_allclose(w.numpy(), np.linalg.eigvalsh(A), rtol=0, atol=1e-12 * 40)
-    assert E1.LAUNCH_SYMBOLS.keys() == E1.launch_counts().keys()
+    assert E1.LAUNCH_SYMBOLS.keys() == E1.launch_counts().keys() == set(E1._NAMES)
     with pytest.raises(ValueError, match="kernel"):
-        E1.small_eigh(torch.from_numpy(A), kernel="qr")
+        E1.small_eigh(torch.from_numpy(A), _kernel="qr")

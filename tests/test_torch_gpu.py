@@ -1278,18 +1278,19 @@ def test_push_between_solves_recaptures(dev, loop_mod):
     assert k == k2 == k_e and torch.equal(x, x_e) and torch.equal(x2, x_e)
 
 
-@pytest.mark.parametrize("case", ["lbfgs_reset", "lsr1", "diagonal", "sigma"])
+@pytest.mark.parametrize("case", ["lbfgs_reset", "lsr1", "diagonal", "sigma", "sigma_host"])
 def test_state_updates_replay_bit_for_bit(dev, loop_mod, case):
     """Updates of each kind of state field between solves (an L-BFGS reset
-    and pushes, L-SR1 pushes, diagonal QN pushes, new shifts σ): from the
-    third solve on each replays with no capture, and every solve gives the
-    per-iteration loop's count and bits."""
+    and pushes, L-SR1 pushes, diagonal QN pushes, new shifts σ, and σ
+    assigned as a CPU scalar, which goes to the card): from the third solve
+    on each replays with no capture, and every solve gives the per-iteration
+    loop's count and bits."""
     n = 4096
     gen = torch.Generator(device=dev).manual_seed(36)
     d = torch.linspace(1.0, 10.0, n, device=dev)
     A = lt.opDiagonal(d)
     b = torch.randn(n, generator=gen, device=dev)
-    if case == "sigma":
+    if case in ("sigma", "sigma_host"):
         op, M = lt.ShiftedOperator(A, 0.5), None
     elif case == "lbfgs_reset":
         op, M = A, lt.InverseLBFGSOperator(torch.float32, n, mem=4, device=dev)
@@ -1302,6 +1303,10 @@ def test_state_updates_replay_bit_for_bit(dev, loop_mod, case):
         if case == "sigma":
             op.set_sigma(0.5 + i)
             return
+        if case == "sigma_host":
+            op.sigma = torch.tensor(0.5 + i)
+            assert op.sigma.is_cuda
+            return
         target = M if M is not None else op.op
         if case == "lbfgs_reset" and i == 3:
             target.reset()
@@ -1309,7 +1314,8 @@ def test_state_updates_replay_bit_for_bit(dev, loop_mod, case):
         s = torch.randn(n, generator=gen, device=dev)
         target.push(s, (d if case != "lsr1" else 0.1 * d) * s)
 
-    solve = (lambda: lt.minres(op, b, tol=1e-6, maxiter=400)) if case in ("sigma", "lsr1") \
+    solve = (lambda: lt.minres(op, b, tol=1e-6, maxiter=400)) \
+        if case in ("sigma", "sigma_host", "lsr1") \
         else (lambda: lt.cg(op, b, M=M, tol=1e-6, maxiter=400))
     for i in range(6):
         update(i)
@@ -1474,7 +1480,7 @@ def test_small_eigh_matches_torch_eigh(dev, dtype, m):
     E1.reset_launch_counts()
     w, V, sweeps = E1.small_eigh(A, sweeps=True)
     torch.cuda.synchronize()
-    which = "small_eigh_blocked" if E1.kernel_for(m) == "blocked" else "small_eigh"
+    which = E1._NAMES[E1._KERNELS.index(E1.kernel_for(m, dtype))]
     assert E1.launch_counts()[which] == 1 and sum(E1.launch_counts().values()) == 1
     assert w.shape == (3, m) and V.shape == (3, m, m) and V.dtype == dtype
     assert bool((w[:, 1:] >= w[:, :-1]).all())
@@ -1485,39 +1491,49 @@ def test_small_eigh_matches_torch_eigh(dev, dtype, m):
     assert torch.equal(w, w2) and torch.equal(V, V2)  # the same bits on a rerun
 
 
+@pytest.mark.parametrize("kernel", ["blocked", "cluster"])
 @pytest.mark.parametrize("m", [24, 32, 33, 48, 64, 96, 128, 150])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
                                    torch.complex128])
-def test_small_eigh_blocked_kernel(dev, dtype, m):
-    """The blocked kernel, named, on a batch of mixed matrices (random,
-    diagonal, a repeated eigenvalue, zero): within 50 eps of eigh, ascending,
-    the same bits on a rerun and for each matrix alone; m up to 24 goes to the
-    Jacobi kernel, above it to the blocked one."""
+def test_small_eigh_blocked_kernel(dev, dtype, m, kernel):
+    """The blocked and cluster kernels, named, on a batch of mixed matrices
+    (random, diagonal, a repeated eigenvalue, zero): within 50 eps of eigh,
+    ascending, the same bits on a rerun and for each matrix alone (the
+    cluster kernel refuses c128 above m = 128, where its buffers pass the
+    shared memory); m up to 24 goes to the Jacobi kernel, above it to the
+    cluster kernel where it fits, else to the blocked one."""
     g = torch.Generator(device=dev).manual_seed(47 + m)
     A = hermitian_batch(dev, m, dtype, batch=4)
     A[1] = torch.diag(torch.randn(m, generator=g, device=dev).to(dtype))
     Q = torch.linalg.qr(hermitian_batch(dev, m, dtype, batch=1, seed=48)[0])[0]
     A[2] = (Q * (torch.arange(m, device=dev) // 2 + 1).to(Q.dtype)) @ Q.mH
     A[3] = 0
+    fits = kernel == "blocked" or dtype != torch.complex128 or m <= 128
+    assert E1.kernel_for(m, dtype) == ("jacobi" if m <= 24 else "cluster"
+                                       if dtype != torch.complex128 or m <= 128 else "blocked")
+    if not fits:
+        with pytest.raises(ValueError, match="cannot take"):
+            E1.small_eigh(A, _kernel=kernel)
+        return
     E1.reset_launch_counts()
-    w, V, sweeps = E1.small_eigh(A, sweeps=True, kernel="blocked")
+    w, V, sweeps = E1.small_eigh(A, sweeps=True, _kernel=kernel)
     torch.cuda.synchronize()
-    assert E1.launch_counts() == {"small_eigh": 0, "small_eigh_blocked": 1}
+    name = "small_eigh_" + kernel
+    assert E1.launch_counts() == {n: int(n == name) for n in E1._NAMES}
     assert bool((w[:, 1:] >= w[:, :-1]).all()) and int(sweeps.max()) < 30
     dl, res, orth = eigh_errors(A, w, V)
     assert dl <= 50 and res <= 50 and orth <= 50, (dl, res, orth)
-    w2, V2 = E1.small_eigh(A, kernel="blocked")
+    w2, V2 = E1.small_eigh(A, _kernel=kernel)
     assert torch.equal(w, w2) and torch.equal(V, V2)
     for i in range(4):
-        wi, Vi = E1.small_eigh(A[i:i + 1], kernel="blocked")
+        wi, Vi = E1.small_eigh(A[i:i + 1], _kernel=kernel)
         assert torch.equal(wi[0], w[i]) and torch.equal(Vi[0], V[i])
-    assert E1.kernel_for(m) == ("jacobi" if m <= 24 else "blocked")
 
 
 def test_small_eigh_blocked_in_a_graph(dev):
-    """The blocked kernel inside a CUDA graph at m = 96: a replay gives the
-    eager bits with no host synchronisation; an infinite entry gives NaN out
-    with no sweep."""
+    """The dispatch's kernel at m = 96 (the cluster kernel) inside a CUDA
+    graph: a replay gives the eager bits with no host synchronisation; an
+    infinite entry gives NaN out with no sweep."""
     A = hermitian_batch(dev, 96, torch.float32, batch=1)
     w_e, V_e = E1.small_eigh(A)
     static = A.clone()

@@ -83,6 +83,47 @@ def test_shifted_mutable_sigma_keeps_the_key(rng, fresh_cache):
     assert lt.apply_cache_sizes() == sizes and sizes["signatures"] == 1
 
 
+def test_assigned_sigma_goes_to_the_operator(rng, fresh_cache):
+    """Assigning ``op.sigma`` a number, or a tensor in a narrower dtype,
+    stores a 0-dim tensor in the operator's dtype on its device, as
+    ``set_sigma`` does: the key stays, a tensor the caller holds is not the
+    one stored, and applies and solves follow each new σ as the reference's
+    do."""
+    n = 12
+    H = spd(rng, n)
+    v = rng.standard_normal(n)
+    b = torch.from_numpy(rng.standard_normal(n))
+    op_t = lt.ShiftedOperator(lt.LinearOperator(H, symmetric=True, hermitian=True, **CPU), 0.0)
+    op_j = lo.ShiftedOperator(lo.LinearOperator(H, symmetric=True, hermitian=True), 0.0)
+    k0 = key(op_t)
+    lt.cg(op_t, b, tol=1e-12, maxiter=100)
+    sizes = lt.apply_cache_sizes()
+    for sigma in (2.5, torch.tensor(0.75, dtype=torch.float32), torch.tensor(-0.5),
+                  torch.tensor(3, dtype=torch.int64)):
+        op_t.sigma = sigma
+        value = float(sigma)
+        op_j.set_sigma(value)
+        assert op_t.sigma.dtype == torch.float64 and op_t.sigma.device == op_t.op.device
+        assert op_t.sigma is not sigma and op_t.hermitian and key(op_t) == k0
+        close(op_t @ torch.from_numpy(v), np.asarray(op_j @ jnp.asarray(v)), what=f"σ {value}")
+        x, _, _ = lt.cg(op_t, b, tol=1e-12, maxiter=100)
+        close(x, np.linalg.solve(H + value * np.eye(n), b.numpy()), rtol=1e-8, what="cg")
+    assert lt.apply_cache_sizes() == sizes and sizes["signatures"] == 1
+
+
+def test_static_state_lives_on_the_block_device():
+    """A captured block's copy of a state field is made on the block's
+    device, whatever device the operator's tensor is on: a host scalar in the
+    graph would be read at capture and its later values never seen. Its
+    refresh copies a new value across."""
+    op = lt.ShiftedOperator(lt.LinearOperator(np.eye(3), **CPU), 0.5)
+    st = loop._State(op, "sigma", torch.device("meta"))
+    assert st.static[0].device.type == "meta" and st.value.device.type == "meta"
+    assert st.refresh() == 0
+    op.set_sigma(1.5)
+    assert st.refresh() == 8
+
+
 def test_complex_sigma_hermitian_flag(rng):
     """The hermitian flag follows a complex σ as the reference's does; it is
     found when σ is set (by ``set_sigma`` or assignment), not per read."""
@@ -294,7 +335,7 @@ def test_static_state_follows_updates(rng, form):
     for s, y in _pairs(rng, n, 2):
         B.push(s, y)
     B.ensure_ab()
-    st = loop._State(B, "state")
+    st = loop._State(B, "state", torch.device("cpu"))
     assert all(torch.equal(a, b) for a, b in zip(st.static, B.state))
     assert st.refresh() == 0
     s, y = _pairs(rng, n, 1)[0]
