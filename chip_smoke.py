@@ -8,7 +8,7 @@ Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 11, 12, 13, 10, 14, 15, then one profiled slice-1 CG (the times come
 after every kernel has been checked; phases 12, 10, 14 and the profiled CG
 come after phase 5 because torch.profiler traces of whole solves, run before
-phase 5, left phase 5's own traces without device time; phases 11-13 run
+phase 5, left phase 5's own traces without device time; phases 11 and 12 run
 no profiler). Every solve runs on ``utils/loop.py``: the first solve of a
 signature runs the plain loop (one read per iteration), its next one
 captures a block of ``loop.BLOCK`` masked iterations in a CUDA graph and
@@ -19,7 +19,8 @@ shows them run but can lose records).
 
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
-   (one ``nvcc`` per source, started together).
+   (one ``nvcc`` per source, started together; ``graph_cond.cu`` is G1, the
+   while node's condition kernel, and the host shim that records the node).
 3. kernels: K1 (BSR forward) and K2 (BSR transpose) against their plain
    PyTorch versions and an f64 version of the same data, at the benchmark's
    two shapes (8x128 blocks, kmax 8; 128x128 blocks, kmax 4; n = 65536),
@@ -110,12 +111,15 @@ shows them run but can lose records).
 13. main path of slice 8, the distributed layer (``linops_tpu_torch.parallel``)
    in a world of one NCCL rank (one card: two ranks cannot share it): slice
    1's graph and preconditioner through ``shard_operator`` (the dryrun step;
-   CG with the unsharded iterations and x bit for bit, the same K1/K2
-   launches; collectives per apply; µs per iteration against unsharded),
-   the 2^22 window operators sharded (K3-K6 bit for bit), auto_8m replicated
-   (K7-K12 bit for bit), ``banded_partition`` at n = 16384 with CG,
-   ``stencil_partition_2d`` on 2048² against the stencil operator (≤ 1e-6)
-   and Chebyshev without an all-reduce, ``scaling_report(1)`` and the card's
+   CG in captured blocks with the sharded per-iteration loop's and the
+   unsharded iterations and x bit for bit, the same K1/K2 launches, ⌈I/4⌉
+   reads a cached solve; collectives per apply, unchanged; µs per iteration
+   captured, per-iteration and unsharded), the 2^22 window operators
+   sharded (K3-K6 bit for bit, and in captured matvec chains), auto_8m
+   replicated (K7-K12 bit for bit), ``banded_partition`` at n = 16384 with
+   CG, ``stencil_partition_2d`` on 2048² against the stencil operator (≤
+   1e-6) and Chebyshev without an all-reduce, both solves captured and bit
+   for bit their per-iteration loop's, ``scaling_report(1)`` and the card's
    copy rate. Its launches must include K1-K6 and K7, K9-K12.
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
@@ -135,7 +139,15 @@ shows them run but can lose records).
    L-BFGS push (a new signature each), the plain and default loops
    interleaved round by round;
    shifted L-BFGS solves with σ on the card (no synchronisation, the same
-   bits as a Python σ). The captured blocks must hold K1-K7 and K9-K13.
+   bits as a Python σ); (f) a nested solve: CG on the Schur complement
+   B (I + L)⁻¹ Bᵀ of phase 10c's saddle point, the inverse an inner CG to
+   1e-6 (K3), both ways: the outer and summed inner iterations and x the
+   same, ⌈I/4⌉ reads a cached solve, one CUDA while node per outer
+   iteration with K3 and G1 in its body, S x = g in f64 through the plain
+   backend; the reference's small case (an inexact inner cg as the
+   preconditioner) on slice 1's graph; G1 against its plain version (the
+   iterations a while node runs) and timed. The captured blocks must hold
+   K1-K7, K9-K13 and G1.
 15. main path of slice 10, LOBPCG, svds and normest on the device loop:
    (a) E1 (``kernels/small_eigh.py``, the small Hermitian eigensolver) against
    its plain version torch.linalg.eigh for f32, f64, c64, c128 at m = 1, 2,
@@ -1388,10 +1400,10 @@ def device_profile(fn, top=3):
 
 def kernel_symbols() -> dict:
     """kernel name -> the device function each of its launches runs once."""
-    from linops_tpu_torch.kernels import bsr_spmv, lane_gather, small_eigh
+    from linops_tpu_torch.kernels import bsr_spmv, graph_cond, lane_gather, small_eigh
 
     return {**bsr_spmv.LAUNCH_SYMBOLS, **lane_gather.LAUNCH_SYMBOLS,
-            **small_eigh.LAUNCH_SYMBOLS}
+            **small_eigh.LAUNCH_SYMBOLS, **graph_cond.LAUNCH_SYMBOLS}
 
 
 def by_symbol(counts: dict) -> dict:
@@ -1416,11 +1428,28 @@ def traced_launches(prof) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
+CONDITIONAL_NODE = 13  # CU_GRAPH_NODE_TYPE_CONDITIONAL
+
+
 def graph_kernel_names(g) -> list:
     """The mangled name of every kernel node of a captured block's CUDA
-    graph, read through the driver API (``cuGraphGetNodes``,
-    ``cuGraphKernelNodeGetParams``, then ``cuFuncGetName`` or
-    ``cuKernelGetName``)."""
+    graph and of the bodies of its while nodes (``g.bodies``), read through
+    the driver API (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``, then
+    ``cuFuncGetName`` or ``cuKernelGetName``)."""
+    names = []
+    for graph in [g.graph.raw_cuda_graph(), *getattr(g, "bodies", ())]:
+        names += graph_node_names(graph)[0]
+    return names
+
+
+def while_nodes_of(g) -> int:
+    """The conditional nodes of a captured block's top-level graph."""
+    return graph_node_names(g.graph.raw_cuda_graph())[1].get(CONDITIONAL_NODE, 0)
+
+
+def graph_node_names(graph_ptr) -> tuple:
+    """(the mangled names of a CUDA graph's kernel nodes, its nodes per
+    ``CUgraphNodeType``) of one graph, not descending into bodies."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
@@ -1429,15 +1458,16 @@ def graph_kernel_names(g) -> list:
     def ok(rc, what):
         check(rc == 0, f"graph_kernels: {what} returned CUDA driver error {rc}")
 
-    graph = vp(g.graph.raw_cuda_graph())
+    graph = vp(graph_ptr)
     count = ctypes.c_size_t(0)
     ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
     nodes = (vp * count.value)()
     ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
-    names = []
+    names, kinds = [], {}
     for node in nodes:
         kind = ctypes.c_int(-1)
         ok(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        kinds[kind.value] = kinds.get(kind.value, 0) + 1
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         params = (ctypes.c_uint8 * 128)()  # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at 56
@@ -1450,7 +1480,7 @@ def graph_kernel_names(g) -> list:
         else:
             ok(cu.cuKernelGetName(ctypes.byref(name), vp(kern)), "cuKernelGetName")
         names.append(name.value.decode())
-    return names
+    return names, kinds
 
 
 def graph_kernels(g) -> dict:
@@ -1824,9 +1854,16 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="1
     if inspect is not None:
         inspect(g)
     in_replay, traced, tries = replay_trace(g, nodes)
-    check(traced.keys() == nodes.keys() and all(traced[s_] <= nodes[s_] for s_ in traced),
+    # a kernel in a while node's body runs once per inner block: a replay can
+    # trace it more often than the graph holds it (or not at all when the
+    # inner loop stops at once)
+    bodies = len(getattr(g, "bodies", ()))
+    check((traced.keys() <= nodes.keys()) if bodies else
+          (traced.keys() == nodes.keys() and all(traced[s_] <= nodes[s_] for s_ in traced)),
           f"{phase} {tag}: one replay of the cached block traced {traced} ({tries} traces); its "
           f"graph holds {nodes}")
+    names = graph_kernel_names(g)
+    nccl = sum("nccl" in n_.lower() for n_ in names)  # NCCL's kernels, listed apart
     replay_without_sync(g)
     check(k1 == k2 == kc == k3, f"{phase} {tag}: {k1} {unit} per iteration, {k2} in the first "
                                 f"solve, {kc} capturing, {k3} cached")
@@ -1847,8 +1884,9 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="1
           f"{syncs}; first solve {s2 * 1e3:.1f} ms ({st2['path']}, {st2['reads']} reads, "
           f"{st2['captures']} captures), second {sc * 1e3:.1f} ms incl. capture "
           f"{capture_ms:.1f} ms, cached {s3 * 1e3:.1f} ms; the graph holds {nodes} (kernel "
-          f"nodes; the capture recorded {held}), one replay traced {traced} (trace {tries} of up "
-          f"to {TRACE_TRIES}): "
+          f"nodes{f', with the bodies of its {while_nodes_of(g)} while nodes' if bodies else ''}; "
+          f"{len(names)} kernel nodes in all, {nccl} of them NCCL's; the capture recorded "
+          f"{held}), one replay traced {traced} (trace {tries} of up to {TRACE_TRIES}): "
           + ", ".join(f"{n_} {ms * 1e3:.1f} us" for n_, ms in in_replay)
           + "; replay under sync-debug error: no sync", flush=True)
     return {"iters": k1, "wall_us_per_iter": (s1 * 1e6 / k, s3 * 1e6 / k),
@@ -1859,7 +1897,8 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="1
             "reads": (st1["reads"], st3["reads"]), "syncs_seen": syncs,
             "capture_ms": capture_ms, "first_ms": s2 * 1e3, "capturing_ms": sc * 1e3,
             "cached_ms": s3 * 1e3, "held": held, "nodes": nodes, "traced": traced,
-            "in_replay": [n_ for n_, _ in in_replay],
+            "in_replay": [n_ for n_, _ in in_replay], "while_nodes": while_nodes_of(g),
+            "bodies": bodies, "nccl_nodes": nccl, "kernel_nodes": len(names),
             "bits": same}
 
 
@@ -2175,8 +2214,201 @@ def phase14(lt, K, LG, dev, card, ops, main, laplacian_op):
         "each", tr, push_model, range(6), card)
     del Bq, Sq, b, x_py, x_dev
     free()
+
+    # --- 14f. a nested solve: the Schur complement of 10c's saddle point ------------
+    r14f, nested = phase14f(lt, loop, K, dev, card, laplacian_op, main)
+    rec.update(r14f)
+    rec["14f launches"] = nested
+    for n_, c_ in nested.items():
+        held[n_] = held.get(n_, 0) + c_
     print(f"[14 device loop] kernels held by the captured blocks: {held}", flush=True)
     return rec, held
+
+
+G1_SOURCE = "linops_tpu_torch/kernels/csrc/graph_cond.cu"
+# G1 has no Pallas site: it is the device half of the reference's nested
+# lax.while_loop (an inner solve inside an outer solver's compiled loop)
+G1_REPLACES = "linops_tpu/ops/linalg_ops.py:391"
+NESTED_TOL = 2e-4  # 14f: ‖g − S x‖/‖g‖ in f64: outer tol 1e-4 plus the inner solves' error
+
+
+def phase14f(lt, loop, K, dev, card, laplacian_op, main):
+    """A nested solve at full size: CG on the Schur complement S = B A⁻¹ Bᵀ
+    of phase 10c's saddle point (A = I + L on 1536², BSR through K3; B every
+    8th point), A⁻¹ an ``opIterativeInverse(cg, tol 1e-6, maxiter 200)``,
+    outer tol 1e-4, in the per-iteration loop and in captured blocks
+    (``loop_modes``): outer iterations, summed inner iterations and x the
+    same; a cached solve reads ⌈I/4⌉ times; its block holds one while node
+    per outer iteration, K3 in their bodies; S x = g in f64 through the plain
+    backend. Then the reference's small case (an inexact cg inverse, tol 1e-2,
+    maxiter 10, as the preconditioner of cg) on slice 1's graph. Returns the
+    records and the launches of the captured nested block."""
+    from linops_tpu_torch.kernels import graph_cond as GC
+
+    A_op, Alap = laplacian_op
+    n = Alap.shape[0]
+    idx = np.arange(0, n, 8)
+    p = idx.size
+    B = lt.opRestriction(idx, n)
+    Minv = lt.opIterativeInverse(A_op, tol=1e-6, maxiter=200, solver="cg")
+    S = B @ Minv @ B.T
+    check(S.capture_safe, "14f: the Schur complement is not capture-safe")
+    g = dev_vec(p, dev, SEED + 160)
+    inner = []
+
+    def solve():
+        Minv.reset_inner_iterations()
+        out = lt.cg(S, g, tol=1e-4, maxiter=200)
+        dev_count = Minv._iters_dev
+        inner.append((Minv._iters_host, None if dev_count is None else dev_count.clone()))
+        return out
+
+    k3 = K.LAUNCH_SYMBOLS["bsr_matvec_windowed"]
+    seen = {}
+
+    def inspect(gr):
+        body = {}
+        for b_ in gr.bodies:
+            for name in graph_node_names(b_)[0]:
+                if f"{len(k3)}{k3}" in name:
+                    body[k3] = body.get(k3, 0) + 1
+        seen.update(while_nodes=while_nodes_of(gr), k3_in_bodies=body.get(k3, 0),
+                    launches=dict(gr.launches))
+        check(seen["while_nodes"] == loop.BLOCK and len(gr.bodies) == loop.BLOCK
+              and seen["k3_in_bodies"] > 0
+              and gr.launches.get("while_condition", 0) == 2 * loop.BLOCK
+              and gr.launches.get("bsr_matvec_windowed", 0) > 0,
+              f"14f: the cached block holds {seen}")
+
+    tag = (f"14f nested cg on S = B (I + L)⁻¹ Bᵀ ({GRID}², n = {n}, p = {p}; inner cg tol "
+           "1e-6), tol 1e-4")
+    GC.reset_launch_counts()
+    r = loop_modes(loop, tag, solve, unit="outer iterations", inspect=inspect)
+    g1_launches = GC.launch_counts()["while_condition"]
+    counts = {h + (0 if d is None else int(d)) for h, d in inner}
+    check(len(counts) == 1 and min(counts) > r["iters"],
+          f"14f: summed inner iterations differ between the solves: {counts}")
+    check(r["reads"][1] == -(-r["iters"] // loop.BLOCK),
+          f"14f: {r['reads'][1]} reads in a cached solve of {r['iters']} outer iterations")
+    check(r["wall_us_per_iter"][1] < r["wall_us_per_iter"][0],
+          f"14f: captured blocks {r['wall_us_per_iter'][1]:.1f} us per outer iteration, not "
+          f"faster than the per-iteration loop's {r['wall_us_per_iter'][0]:.1f}")
+    # S x = g in f64: A⁻¹ by the plain backend's f64 CG to 1e-12
+    x, k, _ = solve()
+    d = A_op.data
+    A64 = lt.BSROperator(lt.BSR(d.blocks.double(), d.block_cols, d.shape), symmetric=True,
+                         backend="torch")
+    idx_t = torch.as_tensor(idx, device=dev)
+    bt = torch.zeros(n, dtype=torch.float64, device=dev)
+    bt[idx_t] = x.double()
+    y, k64, _ = lt.cg(A64, bt, tol=1e-12, maxiter=1000)
+    res = float(torch.linalg.vector_norm(g.double() - y[idx_t]) / torch.linalg.vector_norm(g.double()))
+    check(torch.isfinite(x).all() and tuple(x.shape) == (p,) and res <= NESTED_TOL,
+          f"14f: ‖g − S x‖/‖g‖ {res:.3e} in f64 (limit {NESTED_TOL:g})")
+    print(f"[14 device loop] 14f nested solve: {r['iters']} outer iterations, {min(counts)} inner "
+          f"iterations summed, the same in the per-iteration loop and in captured blocks, x bit "
+          f"for bit; {r['while_nodes']} while nodes a block ({seen['k3_in_bodies']} K3 nodes in "
+          f"their bodies; the capture recorded {seen['launches']}); wall {r['wall_us_per_iter'][0]:.1f} "
+          f"-> {r['wall_us_per_iter'][1]:.1f} us per outer iteration, device "
+          f"{r['device_us_per_iter'][0]} -> {r['device_us_per_iter'][1]} us, busy {r['busy'][0]} "
+          f"-> {r['busy'][1]}; reads {r['reads'][0]} -> {r['reads'][1]}; ‖g − S x‖/‖g‖ {res:.2e} "
+          f"in f64 (A⁻¹ by the plain f64 CG, {k64} iterations; limit {NESTED_TOL:g}); {card}",
+          flush=True)
+    launches = dict(seen["launches"], while_condition=g1_launches)
+    del A64, y, bt, S, Minv, B, x
+    free()
+    # the reference's small case on slice 1's graph
+    A, b = main["A"], main["b"]
+    Ms = lt.opIterativeInverse(A, tol=1e-2, maxiter=10, solver="cg")
+    r_s = loop_modes(loop, "14f cg on slice 1's graph, M = opIterativeInverse(cg, tol 1e-2, "
+                     "maxiter 10) (the reference's test_iterative_inverse_as_preconditioner), "
+                     "tol 1e-5", lambda: lt.cg(A, b, tol=1e-5, maxiter=200, M=Ms),
+                     unit="outer iterations")
+    check(r_s["iters"] < 200, f"14f small case: {r_s['iters']} iterations")
+    del Ms
+    free()
+    return {"14f": r, "14f small": r_s, "inner": min(counts), "res": res}, launches
+
+
+def g1_check(GC, dev, card):
+    """G1 (the while node's condition kernel) against its plain version: a
+    while node, captured through ``loop.device_while`` inside a block, counts
+    to the limit its test sets, and to 0 under a false outer mask; the plain
+    version's loop counts the same. Then its time per launch in a CUDA graph
+    (marginal over 60 − 10 launches), the plain version's by marginal
+    events, and its bound (2 bytes read, 4 written)."""
+    import ctypes
+
+    from linops_tpu_torch.utils import loop
+
+    err = 0
+    for limit, outer in ((7, True), (0, True), (5, False), (13, True)):
+        mask = torch.tensor(outer, device=dev)
+        lim = torch.tensor(limit, device=dev)
+
+        def block(*bufs):
+            loop._OUTER.append(mask)
+            try:
+                (c,), k_ = loop.device_while(lambda s_, c_: s_[0] < c_[0],
+                                             lambda s_, c_, j: (s_[0] + 1,), bufs[:1], 50,
+                                             consts=bufs[1:])
+            finally:
+                loop._OUTER.pop()
+            return c, k_
+
+        gr = loop._Graph(block, (torch.zeros((), dtype=torch.int64, device=dev), lim), (), "g1")
+        c, k_ = (int(t) for t in gr.run())
+        plain = 0
+        while bool(GC.while_condition_plain(torch.tensor(plain < limit), torch.tensor(outer))):
+            plain += 1
+        err = max(err, abs(c - plain), abs(k_ - plain))
+        del gr
+    check(err == 0, f"G1: the while node counted {err} off the plain version's loop")
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    lib = GC._lib()
+    body = torch.cuda.Stream(dev)
+
+    def graph_of(launches):
+        gr = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            gr.capture_begin()
+            h, bg = ctypes.c_uint64(), ctypes.c_void_p()
+            check(lib.linops_while_handle(side.cuda_stream, ctypes.byref(h)) == 0, "G1 handle")
+            for _ in range(launches):
+                GC.set_while_condition(h.value, flag)
+            # the node the handle belongs to; its condition stays 0: no body run
+            check(lib.linops_while_node_begin(side.cuda_stream, h.value, body.cuda_stream,
+                                              ctypes.byref(bg)) == 0, "G1 node")
+            with torch.cuda.stream(body):
+                GC.set_while_condition(h.value, flag)
+            check(lib.linops_while_node_end(body.cuda_stream) == 0, "G1 body")
+            gr.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        gr.replay()
+        torch.cuda.synchronize()
+        return gr
+
+    def replay_ms(gr):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        gr.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    short, long_ = graph_of(I_SHORT), graph_of(I_LONG)
+    ms = float(np.median([(replay_ms(long_) - replay_ms(short)) / (I_LONG - I_SHORT)
+                          for _ in range(REPS)]))
+    plain_ms = marginal_ms(lambda: GC.while_condition_plain(flag, flag))
+    bound = bound_ms(2 + 4)
+    print(f"[14 device loop] G1 set_while_condition_kernel: a while node counts as its plain "
+          f"version's loop (max |Δcount| {err}, limits 0-13, a false outer mask); "
+          f"{ms * 1e3:.2f} us per launch in a CUDA graph (marginal {I_LONG} − {I_SHORT}), plain "
+          f"version {plain_ms * 1e3:.1f} us (events); bound {bound[0] * 1e3:.6f} us "
+          f"({bound[1]}); {card}", flush=True)
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound": bound}
 
 
 GRID11 = 2048  # phase 11: the reference bench's stencil grid (bench.py:306-316)
@@ -2931,15 +3163,18 @@ def phase13(lt, K, LG, dev, card, ops):
     """Slice 8's path on one card: a world of one NCCL rank. (a) the process
     group and its topology; (b) slice 1's graph and its inverse L-BFGS
     preconditioner through ``shard_operator``: the port's dryrun step, CG to
-    1e-5 against the unsharded solve (iterations, x bit for bit, K1/K2 per
-    iteration), collectives per apply, µs per iteration; (c) the 2^22
-    banded and band + cluster operators sharded: K3-K6, bit for bit; (d)
-    auto_8m replicated: N and T through K7-K12, bit for bit; (e)
-    ``banded_partition`` of a band-3 matrix at n = 16384 (a 1 GiB dense
-    slab) and CG on it; (f) ``stencil_partition_2d`` of the 5-point
-    Laplacian on 2048² against the stencil operator, and Chebyshev with no
-    all-reduce; (g) ``scaling_report(1)``, the card's copy rate and the
-    projection from it. Returns the launches of (b)-(d)."""
+    1e-5 in captured blocks against the sharded per-iteration loop and the
+    unsharded solve (iterations, x bit for bit, K1/K2 per iteration, the
+    block's kernel nodes, reads per cached solve), collectives per apply, µs
+    per iteration captured, per-iteration and unsharded; (c) the 2^22 banded
+    and band + cluster operators sharded: K3-K6, bit for bit, and in captured
+    matvec chains; (d) auto_8m replicated: N and T through K7-K12, bit for
+    bit; (e) ``banded_partition`` of a band-3 matrix at n = 16384 (a 1 GiB
+    dense slab) and CG on it in captured blocks; (f) ``stencil_partition_2d``
+    of the 5-point Laplacian on 2048² against the stencil operator, and
+    Chebyshev with no all-reduce, captured; (g) ``scaling_report(1)``, the
+    card's copy rate and the projection from it. Every solve runs both ways
+    through ``loop_modes``. Returns the launches of (b)-(d)."""
     import scipy.sparse as sps
 
     from linops_tpu_torch.parallel import (NamedSharding, P, banded_partition,
@@ -2987,31 +3222,48 @@ def phase13(lt, K, LG, dev, card, ops):
         H.push(s_, A @ s_)
     A_sh, H_sh = shard_operator(A, mesh), shard_operator(H, mesh)
     b_sh = place(b)
-    # a sharded operator is not capture-safe: its solve takes the per-iteration
-    # loop, so the unsharded launches to match are that loop's (a graph block
-    # also runs the frozen iterations of its last block)
-    block = loop.BLOCK
-    loop.BLOCK, loop.CAPTURE = 1, False
-    try:
+
+    def solve_sh():
+        x_, k_, r_ = lt.cg(A_sh, b_sh, M=H_sh, tol=1e-5, maxiter=500)
+        return gather_full(x_), k_, r_
+
+    # the per-iteration loop, unsharded and sharded: the same kernels launched
+    with per_iteration(loop):
         reset()
         x_un, k_un, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
         torch.cuda.synchronize()
         c_un = counts()
-    finally:
-        loop.BLOCK, loop.CAPTURE = block, True
-    x_g, k_g, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
-    reset()
-    x_sh, k_sh, _ = lt.cg(A_sh, b_sh, M=H_sh, tol=1e-5, maxiter=500)
-    torch.cuda.synchronize()
-    c_sh = counts()
-    check(loop.stats["path"] == "per_iteration", f"13b: the sharded solve took {loop.stats}")
+        reset()
+        x_sh, k_sh, _ = solve_sh()
+        torch.cuda.synchronize()
+        c_sh = counts()
     launches["13b"] = c_sh
-    same = torch.equal(gather_full(x_sh), x_un) and torch.equal(x_g, x_un)
-    check(k_sh == k_un == k_g and same and c_sh == c_un and c_sh.get("bsr_matvec", 0) > 0,
-          f"13b: iterations {k_sh} against {k_un} ({k_g} in graph blocks), x bit for bit "
-          f"{same}, launches {c_sh} against {c_un}")
     coll = {"A": collective_counts(lambda: A_sh.apply(b_sh, "N")),
             "M": collective_counts(lambda: H_sh.apply(b_sh, "N"))}
+    # the sharded solve in captured blocks (a sharded operator is capture-safe
+    # since PR 12): per-iteration loop against the first, capturing and cached
+    # solves, bit for bit
+    r_sh = loop_modes(loop, f"13b slice-1 cg sharded at world size 1 (n = {N}), tol 1e-5",
+                      solve_sh, phase="13")
+    solve_sh()
+    st_sh = dict(loop.stats)
+    check(st_sh["path"] == "graph" and st_sh["captures"] == 0,
+          f"13b: the sharded solve took {st_sh}")
+    check(r_sh["reads"][1] == -(-k_sh // loop.BLOCK),
+          f"13b: {r_sh['reads'][1]} reads in a cached sharded solve of {k_sh} iterations")
+    coll_after = {"A": collective_counts(lambda: A_sh.apply(b_sh, "N")),
+                  "M": collective_counts(lambda: H_sh.apply(b_sh, "N"))}
+    check(coll_after == coll, f"13b: collectives per apply {coll} before the captured solves, "
+                              f"{coll_after} after")
+    loop.clear_cache()
+    for _ in range(3):  # the unsharded signature's plain, capturing and cached solves
+        x_g, k_g, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=500)
+    same = torch.equal(x_sh, x_un) and torch.equal(x_g, x_un) and r_sh["bits"]
+    check(k_sh == k_un == k_g == r_sh["iters"] and same and c_sh == c_un
+          and c_sh.get("bsr_matvec", 0) > 0,
+          f"13b: iterations {k_sh} against {k_un} ({k_g} in unsharded graph blocks, "
+          f"{r_sh['iters']} in sharded ones), x bit for bit {same}, launches {c_sh} against "
+          f"{c_un}")
 
     def cg_iter_us(op, rhs, M_):
         def run(iters):
@@ -3020,21 +3272,29 @@ def phase13(lt, K, LG, dev, card, ops):
             lt.cg(op, rhs, M=M_, tol=0.0, maxiter=iters)
             torch.cuda.synchronize()
             return (time.perf_counter() - t) * 1e6
-        run(I_SHORT)  # the plain loop (the unsharded signature's first solve)
-        run(I_SHORT)  # captures the unsharded block
+        run(I_SHORT)  # the plain loop (the signature's first solve)
+        run(I_SHORT)  # captures the block
         return float(np.median([(run(I_LONG) - run(I_SHORT)) / (I_LONG - I_SHORT)
                                 for _ in range(REPS)]))
 
-    us_un, us_sh = cg_iter_us(A, b, H), cg_iter_us(A_sh, b_sh, H_sh)
+    us_sh = cg_iter_us(A_sh, b_sh, H_sh)
+    with per_iteration(loop):
+        us_sh_it = cg_iter_us(A_sh, b_sh, H_sh)
+    us_un = cg_iter_us(A, b, H)
+    check(us_sh < us_sh_it, f"13b: sharded captured blocks {us_sh:.1f} us per iteration, not "
+                            f"faster than its per-iteration loop's {us_sh_it:.1f}")
     print(f"[13b slice 1 sharded] cg(D (BᵀB) D + 2·I, M = inverse L-BFGS mem 8), n = {N}, "
           f"both through shard_operator on a 1-rank mesh: {k_sh} iterations (unsharded {k_un}), "
-          f"x bit for bit (and the unsharded graph blocks'); launches {c_sh} (unsharded "
-          f"per-iteration loop {c_un}: "
-          f"{c_sh.get('bsr_matvec', 0) / max(k_sh + 1, 1):.2f} K1 and "
+          f"x bit for bit the sharded per-iteration loop's and the unsharded solve's (per-"
+          f"iteration loop and graph blocks); launches {c_sh} (unsharded per-iteration loop "
+          f"{c_un}: {c_sh.get('bsr_matvec', 0) / max(k_sh + 1, 1):.2f} K1 and "
           f"{c_sh.get('bsr_rmatvec', 0) / max(k_sh + 1, 1):.2f} K2 per iteration); collectives "
-          f"per apply {coll}; {us_sh:.1f} us per iteration sharded (per-iteration loop), "
-          f"{us_un:.1f} us unsharded (graph blocks) (host clock, marginal {I_LONG} − {I_SHORT}, "
-          f"median of {REPS}); {card}", flush=True)
+          f"per apply {coll} (the same after the captured solves); a cached sharded solve "
+          f"{st_sh['path']}, {st_sh['reads']} reads, {r_sh['kernel_nodes']} kernel nodes in its "
+          f"block ({r_sh['nccl_nodes']} NCCL's); µs per iteration (host clock, marginal "
+          f"{I_LONG} − {I_SHORT}, median of {REPS}): sharded captured blocks {us_sh:.1f}, sharded "
+          f"per-iteration loop {us_sh_it:.1f}, unsharded captured blocks {us_un:.1f}; {card}",
+          flush=True)
     del A, A_sh, H, H_sh, B, blocks, cols, x_un, x_sh, x_g, b, b_sh
 
     # --- 13c. the windowed operators sharded ----------------------------------------------
@@ -3055,7 +3315,15 @@ def phase13(lt, K, LG, dev, card, ops):
         print(f"[13c windows sharded] {name} n = 2^22 through shard_operator: N and T bit for "
               f"bit the unsharded applies; launches {c_w}; collectives N "
               f"{collective_counts(lambda: op_sh @ place(x))}", flush=True)
-        del op, op_sh, x, y, yt
+        xs = place(x)
+        for mode, kern in (("N", fwd_k), ("T", tr_k)):
+            r = loop_modes(loop, f"13c matvec_chain(12, mode {mode}) on the sharded {name} "
+                           "operator (n = 2^22)",
+                           lambda: (gather_full(lt.matvec_chain(op_sh, xs, 12, mode=mode)), 12,
+                                    None), unit="applies", phase="13")
+            check(r["held"].get(kern, 0) > 0, f"13c {name} {mode}: the sharded chain's block "
+                                              f"holds {r['held']}")
+        del op, op_sh, x, xs, y, yt
 
     # --- 13d. auto_8m replicated ----------------------------------------------------------
     free()
@@ -3092,18 +3360,28 @@ def phase13(lt, K, LG, dev, card, ops):
     hop = banded_partition(S.toarray(), mesh, symmetric=True, hermitian=True)
     t_part = time.perf_counter() - t0
     bh = dev_vec(n, dev, SEED + 153)
-    xh, kh, _ = lt.cg(hop, place(bh), tol=1e-5, maxiter=500)
-    xh = gather_full(xh).double().cpu().numpy()
+    bh_sh = place(bh)
+
+    def solve_h():
+        x_, k_, r_ = lt.cg(hop, bh_sh, tol=1e-5, maxiter=500)
+        return gather_full(x_), k_, r_
+
+    loop_modes(loop, f"13e cg on banded_partition (n = {n}), tol 1e-5", solve_h, phase="13")
+    xh, kh, _ = solve_h()
+    check(loop.stats["path"] == "graph" and loop.stats["reads"] == -(-kh // loop.BLOCK),
+          f"13e: a cached solve took {loop.stats}")
+    xh = xh.double().cpu().numpy()
     bh64 = bh.double().cpu().numpy()
     res_h = float(np.linalg.norm(S.astype(np.float64) @ xh - bh64) / np.linalg.norm(bh64))
     check(res_h <= 1e-4 and np.isfinite(xh).all(), f"13e: f64 residual {res_h:.3e}")
-    us_h = cg_iter_us(hop, place(bh), None)
-    c_h = collective_counts(lambda: hop @ place(bh))
+    us_h = cg_iter_us(hop, bh_sh, None)
+    c_h = collective_counts(lambda: hop @ bh_sh)
     print(f"[13e banded_partition] band-{HALO_BAND} SPD, n = {n}, halo {hop.halo}: a "
           f"{n}x{n} f32 interior slab ({n * n * 4 / 2**30:.2f} GiB, built in {t_part:.2f} s); "
-          f"cg to 1e-5: {kh} iterations, f64 residual {res_h:.2e} (limit 1e-4), {us_h:.1f} us per "
-          f"iteration; collectives per apply {c_h}; {card}", flush=True)
-    del hop, S, xh
+          f"cg to 1e-5: {kh} iterations in captured blocks, x bit for bit the per-iteration "
+          f"loop's, f64 residual {res_h:.2e} (limit 1e-4), {us_h:.1f} us per iteration (marginal, "
+          f"captured blocks); collectives per apply {c_h}; {card}", flush=True)
+    del hop, S, xh, bh_sh
 
     # --- 13f. stencil_partition_2d --------------------------------------------------------
     free()
@@ -3117,6 +3395,13 @@ def phase13(lt, K, LG, dev, card, ops):
     y2 = L2.vec_to_grid(L2 @ v2).reshape(-1)
     e2 = rel_err(y2, L1 @ U)
     cheb = collective_counts(lambda: lt.chebyshev(L2, v2, 0.05, 8.0, iters=30)[0])
+
+    def solve_c():
+        x_, k_, r_ = lt.chebyshev(L2, v2, 0.05, 8.0, iters=30)
+        return gather_full(x_), k_, r_
+
+    loop_modes(loop, f"13f chebyshev (30 iterations) on stencil_partition_2d ({g2}²)", solve_c,
+               phase="13")
     c2 = collective_counts(lambda: L2 @ v2)
     t2 = marginal_ms(lambda: L2 @ v2)
     check(e2 <= 1e-6 and cheb["all-reduce"] == 0 and cheb["all-gather"] == 0,
@@ -3860,11 +4145,12 @@ def main() -> int:
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
+    from linops_tpu_torch.kernels import graph_cond as GC
     from linops_tpu_torch.kernels import small_eigh as E1
 
-    sources = ("bsr_spmv", "bsr_window", "lane_gather", "small_eigh")
+    sources = ("bsr_spmv", "bsr_window", "lane_gather", "small_eigh", "graph_cond")
     build.build_all(sources)  # one nvcc per source, in parallel
-    K._lib(), K._win_lib(), LG._lib(), E1._lib()
+    K._lib(), K._win_lib(), LG._lib(), E1._lib(), GC._lib()
     print("[2 build] -> sm_90a: " + ", ".join(
         f"{n}.cu " + (f"{build.build_seconds[n]:.2f} s" if build.build_seconds[n]
                       else "already built from this source hash")
@@ -4094,6 +4380,8 @@ def main() -> int:
     # --- 14. slice 9: the device loop (profiler traces, after phase 5) ----------
     _, held = phase14(lt, K, LG, dev, card, ops, {"A": A, "H": H, "b": b}, laplacian_op)
     del laplacian_op
+    g1 = g1_check(GC, dev, card)
+    check(held.get("while_condition", 0) > 0, "G1 ran in no captured block of the slice-12 path")
     for name in ("bsr_matvec", "bsr_rmatvec", "bsr_matvec_windowed", "bsr_rmatvec_windowed",
                  "bsr_matvec_multiwin", "bsr_rmatvec_multiwin", "lane_gather",
                  "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum",
@@ -4193,6 +4481,15 @@ def main() -> int:
                                     "cluster kernel's buffers pass the shared memory (c128 "
                                     "above m = 128): no main path launches it")
         kernels.append(row)
+    kernels.append({**entry("while_condition", G1_SOURCE, G1_REPLACES, held["while_condition"],
+                            g1["max_abs_err"], g1["ms"], g1["plain_ms"], g1["bound"], None),
+                    "timing": "cuda_graph", "max_abs_err_of": "iterations a while node ran",
+                    "launches_from": "phase 14f: the nested solve's captured block (two per "
+                                     "while node: before it and at the end of its body)",
+                    "replaces_note": "no pallas_call site: the device half of the reference's "
+                                     "nested lax.while_loop (an inner solve inside the outer "
+                                     "solver's compiled loop); no PyTorch call sets a graph "
+                                     "condition"})
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))

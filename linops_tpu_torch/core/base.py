@@ -150,18 +150,24 @@ def _walk(value, sig: list, tensors: list, seen: set, states: list):
     """Append ``value``'s signature to ``sig`` (its tensors to ``tensors``,
     and each state field it reaches to ``states`` as (operator, field)):
     tensors by address, version, shape, strides, dtype and device (a CPU
-    scalar by value as well: an apply reads it on the host), operators by
+    scalar by value as well: an apply reads it on the host; a DTensor by its
+    local tensor's, with its mesh, placements and global shape), operators by
     identity and fields (a node whose apply reads nothing but its fields,
     ``_key_by_fields``, by its fields alone; a state field, ``_fields_state``,
-    by the layout of its tensors alone), containers item by item, plans (any
-    other object with fields) by their fields, numbers and strings by value,
-    anything else by identity."""
+    by the layout of its tensors alone; a sharded operator's placement,
+    ``parallel/sharded.py``, by its class and fields), device meshes by their
+    ranks and axis names, containers item by item, plans (any other object
+    with fields) by their fields, numbers and strings by value, anything else
+    by identity."""
     if isinstance(value, torch.Tensor):
         tensors.append(value)
-        item = (value.data_ptr(), value._version, tuple(value.shape), value.stride(),
-                value.dtype, value.device)
-        if not value.is_cuda and value.numel() == 1:
-            item += (value.item(),)
+        local = _local(value)
+        item = (local.data_ptr(), local._version, tuple(local.shape), local.stride(),
+                local.dtype, local.device)
+        if local is not value:
+            item += _distribution(value)
+        if not local.is_cuda and local.numel() == 1:
+            item += (local.item(),)
         sig.append(item)
         plan = getattr(value, "_combine_plan", None)  # kernels/lane_gather.py
         if plan is not None:
@@ -183,6 +189,13 @@ def _walk(value, sig: list, tensors: list, seen: set, states: list):
                 _walk_layout(getattr(value, f), sig, tensors)
             else:
                 _walk(getattr(value, f, None), sig, tensors, seen, states)
+        placement = getattr(value, "_placement", None)  # a sharded operator's
+        if placement is not None:
+            sig.append((type(placement),))
+            for v in vars(placement).values():
+                _walk(v, sig, tensors, seen, states)
+    elif _is_mesh(value):
+        sig.append(_mesh_key(value))
     elif isinstance(value, (tuple, list)):
         sig.append((type(value), len(value)))
         for v in value:
@@ -213,10 +226,12 @@ def _walk_layout(value, sig: list, tensors: list):
     item by item."""
     if isinstance(value, torch.Tensor):
         tensors.append(value)
-        shape = tuple(value.shape)
-        empty = value.numel() == 0
-        stride = tuple(0 if empty or n == 1 else st for n, st in zip(shape, value.stride()))
-        sig.append((shape, stride, value.dtype, value.device))
+        local = _local(value)
+        shape = tuple(local.shape)
+        empty = local.numel() == 0
+        stride = tuple(0 if empty or n == 1 else st for n, st in zip(shape, local.stride()))
+        item = (shape, stride, local.dtype, local.device)
+        sig.append(item + _distribution(value) if local is not value else item)
     elif isinstance(value, tuple):
         sig.append((type(value), len(value)))
         for v in value:
@@ -225,6 +240,31 @@ def _walk_layout(value, sig: list, tensors: list):
         sig.append(None)
     else:
         raise TypeError(f"a state field holds {type(value).__name__}: tensors or tuples of them")
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"  # no import of torch.distributed
+
+
+def _local(t):
+    """A DTensor's local tensor (this rank's piece); any other tensor itself."""
+    return t._local_tensor if _is_dtensor(t) else t
+
+
+def _is_mesh(value) -> bool:
+    return type(value).__name__ == "DeviceMesh"
+
+
+def _mesh_key(mesh) -> tuple:
+    """A device mesh by what every rank sees alike: its device type, ranks
+    and axis names."""
+    return ("mesh", mesh.device_type, tuple(mesh.mesh.flatten().tolist()),
+            tuple(mesh.shape), mesh.mesh_dim_names)
+
+
+def _distribution(t) -> tuple:
+    """A DTensor's mesh, placements and global shape, for a key."""
+    return _mesh_key(t.device_mesh), tuple(t.placements), tuple(t.shape)
 
 
 def state_leaves(value) -> list:
@@ -263,7 +303,7 @@ def _is_capture_safe(value) -> bool:
         return value.capture_safe
     if isinstance(value, tuple):
         return all(_is_capture_safe(v) for v in value)
-    return type(value).__name__ != "DTensor"
+    return True
 
 
 # ----------------------------------------------------------------------------
@@ -335,9 +375,10 @@ class LinearOperator(abc.ABC):
         """Whether an apply can run inside a CUDA graph: it reads nothing
         back to the host and does no host work per call (after its lazy
         plans exist). A composite is safe when everything it holds is; a leaf
-        that is not (a host factorization, a timer, a nested solve, a
-        sharded operator) says so, and solves over it run the per-iteration
-        loop (``utils/loop.py``)."""
+        that is not (a host factorization, a timer, a nested GMRES solve)
+        says so, and solves over it run the per-iteration loop
+        (``utils/loop.py``). DTensor leaves are safe: their dispatch is host
+        work that a capture records once."""
         return all(_is_capture_safe(getattr(self, f, None)) for f in self._fields_tensors)
 
     # ------------------------------------------------------------------

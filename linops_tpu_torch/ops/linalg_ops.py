@@ -426,15 +426,28 @@ class IterativeInverseOperator(LinearOperator):
     (``_ImplicitSolve``): with respect to v one more inner solve, with
     respect to the wrapped operator's tensors the pullback of one apply. The
     inner loop runs without autograd.
+
+    Inside an outer solve the inner loop runs as the reference nests its
+    ``lax.while_loop``: in the outer solver's masked blocks on the CPU (in a
+    frozen outer iteration it runs no iteration), and on the card as one
+    CUDA while node inside the outer solver's captured block
+    (``utils/loop.py``), so the whole nested solve replays with one host read
+    per outer block. That holds when the inner solver runs on
+    ``loop.device_while`` (``cg``, ``minres``, ``bicgstab``; ``"auto"`` on a
+    hermitian operator) and the wrapped operator is capture-safe
+    (``capture_safe``). GMRES (``"gmres"``, ``"auto"`` otherwise) is not:
+    its restarts run on ``loop.host_while``, which reads the residual and
+    solves the small least-squares problem on the host, so solves over it
+    take the per-iteration loop. ``inner_iterations`` sums the inner
+    iterations of every apply since ``reset_inner_iterations()`` (the
+    captured applies count on the device and are read when asked).
     """
 
     _fields_tensors = ("op",)
     _fields_static = ("_tol", "_maxiter", "_solver")
-    # each apply is a solve that reads its stopping test back (its own
-    # loop still runs in captured blocks)
-    capture_safe = False
 
     _SOLVERS = ("auto", "cg", "minres", "bicgstab", "gmres")
+    _DEVICE_LOOP = ("cg", "minres", "bicgstab")  # the inner solvers on loop.device_while
 
     def __init__(self, op, *, tol: float = 1e-8, maxiter: int = 100, solver: str = "auto"):
         super().__init__()
@@ -450,6 +463,57 @@ class IterativeInverseOperator(LinearOperator):
         self._tol = float(tol)
         self._maxiter = int(maxiter)
         self._solver = solver
+        self.reset_inner_iterations()
+
+    @property
+    def capture_safe(self) -> bool:
+        """True when the inner solver runs on ``loop.device_while`` and the
+        wrapped operator is capture-safe; GMRES's host restarts are not."""
+        return self._resolved(self.op) in self._DEVICE_LOOP and self.op.capture_safe
+
+    def _resolved(self, inner) -> str:
+        if self._solver == "auto":
+            return "minres" if inner.hermitian else "gmres"
+        return self._solver
+
+    @property
+    def inner_iterations(self) -> int:
+        """Inner iterations summed over every apply since the last
+        ``reset_inner_iterations()`` (one host read when applies ran inside
+        a captured block)."""
+        dev = self._iters_dev
+        return self._iters_host + (int(dev.item()) if dev is not None else 0)
+
+    def reset_inner_iterations(self) -> None:
+        self._iters_host = 0
+        if getattr(self, "_iters_dev", None) is not None:
+            self._iters_dev.zero_()  # in place: a captured block adds into it
+        else:
+            self._iters_dev = None
+
+    def _tally(self, k, device) -> None:
+        """Add one apply's inner iterations: a number on the host, or inside
+        a capture a 0-dim device count added on the device (into a counter
+        made before any capture, by the signature's first, eager solve)."""
+        from ..utils import loop
+
+        if not isinstance(k, torch.Tensor):
+            self._iters_host += int(k)
+            if device.type == "cuda" and (self._iters_dev is None
+                                          or self._iters_dev.device != device):
+                self._iters_dev = torch.zeros((), dtype=torch.int64, device=device)
+            return
+        if loop._batched(k):  # under vmap: per-member counts, not summed
+            return
+        if self._iters_dev is None or self._iters_dev.device != k.device:
+            raise RuntimeError("opIterativeInverse: an inner solve was captured before any eager "
+                               "apply made its iteration counter")
+        self._iters_dev.add_(k)
+
+    def to(self, device) -> "IterativeInverseOperator":
+        new = super().to(device)
+        new._iters_host, new._iters_dev = 0, None  # the copy counts its own applies
+        return new
 
     @property
     def nrow(self):
@@ -483,15 +547,16 @@ class IterativeInverseOperator(LinearOperator):
         from ..utils import krylov
 
         inner = self._inner(mode)
-        name = self._solver
-        if name == "auto":
-            name = "minres" if inner.hermitian else "gmres"
+        name = self._resolved(inner)
         with torch.no_grad():
             if name == "gmres":
                 restart = max(1, min(30, self._maxiter))
-                return krylov.gmres(inner, v, tol=self._tol, restart=restart,
-                                    maxiter=max(1, self._maxiter // restart))
-            return getattr(krylov, name)(inner, v, tol=self._tol, maxiter=self._maxiter)
+                out = krylov.gmres(inner, v, tol=self._tol, restart=restart,
+                                   maxiter=max(1, self._maxiter // restart))
+            else:
+                out = getattr(krylov, name)(inner, v, tol=self._tol, maxiter=self._maxiter)
+        self._tally(out[1], out[0].device)
+        return out
 
     def apply(self, v, mode: str = "N"):
         if torch.is_grad_enabled():

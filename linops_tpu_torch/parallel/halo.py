@@ -97,7 +97,6 @@ class HaloPartitionedOperator(LinearOperator):
 
     _fields_tensors = ("A_int", "A_left", "A_right")
     _fields_static = ("_n", "_halo", "_mesh", "_symmetric", "_hermitian")
-    capture_safe = False  # point-to-point exchanges over DTensors
 
     def __init__(self, A_int, A_left, A_right, mesh, *, axis: Optional[str] = None,
                  symmetric: bool = False, hermitian: bool = False):

@@ -59,7 +59,6 @@ class HaloStencil2DOperator(LinearOperator):
 
     _fields_tensors = ("coeffs",)
     _fields_static = ("_ny", "_nx", "_mesh", "_symmetric", "_hermitian")
-    capture_safe = False  # point-to-point exchanges over DTensors
 
     def __init__(self, coeffs, ny: int, nx: int, mesh, *, axes=None):
         super().__init__()

@@ -203,7 +203,6 @@ def _placed_class(cls):
 
         sub = type(cls.__name__, (cls,), {
             "apply": apply, "apply_matrix": apply_matrix, "apply_matrix_t": apply_matrix_t,
-            "capture_safe": False,  # DTensor's dispatch and collectives on the host
             "_placed_from": cls, "__module__": cls.__module__,
             "__qualname__": cls.__qualname__, "__doc__": cls.__doc__})
         _PLACED[cls] = sub

@@ -51,10 +51,44 @@ On the CPU the same masked blocks run eagerly, and each signature they run
 is recorded in the cache as a card's first solve records it, so the
 counters mean the same on both devices. Under ``torch.func.vmap``,
 when a gradient is wanted, or when an operator is not ``capture_safe`` (a
-host factorization, a timer, a nested solve, a sharded operator, a
-``FunctionOperator`` not declared safe), the plain per-iteration loop runs
-(``host_while``; ``stats["path"]`` says which path ran). ``CAPTURE = False``
-is a test hook: the card then runs eager blocks, as the CPU does.
+host factorization, a timer, a nested GMRES solve, a ``FunctionOperator``
+not declared safe), the plain per-iteration loop runs (``host_while``;
+``stats["path"]`` says which path ran). ``CAPTURE = False`` is a test hook:
+the card then runs eager blocks, as the CPU does.
+
+Nested loops. A loop started inside a masked iteration's body (an
+``opIterativeInverse`` preconditioner's inner solve) ANDs that iteration's
+mask into its test, so in a frozen outer iteration it runs none and its
+count is 0: the inner iterations summed over a solve are those of the
+active outer iterations, as in the per-iteration loop, and the outer
+``where`` discards a frozen iteration's output either way. On the CPU the
+inner loop runs its own eager blocks. On the card, a loop that starts while
+a block is being captured reads nothing on the host: it becomes one CUDA
+conditional WHILE node of the outer graph (``_while_node``,
+``kernels/graph_cond.py``) whose body is one masked block of the inner loop,
+and whose condition a kernel sets from the inner test (and the outer mask)
+before the node and at the end of each body run. Its count is a 0-dim
+tensor on the card. The body is captured on a stream of its own (a stream
+that is capturing cannot begin a second capture), its allocations routed to
+a private pool the outer block holds. ``device_fori`` and ``device_call``
+started inside a capture run inline.
+
+Distributed solves. A sharded, halo or 2-D halo operator's solve runs the
+same way over DTensor state: the count and the test stay plain tensors
+(a test is replicated, so each rank holds it whole), a captured block's
+static buffers and state copies are DTensors of the state's placements (a
+``copy_`` into them moves nothing between ranks), and the key holds each
+DTensor's mesh and placements. On the card a capture records DTensor's
+dispatch once; a replay runs its kernels and collectives with no host work.
+On the CPU gloo collectives cannot be captured: eager masked blocks, as for
+any CPU solve. Every rank must decide alike whether to capture: if one rank
+captured while another ran eagerly, their collectives would pair wrongly and
+hang. So the cache decides by the sequence of signatures alone, which every
+rank of a program that runs the same solves on the same operators shares: a
+distributed signature's entry holds its operators from the first solve on
+(a captured block always does), so the ids and addresses in its key cannot
+be reused by new objects on one rank and not on another, and a hit, a miss
+and an eviction happen on every rank at the same solve.
 
 ``BLOCK`` is 4. A solve of I iterations runs ⌈I/4⌉ blocks, the last one
 partly frozen, so it spends at most 3 frozen iterations of device time and
@@ -87,19 +121,27 @@ import weakref
 
 import torch
 
+from ..core.base import _is_dtensor
+
 BLOCK = 4  # masked iterations per block (one host read per block)
 CAPTURE = True  # test hook: False runs the card's blocks eagerly, as on the CPU
 _CACHE_SIZE = 8  # signatures kept (seen once, or captured), least recently used first
 
 # what the last loop to finish did: its path ("graph", "blocks",
 # "per_iteration", "vmap"), host reads, blocks run, captures, replays,
-# capture milliseconds and the bytes of state copied into a captured block
-# (a nested loop keeps its own)
+# capture milliseconds, the bytes of state copied into a captured block and
+# the while nodes its capture recorded (a nested loop keeps its own)
 stats: dict = {}
 _active: list = []  # the stats of the loops running, innermost last
+# the act of each masked iteration whose body is running, innermost last (None
+# for a plain loop's iteration, which runs only when active): a loop started
+# inside one ANDs it into its own test
+_OUTER: list = []
+_CAPTURING: list = []  # the captured blocks being captured, innermost last
+_BODY_STREAMS: dict = {}  # (device, depth) -> the stream a while node's body is captured on
 
-# signature -> its captured block, or None for a signature seen once
-_CACHE: "collections.OrderedDict[tuple, _Graph | None]" = collections.OrderedDict()
+# signature -> its captured block, or a _Seen for a signature seen once
+_CACHE: "collections.OrderedDict[tuple, _Graph | _Seen]" = collections.OrderedDict()
 _STREAMS: dict = {}
 _LAUNCH_TABLES: list = []  # the kernel modules' launch counts (register_launches)
 _last_graph = None
@@ -119,7 +161,8 @@ def cache_sizes() -> dict:
     "graphs": captured blocks kept, "captures": captures since the process
     started}: none grows over repeated solves of one signature, state
     updates between them included."""
-    return {"signatures": len(_CACHE), "graphs": sum(g is not None for g in _CACHE.values()),
+    return {"signatures": len(_CACHE),
+            "graphs": sum(not isinstance(g, _Seen) for g in _CACHE.values()),
             "captures": _captures}
 
 
@@ -155,7 +198,7 @@ class _Loop:
 
     def __init__(self, path: str):
         self.d = dict(path=path, reads=0, blocks=0, captures=0, replays=0, capture_ms=0.0,
-                      state_bytes=0, iterations=None)
+                      state_bytes=0, while_nodes=0, iterations=None)
 
     def __enter__(self):
         _active.append(self.d)
@@ -198,6 +241,17 @@ def _traced(tensors) -> bool:
     grad = torch.is_grad_enabled()
     return any(F.is_functorch_wrapped_tensor(t) or (grad and t.requires_grad)
                for t in tensors)
+
+
+def _replicating(tensors):
+    """A distributed solve mixes the loop's own plain tensors (the count,
+    the limit) with DTensor state: inside, a plain tensor counts as
+    replicated (the same on every rank, as the count and the limit are)."""
+    if any(_is_dtensor(t) for t in tensors):
+        from ..parallel.comm import plain_as_replicated
+
+        return plain_as_replicated()
+    return contextlib.nullcontext()
 
 
 def _walk_ops(ops) -> tuple:
@@ -247,6 +301,24 @@ def _stream(device):
     return s
 
 
+def _body_stream(device, depth: int):
+    """The stream a while node's body at nesting ``depth`` is captured on
+    (a stream that is capturing cannot begin another capture). Made with a
+    few eager cuBLAS calls on it, so its workspace there exists before any
+    capture needs it."""
+    s = _BODY_STREAMS.get((device, depth))
+    if s is None:
+        s = _BODY_STREAMS[(device, depth)] = torch.cuda.Stream(device)
+        s.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(s):
+            a = torch.ones((2, 2), device=device)
+            torch.vdot(a[0], a[1])
+            torch.mv(a, a[0])
+            a @ a
+        torch.cuda.current_stream(device).wait_stream(s)
+    return s
+
+
 @contextlib.contextmanager
 def _on_capture_stream(device):
     """Run an eager loop on the capture stream (after the caller's stream's
@@ -271,6 +343,21 @@ def _static_like(value, leaves):
     return type(value)(*items) if hasattr(value, "_fields") else type(value)(items)
 
 
+def _static_copy(t, device):
+    """An uninitialized tensor of ``t``'s layout on ``device``; for a DTensor
+    a DTensor of its placements over this rank's piece, so a ``copy_`` into
+    it moves nothing between ranks."""
+    from ..core.base import _local
+
+    local = _local(t)
+    s = torch.empty_strided(local.shape, local.stride(), dtype=local.dtype, device=device)
+    if local is t:
+        return s
+    from ..parallel.comm import from_local
+
+    return from_local(s, t.device_mesh, t.placements, t.shape)
+
+
 class _State:
     """A captured block's own copy of one state field: static tensors of
     the field's layout on the block's device (a host scalar there would be
@@ -279,31 +366,31 @@ class _State:
     ``_version``)."""
 
     def __init__(self, owner, field: str, device):
-        from ..core.base import state_leaves
+        from ..core.base import _local, state_leaves
 
         self.owner, self.field = owner, field
         value = getattr(owner, field)
         leaves = state_leaves(value)
-        self.static = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=device)
-                       for t in leaves]
+        self.static = [_static_copy(t, device) for t in leaves]
         for s, t in zip(self.static, leaves):
             s.copy_(t)
         self.value = _static_like(value, iter(self.static))
-        self.last = [(weakref.ref(t), t._version) for t in leaves]
-        self.nbytes = sum(t.untyped_storage().nbytes() for t in self.static)
+        self.last = [(weakref.ref(t), _local(t)._version) for t in leaves]
+        self.nbytes = sum(_local(t).untyped_storage().nbytes() for t in self.static)
 
     def refresh(self) -> int:
         """Copy in every tensor of the field that is not the one copied last;
         returns the bytes copied."""
-        from ..core.base import state_leaves
+        from ..core.base import _local, state_leaves
 
         n = 0
         for i, t in enumerate(state_leaves(getattr(self.owner, self.field))):
             ref, version = self.last[i]
-            if ref() is not t or version != t._version:
+            local = _local(t)
+            if ref() is not t or version != local._version:
                 self.static[i].copy_(t)
-                self.last[i] = (weakref.ref(t), t._version)
-                n += t.numel() * t.element_size()
+                self.last[i] = (weakref.ref(t), local._version)
+                n += local.numel() * local.element_size()
         return n
 
 
@@ -336,9 +423,12 @@ class _Graph:
 
     def __init__(self, fn, args, ops, what: str, states=()):
         global _captures
+        self.body_pools = {}  # nesting depth -> [the while node bodies' pool, captures in it]
+        self.bodies = []  # the while nodes' body graphs (cudaGraph_t addresses), in capture order
         self.ops = tuple(ops)
         self.inputs = [a.clone() for a in args]
-        device = args[0].device
+        device = self.device = args[0].device
+        _body_stream(device, 0)  # made (and its cuBLAS workspace) before the capture
         self.states = [_State(owner, f, device) for owner, f in states]
         self.state_bytes = sum(st.nbytes for st in self.states)  # held by this block
         before = [dict(t) for t in _LAUNCH_TABLES]
@@ -354,11 +444,13 @@ class _Graph:
             # any synchronizing call raises there
             torch.cuda.set_sync_debug_mode("error")
             self.graph.capture_begin()
+            _CAPTURING.append(self)
             try:
                 self.outputs = fn(*self.inputs)
             except Exception as e:
                 err = e
             finally:
+                _CAPTURING.pop()
                 torch.cuda.set_sync_debug_mode(debug)
             try:
                 self.graph.capture_end()  # ends a capture the error invalidated too
@@ -384,6 +476,20 @@ class _Graph:
         _bump("captures")
         self.launches = {k: t[k] - b.get(k, 0) for t, b in zip(_LAUNCH_TABLES, before)
                          for k in t if t[k] != b.get(k, 0)}
+
+    def __del__(self):
+        for pool, uses in getattr(self, "body_pools", {}).values():
+            for _ in range(uses):  # each body's capture took one use of its pool
+                torch._C._cuda_releasePool(self.device.index, pool)
+
+    def body_memory(self, depth: int):
+        """The private pool a while node's body at nesting ``depth``
+        allocates from while it is captured (one per depth and captured
+        block, kept until the block is dropped: the body's replays reuse its
+        addresses)."""
+        entry = self.body_pools.setdefault(depth, [torch.cuda.graph_pool_handle(), 0])
+        entry[1] += 1
+        return entry[0]
 
     def run(self, args=()):
         """Replay; with ``args`` (a solve's first replay) copy them in and
@@ -432,11 +538,26 @@ def _operators(value):
 
 
 def _signature(tensors) -> tuple:
-    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+    from ..core.base import _distribution
+
+    return tuple((tuple(t.shape), t.dtype, t.device) + (_distribution(t) if _is_dtensor(t) else ())
+                 for t in tensors)
 
 
 def _key(kind, key, opkey, tensors) -> tuple:
     return (kind, key, BLOCK, _signature(tensors), opkey)
+
+
+class _Seen:
+    """A signature seen once: its next solve captures. For a distributed
+    solve it holds the operators, as a captured block does, so the ids and
+    addresses in its key stay theirs while it is kept (see the module's
+    note on ranks)."""
+
+    __slots__ = ("ops",)
+
+    def __init__(self, ops=()):
+        self.ops = tuple(ops)
 
 
 def _lookup(key) -> tuple:
@@ -444,7 +565,8 @@ def _lookup(key) -> tuple:
     if key not in _CACHE:
         return False, None
     _CACHE.move_to_end(key)
-    return True, _CACHE[key]
+    g = _CACHE[key]
+    return True, None if isinstance(g, _Seen) else g
 
 
 def _store(key, g) -> None:
@@ -457,11 +579,13 @@ def _store(key, g) -> None:
 def _remember(kind, key, ops, tensors) -> None:
     """Note a signature whose eager run built its plans (its key is taken
     now, with them): on the card its next run captures."""
-    ckey = _key(kind, key, _walk_ops(ops)[0], tensors)
+    opkey, leaves, _ = _walk_ops(ops)
+    ckey = _key(kind, key, opkey, tensors)
     if ckey in _CACHE:
         _CACHE.move_to_end(ckey)
     else:
-        _store(ckey, None)
+        distributed = any(_is_dtensor(t) for t in list(leaves) + list(tensors))
+        _store(ckey, _Seen(ops if distributed else ()))
 
 
 # ----------------------------------------------------------------------------
@@ -479,11 +603,28 @@ def _select(act, new, old):
     return tuple(out)
 
 
+def _call_body(body, state, consts, k, act):
+    """``body(state, consts, k)`` with ``act`` (the iteration's mask, None
+    for a plain loop's iteration) as the test a loop started inside ANDs."""
+    _OUTER.append(act)
+    try:
+        return body(state, consts, k)
+    finally:
+        _OUTER.pop()
+
+
+def _whole(t):
+    """A loop scalar as a plain tensor: a DTensor test (replicated: every
+    rank holds it whole) as its local value, so the count and the test stay
+    plain tensors beside DTensor state."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
 def _while_block(cond, body, state, consts, k, act, lim, n: int):
     for _ in range(n):
-        state = _select(act, body(state, consts, k), state)
+        state = _select(act, _call_body(body, state, consts, k, act), state)
         k = k + act.to(k.dtype)
-        act = cond(state, consts) & (k < lim)
+        act = _whole(cond(state, consts)) & (k < lim)
     return state, k, act
 
 
@@ -498,7 +639,7 @@ def _plain_while(cond, body, state, consts, maxiter, go, path):
             k = torch.zeros_like(go, dtype=torch.int64)
             act = go & (k < maxiter)
             while _any_member(act):
-                state = _select(act, body(state, consts, j), state)
+                state = _select(act, _call_body(body, state, consts, j, None), state)
                 k = k + act.long()
                 act = cond(state, consts) & (k < maxiter)
                 j = j + 1
@@ -506,7 +647,7 @@ def _plain_while(cond, body, state, consts, maxiter, go, path):
             return state, k
         k = 0
         while k < maxiter and _read(go):
-            state = body(state, consts, j)
+            state = _call_body(body, state, consts, j, None)
             k += 1
             j = j + 1
             go = cond(state, consts)
@@ -538,11 +679,65 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
 
     Returns (state, iterations): an ``int``, or under ``torch.func.vmap`` a
     per-member tensor (every member runs until all have stopped, each frozen
-    once its own test fails, as ``jax.vmap`` of a ``lax.while_loop``)."""
+    once its own test fails, as ``jax.vmap`` of a ``lax.while_loop``), or
+    inside a capture (a loop nested in a captured block's iteration) a 0-dim
+    int64 tensor on the device, the loop then being one CUDA while node.
+
+    Started inside a masked iteration (a nested solve in an outer loop's
+    body), the loop ANDs that iteration's mask into its test: in a frozen
+    outer iteration it runs no iteration."""
     state, consts = tuple(state), tuple(consts)
-    go = cond(state, consts)
-    if _batched(go):
-        return _plain_while(cond, body, state, consts, maxiter, go, "vmap")
+    outer = _OUTER[-1] if _OUTER else None
+    with _replicating(state + consts + (() if outer is None else (outer,))):
+        go = cond(state, consts)
+        if _batched(go):
+            return _plain_while(cond, body, state, consts, maxiter, go, "vmap")
+        if outer is not None:
+            go = go & outer
+        if state[0].is_cuda and torch.cuda.is_current_stream_capturing():
+            return _while_node(cond, body, state, consts, maxiter, go, ops, key)
+        return _device_while(cond, body, state, consts, maxiter, go, ops, key)
+
+
+def _while_node(cond, body, state, consts, maxiter, go, ops, key):
+    """``device_while`` inside a capture: a CUDA conditional WHILE node
+    (``kernels/graph_cond.py``) whose body is one masked block of ``BLOCK``
+    iterations. Its condition is set from the loop's test by a kernel before
+    the node and at the end of each body run, so the node repeats the block
+    until the test fails or ``maxiter`` is reached, and nothing is read on
+    the host. The state, the count and the test live in buffers made before
+    the node (captured, so each replay starts them afresh). Returns (state,
+    iterations as a 0-dim int64 tensor)."""
+    from ..kernels import graph_cond
+
+    if not _CAPTURING:
+        raise RuntimeError(f"device_while{key!r}: a CUDA graph capture is in progress that "
+                           "utils/loop.py did not start; a while node needs its block's memory")
+    owner = _CAPTURING[-1]
+    dev = state[0].device
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    lim = torch.full((), maxiter, dtype=torch.int64, device=dev)
+    act = _whole(go) & (k < lim)
+    bufs = tuple(s.clone() for s in state)
+    depth = len(graph_cond.open_bodies())
+    try:
+        with graph_cond.while_node(act, _body_stream(dev, depth),
+                                   owner.body_memory(depth)) as body_graph:
+            owner.bodies.append(body_graph)
+            s_out, k_out, a_out = _while_block(cond, body, bufs, consts, k, act, lim, BLOCK)
+            for b, b2 in zip(bufs, s_out):
+                b.copy_(b2)
+            k.copy_(k_out)
+            act.copy_(a_out)
+    except Exception as e:
+        names = ", ".join(_describe(op) for op in ops if op is not None)
+        raise RuntimeError(f"device_while{key!r}: capturing the loop as a CUDA while node "
+                           f"failed on {names}: {e}") from e
+    _bump("while_nodes")
+    return bufs, k
+
+
+def _device_while(cond, body, state, consts, maxiter, go, ops, key):
     path, opkey, states = _path(state + consts, ops)
     if path == "per_iteration":
         return _plain_while(cond, body, state, consts, maxiter, go, path)
@@ -556,7 +751,7 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
         return state, count
     k = torch.zeros((), dtype=torch.int64, device=dev)
     lim = torch.full((), maxiter, dtype=torch.int64, device=dev)
-    act = go & (k < lim)
+    act = _whole(go) & (k < lim)
     with _Loop(path) as st:
         if g is None and not _read(act):  # a cached block runs first and reads after
             st["iterations"] = 0
@@ -613,6 +808,8 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
     BLOCK`` run eagerly; its first run is eager throughout. Returns the
     state."""
     state, consts = tuple(state), tuple(consts)
+    if iters > 0 and state[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        return _fori_block(body, state, consts, iters)  # nested in a block being captured
     path, opkey, states = _path(state + consts, ops) if iters > 0 else ("blocks", None, ())
     n = BLOCK
     ckey = _key("fori", key, opkey, state + consts) if path == "graph" else None
@@ -666,6 +863,8 @@ def device_call(fn, args: tuple, *, ops=(), key=()):
     copy out what they keep. On the CPU, under a transform, or for operators
     that are not capture-safe, a plain call."""
     args = tuple(args)
+    if args and args[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        return tuple(fn(*args))  # nested in a block being captured
     path, opkey, states = _path(args, ops)
     if path != "graph":
         out = tuple(fn(*args))

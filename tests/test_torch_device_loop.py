@@ -222,8 +222,11 @@ def test_fori_solvers_match_plain_loop_and_reference(rng, monkeypatch, solver, i
 
 def test_operators_that_are_not_capture_safe_take_the_per_iteration_path(rng):
     """``capture_safe`` is declared from the graph: a host factorization, a
-    nested solve, a timer or anything holding one takes the per-iteration
-    loop (one read per iteration), the rest the blocked one."""
+    nested GMRES solve (its restarts read the host), a timer or anything
+    holding one takes the per-iteration loop (one read per iteration), the
+    rest the blocked one. A nested solve on ``device_while`` (``cg``) is
+    capture-safe since its loop runs inside the outer block: the blocked
+    path, with the per-iteration loop's iterations and bits."""
     import scipy.sparse as sp
 
     n = 30
@@ -231,18 +234,23 @@ def test_operators_that_are_not_capture_safe_take_the_per_iteration_path(rng):
     A = lt.LinearOperator(t_(S), **HERM)
     b = t_(rng.standard_normal(n))
     sparse_inv = lt.opSparseInverse(sp.csc_matrix(S + np.eye(n)), symm=True)
-    iter_inv = lt.opIterativeInverse(A + 1.0 * lt.opEye(n, dtype=torch.float64), tol=1e-12,
-                                     solver="cg")
+    shifted = A + 1.0 * lt.opEye(n, dtype=torch.float64)
+    iter_inv = lt.opIterativeInverse(shifted, tol=1e-12, solver="cg")
+    gmres_inv = lt.opIterativeInverse(shifted, tol=1e-12, solver="gmres")
     timed = lt.TimedOperator(A)
     assert A.capture_safe and (A @ A + 2.0 * A).capture_safe
-    for op in (sparse_inv, iter_inv, timed):
+    assert iter_inv.capture_safe and (A + iter_inv).capture_safe
+    for op in (sparse_inv, gmres_inv, timed):
         assert not op.capture_safe and not (A + op).capture_safe
     x_ref, k_ref, _ = lt.cg(A, b, tol=1e-10, maxiter=200)
     assert loop.stats["path"] == "blocks"
-    for M in (sparse_inv, iter_inv):
+    for M in (sparse_inv, gmres_inv):
         x, k, _ = lt.cg(A, b, tol=1e-10, maxiter=200, M=M)
         assert loop.stats["path"] == "per_iteration" and loop.stats["reads"] == k + 1
         assert torch.linalg.vector_norm(x - x_ref) <= 1e-8 * torch.linalg.vector_norm(x_ref)
+    x, k, _ = lt.cg(A, b, tol=1e-10, maxiter=200, M=iter_inv)
+    assert loop.stats["path"] == "blocks" and loop.stats["reads"] == -(-k // loop.BLOCK) + 1
+    assert torch.linalg.vector_norm(x - x_ref) <= 1e-8 * torch.linalg.vector_norm(x_ref)
     x, k, _ = lt.cg(timed, b, tol=1e-10, maxiter=200)
     assert loop.stats["path"] == "per_iteration" and k == k_ref and torch.equal(x, x_ref)
 

@@ -1660,3 +1660,148 @@ def test_lobpcg_replays_in_captured_blocks(dev, loop_mod, basis):
         for o in outs[1:]:
             assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
                        for a, b in zip(o, outs[0]))
+
+
+# --------------------------------------------------------------------------
+# Slice 12: sharded and nested solves in captured blocks
+# --------------------------------------------------------------------------
+
+
+def graph_nodes(graph_ptr) -> dict:
+    """A CUDA graph's nodes by type (``CUgraphNodeType``: 0 kernel, 13
+    conditional), read through the driver API."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(vp(graph_ptr), None, ctypes.byref(count)) == 0
+    nodes = (vp * count.value)()
+    assert cu.cuGraphGetNodes(vp(graph_ptr), nodes, ctypes.byref(count)) == 0
+    kinds = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)) == 0
+        kinds[kind.value] = kinds.get(kind.value, 0) + 1
+    return kinds
+
+
+def test_sharded_cg_in_captured_blocks_at_world_size_one(dev, loop_mod):
+    """Slice 1's preconditioned CG over ``shard_operator`` at world size 1
+    (NCCL) runs in captured blocks: its count and x bit for bit the sharded
+    per-iteration loop's (and the unsharded solve's), reads ⌈I/4⌉ on a
+    cached solve, and a replay under sync-debug "error" raises nothing."""
+    from linops_tpu_torch.parallel import row_sharding, shard_operator
+    from linops_tpu_torch.parallel.comm import gather_full
+
+    mesh = _world_of_one()
+    A, H, b = slice1_graph(dev)
+    A_sh, H_sh, b_sh = shard_operator(A, mesh), shard_operator(H, mesh), row_sharding(mesh).place(b)
+    solve = lambda: lt.cg(A_sh, b_sh, M=H_sh, tol=1e-5, maxiter=300)  # noqa: E731
+    runs = solve_modes(loop_mod, solve)
+    x0, k0, _ = runs["per_iteration"]
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(gather_full(x), gather_full(x0)), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["captures"] == 0
+    assert st["reads"] == -(-k0 // loop_mod.BLOCK)
+    x_un, k_un, _ = lt.cg(A, b, M=H, tol=1e-5, maxiter=300)
+    assert k_un == k0 and torch.equal(x_un, gather_full(x0))
+    g = loop_mod.last_graph()
+    assert g.launches.get("bsr_matvec", 0) > 0 and g.launches.get("bsr_rmatvec", 0) > 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("inner", ["cg", "minres"])
+def test_nested_solve_is_a_while_node(dev, loop_mod, inner):
+    """CG preconditioned by ``opIterativeInverse`` (an inner ``inner``
+    solve over slice 1's graph): the captured block holds one conditional
+    WHILE node per outer iteration, each body holding K1/K2 and the
+    condition kernel; the outer count, the summed inner iterations and x are
+    bit for bit the per-iteration loop's; a cached solve reads ⌈I/4⌉."""
+    from linops_tpu_torch.kernels import graph_cond
+
+    A, _, b = slice1_graph(dev, n=4096)
+    M = lt.opIterativeInverse(A, tol=1e-2, maxiter=40, solver=inner)
+    assert M.capture_safe
+
+    def solve():
+        M.reset_inner_iterations()
+        x, k, r = lt.cg(A, b, M=M, tol=1e-5, maxiter=100)
+        return x, (k, M.inner_iterations), r
+
+    solve()
+    runs = solve_modes(loop_mod, solve)
+    x0, k0, _ = runs["per_iteration"]
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(x, x0), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["reads"] == -(-k0[0] // loop_mod.BLOCK)
+    assert runs["capture"][2]["while_nodes"] == loop_mod.BLOCK
+    g = loop_mod.last_graph()
+    assert graph_nodes(g.graph.raw_cuda_graph()).get(13, 0) == loop_mod.BLOCK
+    assert len(g.bodies) == loop_mod.BLOCK
+    assert g.launches.get("while_condition", 0) == 2 * loop_mod.BLOCK
+    assert all(graph_nodes(body).get(0, 0) > 0 for body in g.bodies)
+    assert g.launches.get("bsr_matvec", 0) > 0
+    graph_cond.reset_launch_counts()
+    solve()
+    assert graph_cond.launch_counts()["while_condition"] == 0  # a replay launches nothing
+
+
+def test_while_node_condition_kernel_against_plain(dev, loop_mod):
+    """The condition kernel in a while node counts a loop to the end its
+    test sets, and not at all under a false outer mask: the plain version's
+    count on the same inputs."""
+    for limit, outer in ((7, True), (0, True), (5, False)):
+        def cond(s, c):
+            return s[0] < c[0]
+
+        def body(s, c, k):
+            return (s[0] + 1,)
+
+        lim = torch.tensor(limit, device=dev)
+        start = (torch.zeros((), dtype=torch.int64, device=dev),)
+        want = limit if outer else 0
+        mask = torch.tensor(outer, device=dev)  # made before the capture: a copy from the host
+
+        def block(*bufs):
+            loop_mod._OUTER.append(mask)
+            try:
+                (s,), k = loop_mod.device_while(cond, body, bufs[:1], 50, consts=bufs[1:])
+            finally:
+                loop_mod._OUTER.pop()
+            return (s, k)
+
+        g = loop_mod._Graph(block, start + (lim,), (), "test")
+        s, k = g.run()
+        torch.cuda.synchronize()
+        assert int(s) == int(k) == want
+
+
+def test_capture_failure_inside_a_while_body_names_the_operator(dev, loop_mod):
+    """An inner operator that reads the host only inside a while node's body
+    fails that capture, and the error names it; the card recovers."""
+    from linops_tpu_torch.kernels import graph_cond
+
+    A, _, b = slice1_graph(dev, n=4096)
+
+    def prod(v):
+        if graph_cond.open_bodies():
+            float(v.sum())  # a host read, inside the body only
+        return A @ v
+
+    bad = lt.FunctionOperator(A.nrow, A.ncol, prod, dtype=torch.float32, symmetric=True,
+                              hermitian=True, capture_safe=True)
+    M = lt.opIterativeInverse(bad, tol=1e-2, maxiter=40, solver="cg")
+    lt.cg(A, b, M=M, tol=1e-5, maxiter=50)  # the signature's first solve: the plain loop
+    with pytest.raises(RuntimeError, match="while node.*FunctionOperator"):
+        lt.cg(A, b, M=M, tol=1e-5, maxiter=50)
+    x, k, _ = lt.cg(A, b, tol=1e-5, maxiter=50)
+    assert k > 0 and torch.isfinite(x).all()

@@ -397,6 +397,113 @@ def solvers_on_sharded_operator(mesh):
     return out
 
 
+SOLVERS = ("cg", "minres", "bicgstab", "chebyshev")
+BLOCK_OPS = ("slice1", "banded", "stencil2d")
+
+
+def slice1_case(seed=41, n=64):
+    """Slice 1's graph at a small size: D (BᵀB) D + 2·I with B a 2x4-block
+    sparse matrix, pairs (s, A s) for its inverse L-BFGS preconditioner (mem
+    4), a right-hand side, and A densely (for the spectral bounds)."""
+    rng = np.random.default_rng(seed)
+    B = np.kron(rng.random((n // 2, n // 4)) < 0.4, np.ones((2, 4))) * rng.standard_normal((n, n))
+    d = np.linspace(1.0, 2.0, n)
+    A = d[:, None] * (B.T @ B) * d[None, :] + 2.0 * np.eye(n)
+    pairs = []
+    for _ in range(4):
+        s = rng.standard_normal(n)
+        pairs.append((s, A @ s))
+    return B, d, pairs, rng.standard_normal(n), A
+
+
+def banded_spd(seed=42, n=64, band=3):
+    rng = np.random.default_rng(seed)
+    A = np.zeros((n, n))
+    for k in range(1, band + 1):
+        o = rng.uniform(-1.0, 1.0, n - k)
+        A += np.diag(o, k) + np.diag(o, -k)
+    A += np.diag(np.abs(A).sum(axis=1) + 1.0)
+    return A, rng.standard_normal(n)
+
+
+STENCIL = (8, 8, [4.0, -1.0, -1.0, -1.0, -1.0])  # grid and coefficients
+
+
+def spectral_bounds(A):
+    lam = np.linalg.eigvalsh(A)
+    return float(lam[0]) * 0.99, float(lam[-1]) * 1.01
+
+
+def laplace_2d(ny, nx):
+    T = lambda m: 2.0 * np.eye(m) - np.eye(m, k=1) - np.eye(m, k=-1)  # noqa: E731
+    return np.kron(T(ny), np.eye(nx)) + np.kron(np.eye(ny), T(nx))
+
+
+def block_solve(name, op, M, b, bounds):
+    import linops_tpu_torch as lt
+
+    if name == "chebyshev":
+        return lt.chebyshev(op, b, *bounds, iters=40)
+    return getattr(lt, name)(op, b, tol=1e-12, maxiter=400, M=M)
+
+
+@case
+def solves_in_masked_blocks(mesh):
+    """cg, minres, bicgstab and chebyshev over slice 1's graph and its
+    inverse L-BFGS preconditioner through ``shard_operator``, over
+    ``banded_partition`` and over ``stencil_partition_2d`` (a (2, 2) mesh):
+    in the per-iteration loop (``BLOCK`` 1) and in blocks of 4 (the default),
+    each with its path, iterations, x and collectives (per apply before and
+    after the solves, and per solve)."""
+    import linops_tpu_torch as lt
+    from linops_tpu_torch.parallel import (banded_partition, collective_counts, make_mesh2d,
+                                           shard_operator, stencil_partition_2d)
+    from linops_tpu_torch.utils import loop
+
+    Bd, d, pairs, b1, A1 = slice1_case()
+    B = lt.opSparse(Bd, format="bsr", block_shape=(2, 4), **CPU)
+    D = lt.opDiagonal(t_(d))
+    A = D @ (B.T @ B) @ D + 2.0 * lt.opEye(Bd.shape[0], dtype=torch.float64)
+    H = lt.InverseLBFGSOperator(Bd.shape[0], mem=4, dtype=torch.float64, **CPU)
+    for s_, y_ in pairs:
+        H.push(t_(s_), t_(y_))
+    Ab, bb = banded_spd()
+    ny, nx, coeffs = STENCIL
+    mesh2 = make_mesh2d(2, 2, device="cpu")
+    L2 = stencil_partition_2d(t_(coeffs), ny, nx, mesh2)
+    bs = np.random.default_rng(43).standard_normal((ny, nx))
+    from linops_tpu_torch.parallel import NamedSharding, P
+
+    ops = {"slice1": (shard_operator(A, mesh), shard_operator(H, mesh), _place(mesh, b1),
+                      spectral_bounds(A1)),
+           "banded": (banded_partition(Ab, mesh, symmetric=True, hermitian=True), None,
+                      _place(mesh, bb), spectral_bounds(Ab)),
+           "stencil2d": (L2, None,
+                         NamedSharding(mesh2, P(("gy", "gx"))).place(L2.grid_to_vec(t_(bs))),
+                         spectral_bounds(laplace_2d(ny, nx)))}
+    out = {}
+    block = loop.BLOCK
+    try:
+        for kind, (op, M, b, bounds) in ops.items():
+            per_apply = [collective_counts(lambda: op.apply(b, "N"))]
+            for name in SOLVERS:
+                runs = {}
+                for blk in (1, block):
+                    loop.BLOCK = blk
+                    got = {}
+                    counts = collective_counts(
+                        lambda: got.setdefault("r", block_solve(name, op, M, b, bounds)))
+                    x, k, _ = got["r"]
+                    x = op.vec_to_grid(x).reshape(-1) if kind == "stencil2d" else x
+                    runs[blk] = dict(x=full(x), k=k, path=loop.stats["path"], counts=counts)
+                out[(kind, name)] = runs
+            per_apply.append(collective_counts(lambda: op.apply(b, "N")))
+            out[(kind, "per_apply")] = per_apply
+    finally:
+        loop.BLOCK = block
+    return out
+
+
 @case
 def scaling_report_on_the_world(mesh):
     """The harness on 4 ranks at a small slab (its collective audits assert
@@ -683,6 +790,66 @@ def test_solvers_on_sharded_operator(world, solver):
             assert got == want
         else:
             close(got, want, 1e-10)
+
+
+def reference_block_solve(lo, mesh8, kind, name):
+    """The same solve by the reference on its 8 virtual devices (the 2-D
+    stencil on a (4, 2) mesh), x as the port returns it (the stencil's as
+    its grid, flattened)."""
+    import jax.numpy as jnp
+    from linops_tpu.parallel import (banded_partition, make_mesh2d, shard_operator,
+                                     stencil_partition_2d)
+
+    M = None
+    if kind == "slice1":
+        Bd, d, pairs, b, A1 = slice1_case()
+        B = lo.opSparse(Bd, format="bsr", block_shape=(2, 4))
+        D = lo.opDiagonal(jnp.asarray(d))
+        op = shard_operator(D @ (B.T @ B) @ D + 2.0 * lo.opEye(Bd.shape[0]), mesh8)
+        H = lo.InverseLBFGSOperator(Bd.shape[0], mem=4)
+        for s_, y_ in pairs:
+            H.push(jnp.asarray(s_), jnp.asarray(y_))
+        M, bounds = shard_operator(H, mesh8), spectral_bounds(A1)
+    elif kind == "banded":
+        Ab, b = banded_spd()
+        op, bounds = banded_partition(Ab, mesh8, symmetric=True, hermitian=True), spectral_bounds(Ab)
+    else:
+        ny, nx, coeffs = STENCIL
+        op = stencil_partition_2d(jnp.asarray(coeffs), ny, nx, make_mesh2d(4, 2))
+        b = op.grid_to_vec(jnp.asarray(np.random.default_rng(43).standard_normal((ny, nx))))
+        bounds = spectral_bounds(laplace_2d(ny, nx))
+    b = jnp.asarray(b)
+    if name == "chebyshev":
+        x = lo.chebyshev(op, b, *bounds, iters=40)[0]
+    else:
+        x = getattr(lo, name)(op, b, tol=1e-12, maxiter=400, M=M)[0]
+    return np.asarray(op.vec_to_grid(x)).reshape(-1) if kind == "stencil2d" else np.asarray(x)
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("kind", BLOCK_OPS)
+def test_solves_in_masked_blocks(world, ref, kind, solver):
+    """A solve over a sharded, halo or 2-D halo operator takes the loop's
+    masked blocks on the CPU (gloo collectives cannot be captured), with the
+    per-iteration loop's (``BLOCK`` 1) iterations and x bit for bit; the
+    collectives of one apply are what they were before the solves (halo: 2
+    exchange rounds, 2-D: 4, neither an all-gather); a Chebyshev solve over a
+    halo operator issues no all-reduce; x is the reference's solve on its 8
+    virtual devices within rtol 1e-10."""
+    lo, mesh8 = ref
+    r = result(world, "solves_in_masked_blocks")
+    one, four = r[(kind, solver)][1], r[(kind, solver)][4]
+    assert four["path"] == "blocks" and one["path"] == "blocks"
+    assert four["k"] == one["k"]
+    np.testing.assert_array_equal(four["x"], one["x"])
+    before, after = r[(kind, "per_apply")]
+    assert before == after
+    if kind != "slice1":
+        assert before["all-gather"] == 0
+        assert before["collective-permute"] == {"banded": 2, "stencil2d": 4}[kind]
+        if solver == "chebyshev":
+            assert four["counts"]["all-reduce"] == one["counts"]["all-reduce"] == 0
+    close(four["x"], reference_block_solve(lo, mesh8, kind, solver), RTOL)
 
 
 def test_scaling_report_on_the_world(world):

@@ -280,13 +280,25 @@ def test_iterative_inverse_solvers(rng, solver):
 
 
 def test_iterative_inverse_as_preconditioner(rng):
+    """The reference's case (``tests/test_linalg_ops.py``): inexact inner cg
+    solves as the preconditioner of an outer cg. The nested solve runs in
+    the outer loop's masked blocks, takes the reference's iterations and
+    gives its x within 1e-10."""
+    from linops_tpu_torch.utils import loop
+
     n = 40
     A = simple_matrix(np.float64, n, n, rng, symmetric=True) + 5.0 * np.eye(n)
     op = lt.LinearOperator(A, symmetric=True, hermitian=True, **CPU)
     M = lt.opIterativeInverse(op, tol=1e-2, maxiter=10, solver="cg")
-    x, it, res = lt.cg(op, torch.from_numpy(simple_vector(np.float64, n)), tol=1e-10,
-                       maxiter=200, M=M)
+    b = simple_vector(np.float64, n)
+    x, it, res = lt.cg(op, torch.from_numpy(b), tol=1e-10, maxiter=200, M=M)
+    assert loop.stats["path"] == "blocks"
     assert float(res) < 1e-8 and it <= 6
+    op_j = lo.LinearOperator(A, symmetric=True, hermitian=True)
+    M_j = lo.opIterativeInverse(op_j, tol=1e-2, maxiter=10, solver="cg")
+    x_j, it_j, _ = lo.cg(op_j, jnp.asarray(b), tol=1e-10, maxiter=200, M=M_j)
+    assert it == int(it_j)
+    close(x, x_j)
 
 
 def test_iterative_inverse_validation_and_skew(rng):
