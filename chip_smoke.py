@@ -2259,8 +2259,7 @@ def phase14f(lt, loop, K, dev, card, laplacian_op, main):
     def solve():
         Minv.reset_inner_iterations()
         out = lt.cg(S, g, tol=1e-4, maxiter=200)
-        dev_count = Minv._iters_dev
-        inner.append((Minv._iters_host, None if dev_count is None else dev_count.clone()))
+        inner.append(Minv.inner_iterations)
         return out
 
     k3 = K.LAUNCH_SYMBOLS["bsr_matvec_windowed"]
@@ -2285,7 +2284,7 @@ def phase14f(lt, loop, K, dev, card, laplacian_op, main):
     GC.reset_launch_counts()
     r = loop_modes(loop, tag, solve, unit="outer iterations", inspect=inspect)
     g1_launches = GC.launch_counts()["while_condition"]
-    counts = {h + (0 if d is None else int(d)) for h, d in inner}
+    counts = set(inner)
     check(len(counts) == 1 and min(counts) > r["iters"],
           f"14f: summed inner iterations differ between the solves: {counts}")
     check(r["reads"][1] == -(-r["iters"] // loop.BLOCK),
@@ -2333,10 +2332,12 @@ def phase14f(lt, loop, K, dev, card, laplacian_op, main):
 def g1_check(GC, dev, card):
     """G1 (the while node's condition kernel) against its plain version: a
     while node, captured through ``loop.device_while`` inside a block, counts
-    to the limit its test sets, and to 0 under a false outer mask; the plain
-    version's loop counts the same. Then its time per launch in a CUDA graph
-    (marginal over 60 − 10 launches), the plain version's by marginal
-    events, and its bound (2 bytes read, 4 written)."""
+    to the limit its test sets, and to 0 when started in a frozen outer
+    iteration (the loop ANDs the outer mask into its test before the node, so
+    G1 gets a false ``act``); the plain version's loop counts the same. Then
+    its time per launch in a CUDA graph (marginal over 60 − 10 launches), the
+    plain version's by marginal events, and its bound (1 byte read, the
+    4-byte condition written)."""
     import ctypes
 
     from linops_tpu_torch.utils import loop
@@ -2359,7 +2360,7 @@ def g1_check(GC, dev, card):
         gr = loop._Graph(block, (torch.zeros((), dtype=torch.int64, device=dev), lim), (), "g1")
         c, k_ = (int(t) for t in gr.run())
         plain = 0
-        while bool(GC.while_condition_plain(torch.tensor(plain < limit), torch.tensor(outer))):
+        while bool(GC.while_condition_plain(torch.tensor(outer and plain < limit))):
             plain += 1
         err = max(err, abs(c - plain), abs(k_ - plain))
         del gr
@@ -2401,10 +2402,11 @@ def g1_check(GC, dev, card):
     short, long_ = graph_of(I_SHORT), graph_of(I_LONG)
     ms = float(np.median([(replay_ms(long_) - replay_ms(short)) / (I_LONG - I_SHORT)
                           for _ in range(REPS)]))
-    plain_ms = marginal_ms(lambda: GC.while_condition_plain(flag, flag))
-    bound = bound_ms(2 + 4)
+    plain_ms = marginal_ms(lambda: GC.while_condition_plain(flag))
+    bound = bound_ms(1 + 4)
     print(f"[14 device loop] G1 set_while_condition_kernel: a while node counts as its plain "
-          f"version's loop (max |Δcount| {err}, limits 0-13, a false outer mask); "
+          f"version's loop (max |Δcount| {err}, limits 0-13, a loop started in a frozen outer "
+          f"iteration); "
           f"{ms * 1e3:.2f} us per launch in a CUDA graph (marginal {I_LONG} − {I_SHORT}), plain "
           f"version {plain_ms * 1e3:.1f} us (events); bound {bound[0] * 1e3:.6f} us "
           f"({bound[1]}); {card}", flush=True)

@@ -13,7 +13,7 @@
 // The host half adds the node to the graph the stream is capturing and
 // captures the body into the node's body graph:
 //   linops_while_handle      a condition handle of the graph being captured
-//   linops_while_condition   launches the kernel: condition = act && outer
+//   linops_while_condition   launches the kernel: condition = act
 //   linops_while_node_begin  adds the node after the stream's current
 //                            dependencies, makes it the stream's only
 //                            dependency, and begins capturing a second stream
@@ -23,7 +23,7 @@
 // The caller routes the body stream's allocations to a private memory pool
 // while it captures (utils/loop.py, kernels/graph_cond.py).
 //
-// The kernel is one thread: it reads two bytes and writes the condition. Its
+// The kernel is one thread: it reads one byte and writes the condition. Its
 // time is a launch's inside a graph; there is nothing to bound but latency.
 
 #include <cuda_runtime.h>
@@ -34,9 +34,8 @@
 namespace {
 
 __global__ void set_while_condition_kernel(cudaGraphConditionalHandle handle,
-                                           const uint8_t* act, const uint8_t* outer) {
-  const bool go = act[0] != 0 && (outer == nullptr || outer[0] != 0);
-  cudaGraphSetConditional(handle, go ? 1u : 0u);
+                                           const uint8_t* act) {
+  cudaGraphSetConditional(handle, act[0] != 0 ? 1u : 0u);
 }
 
 // The graph `stream` is capturing into, and its current dependencies.
@@ -65,10 +64,9 @@ int linops_while_handle(int64_t stream, uint64_t* handle) {
   return e;
 }
 
-int linops_while_condition(uint64_t handle, const void* act, const void* outer, int64_t stream) {
+int linops_while_condition(uint64_t handle, const void* act, int64_t stream) {
   set_while_condition_kernel<<<1, 1, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<cudaGraphConditionalHandle>(handle), static_cast<const uint8_t*>(act),
-      static_cast<const uint8_t*>(outer));
+      static_cast<cudaGraphConditionalHandle>(handle), static_cast<const uint8_t*>(act));
   return cudaGetLastError();
 }
 

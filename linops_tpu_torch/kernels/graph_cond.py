@@ -10,8 +10,8 @@ such a capture is in progress becomes one WHILE node of that graph
 inner loop, while a condition on the device is nonzero. ``set_while_condition``
 launches the kernel that sets it (``set_while_condition_kernel`` in
 ``csrc/graph_cond.cu``, hand-written CUDA C++ for ``sm_90a``, built with
-``nvcc`` at first use by ``build.py``): the condition is the inner loop's
-test ``act``, ANDed with ``outer`` where given. It is not the counterpart of a
+``nvcc`` at first use by ``build.py``): it copies the inner loop's test
+``act`` into the condition. It is not the counterpart of a
 Pallas site; it is the device half of the reference's nested while loop.
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes
@@ -66,7 +66,7 @@ def _lib():
     if not getattr(lib, "_linops_typed", False):
         p, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
         lib.linops_while_handle.argtypes = [i64, ctypes.POINTER(u64)]
-        lib.linops_while_condition.argtypes = [u64, p, p, i64]
+        lib.linops_while_condition.argtypes = [u64, p, i64]
         lib.linops_while_node_begin.argtypes = [i64, u64, i64, ctypes.POINTER(p)]
         lib.linops_while_node_end.argtypes = [i64]
         for f in (lib.linops_while_handle, lib.linops_while_condition,
@@ -78,36 +78,32 @@ def _lib():
     return lib
 
 
-def _flag(t, name: str):
-    if t.dtype != torch.bool or t.numel() != 1:
-        raise TypeError(f"set_while_condition: {name} must be one bool, got "
-                        f"{t.dtype}{tuple(t.shape)}")
-    return t
+def _flag(act):
+    if act.dtype != torch.bool or act.numel() != 1:
+        raise TypeError(f"set_while_condition: act must be one bool, got "
+                        f"{act.dtype}{tuple(act.shape)}")
+    return act
 
 
-def while_condition_plain(act, outer=None):
-    """The plain version: the value the kernel gives the condition, ``act``
-    AND ``outer``, as a 0-dim bool tensor."""
-    go = _flag(act, "act").reshape(())
-    return go if outer is None else go & _flag(outer, "outer").reshape(())
+def while_condition_plain(act):
+    """The plain version: the value the kernel gives the condition, ``act``,
+    as a 0-dim bool tensor."""
+    return _flag(act).reshape(())
 
 
-def set_while_condition(handle: int, act, outer=None):
+def set_while_condition(handle: int, act):
     """Set the WHILE node condition ``handle`` (of the graph being captured)
-    to ``act`` AND ``outer`` (one bool each, on the card) on the device: one
-    launch of the kernel on the current stream. On CPU tensors (no graph runs
-    there) returns ``while_condition_plain(act, outer)``."""
+    to ``act`` (one bool on the card) on the device: one launch of the kernel
+    on the current stream. On a CPU tensor (no graph runs there) returns
+    ``while_condition_plain(act)``."""
     if act.device.type == "cpu":
-        return while_condition_plain(act, outer)
+        return while_condition_plain(act)
     if not act.is_cuda:
         raise ValueError(f"set_while_condition: tensors on {act.device} are not supported")
-    _flag(act, "act")
-    if outer is not None and (_flag(outer, "outer").device != act.device):
-        raise ValueError("set_while_condition: act and outer are on different devices")
+    _flag(act)
     lib = _lib()
     stream = torch.cuda.current_stream(act.device).cuda_stream
-    rc = lib.linops_while_condition(int(handle), act.data_ptr(),
-                                    None if outer is None else outer.data_ptr(), stream)
+    rc = lib.linops_while_condition(int(handle), act.data_ptr(), stream)
     _check_launch(lib, rc, "while_condition")
     _LAUNCHES["while_condition"] += 1
     return None

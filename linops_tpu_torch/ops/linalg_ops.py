@@ -439,8 +439,9 @@ class IterativeInverseOperator(LinearOperator):
     its restarts run on ``loop.host_while``, which reads the residual and
     solves the small least-squares problem on the host, so solves over it
     take the per-iteration loop. ``inner_iterations`` sums the inner
-    iterations of every apply since ``reset_inner_iterations()`` (the
-    captured applies count on the device and are read when asked).
+    iterations of every apply since ``reset_inner_iterations()`` (a 0-dim
+    counter on the operator's device that each apply, captured or not, adds
+    into, read when asked).
     """
 
     _fields_tensors = ("op",)
@@ -463,7 +464,7 @@ class IterativeInverseOperator(LinearOperator):
         self._tol = float(tol)
         self._maxiter = int(maxiter)
         self._solver = solver
-        self.reset_inner_iterations()
+        self._iters = torch.zeros((), dtype=torch.int64, device=op.device or "cpu")
 
     @property
     def capture_safe(self) -> bool:
@@ -479,40 +480,28 @@ class IterativeInverseOperator(LinearOperator):
     @property
     def inner_iterations(self) -> int:
         """Inner iterations summed over every apply since the last
-        ``reset_inner_iterations()`` (one host read when applies ran inside
-        a captured block)."""
-        dev = self._iters_dev
-        return self._iters_host + (int(dev.item()) if dev is not None else 0)
+        ``reset_inner_iterations()`` (one host read)."""
+        return int(self._iters)
 
     def reset_inner_iterations(self) -> None:
-        self._iters_host = 0
-        if getattr(self, "_iters_dev", None) is not None:
-            self._iters_dev.zero_()  # in place: a captured block adds into it
-        else:
-            self._iters_dev = None
+        self._iters.zero_()  # in place: a captured block adds into it
 
     def _tally(self, k, device) -> None:
-        """Add one apply's inner iterations: a number on the host, or inside
-        a capture a 0-dim device count added on the device (into a counter
-        made before any capture, by the signature's first, eager solve)."""
+        """Add one apply's inner iterations (a number, or inside a capture a
+        0-dim count on the device) into the counter on the device. A
+        tensorless operator's counter moves to the device of its first
+        apply, which is eager: a signature's first solve never captures."""
         from ..utils import loop
 
-        if not isinstance(k, torch.Tensor):
-            self._iters_host += int(k)
-            if device.type == "cuda" and (self._iters_dev is None
-                                          or self._iters_dev.device != device):
-                self._iters_dev = torch.zeros((), dtype=torch.int64, device=device)
-            return
-        if loop._batched(k):  # under vmap: per-member counts, not summed
-            return
-        if self._iters_dev is None or self._iters_dev.device != k.device:
-            raise RuntimeError("opIterativeInverse: an inner solve was captured before any eager "
-                               "apply made its iteration counter")
-        self._iters_dev.add_(k)
+        if isinstance(k, torch.Tensor) and loop._batched(k):
+            return  # under vmap: per-member counts, not summed
+        if self._iters.device != device:
+            self._iters = self._iters.to(device)
+        self._iters.add_(k)
 
     def to(self, device) -> "IterativeInverseOperator":
         new = super().to(device)
-        new._iters_host, new._iters_dev = 0, None  # the copy counts its own applies
+        new._iters = torch.zeros((), dtype=torch.int64, device=device)  # its own count
         return new
 
     @property

@@ -44,7 +44,8 @@ signature. The cache is a small LRU keyed by the solve's signature
 (``core/base.py::capture_signature`` of every operator, the state's shapes
 and dtypes, the solver's own static arguments and ``BLOCK``); it holds both
 kinds of entry, a signature seen once and a captured block, and an eviction
-drops the graph, its static state and its private memory pool.
+drops the graph, its static state and its private memory pool. Distributed
+solves have an LRU of their own (see below).
 ``apply_cache_sizes()`` (``core/apply.py``) counts them.
 
 On the CPU the same masked blocks run eagerly, and each signature they run
@@ -66,8 +67,8 @@ inner loop runs its own eager blocks. On the card, a loop that starts while
 a block is being captured reads nothing on the host: it becomes one CUDA
 conditional WHILE node of the outer graph (``_while_node``,
 ``kernels/graph_cond.py``) whose body is one masked block of the inner loop,
-and whose condition a kernel sets from the inner test (and the outer mask)
-before the node and at the end of each body run. Its count is a 0-dim
+and whose condition a kernel sets from the inner test (which ANDs the outer
+mask) before the node and at the end of each body run. Its count is a 0-dim
 tensor on the card. The body is captured on a stream of its own (a stream
 that is capturing cannot begin a second capture), its allocations routed to
 a private pool the outer block holds. ``device_fori`` and ``device_call``
@@ -83,12 +84,16 @@ dispatch once; a replay runs its kernels and collectives with no host work.
 On the CPU gloo collectives cannot be captured: eager masked blocks, as for
 any CPU solve. Every rank must decide alike whether to capture: if one rank
 captured while another ran eagerly, their collectives would pair wrongly and
-hang. So the cache decides by the sequence of signatures alone, which every
-rank of a program that runs the same solves on the same operators shares: a
-distributed signature's entry holds its operators from the first solve on
-(a captured block always does), so the ids and addresses in its key cannot
-be reused by new objects on one rank and not on another, and a hit, a miss
-and an eviction happen on every rank at the same solve.
+hang. So the cache decides by the sequence of distributed signatures alone,
+which every rank shares, since every rank takes part in every distributed
+solve: such signatures live in an LRU of their own (``_DIST_CACHE``), which
+no rank-local solve (a check on rank 0 alone) can touch, and a distributed
+signature's entry holds its operators from the first solve on (a captured
+block always does), so the ids and addresses in its key cannot be reused by
+new objects on one rank and not on another. A hit, a miss and an eviction
+then happen on every rank at the same solve. On the card this has run at
+one rank only, where NCCL lowers a collective to a copy: no capture of a
+collective between ranks has run yet.
 
 ``BLOCK`` is 4. A solve of I iterations runs ⌈I/4⌉ blocks, the last one
 partly frozen, so it spends at most 3 frozen iterations of device time and
@@ -142,6 +147,9 @@ _BODY_STREAMS: dict = {}  # (device, depth) -> the stream a while node's body is
 
 # signature -> its captured block, or a _Seen for a signature seen once
 _CACHE: "collections.OrderedDict[tuple, _Graph | _Seen]" = collections.OrderedDict()
+# the same for distributed solves (DTensor state or operators), apart, so a
+# rank-local solve cannot evict them on one rank only
+_DIST_CACHE: "collections.OrderedDict[tuple, _Graph | _Seen]" = collections.OrderedDict()
 _STREAMS: dict = {}
 _LAUNCH_TABLES: list = []  # the kernel modules' launch counts (register_launches)
 _last_graph = None
@@ -153,6 +161,7 @@ def clear_cache() -> None:
     seen."""
     global _last_graph
     _CACHE.clear()
+    _DIST_CACHE.clear()
     _last_graph = None
 
 
@@ -161,8 +170,9 @@ def cache_sizes() -> dict:
     "graphs": captured blocks kept, "captures": captures since the process
     started}: none grows over repeated solves of one signature, state
     updates between them included."""
-    return {"signatures": len(_CACHE),
-            "graphs": sum(not isinstance(g, _Seen) for g in _CACHE.values()),
+    entries = list(_CACHE.values()) + list(_DIST_CACHE.values())
+    return {"signatures": len(entries),
+            "graphs": sum(not isinstance(g, _Seen) for g in entries),
             "captures": _captures}
 
 
@@ -274,19 +284,25 @@ def _walk_ops(ops) -> tuple:
     return tuple(keys), tensors, states
 
 
+def _distributed(tensors) -> bool:
+    return any(_is_dtensor(t) for t in tensors)
+
+
 def _path(tensors, ops) -> tuple:
     """(the path a loop takes, and for the graph path the operators' key
-    part and their state fields). The blocks path walks the operators only
-    under autograd: ``_remember`` takes its key after the eager run."""
+    part, their state fields and whether the solve is distributed). The
+    blocks path walks the operators only under autograd: ``_remember`` takes
+    its key after the eager run."""
     if _traced(tensors) or not all(op is None or op.capture_safe for op in ops):
-        return "per_iteration", None, ()
+        return "per_iteration", None, (), False
     graph = bool(tensors) and tensors[0].is_cuda and CAPTURE
-    opkey, states = None, ()
+    opkey, states, dist = None, (), False
     if graph or torch.is_grad_enabled():
         opkey, leaves, states = _walk_ops(ops)
         if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-            return "per_iteration", None, ()
-    return ("graph" if graph else "blocks"), opkey, states
+            return "per_iteration", None, (), False
+        dist = _distributed(list(leaves) + list(tensors))
+    return ("graph" if graph else "blocks"), opkey, states, dist
 
 
 # ----------------------------------------------------------------------------
@@ -560,20 +576,26 @@ class _Seen:
         self.ops = tuple(ops)
 
 
-def _lookup(key) -> tuple:
+def _cache(dist: bool):
+    return _DIST_CACHE if dist else _CACHE
+
+
+def _lookup(key, dist: bool = False) -> tuple:
     """(whether the signature was seen, its captured block or None)."""
-    if key not in _CACHE:
+    cache = _cache(dist)
+    if key not in cache:
         return False, None
-    _CACHE.move_to_end(key)
-    g = _CACHE[key]
+    cache.move_to_end(key)
+    g = cache[key]
     return True, None if isinstance(g, _Seen) else g
 
 
-def _store(key, g) -> None:
-    _CACHE[key] = g
-    _CACHE.move_to_end(key)
-    while len(_CACHE) > _CACHE_SIZE:
-        _CACHE.popitem(last=False)
+def _store(key, g, dist: bool = False) -> None:
+    cache = _cache(dist)
+    cache[key] = g
+    cache.move_to_end(key)
+    while len(cache) > _CACHE_SIZE:
+        cache.popitem(last=False)
 
 
 def _remember(kind, key, ops, tensors) -> None:
@@ -581,11 +603,11 @@ def _remember(kind, key, ops, tensors) -> None:
     now, with them): on the card its next run captures."""
     opkey, leaves, _ = _walk_ops(ops)
     ckey = _key(kind, key, opkey, tensors)
-    if ckey in _CACHE:
-        _CACHE.move_to_end(ckey)
+    dist = _distributed(list(leaves) + list(tensors))
+    if ckey in _cache(dist):
+        _cache(dist).move_to_end(ckey)
     else:
-        distributed = any(_is_dtensor(t) for t in list(leaves) + list(tensors))
-        _store(ckey, _Seen(ops if distributed else ()))
+        _store(ckey, _Seen(ops if dist else ()), dist)
 
 
 # ----------------------------------------------------------------------------
@@ -738,12 +760,12 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key):
 
 
 def _device_while(cond, body, state, consts, maxiter, go, ops, key):
-    path, opkey, states = _path(state + consts, ops)
+    path, opkey, states, dist = _path(state + consts, ops)
     if path == "per_iteration":
         return _plain_while(cond, body, state, consts, maxiter, go, path)
     dev = state[0].device
     ckey = _key("while", key, opkey, state + consts) if path == "graph" else None
-    seen, g = _lookup(ckey) if path == "graph" else (False, None)
+    seen, g = _lookup(ckey, dist) if path == "graph" else (False, None)
     if path == "graph" and not seen:  # a signature's first solve: the plain loop
         with _on_capture_stream(dev):
             state, count = _plain_while(cond, body, state, consts, maxiter, go, "per_iteration")
@@ -781,7 +803,7 @@ def _device_while(cond, body, state, consts, maxiter, go, ops, key):
 
             g = _Graph(block, state + consts + (k, act, lim), ops, f"device_while{key!r}",
                        states)
-            _store(ckey, g)
+            _store(ckey, g, dist)
             status = g.run()
         else:
             status = g.run(state + consts + (k, act, lim))
@@ -810,10 +832,11 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
     state, consts = tuple(state), tuple(consts)
     if iters > 0 and state[0].is_cuda and torch.cuda.is_current_stream_capturing():
         return _fori_block(body, state, consts, iters)  # nested in a block being captured
-    path, opkey, states = _path(state + consts, ops) if iters > 0 else ("blocks", None, ())
+    path, opkey, states, dist = (_path(state + consts, ops) if iters > 0
+                                 else ("blocks", None, (), False))
     n = BLOCK
     ckey = _key("fori", key, opkey, state + consts) if path == "graph" else None
-    seen, g = _lookup(ckey) if path == "graph" else (False, None)
+    seen, g = _lookup(ckey, dist) if path == "graph" else (False, None)
     label = path if path != "graph" else "graph" if seen and iters >= n else "blocks"
     with _Loop(label) as st:
         if path != "graph":
@@ -841,7 +864,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
                 return ()
 
             g = _Graph(block, state + consts, ops, f"device_fori{key!r}", states)
-            _store(ckey, g)
+            _store(ckey, g, dist)
             g.run()
         else:
             g.run(state + consts)
@@ -865,14 +888,14 @@ def device_call(fn, args: tuple, *, ops=(), key=()):
     args = tuple(args)
     if args and args[0].is_cuda and torch.cuda.is_current_stream_capturing():
         return tuple(fn(*args))  # nested in a block being captured
-    path, opkey, states = _path(args, ops)
+    path, opkey, states, dist = _path(args, ops)
     if path != "graph":
         out = tuple(fn(*args))
         if path == "blocks":
             _remember("call", key, ops, args)
         return out
     ckey = _key("call", key, opkey, args)
-    seen, g = _lookup(ckey)
+    seen, g = _lookup(ckey, dist)
     if g is not None:
         return g.run(args)
     if not seen:
@@ -881,5 +904,5 @@ def device_call(fn, args: tuple, *, ops=(), key=()):
         _remember("call", key, ops, args)
         return out
     g = _Graph(lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}", states)
-    _store(ckey, g)
+    _store(ckey, g, dist)
     return g.run()

@@ -1757,8 +1757,9 @@ def test_nested_solve_is_a_while_node(dev, loop_mod, inner):
 
 def test_while_node_condition_kernel_against_plain(dev, loop_mod):
     """The condition kernel in a while node counts a loop to the end its
-    test sets, and not at all under a false outer mask: the plain version's
-    count on the same inputs."""
+    test sets, and not at all when started in a frozen outer iteration (the
+    loop ANDs the outer mask into the test it hands the kernel): the plain
+    version's count on the same inputs."""
     for limit, outer in ((7, True), (0, True), (5, False)):
         def cond(s, c):
             return s[0] < c[0]

@@ -150,17 +150,16 @@ def test_while_condition_kernel_is_registered():
 
 
 @pytest.mark.parametrize("act", [False, True])
-@pytest.mark.parametrize("outer", [None, False, True])
-def test_while_condition_plain_version(act, outer):
+@pytest.mark.parametrize("shape", [(), (1,), (1, 1)])
+def test_while_condition_plain_version(act, shape):
     """On CPU tensors the wrapper returns the plain version, the value the
-    kernel gives the node's condition: act AND outer; it takes one bool."""
-    a = torch.tensor(act)
-    o = None if outer is None else torch.tensor([outer])
-    want = act and (outer is None or outer)
+    kernel gives the node's condition: act, as a 0-dim bool; it takes one
+    bool of any shape."""
+    a = torch.tensor(act).reshape(shape)
     before = graph_cond.launch_counts()["while_condition"]
-    got = graph_cond.set_while_condition(0, a, o)
-    assert got.dtype == torch.bool and got.shape == () and bool(got) == want
-    assert torch.equal(got, graph_cond.while_condition_plain(a, o))
+    got = graph_cond.set_while_condition(0, a)
+    assert got.dtype == torch.bool and got.shape == () and bool(got) == act
+    assert torch.equal(got, graph_cond.while_condition_plain(a))
     assert graph_cond.launch_counts()["while_condition"] == before  # no launch on the CPU
     with pytest.raises(TypeError):
         graph_cond.set_while_condition(0, torch.ones(2, dtype=torch.bool))

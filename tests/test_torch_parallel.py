@@ -505,6 +505,38 @@ def solves_in_masked_blocks(mesh):
 
 
 @case
+def distributed_signatures_outlive_rank_local_solves(mesh):
+    """A distributed solve's signature, then twice the cache's size of
+    rank-local solves on rank 0 alone, then the distributed solve again: per
+    rank, whether its signature stayed in the distributed cache, and the
+    sizes of both caches."""
+    import torch.distributed as dist
+
+    import linops_tpu_torch as lt
+    from linops_tpu_torch.parallel import banded_partition
+    from linops_tpu_torch.utils import loop
+
+    loop.clear_cache()
+    Ab, bb = banded_spd()
+    op = banded_partition(Ab, mesh, symmetric=True, hermitian=True)
+    b = _place(mesh, bb)
+    lt.cg(op, b, tol=1e-12, maxiter=400)
+    key = next(iter(loop._DIST_CACHE))
+    if dist.get_rank() == 0:
+        for i in range(2 * loop._CACHE_SIZE):
+            A, v = banded_spd(seed=50 + i, n=8 + i)
+            lt.cg(lt.LinearOperator(t_(A), symmetric=True, hermitian=True), t_(v), tol=1e-12,
+                  maxiter=100)
+    kept = key in loop._DIST_CACHE
+    lt.cg(op, b, tol=1e-12, maxiter=400)
+    mine = (kept, len(loop._DIST_CACHE), len(loop._CACHE))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    loop.clear_cache()
+    return every
+
+
+@case
 def scaling_report_on_the_world(mesh):
     """The harness on 4 ranks at a small slab (its collective audits assert
     inside)."""
@@ -850,6 +882,17 @@ def test_solves_in_masked_blocks(world, ref, kind, solver):
         if solver == "chebyshev":
             assert four["counts"]["all-reduce"] == one["counts"]["all-reduce"] == 0
     close(four["x"], reference_block_solve(lo, mesh8, kind, solver), RTOL)
+
+
+def test_distributed_signatures_outlive_rank_local_solves(world):
+    """Distributed signatures have a cache of their own: rank-local solves on
+    one rank (more of them than the cache holds) evict nothing from it, so
+    every rank keeps the same distributed entries and decides alike whether
+    to capture."""
+    every = result(world, "distributed_signatures_outlive_rank_local_solves")
+    assert [kept for kept, _, _ in every] == [True] * WORLD
+    assert {n_dist for _, n_dist, _ in every} == {1}
+    assert every[0][2] > 0 and [n_local for _, _, n_local in every[1:]] == [0] * (WORLD - 1)
 
 
 def test_scaling_report_on_the_world(world):
