@@ -431,7 +431,7 @@ def diagonal_qn_recursive(cls, pairs, d):
 def free():
     from linops_tpu_torch.utils import loop
 
-    loop.clear_cache()  # captured blocks hold their operators and memory pools
+    loop.clear_cache()  # captured blocks hold copies of their operators and memory pools
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1902,20 +1902,21 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="1
             "bits": same}
 
 
-def state_copy_us(g, reps=REPS) -> float:
-    """µs of device time that refreshing a captured block's static state
-    takes when every state tensor is new (after a push): the copies a
-    solve's first replay makes, median of ``reps`` (each forced by marking
-    the copies stale)."""
+def copy_us(g, tensors, new=None, reps=REPS) -> float:
+    """µs of device time that refreshing a captured block's mirrors from
+    ``tensors`` (the walk of the solve's operators) takes when the tensors
+    ``new`` holds (all, for None) are new: the copies a solve's first replay
+    makes, median of ``reps`` (each forced by marking those copies stale)."""
+    m = g.mirrors
+    stale = [i for i in m.index if new is None or any(tensors[i] is t for t in new)]
     times = []
     for _ in range(reps):
-        for st in g.states:
-            st.last = [(lambda: None, -1)] * len(st.last)
+        for i in stale:
+            m.last[i] = (lambda: None, -1)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for st in g.states:
-            st.refresh()
+        m.refresh(tensors)
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) * 1e3)
@@ -1975,7 +1976,7 @@ def push_solve_modes(lt, loop, A, b, dev, card, rounds=10, seed=SEED + 78):
               f"{torch.equal(xp, xd)} {torch.equal(xp, xc)}, plain path {stp['path']}")
         if r >= 2:
             check(std["path"] == "graph" and std["captures"] == 0 and std["replays"] > 0
-                  and std["state_bytes"] > 0 and stc["state_bytes"] == 0,
+                  and std["copied_bytes"] > 0 and stc["copied_bytes"] == 0,
                   f"14a push-then-solve round {r}: the solve after the push did not replay "
                   f"over its copied state: {std}; the next: {stc}")
         if r == rounds - 1:
@@ -1991,7 +1992,9 @@ def push_solve_modes(lt, loop, A, b, dev, card, rounds=10, seed=SEED + 78):
     check(captures == 1 and sizes["captures"] - sizes0["captures"] == 1,
           f"14a: {captures} captures over {rounds} push-then-solve rounds ({sizes0} -> {sizes})")
     gr = loop.last_graph()
-    copy_us = state_copy_us(gr)
+    from linops_tpu_torch.core.base import capture_signature
+
+    state_us = copy_us(gr, capture_signature((A, H)).tensors, new=H.state)
     tail = rec[2:]
     ms = {k_: float(np.median([r_[i] for r_ in tail])) * 1e3
           for i, k_ in ((0, "plain"), (1, "push"), (2, "cached"))}
@@ -2006,12 +2009,12 @@ def push_solve_modes(lt, loop, A, b, dev, card, rounds=10, seed=SEED + 78):
           f"{float(np.median(vs_cached)):.3f} (range {vs_cached[0]:.3f}-{vs_cached[-1]:.3f}), "
           f"over the plain loop median {float(np.median(vs_plain)):.3f} (range "
           f"{vs_plain[0]:.3f}-{vs_plain[-1]:.3f}); state copied per solve "
-          f"{rec[-1][4]['state_bytes']} bytes in {copy_us:.1f} us of device time; static state "
-          f"held by the cached block {gr.state_bytes} bytes; synchronizing calls in a solve "
+          f"{rec[-1][4]['copied_bytes']} bytes in {state_us:.1f} us of device time; copies "
+          f"held by the cached block {gr.static_bytes} bytes; synchronizing calls in a solve "
           f"after a push {syncs} (a cached solve's {syncs_cached}); apply_cache_sizes {sizes0} -> "
           f"{sizes}; x bit for bit the plain loop's every round; {card}", flush=True)
-    return {"ms": ms, "vs_cached": vs_cached, "vs_plain": vs_plain, "copy_us": copy_us,
-            "state_bytes": gr.state_bytes, "captures": captures}
+    return {"ms": ms, "vs_cached": vs_cached, "vs_plain": vs_plain, "copy_us": state_us,
+            "static_bytes": gr.static_bytes, "captures": captures}
 
 
 def sigma_rounds(lt, loop, tag, solve, update, values, card):
@@ -2037,8 +2040,8 @@ def sigma_rounds(lt, loop, tag, solve, update, values, card):
     ms = [float(np.median([r[i] for r in rec[2:]])) * 1e3 for i in (0, 1)]
     print(f"[14 device loop] {tag}: rounds {len(values)}, iterations {[r[2] for r in rec]}, "
           f"paths {[r[3]['path'] for r in rec]}, captures {[r[3]['captures'] for r in rec]}, "
-          f"replays {[r[3]['replays'] for r in rec]}, state bytes copied "
-          f"{[r[3]['state_bytes'] for r in rec]}; from round 3 {ms[0]:.2f} ms per solve against "
+          f"replays {[r[3]['replays'] for r in rec]}, bytes copied in "
+          f"{[r[3]['copied_bytes'] for r in rec]}; from round 3 {ms[0]:.2f} ms per solve against "
           f"{ms[1]:.2f} ms in the per-iteration loop; x bit for bit the per-iteration loop's every "
           f"round; {card}", flush=True)
     return rec
@@ -2327,6 +2330,298 @@ def phase14f(lt, loop, K, dev, card, laplacian_op, main):
     del Ms
     free()
     return {"14f": r, "14f small": r_s, "inner": min(counts), "res": res}, launches
+
+
+FRESH_STEPS = 8  # 14g: outer steps, each with a fresh slice-1 graph
+CHAIN_STEPS = 4  # 14g: outer steps, each with a fresh 2^22 window operator
+
+
+def merged_stats(sts) -> dict:
+    """The ``loop.stats`` of a step's solves as one: paths, captures,
+    replays, capture ms and bytes copied summed, and the bytes each copied."""
+    return dict(path="/".join(dict.fromkeys(s_["path"] for s_ in sts)),
+                captures=sum(s_["captures"] for s_ in sts),
+                replays=sum(s_["replays"] for s_ in sts),
+                capture_ms=sum(s_["capture_ms"] for s_ in sts),
+                copied_bytes=sum(s_["copied_bytes"] for s_ in sts),
+                copied_each=[s_["copied_bytes"] for s_ in sts])
+
+
+def fresh_steps(loop, tag, build, solve, steps, card, structures=1):
+    """An outer loop's traffic: each step ``build(step)`` makes a fresh
+    operator graph of one structure (returning the operators a solve
+    reads), then ``solve(ops)`` (returning (x, k, the ``loop.stats`` of each
+    loop it ran)) runs in the default loop,
+    from step 3 once more on the same graph (a cached solve of one
+    operator), and in the per-iteration loop (BLOCK 1, no capture). Checks
+    x and the count bit for bit against the per-iteration loop every step,
+    one capture for the structure (at step 2: the signature's second solve)
+    and replays with no capture from step 3 on. After the capturing step the graph it
+    captured with is dropped and its memory filled by tensors of the same
+    sizes (NaN, and 0 for indices), which must take some of its addresses;
+    the next fresh step replays over it. ``structures``: the signatures a
+    step's solves make (one capture each). Returns the record."""
+    from linops_tpu_torch.core.base import capture_signature
+
+    loop.clear_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sizes0 = dict(loop.cache_sizes())
+    rec, reused, info = [], None, {}
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops = build(step)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        (x, k, sts), secs = timed_solve(lambda: solve(ops))
+        st = merged_stats(sts)
+        (xc, kc, stc), secs_c = (timed_solve(lambda: solve(ops)) if step >= 2
+                                 else ((x, k, sts), None))
+        stc = merged_stats(stc)
+        with per_iteration(loop):
+            (x1, k1, _), secs_1 = timed_solve(lambda: solve(ops))
+        check(k == kc == k1 and torch.equal(x, x1) and torch.equal(xc, x1),
+              f"14g {tag} step {step}: {k} / {kc} / {k1} iterations, bits {torch.equal(x, x1)} "
+              f"{torch.equal(xc, x1)} against the per-iteration loop")
+        check(step < 2 or (stc["captures"] == 0 and stc["copied_bytes"] == 0),
+              f"14g {tag} step {step}: a repeated solve of one graph captured or copied: {stc}")
+        if step == 1:
+            check(st["captures"] == structures, f"14g {tag}: step 2 did not capture: {st}")
+        if step >= 2:
+            check(st["path"] == "graph" and st["captures"] == 0 and st["replays"] > 0
+                  and st["copied_bytes"] > 0,
+                  f"14g {tag} step {step}: a fresh graph of a cached structure did not replay "
+                  f"over its copied tensors: {st}")
+        if step == 2:  # the last solve's block, and every block kept
+            g = loop.last_graph()
+            tensors = capture_signature(tuple(ops)).tensors
+            blocks = [e for e in loop._CACHE.values() if isinstance(e, loop._Graph)]
+            launches = {}
+            for e in blocks:
+                for n_, c_ in e.launches.items():
+                    launches[n_] = launches.get(n_, 0) + c_
+            info.update(copy_us=copy_us(g, tensors), static_bytes=g.static_bytes,
+                        held_bytes=loop._held(loop._CACHE), launches=launches)
+            del g, tensors, blocks
+        rec.append(dict(build_ms=build_s * 1e3, ms=secs * 1e3,
+                        cached_ms=None if secs_c is None else secs_c * 1e3,
+                        plain_ms=secs_1 * 1e3, k=k, path=st["path"], captures=st["captures"],
+                        replays=st["replays"], copied=st["copied_bytes"],
+                        copied_each=st["copied_each"], capture_ms=st["capture_ms"]))
+        if step == 1:  # drop the graph the block was captured with; reuse its memory
+            sig = capture_signature(tuple(ops))
+            ptrs = {t.data_ptr() for t in sig.tensors if t.is_cuda}
+            shapes = [(t.shape, t.dtype) for t in sig.tensors if t.is_cuda]
+            del sig, ops, x, xc, x1
+            torch.cuda.synchronize()
+            junk = [torch.full(s_, float("nan") if dt.is_floating_point else 0, dtype=dt,
+                               device="cuda") for s_, dt in shapes]
+            reused = len(ptrs & {t.data_ptr() for t in junk})
+            check(reused > 0, f"14g {tag}: no freed address of the captured graph was reused")
+        elif step == 2:
+            del junk
+        else:
+            del ops
+    sizes = dict(loop.cache_sizes())
+    # a signature per structure and block length (the per-iteration runs' BLOCK 1 too)
+    check(sizes["captures"] - sizes0["captures"] == structures
+          and sizes["graphs"] == structures and sizes["signatures"] == 2 * structures,
+          f"14g {tag}: {sizes0} -> {sizes} over {steps} fresh steps")
+    tail = rec[2:]
+    med = {k_: float(np.median([r_[k_] for r_ in tail])) for k_ in
+           ("ms", "cached_ms", "plain_ms", "build_ms")}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[14 device loop] 14g {tag}: {steps} steps, a fresh graph each; iterations "
+          f"{[r_['k'] for r_ in rec]}, paths {[r_['path'] for r_ in rec]}, captures "
+          f"{[r_['captures'] for r_ in rec]}, replays {[r_['replays'] for r_ in rec]}; x bit for "
+          f"bit the per-iteration loop's every step; a replay over the freed graph's "
+          f"addresses ({reused} of them refilled) at step 3; bytes copied in per step "
+          f"{[r_['copied'] for r_ in rec]} (by each solve of a step: "
+          f"{[r_['copied_each'] for r_ in rec[2:]]}; {info['copy_us']:.1f} us of device "
+          f"time for one operator's); capture {rec[1]['capture_ms']:.1f} ms (step 2: "
+          f"{rec[1]['ms']:.2f} ms); from "
+          f"step 3 median solve {med['ms']:.3f} ms, the same graph solved again (cached, no copy) "
+          f"{med['cached_ms']:.3f} ms, per-iteration loop {med['plain_ms']:.3f} ms; building a "
+          f"step's graph {med['build_ms']:.2f} ms; copies held by the last solve's block "
+          f"{info['static_bytes']} bytes, by all {structures} blocks {info['held_bytes']} bytes "
+          f"(one set of copies per operators' key, shared); "
+          f"peak device memory {peak} bytes; apply_cache_sizes {sizes0} -> {sizes}; the "
+          f"blocks recorded {info['launches']}; {card}", flush=True)
+    return {"steps": rec, "median": med, "peak_bytes": peak, "reused": reused, **info}
+
+
+def phase14g(lt, loop, K, dev, card, main):
+    """Fresh operators of one structure in an outer loop (``fresh_steps``):
+    slice 1's CG at n = 65536 with a fresh graph each step (new D, new
+    blocks on the same BSR pattern through ``opSparse(format="bsr")``, a
+    fresh inverse L-BFGS with 8 pushes: K1 and K2 replay over the copies),
+    then ``matvec_chain(12)`` N and T on a fresh 2^22 banded window operator
+    each step (K3 and K4), where the copy is of 4.3 GB and the T chain's
+    block shares the N chain's copies. Also two slice-1 operators solved in
+    turn (``alternating``) and the window operator with its copies over the
+    bound (``over_the_bound``). Returns the records and the launches the
+    captured blocks recorded."""
+    f32 = torch.float32
+    cols, sigma, b, pair_s = main["cols"], main["sigma"], main["b"], main["pair_s"]
+    bm, bn, kmax = SHAPES["8x128"]
+
+    def slice1(step):
+        g = torch.Generator(device=dev).manual_seed(SEED + 300 + step)
+        blocks = torch.randn((N // bm, kmax, bm, bn), generator=g, device=dev) * (kmax * bn) ** -0.5
+        d = 1.0 + torch.rand(N, generator=g, device=dev)
+        B = lt.opSparse(lt.BSR(blocks, cols, (N, N)), format="bsr")
+        D = lt.opDiagonal(d)
+        A = D @ (B.T @ B) @ D + sigma * lt.opEye(N, dtype=f32)
+        H = lt.InverseLBFGSOperator(f32, N, mem=8, device=dev)
+        for s in pair_s:
+            H.push(s, A * s)
+        return A, H
+
+    def cg(ops):
+        x, k, _ = lt.cg(ops[0], b, M=ops[1], tol=1e-5, maxiter=500)
+        return x, k, [dict(loop.stats)]
+
+    K.reset_launch_counts()
+    r1 = fresh_steps(loop, "slice-1 cg(D (BᵀB) D + 2I, M = inverse L-BFGS mem 8), n = 65536, "
+                     "tol 1e-5", slice1, cg, FRESH_STEPS, card)
+    counts = K.launch_counts()
+    check(counts["bsr_matvec"] > 0 and counts["bsr_rmatvec"] > 0
+          and r1["launches"].get("bsr_matvec", 0) > 0 and r1["launches"].get("bsr_rmatvec", 0) > 0,
+          f"14g: K1/K2 launches {counts}, the captured block's {r1['launches']}")
+    r_alt = alternating(loop, "slice-1 cg", slice1, cg, card)
+    free()
+    cols_w = torch.from_numpy(win_cols("banded")).to(dev)
+    v = torch.ones(WIN_N, device=dev)
+
+    def window(step):
+        g = torch.Generator(device=dev).manual_seed(SEED + 320 + step)
+        blocks = torch.randn((WIN_N // 8, WIN_KMAX["banded"], 8, 128), generator=g, device=dev)
+        return (lt.BSROperator(lt.BSR(blocks, cols_w, (WIN_N, WIN_N))),)
+
+    def chains(ops):
+        y = lt.matvec_chain(ops[0], v, 12, mode="N")
+        st = [dict(loop.stats)]
+        y = lt.matvec_chain(ops[0], y, 12, mode="T")
+        return y, 24, st + [dict(loop.stats)]
+
+    K.reset_launch_counts()
+    r2 = fresh_steps(loop, "matvec_chain(12) N then T on a fresh 2^22 banded window operator",
+                     window, chains, CHAIN_STEPS, card, structures=2)
+    counts = K.launch_counts()
+    check(counts["bsr_matvec_windowed"] > 0 and counts["bsr_rmatvec_windowed"] > 0,
+          f"14g: K3/K4 launches {counts}")
+    check(all(r_["copied_each"][0] > 0 and r_["copied_each"][1] == 0 for r_ in r2["steps"][2:]),
+          f"14g window: the T chain copied again what the N chain's copies hold: "
+          f"{[r_['copied_each'] for r_ in r2['steps']]}")
+    r_bound = over_the_bound(loop, "matvec_chain(12) N then T, 2^22 window", window, chains,
+                             r2["peak_bytes"], card)
+    del cols_w, v
+    free()
+    launches = dict(r1["launches"])
+    for n_, c_ in r2["launches"].items():
+        launches[n_] = launches.get(n_, 0) + c_
+    return {"14g slice 1": r1, "14g window": r2, "14g alternating": r_alt,
+            "14g over the bound": r_bound}, launches
+
+
+def alternating(loop, tag, build, solve, card, rounds=6):
+    """Two operators of one structure solved in turn (X, Y, X, Y, ...), as
+    an outer loop that keeps two models does: one set of copies per
+    structure, so each solve copies all of its operator's tensors in. Before
+    the copies existed each operator had a block of its own that replayed
+    with no copy, which a cached solve of one operator (no copy) times.
+    Checks x bit for bit against the per-iteration loop and the bytes
+    copied; prints ms per solve in turn against the cached solve, the two
+    interleaved (each round solves its operator again right after)."""
+    loop.clear_cache()
+    ops = [build(200), build(201)]
+    for o in ops + ops:  # plain, capture, then replays
+        solve(o)
+    sig = loop._walk_ops(tuple(ops[0]))
+    full = sum(sig.tensors[i].numel() * sig.tensors[i].element_size() for i in sig.mirrored)
+    del sig
+    ms, cached, copied = [], [], []
+    for r in range(rounds):
+        o = ops[r % 2]
+        (x, k, sts), secs = timed_solve(lambda: solve(o))
+        st = merged_stats(sts)
+        (_, _, sts_c), secs_c = timed_solve(lambda: solve(o))  # again: no copy
+        with per_iteration(loop):
+            x1, k1, _ = solve(o)
+        check(k == k1 and torch.equal(x, x1) and st["path"] == "graph" and st["captures"] == 0
+              and merged_stats(sts_c)["copied_bytes"] == 0,
+              f"14g {tag} in turn, round {r}: {k} / {k1} iterations, bits {torch.equal(x, x1)}, "
+              f"{st}, again {merged_stats(sts_c)}")
+        ms.append(secs * 1e3)
+        cached.append(secs_c * 1e3)
+        copied.append(st["copied_bytes"])
+    # every tensor but those the two share (the BSR pattern's column indices)
+    check(len(set(copied)) == 1 and 0 < copied[0] <= full,
+          f"14g {tag} in turn: copied {copied} of {full} bytes")
+    med, med_c = float(np.median(ms)), float(np.median(cached))
+    print(f"[14 device loop] 14g {tag}, two operators of one structure in turn: {rounds} solves, "
+          f"each copies {copied[0]} bytes in (of {full} its operators hold; {copied}); median "
+          f"{med:.3f} ms a solve against {med_c:.3f} ms for the same operator solved again right "
+          f"after (no copy: what each operator's own block took before the copies existed): "
+          f"{med - med_c:+.3f} ms a solve; x bit for bit the per-iteration loop's; {card}",
+          flush=True)
+    del ops
+    loop.clear_cache()
+    return {"ms": ms, "cached_ms": cached, "median": med, "cached_median": med_c,
+            "copied": copied[0], "held": full}
+
+
+def over_the_bound(loop, tag, build, solve, peak_with_copies, card):
+    """Copies over the bound at full size: ``loop.MIRROR_SHARE`` set so that
+    the operator's copies (4.3 GB for the 2^22 window operator) exceed it.
+    The structure is then captured in place: the second solve of one
+    operator captures blocks that copy nothing and hold no copies, the third
+    replays them, and a fresh operator of the structure is a new signature
+    (its first solve does not replay). x bit for bit the per-iteration
+    loop's every solve; prints the peak memory against the run with
+    copies."""
+    loop.clear_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    saved = loop.MIRROR_SHARE
+    try:
+        ops = build(400)
+        sig = loop._walk_ops(tuple(ops))
+        need = sum(sig.tensors[i].numel() * sig.tensors[i].element_size() for i in sig.mirrored)
+        del sig
+        total = torch.cuda.get_device_properties(0).total_memory
+        loop.MIRROR_SHARE = 0.5 * need / total
+        rec = []
+        for r, o in enumerate((ops, ops, ops, build(401))):
+            (x, k, sts), secs = timed_solve(lambda: solve(o))
+            st = merged_stats(sts)
+            st["static_bytes"] = sts[-1]["static_bytes"]
+            with per_iteration(loop):
+                x1, k1, _ = solve(o)
+            check(k == k1 and torch.equal(x, x1),
+                  f"14g {tag} over the bound, solve {r}: {k} / {k1} iterations, bits "
+                  f"{torch.equal(x, x1)}")
+            rec.append(dict(st, ms=secs * 1e3, held=loop._held(loop._CACHE)))
+            del x, x1
+        check(rec[1]["captures"] > 0 and rec[1]["static_bytes"] == 0 and rec[1]["held"] == 0
+              and rec[2]["replays"] > 0 and rec[2]["captures"] == 0
+              and rec[2]["copied_bytes"] == 0 and rec[3]["replays"] == 0,
+              f"14g {tag} over the bound: {rec}")
+    finally:
+        loop.MIRROR_SHARE = saved
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[14 device loop] 14g {tag}, copies over the bound (MIRROR_SHARE "
+          f"{0.5 * need / total:.4f}: {need} bytes of copies against a bound of "
+          f"{0.5 * need} bytes): captured in place at the second solve ({rec[1]['capture_ms']:.1f} "
+          f"ms, {rec[1]['static_bytes']} bytes held), replays at the third with "
+          f"{rec[2]['copied_bytes']} bytes copied ({rec[2]['ms']:.3f} ms), a fresh operator "
+          f"runs {rec[3]['path']} with {rec[3]['replays']} replays ({rec[3]['ms']:.3f} ms); x bit "
+          f"for bit the per-iteration loop's; peak device memory {peak} bytes against "
+          f"{peak_with_copies} with copies; {card}", flush=True)
+    del ops
+    loop.clear_cache()
+    return {"solves": rec, "need": need, "peak_bytes": peak}
 
 
 def g1_check(GC, dev, card):
@@ -4215,7 +4510,9 @@ def main() -> int:
     pair_s = [torch.randn(N, generator=g, device=dev) for _ in range(8)]
 
     def drive_main():
-        """The main path, counted: build A and the preconditioner, solve."""
+        """The main path, counted: build A and the preconditioner, solve (a
+        structure's first solve: the cache emptied, as in a new process)."""
+        lt.utils.loop.clear_cache()
         K.reset_launch_counts()
         A = graph("auto")
         H = lt.InverseLBFGSOperator(f32, N, mem=8, device=dev)
@@ -4382,6 +4679,10 @@ def main() -> int:
     # --- 14. slice 9: the device loop (profiler traces, after phase 5) ----------
     _, held = phase14(lt, K, LG, dev, card, ops, {"A": A, "H": H, "b": b}, laplacian_op)
     del laplacian_op
+    _, fresh = phase14g(lt, lt.utils.loop, K, dev, card,
+                        {"cols": cols, "sigma": sigma, "b": b, "pair_s": pair_s})
+    for name in ("bsr_matvec", "bsr_rmatvec", "bsr_matvec_windowed", "bsr_rmatvec_windowed"):
+        check(fresh.get(name, 0) > 0, f"{name} is in no captured block of the slice-13 path")
     g1 = g1_check(GC, dev, card)
     check(held.get("while_condition", 0) > 0, "G1 ran in no captured block of the slice-12 path")
     for name in ("bsr_matvec", "bsr_rmatvec", "bsr_matvec_windowed", "bsr_rmatvec_windowed",

@@ -9,8 +9,11 @@ or NamedTuples of tensors) in ``_fields_tensors``, which hold static
 metadata in ``_fields_static``, and which hold state derived from the
 tensors and built at first use in ``_fields_derived``. The split drives
 ``.to(device)``, which returns a copy with every tensor moved and the
-derived state dropped, and the checkpoints, which also leave out the
-tensor fields named in ``_fields_index`` (built from the others).
+derived state dropped, the checkpoints, which also leave out the
+tensor fields named in ``_fields_index`` (built from the others), and the
+structure key a captured solve is cached under (``capture_signature``),
+which walks every field list, so an attribute an apply reads belongs in
+one of them.
 
 Modes
 -----
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import abc
 import copy
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +50,7 @@ __all__ = [
     "MODES",
     "default_device",
     "capture_signature",
+    "Signature",
 ]
 
 
@@ -146,100 +150,160 @@ def _first_device(value):
     return None
 
 
-def _walk(value, sig: list, tensors: list, seen: set, states: list):
-    """Append ``value``'s signature to ``sig`` (its tensors to ``tensors``,
-    and each state field it reaches to ``states`` as (operator, field)):
-    tensors by address, version, shape, strides, dtype and device (a CPU
-    scalar by value as well: an apply reads it on the host; a DTensor by its
-    local tensor's, with its mesh, placements and global shape), operators by
-    identity and fields (a node whose apply reads nothing but its fields,
-    ``_key_by_fields``, by its fields alone; a state field, ``_fields_state``,
-    by the layout of its tensors alone; a sharded operator's placement,
-    ``parallel/sharded.py``, by its class and fields), device meshes by their
-    ranks and axis names, containers item by item, plans (any other object
-    with fields) by their fields, numbers and strings by value, anything else
-    by identity."""
+class _Ident:
+    """An object the key holds by identity (a function, anything without
+    fields): equal only to itself, and kept alive by the key, so its id
+    cannot pass to a new object while the key is cached."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __eq__(self, other):
+        return isinstance(other, _Ident) and other.obj is self.obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+
+def _holds_tensor(value) -> bool:
+    """Whether a field's value holds a tensor itself (in containers), not
+    only through operators or plan objects (which are walked on their own)."""
     if isinstance(value, torch.Tensor):
-        tensors.append(value)
-        local = _local(value)
-        item = (local.data_ptr(), local._version, tuple(local.shape), local.stride(),
-                local.dtype, local.device)
-        if local is not value:
-            item += _distribution(value)
-        if not local.is_cuda and local.numel() == 1:
-            item += (local.item(),)
-        sig.append(item)
-        plan = getattr(value, "_combine_plan", None)  # kernels/lane_gather.py
-        if plan is not None:
-            _walk(plan, sig, tensors, seen, states)
-    elif isinstance(value, LinearOperator):
-        cls = type(value)
-        if cls._key_by_fields:
-            sig.append((cls,))
-        elif id(value) in seen:
-            sig.append(("seen", id(value)))
-            return
+        return True
+    if isinstance(value, (tuple, list)):
+        return any(_holds_tensor(v) for v in value)
+    if isinstance(value, dict):
+        return any(_holds_tensor(v) for v in value.values())
+    return False
+
+
+class Signature(NamedTuple):
+    """One walk of an operator graph (``capture_signature``).
+
+    ``key``: hashable, what a captured block over the graph depends on.
+    ``tensors``: every distinct tensor the graph holds, in walk order (a
+    graph of the same key lists tensors of the same layouts in the same
+    order). ``mirrored``: the indices of those a captured block reads from
+    its own copies (all but host scalars keyed by value). ``state``: the
+    indices of those in fields that updates replace or applies write
+    (``_fields_state``, ``_fields_written``), which a block copies even
+    where it reads the rest in place. ``written``: the indices of those an
+    apply adds into (``_fields_written``). ``holders``: the (object,
+    attribute) pairs whose values hold tensors, for a capture to point at
+    its copies."""
+
+    key: tuple
+    tensors: list
+    mirrored: list
+    state: list
+    written: list
+    holders: list
+
+
+class _Walk:
+    """The state of one ``capture_signature`` walk."""
+
+    def __init__(self):
+        self.sig, self.tensors, self.mirrored, self.state = [], [], [], []
+        self.written, self.holders = [], []
+        self.index = {}  # id of a tensor, operator or plan object -> its first-visit index
+        self.nodes = 0
+
+    def _first(self, value, kind) -> Optional[tuple]:
+        """The key item of a repeat visit (sharing, not identity, is in the
+        key), or None on the first, which is numbered."""
+        i = self.index.get(id(value))
+        if i is not None:
+            return (kind, i)
+        if kind == "alias":
+            self.index[id(value)] = len(self.tensors)
         else:
-            seen.add(id(value))
-            sig.append((cls, id(value)))
-        for f in (cls._fields_tensors + cls._fields_static + cls._fields_derived
-                  + cls._fields_index):
-            if f in cls._fields_state:
-                states.append((value, f))
-                _walk_layout(getattr(value, f), sig, tensors)
-            else:
-                _walk(getattr(value, f, None), sig, tensors, seen, states)
-        placement = getattr(value, "_placement", None)  # a sharded operator's
-        if placement is not None:
-            sig.append((type(placement),))
-            for v in vars(placement).values():
-                _walk(v, sig, tensors, seen, states)
-    elif _is_mesh(value):
-        sig.append(_mesh_key(value))
-    elif isinstance(value, (tuple, list)):
-        sig.append((type(value), len(value)))
-        for v in value:
-            _walk(v, sig, tensors, seen, states)
-    elif isinstance(value, dict):
-        sig.append((dict, len(value)))
-        for k, v in value.items():
-            sig.append(k if isinstance(k, (int, float, str, bool, tuple)) else id(k))
-            _walk(v, sig, tensors, seen, states)
-    elif value is None or isinstance(value, (bool, int, float, complex, str, torch.dtype,
-                                             torch.device)):
-        sig.append(value)
-    elif isinstance(value, np.generic):
-        sig.append(value.item())
-    elif hasattr(value, "__dict__") and not callable(value) and id(value) not in seen:
-        seen.add(id(value))
-        sig.append((type(value), id(value)))
-        for v in vars(value).values():
-            _walk(v, sig, tensors, seen, states)
-    else:
-        sig.append((type(value), id(value)))
+            self.index[id(value)] = self.nodes
+            self.nodes += 1
+        return None
 
-
-def _walk_layout(value, sig: list, tensors: list):
-    """A state field's signature: each tensor by shape, strides (those that
-    address anything: a dimension of one entry, or an empty tensor, has
-    none), dtype and device, never by address, version or value; tuples
-    item by item."""
-    if isinstance(value, torch.Tensor):
-        tensors.append(value)
-        local = _local(value)
+    def tensor(self, t, layout: bool, written: bool):
+        seen = self._first(t, "alias")
+        if seen is not None:
+            self.sig.append(seen)
+            return
+        i = len(self.tensors)
+        self.tensors.append(t)
+        local = _local(t)
         shape = tuple(local.shape)
         empty = local.numel() == 0
         stride = tuple(0 if empty or n == 1 else st for n, st in zip(shape, local.stride()))
         item = (shape, stride, local.dtype, local.device)
-        sig.append(item + _distribution(value) if local is not value else item)
-    elif isinstance(value, tuple):
-        sig.append((type(value), len(value)))
-        for v in value:
-            _walk_layout(v, sig, tensors)
-    elif value is None:
-        sig.append(None)
-    else:
-        raise TypeError(f"a state field holds {type(value).__name__}: tensors or tuples of them")
+        if local is not t:
+            item += _distribution(t)
+        if not layout and not local.is_cuda and local.numel() == 1:
+            item += (local.item(),)  # an apply reads it on the host: its value is in the key
+        else:
+            self.mirrored.append(i)
+            if layout:
+                self.state.append(i)
+        if written:
+            self.written.append(i)
+        self.sig.append(item)
+        plan = getattr(t, "_combine_plan", None)  # kernels/lane_gather.py
+        if plan is not None:
+            self.value(plan)
+
+    def fields(self, obj, names, layout=(), written=()):
+        for f in dict.fromkeys(names):  # a field in two lists once
+            v = getattr(obj, f, None)
+            if _holds_tensor(v):
+                self.holders.append((obj, f))
+            self.sig.append(f)
+            self.value(v, f in layout or f in written, f in written)
+
+    def value(self, value, layout: bool = False, written: bool = False):
+        sig = self.sig
+        if isinstance(value, torch.Tensor):
+            self.tensor(value, layout, written)
+        elif isinstance(value, LinearOperator):
+            seen = self._first(value, "seen")
+            if seen is not None:
+                sig.append(seen)
+                return
+            cls = type(value)
+            # a placed copy applies through its placement
+            if getattr(cls, "_placed_from", None) is None:
+                value._build_derived()
+            sig.append((cls,))
+            self.fields(value, cls._fields_tensors + cls._fields_static + cls._fields_derived
+                        + cls._fields_index + cls._fields_written,
+                        cls._fields_state, cls._fields_written)
+            placement = getattr(value, "_placement", None)  # a sharded operator's
+            if placement is not None:
+                self.value(placement)
+        elif _is_mesh(value):
+            sig.append(_mesh_key(value))
+        elif isinstance(value, (tuple, list)):
+            sig.append((type(value), len(value)))
+            for v in value:
+                self.value(v, layout, written)
+        elif isinstance(value, dict):
+            sig.append((dict, len(value)))
+            for k, v in value.items():
+                sig.append(k if isinstance(k, (int, float, str, bool, tuple)) else _Ident(k))
+                self.value(v, layout, written)
+        elif value is None or isinstance(value, (bool, int, float, complex, str, torch.dtype,
+                                                 torch.device, np.dtype)):
+            sig.append(value)
+        elif isinstance(value, np.generic):
+            sig.append(value.item())
+        elif hasattr(value, "__dict__") and not callable(value):
+            seen = self._first(value, "seen")
+            if seen is not None:
+                sig.append(seen)
+                return
+            sig.append((type(value),))
+            self.fields(value, tuple(vars(value)))
+        else:
+            sig.append(_Ident(value))
 
 
 def _is_dtensor(t) -> bool:
@@ -267,35 +331,35 @@ def _distribution(t) -> tuple:
     return _mesh_key(t.device_mesh), tuple(t.placements), tuple(t.shape)
 
 
-def state_leaves(value) -> list:
-    """The tensors of a state field (a tensor or a tuple of them), in order."""
-    if isinstance(value, torch.Tensor):
-        return [value]
-    if value is None:
-        return []
-    return [t for v in value for t in state_leaves(v)]
+def capture_signature(value) -> Signature:
+    """One walk of an operator graph (or a tuple of them, ``None`` for an
+    absent one): the key a CUDA graph captured over its applies is cached
+    under, with the tensors that graph reads (``Signature``).
 
+    The key is the structure, as the reference's jit cache keys a pytree by
+    its treedef and its leaves' shapes and dtypes: every node by its class
+    and its fields, static ones by value; a node reached twice by the index
+    of its first visit (sharing, not identity); every tensor by layout
+    (shape, the strides that address anything, dtype, device; a DTensor by
+    its local tensor's, with its mesh, placements and global shape), never
+    by address, version or value, a tensor reached twice by the index of
+    its first visit (the aliasing pattern); a host scalar by value as well
+    (an apply reads it on the host), unless it lies in a field an update
+    replaces (``_fields_state``: σ) or an apply writes (``_fields_written``);
+    a sharded operator's placement, and any other object with fields (a
+    plan), by its class and fields; device meshes by their ranks and axis
+    names; containers item by item; numbers and strings by value; anything
+    else (a function) by identity, held by the key. So a fresh operator of
+    the same structure has the same key, and a captured solve replays over
+    its own copies of the tensors (``utils/loop.py``), into which it copies
+    a fresh operator's before its first replay.
 
-def capture_signature(op: "LinearOperator") -> tuple:
-    """(key, tensors, states) of one walk of ``op``'s graph. The key is what
-    a CUDA graph captured over ``op``'s applies depends on, hashable: every
-    node's class, identity and fields (static values by value), and every
-    tensor it reads by address, version and layout, except the tensors of
-    state fields (``_fields_state``: an L-BFGS state, a shift σ), which it
-    sees by layout alone. A new tensor outside state (a rebuilt plan), an
-    in-place edit there (a bumped ``_version``) changes the key, so a
-    captured graph never replays over memory it no longer owns
-    (``utils/loop.py`` holds the operators of each graph it keeps); an update
-    of state (a push, ``set_sigma``) keeps it, and the graph replays over
-    static copies of the state that ``utils/loop.py`` refreshes before a
-    replay. The tensors are every tensor the graph holds (fields, state,
-    derived plans, indices); the states are the (operator, field) pairs of
-    the state fields reached."""
-    sig: list = []
-    tensors: list = []
-    states: list = []
-    _walk(op, sig, tensors, set(), states)
-    return tuple(sig), tensors, states
+    Lazy plans (``_fields_derived``) are built first, as an apply on the
+    operator's device would build them (``LinearOperator._build_derived``),
+    so a fresh operator keys as one that has been applied."""
+    w = _Walk()
+    w.value(value)
+    return Signature(tuple(w.sig), w.tensors, w.mirrored, w.state, w.written, w.holders)
 
 
 def _is_capture_safe(value) -> bool:
@@ -329,13 +393,14 @@ class LinearOperator(abc.ABC):
     # ``.to`` moves them; checkpoints leave them out and ``_build_index``
     # rebuilds them after a load
     _fields_index: Tuple[str, ...] = ()
-    # a node whose apply reads nothing but its fields: a capture key sees it
-    # by them, so a fresh node over the same fields replays a captured graph
-    _key_by_fields: bool = False
     # tensor fields that updates replace with new tensors of the same layout
-    # (a push, a new shift): a capture key sees them by layout, and a
-    # captured solve replays over static copies of them (``utils/loop.py``)
+    # (a push, a new shift): a capture key sees a host scalar there by
+    # layout, as it sees every other tensor (``capture_signature``)
     _fields_state: Tuple[str, ...] = ()
+    # tensors an apply adds into in place (a counter), outside the other
+    # lists: keyed by layout; a captured solve adds into its own copy and
+    # copies it back after each replay (``utils/loop.py``)
+    _fields_written: Tuple[str, ...] = ()
 
     # numpy defers binary ops (u @ op, x * op, ...) to the reflected methods
     __array_ufunc__ = None
@@ -360,6 +425,12 @@ class LinearOperator(abc.ABC):
             object.__setattr__(new, f, None)
         object.__setattr__(new, "_counters", Counters())
         return new
+
+    def _build_derived(self) -> None:
+        """Build the lazy plans (``_fields_derived``) that an apply on this
+        operator's device would build, before a capture key is taken. A plan
+        left out costs a fresh operator one more plain solve (its key differs
+        until the plan exists), never a wrong replay."""
 
     @property
     def device(self) -> Optional[torch.device]:

@@ -446,6 +446,7 @@ class IterativeInverseOperator(LinearOperator):
 
     _fields_tensors = ("op",)
     _fields_static = ("_tol", "_maxiter", "_solver")
+    _fields_written = ("_iters",)  # every apply adds its inner iterations into it
 
     _SOLVERS = ("auto", "cg", "minres", "bicgstab", "gmres")
     _DEVICE_LOOP = ("cg", "minres", "bicgstab")  # the inner solvers on loop.device_while

@@ -53,9 +53,12 @@ class RestrictionOperator(LinearOperator):
         self._ncol = int(ncol)
         self.sum_t = None
 
-    def _scatter(self, u):
+    def _build_derived(self):
         if self.sum_t is None:
             self.sum_t = segment_plan(self.idx, self._ncol)
+
+    def _scatter(self, u):
+        self._build_derived()
         return segment_sum(u, self.sum_t)
 
     @property

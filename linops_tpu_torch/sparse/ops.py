@@ -123,6 +123,13 @@ class _Summed(_SparseBase):
         super().__init__(data, symmetric, hermitian)
         self.sum_n = self.sum_t = None
 
+    # the plans the applies read: the forward's (sum_n) and the transpose's (sum_t)
+    _plans = (False, True)
+
+    def _build_derived(self):
+        for transpose in self._plans:
+            self._plan_for(transpose)
+
     def _plan_for(self, transpose: bool) -> SegmentPlan:
         field = "sum_t" if transpose else "sum_n"
         plan = getattr(self, field)
@@ -177,6 +184,8 @@ class ELLOperator(_Summed):
     """ELLPACK operator: forward is a gather plus a row sum (no scatter);
     the transpose is a segment sum over a stable sort of the slots by
     column."""
+
+    _plans = (True,)  # the forward sums each row's slots directly
 
     def _build_plan(self, transpose: bool) -> SegmentPlan:
         return segment_plan(self.data.cols, self.data.shape[1])
@@ -327,6 +336,12 @@ class RoutedCSROperator(CSROperator):
 
     def _use_routed(self) -> bool:
         return self._backend != "xla"
+
+    def _build_derived(self):
+        # the routed pipeline reads no segment plan (a transpose program that
+        # is packed at the first T apply, ``defer_transpose``, is left to it)
+        if not self._routed_ready():
+            super()._build_derived()
 
     def _ensure_transpose(self):
         if self.routed_t is None and self._use_routed():
@@ -740,17 +755,22 @@ class BSROperator(_SparseBase):
             return False
         return not transpose or self.cols_local is not None or self.win_q_t is not None
 
+    def _kernel_fits(self, vec) -> bool:
+        """Whether an apply to ``vec`` takes a kernel (and so no summation
+        plan): a backend that allows one, blocks and vector on a CUDA device,
+        dtypes the kernels take."""
+        blocks = self.data.blocks
+        return (self._backend != "torch" and blocks.is_cuda and vec.is_cuda
+                and kernel_dtypes(blocks.dtype, vec.dtype) is not None)
+
     def _use_kernel(self, vec) -> bool:
-        if self._backend == "torch":
-            return False
-        on_cuda = self.data.blocks.is_cuda and vec.is_cuda
-        fits = kernel_dtypes(self.data.blocks.dtype, vec.dtype) is not None
-        if self._backend == "kernel" and not (on_cuda and fits):
+        fits = self._kernel_fits(vec)
+        if self._backend == "kernel" and not fits:
             raise LinearOperatorException(
                 f"backend='kernel' needs f32/bf16 blocks and vectors on a CUDA "
                 f"device; got blocks {self.data.blocks.dtype} on "
                 f"{self.data.blocks.device}, vector {vec.dtype} on {vec.device}")
-        return on_cuda and fits
+        return fits
 
     @staticmethod
     def _pad_to(v, need: int):
@@ -817,6 +837,12 @@ class BSROperator(_SparseBase):
         else:
             x = bsr_rmatvec(blocks, d.block_cols, ub, nbcol, plan=self.plain_transpose_plan())
         return x.reshape(nbcol * bn)[: d.shape[1]]
+
+    def _build_derived(self):
+        # the plain K2/K4/K6 read their summation order; the kernels, which a
+        # solve's vectors (of the blocks' device and dtype) take, do not
+        if not self._kernel_fits(self.data.blocks):
+            self.plain_transpose_plan()
 
     def plain_transpose_plan(self) -> SegmentPlan:
         """The summation order of the plain transpose this operator takes

@@ -310,9 +310,8 @@ class _GramOperator(LinearOperator):
 
     _fields_tensors = ("base",)
     _fields_static = ("side",)
-    # each svds makes a fresh node; its capture key is (base, side), so a
-    # repeated svds over one operator replays
-    _key_by_fields = True
+    # each svds makes a fresh node; a capture key sees nodes by their
+    # structure, so a repeated svds over one operator replays
 
     def __init__(self, base: LinearOperator, side: str = "right"):
         super().__init__()

@@ -28,24 +28,51 @@ signature runs the plain per-iteration loop (on the capture stream, so its
 lazy plans, kernel libraries and cuBLAS's workspace there exist before
 anything is captured; eager masked blocks cost more host time per
 iteration than the reads they save), and the next solve of that signature
-captures. An operator's state fields (``_fields_state``: an L-BFGS, L-SR1
-or diagonal QN state, a shift σ) are keyed by layout alone, so a push or a
-new σ keeps the signature, as the reference's traced state keeps its jit
-cache: the captured block owns static copies of those fields (its capture
-ran with the operator's fields pointed at them), and before a solve's first
-replay the loop copies in every state tensor that is not the one it copied
-last (another object, or a bumped ``_version``; an address alone could be a
-freed state's), so a quasi-Newton loop that pushes between solves replays
-from its third solve on, and a solve with no update since copies nothing.
-The operators keep value semantics: a push still makes new tensors, so a
-state the caller holds (``saved = B.state``) is never written. Any other
-change (a new tensor outside state, an in-place edit there) is a new
-signature. The cache is a small LRU keyed by the solve's signature
-(``core/base.py::capture_signature`` of every operator, the state's shapes
-and dtypes, the solver's own static arguments and ``BLOCK``); it holds both
+captures.
+
+The signature holds the operators' structure, never their identity or
+their tensors' addresses (``core/base.py::capture_signature``: classes and
+static fields by value, tensors by layout, the sharing and aliasing
+pattern), as the reference's jit cache keys an operator by its treedef and
+its leaves' shapes and dtypes. So a fresh operator of a cached structure (a
+Newton step's new Jacobian, new values on one sparse pattern, a fresh
+quasi-Newton model) replays the cached block. A captured block reads static
+copies of every tensor its operators hold, *mirrors* (``_Mirrors``) that the
+blocks over one operators' key share (a chain's N and T blocks, a solver's
+several ``device_call``s): its capture ran with the operators' fields
+pointed at them, past the operators' own ``__setattr__`` hooks, and before
+a solve's first replay the loop copies in every tensor that is not the one
+it copied last (another object, or a bumped ``_version``; an address alone
+could be a freed tensor's). A repeated solve of one operator therefore
+copies nothing, a push or a new σ copies the state alone, an in-place edit
+copies the edited tensor, and a fresh operator copies all of its tensors;
+so does a solve that alternates between two operators of one structure,
+each time (one set of copies per structure). The block keeps no operator
+alive: once the caller drops the one it was captured with, the mirrors are
+the only copies left.
+
+The mirrors cost memory, so a new set must fit before it is made
+(``_mirror_set``): the sets the blocks of both caches keep may take
+``MIRROR_SHARE`` of the card's memory together (the least recently used
+blocks are turned back into signatures seen once to make room), and a new
+set at most ``FREE_SHARE`` of the free memory. A structure whose set does
+not fit (an operator of a third of the card) is captured as blocks were
+before they had copies: its blocks read the operators' tensors in place
+and hold them, keyed by their identity as well (``_bound_key``), and copy
+only the state, so a push still replays and a fresh operator of that
+structure is a new signature. The operators keep value semantics: nothing writes a
+caller's tensor, and a state the caller holds (``saved = B.state``) is
+never written. The one exception is a field an apply adds into
+(``_fields_written``: an iterative inverse's inner-iteration counter),
+which a replay adds into its mirror and the loop copies back after the
+solve. Lazy plans are built before the key is taken
+(``LinearOperator._build_derived``, called by the walk), so a fresh
+operator keys as one that has been applied. The cache is a small LRU keyed
+by the solve's signature (the operators' key, the state's shapes and
+dtypes, the solver's own static arguments and ``BLOCK``); it holds both
 kinds of entry, a signature seen once and a captured block, and an eviction
-drops the graph, its static state and its private memory pool. Distributed
-solves have an LRU of their own (see below).
+drops the graph, its private memory pool and, unless another block shares
+them, its mirrors. Distributed solves have an LRU of their own (see below).
 ``apply_cache_sizes()`` (``core/apply.py``) counts them.
 
 On the CPU the same masked blocks run eagerly, and each signature they run
@@ -86,14 +113,17 @@ any CPU solve. Every rank must decide alike whether to capture: if one rank
 captured while another ran eagerly, their collectives would pair wrongly and
 hang. So the cache decides by the sequence of distributed signatures alone,
 which every rank shares, since every rank takes part in every distributed
-solve: such signatures live in an LRU of their own (``_DIST_CACHE``), which
-no rank-local solve (a check on rank 0 alone) can touch, and a distributed
-signature's entry holds its operators from the first solve on (a captured
-block always does), so the ids and addresses in its key cannot be reused by
-new objects on one rank and not on another. A hit, a miss and an eviction
-then happen on every rank at the same solve. On the card this has run at
-one rank only, where NCCL lowers a collective to a copy: no capture of a
-collective between ranks has run yet.
+solve and a signature holds no id or address that could differ between
+ranks: such signatures live in an LRU of their own (``_DIST_CACHE``), which
+no rank-local solve (a check on rank 0 alone) can touch. Whether a
+distributed set fits is decided by the distributed cache's sets alone,
+each DTensor counted at its largest shard's size (the same on every rank),
+and by the free memory of the rank with the least (an all-reduce); a
+structure keyed by identity holds the tensors in its key from its first
+solve on, so no new tensor takes their ids on one rank and not on another.
+A hit, a miss and an eviction then happen on every rank at the same solve. On the
+card this has run at one rank only, where NCCL lowers a collective to a
+copy: no capture of a collective between ranks has run yet.
 
 ``BLOCK`` is 4. A solve of I iterations runs ⌈I/4⌉ blocks, the last one
 partly frozen, so it spends at most 3 frozen iterations of device time and
@@ -121,6 +151,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import math
 import time
 import weakref
 
@@ -131,11 +162,17 @@ from ..core.base import _is_dtensor
 BLOCK = 4  # masked iterations per block (one host read per block)
 CAPTURE = True  # test hook: False runs the card's blocks eagerly, as on the CPU
 _CACHE_SIZE = 8  # signatures kept (seen once, or captured), least recently used first
+# the share of the card's memory that the mirrors of the blocks both caches
+# keep may hold together, and the share of the free memory a new set may take
+# (the rest is the capture's pool and the solve's own)
+MIRROR_SHARE = 0.25
+FREE_SHARE = 0.5
 
 # what the last loop to finish did: its path ("graph", "blocks",
 # "per_iteration", "vmap"), host reads, blocks run, captures, replays,
-# capture milliseconds, the bytes of state copied into a captured block and
-# the while nodes its capture recorded (a nested loop keeps its own)
+# capture milliseconds, the bytes copied into a captured block's mirrors
+# before its first replay, the bytes its mirrors hold and the while nodes
+# its capture recorded (a nested loop keeps its own)
 stats: dict = {}
 _active: list = []  # the stats of the loops running, innermost last
 # the act of each masked iteration whose body is running, innermost last (None
@@ -208,7 +245,7 @@ class _Loop:
 
     def __init__(self, path: str):
         self.d = dict(path=path, reads=0, blocks=0, captures=0, replays=0, capture_ms=0.0,
-                      state_bytes=0, while_nodes=0, iterations=None)
+                      copied_bytes=0, static_bytes=0, while_nodes=0, iterations=None)
 
     def __enter__(self):
         _active.append(self.d)
@@ -264,24 +301,14 @@ def _replicating(tensors):
     return contextlib.nullcontext()
 
 
-def _walk_ops(ops) -> tuple:
-    """(the operators' part of a cache key, every tensor they hold, their
-    state fields as (operator, field) pairs): one walk of each graph."""
+def _walk_ops(ops):
+    """One walk of a solve's operators (``capture_signature``; shared
+    nodes and tensors between them are seen once), its key the operators'
+    items alone (() for none)."""
     from ..core.base import capture_signature
 
-    keys, tensors, states, seen = [], [], [], set()
-    for op in ops:
-        if op is None:
-            keys.append(None)
-            continue
-        k, ts, st = capture_signature(op)
-        keys.append(k)
-        tensors += ts
-        for owner, f in st:
-            if (id(owner), f) not in seen:
-                seen.add((id(owner), f))
-                states.append((owner, f))
-    return tuple(keys), tensors, states
+    sig = capture_signature(tuple(ops))
+    return sig._replace(key=sig.key[1:])
 
 
 def _distributed(tensors) -> bool:
@@ -289,20 +316,20 @@ def _distributed(tensors) -> bool:
 
 
 def _path(tensors, ops) -> tuple:
-    """(the path a loop takes, and for the graph path the operators' key
-    part, their state fields and whether the solve is distributed). The
-    blocks path walks the operators only under autograd: ``_remember`` takes
-    its key after the eager run."""
+    """(the path a loop takes, and for the graph path the operators'
+    signature and whether the solve is distributed). The blocks path walks
+    the operators only under autograd: ``_remember`` takes its key after
+    the eager run."""
     if _traced(tensors) or not all(op is None or op.capture_safe for op in ops):
-        return "per_iteration", None, (), False
+        return "per_iteration", None, False
     graph = bool(tensors) and tensors[0].is_cuda and CAPTURE
-    opkey, states, dist = None, (), False
+    sig, dist = None, False
     if graph or torch.is_grad_enabled():
-        opkey, leaves, states = _walk_ops(ops)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-            return "per_iteration", None, (), False
-        dist = _distributed(list(leaves) + list(tensors))
-    return ("graph" if graph else "blocks"), opkey, states, dist
+        sig = _walk_ops(ops)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in sig.tensors):
+            return "per_iteration", None, False
+        dist = _distributed(list(sig.tensors) + list(tensors))
+    return ("graph" if graph else "blocks"), sig, dist
 
 
 # ----------------------------------------------------------------------------
@@ -349,16 +376,6 @@ def _on_capture_stream(device):
     current.wait_stream(stream)
 
 
-def _static_like(value, leaves):
-    """``value`` (a state field) rebuilt from the tensors ``leaves``."""
-    if isinstance(value, torch.Tensor):
-        return next(leaves)
-    if value is None:
-        return None
-    items = [_static_like(v, leaves) for v in value]
-    return type(value)(*items) if hasattr(value, "_fields") else type(value)(items)
-
-
 def _static_copy(t, device):
     """An uninitialized tensor of ``t``'s layout on ``device``; for a DTensor
     a DTensor of its placements over this rank's piece, so a ``copy_`` into
@@ -374,33 +391,66 @@ def _static_copy(t, device):
     return from_local(s, t.device_mesh, t.placements, t.shape)
 
 
-class _State:
-    """A captured block's own copy of one state field: static tensors of
-    the field's layout on the block's device (a host scalar there would be
-    read on the host at capture, its value baked into the graph), and which
-    of the operator's tensors each last copied (a weak reference and its
-    ``_version``)."""
+def _rebuilt(value, mirror_of: dict):
+    """``value`` (a field's value) with each tensor it holds replaced by its
+    mirror; operators and plan objects stay (they are pointed at mirrors
+    field by field)."""
+    if isinstance(value, torch.Tensor):
+        return mirror_of.get(id(value), value)
+    if isinstance(value, tuple):
+        items = [_rebuilt(v, mirror_of) for v in value]
+        return type(value)(*items) if hasattr(value, "_fields") else tuple(items)
+    if isinstance(value, list):
+        return [_rebuilt(v, mirror_of) for v in value]
+    if isinstance(value, dict):
+        return {k: _rebuilt(v, mirror_of) for k, v in value.items()}
+    return value
 
-    def __init__(self, owner, field: str, device):
-        from ..core.base import _local, state_leaves
 
-        self.owner, self.field = owner, field
-        value = getattr(owner, field)
-        leaves = state_leaves(value)
-        self.static = [_static_copy(t, device) for t in leaves]
-        for s, t in zip(self.static, leaves):
-            s.copy_(t)
-        self.value = _static_like(value, iter(self.static))
-        self.last = [(weakref.ref(t), _local(t)._version) for t in leaves]
-        self.nbytes = sum(_local(t).untyped_storage().nbytes() for t in self.static)
+class _Mirrors:
+    """Captured blocks' own copies of tensors their operators hold (the
+    indices ``index`` of ``Signature.tensors``: every mirrored one, or for a
+    block that reads the rest in place only the state): static tensors of
+    their layouts on the blocks' device (a host scalar of a state field
+    lands there: in the graph it would be read on the host at capture and
+    its later values never seen), and which of the operators' tensors each
+    last copied (a weak reference and its ``_version``). The blocks of one
+    operators' key share one set (``_mirror_set``). ``nbytes``: the memory
+    they take here; ``bytes``: the same with a DTensor at its largest
+    shard's size (the same on every rank, for the cache's bound)."""
 
-    def refresh(self) -> int:
-        """Copy in every tensor of the field that is not the one copied last;
-        returns the bytes copied."""
-        from ..core.base import _local, state_leaves
+    def __init__(self, sig, device, index=None):
+        from ..core.base import _local
+
+        self.index = list(sig.mirrored if index is None else index)
+        self.skey = (sig.key, tuple(self.index), device)  # what blocks that share it match
+        self.written = [i for i in sig.written if i in self.index]
+        self.static = {}
+        for i in self.index:
+            t = sig.tensors[i]
+            self.static[i] = _static_copy(t, device)
+            self.static[i].copy_(t)
+        mirror_of = self._mirror_of(sig.tensors)
+        for i in self.index:  # a plan kept on a tensor (lane_gather.tiled_combine_plan)
+            plan = getattr(sig.tensors[i], "_combine_plan", None)
+            if plan is not None:
+                self.static[i]._combine_plan = _rebuilt(plan, mirror_of)
+        self.last = {i: (weakref.ref(sig.tensors[i]), _local(sig.tensors[i])._version)
+                     for i in self.index}
+        self.nbytes = sum(_local(s).untyped_storage().nbytes() for s in self.static.values())
+        self.bytes = sum(_shard_bytes(sig.tensors[i]) for i in self.index)
+
+    def _mirror_of(self, tensors) -> dict:
+        return {id(tensors[i]): self.static[i] for i in self.index}
+
+    def refresh(self, tensors) -> int:
+        """Copy in every tensor (of a graph of this block's key, in walk
+        order) that is not the one copied last; returns the bytes copied."""
+        from ..core.base import _local
 
         n = 0
-        for i, t in enumerate(state_leaves(getattr(self.owner, self.field))):
+        for i in self.index:
+            t = tensors[i]
             ref, version = self.last[i]
             local = _local(t)
             if ref() is not t or version != local._version:
@@ -409,44 +459,58 @@ class _State:
                 n += local.numel() * local.element_size()
         return n
 
+    def write_back(self, tensors) -> None:
+        """Copy the fields an apply adds into back to the operators'."""
+        from ..core.base import _local
 
-@contextlib.contextmanager
-def _static_state(states):
-    """Point every state field at its block's static copy (past the
-    operators' own ``__setattr__`` hooks, which would mark lazy state stale)
-    and give the operators back their own tensors after."""
-    own = [getattr(st.owner, st.field) for st in states]
-    for st in states:
-        object.__setattr__(st.owner, st.field, st.value)
-    try:
-        yield
-    finally:
-        moved = [st for st in states if getattr(st.owner, st.field) is not st.value]
-        for st, value in zip(states, own):
-            object.__setattr__(st.owner, st.field, value)
-        if moved:
-            raise RuntimeError(
-                "a captured block replaced the state " + ", ".join(
-                    f"{type(st.owner).__name__}.{st.field}" for st in moved)
-                + " while capturing: state updates belong outside a solve")
+        for i in self.written:
+            t = tensors[i]
+            t.copy_(self.static[i])
+            self.last[i] = (weakref.ref(t), _local(t)._version)
+
+    @contextlib.contextmanager
+    def swapped(self, sig):
+        """Point every field of ``sig``'s graph that holds tensors at the
+        mirrors (past the operators' own ``__setattr__`` hooks, which would
+        mark lazy state stale) and give the operators back their own after."""
+        mirror_of = self._mirror_of(sig.tensors)
+        own = [getattr(o, f) for o, f in sig.holders]
+        mine = [_rebuilt(v, mirror_of) for v in own]
+        for (o, f), v in zip(sig.holders, mine):
+            object.__setattr__(o, f, v)
+        try:
+            yield
+        finally:
+            moved = [(o, f) for (o, f), v in zip(sig.holders, mine) if getattr(o, f) is not v]
+            for (o, f), v in zip(sig.holders, own):
+                object.__setattr__(o, f, v)
+            if moved:
+                raise RuntimeError(
+                    "a captured block replaced the state " + ", ".join(
+                        f"{type(o).__name__}.{f}" for o, f in moved)
+                    + " while capturing: state updates belong outside a solve")
 
 
 class _Graph:
-    """One captured function over static input buffers: ``run(args)``
-    copies ``args`` in (those given), refreshes the static state and
-    replays. Holds the operators it was captured with, so their ids in its
-    key stay theirs, and its own copies of their state fields."""
+    """One captured function over static input buffers: ``run(args,
+    tensors)`` copies ``args`` in (those given), refreshes the mirrors from
+    ``tensors`` (the walk of the solve's operators) and replays. Holds no
+    operator: ``ops`` only name them in an error. The operators' tensors
+    that ``mirrors`` does not copy (all of them without mirrors) are read in
+    place: the block holds them (``bound``), so their addresses stay theirs."""
 
-    def __init__(self, fn, args, ops, what: str, states=()):
+    def __init__(self, fn, args, ops, what: str, sig=None, mirrors=None):
         global _captures
         self.body_pools = {}  # nesting depth -> [the while node bodies' pool, captures in it]
         self.bodies = []  # the while nodes' body graphs (cudaGraph_t addresses), in capture order
-        self.ops = tuple(ops)
         self.inputs = [a.clone() for a in args]
         device = self.device = args[0].device
         _body_stream(device, 0)  # made (and its cuBLAS workspace) before the capture
-        self.states = [_State(owner, f, device) for owner, f in states]
-        self.state_bytes = sum(st.nbytes for st in self.states)  # held by this block
+        self.mirrors = mirrors
+        copied = () if mirrors is None else mirrors.static
+        self.bound = [t for i, t in enumerate(sig.tensors if sig is not None else ())
+                      if i not in copied]
+        self.static_bytes = mirrors.nbytes if mirrors is not None else 0  # held by this block
         before = [dict(t) for t in _LAUNCH_TABLES]
         t0 = time.perf_counter()
         # keep_graph: the captured graph stays readable (raw_cuda_graph), so its
@@ -455,7 +519,8 @@ class _Graph:
         torch.cuda.synchronize(device)
         err = None
         debug = torch.cuda.get_sync_debug_mode()
-        with _static_state(self.states), torch.cuda.stream(_stream(device)):
+        swapped = mirrors.swapped(sig) if mirrors is not None else contextlib.nullcontext()
+        with swapped, torch.cuda.stream(_stream(device)):
             # a host read inside the capture would bake a value into the graph:
             # any synchronizing call raises there
             torch.cuda.set_sync_debug_mode("error")
@@ -507,18 +572,25 @@ class _Graph:
         entry[1] += 1
         return entry[0]
 
-    def run(self, args=()):
-        """Replay; with ``args`` (a solve's first replay) copy them in and
-        refresh the static state first."""
+    def run(self, args=(), tensors=None):
+        """Replay; with ``args`` (a solve's first replay) copy them in first,
+        and with ``tensors`` refresh the mirrors from them."""
         global _last_graph
         for s, a in zip(self.inputs, args):
             if a is not None:
                 s.copy_(a)
-        if args:
-            _bump("state_bytes", sum(st.refresh() for st in self.states))
+        if tensors is not None and self.mirrors is not None:
+            _bump("copied_bytes", self.mirrors.refresh(tensors))
+        if _active:
+            _active[-1]["static_bytes"] = self.static_bytes
         self.replay()
         _last_graph = self
         return self.outputs
+
+    def finish(self, tensors) -> None:
+        """The end of a solve over ``tensors``: copy the written fields back."""
+        if self.mirrors is not None and self.mirrors.written:
+            self.mirrors.write_back(tensors)
 
     def replay(self):
         self.graph.replay()
@@ -565,19 +637,49 @@ def _key(kind, key, opkey, tensors) -> tuple:
 
 
 class _Seen:
-    """A signature seen once: its next solve captures. For a distributed
-    solve it holds the operators, as a captured block does, so the ids and
-    addresses in its key stay theirs while it is kept (see the module's
-    note on ranks)."""
+    """A signature seen once: its next solve captures. ``held``: for a
+    distributed signature keyed by identity (``_bound_key``), the tensors
+    whose ids are in the key, kept so no new tensor takes an id on one rank
+    and not on another."""
 
-    __slots__ = ("ops",)
+    __slots__ = ("held",)
 
-    def __init__(self, ops=()):
-        self.ops = tuple(ops)
+    def __init__(self, held=()):
+        self.held = held
+
+
+class _Unmirrored(_Seen):
+    """A structure whose copies did not fit (``_mirror_set``): its blocks
+    read the operators' tensors in place, each kept under ``_bound_key``."""
+
+    __slots__ = ()
 
 
 def _cache(dist: bool):
     return _DIST_CACHE if dist else _CACHE
+
+
+def _bound_key(ckey, sig) -> tuple:
+    """``ckey`` with the identity of every tensor a block would read in
+    place (all but the state): a block that reads an operator's own tensors
+    replays only over them, as blocks were keyed before they had copies."""
+    from ..core.base import _local
+
+    state = set(sig.state)
+    return ("bound", ckey, tuple((id(sig.tensors[i]), _local(sig.tensors[i])._version)
+                                 for i in sig.mirrored if i not in state))
+
+
+def _find(kind, key, sig, tensors, dist: bool) -> tuple:
+    """(the cache key of a solve on the graph path, whether it was seen, its
+    captured block or None): the structure's key, or where the structure's
+    copies did not fit, its ``_bound_key``."""
+    cache = _cache(dist)
+    ckey = _key(kind, key, sig.key, tensors)
+    if isinstance(cache.get(ckey), _Unmirrored):
+        cache.move_to_end(ckey)
+        ckey = _bound_key(ckey, sig)
+    return (ckey,) + _lookup(ckey, dist)
 
 
 def _lookup(key, dist: bool = False) -> tuple:
@@ -590,24 +692,168 @@ def _lookup(key, dist: bool = False) -> tuple:
     return True, None if isinstance(g, _Seen) else g
 
 
+def _mirrors(entry):
+    return getattr(entry, "mirrors", None)
+
+
+def _drop(cache, key) -> None:
+    """Turn the block under ``key`` back into a signature seen once (its
+    next solve captures again): its graph, its pool and, unless another
+    block shares them, its mirrors go."""
+    global _last_graph
+    g = cache[key]
+    if g is _last_graph:
+        _last_graph = None
+    cache[key] = _Seen(g.bound if cache is _DIST_CACHE and key[0] == "bound" else ())
+
+
 def _store(key, g, dist: bool = False) -> None:
+    """Keep ``g`` under ``key``, the most recently used; past the cache's
+    size drop the least recently used entry."""
+    global _last_graph
     cache = _cache(dist)
     cache[key] = g
     cache.move_to_end(key)
     while len(cache) > _CACHE_SIZE:
-        cache.popitem(last=False)
+        _, old = cache.popitem(last=False)
+        if old is _last_graph:
+            _last_graph = None
+
+
+def _shard_bytes(t) -> int:
+    """The bytes of ``t``'s copy on the rank that holds the most of it: a
+    DTensor's largest shard, from its global shape and placements (the same
+    on every rank)."""
+    if not _is_dtensor(t):
+        return t.numel() * t.element_size()
+    shape = list(t.shape)
+    for d, p in enumerate(t.placements):
+        if p.is_shard():
+            shape[p.dim] = -(-shape[p.dim] // t.device_mesh.size(d))
+    return math.prod(shape) * t.element_size()
+
+
+def _held(cache) -> int:
+    """The bytes of the mirror sets the blocks of ``cache`` hold, a set
+    shared by several once."""
+    sets = {id(m): m for m in map(_mirrors, cache.values()) if m is not None}
+    return sum(m.bytes for m in sets.values())
+
+
+def _evict(cache, room: float) -> None:
+    """Turn the least recently used blocks of ``cache`` that hold mirrors
+    back into signatures seen once until its sets take at most ``room``
+    bytes."""
+    for k in list(cache):
+        if _held(cache) <= room:
+            return
+        if _mirrors(cache[k]) is not None:
+            _drop(cache, k)
+
+
+def _make_room(need: int, dist: bool, limit: float) -> bool:
+    """Whether a new mirror set of ``need`` bytes fits under ``limit``
+    beside the sets both caches keep, after the least recently used blocks
+    made room. A distributed solve decides by the distributed cache alone
+    (the same on every rank), then frees what the rank-local cache holds
+    past the bound; a rank-local solve frees room in its own cache only."""
+    fixed = 0 if dist else _held(_DIST_CACHE)
+    if need > limit - fixed:
+        return False
+    _evict(_cache(dist), limit - fixed - need)
+    if dist:
+        _evict(_CACHE, limit - _held(_DIST_CACHE) - need)
+    return True
+
+
+def _mirror_limit(device) -> float:
+    return MIRROR_SHARE * torch.cuda.get_device_properties(device).total_memory
+
+
+def _free_bytes(device) -> int:
+    """Device memory a new allocation can take: CUDA's free memory and
+    what torch's allocator keeps cached unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def _free_fits(need: int, dist: bool, device, tensors) -> bool:
+    """Whether ``need`` bytes (this rank's) take at most ``FREE_SHARE`` of
+    the free device memory; a distributed solve takes the answer of the
+    rank with the least room (one all-reduce over the mesh of ``tensors``'
+    DTensors; a mesh of one rank has nothing to agree on), so every rank
+    decides alike."""
+    fits = need <= FREE_SHARE * _free_bytes(device)
+    if not dist:
+        return fits
+    import torch.distributed as tdist
+
+    mesh = next(t.device_mesh for t in tensors if _is_dtensor(t))
+    if mesh.size() == 1:
+        return fits
+    flag = torch.tensor(int(fits), device=device)
+    for d in range(mesh.ndim):
+        tdist.all_reduce(flag, op=tdist.ReduceOp.MIN, group=mesh.get_group(d))
+    return bool(flag.item())
+
+
+def _mirror_set(sig, index, dist: bool, device, tensors, check: bool = True):
+    """The mirrors a new block over ``sig`` reads for the tensors ``index``:
+    the set that the solve's cache's blocks of the same operators' key hold
+    (the same on every rank for a distributed solve), or a new one (None for
+    no index). With ``check``, None too when a new set does not fit: its
+    bytes over ``MIRROR_SHARE`` of the card's memory beside the kept sets
+    once the least recently used blocks made room (``_make_room``), or over
+    ``FREE_SHARE`` of the free memory."""
+    from ..core.base import _local
+
+    if not index:
+        return None
+    skey = (sig.key, tuple(index), device)
+    for m in map(_mirrors, _cache(dist).values()):
+        if m is not None and m.skey == skey:
+            return m
+    if check:
+        if not _make_room(sum(_shard_bytes(sig.tensors[i]) for i in index), dist,
+                          _mirror_limit(device)):
+            return None
+        local = sum(_local(sig.tensors[i]).numel() * sig.tensors[i].element_size()
+                    for i in index)
+        if not _free_fits(local, dist, device, list(sig.tensors) + list(tensors)):
+            return None
+    return _Mirrors(sig, device, index)
+
+
+def _capture(ckey, fn, args, ops, what: str, sig, dist: bool):
+    """Capture ``fn`` over ``args`` into a block kept under ``ckey`` and
+    replay it once (its outputs are the first block's). The block reads the
+    operators' tensors from the mirrors their key shares, or, where a new
+    set of them does not fit, in place: the structure is then marked
+    ``_Unmirrored`` and the block kept under its ``_bound_key``, copying
+    the state alone (small, so never refused: pushes still replay)."""
+    dev = args[0].device
+    m = None
+    if ckey[0] != "bound":
+        m = _mirror_set(sig, sig.mirrored, dist, dev, args)
+        if m is None and sig.mirrored:
+            _store(ckey, _Unmirrored(), dist)
+            ckey = _bound_key(ckey, sig)
+    if ckey[0] == "bound":
+        m = _mirror_set(sig, sig.state, dist, dev, args, check=False)
+    g = _Graph(fn, args, ops, what, sig, m)
+    _store(ckey, g, dist)
+    out = g.run((), sig.tensors)  # a shared set may hold another operator's tensors
+    return g, out
 
 
 def _remember(kind, key, ops, tensors) -> None:
     """Note a signature whose eager run built its plans (its key is taken
     now, with them): on the card its next run captures."""
-    opkey, leaves, _ = _walk_ops(ops)
-    ckey = _key(kind, key, opkey, tensors)
-    dist = _distributed(list(leaves) + list(tensors))
-    if ckey in _cache(dist):
-        _cache(dist).move_to_end(ckey)
-    else:
-        _store(ckey, _Seen(ops if dist else ()), dist)
+    sig = _walk_ops(ops)
+    dist = _distributed(list(sig.tensors) + list(tensors))
+    ckey, seen, _ = _find(kind, key, sig, tensors, dist)
+    if not seen:
+        _store(ckey, _Seen(sig.tensors if dist and ckey[0] == "bound" else ()), dist)
 
 
 # ----------------------------------------------------------------------------
@@ -760,12 +1006,12 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key):
 
 
 def _device_while(cond, body, state, consts, maxiter, go, ops, key):
-    path, opkey, states, dist = _path(state + consts, ops)
+    path, sig, dist = _path(state + consts, ops)
     if path == "per_iteration":
         return _plain_while(cond, body, state, consts, maxiter, go, path)
     dev = state[0].device
-    ckey = _key("while", key, opkey, state + consts) if path == "graph" else None
-    seen, g = _lookup(ckey, dist) if path == "graph" else (False, None)
+    ckey, seen, g = (_find("while", key, sig, state + consts, dist) if path == "graph"
+                     else (None, False, None))
     if path == "graph" and not seen:  # a signature's first solve: the plain loop
         with _on_capture_stream(dev):
             state, count = _plain_while(cond, body, state, consts, maxiter, go, "per_iteration")
@@ -801,18 +1047,17 @@ def _device_while(cond, body, state, consts, maxiter, go, ops, key):
                 a_in.copy_(a_out)
                 return torch.stack((a_out.to(torch.int64), k_out))
 
-            g = _Graph(block, state + consts + (k, act, lim), ops, f"device_while{key!r}",
-                       states)
-            _store(ckey, g, dist)
-            status = g.run()
+            g, status = _capture(ckey, block, state + consts + (k, act, lim), ops,
+                                 f"device_while{key!r}", sig, dist)
         else:
-            status = g.run(state + consts + (k, act, lim))
+            status = g.run(state + consts + (k, act, lim), sig.tensors)
         while True:
             st["blocks"] += 1
             more, count = _read(status)
             if not more:
                 break
             status = g.run()
+        g.finish(sig.tensors)
         st["iterations"] = count
         return tuple(s.clone() for s in g.inputs[:len(state)]), count
 
@@ -832,11 +1077,10 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
     state, consts = tuple(state), tuple(consts)
     if iters > 0 and state[0].is_cuda and torch.cuda.is_current_stream_capturing():
         return _fori_block(body, state, consts, iters)  # nested in a block being captured
-    path, opkey, states, dist = (_path(state + consts, ops) if iters > 0
-                                 else ("blocks", None, (), False))
+    path, sig, dist = _path(state + consts, ops) if iters > 0 else ("blocks", None, False)
     n = BLOCK
-    ckey = _key("fori", key, opkey, state + consts) if path == "graph" else None
-    seen, g = _lookup(ckey, dist) if path == "graph" else (False, None)
+    ckey, seen, g = (_find("fori", key, sig, state + consts, dist) if path == "graph"
+                     else (None, False, None))
     label = path if path != "graph" else "graph" if seen and iters >= n else "blocks"
     with _Loop(label) as st:
         if path != "graph":
@@ -863,17 +1107,16 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
                     s.copy_(s2)
                 return ()
 
-            g = _Graph(block, state + consts, ops, f"device_fori{key!r}", states)
-            _store(ckey, g, dist)
-            g.run()
+            g, _ = _capture(ckey, block, state + consts, ops, f"device_fori{key!r}", sig, dist)
         else:
-            g.run(state + consts)
+            g.run(state + consts, sig.tensors)
         done = n
         st["blocks"] += 1
         while iters - done >= n:
             g.run()
             done += n
             st["blocks"] += 1
+        g.finish(sig.tensors)
         state = tuple(s.clone() for s in g.inputs[:ns])
         return _fori_block(body, state, consts, iters - done)
 
@@ -888,21 +1131,23 @@ def device_call(fn, args: tuple, *, ops=(), key=()):
     args = tuple(args)
     if args and args[0].is_cuda and torch.cuda.is_current_stream_capturing():
         return tuple(fn(*args))  # nested in a block being captured
-    path, opkey, states, dist = _path(args, ops)
+    path, sig, dist = _path(args, ops)
     if path != "graph":
         out = tuple(fn(*args))
         if path == "blocks":
             _remember("call", key, ops, args)
         return out
-    ckey = _key("call", key, opkey, args)
-    seen, g = _lookup(ckey, dist)
+    ckey, seen, g = _find("call", key, sig, args, dist)
     if g is not None:
-        return g.run(args)
+        out = g.run(args, sig.tensors)
+        g.finish(sig.tensors)
+        return out
     if not seen:
         with _on_capture_stream(args[0].device):
             out = tuple(fn(*args))
         _remember("call", key, ops, args)
         return out
-    g = _Graph(lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}", states)
-    _store(ckey, g, dist)
-    return g.run()
+    g, out = _capture(ckey, lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}", sig,
+                      dist)
+    g.finish(sig.tensors)
+    return out

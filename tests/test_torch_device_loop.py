@@ -256,11 +256,12 @@ def test_operators_that_are_not_capture_safe_take_the_per_iteration_path(rng):
 
 
 def test_capture_key_follows_pushes_and_in_place_edits(rng):
-    """The key a captured block is cached under changes with an in-place
-    edit of a tensor outside state (a bumped version) and a Python
-    coefficient, and not with an apply or a push: the push's new state
-    tensors have the old ones' layout, and a state field is keyed by layout
-    (a captured block replays over its own copy of the state)."""
+    """The key a captured block is cached under changes with a Python
+    coefficient, and not with an apply, a push or an in-place edit: every
+    tensor is keyed by layout (the push's new state tensors have the old
+    ones' layout, an edit keeps it), and a captured block replays over its
+    own copies, into which it copies a new or edited tensor
+    (``loop._Mirrors``)."""
     from linops_tpu_torch.core.base import capture_signature
 
     def capture_key(op):
@@ -279,8 +280,10 @@ def test_capture_key_follows_pushes_and_in_place_edits(rng):
     H.push(t_(rng.standard_normal(n)), t_(rng.standard_normal(n) + 3.0))
     assert H.state is not state
     assert capture_key(H) == keys[0]
+    mirrors = loop._Mirrors(capture_signature(graph), torch.device("cpu"))
     d.mul_(2.0)
-    assert capture_key(graph) != keys[1]
+    assert capture_key(graph) == keys[1]
+    assert mirrors.refresh(capture_signature(graph).tensors) == d.numel() * d.element_size()
     assert capture_key(3.0 * D) != capture_key(2.0 * D)
 
 

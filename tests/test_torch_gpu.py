@@ -1269,9 +1269,9 @@ def test_push_between_solves_recaptures(dev, loop_mod):
     x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
     st = dict(loop_mod.stats)
     assert st["path"] == "graph" and st["captures"] == 0 and st["replays"] > 0
-    assert st["state_bytes"] > 0
+    assert 0 < st["copied_bytes"] < st["static_bytes"]  # the state alone
     x2, k2, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
-    assert loop_mod.stats["captures"] == 0 and loop_mod.stats["state_bytes"] == 0
+    assert loop_mod.stats["captures"] == 0 and loop_mod.stats["copied_bytes"] == 0
     assert all(torch.equal(a, c) for a, c in zip(held, copies))
     loop_mod.CAPTURE = False
     x_e, k_e, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
@@ -1386,9 +1386,11 @@ def test_chain_timer_waits_for_the_card(dev):
 
 
 def test_in_place_edit_of_a_leaf_recaptures(dev, loop_mod):
-    """An in-place edit bumps the leaf's version: the next solve is a new
-    signature (the plain loop, no stale replay), the one after captures anew,
-    and both give the eager result of the edited operator."""
+    """An in-place edit bumps the leaf's version and keeps its layout: the
+    next solve keeps the signature and replays after copying the edited
+    leaf (and nothing else) into the block's copy (no stale replay, no
+    capture), the one after copies nothing, and both give the eager result
+    of the edited operator."""
     from linops_tpu_torch.core.base import capture_signature
 
     A, H, b = slice1_graph(dev)
@@ -1398,12 +1400,162 @@ def test_in_place_edit_of_a_leaf_recaptures(dev, loop_mod):
     leaf = next(t for t in capture_signature(A)[1] if t.ndim == 1 and t.numel() == A.nrow)  # d
     leaf.mul_(1.5)
     x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
-    assert loop_mod.stats["path"] == "per_iteration" and loop_mod.stats["replays"] == 0
+    st = dict(loop_mod.stats)
+    assert st["path"] == "graph" and st["captures"] == 0 and st["replays"] > 0
+    assert st["copied_bytes"] == leaf.numel() * leaf.element_size()
     x2, k2, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
-    assert loop_mod.stats["captures"] == 1
+    assert loop_mod.stats["captures"] == 0 and loop_mod.stats["copied_bytes"] == 0
     loop_mod.CAPTURE = False
     x_e, k_e, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
     assert k == k2 == k_e and torch.equal(x, x_e) and torch.equal(x2, x_e)
+
+
+def test_fresh_operators_replay_bit_for_bit(dev, loop_mod):
+    """An outer loop that builds slice 1's graph anew each step (new D, new
+    blocks on one pattern through ``opSparse``, a fresh inverse L-BFGS):
+    one capture for the structure, replays from the third step with every
+    tensor copied into the block's copies, x and the count bit for bit the
+    per-iteration loop's; the graph the block was captured with is dropped
+    and its memory refilled with NaN before a replay."""
+    n = 8192
+    _, cols = random_bsr(dev, n // 8, 8, 8, 128, n // 128, torch.float32, seed=40)
+    b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(41), device=dev)
+
+    def build(step):
+        g = torch.Generator(device=dev).manual_seed(50 + step)
+        blocks = torch.randn((n // 8, 8, 8, 128), generator=g, device=dev) * (8 * 128) ** -0.5
+        B = lt.opSparse(lt.BSR(blocks, cols, (n, n)), format="bsr")
+        D = lt.opDiagonal(1.0 + torch.rand(n, generator=g, device=dev))
+        A = D @ (B.T @ B) @ D + 2.0 * lt.opEye(n, dtype=torch.float32)
+        H = lt.InverseLBFGSOperator(torch.float32, n, mem=8, device=dev)
+        for _ in range(8):
+            s = torch.randn(n, generator=g, device=dev)
+            H.push(s, A * s)
+        return A, H, B
+
+    junk = None
+    for step in range(5):
+        A, H, B = build(step)
+        x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+        st = dict(loop_mod.stats)
+        saved = loop_mod.BLOCK, loop_mod.CAPTURE
+        loop_mod.BLOCK, loop_mod.CAPTURE = 1, False
+        try:
+            x1, k1, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+        finally:
+            loop_mod.BLOCK, loop_mod.CAPTURE = saved
+        assert k == k1 and torch.equal(x, x1), (step, k, k1)
+        assert st["captures"] == (1 if step == 1 else 0), (step, st)
+        if step >= 2:
+            assert st["path"] == "graph" and st["replays"] > 0 and st["copied_bytes"] > 0, st
+        if step == 1:  # the captured graph's memory, refilled
+            shapes = [(B.data.blocks.shape, B.data.blocks.dtype)]
+            del A, H, B, x, x1
+            torch.cuda.synchronize()
+            junk = [torch.full(s_, float("nan"), dtype=dt, device=dev) for s_, dt in shapes]
+    # one block; a signature per block length (the per-iteration runs' BLOCK 1 too)
+    sizes = lt.apply_cache_sizes()
+    assert sizes["graphs"] == 1 and sizes["signatures"] == 2 and junk is not None
+
+
+def fresh_slice1(dev, cols, seed, n=8192):
+    """Slice 1's graph over the BSR pattern ``cols`` with fresh values: new
+    blocks, a new D, a fresh inverse L-BFGS with 8 pairs (s, A s)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blocks = torch.randn((n // 8, 8, 8, 128), generator=g, device=dev) * (8 * 128) ** -0.5
+    B = lt.opSparse(lt.BSR(blocks, cols, (n, n)), format="bsr")
+    D = lt.opDiagonal(1.0 + torch.rand(n, generator=g, device=dev))
+    A = D @ (B.T @ B) @ D + 2.0 * lt.opEye(n, dtype=torch.float32)
+    H = lt.InverseLBFGSOperator(torch.float32, n, mem=8, device=dev)
+    for _ in range(8):
+        s = torch.randn(n, generator=g, device=dev)
+        H.push(s, A * s)
+    return A, H
+
+
+def _per_iteration(loop_mod, solve):
+    saved = loop_mod.BLOCK, loop_mod.CAPTURE
+    loop_mod.BLOCK, loop_mod.CAPTURE = 1, False
+    try:
+        return solve()
+    finally:
+        loop_mod.BLOCK, loop_mod.CAPTURE = saved
+
+
+@pytest.mark.parametrize("limit", ["bound", "free"])
+def test_copies_that_do_not_fit_capture_in_place(dev, loop_mod, monkeypatch, limit):
+    """Where the operators' copies exceed the bound (or the share of free
+    memory a new set may take), none is allocated: the block reads the
+    operators' tensors in place and copies only the state, keyed by the
+    tensors' identity. A push replays copying the state alone; a fresh
+    operator is a new signature (no replay at its first solve); every solve
+    gives the per-iteration loop's bits."""
+    if limit == "bound":
+        monkeypatch.setattr(loop_mod, "MIRROR_SHARE", 0.0)
+    else:
+        monkeypatch.setattr(loop_mod, "_free_bytes", lambda device: 1 << 20)
+    n = 8192
+    _, cols = random_bsr(dev, n // 8, 8, 8, 128, n // 128, torch.float32, seed=59)
+    A, H = fresh_slice1(dev, cols, 60)
+    b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(58), device=dev)
+
+    def solve(A, H):
+        x, k, _ = lt.cg(A, b, M=H, tol=1e-6, maxiter=300)
+        st = dict(loop_mod.stats)
+        x1, k1, _ = _per_iteration(loop_mod, lambda: lt.cg(A, b, M=H, tol=1e-6, maxiter=300))
+        assert k == k1 and torch.equal(x, x1), (k, k1)
+        return st
+
+    state = sum(t.numel() * t.element_size() for t in H.state)
+    solve(A, H)
+    st = solve(A, H)
+    assert st["captures"] == 1 and 0 < st["static_bytes"] <= 2 * state, st
+    s = torch.randn(A.nrow, generator=torch.Generator(device=dev).manual_seed(60), device=dev)
+    H.push(s, A * s)
+    st = solve(A, H)
+    assert st["path"] == "graph" and st["replays"] > 0 and st["captures"] == 0, st
+    assert 0 < st["copied_bytes"] <= state, st
+    A2, H2 = fresh_slice1(dev, cols, 61)
+    before = lt.apply_cache_sizes()["signatures"]
+    st = solve(A2, H2)
+    assert st["replays"] == 0 and lt.apply_cache_sizes()["signatures"] > before, st
+    st = solve(A2, H2)
+    assert st["captures"] == 1, st
+
+
+def test_blocks_of_one_operator_share_their_copies(dev, loop_mod):
+    """``matvec_chain``'s N and T blocks over one operator read one set of
+    copies: a fresh operator's N chain copies it in, the T chain after it
+    copies nothing, and the kept copies are one operator's bytes. Two
+    operators of one structure in turn copy all of theirs at every solve
+    (one set per structure); every chain is the per-iteration loop's."""
+    n = 8192
+    _, cols = random_bsr(dev, n // 8, 8, 8, 128, n // 128, torch.float32, seed=63)
+    (A, _), (A2, _) = fresh_slice1(dev, cols, 64), fresh_slice1(dev, cols, 65)
+    b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(66), device=dev)
+    sig = loop_mod._walk_ops((A,))
+    held = sum(sig.tensors[i].numel() * sig.tensors[i].element_size() for i in sig.mirrored)
+    shared = {id(t) for t in loop_mod._walk_ops((A2,)).tensors}
+    full = sum(sig.tensors[i].numel() * sig.tensors[i].element_size() for i in sig.mirrored
+               if id(sig.tensors[i]) not in shared)  # all but the pattern the two share
+
+    def chain(op, mode):
+        y = lt.matvec_chain(op, b, 8, mode=mode)
+        st = dict(loop_mod.stats)
+        y1 = _per_iteration(loop_mod, lambda: lt.matvec_chain(op, b, 8, mode=mode))
+        assert torch.equal(y, y1), mode
+        return st
+
+    for _ in range(2):
+        for mode in ("N", "T"):
+            chain(A, mode)
+    assert loop_mod._held(loop_mod._CACHE) == held
+    st = [chain(A2, "N"), chain(A2, "T")]
+    assert st[0]["copied_bytes"] == full and st[1]["copied_bytes"] == 0, st
+    for op in (A, A2, A):
+        st = chain(op, "N")
+        assert st["path"] == "graph" and st["copied_bytes"] == full, st
+    assert loop_mod._held(loop_mod._CACHE) == held
 
 
 def test_a_capture_failure_names_the_operator(dev, loop_mod):

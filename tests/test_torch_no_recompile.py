@@ -7,14 +7,14 @@ test_callable.py::test_callable_no_recompile).
 
 The reference traces its state, so a σ update or a push reuses its jit
 cache. The port compiles a solve's iterations into CUDA graphs keyed by
-``core/base.py::capture_signature``; the fields updates replace
-(``_fields_state``) are keyed by layout, so the key, and with it
-``apply_cache_sizes()``, stays the same across updates, while the values
-the port computes stay the reference's (max|Δ| ≤ 1e-10·max|ref|). The
-updates keep value semantics: a state the caller holds is never written.
-Also here: the captured block's static copies of the state
-(``utils/loop.py::_State``), which run on the CPU too, and the chain timer's
-syncs (``utils/timing.py``)."""
+``core/base.py::capture_signature``, which sees every tensor by layout (a
+host scalar in a field updates replace, ``_fields_state``, too), so the
+key, and with it ``apply_cache_sizes()``, stays the same across updates,
+while the values the port computes stay the reference's (max|Δ| ≤
+1e-10·max|ref|). The updates keep value semantics: a state the caller holds
+is never written. Also here: the captured block's static copies of the
+operators' tensors (``utils/loop.py::_Mirrors``), which run on the CPU too,
+and the chain timer's syncs (``utils/timing.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,16 +112,19 @@ def test_assigned_sigma_goes_to_the_operator(rng, fresh_cache):
 
 
 def test_static_state_lives_on_the_block_device():
-    """A captured block's copy of a state field is made on the block's
-    device, whatever device the operator's tensor is on: a host scalar in the
-    graph would be read at capture and its later values never seen. Its
-    refresh copies a new value across."""
+    """A captured block's copy of a state field (and of every other tensor)
+    is made on the block's device, whatever device the operator's tensor is
+    on: a host scalar in the graph would be read at capture and its later
+    values never seen. Its refresh copies a new value across."""
     op = lt.ShiftedOperator(lt.LinearOperator(np.eye(3), **CPU), 0.5)
-    st = loop._State(op, "sigma", torch.device("meta"))
-    assert st.static[0].device.type == "meta" and st.value.device.type == "meta"
-    assert st.refresh() == 0
+    sig = capture_signature(op)
+    mirrors = loop._Mirrors(sig, torch.device("meta"))
+    assert all(s.device.type == "meta" for s in mirrors.static.values())
+    with mirrors.swapped(sig):
+        assert op.sigma.device.type == "meta"
+    assert mirrors.refresh(capture_signature(op).tensors) == 0
     op.set_sigma(1.5)
-    assert st.refresh() == 8
+    assert mirrors.refresh(capture_signature(op).tensors) == 8
 
 
 def test_complex_sigma_hermitian_flag(rng):
@@ -335,24 +338,33 @@ def test_static_state_follows_updates(rng, form):
     for s, y in _pairs(rng, n, 2):
         B.push(s, y)
     B.ensure_ab()
-    st = loop._State(B, "state", torch.device("cpu"))
-    assert all(torch.equal(a, b) for a, b in zip(st.static, B.state))
-    assert st.refresh() == 0
+    sig = capture_signature(B)
+    mirrors = loop._Mirrors(sig, torch.device("cpu"))
+
+    def copies():  # the state as the captured block reads it
+        with mirrors.swapped(capture_signature(B)):
+            return B.state
+
+    assert all(torch.equal(a, b) for a, b in zip(copies(), B.state))
+    assert mirrors.refresh(capture_signature(B).tensors) == 0
     s, y = _pairs(rng, n, 1)[0]
     B.push(s, y)
-    assert st.refresh() > 0 and st.refresh() == 0
-    assert all(torch.equal(a, b) for a, b in zip(st.static, B.state))
+    assert capture_signature(B).key == sig.key
+    assert mirrors.refresh(capture_signature(B).tensors) > 0
+    assert mirrors.refresh(capture_signature(B).tensors) == 0
+    assert all(torch.equal(a, b) for a, b in zip(copies(), B.state))
     B.state.S.mul_(2.0)
-    assert st.refresh() == B.state.S.numel() * 8
+    assert mirrors.refresh(capture_signature(B).tensors) == B.state.S.numel() * 8
     own, fresh = B.state, B._ab_fresh
     ones = torch.ones(n, dtype=torch.float64)
     y_own = B @ ones
-    with loop._static_state([st]):
-        assert B.state is st.value and B._ab_fresh == fresh
+    with mirrors.swapped(capture_signature(B)):
+        assert B.state is not own and B._ab_fresh == fresh
+        assert all(a is mirrors.static[i] for a, i in zip(B.state, sig.mirrored))
         assert torch.equal(B @ ones, y_own)
     assert B.state is own
     with pytest.raises(RuntimeError, match="replaced the state"):
-        with loop._static_state([st]):
+        with mirrors.swapped(capture_signature(B)):
             B.push(s, y)
     assert B.state is own
 

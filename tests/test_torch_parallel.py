@@ -537,6 +537,90 @@ def distributed_signatures_outlive_rank_local_solves(mesh):
 
 
 @case
+def fresh_sharded_operators_hit_alike(mesh):
+    """An outer loop that shards a fresh operator each step (new values on
+    one band, through ``banded_partition``, and new blocks on one pattern
+    through ``shard_operator``): per rank and step, whether the solve's
+    signature was in the distributed cache before it (a hit), the cache's
+    size after, and x. Then the key's completeness across ranks: a step's
+    operator pointed at the block copies of the next step's (made from one,
+    refreshed from the other) applies as the next one."""
+    import torch.distributed as dist
+
+    import linops_tpu_torch as lt
+    from linops_tpu_torch.core.base import capture_signature
+    from linops_tpu_torch.parallel import banded_partition, shard_operator
+    from linops_tpu_torch.utils import loop
+
+    loop.clear_cache()
+    Bd, _ = bsr_case(12, nb=64)
+    pattern = Bd != 0
+    hits, sizes, xs, ops = [], [], [], {}
+    for step in range(4):
+        Ab, bb = banded_spd(seed=60 + step)
+        rng = np.random.default_rng(70 + step)
+        blocks = lt.opSparse(pattern * rng.standard_normal(Bd.shape), format="bsr",
+                             block_shape=(2, 4), **CPU)
+        A = banded_partition(Ab, mesh, symmetric=True, hermitian=True)
+        B = shard_operator(blocks, mesh)
+        ops.setdefault("halo", []).append(A)
+        ops.setdefault("bsr", []).append(B)
+        b = _place(mesh, bb)
+        for op in (A, B.T @ B + 2.0 * lt.opEye(Bd.shape[0], dtype=torch.float64)):
+            before = set(loop._DIST_CACHE)
+            x, _, _ = lt.cg(op, b, tol=1e-12, maxiter=400)
+            hits.append(len(set(loop._DIST_CACHE) - before) == 0)
+            sizes.append(len(loop._DIST_CACHE))
+            xs.append((full(x), Ab, bb))  # the band's solve first
+    swaps = {}
+    v = _place(mesh, np.random.default_rng(80).standard_normal(Bd.shape[0]))
+    for kind, (first, second) in ((k, o[:2]) for k, o in ops.items()):
+        sa, sb = capture_signature(first), capture_signature(second)
+        mirrors = loop._Mirrors(sa, torch.device("cpu"))
+        mirrors.refresh(sb.tensors)
+        want = [full(second.apply(v, m)) for m in ("N", "T")]
+        with mirrors.swapped(capture_signature(first)):
+            got = [full(first.apply(v, m)) for m in ("N", "T")]
+        swaps[kind] = (sa.key == sb.key, all(np.array_equal(g, w) for g, w in zip(got, want)))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (hits, sizes))
+    loop.clear_cache()
+    return {"every": every, "x": xs[-2][0],
+            "x_ref": np.linalg.solve(xs[-2][1], xs[-2][2]), "swaps": swaps}
+
+
+@case
+def mirror_decisions_agree_across_ranks(mesh):
+    """Whether a distributed block's copies fit, per rank: a sharded
+    operator's tensors as the bound counts them (each at its largest
+    shard), their bytes on this rank, and the free-memory answer with one
+    rank short of room and with all in room (``loop._free_bytes`` patched
+    per rank)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from linops_tpu_torch.core.base import _local
+    from linops_tpu_torch.utils import loop
+
+    # rows that 4 ranks split unevenly (17, 17, 17, 15)
+    tensors = [distribute_tensor(torch.zeros(66, 3, dtype=torch.float64), mesh, [Shard(0)]),
+               distribute_tensor(torch.zeros(66, dtype=torch.float32), mesh, [Shard(0)])]
+    counted = sum(loop._shard_bytes(t) for t in tensors)
+    local = sum(_local(t).numel() * t.element_size() for t in tensors)
+    rank, answers = dist.get_rank(), []
+    saved = loop._free_bytes
+    try:
+        for short in (0, None):
+            loop._free_bytes = lambda device: local if rank == short else 4 * local
+            answers.append(loop._free_fits(local, True, torch.device("cpu"), tensors))
+    finally:
+        loop._free_bytes = saved
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (counted, local, answers))
+    return every
+
+
+@case
 def scaling_report_on_the_world(mesh):
     """The harness on 4 ranks at a small slab (its collective audits assert
     inside)."""
@@ -893,6 +977,34 @@ def test_distributed_signatures_outlive_rank_local_solves(world):
     assert [kept for kept, _, _ in every] == [True] * WORLD
     assert {n_dist for _, n_dist, _ in every} == {1}
     assert every[0][2] > 0 and [n_local for _, _, n_local in every[1:]] == [0] * (WORLD - 1)
+
+
+def test_fresh_sharded_operators_hit_alike(world):
+    """Fresh sharded operators of one structure each step: the first step's
+    solves miss and later steps' hit, the same on every rank, the
+    distributed cache holds one entry per structure, x is the dense solve's,
+    and a sharded operator pointed at another's block copies applies as
+    that one (the placements' local operators are in the key)."""
+    r = result(world, "fresh_sharded_operators_hit_alike")
+    every = r["every"]
+    assert all(e == every[0] for e in every[1:]), every
+    hits, sizes = every[0]
+    assert hits == [False, False] + [True] * (len(hits) - 2), hits
+    assert sizes == [1] + [2] * (len(sizes) - 1), sizes
+    np.testing.assert_allclose(r["x"], r["x_ref"], rtol=1e-8, atol=1e-10)
+    assert r["swaps"] == {"halo": (True, True), "bsr": (True, True)}, r["swaps"]
+
+
+def test_mirror_decisions_agree_across_ranks(world):
+    """Every rank decides alike whether a distributed block's copies fit:
+    the bound counts a DTensor at its largest shard on every rank (at least
+    any rank's own bytes), and one rank short of free memory makes every
+    rank refuse the copies, while room on all makes every rank take them."""
+    every = result(world, "mirror_decisions_agree_across_ranks")
+    counted = {c for c, _, _ in every}
+    assert len(counted) == 1 and counted.pop() == max(n for _, n, _ in every), every
+    assert len({n for _, n, _ in every}) > 1, every  # the shards differ
+    assert [a for _, _, a in every] == [[False, True]] * WORLD, every
 
 
 def test_scaling_report_on_the_world(world):

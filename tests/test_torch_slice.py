@@ -285,8 +285,11 @@ def test_import_does_not_load_jax():
             "linops_tpu_torch.parallel.halo, linops_tpu_torch.parallel.halo2d, "
             "linops_tpu_torch.parallel.init, linops_tpu_torch.parallel.introspect, "
             "linops_tpu_torch.parallel.comm, linops_tpu_torch.parallel.scaling_bench, "
-            "linops_tpu_torch.parallel.launch, linops_tpu_torch.parallel.dryrun\n"
+            "linops_tpu_torch.parallel.launch, linops_tpu_torch.parallel.dryrun, "
+            "linops_tpu_torch.core.base, linops_tpu_torch.sparse.ops\n"
             "import glob, importlib.util\n"
+            "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))  # not run\n"
             "examples = sorted(glob.glob('examples/torch/*.py'))\n"
             "assert len(examples) == 9, examples\n"
             "for i, f in enumerate(examples):  # the ported examples, imported, not run\n"
