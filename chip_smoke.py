@@ -5,7 +5,7 @@
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 7, 9, 8, 5 (with phase 4's main path rerun under the profiler at its end),
-11, 12, 13, 10, 14, 15, then one profiled slice-1 CG (the times come
+11, 12, 13, 10, 14, 15 (15f, E2, after 15a), then one profiled slice-1 CG (the times come
 after every kernel has been checked; phases 12, 10, 14 and the profiled CG
 come after phase 5 because torch.profiler traces of whole solves, run before
 phase 5, left phase 5's own traces without device time; phases 11 and 12 run
@@ -20,7 +20,8 @@ shows them run but can lose records).
 1. device: the card's name and power limit; f32 matmuls must not run in TF32.
 2. build: compile the hand-written kernels from ``linops_tpu_torch/kernels/csrc``
    (one ``nvcc`` per source, started together; ``graph_cond.cu`` is G1, the
-   while node's condition kernel, and the host shim that records the node).
+   while node's condition kernel, and the host shim that records the node;
+   ``small_lstsq.cu`` is E2, GMRES's least-squares step).
 3. kernels: K1 (BSR forward) and K2 (BSR transpose) against their plain
    PyTorch versions and an f64 version of the same data, at the benchmark's
    two shapes (8x128 blocks, kmax 8; 128x128 blocks, kmax 4; n = 65536),
@@ -71,7 +72,9 @@ shows them run but can lose records).
    B an ``opRestriction`` to every 8th point) and a slice of it; CG with 8
    right-hand sides (routed kernels at rep 8); the shifted L-BFGS solves
    (compact, EJM, several σ at once, MINRES) at n = 10^6, mem 16. Each solve
-   against an f64 residual and the plain pipeline, with its launches.
+   against an f64 residual and the plain pipeline (for GMRES with the plain
+   SVD in E2's place), with its launches; GMRES's first solve reads once per
+   restart, plus once, and launches E2 once per restart.
 11. main path of slice 6, at the reference bench's sizes: (a) the 5-point
    Laplacian on 2048² as a stencil, as DIA and as L1⊗I + I⊗L1, N/T and a
    width-6 row panel against scipy f64, with apply times; (b) LOBPCG (k = 2)
@@ -146,8 +149,15 @@ shows them run but can lose records).
    iteration with K3 and G1 in its body, S x = g in f64 through the plain
    backend; the reference's small case (an inexact inner cg as the
    preconditioner) on slice 1's graph; G1 against its plain version (the
-   iterations a while node runs) and timed. The captured blocks must hold
-   K1-K7, K9-K13 and G1.
+   iterations a while node runs) and timed; (d) GMRES(30) reads once per
+   restart (plus once in the per-iteration loop), makes no synchronizing
+   call but its reads, and its block holds one E2; (h) a nested GMRES:
+   BiCGSTAB on 10a's auto_8m + 8I preconditioned by
+   ``opIterativeInverse(tol 1e-2, maxiter 30)`` ("auto": GMRES(30), one
+   restart an apply), both ways: outer iterations, summed inner restarts and
+   x the same, ⌈I/4⌉ reads a cached solve, two while nodes per outer
+   iteration, each body one restart with E2 and G1, ‖b − S x‖/‖b‖ in f64.
+   The captured blocks must hold K1-K7, K9-K13, G1 and E2.
 15. main path of slice 10, LOBPCG, svds and normest on the device loop:
    (a) E1 (``kernels/small_eigh.py``, the small Hermitian eigensolver) against
    its plain version torch.linalg.eigh for f32, f64, c64, c128 at m = 1, 2,
@@ -169,7 +179,16 @@ shows them run but can lose records).
    E1's place; (d) every ported example's ``main()`` on the card (03 and 08 in the world of one rank); (e) LOBPCG
    at k = 32 on the stencil (E1 at m = 32 and 96): wall µs per iteration,
    the per-iteration loop with eigh against cached blocks with E1; E1 on
-   every matrix one solve gives it, θ against eigh widened to f64.
+   every matrix one solve gives it, θ against eigh widened to f64; (f) E2
+   (``kernels/small_lstsq.py``, GMRES's least-squares step) against its
+   plain version (the SVD at ``jnp.linalg.lstsq``'s cutoff) on the
+   Hessenbergs one 10a solve gives it and on random, lucky-breakdown and zero
+   Hessenbergs in f32, f64, c64, c128 at m = 2-256 (from m = 96 or 128 in the
+   global workspace): the residual within 50·eps·‖b‖ of the plain version's,
+   σ against the SVD in f64, exact zeros past a breakdown, the same bits on a
+   rerun and alone; its time at m = 2-128 in a CUDA graph of 20 beside the
+   plain version, ``torch.linalg.pinv`` and the bound (4 (m + 1) m² + 8 m³
+   operations).
 
 Prints a JSON line describing each kernel, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
@@ -1400,10 +1419,12 @@ def device_profile(fn, top=3):
 
 def kernel_symbols() -> dict:
     """kernel name -> the device function each of its launches runs once."""
-    from linops_tpu_torch.kernels import bsr_spmv, graph_cond, lane_gather, small_eigh
+    from linops_tpu_torch.kernels import (bsr_spmv, graph_cond, lane_gather, small_eigh,
+                                          small_lstsq)
 
     return {**bsr_spmv.LAUNCH_SYMBOLS, **lane_gather.LAUNCH_SYMBOLS,
-            **small_eigh.LAUNCH_SYMBOLS, **graph_cond.LAUNCH_SYMBOLS}
+            **small_eigh.LAUNCH_SYMBOLS, **graph_cond.LAUNCH_SYMBOLS,
+            **small_lstsq.LAUNCH_SYMBOLS}
 
 
 def by_symbol(counts: dict) -> dict:
@@ -1555,20 +1576,22 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     whole phase, its solve records)."""
     import scipy.sparse as sps
 
+    from linops_tpu_torch.kernels import small_lstsq as E2
     from linops_tpu_torch.sparse.routed import routed_matvec, routed_rmatvec
     from linops_tpu_torch.utils import loop
 
-    LG.reset_launch_counts()
-    K.reset_launch_counts()
-    totals = dict.fromkeys(list(LG.launch_counts()) + list(K.launch_counts()), 0)
+    mods = (LG, K, E2)
+    for mod in mods:
+        mod.reset_launch_counts()
+    totals = {name: 0 for mod in mods for name in mod.launch_counts()}
     rec = {}
 
     def take():
-        c = {**LG.launch_counts(), **K.launch_counts()}
+        c = {name: n for mod in mods for name, n in mod.launch_counts().items()}
         for name, n in c.items():
             totals[name] += n
-        LG.reset_launch_counts()
-        K.reset_launch_counts()
+        for mod in mods:
+            mod.reset_launch_counts()
         return c
 
     def dx_of(x, x_p):
@@ -1592,8 +1615,12 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
         (x, k, _), secs = timed_solve(lambda: run(S))
         reads = loop.stats["reads"]
         c = take()
-        (x_p, k_p, _), secs_p = timed_solve(lambda: run(S_plain))
+        with small_lstsq_as(E2.small_lstsq_plain):  # GMRES's least squares: the plain SVD
+            (x_p, k_p, _), secs_p = timed_solve(lambda: run(S_plain))
         check(sum(take().values()) == 0, f"10a {name}: the plain pipeline launched a kernel")
+        if name == "gmres":  # the signature's first solve: one read per restart, plus one
+            check(c["small_lstsq"] == k and reads <= k + 1,
+                  f"10a gmres: {c['small_lstsq']} E2 launches and {reads} reads in {k} restarts")
         res = float(np.linalg.norm(bh - S64 @ x.double().cpu().numpy()) / np.linalg.norm(bh))
         dx = dx_of(x, x_p)
         check(torch.isfinite(x).all() and res <= 1e-4 and abs(k - k_p) <= 1 and dx <= 1e-3,
@@ -2124,8 +2151,13 @@ def phase14(lt, K, LG, dev, card, ops, main, laplacian_op):
     free()
     S = lt.ShiftedOperator(ops["op2"], 8.0)
     b = dev_vec(ops["A2"].shape[0], dev, SEED + 70)
-    run("14d 10a gmres(30) on auto_8m + 8I, tol 1e-5",
-        lambda: lt.gmres(S, b, tol=1e-5, restart=30, maxiter=20), unit="restarts")
+    r = run("14d 10a gmres(30) on auto_8m + 8I, tol 1e-5",
+            lambda: lt.gmres(S, b, tol=1e-5, restart=30, maxiter=20), unit="restarts")
+    k = r["iters"]
+    check(r["reads"] == (k + 1, k) and r["syncs_seen"] <= k and r["held"].get("small_lstsq") == 1,
+          f"14d gmres: {k} restarts, reads per solve {r['reads']} (per-iteration loop, cached "
+          f"blocks; {k + 1} and {k} expected), {r['syncs_seen']} synchronizing calls in a cached "
+          f"solve (at most its reads), the block recorded {r['held']} (one E2 a restart)")
     run("14d 10a bicgstab on auto_8m + 8I, tol 1e-5", lambda: lt.bicgstab(S, b, tol=1e-5,
                                                                           maxiter=500))
     del S, b
@@ -2223,6 +2255,12 @@ def phase14(lt, K, LG, dev, card, ops, main, laplacian_op):
     rec.update(r14f)
     rec["14f launches"] = nested
     for n_, c_ in nested.items():
+        held[n_] = held.get(n_, 0) + c_
+
+    # --- 14h. a nested GMRES: an inexact GMRES inverse preconditioning BiCGSTAB ---
+    r14h, nested_gmres = phase14h(lt, loop, dev, card, ops)
+    rec["14h"] = r14h
+    for n_, c_ in nested_gmres.items():
         held[n_] = held.get(n_, 0) + c_
     print(f"[14 device loop] kernels held by the captured blocks: {held}", flush=True)
     return rec, held
@@ -2330,6 +2368,83 @@ def phase14f(lt, loop, K, dev, card, laplacian_op, main):
     del Ms
     free()
     return {"14f": r, "14f small": r_s, "inner": min(counts), "res": res}, launches
+
+
+NESTED_GMRES_TOL = 1e-4  # 14h: ‖b − S x‖/‖b‖ in f64 (outer tol 1e-5, f32)
+
+
+def phase14h(lt, loop, dev, card, ops):
+    """A nested GMRES at 10a's size: BiCGSTAB (tol 1e-5) on S = auto_8m + 8I
+    preconditioned by ``opIterativeInverse(S, tol 1e-2, maxiter 30)`` with
+    ``solver="auto"``, which takes GMRES (S is not hermitian) with one
+    restart of 30 per apply: the reference's pattern
+    (``tests/test_linalg_ops.py:184-196``) at 10a's size. In the
+    per-iteration loop and in captured blocks (``loop_modes``): outer
+    iterations, summed inner restarts and x the same; a cached solve reads
+    ⌈I/4⌉ times; its block holds two while nodes per outer iteration (the
+    two preconditioner applies), each body one restart with E2 and G1;
+    ‖b − S x‖/‖b‖ in f64 (scipy). Returns (the record, the launches of the
+    captured nested block)."""
+    import scipy.sparse as sps
+
+    from linops_tpu_torch.kernels import graph_cond as GC
+    from linops_tpu_torch.kernels import small_lstsq as E2
+
+    free()
+    A2 = ops["A2"]
+    n2 = A2.shape[0]
+    S = lt.ShiftedOperator(ops["op2"], 8.0)
+    M = lt.opIterativeInverse(S, tol=1e-2, maxiter=30)
+    check(M.capture_safe and M._resolved(S) == "gmres",
+          f"14h: the inverse takes {M._resolved(S)}, capture-safe {M.capture_safe}")
+    b = dev_vec(n2, dev, SEED + 170)
+    inner = []
+
+    def solve():
+        M.reset_inner_iterations()
+        out = lt.bicgstab(S, b, tol=1e-5, maxiter=200, M=M)
+        inner.append(M.inner_iterations)
+        return out
+
+    seen = {}
+
+    def inspect(gr):
+        seen.update(while_nodes=while_nodes_of(gr), launches=dict(gr.launches))
+        per_block = 2 * loop.BLOCK  # two preconditioner applies an iteration
+        check(seen["while_nodes"] == per_block and len(gr.bodies) == per_block
+              and gr.launches.get("small_lstsq", 0) == per_block
+              and gr.launches.get("while_condition", 0) == 2 * per_block,
+              f"14h: the cached block holds {seen}")
+
+    tag = (f"14h nested gmres: bicgstab on auto_8m + 8I (n = 2^19, {A2.nnz} nnz), M = "
+           "opIterativeInverse(tol 1e-2, maxiter 30, auto: gmres(30), one restart), tol 1e-5")
+    E2.reset_launch_counts()
+    GC.reset_launch_counts()
+    r = loop_modes(loop, tag, solve, unit="outer iterations", inspect=inspect)
+    e2_launches = E2.launch_counts()["small_lstsq"]
+    counts = set(inner)
+    check(len(counts) == 1 and min(counts) >= r["iters"] and e2_launches > 0,
+          f"14h: summed inner restarts {counts} over the solves, {e2_launches} E2 launches")
+    check(r["reads"][1] == -(-r["iters"] // loop.BLOCK),
+          f"14h: {r['reads'][1]} reads in a cached solve of {r['iters']} outer iterations")
+    x, _, _ = solve()
+    bh = b.double().cpu().numpy()
+    S64 = A2.astype(np.float64) + 8.0 * sps.identity(n2)
+    res = float(np.linalg.norm(bh - S64 @ x.double().cpu().numpy()) / np.linalg.norm(bh))
+    check(torch.isfinite(x).all() and tuple(x.shape) == (n2,) and res <= NESTED_GMRES_TOL,
+          f"14h: ‖b − S x‖/‖b‖ {res:.3e} in f64 (limit {NESTED_GMRES_TOL:g})")
+    print(f"[14 device loop] 14h nested gmres: {r['iters']} outer iterations, {min(counts)} inner "
+          f"restarts summed, the same in the per-iteration loop and in captured blocks, x bit for "
+          f"bit; {r['while_nodes']} while nodes a block (the capture recorded "
+          f"{seen['launches']}); wall {r['wall_us_per_iter'][0]:.1f} -> "
+          f"{r['wall_us_per_iter'][1]:.1f} us per outer iteration, device "
+          f"{r['device_us_per_iter'][0]} -> {r['device_us_per_iter'][1]} us, busy {r['busy'][0]} "
+          f"-> {r['busy'][1]}; reads {r['reads'][0]} -> {r['reads'][1]}; ‖b − S x‖/‖b‖ {res:.2e} "
+          f"in f64 (limit {NESTED_GMRES_TOL:g}); E2 launches {e2_launches} over the phase; {card}",
+          flush=True)
+    del S, M, b, x, S64
+    free()
+    return dict(r, inner=min(counts), res=res, e2_launches=e2_launches), dict(seen["launches"])
 
 
 FRESH_STEPS = 8  # 14g: outer steps, each with a fresh slice-1 graph
@@ -3964,6 +4079,153 @@ def phase15a(E1, dev, card):
     return rows, worst
 
 
+E2_SOURCE = "linops_tpu_torch/kernels/csrc/small_lstsq.cu"
+# E2 has no Pallas site: it replaces the jnp.linalg.lstsq that XLA lowers in the
+# reference's GMRES restart (the (m + 1) x m Hessenberg least-squares problem)
+E2_REPLACES = "linops_tpu/utils/krylov.py:185"
+# m of the random cases: to 64 in shared memory for the f64 types (c64 and
+# c128 from 96 in the global workspace), 128 and 256 in the global workspace
+# in every type; the kernel takes any m
+E2_SIZES = (2, 8, 30, 64, 128, 256)
+E2_TIMED = (2, 8, 30, 64, 128)  # f32 per-call times
+E2_TOL = 50  # the residual ‖H y − b‖ over eps·‖b‖ beyond the plain version's
+
+
+def lstsq_ops(m, complex_=False) -> int:
+    """Real operations a least-squares solve of one (m + 1) x m matrix by
+    the SVD needs: 4 r c² + 8 c³ (Golub & Van Loan §5.5), 4 real for each
+    complex one."""
+    return (4 * (m + 1) * m * m + 8 * m ** 3) * (4 if complex_ else 1)
+
+
+def hessenbergs(gen, dev, m, dt):
+    """A batch of 4 (m + 1) x m Hessenbergs and β e₁: two random, one of a
+    lucky breakdown at step m // 2 (its later columns zero), one zero."""
+    rdt = torch.float64 if dt in (torch.float64, torch.complex128) else torch.float32
+    H = torch.randn((4, m + 1, m), generator=gen, device=dev, dtype=rdt)
+    if dt.is_complex:
+        H = torch.complex(H, torch.randn((4, m + 1, m), generator=gen, device=dev, dtype=rdt))
+    H = torch.triu(H, -1)
+    H[2, :, m // 2 + 1:] = 0
+    H[3] = 0
+    b = torch.zeros((4, m + 1), device=dev, dtype=dt)
+    b[:, 0] = torch.rand(4, generator=gen, device=dev) + 0.5
+    return H.to(dt), b
+
+
+def e2_errors(E2, H, b, y, s, sweeps):
+    """(‖H y − b‖ beyond the plain version's on the same inputs, over
+    eps·‖b‖; max |Δσ| against LAPACK's SVD of H widened to f64/c128 (on the
+    host: cuSOLVER's own strays further from it than E2 on these
+    ill-conditioned inputs), over eps·σ_max; max ‖Δy‖/‖y‖ against the plain
+    version on H widened; the σ limit: max(E2_TOL, 4·sqrt(sweeps·m)), the
+    roundings of the rotations each column takes as a random walk), eps of
+    H's precision, the worst of the batch."""
+    wide = torch.complex128 if H.is_complex() else torch.float64
+    eps = torch.finfo(s.dtype).eps
+
+    def residual(y_):
+        return torch.linalg.vector_norm(
+            (H.to(wide) @ y_.to(wide).unsqueeze(-1)).squeeze(-1) - b.to(wide), dim=-1)
+
+    bn = torch.linalg.vector_norm(b.to(wide), dim=-1).clamp_min(1e-300)
+    excess = float(((residual(y) - residual(E2.small_lstsq_plain(H, b))) / bn).max()) / eps
+    s_w = torch.linalg.svdvals(H.to(wide).cpu()).to(H.device)  # LAPACK: cuSOLVER's is looser
+    ds = float(((s.double() - s_w).abs().amax(-1) / s_w[..., 0].clamp_min(1e-300)).max()) / eps
+    y_w = E2.small_lstsq_plain(H.to(wide), b.to(wide))
+    dy = float((torch.linalg.vector_norm(y.to(wide) - y_w, dim=-1)
+                / torch.linalg.vector_norm(y_w, dim=-1).clamp_min(1e-300)).max())
+    return excess, ds, dy, max(E2_TOL, 4.0 * (int(sweeps.max()) * H.shape[-1]) ** 0.5)
+
+
+def phase15f(lt, loop, E2, dev, card, ops):
+    """E2 against its plain version (the SVD at ``jnp.linalg.lstsq``'s
+    cutoff) on the same inputs: the Hessenbergs of one 10a GMRES(30) solve
+    (recorded in its per-iteration loop), then random, lucky-breakdown and
+    zero Hessenbergs in f32, f64, c64 and c128 at m in E2_SIZES
+    (``e2_errors``): the residual within E2_TOL·eps·‖b‖ of the plain
+    version's, σ within its limit, exact zeros past a breakdown, y = 0 for
+    H = 0, the same bits on a rerun and as each matrix alone. Then per call in
+    f32 at m in E2_TIMED (m = 30: 10a's last Hessenberg): in a CUDA graph of
+    20, eager events, the plain version and the library call
+    ``torch.linalg.pinv(H, rtol = eps·(m + 1)) @ b`` (eager events), the
+    bound (``lstsq_ops`` over 67 TFLOP/s against H, b and y's bytes), and at
+    m = 30 in f64. Returns the timed rows by m."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 180)
+    # the main path's Hessenbergs: one 10a solve in the per-iteration loop
+    free()
+    S = lt.ShiftedOperator(ops["op2"], 8.0)
+    b10 = dev_vec(ops["A2"].shape[0], dev, SEED + 70)
+    fed = []
+
+    def recording(H, e):
+        fed.append((H.clone(), e.clone()))
+        return E2.small_lstsq(H, e)
+
+    with per_iteration(loop), small_lstsq_as(recording):
+        _, k10, _ = lt.gmres(S, b10, tol=1e-5, restart=30, maxiter=20)
+    del S, b10
+    check(len(fed) == k10 and k10 > 0, f"15f: {len(fed)} Hessenbergs from {k10} restarts")
+    H10, e10 = torch.stack([h for h, _ in fed]), torch.stack([e for _, e in fed])
+    worst = {}
+    y, s, sw = E2.small_lstsq(H10, e10, full=True)
+    worst[("10a", 30)] = e2_errors(E2, H10, e10, y, s, sw) + (int(sw.max()),)
+    for dt in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        for m in E2_SIZES:
+            H, b = hessenbergs(gen, dev, m, dt)
+            y, s, sw = E2.small_lstsq(H, b, full=True)
+            worst[(str(dt)[6:], m)] = e2_errors(E2, H, b, y, s, sw) + (int(sw.max()),)
+            check(not y[2, m // 2 + 1:].any() and not y[3].any() and not s[3].any(),
+                  f"15f E2 {dt} m={m}: no exact zeros past a breakdown, or for H = 0")
+            y2 = E2.small_lstsq(H, b)
+            y3 = E2.small_lstsq(H[1:2], b[1:2])
+            check(torch.equal(y, y2) and torch.equal(y[1], y3[0]),
+                  f"15f E2 {dt} m={m}: other bits on a rerun or alone")
+    torch.cuda.synchronize()
+    for key, (excess, ds, _, lim, _) in worst.items():
+        check(excess <= E2_TOL and ds <= lim,
+              f"15f E2 {key}: residual {excess:.1f} eps·‖b‖ beyond the plain version's (limit "
+              f"{E2_TOL}), |Δσ| {ds:.1f} eps·σ_max (limit {lim:.0f})")
+    print("[15f E2] small_lstsq against its plain version (torch.linalg.svd at jnp.linalg.lstsq's "
+          "cutoff): residual beyond the plain version's / eps·‖b‖, |Δσ| / eps·σ_max (limit), "
+          "‖Δy‖/‖y‖ against the plain version on H widened to f64/c128, sweeps: "
+          + "; ".join(f"{d_} m={m_} {v[0]:.1f} / {v[1]:.1f} ({v[3]:.0f}) / {v[2]:.1e} ({v[4]})"
+                      for (d_, m_), v in worst.items())
+          + f" (residual limit {E2_TOL}); {len(fed)} Hessenbergs of one 10a GMRES(30) solve "
+          f"(key 10a); exact zeros past a lucky breakdown, y = 0 for H = 0; the same bits on a "
+          f"rerun and alone; {card}", flush=True)
+    rows = {}
+    for m in E2_TIMED:
+        if m == 30:
+            H, b = H10[-1], e10[-1]
+        else:
+            H, b = (t[0] for t in hessenbergs(gen, dev, m, torch.float32))
+        y_p = E2.small_lstsq_plain(H, b)
+        y, s, sw = E2.small_lstsq(H, b, full=True)
+        eps = torch.finfo(torch.float32).eps
+        rows[m] = {"ms": graph_ms(lambda: E2.small_lstsq(H, b)),
+                   "event_ms": marginal_ms(lambda: E2.small_lstsq(H, b)),
+                   "plain_ms": marginal_ms(lambda: E2.small_lstsq_plain(H, b)),
+                   "library_ms": marginal_ms(lambda: torch.linalg.pinv(H, rtol=eps * (m + 1)) @ b),
+                   "bound": bound_ms(nbytes(H, b, y), lstsq_ops(m)), "sweeps": int(sw),
+                   "max_abs_err": float((y - y_p).abs().max())}
+    H64, b64 = H10[-1].double(), e10[-1].double()
+    f64_ms = graph_ms(lambda: E2.small_lstsq(H64, b64))
+    f64_pinv = marginal_ms(lambda: torch.linalg.pinv(H64, rtol=2.2e-16 * 31) @ b64)
+    print("[15f E2] f32 per call (a CUDA graph of 20; eager marginal events; the plain version "
+          "(torch.linalg.svd) and the library call torch.linalg.pinv(H) @ b, eager marginal "
+          "events; bound = 4 (m + 1) m² + 8 m³ operations over 67 TFLOP/s against H, b, y's bytes "
+          "over 3.35 TB/s): "
+          + "; ".join(f"m={m} {r['ms'] * 1e3:.1f} us ({r['sweeps']} sweeps), eager "
+                      f"{r['event_ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, pinv "
+                      f"{r['library_ms'] * 1e3:.1f} us, bound {r['bound'][0] * 1e3:.4f} us "
+                      f"({r['bound'][1]}), max|Δy| against plain {r['max_abs_err']:.1e}"
+                      for m, r in rows.items())
+          + f"; f64 at m = 30 (10a's Hessenberg widened) {f64_ms * 1e3:.1f} us, pinv "
+          f"{f64_pinv * 1e3:.1f} us; {card}", flush=True)
+    return rows
+
+
 def laplacian_eigenvalues(g):
     """The eigenvalues of the 5-point Laplacian on g², ascending (closed form)."""
     c = np.cos(np.arange(1, g + 1) * np.pi / (g + 1))
@@ -3998,6 +4260,20 @@ def small_eigh_as(fn):
         yield
     finally:
         eig_mod.small_eigh = kept
+
+
+@contextlib.contextmanager
+def small_lstsq_as(fn):
+    """GMRES's least-squares step (``utils/krylov.py``) through ``fn`` in
+    place of E2 for the block's duration."""
+    from linops_tpu_torch.utils import krylov
+
+    kept = krylov.small_lstsq
+    krylov.small_lstsq = fn
+    try:
+        yield
+    finally:
+        krylov.small_lstsq = kept
 
 
 @contextlib.contextmanager
@@ -4444,10 +4720,11 @@ def main() -> int:
     t0 = time.perf_counter()
     from linops_tpu_torch.kernels import graph_cond as GC
     from linops_tpu_torch.kernels import small_eigh as E1
+    from linops_tpu_torch.kernels import small_lstsq as E2
 
-    sources = ("bsr_spmv", "bsr_window", "lane_gather", "small_eigh", "graph_cond")
+    sources = ("bsr_spmv", "bsr_window", "lane_gather", "small_eigh", "graph_cond", "small_lstsq")
     build.build_all(sources)  # one nvcc per source, in parallel
-    K._lib(), K._win_lib(), LG._lib(), E1._lib(), GC._lib()
+    K._lib(), K._win_lib(), LG._lib(), E1._lib(), GC._lib(), E2._lib()
     print("[2 build] -> sm_90a: " + ", ".join(
         f"{n}.cu " + (f"{build.build_seconds[n]:.2f} s" if build.build_seconds[n]
                       else "already built from this source hash")
@@ -4676,8 +4953,10 @@ def main() -> int:
 
     # --- 10. slice 4 (after the times: its profiler traces come last) ---------
     slice4_launches, _ = phase10(lt, K, LG, dev, ops, laplacian_op)
+    check(slice4_launches["small_lstsq"] > 0, "E2 never ran in 10a's GMRES")
     # --- 14. slice 9: the device loop (profiler traces, after phase 5) ----------
-    _, held = phase14(lt, K, LG, dev, card, ops, {"A": A, "H": H, "b": b}, laplacian_op)
+    rec14, held = phase14(lt, K, LG, dev, card, ops, {"A": A, "H": H, "b": b}, laplacian_op)
+    check(held.get("small_lstsq", 0) > 0, "E2 is in no captured block of the slice-14 path")
     del laplacian_op
     _, fresh = phase14g(lt, lt.utils.loop, K, dev, card,
                         {"cols": cols, "sigma": sigma, "b": b, "pair_s": pair_s})
@@ -4698,6 +4977,7 @@ def main() -> int:
     from linops_tpu_torch.utils import loop as loop_mod
 
     e1_times, _ = phase15a(E1, dev, card)
+    e2_times = phase15f(lt, loop_mod, E2, dev, card, ops)
     _, _, e1_launches = phase15b(lt, loop_mod, E1, dev, card)
     phase15c(lt, loop_mod, dev, {"blocks": blocks, "cols": cols}, slice6["spectra"])
     phase15d(dev, card)
@@ -4787,12 +5067,27 @@ def main() -> int:
     kernels.append({**entry("while_condition", G1_SOURCE, G1_REPLACES, held["while_condition"],
                             g1["max_abs_err"], g1["ms"], g1["plain_ms"], g1["bound"], None),
                     "timing": "cuda_graph", "max_abs_err_of": "iterations a while node ran",
-                    "launches_from": "phase 14f: the nested solve's captured block (two per "
-                                     "while node: before it and at the end of its body)",
+                    "launches_from": "phases 14f and 14h: the nested solves' captured blocks "
+                                     "(two per while node: before it and at the end of its "
+                                     "body)",
                     "replaces_note": "no pallas_call site: the device half of the reference's "
                                      "nested lax.while_loop (an inner solve inside the outer "
                                      "solver's compiled loop); no PyTorch call sets a graph "
                                      "condition"})
+    t = e2_times[30]  # f32, (31, 30): the last Hessenberg of 10a's GMRES(30)
+    kernels.append({**entry("small_lstsq", E2_SOURCE, E2_REPLACES,
+                            slice4_launches["small_lstsq"] + rec14["14h"]["e2_launches"],
+                            t["max_abs_err"], t["ms"], t["plain_ms"], t["bound"], t["library_ms"]),
+                    "timing": "cuda_graph", "event_ms": t["event_ms"], "sweeps": t["sweeps"],
+                    "shape": "f32, (31, 30): the last Hessenberg of 10a's GMRES(30)",
+                    "launches_from": "phase 10a (GMRES(30) on auto_8m + 8I) and phase 14h "
+                                     "(the nested GMRES's per-iteration, first and capturing "
+                                     "solves)",
+                    "library_call": "torch.linalg.pinv(H, rtol=eps·31) @ βe₁ (eager: it reads "
+                                    "cuSOLVER's info back)",
+                    "replaces_note": "no pallas_call site: the jnp.linalg.lstsq XLA lowers in the "
+                                     "reference's GMRES restart; plain version: torch.linalg.svd "
+                                     "at jnp.linalg.lstsq's cutoff"})
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
     print(json.dumps({"kernels": kernels}))

@@ -446,8 +446,8 @@ class LinearOperator(abc.ABC):
         """Whether an apply can run inside a CUDA graph: it reads nothing
         back to the host and does no host work per call (after its lazy
         plans exist). A composite is safe when everything it holds is; a leaf
-        that is not (a host factorization, a timer, a nested GMRES solve)
-        says so, and solves over it run the per-iteration loop
+        that is not (a host factorization, a timer) says so, and solves over
+        it run the per-iteration loop
         (``utils/loop.py``). DTensor leaves are safe: their dispatch is host
         work that a capture records once."""
         return all(_is_capture_safe(getattr(self, f, None)) for f in self._fields_tensors)

@@ -432,16 +432,14 @@ class IterativeInverseOperator(LinearOperator):
     frozen outer iteration it runs no iteration), and on the card as one
     CUDA while node inside the outer solver's captured block
     (``utils/loop.py``), so the whole nested solve replays with one host read
-    per outer block. That holds when the inner solver runs on
-    ``loop.device_while`` (``cg``, ``minres``, ``bicgstab``; ``"auto"`` on a
-    hermitian operator) and the wrapped operator is capture-safe
-    (``capture_safe``). GMRES (``"gmres"``, ``"auto"`` otherwise) is not:
-    its restarts run on ``loop.host_while``, which reads the residual and
-    solves the small least-squares problem on the host, so solves over it
-    take the per-iteration loop. ``inner_iterations`` sums the inner
-    iterations of every apply since ``reset_inner_iterations()`` (a 0-dim
-    counter on the operator's device that each apply, captured or not, adds
-    into, read when asked).
+    per outer block. Every inner solver runs on ``loop.device_while`` (GMRES,
+    ``"auto"`` on a non-hermitian operator, one restart a block: Arnoldi, its
+    least-squares step on the card by E2, the residual), so this holds
+    whenever the wrapped operator is capture-safe (``capture_safe``).
+    ``inner_iterations`` sums the inner iterations of every apply (GMRES:
+    restarts) since ``reset_inner_iterations()`` (a 0-dim counter on the
+    operator's device that each apply, captured or not, adds into, read when
+    asked).
     """
 
     _fields_tensors = ("op",)
@@ -449,7 +447,6 @@ class IterativeInverseOperator(LinearOperator):
     _fields_written = ("_iters",)  # every apply adds its inner iterations into it
 
     _SOLVERS = ("auto", "cg", "minres", "bicgstab", "gmres")
-    _DEVICE_LOOP = ("cg", "minres", "bicgstab")  # the inner solvers on loop.device_while
 
     def __init__(self, op, *, tol: float = 1e-8, maxiter: int = 100, solver: str = "auto"):
         super().__init__()
@@ -466,12 +463,6 @@ class IterativeInverseOperator(LinearOperator):
         self._maxiter = int(maxiter)
         self._solver = solver
         self._iters = torch.zeros((), dtype=torch.int64, device=op.device or "cpu")
-
-    @property
-    def capture_safe(self) -> bool:
-        """True when the inner solver runs on ``loop.device_while`` and the
-        wrapped operator is capture-safe; GMRES's host restarts are not."""
-        return self._resolved(self.op) in self._DEVICE_LOOP and self.op.capture_safe
 
     def _resolved(self, inner) -> str:
         if self._solver == "auto":

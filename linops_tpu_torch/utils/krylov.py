@@ -16,10 +16,13 @@ Under ``torch.func.vmap`` the solvers with a stopping test stop as
 
 GMRES keeps the reference's scheme: one Arnoldi cycle of ``restart`` steps
 with full (classical Gram-Schmidt) orthogonalization against the whole
-basis (one captured graph on the card), then the small least-squares
-problem solved eagerly through an SVD with the reference's cutoff
-(``torch.linalg.svd`` checks its status on the host), and it counts
-restarts, not iterations: one host read per restart.
+basis, then the small least-squares problem with the reference's cutoff
+(``kernels/small_lstsq.py``: on the card E2, a kernel that reads nothing
+back; on the CPU the SVD), and it counts restarts, not iterations. A
+restart is one masked iteration of ``loop.device_while`` in blocks of
+``GMRES_BLOCK`` (one) restart: the whole solve replays as captured blocks,
+one host read per restart, and nested in another solve (an
+``opIterativeInverse`` on GMRES) it is a CUDA while node.
 """
 
 from __future__ import annotations
@@ -28,10 +31,16 @@ import torch
 
 from ..core.base import LinearOperator
 from ..core.precision import pcolumn_dot, pmatmul, pvdot
+from ..kernels.small_lstsq import small_lstsq
 from . import loop
 
 __all__ = ["matvec_chain", "cg", "gmres", "minres", "bicgstab", "lsqr", "chebyshev",
            "power_iteration"]
+
+# restarts per masked block of GMRES: a frozen restart (past convergence)
+# costs a whole Arnoldi cycle, so a longer block would waste up to its length
+# less one cycles, against one host read per restart saved
+GMRES_BLOCK = 1
 
 
 def matvec_chain(op: LinearOperator, v, iters: int = 100, mode: str = "N",
@@ -138,29 +147,23 @@ def _cg_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int
     return X, k, torch.sqrt(pcolumn_dot(R, R).real)
 
 
-def _lstsq(a, b):
-    """min ‖a y − b‖ through the SVD, singular values below
-    eps·max(a.shape)·s₀ dropped (``jnp.linalg.lstsq``'s default)."""
-    u, s, vh = torch.linalg.svd(a, full_matrices=False)
-    mask = s >= torch.finfo(s.dtype).eps * max(a.shape) * s[0]
-    s_inv = torch.where(mask, 1.0 / torch.where(mask, s, torch.ones_like(s)),
-                        torch.zeros_like(s)).to(a.dtype)
-    return pmatmul(vh.conj().T, s_inv * pmatmul(u.conj().T, b))
-
-
 def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 30,
           maxiter: int = 10, M: LinearOperator = None):
     """Restarted GMRES(m) for general square operators, with an optional
     left preconditioner ``M ≈ A⁻¹``. Each restart cycle runs ``restart``
     Arnoldi steps with full orthogonalization, then solves the small
-    least-squares problem. Stops when ‖b − Ax‖ ≤ tol·‖b‖ or after
-    ``maxiter`` cycles. Returns (x, restarts used, final residual norm).
+    least-squares problem (``small_lstsq``: E2 on the card). Stops when
+    ‖b − Ax‖ ≤ tol·‖b‖ or after ``maxiter`` cycles. Returns (x, restarts
+    used, final residual norm).
 
-    The Arnoldi cycle writes its basis in place, one captured graph on the
-    card (``loop.device_call``; the first cycle of a signature runs
-    eagerly). Under ``torch.func.vmap`` it stacks the rows instead (vmap
-    cannot write a batched row in place), and the restarts stop per member
-    as ``jax.vmap`` of a while loop does."""
+    The restarts run on ``loop.device_while`` in blocks of ``GMRES_BLOCK``,
+    as the reference runs them in one ``lax.while_loop``: on the card a
+    cached solve replays one captured restart per host read (Arnoldi, E2 and
+    the residual; the basis written in place, in the block's memory), and a
+    GMRES nested in another solve's captured block is a CUDA while node. The
+    Arnoldi cycle writes its basis in place; under ``torch.func.vmap`` it
+    stacks the rows instead (vmap cannot write a batched row in place), and
+    the restarts stop per member as ``jax.vmap`` of a while loop does."""
     n = b.shape[0]
     b, dt, _, prec = _setup(op, b, M)
     x = torch.zeros_like(b) if x0 is None else x0.to(dt)
@@ -203,14 +206,15 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
     def body(state, consts, _):
         x, _ = state
         b = consts[0]
-        V, H, beta = loop.device_call(arnoldi, (x, b), ops=(op, M), key=("gmres", m))
+        V, H, beta = arnoldi(x, b)
         e1 = torch.where(torch.arange(m + 1, device=b.device) == 0, beta.to(dt), 0.0)
-        x = x + pmatmul(V[:m].T, _lstsq(H, e1))
+        x = x + pmatmul(V[:m].T, small_lstsq(H, e1))
         return x, torch.linalg.vector_norm(b - op.apply(x, "N"))
 
     res = torch.linalg.vector_norm(b - op.apply(x, "N"))
-    (x, res), k = loop.host_while(lambda s, c: s[1] > c[1], body, (x, res), maxiter,
-                                  consts=(b, tol_abs))
+    (x, res), k = loop.device_while(lambda s, c: s[1] > c[1], body, (x, res), maxiter,
+                                    consts=(b, tol_abs), ops=(op, M), key=("gmres", m),
+                                    block=GMRES_BLOCK)
     return x, k, res
 
 

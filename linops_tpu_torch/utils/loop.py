@@ -38,9 +38,9 @@ its leaves' shapes and dtypes. So a fresh operator of a cached structure (a
 Newton step's new Jacobian, new values on one sparse pattern, a fresh
 quasi-Newton model) replays the cached block. A captured block reads static
 copies of every tensor its operators hold, *mirrors* (``_Mirrors``) that the
-blocks over one operators' key share (a chain's N and T blocks, a solver's
-several ``device_call``s): its capture ran with the operators' fields
-pointed at them, past the operators' own ``__setattr__`` hooks, and before
+blocks over one operators' key share (a chain's N and T blocks): its capture
+ran with the operators' fields pointed at them, past the operators' own
+``__setattr__`` hooks, and before
 a solve's first replay the loop copies in every tensor that is not the one
 it copied last (another object, or a bumped ``_version``; an address alone
 could be a freed tensor's). A repeated solve of one operator therefore
@@ -69,8 +69,8 @@ solve. Lazy plans are built before the key is taken
 (``LinearOperator._build_derived``, called by the walk), so a fresh
 operator keys as one that has been applied. The cache is a small LRU keyed
 by the solve's signature (the operators' key, the state's shapes and
-dtypes, the solver's own static arguments and ``BLOCK``); it holds both
-kinds of entry, a signature seen once and a captured block, and an eviction
+dtypes, the solver's own static arguments and its block length); it holds
+both kinds of entry, a signature seen once and a captured block, and an eviction
 drops the graph, its private memory pool and, unless another block shares
 them, its mirrors. Distributed solves have an LRU of their own (see below).
 ``apply_cache_sizes()`` (``core/apply.py``) counts them.
@@ -79,10 +79,10 @@ On the CPU the same masked blocks run eagerly, and each signature they run
 is recorded in the cache as a card's first solve records it, so the
 counters mean the same on both devices. Under ``torch.func.vmap``,
 when a gradient is wanted, or when an operator is not ``capture_safe`` (a
-host factorization, a timer, a nested GMRES solve, a ``FunctionOperator``
-not declared safe), the plain per-iteration loop runs (``host_while``;
-``stats["path"]`` says which path ran). ``CAPTURE = False`` is a test hook:
-the card then runs eager blocks, as the CPU does.
+host factorization, a timer, a ``FunctionOperator`` not declared safe), the
+plain per-iteration loop runs (``stats["path"]`` says which path ran).
+``CAPTURE = False`` is a test hook: the card then runs eager blocks, as the
+CPU does.
 
 Nested loops. A loop started inside a masked iteration's body (an
 ``opIterativeInverse`` preconditioner's inner solve) ANDs that iteration's
@@ -98,8 +98,8 @@ and whose condition a kernel sets from the inner test (which ANDs the outer
 mask) before the node and at the end of each body run. Its count is a 0-dim
 tensor on the card. The body is captured on a stream of its own (a stream
 that is capturing cannot begin a second capture), its allocations routed to
-a private pool the outer block holds. ``device_fori`` and ``device_call``
-started inside a capture run inline.
+a private pool the outer block holds. ``device_fori`` started inside a
+capture runs inline.
 
 Distributed solves. A sharded, halo or 2-D halo operator's solve runs the
 same way over DTensor state: the count and the test stay plain tensors
@@ -125,18 +125,20 @@ A hit, a miss and an eviction then happen on every rank at the same solve. On th
 card this has run at one rank only, where NCCL lowers a collective to a
 copy: no capture of a collective between ranks has run yet.
 
-``BLOCK`` is 4. A solve of I iterations runs ⌈I/4⌉ blocks, the last one
-partly frozen, so it spends at most 3 frozen iterations of device time and
-reads the host ⌈I/4⌉ + 1 times (the initial test, then once per block;
-the CPU's blocks and a capturing solve), where the plain loop reads I + 1
-times (a signature's first solve on the card). A replay of a cached block
-does not wait for the initial test: it runs, and its read says whether
-anything moved, so a cached solve reads max(⌈I/4⌉, 1) times (a solve that
-starts converged spends one frozen block). The choice weighs the card's
-numbers (NVIDIA H100 80GB HBM3): a read and a replay leave the card idle
-some tens of µs per block, against 273 µs of device time per slice-1 CG
-iteration; a longer block halves that idle share and doubles the worst-case
-waste (``PERF.md`` §5-§6 give the measured values).
+``BLOCK`` is 4, the default block length; a loop may name its own
+(``device_while(block=...)``: GMRES takes one restart a block, since a
+frozen restart costs as much as a live one). A solve of I iterations runs
+⌈I/4⌉ blocks, the last one partly frozen, so it spends at most 3 frozen
+iterations of device time and reads the host ⌈I/4⌉ + 1 times (the initial
+test, then once per block; the CPU's blocks and a capturing solve), where
+the plain loop reads I + 1 times (a signature's first solve on the card). A
+replay of a cached block does not wait for the initial test: it runs, and
+its read says whether anything moved, so a cached solve reads max(⌈I/4⌉, 1)
+times (a solve that starts converged spends one frozen block). The choice
+weighs the card's numbers (NVIDIA H100 80GB HBM3): a read and a replay leave
+the card idle some tens of µs per block, against 273 µs of device time per
+slice-1 CG iteration; a longer block halves that idle share and doubles the
+worst-case waste (``PERF.md`` §5-§6 give the measured values).
 
 Launch counts stay the wrappers' own (``kernels/*.py::launch_counts``): a
 wrapper counts each launch it issues, one recorded into a graph being
@@ -511,7 +513,9 @@ class _Graph:
         self.bound = [t for i, t in enumerate(sig.tensors if sig is not None else ())
                       if i not in copied]
         self.static_bytes = mirrors.nbytes if mirrors is not None else 0  # held by this block
-        before = [dict(t) for t in _LAUNCH_TABLES]
+        # per table: a kernel module first imported during the capture registers its
+        # table then, and counts from 0
+        before = {id(t): dict(t) for t in _LAUNCH_TABLES}
         t0 = time.perf_counter()
         # keep_graph: the captured graph stays readable (raw_cuda_graph), so its
         # kernel nodes can be listed (chip_smoke.py counts them per block)
@@ -555,8 +559,8 @@ class _Graph:
         _captures += 1
         _bump("capture_ms", (time.perf_counter() - t0) * 1e3)
         _bump("captures")
-        self.launches = {k: t[k] - b.get(k, 0) for t, b in zip(_LAUNCH_TABLES, before)
-                         for k in t if t[k] != b.get(k, 0)}
+        self.launches = {k: t[k] - before.get(id(t), {}).get(k, 0) for t in _LAUNCH_TABLES
+                         for k in t if t[k] != before.get(id(t), {}).get(k, 0)}
 
     def __del__(self):
         for pool, uses in getattr(self, "body_pools", {}).values():
@@ -632,8 +636,9 @@ def _signature(tensors) -> tuple:
                  for t in tensors)
 
 
-def _key(kind, key, opkey, tensors) -> tuple:
-    return (kind, key, BLOCK, _signature(tensors), opkey)
+def _key(kind, key, opkey, tensors, block: int | None = None) -> tuple:
+    """A solve's cache key; ``block`` its block length (``BLOCK`` when None)."""
+    return (kind, key, BLOCK if block is None else block, _signature(tensors), opkey)
 
 
 class _Seen:
@@ -670,12 +675,12 @@ def _bound_key(ckey, sig) -> tuple:
                                  for i in sig.mirrored if i not in state))
 
 
-def _find(kind, key, sig, tensors, dist: bool) -> tuple:
+def _find(kind, key, sig, tensors, dist: bool, block: int | None = None) -> tuple:
     """(the cache key of a solve on the graph path, whether it was seen, its
     captured block or None): the structure's key, or where the structure's
     copies did not fit, its ``_bound_key``."""
     cache = _cache(dist)
-    ckey = _key(kind, key, sig.key, tensors)
+    ckey = _key(kind, key, sig.key, tensors, block)
     if isinstance(cache.get(ckey), _Unmirrored):
         cache.move_to_end(ckey)
         ckey = _bound_key(ckey, sig)
@@ -846,12 +851,12 @@ def _capture(ckey, fn, args, ops, what: str, sig, dist: bool):
     return g, out
 
 
-def _remember(kind, key, ops, tensors) -> None:
+def _remember(kind, key, ops, tensors, block: int | None = None) -> None:
     """Note a signature whose eager run built its plans (its key is taken
     now, with them): on the card its next run captures."""
     sig = _walk_ops(ops)
     dist = _distributed(list(sig.tensors) + list(tensors))
-    ckey, seen, _ = _find(kind, key, sig, tensors, dist)
+    ckey, seen, _ = _find(kind, key, sig, tensors, dist, block)
     if not seen:
         _store(ckey, _Seen(sig.tensors if dist and ckey[0] == "bound" else ()), dist)
 
@@ -924,24 +929,15 @@ def _plain_while(cond, body, state, consts, maxiter, go, path):
         return state, k
 
 
-def host_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = ()):
-    """``device_while``'s semantics in the plain loop: the host reads the
-    test every iteration (for a body that reads the host itself, such as
-    GMRES's restart with its SVD). Returns (state, iterations)."""
-    state, consts = tuple(state), tuple(consts)
-    go = cond(state, consts)
-    return _plain_while(cond, body, state, consts, maxiter, go,
-                        "vmap" if _batched(go) else "per_iteration")
-
-
 def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), ops=(),
-                 key=()):
+                 key=(), block: int | None = None):
     """``state = body(state, consts, k)`` while ``cond(state, consts)``
     holds, at most ``maxiter`` times; ``k`` is the iteration's index as a
     0-dim int64 tensor on the state's device. ``consts`` are tensors the
     body reads and never changes; ``ops`` the operators it applies (their
     ``capture_signature`` keys the captured block, ``capture_safe`` picks
-    the path); ``key`` the caller's static arguments the body depends on. The
+    the path); ``key`` the caller's static arguments the body depends on;
+    ``block`` the iterations of a masked block (``BLOCK`` when None). The
     body reads no other tensor made per call: a captured block would replay
     over it.
 
@@ -955,6 +951,7 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
     body), the loop ANDs that iteration's mask into its test: in a frozen
     outer iteration it runs no iteration."""
     state, consts = tuple(state), tuple(consts)
+    block = BLOCK if block is None else int(block)
     outer = _OUTER[-1] if _OUTER else None
     with _replicating(state + consts + (() if outer is None else (outer,))):
         go = cond(state, consts)
@@ -963,13 +960,13 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
         if outer is not None:
             go = go & outer
         if state[0].is_cuda and torch.cuda.is_current_stream_capturing():
-            return _while_node(cond, body, state, consts, maxiter, go, ops, key)
-        return _device_while(cond, body, state, consts, maxiter, go, ops, key)
+            return _while_node(cond, body, state, consts, maxiter, go, ops, key, block)
+        return _device_while(cond, body, state, consts, maxiter, go, ops, key, block)
 
 
-def _while_node(cond, body, state, consts, maxiter, go, ops, key):
+def _while_node(cond, body, state, consts, maxiter, go, ops, key, block):
     """``device_while`` inside a capture: a CUDA conditional WHILE node
-    (``kernels/graph_cond.py``) whose body is one masked block of ``BLOCK``
+    (``kernels/graph_cond.py``) whose body is one masked block of ``block``
     iterations. Its condition is set from the loop's test by a kernel before
     the node and at the end of each body run, so the node repeats the block
     until the test fails or ``maxiter`` is reached, and nothing is read on
@@ -992,7 +989,7 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key):
         with graph_cond.while_node(act, _body_stream(dev, depth),
                                    owner.body_memory(depth)) as body_graph:
             owner.bodies.append(body_graph)
-            s_out, k_out, a_out = _while_block(cond, body, bufs, consts, k, act, lim, BLOCK)
+            s_out, k_out, a_out = _while_block(cond, body, bufs, consts, k, act, lim, block)
             for b, b2 in zip(bufs, s_out):
                 b.copy_(b2)
             k.copy_(k_out)
@@ -1005,17 +1002,17 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key):
     return bufs, k
 
 
-def _device_while(cond, body, state, consts, maxiter, go, ops, key):
+def _device_while(cond, body, state, consts, maxiter, go, ops, key, block):
     path, sig, dist = _path(state + consts, ops)
     if path == "per_iteration":
         return _plain_while(cond, body, state, consts, maxiter, go, path)
     dev = state[0].device
-    ckey, seen, g = (_find("while", key, sig, state + consts, dist) if path == "graph"
+    ckey, seen, g = (_find("while", key, sig, state + consts, dist, block) if path == "graph"
                      else (None, False, None))
     if path == "graph" and not seen:  # a signature's first solve: the plain loop
         with _on_capture_stream(dev):
             state, count = _plain_while(cond, body, state, consts, maxiter, go, "per_iteration")
-        _remember("while", key, ops, state + consts)
+        _remember("while", key, ops, state + consts, block)
         return state, count
     k = torch.zeros((), dtype=torch.int64, device=dev)
     lim = torch.full((), maxiter, dtype=torch.int64, device=dev)
@@ -1024,19 +1021,19 @@ def _device_while(cond, body, state, consts, maxiter, go, ops, key):
         if g is None and not _read(act):  # a cached block runs first and reads after
             st["iterations"] = 0
             if path == "blocks":
-                _remember("while", key, ops, state + consts)
+                _remember("while", key, ops, state + consts, block)
             return state, 0
         if path == "blocks":  # the CPU (or CAPTURE off): eager blocks
             while True:
-                state, k, act = _while_block(cond, body, state, consts, k, act, lim, BLOCK)
+                state, k, act = _while_block(cond, body, state, consts, k, act, lim, block)
                 st["blocks"] += 1
                 more, count = _read(torch.stack((act.to(torch.int64), k)))
                 if not more:
                     st["iterations"] = count
-                    _remember("while", key, ops, state + consts)
+                    _remember("while", key, ops, state + consts, block)
                     return state, count
         if g is None:
-            ns, nc, n = len(state), len(consts), BLOCK
+            ns, nc, n = len(state), len(consts), block
 
             def block(*bufs):
                 s_in, c_in, (k_in, a_in, l_in) = bufs[:ns], bufs[ns:ns + nc], bufs[ns + nc:]
@@ -1079,7 +1076,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
         return _fori_block(body, state, consts, iters)  # nested in a block being captured
     path, sig, dist = _path(state + consts, ops) if iters > 0 else ("blocks", None, False)
     n = BLOCK
-    ckey, seen, g = (_find("fori", key, sig, state + consts, dist) if path == "graph"
+    ckey, seen, g = (_find("fori", key, sig, state + consts, dist, n) if path == "graph"
                      else (None, False, None))
     label = path if path != "graph" else "graph" if seen and iters >= n else "blocks"
     with _Loop(label) as st:
@@ -1087,7 +1084,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
             st["blocks"] += iters > 0
             out = _fori_block(body, state, consts, max(iters, 0))
             if path == "blocks" and iters > 0:
-                _remember("fori", key, ops, state + consts)
+                _remember("fori", key, ops, state + consts, n)
             return out
         dev = state[0].device
         if not seen or iters < n:  # eagerly, on the capture stream
@@ -1096,7 +1093,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
                 first = _fori_block(body, state, consts, 1)
                 out = _fori_block(body, first, consts, iters - 1)
             if _signature(first) == _signature(state):  # type-stable: it can be captured
-                _remember("fori", key, ops, state + consts)
+                _remember("fori", key, ops, state + consts, n)
             return out
         ns = len(state)
         if g is None:
@@ -1119,35 +1116,3 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
         g.finish(sig.tensors)
         state = tuple(s.clone() for s in g.inputs[:ns])
         return _fori_block(body, state, consts, iters - done)
-
-
-def device_call(fn, args: tuple, *, ops=(), key=()):
-    """``fn(*args)`` (a tuple of tensors out) as a captured graph on a CUDA
-    device: replayed when this signature was captured before, captured when
-    it ran before, else run eagerly on the capture stream. The outputs of a
-    replay are the graph's own buffers, valid until its next replay: callers
-    copy out what they keep. On the CPU, under a transform, or for operators
-    that are not capture-safe, a plain call."""
-    args = tuple(args)
-    if args and args[0].is_cuda and torch.cuda.is_current_stream_capturing():
-        return tuple(fn(*args))  # nested in a block being captured
-    path, sig, dist = _path(args, ops)
-    if path != "graph":
-        out = tuple(fn(*args))
-        if path == "blocks":
-            _remember("call", key, ops, args)
-        return out
-    ckey, seen, g = _find("call", key, sig, args, dist)
-    if g is not None:
-        out = g.run(args, sig.tensors)
-        g.finish(sig.tensors)
-        return out
-    if not seen:
-        with _on_capture_stream(args[0].device):
-            out = tuple(fn(*args))
-        _remember("call", key, ops, args)
-        return out
-    g, out = _capture(ckey, lambda *a: tuple(fn(*a)), args, ops, f"device_call{key!r}", sig,
-                      dist)
-    g.finish(sig.tensors)
-    return out

@@ -14,7 +14,9 @@ For each solver the same numpy inputs go through:
 The cases put the stop in the middle of a block, at ``maxiter`` in the
 middle of a block, and at b = 0 (no block runs), and count the host reads:
 one for the initial test and one per block, ⌈iterations/BLOCK⌉ + 1 in all
-(GMRES: one per restart, plus the initial test). Solves over an operator
+(GMRES counts restarts, in blocks of its own ``krylov.GMRES_BLOCK``, one
+restart by default: one read per restart, plus the initial test; the tests
+set it with ``BLOCK``). Solves over an operator
 that is not ``capture_safe`` (a ``FunctionOperator`` unless declared) take
 the per-iteration path. The shifted L-BFGS solves take σ as a tensor, as
 the trust-region loop of example 04 holds it. The graph cache's bookkeeping
@@ -32,7 +34,7 @@ import torch
 import linops_tpu as lo
 import linops_tpu_torch as lt
 from linops_tpu.qn import shifted_solve as JS
-from linops_tpu_torch.utils import loop
+from linops_tpu_torch.utils import krylov, loop
 
 
 def t_(a):
@@ -97,6 +99,7 @@ def run(pkg, solver, op, b, kw, extra):
 
 def port_blocks(monkeypatch, block, *args):
     monkeypatch.setattr(loop, "BLOCK", block)
+    monkeypatch.setattr(krylov, "GMRES_BLOCK", block)  # GMRES's own block length
     out = run(lt, *args)
     return out, dict(loop.stats)
 
@@ -113,12 +116,9 @@ def test_blocks_match_per_iteration_loop_and_reference(rng, monkeypatch, name):
     assert k4 == int(kj)
     xj = np.asarray(xj)
     assert np.linalg.norm(x4.numpy() - xj) <= 1e-10 * np.linalg.norm(xj)
-    if solver == "gmres":  # one read per restart, plus the initial test
-        assert st4["path"] == "per_iteration" and st4["reads"] == k4 + 1
-    else:
-        assert st4["path"] == "blocks" and st4["blocks"] == math.ceil(k4 / 4)
-        assert st4["reads"] == st4["blocks"] + 1
-        assert st1["reads"] == k1 + 1
+    assert st4["path"] == "blocks" and st4["blocks"] == math.ceil(k4 / 4)
+    assert st4["reads"] == st4["blocks"] + 1
+    assert st1["path"] == "blocks" and st1["reads"] == k1 + 1
 
 
 def test_bicgstab_breakdown_stops_mid_block(monkeypatch):
@@ -222,11 +222,10 @@ def test_fori_solvers_match_plain_loop_and_reference(rng, monkeypatch, solver, i
 
 def test_operators_that_are_not_capture_safe_take_the_per_iteration_path(rng):
     """``capture_safe`` is declared from the graph: a host factorization, a
-    nested GMRES solve (its restarts read the host), a timer or anything
-    holding one takes the per-iteration loop (one read per iteration), the
-    rest the blocked one. A nested solve on ``device_while`` (``cg``) is
-    capture-safe since its loop runs inside the outer block: the blocked
-    path, with the per-iteration loop's iterations and bits."""
+    timer or anything holding one takes the per-iteration loop (one read per
+    iteration), the rest the blocked one. A nested solve on ``device_while``
+    (``cg``, and ``gmres``, whose restarts run there too) is capture-safe
+    since its loop runs inside the outer block: the blocked path."""
     import scipy.sparse as sp
 
     n = 30
@@ -239,18 +238,19 @@ def test_operators_that_are_not_capture_safe_take_the_per_iteration_path(rng):
     gmres_inv = lt.opIterativeInverse(shifted, tol=1e-12, solver="gmres")
     timed = lt.TimedOperator(A)
     assert A.capture_safe and (A @ A + 2.0 * A).capture_safe
-    assert iter_inv.capture_safe and (A + iter_inv).capture_safe
-    for op in (sparse_inv, gmres_inv, timed):
+    for op in (iter_inv, gmres_inv):
+        assert op.capture_safe and (A + op).capture_safe
+    for op in (sparse_inv, timed):
         assert not op.capture_safe and not (A + op).capture_safe
     x_ref, k_ref, _ = lt.cg(A, b, tol=1e-10, maxiter=200)
     assert loop.stats["path"] == "blocks"
-    for M in (sparse_inv, gmres_inv):
-        x, k, _ = lt.cg(A, b, tol=1e-10, maxiter=200, M=M)
-        assert loop.stats["path"] == "per_iteration" and loop.stats["reads"] == k + 1
-        assert torch.linalg.vector_norm(x - x_ref) <= 1e-8 * torch.linalg.vector_norm(x_ref)
-    x, k, _ = lt.cg(A, b, tol=1e-10, maxiter=200, M=iter_inv)
-    assert loop.stats["path"] == "blocks" and loop.stats["reads"] == -(-k // loop.BLOCK) + 1
+    x, k, _ = lt.cg(A, b, tol=1e-10, maxiter=200, M=sparse_inv)
+    assert loop.stats["path"] == "per_iteration" and loop.stats["reads"] == k + 1
     assert torch.linalg.vector_norm(x - x_ref) <= 1e-8 * torch.linalg.vector_norm(x_ref)
+    for M in (iter_inv, gmres_inv):
+        x, k, _ = lt.cg(A, b, tol=1e-10, maxiter=200, M=M)
+        assert loop.stats["path"] == "blocks" and loop.stats["reads"] == -(-k // loop.BLOCK) + 1
+        assert torch.linalg.vector_norm(x - x_ref) <= 1e-8 * torch.linalg.vector_norm(x_ref)
     x, k, _ = lt.cg(timed, b, tol=1e-10, maxiter=200)
     assert loop.stats["path"] == "per_iteration" and k == k_ref and torch.equal(x, x_ref)
 

@@ -59,6 +59,22 @@ ends with NaN out and leaves the other matrices of its batch alone.
 LOBPCG, svds and normest on the device loop: the first, capturing and
 cached solves give the same count and bits, the captured block holds E1,
 and a replay under ``set_sync_debug_mode("error")`` raises nothing.
+
+E2, the small least-squares solver (slice 14), against its plain version
+(``torch.linalg.svd`` at ``jnp.linalg.lstsq``'s cutoff), for (m + 1) x m Hessenbergs in f32, f64, c64 and c128 at m in
+{1, 2, 8, 30, 64, 128} (c64 and c128 from m = 96, everything at 128, from the
+global workspace): the residual ‖H y − b‖ within 50·eps·‖b‖ of the plain
+version's in the input's type, the singular values within
+max(50, 4·sqrt(sweeps·m))·eps·σ_max of LAPACK's on the inputs widened to f64
+or c128 (cuSOLVER's own stray further on these ill-conditioned inputs) (the roundings of the rotations each
+column takes, a random walk; these Hessenbergs reach κ = 1e17); the columns
+past a lucky breakdown give exact zeros in y, the zero matrix y = 0;
+the same bits on a rerun, as each matrix alone, in a CUDA graph and under
+``torch.func.vmap`` (one launch). GMRES in captured blocks (one restart a
+block), over ``shard_operator`` at world size 1, and nested in a captured CG
+as while nodes: the per-iteration loop's
+count and bits, E2 in the captured graph, no cuSOLVER call and no sync in a
+replay.
 """
 
 import numpy as np
@@ -69,6 +85,7 @@ import linops_tpu_torch as lt
 from linops_tpu_torch.kernels import bsr_spmv as K
 from linops_tpu_torch.kernels import lane_gather as LG
 from linops_tpu_torch.kernels import small_eigh as E1
+from linops_tpu_torch.kernels import small_lstsq as E2
 
 pytestmark = pytest.mark.gpu
 
@@ -1870,6 +1887,27 @@ def test_sharded_cg_in_captured_blocks_at_world_size_one(dev, loop_mod):
     torch.cuda.synchronize()
 
 
+def test_sharded_gmres_in_captured_blocks_at_world_size_one(dev, loop_mod):
+    """GMRES(8) over ``shard_operator`` at world size 1 (NCCL; plain
+    vectors, as GMRES takes them) runs in captured blocks of one restart:
+    its count and x bit for bit the per-iteration loop's and the unsharded
+    solve's, one read per restart on a cached solve, E2 in the block."""
+    from linops_tpu_torch.parallel import shard_operator
+
+    mesh = _world_of_one()
+    A, _, b = slice1_graph(dev)
+    A_sh = shard_operator(A, mesh)
+    runs = solve_modes(loop_mod, lambda: lt.gmres(A_sh, b, tol=1e-5, restart=8, maxiter=30))
+    x0, k0, _ = runs["per_iteration"]
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(x, x0), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["captures"] == 0 and st["reads"] == k0
+    assert loop_mod.last_graph().launches.get("small_lstsq", 0) == 1
+    x_un, k_un, _ = lt.gmres(A, b, tol=1e-5, restart=8, maxiter=30)
+    assert k_un == k0 and torch.equal(x_un, x0)
+
+
 @pytest.mark.parametrize("inner", ["cg", "minres"])
 def test_nested_solve_is_a_while_node(dev, loop_mod, inner):
     """CG preconditioned by ``opIterativeInverse`` (an inner ``inner``
@@ -1958,3 +1996,131 @@ def test_capture_failure_inside_a_while_body_names_the_operator(dev, loop_mod):
         lt.cg(A, b, M=M, tol=1e-5, maxiter=50)
     x, k, _ = lt.cg(A, b, tol=1e-5, maxiter=50)
     assert k > 0 and torch.isfinite(x).all()
+
+
+def lstsq_batch(dev, m, dtype, seed=140):
+    """(m + 1) x m Hessenbergs and β e₁ on the card: two random, one of a
+    lucky breakdown at step m // 2 (its later columns zero), one zero."""
+    g = torch.Generator(device=dev).manual_seed(seed + m)
+    rdt = torch.float64 if dtype in (torch.float64, torch.complex128) else torch.float32
+    H = torch.randn((4, m + 1, m), generator=g, device=dev, dtype=rdt)
+    if dtype.is_complex:
+        H = torch.complex(H, torch.randn((4, m + 1, m), generator=g, device=dev, dtype=rdt))
+    H = torch.triu(H, -1)
+    H[2, :, m // 2 + 1:] = 0
+    H[3] = 0
+    b = torch.zeros((4, m + 1), device=dev, dtype=dtype)
+    b[:, 0] = torch.rand(4, generator=g, device=dev) + 0.5
+    return H.to(dtype), b
+
+
+def lstsq_residuals(H, b, y):
+    wide = torch.complex128 if H.is_complex() else torch.float64
+    return torch.linalg.vector_norm(
+        (H.to(wide) @ y.to(wide).unsqueeze(-1)).squeeze(-1) - b.to(wide), dim=-1)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 30, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_small_lstsq_matches_plain(dev, dtype, m):
+    H, b = lstsq_batch(dev, m, dtype)
+    E2.reset_launch_counts()
+    y, s, sweeps = E2.small_lstsq(H, b, full=True)
+    torch.cuda.synchronize()
+    assert E2.launch_counts()["small_lstsq"] == 1
+    assert y.shape == (4, m) and y.dtype == dtype and s.shape == (4, m)
+    assert int(sweeps.max()) < 30
+    eps = torch.finfo(s.dtype).eps
+    y_p = E2.small_lstsq_plain(H, b)
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    s_w = torch.linalg.svdvals(H.to(wide).cpu()).to(dev)  # LAPACK: cuSOLVER's is looser
+    bn = torch.linalg.vector_norm(b.to(wide), dim=-1)
+    assert bool((lstsq_residuals(H, b, y) <= lstsq_residuals(H, b, y_p) + 50 * eps * bn).all())
+    # each column takes sweeps·(m − 1) rotations, whose roundings add up as a
+    # random walk: random Hessenbergs reach κ = 1e17 at m = 128
+    tol_s = max(50.0, 4.0 * (int(sweeps.max()) * m) ** 0.5) * eps
+    assert float((s.double() - s_w).abs().max()) <= tol_s * float(s_w.max())
+    assert not y[2, m // 2 + 1:].any() and not y[3].any() and not s[3].any()
+    y2 = E2.small_lstsq(H, b)
+    y3 = E2.small_lstsq(H[1:2], b[1:2])
+    assert torch.equal(y, y2) and torch.equal(y[1], y3[0])
+
+
+def test_small_lstsq_in_a_graph_and_under_vmap(dev):
+    """A replay in a CUDA graph and a vmap over the batch give the eager
+    bits; the replay makes no host synchronisation; vmap launches once."""
+    H, b = lstsq_batch(dev, 30, torch.float32)
+    y_e = E2.small_lstsq(H, b)
+    Hs, bs = H.clone(), b.clone()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        y_g = E2.small_lstsq(Hs, bs)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(y_g, y_e)
+    E2.reset_launch_counts()
+    y_v = torch.func.vmap(E2.small_lstsq)(H, b)
+    assert torch.equal(y_v, y_e) and E2.launch_counts()["small_lstsq"] == 1
+
+
+def test_gmres_in_captured_blocks(dev, loop_mod):
+    """GMRES(8) on slice 1's graph plus a dense nonsymmetric part: every
+    loop gives the per-iteration loop's restarts and bits, a cached solve
+    reads once per restart and replays a block holding E2, with no sync in
+    a replay."""
+    A, _, b = slice1_graph(dev, n=4096)
+    g = torch.Generator(device=dev).manual_seed(141)
+    S = A + lt.MatrixOperator(torch.randn((4096, 4096), generator=g, device=dev) / 64.0)
+
+    def solve():
+        return lt.gmres(S, b, tol=1e-5, restart=8, maxiter=30)
+
+    runs = solve_modes(loop_mod, solve)
+    x0, k0, _ = runs["per_iteration"]
+    assert 1 < k0 < 30
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(x, x0), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["reads"] == k0 and runs["capture"][2]["captures"] == 1
+    gr = loop_mod.last_graph()
+    assert gr.launches.get("small_lstsq", 0) == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gr.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_nested_gmres_is_a_while_node(dev, loop_mod):
+    """CG preconditioned by ``opIterativeInverse(solver="gmres")`` over
+    slice 1's graph: one while node per outer iteration, its body one
+    restart with E2; the outer count, summed inner restarts and x bit for
+    bit the per-iteration loop's; a cached solve reads ⌈I/4⌉."""
+    A, _, b = slice1_graph(dev, n=4096)
+    M = lt.opIterativeInverse(A, tol=1e-2, maxiter=30, solver="gmres")
+    assert M.capture_safe
+
+    def solve():
+        M.reset_inner_iterations()
+        x, k, r = lt.cg(A, b, M=M, tol=1e-5, maxiter=100)
+        return x, (k, M.inner_iterations), r
+
+    solve()
+    runs = solve_modes(loop_mod, solve)
+    x0, k0, _ = runs["per_iteration"]
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(x, x0), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["reads"] == -(-k0[0] // loop_mod.BLOCK)
+    g = loop_mod.last_graph()
+    assert graph_nodes(g.graph.raw_cuda_graph()).get(13, 0) == loop_mod.BLOCK
+    assert g.launches.get("small_lstsq", 0) == loop_mod.BLOCK
+    assert g.launches.get("while_condition", 0) == 2 * loop_mod.BLOCK

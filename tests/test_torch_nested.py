@@ -93,17 +93,62 @@ def test_loop_in_a_frozen_iteration_runs_none(monkeypatch):
     assert solve(4) == (2, 10, [5, 5, 0, 0])  # the block's last two iterations are frozen
 
 
-@pytest.mark.parametrize("which", ["gmres_inner", "timed_inner", "sparse_inverse"])
+def nested_gmres_case(outer, seed=3, n=40):
+    """(the outer operator's matrix, the port's outer operator, its
+    preconditioner opIterativeInverse(matrix + 5·I) on GMRES, b): for an
+    outer CG the SPD S and ``solver="gmres"``; for an outer BiCGSTAB S plus a
+    skew part and ``solver="auto"`` (GMRES on a non-hermitian operator). The
+    inner solves run to 1e-10 with restarts of 30, up to 2 of them."""
+    rng = np.random.default_rng(seed)
+    S = spd(rng, n)
+    flags, solver = (HERM, "gmres") if outer == "cg" else ({}, "auto")
+    if outer == "bicgstab":
+        K = rng.standard_normal((n, n))
+        S = S + 2.0 * (K - K.T)
+    A = lt.LinearOperator(torch.from_numpy(S), **flags, **CPU)
+    shifted = lt.LinearOperator(torch.from_numpy(S + 5.0 * np.eye(n)), **flags, **CPU)
+    M = lt.opIterativeInverse(shifted, tol=1e-10, maxiter=60, solver=solver)
+    return S, A, M, flags, solver, rng.standard_normal(n)
+
+
+@pytest.mark.parametrize("outer", ["cg", "bicgstab"])
+def test_nested_gmres_runs_in_masked_blocks(monkeypatch, outer):
+    """An inner GMRES (its restarts on ``loop.device_while``, one a block)
+    inside an outer CG or BiCGSTAB: the outer solve takes the blocked path
+    (one read per block of 4) with the per-iteration loop's outer
+    iterations, summed inner restarts (more than one in some applies) and x
+    bit for bit; the reference's nested solve agrees."""
+    S, A, M, flags, solver, b = nested_gmres_case(outer)
+    assert M.capture_safe
+    runs = {}
+    for block in (1, 4):
+        monkeypatch.setattr(loop, "BLOCK", block)
+        M.reset_inner_iterations()
+        x, k, _ = getattr(lt, outer)(A, torch.from_numpy(b), tol=1e-10, maxiter=200, M=M)
+        runs[block] = (x, k, M.inner_iterations, dict(loop.stats))
+    (x1, k1, i1, st1), (x4, k4, i4, st) = runs[1], runs[4]
+    assert st["path"] == st1["path"] == "blocks" and st["reads"] == -(-k4 // 4) + 1
+    applies = k4 * (1 if outer == "cg" else 2)
+    assert k4 == k1 and i4 == i1 > applies and torch.equal(x4, x1)
+    n = S.shape[0]
+    Mj = lo.opIterativeInverse(lo.LinearOperator(jnp.asarray(S + 5.0 * np.eye(n)), **flags),
+                               tol=1e-10, maxiter=60, solver=solver)
+    xj, kj, _ = getattr(lo, outer)(lo.LinearOperator(jnp.asarray(S), **flags), jnp.asarray(b),
+                                   tol=1e-10, maxiter=200, M=Mj)
+    xj = np.asarray(xj)
+    assert abs(k4 - int(kj)) <= 1
+    assert np.linalg.norm(x4.numpy() - xj) <= 1e-8 * np.linalg.norm(xj)
+
+
+@pytest.mark.parametrize("which", ["timed_inner", "sparse_inverse"])
 def test_preconditioners_that_read_the_host_take_the_per_iteration_path(which):
-    """A nested GMRES solve (its restarts read the host), an inner operator
-    that is not capture-safe (a timer), and a host factorization
-    (``opSparseInverse``) keep the outer solve on the per-iteration loop."""
+    """An inner operator that is not capture-safe (a timer) and a host
+    factorization (``opSparseInverse``) keep the outer solve on the
+    per-iteration loop."""
     S, A, _, b = nested_case("cg")
     n = S.shape[0]
     shifted = lt.LinearOperator(torch.from_numpy(S + 5.0 * np.eye(n)), **HERM, **CPU)
-    M = {"gmres_inner": lambda: lt.opIterativeInverse(shifted, tol=1e-3, maxiter=30,
-                                                      solver="gmres"),
-         "timed_inner": lambda: lt.opIterativeInverse(lt.TimedOperator(shifted), tol=1e-3,
+    M = {"timed_inner": lambda: lt.opIterativeInverse(lt.TimedOperator(shifted), tol=1e-3,
                                                       maxiter=30, solver="cg"),
          "sparse_inverse": lambda: lt.opSparseInverse(sps.csc_matrix(S + 5.0 * np.eye(n)),
                                                       symm=True)}[which]()
@@ -113,19 +158,20 @@ def test_preconditioners_that_read_the_host_take_the_per_iteration_path(which):
 
 
 def test_iterative_inverse_capture_safety_follows_its_solver():
-    """``capture_safe``: true for the device-loop solvers over a capture-safe
-    operator, ``"auto"`` on a hermitian one (MINRES) included; false for
-    GMRES, ``"auto"`` on a nonsymmetric one, and a host-bound inner operator."""
+    """``capture_safe``: true for every inner solver over a capture-safe
+    operator (all run on ``loop.device_while``), ``"auto"`` on a hermitian
+    one (MINRES) and on a nonsymmetric one (GMRES) included; false over a
+    host-bound inner operator."""
     rng = np.random.default_rng(5)
     S = spd(rng, 12)
     herm = lt.LinearOperator(torch.from_numpy(S), **HERM, **CPU)
     general = lt.LinearOperator(torch.from_numpy(S + np.triu(S, 1)), **CPU)
-    for solver in ("cg", "minres", "bicgstab", "auto"):
+    for solver in ("cg", "minres", "bicgstab", "gmres", "auto"):
         assert lt.opIterativeInverse(herm, solver=solver).capture_safe
-    assert lt.opIterativeInverse(general, solver="bicgstab").capture_safe
-    assert not lt.opIterativeInverse(general).capture_safe  # auto: gmres
-    assert not lt.opIterativeInverse(herm, solver="gmres").capture_safe
-    assert not lt.opIterativeInverse(lt.TimedOperator(herm), solver="cg").capture_safe
+    for solver in ("bicgstab", "gmres", "auto"):  # auto: gmres
+        assert lt.opIterativeInverse(general, solver=solver).capture_safe
+    for solver in ("cg", "gmres"):
+        assert not lt.opIterativeInverse(lt.TimedOperator(herm), solver=solver).capture_safe
 
 
 def test_inner_iterations_are_summed_and_reset():

@@ -375,9 +375,11 @@ def sharded_window_bsr(mesh):
 def solvers_on_sharded_operator(mesh):
     """Every Krylov solver through a sharded SPD operator against the same
     solve unsharded: on DTensor vectors, and on plain ones (GMRES writes its
-    Arnoldi basis into a plain tensor, so it takes plain vectors only)."""
+    Arnoldi basis into a plain tensor, so it takes plain vectors only), with
+    the path the sharded solve's loop took."""
     import linops_tpu_torch as lt
     from linops_tpu_torch.parallel import shard_operator
+    from linops_tpu_torch.utils import loop
 
     A, _, b = spectral_case(21, n=32)
     op = lt.MatrixOperator(t_(A), symmetric=True, hermitian=True, **CPU)
@@ -391,13 +393,15 @@ def solvers_on_sharded_operator(mesh):
             ("gmres", lambda o, v: lt.gmres(o, v, tol=1e-10, restart=10, maxiter=20)),
             ("chebyshev", lambda o, v: lt.chebyshev(o, v, 1.0, 50.0, iters=40)),
             ("power_iteration", lambda o, v: lt.power_iteration(o, v, iters=30))):
-        sh, un = call(op_sh, t_(b) if name == "gmres" else bs), call(op, t_(b))
+        sh = call(op_sh, t_(b) if name == "gmres" else bs)
+        path = loop.stats["path"]
+        un = call(op, t_(b))
         out[name] = dict(sh=[full(t) if torch.is_tensor(t) else t for t in sh],
-                         un=[t.numpy() if torch.is_tensor(t) else t for t in un])
+                         un=[t.numpy() if torch.is_tensor(t) else t for t in un], path=path)
     return out
 
 
-SOLVERS = ("cg", "minres", "bicgstab", "chebyshev")
+SOLVERS = ("cg", "minres", "bicgstab", "chebyshev", "gmres")
 BLOCK_OPS = ("slice1", "banded", "stencil2d")
 
 
@@ -441,16 +445,20 @@ def laplace_2d(ny, nx):
 
 def block_solve(name, op, M, b, bounds):
     import linops_tpu_torch as lt
+    from linops_tpu_torch.parallel.comm import gather_full
 
     if name == "chebyshev":
         return lt.chebyshev(op, b, *bounds, iters=40)
+    if name == "gmres":  # its Arnoldi basis is a plain tensor: plain vectors
+        b = gather_full(b)
     return getattr(lt, name)(op, b, tol=1e-12, maxiter=400, M=M)
 
 
 @case
 def solves_in_masked_blocks(mesh):
-    """cg, minres, bicgstab and chebyshev over slice 1's graph and its
-    inverse L-BFGS preconditioner through ``shard_operator``, over
+    """cg, minres, bicgstab, chebyshev and gmres (on plain vectors) over
+    slice 1's graph and its inverse L-BFGS preconditioner through
+    ``shard_operator``, over
     ``banded_partition`` and over ``stencil_partition_2d`` (a (2, 2) mesh):
     in the per-iteration loop (``BLOCK`` 1) and in blocks of 4 (the default),
     each with its path, iterations, x and collectives (per apply before and
@@ -899,8 +907,10 @@ def test_sharded_window_bsr(world):
 def test_solvers_on_sharded_operator(world, solver):
     """Each solver on a sharded operator: the unsharded solve's result and
     iterations (dots reduce in another order: rtol 1e-10); power iteration's
-    eigenvalue and vector."""
+    eigenvalue and vector; each in the loop's masked blocks (GMRES's restarts
+    too, one a block)."""
     r = result(world, "solvers_on_sharded_operator")[solver]
+    assert r["path"] == "blocks"
     for got, want in zip(r["sh"][:2], r["un"][:2]):
         if isinstance(want, int):
             assert got == want

@@ -280,6 +280,7 @@ def test_import_does_not_load_jax():
             "linops_tpu_torch.utils.norm, linops_tpu_torch.utils.estimate, "
             "linops_tpu_torch.utils.eig, linops_tpu_torch.utils.checkpoint, "
             "linops_tpu_torch.kernels.small_eigh, "
+            "linops_tpu_torch.kernels.small_lstsq, "
             "linops_tpu_torch.core.ad, linops_tpu_torch.parallel, "
             "linops_tpu_torch.parallel.mesh, linops_tpu_torch.parallel.sharded, "
             "linops_tpu_torch.parallel.halo, linops_tpu_torch.parallel.halo2d, "
