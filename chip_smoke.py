@@ -183,11 +183,12 @@ shows them run but can lose records).
    (``kernels/small_lstsq.py``, GMRES's least-squares step) against its
    plain version (the SVD at ``jnp.linalg.lstsq``'s cutoff) on the
    Hessenbergs one 10a solve gives it and on random, lucky-breakdown and zero
-   Hessenbergs in f32, f64, c64, c128 at m = 2-256 (from m = 96 or 128 in the
-   global workspace): the residual within 50·eps·‖b‖ of the plain version's,
-   σ against the SVD in f64, exact zeros past a breakdown, the same bits on a
-   rerun and alone; its time at m = 2-128 in a CUDA graph of 20 beside the
-   plain version, ``torch.linalg.pinv`` and the bound (4 (m + 1) m² + 8 m³
+   Hessenbergs in f32, f64, c64, c128 at m = 2-256 (m = 120 and up in the
+   global workspace but in f32): the residual within 50·eps·‖b‖ of the plain
+   version's, σ against the SVD in f64, exact zeros past a breakdown, the
+   same bits on a rerun and alone; its time at m = 2-128 (100-120 around the
+   first design's shared-memory edge) in a CUDA graph of 20 beside the plain
+   version, ``torch.linalg.pinv`` and the bound (4 (m + 1) m² + 8 m³
    operations).
 
 Prints a JSON line describing each kernel, then the card's name and power
@@ -195,6 +196,7 @@ limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero
 on any failure, and when no CUDA device is present: there is no CPU path.
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -213,7 +215,10 @@ SHAPES = {  # name -> (bm, bn, kmax)
 }
 KERNEL_RTOL = 1e-5
 I_SHORT, I_LONG, REPS = 10, 60, 3
-TRACE_TRIES = 3  # profiler traces taken to count a run's kernels (trace_until)
+TRACE_TRIES = 8  # profiler traces taken to count a run's kernels (trace_until)
+TRACES_TAKEN = []  # (traces taken, whether the last counted what was wanted), per trace_until
+SPINS = 16  # spin kernels launched at each end of a traced window (traced), doubled each retry
+SPINS_LOST = []  # (spins lost at the window's start, at its end, whether want was counted), per trace
 SEED = 0
 K1_SOURCE = "linops_tpu_torch/kernels/csrc/bsr_spmv.cu"
 K1_REPLACES = "linops_tpu/kernels/bsr_spmv.py:207"  # bsr_matvec_pallas
@@ -370,14 +375,8 @@ def profiled_ms(fn, kernel, n=20):
     """Mean device duration in ms of the CUDA kernel named ``kernel`` (the
     function name in the .cu file) over n calls, from a torch.profiler trace;
     None when the trace holds no device time for it."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    _, prof = traced(lambda: [fn() for _ in range(n)])
     total, count = 0.0, 0
     for e in prof.key_averages():
         if f"::{kernel}<" in e.key:  # "(anonymous namespace)::segsum_kernel<float>(...)"
@@ -498,7 +497,7 @@ def win_kernel(K, op, xb=None, ub=None):
                                             x_pad_blocks=op._x_pad_blocks, index=op.lane_rows)
     return K.bsr_rmatvec_multiwin_kernel(d.blocks, d.block_cols, op.win_q_t, op.win_valid_t, ub,
                                          wb=op._wb, x_pad_blocks=op._x_pad_blocks_t, nbcol=nbcol,
-                                         index=(op.t_perm, op.t_ptr))
+                                         index=op.t_plan)
 
 
 def phase6(lt, K, dev):
@@ -700,15 +699,15 @@ def phase5_windows(lt, K, dev, card):
                 "K2": marginal_ms(lambda: K.bsr_rmatvec_kernel(
                     d.blocks, d.block_cols, ub, nbcol, plan=op.col_plan)),
             }
+            ops_ = 2 * d.blocks.numel()
+            bounds = {fwd: bound_ms(nbytes(d.blocks, d.block_cols, xb) + nbrow * 8 * 4, ops_),
+                      tr: bound_ms(nbytes(d.blocks, d.block_cols, ub) + nbcol * 128 * 4, ops_)}
+            print(f"[5 times] {name} {str(dtype)[6:]} bounds: "
+                  + ", ".join(f"{k} {b_[0] * 1e3:.1f} us ({b_[1]}), {row[k] * 1e3:.1f} us = "
+                              f"{b_[0] / row[k]:.1%} of it" for k, b_ in bounds.items())
+                  + f"; {tr} {row[tr] / row['K2']:.3f}x K2; {card}", flush=True)
             if dtype == torch.float32:
-                ops_ = 2 * d.blocks.numel()
-                row[fwd + " bound"] = bound_ms(nbytes(d.blocks, d.block_cols, xb) + nbrow * 8 * 4, ops_)
-                row[tr + " bound"] = bound_ms(nbytes(d.blocks, d.block_cols, ub) + nbcol * 128 * 4,
-                                              ops_)
-                out[name] = dict(row)
-                print(f"[5 times] {name} f32 bounds: {fwd} {row[fwd + ' bound'][0] * 1e3:.1f} us, "
-                      f"{tr} {row[tr + ' bound'][0] * 1e3:.1f} us (bytes); {card}", flush=True)
-                del row[fwd + " bound"], row[tr + " bound"]
+                out[name] = {**row, fwd + " bound": bounds[fwd], tr + " bound": bounds[tr]}
             print(f"[5 times] {name} kmax={WIN_KMAX[name]} n=2^22 blocks {str(dtype)[6:]} "
                   f"({gb * 1e3:.1f} MB stored): "
                   + ", ".join(f"{k} {v * 1e3:.1f} us = {gb / (v / 1e3):.0f} GB/s" for k, v in row.items())
@@ -1397,19 +1396,14 @@ def kernel_label(key: str) -> str:
 
 def device_profile(fn, top=3):
     """(device ms, the ``top`` kernels by device ms) of one call of fn, from
-    a torch.profiler trace: the sum of every device activity's own time;
-    (None, []) when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    a torch.profiler trace: the sum of every device activity's own time but
+    ``traced``'s spins; (None, []) when the trace holds no device time."""
+    _, prof = traced(fn)
     per = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
-        if t > 0:
+        if t > 0 and kernel_label(e.key) != "spin_kernel":  # traced's own
             name = kernel_label(e.key)
             per[name] = per.get(name, 0.0) + t / 1e3
     if not per:
@@ -1516,24 +1510,57 @@ def graph_kernels(g) -> dict:
     return out
 
 
-def trace_until(fn, want, tries=TRACE_TRIES):
-    """(fn's last result, its torch.profiler trace, the port's kernels the
-    trace counted per device function, the traces taken) for the first of up
-    to ``tries`` traced calls of fn whose count is ``want``, else the last.
-    A trace can lose activity records (on the H100: a replay traced with 3
-    of its 4 K1, another trace with none) but never counts a kernel that did
-    not run, so one trace that counts ``want`` shows that ``want`` ran."""
+def traced(fn, spins=SPINS):
+    """(fn's result, a torch.profiler trace of one call of fn) whose window
+    starts and ends with ``spins`` spin kernels (``torch.cuda._sleep``), each
+    end waited for. A trace on the H100 loses some of the first device
+    records of its window (2-16 in most traces), rarely some of the last:
+    the spins take that loss. SPINS_LOST keeps how many of them each trace
+    lost at either end (and ``trace_until`` whether it counted what was
+    wanted)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for n in range(1, tries + 1):
+    def spin():
+        for _ in range(spins):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin()
+        out = fn()
+        torch.cuda.synchronize()
+        spin()
+    dev = sorted((e.time_range.start, kernel_label(e.name)) for e in prof.events()
+                 if "CUDA" in str(getattr(e, "device_type", "")))
+    work = [t for t, name in dev if name != "spin_kernel"]
+    seen = sum(name == "spin_kernel" for _, name in dev)
+    head = min(seen, spins) if not work else sum(
+        name == "spin_kernel" and t < work[0] for t, name in dev)
+    SPINS_LOST.append((spins - head, spins - (seen - head), None))
+    return out, prof
+
+
+def trace_until(fn, want, tries=TRACE_TRIES):
+    """(fn's last result, its torch.profiler trace, the port's kernels the
+    traces counted per device function, the traces taken) for the first of
+    up to ``tries`` traced calls of fn whose count is ``want`` (``traced``,
+    with twice the last call's spins), else the most that any one trace
+    counted of each kernel. A trace can lose activity records (on the H100,
+    without the spins: a replay traced with 3 of its 4 K1, another with
+    none) but never counts a kernel that did not run, so a kernel that one
+    trace counts c times ran at least c times in that call."""
+    seen = {}
+    for n in range(1, tries + 1):
+        out, prof = traced(fn, SPINS << (n - 1))
         got = traced_launches(prof)
+        SPINS_LOST[-1] = (*SPINS_LOST[-1][:2], got == want)
+        for k, c in got.items():
+            seen[k] = max(seen.get(k, 0), c)
         if got == want:
             break
-    return out, prof, got, n
+    TRACES_TAKEN.append((n, got == want))
+    return out, prof, got if got == want else seen, n
 
 
 def replay_trace(g, want, top=6):
@@ -1545,7 +1572,7 @@ def replay_trace(g, want, top=6):
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
-        if t > 0:
+        if t > 0 and kernel_label(e.key) != "spin_kernel":
             per[kernel_label(e.key)] = per.get(kernel_label(e.key), 0.0) + t / 1e3
     return sorted(per.items(), key=lambda kv: -kv[1])[:top], got, n
 
@@ -1887,8 +1914,8 @@ def loop_modes(loop, tag, solve, unit="iterations", x_rtol=0.0, why="", phase="1
     bodies = len(getattr(g, "bodies", ()))
     check((traced.keys() <= nodes.keys()) if bodies else
           (traced.keys() == nodes.keys() and all(traced[s_] <= nodes[s_] for s_ in traced)),
-          f"{phase} {tag}: one replay of the cached block traced {traced} ({tries} traces); its "
-          f"graph holds {nodes}")
+          f"{phase} {tag}: one replay of the cached block traced {traced} ({tries} traces; the "
+          f"last one's device time: {in_replay}); its graph holds {nodes}")
     names = graph_kernel_names(g)
     nccl = sum("nccl" in n_.lower() for n_ in names)  # NCCL's kernels, listed apart
     replay_without_sync(g)
@@ -4083,11 +4110,15 @@ E2_SOURCE = "linops_tpu_torch/kernels/csrc/small_lstsq.cu"
 # E2 has no Pallas site: it replaces the jnp.linalg.lstsq that XLA lowers in the
 # reference's GMRES restart (the (m + 1) x m Hessenberg least-squares problem)
 E2_REPLACES = "linops_tpu/utils/krylov.py:185"
-# m of the random cases: to 64 in shared memory for the f64 types (c64 and
-# c128 from 96 in the global workspace), 128 and 256 in the global workspace
-# in every type; the kernel takes any m
-E2_SIZES = (2, 8, 30, 64, 128, 256)
-E2_TIMED = (2, 8, 30, 64, 128)  # f32 per-call times
+# m of the random cases: [H | b] (and V for f64/c128) in shared memory to
+# m = 168 in f32, 119 in c64 and f64, 84 in c128, past it in the global
+# workspace (120 in all but f32, 128 and 256 in every type); the kernel takes
+# any m
+E2_SIZES = (2, 8, 30, 64, 120, 128, 256)
+# f32 per-call times; 100-120 around the first design's shared-memory edge
+E2_TIMED = (2, 8, 30, 64, 100, 118, 120, 128)
+# f64 (V kept) beside f32 (no V); f64 takes the global workspace from m = 120
+E2_F64_TIMED = (30, 64, 118, 120, 128)
 E2_TOL = 50  # the residual ‖H y − b‖ over eps·‖b‖ beyond the plain version's
 
 
@@ -4149,8 +4180,10 @@ def phase15f(lt, loop, E2, dev, card, ops):
     f32 at m in E2_TIMED (m = 30: 10a's last Hessenberg): in a CUDA graph of
     20, eager events, the plain version and the library call
     ``torch.linalg.pinv(H, rtol = eps·(m + 1)) @ b`` (eager events), the
-    bound (``lstsq_ops`` over 67 TFLOP/s against H, b and y's bytes), and at
-    m = 30 in f64. Returns the timed rows by m."""
+    bound (``lstsq_ops`` over 67 TFLOP/s against H, b and y's bytes); then
+    in f64 (the form that keeps V) on the same Hessenbergs widened at m in
+    E2_F64_TIMED, in a graph of 20 beside f32 (the form without V) and pinv.
+    Returns the timed rows by m."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 180)
     # the main path's Hessenbergs: one 10a solve in the per-iteration loop
     free()
@@ -4194,12 +4227,13 @@ def phase15f(lt, loop, E2, dev, card, ops):
           + f" (residual limit {E2_TOL}); {len(fed)} Hessenbergs of one 10a GMRES(30) solve "
           f"(key 10a); exact zeros past a lucky breakdown, y = 0 for H = 0; the same bits on a "
           f"rerun and alone; {card}", flush=True)
-    rows = {}
+    rows, timed = {}, {}
     for m in E2_TIMED:
         if m == 30:
             H, b = H10[-1], e10[-1]
         else:
             H, b = (t[0] for t in hessenbergs(gen, dev, m, torch.float32))
+        timed[m] = H, b
         y_p = E2.small_lstsq_plain(H, b)
         y, s, sw = E2.small_lstsq(H, b, full=True)
         eps = torch.finfo(torch.float32).eps
@@ -4209,9 +4243,13 @@ def phase15f(lt, loop, E2, dev, card, ops):
                    "library_ms": marginal_ms(lambda: torch.linalg.pinv(H, rtol=eps * (m + 1)) @ b),
                    "bound": bound_ms(nbytes(H, b, y), lstsq_ops(m)), "sweeps": int(sw),
                    "max_abs_err": float((y - y_p).abs().max())}
-    H64, b64 = H10[-1].double(), e10[-1].double()
-    f64_ms = graph_ms(lambda: E2.small_lstsq(H64, b64))
-    f64_pinv = marginal_ms(lambda: torch.linalg.pinv(H64, rtol=2.2e-16 * 31) @ b64)
+    f64 = {}
+    for m in E2_F64_TIMED:
+        H64, b64 = (t.double() for t in timed[m])
+        _, _, sw64 = E2.small_lstsq(H64, b64, full=True)
+        rtol = torch.finfo(torch.float64).eps * (m + 1)
+        f64[m] = (graph_ms(lambda: E2.small_lstsq(H64, b64)), int(sw64),
+                  marginal_ms(lambda: torch.linalg.pinv(H64, rtol=rtol) @ b64))
     print("[15f E2] f32 per call (a CUDA graph of 20; eager marginal events; the plain version "
           "(torch.linalg.svd) and the library call torch.linalg.pinv(H) @ b, eager marginal "
           "events; bound = 4 (m + 1) m² + 8 m³ operations over 67 TFLOP/s against H, b, y's bytes "
@@ -4221,8 +4259,10 @@ def phase15f(lt, loop, E2, dev, card, ops):
                       f"{r['library_ms'] * 1e3:.1f} us, bound {r['bound'][0] * 1e3:.4f} us "
                       f"({r['bound'][1]}), max|Δy| against plain {r['max_abs_err']:.1e}"
                       for m, r in rows.items())
-          + f"; f64 at m = 30 (10a's Hessenberg widened) {f64_ms * 1e3:.1f} us, pinv "
-          f"{f64_pinv * 1e3:.1f} us; {card}", flush=True)
+          + "; f64 (V kept) on the same Hessenbergs widened (m = 30: 10a's): "
+          + "; ".join(f"m={m} {ms * 1e3:.1f} us ({sw} sweeps), {ms / rows[m]['ms']:.3f}x f32 "
+                      f"(no V), pinv {pv * 1e3:.1f} us" for m, (ms, sw, pv) in f64.items())
+          + f"; {card}", flush=True)
     return rows
 
 
@@ -5090,6 +5130,19 @@ def main() -> int:
                                      "at jnp.linalg.lstsq's cutoff"})
     for row in kernels:  # launches inside phase 12's backward passes
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
+    tally = collections.Counter(n for n, _ in TRACES_TAKEN)
+    lossy = collections.Counter((h, t) for h, t, _ in SPINS_LOST if h or t)
+    missed = [(h, t) for h, t, hit in SPINS_LOST if hit is False]
+    print(f"[spins] {len(SPINS_LOST)} traces, each with {SPINS} spin kernels at either end of its "
+          f"window (twice as many at each retry): {sum(lossy.values())} lost some (by spins lost at the start and at the end: "
+          f"{dict(lossy)}); of the {sum(hit is not None for *_, hit in SPINS_LOST)} that counted "
+          f"a run's kernels, {len(missed)} missed what was wanted, {missed.count((0, 0))} of them "
+          f"with every spin traced", flush=True)
+    print(f"[traces] {len(TRACES_TAKEN)} runs counted by torch.profiler traces, by traces taken "
+          f"(up to {TRACE_TRIES}): {dict(sorted(tally.items()))}; "
+          f"{sum(not hit for _, hit in TRACES_TAKEN)} of them with no trace that counted what "
+          f"was wanted (a graph with while nodes never does: a body runs as often as its inner "
+          f"loop, not as its graph holds it)", flush=True)
     print(json.dumps({"kernels": kernels}))
     import torch.distributed as dist
 

@@ -61,7 +61,7 @@ __all__ = [
     "BSRColumnPlan",
     "bsr_multiwin_index",
     "bsr_window_t_index",
-    "bsr_multiwin_t_index",
+    "bsr_multiwin_t_plan",
     "bsr_window_plan",
     "bsr_window_plan_multi",
     "bsr_window_plan_multi_t",
@@ -90,7 +90,7 @@ LAUNCH_SYMBOLS = {"bsr_matvec": "bsr_matvec_kernel", "bsr_rmatvec": "rmatvec_chu
                   "bsr_matvec_windowed": "bsr_matvec_windowed_kernel",
                   "bsr_rmatvec_windowed": "windowed_combine_kernel",
                   "bsr_matvec_multiwin": "bsr_matvec_multiwin_kernel",
-                  "bsr_rmatvec_multiwin": "multiwin_combine_kernel"}
+                  "bsr_rmatvec_multiwin": "multiwin_chunk_kernel"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (block dtype, vector/output dtype) pairs the kernels are instantiated for
@@ -246,6 +246,13 @@ def bsr_column_plan(block_cols, nbcol: int, block_bytes: int = 4096) -> BSRColum
     columns, and a column's chunks are added in chunk order by a second pass
     (``csrc/bsr_spmv.cu``)."""
     perm, colptr = bsr_column_index(block_cols, nbcol)
+    return _chunked_plan(perm, colptr, nbcol, block_bytes)
+
+
+def _chunked_plan(perm, colptr, nbcol: int, block_bytes: int) -> BSRColumnPlan:
+    """A column plan from slots ``perm`` sorted by column (column c's are
+    ``perm[colptr[c]:colptr[c+1]]``): the chunks as ``bsr_column_plan``
+    cuts them."""
     nslots = perm.numel()
     S = max(_T_CHUNK_BYTES // max(int(block_bytes), 1), 1, -(-nslots // _T_MAX_COL_CHUNKS))
     dev = perm.device
@@ -701,8 +708,8 @@ def bsr_rmatvec_multiwin_plain(blocks, block_cols, win_q_t, win_valid_t, u_block
 
 
 # ----------------------------------------------------------------------------
-# K5's lane rows and K4/K6's slot index (built once per operator, on the
-# plan's device)
+# K5's lane rows, K4's slot index and K6's column plan (built once per
+# operator, on the plan's device)
 # ----------------------------------------------------------------------------
 
 
@@ -751,25 +758,31 @@ def bsr_window_t_index(cols_local, win_q, wb: int):
     return _partial_index(g[slots] * L + cl[slots], slots, win_q.shape[0] * L)
 
 
-def bsr_multiwin_t_index(block_cols, win_q_t, win_valid_t, wb: int):
-    """K6's index: (perm, ptr) listing, for partial row g·W·wb + w·wb + j,
-    the slots of group g in block column q_t[w,g]·wb + j when lane w's step
-    is valid, in slot order. One host sync (checks that every lane's windows
-    never decrease, which K6's combine relies on)."""
-    _require_monotone(win_q_t, "bsr_multiwin_t_index")
+def bsr_multiwin_t_plan(block_cols, win_q_t, win_valid_t, wb: int, nbcol: int,
+                        block_bytes: int = 4096) -> BSRColumnPlan:
+    """K6's column plan: every slot whose block column c < nbcol lies in the
+    window of a valid lane step of its group (listed once per such lane
+    step, as the plain K6 weighs it; once for a planned operator), sorted by
+    column and within a column by slot, then cut into chunks as
+    ``bsr_column_plan`` cuts K2's. Columns no window visits have no chunk.
+    Checks that every lane's windows never decrease (the reference's
+    transpose plan walks its output lanes in order). A few host syncs."""
+    _require_monotone(win_q_t, "bsr_multiwin_t_plan")
     W, ngroups = win_q_t.shape
     nbrow, kmax = block_cols.shape
-    L = W * wb
     g = _row_groups(nbrow, ngroups, block_cols.device).repeat_interleave(kmax)
     c = block_cols.reshape(-1).long()
-    win, j = c // wb, c % wb
-    keys, slots = [], []
-    for w in range(W):
-        s = torch.nonzero((win_valid_t[w].long()[g] != 0)
-                          & (win == win_q_t[w].long()[g])).squeeze(1)
-        keys.append(g[s] * L + w * wb + j[s])
-        slots.append(s)
-    return _partial_index(torch.cat(keys), torch.cat(slots), ngroups * L)
+    win = c // wb
+    covered = [(win_valid_t[w].long()[g] != 0) & (win == win_q_t[w].long()[g]) & (c < nbcol)
+               for w in range(W)]
+    slots = torch.cat([torch.nonzero(hit).squeeze(1) for hit in covered])
+    if slots.numel() >= 2**31:
+        raise OverflowError("BSR with 2^31 or more block slots is not supported")
+    slots = torch.sort(slots, stable=True).values
+    perm = slots[torch.argsort(c[slots], stable=True)]
+    colptr = torch.zeros(nbcol + 1, dtype=torch.int64, device=c.device)
+    colptr[1:] = torch.cumsum(torch.bincount(c[perm], minlength=nbcol), 0)
+    return _chunked_plan(perm.to(torch.int32), colptr.to(torch.int32), nbcol, block_bytes)
 
 
 # ----------------------------------------------------------------------------
@@ -789,8 +802,8 @@ def _win_lib():
                                                    i32, i32, i32, i32, i32, i32, i32, p]
         lib.linops_bsr_rmatvec_windowed.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32,
                                                     i32, i32, i32, i32, i32, p]
-        lib.linops_bsr_rmatvec_multiwin.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32,
-                                                    i32, i32, i32, i32, i32, i32, p]
+        lib.linops_bsr_rmatvec_multiwin.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32,
+                                                    i32, i32, i32, i32, i32, p]
         for f in (lib.linops_bsr_matvec_windowed, lib.linops_bsr_matvec_multiwin,
                   lib.linops_bsr_rmatvec_windowed, lib.linops_bsr_rmatvec_multiwin):
             f.restype = ctypes.c_int
@@ -895,8 +908,7 @@ def _check_index(index, nrows: int, blocks, what: str):
     perm, ptr = index
     if (perm.dtype != torch.int32 or ptr.dtype != torch.int32 or ptr.numel() != nrows + 1
             or perm.device != blocks.device or ptr.device != blocks.device):
-        raise ValueError(f"{what}: index does not fit this plan (see bsr_window_t_index / "
-                         f"bsr_multiwin_t_index)")
+        raise ValueError(f"{what}: index does not fit this plan (see bsr_window_t_index)")
     return perm, ptr
 
 
@@ -936,8 +948,9 @@ def bsr_rmatvec_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, u_bloc
     """K6: out (nbcol, bn) = the transpose scatter into W monotone output
     lanes (plan: ``bsr_window_plan_multi_t``); deterministic. CPU tensors
     take ``bsr_rmatvec_multiwin_plain``; CUDA tensors launch the kernel
-    (f32/bf16) or raise. ``index`` is ``bsr_multiwin_t_index(block_cols,
-    win_q_t, win_valid_t, wb)`` (built here when not given)."""
+    (f32/bf16) or raise. ``index`` is ``bsr_multiwin_t_plan(block_cols,
+    win_q_t, win_valid_t, wb, nbcol, bm·bn·itemsize)``, K2's column plan over
+    the slots the windows cover (built here when not given)."""
     if blocks.device.type == "cpu":
         return bsr_rmatvec_multiwin_plain(blocks, block_cols, win_q_t, win_valid_t, u_blocks,
                                           wb=wb, x_pad_blocks=x_pad_blocks, nbcol=nbcol)
@@ -951,17 +964,24 @@ def bsr_rmatvec_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, u_bloc
         raise ValueError(f"{what}: win_valid_t {tuple(win_valid_t.shape)} does not match "
                          f"win_q_t {tuple(win_q_t.shape)}")
     W = win_q_t.shape[0]
-    ngroups = _check_windows(what, blocks, win_q_t, wb, W, 0)
-    if index is None:
-        index = bsr_multiwin_t_index(block_cols, win_q_t, win_valid_t, wb)
-    perm, ptr = _check_index(index, ngroups * W * wb, blocks, what)
-    partial = torch.empty((ngroups * W * wb, bn), dtype=torch.float32, device=blocks.device)
+    _check_windows(what, blocks, win_q_t, wb, W, 0)
+    plan = index
+    if plan is None:
+        plan = bsr_multiwin_t_plan(block_cols, win_q_t, win_valid_t, wb, nbcol,
+                                   bm * bn * blocks.element_size())
+    tensors = (plan.perm, plan.chunk_ptr, plan.chunk_col, plan.col_chunk, plan.combine_cols)
+    nchunks = plan.chunk_col.numel()
+    if (any(t.dtype != torch.int32 or t.device != blocks.device for t in tensors)
+            or plan.perm.numel() > W * nbrow * kmax or plan.col_chunk.numel() != nbcol + 1
+            or plan.chunk_ptr.numel() != nchunks + 1):
+        raise ValueError(f"{what}: index does not fit this plan (see bsr_multiwin_t_plan)")
     out = torch.empty((nbcol, bn), dtype=vdt, device=blocks.device)
+    partial = torch.empty((nchunks, bn), dtype=torch.float32, device=blocks.device)
     lib = _win_lib()
     rc = lib.linops_bsr_rmatvec_multiwin(
-        blocks.data_ptr(), perm.data_ptr(), ptr.data_ptr(), u.data_ptr(), win_q_t.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), nbcol, ngroups, W, kmax,
-        bm, bn, wb, _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+        blocks.data_ptr(), *(t.data_ptr() for t in tensors), u.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn,
+        _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out

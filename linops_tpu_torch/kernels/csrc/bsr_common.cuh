@@ -1,4 +1,5 @@
-// Helpers shared by the kernel sources (bsr_spmv.cu, bsr_window.cu, lane_gather.cu).
+// Helpers shared by the kernel sources (bsr_spmv.cu, bsr_window.cu, lane_gather.cu,
+// small_eigh.cu, small_lstsq.cu).
 //
 // - widen/narrow: f32 accumulation for f32 and bf16 values; bf16 is widened
 //   per element and the result narrowed once at the store.
@@ -10,6 +11,9 @@
 //   (0, 0), (1, 0), (1, 1). The vector type is also the output type.
 // - set_dynamic_smem: lifts a kernel's dynamic shared-memory cap above the
 //   48 KB default when a launch needs more.
+// - column_chunk_pass / column_combine_pass / launch_column_plan: the two
+//   passes of a transpose over a column plan, which K2 (bsr_spmv.cu) and K6
+//   (bsr_window.cu) launch under kernels of their own names.
 // - linops_cuda_error_string: the message of a CUDA error code, for the
 //   wrappers' exceptions.
 //
@@ -80,6 +84,204 @@ int set_dynamic_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+
+// ---- a column plan's transpose (K2, K6) ----
+//
+// out[c, n] = sum over the slots a column plan lists for block column c
+// (bsr_spmv.py::BSRColumnPlan: the slots sorted by column, cut into chunks
+// of about 64 KB of blocks) of sum_m blocks[slot, m, n] * u[slot / kmax, m];
+// design notes in bsr_spmv.cu (K2). K6 (bsr_window.cu) runs the same passes
+// on a plan of the slots its windows cover.
+
+constexpr int kT2Warps = 8;  // K2: warps per thread block, each a slice of m
+constexpr int kT2Tile = 128; // K2: n values per thread block (4 per lane)
+constexpr int kStage = 64;   // K2: chunk slots whose offsets are staged at a time
+constexpr int kUnroll = 8;   // K2: block rows (or partial rows) a warp loads at once
+
+// Four values n0..n0+3 of a row (zeros past bn): one vector load when
+// `vec` (bn % 4 == 0 and an aligned base), else four scalar loads.
+template <typename T>
+__device__ __forceinline__ void load_n4(const T* __restrict__ row, int n0, int bn, bool vec,
+                                        float v[4]) {
+  if (vec) {
+    if (n0 < bn) {
+      load4(row + n0, v);
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = n0 + q < bn ? widen(row[n0 + q]) : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_n4(T* __restrict__ row, int n0, int bn, bool vec,
+                                         const float v[4]) {
+  if (vec) {
+    if (n0 < bn) store4(row + n0, v);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (n0 + q < bn) row[n0 + q] = narrow<T>(v[q]);
+}
+
+// The warps' four sums per lane, added in warp order by warp 0 (into v).
+// Every thread of the block must call it.
+__device__ __forceinline__ bool sum_warps(float (*red)[kT2Tile], float v[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  *reinterpret_cast<float4*>(&red[warp][4 * lane]) = make_float4(v[0], v[1], v[2], v[3]);
+  __syncthreads();
+  if (warp != 0) return false;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = red[0][4 * lane + q];
+  for (int w = 1; w < kT2Warps; ++w) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] += red[w][4 * lane + q];
+  }
+  return true;
+}
+
+// Pass 1 of a column plan's transpose: blockIdx.x = chunk, blockIdx.y = n
+// tile. A warp's block rows are (staged slot i, m = warp + j * kT2Warps); it
+// loads US slots x UM of its m values (kUnroll rows) at once: kUnroll slots
+// when it has one m (bm <= kT2Warps), else kUnroll m values of one slot (a
+// chunk of 128x128 f32 blocks is one slot). The kernel that calls it caps
+// registers so that four thread blocks (32 warps) fit an SM.
+template <typename TB, typename TX, int US, int UM>
+__device__ __forceinline__ void
+column_chunk_pass(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
+                  const int32_t* __restrict__ chunk_ptr, const int32_t* __restrict__ chunk_col,
+                  const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
+                  float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm, int bn,
+                  bool vec) {
+  static_assert(US * UM == kUnroll, "a warp loads kUnroll block rows at once");
+  __shared__ int64_t slot_s[kStage];  // element offset of each staged slot's block
+  __shared__ int64_t urow_s[kStage];  // offset of its block row in u
+  __shared__ __align__(16) float red[kT2Warps][kT2Tile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ch = blockIdx.x;
+  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
+  const int s0 = chunk_ptr[ch], s1 = chunk_ptr[ch + 1];
+  const int64_t bsize = static_cast<int64_t>(bm) * bn;
+  const int mw = warp < bm ? (bm - warp + kT2Warps - 1) / kT2Warps : 0;  // this warp's m values
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int b0 = s0; b0 < s1; b0 += kStage) {
+    const int nb = min(kStage, s1 - b0);
+    __syncthreads();  // the previous stage's reads are done
+    if (threadIdx.x < nb) {
+      const int64_t slot = perm[b0 + threadIdx.x];
+      slot_s[threadIdx.x] = slot * bsize;
+      urow_s[threadIdx.x] = (slot / kmax) * bm;
+    }
+    __syncthreads();
+    for (int i0 = 0; i0 < nb; i0 += US) {
+      for (int j0 = 0; j0 < mw; j0 += UM) {
+        float v[US][UM][4], um[US][UM];
+#pragma unroll
+        for (int a = 0; a < US; ++a) {
+#pragma unroll
+          for (int b = 0; b < UM; ++b) {
+            if (i0 + a < nb && j0 + b < mw) {
+              const int m = warp + (j0 + b) * kT2Warps;
+              load_n4(blocks + slot_s[i0 + a] + static_cast<int64_t>(m) * bn, n0, bn, vec,
+                      v[a][b]);
+              um[a][b] = widen(u[urow_s[i0 + a] + m]);
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < US; ++a) {
+#pragma unroll
+          for (int b = 0; b < UM; ++b) {
+            if (i0 + a < nb && j0 + b < mw) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[q] = fmaf(v[a][b][q], um[a][b], acc[q]);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (!sum_warps(red, acc)) return;
+  const int64_t c = chunk_col[ch];
+  if (col_chunk[c + 1] - col_chunk[c] == 1)
+    store_n4(out + c * bn, n0, bn, vec, acc);
+  else
+    store_n4(partial + ch * bn, n0, bn, vec, acc);
+}
+
+// Pass 2: blockIdx.x = a column with no chunk or several, blockIdx.y = n tile.
+template <typename TX>
+__device__ __forceinline__ void
+column_combine_pass(const float* __restrict__ partial, const int32_t* __restrict__ cols,
+                    const int32_t* __restrict__ col_chunk, TX* __restrict__ out, int bn,
+                    bool vec) {
+  __shared__ __align__(16) float red[kT2Warps][kT2Tile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t c = cols[blockIdx.x];
+  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
+  const int k1 = col_chunk[c + 1];
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = col_chunk[c] + warp; k < k1; k += kT2Warps * kUnroll) {
+    float v[kUnroll][4];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      if (k + i * kT2Warps < k1)
+        load_n4(partial + static_cast<int64_t>(k + i * kT2Warps) * bn, n0, bn, vec, v[i]);
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      if (k + i * kT2Warps < k1) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] += v[i][q];
+      }
+    }
+  }
+  if (sum_warps(red, acc)) store_n4(out + c * bn, n0, bn, vec, acc);
+}
+
+// The two kernels of a column plan's transpose, each a thin __global__ around
+// the passes above, so that K2 and K6 launch under their own names.
+template <typename TB, typename TX>
+using ChunkKernel = void (*)(const TB*, const int32_t*, const int32_t*, const int32_t*,
+                             const int32_t*, const TX*, float*, TX*, int, int, int, bool);
+template <typename TX>
+using CombineKernel = void (*)(const float*, const int32_t*, const int32_t*, TX*, int, bool);
+
+// Launches a column plan's two passes: `by_slot` (kUnroll slots at once) when
+// bm <= kT2Warps, else `by_m` (kUnroll m values of one slot); `combine` for
+// the columns with no chunk or several.
+template <typename TB, typename TX>
+int launch_column_plan(ChunkKernel<TB, TX> by_slot, ChunkKernel<TB, TX> by_m,
+                       CombineKernel<TX> combine, const void* blocks, const void* perm,
+                       const void* chunk_ptr, const void* chunk_col, const void* col_chunk,
+                       const void* combine_cols, const void* u, float* partial, void* out,
+                       int64_t nchunks, int64_t ncombine, int kmax, int bm, int bn,
+                       cudaStream_t stream) {
+  if (nchunks > 0x7fffffffLL || ncombine > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned tiles = static_cast<unsigned>((bn + kT2Tile - 1) / kT2Tile);
+  const bool vec = bn % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % (4 * sizeof(TB)) == 0;
+  if (nchunks > 0) {
+    const dim3 grid(static_cast<unsigned>(nchunks), tiles);
+    auto kernel = bm <= kT2Warps ? by_slot : by_m;
+    kernel<<<grid, kT2Warps * 32, 0, stream>>>(
+        static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
+        static_cast<const int32_t*>(chunk_ptr), static_cast<const int32_t*>(chunk_col),
+        static_cast<const int32_t*>(col_chunk), static_cast<const TX*>(u), partial,
+        static_cast<TX*>(out), kmax, bm, bn, vec);
+    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+  }
+  if (ncombine > 0) {
+    combine<<<dim3(static_cast<unsigned>(ncombine), tiles), kT2Warps * 32, 0, stream>>>(
+        partial, static_cast<const int32_t*>(combine_cols),
+        static_cast<const int32_t*>(col_chunk), static_cast<TX*>(out), bn, bn % 4 == 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }
 
 }  // namespace

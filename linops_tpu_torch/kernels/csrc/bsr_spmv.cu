@@ -53,10 +53,7 @@
 namespace {
 
 constexpr int kWarps = 8;    // K1: warps (output rows) per thread block
-constexpr int kT2Warps = 8;  // K2: warps per thread block, each a slice of m
-constexpr int kT2Tile = 128; // K2: n values per thread block (4 per lane)
-constexpr int kStage = 64;   // K2: chunk slots whose offsets are staged at a time
-constexpr int kUnroll = 8;   // K2: block rows (or partial rows) a warp loads at once
+// K2's kT2Warps, kT2Tile, kStage, kUnroll and its passes: bsr_common.cuh
 
 template <typename TB, typename TX>
 __global__ void bsr_matvec_kernel(const TB* __restrict__ blocks,
@@ -79,57 +76,8 @@ __global__ void bsr_matvec_kernel(const TB* __restrict__ blocks,
   if (lane == 0) y[r * bm + m] = narrow<TX>(acc);
 }
 
-// Four values n0..n0+3 of a row (zeros past bn): one vector load when
-// `vec` (bn % 4 == 0 and an aligned base), else four scalar loads.
-template <typename T>
-__device__ __forceinline__ void load_n4(const T* __restrict__ row, int n0, int bn, bool vec,
-                                        float v[4]) {
-  if (vec) {
-    if (n0 < bn) {
-      load4(row + n0, v);
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.f;
-    }
-    return;
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = n0 + q < bn ? widen(row[n0 + q]) : 0.f;
-}
-
-template <typename T>
-__device__ __forceinline__ void store_n4(T* __restrict__ row, int n0, int bn, bool vec,
-                                         const float v[4]) {
-  if (vec) {
-    if (n0 < bn) store4(row + n0, v);
-    return;
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    if (n0 + q < bn) row[n0 + q] = narrow<T>(v[q]);
-}
-
-// The warps' four sums per lane, added in warp order by warp 0 (into v).
-// Every thread of the block must call it.
-__device__ __forceinline__ bool sum_warps(float (*red)[kT2Tile], float v[4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  *reinterpret_cast<float4*>(&red[warp][4 * lane]) = make_float4(v[0], v[1], v[2], v[3]);
-  __syncthreads();
-  if (warp != 0) return false;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = red[0][4 * lane + q];
-  for (int w = 1; w < kT2Warps; ++w) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) v[q] += red[w][4 * lane + q];
-  }
-  return true;
-}
-
-// K2 pass 1: blockIdx.x = chunk, blockIdx.y = n tile. A warp's block rows
-// are (staged slot i, m = warp + j * kT2Warps); it loads US slots x UM of its
-// m values (kUnroll rows) at once: kUnroll slots when it has one m (bm <=
-// kT2Warps), else kUnroll m values of one slot (a chunk of 128x128 f32 blocks
-// is one slot). Registers capped so that four thread blocks (32 warps) fit
-// an SM.
+// K2 pass 1 (column_chunk_pass, bsr_common.cuh). Registers capped so that
+// four thread blocks (32 warps) fit an SM.
 template <typename TB, typename TX, int US, int UM>
 __global__ void __launch_bounds__(kT2Warps * 32, 4)
 rmatvec_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
@@ -138,89 +86,17 @@ rmatvec_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ 
                      const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
                      float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
                      int bn, bool vec) {
-  static_assert(US * UM == kUnroll, "a warp loads kUnroll block rows at once");
-  __shared__ int64_t slot_s[kStage];  // element offset of each staged slot's block
-  __shared__ int64_t urow_s[kStage];  // offset of its block row in u
-  __shared__ __align__(16) float red[kT2Warps][kT2Tile];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t ch = blockIdx.x;
-  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
-  const int s0 = chunk_ptr[ch], s1 = chunk_ptr[ch + 1];
-  const int64_t bsize = static_cast<int64_t>(bm) * bn;
-  const int mw = warp < bm ? (bm - warp + kT2Warps - 1) / kT2Warps : 0;  // this warp's m values
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b0 = s0; b0 < s1; b0 += kStage) {
-    const int nb = min(kStage, s1 - b0);
-    __syncthreads();  // the previous stage's reads are done
-    if (threadIdx.x < nb) {
-      const int64_t slot = perm[b0 + threadIdx.x];
-      slot_s[threadIdx.x] = slot * bsize;
-      urow_s[threadIdx.x] = (slot / kmax) * bm;
-    }
-    __syncthreads();
-    for (int i0 = 0; i0 < nb; i0 += US) {
-      for (int j0 = 0; j0 < mw; j0 += UM) {
-        float v[US][UM][4], um[US][UM];
-#pragma unroll
-        for (int a = 0; a < US; ++a) {
-#pragma unroll
-          for (int b = 0; b < UM; ++b) {
-            if (i0 + a < nb && j0 + b < mw) {
-              const int m = warp + (j0 + b) * kT2Warps;
-              load_n4(blocks + slot_s[i0 + a] + static_cast<int64_t>(m) * bn, n0, bn, vec,
-                      v[a][b]);
-              um[a][b] = widen(u[urow_s[i0 + a] + m]);
-            }
-          }
-        }
-#pragma unroll
-        for (int a = 0; a < US; ++a) {
-#pragma unroll
-          for (int b = 0; b < UM; ++b) {
-            if (i0 + a < nb && j0 + b < mw) {
-#pragma unroll
-              for (int q = 0; q < 4; ++q) acc[q] = fmaf(v[a][b][q], um[a][b], acc[q]);
-            }
-          }
-        }
-      }
-    }
-  }
-  if (!sum_warps(red, acc)) return;
-  const int64_t c = chunk_col[ch];
-  if (col_chunk[c + 1] - col_chunk[c] == 1)
-    store_n4(out + c * bn, n0, bn, vec, acc);
-  else
-    store_n4(partial + ch * bn, n0, bn, vec, acc);
+  column_chunk_pass<TB, TX, US, UM>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial,
+                                    out, kmax, bm, bn, vec);
 }
 
-// K2 pass 2: blockIdx.x = a column with no chunk or several, blockIdx.y = n tile.
+// K2 pass 2 (column_combine_pass).
 template <typename TX>
 __global__ void __launch_bounds__(kT2Warps * 32)
 rmatvec_combine_kernel(const float* __restrict__ partial, const int32_t* __restrict__ cols,
                        const int32_t* __restrict__ col_chunk, TX* __restrict__ out, int bn,
                        bool vec) {
-  __shared__ __align__(16) float red[kT2Warps][kT2Tile];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t c = cols[blockIdx.x];
-  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
-  const int k1 = col_chunk[c + 1];
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = col_chunk[c] + warp; k < k1; k += kT2Warps * kUnroll) {
-    float v[kUnroll][4];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i)
-      if (k + i * kT2Warps < k1)
-        load_n4(partial + static_cast<int64_t>(k + i * kT2Warps) * bn, n0, bn, vec, v[i]);
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      if (k + i * kT2Warps < k1) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] += v[i][q];
-      }
-    }
-  }
-  if (sum_warps(red, acc)) store_n4(out + c * bn, n0, bn, vec, acc);
+  column_combine_pass<TX>(partial, cols, col_chunk, out, bn, vec);
 }
 
 template <typename TB, typename TX>
@@ -241,29 +117,10 @@ int launch_rmatvec(const void* blocks, const void* perm, const void* chunk_ptr,
                    const void* chunk_col, const void* col_chunk, const void* combine_cols,
                    const void* u, float* partial, void* out, int64_t nchunks,
                    int64_t ncombine, int kmax, int bm, int bn, cudaStream_t stream) {
-  if (nchunks > 0x7fffffffLL || ncombine > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned tiles = static_cast<unsigned>((bn + kT2Tile - 1) / kT2Tile);
-  const bool vec = bn % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % (4 * sizeof(TB)) == 0;
-  if (nchunks > 0) {
-    const dim3 grid(static_cast<unsigned>(nchunks), tiles);
-    auto kernel = bm <= kT2Warps ? rmatvec_chunk_kernel<TB, TX, kUnroll, 1>
-                                 : rmatvec_chunk_kernel<TB, TX, 1, kUnroll>;
-    kernel<<<grid, kT2Warps * 32, 0, stream>>>(
-        static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
-        static_cast<const int32_t*>(chunk_ptr), static_cast<const int32_t*>(chunk_col),
-        static_cast<const int32_t*>(col_chunk), static_cast<const TX*>(u), partial,
-        static_cast<TX*>(out), kmax, bm, bn, vec);
-    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
-  }
-  if (ncombine > 0) {
-    rmatvec_combine_kernel<TX><<<dim3(static_cast<unsigned>(ncombine), tiles), kT2Warps * 32, 0,
-                                 stream>>>(
-        partial, static_cast<const int32_t*>(combine_cols),
-        static_cast<const int32_t*>(col_chunk), static_cast<TX*>(out), bn, bn % 4 == 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return 0;
+  return launch_column_plan<TB, TX>(
+      rmatvec_chunk_kernel<TB, TX, kUnroll, 1>, rmatvec_chunk_kernel<TB, TX, 1, kUnroll>,
+      rmatvec_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
+      u, partial, out, nchunks, ncombine, kmax, bm, bn, stream);
 }
 
 }  // namespace

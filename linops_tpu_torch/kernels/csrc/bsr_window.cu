@@ -18,8 +18,9 @@
 // K6 `linops_bsr_rmatvec_multiwin` replaces bsr_rmatvec_pallas_multiwin: the
 //   transpose scatter out[c, n] = sum blocks[r, k, m, n] * u[r, m] into the
 //   windows of the same plans (K6: W monotone output lanes, valid mask per
-//   lane and group; an invalid lane step adds nothing). Block columns no
-//   window visits come out exactly zero.
+//   lane and group; an invalid lane step adds nothing, a slot is added once
+//   for every valid lane step whose window holds its column). Block columns
+//   no window visits come out exactly zero.
 //
 // What bounds them: like K1/K2, the bytes of the stored blocks, each read
 // once for one multiply-add. What the windows buy on this card: a row group's
@@ -38,23 +39,34 @@
 // shuffle-tree sum, no atomics. Slices keep the grid full when groups are few
 // and large (R = 512 block rows at the banded benchmark shape).
 //
-// Transpose design (K4, K6): deterministic, bit-identical from run to run,
-// with no float atomics. Two phases:
+// Transpose design (K4): deterministic, bit-identical from run to run, with
+// no float atomics. Two phases:
 //   1. window_partial_kernel: one warp per (partial row i, 128-wide n tile).
-//      Partial row i = g * L + l is local output column l of group g's
-//      windows (L = 2 wb for K4, W wb for K6). The host builds, once per
-//      operator, the slots of each partial row in increasing slot order
-//      (`perm`, `ptr`: see bsr_window_t_index / bsr_multiwin_t_index); a lane
-//      sums its n over those slots and over m in that fixed order, in f32,
-//      four slots' loads in flight at a time, and writes the row (zeros for
-//      rows no slot reaches).
-//   2. windowed_combine_kernel (K4) / multiwin_combine_kernel (K6): one
-//      thread per output element (c, n). Because q (K4) and each lane of q_t
-//      (K6) never decrease over groups, the groups whose windows hold c form
-//      a contiguous run, found by binary search in the plan itself; a run's
-//      partials are added in a fixed order (strided_sum), K6 lane by lane.
-// The partials are (ngroups * L, bn) f32 in a buffer the wrapper allocates:
-// about 1 % of the stored block bytes at the benchmark shapes.
+//      Partial row i = g * 2 wb + l is local output column l of group g's
+//      windows. The host builds, once per operator, the slots of each
+//      partial row in increasing slot order (`perm`, `ptr`: see
+//      bsr_window_t_index); a lane sums its n over those slots and over m in
+//      that fixed order, in f32, four slots' loads in flight at a time, and
+//      writes the row (zeros for rows no slot reaches).
+//   2. windowed_combine_kernel: one thread per output element (c, n).
+//      Because q never decreases over groups, the groups whose windows hold
+//      c form a contiguous run, found by binary search in the plan itself; a
+//      run's partials are added in a fixed order (strided_sum).
+// The partials are (ngroups * 2 wb, bn) f32 in a buffer the wrapper
+// allocates: about 1 % of the stored block bytes at the benchmark shapes.
+//
+// Transpose design (K6): K2's column plan (bsr_spmv.cu, bsr_common.cuh) over
+// the slots that K6's windows cover. The host builds, once per operator
+// (bsr_spmv.py::bsr_multiwin_t_plan), the slots of every valid lane step
+// whose window holds the slot's block column, sorted by block column, cut
+// into chunks of about 64 KB of blocks; multiwin_chunk_kernel gives each
+// (chunk, 128-wide n tile) a thread block with 16-byte loads and 8 block
+// rows in flight per warp, and multiwin_combine_kernel adds the partial rows
+// of a column with several chunks by warps, in a fixed order (zeros for a
+// column no window visits). K6's first design ran K4's two phases with
+// W wb partial rows per group: a warp per partial row made scalar loads, and
+// on the band + cluster operator one combine thread walked the far column's
+// 2048 groups (59 % of the bytes bound, against 88 % now; PERF.md).
 //
 // f32 accumulation for f32 and bf16 blocks, also across groups (the TPU's
 // bf16 transposes accumulated across groups in bf16; this does not). 64-bit
@@ -268,30 +280,27 @@ windowed_combine_kernel(const float* __restrict__ partial, const int32_t* __rest
   out[idx] = narrow<TX>(hi + lo);
 }
 
-// K6 phase 2: lane w of group g holds block column c iff q_t[w, g] == c / wb.
-// A lane step with valid 0 has no slots in the index, so its partial row is
-// zero and adds nothing. Lanes in order, each run of groups in order.
+// K6 pass 1 and pass 2: K2's passes (bsr_common.cuh) over K6's own column
+// plan (bsr_spmv.py::bsr_multiwin_t_plan), under K6's names. Registers capped
+// as K2's.
+template <typename TB, typename TX, int US, int UM>
+__global__ void __launch_bounds__(kT2Warps * 32, 4)
+multiwin_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
+                      const int32_t* __restrict__ chunk_ptr,
+                      const int32_t* __restrict__ chunk_col,
+                      const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
+                      float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
+                      int bn, bool vec) {
+  column_chunk_pass<TB, TX, US, UM>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial,
+                                    out, kmax, bm, bn, vec);
+}
+
 template <typename TX>
-__global__ void __launch_bounds__(kCombineThreads)
-multiwin_combine_kernel(const float* __restrict__ partial, const int32_t* __restrict__ win_q_t,
-                        TX* __restrict__ out, int64_t nbcol, int ngroups, int nwin, int bn,
-                        int wb) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
-  if (idx >= nbcol * bn) return;
-  const int64_t c = idx / bn;
-  const int n = static_cast<int>(idx % bn);
-  const int64_t p = c / wb;
-  const int64_t j = c - p * wb;
-  const int64_t row = static_cast<int64_t>(nwin) * wb * bn;  // one group's partial rows
-  float acc = 0.f;
-  for (int w = 0; w < nwin; ++w) {
-    const int32_t* qw = win_q_t + static_cast<int64_t>(w) * ngroups;
-    const int g0 = lower_bound(qw, ngroups, p);
-    const int g1 = upper_bound(qw, ngroups, p);
-    acc += strided_sum(partial + g0 * row + (static_cast<int64_t>(w) * wb + j) * bn + n, row,
-                       g1 - g0);
-  }
-  out[idx] = narrow<TX>(acc);
+__global__ void __launch_bounds__(kT2Warps * 32)
+multiwin_combine_kernel(const float* __restrict__ partial, const int32_t* __restrict__ cols,
+                        const int32_t* __restrict__ col_chunk, TX* __restrict__ out, int bn,
+                        bool vec) {
+  column_combine_pass<TX>(partial, cols, col_chunk, out, bn, vec);
 }
 
 int grid_or_error(int64_t blocks, unsigned* out) {
@@ -404,31 +413,26 @@ int linops_bsr_rmatvec_windowed(const void* blocks, const void* perm, const void
   });
 }
 
-// K6. win_q_t is (nwin, ngroups); perm/ptr from bsr_multiwin_t_index, which
-// leaves out the lane steps whose valid flag is 0; partial is
-// (ngroups * nwin * wb, bn).
-int linops_bsr_rmatvec_multiwin(const void* blocks, const void* perm, const void* ptr,
-                                const void* u, const void* win_q_t,
-                                float* partial, void* out, int64_t nbcol, int ngroups,
-                                int nwin, int kmax, int bm, int bn, int wb, int block_dtype,
-                                int vec_dtype, int device, void* stream) {
+// K6. perm, chunk_ptr, chunk_col, col_chunk, combine_cols: K6's column plan
+// (bsr_spmv.py::bsr_multiwin_t_plan: the slots of valid lane steps whose
+// window holds their block column, by column); partial is (nchunks, bn) f32
+// scratch; out is (nbcol, bn).
+int linops_bsr_rmatvec_multiwin(const void* blocks, const void* perm, const void* chunk_ptr,
+                                const void* chunk_col, const void* col_chunk,
+                                const void* combine_cols, const void* u, float* partial,
+                                void* out, int64_t nchunks, int64_t ncombine, int kmax, int bm,
+                                int bn, int block_dtype, int vec_dtype, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nwin < 1 || nwin > kMaxWindows) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
     using TB = typename decltype(tb)::type;
     using TX = typename decltype(tx)::type;
-    const int64_t nrows = static_cast<int64_t>(ngroups) * nwin * wb;
-    if (int rc = launch_partial<TB, TX>(blocks, perm, ptr, u, partial, nrows, kmax, bm, bn, s))
-      return rc;
-    unsigned grid;
-    if (int rc = combine_grid(nbcol, bn, &grid)) return rc;
-    if (grid == 0) return 0;
-    multiwin_combine_kernel<TX><<<grid, kCombineThreads, 0, s>>>(
-        partial, static_cast<const int32_t*>(win_q_t), static_cast<TX*>(out), nbcol, ngroups,
-        nwin, bn, wb);
-    return static_cast<int>(cudaGetLastError());
+    return launch_column_plan<TB, TX>(
+        multiwin_chunk_kernel<TB, TX, kUnroll, 1>, multiwin_chunk_kernel<TB, TX, 1, kUnroll>,
+        multiwin_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk,
+        combine_cols, u, partial, out, nchunks, ncombine, kmax, bm, bn, s);
   });
 }
 

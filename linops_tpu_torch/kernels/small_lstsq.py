@@ -15,12 +15,15 @@ its restarts in captured blocks (``utils/loop.py``), nested ones as CUDA
 while nodes.
 
 The kernel is hand-written CUDA C++ for ``sm_90a`` in ``csrc/small_lstsq.cu``
-(design notes there), built with ``nvcc`` at first use (``build.py``):
-one-sided Jacobi on the columns, in f64 (c128 for complex input), one thread
-block per matrix, its buffers in shared memory where they fit, else in a
-global workspace the wrapper allocates (the same code). A zero column (a
-lucky breakdown's trailing columns of H) is never rotated, so its entries of
-y come out exactly 0, as the SVD cutoff gives them. The wrapper dispatches on
+(design notes there), built with ``nvcc`` at first use (``build.py``): a QR
+of [H | b] by Givens rotations of rows, then one-sided Jacobi on the
+triangular factor, in f64 (c128 for complex input): on its rows with b's
+entries rotated along and no V for f32 and c64 input, on its columns with V
+for f64 and c128 input (whose accuracy needs V). One thread block per
+matrix, its buffers in shared memory where they fit, else in a global
+workspace the wrapper allocates (the same code). The columns of H past a
+lucky breakdown stay exactly zero under row rotations, so those entries of y
+come out exactly 0, as the SVD cutoff gives them. The wrapper dispatches on
 the tensor's device: a CPU tensor takes ``small_lstsq_plain`` (the SVD); a
 CUDA tensor launches the kernel or raises. There is no fallback from a CUDA
 tensor to the plain version. Under ``torch.func.vmap`` the batch is one

@@ -600,17 +600,17 @@ class BSROperator(_SparseBase):
     ``convert.bsr_operator_from_reference``.
 
     Construction builds K2's column plan, K5's lane rows for a multi
-    plan and, with a transpose plan, K4/K6's slot index, on the data's
-    device, once. Data padded by the reference (extra zero block rows at
+    plan and, with a transpose plan, K4's slot index or K6's column plan,
+    on the data's device, once. Data padded by the reference (extra zero block rows at
     block column 0) is accepted: applies truncate to ``shape``.
     """
 
     _fields_tensors = ("data", "col_plan", "win_q", "cols_local", "win_q_t",
-                       "win_valid_t", "lane_rows", "t_perm", "t_ptr")
+                       "win_valid_t", "lane_rows", "t_perm", "t_ptr", "t_plan")
     _fields_static = ("_symmetric", "_hermitian", "_backend", "_wb", "_x_pad_blocks",
                       "_x_pad_blocks_t")
     _fields_derived = ("_plain_t_plan",)
-    _fields_index = ("col_plan", "lane_rows", "t_perm", "t_ptr")
+    _fields_index = ("col_plan", "lane_rows", "t_perm", "t_ptr", "t_plan")
 
     def __init__(self, data: BSR, symmetric: bool = False, hermitian: bool = False,
                  backend: str = "auto", win_q=None, cols_local=None, win_q_t=None,
@@ -654,22 +654,23 @@ class BSROperator(_SparseBase):
         self._build_index()
 
     def _build_index(self):
-        """K2's column plan, K5's lane rows and K4/K6's slot index from the
-        block columns and the window plan; the plain transpose's segment
-        plan is dropped, to be built at its next use."""
+        """K2's column plan, K5's lane rows, K4's slot index and K6's column
+        plan from the block columns and the window plan; the plain
+        transpose's segment plan is dropped, to be built at its next use."""
         d = self.data
         bm, bn = d.block_shape
         self.col_plan = bsr_column_plan(d.block_cols, self._nbcol,
                                         bm * bn * d.blocks.element_size())
         self._plain_t_plan = None
-        self.lane_rows = self.t_perm = self.t_ptr = None
+        self.lane_rows = self.t_perm = self.t_ptr = self.t_plan = None
         if self.win_q is not None and self.cols_local is None:
             self.lane_rows = K.bsr_multiwin_index(d.block_cols, self.win_q, self._wb)
         if self.win_q is not None and self.cols_local is not None:
             self.t_perm, self.t_ptr = K.bsr_window_t_index(self.cols_local, self.win_q, self._wb)
         elif self.win_q_t is not None:
-            self.t_perm, self.t_ptr = K.bsr_multiwin_t_index(
-                d.block_cols, self.win_q_t, self.win_valid_t, self._wb)
+            self.t_plan = K.bsr_multiwin_t_plan(d.block_cols, self.win_q_t, self.win_valid_t,
+                                                self._wb, self._nbcol,
+                                                bm * bn * d.blocks.element_size())
 
     def _plan(self):
         """Pad nbrow and plan windows as the reference's constructor does
@@ -827,8 +828,7 @@ class BSROperator(_SparseBase):
                 plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks_t, nbcol=nbcol)
                 args = (blocks, d.block_cols, self.win_q_t, self.win_valid_t, ub)
                 if kern:
-                    x = K.bsr_rmatvec_multiwin_kernel(*args, index=(self.t_perm, self.t_ptr),
-                                                      **plan)
+                    x = K.bsr_rmatvec_multiwin_kernel(*args, index=self.t_plan, **plan)
                 else:
                     x = K.bsr_rmatvec_multiwin_plain(*args, sum_plan=self.plain_transpose_plan(),
                                                      **plan)

@@ -6,7 +6,8 @@ container and the same ``__meta__`` keys (``class``, ``structure``,
 ``_fields_tensors``, depth first in field order (child operators and
 NamedTuples of tensors recursed into; ``None`` holds no leaf), less its
 ``_fields_index``: a kernel's index built from the other fields (K2's
-column plan, K4-K6's slot index) is rebuilt after a load, not stored.
+column plan, K5's lane rows, K4's slot index, K6's column plan) is rebuilt
+after a load, not stored.
 Where the port's fields are the reference's, in the reference's order
 (the quasi-Newton states, BSR, DIA, the COO/CSR/ELL formats, diagonals),
 the leaves and the ``__meta__`` fingerprint (operator class names and leaf

@@ -9,7 +9,9 @@ Kernel against plain version, same inputs on the card: max|Δ| ≤ 1e-5·max|y|
 for f32 results (both accumulate in f32, in different orders), 1e-2 for
 bf16 results (bf16 rounding of the output, 2^-8). The transposes (K2, K4,
 K6) must be bit-identical on a rerun; K2 also on a hot column (every block
-row) cut into many chunks and beside empty columns. The lane kernels K7-K12: gathers and
+row) cut into many chunks and beside empty columns, K6 (on K2's passes) on a
+far cluster column every group but one visits, cut into many chunks, beside
+columns no window visits. The lane kernels K7-K12: gathers and
 products exact; lane-group sums (K10) within 1e-6·max|y| (f32) or 2^-7
 (bf16); segment sums (K11, K12) within 8·eps_f32·Σ|window| per element, plus,
 in bf16, one ulp of the result (2^-7·|y|: two f32 sums that differ slightly
@@ -62,8 +64,9 @@ and a replay under ``set_sync_debug_mode("error")`` raises nothing.
 
 E2, the small least-squares solver (slice 14), against its plain version
 (``torch.linalg.svd`` at ``jnp.linalg.lstsq``'s cutoff), for (m + 1) x m Hessenbergs in f32, f64, c64 and c128 at m in
-{1, 2, 8, 30, 64, 128} (c64 and c128 from m = 96, everything at 128, from the
-global workspace): the residual ‖H y − b‖ within 50·eps·‖b‖ of the plain
+{1, 2, 8, 30, 64, 120, 128}, and on both sides of each dtype's shared-memory
+edge (m = 168 in f32, 119 in c64 and f64, 84 in c128; past it the global
+workspace): the residual ‖H y − b‖ within 50·eps·‖b‖ of the plain
 version's in the input's type, the singular values within
 max(50, 4·sqrt(sweeps·m))·eps·σ_max of LAPACK's on the inputs widened to f64
 or c128 (cuSOLVER's own stray further on these ill-conditioned inputs) (the roundings of the rotations each
@@ -295,6 +298,45 @@ def test_multiwin_kernels_match_plain(dev, dims, dtypes):
                                                         nbcol=nbcol))
 
 
+@pytest.mark.parametrize("dtypes", PAIRS)
+def test_k6_hot_and_empty_columns(dev, dtypes):
+    """K6 on its column plan: a far cluster column that every group but one
+    visits (that group's lane step invalid), cut into many chunks, and
+    columns no window visits: the plain K6 and K2 within 1e-5 (1e-2 for a
+    bf16 result), exact zeros where no window looks, the same bits on a
+    rerun, one launch each."""
+    nbrow, kmax, bm, bn = 512, 3, 8, 128
+    nbcol = 600
+    rng = np.random.default_rng(5)
+    cols = np.zeros((nbrow, kmax), np.int32)
+    for bi in range(nbrow):
+        g = bi // 32
+        band = g * 4
+        clus = 590 if g != 3 else band + 2
+        cols[bi] = sorted([band, band + 1, clus])
+    blocks = rng.standard_normal((nbrow, kmax, bm, bn)).astype(np.float32)
+    qm, wb, _ = K.bsr_window_plan_multi(cols, 32, nbcol, wb_max=16, blocks=blocks)
+    qt, vt, xpbt = K.bsr_window_plan_multi_t(cols, 32, nbcol, wb, 4, blocks=blocks)
+    assert vt.min() == 0
+    bdt, vdt = dtypes
+    b = torch.from_numpy(blocks).to(dev, bdt)
+    c, qt_t, vt_t = (torch.from_numpy(a).to(dev) for a in (cols, qt, vt))
+    u = torch.randn((nbrow, bm), device=dev).to(vdt)
+    plan = K.bsr_multiwin_t_plan(c, qt_t, vt_t, wb, nbcol, block_bytes=65536 // 4)
+    hot = int(plan.col_chunk[591] - plan.col_chunk[590])
+    assert hot == -(-(nbrow - 32) // 4)
+    args = (b, c, qt_t, vt_t, u)
+    K.reset_launch_counts()
+    o = K.bsr_rmatvec_multiwin_kernel(*args, wb=wb, x_pad_blocks=xpbt, nbcol=nbcol, index=plan)
+    o2 = K.bsr_rmatvec_multiwin_kernel(*args, wb=wb, x_pad_blocks=xpbt, nbcol=nbcol, index=plan)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bsr_rmatvec_multiwin"] == 2 and torch.equal(o, o2)
+    tol = 1e-5 if vdt == torch.float32 else 1e-2
+    ref = K.bsr_rmatvec_multiwin_plain(*args, wb=wb, x_pad_blocks=xpbt, nbcol=nbcol)
+    assert rel_err(o, ref) <= tol and rel_err(o, K.bsr_rmatvec_plain(b, c, u, nbcol)) <= tol
+    assert torch.count_nonzero(o[ref.float().abs().sum(1) == 0]) == 0
+
+
 def test_untouched_columns_are_exactly_zero(dev):
     blocks, cols, nbcol = window_case((64, 2, 8, 32), multi=False)
     cols[32:] = np.where(cols[32:] != 0, cols[32:] + 12, 0)  # a jump over 12 block columns
@@ -318,7 +360,8 @@ def test_window_dispatch_on_cuda(dev, monkeypatch):
         blocks, cols, nbcol = window_case((256, 4, 8, 128), multi=multi)
         shape = (256 * 8, nbcol * 128)
         op = lt.BSROperator(lt.BSR(torch.from_numpy(blocks), torch.from_numpy(cols), shape)).to(dev)
-        assert op.win_q is not None and (op.cols_local is None) == multi and op.t_perm.is_cuda
+        index = op.t_plan.perm if multi else op.t_perm
+        assert op.win_q is not None and (op.cols_local is None) == multi and index.is_cuda
         v = torch.randn(shape[1], device=dev)
         u = torch.randn(shape[0], device=dev)
         K.reset_launch_counts()
@@ -2020,7 +2063,7 @@ def lstsq_residuals(H, b, y):
         (H.to(wide) @ y.to(wide).unsqueeze(-1)).squeeze(-1) - b.to(wide), dim=-1)
 
 
-@pytest.mark.parametrize("m", [1, 2, 8, 30, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 8, 30, 64, 120, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
                                    torch.complex128])
 def test_small_lstsq_matches_plain(dev, dtype, m):
@@ -2045,6 +2088,25 @@ def test_small_lstsq_matches_plain(dev, dtype, m):
     y2 = E2.small_lstsq(H, b)
     y3 = E2.small_lstsq(H[1:2], b[1:2])
     assert torch.equal(y, y2) and torch.equal(y[1], y3[0])
+
+
+@pytest.mark.parametrize("dtype,last", [(torch.float32, 168), (torch.complex64, 119),
+                                        (torch.float64, 119), (torch.complex128, 84)])
+def test_small_lstsq_shared_memory_edge(dev, dtype, last):
+    """GMRES's (m + 1) x m problem stays in shared memory to m = 168 in f32
+    (no V), 119 in c64 and f64 (V kept for f64), 84 in c128; one column
+    more takes the global workspace, and both meet the contract there."""
+    assert E2.workspace_bytes(last + 1, last, dtype) == 0
+    assert E2.workspace_bytes(last + 2, last + 1, dtype) > 0
+    for m in (last, last + 1):
+        H, b = lstsq_batch(dev, m, dtype)
+        y, s, _ = E2.small_lstsq(H, b, full=True)
+        eps = torch.finfo(s.dtype).eps
+        wide = torch.complex128 if dtype.is_complex else torch.float64
+        bn = torch.linalg.vector_norm(b.to(wide), dim=-1)
+        y_p = E2.small_lstsq_plain(H, b)
+        assert bool((lstsq_residuals(H, b, y) <= lstsq_residuals(H, b, y_p) + 50 * eps * bn).all())
+        assert not y[2, m // 2 + 1:].any() and not y[3].any() and not s[3].any()
 
 
 def test_small_lstsq_in_a_graph_and_under_vmap(dev):

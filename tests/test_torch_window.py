@@ -16,10 +16,12 @@ versions, the windowed ``BSROperator``) with the JAX reference, on the CPU.
   operators carry the same plan. N/T/H applies agree to 1e-10·max|ref| in
   f64 (the reference's f64 applies take its XLA path) and to 3e-6·max|ref|
   in f32 (its interpret-mode window kernels).
-- K5's lane rows and K4/K6's slot index, emulated in numpy as the CUDA
+- K5's lane rows and K4's slot index, emulated in numpy as the CUDA
   kernels use them (staged windows; partials per group, then a combine over
   the contiguous run of groups found by binary search), give the plain
-  versions' products.
+  versions' products; K6's column plan, walked in its kernel's order as
+  ``tests/test_torch_bsr.py`` walks K2's, gives the plain and the Pallas
+  K6's.
 """
 
 import jax.numpy as jnp
@@ -602,30 +604,86 @@ def test_window_t_index_emulates_k4(rng, caps):
     assert rel_err(out, ref.numpy()) <= 1e-12
 
 
-def test_multiwin_t_index_emulates_k6(rng, caps):
-    caps(window_blocks=16, tile=65536)
-    blocks, cols, shape = band_cluster(rng)
-    nbcol = shape[1] // 128
-    R = K.bsr_window_rows(8, 8, 128, 4, blocks.shape[0])
-    _, wb, _ = K.bsr_window_plan_multi(cols, R, nbcol, wb_max=16)
-    qt, vt, xpbt = K.bsr_window_plan_multi_t(cols, R, nbcol, wb, 4)
-    u = rng.standard_normal((blocks.shape[0], 8))
-    perm, ptr = K.bsr_multiwin_t_index(*map(torch.from_numpy, (cols, qt, vt)), wb)
-    W, ngroups = qt.shape
-    P = _emulate_partials(blocks.astype(np.float64), u, perm.numpy(), ptr.numpy(),
-                          ngroups * W * wb)
-    for w, g in zip(*np.nonzero(vt == 0)):  # an invalid lane step has no slots: zero rows
-        assert not P[g * W * wb + w * wb:g * W * wb + (w + 1) * wb].any()
-    out = np.zeros((nbcol, 128))
-    for c in range(nbcol):  # phase 2: lane by lane, the run of groups at window c // wb
-        p, j = divmod(c, wb)
-        for w in range(W):
-            for g in range(np.searchsorted(qt[w], p, "left"), np.searchsorted(qt[w], p, "right")):
-                out[c] += P[g * W * wb + w * wb + j]
-    ref = K.bsr_rmatvec_multiwin_plain(torch.from_numpy(blocks).double(),
-                                       *map(torch.from_numpy, (cols, qt, vt, u)), wb=wb,
-                                       x_pad_blocks=xpbt, nbcol=nbcol)
-    assert rel_err(out, ref.numpy()) <= 1e-12
+def _k6_case(rng, caps):
+    """The band + far cluster case on the reference's multi plans: one group
+    skips the cluster (an invalid lane step), and block columns 16-55 and
+    57-63 lie in no window; the cluster column 56 takes 48 slots."""
+    blocks, cols, nbcol, R = _kernel_case(rng, caps, multi=True)
+    caps(tile=65536, window_blocks=16)
+    _, wb, _ = BK.bsr_window_plan_multi(cols, R, nbcol, wb_max=16)
+    qt, vt, xpbt = BK.bsr_window_plan_multi_t(cols, R, nbcol, wb, 4)
+    assert vt.min() == 0
+    return blocks, cols, nbcol, wb, qt, vt, xpbt
+
+
+@pytest.mark.parametrize("chunk_slots", [16, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multiwin_t_index_emulates_k6(rng, caps, dtype, chunk_slots):
+    """K6's column plan walked in the kernel's order (``_walk_plan``: each
+    chunk's slots in order, a column of one chunk written by it, the others
+    by the combine's warps in order), in f64: the plain K6 within 1e-12,
+    the reference's Pallas K6 in interpret mode within 1e-5 (f32 blocks; bf16
+    blocks against an f32 oracle of the same values, as the reference
+    accumulates across groups in bf16), exact zeros in the columns no window
+    visits; with 2 slots a chunk the cluster column runs over 24 chunks."""
+    from test_torch_bsr import _walk_plan
+
+    blocks, cols, nbcol, wb, qt, vt, xpbt = _k6_case(rng, caps)
+    jb = jnp.asarray(blocks).astype(jnp.dtype(dtype))
+    tb = from_numpy(np.asarray(jb.astype(jnp.float32)), dtype=getattr(torch, dtype), device="cpu")
+    ub = rng.standard_normal((blocks.shape[0], 8)).astype(np.float32)
+    ct, qtt, vtt, ut = (torch.from_numpy(a) for a in (cols, qt, vt, ub))
+    plan = K.bsr_multiwin_t_plan(ct, qtt, vtt, wb, nbcol, block_bytes=65536 // chunk_slots)
+    assert plan.chunk_slots == chunk_slots
+    hot = plan.col_chunk[57] - plan.col_chunk[56]
+    assert hot == -(-48 // chunk_slots)
+    walked = _walk_plan(tb, ct, ut, nbcol, plan)
+    plain = K.bsr_rmatvec_multiwin_plain(tb.double(), ct, qtt, vtt, ut.double(), wb=wb,
+                                         x_pad_blocks=xpbt, nbcol=nbcol)
+    assert rel_err(walked, plain.numpy()) <= 1e-12
+    assert not walked[16:56].any() and not walked[57:].any()
+    oj = BK.bsr_rmatvec_pallas_multiwin(jb, jnp.asarray(cols), jnp.asarray(qt), jnp.asarray(vt),
+                                        jnp.asarray(ub), wb=wb, x_pad_blocks=xpbt, nbcol=nbcol,
+                                        interpret=True)
+    D = dense_of(np.asarray(jb.astype(jnp.float32)), cols, (blocks.shape[0] * 8, nbcol * 128))
+    assert rel_err(walked.reshape(-1), D.T @ ub.reshape(-1).astype(np.float64)) <= 1e-12
+    assert rel_err(walked, oj) <= (1e-5 if dtype == "float32" else 5e-2)
+
+
+def test_multiwin_t_plan_invariants(rng, caps):
+    """K6's column plan lists each slot once for every valid lane step whose
+    window holds its block column (the plain K6's weight: none for the
+    group that skips the cluster, two when two valid lanes repeat a
+    window), by column and then by slot, in chunks of at most S slots of
+    one column that cover the list once; ``combine_cols`` are the columns
+    with no chunk or several. Walked, the repeated lane gives the plain
+    K6's doubled sum."""
+    from test_torch_bsr import _walk_plan
+
+    blocks, cols, nbcol, wb, qt, vt, xpbt = _k6_case(rng, caps)
+    for q_t, v_t in ((qt, vt), (np.concatenate([qt, qt[:1]]), np.concatenate([vt, vt[:1]]))):
+        ct, qtt, vtt = (torch.from_numpy(np.ascontiguousarray(a)) for a in (cols, q_t, v_t))
+        plan = K.bsr_multiwin_t_plan(ct, qtt, vtt, wb, nbcol, block_bytes=65536 // 4)
+        weight = K._lane_weights(ct, qtt, wb, valid=vtt).reshape(-1).numpy()
+        perm = plan.perm.numpy()
+        assert np.array_equal(np.bincount(perm, minlength=weight.size), weight)
+        key = cols.reshape(-1)[perm].astype(np.int64) * weight.size + perm
+        assert (np.diff(key) >= 0).all()
+        colptr, ptr = plan.colptr.numpy(), plan.chunk_ptr.numpy()
+        chunk_col, col_chunk = plan.chunk_col.numpy(), plan.col_chunk.numpy()
+        assert ptr[0] == 0 and ptr[-1] == perm.size and (np.diff(ptr) >= 1).all()
+        assert (np.diff(ptr) <= plan.chunk_slots).all()
+        for ch, c in enumerate(chunk_col):
+            assert (cols.reshape(-1)[perm[ptr[ch]:ptr[ch + 1]]] == c).all()
+            assert col_chunk[c] <= ch < col_chunk[c + 1]
+        assert np.array_equal(np.diff(colptr), np.bincount(cols.reshape(-1)[perm], minlength=nbcol))
+        assert np.array_equal(plan.combine_cols.numpy(), np.nonzero(np.diff(col_chunk) != 1)[0])
+        ub = torch.from_numpy(rng.standard_normal((blocks.shape[0], 8)))
+        tb = torch.from_numpy(blocks)
+        walked = _walk_plan(tb, ct, ub, nbcol, plan)
+        plain = K.bsr_rmatvec_multiwin_plain(tb.double(), ct, qtt, vtt, ub, wb=wb,
+                                             x_pad_blocks=xpbt, nbcol=nbcol)
+        assert rel_err(walked, plain.numpy()) <= 1e-12
 
 
 def test_multiwin_index_emulates_k5(rng, caps):
@@ -666,8 +724,8 @@ def test_t_index_refuses_decreasing_windows():
     with pytest.raises(ValueError, match="never decrease"):
         K.bsr_window_t_index(cols_local, torch.tensor([1, 0], dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="never decrease"):
-        K.bsr_multiwin_t_index(cols_local, torch.tensor([[2, 1]], dtype=torch.int32),
-                               torch.ones((1, 2), dtype=torch.int32), 8)
+        K.bsr_multiwin_t_plan(cols_local, torch.tensor([[2, 1]], dtype=torch.int32),
+                              torch.ones((1, 2), dtype=torch.int32), 8, 24)
 
 
 def test_banded_normal_equations_cg_both_packages(rng, caps):
