@@ -5,7 +5,7 @@
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 7, 9, 8, 5 (with phase 4's main path rerun under the profiler at its end),
-11, 12, 13, 10, 14, 15 (15f, E2, after 15a), then one profiled slice-1 CG (the times come
+11, 12, 13, 10, 14, 13h, 15 (15f, E2, after 15a), then one profiled slice-1 CG (the times come
 after every kernel has been checked; phases 12, 10, 14 and the profiled CG
 come after phase 5 because torch.profiler traces of whole solves, run before
 phase 5, left phase 5's own traces without device time; phases 11 and 12 run
@@ -124,6 +124,19 @@ shows them run but can lose records).
    1e-6) and Chebyshev without an all-reduce, both solves captured and bit
    for bit their per-iteration loop's, ``scaling_report(1)`` and the card's
    copy rate. Its launches must include K1-K6 and K7, K9-K12.
+   13h (after phase 14, whose unsharded 14d and 14h numbers it prints beside
+   its own): DTensor vectors wherever the reference takes a sharded array.
+   GMRES(30) on ``shard_operator`` of 10a's auto_8m + 8I with b placed
+   ``Shard(0)`` (its basis kept as this rank's rows), both ways: x in b's
+   placement, restarts and x bit for bit the unsharded solve's, one read
+   and no other synchronizing call per restart of a cached solve, the
+   collectives of one Arnoldi step, E2 and K7, K9-K11 in the captured block
+   and no cuSOLVER kernel; 14h's nested GMRES on DTensor vectors (14h's
+   counts, x bit for bit); phase 11c's ``funm_apply`` on a DTensor b; 10e's
+   L-BFGS model sharded, DTensor pairs pushed and the shifted solves at its
+   three σ bit for bit; slice 1's CG with a plain Jacobi ``opDiagonal`` M on
+   a DTensor b, bit for bit the same M sharded. Its launches must include
+   K1, K2, K7, K9-K11, E2 and G1.
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
    each phase-10 solve (GMRES(30) and BiCGSTAB on auto_8m + 8I, damped LSQR,
@@ -3869,6 +3882,268 @@ def phase13(lt, K, LG, dev, card, ops):
     return launches
 
 
+DTENSOR_GMRES_MAXITER = 20  # 13h: GMRES(30)'s restarts at most, as 10a
+
+
+def phase13h(lt, loop, K, LG, dev, card, ops, main, rec14):
+    """DTensor vectors wherever the reference takes a sharded array, in the
+    world of one NCCL rank, at full width. (a) GMRES(30) on
+    ``shard_operator`` of 10a's auto_8m + 8I with b placed ``Shard(0)``,
+    both ways through ``loop_modes``: x in b's placement, restarts and x bit
+    for bit the unsharded 10a solve's, one read per restart and no
+    synchronizing call but the reads in a cached solve, the collectives of
+    one Arnoldi step (the operator's own and at most two all-reduces: the
+    basis is never gathered), the captured block's kernels (E2 and the routed
+    apply's K7, K9-K11, the set the per-iteration loop launched; no cuSOLVER
+    kernel), wall and device µs per restart beside 14d's unsharded numbers.
+    (b) 14h's nested solve on DTensor vectors: outer iterations and summed
+    inner restarts 14h's, x bit for bit the unsharded solve's. (c) phase 11c's
+    ``funm_apply`` on phase 4's graph through ``shard_operator`` with a
+    DTensor b, bit for bit the plain call. (d) 10e's forward L-BFGS (n =
+    10^6, mem 16) through ``shard_operator``: DTensor pairs pushed, the state
+    (its placements kept) and the shifted solves at 10e's three σ (compact,
+    EJM, all three at once) bit for bit the unsharded model's. (e) slice 1's
+    CG (13b's graph) with a plain ``opDiagonal`` Jacobi M and a DTensor b,
+    both ways, bit for bit the same M through ``shard_operator``. The launch
+    counts are set to 0 before each part and read after it. Returns them."""
+    from linops_tpu_torch.kernels import graph_cond as GC
+    from linops_tpu_torch.kernels import small_lstsq as E2
+    from linops_tpu_torch.parallel import collective_counts, make_mesh, row_sharding, \
+        shard_operator
+    from linops_tpu_torch.parallel.comm import gather_full, is_dtensor
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    place = row_sharding(mesh).place
+    f32 = torch.float32
+    mods = (K, LG, E2, GC)
+    launches = {}
+
+    def reset():
+        for m_ in mods:
+            m_.reset_launch_counts()
+
+    def counts():
+        return {k_: v_ for m_ in mods for k_, v_ in m_.launch_counts().items() if v_}
+
+    def whole(solve):
+        """``solve`` with x gathered, for ``loop_modes``'s bit checks; the
+        DTensor it returned is kept in ``last``."""
+        last = {}
+
+        def run():
+            x_, k_, r_ = solve()
+            last["x"] = x_
+            return gather_full(x_), k_, r_
+
+        return run, last
+
+    def in_place(x_, b_):
+        return is_dtensor(x_) and tuple(x_.placements) == tuple(b_.placements)
+
+    # --- 13h a. GMRES(30) on DTensor vectors ---------------------------------------------
+    free()
+    S = lt.ShiftedOperator(ops["op2"], 8.0)
+    S_sh = shard_operator(S, mesh)
+    n2 = ops["A2"].shape[0]
+    b = dev_vec(n2, dev, SEED + 70)  # 10a's and 14d's b
+    b_sh = place(b)
+
+    def gm(op, v):
+        return lt.gmres(op, v, tol=1e-5, restart=30, maxiter=DTENSOR_GMRES_MAXITER)
+
+    x_un, k_un, _ = gm(S, b)
+    per_apply = collective_counts(lambda: S_sh.apply(b_sh, "N"))
+    one = [collective_counts(lambda: lt.gmres(S_sh, b_sh, tol=0.0, restart=m_, maxiter=1))
+           for m_ in (10, 20)]
+    per_step = {c_: (one[1][c_] - one[0][c_]) / 10 for c_ in one[0]}
+    check(all(per_step[c_] == per_apply[c_] for c_ in per_step if c_ != "all-reduce")
+          and per_apply["all-reduce"] <= per_step["all-reduce"] <= per_apply["all-reduce"] + 2,
+          f"13h a: collectives per Arnoldi step {per_step}, per apply {per_apply}")
+    seen = {}
+
+    def inspect(g):
+        names = graph_kernel_names(g)
+        seen.update(solver=[n_ for n_ in names if SOLVER_KERNELS.search(n_)])
+
+    solve_a, last_a = whole(lambda: gm(S_sh, b_sh))
+    reset()
+    r_a = loop_modes(loop, f"13h a gmres(30) on shard_operator(auto_8m + 8I) (n = {n2}), b a "
+                     "DTensor, tol 1e-5", solve_a, unit="restarts", phase="13h", inspect=inspect)
+    c_a = counts()
+    launches["13h a"] = c_a
+    k = r_a["iters"]
+    held = {n_ for n_, c_ in r_a["held"].items() if c_}
+    want = {"small_lstsq", "lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum",
+            "lane_segsum"}
+    check(in_place(last_a["x"], b_sh),
+          f"13h a: x placed {getattr(last_a['x'], 'placements', None)}")
+    check(k == k_un and r_a["bits"] and torch.equal(gather_full(last_a["x"]), x_un),
+          f"13h a: {k} restarts (unsharded {k_un}), x bit for bit both loops {r_a['bits']}, "
+          f"against the unsharded 10a solve {torch.equal(gather_full(last_a['x']), x_un)}")
+    check(r_a["reads"][1] == k and r_a["syncs_seen"] == r_a["reads"][1],
+          f"13h a: {r_a['reads'][1]} reads and {r_a['syncs_seen']} synchronizing calls in a "
+          f"cached solve of {k} restarts")
+    check(want <= held and held == set(c_a) - {"while_condition"} and not seen["solver"],
+          f"13h a: the captured block holds {r_a['held']} (wanted {sorted(want)}; launched in "
+          f"its solves {c_a}; cuSOLVER kernels {seen['solver']})")
+    d14 = rec14.get("14d 10a gmres(30) on auto_8m + 8I, tol 1e-5", {})
+    print(f"[13h a dtensor gmres] gmres(30) on shard_operator(auto_8m + 8I), b placed Shard(0), "
+          f"world size 1: x a DTensor in b's placement, {k} restarts (unsharded {k_un}), x bit for "
+          f"bit the unsharded 10a solve's and across both loops; a cached solve {r_a['reads'][1]} "
+          f"reads, {r_a['syncs_seen']} synchronizing calls; collectives per Arnoldi step "
+          f"{per_step}, per apply {per_apply}; the captured block holds {r_a['held']}, no cuSOLVER "
+          f"kernel, launches over its solves {c_a} (K8 "
+          f"{'launched' if 'lane_gather_mul' in c_a else 'not launched'}); "
+          f"wall µs per restart {r_a['wall_us_per_iter'][0]:.1f} per-iteration -> "
+          f"{r_a['wall_us_per_iter'][1]:.1f} captured, device {r_a['device_us_per_iter']}, busy "
+          f"{r_a['busy']}; 14d unsharded in this call: wall {d14.get('wall_us_per_iter')}, device "
+          f"{d14.get('device_us_per_iter')}, busy {d14.get('busy')}; {card}", flush=True)
+
+    # --- 13h b. the nested GMRES on DTensor vectors ----------------------------------------
+    bh = dev_vec(n2, dev, SEED + 170)  # 14h's b
+    bh_sh = place(bh)
+    M_sh = lt.opIterativeInverse(S_sh, tol=1e-2, maxiter=30)
+    M_un = lt.opIterativeInverse(S, tol=1e-2, maxiter=30)
+    check(M_sh.capture_safe and M_sh._resolved(S_sh) == "gmres",
+          f"13h b: the inverse takes {M_sh._resolved(S_sh)}, capture-safe {M_sh.capture_safe}")
+    inner = []
+
+    def nested():
+        M_sh.reset_inner_iterations()
+        out = lt.bicgstab(S_sh, bh_sh, tol=1e-5, maxiter=200, M=M_sh)
+        inner.append(M_sh.inner_iterations)
+        return out
+
+    solve_b, last_b = whole(nested)
+    reset()
+    r_b = loop_modes(loop, "13h b nested gmres on DTensor vectors: bicgstab on "
+                     "shard_operator(auto_8m + 8I), M = opIterativeInverse(tol 1e-2, maxiter 30, "
+                     "auto), tol 1e-5", solve_b, unit="outer iterations", phase="13h")
+    c_b = counts()
+    launches["13h b"] = c_b
+    x_bu, k_bu, _ = lt.bicgstab(S, bh, tol=1e-5, maxiter=200, M=M_un)
+    h14 = rec14["14h"]
+    check(in_place(last_b["x"], bh_sh) and len(set(inner)) == 1 and r_b["iters"] == k_bu
+          == h14["iters"] and min(inner) == h14["inner"]
+          and torch.equal(gather_full(last_b["x"]), x_bu) and r_b["bits"],
+          f"13h b: {r_b['iters']} outer iterations (unsharded {k_bu}, 14h {h14['iters']}), "
+          f"summed inner restarts {set(inner)} (14h {h14['inner']}), x bit for bit "
+          f"{torch.equal(gather_full(last_b['x']), x_bu)}, both loops {r_b['bits']}")
+    check(r_b["reads"][1] == -(-r_b["iters"] // loop.BLOCK) and c_b.get("small_lstsq", 0) > 0
+          and c_b.get("while_condition", 0) > 0,
+          f"13h b: {r_b['reads'][1]} reads in a cached solve of {r_b['iters']} outer iterations, "
+          f"launches {c_b}")
+    print(f"[13h b dtensor nested gmres] bicgstab on shard_operator(auto_8m + 8I) with the auto "
+          f"(GMRES(30)) inverse, b a DTensor: {r_b['iters']} outer iterations, {min(inner)} inner "
+          f"restarts (14h: {h14['iters']}, {h14['inner']}), x bit for bit the unsharded solve's "
+          f"and across both loops; reads {r_b['reads']}; {r_b['while_nodes']} while nodes; wall "
+          f"{r_b['wall_us_per_iter'][0]:.1f} -> {r_b['wall_us_per_iter'][1]:.1f} µs per outer "
+          f"iteration, busy {r_b['busy']} (14h unsharded: {h14['wall_us_per_iter']}, busy "
+          f"{h14['busy']}); launches {c_b}; {card}", flush=True)
+    del S, S_sh, M_sh, M_un, b, b_sh, bh, bh_sh, x_un, x_bu
+    free()
+
+    # --- 13h c. funm_apply on a DTensor b ----------------------------------------------------
+    A4, b4 = main["A"], main["b"]
+    A4_sh = shard_operator(A4, mesh)
+    herm = lt.FunctionOperator(N, N, A4.apply, symmetric=True, hermitian=True, dtype=f32)
+    herm_sh = lt.FunctionOperator(N, N, A4_sh.apply, symmetric=True, hermitian=True, dtype=f32)
+    b_unit = b4 / torch.linalg.vector_norm(b4)
+    bu_sh = place(b_unit)
+
+    def f(t):
+        return torch.exp(-t)
+
+    y_un = lt.funm_apply(herm, f, b_unit, lanczos_steps=30)
+    reset()
+    y_sh = lt.funm_apply(herm_sh, f, bu_sh, lanczos_steps=30)
+    torch.cuda.synchronize()
+    c_c = counts()
+    launches["13h c"] = c_c
+    coll = collective_counts(lambda: lt.funm_apply(herm_sh, f, bu_sh, lanczos_steps=30))
+    check(in_place(y_sh, bu_sh) and torch.equal(gather_full(y_sh), y_un)
+          and c_c.get("bsr_matvec", 0) > 0 and c_c.get("bsr_rmatvec", 0) > 0,
+          f"13h c: funm_apply on a DTensor b placed {getattr(y_sh, 'placements', None)}, bit for "
+          f"bit {torch.equal(gather_full(y_sh), y_un)}, launches {c_c}")
+    print(f"[13h c dtensor funm_apply] funm_apply(exp(−A), b), A phase 4's graph through "
+          f"shard_operator, b a DTensor, 30 Lanczos steps: a DTensor in b's placement, bit for bit "
+          f"the plain call; launches {c_c}; collectives {coll}", flush=True)
+    del A4_sh, herm, herm_sh, y_un, y_sh
+
+    # --- 13h d. quasi-Newton pushes and shifted solves on sharded state ----------------------
+    free()
+    nq, mem = 1_000_000, 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 76)  # 10e's pairs
+    Bq = lt.LBFGSOperator(f32, nq, mem=mem, device=dev)
+    Bq_sh = shard_operator(lt.LBFGSOperator(f32, nq, mem=mem, device=dev), mesh)
+    before = [str(getattr(t, "placements", None)) for t in Bq_sh.state]
+    for _ in range(mem):
+        s_ = torch.randn(nq, generator=g, device=dev)
+        y_ = s_ + 0.1 * torch.randn(nq, generator=g, device=dev)
+        Bq.push(s_, y_)
+        Bq_sh.push(place(s_), place(y_))
+    after = [str(getattr(t, "placements", None)) for t in Bq_sh.state]
+    same = [torch.equal(gather_full(a_), b_) for a_, b_ in zip(Bq_sh.state, Bq.state)]
+    check(all(same) and after == before and "Shard(dim=1)" in after[0],
+          f"13h d: pushed state bit for bit {dict(zip(Bq.state._fields, same))}, placements "
+          f"{before} -> {after}")
+    bq = dev_vec(nq, dev, SEED + 77)
+    bq_sh = place(bq)
+    sigmas = (0.1, 1.0, 10.0)
+    solved = {}
+    for sg in sigmas:
+        for method in ("compact", "ejm"):
+            x_s = lt.solve_shifted_system(Bq_sh, bq_sh, sg, method=method)
+            x_u = lt.solve_shifted_system(Bq, bq, sg, method=method)
+            solved[(method, sg)] = in_place(x_s, bq_sh) and torch.equal(gather_full(x_s), x_u)
+    X_s = lt.solve_shifted_systems(Bq_sh, bq_sh, list(sigmas))
+    solved[("batch", sigmas)] = torch.equal(gather_full(X_s), lt.solve_shifted_systems(
+        Bq, bq, list(sigmas)))
+    check(all(solved.values()), f"13h d: shifted solves in place and bit for bit {solved}")
+    print(f"[13h d dtensor quasi-newton] forward L-BFGS n = {nq}, mem {mem} through "
+          f"shard_operator: {mem} DTensor pairs pushed, the state bit for bit the unsharded "
+          f"model's, placements kept ({after[0]} for S); solve_shifted_system at σ = "
+          f"{list(sigmas)} (compact, EJM) and solve_shifted_systems: DTensors in b's placement, "
+          f"bit for bit; {card}", flush=True)
+    del Bq, Bq_sh, bq, bq_sh, X_s
+
+    # --- 13h e. CG with a plain Jacobi preconditioner on a DTensor b -------------------------
+    free()
+    bm, bn, kmax = SHAPES["8x128"]
+    blocks, cols = make_bsr("8x128", f32, dev, scale=(kmax * bn) ** -0.5)  # 13b's graph
+    d = torch.linspace(1.0, 2.0, N, dtype=f32, device=dev)
+    B = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
+    A = lt.opDiagonal(d) @ (B.T @ B) @ lt.opDiagonal(d) + 2.0 * lt.opEye(N, dtype=f32)
+    idx = (cols.long()[..., None] * bn + torch.arange(bn, device=dev)).reshape(-1)
+    colsq = torch.zeros(N, device=dev).index_add_(0, idx, (blocks * blocks).sum(dim=2).reshape(-1))
+    M = lt.opDiagonal(1.0 / (d * d * colsq + 2.0))  # Jacobi of A (duplicate columns aside)
+    A_sh = shard_operator(A, mesh)
+    be = place(dev_vec(N, dev, SEED + 140))  # 13b's b
+    solve_e, last_e = whole(lambda: lt.cg(A_sh, be, M=M, tol=1e-5, maxiter=500))
+    reset()
+    r_e = loop_modes(loop, f"13h e cg on shard_operator(slice 1's graph) (n = {N}), M a plain "
+                     "opDiagonal (Jacobi), b a DTensor, tol 1e-5", solve_e, phase="13h")
+    c_e = counts()
+    launches["13h e"] = c_e
+    x_m, k_m, _ = lt.cg(A_sh, be, M=shard_operator(M, mesh), tol=1e-5, maxiter=500)
+    check(in_place(last_e["x"], be) and r_e["bits"] and k_m == r_e["iters"]
+          and torch.equal(gather_full(x_m), gather_full(last_e["x"]))
+          and c_e.get("bsr_matvec", 0) > 0 and c_e.get("bsr_rmatvec", 0) > 0,
+          f"13h e: {r_e['iters']} iterations (M sharded: {k_m}), x bit for bit "
+          f"{torch.equal(gather_full(x_m), gather_full(last_e['x']))}, both loops {r_e['bits']}, "
+          f"launches {c_e}")
+    print(f"[13h e dtensor jacobi cg] cg on shard_operator(slice 1's graph), M = opDiagonal "
+          f"(plain), b a DTensor: {r_e['iters']} iterations, x in b's placement and bit for bit "
+          f"the same M through shard_operator and across both loops; reads {r_e['reads']}; "
+          f"launches {c_e}; {card}", flush=True)
+    del A, A_sh, B, blocks, cols, M, be, x_m
+    free()
+    print(f"[13h dtensor path] launches {launches}; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 
 # ----------------------------------------------------------------------------
 # Slice 10: LOBPCG, svds and normest on the device loop, with E1
@@ -4997,6 +5272,13 @@ def main() -> int:
     # --- 14. slice 9: the device loop (profiler traces, after phase 5) ----------
     rec14, held = phase14(lt, K, LG, dev, card, ops, {"A": A, "H": H, "b": b}, laplacian_op)
     check(held.get("small_lstsq", 0) > 0, "E2 is in no captured block of the slice-14 path")
+    # --- 13h. DTensor vectors wherever the reference takes a sharded array (after 14:
+    # it prints 14d's and 14h's unsharded numbers beside its own) ------------------------
+    dt_launches = phase13h(lt, lt.utils.loop, K, LG, dev, card, ops, {"A": A, "b": b}, rec14)
+    for name in ("small_lstsq", "while_condition", "lane_gather", "lane_gather_mul_t_batched",
+                 "lane_gather_sum", "lane_segsum", "bsr_matvec", "bsr_rmatvec"):
+        check(any(c_.get(name, 0) > 0 for c_ in dt_launches.values()),
+              f"{name} never ran on the 13h path (DTensor vectors)")
     del laplacian_op
     _, fresh = phase14g(lt, lt.utils.loop, K, dev, card,
                         {"cols": cols, "sigma": sigma, "b": b, "pair_s": pair_s})
@@ -5128,8 +5410,9 @@ def main() -> int:
                     "replaces_note": "no pallas_call site: the jnp.linalg.lstsq XLA lowers in the "
                                      "reference's GMRES restart; plain version: torch.linalg.svd "
                                      "at jnp.linalg.lstsq's cutoff"})
-    for row in kernels:  # launches inside phase 12's backward passes
+    for row in kernels:  # launches inside phase 12's backward passes, and on phase 13h's path
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
+        row["launches_13h"] = sum(c_.get(row["name"], 0) for c_ in dt_launches.values())
     tally = collections.Counter(n for n, _ in TRACES_TAKEN)
     lossy = collections.Counter((h, t) for h, t, _ in SPINS_LOST if h or t)
     missed = [(h, t) for h, t, hit in SPINS_LOST if hit is False]

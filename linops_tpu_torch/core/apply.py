@@ -8,12 +8,16 @@ the shape checks, the eltype check on what an operator returns, and the
 5-arg ``mul`` with the NaN-safe β == 0 rule: a β that is statically zero
 (None or 0) never reads ``res``, and a tensor β that is zero selects
 ``alpha·op(v)`` without ``0·res`` (so a NaN in ``res`` cannot leak).
+``matvec``, ``matmat`` and ``mul`` (and so ``op * v``) follow the rule for
+DTensor arguments (``parallel/comm.py::dtensor_entry``): a plain operator
+given a DTensor returns a DTensor, a partial sum reduced to a replicated one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.comm import dtensor_entry
 from .base import LinearOperator, LinearOperatorException
 
 __all__ = ["matvec", "matmat", "mul", "to_dense", "apply_cache_sizes"]
@@ -42,6 +46,7 @@ def _check_vec_shape(op: LinearOperator, v, mode: str):
         raise LinearOperatorException("shape mismatch")
 
 
+@dtensor_entry
 def matvec(op: LinearOperator, v, mode: str = "N"):
     """``op * v`` (mode N), ``transpose(op) * v`` (T), ``op' * v`` (H),
     ``conj(op) * v`` (C). Result dtype follows ``promote(op, v)``."""
@@ -51,6 +56,7 @@ def matvec(op: LinearOperator, v, mode: str = "N"):
     return _checked(op, v, op.apply(v, mode))
 
 
+@dtensor_entry
 def matmat(op: LinearOperator, M, mode: str = "N"):
     """Apply to a matrix column-block (SpMM / multi-RHS)."""
     M = _as_tensor(op, M)
@@ -68,6 +74,7 @@ def _static_one(x) -> bool:
     return x is None or (isinstance(x, (int, float, complex)) and x == 1)
 
 
+@dtensor_entry
 def mul(op: LinearOperator, v, alpha=None, beta=None, res=None, mode: str = "N",
         donate: bool = False):
     """Functional 5-arg ``mul!``: returns ``alpha * op(v) + beta * res``.

@@ -13,17 +13,30 @@ dot of two sharded vectors, a sharded dense product).
 collectives through torch's ``CommDebugMode``, and each ``exchange`` round
 as one ``collective-permute`` (the reference's ``ppermute``). A count is
 per rank: what this process's program issued.
+
+The rule for DTensor arguments lives here too. A public entry (an apply, a
+solver, ``matvec_chain``, ``funm_apply``, a quasi-Newton push, a shifted
+solve) given a DTensor vector runs inside ``plain_as_replicated``
+(``dtensor_entry``), so a plain operator, preconditioner or scalar it meets
+counts as replicated, as GSPMD treats an unsharded array beside a sharded
+one; a vector that DTensor leaves as a partial sum is reduced to a
+replicated one (the reference's ``PartitionSpec()``), and loop-carried or
+stored DTensors keep the placements they came in with (``keep_placements``).
+Loops that keep a basis of such vectors hold this rank's rows of it
+(``Rows``) and reduce their products with one all-reduce.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVE_OPS", "counting", "gather_full", "reduce_scatter", "exchange",
-           "from_local", "is_dtensor", "plain_as_replicated"]
+           "from_local", "is_dtensor", "plain_as_replicated", "dtensor_entry",
+           "keep_placements", "on_whole", "Rows", "rows_of"]
 
 COLLECTIVE_OPS = ("collective-permute", "all-reduce", "all-gather", "reduce-scatter",
                   "all-to-all")
@@ -65,6 +78,137 @@ def plain_as_replicated():
                 yield
     finally:
         _REPLICATING[0] -= 1
+
+
+def _holds_dtensor(value) -> bool:
+    if isinstance(value, (tuple, list)):
+        return any(_holds_dtensor(v) for v in value)
+    return type(value).__name__ == "DTensor"  # no import on a plain call
+
+
+def _whole_sums(value):
+    """``value`` with every DTensor vector or block that holds a partial sum
+    reduced on the mesh dimensions it is partial on (one all-reduce each).
+    A scalar (a residual norm) keeps its pending reduction, which DTensor
+    runs where it is read."""
+    if type(value) is tuple:
+        return tuple(_whole_sums(v) for v in value)
+    if is_dtensor(value) and value.ndim and any(p.is_partial() for p in value.placements):
+        from torch.distributed.tensor import Replicate
+
+        return value.redistribute(value.device_mesh, [Replicate() if p.is_partial() else p
+                                                      for p in value.placements])
+    return value
+
+
+def dtensor_entry(fn):
+    """The rule for a public entry: called with a DTensor among its
+    arguments (directly or in a tuple or list), ``fn`` runs inside
+    ``plain_as_replicated`` and a partial-sum result comes back replicated.
+    A call with plain arguments runs ``fn`` as it is."""
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        if not (_holds_dtensor(args) or _holds_dtensor(tuple(kwargs.values()))):
+            return fn(*args, **kwargs)
+        with plain_as_replicated():
+            return _whole_sums(fn(*args, **kwargs))
+
+    return entry
+
+
+def keep_placements(new, old):
+    """``new`` (a tensor, or a tuple or named tuple of them) with each
+    DTensor in the placements of its counterpart in ``old``, a pending
+    partial sum there counted as replicated (DTensor cannot redistribute to
+    a partial sum), and made whole where its counterpart was a plain tensor
+    (a loop's flag or scalar, which counts as replicated): a loop's carry
+    and an operator's stored state keep their layout, as a compiled loop's
+    carry keeps its sharding, so a solve's key is the same before and after
+    it runs. ``keep_placements(state, state)`` reduces a state's pending
+    partial sums."""
+    if isinstance(new, tuple):
+        items = [keep_placements(a, b) for a, b in zip(new, old)]
+        return type(new)(*items) if hasattr(new, "_fields") else tuple(items)
+    if not is_dtensor(new):
+        return new
+    if not is_dtensor(old):
+        return new.full_tensor() if isinstance(old, torch.Tensor) else new
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if p.is_partial() else p for p in old.placements)
+    if tuple(new.placements) != want:
+        return new.redistribute(old.device_mesh, want)
+    return new
+
+
+def on_whole(fn, *args):
+    """``fn(*args)`` for small replicated operands (a Gram matrix, a
+    compact middle): where some are DTensors, each rank runs ``fn`` on whole
+    plain copies (a pending partial sum reduced) and the result comes back
+    replicated, since a factorization or a small solve has no distributed
+    form (and no sharding rule in every torch release). Plain operands run
+    ``fn`` as they are."""
+    meshes = [a.device_mesh for a in args if is_dtensor(a)]
+    if not meshes:
+        return fn(*args)
+    from torch.distributed.tensor import Replicate
+
+    out = fn(*(a.full_tensor() if is_dtensor(a) else a for a in args))
+    return from_local(out, meshes[0], [Replicate()] * meshes[0].ndim, out.shape)
+
+
+class Rows:
+    """This rank's rows of vectors placed as ``like`` (a 1-D DTensor), for
+    a loop that keeps a basis of them: ``local`` takes a vector's piece (a
+    redistribution first if it is placed otherwise), ``dtensor`` makes a
+    piece (or an (n_local, k) block) whole again, ``psum`` adds per-rank
+    partial products over the ranks the rows are split across (one
+    all-reduce), ``norm`` is the 2-norm of a piece's vector (of each column
+    of a block) as DTensor reduces it."""
+
+    def __init__(self, like):
+        from torch.distributed.tensor import Partial, Replicate
+
+        self.mesh, self.placements = like.device_mesh, tuple(like.placements)
+        self.n = like.shape[0]
+        self._partial = [Partial() if p.is_shard() else Replicate() for p in self.placements]
+        self._whole = [Replicate()] * self.mesh.ndim
+
+    def local(self, v):
+        if tuple(v.placements) != self.placements:
+            v = v.redistribute(self.mesh, self.placements)
+        return v.to_local()
+
+    def dtensor(self, piece):
+        return from_local(piece, self.mesh, self.placements, (self.n, *piece.shape[1:]))
+
+    def psum(self, partial):
+        return from_local(partial, self.mesh, self._partial, partial.shape).redistribute(
+            self.mesh, self._whole).to_local()
+
+    def norm(self, piece, dim=None):
+        return torch.linalg.vector_norm(self.dtensor(piece), dim=dim).full_tensor()
+
+
+class _PlainRows:
+    """``Rows`` for a plain vector: every step is the identity, the norm is
+    ``torch.linalg.vector_norm``."""
+
+    @staticmethod
+    def local(v):
+        return v
+
+    dtensor = psum = local
+
+    @staticmethod
+    def norm(piece, dim=None):
+        return torch.linalg.vector_norm(piece, dim=dim)
+
+
+def rows_of(v):
+    """``Rows(v)`` for a DTensor, the identity steps for a plain tensor."""
+    return Rows(v) if is_dtensor(v) else _PlainRows
 
 
 @contextlib.contextmanager

@@ -29,6 +29,7 @@ import torch
 
 from ..core.base import LinearOperator, LinearOperatorException, default_device
 from ..core.precision import pdot, pmatmul
+from ..parallel import comm
 
 __all__ = [
     "LBFGSState",
@@ -365,21 +366,20 @@ def _push_common(state: LBFGSState, s, y, ys, *, scaling: bool, inverse: bool,
     return new._replace(G=_compact_middles(new))
 
 
-def _compact_middles(state: LBFGSState):
-    """Both compact middles, stacked. Of a sharded state (DTensor leaves,
-    ``parallel.shard_operator``) they read only the small (mem, mem) and
-    (mem,) fields: each rank factors its own whole copy of them (the
-    factorizations have no distributed form) and the result is placed back
-    as replicated."""
-    G = state.G
-    if not hasattr(G, "to_local"):
-        return torch.stack([_compact_middle(state, False), _compact_middle(state, True)])
-    from torch.distributed.tensor import DTensor
+_MIDDLE_FIELDS = ("ys", "SY", "YY", "SS", "gamma", "insert")
 
-    local = state._replace(**{f: getattr(state, f).full_tensor()  # a partial sum is reduced
-                              for f in ("ys", "SY", "YY", "SS", "gamma", "insert")})
-    Gl = torch.stack([_compact_middle(local, False), _compact_middle(local, True)])
-    return DTensor.from_local(Gl, G.device_mesh, G.placements, run_check=False)
+
+def _compact_middles(state: LBFGSState):
+    """Both compact middles, stacked. They read only the small (mem, mem)
+    and (mem,) fields: of a sharded state (DTensor leaves,
+    ``parallel.shard_operator``) each rank factors its own whole copy of
+    them and the result is replicated (``comm.on_whole``)."""
+
+    def middles(*fields):
+        small = state._replace(**dict(zip(_MIDDLE_FIELDS, fields)))
+        return torch.stack([_compact_middle(small, False), _compact_middle(small, True)])
+
+    return comm.on_whole(middles, *(getattr(state, f) for f in _MIDDLE_FIELDS))
 
 
 def _push_plain(state, s, y, *, scaling, inverse, with_ab=True):
@@ -538,13 +538,16 @@ class LBFGSOperator(LinearOperator):
         return self._prod(M)
 
     # --- state updates ---
+    @comm.dtensor_entry
     def push(self, s, y, *args):
         """Insert a {s, y} pair.
 
         Forms: ``push(s, y)``; damped forward also accepts ``push(s, y, Bs)``
         (Bs is recomputed; kept for call-form parity); damped inverse
-        requires ``push(s, y, alpha, g[, Bs])``.
+        requires ``push(s, y, alpha, g[, Bs])``. DTensor pairs push into a
+        sharded operator's state, which keeps its placements.
         """
+        old = self.state
         dt, dev = self.dtype, self.state.S.device
         s = torch.as_tensor(s, dtype=dt, device=dev)
         y = torch.as_tensor(y, dtype=dt, device=dev)
@@ -578,6 +581,8 @@ class LBFGSOperator(LinearOperator):
                                               self._sigma3, scaling=self._scaling)
         else:
             raise TypeError("push(s, y[, Bs] | [, alpha, g[, Bs]])")
+        if comm.is_dtensor(old.S):
+            self.state = comm.keep_placements(self.state, old)
         # the state assignment cleared _ab_fresh; an eager (or inverse) push
         # maintained the a/b form in-line
         if not self._lazy_ab:

@@ -27,6 +27,7 @@ import torch
 
 from ..core.base import LinearOperator, LinearOperatorException, default_device
 from ..core.precision import pdot, pmatmul
+from ..parallel import comm
 from .lbfgs import _elem, _oldest_first, _row, _set_col, _set_row, _where0
 
 __all__ = ["LSR1State", "LSR1Operator", "lsr1_apply", "lsr1_apply_compact", "lsr1_diag"]
@@ -96,7 +97,7 @@ def _compact_M(state: LSR1State):
 def _compact_minv(state: LSR1State):
     """The push-time inverse of the compact middle, empty slots zeroed."""
     M, _, valid = _compact_M(state)
-    return _where0(valid[:, None] & valid[None, :], torch.linalg.inv(M))
+    return _where0(valid[:, None] & valid[None, :], comm.on_whole(torch.linalg.inv, M))
 
 
 def lsr1_apply_compact(state: LSR1State, x):
@@ -297,15 +298,18 @@ class LSR1Operator(LinearOperator):
         # symmetric and real: every mode is the forward product
         return lsr1_apply_compact(self.state, M)
 
+    @comm.dtensor_entry
     def push(self, s, y):
         """Guarded SR1 insert; silently rejects a pair that fails the
-        well-definedness, curvature or scaling conditions."""
+        well-definedness, curvature or scaling conditions. DTensor pairs
+        push into a sharded operator's state, which keeps its placements."""
         dt, dev = self._dtype, self.state.S.device
         s = torch.as_tensor(s, dtype=dt, device=dev)
         y = torch.as_tensor(y, dtype=dt, device=dev)
         # an eager push's acceptance reads the a-form: materialize first
         base = self.state if self._lazy_a else self._materialized_state()
-        self.state = _push(base, s, y, scaling=self._scaling, with_a=not self._lazy_a)
+        new = _push(base, s, y, scaling=self._scaling, with_a=not self._lazy_a)
+        self.state = comm.keep_placements(new, base) if comm.is_dtensor(base.S) else new
         if not self._lazy_a:
             object.__setattr__(self, "_a_fresh", True)
         return self

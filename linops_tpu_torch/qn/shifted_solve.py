@@ -23,7 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.base import _local
 from ..core.precision import pdot, pmatmul
+from ..parallel import comm
 from .lbfgs import LBFGSOperator, LBFGSState, _forward_compact_parts
 
 __all__ = ["solve_shifted_system", "solve_shifted_systems", "ldiv"]
@@ -36,25 +38,28 @@ def _solve_shifted(state: LBFGSState, b, sigma):
     signs +1 and −1."""
     mem, n = state.S.shape
     dt = b.dtype
-    x0 = 1.0 / (1.0 / state.gamma + sigma)
-    x = x0 * b
+    R = comm.rows_of(b)  # sharded state and a DTensor b: this rank's rows
+    x0 = _local(1.0 / (1.0 / state.gamma + sigma))
+    bl = R.local(b)
+    x = x0 * bl
     two_mem = 2 * mem
     t_signs = torch.where(torch.arange(two_mem, device=b.device) % 2 == 0, 1.0, -1.0).to(dt)
     slots = torch.remainder(state.insert.long() + torch.arange(1, mem + 1, device=b.device), mem)
-    P = torch.zeros((two_mem, n), dtype=dt, device=b.device)
+    P = torch.zeros((two_mem, bl.shape[0]), dtype=dt, device=b.device)
     v = torch.zeros((two_mem,), dtype=dt, device=b.device)
     for i in range(two_mem):
         sign = 1.0 if i % 2 == 0 else -1.0
-        u = (state.A if sign == 1.0 else state.B).index_select(0, slots[i // 2:i // 2 + 1])[0]
+        u = R.local((state.A if sign == 1.0 else state.B).index_select(
+            0, slots[i // 2:i // 2 + 1])[0])
         # p_i = x0·u + Σ_{t<i} sign_t·v_t·⟨p_t, u⟩·p_t, one (2mem, n) pass each way
         c = torch.zeros_like(v)
-        c[:i] = t_signs[:i] * v[:i] * pmatmul(P[:i], u)
+        c[:i] = t_signs[:i] * v[:i] * R.psum(pmatmul(P[:i], u))
         p_i = x0 * u + pmatmul(P.T, c)
-        v_i = 1.0 / (1.0 - sign * pdot(u, p_i))
-        x = x + sign * v_i * pdot(p_i, b) * p_i
+        v_i = 1.0 / (1.0 - sign * R.psum(pdot(u, p_i)))
+        x = x + sign * v_i * R.psum(pdot(p_i, bl)) * p_i
         P[i] = p_i
         v[i] = v_i
-    return x
+    return R.dtensor(x)
 
 
 def _solve_shifted_compact(state: LBFGSState, b, sigmas):
@@ -73,7 +78,8 @@ def _solve_shifted_compact(state: LBFGSState, b, sigmas):
     Utb = pmatmul(W, b)  # (2mem,)
     # solve_ex: no host sync for an error check (a singular system gives
     # non-finite values, as the reference's jnp.linalg.solve does)
-    coef = torch.linalg.solve_ex(Mk, Utb.expand(Mk.shape[0], -1).unsqueeze(-1))[0].squeeze(-1)
+    coef = comm.on_whole(lambda Mk, Utb: torch.linalg.solve_ex(
+        Mk, Utb.expand(Mk.shape[0], -1).unsqueeze(-1))[0].squeeze(-1), Mk, Utb)
     return b[None, :] / c[:, None] + pmatmul(coef, W) / c[:, None]
 
 
@@ -94,6 +100,7 @@ def _host_values(x):
     return np.asarray(x)
 
 
+@comm.dtensor_entry
 def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact"):
     """Solve ``(B + σI) x = b`` for a forward L-BFGS operator B and σ ≥ 0.
     ``method="compact"`` (default) is the Woodbury solve, ``method="ejm"``
@@ -121,6 +128,7 @@ def solve_shifted_system(B: LBFGSOperator, b, sigma, *, method: str = "compact")
     raise ValueError(f"unknown method {method!r}")
 
 
+@comm.dtensor_entry
 def solve_shifted_systems(B: LBFGSOperator, b, sigmas):
     """Solve ``(B + σᵢI) x = b`` for a batch of shifts at once (the compact
     solve, both (2·mem, n) passes shared). Returns (len(sigmas), n). Shifts

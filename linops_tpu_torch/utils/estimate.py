@@ -27,6 +27,7 @@ import torch
 from ..core.base import LinearOperatorException, default_device
 from ..core.dense import aslinearoperator
 from ..core.precision import pmatmul
+from ..parallel import comm
 from .rng import fresh_generator
 
 __all__ = ["estimate_trace", "estimate_diagonal", "estimate_spectral_sum", "estimate_logdet",
@@ -158,10 +159,15 @@ def _lanczos_tridiag(matvec, v0, m, reorth, passes: int = 1):
     placeholder. ``v0`` may be an (n, k) block of unit columns: then k
     recurrences run side by side (``matvec`` takes the block), V is (m, n,
     k) and alphas/betas (m, k). On an invariant subspace the recurrence goes
-    inert (beta = 0)."""
+    inert (beta = 0). A DTensor ``v0`` keeps this rank's rows of V
+    (``comm.Rows``): its products reduce by one all-reduce each, and it is
+    never gathered."""
+    R = comm.rows_of(v0)
     vec = v0.ndim == 1
-    v = v0[:, None] if vec else v0
-    mv = (lambda X: matvec(X[:, 0])[:, None]) if vec else matvec
+    v = R.local(v0)
+    v = v[:, None] if vec else v
+    mv = ((lambda X: R.local(matvec(R.dtensor(X[:, 0])))[:, None]) if vec
+          else (lambda X: R.local(matvec(R.dtensor(X)))))
     n, k = v.shape
     dt, rdt = v.dtype, _real(v.dtype)
     alphas = torch.zeros((m, k), dtype=rdt, device=v.device)
@@ -173,13 +179,13 @@ def _lanczos_tridiag(matvec, v0, m, reorth, passes: int = 1):
         if reorth:
             V[j] = v
         w = mv(v) - beta_prev.to(dt) * v_prev
-        alpha = torch.sum(v.conj() * w, dim=0).real
+        alpha = R.psum(torch.sum(v.conj() * w, dim=0)).real
         w = w - alpha.to(dt) * v
         if reorth:
             for _ in range(passes):
-                coef = torch.einsum("jnk,nk->jk", V.conj(), w)
+                coef = R.psum(torch.einsum("jnk,nk->jk", V.conj(), w))
                 w = w - torch.einsum("jnk,jk->nk", V, coef)
-        beta = torch.linalg.vector_norm(w, dim=0)
+        beta = R.norm(w, dim=0)
         pos = beta > 0
         v_next = torch.where(pos, w / torch.where(pos, beta, torch.ones_like(beta)).to(dt),
                              torch.zeros_like(w))
@@ -268,14 +274,16 @@ def _funm(op, b, m, f):
     fv = f(torch.where(live, theta, torch.ones_like(theta)))
     fw = torch.where(live, fv, torch.zeros_like(fv))
     coeffs = pmatmul(U.to(fw.dtype), fw * e1w)
-    out = pmatmul(V.T, coeffs)
+    out = comm.rows_of(b).dtensor(pmatmul(V.T, coeffs))
     return torch.where(nrm > 0, nrm * out, torch.zeros_like(out))
 
 
+@comm.dtensor_entry
 def funm_apply(op, f, b, *, lanczos_steps: int = 30):
     """``f(op) @ b`` for a hermitian operator by ``lanczos_steps`` of Lanczos
     with full reorthogonalization; exact once the Krylov space captures b's
-    spectral content."""
+    spectral content. A DTensor ``b`` gives a DTensor in its placement (the
+    basis kept as this rank's rows)."""
     op, n = _hermitian_square(op, "funm_apply")
     if lanczos_steps < 1:
         raise ValueError("lanczos_steps must be >= 1")

@@ -23,6 +23,14 @@ restart is one masked iteration of ``loop.device_while`` in blocks of
 ``GMRES_BLOCK`` (one) restart: the whole solve replays as captured blocks,
 one host read per restart, and nested in another solve (an
 ``opIterativeInverse`` on GMRES) it is a CUDA while node.
+
+Every solver is a public entry of ``parallel/comm.py``'s rule
+(``dtensor_entry``): given a DTensor vector it runs with plain operators,
+preconditioners and scalars counted as replicated, and returns x in b's
+placement. GMRES then keeps this rank's rows of its Arnoldi basis
+(``comm.Rows``): each step's projections are one local product and one
+all-reduce of the (m + 1)-vector, its norm one more, and the basis is never
+gathered.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from ..core.base import LinearOperator
 from ..core.precision import pcolumn_dot, pmatmul, pvdot
 from ..kernels.small_lstsq import small_lstsq
+from ..parallel import comm
 from . import loop
 
 __all__ = ["matvec_chain", "cg", "gmres", "minres", "bicgstab", "lsqr", "chebyshev",
@@ -43,6 +52,7 @@ __all__ = ["matvec_chain", "cg", "gmres", "minres", "bicgstab", "lsqr", "chebysh
 GMRES_BLOCK = 1
 
 
+@comm.dtensor_entry
 def matvec_chain(op: LinearOperator, v, iters: int = 100, mode: str = "N",
                  normalize: bool = True):
     """Apply ``op`` ``iters`` times (normalizing each step by default to keep
@@ -75,6 +85,7 @@ def _nonzero(x):
     return torch.where(x == 0, torch.ones_like(x), x)
 
 
+@comm.dtensor_entry
 def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
        M: LinearOperator = None):
     """Conjugate gradients on a symmetric positive-definite operator, with an
@@ -147,6 +158,7 @@ def _cg_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter: int
     return X, k, torch.sqrt(pcolumn_dot(R, R).real)
 
 
+@comm.dtensor_entry
 def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 30,
           maxiter: int = 10, M: LinearOperator = None):
     """Restarted GMRES(m) for general square operators, with an optional
@@ -171,14 +183,17 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
     bnorm = torch.linalg.vector_norm(b)
     tol_abs = tol * _nonzero(bnorm)
 
+    R = comm.rows_of(b)  # a DTensor b: this rank's rows of the basis
+
     def arnoldi(x, b):
         """(V, H, β) of one cycle from x (every tensor it reads is an
-        argument or made here: it may be captured)."""
+        argument or made here: it may be captured). V holds this rank's
+        rows of the basis (all of it for a plain b)."""
         rows = torch.arange(m + 1, device=b.device)
         zero = torch.zeros((), dtype=dt, device=b.device)
         r = prec(b - op.apply(x, "N"))
-        beta = torch.linalg.vector_norm(r)
         if loop._batched(r):  # functional: rows stacked, columns of H stacked
+            beta = torch.linalg.vector_norm(r)
             Vrows = [r / _nonzero(beta)]
             cols = []
             for j in range(m):
@@ -190,14 +205,16 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
                 Vrows.append(w / _nonzero(hj1))
                 cols.append(torch.where(rows == j + 1, hj1.to(dt), hcol))
             return torch.stack(Vrows), torch.stack(cols, dim=1), beta
-        V = torch.zeros((m + 1, n), dtype=dt, device=b.device)
+        r = R.local(r)
+        beta = R.norm(r)
+        V = torch.zeros((m + 1, r.shape[0]), dtype=dt, device=b.device)
         H = torch.zeros((m + 1, m), dtype=dt, device=b.device)
         V[0] = r / _nonzero(beta)
         for j in range(m):
-            w = prec(op.apply(V[j], "N"))
-            hcol = torch.where(rows <= j, pmatmul(V.conj(), w), zero)
+            w = R.local(prec(op.apply(R.dtensor(V[j]), "N")))
+            hcol = torch.where(rows <= j, R.psum(pmatmul(V.conj(), w)), zero)
             w = w - pmatmul(V.T, hcol)
-            hj1 = torch.linalg.vector_norm(w)
+            hj1 = R.norm(w)
             V[j + 1] = w / _nonzero(hj1)
             H[:, j] = hcol
             H[j + 1, j] = hj1
@@ -208,7 +225,7 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
         b = consts[0]
         V, H, beta = arnoldi(x, b)
         e1 = torch.where(torch.arange(m + 1, device=b.device) == 0, beta.to(dt), 0.0)
-        x = x + pmatmul(V[:m].T, small_lstsq(H, e1))
+        x = x + R.dtensor(pmatmul(V[:m].T, small_lstsq(H, e1)))
         return x, torch.linalg.vector_norm(b - op.apply(x, "N"))
 
     res = torch.linalg.vector_norm(b - op.apply(x, "N"))
@@ -275,6 +292,7 @@ def _minres_step(op, s: _MinresState, V, R1, R2, W, W2, k, dt, eps, prec, cdot, 
     return Y, R1, R2, W, W2, expand(phi).to(dt)
 
 
+@comm.dtensor_entry
 def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
            M: LinearOperator = None):
     """MINRES (Paige–Saunders) for symmetric or hermitian, possibly
@@ -339,6 +357,7 @@ def _minres_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter:
     return state[0], k, state[6 + _MinresState.PHIBAR]
 
 
+@comm.dtensor_entry
 def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
              M: LinearOperator = None):
     """BiCGSTAB (van der Vorst) for general square operators, with an
@@ -390,6 +409,7 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
     return x, k, torch.linalg.vector_norm(r)
 
 
+@comm.dtensor_entry
 def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter: int = 100):
     """LSQR (Paige–Saunders): min ‖Ax − b‖² + damp²‖x‖² for a general
     (rectangular) operator by Golub–Kahan bidiagonalization; it needs only
@@ -442,6 +462,7 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
     return state[0], k, state[7]
 
 
+@comm.dtensor_entry
 def power_iteration(op: LinearOperator, v0, iters: int = 50):
     """Largest-|eigenvalue| estimate of a square operator by power
     iteration (no host read). Returns (eigenvalue estimate, eigenvector)."""
@@ -457,6 +478,7 @@ def power_iteration(op: LinearOperator, v0, iters: int = 50):
     return lam, v
 
 
+@comm.dtensor_entry
 def chebyshev(op: LinearOperator, b, lam_min, lam_max, x0=None, *, iters: int = 50,
               M: LinearOperator = None):
     """Chebyshev iteration for SPD operators with spectral bounds

@@ -106,7 +106,11 @@ same way over DTensor state: the count and the test stay plain tensors
 (a test is replicated, so each rank holds it whole), a captured block's
 static buffers and state copies are DTensors of the state's placements (a
 ``copy_`` into them moves nothing between ranks), and the key holds each
-DTensor's mesh and placements. On the card a capture records DTensor's
+DTensor's mesh and placements. The state keeps its layout across the loop
+(``_carry``): a DTensor stays in the placements it came in with, a pending
+partial sum reduced at the loop's start, and a plain entry (a flag) stays
+plain, so the key a solve starts with is the one it leaves in the cache.
+On the card a capture records DTensor's
 dispatch once; a replay runs its kernels and collectives with no host work.
 On the CPU gloo collectives cannot be captured: eager masked blocks, as for
 any CPU solve. Every rank must decide alike whether to capture: if one rank
@@ -866,7 +870,21 @@ def _remember(kind, key, ops, tensors, block: int | None = None) -> None:
 # ----------------------------------------------------------------------------
 
 
+def _carry(new, old) -> tuple:
+    """The body's new state, each DTensor in the placements its entry came in
+    with and each plain entry plain (``parallel/comm.py::keep_placements``),
+    as a compiled loop's carry keeps its sharding: the solve's key is the
+    same before and after it runs."""
+    new = tuple(new)
+    if any(_is_dtensor(t) for t in new):
+        from ..parallel.comm import keep_placements
+
+        return keep_placements(new, tuple(old))
+    return new
+
+
 def _select(act, new, old):
+    new = _carry(new, old)
     out = []
     for a, b in zip(new, old):
         if a.dtype != b.dtype or a.shape != b.shape:
@@ -920,7 +938,7 @@ def _plain_while(cond, body, state, consts, maxiter, go, path):
             return state, k
         k = 0
         while k < maxiter and _read(go):
-            state = _call_body(body, state, consts, j, None)
+            state = _carry(_call_body(body, state, consts, j, None), state)
             k += 1
             j = j + 1
             go = cond(state, consts)
@@ -954,6 +972,7 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
     block = BLOCK if block is None else int(block)
     outer = _OUTER[-1] if _OUTER else None
     with _replicating(state + consts + (() if outer is None else (outer,))):
+        state = _carry(state, state)  # DTensor state: pending partial sums reduced
         go = cond(state, consts)
         if _batched(go):
             return _plain_while(cond, body, state, consts, maxiter, go, "vmap")
@@ -1061,7 +1080,7 @@ def _device_while(cond, body, state, consts, maxiter, go, ops, key, block):
 
 def _fori_block(body, state, consts, n: int):
     for _ in range(n):
-        state = tuple(body(state, consts))
+        state = _carry(body(state, consts), state)
     return state
 
 
@@ -1072,6 +1091,7 @@ def device_fori(body, state: tuple, iters: int, *, consts: tuple = (), ops=(), k
     BLOCK`` run eagerly; its first run is eager throughout. Returns the
     state."""
     state, consts = tuple(state), tuple(consts)
+    state = _carry(state, state)  # DTensor state: pending partial sums reduced
     if iters > 0 and state[0].is_cuda and torch.cuda.is_current_stream_capturing():
         return _fori_block(body, state, consts, iters)  # nested in a block being captured
     path, sig, dist = _path(state + consts, ops) if iters > 0 else ("blocks", None, False)

@@ -30,6 +30,10 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch_refnative import ensure_reference_native
+
+# the reference's native libraries whole before any example calls them
+ensure_reference_native()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -1951,6 +1951,78 @@ def test_sharded_gmres_in_captured_blocks_at_world_size_one(dev, loop_mod):
     assert k_un == k0 and torch.equal(x_un, x0)
 
 
+def test_gmres_on_dtensor_vectors_in_captured_blocks_at_world_size_one(dev, loop_mod):
+    """GMRES(8) over ``shard_operator`` at world size 1 (NCCL) on DTensor
+    vectors, its basis kept as this rank's rows: x in b's placement, its
+    count and x bit for bit the per-iteration loop's, the plain-vector
+    solve's and the unsharded solve's; one read per restart on a cached
+    solve; E2 in the block; the plain-vector and the DTensor solve have a
+    captured block each (never one between them); a replay under
+    sync-debug "error" raises nothing."""
+    from linops_tpu_torch.parallel import row_sharding, shard_operator
+    from linops_tpu_torch.parallel.comm import gather_full, is_dtensor
+
+    mesh = _world_of_one()
+    A, _, b = slice1_graph(dev)
+    A_sh, b_sh = shard_operator(A, mesh), row_sharding(mesh).place(b)
+    runs = solve_modes(loop_mod, lambda: lt.gmres(A_sh, b_sh, tol=1e-5, restart=8, maxiter=30))
+    x0, k0, _ = runs["per_iteration"]
+    assert is_dtensor(x0) and tuple(x0.placements) == tuple(b_sh.placements)
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(gather_full(x), gather_full(x0)), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["captures"] == 0 and st["reads"] == k0
+    g = loop_mod.last_graph()
+    assert g.launches.get("small_lstsq", 0) == 1
+    blocks = len(loop_mod._DIST_CACHE)
+    for _ in range(3):  # the plain-vector signature's first, capturing and cached solves
+        x_p, k_p, _ = lt.gmres(A_sh, b, tol=1e-5, restart=8, maxiter=30)
+    assert len(loop_mod._DIST_CACHE) == blocks + 1 and loop_mod.last_graph() is not g
+    x_un, k_un, _ = lt.gmres(A, b, tol=1e-5, restart=8, maxiter=30)
+    assert k_p == k_un == k0 and torch.equal(x_p, gather_full(x0))
+    assert torch.equal(x_un, gather_full(x0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_dtensor_push_then_captured_solve_at_world_size_one(dev, loop_mod):
+    """Pushes of DTensor pairs into a sharded inverse L-BFGS preconditioner
+    between captured CG solves at world size 1: the state keeps its
+    placements, every solve after the capture replays (no new capture) and
+    its x is bit for bit the per-iteration loop's after the same pushes."""
+    from linops_tpu_torch.parallel import row_sharding, shard_operator
+    from linops_tpu_torch.parallel.comm import gather_full
+
+    mesh = _world_of_one()
+    place = row_sharding(mesh).place
+    A, H, b = slice1_graph(dev)
+    A_sh, H_sh, b_sh = shard_operator(A, mesh), shard_operator(H, mesh), place(b)
+    before = [str(getattr(t, "placements", None)) for t in H_sh.state]
+    solve = lambda: lt.cg(A_sh, b_sh, M=H_sh, tol=1e-5, maxiter=300)  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(77)
+    loop_mod.clear_cache()
+    solve()
+    solve()  # captures
+    for step in range(3):
+        s_ = torch.randn(A.shape[0], generator=gen, device=dev)
+        H_sh.push(place(s_), place(A * s_))
+        assert [str(getattr(t, "placements", None)) for t in H_sh.state] == before
+        x, k, _ = solve()
+        assert loop_mod.stats["path"] == "graph" and loop_mod.stats["captures"] == 0, step
+        saved = loop_mod.BLOCK, loop_mod.CAPTURE
+        loop_mod.BLOCK, loop_mod.CAPTURE = 1, False
+        try:
+            x1, k1, _ = solve()
+        finally:
+            loop_mod.BLOCK, loop_mod.CAPTURE = saved
+        assert k == k1 and torch.equal(gather_full(x), gather_full(x1)), step
+
+
 @pytest.mark.parametrize("inner", ["cg", "minres"])
 def test_nested_solve_is_a_while_node(dev, loop_mod, inner):
     """CG preconditioned by ``opIterativeInverse`` (an inner ``inner``

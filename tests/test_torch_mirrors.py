@@ -18,6 +18,10 @@ import torch
 import linops_tpu as lo
 import linops_tpu_torch as lt
 from helpers import assert_close, simple_matrix, simple_vector
+from torch_refnative import ensure_reference_native
+
+# the reference's native libraries whole before its sparse builders call them
+ensure_reference_native()
 
 CPU = dict(device="cpu")
 DTYPES = [np.float64, np.complex128]

@@ -172,7 +172,7 @@ def sharded_stencil(mesh):
 def sharded_lbfgs_push_matches_unsharded(mesh):
     import linops_tpu_torch as lt
     from linops_tpu_torch.parallel import shard_operator
-    from linops_tpu_torch.parallel.comm import gather_full, plain_as_replicated
+    from linops_tpu_torch.parallel.comm import gather_full
     from linops_tpu_torch.qn.lbfgs import _push_plain
 
     n = 64
@@ -183,9 +183,7 @@ def sharded_lbfgs_push_matches_unsharded(mesh):
     H_sh = shard_operator(H, mesh)
     s, y = pairs[3]
     ref = _push_plain(H.state, t_(s), t_(y), scaling=True, inverse=True)
-    with plain_as_replicated():
-        got = _push_plain(H_sh.state, _place(mesh, s), _place(mesh, y), scaling=True,
-                          inverse=True)
+    got = H_sh.push(_place(mesh, s), _place(mesh, y)).state  # the public push, DTensor pairs
     return dict(fields=list(ref._fields), ref=[a.numpy() for a in ref],
                 got=[gather_full(a).numpy() for a in got], placements=str(got.S.placements))
 
@@ -374,9 +372,8 @@ def sharded_window_bsr(mesh):
 @case
 def solvers_on_sharded_operator(mesh):
     """Every Krylov solver through a sharded SPD operator against the same
-    solve unsharded: on DTensor vectors, and on plain ones (GMRES writes its
-    Arnoldi basis into a plain tensor, so it takes plain vectors only), with
-    the path the sharded solve's loop took."""
+    solve unsharded, on DTensor vectors, with the path the sharded solve's
+    loop took."""
     import linops_tpu_torch as lt
     from linops_tpu_torch.parallel import shard_operator
     from linops_tpu_torch.utils import loop
@@ -393,7 +390,7 @@ def solvers_on_sharded_operator(mesh):
             ("gmres", lambda o, v: lt.gmres(o, v, tol=1e-10, restart=10, maxiter=20)),
             ("chebyshev", lambda o, v: lt.chebyshev(o, v, 1.0, 50.0, iters=40)),
             ("power_iteration", lambda o, v: lt.power_iteration(o, v, iters=30))):
-        sh = call(op_sh, t_(b) if name == "gmres" else bs)
+        sh = call(op_sh, bs)
         path = loop.stats["path"]
         un = call(op, t_(b))
         out[name] = dict(sh=[full(t) if torch.is_tensor(t) else t for t in sh],
@@ -445,18 +442,15 @@ def laplace_2d(ny, nx):
 
 def block_solve(name, op, M, b, bounds):
     import linops_tpu_torch as lt
-    from linops_tpu_torch.parallel.comm import gather_full
 
     if name == "chebyshev":
         return lt.chebyshev(op, b, *bounds, iters=40)
-    if name == "gmres":  # its Arnoldi basis is a plain tensor: plain vectors
-        b = gather_full(b)
     return getattr(lt, name)(op, b, tol=1e-12, maxiter=400, M=M)
 
 
 @case
 def solves_in_masked_blocks(mesh):
-    """cg, minres, bicgstab, chebyshev and gmres (on plain vectors) over
+    """cg, minres, bicgstab, chebyshev and gmres over
     slice 1's graph and its inverse L-BFGS preconditioner through
     ``shard_operator``, over
     ``banded_partition`` and over ``stencil_partition_2d`` (a (2, 2) mesh):

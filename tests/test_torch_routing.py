@@ -16,6 +16,10 @@ from linops_tpu.native import clos_route_native as ref_clos_route_native
 from linops_tpu.sparse.routing import clos_route as ref_clos_route
 from linops_tpu_torch import native
 from linops_tpu_torch.sparse.routing import RADIX, clos_apply, clos_route, clos_stage_shapes
+from torch_refnative import ensure_reference_native
+
+# the reference's native libraries whole before its router is called
+ensure_reference_native()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

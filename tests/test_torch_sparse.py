@@ -22,6 +22,10 @@ from linops_tpu_torch import native
 from linops_tpu_torch.convert import to_numpy
 from linops_tpu_torch.sparse import formats as TF
 from linops_tpu_torch.sparse.ops import _auto_block_shape
+from torch_refnative import ensure_reference_native
+
+# the reference's native libraries whole before its packer is called
+ensure_reference_native()
 
 MODES = ("N", "T", "C", "H")
 FORMATS = ("coo", "csr", "ell", "bsr")
