@@ -137,6 +137,19 @@ shows them run but can lose records).
    three σ bit for bit; slice 1's CG with a plain Jacobi ``opDiagonal`` M on
    a DTensor b, bit for bit the same M sharded. Its launches must include
    K1, K2, K7, K9-K11, E2 and G1.
+   13i (after phase 15, whose unsharded 15b and 15e numbers it prints
+   beside its own): spectral routines, estimators and checks on distributed
+   operators, each bit for bit the unsharded call with the same generator
+   and each output in the reference's placement. LOBPCG (k = 2) on the
+   2048² Laplacian through ``stencil_partition_2d``, both ways (the same
+   arithmetic as a plain operator, bit for bit; reads per cached solve
+   15b's; two all-reduces per mesh dimension an iteration; E1 and no
+   cuSOLVER kernel in the block), then k = 32 (E1's cluster kernel); svds,
+   normest and the checks of phase 4's B sharded; rsvd of auto_8m
+   replicated; 11c's estimators on I + L sharded, within 11c's limits; the
+   Nyström preconditioner of slice 1's graph sharded as M of its CG with a
+   plain b (x split by rows). Its launches must include K1, K2, K7, K9-K12
+   and E1 (both kernels).
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
    each phase-10 solve (GMRES(30) and BiCGSTAB on auto_8m + 8I, damped LSQR,
@@ -4168,6 +4181,260 @@ LOB32_K, LOB32_ITERS = 32, 8  # phase 15e: the wide block, iterations per solve
 SOLVER_KERNELS = re.compile(r"syev|sytrd|stedc|ormtr|orgtr|potrf|geqrf|cusolver", re.I)
 
 
+LOB13I_K32_ITERS = 5  # 13i a: iterations of the k = 32 solve (E1's cluster kernel at m = 96)
+
+
+def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
+    """Spectral routines, estimators and checks on distributed operators, in
+    the world of one NCCL rank, at full width; each against the unsharded
+    call with the same generator, bit for bit, and each output's placement
+    against the reference's (blocks split by rows or replicated as GSPMD
+    places them, small results replicated). (a) LOBPCG (k = 2, largest,
+    gram, tol 0, LOB_ITERS iterations) on 11a's 2048² Laplacian through
+    ``stencil_partition_2d``, both ways through ``loop_modes``: θ, X and the
+    count bit for bit the same arithmetic as a plain operator (the halo
+    stencil's local apply), θ within its residual of the closed-form
+    eigenvalues, reads per cached solve 15b's, the collectives of one
+    iteration (at most two all-reduces per mesh dimension), E1 and
+    no cuSOLVER kernel in the block; then k = 32 for LOB13I_K32_ITERS
+    iterations (E1's cluster kernel, m = 96); wall and device µs per
+    iteration and the busy share beside 15b's and 15e's unsharded numbers.
+    (b) svds, normest, check_ctranspose and check_hermitian of phase 4's B
+    through ``shard_operator`` (K1, K2). (c) rsvd of auto_8m through
+    ``shard_operator`` (its replicated program: K7, K9-K11, K12). (d) the
+    estimators of 11c on I + L over 2048² through ``shard_operator``,
+    within 11c's limits of the exact values. (e) the Nyström preconditioner
+    of slice 1's graph ((A + Aᴴ)/2: the sketch needs the hermitian flag)
+    through ``shard_operator`` as M of its CG with a plain b, both ways: x
+    split by rows, bit for bit the unsharded solve's.
+    The launch counts are set to 0 before the phase and read after it.
+    Returns (launches, seconds)."""
+    from linops_tpu_torch.parallel import (collective_counts, make_mesh, make_mesh2d,
+                                           shard_operator, stencil_partition_2d)
+    from linops_tpu_torch.parallel.comm import gather_full, is_dtensor
+    from linops_tpu_torch.utils.eig import nystrom_preconditioner
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    mesh = make_mesh()
+    mods = (K, LG, E1)
+    for m_ in mods:
+        m_.reset_launch_counts()
+    gen = torch.Generator(device=dev)
+
+    def kind(t):
+        """A result's placement in the reference's words."""
+        if not is_dtensor(t):
+            return type(t).__name__
+        return "row" if any(p.is_shard() for p in t.placements) else "replicated"
+
+    def kinds(out):
+        return tuple(kind(t) for t in out)
+
+    def same(a, b):
+        """Bit for bit, a DTensor gathered first; numbers by value."""
+        if isinstance(a, torch.Tensor):
+            return torch.equal(gather_full(a), gather_full(b))
+        return a == b
+
+    def seeded(call, seed):
+        gen.manual_seed(seed)
+        return call()
+
+    # --- 13i a. LOBPCG on the 2048² Laplacian through stencil_partition_2d ---------------
+    free()
+    g = GRID11
+    n = g * g
+    L2 = stencil_partition_2d(torch.tensor([4.0, -1.0, -1.0, -1.0, -1.0], device=dev), g, g,
+                              make_mesh2d(1, 1))
+    twin = lt.FunctionOperator(n, n, lambda v: L2.apply(v).to_local(), symmetric=True,
+                               hermitian=True, dtype=f32, capture_safe=True)
+
+    def lob(op, k=2, iters=LOB_ITERS):
+        gen.manual_seed(SEED + 112)  # 15b's seed
+        return lt.lobpcg(op, k=k, largest=True, tol=0.0, maxiter=iters, generator=gen)
+
+    def solve():
+        th, X, res, it = lob(L2)
+        return torch.cat([gather_full(th), gather_full(X).reshape(-1)]), it, res
+
+    seen = {}
+
+    def inspect(gr):
+        names = graph_kernel_names(gr)
+        seen["solver"] = sorted({n_ for n_ in names if SOLVER_KERNELS.search(n_)})
+
+    r_a = loop_modes(loop, f"13i a lobpcg(k=2, largest, gram, tol 0, {LOB_ITERS} iterations) on "
+                     f"stencil_partition_2d ({g}², a 1x1 mesh), f32", solve, phase="13i",
+                     inspect=inspect)
+    th, X, res, it = lob(L2)
+    th_t, X_t, res_t, it_t = lob(twin)
+    bits_a = (it == it_t and torch.equal(gather_full(th), th_t)
+              and torch.equal(gather_full(X), X_t) and torch.equal(gather_full(res), res_t))
+    r64, gaps = closed_form_gaps(five_point(g), g, gather_full(th), gather_full(X))
+    per_it = [collective_counts(lambda: lob(L2, iters=m_)) for m_ in (loop.BLOCK, 2 * loop.BLOCK)]
+    coll_a = {c_: (per_it[1][c_] - per_it[0][c_]) / loop.BLOCK for c_ in per_it[0]}
+    rec15b = rec15["15b"]
+    check(kinds((th, X, res)) == ("replicated", "row", "replicated") and bits_a,
+          f"13i a: placements {kinds((th, X, res))}, against the same arithmetic unsharded: "
+          f"{it} / {it_t} iterations, bit for bit {bits_a}")
+    check(r_a["iters"] == LOB_ITERS and r_a["bits"] and r_a["reads"][1] == rec15b["reads"][1],
+          f"13i a: {r_a['iters']} iterations, both loops bit for bit {r_a['bits']}, reads per "
+          f"cached solve {r_a['reads'][1]} (15b {rec15b['reads'][1]})")
+    # two all-reduces per mesh dimension (the joint Gram, the residual norms) at most: on a
+    # one-rank mesh DTensor may issue none; never an all-gather of a block
+    check(all(v_ == 0 for c_, v_ in coll_a.items() if c_ != "all-reduce")
+          and coll_a["all-reduce"] <= 4,
+          f"13i a: collectives per iteration {coll_a} (at most two all-reduces per mesh "
+          "dimension, nothing else)")
+    check(r_a["nodes"].get("small_eigh_kernel", 0) == 4 * loop.BLOCK and not seen["solver"],
+          f"13i a: the cached block holds {r_a['nodes']}, cuSOLVER kernels {seen['solver']}")
+    # k = 32: E1's cluster kernel at m = 96
+    E1.reset_launch_counts()
+    for _ in range(2):  # the signature's first solve, then its capture
+        th32, _, _, it32 = lob(L2, k=LOB32_K, iters=LOB13I_K32_ITERS)
+    (th32, it32), s32 = median_solve(lambda: lob(L2, k=LOB32_K, iters=LOB13I_K32_ITERS)[::3])
+    l32 = E1.launch_counts()
+    check(loop.stats["replays"] > 0 and loop.stats["captures"] == 0 and it32 == LOB13I_K32_ITERS
+          and l32["small_eigh_cluster"] > 0 and kind(th32) == "replicated",
+          f"13i a k = {LOB32_K}: {it32} iterations, {loop.stats}, E1 launches {l32}")
+    us32 = s32 * 1e6 / it32
+    rec15e = rec15["15e"]
+    print(f"[13i a distributed lobpcg] lobpcg(k=2, largest, gram, tol 0) on "
+          f"stencil_partition_2d ({g}², n = {n}, a 1x1 mesh), world size 1: θ replicated, X split "
+          f"by rows, residuals replicated; {it} iterations; θ, X, residuals bit for bit the "
+          f"same stencil arithmetic as a plain operator; θ {[round(float(t_), 6) for t_ in th.full_tensor()]}, "
+          f"f64 residuals {[float(f'{x:.3e}') for x in r64]}, distance to the nearest "
+          f"closed-form eigenvalue {[float(f'{x:.3e}') for x in gaps]} (limit: residual + "
+          f"1e-5·θ); collectives per iteration {coll_a}; a cached solve {r_a['reads'][1]} reads "
+          f"(15b {rec15b['reads'][1]}); the block holds {r_a['nodes'].get('small_eigh_kernel', 0)} "
+          f"E1 nodes per block of {loop.BLOCK}, no cuSOLVER kernel; wall µs per iteration "
+          f"{r_a['wall_us_per_iter'][0]:.1f} per-iteration -> {r_a['wall_us_per_iter'][1]:.1f} "
+          f"captured, device {r_a['device_us_per_iter']}, busy {r_a['busy']}; 15b unsharded "
+          f"(laplacian_2d) in this call: wall {rec15b['wall_us_per_iter']}, device "
+          f"{rec15b['device_us_per_iter']}, busy {rec15b['busy']}; k = {LOB32_K}, "
+          f"{it32} iterations: {us32:.1f} us per iteration in cached blocks (15e unsharded "
+          f"{rec15e['e1_us']:.1f}), E1 launches {l32}; {card}", flush=True)
+    del L2, twin, X, X_t, th32
+
+    # --- 13i b. svds, normest and the checks of phase 4's B through shard_operator ---------
+    free()
+    B = lt.BSROperator(lt.BSR(main["blocks"], main["cols"], (N, N)))
+    B_sh = shard_operator(B, mesh)
+    calls_b = {
+        "svds": (lambda o: lt.svds(o, k=4, tol=1e-4, maxiter=150, generator=gen), SEED + 113),
+        "normest": (lambda o: lt.normest(o, tol=1e-6, maxiter=300, generator=gen), SEED + 114),
+        "check_ctranspose": (lambda o: (lt.check_ctranspose(o, gen),), SEED + 120),
+        "check_hermitian": (lambda o: (lt.check_hermitian(o, gen),), SEED + 121)}
+    want_b = {"svds": ("row", "replicated", "replicated", "replicated", "int"),
+              "normest": ("float", "int"), "check_ctranspose": ("bool",),
+              "check_hermitian": ("bool",)}
+    out_b = {}
+    for name, (call, seed) in calls_b.items():
+        got, un = seeded(lambda: call(B_sh), seed), seeded(lambda: call(B), seed)
+        out_b[name] = (kinds(got), all(same(a, b_) for a, b_ in zip(got, un)))
+        check(out_b[name] == (want_b[name], True),
+              f"13i b {name}: placements {kinds(got)} (the reference's {want_b[name]}), bit for "
+              f"bit the unsharded call {out_b[name][1]}")
+    ct = calls_b["check_ctranspose"][0](B_sh)[0]
+    check(ct, "13i b: check_ctranspose of the sharded B is False")
+    print(f"[13i b distributed svds] svds(k=4, tol 1e-4), normest (tol 1e-6), check_ctranspose, "
+          f"check_hermitian of phase 4's B (8x128, n = {N}) through shard_operator, world size 1: "
+          f"placements and bits against the unsharded calls {out_b}", flush=True)
+    del B, B_sh
+
+    # --- 13i c. rsvd of auto_8m through shard_operator (replicated program) ------------------
+    free()
+    op2 = ops["op2"]
+    op2_sh = shard_operator(op2, mesh)
+    rs = lambda o: lt.rsvd(o, 4, oversample=4, power_iters=1, generator=gen)  # noqa: E731 (11b)
+    got, un = seeded(lambda: rs(op2_sh), SEED + 116), seeded(lambda: rs(op2), SEED + 116)
+    bits_c = all(same(a, b_) for a, b_ in zip(got, un))
+    check(kinds(got) == ("replicated",) * 3 and bits_c,
+          f"13i c rsvd: placements {kinds(got)}, bit for bit the unsharded call {bits_c}")
+    print(f"[13i c distributed rsvd] rsvd(k=4, oversample 4, power_iters 1) of auto_8m (n = 2^19) "
+          f"through shard_operator (routing programs replicated), world size 1: U, s, V "
+          f"replicated, bit for bit the unsharded call; σ "
+          f"{[round(float(v), 5) for v in got[1].full_tensor()]}", flush=True)
+    del op2_sh, got, un
+
+    # --- 13i d. the estimators on I + L over 2048² through shard_operator -----------------
+    free()
+    A11 = lt.laplacian_2d(g, g) + lt.opEye(n, dtype=f32)
+    A11_sh = shard_operator(A11, mesh)
+    kd = 64
+    calls_d = {"estimate_trace": (lambda o: lt.estimate_trace(o, probes=36, generator=gen),
+                                  SEED + 117),
+               "estimate_diagonal": (lambda o: lt.estimate_diagonal(o, probes=kd, generator=gen),
+                                     SEED + 118),
+               "estimate_logdet": (lambda o: lt.estimate_logdet(o, probes=16, lanczos_steps=30,
+                                                                generator=gen), SEED + 119)}
+    want_d = {"estimate_trace": ("float", "float"), "estimate_diagonal": ("row", "row"),
+              "estimate_logdet": ("float", "float")}
+    out_d = {}
+    for name, (call, seed) in calls_d.items():
+        got, un = seeded(lambda: call(A11_sh), seed), seeded(lambda: call(A11), seed)
+        out_d[name] = got
+        bits = all(same(a, b_) for a, b_ in zip(got, un))
+        check(kinds(got) == want_d[name] and bits,
+              f"13i d {name}: placements {kinds(got)}, bit for bit the unsharded call {bits}")
+    tr, tr_se = out_d["estimate_trace"]
+    dg = out_d["estimate_diagonal"][0].full_tensor()
+    ld, ld_se = out_d["estimate_logdet"]
+    ld_true = float(np.sum(np.log(1.0 + laplacian_eigenvalues(g))))
+    d_err = float((dg.double() - 5.0).abs().max())
+    d_lim = 6 * (4.0 / kd) ** 0.5
+    check(abs(tr - 5 * n) < 6 * tr_se and d_err <= d_lim and abs(ld - ld_true) < 6 * ld_se,
+          f"13i d: trace {tr} ± {tr_se} against {5 * n}, diagonal max|Δ| {d_err:.3f} (limit "
+          f"{d_lim:.3f}), logdet {ld} ± {ld_se} against {ld_true}")
+    print(f"[13i d distributed estimators] I + L on {g}² through shard_operator, world size 1: "
+          f"trace {tr:.1f} against 5n = {5 * n} (stderr {tr_se:.1f}), diagonal (split by rows) "
+          f"max|Δ| from 5 {d_err:.3f} (limit {d_lim:.3f}), logdet {ld:.1f} against {ld_true:.1f} "
+          f"(stderr {ld_se:.1f}); each bit for bit the unsharded call with 11c's seed", flush=True)
+    del A11, A11_sh, out_d, dg
+
+    # --- 13i e. the Nyström preconditioner of slice 1's graph as M of its CG ---------------
+    free()
+    A, b = main["A"], main["b"]
+    A_sh = shard_operator(A, mesh)
+    # the sketch needs the hermitian flag, which a composition drops: (A + Aᴴ)/2
+    Ah = A.hermitianized()
+    nys = lambda o: nystrom_preconditioner(o, 20, generator=gen)  # noqa: E731
+    P_sh = seeded(lambda: nys(shard_operator(Ah, mesh)), SEED + 122)
+    P_un = seeded(lambda: nys(Ah), SEED + 122)
+    check(kinds((P_sh.U, P_sh.lam)) == ("replicated",) * 2 and same(P_sh.U, P_un.U)
+          and same(P_sh.lam, P_un.lam),
+          f"13i e: U and lam placed {kinds((P_sh.U, P_sh.lam))}, bit for bit the unsharded sketch "
+          f"{same(P_sh.U, P_un.U)} {same(P_sh.lam, P_un.lam)}")
+    last = {}
+
+    def solve_e():
+        x_, k_, r_ = lt.cg(A_sh, b, M=P_sh, tol=1e-5, maxiter=500)
+        last["x"] = x_
+        return gather_full(x_), k_, r_
+
+    r_e = loop_modes(loop, f"13i e cg on shard_operator(slice 1's graph) (n = {N}), b plain, M "
+                     "the sharded operator's Nyström preconditioner (rank 20), tol 1e-5", solve_e,
+                     phase="13i")
+    x_un, k_un, _ = lt.cg(A, b, M=P_un, tol=1e-5, maxiter=500)
+    check(kind(last["x"]) == "row" and r_e["iters"] == k_un and r_e["bits"]
+          and torch.equal(gather_full(last["x"]), x_un)
+          and r_e["reads"][1] == -(-k_un // loop.BLOCK),
+          f"13i e: x placed {kind(last['x'])}, {r_e['iters']} iterations (unsharded {k_un}), "
+          f"bit for bit {r_e['bits']} / {torch.equal(gather_full(last['x']), x_un)}, "
+          f"{r_e['reads'][1]} reads in a cached solve")
+    print(f"[13i e distributed nystrom] nystrom_preconditioner(rank 20) of shard_operator(slice "
+          f"1's graph), world size 1: U and lam replicated, bit for bit the unsharded sketch; cg "
+          f"with it and a plain b: x split by rows, {k_un} iterations, bit for bit the unsharded "
+          f"solve's, {r_e['reads'][1]} reads in a cached solve", flush=True)
+    del A_sh, Ah, P_sh, P_un
+
+    launches = {k_: v_ for m_ in mods for k_, v_ in m_.launch_counts().items() if v_}
+    seconds = time.perf_counter() - t_phase
+    print(f"[13i distributed spectral path] launches {launches}; {seconds:.1f} s", flush=True)
+    return launches, seconds
+
+
 def eigh_ops(m, complex_=False) -> int:
     """Real operations an eigendecomposition of one Hermitian m x m matrix
     needs, whatever the method: about 9 m³ (tridiagonal reduction, implicit
@@ -5300,10 +5567,19 @@ def main() -> int:
 
     e1_times, _ = phase15a(E1, dev, card)
     e2_times = phase15f(lt, loop_mod, E2, dev, card, ops)
-    _, _, e1_launches = phase15b(lt, loop_mod, E1, dev, card)
+    r15b, _, e1_launches = phase15b(lt, loop_mod, E1, dev, card)
     phase15c(lt, loop_mod, dev, {"blocks": blocks, "cols": cols}, slice6["spectra"])
     phase15d(dev, card)
     lob32 = phase15e(lt, loop_mod, E1, dev, card)
+    # --- 13i. spectral routines, estimators and checks on distributed operators (after 15:
+    # it prints 15b's and 15e's unsharded numbers beside its own) -------------------------
+    l13i, s13i = phase13i(lt, loop_mod, E1, K, LG, dev, card, ops,
+                          {"blocks": blocks, "cols": cols, "A": A, "b": b},
+                          {"15b": r15b, "15e": lob32})
+    for name in ("bsr_matvec", "bsr_rmatvec", "lane_gather", "lane_gather_mul_t_batched",
+                 "lane_gather_sum", "lane_segsum", "lane_gather_mul_segsum", "small_eigh",
+                 "small_eigh_cluster"):
+        check(l13i.get(name, 0) > 0, f"{name} never ran on the 13i path (distributed spectra)")
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
     # comes after phase 5's profiler readings, as phase 10's do), its blocks
@@ -5410,9 +5686,10 @@ def main() -> int:
                     "replaces_note": "no pallas_call site: the jnp.linalg.lstsq XLA lowers in the "
                                      "reference's GMRES restart; plain version: torch.linalg.svd "
                                      "at jnp.linalg.lstsq's cutoff"})
-    for row in kernels:  # launches inside phase 12's backward passes, and on phase 13h's path
+    for row in kernels:  # launches inside phase 12's backward passes, on 13h's and 13i's paths
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
         row["launches_13h"] = sum(c_.get(row["name"], 0) for c_ in dt_launches.values())
+        row["launches_13i"] = l13i.get(row["name"], 0)
     tally = collections.Counter(n for n, _ in TRACES_TAKEN)
     lossy = collections.Counter((h, t) for h, t, _ in SPINS_LOST if h or t)
     missed = [(h, t) for h, t, hit in SPINS_LOST if hit is False]

@@ -9,8 +9,10 @@ the shape checks, the eltype check on what an operator returns, and the
 (None or 0) never reads ``res``, and a tensor β that is zero selects
 ``alpha·op(v)`` without ``0·res`` (so a NaN in ``res`` cannot leak).
 ``matvec``, ``matmat`` and ``mul`` (and so ``op * v``) follow the rule for
-DTensor arguments (``parallel/comm.py::dtensor_entry``): a plain operator
-given a DTensor returns a DTensor, a partial sum reduced to a replicated one.
+distributed calls (``parallel/comm.py::dtensor_entry``), placing nothing:
+a plain operator given a DTensor returns a DTensor, a partial sum reduced
+to a replicated one, and a distributed operator given a plain vector
+returns a DTensor in the reference's placement.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def _check_vec_shape(op: LinearOperator, v, mode: str):
         raise LinearOperatorException("shape mismatch")
 
 
-@dtensor_entry
+@dtensor_entry(place=False)
 def matvec(op: LinearOperator, v, mode: str = "N"):
     """``op * v`` (mode N), ``transpose(op) * v`` (T), ``op' * v`` (H),
     ``conj(op) * v`` (C). Result dtype follows ``promote(op, v)``."""
@@ -56,7 +58,7 @@ def matvec(op: LinearOperator, v, mode: str = "N"):
     return _checked(op, v, op.apply(v, mode))
 
 
-@dtensor_entry
+@dtensor_entry(place=False)
 def matmat(op: LinearOperator, M, mode: str = "N"):
     """Apply to a matrix column-block (SpMM / multi-RHS)."""
     M = _as_tensor(op, M)
@@ -74,7 +76,7 @@ def _static_one(x) -> bool:
     return x is None or (isinstance(x, (int, float, complex)) and x == 1)
 
 
-@dtensor_entry
+@dtensor_entry(place=False)
 def mul(op: LinearOperator, v, alpha=None, beta=None, res=None, mode: str = "N",
         donate: bool = False):
     """Functional 5-arg ``mul!``: returns ``alpha * op(v) + beta * res``.

@@ -93,7 +93,7 @@ class HaloPartitionedOperator(LinearOperator):
     ``A_left``/``A_right`` are (n_dev·m, h), the neighbour couplings; all
     are split by rows (DTensors: each rank holds its slab). Symmetric iff
     declared (flags are the caller's contract). Vectors are split by rows;
-    a plain vector counts as replicated and gets its result whole."""
+    a plain vector counts as replicated and gets its result split by rows."""
 
     _fields_tensors = ("A_int", "A_left", "A_right")
     _fields_static = ("_n", "_halo", "_mesh", "_symmetric", "_hermitian")
@@ -161,13 +161,12 @@ class HaloPartitionedOperator(LinearOperator):
         return (ranks[r - 1] if r > 0 else None,
                 ranks[r + 1] if r + 1 < len(ranks) else None)
 
-    def _out(self, y, v):
-        """This rank's output segment as the input's kind: a DTensor split by
-        rows for a DTensor, the whole vector (gathered) for a plain one."""
+    def _out(self, y):
+        """This rank's output segment as a DTensor split by rows, for a
+        DTensor input and for a plain one (which counts as replicated)."""
         from torch.distributed.tensor import Shard
 
-        out = comm.from_local(y, self._mesh, [Shard(0)], (self._n,))
-        return out if comm.is_dtensor(v) else comm.gather_full(out)
+        return comm.from_local(y, self._mesh, [Shard(0)], (self._n,))
 
     def _local(self, v):
         dt = torch.promote_types(self.dtype, v.dtype)
@@ -187,7 +186,7 @@ class HaloPartitionedOperator(LinearOperator):
         y = pmatmul(A_int, x)  # overlap: no dependence on the exchange
         for w in works:
             w.wait()
-        return self._out(y + pmatmul(A_left, from_left) + pmatmul(A_right, from_right), v)
+        return self._out(y + pmatmul(A_left, from_left) + pmatmul(A_right, from_right))
 
     def _tprod(self, u):
         """Transpose apply: the own interior transposed, plus this rank's
@@ -209,7 +208,7 @@ class HaloPartitionedOperator(LinearOperator):
             w.wait()
         y = torch.cat([y[:h] + recv_l, y[h:]]) if h < y.shape[0] else y + recv_l
         y = torch.cat([y[:-h], y[-h:] + recv_r])
-        return self._out(y, u)
+        return self._out(y)
 
     def _ctprod(self, w):
         if not self.A_int.is_complex():

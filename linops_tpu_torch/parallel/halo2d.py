@@ -55,7 +55,8 @@ class HaloStencil2DOperator(LinearOperator):
     The transpose stencil swaps n↔s and w↔e, so every mode runs the one
     apply with permuted (and, for C/H, conjugated) coefficients. Matrices go
     through ``apply_matrix``; ``apply`` takes vectors only. A plain vector
-    counts as replicated and gets its result whole."""
+    counts as replicated and gets its result split as the operator's
+    vectors are."""
 
     _fields_tensors = ("coeffs",)
     _fields_static = ("_ny", "_nx", "_mesh", "_symmetric", "_hermitian")
@@ -167,8 +168,7 @@ class HaloStencil2DOperator(LinearOperator):
         y = y + cs * torch.cat([u[1:], from_s[None]], dim=0)
         y = y + cw * torch.cat([from_w[:, None], u[:, :-1]], dim=1)
         y = y + ce * torch.cat([u[:, 1:], from_e[:, None]], dim=1)
-        out = comm.from_local(y.reshape(-1), self._mesh, [Shard(0), Shard(0)], (self.nrow,))
-        return out if comm.is_dtensor(v) else comm.gather_full(out)
+        return comm.from_local(y.reshape(-1), self._mesh, [Shard(0), Shard(0)], (self.nrow,))
 
     def _has_tprod(self):
         return True

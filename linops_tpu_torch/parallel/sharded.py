@@ -27,9 +27,12 @@ reference's:
 A size the mesh does not divide warns and replicates, as the reference
 does; nothing is padded. Vectors are DTensors, split by rows
 (``row_sharding(mesh).place(v)``), and a sharded operator returns DTensors
-for them; a plain tensor given to it counts as replicated and its result
-comes back whole (gathered), so a solver that makes its own plain vectors
-(random starts, probes) runs on a sharded operator unchanged.
+for them, in the input's placement. A plain tensor given to it counts as
+replicated, and its result is a DTensor in the reference's placement:
+split by rows for a row-partitioned forward apply, replicated where GSPMD
+replicates (the transpose of a row split, one all-reduce; the nnz-split
+formats; a replicated program). Each placement's ``layout`` says where the
+operator keeps its vectors (``comm.layout_of``).
 """
 
 from __future__ import annotations
@@ -90,39 +93,54 @@ def _local_rows(v, mesh, n: int):
 
 def _like(y, v, mesh):
     """The full result ``y`` (the same on every rank) as a DTensor with
-    ``v``'s placements (a local slice: no communication); ``y`` itself when
+    ``v``'s placements (a local slice: no communication), replicated when
     ``v`` is a plain tensor."""
-    if not comm.is_dtensor(v):
-        return y
     Replicate, _ = _placements()
-    return comm.from_local(y, mesh, [Replicate()], y.shape).redistribute(mesh, v.placements)
+    y = comm.from_local(y, mesh, [Replicate()], y.shape)
+    return y.redistribute(mesh, v.placements) if comm.is_dtensor(v) else y
 
 
-def _as_input(y, v):
-    """A result in the kind of the input: a DTensor for a DTensor, the whole
-    result (gathered) for a plain tensor."""
-    return y if comm.is_dtensor(v) else comm.gather_full(y)
+def _has_split(value, rows_of_matrix: bool = False) -> bool:
+    """Whether an operator field holds a split DTensor (with
+    ``rows_of_matrix``: a 2-D one split along its rows)."""
+    if isinstance(value, LinearOperator):
+        return any(_has_split(getattr(value, f, None), rows_of_matrix)
+                   for f in type(value)._fields_tensors)
+    if isinstance(value, tuple):
+        return any(_has_split(v, rows_of_matrix) for v in value)
+    if not comm.is_dtensor(value):
+        return False
+    if rows_of_matrix:
+        return value.ndim == 2 and any(p.is_shard(0) for p in value.placements)
+    return any(p.is_shard() for p in value.placements)
 
 
 class _DTensorLeaves:
     """The operator's tensors are DTensors and DTensor runs the apply;
     plain tensors met on the way (index tensors, a replicated input) count
-    as replicated."""
+    as replicated, and a plain input's partial-sum result is reduced."""
 
     def __init__(self, mesh):
         self.mesh = mesh
 
     def apply(self, op, base, v, mode):
         with comm.plain_as_replicated():
-            return _as_input(base(op, v, mode), v)
+            y = base(op, v, mode)
+        return y if comm.is_dtensor(v) else comm._whole_sums(y)
 
     apply_matrix = apply_matrix_t = apply
+
+    def layout(self, op, domain):
+        Replicate, Shard = _placements()
+        # the adjoint of a matrix with split rows sums over them: replicated
+        whole = not _has_split(op) or (domain and _has_split(op, rows_of_matrix=True))
+        return comm.Layout(self.mesh, [Replicate()] if whole else [Shard(0)])
 
 
 class _Replicated:
     """Every rank holds the whole operator: the input is gathered, the apply
     runs on this rank's replica (on the card, its kernels), and the result
-    takes the input's placement."""
+    takes the input's placement (replicated for a plain input)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -132,12 +150,25 @@ class _Replicated:
 
     apply_matrix = apply_matrix_t = apply
 
+    def layout(self, op, domain):
+        Replicate, _ = _placements()
+        return comm.Layout(self.mesh, [Replicate()])
+
+
+def _reduced(partial, v, mesh):
+    """Per-rank full-length partial results summed: split by rows (one
+    reduce-scatter) for a DTensor input, replicated (one all-reduce) for a
+    plain one, as GSPMD places the sum."""
+    return comm.reduce_scatter(partial, mesh) if comm.is_dtensor(v) else \
+        comm.all_reduce(partial, mesh)
+
 
 class _RowShard:
     """Rows split: ``local`` is this rank's row block as an operator of its
     own (full column count). Forward: gather x, apply locally, the output
     split by rows. Transpose: this rank's rows of u through the local
-    transpose into a full-length partial, then one reduce-scatter."""
+    transpose into a full-length partial, then one reduce-scatter (one
+    all-reduce for a plain u)."""
 
     def __init__(self, mesh, local):
         self.mesh = mesh
@@ -147,10 +178,8 @@ class _RowShard:
         _, Shard = _placements()
         if not mode_transposed(mode):
             y = fn(comm.gather_full(v), mode)
-            y = comm.from_local(y, self.mesh, [Shard(0)], (op.nrow, *y.shape[1:]))
-        else:
-            y = comm.reduce_scatter(fn(_local_rows(v, self.mesh, op.nrow), mode), self.mesh)
-        return _as_input(y, v)
+            return comm.from_local(y, self.mesh, [Shard(0)], (op.nrow, *y.shape[1:]))
+        return _reduced(fn(_local_rows(v, self.mesh, op.nrow), mode), v, self.mesh)
 
     def apply(self, op, base, v, mode):
         return self._run(op, v, mode, self.local.apply)
@@ -161,26 +190,33 @@ class _RowShard:
     def apply_matrix_t(self, op, base, Mt, mode):
         return self.apply_matrix(op, base, Mt.t(), mode).t()
 
+    def layout(self, op, domain):
+        Replicate, Shard = _placements()
+        return comm.Layout(self.mesh, [Replicate()] if domain else [Shard(0)])
+
 
 class _NnzShard:
     """The stored entries split: ``local`` holds this rank's entries over
     the full shape. Every mode gathers the input and sums this rank's
-    entries into a full-length partial, then one reduce-scatter."""
+    entries into a full-length partial, then one reduce-scatter (one
+    all-reduce for a plain input)."""
 
     def __init__(self, mesh, local):
         self.mesh = mesh
         self.local = local
 
     def apply(self, op, base, v, mode):
-        y = self.local.apply(comm.gather_full(v), mode)
-        return _as_input(comm.reduce_scatter(y, self.mesh), v)
+        return _reduced(self.local.apply(comm.gather_full(v), mode), v, self.mesh)
 
     def apply_matrix(self, op, base, M, mode):
-        Y = self.local.apply_matrix(comm.gather_full(M), mode)
-        return _as_input(comm.reduce_scatter(Y, self.mesh), M)
+        return _reduced(self.local.apply_matrix(comm.gather_full(M), mode), M, self.mesh)
 
     def apply_matrix_t(self, op, base, Mt, mode):
         return self.apply_matrix(op, base, Mt.t(), mode).t()
+
+    def layout(self, op, domain):
+        Replicate, _ = _placements()
+        return comm.Layout(self.mesh, [Replicate()])
 
 
 _PLACED: dict = {}

@@ -27,6 +27,16 @@ the bits are the per-iteration loop's; the count is the reference's.
 
 ``basis="gram"`` squares the basis condition number, so hold f32 runs to
 well-conditioned problems.
+
+On a distributed operator (``parallel/comm.py``) every (n, ·) block of
+LOBPCG stays as this rank's rows in the operator's vector layout
+(``comm.Rows``): a random block is drawn whole from one seed on every rank
+and each rank keeps its rows, each Gram is a local product and one
+all-reduce, and the small problems (SVQB, Rayleigh–Ritz through E1) run on
+the replicated Grams. The outputs come back in the reference's placement:
+blocks as DTensors in the operator's layout (svds' Gram operator: the
+domain's), small results replicated. At one rank the bits are the
+unsharded call's.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from ..core.base import LinearOperator, LinearOperatorException
 from ..core.dense import aslinearoperator
 from ..core.precision import pmatmul
 from ..kernels.small_eigh import small_eigh
+from ..parallel import comm
 from . import loop
 from .estimate import _device, _probe_dtype, _real
 from .rng import fresh_generator
@@ -71,21 +82,24 @@ def _svqb_transform_g(G):
     return T.to(G.dtype), clipped
 
 
-def _svqb_transform(S):
-    return _svqb_transform_g(pmatmul(_H(S), S))
-
-
-def _svqb(S):
-    """Orthonormalize the columns of S: ``(Q, T, clipped)`` with Q = S @ T."""
-    T, clipped = _svqb_transform(S)
+def _svqb(S, R):
+    """Orthonormalize the columns of S (this rank's rows ``R``): ``(Q, T,
+    clipped)`` with Q = S @ T."""
+    T, clipped = _svqb_transform_g(R.psum(pmatmul(_H(S), S)))
     return pmatmul(S, T), T, clipped
 
 
-def _svqb_t(St):
+def _svqb_t(St, R):
     """Row-panel SVQB: orthonormalize the rows of St (k, n); ``(Tᵀ St,
     clipped)``."""
-    T, clipped = _svqb_transform_g(pmatmul(St.conj(), St.T))
+    T, clipped = _svqb_transform_g(R.psum(pmatmul(St.conj(), St.T)))
     return pmatmul(T.T, St), clipped
+
+
+def _apply_t(op, St, R):
+    """``op.apply_matrix_t`` of a panel of this rank's rows: the panel made
+    whole as a DTensor, its image back as this rank's rows."""
+    return R.local_t(op.apply_matrix_t(R.dtensor_t(St), "N"))
 
 
 def _rr_from_H(H, clipped, k: int, largest: bool):
@@ -102,10 +116,10 @@ def _rr_from_H(H, clipped, k: int, largest: bool):
     return w.real[idx], C[:, idx]
 
 
-def _gs_t(Yt, Zt, passes: int = 2):
+def _gs_t(Yt, Zt, R, passes: int = 2):
     """Gram–Schmidt of the rows of Yt against the orthonormal rows of Zt."""
     for _ in range(passes):
-        Yt = Yt - pmatmul(pmatmul(Yt, _H(Zt)), Zt)
+        Yt = Yt - pmatmul(R.psum(pmatmul(Yt, _H(Zt))), Zt)
     return Yt
 
 
@@ -118,33 +132,34 @@ def _converged_test(kc: int):
     return cond
 
 
-def _deflate(Bt, consts):
+def _deflate(Bt, consts, R):
     """Project the constraint block (``consts[1]``, orthonormal rows) out
     of the rows of Bt."""
-    return _gs_t(Bt, consts[1]) if len(consts) > 1 else Bt
+    return _gs_t(Bt, consts[1], R) if len(consts) > 1 else Bt
 
 
-def _lobpcg_start(op, X0, consts, k, largest):
-    Xt, clip0 = _svqb_t(_deflate(X0.T, consts))
-    AXt = op.apply_matrix_t(Xt, "N")
-    theta, C = _rr_from_H(pmatmul(Xt.conj(), AXt.T), clip0, k, largest)
+def _lobpcg_start(op, X0, consts, k, largest, R):
+    Xt, clip0 = _svqb_t(_deflate(X0.T, consts, R), R)
+    AXt = _apply_t(op, Xt, R)
+    theta, C = _rr_from_H(R.psum(pmatmul(Xt.conj(), AXt.T)), clip0, k, largest)
     return pmatmul(C.T, Xt), pmatmul(C.T, AXt), theta
 
 
-def _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, basis):
+def _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, basis, R):
     """Run ``body`` on (Xt, AXt, Pt, θ, res) from the start block's
     Rayleigh–Ritz pairs, on ``loop.device_while``; returns (θ, X, res,
-    iterations)."""
+    iterations). The blocks are this rank's rows ``R`` (the whole, for a
+    plain call); the key holds their layout."""
     rdt = _real(X0.dtype)
-    Xt, AXt, theta = _lobpcg_start(op, X0, consts, k, largest)
+    Xt, AXt, theta = _lobpcg_start(op, X0, consts, k, largest, R)
     res = torch.full((k,), float("inf"), dtype=rdt, device=X0.device)
     (Xt, _, _, theta, res), it = loop.device_while(
         _converged_test(kc), body, (Xt, AXt, torch.zeros_like(Xt), theta, res), maxiter,
-        consts=consts, ops=(op, Mop), key=("lobpcg", basis, k, largest, kc))
+        consts=consts, ops=(op, Mop), key=("lobpcg", basis, k, largest, kc) + R.key)
     return theta, Xt.T, res, it
 
 
-def _lobpcg_gram(op, Mop, X0, consts, k, maxiter, largest, kc):
+def _lobpcg_gram(op, Mop, X0, consts, k, maxiter, largest, kc, R):
     """LOBPCG with the basis kept in coefficient space: per iteration one
     fresh image of the raw basis, one joint (6k)² Gram of [S; A S] and one
     fused update; the orthonormalization is (6k)² arithmetic."""
@@ -162,11 +177,11 @@ def _lobpcg_gram(op, Mop, X0, consts, k, maxiter, largest, kc):
         kw = dict(dtype=Xt.dtype, device=Xt.device)
         eyek, zk = torch.eye(k, **kw), torch.zeros((k, k), **kw)
         Rt = AXt - theta[:, None].to(Xt.dtype) * Xt
-        Wt = _deflate(Mop.apply_matrix_t(Rt, "N") if Mop is not None else Rt, consts)
+        Wt = _deflate(_apply_t(Mop, Rt, R) if Mop is not None else Rt, consts, R)
         St = torch.cat([Xt, Wt, Pt], dim=0)  # raw basis (3k, n)
-        ASt = op.apply_matrix_t(St, "N")  # fresh image
+        ASt = _apply_t(op, St, R)  # fresh image
         B = torch.cat([St, ASt], dim=0)  # (6k, n)
-        G6 = pmatmul(B.conj(), B.T)
+        G6 = R.psum(pmatmul(B.conj(), B.T))
         G, H = G6[: 3 * k, : 3 * k], G6[: 3 * k, 3 * k:]
         Tx, cX = _svqb_transform_g(G[:k, :k])
         Ex = pmatmul(Tx.T, torch.cat([eyek, zk, zk], dim=1))
@@ -191,38 +206,39 @@ def _lobpcg_gram(op, Mop, X0, consts, k, maxiter, largest, kc):
         Xt, Pt, AXt = OUT[:k], OUT[k: 2 * k], OUT[2 * k:]
         # residuals from the materialized Ritz pieces (the small-space formula
         # cancels in f32 near convergence)
-        res = torch.linalg.vector_norm(AXt - theta[:, None].to(Xt.dtype) * Xt, dim=1).to(rdt)
+        res = R.norm_t(AXt - theta[:, None].to(Xt.dtype) * Xt).to(rdt)
         return Xt, AXt, Pt, theta, res
 
-    return _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, "gram")
+    return _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, "gram", R)
 
 
-def _lobpcg_direct(op, Mop, X0, consts, k, maxiter, largest, kc):
+def _lobpcg_direct(op, Mop, X0, consts, k, maxiter, largest, kc, R):
     """LOBPCG with the blockwise orthonormalization on the (·, n) panels."""
 
     def body(state, consts, _):
         Xt, AXt, Pt, theta, _ = state
         Rt = AXt - theta[:, None].to(Xt.dtype) * Xt
-        Wt = Mop.apply_matrix_t(Rt, "N") if Mop is not None else Rt
-        Wt = _gs_t(_deflate(Wt, consts), Xt)
-        Wt, cW = _svqb_t(Wt)
+        Wt = _apply_t(Mop, Rt, R) if Mop is not None else Rt
+        Wt = _gs_t(_deflate(Wt, consts, R), Xt, R)
+        Wt, cW = _svqb_t(Wt, R)
         XWt = torch.cat([Xt, Wt], dim=0)
-        Pbt, cP = _svqb_t(_gs_t(Pt, XWt))
+        Pbt, cP = _svqb_t(_gs_t(Pt, XWt, R), R)
         St = torch.cat([XWt, Pbt], dim=0)  # (3k, n)
         clipped = torch.cat([torch.zeros((k,), dtype=torch.bool, device=Xt.device), cW, cP])
-        ASt = op.apply_matrix_t(St, "N")  # fresh image
-        theta, C = _rr_from_H(pmatmul(St.conj(), ASt.T), clipped, k, largest)
+        ASt = _apply_t(op, St, R)  # fresh image
+        theta, C = _rr_from_H(R.psum(pmatmul(St.conj(), ASt.T)), clipped, k, largest)
         Cp = C.clone()
         Cp[:k] = 0
         OUT = pmatmul(torch.cat([C, Cp], dim=1).T, St)  # (2k, n)
         Xt, Pt = OUT[:k], OUT[k:]
         AXt = pmatmul(C.T, ASt)
-        res = torch.linalg.vector_norm(AXt - theta[:, None].to(Xt.dtype) * Xt, dim=1)
+        res = R.norm_t(AXt - theta[:, None].to(Xt.dtype) * Xt)
         return Xt, AXt, Pt, theta, res
 
-    return _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, "direct")
+    return _lobpcg_loop(body, op, Mop, X0, consts, k, maxiter, largest, kc, "direct", R)
 
 
+@comm.dtensor_entry
 def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
            maxiter: int = 200, M=None, Y=None, generator=None, block_size=None,
            basis: str = "gram"):
@@ -235,7 +251,10 @@ def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
     ``X0`` (n, k) seeds the block (else a normal block from ``generator``);
     ``Y`` (n, j) constrains the search to the complement of its span;
     ``block_size`` ≥ k runs a wider internal block whose extra pairs are
-    dropped. ``basis``: ``"gram"`` (default) or ``"direct"``."""
+    dropped. ``basis``: ``"gram"`` (default) or ``"direct"``. On a
+    distributed operator, or given DTensor blocks, the blocks are this
+    rank's rows (X0's layout, else the operator's), θ and the residual
+    norms come back replicated and X in that layout."""
     if basis not in ("gram", "direct"):
         raise ValueError(f"unknown basis {basis!r} (use 'gram' or 'direct')")
     op = aslinearoperator(op)
@@ -263,23 +282,26 @@ def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
     dt = _probe_dtype(op)
     rdt = _real(dt)
     dev = _device(op, "lobpcg")
+    # this rank's rows of every block: X0's layout, else the operator's
+    R = comm.rows_at(comm.layout_of(X0, Y, op, M), n)
     g = generator
     if X0 is None:
-        g = g if g is not None else fresh_generator(dev)
-        X0 = torch.randn((n, k), generator=g, device=dev, dtype=rdt).to(dt)
+        g = g if g is not None else fresh_generator(dev, like=(op,))
+        X0 = R.local(torch.randn((n, k), generator=g, device=dev, dtype=rdt).to(dt))
     else:
-        X0 = torch.as_tensor(X0, device=dev).to(dt)
+        X0 = X0 if comm.is_dtensor(X0) else torch.as_tensor(X0, device=dev)
         if tuple(X0.shape) != (n, k):
             raise LinearOperatorException(f"X0 must have shape {(n, k)}, got {tuple(X0.shape)}")
+        X0 = R.local(X0.to(dt))
         # a rank-deficient start would seed X with a zero direction
-        gev = torch.linalg.eigvalsh(pmatmul(_H(X0), X0))
+        gev = torch.linalg.eigvalsh(R.psum(pmatmul(_H(X0), X0)))
         thresh = (100 * k + 10 * n ** 0.5) * torch.finfo(rdt).eps
         if float(gev[0]) <= float(gev[-1]) * thresh:
             raise LinearOperatorException(
                 "X0 is numerically rank-deficient; provide k linearly independent start "
                 "vectors (or pass X0=None for a random block)")
     if Y is not None:
-        Y = torch.as_tensor(Y, device=dev).to(dt)
+        Y = Y if comm.is_dtensor(Y) else torch.as_tensor(Y, device=dev)
         if Y.ndim == 1:
             Y = Y[:, None]
         if Y.ndim != 2 or Y.shape[0] != n:
@@ -287,21 +309,21 @@ def lobpcg(op, k: int = 1, X0=None, *, largest: bool = False, tol: float = 1e-6,
                                           f"got {tuple(Y.shape)}")
         if 3 * k + Y.shape[1] > n:
             raise ValueError(f"constraint block too wide: 3k + j = {3 * k + Y.shape[1]} > n = {n}")
-        Y, _, clipY = _svqb(Y)
+        Y, _, clipY = _svqb(R.local(Y.to(dt)), R)
         if bool(torch.any(clipY)):
             raise LinearOperatorException("constraint block Y is numerically rank-deficient")
     if k_int > k:  # pad the internal block with random extra columns
-        g = g if g is not None else fresh_generator(dev)
-        X0 = torch.cat([X0, torch.randn((n, k_int - k), generator=g, device=dev,
-                                        dtype=rdt).to(dt)], dim=1)
+        g = g if g is not None else fresh_generator(dev, like=(op,))
+        X0 = torch.cat([X0, R.local(torch.randn((n, k_int - k), generator=g, device=dev,
+                                                dtype=rdt).to(dt))], dim=1)
     # per-solve values the loop reads (a captured block replays over them):
     # tol, and the constraint block as orthonormal rows
     consts = (torch.full((), float(tol), dtype=rdt, device=dev),)
     if Y is not None:
         consts += (Y.T,)
     impl = _lobpcg_gram if basis == "gram" else _lobpcg_direct
-    theta, X, res, it = impl(op, M, X0, consts, k_int, int(maxiter), bool(largest), k)
-    return theta[:k], X[:, :k], res[:k], int(it)
+    theta, X, res, it = impl(op, M, X0, consts, k_int, int(maxiter), bool(largest), k, R)
+    return R.replicated(theta[:k]), R.dtensor(X[:, :k]), R.replicated(res[:k]), int(it)
 
 
 class _GramOperator(LinearOperator):
@@ -340,6 +362,11 @@ class _GramOperator(LinearOperator):
     def symmetric(self):
         return not self.dtype.is_complex
 
+    def _vector_layout(self, domain):
+        """The Gram's vectors live where the base's adjoint (side "right")
+        or its forward apply ("left") leaves them (``comm.layout_of``)."""
+        return comm.layout_of(self.base, domain=self.side == "right")
+
     def _gram(self, v, batched: bool):
         ap = self.base.apply_matrix if batched else self.base.apply
         if self.side == "right":
@@ -360,10 +387,14 @@ class _GramOperator(LinearOperator):
         return f"Gram({self.side}) of"
 
 
+@comm.dtensor_entry
 def svds(op, k: int = 1, *, largest: bool = True, tol: float = 1e-6, maxiter: int = 200,
          generator=None):
     """Extremal singular triplets by LOBPCG on the smaller Gram operator.
-    Returns ``(U, s, V, resnorms, iters)`` with ``op @ V ≈ U * s``."""
+    Returns ``(U, s, V, resnorms, iters)`` with ``op @ V ≈ U * s``. On a
+    distributed operator the LOBPCG block lives in the Gram's layout and
+    the other factor comes from one block apply: U, V in the reference's
+    placement, s and the residual norms replicated."""
     op = aslinearoperator(op)
     m, n = op.shape
     side = "right" if n <= m else "left"
@@ -381,18 +412,28 @@ def svds(op, k: int = 1, *, largest: bool = True, tol: float = 1e-6, maxiter: in
 
 
 def _rsvd(op, G, power_iters: int):
+    """On a distributed operator each (·, l) image is taken whole for its
+    QR (the reference's placements: the range basis split as the forward
+    image is, s and V replicated)."""
     Y = op.apply_matrix(G, "N")  # (m, l)
+    lay = comm.layout_of(Y)
+    whole = comm.gather_full
+    Yw = whole(Y)
     # subspace iteration with QR between passes (Halko-Martinsson-Tropp Alg 4.4)
     for _ in range(power_iters):
-        Q, _ = torch.linalg.qr(Y)
-        Qz, _ = torch.linalg.qr(op.apply_matrix(Q, "H"))
-        Y = op.apply_matrix(Qz, "N")
-    Q, _ = torch.linalg.qr(Y)  # (m, l) orthonormal range basis
-    B = op.apply_matrix(Q, "H")  # (n, l): Bᴴ = Qᴴ A
+        Q, _ = torch.linalg.qr(Yw)
+        Qz, _ = torch.linalg.qr(whole(op.apply_matrix(Q, "H")))
+        Yw = whole(op.apply_matrix(Qz, "N"))
+    Q, _ = torch.linalg.qr(Yw)  # (m, l) orthonormal range basis
+    B = whole(op.apply_matrix(Q, "H"))  # (n, l): Bᴴ = Qᴴ A
     Us, s, Vh = torch.linalg.svd(_H(B), full_matrices=False)
-    return pmatmul(Q, Us), s, _H(Vh)
+    U, V = pmatmul(Q, Us), _H(Vh)
+    if lay is None:
+        return U, s, V
+    return lay.place(U), lay.replicate(s), lay.replicate(V)
 
 
+@comm.dtensor_entry
 def rsvd(op, k: int, *, oversample: int = 10, power_iters: int = 2, generator=None):
     """Randomized top-k SVD (Halko, Martinsson & Tropp 2011): ``(U, s, V)``
     with ``op ≈ U diag(s) Vᴴ``, from 2·power_iters + 2 block applies of
@@ -406,7 +447,7 @@ def rsvd(op, k: int, *, oversample: int = 10, power_iters: int = 2, generator=No
     l = int(min(k + oversample, min(m, n)))
     dt = _probe_dtype(op)
     dev = _device(op, "rsvd")
-    g = generator if generator is not None else fresh_generator(dev)
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
     G = torch.randn((n, l), generator=g, device=dev, dtype=_real(dt)).to(dt)
     U, s, V = _rsvd(op, G, int(power_iters))
     return U[:, :k], s[:k], V[:, :k]
@@ -468,7 +509,7 @@ class NystromPreconditioner(LinearOperator):
 
 
 def _nystrom_sketch(op, Om):
-    Y = op.apply_matrix(Om, "N")  # (n, l)
+    Y = comm.gather_full(op.apply_matrix(Om, "N"))  # (n, l), whole on every rank
     # stability shift nu ~ sqrt(n) eps ‖Y‖ (FTU23 Alg 2.1)
     rdt = _real(Y.dtype)
     nu = Y.shape[0] ** 0.5 * torch.finfo(rdt).eps * torch.linalg.norm(Y)
@@ -487,11 +528,14 @@ def _nystrom_sketch(op, Om):
     return Us, torch.clamp(s * s - nu, min=0.0)
 
 
+@comm.dtensor_entry
 def nystrom_preconditioner(op, rank: int, *, mu: float = 0.0, oversample: int = 10,
                            generator=None):
     """A ``NystromPreconditioner`` of a hermitian PSD operator from one
     (n, rank + oversample) sketch apply, truncated to the sketch's
-    numerical rank. A non-PSD operator surfaces as NaNs."""
+    numerical rank. A non-PSD operator surfaces as NaNs. On a distributed
+    operator U and the eigenvalues come back replicated, as the
+    reference's."""
     op = aslinearoperator(op)
     m, n = op.shape
     if m != n:
@@ -507,7 +551,7 @@ def nystrom_preconditioner(op, rank: int, *, mu: float = 0.0, oversample: int = 
     l = int(min(rank + oversample, n))
     dt = _probe_dtype(op)
     dev = _device(op, "nystrom_preconditioner")
-    g = generator if generator is not None else fresh_generator(dev)
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
     Om = torch.randn((n, l), generator=g, device=dev, dtype=_real(dt)).to(dt)
     Us, lam = _nystrom_sketch(op, Om)
     eps = torch.finfo(lam.dtype).eps
@@ -517,4 +561,8 @@ def nystrom_preconditioner(op, rank: int, *, mu: float = 0.0, oversample: int = 
         raise LinearOperatorException("nystrom_preconditioner: the sketch found numerical "
                                       "rank 0 (operator is ~zero or not PSD)")
     rank = min(rank, r_eff)
-    return NystromPreconditioner(Us[:, :rank], lam[:rank], mu)
+    U, lam = Us[:, :rank], lam[:rank]
+    lay = comm.layout_of(op)
+    if lay is not None:
+        U, lam = lay.replicate(U), lay.replicate(lam)
+    return NystromPreconditioner(U, lam, mu)

@@ -16,6 +16,14 @@ The probe blocks come from ``generator`` (``utils/rng.py``); the helpers
 explicitly. ``f`` is a torch callable (``torch.log``, ``torch.exp``)
 applied to the Ritz values. Each Lanczos step is one operator apply and
 no host read.
+
+On a distributed operator a probe block is drawn whole from one seed on
+every rank and placed in the operator's layout (``parallel/comm.py``):
+each rank keeps its rows, every sum over rows is a local sum and one
+all-reduce, and no block is gathered (Hutch++'s sketch basis is a QR of
+the rows: the local QRs' R factors are reduced, one all-reduce, and
+factored again). ``estimate_diagonal`` returns its rows split; the scalar
+estimates are the same on every rank.
 """
 
 from __future__ import annotations
@@ -61,9 +69,30 @@ def _std(x, dim=None):
         x, correction=0)
 
 
+def _probes(op, G):
+    """(the rows of G, of op·G, and the row steps): G may be a DTensor in
+    the operator's layout (``comm.Rows``), or a plain block."""
+    R = comm.rows_of(G)
+    return R.local(G), R.local(op.apply_matrix(G, "N")), R
+
+
+def _orth(Y, R):
+    """An orthonormal basis of the columns of Y (this rank's rows): its
+    QR, or for rows split over ranks the local QRs' R factors stacked and
+    summed (one all-reduce) and factored again."""
+    if R.pieces == 1:
+        return torch.linalg.qr(Y)[0]
+    Q1, R1 = torch.linalg.qr(Y)
+    r, m = R1.shape
+    stack = torch.zeros((R.pieces * m, m), dtype=R1.dtype, device=R1.device)
+    stack[R.index * m: R.index * m + r] = R1
+    Q2, _ = torch.linalg.qr(R.psum(stack))
+    return pmatmul(Q1, Q2[R.index * m: R.index * m + r])
+
+
 def _hutchinson(op, G):
-    AG = op.apply_matrix(G, "N")
-    samples = torch.sum(G.conj() * AG, dim=0)
+    G, AG, R = _probes(op, G)
+    samples = R.psum(torch.sum(G.conj() * AG, dim=0))
     k = samples.shape[0]
     est = torch.mean(samples)
     se = _std(samples.real) / math.sqrt(k) if k > 1 else torch.zeros((), dtype=samples.real.dtype)
@@ -71,14 +100,15 @@ def _hutchinson(op, G):
 
 
 def _hutchpp(op, S, G):
-    AS = op.apply_matrix(S, "N")
-    Q, _ = torch.linalg.qr(AS)  # (n, m) orthonormal sketch basis
-    AQ = op.apply_matrix(Q, "N")
-    t_lowrank = torch.sum(Q.conj() * AQ)  # tr(Qᴴ A Q), exact
+    _, AS, R = _probes(op, S)
+    G = R.local(G)
+    Q = _orth(AS, R)  # (n, m) orthonormal sketch basis
+    AQ = R.local(op.apply_matrix(R.dtensor(Q), "N"))
+    t_lowrank = R.psum(torch.sum(Q.conj() * AQ))  # tr(Qᴴ A Q), exact
     # deflated probes g' = (I − Q Qᴴ) g estimate tr((I−P) A (I−P))
-    Gd = G - pmatmul(Q, pmatmul(Q.conj().T, G))
-    AGd = op.apply_matrix(Gd, "N")
-    samples = torch.sum(Gd.conj() * AGd, dim=0)
+    Gd = G - pmatmul(Q, R.psum(pmatmul(Q.conj().T, G)))
+    AGd = R.local(op.apply_matrix(R.dtensor(Gd), "N"))
+    samples = R.psum(torch.sum(Gd.conj() * AGd, dim=0))
     k = samples.shape[0]
     est = t_lowrank + torch.mean(samples)
     se = _std(samples.real) / math.sqrt(k) if k > 1 else torch.zeros((), dtype=samples.real.dtype)
@@ -92,6 +122,14 @@ def _square(op, what):
     return n
 
 
+def _drawn(op, block):
+    """A whole probe block, the same on every rank, in the operator's
+    layout (each rank keeps its rows); a plain call keeps it as it is."""
+    lay = comm.layout_of(op)
+    return block if lay is None else lay.place(block)
+
+
+@comm.dtensor_entry
 def estimate_trace(op, *, probes: int = 36, generator=None, method: str = "hutchpp"):
     """Estimate ``tr(op)`` with ``probes`` operator-block columns in all.
     Returns ``(estimate, stderr)``: the standard error of the stochastic part
@@ -104,9 +142,9 @@ def estimate_trace(op, *, probes: int = 36, generator=None, method: str = "hutch
         raise ValueError("probes must be >= 1")
     dt = _probe_dtype(op)
     dev = _device(op, "estimate_trace")
-    g = generator if generator is not None else fresh_generator(dev)
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
     if method == "hutchinson":
-        est, se = _hutchinson(op, _rademacher(g, (n, probes), dt, dev))
+        est, se = _hutchinson(op, _drawn(op, _rademacher(g, (n, probes), dt, dev)))
     elif method == "hutchpp":
         if probes < 3:
             raise ValueError("hutchpp needs probes >= 3 (sketch + sketch-apply + residual); "
@@ -115,7 +153,7 @@ def estimate_trace(op, *, probes: int = 36, generator=None, method: str = "hutch
         m_g = probes - 2 * m_s
         S = _rademacher(g, (n, m_s), dt, dev)
         G = _rademacher(g, (n, m_g), dt, dev)
-        est, se = _hutchpp(op, S, G)
+        est, se = _hutchpp(op, _drawn(op, S), _drawn(op, G))
     else:
         raise ValueError(f"unknown method {method!r} (hutchpp | hutchinson)")
     if op.dtype.is_complex:
@@ -124,7 +162,7 @@ def estimate_trace(op, *, probes: int = 36, generator=None, method: str = "hutch
 
 
 def _diag_probes(op, G):
-    AG = op.apply_matrix(G, "N")
+    G, AG, R = _probes(op, G)
     samples = G.conj() * AG  # (n, k) per-probe diagonal draws
     k = samples.shape[1]
     est = torch.mean(samples, dim=1)
@@ -132,19 +170,21 @@ def _diag_probes(op, G):
         se = _std(samples.real, dim=1) / math.sqrt(k)
     else:
         se = torch.zeros(est.shape, dtype=samples.real.dtype, device=est.device)
-    return est, se
+    return R.dtensor(est), R.dtensor(se)
 
 
+@comm.dtensor_entry
 def estimate_diagonal(op, *, probes: int = 64, generator=None):
-    """Estimate ``diag(op)``. Returns ``(diag, stderr)`` tensors of length n."""
+    """Estimate ``diag(op)``. Returns ``(diag, stderr)`` tensors of length n
+    (on a distributed operator, DTensors in its layout)."""
     op = aslinearoperator(op)
     n = _square(op, "diagonal estimation")
     if probes < 1:
         raise ValueError("probes must be >= 1")
     dt = _probe_dtype(op)
     dev = _device(op, "estimate_diagonal")
-    g = generator if generator is not None else fresh_generator(dev)
-    return _diag_probes(op, _rademacher(g, (n, probes), dt, dev))
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
+    return _diag_probes(op, _drawn(op, _rademacher(g, (n, probes), dt, dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +268,7 @@ def _hermitian_square(op, what):
     return op, n
 
 
+@comm.dtensor_entry
 def estimate_spectral_sum(op, f, *, probes: int = 16, lanczos_steps: int = 30,
                           generator=None, reorth: bool = None):
     """Estimate ``tr(f(op))`` of a hermitian operator by stochastic Lanczos
@@ -241,13 +282,13 @@ def estimate_spectral_sum(op, f, *, probes: int = 16, lanczos_steps: int = 30,
     m = int(min(lanczos_steps, n))
     dt = _probe_dtype(op)
     dev = _device(op, "estimate_spectral_sum")
-    g = generator if generator is not None else fresh_generator(dev)
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
     if reorth is None:
         itemsize = torch.empty((), dtype=dt).element_size()
         reorth = probes * m * n * itemsize <= 256 * 1024 * 1024
     G = _rademacher(g, (n, probes), dt, dev)
     V0 = G / torch.linalg.vector_norm(G, dim=0, keepdim=True)
-    samples = n * _slq(op, V0, m, bool(reorth), f)
+    samples = n * _slq(op, _drawn(op, V0), m, bool(reorth), f)
     est = torch.mean(samples)
     se = _std(samples) / math.sqrt(probes) if probes > 1 else torch.zeros_like(est)
     return float(est), float(se)

@@ -27,7 +27,9 @@ one host read per restart, and nested in another solve (an
 Every solver is a public entry of ``parallel/comm.py``'s rule
 (``dtensor_entry``): given a DTensor vector it runs with plain operators,
 preconditioners and scalars counted as replicated, and returns x in b's
-placement. GMRES then keeps this rank's rows of its Arnoldi basis
+placement; a plain b given with a distributed operator is placed in the
+operator's layout first, so x comes back there (the reference's
+``P('shard')`` for a row-partitioned operator). GMRES then keeps this rank's rows of its Arnoldi basis
 (``comm.Rows``): each step's projections are one local product and one
 all-reduce of the (m + 1)-vector, its norm one more, and the basis is never
 gathered.
@@ -475,7 +477,7 @@ def power_iteration(op: LinearOperator, v0, iters: int = 50):
         return w / torch.linalg.vector_norm(w), pvdot(v, w)
 
     v, lam = loop.device_fori(body, (v, lam), iters, ops=(op,), key=("power_iteration",))
-    return lam, v
+    return comm.rows_of(v).replicated(lam), v  # on DTensors: λ replicated, as the reference's
 
 
 @comm.dtensor_entry

@@ -317,8 +317,14 @@ def _walk_ops(ops):
     return sig._replace(key=sig.key[1:])
 
 
-def _distributed(tensors) -> bool:
-    return any(_is_dtensor(t) for t in tensors)
+def _distributed(tensors, ops) -> bool:
+    """A solve over DTensor state, or over a distributed operator (a loop
+    that keeps this rank's rows as plain state: ``parallel/comm.py::Rows``)."""
+    if any(_is_dtensor(t) for t in tensors):
+        return True
+    from ..parallel.comm import mesh_of
+
+    return mesh_of(tuple(ops)) is not None
 
 
 def _path(tensors, ops) -> tuple:
@@ -334,7 +340,7 @@ def _path(tensors, ops) -> tuple:
         sig = _walk_ops(ops)
         if torch.is_grad_enabled() and any(t.requires_grad for t in sig.tensors):
             return "per_iteration", None, False
-        dist = _distributed(list(sig.tensors) + list(tensors))
+        dist = _distributed(list(sig.tensors) + list(tensors), ops)
     return ("graph" if graph else "blocks"), sig, dist
 
 
@@ -786,18 +792,21 @@ def _free_bytes(device) -> int:
     return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
-def _free_fits(need: int, dist: bool, device, tensors) -> bool:
+def _free_fits(need: int, dist: bool, device, tensors, ops=()) -> bool:
     """Whether ``need`` bytes (this rank's) take at most ``FREE_SHARE`` of
     the free device memory; a distributed solve takes the answer of the
     rank with the least room (one all-reduce over the mesh of ``tensors``'
-    DTensors; a mesh of one rank has nothing to agree on), so every rank
-    decides alike."""
+    DTensors, else of the distributed ``ops``; a mesh of one rank has
+    nothing to agree on), so every rank decides alike."""
     fits = need <= FREE_SHARE * _free_bytes(device)
     if not dist:
         return fits
     import torch.distributed as tdist
 
-    mesh = next(t.device_mesh for t in tensors if _is_dtensor(t))
+    from ..parallel.comm import mesh_of
+
+    mesh = next((t.device_mesh for t in tensors if _is_dtensor(t)), None) or \
+        mesh_of(tuple(ops))
     if mesh.size() == 1:
         return fits
     flag = torch.tensor(int(fits), device=device)
@@ -806,7 +815,7 @@ def _free_fits(need: int, dist: bool, device, tensors) -> bool:
     return bool(flag.item())
 
 
-def _mirror_set(sig, index, dist: bool, device, tensors, check: bool = True):
+def _mirror_set(sig, index, dist: bool, device, tensors, check: bool = True, ops=()):
     """The mirrors a new block over ``sig`` reads for the tensors ``index``:
     the set that the solve's cache's blocks of the same operators' key hold
     (the same on every rank for a distributed solve), or a new one (None for
@@ -828,7 +837,7 @@ def _mirror_set(sig, index, dist: bool, device, tensors, check: bool = True):
             return None
         local = sum(_local(sig.tensors[i]).numel() * sig.tensors[i].element_size()
                     for i in index)
-        if not _free_fits(local, dist, device, list(sig.tensors) + list(tensors)):
+        if not _free_fits(local, dist, device, list(sig.tensors) + list(tensors), ops):
             return None
     return _Mirrors(sig, device, index)
 
@@ -843,7 +852,7 @@ def _capture(ckey, fn, args, ops, what: str, sig, dist: bool):
     dev = args[0].device
     m = None
     if ckey[0] != "bound":
-        m = _mirror_set(sig, sig.mirrored, dist, dev, args)
+        m = _mirror_set(sig, sig.mirrored, dist, dev, args, ops=ops)
         if m is None and sig.mirrored:
             _store(ckey, _Unmirrored(), dist)
             ckey = _bound_key(ckey, sig)
@@ -859,7 +868,7 @@ def _remember(kind, key, ops, tensors, block: int | None = None) -> None:
     """Note a signature whose eager run built its plans (its key is taken
     now, with them): on the card its next run captures."""
     sig = _walk_ops(ops)
-    dist = _distributed(list(sig.tensors) + list(tensors))
+    dist = _distributed(list(sig.tensors) + list(tensors), ops)
     ckey, seen, _ = _find(kind, key, sig, tensors, dist, block)
     if not seen:
         _store(ckey, _Seen(sig.tensors if dist and ckey[0] == "bound" else ()), dist)

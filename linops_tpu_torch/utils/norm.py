@@ -11,6 +11,10 @@ Counterpart of ``linops_tpu/utils/norm.py``:
   reorthogonalization on hermitian operators, Lanczos on the Gram operator
   otherwise, retries that double the Krylov dimension, then one LOBPCG
   solve, and ``(nan, False)`` when all of that fails.
+
+On a distributed operator the start vectors are drawn whole from one seed
+on every rank and placed in the operator's layout (``parallel/comm.py``);
+the estimates are the same on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from ..core.base import LinearOperatorException
 from ..core.dense import aslinearoperator
+from ..parallel import comm
 from . import loop
 from .estimate import _device, _lanczos_tridiag, _probe_dtype, _real, _tridiag
 from .rng import fresh_generator
@@ -58,9 +63,18 @@ def _normest_loop(op, v0, reseed_noise, tol: float, maxiter: int):
     (_, e, _), cnt = loop.device_while(cond, body, (x, e0, torch.zeros_like(e0)), maxiter + 1,
                                        consts=(tol_t, reseed_noise), ops=(op,),
                                        key=("normest",))
-    return float(e), cnt
+    return float(comm.gather_full(e)), cnt
 
 
+def _placed(op, v, domain: bool = False):
+    """A whole start vector, the same on every rank, in the operator's
+    layout (its range's, or with ``domain`` its domain's); a plain call
+    keeps it as it is."""
+    lay = comm.layout_of(op, domain=domain)
+    return v if lay is None else lay.place(v)
+
+
+@comm.dtensor_entry
 def normest(op, tol: float = -1, maxiter: int = 100, generator=None):
     """Estimate the 2-norm of ``op`` by power iteration on SᴴS from a
     sign-randomized all-ones start. Returns ``(estimate, iterations)``; warns
@@ -71,12 +85,12 @@ def normest(op, tol: float = -1, maxiter: int = 100, generator=None):
     if tol == -1:
         tol = _real_eps(dt)
     dev = _device(op, "normest")
-    g = generator if generator is not None else fresh_generator(dev)
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
     rdt = _real(dt)
     signs = torch.where(torch.randn(m, generator=g, device=dev, dtype=rdt) < 0, -1.0, 1.0)
     v0 = signs.to(dt)
     noise = torch.randn(m, generator=g, device=dev, dtype=rdt).to(dt)
-    e, cnt = _normest_loop(op, v0, noise, tol, maxiter)
+    e, cnt = _normest_loop(op, _placed(op, v0), _placed(op, noise), tol, maxiter)
     if cnt > maxiter:
         warnings.warn(f"normest did not converge (maxiter={maxiter}, tol={tol})")
     return e, cnt
@@ -97,6 +111,7 @@ def _lanczos_extreme(op, v0, ncv: int, gram: bool):
     return evals[idx], torch.abs(betas[-1] * evecs[-1, idx])
 
 
+@comm.dtensor_entry
 def estimate_opnorm(op, max_attempts: int = 3, tiny_dense_threshold: int = 5, ncv: int = 20,
                     generator=None, rtol: float = None, lobpcg_fallback: bool = True):
     """Estimate the operator 2-norm; returns ``(norm, success)``. Tiny:
@@ -114,7 +129,7 @@ def estimate_opnorm(op, max_attempts: int = 3, tiny_dense_threshold: int = 5, nc
             return float(torch.max(torch.abs(torch.linalg.eigvalsh(A)))), True
         return float(torch.max(torch.linalg.svdvals(A))), True
     dev = _device(op, "estimate_opnorm")
-    g = generator if generator is not None else fresh_generator(dev)
+    g = generator if generator is not None else fresh_generator(dev, like=(op,))
     rdt = _real(dt)
     hermitian = op.hermitian and m == n
     gram = not hermitian
@@ -122,7 +137,7 @@ def estimate_opnorm(op, max_attempts: int = 3, tiny_dense_threshold: int = 5, nc
     for attempt in range(max_attempts):
         k = min(dim, ncv * (2 ** attempt))
         v0 = torch.randn(dim, generator=g, device=dev, dtype=rdt).to(dt)
-        theta, resid = _lanczos_extreme(op, v0, int(k), gram)
+        theta, resid = _lanczos_extreme(op, _placed(op, v0, domain=gram), int(k), gram)
         theta_f, resid_f = float(theta), float(resid)
         est = abs(theta_f) if hermitian else max(theta_f, 0.0) ** 0.5
         if resid_f <= rtol * max(abs(theta_f), 1e-30) or k >= dim:

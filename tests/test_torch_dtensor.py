@@ -301,8 +301,8 @@ def plain_operators_given_dtensor(mesh):
         out[name] = dict(_out(x), k=k, un=x_un.numpy(), k_un=k_un)
     P_sh = nystrom_preconditioner(S_sh, 8, generator=torch.Generator().manual_seed(0))
     P_un = nystrom_preconditioner(S_op, 8, generator=torch.Generator().manual_seed(0))
-    out["nystrom"] = dict(_out(P_sh * bd), un=(P_un * bt).numpy(), U=P_sh.U.numpy(),
-                          lam=P_sh.lam.numpy())
+    out["nystrom"] = dict(_out(P_sh * bd), un=(P_un * bt).numpy(), U=_full(P_sh.U),
+                          lam=_full(P_sh.lam))
     x, k, _ = lt.cg(S_sh, bd, tol=1e-12, maxiter=200, M=P_sh)
     x_un, k_un, _ = lt.cg(S_op, bt, tol=1e-12, maxiter=200, M=P_un)
     out["nystrom_cg"] = dict(_out(x), k=k, un=x_un.numpy(), k_un=k_un, U=out["nystrom"]["U"],
@@ -314,7 +314,8 @@ def plain_operators_given_dtensor(mesh):
 @case
 def solve_keys_on_dtensor_vectors(mesh):
     """The loop cache's keys: GMRES over one sharded operator on a plain and
-    on a DTensor b (two keys: a block never serves both), and a sharded CG
+    on a DTensor b (one key: a plain b given to a distributed operator is
+    placed in its layout, so both are the same DTensor solve), and a sharded CG
     preconditioned by a sharded inverse L-BFGS across pushes of DTensor
     pairs (one key: the state is keyed by layout and placement, which the
     pushes keep), with x against the same pushes unsharded."""
@@ -650,12 +651,13 @@ def test_plain_operators_given_dtensor(world, ref, name):
 
 
 def test_solve_keys_on_dtensor_vectors(world):
-    """A plain-vector and a DTensor GMRES over one sharded operator take two
-    cache keys (the state's placement is in the key) and agree; pushes of
+    """A plain-vector and a DTensor GMRES over one sharded operator take one
+    cache key (the plain b is placed in the operator's layout, so both carry
+    the same DTensor state) and agree; pushes of
     DTensor pairs keep a preconditioned CG's key (the loop cache does not
     grow), and each solve after a push is the unsharded model's."""
     r = result(world, "solve_keys_on_dtensor_vectors")
-    assert r["gmres_keys"] == 2
+    assert r["gmres_keys"] == 1
     close(r["gmres"][1], r["gmres"][0])
     assert r["same_key"] and len(set(r["sizes"])) == 1, r["sizes"]
     for got, want in r["xs"]:

@@ -1931,24 +1931,27 @@ def test_sharded_cg_in_captured_blocks_at_world_size_one(dev, loop_mod):
 
 
 def test_sharded_gmres_in_captured_blocks_at_world_size_one(dev, loop_mod):
-    """GMRES(8) over ``shard_operator`` at world size 1 (NCCL; plain
-    vectors, as GMRES takes them) runs in captured blocks of one restart:
-    its count and x bit for bit the per-iteration loop's and the unsharded
-    solve's, one read per restart on a cached solve, E2 in the block."""
+    """GMRES(8) over ``shard_operator`` at world size 1 (NCCL; a plain b,
+    placed in the operator's layout, so x comes back split by rows) runs in
+    captured blocks of one restart: its count and x bit for bit the
+    per-iteration loop's and the unsharded solve's, one read per restart on
+    a cached solve, E2 in the block."""
     from linops_tpu_torch.parallel import shard_operator
+    from linops_tpu_torch.parallel.comm import gather_full, is_dtensor
 
     mesh = _world_of_one()
     A, _, b = slice1_graph(dev)
     A_sh = shard_operator(A, mesh)
     runs = solve_modes(loop_mod, lambda: lt.gmres(A_sh, b, tol=1e-5, restart=8, maxiter=30))
     x0, k0, _ = runs["per_iteration"]
+    assert is_dtensor(x0) and any(p.is_shard() for p in x0.placements)
     for name, (x, k, _) in runs.items():
-        assert k == k0 and torch.equal(x, x0), name
+        assert k == k0 and torch.equal(gather_full(x), gather_full(x0)), name
     st = runs["cached"][2]
     assert st["path"] == "graph" and st["captures"] == 0 and st["reads"] == k0
     assert loop_mod.last_graph().launches.get("small_lstsq", 0) == 1
     x_un, k_un, _ = lt.gmres(A, b, tol=1e-5, restart=8, maxiter=30)
-    assert k_un == k0 and torch.equal(x_un, x0)
+    assert k_un == k0 and torch.equal(x_un, gather_full(x0))
 
 
 def test_gmres_on_dtensor_vectors_in_captured_blocks_at_world_size_one(dev, loop_mod):
@@ -1956,8 +1959,8 @@ def test_gmres_on_dtensor_vectors_in_captured_blocks_at_world_size_one(dev, loop
     vectors, its basis kept as this rank's rows: x in b's placement, its
     count and x bit for bit the per-iteration loop's, the plain-vector
     solve's and the unsharded solve's; one read per restart on a cached
-    solve; E2 in the block; the plain-vector and the DTensor solve have a
-    captured block each (never one between them); a replay under
+    solve; E2 in the block; the plain-vector solve (its b placed in the
+    operator's layout) replays the DTensor solve's block; a replay under
     sync-debug "error" raises nothing."""
     from linops_tpu_torch.parallel import row_sharding, shard_operator
     from linops_tpu_torch.parallel.comm import gather_full, is_dtensor
@@ -1975,11 +1978,11 @@ def test_gmres_on_dtensor_vectors_in_captured_blocks_at_world_size_one(dev, loop
     g = loop_mod.last_graph()
     assert g.launches.get("small_lstsq", 0) == 1
     blocks = len(loop_mod._DIST_CACHE)
-    for _ in range(3):  # the plain-vector signature's first, capturing and cached solves
-        x_p, k_p, _ = lt.gmres(A_sh, b, tol=1e-5, restart=8, maxiter=30)
-    assert len(loop_mod._DIST_CACHE) == blocks + 1 and loop_mod.last_graph() is not g
+    x_p, k_p, _ = lt.gmres(A_sh, b, tol=1e-5, restart=8, maxiter=30)  # plain b: the same key
+    assert len(loop_mod._DIST_CACHE) == blocks and loop_mod.last_graph() is g
+    assert loop_mod.stats["captures"] == 0 and loop_mod.stats["replays"] > 0
     x_un, k_un, _ = lt.gmres(A, b, tol=1e-5, restart=8, maxiter=30)
-    assert k_p == k_un == k0 and torch.equal(x_p, gather_full(x0))
+    assert k_p == k_un == k0 and torch.equal(gather_full(x_p), gather_full(x0))
     assert torch.equal(x_un, gather_full(x0))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1988,6 +1991,43 @@ def test_gmres_on_dtensor_vectors_in_captured_blocks_at_world_size_one(dev, loop
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_sharded_lobpcg_in_captured_blocks_at_world_size_one(dev, loop_mod):
+    """LOBPCG (k = 2, largest, tol 0, 12 iterations) over ``shard_operator``
+    of the 2-D Laplacian at world size 1 (NCCL), its blocks this rank's
+    rows: θ replicated and X split by rows, θ and X bit for bit the
+    per-iteration loop's and the unsharded solve's in every mode, a cached
+    solve replaying with the unsharded cached solve's reads, E1 in its
+    block."""
+    from linops_tpu_torch.parallel import shard_operator
+    from linops_tpu_torch.parallel.comm import gather_full, is_dtensor
+
+    mesh = _world_of_one()
+    S = lt.laplacian_2d(256, 256, device=dev)
+    S_sh = shard_operator(S, mesh)
+    gen = torch.Generator(device=dev)
+
+    def lob(op):
+        gen.manual_seed(21)
+        th, X, res, it = lt.lobpcg(op, k=2, largest=True, tol=0.0, maxiter=12, generator=gen)
+        return (th, X), it, res
+
+    runs = solve_modes(loop_mod, lambda: lob(S_sh))
+    (th0, X0), k0, _ = runs["per_iteration"]
+    assert is_dtensor(X0) and any(p.is_shard() for p in X0.placements)
+    assert is_dtensor(th0) and all(p.is_replicate() for p in th0.placements)
+    for name, ((th, X), k, _) in runs.items():
+        assert k == k0 == 12, name
+        assert torch.equal(gather_full(th), gather_full(th0)), name
+        assert torch.equal(gather_full(X), gather_full(X0)), name
+    st = runs["cached"][2]
+    assert st["path"] == "graph" and st["captures"] == 0
+    assert loop_mod.last_graph().launches.get("small_eigh", 0) > 0
+    un = solve_modes(loop_mod, lambda: lob(S))
+    (th_un, X_un), k_un, st_un = un["cached"]
+    assert k_un == k0 and st["reads"] == st_un["reads"]
+    assert torch.equal(th_un, gather_full(th0)) and torch.equal(X_un, gather_full(X0))
 
 
 def test_dtensor_push_then_captured_solve_at_world_size_one(dev, loop_mod):

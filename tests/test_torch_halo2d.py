@@ -80,7 +80,7 @@ def transpose_modes(mesh2):
     v = np.random.default_rng(3).standard_normal(ny * nx)
     vs = place2(mesh2, t_(v))
     order = op.grid_to_vec(torch.arange(ny * nx, dtype=torch.float64).reshape(ny, nx))
-    return dict(symmetric=op.symmetric, D=lt.to_dense(op).numpy(), v=v, yt=full(op.T @ vs),
+    return dict(symmetric=op.symmetric, D=full(lt.to_dense(op)), v=v, yt=full(op.T @ vs),
                 yh=full(op.H @ vs), ytt=full(op.T.T @ vs), order=order.numpy().astype(int))
 
 
