@@ -3622,6 +3622,7 @@ def phase12(lt, K, LG, dev, card):
 # ----------------------------------------------------------------------------
 
 HALO_N, HALO_BAND = 16384, 3  # 13e: the banded matrix
+HALO_PANEL = 6  # 13e: the columns of its block apply (LOBPCG's 3k at k = 2)
 
 
 def phase13(lt, K, LG, dev, card, ops):
@@ -3635,17 +3636,19 @@ def phase13(lt, K, LG, dev, card, ops):
     and band + cluster operators sharded: K3-K6, bit for bit, and in captured
     matvec chains; (d) auto_8m replicated: N and T through K7-K12, bit for
     bit; (e) ``banded_partition`` of a band-3 matrix at n = 16384 (a 1 GiB
-    dense slab) and CG on it in captured blocks; (f) ``stencil_partition_2d``
+    dense slab) and CG on it in captured blocks, and a 6-column panel apply,
+    N and T, against its column loop (within 1e-6), both timed; (f) ``stencil_partition_2d``
     of the 5-point Laplacian on 2048² against the stencil operator, and
     Chebyshev with no all-reduce, captured; (g) ``scaling_report(1)``, the
     card's copy rate and the projection from it. Every solve runs both ways
     through ``loop_modes``. Returns the launches of (b)-(d)."""
     import scipy.sparse as sps
 
-    from linops_tpu_torch.parallel import (NamedSharding, P, banded_partition,
-                                           collective_counts, initialize_distributed,
-                                           make_mesh, make_mesh2d, row_sharding, runtime_info,
-                                           scaling_report, shard_operator, stencil_partition_2d)
+    from linops_tpu_torch.parallel import (HaloPartitionedOperator, NamedSharding, P,
+                                           banded_partition, collective_counts,
+                                           initialize_distributed, make_mesh, make_mesh2d,
+                                           row_sharding, runtime_info, scaling_report,
+                                           shard_operator, stencil_partition_2d)
     from linops_tpu_torch.parallel.comm import gather_full
     from linops_tpu_torch.parallel.dryrun import dryrun_multichip
     from linops_tpu_torch.parallel.scaling_bench import ici_projection
@@ -3841,12 +3844,33 @@ def phase13(lt, K, LG, dev, card, ops):
     check(res_h <= 1e-4 and np.isfinite(xh).all(), f"13e: f64 residual {res_h:.3e}")
     us_h = cg_iter_us(hop, bh_sh, None)
     c_h = collective_counts(lambda: hop @ bh_sh)
+    # a 6-column panel through the same slabs, declared non-symmetric so that T
+    # takes the transpose program: one apply against its column loop
+    hop_ns = HaloPartitionedOperator(hop.A_int.to_local(), hop.A_left.to_local(),
+                                     hop.A_right.to_local(), mesh)
+    Ph = place(dev_vec(n, dev, SEED + 155, k=HALO_PANEL))
+    panel_h = {}
+    for mode in ("N", "T"):
+        def cols(mode=mode):
+            return torch.stack([hop_ns.apply(Ph[:, j], mode) for j in range(HALO_PANEL)], dim=1)
+
+        err = rel_err(gather_full(hop_ns.apply_matrix(Ph, mode)), gather_full(cols()))
+        c_p = collective_counts(lambda: hop_ns.apply_matrix(Ph, mode))
+        panel_h[mode] = (err, marginal_ms(lambda: hop_ns.apply_matrix(Ph, mode)),
+                         marginal_ms(cols), c_p)
+        check(err <= 1e-6, f"13e: the {HALO_PANEL}-column panel apply in mode {mode} differs "
+                           f"from its column loop by {err:.2e} (limit 1e-6)")
     print(f"[13e banded_partition] band-{HALO_BAND} SPD, n = {n}, halo {hop.halo}: a "
           f"{n}x{n} f32 interior slab ({n * n * 4 / 2**30:.2f} GiB, built in {t_part:.2f} s); "
           f"cg to 1e-5: {kh} iterations in captured blocks, x bit for bit the per-iteration "
           f"loop's, f64 residual {res_h:.2e} (limit 1e-4), {us_h:.1f} us per iteration (marginal, "
           f"captured blocks); collectives per apply {c_h}; {card}", flush=True)
-    del hop, S, xh, bh_sh
+    print(f"[13e banded panel] a {HALO_PANEL}-column panel through the same slabs (declared "
+          f"non-symmetric): " + "; ".join(
+              f"{m_}: against its column loop {e_:.2e} (limit 1e-6), {t_ * 1e3:.1f} us per block "
+              f"apply, column loop {tl_ * 1e3:.1f} us (marginal CUDA events), collectives {c_}"
+              for m_, (e_, t_, tl_, c_) in panel_h.items()) + f"; {card}", flush=True)
+    del hop, hop_ns, Ph, S, xh, bh_sh
 
     # --- 13f. stencil_partition_2d --------------------------------------------------------
     free()
@@ -4181,7 +4205,16 @@ LOB32_K, LOB32_ITERS = 32, 8  # phase 15e: the wide block, iterations per solve
 SOLVER_KERNELS = re.compile(r"syev|sytrd|stedc|ormtr|orgtr|potrf|geqrf|cusolver", re.I)
 
 
-LOB13I_K32_ITERS = 5  # 13i a: iterations of the k = 32 solve (E1's cluster kernel at m = 96)
+CAT_KERNEL = "CatArrayBatchedCopy"  # torch.cat's kernel: a stacked column loop shows as it
+CUBLAS_KERNELS = re.compile(r"gemm|cutlass|splitKreduce|xmma", re.I)  # cuBLAS's own kernels
+
+
+def block_nodes(names) -> dict:
+    """A captured block's kernel nodes: all, cuBLAS's, the rest (the
+    program's own), and torch.cat's among them."""
+    lib = sum(bool(CUBLAS_KERNELS.search(n_)) for n_ in names)
+    return {"all": len(names), "cuBLAS": lib, "own": len(names) - lib,
+            "cat": sum(CAT_KERNEL in n_ for n_ in names)}
 
 
 def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
@@ -4196,9 +4229,12 @@ def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
     stencil's local apply), θ within its residual of the closed-form
     eigenvalues, reads per cached solve 15b's, the collectives of one
     iteration (at most two all-reduces per mesh dimension), E1 and
-    no cuSOLVER kernel in the block; then k = 32 for LOB13I_K32_ITERS
+    no cuSOLVER kernel in the block; then k = 32 for 15e's LOB32_ITERS
     iterations (E1's cluster kernel, m = 96); wall and device µs per
-    iteration and the busy share beside 15b's and 15e's unsharded numbers.
+    iteration and the busy share beside 15b's and 15e's unsharded numbers;
+    the cached block's kernel nodes other than cuBLAS's no more at k = 32
+    than at k = 2 (the stencil applies a panel as one program, its exchange
+    batched), and its ``torch.cat`` nodes.
     (b) svds, normest, check_ctranspose and check_hermitian of phase 4's B
     through ``shard_operator`` (K1, K2). (c) rsvd of auto_8m through
     ``shard_operator`` (its replicated program: K7, K9-K11, K12). (d) the
@@ -4263,6 +4299,7 @@ def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
     def inspect(gr):
         names = graph_kernel_names(gr)
         seen["solver"] = sorted({n_ for n_ in names if SOLVER_KERNELS.search(n_)})
+        seen["nodes"] = block_nodes(names)
 
     r_a = loop_modes(loop, f"13i a lobpcg(k=2, largest, gram, tol 0, {LOB_ITERS} iterations) on "
                      f"stencil_partition_2d ({g}², a 1x1 mesh), f32", solve, phase="13i",
@@ -4292,13 +4329,23 @@ def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
     # k = 32: E1's cluster kernel at m = 96
     E1.reset_launch_counts()
     for _ in range(2):  # the signature's first solve, then its capture
-        th32, _, _, it32 = lob(L2, k=LOB32_K, iters=LOB13I_K32_ITERS)
-    (th32, it32), s32 = median_solve(lambda: lob(L2, k=LOB32_K, iters=LOB13I_K32_ITERS)[::3])
+        th32, _, _, it32 = lob(L2, k=LOB32_K, iters=LOB32_ITERS)
+    (th32, it32), s32 = median_solve(lambda: lob(L2, k=LOB32_K, iters=LOB32_ITERS)[::3])
     l32 = E1.launch_counts()
-    check(loop.stats["replays"] > 0 and loop.stats["captures"] == 0 and it32 == LOB13I_K32_ITERS
+    check(loop.stats["replays"] > 0 and loop.stats["captures"] == 0 and it32 == LOB32_ITERS
           and l32["small_eigh_cluster"] > 0 and kind(th32) == "replicated",
           f"13i a k = {LOB32_K}: {it32} iterations, {loop.stats}, E1 launches {l32}")
+    nodes2, nodes32 = seen["nodes"], block_nodes(graph_kernel_names(loop.last_graph()))
+    # a block apply is one program whatever k: the block's kernels do not grow with it
+    # (cuBLAS picks other kernels, split-K reductions among them, for the wider Grams)
+    check(nodes32["own"] <= nodes2["own"],
+          f"13i a: the cached block holds {nodes32} kernel nodes at k = {LOB32_K} and {nodes2} "
+          f"at k = 2 (blocks of {loop.BLOCK} iterations)")
+    d32, top32 = device_profile(lambda: lob(L2, k=LOB32_K, iters=LOB32_ITERS), top=4)
     us32 = s32 * 1e6 / it32
+    dev32 = "not measured" if d32 is None else f"{d32 * 1e3 / it32:.1f} (top: " + ", ".join(
+        f"{n_} {ms * 1e3 / it32:.1f}" for n_, ms in top32) + ")"
+    busy32 = "not measured" if d32 is None else f"{d32 / (s32 * 1e3):.2f}"
     rec15e = rec15["15e"]
     print(f"[13i a distributed lobpcg] lobpcg(k=2, largest, gram, tol 0) on "
           f"stencil_partition_2d ({g}², n = {n}, a 1x1 mesh), world size 1: θ replicated, X split "
@@ -4313,8 +4360,11 @@ def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
           f"captured, device {r_a['device_us_per_iter']}, busy {r_a['busy']}; 15b unsharded "
           f"(laplacian_2d) in this call: wall {rec15b['wall_us_per_iter']}, device "
           f"{rec15b['device_us_per_iter']}, busy {rec15b['busy']}; k = {LOB32_K}, "
-          f"{it32} iterations: {us32:.1f} us per iteration in cached blocks (15e unsharded "
-          f"{rec15e['e1_us']:.1f}), E1 launches {l32}; {card}", flush=True)
+          f"{it32} iterations: {us32:.1f} us per iteration in cached blocks, device {dev32}, "
+          f"busy {busy32} (15e unsharded {rec15e['e1_us']:.1f}), E1 launches {l32}; kernel "
+          f"nodes per iteration in the cached block at k = 2 and {LOB32_K}: "
+          + ", ".join(f"{w_} {nodes2[w_] / loop.BLOCK:.2f} and {nodes32[w_] / loop.BLOCK:.2f}"
+                      for w_ in nodes2) + f"; {card}", flush=True)
     del L2, twin, X, X_t, th32
 
     # --- 13i b. svds, normest and the checks of phase 4's B through shard_operator ---------

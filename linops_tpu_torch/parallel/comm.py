@@ -464,13 +464,14 @@ def all_reduce(partial, mesh):
 
 def exchange(sends, recvs, rounds: int):
     """Post one batch of point-to-point transfers: ``sends`` and ``recvs`` are
-    lists of (tensor, global peer rank). Counts ``rounds`` collective-permutes
+    lists of (tensor, global peer rank); a send may be a strided or lazily
+    conjugated view. Counts ``rounds`` collective-permutes
     (one per direction of the exchange, as the reference's ppermutes count,
     whether or not this rank sits at a chain end). Returns the requests:
     ``wait()`` each before reading a received tensor."""
     for counts in _COUNTERS:
         counts["collective-permute"] += rounds
-    ops = [dist.P2POp(dist.isend, t.contiguous(), peer) for t, peer in sends]
+    ops = [dist.P2POp(dist.isend, t.resolve_conj().contiguous(), peer) for t, peer in sends]
     ops += [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs]
     if not ops:
         return []

@@ -12,8 +12,11 @@ own x segment plus ``halo`` entries from each neighbour. One apply:
   3. waits, then adds the halo terms.
 
 Two ``collective-permute`` rounds per apply and no all-gather (counted by
-``comm``). Unstructured matrices with general coupling take
-``shard_operator`` instead.
+``comm``). A block apply (``apply_matrix`` of an (n, k) column panel,
+``apply_matrix_t`` of a (k, n) row panel) is one such exchange of (h, k)
+(or (k, h)) strips, as the reference's vmapped apply batches its
+``ppermute``s: 2 rounds for any k. Unstructured matrices with general
+coupling take ``shard_operator`` instead.
 """
 
 from __future__ import annotations
@@ -41,19 +44,48 @@ def _mesh_ranks(mesh):
     return [int(r) for r in mesh.mesh.reshape(-1).tolist()]
 
 
-def _segment(v, mesh, n: int, m: int):
-    """This rank's length-m segment of a length-n vector: the local piece of
-    a DTensor (redistributed to a row split when it is not one), a slice of
-    a plain tensor (which counts as replicated)."""
+def _segment(v, mesh, n: int, m: int, dim: int = 0):
+    """This rank's length-m piece along ``dim`` of a vector or a panel whose
+    ``dim`` has length n: the local piece of a DTensor (redistributed once to
+    a split along ``dim`` when it is not one), a slice of a plain tensor
+    (which counts as replicated)."""
+    if v.ndim not in (1, 2) or dim >= v.ndim or v.shape[dim] != n:
+        raise LinearOperatorException(
+            f"shape mismatch: expected {n} along dimension {dim}, got {tuple(v.shape)}")
     if comm.is_dtensor(v):
         from torch.distributed.tensor import Shard
 
-        want = [Shard(0)] * mesh.ndim
+        want = [Shard(dim)] * mesh.ndim
         if list(v.placements) != want:
             v = v.redistribute(mesh, want)
         return v.to_local()
     r = mesh.get_local_rank() if mesh.ndim == 1 else _flat_rank(mesh)
-    return v[r * m:(r + 1) * m]
+    return v.narrow(dim, r * m, m)
+
+
+def _check_panel(M):
+    if M.ndim != 2:
+        raise LinearOperatorException(f"a block apply takes a 2-D panel, got {tuple(M.shape)}")
+
+
+def _split_out(y, mesh, dim: int, shape):
+    """This rank's piece ``y`` of a result of global ``shape`` as a DTensor
+    split along ``dim`` (the operator's vector layout along a panel's rows
+    or columns), for a DTensor input and for a plain one."""
+    from torch.distributed.tensor import Shard
+
+    return comm.from_local(y, mesh, [Shard(dim)] * mesh.ndim, shape)
+
+
+def _mul(A, x, dim: int, transpose: bool):
+    """A (Aᵀ with ``transpose``) times a vector or a column panel (``dim``
+    0), or times each row of a row panel (``dim`` 1, as ``x Aᵀ``): one dense
+    product."""
+    if dim == 1:
+        return pmatmul(x, A if transpose else A.mT)
+    if not transpose:
+        return pmatmul(A, x)
+    return pmatmul(x, A) if x.ndim == 1 else pmatmul(A.mT, x)
 
 
 def _present(*pairs):
@@ -93,7 +125,10 @@ class HaloPartitionedOperator(LinearOperator):
     ``A_left``/``A_right`` are (n_dev·m, h), the neighbour couplings; all
     are split by rows (DTensors: each rank holds its slab). Symmetric iff
     declared (flags are the caller's contract). Vectors are split by rows;
-    a plain vector counts as replicated and gets its result split by rows."""
+    a plain vector counts as replicated and gets its result split by rows.
+    A column panel (n, k) splits by rows and a row panel (k, n) by columns
+    likewise; a block apply exchanges the strips of its k columns in one
+    batch (2 rounds), in every mode."""
 
     _fields_tensors = ("A_int", "A_left", "A_right")
     _fields_static = ("_n", "_halo", "_mesh", "_symmetric", "_hermitian")
@@ -161,60 +196,79 @@ class HaloPartitionedOperator(LinearOperator):
         return (ranks[r - 1] if r > 0 else None,
                 ranks[r + 1] if r + 1 < len(ranks) else None)
 
-    def _out(self, y):
-        """This rank's output segment as a DTensor split by rows, for a
-        DTensor input and for a plain one (which counts as replicated)."""
-        from torch.distributed.tensor import Shard
-
-        return comm.from_local(y, self._mesh, [Shard(0)], (self._n,))
-
-    def _local(self, v):
+    def _apply(self, v, dim: int, transpose: bool, conj: bool):
+        """A (Aᵀ with ``transpose``) applied to a vector or a column panel
+        (``dim`` 0) or to the rows of a row panel (``dim`` 1), between two
+        conjugations with ``conj``: the boundary strips of all k columns
+        travel in one exchange while the interior product computes."""
+        n, m, h = self._n, self._n // self._mesh.size(), self._halo
         dt = torch.promote_types(self.dtype, v.dtype)
-        x = _segment(v, self._mesh, self._n, self._n // self._mesh.size())
-        return x.to(dt), [t.to_local().to(dt) for t in (self.A_int, self.A_left, self.A_right)]
+        x = _segment(v, self._mesh, n, m, dim).to(dt)
+        if conj:
+            x = _conj(x)
+        A_int, A_left, A_right = (t.to_local().to(dt) for t in (self.A_int, self.A_left,
+                                                                 self.A_right))
+        strip = (*x.shape[:dim], h, *x.shape[dim + 1:])  # (h,), (h, k) or (k, h)
+        left, right = self._neighbours()
+        works = []
+        if not transpose:
+            from_left, from_right = x.new_zeros(strip), x.new_zeros(strip)
+            if self._mesh.size() > 1:  # boundary segments travel while the interior computes
+                works = comm.exchange(
+                    _present((x.narrow(dim, m - h, h), right), (x.narrow(dim, 0, h), left)),
+                    _present((from_left, left), (from_right, right)), rounds=2)
+            y = _mul(A_int, x, dim, False)  # overlap: no dependence on the exchange
+            for w in works:
+                w.wait()
+            y = y + _mul(A_left, from_left, dim, False) + _mul(A_right, from_right, dim, False)
+        else:
+            # the own interior transposed, plus this rank's boundary rows feeding
+            # the neighbours' couplings (the reference's ``_halo_transpose_body``)
+            to_left = _mul(A_left, x, dim, True)    # lands on the left neighbour's tail
+            to_right = _mul(A_right, x, dim, True)  # lands on the right neighbour's head
+            recv_r, recv_l = x.new_zeros(strip), x.new_zeros(strip)
+            if self._mesh.size() > 1:
+                works = comm.exchange(_present((to_left, left), (to_right, right)),
+                                      _present((recv_r, right), (recv_l, left)), rounds=2)
+            y = _mul(A_int, x, dim, True)
+            for w in works:
+                w.wait()
+            y.narrow(dim, 0, h).add_(recv_l)
+            y.narrow(dim, m - h, h).add_(recv_r)
+        if conj:
+            y = _conj(y)
+        return _split_out(y, self._mesh, dim, (*v.shape[:dim], n, *v.shape[dim + 1:]))
 
     def _prod(self, v):
-        x, (A_int, A_left, A_right) = self._local(v)
-        h = self._halo
-        from_left = torch.zeros(h, dtype=x.dtype, device=x.device)
-        from_right = torch.zeros_like(from_left)
-        left, right = self._neighbours()
-        works = []
-        if self._mesh.size() > 1:  # boundary segments travel while the interior computes
-            works = comm.exchange(_present((x[-h:], right), (x[:h], left)),
-                                  _present((from_left, left), (from_right, right)), rounds=2)
-        y = pmatmul(A_int, x)  # overlap: no dependence on the exchange
-        for w in works:
-            w.wait()
-        return self._out(y + pmatmul(A_left, from_left) + pmatmul(A_right, from_right))
+        return self._apply(v, 0, False, False)
 
     def _tprod(self, u):
-        """Transpose apply: the own interior transposed, plus this rank's
-        boundary rows feeding the neighbours' couplings (the reference's
-        ``_halo_transpose_body``)."""
-        x, (A_int, A_left, A_right) = self._local(u)
-        h = self._halo
-        to_left = pmatmul(x, A_left)   # lands on the left neighbour's tail
-        to_right = pmatmul(x, A_right)  # lands on the right neighbour's head
-        recv_r = torch.zeros_like(to_left)
-        recv_l = torch.zeros_like(to_left)
-        left, right = self._neighbours()
-        works = []
-        if self._mesh.size() > 1:
-            works = comm.exchange(_present((to_left, left), (to_right, right)),
-                                  _present((recv_r, right), (recv_l, left)), rounds=2)
-        y = pmatmul(x, A_int)
-        for w in works:
-            w.wait()
-        y = torch.cat([y[:h] + recv_l, y[h:]]) if h < y.shape[0] else y + recv_l
-        y = torch.cat([y[:-h], y[-h:] + recv_r])
-        return self._out(y)
+        return self._apply(u, 0, True, False)
 
     def _ctprod(self, w):
-        if not self.A_int.is_complex():
-            return self._tprod(w)
         # Aᴴw = conj(Aᵀ conj(w)): the transpose program, two conjugations
-        return _conj(self._tprod(_conj(w)))
+        return self._apply(w, 0, True, self.A_int.is_complex())
+
+    def _block(self, M, mode: str, dim: int):
+        """A panel in ``mode``: the vector apply's lattice
+        (``LinearOperator.apply``), whose transpose here is the operator's
+        own, conjugated around it for H."""
+        _check_panel(M)
+        if mode not in ("N", "T", "C", "H"):
+            raise ValueError(f"unknown mode {mode!r}")
+        transpose = (mode == "T" and not self.symmetric) or (mode == "H" and not self.hermitian)
+        conj = mode == "C" or (mode == "H" and not self.hermitian and self.dtype.is_complex)
+        return self._apply(M, dim, transpose, conj)
+
+    def apply_matrix(self, M, mode: str = "N"):
+        """(n, k) column panel: one exchange of (h, k) strips for all k
+        columns (2 rounds), as the reference's vmapped apply."""
+        return self._block(M, mode, 0)
+
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """(k, n) row panel, the result (k, n): one exchange of (k, h)
+        strips (2 rounds)."""
+        return self._block(Mt, mode, 1)
 
     def _name(self):
         return f"Halo-partitioned operator (halo={self._halo})"

@@ -6,7 +6,11 @@ owns a (ny/py, nx/px) tile, and one apply exchanges one-cell edge strips
 with its four neighbours (no corners for a 5-point stencil; Dirichlet zero
 at the grid edge), computing the centre term while the strips travel. Four
 ``collective-permute`` rounds per apply (two per mesh axis longer than
-one), no all-gather.
+one), no all-gather. A block apply (``apply_matrix`` of an (n, k) column
+panel, ``apply_matrix_t`` of a (k, n) row panel) runs on the (by, bx, k)
+(or (k, by, bx)) tile and is one such exchange of (bx, k) and (by, k)
+strips, as the reference's vmapped apply batches its ``ppermute``s: 4
+rounds for any k, and each column equal to the vector apply's bit for bit.
 
 The stencil is the constant-coefficient 5-point form
 
@@ -21,10 +25,42 @@ import torch
 
 from ..core.base import LinearOperator, LinearOperatorException
 from . import comm
-from .halo import _mesh_device, _present, _segment
+from .halo import _check_panel, _mesh_device, _present, _segment, _split_out
 from .mesh import mesh_device_type
 
 __all__ = ["HaloStencil2DOperator", "stencil_partition_2d", "make_mesh2d"]
+
+
+def _scale(coef, t):
+    """``coef · t`` for a 0-dim ``coef``. A complex product is formed from
+    its real parts, each multiply and add rounded on its own: ATen's complex
+    multiply on the CPU rounds differently in its vectorized and its scalar
+    loop, so a tile's bits would depend on its shape."""
+    if not t.is_complex():
+        return coef * t
+    a, b, re, im = coef.real, coef.imag, t.real, t.imag
+    return torch.complex(a * re - b * im, a * im + b * re)
+
+
+def _add_shifted(y, u, coef, edge, dim: int, after: bool):
+    """``y += coef · s`` in place, s being ``u`` shifted by one cell along
+    ``dim``: s[i] = u[i-1] with the received strip ``edge`` at i = 0, or
+    with ``after`` s[i] = u[i+1] with ``edge`` at the last cell. ``y`` and
+    ``u`` are contiguous tiles of one shape. The product runs over the whole
+    tile and the add over one contiguous range of the flat tile, offset by
+    ``dim``'s stride (both vectorizable); the cells at i = 0 (the last cell)
+    of every line, which the flat offset reaches from the neighbouring line,
+    get their values back and ``coef · edge`` added instead. Per cell one
+    product and one add, in the same order for a vector and for every
+    column of a panel, so a column's bits are its vector apply's."""
+    off, i = y.stride(dim), (y.shape[dim] - 1 if after else 0)
+    kept = y.select(dim, i).clone()
+    t, flat = _scale(coef, u).view(-1), y.view(-1)
+    if after:
+        flat[:-off].add_(t[off:])
+    else:
+        flat[off:].add_(t[:-off])
+    y.select(dim, i).copy_(kept).add_(_scale(coef, edge))
 
 
 def make_mesh2d(py: int, px: int, axes=("gy", "gx"), device=None):
@@ -54,9 +90,11 @@ class HaloStencil2DOperator(LinearOperator):
 
     The transpose stencil swaps n↔s and w↔e, so every mode runs the one
     apply with permuted (and, for C/H, conjugated) coefficients. Matrices go
-    through ``apply_matrix``; ``apply`` takes vectors only. A plain vector
-    counts as replicated and gets its result split as the operator's
-    vectors are."""
+    through ``apply_matrix`` (an (n, k) column panel split by rows) or
+    ``apply_matrix_t`` (a (k, n) row panel split by columns), one exchange
+    of k-wide strips per block; ``apply`` takes vectors only. A plain vector
+    or panel counts as replicated and gets its result split as the
+    operator's vectors are."""
 
     _fields_tensors = ("coeffs",)
     _fields_static = ("_ny", "_nx", "_mesh", "_symmetric", "_hermitian")
@@ -142,33 +180,55 @@ class HaloStencil2DOperator(LinearOperator):
             raise LinearOperatorException(
                 f"shape mismatch: expected ({self.nrow},), got {tuple(v.shape)} "
                 "(matrices go through apply_matrix)")
-        from torch.distributed.tensor import Shard
+        return self._apply(v, mode, 0)
 
+    def apply_matrix(self, M, mode: str = "N"):
+        """(n, k) column panel: the (by, bx, k) tile, one exchange of
+        (bx, k) and (by, k) strips (4 rounds on a 2 x 2 mesh)."""
+        _check_panel(M)
+        return self._apply(M, mode, 0)
+
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """(k, n) row panel, the result (k, n): the (k, by, bx) tile, one
+        exchange of (k, bx) and (k, by) strips."""
+        _check_panel(Mt)
+        return self._apply(Mt, mode, 1)
+
+    def _apply(self, v, mode: str, dim: int):
+        """The stencil on this rank's tile of a vector, a column panel
+        (``dim`` 0) or a row panel (``dim`` 1): grid rows on tile dimension
+        ``dim``, grid columns on ``dim + 1``, a panel's k columns on the
+        other."""
         py, px, by, bx = self._tiles
         cf = self._coeffs_for(mode)
         dt = torch.promote_types(cf.dtype, v.dtype)
-        u = _segment(v, self._mesh, self.nrow, by * bx).to(dt).reshape(by, bx)
-        c, cn, cs, cw, ce = cf.to(dt).unbind()
+        u = _segment(v, self._mesh, self.nrow, by * bx, dim).to(dt).contiguous()
+        u = u.view(*u.shape[:dim], by, bx, *u.shape[dim + 1:])
+        ay, ax = dim, dim + 1
+        c, cn, cs, cw, ce = cf.to(dt).resolve_conj().unbind()
         north, south = self._neighbour(-1, 0), self._neighbour(1, 0)
         west, east = self._neighbour(0, -1), self._neighbour(0, 1)
-        from_n, from_s = torch.zeros_like(u[0]), torch.zeros_like(u[0])
-        from_w, from_e = torch.zeros_like(u[:, 0]), torch.zeros_like(u[:, 0])
-        # post the four edge exchanges first; the centre term computes while
-        # the strips are in flight
+        edge_y, edge_x = u.select(ay, 0).shape, u.select(ax, 0).shape
+        from_n, from_s = u.new_zeros(edge_y), u.new_zeros(edge_y)
+        from_w, from_e = u.new_zeros(edge_x), u.new_zeros(edge_x)
+        # post the four edge exchanges first (every column's strips in one
+        # batch); the centre term computes while the strips are in flight
         rounds = 2 * int(py > 1) + 2 * int(px > 1)
         works = comm.exchange(
-            _present((u[-1], south), (u[0], north), (u[:, -1], east), (u[:, 0], west)),
+            _present((u.select(ay, -1), south), (u.select(ay, 0), north),
+                     (u.select(ax, -1), east), (u.select(ax, 0), west)),
             _present((from_n, north), (from_s, south), (from_w, west), (from_e, east)),
             rounds) if rounds else []
-        y = c * u  # overlap: no dependence on the exchange
+        y = _scale(c, u)  # overlap: no dependence on the exchange
         for w in works:
             w.wait()
         # Dirichlet boundary: the strips at the grid edge stay zero
-        y = y + cn * torch.cat([from_n[None], u[:-1]], dim=0)
-        y = y + cs * torch.cat([u[1:], from_s[None]], dim=0)
-        y = y + cw * torch.cat([from_w[:, None], u[:, :-1]], dim=1)
-        y = y + ce * torch.cat([u[:, 1:], from_e[:, None]], dim=1)
-        return comm.from_local(y.reshape(-1), self._mesh, [Shard(0), Shard(0)], (self.nrow,))
+        _add_shifted(y, u, cn, from_n, ay, after=False)
+        _add_shifted(y, u, cs, from_s, ay, after=True)
+        _add_shifted(y, u, cw, from_w, ax, after=False)
+        _add_shifted(y, u, ce, from_e, ax, after=True)
+        return _split_out(y.reshape(v.shape[:dim] + (by * bx,) + v.shape[dim + 1:]), self._mesh,
+                          dim, v.shape)
 
     def _has_tprod(self):
         return True

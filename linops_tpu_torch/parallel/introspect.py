@@ -7,7 +7,8 @@ the function once under ``comm.counting()`` and returns what it issued.
 That is a count of executed collectives: a loop of k iterations counts k
 times what its body issues, where the reference's count of program text
 counts the body once. The contracts read the same for one apply (a halo
-apply: exactly 2 ``collective-permute`` and 0 ``all-gather``).
+apply: exactly 2 ``collective-permute`` and 0 ``all-gather``; a halo block
+apply of any width the same, as the reference's vmapped apply).
 ``hlo_collective_counts`` is the reference's text count, kept so the name
 exists; it reads HLO text, which this package never produces.
 """

@@ -2030,6 +2030,37 @@ def test_sharded_lobpcg_in_captured_blocks_at_world_size_one(dev, loop_mod):
     assert torch.equal(th_un, gather_full(th0)) and torch.equal(X_un, gather_full(X0))
 
 
+@pytest.mark.parametrize("k", [2, 32])
+def test_halo_block_applies_match_their_column_loops(dev, k):
+    """The halo operators' block applies at world size 1 (NCCL), N and T,
+    column and row panels: the 2-D stencil's (2048², a non-symmetric
+    5-point stencil) bit for bit its column loop of vector applies in f32;
+    the banded operator's (n = 4096, half-bandwidth 3) within 1e-6 of it (a
+    dense product may reduce in another order than the vector's)."""
+    from linops_tpu_torch.parallel import banded_partition, make_mesh2d, stencil_partition_2d
+    from linops_tpu_torch.parallel.comm import gather_full
+
+    mesh = _world_of_one()
+    gen = torch.Generator(device=dev).manual_seed(k)
+    g = 2048
+    L2 = stencil_partition_2d(torch.tensor([4.0, -1.0, -1.5, -0.5, -1.0], device=dev), g, g,
+                              make_mesh2d(1, 1))
+    rng = np.random.default_rng(k)
+    n = 4096
+    A = sum(np.diag(rng.uniform(-1.0, 1.0, n - abs(o)), o) for o in range(-3, 4))
+    hop = banded_partition(A.astype(np.float32), mesh)
+    for op, exact in ((L2, True), (hop, False)):
+        M = torch.randn((op.shape[0], k), generator=gen, device=dev)
+        for mode in ("N", "T"):
+            cols = torch.stack([gather_full(op.apply(M[:, j], mode)) for j in range(k)], dim=1)
+            for Y in (gather_full(op.apply_matrix(M, mode)),
+                      gather_full(op.apply_matrix_t(M.T.contiguous(), mode)).T):
+                if exact:
+                    assert torch.equal(Y, cols), (op, mode)
+                else:
+                    assert rel_err(Y, cols) <= 1e-6, (op, mode, rel_err(Y, cols))
+
+
 def test_dtensor_push_then_captured_solve_at_world_size_one(dev, loop_mod):
     """Pushes of DTensor pairs into a sharded inverse L-BFGS preconditioner
     between captured CG solves at world size 1: the state keeps its
