@@ -5,7 +5,7 @@
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 7, 9, 8, 5 (with phase 4's main path rerun under the profiler at its end),
-11, 12, 13, 10, 14, 13h, 15 (15f, E2, after 15a), then one profiled slice-1 CG (the times come
+11, 12, 13, 10, 14, 13h, 15 (15f, E2, after 15a), 13i, 14i, then one profiled slice-1 CG (the times come
 after every kernel has been checked; phases 12, 10, 14 and the profiled CG
 come after phase 5 because torch.profiler traces of whole solves, run before
 phase 5, left phase 5's own traces without device time; phases 11 and 12 run
@@ -150,6 +150,17 @@ shows them run but can lose records).
    Nyström preconditioner of slice 1's graph sharded as M of its CG with a
    plain b (x split by rows). Its launches must include K1, K2, K7, K9-K12
    and E1 (both kernels).
+   14i (after 13i, on its 1x1 mesh): ``opIterativeInverse``'s block apply
+   as one panel solve. 14h's GMRES inverse on an (n, 8) Rademacher block and
+   in ``estimate_trace``, against the column loop (restarts per column
+   equal, each column within 1e-5, one E2 launch per restart where the loop
+   launches 8, wall and CUDA-event µs per cached block apply of both);
+   LOBPCG (k = 4) on the 2048² Laplacian with a CG inverse as M, and the
+   same on ``stencil_partition_2d``, both ways (one while node per M apply
+   where the column loop has 4; bits; no collective in an inner iteration;
+   wall and CUDA-event µs per iteration, marginal over two lengths). Its
+   launches, counted over the panel path's runs alone (not the column
+   loop's), must include E2, G1, K7, K9-K11 and E1.
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
    each phase-10 solve (GMRES(30) and BiCGSTAB on auto_8m + 8I, damped LSQR,
@@ -4183,6 +4194,338 @@ def phase13h(lt, loop, K, LG, dev, card, ops, main, rec14):
 
 
 # ----------------------------------------------------------------------------
+# 14i: opIterativeInverse's block apply as one panel solve
+# ----------------------------------------------------------------------------
+
+PANEL_K = 8  # 14i a: the Rademacher block's columns
+LOB14I_K, LOB14I_ITERS = 4, 20  # 14i b, c: LOBPCG's block and iterations per solve (tol 0)
+PANEL_RTOL = 1e-5  # 14i a: each column of a panel solve against its vector apply, relative
+ROUTED_14I = ("lane_gather", "lane_gather_mul_t_batched", "lane_gather_sum", "lane_segsum")
+
+
+def all_launches(mods) -> dict:
+    """The launch counts of every kernel module in ``mods``, by kernel."""
+    out = {}
+    for m_ in mods:
+        out.update(m_.launch_counts())
+    return out
+
+
+def marginal_us(fn, short, long_, reps=REPS):
+    """(host-clock µs, CUDA-event µs) per unit of work, where ``fn(n)`` runs
+    n units: the median over ``reps`` of (t(long_) − t(short)) / (long_ −
+    short), each call timed on both clocks between synchronizes. The event
+    time is the stream's, from the call's first launch to its end, gaps for
+    host reads included."""
+    per = []
+    for _ in range(reps):
+        ts = []
+        for n_ in (short, long_):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            fn(n_)
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0, e0.elapsed_time(e1)))
+        per.append(((ts[1][0] - ts[0][0]) * 1e6 / (long_ - short),
+                    (ts[1][1] - ts[0][1]) * 1e3 / (long_ - short)))
+    return float(np.median([w for w, _ in per])), float(np.median([e for _, e in per]))
+
+
+@contextlib.contextmanager
+def loop_where(loop):
+    """Panel solves with the loop's own ``where`` over the state as well
+    (``device_while(keeps=False)``), the captured blocks dropped on entry
+    and exit: 14i b's yardstick for ``keeps``."""
+    real = loop.device_while
+    loop.device_while = lambda *a, **kw: real(*a, **{**kw, "keeps": False})
+    loop.clear_cache()
+    try:
+        yield
+    finally:
+        loop.device_while = real
+        loop.clear_cache()
+
+
+def column_loop(lt, M, **flags):
+    """``M``'s block apply as the column loop the port ran before its panel
+    solve (one vector apply per column, stacked): a capture-safe
+    ``FunctionOperator`` over ``M.apply``, whose ``apply_matrix`` is the base
+    class's loop. Used only as the yardstick of 14i."""
+    return lt.FunctionOperator(M.nrow, M.ncol, lambda v: M.apply(v, "N"), dtype=M.dtype,
+                               capture_safe=True, **flags)
+
+
+def phase14i(lt, loop, mods, dev, card, ops):
+    """``opIterativeInverse`` applies a block as one panel solve (f32).
+    (a) 14h's inexact GMRES inverse M of S = auto_8m + 8I (tol 1e-2, maxiter
+    30, "auto": GMRES(30), one restart) on an (n, 8) Rademacher block, and
+    in ``estimate_trace`` (Hutchinson, 8 probes) with the same generator,
+    against the column loop (a stack of 8 vector applies, and M behind
+    ``column_loop``): restarts per column equal, each column within
+    PANEL_RTOL of its vector apply, E2 launches per restart 1 (8 in the
+    column loop), the panel's cached block one E2 launch and the routed
+    kernels, wall and CUDA-event µs per cached block apply of both (marginal
+    over 1 and 3 applies). (b) LOBPCG (k = 4, smallest, tol 0, LOB14I_ITERS
+    iterations) on 11a's 2048² Laplacian with M = its CG inverse (tol 1e-2,
+    maxiter 10) through ``loop_modes`` (the per-iteration loop and captured
+    blocks, bit for bit): one while node per M apply and E1 in the cached
+    block (4 while nodes with M's column loop, run the same way), θ within
+    its residual of the closed-form eigenvalues, wall and CUDA-event µs per
+    iteration of both (marginal over LOB14I_ITERS and twice as many), and of
+    the panel with the loop's own ``where`` as well (``loop_where``: what
+    ``device_while(keeps=True)`` saves; bit for bit). (c) (b) on
+    ``stencil_partition_2d`` (a 1x1 mesh, NCCL): θ and X bit for bit the same
+    arithmetic unsharded (13i a's twin), within rounding of (b)'s, one while
+    node per M apply, no collective in an inner iteration. The busy shares
+    and kernel µs printed beside are torch.profiler trace readings, which no
+    comparison rests on. The launch counts are those of the panel path's
+    runs alone (``on_panel``: set to 0 just before each, read just after),
+    not of the column loop's, the yardsticks' or the collective probes'.
+    Returns (record, launches)."""
+    from linops_tpu_torch.kernels import small_lstsq as E2
+    from linops_tpu_torch.parallel import collective_counts, make_mesh2d, stencil_partition_2d
+    from linops_tpu_torch.parallel.comm import gather_full
+    from linops_tpu_torch.utils import krylov
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    rec = {}
+    launches = {}
+
+    def on_panel(fn):
+        """fn() with every launch count set to 0 just before it and read just
+        after, added to the panel path's launches (the column loop's runs,
+        the yardsticks and the probes stay out)."""
+        for m_ in mods:
+            m_.reset_launch_counts()
+        out = fn()
+        for name, c_ in all_launches(mods).items():
+            launches[name] = launches.get(name, 0) + c_
+        return out
+
+    def fmt(v, spec):
+        return "not measured" if v is None else format(v, spec)
+
+    # --- 14i a. the GMRES inverse on an (n, 8) block ---------------------------------------
+    free()
+    A2 = ops["A2"]
+    n2 = A2.shape[0]
+    S = lt.ShiftedOperator(ops["op2"], 8.0)
+    M = lt.opIterativeInverse(S, tol=1e-2, maxiter=30)
+    check(M._resolved(S) == "gmres", f"14i a: the inverse takes {M._resolved(S)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 190)
+    B = (2 * torch.randint(0, 2, (n2, PANEL_K), generator=gen, device=dev) - 1).to(f32)
+
+    def panel():
+        return M.apply_matrix(B)
+
+    def columns():
+        return torch.stack([M.apply(B[:, j]) for j in range(PANEL_K)], dim=1)
+
+    # launches counted in eager blocks (a replay launches nothing, a capture records once)
+    loop.clear_cache()
+    loop.CAPTURE = False
+    try:
+        X, counts, _ = on_panel(lambda: M._solve(B, "N", False))
+        e2_panel = E2.launch_counts()["small_lstsq"]
+        E2.reset_launch_counts()
+        vec = [M.solve_info(B[:, j]) for j in range(PANEL_K)]
+        e2_cols = E2.launch_counts()["small_lstsq"]
+    finally:
+        loop.CAPTURE = True
+    loop.clear_cache()
+    X_cols = torch.stack([v[0] for v in vec], dim=1)
+    col_counts = [int(v[1]) for v in vec]
+    errs = ((X - X_cols).norm(dim=0) / X_cols.norm(dim=0)).tolist()
+    restarts = int(counts.max())
+    check(counts.tolist() == col_counts and max(errs) <= PANEL_RTOL and torch.isfinite(X).all()
+          and tuple(X.shape) == (n2, PANEL_K),
+          f"14i a: restarts per column {counts.tolist()} (vector applies {col_counts}), "
+          f"relative error per column {errs} (limit {PANEL_RTOL:g})")
+    check(e2_panel == restarts and e2_cols == sum(col_counts),
+          f"14i a: E2 launches {e2_panel} over {restarts} panel restarts, {e2_cols} over the "
+          f"column loop's {sum(col_counts)} restarts")
+    times = {}
+    for name, fn in (("panel", panel), ("columns", columns)):
+        # a signature's first solve (the plain loop), then its capture
+        (on_panel if name == "panel" else (lambda f: f()))(lambda: (fn(), fn()))
+        g_ = loop.last_graph()
+        wall, event = marginal_us(lambda n_: [fn() for _ in range(n_)], 1, 3)
+        trace_ms = device_profile(fn)[0]
+        times[name] = dict(wall_us=wall, event_us=event,
+                           trace_us=None if trace_ms is None else trace_ms * 1e3,
+                           trace_busy=None if trace_ms is None else trace_ms * 1e3 / wall,
+                           held=dict(g_.launches) if g_ is not None else {})
+    held = times["panel"]["held"]
+    check(held.get("small_lstsq") == 1 and all(held.get(n_, 0) > 0 for n_ in ROUTED_14I),
+          f"14i a: the panel's cached block (one restart) recorded {held}: not one E2 launch "
+          f"and the routed kernels {ROUTED_14I}")
+    Mc = column_loop(lt, M)
+    tr = []
+    for op, run in ((M, on_panel), (Mc, lambda f: f())):
+        gen.manual_seed(SEED + 191)
+        tr.append(run(lambda: lt.estimate_trace(op, probes=PANEL_K, method="hutchinson",
+                                                generator=gen)))
+    tr_rel = abs(float(tr[0][0]) - float(tr[1][0])) / abs(float(tr[1][0]))
+    check(np.isfinite(float(tr[0][0])) and tr_rel <= PANEL_RTOL,
+          f"14i a: estimate_trace {float(tr[0][0])} against the column loop's {float(tr[1][0])}")
+    rec["a"] = dict(restarts=counts.tolist(), errs=errs, e2=(e2_panel, e2_cols), times=times,
+                    trace=(float(tr[0][0]), float(tr[1][0])))
+    tp, tc = times["panel"], times["columns"]
+
+    def timing(t_):
+        return (f"wall {t_['wall_us']:.1f} us, CUDA events {t_['event_us']:.1f} us (marginal "
+                f"over 1 and 3 applies); trace reading: kernels {fmt(t_['trace_us'], '.1f')} us, "
+                f"busy {fmt(t_['trace_busy'], '.2f')}")
+
+    print(f"[14i device loop] 14i a: M = opIterativeInverse(auto_8m + 8I, tol 1e-2, maxiter 30, "
+          f"auto: gmres(30)) on an (n = 2^19, {PANEL_K}) Rademacher block: one panel solve, "
+          f"restarts per column {counts.tolist()} = its vector applies', max relative error per "
+          f"column {max(errs):.2e} (limit {PANEL_RTOL:g}); E2 launches {e2_panel} for "
+          f"{restarts} restart(s) of the panel, {e2_cols} for the column loop's "
+          f"{sum(col_counts)}; cached block apply: panel {timing(tp)}; column loop "
+          f"{timing(tc)}; event ratio {tp['event_us'] / tc['event_us']:.3f}, wall ratio "
+          f"{tp['wall_us'] / tc['wall_us']:.3f}; the panel's block recorded {held}; "
+          f"estimate_trace (Hutchinson, {PANEL_K} probes) {float(tr[0][0]):.6e}, column loop "
+          f"{float(tr[1][0]):.6e} (relative {tr_rel:.2e}); {card}", flush=True)
+    del S, M, Mc, B, X, X_cols, vec
+    free()
+
+    # --- 14i b. LOBPCG on the 2048² Laplacian with a CG inverse as M -------------------------
+    g = GRID11
+    n = g * g
+    L = lt.laplacian_2d(g, g)
+    inner = dict(solver="cg", tol=1e-2, maxiter=10)
+
+    def lob(op, Mop, iters=LOB14I_ITERS):
+        gen.manual_seed(SEED + 192)
+        return lt.lobpcg(op, k=LOB14I_K, largest=False, tol=0.0, maxiter=iters, generator=gen,
+                         M=Mop)
+
+    def inspect_with(per_iteration_nodes, tag):
+        def inspect(gr):
+            w = while_nodes_of(gr)
+            check(w == per_iteration_nodes * loop.BLOCK and len(gr.bodies) == w
+                  and gr.launches.get("while_condition", 0) == 2 * w
+                  and gr.launches.get("small_eigh", 0) > 0,
+                  f"{tag}: the cached block holds {w} while nodes ({len(gr.bodies)} bodies), "
+                  f"recorded {gr.launches}: not {per_iteration_nodes} per iteration, or no E1")
+        return inspect
+
+    def per_iteration_us(op, Mop):
+        """(wall, CUDA-event) µs per LOBPCG iteration of cached solves,
+        marginal over LOB14I_ITERS and twice as many iterations."""
+        for it_ in (LOB14I_ITERS, 2 * LOB14I_ITERS):  # each length's plain solve and capture
+            got = [lob(op, Mop, it_)[3] for _ in range(2)]
+            check(got == [it_, it_], f"14i: LOBPCG ran {got} iterations, not {it_}")
+        return marginal_us(lambda it_: lob(op, Mop, it_), LOB14I_ITERS, 2 * LOB14I_ITERS)
+
+    ML = lt.opIterativeInverse(L, **inner)
+    MLc = column_loop(lt, ML, symmetric=True, hermitian=True)
+    out_b = {}
+    for name, Mop, per in (("panel", ML, 1), ("columns", MLc, LOB14I_K)):
+        def solve(Mop=Mop):
+            th, X, res, it = lob(L, Mop)
+            return torch.cat([th, X.reshape(-1)]), it, res
+
+        tag = (f"14i b lobpcg(k={LOB14I_K}, smallest, tol 0, {LOB14I_ITERS} iterations) on the "
+               f"{g}² Laplacian, M = opIterativeInverse(L, cg, tol 1e-2, maxiter 10)"
+               + (" behind its column loop" if name == "columns" else ""))
+        out_b[name] = (on_panel if name == "panel" else (lambda f: f()))(
+            lambda: loop_modes(loop, tag, solve, phase="14i",
+                               inspect=inspect_with(per, f"14i b {name}")))
+    # card time per iteration by CUDA events: the panel, its column loop, and
+    # the panel with the loop's own where as well (keeps off), on, off, off, on
+    ev = {"columns": per_iteration_us(L, MLc)}
+    for name in ("keeps", "where", "where", "keeps"):
+        with (loop_where(loop) if name == "where" else contextlib.nullcontext()):
+            ev.setdefault(name, []).append(on_panel(lambda: per_iteration_us(L, ML)))
+    with loop_where(loop):
+        th_w, X_w, _, _ = lob(L, ML)
+    ML.reset_inner_iterations()
+    th, X, res, it = on_panel(lambda: lob(L, ML))
+    inner_b = ML.inner_iterations
+    th_c, _, _, it_c = lob(L, MLc)
+    r64, gaps = closed_form_gaps(five_point(g), g, th, X)
+    dth = float((th - th_c).abs().max() / th.abs().max())
+    check(it == it_c == LOB14I_ITERS and torch.isfinite(th).all() and torch.isfinite(X).all()
+          and tuple(X.shape) == (n, LOB14I_K) and dth <= PANEL_RTOL,
+          f"14i b: {it} / {it_c} iterations, θ {th.tolist()} against the column loop's "
+          f"{th_c.tolist()} ({dth:.2e} relative, limit {PANEL_RTOL:g})")
+    check(torch.equal(th_w, th) and torch.equal(X_w, X),
+          "14i b: the panel solve with the loop's own where differs from keeps")
+    keeps = [float(np.median([e for _, e in ev[k_]])) for k_ in ("keeps", "where")]
+    rb, rc = out_b["panel"], out_b["columns"]
+    rec["b"] = dict(panel=rb, columns=rc, theta=th.tolist(), inner=inner_b,
+                    event_us=dict(panel=ev["keeps"], columns=ev["columns"], where=ev["where"]))
+
+    def loop_line(r, ev_):
+        return (f"wall {r['wall_us_per_iter'][1]:.1f} us per iteration (median cached solve), "
+                f"marginal wall {ev_[0]:.1f} us and CUDA events {ev_[1]:.1f} us per iteration; "
+                f"trace reading: kernels {fmt(r['device_us_per_iter'][1], '.1f')} us, busy "
+                f"{fmt(r['busy'][1], '.2f')}; {r['while_nodes'] // loop.BLOCK} while node(s) per "
+                f"iteration")
+
+    print(f"[14i device loop] 14i b: LOBPCG k = {LOB14I_K} on the {g}² Laplacian with M = its "
+          f"CG inverse: {it} iterations, θ {[float(f'{t_:.6e}') for t_ in th]}, f64 residuals "
+          f"{[float(f'{x:.3e}') for x in r64]}, distance to the nearest closed-form eigenvalue "
+          f"{[float(f'{x:.3e}') for x in gaps]}; {inner_b} inner CG iterations summed over the "
+          f"solve's M applies; cached blocks: panel solve {loop_line(rb, ev['keeps'][0])}; M's "
+          f"column loop {loop_line(rc, ev['columns'])}; CUDA events per iteration, panel "
+          f"against the column loop {ev['keeps'][0][1] / ev['columns'][1]:.3f}; the panel "
+          f"without the loop's where (keeps) {[round(e, 1) for _, e in ev['keeps']]} us, with it "
+          f"{[round(e, 1) for _, e in ev['where']]} us (on, off, off, on; median ratio "
+          f"{keeps[1] / keeps[0]:.3f}), θ and X bit for bit; θ {dth:.2e} apart (relative); "
+          f"{card}", flush=True)
+
+    # --- 14i c. the same on stencil_partition_2d (a 1x1 mesh) -------------------------------
+    L2 = stencil_partition_2d(torch.tensor([4.0, -1.0, -1.0, -1.0, -1.0], device=dev), g, g,
+                              make_mesh2d(1, 1))
+    twin = lt.FunctionOperator(n, n, lambda v: L2.apply(v).to_local(), symmetric=True,
+                               hermitian=True, dtype=f32, capture_safe=True)
+    M2, Mt = lt.opIterativeInverse(L2, **inner), lt.opIterativeInverse(twin, **inner)
+
+    def solve2():
+        th_, X_, res_, it_ = lob(L2, M2)
+        return torch.cat([gather_full(th_), gather_full(X_).reshape(-1)]), it_, res_
+
+    r_c = on_panel(lambda: loop_modes(
+        loop, f"14i c lobpcg(k={LOB14I_K}, smallest, tol 0, {LOB14I_ITERS} iterations) on "
+        f"stencil_partition_2d ({g}², a 1x1 mesh), M = its CG inverse", solve2, phase="14i",
+        inspect=inspect_with(1, "14i c")))
+    ev_c = on_panel(lambda: per_iteration_us(L2, M2))
+    th2, X2, _, it2 = on_panel(lambda: lob(L2, M2))
+    th_t, X_t, _, it_t = lob(twin, Mt)
+    bits = (it2 == it_t and torch.equal(gather_full(th2), th_t)
+            and torch.equal(gather_full(X2), X_t))
+    dth2 = float((gather_full(th2) - th).abs().max() / th.abs().max())
+    Pt = torch.randn((LOB14I_K, n), generator=gen, device=dev)
+    per = [collective_counts(lambda: krylov._solve_panel("cg", L2, Pt, rows=True, tol=0.0,
+                                                         maxiter=m_))
+           for m_ in (loop.BLOCK, 2 * loop.BLOCK)]
+    coll = {c_: (per[1][c_] - per[0][c_]) / loop.BLOCK for c_ in per[0]}
+    check(bits and r_c["bits"] and dth2 <= PANEL_RTOL and all(v_ == 0 for v_ in coll.values()),
+          f"14i c: against the same arithmetic unsharded: {it2} / {it_t} iterations, bit for bit "
+          f"{bits}; θ {dth2:.2e} from 14i b's (limit {PANEL_RTOL:g}); collectives per inner "
+          f"iteration {coll}")
+    rec["c"] = dict(r_c, dtheta_b=dth2, collectives=coll, event_us=ev_c)
+    print(f"[14i device loop] 14i c: LOBPCG with M = the CG inverse on stencil_partition_2d "
+          f"({g}², a 1x1 mesh, NCCL): θ and X bit for bit the same arithmetic unsharded "
+          f"(13i a's twin), θ {dth2:.2e} from 14i b's (the halo stencil sums in another order); "
+          f"collectives per inner iteration {coll}; cached blocks: {loop_line(r_c, ev_c)}; CUDA "
+          f"events per iteration against 14i b's panel {ev_c[1] / ev['keeps'][0][1]:.3f}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    del L, ML, MLc, L2, twin, M2, Mt, X, X2, X_t, X_w
+    free()
+    return rec, launches
+
+
+# ----------------------------------------------------------------------------
 # Slice 10: LOBPCG, svds and normest on the device loop, with E1
 # ----------------------------------------------------------------------------
 
@@ -5630,6 +5973,11 @@ def main() -> int:
                  "lane_gather_sum", "lane_segsum", "lane_gather_mul_segsum", "small_eigh",
                  "small_eigh_cluster"):
         check(l13i.get(name, 0) > 0, f"{name} never ran on the 13i path (distributed spectra)")
+    # --- 14i. opIterativeInverse's block apply as one panel solve (after 13i: its 1x1 mesh)
+    r14i, l14i = phase14i(lt, loop_mod, (K, LG, E1, E2, GC), dev, card, ops)
+    for name in ("small_lstsq", "while_condition", "lane_gather", "lane_gather_mul_t_batched",
+                 "lane_gather_sum", "lane_segsum", "small_eigh"):
+        check(l14i.get(name, 0) > 0, f"{name} never ran on the 14i path (panel solves)")
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
     # comes after phase 5's profiler readings, as phase 10's do), its blocks
@@ -5736,10 +6084,11 @@ def main() -> int:
                     "replaces_note": "no pallas_call site: the jnp.linalg.lstsq XLA lowers in the "
                                      "reference's GMRES restart; plain version: torch.linalg.svd "
                                      "at jnp.linalg.lstsq's cutoff"})
-    for row in kernels:  # launches inside phase 12's backward passes, on 13h's and 13i's paths
+    for row in kernels:  # launches inside phase 12's backward passes, on 13h's, 13i's and 14i's paths
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
         row["launches_13h"] = sum(c_.get(row["name"], 0) for c_ in dt_launches.values())
         row["launches_13i"] = l13i.get(row["name"], 0)
+        row["launches_14i"] = l14i.get(row["name"], 0)
     tally = collections.Counter(n for n, _ in TRACES_TAKEN)
     lossy = collections.Counter((h, t) for h, t, _ in SPINS_LOST if h or t)
     missed = [(h, t) for h, t, hit in SPINS_LOST if hit is False]

@@ -72,8 +72,9 @@ def pvdot(a, b):
     return torch.vdot(a, b)
 
 
-def pcolumn_dot(U, V):
+def pcolumn_dot(U, V, dim: int = 0):
     """Per-column ``<u_j, v_j>`` (conjugating U) of two (n, k) blocks: an
-    elementwise product and a column sum, in the promoted dtype."""
+    elementwise product and a column sum, in the promoted dtype. ``dim=1``
+    takes the rows of two (k, n) blocks instead."""
     U, V = _promoted(U, V)
-    return (U.conj() * V).sum(dim=0)
+    return (U.conj() * V).sum(dim=dim)

@@ -383,32 +383,39 @@ class _ImplicitSolve(torch.autograd.Function):
     in torch's conjugate-Wirtinger convention): the v-gradient is one more
     solve, ``w = A_{H∘mode}⁻¹ g``, and the operator tensors' gradient is the
     pullback of one apply ``A_mode(tensors) x`` against ``−w``. The inner
-    loop itself is never differentiated."""
+    loop itself is never differentiated. For a panel (``panel`` False for
+    columns, True for rows; None for a vector) both are panel forms: the
+    backward is one panel solve, and the pullback is that of one panel apply,
+    summed over the vectors, as ``jax.grad`` gives it through the
+    reference's vmapped ``custom_vjp``."""
 
     @staticmethod
-    def forward(node, v, mode, *tensors):
-        return node.solve_info(v, mode)[0]
+    def forward(node, v, mode, panel, *tensors):
+        return node._solve(v, mode, panel)[0]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        node, _, mode, *tensors = inputs
-        ctx.node, ctx.mode, ctx.tensors = node, mode, tensors
+        node, _, mode, panel, *tensors = inputs
+        ctx.node, ctx.mode, ctx.panel, ctx.tensors = node, mode, panel, tensors
         ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        node, mode = ctx.node, ctx.mode
-        w = node.solve_info(g, compose_modes("H", mode))[0]
-        needs = ctx.needs_input_grad[3:]
+        node, mode, panel = ctx.node, ctx.mode, ctx.panel
+        w = node._solve(g, compose_modes("H", mode), panel)[0]
+        needs = ctx.needs_input_grad[4:]
         d_tensors = [None] * len(needs)
         wanted = [t for t, need in zip(ctx.tensors, needs) if need]
         if wanted:
+            inner = node._inner(mode)
             with torch.enable_grad():
-                y = node._inner(mode).apply(x.detach(), "N")
+                y = (inner.apply(x.detach(), "N") if panel is None else
+                     inner.apply_matrix_t(x.detach(), "N") if panel else
+                     inner.apply_matrix(x.detach(), "N"))
                 grads = iter(torch.autograd.grad(y, wanted, -w, allow_unused=True))
             d_tensors = [next(grads) if need else None for need in needs]
-        return (None, w if ctx.needs_input_grad[1] else None, None, *d_tensors)
+        return (None, w if ctx.needs_input_grad[1] else None, None, None, *d_tensors)
 
 
 class IterativeInverseOperator(LinearOperator):
@@ -440,6 +447,19 @@ class IterativeInverseOperator(LinearOperator):
     restarts) since ``reset_inner_iterations()`` (a 0-dim counter on the
     operator's device that each apply, captured or not, adds into, read when
     asked).
+
+    A block (``apply_matrix`` of an (n, k) column panel, ``apply_matrix_t``
+    of a (k, n) row panel) is one panel solve, as the reference's
+    ``apply_matrix``, a ``jax.vmap`` of the vector apply, is one batched
+    inner loop (``utils/krylov.py::_solve_panel``): every vector keeps its
+    own tolerance, count and budget and freezes once its own test fails, the
+    loop runs while any vector is active, and the operator is applied to the
+    whole panel at each step. So a block apply is one inner loop whatever k
+    is (one while node inside a captured outer block; for GMRES one E2
+    launch per restart for the k Hessenbergs), and each vector is its
+    vector apply within rounding. ``inner_iterations`` adds the vectors'
+    counts, as k vector applies would. There is no column loop to fall back
+    to: a block apply that cannot run as one panel solve raises.
     """
 
     _fields_tensors = ("op",)
@@ -525,27 +545,46 @@ class IterativeInverseOperator(LinearOperator):
     def solve_info(self, v, mode: str = "N"):
         """The inner solve with its diagnostics: ``(x, iterations, final
         residual norm)``."""
+        return self._solve(v, mode, None)
+
+    def _solve(self, v, mode: str, panel):
+        """The inner solve of a vector (``panel`` None), or the panel solve
+        of an (n, k) column panel (False) or a (k, n) row panel (True), with
+        its diagnostics (per vector for a panel)."""
         from ..utils import krylov
 
         inner = self._inner(mode)
         name = self._resolved(inner)
+        kw = dict(tol=self._tol, maxiter=self._maxiter)
+        if name == "gmres":
+            restart = max(1, min(30, self._maxiter))
+            kw = dict(tol=self._tol, restart=restart, maxiter=max(1, self._maxiter // restart))
         with torch.no_grad():
-            if name == "gmres":
-                restart = max(1, min(30, self._maxiter))
-                out = krylov.gmres(inner, v, tol=self._tol, restart=restart,
-                                   maxiter=max(1, self._maxiter // restart))
+            if panel is None:
+                out = getattr(krylov, name)(inner, v, **kw)
             else:
-                out = getattr(krylov, name)(inner, v, tol=self._tol, maxiter=self._maxiter)
-        self._tally(out[1], out[0].device)
+                out = krylov._solve_panel(name, inner, v, rows=panel, **kw)
+        self._tally(out[1] if panel is None else out[1].sum(), out[0].device)
         return out
 
-    def apply(self, v, mode: str = "N"):
+    def _apply(self, v, mode: str, panel):
         if torch.is_grad_enabled():
             # each tensor once, however often the graph holds it
             needs = list({id(t): t for t in _op_tensors(self.op, []) if t.requires_grad}.values())
             if needs or v.requires_grad:
-                return _ImplicitSolve.apply(self, v, mode, *needs)
-        return self.solve_info(v, mode)[0]
+                return _ImplicitSolve.apply(self, v, mode, panel, *needs)
+        return self._solve(v, mode, panel)[0]
+
+    def apply(self, v, mode: str = "N"):
+        return self._apply(v, mode, None)
+
+    def apply_matrix(self, M, mode: str = "N"):
+        """One panel solve for the k columns of M (the class docstring)."""
+        return self._apply(M, mode, False)
+
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """One panel solve for the k rows of Mt, kept as rows."""
+        return self._apply(Mt, mode, True)
 
     def _has_tprod(self):
         return True

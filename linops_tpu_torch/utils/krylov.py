@@ -33,13 +33,22 @@ operator's layout first, so x comes back there (the reference's
 (``comm.Rows``): each step's projections are one local product and one
 all-reduce of the (m + 1)-vector, its norm one more, and the basis is never
 gathered.
+
+``_solve_panel`` runs cg, minres, bicgstab or gmres on the k vectors of a
+panel (an (n, k) block of columns or a (k, n) block of rows) as one loop,
+as ``jax.vmap`` of the vector solve does: each vector keeps its own
+recurrence, tolerance and count and freezes once its own test fails, and
+the operator is applied to the whole panel at each step, with one
+reduction (one all-reduce on a DTensor panel) for the k vectors. It is
+``opIterativeInverse``'s block apply; public ``cg``/``minres`` with a 2-D
+``b`` keep the reference's multi-RHS forms.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.base import LinearOperator
+from ..core.base import LinearOperator, LinearOperatorException
 from ..core.precision import pcolumn_dot, pmatmul, pvdot
 from ..kernels.small_lstsq import small_lstsq
 from ..parallel import comm
@@ -207,20 +216,7 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
                 Vrows.append(w / _nonzero(hj1))
                 cols.append(torch.where(rows == j + 1, hj1.to(dt), hcol))
             return torch.stack(Vrows), torch.stack(cols, dim=1), beta
-        r = R.local(r)
-        beta = R.norm(r)
-        V = torch.zeros((m + 1, r.shape[0]), dtype=dt, device=b.device)
-        H = torch.zeros((m + 1, m), dtype=dt, device=b.device)
-        V[0] = r / _nonzero(beta)
-        for j in range(m):
-            w = R.local(prec(op.apply(R.dtensor(V[j]), "N")))
-            hcol = torch.where(rows <= j, R.psum(pmatmul(V.conj(), w)), zero)
-            w = w - pmatmul(V.T, hcol)
-            hj1 = R.norm(w)
-            V[j + 1] = w / _nonzero(hj1)
-            H[:, j] = hcol
-            H[j + 1, j] = hj1
-        return V, H, beta
+        return _arnoldi(lambda v: R.local(prec(op.apply(R.dtensor(v), "N"))), R.local(r), R, m)
 
     def body(state, consts, _):
         x, _ = state
@@ -235,6 +231,37 @@ def gmres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, restart: int = 3
                                     consts=(b, tol_abs), ops=(op, M), key=("gmres", m),
                                     block=GMRES_BLOCK)
     return x, k, res
+
+
+def _arnoldi(apply, r, R: comm.Rows, m: int):
+    """(V, H, β) of one Arnoldi cycle of m steps with full orthogonalization
+    from r, this rank's rows of one residual (rows,) or of k of them (k,
+    rows) (``R`` their ``comm.Rows``). ``apply`` maps a basis vector (or the
+    k of them) to this rank's rows of its image. The basis V ((m + 1, rows),
+    or (k, m + 1, rows)) is written in place; each step's projections are one
+    local product and one all-reduce, its norm one more."""
+    dt = r.dtype
+    many = r.ndim == 2
+    norm = R.norm_t if many else R.norm
+
+    def mv(A, x):  # A (..., p, q) times x (..., q)
+        return pmatmul(A, x[..., None])[..., 0] if many else pmatmul(A, x)
+
+    rows = torch.arange(m + 1, device=r.device)
+    zero = torch.zeros((), dtype=dt, device=r.device)
+    beta = norm(r)
+    V = torch.zeros((*r.shape[:-1], m + 1, r.shape[-1]), dtype=dt, device=r.device)
+    H = torch.zeros((*r.shape[:-1], m + 1, m), dtype=dt, device=r.device)
+    V[..., 0, :] = r / _nonzero(beta)[..., None].to(dt)
+    for j in range(m):
+        w = apply(V[..., j, :])
+        hcol = torch.where(rows <= j, R.psum(mv(V.conj(), w)), zero)
+        w = w - mv(V.transpose(-1, -2), hcol)
+        hj1 = norm(w)
+        V[..., j + 1, :] = w / _nonzero(hj1)[..., None].to(dt)
+        H[..., :, j] = hcol
+        H[..., j + 1, j] = hj1
+    return V, H, beta
 
 
 class _MinresState:
@@ -258,20 +285,20 @@ class _MinresState:
         return s
 
 
-def _minres_step(op, s: _MinresState, V, R1, R2, W, W2, k, dt, eps, prec, cdot, matrix,
+def _minres_step(apply, s: _MinresState, V, R1, R2, W, W2, k, dt, eps, prec, cdot, expand,
                  act=None):
-    """One Lanczos step and Givens update, for one vector or k columns
-    (per-column scalars broadcast over rows). Returns the new vectors
+    """One Lanczos step and Givens update, for one vector or k of them
+    (``apply`` the operator's apply, ``cdot`` the per-vector dot, ``expand``
+    broadcasts a per-vector scalar over its vector). Returns the new vectors
     (Y, R1, R2, W, W2) and phi, the solution step's coefficient. ``k`` is
     the iteration's index (a 0-dim tensor): step 0 has no previous vector."""
-    expand = (lambda t: t[None, :]) if matrix else (lambda t: t)
     safe_beta = _nonzero(s.beta)
-    Y = op.apply_matrix(V, "N") if matrix else op.apply(V, "N")
+    Y = apply(V)
     Y = torch.where(k >= 1, Y - expand(s.beta / _nonzero(s.oldb)).to(dt) * R1, Y)
     alfa = cdot(V, Y).real  # real for a hermitian operator
     Y = Y - expand(alfa / safe_beta).to(dt) * R2
     R1, R2 = R2, Y
-    Y = prec(R2, matrix=matrix)
+    Y = prec(R2)
     s.oldb = s.beta
     s.beta = torch.sqrt(torch.clamp_min(cdot(R2, Y).real, 0.0))
     # the previous Givens rotation on the new Lanczos column, then the next one
@@ -319,8 +346,8 @@ def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 
         x, Y, R1, R2, W, W2, *scalars = state
         s = _MinresState.of(scalars)
         V = Y / _nonzero(s.beta).to(dt)
-        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec, pvdot,
-                                             matrix=False)
+        Y, R1, R2, W, W2, phi = _minres_step(lambda V: op.apply(V, "N"), s, V, R1, R2, W, W2,
+                                             k, dt, eps, prec, pvdot, lambda t: t)
         return (x + phi * W, Y, R1, R2, W, W2, *s.fields())
 
     init = (x, Y, R1, R1, torch.zeros_like(b), torch.zeros_like(b), *s0.fields())
@@ -348,8 +375,9 @@ def _minres_multi(op: LinearOperator, B, X0=None, *, tol: float = 1e-8, maxiter:
         s = _MinresState.of(scalars)
         act = s.phibar > consts[0]
         V = Y / _nonzero(s.beta)[None, :].to(dt)
-        Y, R1, R2, W, W2, phi = _minres_step(op, s, V, R1, R2, W, W2, k, dt, eps, prec,
-                                             pcolumn_dot, matrix=True, act=act)
+        Y, R1, R2, W, W2, phi = _minres_step(
+            lambda V: op.apply_matrix(V, "N"), s, V, R1, R2, W, W2, k, dt, eps,
+            lambda R: prec(R, matrix=True), pcolumn_dot, lambda t: t[None, :], act=act)
         return (X + phi * W, Y, R1, R2, W, W2, *s.fields())
 
     init = (X, Y, R1, R1, torch.zeros_like(B), torch.zeros_like(B), *s0.fields())
@@ -409,6 +437,237 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
                                       maxiter, consts=(rhat, tol_abs, one), ops=(op, M),
                                       key=("bicgstab",))
     return x, k, torch.linalg.vector_norm(r)
+
+
+# ----------------------------------------------------------------------------
+# Panel solves: k systems of one operator as one loop (opIterativeInverse's
+# block apply)
+# ----------------------------------------------------------------------------
+
+
+class _Panel:
+    """k vectors kept as one panel: an (n, k) block of columns, or with
+    ``rows`` a (k, n) block of rows, applied by the operator's
+    ``apply_matrix`` or ``apply_matrix_t`` (one pass over the operator for
+    the k of them). ``dots`` and ``norm`` reduce each vector: on a DTensor
+    panel one all-reduce for the k vectors (and for every pair ``dots`` is
+    given, as XLA combines the reference's reductions), made whole at once
+    so that nothing after it communicates. ``c`` broadcasts a per-vector
+    scalar (k,) over its vector, ``keep`` freezes the vectors whose flag is
+    off in every state entry it is given (panels and per-vector scalars)."""
+
+    def __init__(self, op, rows: bool):
+        self.op, self.rows, self.axis = op, rows, int(rows)
+
+    def apply(self, P):
+        return self.op.apply_matrix_t(P, "N") if self.rows else self.op.apply_matrix(P, "N")
+
+    def dots(self, *pairs) -> tuple:
+        d = [pcolumn_dot(U, V, dim=self.axis) for U, V in pairs]
+        return tuple(comm._whole_sums(d[0] if len(d) == 1 else torch.stack(d)).reshape(
+            len(d), -1).unbind(0))
+
+    def dot(self, U, V):
+        return self.dots((U, V))[0]
+
+    def norm(self, P):
+        return torch.linalg.vector_norm(P, dim=self.axis)
+
+    def c(self, s):
+        return s[:, None] if self.rows else s[None, :]
+
+    def keep(self, act, new, old) -> tuple:
+        return tuple(torch.where(act if b.ndim == 1 else self.c(act), a, b)
+                     for a, b in zip(new, old))
+
+
+def _panel_while(pn: _Panel, test, body, state: tuple, maxiter: int, consts: tuple, key,
+                 block=None):
+    """``body`` on the k vectors of a panel in one ``loop.device_while``, as
+    ``jax.vmap`` of the vector solve's ``lax.while_loop`` runs it: each
+    vector keeps its own recurrence and count, and freezes once its own
+    ``test`` (a (k,) flag) fails or its count reaches ``maxiter``; the loop
+    runs while any vector is active, in masked blocks of ``block``
+    iterations (``loop.BLOCK`` when None). ``body(state, consts, j, act)``
+    leaves the vectors whose ``act`` is off as they were (every iteration the
+    loop's mask freezes has them all off, so the loop's own ``where`` is
+    skipped). The state carries the per-vector count and flag. Returns
+    (state, per-vector counts)."""
+    act = comm.gather_full(test(state, consts))  # replicated: every rank holds it whole
+    act = act & (maxiter > 0)
+    count = torch.zeros(act.shape, dtype=torch.int64, device=act.device)
+
+    def step(s, c, j):
+        *s, count, act = s
+        new = body(tuple(s), c, j, act)
+        count = count + act.to(torch.int64)
+        return (*new, count, act & test(new, c) & (count < maxiter))
+
+    out, _ = loop.device_while(lambda s, c: s[-1].any(), step, (*state, count, act), maxiter,
+                               consts=consts, ops=(pn.op,), key=key, block=block, keeps=True)
+    return out[:-2], out[-2]
+
+
+def _cg_panel(pn: _Panel, B, tol, maxiter):
+    """``cg`` (no preconditioner, from 0) on each vector of B. A frozen
+    vector's step sizes are 0, so its x and r keep their bits."""
+    X = torch.zeros_like(B)
+    R = B - pn.apply(X)
+    rz = pn.dot(R, R)
+    tol2 = (tol * pn.norm(B)) ** 2
+
+    def body(state, consts, _, act):
+        X, R, P, rz = state
+        AP = pn.apply(P)
+        alpha = pn.c(torch.where(act, rz / pn.dot(P, AP), 0.0))
+        X = torch.addcmul(X, alpha, P)
+        R = torch.addcmul(R, -alpha, AP)
+        rz_new = pn.dot(R, R)  # also ‖r‖², with no preconditioner
+        P = torch.addcmul(R, pn.c(torch.where(act, rz_new / rz, 0.0)), P)
+        return X, R, P, torch.where(act, rz_new, rz)
+
+    (X, _, _, rz), count = _panel_while(pn, lambda s, c: s[3].real > c[0], body, (X, R, R, rz),
+                                        maxiter, (tol2,), ("cg_panel", pn.rows))
+    return X, count, torch.sqrt(rz.real)
+
+
+def _minres_panel(pn: _Panel, B, tol, maxiter):
+    """``minres`` (no preconditioner, from 0) on each vector of B."""
+    dt = B.dtype
+    rdt = torch.empty((), dtype=dt).real.dtype
+    eps = torch.finfo(rdt).eps
+    X = torch.zeros_like(B)
+    R1 = B - pn.apply(X)
+    beta1 = torch.sqrt(torch.clamp_min(pn.dot(R1, R1).real, 0.0))
+    tol_abs = tol * _nonzero(beta1)
+    s0 = _MinresState(beta1, rdt)
+
+    def body(state, consts, k, act):
+        X, Y, R1, R2, W, W2, *scalars = state
+        s = _MinresState.of(scalars)
+        V = Y / pn.c(_nonzero(s.beta)).to(dt)
+        Y, R1, R2, W, W2, phi = _minres_step(pn.apply, s, V, R1, R2, W, W2, k, dt, eps,
+                                             lambda R: R, pn.dot, pn.c)
+        return pn.keep(act, (X + phi * W, Y, R1, R2, W, W2, *s.fields()), state)
+
+    init = (X, R1, R1, R1, torch.zeros_like(B), torch.zeros_like(B), *s0.fields())
+    state, count = _panel_while(pn, lambda st, c: st[6 + _MinresState.PHIBAR] > c[0], body,
+                                init, maxiter, (tol_abs,), ("minres_panel", pn.rows))
+    return state[0], count, state[6 + _MinresState.PHIBAR]
+
+
+def _bicgstab_panel(pn: _Panel, B, tol, maxiter):
+    """``bicgstab`` (no preconditioner, from 0) on each vector of B, with
+    its breakdown rule per vector: the last iterate stays."""
+    rdt = torch.empty((), dtype=B.dtype).real.dtype
+    tiny = torch.finfo(rdt).tiny ** 0.5
+    X = torch.zeros_like(B)
+    R = B - pn.apply(X)
+    tol_abs = tol * _nonzero(pn.norm(B))
+    one = torch.ones(tol_abs.shape, dtype=B.dtype, device=tol_abs.device)
+    brk = torch.zeros(tol_abs.shape, dtype=torch.bool, device=tol_abs.device)
+
+    def body(state, consts, _, act):
+        X, R, P, V, rho, alpha, omega, brk = state
+        rhat, _, one = consts
+        rho_new = pn.dot(rhat, R)
+        beta = (rho_new / rho) * (alpha / omega)
+        P_new = R + pn.c(beta) * (P - pn.c(omega) * V)
+        V_new = pn.apply(P_new)
+        rhv = pn.dot(rhat, V_new)
+        brk_new = (rho_new.abs() <= tiny) | (rhv.abs() <= tiny)
+        alpha_new = rho_new / torch.where(brk_new, one, rhv)
+        S = R - pn.c(alpha_new) * V_new
+        T = pn.apply(S)
+        tt, ts = pn.dots((T, T), (T, S))
+        omega_new = ts / _nonzero(tt)
+        brk_new = brk_new | (omega_new.abs() <= tiny)
+        new = (X + pn.c(alpha_new) * P_new + pn.c(omega_new) * S, S - pn.c(omega_new) * T, P_new,
+               V_new, rho_new, alpha_new, omega_new)
+        # on a breakdown the vector keeps its last iterate (its test then fails)
+        return (*pn.keep(act & ~brk_new, new, state[:7]), torch.where(act, brk_new, brk))
+
+    def test(state, consts):
+        return (pn.norm(state[1]) > consts[1]) & ~state[7]
+
+    zero = torch.zeros_like(B)
+    (X, R, *_), count = _panel_while(pn, test, body, (X, R, zero, zero, one, one, one, brk),
+                                     maxiter, (R, tol_abs, one), ("bicgstab_panel", pn.rows))
+    return X, count, pn.norm(R)
+
+
+def _gmres_panel(pn: _Panel, B, tol, restart, maxiter):
+    """``gmres`` (no preconditioner, from 0) on each vector of B: each
+    restart runs the k Arnoldi cycles at once over one basis buffer (k, m +
+    1, this rank's rows) written in place, and solves the k Hessenberg
+    least-squares problems in one batched ``small_lstsq`` (one E2 launch per
+    restart on the card). A vector's restarts stop once its own residual
+    test fails; one restart a block, as ``GMRES_BLOCK``."""
+    n = B.shape[pn.axis]
+    dt = B.dtype
+    m = min(restart, n)
+    tol_abs = tol * _nonzero(pn.norm(B))
+    R = _panel_rows(B, pn.rows)
+    # the panel as (k, this rank's rows), and back
+    local = (lambda P: R.local_t(P)) if pn.rows else (lambda P: R.local(P).T)
+    whole = (lambda L: R.dtensor_t(L)) if pn.rows else (lambda L: R.dtensor(L.T))
+
+    def body(state, consts, _, act):
+        X, _ = state
+        B = consts[0]
+        V, H, beta = _arnoldi(lambda P: local(pn.apply(whole(P))), local(B - pn.apply(X)), R, m)
+        e1 = torch.where(torch.arange(m + 1, device=B.device) == 0, beta[:, None].to(dt), 0.0)
+        y = small_lstsq(H, e1)
+        X = X + whole(pmatmul(V[:, :m].transpose(1, 2), y[:, :, None])[..., 0])
+        return pn.keep(act, (X, pn.norm(B - pn.apply(X))), state)
+
+    X = torch.zeros_like(B)
+    (X, res), count = _panel_while(pn, lambda s, c: s[1] > c[1], body,
+                                   (X, pn.norm(B - pn.apply(X))), maxiter, (B, tol_abs),
+                                   ("gmres_panel", pn.rows, m), block=GMRES_BLOCK)
+    return X, count, res
+
+
+def _panel_rows(B, rows: bool):
+    """``comm.Rows`` of a DTensor panel's vectors (a row panel's columns
+    split as a column panel's rows are), the identity steps for a plain one."""
+    if not comm.is_dtensor(B):
+        return comm.rows_of(B)
+    from torch.distributed.tensor import Shard
+
+    vector = [Shard(0) if p.is_shard() else p for p in B.placements]
+    return comm.Rows(layout=comm.Layout(B.device_mesh, vector), n=B.shape[int(rows)])
+
+
+@comm.dtensor_entry(place=False)
+def _solve_panel(name: str, op: LinearOperator, B, *, rows: bool = False, tol: float = 1e-8,
+                maxiter: int = 100, restart: int = 30):
+    """The solver ``name`` ("cg", "minres", "bicgstab", "gmres"; no
+    preconditioner, from 0) on the k vectors of an (n, k) column panel B, or
+    with ``rows`` of a (k, n) row panel, as one loop: what ``jax.vmap`` of
+    the vector solve computes (each vector its own recurrence, tolerance
+    and count, frozen once its own test fails), with the operator applied to
+    the panel once per step (``apply_matrix``/``apply_matrix_t``). The
+    iterative inverse's block apply. Returns (X, per-vector iterations
+    (restarts for GMRES), per-vector residuals as the vector solve returns
+    them). A plain panel given with a distributed operator is placed in the
+    operator's layout first (a row panel split along its columns)."""
+    if B.ndim != 2 or B.shape[int(rows)] != op.ncol:
+        raise LinearOperatorException(
+            f"_solve_panel: expected a {'(k, n)' if rows else '(n, k)'} panel with "
+            f"n = {op.ncol}, got {tuple(B.shape)}")
+    lay = comm.layout_of(op)
+    if lay is not None and not comm.is_dtensor(B):
+        from torch.distributed.tensor import Shard
+
+        B = (comm.Layout(lay.mesh, [Shard(1) if p.is_shard() else p for p in lay.placements])
+             if rows else lay).place(B)
+    B = B.to(torch.promote_types(B.dtype, op.dtype))
+    pn = _Panel(op, rows)
+    if name == "gmres":
+        return _gmres_panel(pn, B, tol, restart, maxiter)
+    return {"cg": _cg_panel, "minres": _minres_panel, "bicgstab": _bicgstab_panel}[name](
+        pn, B, tol, maxiter)
 
 
 @comm.dtensor_entry

@@ -920,9 +920,10 @@ def _whole(t):
     return t.full_tensor() if _is_dtensor(t) else t
 
 
-def _while_block(cond, body, state, consts, k, act, lim, n: int):
+def _while_block(cond, body, state, consts, k, act, lim, n: int, keeps: bool = False):
     for _ in range(n):
-        state = _select(act, _call_body(body, state, consts, k, act), state)
+        new = _call_body(body, state, consts, k, act)
+        state = _carry(new, state) if keeps else _select(act, new, state)
         k = k + act.to(k.dtype)
         act = _whole(cond(state, consts)) & (k < lim)
     return state, k, act
@@ -957,7 +958,7 @@ def _plain_while(cond, body, state, consts, maxiter, go, path):
 
 
 def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), ops=(),
-                 key=(), block: int | None = None):
+                 key=(), block: int | None = None, keeps: bool = False):
     """``state = body(state, consts, k)`` while ``cond(state, consts)``
     holds, at most ``maxiter`` times; ``k`` is the iteration's index as a
     0-dim int64 tensor on the state's device. ``consts`` are tensors the
@@ -966,7 +967,10 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
     the path); ``key`` the caller's static arguments the body depends on;
     ``block`` the iterations of a masked block (``BLOCK`` when None). The
     body reads no other tensor made per call: a captured block would replay
-    over it.
+    over it. ``keeps``: the body itself leaves the state of a frozen
+    iteration as it was (a panel solve whose per-member masks cover every
+    iteration the loop's mask freezes), so the loop's ``where`` over the
+    state is skipped.
 
     Returns (state, iterations): an ``int``, or under ``torch.func.vmap`` a
     per-member tensor (every member runs until all have stopped, each frozen
@@ -988,11 +992,11 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
         if outer is not None:
             go = go & outer
         if state[0].is_cuda and torch.cuda.is_current_stream_capturing():
-            return _while_node(cond, body, state, consts, maxiter, go, ops, key, block)
-        return _device_while(cond, body, state, consts, maxiter, go, ops, key, block)
+            return _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps)
+        return _device_while(cond, body, state, consts, maxiter, go, ops, key, block, keeps)
 
 
-def _while_node(cond, body, state, consts, maxiter, go, ops, key, block):
+def _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
     """``device_while`` inside a capture: a CUDA conditional WHILE node
     (``kernels/graph_cond.py``) whose body is one masked block of ``block``
     iterations. Its condition is set from the loop's test by a kernel before
@@ -1017,7 +1021,8 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key, block):
         with graph_cond.while_node(act, _body_stream(dev, depth),
                                    owner.body_memory(depth)) as body_graph:
             owner.bodies.append(body_graph)
-            s_out, k_out, a_out = _while_block(cond, body, bufs, consts, k, act, lim, block)
+            s_out, k_out, a_out = _while_block(cond, body, bufs, consts, k, act, lim, block,
+                                               keeps)
             for b, b2 in zip(bufs, s_out):
                 b.copy_(b2)
             k.copy_(k_out)
@@ -1030,7 +1035,7 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key, block):
     return bufs, k
 
 
-def _device_while(cond, body, state, consts, maxiter, go, ops, key, block):
+def _device_while(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
     path, sig, dist = _path(state + consts, ops)
     if path == "per_iteration":
         return _plain_while(cond, body, state, consts, maxiter, go, path)
@@ -1053,7 +1058,8 @@ def _device_while(cond, body, state, consts, maxiter, go, ops, key, block):
             return state, 0
         if path == "blocks":  # the CPU (or CAPTURE off): eager blocks
             while True:
-                state, k, act = _while_block(cond, body, state, consts, k, act, lim, block)
+                state, k, act = _while_block(cond, body, state, consts, k, act, lim, block,
+                                             keeps)
                 st["blocks"] += 1
                 more, count = _read(torch.stack((act.to(torch.int64), k)))
                 if not more:
@@ -1065,7 +1071,8 @@ def _device_while(cond, body, state, consts, maxiter, go, ops, key, block):
 
             def block(*bufs):
                 s_in, c_in, (k_in, a_in, l_in) = bufs[:ns], bufs[ns:ns + nc], bufs[ns + nc:]
-                s_out, k_out, a_out = _while_block(cond, body, s_in, c_in, k_in, a_in, l_in, n)
+                s_out, k_out, a_out = _while_block(cond, body, s_in, c_in, k_in, a_in, l_in, n,
+                                                   keeps)
                 for s, s2 in zip(s_in, s_out):
                     s.copy_(s2)
                 k_in.copy_(k_out)

@@ -370,8 +370,8 @@ def loop_state_keeps_its_layout(mesh):
     seen = []
     orig = loop._device_while
 
-    def spy(cond, body, state, consts, maxiter, go, ops, key, block):
-        out, k = orig(cond, body, state, consts, maxiter, go, ops, key, block)
+    def spy(cond, body, state, consts, maxiter, go, ops, key, block, *rest):
+        out, k = orig(cond, body, state, consts, maxiter, go, ops, key, block, *rest)
         seen.append((str(key), loop._signature(tuple(state) + tuple(consts))
                      == loop._signature(tuple(out) + tuple(consts))))
         return out, k

@@ -2329,3 +2329,65 @@ def test_nested_gmres_is_a_while_node(dev, loop_mod):
     assert graph_nodes(g.graph.raw_cuda_graph()).get(13, 0) == loop_mod.BLOCK
     assert g.launches.get("small_lstsq", 0) == loop_mod.BLOCK
     assert g.launches.get("while_condition", 0) == 2 * loop_mod.BLOCK
+
+
+# --------------------------------------------------------------------------
+# opIterativeInverse's block apply as one panel solve
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("inner", ["cg", "gmres"])
+def test_block_inverse_in_a_captured_solve_is_one_while_node(dev, loop_mod, inner):
+    """A 4-RHS CG preconditioned by ``opIterativeInverse`` (its M applies
+    are block applies): the captured block holds one while node per outer
+    iteration for the 4 columns, not 4; the outer count, the summed inner
+    iterations and X bit for bit the per-iteration loop's."""
+    A, _, _ = slice1_graph(dev, n=4096)
+    B = torch.randn((4096, 4), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    M = lt.opIterativeInverse(A, tol=1e-2, maxiter=30, solver=inner)
+
+    def solve():
+        M.reset_inner_iterations()
+        X, k, r = lt.cg(A, B, M=M, tol=1e-5, maxiter=100)
+        return X, (k, M.inner_iterations), r
+
+    solve()
+    runs = solve_modes(loop_mod, solve)
+    x0, k0, _ = runs["per_iteration"]
+    for name, (x, k, _) in runs.items():
+        assert k == k0 and torch.equal(x, x0), name
+    assert runs["capture"][2]["while_nodes"] == loop_mod.BLOCK
+    g = loop_mod.last_graph()
+    assert graph_nodes(g.graph.raw_cuda_graph()).get(13, 0) == loop_mod.BLOCK
+    assert len(g.bodies) == loop_mod.BLOCK
+    assert g.launches.get("while_condition", 0) == 2 * loop_mod.BLOCK
+    if inner == "gmres":  # one restart a body, its 4 Hessenbergs in one E2 launch
+        assert g.launches.get("small_lstsq", 0) == loop_mod.BLOCK
+
+
+def test_gmres_panel_launches_e2_once_per_restart(dev, loop_mod):
+    """A GMRES inverse's block apply of 5 columns (restarts of 30): one E2
+    launch per restart of the panel, where the column loop launches one per
+    column and restart; each column within 1e-5 of its vector apply with the
+    same restarts; the cached block (one restart) records one E2 launch."""
+    n = 3000
+    g = torch.Generator(device=dev).manual_seed(9)
+    Ad = torch.randn((n, n), generator=g, device=dev) / n ** 0.5 + 1.2 * torch.eye(n, device=dev)
+    M = lt.opIterativeInverse(lt.LinearOperator(Ad), tol=1e-5, maxiter=150, solver="gmres")
+    Bk = torch.randn((n, 5), generator=g, device=dev)
+    loop_mod.CAPTURE = False  # eager blocks: every launch counted
+    E2.reset_launch_counts()
+    X, counts, _ = M._solve(Bk, "N", False)
+    panel = E2.launch_counts()["small_lstsq"]
+    vec = [M.solve_info(Bk[:, j]) for j in range(5)]
+    assert counts.tolist() == [int(v[1]) for v in vec] and int(counts.max()) > 1
+    assert panel == int(counts.max())
+    assert E2.launch_counts()["small_lstsq"] - panel == int(counts.sum())
+    assert rel_err(X, torch.stack([v[0] for v in vec], dim=1)) <= 1e-5
+    loop_mod.CAPTURE = True
+    loop_mod.clear_cache()
+    M._solve(Bk, "N", False)  # the signature's first solve: the plain loop
+    for _ in range(2):  # the capture, then a replay
+        Y = M.apply_matrix(Bk)
+    assert loop_mod.stats["replays"] > 0 and loop_mod.last_graph().launches["small_lstsq"] == 1
+    assert torch.equal(Y, X)
