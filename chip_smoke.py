@@ -5,7 +5,7 @@
 
 Phases, one line each (plus detail lines), run in the order 1, 2, 3, 4, 6,
 7, 9, 8, 5 (with phase 4's main path rerun under the profiler at its end),
-11, 12, 13, 10, 14, 13h, 15 (15f, E2, after 15a), 13i, 14i, then one profiled slice-1 CG (the times come
+11, 12, 13, 10, 14, 13h, 15 (15f, E2, after 15a), 13i, 14i, 16, then one profiled slice-1 CG (the times come
 after every kernel has been checked; phases 12, 10, 14 and the profiled CG
 come after phase 5 because torch.profiler traces of whole solves, run before
 phase 5, left phase 5's own traces without device time; phases 11 and 12 run
@@ -104,7 +104,8 @@ shows them run but can lose records).
    and the routed values' gradients (the forward program's through N, the
    derived transpose's through T: K7 and K8 in the backward) against the
    plain pipeline's autograd (max|Δ|/max ≤ 1e-5); (f) ``torch.func.vmap``
-   over 8 vectors of K1 and K2 (bit for bit 8 vector applies) and of the
+   over 8 vectors of K1 (once per member) and of Aᵀ (one K2p launch on the
+   batch; both bit for bit 8 vector applies) and of the
    routed N apply (the matrix kind, ≤ 1e-6); (g) ``vmap(cg)`` over 4
    systems of slice 1's size against 4 solves (iterations ±1, |Δx|/|x| ≤
    1e-3); (d) the implicit backward of ``opIterativeInverse(cg, tol 1e-6)``
@@ -161,6 +162,21 @@ shows them run but can lose records).
    wall and CUDA-event µs per iteration, marginal over two lengths). Its
    launches, counted over the panel path's runs alone (not the column
    loop's), must include E2, G1, K7, K9-K11 and E1.
+   16 (after 14i): a BSR operator's block transposes in one launch, as the
+   reference's vmapped K2/K4/K6 are one batched kernel. (a) K2p, K4p and K6p
+   on phase 5's operators (8x128 f32 and bf16, 128x128; the 2^22 banded and
+   band + far cluster window operators) at k = 1, 3, 8, 12, 32: within
+   1e-5 of their plain versions, the same bits on a rerun, bit for bit the
+   vector kernel's column loop; µs in a CUDA graph of 20 and by marginal
+   events beside the column loop, the plain panel and cuSPARSE's SpMM on a
+   CSR of Aᵀ; the window operators' T blocks through estimate_trace(AᵀA).
+   (b) svds(k = 4) of phase 4's B in cached captured blocks against the
+   same solve with B's T/H blocks as the column loop: bit for bit, one K2p
+   launch per H block, µs per iteration both ways. (c) the Nyström sketch of
+   slice 1's graph: one K2p launch per Bᵀ block, plain and through
+   shard_operator at world size 1, bit for bit. (d) the gradient of
+   ½‖Bᵀ M − Y‖² against the plain backend's. Its launches, counted over
+   16's paths alone, must include K2p, K4p and K6p.
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
    each phase-10 solve (GMRES(30) and BiCGSTAB on auto_8m + 8I, damped LSQR,
@@ -3485,14 +3501,16 @@ def phase12(lt, K, LG, dev, card):
     blocks, cols = make_bsr("8x128", f32, dev, scale=(kmax * bn) ** -0.5)
     op = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
     V = torch.stack([dev_vec(N, dev, SEED + 110 + i) for i in range(8)])
-    for mode, kern in (("N", "bsr_matvec"), ("T", "bsr_rmatvec")):
+    # N: K1 once per member; T: one K2p launch on the batch (a row panel), as the
+    # reference's vmap is one batched kernel, bit for bit K2's column loop
+    for mode, want in (("N", {"bsr_matvec": 8}), ("T", {"bsr_rmatmat": 1})):
         reset()
         Y = torch.func.vmap(lambda v, m=mode: op.apply(v, m))(V)
         torch.cuda.synchronize()
         c_vm = {k_: v_ for k_, v_ in counts().items() if v_}
         with torch.no_grad():
             ref = torch.stack([op.apply(v, mode) for v in V])
-        check(torch.equal(Y, ref) and c_vm == {kern: 8},
+        check(torch.equal(Y, ref) and c_vm == want,
               f"12f vmap {mode}: bit-equal {torch.equal(Y, ref)}, launches {c_vm}")
         print(f"[12f vmap] torch.func.vmap over 8 vectors of {'A' if mode == 'N' else 'Aᵀ'}x, "
               f"8x128 n = {N}: bit for bit 8 vector applies; launches {c_vm}", flush=True)
@@ -5399,8 +5417,8 @@ def phase15c(lt, loop, dev, main, spectra):
     (``loop_modes``), with phase 11b's seeds: the same counts and bits as
     their per-iteration loop, and phase 11b's values (which ran the
     per-iteration loop, a signature's first solve). The blocks must hold E1
-    and K2 (svds: the Gram operator's adjoint applies, column by column; its
-    forward matrix apply is the plain gather, as the reference's XLA matmat),
+    and K2p (svds: the Gram operator's adjoint block apply, one panel launch;
+    its forward matrix apply is the plain gather, as the reference's XLA matmat),
     K1 and K2 (normest's vector applies). svds also against the solve with
     torch.linalg.eigh in E1's place (the eigh loop): counts within 1 (its
     tol-1e-4 test may pass an iteration apart), s² within SWAP_ULPS f32 ulps
@@ -5421,7 +5439,7 @@ def phase15c(lt, loop, dev, main, spectra):
 
     out = {}
     for tag, solve, ref, syms in (
-            ("svds(k=4, tol 1e-4)", svd, spectra["svds"], ("rmatvec_chunk_kernel",
+            ("svds(k=4, tol 1e-4)", svd, spectra["svds"], ("rmatmat_chunk_kernel",
                                                              "small_eigh_kernel")),
             ("normest(tol 1e-6)", ne, spectra["normest"], ("bsr_matvec_kernel",
                                                            "rmatvec_chunk_kernel"))):
@@ -5580,6 +5598,347 @@ def phase15d(dev, card):
     return secs
 
 
+# ----------------------------------------------------------------------------
+# Slice 20: a BSR operator's block transposes in one launch (K2p, K4p, K6p)
+# ----------------------------------------------------------------------------
+
+PANEL16_KS = (1, 3, 8, 12, 32)  # 16a: block widths checked
+PANEL16_TIMED = (1, 8, 32)  # 16a: widths timed on the main path's operator (8 elsewhere)
+PANEL_TILE = 8  # the panel kernels' columns per tile (kPanel, csrc/bsr_common.cuh)
+PLAIN16_COLS = 4  # 16a: a 2^22 operator's plain panel computed 4 columns at a time (memory)
+SVDS16_ITERS = 20  # 16b: LOBPCG iterations per timed svds (tol 0), and twice as many
+PANEL16_KERNELS = {  # kernel -> (source, the TPU kernel its vmap batches, 16a's case of record)
+    "bsr_rmatmat": (K1_SOURCE, K2_REPLACES, "8x128 float32"),  # K2p
+    "bsr_rmatmat_windowed": (WIN_SOURCE, WIN_KERNELS["bsr_rmatvec_windowed"][0],
+                             "banded float32"),  # K4p
+    "bsr_rmatmat_multiwin": (WIN_SOURCE, WIN_KERNELS["bsr_rmatvec_multiwin"][0],
+                             "band+cluster float32"),  # K6p
+}
+
+
+def few_ms(fn, short=2, long_=6):
+    """ms per call of a call of many ms: marginal CUDA events over ``short``
+    and ``long_`` calls, the median of REPS."""
+    fn()
+    torch.cuda.synchronize()
+    return float(np.median([(event_ms(fn, long_) - event_ms(fn, short)) / (long_ - short)
+                            for _ in range(REPS)]))
+
+
+def column_transposes(lt, B):
+    """B with its T and H blocks as the column loop the port ran before K2p
+    (a stack of vector applies, one K2 launch a column) and its N block B's
+    own (``bsr_matmat``): 16b's yardstick, capture-safe."""
+    class ColumnTransposes(lt.FunctionOperator):
+        def apply_matrix(self, M, mode="N"):
+            return B.apply_matrix(M, "N") if mode == "N" else super().apply_matrix(M, mode)
+
+    return ColumnTransposes(B.nrow, B.ncol, lambda v: B.apply(v, "N"),
+                            lambda u: B.apply(u, "T"), dtype=B.dtype, capture_safe=True)
+
+
+def column_plan(plan):
+    """The tensors of a column plan a transpose kernel reads."""
+    return plan.perm, plan.chunk_ptr, plan.chunk_col, plan.col_chunk, plan.combine_cols
+
+
+def panel16_cases(lt, K, dev):
+    """16a's operators, one at a time (tag, kernel name, panel(U),
+    plain(U), vector(u), rows of U, blocks, the plan tensors the kernel
+    reads, the CSR of Aᵀ maker, the operator or None): phase 5's 8x128 (f32,
+    bf16) and 128x128 (f32) operators (K2p), the 2^22 banded (K4p) and band
+    + far cluster (K6p) window operators (f32)."""
+    from linops_tpu_torch.core.segsum import segment_plan
+
+    for name, dtype in (("8x128", torch.float32), ("8x128", torch.bfloat16),
+                        ("128x128", torch.float32)):
+        bm, bn, _ = SHAPES[name]
+        nbcol = N // bn
+        blocks, cols = make_bsr(name, dtype, dev)
+        plan = K.bsr_column_plan(cols, nbcol, bm * bn * blocks.element_size())
+        seg = segment_plan(cols, nbcol)
+        yield (f"{name} {str(dtype)[6:]}", "bsr_rmatmat",
+               lambda U: K.bsr_rmatmat_kernel(blocks, cols, U, nbcol, plan=plan),
+               lambda U: K.bsr_rmatmat_plain(blocks, cols, U, nbcol, plan=seg),
+               lambda u: K.bsr_rmatvec_kernel(blocks, cols, u.reshape(-1, bm), nbcol,
+                                              plan=plan).reshape(-1),
+               N, blocks, (cols, *column_plan(plan)), lambda: csr_t_of_bsr(K, blocks, cols, nbcol),
+               None)
+        del blocks, cols, plan, seg
+        free()
+    for wname in ("banded", "band+cluster"):
+        op = win_operator(lt, wname, torch.float32, dev, SEED + 30)
+        d, nbcol = op.data, WIN_N // 128
+        if op.cols_local is not None:
+            kern, win = "bsr_rmatmat_windowed", dict(wb=op._wb, x_pad_blocks=op._x_pad_blocks,
+                                                     nbcol=nbcol)
+            args = (d.blocks, op.cols_local, op.win_q)
+            panel = lambda U: K.bsr_rmatmat_windowed_kernel(  # noqa: E731
+                *args, U, index=(op.t_perm, op.t_ptr), **win)
+            plain = lambda U: K.bsr_rmatmat_windowed_plain(  # noqa: E731
+                *args, U, sum_plan=op.plain_transpose_plan(), **win)
+            reads = (op.cols_local, op.win_q, op.t_perm, op.t_ptr)
+        else:
+            kern, win = "bsr_rmatmat_multiwin", dict(wb=op._wb, x_pad_blocks=op._x_pad_blocks_t,
+                                                     nbcol=nbcol)
+            args = (d.blocks, d.block_cols, op.win_q_t, op.win_valid_t)
+            panel = lambda U: K.bsr_rmatmat_multiwin_kernel(  # noqa: E731
+                *args, U, index=op.t_plan, **win)
+            plain = lambda U: K.bsr_rmatmat_multiwin_plain(  # noqa: E731
+                *args, U, sum_plan=op.plain_transpose_plan(), **win)
+            reads = (d.block_cols, op.win_q_t, op.win_valid_t, *column_plan(op.t_plan))
+
+        def pieces(U, plain=plain):  # the plain panel, PLAIN16_COLS columns at a time
+            return torch.cat([plain(U[:, j:j + PLAIN16_COLS])
+                              for j in range(0, U.shape[1], PLAIN16_COLS)], dim=1)
+
+        yield (f"{wname} float32", kern, panel, pieces,
+               lambda u, op=op: win_kernel(K, op, ub=u.reshape(-1, 8)).reshape(-1),
+               d.blocks.shape[0] * 8, d.blocks, reads,
+               lambda d=d, nbcol=nbcol: csr_t_of_bsr(K, d.blocks, d.block_cols, nbcol), op)
+        del op, d, args, panel, plain, pieces
+        free()
+
+
+def phase16(lt, loop, mods, dev, card, main, spectra):
+    """A BSR operator's block transposes in one launch (f32 unless named).
+    (a) K2p, K4p and K6p (``bsr_rmatmat*_kernel``) on ``panel16_cases`` at k
+    in PANEL16_KS: within KERNEL_RTOL of the plain panel (the 2^22
+    operators' PLAIN16_COLS columns at a time), the same bits on a rerun,
+    bit for bit the vector kernel's column loop, a row panel's transposed
+    view the same bits, laid out in rows; µs per call in a CUDA graph of 20
+    and by marginal CUDA events beside the column loop's, the plain panel's
+    and cuSPARSE's SpMM (``spmm_time``) at k = 8 (the main path's operator
+    also at 1 and 32); the bound: bytes of
+    the blocks, U, the result and the plan read once (the kernels' own: the
+    blocks once per tile of PANEL_TILE columns) against 2 nnz k f32
+    operations. The window operators' T blocks also through
+    ``estimate_trace(AᵀA)`` (8 Hutchinson probes: one panel launch), within
+    6 standard errors of ‖A‖_F². (b) svds(k = 4, tol 1e-4) of phase 4's B in
+    cached captured blocks (``loop_modes``) and the same with B's T/H
+    blocks through ``column_transposes``: s and V bit for bit both ways, s
+    within 1e-4 of phase 11b's, iterations ±1; per cached block, K2p
+    launches against K2's (1 against the block's width, per H block); wall
+    and CUDA-event µs per iteration of both, marginal over SVDS16_ITERS and
+    twice as many. (c) the Nyström sketch of slice 1's graph ((A + Aᴴ)/2,
+    rank 20, 13i e's seed): one K2p launch per Bᵀ block (two: one in each
+    term) and no K2, plain and through ``shard_operator`` at world size 1,
+    U and λ bit for bit. (d) the gradient of ½‖Bᵀ M − Y‖² in the blocks and
+    in M (8 columns) against the plain backend's autograd within
+    KERNEL_RTOL: one K2p launch forward; the backward's M-gradient one N
+    block (``bsr_matmat``, no kernel), the blocks' gradient a gather and an
+    outer product. Launches are counted over 16's paths alone (``on_path``:
+    (a)'s estimates, (b)'s panel solves, (c), (d)); 16a's checks and the
+    yardsticks stay out. Returns (kernel records, launches)."""
+    from linops_tpu_torch.kernels import bsr_spmv as K
+    from linops_tpu_torch.parallel import make_mesh, shard_operator
+    from linops_tpu_torch.utils.eig import nystrom_preconditioner
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    launches, rec = {}, {}
+
+    def on_path(fn):
+        for m_ in mods:
+            m_.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, c_ in all_launches(mods).items():
+            launches[name] = launches.get(name, 0) + c_
+        return out
+
+    # --- 16a. the panel kernels against their plain versions and column loops -------------
+    for tag, kern, panel, plain, vector, rows, blocks, reads, csr_t, op in panel16_cases(
+            lt, K, dev):
+        errs, worst = {}, 0.0
+        for k in PANEL16_KS:
+            U = torch.randn((rows, k), device=dev)
+            P = panel(U)
+            P2 = panel(U)
+            torch.cuda.synchronize()
+            loop_ = torch.stack([vector(U[:, j].contiguous()) for j in range(k)], dim=1)
+            Pr = panel(U.t().contiguous().t())
+            ref = plain(U)
+            errs[k] = rel_err(P, ref)
+            check(torch.isfinite(P).all() and tuple(P.shape) == (loop_.shape[0], k)
+                  and errs[k] <= KERNEL_RTOL and torch.equal(P, P2) and torch.equal(P, loop_)
+                  and torch.equal(Pr, P) and Pr.t().is_contiguous(),
+                  f"16a {kern} {tag} k={k}: {errs[k]:.2e} from the plain panel (limit "
+                  f"{KERNEL_RTOL:g}), rerun {torch.equal(P, P2)}, column loop "
+                  f"{torch.equal(P, loop_)}, row panel {torch.equal(Pr, P)} "
+                  f"(in rows: {Pr.t().is_contiguous()})")
+            if k == 8:
+                worst = float((P - ref).abs().max())
+            del U, P, P2, loop_, Pr, ref
+        times = {}
+        for k in (PANEL16_TIMED if kern == "bsr_rmatmat" and tag == "8x128 float32" else (8,)):
+            U = torch.randn((rows, k), device=dev)
+            long_call = blocks.numel() > 1 << 28  # the 2^22 operators
+            t_ = dict(graph=graph_ms(lambda: panel(U)),
+                      events=(few_ms if long_call else marginal_ms)(lambda: panel(U)),
+                      loop_graph=graph_ms(lambda: [vector(U[:, j]) for j in range(k)]),
+                      loop_events=(few_ms if long_call else marginal_ms)(
+                          lambda: [vector(U[:, j]) for j in range(k)]))
+            P = panel(U)
+            t_["bound"] = bound_ms(nbytes(blocks, U, P, *reads), 2 * blocks.numel() * k)
+            t_["design_bound"] = bound_ms(nbytes(blocks) * -(-k // PANEL_TILE)
+                                          + nbytes(U, P, *reads), 2 * blocks.numel() * k)
+            if k == 8:
+                t_["plain"] = few_ms(lambda: plain(U), 1, 3) if long_call else \
+                    marginal_ms(lambda: plain(U))
+                t_["library"], t_["library_err"], t_["library_note"] = spmm_time(
+                    csr_t, U, plain(U), few_ms if long_call else marginal_ms)
+            times[k] = t_
+            del U, P
+        if op is not None:  # the window operator's T block on a path: estimate_trace(AᵀA)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 160)
+            before = launches.get(kern, 0)
+            tr, se = on_path(lambda: lt.estimate_trace(op.T @ op, probes=8, method="hutchinson",
+                                                       generator=gen))
+            fro2 = float(op.data.blocks.double().pow(2).sum())
+            check(launches.get(kern, 0) - before == 1 and abs(float(tr) - fro2) <= 6 * float(se),
+                  f"16a {tag}: estimate_trace(AᵀA) {float(tr)} ± {float(se)} against ‖A‖_F² "
+                  f"{fro2}, {launches.get(kern, 0) - before} {kern} launches")
+            times["trace"] = (float(tr), float(se), fro2)
+        rec[(kern, tag)] = dict(errs=errs, max_abs_err=worst, times=times)
+        t8 = times[8]
+        print(f"[16a panel kernels] {kern} {tag}: max|Δ|/max|y| against the plain panel "
+              + ", ".join(f"k={k} {e:.2e}" for k, e in errs.items())
+              + f" (limit {KERNEL_RTOL:g}); every k bit for bit the vector kernel's column loop, "
+              f"the same bits on a rerun and through a row panel's view (its result in rows); "
+              + "; ".join(f"k={k}: {t_['graph'] * 1e3:.1f} us in a graph of 20, "
+                          f"{t_['events'] * 1e3:.1f} us by events, column loop "
+                          f"{t_['loop_graph'] * 1e3:.1f} / {t_['loop_events'] * 1e3:.1f} us, "
+                          f"bound {t_['bound'][0] * 1e3:.1f} us ({t_['bound'][1]}; "
+                          f"blocks once per {PANEL_TILE} columns: "
+                          f"{t_['design_bound'][0] * 1e3:.1f} us)"
+                          for k, t_ in times.items() if k != "trace")
+              + f"; k=8 plain {t8['plain'] * 1e3:.1f} us"
+              + (f" ({PLAIN16_COLS} columns at a time)" if op is not None else "")
+              + f", cuSPARSE SpMM on a CSR of Aᵀ "
+              + ("null" if t8["library"] is None else f"{t8['library'] * 1e3:.1f} us")
+              + f" ({t8['library_note']})"
+              + (f"; estimate_trace(AᵀA, 8 probes) {times['trace'][0]:.6e} ± "
+                 f"{times['trace'][1]:.2e} against ‖A‖_F² {times['trace'][2]:.6e}, one {kern} "
+                 "launch" if op is not None else "")
+              + f"; {card}", flush=True)
+        del panel, plain, vector, blocks, reads, csr_t, op
+        free()
+
+    # --- 16b. svds of phase 4's B: one K2p launch per H block ------------------------------
+    B = lt.BSROperator(lt.BSR(main["blocks"], main["cols"], (N, N)))
+    Bc = column_transposes(lt, B)
+    gen = torch.Generator(device=dev)
+
+    def svd(op, tol=1e-4, maxiter=150):
+        gen.manual_seed(SEED + 113)
+        _, s_, V_, sres, it_ = lt.svds(op, k=4, tol=tol, maxiter=maxiter, generator=gen)
+        return torch.cat([s_, V_.reshape(-1)]), it_, sres
+
+    out_b = {}
+    for name, op in (("panel", B), ("columns", Bc)):
+        tag = (f"16b svds(k=4, tol 1e-4) of phase 4's B (n = {N})"
+               + (" with its T/H blocks as the column loop" if name == "columns" else ""))
+        run = on_path if name == "panel" else (lambda f: f())
+        r = run(lambda op=op, tag=tag: loop_modes(loop, tag, lambda: svd(op), phase="16b"))
+        x, it, _ = svd(op)
+        for it_ in (SVDS16_ITERS, 2 * SVDS16_ITERS):  # each length's plain solve and capture
+            got = [svd(op, 0.0, it_)[1] for _ in range(2)]
+            check(got == [it_, it_], f"16b {name}: svds ran {got} iterations, not {it_}")
+        r["marginal"] = marginal_us(lambda n_, op=op: svd(op, 0.0, n_), SVDS16_ITERS,
+                                    2 * SVDS16_ITERS)
+        out_b[name] = dict(r, x=x, it=it)
+    rp, rc = out_b["panel"], out_b["columns"]
+    hp, hc = rp["held"], rc["held"]
+    width = hc.get("bsr_rmatvec", 0) / max(hp.get("bsr_rmatmat", 0), 1)
+    s0 = float(rp["x"][0])
+    check(torch.equal(rp["x"], rc["x"]) and rp["it"] == rc["it"]
+          and abs(s0 - spectra["svds"]) <= 1e-4 * abs(spectra["svds"])
+          and abs(rp["it"] - spectra["svds_it"]) <= 1,
+          f"16b: s₀ {s0} ({rp['it']} iterations) against the column loop's {float(rc['x'][0])} "
+          f"({rc['it']}) and phase 11b's {spectra['svds']} ({spectra['svds_it']})")
+    check(hp.get("bsr_rmatmat", 0) > 0 and hp.get("bsr_rmatvec", 0) == 0
+          and hc.get("bsr_rmatmat", 0) == 0 and width >= 2,
+          f"16b: the panel's cached block recorded {hp}, the column loop's {hc}")
+    rec["16b"] = dict(panel=rp, columns=rc, width=width)
+    (wp, ep), (wc, ec) = rp["marginal"], rc["marginal"]
+    print(f"[16b svds panels] svds(k=4, tol 1e-4) of phase 4's B: {rp['it']} iterations, s₀ "
+          f"{s0:.9f} (phase 11b {spectra['svds']:.9f}), s and V bit for bit with the column "
+          f"loop's T/H blocks; per cached block of {loop.BLOCK} iterations K2p "
+          f"{hp.get('bsr_rmatmat', 0)} launches (one per H block) against K2's "
+          f"{hc.get('bsr_rmatvec', 0)} ({width:.2f} per H block); per iteration (marginal over "
+          f"{SVDS16_ITERS} and {2 * SVDS16_ITERS}): panel wall {wp:.1f} us, CUDA events "
+          f"{ep:.1f} us; column loop wall {wc:.1f} us, events {ec:.1f} us (event ratio "
+          f"{ep / ec:.3f}); trace readings (loop_modes): busy {rp['busy'][1]:.2f} panel, "
+          f"{rc['busy'][1]:.2f} column loop; {card}", flush=True)
+    del B, Bc, out_b
+    free()
+
+    # --- 16c. the Nyström sketch of slice 1's graph: one K2p launch per Bᵀ block ----------
+    mesh = make_mesh()
+    Ah = main["A"].hermitianized()
+    sk = {}
+    for name, op in (("plain", Ah), ("sharded", shard_operator(Ah, mesh))):
+        before = {k_: launches.get(k_, 0) for k_ in ("bsr_rmatmat", "bsr_rmatvec")}
+        gen.manual_seed(SEED + 122)  # 13i e's seed
+        P = on_path(lambda op=op: nystrom_preconditioner(op, 20, generator=gen))
+        sk[name] = (P.U.full_tensor() if hasattr(P.U, "full_tensor") else P.U,
+                    P.lam.full_tensor() if hasattr(P.lam, "full_tensor") else P.lam)
+        got = {k_: launches.get(k_, 0) - before[k_] for k_ in before}
+        check(got == {"bsr_rmatmat": 2, "bsr_rmatvec": 0},
+              f"16c {name}: the sketch launched {got}, not one K2p per Bᵀ block (two)")
+        del P
+    U_p, lam_p = sk["plain"]
+    U_s, lam_s = sk["sharded"]
+    check(torch.equal(U_p, U_s) and torch.equal(lam_p, lam_s) and torch.isfinite(lam_p).all(),
+          "16c: the sharded sketch differs from the unsharded one")
+    print(f"[16c nystrom panels] the Nyström sketch (rank 20) of slice 1's graph (A + Aᴴ)/2: "
+          f"one K2p launch per Bᵀ block (2: one in each term), no K2; through shard_operator at "
+          f"world size 1 the same launches and U, λ bit for bit; λ₀ {float(lam_p[0]):.6e}; "
+          f"{card}", flush=True)
+    del Ah, sk, U_p, U_s
+
+    # --- 16d. the gradient of ½‖Bᵀ M − Y‖² ----------------------------------------------
+    g16 = torch.Generator(device=dev).manual_seed(SEED + 161)
+    M = torch.randn((N, 8), generator=g16, device=dev)
+    Y = torch.randn((N, 8), generator=g16, device=dev)
+    grads, calls = {}, []
+    n_block = lt.BSROperator._nmat_impl
+    for backend in ("auto", "torch"):
+        leaf = main["blocks"].detach().clone().requires_grad_(True)
+        Bg = lt.BSROperator(lt.BSR(leaf, main["cols"], (N, N)), backend=backend)
+        Mg = M.clone().requires_grad_(True)
+        if backend == "auto":
+            loss = on_path(lambda: 0.5 * (Bg.apply_matrix(Mg, "T") - Y).pow(2).sum())
+            fwd = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+            lt.BSROperator._nmat_impl = lambda *a, **kw: calls.append(1) or n_block(*a, **kw)
+            try:
+                grads[backend] = on_path(lambda: torch.autograd.grad(loss, (Mg, leaf)))
+            finally:
+                lt.BSROperator._nmat_impl = n_block
+            bwd = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+        else:
+            loss = 0.5 * (Bg.apply_matrix(Mg, "T") - Y).pow(2).sum()
+            grads[backend] = torch.autograd.grad(loss, (Mg, leaf))
+        del leaf, Bg, Mg, loss
+    (gM, gB), (gM_p, gB_p) = grads["auto"], grads["torch"]
+    e_M, e_B = rel_err(gM, gM_p), rel_err(gB, gB_p)
+    check(fwd == {"bsr_rmatmat": 1} and bwd == {} and calls == [1]
+          and e_M <= KERNEL_RTOL and e_B <= KERNEL_RTOL,
+          f"16d: forward launches {fwd}, backward {bwd} with {len(calls)} N blocks; gradients "
+          f"{e_M:.2e} (M), {e_B:.2e} (blocks) from the plain backend's (limit {KERNEL_RTOL:g})")
+    print(f"[16d panel gradient] ½‖Bᵀ M − Y‖², M (n, 8): forward launches {fwd}; backward: one "
+          f"N block (bsr_matmat, no kernel) for M, a gather and an outer product for the "
+          f"blocks, launches {bwd or 'none'}; against the plain backend's autograd: M "
+          f"{e_M:.2e}, blocks {e_B:.2e} (limit {KERNEL_RTOL:g}); {card}", flush=True)
+    del grads, gM, gB, gM_p, gB_p, M, Y
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"[16 block transposes] launches on 16's paths {launches}; {seconds:.1f} s", flush=True)
+    return rec, launches
+
+
 def csr_of_bsr(blocks, cols, ncol):
     """A as a ``torch.sparse_csr_tensor`` with int32 indices, on the blocks'
     device: the blocks' values row by row (one copy), the column array made
@@ -5628,7 +5987,7 @@ def csr_t_of_bsr(K, blocks, cols, nbcol, piece=1 << 14):
 
 
 def library_time(what, build, v, ref):
-    """ms of one cuSPARSE CSR matvec through ``torch.mv`` on the CSR that
+    """ms of one cuSPARSE CSR matvec ``torch.mv(A, v)`` on the CSR that
     ``build()`` makes once, outside the timing, after a check against
     ``ref``: (ms, None), or (None, the reason) where PyTorch refuses the
     call, memory runs out or the result disagrees. Timed only here; the port
@@ -5651,6 +6010,44 @@ def library_time(what, build, v, ref):
         free()
     print(f"[5 times] {what}'s library call: {reason}; recorded as null", flush=True)
     return None, reason
+
+
+def spmm_time(build, U, ref, timer):
+    """16a's yardstick: ms of one cuSPARSE SpMM ``torch.sparse.mm(Aᵀ, U)`` on
+    the CSR of Aᵀ that ``build()`` makes once, outside the timing, with U
+    row-major and column-major (``U.t().contiguous().t()``), each timed by
+    ``timer``; the faster is kept. A yardstick, not a check: each layout's
+    max relative error against the plain panel ``ref`` is reported beside
+    its time (cuSPARSE sums in f32 in an order of its own). Returns (ms,
+    that layout's error, a note on both layouts), or (None, None, the
+    reason) where PyTorch refuses both or memory runs out. Timed only here;
+    the port never calls it."""
+    import warnings
+
+    A, runs, notes = None, {}, []
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            A = build()
+            for layout, Ul in (("row-major", U), ("column-major", U.t().contiguous().t())):
+                try:
+                    e = rel_err(torch.sparse.mm(A, Ul), ref)
+                    runs[layout] = (timer(lambda: torch.sparse.mm(A, Ul)), e)
+                    notes.append(f"U {layout}: {runs[layout][0] * 1e3:.1f} us, max rel err "
+                                 f"{e:.2e} against the plain panel")
+                except RuntimeError as err:  # includes torch.cuda.OutOfMemoryError
+                    notes.append(f"U {layout}: refused: {type(err).__name__}: "
+                                 f"{str(err).splitlines()[0][:120]}")
+                del Ul
+    except RuntimeError as err:
+        notes.append(f"the CSR of Aᵀ: {type(err).__name__}: {str(err).splitlines()[0][:120]}")
+    finally:
+        del A
+        free()
+    if not runs:
+        return None, None, "; ".join(notes)
+    ms, e = min(runs.values())
+    return ms, e, "; ".join(notes)
 
 
 def library_ms(blocks, cols, xb, ub, K):
@@ -5978,6 +6375,11 @@ def main() -> int:
     for name in ("small_lstsq", "while_condition", "lane_gather", "lane_gather_mul_t_batched",
                  "lane_gather_sum", "lane_segsum", "small_eigh"):
         check(l14i.get(name, 0) > 0, f"{name} never ran on the 14i path (panel solves)")
+    # --- 16. a BSR operator's block transposes in one launch (K2p, K4p, K6p) --------------
+    r16, l16 = phase16(lt, loop_mod, (K, LG, E1, E2, GC), dev, card,
+                       {"blocks": blocks, "cols": cols, "A": A}, slice6["spectra"])
+    for name in PANEL16_KERNELS:
+        check(l16.get(name, 0) > 0, f"{name} never ran on the 16 path (block transposes)")
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
     # comes after phase 5's profiler readings, as phase 10's do), its blocks
@@ -6084,11 +6486,32 @@ def main() -> int:
                     "replaces_note": "no pallas_call site: the jnp.linalg.lstsq XLA lowers in the "
                                      "reference's GMRES restart; plain version: torch.linalg.svd "
                                      "at jnp.linalg.lstsq's cutoff"})
-    for row in kernels:  # launches inside phase 12's backward passes, on 13h's, 13i's and 14i's paths
+    for name, (source, replaces, case) in PANEL16_KERNELS.items():
+        r_ = r16[(name, case)]
+        t = r_["times"][8]
+        row = {**entry(name, source, replaces, l16[name], r_["max_abs_err"], t["events"],
+                       t["plain"], t["bound"], t["library"]),
+               "timing": "marginal CUDA events", "graph_ms": t["graph"],
+               "column_loop_ms": t["loop_events"], "column_loop_graph_ms": t["loop_graph"],
+               "shape": f"{case}, a block of k = 8 columns",
+               "launches_from": "phase 16: 16a's estimate_trace of the window operators, 16b's "
+                                "svds, 16c's Nyström sketches, 16d's gradient",
+               "library_call": "torch.sparse.mm on a CSR of Aᵀ built once, U dense (n, 8), "
+                               "row-major and column-major: the faster",
+               "library_max_rel_err": t["library_err"],
+               "replaces_note": "the reference applies a block in this mode as jax.vmap of the "
+                                "vector kernel: one batched pallas_call of the site named"}
+        if name != "bsr_rmatmat":
+            row["plain_note"] = f"the plain panel {PLAIN16_COLS} columns at a time (memory)"
+        if t["library_note"]:
+            row["library_note"] = t["library_note"]
+        kernels.append(row)
+    for row in kernels:  # launches inside phase 12's backward passes, on 13h's, 13i's, 14i's and 16's paths
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
         row["launches_13h"] = sum(c_.get(row["name"], 0) for c_ in dt_launches.values())
         row["launches_13i"] = l13i.get(row["name"], 0)
         row["launches_14i"] = l14i.get(row["name"], 0)
+        row["launches_16"] = l16.get(row["name"], 0)
     tally = collections.Counter(n for n, _ in TRACES_TAKEN)
     lossy = collections.Counter((h, t) for h, t, _ in SPINS_LOST if h or t)
     missed = [(h, t) for h, t, hit in SPINS_LOST if hit is False]

@@ -109,15 +109,18 @@ class KernelApply(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, op, how, x, *tensors):
         """A batch of x over unbatched operator tensors runs the operator's
-        batched kind where it has one (``op._kernel_batch_kind``: the routed
-        operators' matrix kind, a row panel of the B vectors), else the
-        kernel once per member; batched operator tensors (a batch of
-        operators) run once per member. Every member goes through the same
-        kernels as an unbatched apply."""
+        batched kind where it has one (``op._kernel_batch_kind``, one kind or
+        one per mode: a row panel of the B vectors, for every mode of a
+        routed operator, for T of a BSR operator), else the kernel once per
+        member; batched operator tensors (a batch of operators) run once per
+        member. Every member goes through the same kernels as an unbatched
+        apply, or its block form."""
         x_dim, t_dims = in_dims[2], in_dims[3:]
         n = info.batch_size
         if x_dim is not None and all(d is None for d in t_dims):
             batch_kind = getattr(op, "_kernel_batch_kind", None)
+            if isinstance(batch_kind, dict):
+                batch_kind = batch_kind.get(how[0])
             if how[1] == "vec" and batch_kind is not None:
                 return _node(op, (how[0], batch_kind), x.movedim(x_dim, 0), tensors), 0
         outs = [_node(op, how, x if x_dim is None else x.select(x_dim, i),

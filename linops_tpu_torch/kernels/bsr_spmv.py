@@ -9,12 +9,18 @@ Counterparts of ``linops_tpu/kernels/bsr_spmv.py``:
 - ``bsr_matvec_multiwin_kernel`` replaces ``bsr_matvec_pallas_multiwin`` (K5);
 - ``bsr_rmatvec_multiwin_kernel`` replaces ``bsr_rmatvec_pallas_multiwin`` (K6).
 
+Their panel forms, the block apply of a transpose (the reference runs
+``jax.vmap`` of the vector kernel there, one batched ``pallas_call``):
+``bsr_rmatmat_kernel`` (K2p), ``bsr_rmatmat_windowed_kernel`` (K4p) and
+``bsr_rmatmat_multiwin_kernel`` (K6p), each on the plan of its vector kernel,
+column j bit for bit the vector kernel applied to column j.
+
 K3-K6 consume the reference's window plans (``bsr_window_plan``,
 ``bsr_window_plan_multi``, ``bsr_window_plan_multi_t``: host numpy, copied
 from the reference so the same operator gets the same plan).
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` in ``csrc/bsr_spmv.cu``
-(K1, K2) and ``csrc/bsr_window.cu`` (K3-K6), design notes there, built with
+(K1, K2, K2p) and ``csrc/bsr_window.cu`` (K3-K6, K4p, K6p), design notes there, built with
 ``nvcc`` at first use (``build.py``). Each
 wrapper dispatches on the device of the tensors it is given: CPU tensors take
 the plain PyTorch version beside it; CUDA tensors launch the kernel or raise.
@@ -48,6 +54,9 @@ __all__ = [
     "bsr_rmatvec_windowed_kernel",
     "bsr_matvec_multiwin_kernel",
     "bsr_rmatvec_multiwin_kernel",
+    "bsr_rmatmat_kernel",
+    "bsr_rmatmat_windowed_kernel",
+    "bsr_rmatmat_multiwin_kernel",
     "bsr_matvec_plain",
     "bsr_rmatvec_plain",
     "bsr_matmat_plain",
@@ -56,6 +65,9 @@ __all__ = [
     "bsr_rmatvec_windowed_plan",
     "bsr_matvec_multiwin_plain",
     "bsr_rmatvec_multiwin_plain",
+    "bsr_rmatmat_plain",
+    "bsr_rmatmat_windowed_plain",
+    "bsr_rmatmat_multiwin_plain",
     "bsr_column_index",
     "bsr_column_plan",
     "BSRColumnPlan",
@@ -81,16 +93,20 @@ __all__ = [
 # without the wrapper and is not counted (``utils/loop.py``)
 _LAUNCHES = {"bsr_matvec": 0, "bsr_rmatvec": 0, "bsr_matvec_windowed": 0,
              "bsr_rmatvec_windowed": 0, "bsr_matvec_multiwin": 0,
-             "bsr_rmatvec_multiwin": 0}
+             "bsr_rmatvec_multiwin": 0, "bsr_rmatmat": 0, "bsr_rmatmat_windowed": 0,
+             "bsr_rmatmat_multiwin": 0}
 loop.register_launches(_LAUNCHES)
 # kernel name -> the device function each of its launches runs once: the name
-# a profiler trace or a CUDA graph's kernel node gives it (K2, K4 and K6 also
-# run a combine pass)
+# a profiler trace or a CUDA graph's kernel node gives it (K2, K4, K6 and
+# their panel forms also run a combine pass)
 LAUNCH_SYMBOLS = {"bsr_matvec": "bsr_matvec_kernel", "bsr_rmatvec": "rmatvec_chunk_kernel",
                   "bsr_matvec_windowed": "bsr_matvec_windowed_kernel",
                   "bsr_rmatvec_windowed": "windowed_combine_kernel",
                   "bsr_matvec_multiwin": "bsr_matvec_multiwin_kernel",
-                  "bsr_rmatvec_multiwin": "multiwin_chunk_kernel"}
+                  "bsr_rmatvec_multiwin": "multiwin_chunk_kernel",
+                  "bsr_rmatmat": "rmatmat_chunk_kernel",
+                  "bsr_rmatmat_windowed": "windowed_panel_combine_kernel",
+                  "bsr_rmatmat_multiwin": "multiwin_panel_chunk_kernel"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (block dtype, vector/output dtype) pairs the kernels are instantiated for
@@ -194,6 +210,22 @@ def bsr_rmatvec_plain(blocks, block_cols, u_blocks, nbcol: int, plan=None):
     return segment_sum(contrib.reshape(-1, bn), plan).to(res)
 
 
+def bsr_rmatmat_plain(blocks, block_cols, U, nbcol: int, plan=None):
+    """K2's product over a panel: out (nbcol·bn, k) = Σ blocks[r,k]ᵀ @ U[r]
+    for U (nbrow·bm, k), per-block contributions summed into their block
+    column in ``bsr_rmatvec_plain``'s fixed order (a (bn, k) row per slot;
+    ``plan`` as there)."""
+    check_f32_exact(blocks, U)
+    res = torch.promote_types(blocks.dtype, U.dtype)
+    acc = _acc_dtype(res)
+    nbrow, _, bm, bn = blocks.shape
+    k = U.shape[1]
+    contrib = torch.einsum("rkmn,rmj->rknj", blocks.to(acc), _panel_blocks(U, nbrow, bm).to(acc))
+    if plan is None:
+        plan = segment_plan(block_cols, nbcol)
+    return segment_sum(contrib.flatten(0, 1), plan).to(res).reshape(nbcol * bn, k)
+
+
 # ----------------------------------------------------------------------------
 # K2's block-column index and chunk plan
 # ----------------------------------------------------------------------------
@@ -286,6 +318,9 @@ def _lib():
         lib.linops_bsr_rmatvec.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32, i32,
                                            i32, i32, i32, i32, p]
         lib.linops_bsr_rmatvec.restype = ctypes.c_int
+        lib.linops_bsr_rmatmat.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32,
+                                           i32, i64, i64, i64, i64, i32, i32, i32, p]
+        lib.linops_bsr_rmatmat.restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
         lib._linops_typed = True
@@ -304,8 +339,9 @@ def _check_launch(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
 
 
-def _cuda_args(blocks, block_cols, vec, vec_rows: int, what: str, transpose: bool):
-    """Validate CUDA inputs; return (vector in the kernel's dtype, dtypes)."""
+def _check_blocks(blocks, block_cols, vec, what: str):
+    """Validate the blocks, their columns and a vector's device and dtype;
+    return the (block, vector) dtypes the kernel runs with."""
     if blocks.dim() != 4 or block_cols.dim() != 2 or tuple(block_cols.shape) != tuple(blocks.shape[:2]):
         raise ValueError(f"{what}: blocks must be (nbrow, kmax, bm, bn) and "
                          f"block_cols (nbrow, kmax); got {tuple(blocks.shape)}, "
@@ -321,6 +357,12 @@ def _cuda_args(blocks, block_cols, vec, vec_rows: int, what: str, transpose: boo
                         f"f32/bf16 result; got blocks {blocks.dtype}, vector {vec.dtype}")
     if not blocks.is_contiguous() or not block_cols.is_contiguous():
         raise ValueError(f"{what}: blocks and block_cols must be contiguous")
+    return pair
+
+
+def _cuda_args(blocks, block_cols, vec, vec_rows: int, what: str, transpose: bool):
+    """Validate CUDA inputs; return (vector in the kernel's dtype, dtypes)."""
+    pair = _check_blocks(blocks, block_cols, vec, what)
     width = blocks.shape[2] if transpose else blocks.shape[3]
     if vec.dim() != 2 or vec.shape[0] != vec_rows or vec.shape[1] != width:
         raise ValueError(f"{what}: vector blocks must be ({vec_rows}, {width}), "
@@ -368,13 +410,9 @@ def bsr_rmatvec_kernel(blocks, block_cols, u_blocks, nbcol: int, *, plan=None):
     u, (bdt, vdt) = _cuda_args(blocks, block_cols, u_blocks, nbrow, "bsr_rmatvec", transpose=True)
     if plan is None:
         plan = bsr_column_plan(block_cols, nbcol, bm * bn * blocks.element_size())
-    tensors = (plan.perm, plan.chunk_ptr, plan.chunk_col, plan.col_chunk, plan.combine_cols)
+    tensors = _column_plan_tensors(plan, blocks, nbcol, plan.perm.numel() == nbrow * kmax,
+                                   "bsr_rmatvec", "bsr_column_plan")
     nchunks = plan.chunk_col.numel()
-    if (any(t.dtype != torch.int32 or t.device != blocks.device for t in tensors)
-            or plan.perm.numel() != nbrow * kmax or plan.col_chunk.numel() != nbcol + 1
-            or plan.chunk_ptr.numel() != nchunks + 1):
-        raise ValueError("bsr_rmatvec: the plan does not index these blocks "
-                         "(see bsr_column_plan)")
     out = torch.empty((nbcol, bn), dtype=vdt, device=blocks.device)
     partial = torch.empty((nchunks, bn), dtype=torch.float32, device=blocks.device)
     lib = _lib()
@@ -385,6 +423,79 @@ def bsr_rmatvec_kernel(blocks, block_cols, u_blocks, nbcol: int, *, plan=None):
     _check_launch(lib, rc, "bsr_rmatvec")
     _LAUNCHES["bsr_rmatvec"] += 1
     return out
+
+
+def _panel_args(blocks, block_cols, U, what: str):
+    """Validate a panel transpose's CUDA inputs; return (U in the kernel's
+    dtype, dtypes). U is (nbrow·bm, k) with any strides (a cast copies it)."""
+    pair = _check_blocks(blocks, block_cols, U, what)
+    rows = blocks.shape[0] * blocks.shape[2]
+    if U.dim() != 2 or U.shape[0] != rows:
+        raise ValueError(f"{what}: the panel must be ({rows}, k), got {tuple(U.shape)}")
+    return U.to(pair[1]), pair
+
+
+def _panel_out(U, nrows: int, dtype):
+    """The (nrows, k) output of a panel transpose, laid out as U: the
+    transposed view of a row-major (k, nrows) where U is a row panel's view
+    (``U.stride(0) == 1``), else row-major."""
+    k = U.shape[1]
+    if U.stride(0) == 1:
+        return torch.empty((k, nrows), dtype=dtype, device=U.device).t()
+    return torch.empty((nrows, k), dtype=dtype, device=U.device)
+
+
+def _strides(U, out):
+    return (*U.stride(), *out.stride())
+
+
+def bsr_rmatmat_kernel(blocks, block_cols, U, nbcol: int, *, plan=None):
+    """K2p: K2 over a panel, out (nbcol·bn, k) = Aᵀ U for U (nbrow·bm, k), in
+    ``promote(blocks, U)``: one launch for every column, each stored block
+    read once per 8 columns, column j bit for bit ``bsr_rmatvec_kernel`` of
+    column j. U is read through its strides (a column panel, or a row
+    panel's ``.t()``, without a copy; a dtype cast copies it), and the
+    result is laid out as U: a row panel's view gives the transposed view
+    of a row-major (k, nbcol·bn). CPU tensors take ``bsr_rmatmat_plain``
+    (row-major); CUDA tensors
+    launch the kernel (f32/bf16 only) or raise. ``plan``: K2's column plan
+    (built here when not given)."""
+    if blocks.device.type == "cpu":
+        return bsr_rmatmat_plain(blocks, block_cols, U, nbcol)
+    what = "bsr_rmatmat"
+    _on_cuda(blocks, what)
+    nbrow, kmax, bm, bn = blocks.shape
+    U, (bdt, vdt) = _panel_args(blocks, block_cols, U, what)
+    if plan is None:
+        plan = bsr_column_plan(block_cols, nbcol, bm * bn * blocks.element_size())
+    tensors = _column_plan_tensors(plan, blocks, nbcol, plan.perm.numel() == nbrow * kmax, what,
+                                   "bsr_column_plan")
+    k = U.shape[1]
+    out = _panel_out(U, nbcol * bn, vdt)
+    if k == 0:
+        return out
+    nchunks = plan.chunk_col.numel()
+    partial = torch.empty((nchunks, k, bn), dtype=torch.float32, device=blocks.device)
+    lib = _lib()
+    rc = lib.linops_bsr_rmatmat(
+        blocks.data_ptr(), *(t.data_ptr() for t in tensors), U.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn, k, *_strides(U, out),
+        _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return out
+
+
+def _column_plan_tensors(plan, blocks, nbcol: int, slots_ok: bool, what: str, maker: str):
+    """A column plan's tensors (perm, chunk_ptr, chunk_col, col_chunk,
+    combine_cols), checked against the blocks; ``slots_ok``: its slot count
+    fits them."""
+    tensors = (plan.perm, plan.chunk_ptr, plan.chunk_col, plan.col_chunk, plan.combine_cols)
+    nchunks = plan.chunk_col.numel()
+    if (not slots_ok or any(t.dtype != torch.int32 or t.device != blocks.device for t in tensors)
+            or plan.col_chunk.numel() != nbcol + 1 or plan.chunk_ptr.numel() != nchunks + 1):
+        raise ValueError(f"{what}: the plan does not index these blocks (see {maker})")
+    return tensors
 
 
 # ----------------------------------------------------------------------------
@@ -653,7 +764,8 @@ def bsr_matvec_multiwin_plain(blocks, block_cols, win_q, x_blocks, *, wb: int,
 
 def _scatter(blocks, u_blocks, targets, weight, rows: int, sum_plan=None):
     """Σ over slots of weight·blocks[r,k]ᵀ u[r] into row ``targets[r,k]`` of
-    a (rows, bn) result. Each slot's contribution is formed in at least f32;
+    a (rows, bn) result; for u (nbrow, bm, k), a panel, of a (rows, bn, k)
+    one. Each slot's contribution is formed in at least f32;
     the sum into the rows is taken in f64, in slot order, and rounded once.
     (A column that gathers 2^19 slots, as the far cluster of the band +
     cluster benchmark does, would carry about 2e-5 of max|y| in f32
@@ -662,14 +774,15 @@ def _scatter(blocks, u_blocks, targets, weight, rows: int, sum_plan=None):
     check_f32_exact(blocks, u_blocks)
     res = torch.promote_types(blocks.dtype, u_blocks.dtype)
     acc = _acc_dtype(res)
-    contrib = torch.einsum("rkmn,rm->rkn", blocks.to(acc), u_blocks.to(acc))
-    contrib = torch.where(weight[..., None] != 0, contrib * weight[..., None].to(acc),
+    eq = "rkmn,rm->rkn" if u_blocks.dim() == 2 else "rkmn,rmj->rknj"
+    contrib = torch.einsum(eq, blocks.to(acc), u_blocks.to(acc))
+    w = weight.reshape(weight.shape + (1,) * (contrib.dim() - 2))
+    contrib = torch.where(w != 0, contrib * w.to(acc),
                           torch.zeros((), dtype=acc, device=contrib.device))
-    bn = blocks.shape[3]
     wide = torch.promote_types(acc, torch.float64)
     if sum_plan is None:
         sum_plan = segment_plan(targets, rows)
-    out = segment_sum(contrib.reshape(-1, bn).to(wide), sum_plan)
+    out = segment_sum(contrib.flatten(0, 1).to(wide), sum_plan)
     return out.to(res)
 
 
@@ -705,6 +818,33 @@ def bsr_rmatvec_multiwin_plain(blocks, block_cols, win_q_t, win_valid_t, u_block
     weight = _lane_weights(block_cols, win_q_t, wb, valid=win_valid_t)
     rows = max(x_pad_blocks, nbcol)
     return _scatter(blocks, u_blocks, block_cols, weight, rows, sum_plan)[:nbcol]
+
+
+def _panel_blocks(U, nbrow: int, bm: int):
+    return U.reshape(nbrow, bm, U.shape[1])
+
+
+def bsr_rmatmat_windowed_plain(blocks, cols_local, win_q, U, *, wb: int, x_pad_blocks: int,
+                               nbcol: int, sum_plan=None):
+    """K4's product over a panel: U (nbrow·bm, k) in, (nbcol·bn, k) out, the
+    per-slot contributions (bn, k) summed in ``bsr_rmatvec_windowed_plain``'s
+    order (``sum_plan``: ``bsr_rmatvec_windowed_plan``'s)."""
+    nbrow, _, bm, bn = blocks.shape
+    gcols, inside = _windowed_cols(cols_local, win_q, wb)
+    out = _scatter(blocks, _panel_blocks(U, nbrow, bm), gcols, inside.to(torch.int32),
+                   x_pad_blocks, sum_plan)
+    return out[:nbcol].reshape(nbcol * bn, U.shape[1])
+
+
+def bsr_rmatmat_multiwin_plain(blocks, block_cols, win_q_t, win_valid_t, U, *, wb: int,
+                               x_pad_blocks: int, nbcol: int, sum_plan=None):
+    """K6's product over a panel: U (nbrow·bm, k) in, (nbcol·bn, k) out, in
+    ``bsr_rmatvec_multiwin_plain``'s weights and order."""
+    nbrow, _, bm, bn = blocks.shape
+    weight = _lane_weights(block_cols, win_q_t, wb, valid=win_valid_t)
+    out = _scatter(blocks, _panel_blocks(U, nbrow, bm), block_cols, weight,
+                   max(x_pad_blocks, nbcol), sum_plan)
+    return out[:nbcol].reshape(nbcol * bn, U.shape[1])
 
 
 # ----------------------------------------------------------------------------
@@ -804,8 +944,15 @@ def _win_lib():
                                                     i32, i32, i32, i32, i32, p]
         lib.linops_bsr_rmatvec_multiwin.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32,
                                                     i32, i32, i32, i32, i32, p]
+        lib.linops_bsr_rmatmat_windowed.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32,
+                                                    i32, i32, i32, i64, i64, i64, i64, i32,
+                                                    i32, i32, p]
+        lib.linops_bsr_rmatmat_multiwin.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32,
+                                                    i32, i32, i32, i64, i64, i64, i64, i32,
+                                                    i32, i32, p]
         for f in (lib.linops_bsr_matvec_windowed, lib.linops_bsr_matvec_multiwin,
-                  lib.linops_bsr_rmatvec_windowed, lib.linops_bsr_rmatvec_multiwin):
+                  lib.linops_bsr_rmatvec_windowed, lib.linops_bsr_rmatvec_multiwin,
+                  lib.linops_bsr_rmatmat_windowed, lib.linops_bsr_rmatmat_multiwin):
             f.restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
@@ -958,29 +1105,102 @@ def bsr_rmatvec_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, u_bloc
     _on_cuda(blocks, what)
     nbrow, kmax, bm, bn = blocks.shape
     u, (bdt, vdt) = _cuda_args(blocks, block_cols, u_blocks, nbrow, what, transpose=True)
-    _check_plan_tensor(win_q_t, blocks, 2, "win_q_t", what)
-    _check_plan_tensor(win_valid_t, blocks, 2, "win_valid_t", what)
-    if win_valid_t.shape != win_q_t.shape:
-        raise ValueError(f"{what}: win_valid_t {tuple(win_valid_t.shape)} does not match "
-                         f"win_q_t {tuple(win_q_t.shape)}")
-    W = win_q_t.shape[0]
-    _check_windows(what, blocks, win_q_t, wb, W, 0)
+    W = _window_t_checks(what, blocks, win_q_t, win_valid_t, wb)
     plan = index
     if plan is None:
         plan = bsr_multiwin_t_plan(block_cols, win_q_t, win_valid_t, wb, nbcol,
                                    bm * bn * blocks.element_size())
-    tensors = (plan.perm, plan.chunk_ptr, plan.chunk_col, plan.col_chunk, plan.combine_cols)
+    tensors = _column_plan_tensors(plan, blocks, nbcol, plan.perm.numel() <= W * nbrow * kmax,
+                                   what, "bsr_multiwin_t_plan")
     nchunks = plan.chunk_col.numel()
-    if (any(t.dtype != torch.int32 or t.device != blocks.device for t in tensors)
-            or plan.perm.numel() > W * nbrow * kmax or plan.col_chunk.numel() != nbcol + 1
-            or plan.chunk_ptr.numel() != nchunks + 1):
-        raise ValueError(f"{what}: index does not fit this plan (see bsr_multiwin_t_plan)")
     out = torch.empty((nbcol, bn), dtype=vdt, device=blocks.device)
     partial = torch.empty((nchunks, bn), dtype=torch.float32, device=blocks.device)
     lib = _win_lib()
     rc = lib.linops_bsr_rmatvec_multiwin(
         blocks.data_ptr(), *(t.data_ptr() for t in tensors), u.data_ptr(), partial.data_ptr(),
         out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn,
+        _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return out
+
+
+def _window_t_checks(what, blocks, win_q_t, win_valid_t, wb: int):
+    """Validate a multi-window transpose plan; return its lane count W."""
+    _check_plan_tensor(win_q_t, blocks, 2, "win_q_t", what)
+    _check_plan_tensor(win_valid_t, blocks, 2, "win_valid_t", what)
+    if win_valid_t.shape != win_q_t.shape:
+        raise ValueError(f"{what}: win_valid_t {tuple(win_valid_t.shape)} does not match "
+                         f"win_q_t {tuple(win_q_t.shape)}")
+    _check_windows(what, blocks, win_q_t, wb, win_q_t.shape[0], 0)
+    return win_q_t.shape[0]
+
+
+def bsr_rmatmat_windowed_kernel(blocks, cols_local, win_q, U, *, wb: int, x_pad_blocks: int,
+                                nbcol: int, index=None):
+    """K4p: K4 over a panel, out (nbcol·bn, k) for U (nbrow·bm, k), one
+    launch for every column, each stored block read once per 8 columns,
+    column j bit for bit ``bsr_rmatvec_windowed_kernel`` of column j. U,
+    its layout and the dispatch as ``bsr_rmatmat_kernel``'s; ``index`` as
+    K4's (``bsr_window_t_index``, built here when not given)."""
+    if blocks.device.type == "cpu":
+        return bsr_rmatmat_windowed_plain(blocks, cols_local, win_q, U, wb=wb,
+                                          x_pad_blocks=x_pad_blocks, nbcol=nbcol)
+    what = "bsr_rmatmat_windowed"
+    _on_cuda(blocks, what)
+    nbrow, kmax, bm, bn = blocks.shape
+    U, (bdt, vdt) = _panel_args(blocks, cols_local, U, what)
+    _check_plan_tensor(win_q, blocks, 1, "win_q", what)
+    ngroups = _check_windows(what, blocks, win_q, wb, 2, 0)
+    if index is None:
+        index = bsr_window_t_index(cols_local, win_q, wb)
+    perm, ptr = _check_index(index, ngroups * 2 * wb, blocks, what)
+    k = U.shape[1]
+    out = _panel_out(U, nbcol * bn, vdt)
+    if k == 0:
+        return out
+    partial = torch.empty((ngroups * 2 * wb, k, bn), dtype=torch.float32, device=blocks.device)
+    lib = _win_lib()
+    rc = lib.linops_bsr_rmatmat_windowed(
+        blocks.data_ptr(), perm.data_ptr(), ptr.data_ptr(), U.data_ptr(), win_q.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), nbcol, ngroups, kmax, bm, bn, wb, k,
+        *_strides(U, out), _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return out
+
+
+def bsr_rmatmat_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, U, *, wb: int,
+                                x_pad_blocks: int, nbcol: int, index=None):
+    """K6p: K6 over a panel, out (nbcol·bn, k) for U (nbrow·bm, k), one
+    launch for every column, each stored block read once per 8 columns,
+    column j bit for bit ``bsr_rmatvec_multiwin_kernel`` of column j. U,
+    its layout and the dispatch as ``bsr_rmatmat_kernel``'s; ``index`` as
+    K6's (``bsr_multiwin_t_plan``, built here when not given)."""
+    if blocks.device.type == "cpu":
+        return bsr_rmatmat_multiwin_plain(blocks, block_cols, win_q_t, win_valid_t, U, wb=wb,
+                                          x_pad_blocks=x_pad_blocks, nbcol=nbcol)
+    what = "bsr_rmatmat_multiwin"
+    _on_cuda(blocks, what)
+    nbrow, kmax, bm, bn = blocks.shape
+    U, (bdt, vdt) = _panel_args(blocks, block_cols, U, what)
+    W = _window_t_checks(what, blocks, win_q_t, win_valid_t, wb)
+    plan = index
+    if plan is None:
+        plan = bsr_multiwin_t_plan(block_cols, win_q_t, win_valid_t, wb, nbcol,
+                                   bm * bn * blocks.element_size())
+    tensors = _column_plan_tensors(plan, blocks, nbcol, plan.perm.numel() <= W * nbrow * kmax,
+                                   what, "bsr_multiwin_t_plan")
+    k = U.shape[1]
+    out = _panel_out(U, nbcol * bn, vdt)
+    if k == 0:
+        return out
+    nchunks = plan.chunk_col.numel()
+    partial = torch.empty((nchunks, k, bn), dtype=torch.float32, device=blocks.device)
+    lib = _win_lib()
+    rc = lib.linops_bsr_rmatmat_multiwin(
+        blocks.data_ptr(), *(t.data_ptr() for t in tensors), U.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn, k, *_strides(U, out),
         _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1

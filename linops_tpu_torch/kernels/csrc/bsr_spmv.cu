@@ -42,6 +42,13 @@
 //   result is bit-identical from run to run. The partial rows (f32, one per
 //   chunk) are the design's own bytes, about 1 % of the blocks' at 8x128.
 //
+// K2p `linops_bsr_rmatmat` is K2 over a panel of k columns, the block apply
+// of a transpose (the reference runs jax.vmap of bsr_rmatvec_pallas there,
+// one batched pallas_call): out[c, n, j] = sum blocks[r, k, m, n] * u[r, m, j].
+// Its passes (bsr_common.cuh) keep K2's plan and order per column and read
+// every stored block once per tile of kPanel columns, where k vector applies
+// read it k times; column j is bit for bit K2 applied to column j.
+//
 // Accumulation is f32 for f32 and bf16 blocks; bf16 is widened per element.
 // Element offsets are 64-bit (nbrow*kmax*bm*bn passes 2^31 soon after the
 // 67M-value benchmark shape). Each entry point launches on the caller's stream,
@@ -99,6 +106,29 @@ rmatvec_combine_kernel(const float* __restrict__ partial, const int32_t* __restr
   column_combine_pass<TX>(partial, cols, col_chunk, out, bn, vec);
 }
 
+// K2p pass 1 and pass 2 (panel_chunk_pass, panel_combine_pass; bsr_common.cuh):
+// K2 over a panel of columns, under names of their own. The chunk pass's
+// registers are capped at 85 (three thread blocks an SM; see bsr_common.cuh).
+template <typename TB, typename TX, int US, int UM>
+__global__ void __launch_bounds__(kT2Warps * 32, 3)
+rmatmat_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
+                     const int32_t* __restrict__ chunk_ptr,
+                     const int32_t* __restrict__ chunk_col,
+                     const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
+                     float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
+                     int bn, bool vec, PanelIO io) {
+  panel_chunk_pass<TB, TX, US, UM>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial,
+                                   out, kmax, bm, bn, vec, io);
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(kT2Warps * 32, 2)
+rmatmat_combine_kernel(const float* __restrict__ partial, const int32_t* __restrict__ cols,
+                       const int32_t* __restrict__ col_chunk, TX* __restrict__ out, int bn,
+                       PanelIO io) {
+  panel_combine_pass<TX>(partial, cols, col_chunk, out, bn, io);
+}
+
 template <typename TB, typename TX>
 int launch_matvec(const void* blocks, const void* cols, const void* x, void* y,
                   int64_t nbrow, int kmax, int bm, int bn, cudaStream_t stream) {
@@ -121,6 +151,17 @@ int launch_rmatvec(const void* blocks, const void* perm, const void* chunk_ptr,
       rmatvec_chunk_kernel<TB, TX, kUnroll, 1>, rmatvec_chunk_kernel<TB, TX, 1, kUnroll>,
       rmatvec_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
       u, partial, out, nchunks, ncombine, kmax, bm, bn, stream);
+}
+
+template <typename TB, typename TX>
+int launch_rmatmat(const void* blocks, const void* perm, const void* chunk_ptr,
+                   const void* chunk_col, const void* col_chunk, const void* combine_cols,
+                   const void* u, float* partial, void* out, int64_t nchunks,
+                   int64_t ncombine, int kmax, int bm, int bn, PanelIO io, cudaStream_t stream) {
+  return launch_panel_plan<TB, TX>(
+      rmatmat_chunk_kernel<TB, TX, kUnroll, 1>, rmatmat_chunk_kernel<TB, TX, 1, kUnroll>,
+      rmatmat_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
+      u, partial, out, nchunks, ncombine, kmax, bm, bn, io, stream);
 }
 
 }  // namespace
@@ -157,6 +198,27 @@ int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* chunk_p
     using TX = typename decltype(tx)::type;
     return launch_rmatvec<TB, TX>(blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
                                   u, partial, out, nchunks, ncombine, kmax, bm, bn, s);
+  });
+}
+
+// K2p. K2's column plan over k columns: u[row, j] at u[row * u_rs + j * u_cs]
+// (row < nbrow bm), out[row, j] at out[row * o_rs + j * o_cs] (row < nbcol
+// bn); partial is (nchunks, k, bn) f32 scratch.
+int linops_bsr_rmatmat(const void* blocks, const void* perm, const void* chunk_ptr,
+                       const void* chunk_col, const void* col_chunk, const void* combine_cols,
+                       const void* u, float* partial, void* out, int64_t nchunks,
+                       int64_t ncombine, int kmax, int bm, int bn, int k, int64_t u_rs,
+                       int64_t u_cs, int64_t o_rs, int64_t o_cs, int block_dtype,
+                       int vec_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PanelIO io{u_rs, u_cs, o_rs, o_cs, k};
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    return launch_rmatmat<TB, TX>(blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
+                                  u, partial, out, nchunks, ncombine, kmax, bm, bn, io, s);
   });
 }
 

@@ -68,6 +68,22 @@
 // on the band + cluster operator one combine thread walked the far column's
 // 2048 groups (59 % of the bytes bound, against 88 % now; PERF.md).
 //
+// Panel forms (the block apply of a transpose; the reference runs jax.vmap
+// of the vector kernel there, one batched pallas_call): K4p
+// `linops_bsr_rmatmat_windowed` and K6p `linops_bsr_rmatmat_multiwin` give
+// out[c, n, j] for every column j < k of u, u and out addressed through
+// (row, column) strides. K4p's phase 1 (window_panel_partial_kernel) is
+// window_partial_kernel with kPanel (8) accumulators per n value, so a
+// stored block is read once per tile of kPanel columns; a lane holds four
+// consecutive n values (one vector load a block row, where K4 loads them one
+// by one), a warp loads kUnroll block rows at a time and their u values two
+// a lane, handed out by shuffles. Its partials are
+// (ngroups 2 wb, k, bn) f32, and its combine takes one thread per (c, n),
+// as K4's, with K4's binary searches once and strided_sum for every column. K6p runs
+// K2p's panel passes (bsr_common.cuh) over K6's column plan. Both keep the
+// vector kernel's order per column: column j is bit for bit K4 (K6)
+// applied to column j.
+//
 // f32 accumulation for f32 and bf16 blocks, also across groups (the TPU's
 // bf16 transposes accumulated across groups in bf16; this does not). 64-bit
 // element offsets. Each entry point launches on the caller's stream, does
@@ -223,6 +239,77 @@ window_partial_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__
   }
 }
 
+// One listed slot added to a lane's panel accumulators, in add_slots' order
+// (m ascending). A lane holds four consecutive n values (where K4's lane
+// holds n0 + 32 t: which lane holds an output does not change its sum), so
+// a block row is one 16-byte (f32) or 8-byte (bf16) load; the warp loads
+// kUnroll rows at a time, with their u values two a lane (row m0 + lane / 4,
+// columns 2 (lane % 4) + {0, 1} of the tile), handed out by shuffles.
+template <typename TB, typename TX>
+__device__ __forceinline__ void add_slot_panel(const TB* __restrict__ blk,
+                                               const TX* __restrict__ urow,
+                                               float acc[kPanel][4], int bm, int bn, int n0,
+                                               bool vec, int64_t u_rs, int64_t u_cs, int kw) {
+  const int lane = threadIdx.x & 31;
+  const int uc = 2 * (lane & 3);
+  for (int m0 = 0; m0 < bm; m0 += kUnroll) {
+    const int mu = m0 + (lane >> 2);
+    float u0 = 0.f, u1 = 0.f;
+    if (mu < bm) {
+      if (uc < kw) u0 = widen(urow[mu * u_rs + uc * u_cs]);
+      if (uc + 1 < kw) u1 = widen(urow[mu * u_rs + (uc + 1) * u_cs]);
+    }
+    float b[kUnroll][4];
+#pragma unroll
+    for (int mm = 0; mm < kUnroll; ++mm)
+      if (m0 + mm < bm) load_n4(blk + static_cast<int64_t>(m0 + mm) * bn, n0, bn, vec, b[mm]);
+#pragma unroll
+    for (int mm = 0; mm < kUnroll; ++mm) {
+      if (m0 + mm < bm) {  // the same for the whole warp
+#pragma unroll
+        for (int j = 0; j < kPanel; ++j) {
+          if (j < kw) {
+            const float um = __shfl_sync(0xffffffffu, (j & 1) ? u1 : u0, 4 * mm + (j >> 1));
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (n0 + q < bn) acc[j][q] = fmaf(b[mm][q], um, acc[j][q]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// K4p phase 1: window_partial_kernel over a panel; blockIdx.y = column tile.
+// partial[(i k + j) bn + n] for partial row i, f32. Registers capped at 128
+// (a cap of 85 spilled and ran 1.4x slower on the H100).
+template <typename TB, typename TX>
+__global__ void __launch_bounds__(kPartialWarps * 32, 2)
+window_panel_partial_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
+                            const int32_t* __restrict__ ptr, const TX* __restrict__ u,
+                            float* __restrict__ partial, int64_t nrows, int ntiles, int kmax,
+                            int bm, int bn, bool vec, PanelIO io) {
+  const int64_t wid = static_cast<int64_t>(blockIdx.x) * kPartialWarps + (threadIdx.x >> 5);
+  if (wid >= nrows * ntiles) return;  // whole warps leave; nothing below syncs
+  const int64_t i = wid / ntiles;
+  const int n0 = static_cast<int>(wid % ntiles) * kTile + 4 * (threadIdx.x & 31);
+  const int j0 = blockIdx.y * kPanel;
+  const int kw = min(kPanel, io.k - j0);
+  const TX* uj = u + j0 * io.u_cs;
+  float acc[kPanel][4];
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int e = ptr[i]; e < ptr[i + 1]; ++e) {
+    const int64_t slot = perm[e];
+    add_slot_panel(blocks + slot * bm * static_cast<int64_t>(bn),
+                   uj + (slot / kmax) * bm * io.u_rs, acc, bm, bn, n0, vec, io.u_rs, io.u_cs,
+                   kw);
+  }
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j)
+    if (j < kw) store_n4(partial + (i * io.k + j0 + j) * bn, n0, bn, bn % 4 == 0, acc[j]);
+}
+
 // first index in the nondecreasing a[0..len) with a[idx] >= v (upper: > v)
 __device__ __forceinline__ int lower_bound(const int32_t* a, int len, int64_t v) {
   int lo = 0, hi = len;
@@ -280,6 +367,34 @@ windowed_combine_kernel(const float* __restrict__ partial, const int32_t* __rest
   out[idx] = narrow<TX>(hi + lo);
 }
 
+// K4p phase 2: windowed_combine_kernel for one (c, n) a thread, over every
+// column j of the panel (the groups' search made once); the partials
+// (ngroups 2 wb, k, bn).
+template <typename TX>
+__global__ void __launch_bounds__(kCombineThreads)
+windowed_panel_combine_kernel(const float* __restrict__ partial,
+                              const int32_t* __restrict__ win_q, TX* __restrict__ out,
+                              int64_t nbcol, int ngroups, int bn, int wb, PanelIO io) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  if (idx >= nbcol * bn) return;
+  const int64_t c = idx / bn;
+  const int n = static_cast<int>(idx % bn);
+  const int64_t p = c / wb;
+  const int64_t jc = c - p * wb;
+  const int g0 = lower_bound(win_q, ngroups, p - 1);
+  const int gm = lower_bound(win_q, ngroups, p);
+  const int g1 = upper_bound(win_q, ngroups, p);
+  const int64_t row = 2LL * wb * io.k * bn;  // one group's partial rows
+  const float* hi_p = partial + g0 * row + (wb + jc) * io.k * bn + n;
+  const float* lo_p = partial + gm * row + jc * io.k * bn + n;
+  TX* o = out + idx * io.o_rs;
+  for (int j = 0; j < io.k; ++j) {
+    const float hi = strided_sum(hi_p + static_cast<int64_t>(j) * bn, row, gm - g0);
+    const float lo = strided_sum(lo_p + static_cast<int64_t>(j) * bn, row, g1 - gm);
+    o[j * io.o_cs] = narrow<TX>(hi + lo);
+  }
+}
+
 // K6 pass 1 and pass 2: K2's passes (bsr_common.cuh) over K6's own column
 // plan (bsr_spmv.py::bsr_multiwin_t_plan), under K6's names. Registers capped
 // as K2's.
@@ -301,6 +416,29 @@ multiwin_combine_kernel(const float* __restrict__ partial, const int32_t* __rest
                         const int32_t* __restrict__ col_chunk, TX* __restrict__ out, int bn,
                         bool vec) {
   column_combine_pass<TX>(partial, cols, col_chunk, out, bn, vec);
+}
+
+// K6p pass 1 and pass 2: K2p's panel passes over K6's column plan, under
+// K6p's names. Registers capped as K2p's.
+template <typename TB, typename TX, int US, int UM>
+__global__ void __launch_bounds__(kT2Warps * 32, 3)
+multiwin_panel_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
+                            const int32_t* __restrict__ chunk_ptr,
+                            const int32_t* __restrict__ chunk_col,
+                            const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
+                            float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
+                            int bn, bool vec, PanelIO io) {
+  panel_chunk_pass<TB, TX, US, UM>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial,
+                                   out, kmax, bm, bn, vec, io);
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(kT2Warps * 32, 2)
+multiwin_panel_combine_kernel(const float* __restrict__ partial,
+                              const int32_t* __restrict__ cols,
+                              const int32_t* __restrict__ col_chunk, TX* __restrict__ out,
+                              int bn, PanelIO io) {
+  panel_combine_pass<TX>(partial, cols, col_chunk, out, bn, io);
 }
 
 int grid_or_error(int64_t blocks, unsigned* out) {
@@ -433,6 +571,71 @@ int linops_bsr_rmatvec_multiwin(const void* blocks, const void* perm, const void
         multiwin_chunk_kernel<TB, TX, kUnroll, 1>, multiwin_chunk_kernel<TB, TX, 1, kUnroll>,
         multiwin_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk,
         combine_cols, u, partial, out, nchunks, ncombine, kmax, bm, bn, s);
+  });
+}
+
+// K4p. K4's plan over k columns: u[row, j] at u[row * u_rs + j * u_cs]
+// (row < nbrow bm), out[row, j] at out[row * o_rs + j * o_cs] (row < nbcol
+// bn); partial is (ngroups 2 wb, k, bn) f32 scratch.
+int linops_bsr_rmatmat_windowed(const void* blocks, const void* perm, const void* ptr,
+                                const void* u, const void* win_q, float* partial, void* out,
+                                int64_t nbcol, int ngroups, int kmax, int bm, int bn, int wb,
+                                int k, int64_t u_rs, int64_t u_cs, int64_t o_rs, int64_t o_cs,
+                                int block_dtype, int vec_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 0 || (k + kPanel - 1) / kPanel > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const PanelIO io{u_rs, u_cs, o_rs, o_cs, k};
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    const int64_t nrows = static_cast<int64_t>(ngroups) * 2 * wb;
+    const int ntiles = (bn + kTile - 1) / kTile;
+    unsigned grid;
+    if (int rc = grid_or_error((nrows * ntiles + kPartialWarps - 1) / kPartialWarps, &grid))
+      return rc;
+    if (grid > 0) {
+      const dim3 g2(grid, static_cast<unsigned>((k + kPanel - 1) / kPanel));
+      const bool vec =
+          bn % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % (4 * sizeof(TB)) == 0;
+      window_panel_partial_kernel<TB, TX><<<g2, kPartialWarps * 32, 0, s>>>(
+          static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
+          static_cast<const int32_t*>(ptr), static_cast<const TX*>(u), partial, nrows, ntiles,
+          kmax, bm, bn, vec, io);
+      if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+    }
+    if (int rc = combine_grid(nbcol, bn, &grid)) return rc;
+    if (grid == 0) return 0;
+    windowed_panel_combine_kernel<TX><<<grid, kCombineThreads, 0, s>>>(
+        partial, static_cast<const int32_t*>(win_q), static_cast<TX*>(out), nbcol, ngroups, bn,
+        wb, io);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K6p. K6's column plan over k columns; u, out as K4p's; partial is
+// (nchunks, k, bn) f32 scratch.
+int linops_bsr_rmatmat_multiwin(const void* blocks, const void* perm, const void* chunk_ptr,
+                                const void* chunk_col, const void* col_chunk,
+                                const void* combine_cols, const void* u, float* partial,
+                                void* out, int64_t nchunks, int64_t ncombine, int kmax, int bm,
+                                int bn, int k, int64_t u_rs, int64_t u_cs, int64_t o_rs,
+                                int64_t o_cs, int block_dtype, int vec_dtype, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PanelIO io{u_rs, u_cs, o_rs, o_cs, k};
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    return launch_panel_plan<TB, TX>(
+        multiwin_panel_chunk_kernel<TB, TX, kUnroll, 1>,
+        multiwin_panel_chunk_kernel<TB, TX, 1, kUnroll>, multiwin_panel_combine_kernel<TX>,
+        blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols, u, partial, out, nchunks,
+        ncombine, kmax, bm, bn, io, s);
   });
 }
 

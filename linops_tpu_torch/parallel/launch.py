@@ -101,10 +101,13 @@ def _tails(tmp: str, n_ranks: int, nbytes: int = 4000) -> str:
 
 
 def _rank_main(tmp: str, rank: int) -> None:
+    import faulthandler
+
     import torch.distributed as dist
 
     from .init import initialize_distributed
 
+    faulthandler.enable()  # a rank killed by a signal leaves its Python stack in its log
     with open(os.path.join(tmp, "spec.pkl"), "rb") as f:
         spec = pickle.load(f)
     initialize_distributed(f"localhost:{spec['port']}", spec["n_ranks"], rank,

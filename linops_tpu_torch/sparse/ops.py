@@ -599,6 +599,14 @@ class BSROperator(_SparseBase):
     reference's keyword arguments), e.g. one carried over by
     ``convert.bsr_operator_from_reference``.
 
+    Block applies (``apply_matrix``, (n, k); ``apply_matrix_t``, (k, n)),
+    as the reference's vmapped vector apply runs them: N with the gather
+    and einsum of ``bsr_matmat`` (both packages); T and H (real blocks) in
+    one launch of the plan's panel transpose for all k columns (K2p, K4p or
+    K6p; their plain versions on the CPU, and for complex blocks, H on the
+    conjugate); C as conj(N(conj M)); a symmetric (hermitian) operator's T
+    (H) block is its N block, as ``apply`` maps the modes.
+
     Construction builds K2's column plan, K5's lane rows for a multi
     plan and, with a transpose plan, K4's slot index or K6's column plan,
     on the data's device, once. Data padded by the reference (extra zero block rows at
@@ -871,11 +879,19 @@ class BSROperator(_SparseBase):
         return self._tprod_impl(self.data.blocks.conj(), w)
 
     def _kernel_apply(self, x, how, tensors):
-        """The apply of x in ``how`` = (mode, "vec") with ``tensors`` =
-        (blocks,): K1/K3/K5 for N, K2/K4/K6 for T on the card (their plain
-        versions on the CPU); ``KernelApply`` runs it."""
-        mode = how[0]
+        """The apply of x in ``how`` = (mode, kind) with ``tensors`` =
+        (blocks,): for a vector (kind ``"vec"``) K1/K3/K5 for N, K2/K4/K6 for
+        T on the card (their plain versions on the CPU); for a block (kind
+        ``"mat"``, columns, or ``"panel"``, rows) the N block (``bsr_matmat``)
+        or the T block (K2p/K4p/K6p); ``KernelApply`` runs it."""
+        mode, kind = how
         (blocks,) = tensors
+        if kind != "vec":
+            if mode == "N":
+                return self._nmat_impl(blocks, x, kind)
+            if mode == "C":
+                return _conj(self._nmat_impl(blocks, _conj(x), kind))
+            return self._tmat_impl(blocks if mode == "T" else _conj(blocks), x, kind)
         if mode == "N":
             return self._prod_impl(blocks, x)
         if mode == "T":
@@ -884,15 +900,16 @@ class BSROperator(_SparseBase):
             return self._tprod_impl(_conj(blocks), x)
         return _conj(self._prod_impl(blocks, _conj(x)))
 
-    def _slot_columns(self, transpose: bool):
+    def _slot_columns(self, transpose: bool, block: bool = False):
         """Per block slot, what the apply in this direction reads or writes:
         (block column (nbrow, kmax), weight (nbrow, kmax) or None for 1, the
         block rows of the padded x or output). The windowed kernels address
         columns through their plan (K3/K4: window base + local column, 0
         outside both windows; K5/K6: the block column, once per lane window
-        that holds it)."""
+        that holds it); an N block (``block``) reads every slot's own
+        column, as ``bsr_matmat`` does."""
         d = self.data
-        if not self._windowed(transpose):
+        if not self._windowed(transpose) or (block and not transpose):
             return d.block_cols.long(), None, self._nbcol
         if self.cols_local is not None:
             gcols, inside = K._windowed_cols(self.cols_local, self.win_q, self._wb)
@@ -905,39 +922,112 @@ class BSROperator(_SparseBase):
 
     def _kernel_tensor_grads(self, x, g, how, tensors):
         """The blocks' gradient for ``KernelApply``: ``g[r] ⊗ x[col[r,k]]`` for
-        mode N and ``x[r] ⊗ g[col[r,k]]`` for T, conjugated as torch's
+        mode N and ``x[r] ⊗ g[col[r,k]]`` for T, summed over the columns j of
+        a block (``Σ_j x[r, j] ⊗ g[col[r,k], j]``), conjugated as torch's
         convention asks for C and H, each slot weighted as the apply weighs
         it, padding slots included: what autograd of the plain version
         gives. Each slot is written once (deterministic); a gather and a
         batched outer product in plain torch, in the blocks' dtype."""
-        mode = how[0]
+        mode, kind = how
         (blocks,) = tensors
         bm, bn = self.data.block_shape
         nbrow = blocks.shape[0]
         transpose = mode_transposed(mode)
-        cols, weight, xrows = self._slot_columns(transpose)
+        cols, weight, xrows = self._slot_columns(transpose, kind != "vec")
         rows_vec, cols_vec = (x, g) if transpose else (g, x)
         acc = torch.promote_types(torch.promote_types(blocks.dtype, g.dtype), torch.float32)
-        rv = self._pad_to(rows_vec, nbrow * bm).reshape(nbrow, bm).to(acc)
-        cv = self._pad_to(cols_vec, xrows * bn).reshape(xrows, bn)[cols].to(acc)
+
+        def columns(v, rows):  # (rows, k): a vector as one column, a row panel transposed
+            v = v[:, None] if kind == "vec" else (v.t() if kind == "panel" else v)
+            return K._pad_rows(v, rows)
+
+        rv = columns(rows_vec, nbrow * bm).reshape(nbrow, bm, -1).to(acc)
+        cv = columns(cols_vec, xrows * bn).reshape(xrows, bn, -1)[cols].to(acc)
         if weight is not None:
-            cv = cv * weight[..., None].to(acc)
-        grad = torch.einsum("rm,rkn->rkmn", rv, _conj(cv))
+            cv = cv * weight[..., None, None].to(acc)
+        grad = torch.einsum("rmj,rknj->rkmn", rv, _conj(cv))
         if transpose != mode_conjugated(mode):
             grad = _conj(grad)
         return (grad.to(blocks.dtype),)
 
+    # torch.func.vmap over a T vector apply runs the T block once, on the B
+    # vectors as a row panel (``KernelApply.vmap``); an N vmap runs K1 per member
+    _kernel_batch_kind = {"T": "panel"}
+
     def apply_matrix(self, M, mode: str = "N"):
+        """Column block (n, k) → (m, k): see the class docstring."""
         self._check_mat(M, mode)
-        if mode != "N":
-            return super().apply_matrix(M, mode)
+        return self._block_apply(M, mode, "mat")
+
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """Row panel (k, n) → (k, m), the same block apply on its rows."""
+        if getattr(Mt, "ndim", 2) != 2 or Mt.shape[1] != self.in_dim(mode):
+            raise LinearOperatorException("shape mismatch")
+        return self._block_apply(Mt, mode, "panel")
+
+    def _block_apply(self, X, mode: str, kind: str):
+        """A block apply of kind ``"mat"`` or ``"panel"`` (``_kernel_apply``),
+        through ``KernelApply`` where a panel kernel runs and the graph is
+        wanted."""
+        if (mode == "T" and self._symmetric) or (mode == "H" and self._hermitian):
+            mode = "N"
+        blocks = self.data.blocks
+        if mode_transposed(mode) and not blocks.is_complex():
+            mode = "T"  # H of real blocks
+            if self._use_kernel(X) and kernel_graph_wanted(X, blocks):
+                return KernelApply.apply(self, (mode, kind), X, blocks)
+        return self._kernel_apply(X, (mode, kind), (blocks,))
+
+    def _nmat_impl(self, blocks, X, kind: str):
+        """The N block: ``bsr_matmat``'s gather and einsum over the columns
+        (a row panel transposed around it), as the reference's N block."""
         d = self.data
         bm, bn = d.block_shape
-        nbrow, nbcol = d.blocks.shape[0], self._nbcol
+        nbrow, nbcol = blocks.shape[0], self._nbcol
+        M = X.t() if kind == "panel" else X
         k = M.shape[1]
-        M = torch.nn.functional.pad(M, (0, 0, 0, nbcol * bn - M.shape[0]))
-        Y = bsr_matmat(d.blocks, d.block_cols, M.reshape(nbcol, bn, k))
-        return Y.reshape(nbrow * bm, k)[: d.shape[0]]
+        M = K._pad_rows(M, nbcol * bn)
+        Y = bsr_matmat(blocks, d.block_cols, M.reshape(nbcol, bn, k))
+        Y = Y.reshape(nbrow * bm, k)[: d.shape[0]]
+        return Y.t() if kind == "panel" else Y
+
+    def _tmat_impl(self, blocks, X, kind: str):
+        """The T block: one call of the plan's panel transpose (K2p, K4p or
+        K6p on the card, its plain version otherwise) for every column. A
+        row panel goes in as its transposed view and the kernel writes it
+        out in rows (the wrappers lay the result out as U): no copy unless
+        it is padded."""
+        d = self.data
+        bm, bn = d.block_shape
+        nbrow, nbcol = blocks.shape[0], self._nbcol
+        rows = kind == "panel"
+        U = K._pad_rows(X.t() if rows else X, nbrow * bm)
+        kern = not blocks.is_complex() and self._use_kernel(X)
+        if self._windowed(transpose=True):
+            if self.cols_local is not None:
+                plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks, nbcol=nbcol)
+                args = (blocks, self.cols_local, self.win_q, U)
+                if kern:
+                    out = K.bsr_rmatmat_windowed_kernel(*args, index=(self.t_perm, self.t_ptr),
+                                                        **plan)
+                else:
+                    out = K.bsr_rmatmat_windowed_plain(*args, sum_plan=self.plain_transpose_plan(),
+                                                       **plan)
+            else:
+                plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks_t, nbcol=nbcol)
+                args = (blocks, d.block_cols, self.win_q_t, self.win_valid_t, U)
+                if kern:
+                    out = K.bsr_rmatmat_multiwin_kernel(*args, index=self.t_plan, **plan)
+                else:
+                    out = K.bsr_rmatmat_multiwin_plain(*args, sum_plan=self.plain_transpose_plan(),
+                                                       **plan)
+        elif kern:
+            out = K.bsr_rmatmat_kernel(blocks, d.block_cols, U, nbcol, plan=self.col_plan)
+        else:
+            out = K.bsr_rmatmat_plain(blocks, d.block_cols, U, nbcol,
+                                      plan=self.plain_transpose_plan())
+        out = out[: d.shape[1]]
+        return out.t() if rows else out
 
     def _name(self):
         return "BSR sparse operator"

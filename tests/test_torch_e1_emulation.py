@@ -5,8 +5,9 @@ thread-block cluster) run on the CPU.
 The kernel's source above its launch code is compiled with g++ behind a
 shim of the CUDA constructs it uses: ``__global__``/``__device__`` empty,
 ``threadIdx``/``blockIdx`` thread-local, ``__syncthreads``, ``__syncwarp``
-and a cluster's ``sync`` as ``std::barrier``s, ``__shfl_xor_sync`` through a
-shared array, each CTA's shared memory a buffer of its own that
+and a cluster's ``sync`` as barriers whose waiters sleep in a futex at once
+(spinning waiters would take the cores that the threads still to arrive
+need), ``__shfl_xor_sync`` through a shared array, each CTA's shared memory a buffer of its own that
 ``map_shared_rank`` maps between CTAs, the special-function intrinsics as
 their exact host versions. One OS thread runs each CUDA thread of a cluster
 (a lone CTA for the blocked kernel), so the kernel's own arithmetic,
@@ -28,13 +29,37 @@ SOURCE = os.path.join(ROOT, "linops_tpu_torch", "kernels", "csrc", "small_eigh.c
 TOL = 50
 
 SHIM = r"""
-#include <barrier>
+#include <atomic>
 #include <cfloat>
 #include <cmath>
+#include <climits>
 #include <cstdint>
 #include <memory>
 #include <thread>
 #include <vector>
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+// arrive_and_wait as std::barrier's; a waiter sleeps in the kernel at once
+class Barrier {
+ public:
+  explicit Barrier(int n) : n_(n) {}
+  void arrive_and_wait() {
+    const int gen = gen_.load(std::memory_order_acquire);
+    if (count_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+      count_.store(0, std::memory_order_relaxed);
+      gen_.fetch_add(1, std::memory_order_release);
+      syscall(SYS_futex, &gen_, FUTEX_WAKE_PRIVATE, INT_MAX, nullptr, nullptr, 0);
+      return;
+    }
+    while (gen_.load(std::memory_order_acquire) == gen)
+      syscall(SYS_futex, &gen_, FUTEX_WAIT_PRIVATE, gen, nullptr, nullptr, 0);
+  }
+
+ private:
+  const int n_;
+  std::atomic<int> count_{0}, gen_{0};
+};
 #define __global__
 #define __device__
 #define __host__
@@ -49,21 +74,25 @@ inline Dim blockDim;
 struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
 constexpr int kEmuBlocks = 8, kEmuWarps = 16;
-inline std::vector<std::unique_ptr<std::barrier<>>> g_blocks, g_warps;
-inline std::unique_ptr<std::barrier<>> g_cluster;
+inline std::vector<std::unique_ptr<Barrier>> g_blocks, g_warps;
+inline std::unique_ptr<Barrier> g_cluster;
 inline unsigned g_cluster_size = 1;
 inline double g_lanes[kEmuBlocks * kEmuWarps][32];
 alignas(64) inline unsigned char g_dyn[kEmuBlocks][1 << 20];
 inline unsigned warp_id() { return t_rank * kEmuWarps + (threadIdx.x >> 5); }
 inline void __syncthreads() { g_blocks[t_rank]->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warps[warp_id()]->arrive_and_wait(); }
+// shuffles take two buffers in turns, so one barrier each will do: a lane
+// writes a buffer again only past the next shuffle's barrier, which every lane
+// reaches after its read of this one
+inline double g_shfl[2][kEmuBlocks * kEmuWarps][32];
+inline thread_local unsigned t_shfl;  // the buffer of this lane's next shuffle
 inline double __shfl_xor_sync(unsigned, double v, int o) {
-  const unsigned w = warp_id(), l = threadIdx.x & 31;
-  g_lanes[w][l] = v;
+  const unsigned w = warp_id(), l = threadIdx.x & 31, b = t_shfl;
+  t_shfl ^= 1u;
+  g_shfl[b][w][l] = v;
   __syncwarp();
-  const double r = g_lanes[w][l ^ o];
-  __syncwarp();
-  return r;
+  return g_shfl[b][w][l ^ o];
 }
 template <typename T> T __ldcg(const T* p) { return *p; }
 namespace cooperative_groups {
@@ -91,11 +120,11 @@ RUNNER = r"""
 template <typename F> void run_blocks(int batch, int ranks, int nt, F kernel) {
   blockDim.x = nt;
   g_cluster_size = ranks;
-  g_cluster = std::make_unique<std::barrier<>>(ranks * nt);
+  g_cluster = std::make_unique<Barrier>(ranks * nt);
   g_blocks.clear();
   g_warps.clear();
-  for (int r = 0; r < ranks; ++r) g_blocks.push_back(std::make_unique<std::barrier<>>(nt));
-  for (int i = 0; i < ranks * kEmuWarps; ++i) g_warps.push_back(std::make_unique<std::barrier<>>(32));
+  for (int r = 0; r < ranks; ++r) g_blocks.push_back(std::make_unique<Barrier>(nt));
+  for (int i = 0; i < ranks * kEmuWarps; ++i) g_warps.push_back(std::make_unique<Barrier>(32));
   for (int b = 0; b < batch; ++b) {
     std::vector<std::thread> threads;
     for (int r = 0; r < ranks; ++r)

@@ -3,7 +3,7 @@
 
 The kernel's source above its launch code is compiled with g++ behind the
 shim of ``tests/test_torch_e1_emulation.py`` (``__syncthreads`` and
-``__syncwarp`` as ``std::barrier``s, ``__shfl_xor_sync`` through a shared
+``__syncwarp`` as its futex barriers, ``__shfl_xor_sync`` through a shared
 array, ``threadIdx``/``blockIdx`` thread-local), one OS thread per CUDA
 thread of a block, so the kernel's own arithmetic, schedule and
 synchronisation run here. Its thread count is any multiple of 32 (groups of lanes take
@@ -56,11 +56,11 @@ RUNNER = r"""
 template <typename F> void run_blocks(int batch, int nt, F kernel) {
   blockDim.x = nt;
   g_cluster_size = 1;
-  g_cluster = std::make_unique<std::barrier<>>(nt);
+  g_cluster = std::make_unique<Barrier>(nt);
   g_blocks.clear();
   g_warps.clear();
-  g_blocks.push_back(std::make_unique<std::barrier<>>(nt));
-  for (int i = 0; i < kEmuWarps; ++i) g_warps.push_back(std::make_unique<std::barrier<>>(32));
+  g_blocks.push_back(std::make_unique<Barrier>(nt));
+  for (int i = 0; i < kEmuWarps; ++i) g_warps.push_back(std::make_unique<Barrier>(32));
   for (int b = 0; b < batch; ++b) {
     std::vector<std::thread> threads;
     for (int t = 0; t < nt; ++t)

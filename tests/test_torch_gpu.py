@@ -1031,8 +1031,9 @@ def test_permutation_gradient_on_card(dev):
 
 def test_vmap_over_a_kernel_apply_raises_on_card(dev):
     """(The name is kept from when vmap over a kernel apply raised; it now
-    runs.) vmap over 8 vectors: K1 and K2 once per member, bit for bit the
-    vector applies; the routed N apply as a row panel (rep-8 kernels)
+    runs.) vmap over 8 vectors: K1 once per member, the T apply as one K2p
+    launch on the batch (a row panel), bit for bit the vector applies (K2p
+    keeps K2's order per column); the routed N apply as a row panel (rep-8 kernels)
     within 1e-6 of the vector applies; a batch of operators (batched
     blocks) once per member through K1."""
     import scipy.sparse as sps
@@ -1040,10 +1041,10 @@ def test_vmap_over_a_kernel_apply_raises_on_card(dev):
     blocks, cols = random_bsr(dev, 512, 4, 8, 128, 32, torch.float32, seed=13)
     op = lt.BSROperator(lt.BSR(blocks, cols, (4096, 4096)))
     V = torch.randn(8, 4096, device=dev)
-    for mode, kernel in (("N", "bsr_matvec"), ("T", "bsr_rmatvec")):
+    for mode, kernel, count in (("N", "bsr_matvec", 8), ("T", "bsr_rmatmat", 1)):
         reset_launches()
         Y = torch.func.vmap(lambda v: op.apply(v, mode))(V)
-        assert launches().get(kernel) == 8
+        assert launches().get(kernel) == count and launches().get("bsr_rmatvec", 0) == 0
         assert torch.equal(Y, torch.stack([op.apply(v, mode) for v in V]))
     A = sps.random(6000, 5000, density=0.004, format="csr", random_state=8, dtype=np.float32)
     routed = lt.opSparse(A, format="routed", device=dev)
@@ -2391,3 +2392,128 @@ def test_gmres_panel_launches_e2_once_per_restart(dev, loop_mod):
         Y = M.apply_matrix(Bk)
     assert loop_mod.stats["replays"] > 0 and loop_mod.last_graph().launches["small_lstsq"] == 1
     assert torch.equal(Y, X)
+
+
+# --------------------------------------------------------------------------
+# The BSR operators' block transposes: K2p, K4p, K6p
+# --------------------------------------------------------------------------
+
+PANEL_KS = (1, 8, 33)
+
+
+def column_loop(vector_apply, U):
+    """The vector kernel on each column of U, stacked: what a panel kernel
+    must equal bit for bit."""
+    return torch.stack([vector_apply(U[:, j].contiguous()) for j in range(U.shape[1])], dim=1)
+
+
+def check_panel(panel, plain, vector_apply, rows: int, vdt, dev):
+    """A panel wrapper at k = 1, 8, 33: within tol of its plain version, the
+    same bits on a rerun, bit for bit its vector kernel's column loop, and
+    the same bits for a row panel's transposed view, which the result
+    takes as its layout (rows of a row-major (k, n))."""
+    tol = 1e-5 if vdt == torch.float32 else 1e-2
+    for k in PANEL_KS:
+        U = torch.randn((rows, k), device=dev).to(vdt)
+        P = panel(U)
+        torch.cuda.synchronize()
+        assert P.dtype == vdt and P.shape[1] == k
+        assert rel_err(P, plain(U)) <= tol, k
+        assert torch.equal(P, panel(U)), k
+        assert torch.equal(P, column_loop(vector_apply, U)), k
+        Pr = panel(U.t().contiguous().t())
+        assert Pr.t().is_contiguous() and torch.equal(Pr, P), k
+
+
+@pytest.mark.parametrize("dims", [(40, 3, 8, 128, 7), (6, 4, 128, 128, 3), (33, 5, 16, 16, 40),
+                                  (64, 8, 9, 33, 20)])
+@pytest.mark.parametrize("dtypes", PAIRS)
+def test_k2p_matches_plain_and_its_column_loop(dev, dims, dtypes):
+    nbrow, kmax, bm, bn, nbcol = dims
+    bdt, vdt = dtypes
+    blocks, cols = random_bsr(dev, nbrow, kmax, bm, bn, nbcol, bdt)
+    check_panel(lambda U: K.bsr_rmatmat_kernel(blocks, cols, U, nbcol),
+                lambda U: K.bsr_rmatmat_plain(blocks, cols, U, nbcol),
+                lambda u: K.bsr_rmatvec_kernel(blocks, cols, u.reshape(nbrow, bm), nbcol)
+                .reshape(-1), nbrow * bm, vdt, dev)
+
+
+@pytest.mark.parametrize("dims", WINDOW_DIMS)
+@pytest.mark.parametrize("dtypes", PAIRS)
+def test_k4p_k6p_match_plain_and_their_column_loops(dev, dims, dtypes):
+    nbrow, _, bm, _ = dims
+    bdt, vdt = dtypes
+    blocks, cols, nbcol = window_case(dims, multi=False)
+    q, cl, wb, xpb = K.bsr_window_plan(cols, 32, nbcol, wb_max=64, blocks=blocks)
+    b = torch.from_numpy(blocks).to(dev, bdt)
+    cl_t, q_t = (torch.from_numpy(a).to(dev) for a in (cl, q))
+    win = dict(wb=wb, x_pad_blocks=xpb, nbcol=nbcol)
+    check_panel(lambda U: K.bsr_rmatmat_windowed_kernel(b, cl_t, q_t, U, **win),
+                lambda U: K.bsr_rmatmat_windowed_plain(b, cl_t, q_t, U, **win),
+                lambda u: K.bsr_rmatvec_windowed_kernel(b, cl_t, q_t, u.reshape(nbrow, bm), **win)
+                .reshape(-1), nbrow * bm, vdt, dev)
+    blocks, cols, nbcol = window_case(dims, multi=True)
+    qm, wb, _ = K.bsr_window_plan_multi(cols, 32, nbcol, wb_max=16, blocks=blocks)
+    qt, vt, xpbt = K.bsr_window_plan_multi_t(cols, 32, nbcol, wb, 4, blocks=blocks)
+    b = torch.from_numpy(blocks).to(dev, bdt)
+    t_args = tuple(torch.from_numpy(a).to(dev) for a in (cols, qt, vt))
+    win = dict(wb=wb, x_pad_blocks=xpbt, nbcol=nbcol)
+    check_panel(lambda U: K.bsr_rmatmat_multiwin_kernel(b, *t_args, U, **win),
+                lambda U: K.bsr_rmatmat_multiwin_plain(b, *t_args, U, **win),
+                lambda u: K.bsr_rmatvec_multiwin_kernel(b, *t_args, u.reshape(nbrow, bm), **win)
+                .reshape(-1), nbrow * bm, vdt, dev)
+
+
+def test_block_transposes_launch_once_and_capture(dev):
+    """A T block, an H row panel and an adjoint's N block of a BSR operator
+    on the card launch K2p once each and K2 never, bit for bit the column
+    loop; K2p recorded in a CUDA graph replays the eager bits."""
+    rng = np.random.default_rng(3)
+    A = (rng.standard_normal((300, 320)) * (rng.random((300, 320)) < 0.1)).astype(np.float32)
+    op = lt.BSROperator(lt.bsr_from_dense(A, (8, 64)))
+    M = torch.randn((300, 6), device=dev)
+    K.reset_launch_counts()
+    Y = op.apply_matrix(M, "T")
+    assert torch.equal(op.apply_matrix_t(M.t().contiguous(), "H"), Y.t())
+    assert torch.equal(op.T.apply_matrix(M, "N"), Y)
+    counts = K.launch_counts()
+    assert counts["bsr_rmatmat"] == 3 and counts["bsr_rmatvec"] == 0
+    assert torch.equal(Y, column_loop(lambda m: op.apply(m, "T"), M))
+    assert rel_err(Y, torch.from_numpy(A).to(dev).double().T @ M.double()) <= 1e-5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op.apply_matrix(M, "T")
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        Yg = op.apply_matrix(M, "T")
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(Yg, Y)
+
+
+def test_block_transpose_raises_rather_than_falls_back(dev, monkeypatch):
+    """A T block whose panel kernel cannot launch (more column tiles than a
+    grid takes) raises from the operator; so does a launch the library
+    refuses; neither runs the column loop or the plain version."""
+    op = lt.BSROperator(lt.BSR(torch.ones((1, 1, 1, 1), device=dev),
+                               torch.zeros((1, 1), dtype=torch.int32, device=dev), (1, 1)))
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="bsr_rmatmat kernel launch failed"):
+        op.apply_matrix(torch.ones((1, 8 * 65536), device=dev), "T")
+    assert K.launch_counts()["bsr_rmatvec"] == 0
+
+    lib = K._lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "linops_bsr_rmatmat":
+                return lambda *a: 1  # cudaErrorInvalidValue
+            return getattr(lib, name)
+
+    monkeypatch.setattr(K, "_lib", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="bsr_rmatmat kernel launch failed"):
+        op.apply_matrix(torch.ones((1, 3), device=dev), "T")
+    monkeypatch.setattr(K, "_lib", lambda: lib)
+    assert K.launch_counts()["bsr_rmatvec"] == 0 and K.launch_counts()["bsr_rmatmat"] == 0

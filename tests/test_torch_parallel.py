@@ -216,6 +216,37 @@ def sharded_sparse_operators(mesh):
 
 
 @case
+def sharded_bsr_panels(mesh):
+    """A row-sharded BSR operator's H block (one panel transpose on this
+    rank's rows, then one reduction) at k = 1, 3, 8: the values of the
+    column and row forms and the collectives of each; and one svds
+    iteration over the operator, per block of the device loop."""
+    import linops_tpu_torch as lt
+    from linops_tpu_torch.parallel import collective_counts, shard_operator
+    from linops_tpu_torch.utils import loop
+
+    Ab, _ = bsr_case(12)
+    op = lt.opSparse(Ab, format="bsr", block_shape=(2, 4), **CPU)
+    op_sh = shard_operator(op, mesh)
+    rng = np.random.default_rng(13)
+    out = {}
+    for k in (1, 3, 8):
+        M = rng.standard_normal((32, k))
+        Ms = _place(mesh, M)
+        out[k] = dict(y=full(op_sh.apply_matrix(Ms, "H")),
+                      y_rows=full(op_sh.apply_matrix_t(t_(M.T.copy()), "H")),
+                      y_un=op.apply_matrix(t_(M), "H").numpy(),
+                      counts=collective_counts(lambda: op_sh.apply_matrix(Ms, "H")),
+                      counts_rows=collective_counts(
+                          lambda: op_sh.apply_matrix_t(t_(M.T.copy()), "H")))
+    one, two = (collective_counts(lambda: lt.svds(op_sh, k=2, tol=0.0, maxiter=m,
+                                                  generator=torch.Generator().manual_seed(5)))
+                for m in (loop.BLOCK, 2 * loop.BLOCK))
+    out["svds"] = {c: (two[c] - one[c]) / loop.BLOCK for c in one}
+    return out
+
+
+@case
 def sharded_replication_warns(mesh):
     import linops_tpu_torch as lt
     from linops_tpu_torch.parallel import shard_operator
@@ -805,6 +836,32 @@ def test_sharded_sparse_operators(world, ref):
     assert rb["placements"] == "(Shard(dim=0),)"
     assert rb["counts_n"]["all-gather"] == 1 and rb["counts_n"]["reduce-scatter"] == 0
     assert rb["counts_t"]["reduce-scatter"] == 1 and rb["counts_t"]["all-gather"] == 0
+
+
+def test_sharded_bsr_panels(world, ref):
+    """A row-sharded BSR operator's H block is one panel transpose per rank
+    and one reduction for every k (a reduce-scatter for a split block, an
+    all-reduce for a plain row panel), as the reference's vmapped apply
+    reduces once; its values are the reference's and the unsharded
+    operator's. One svds iteration over it makes the Gram operator's two
+    collectives, whatever the block width."""
+    lo, mesh = ref
+    from linops_tpu.parallel import shard_operator
+
+    r = result(world, "sharded_bsr_panels")
+    Ab, _ = bsr_case(12)
+    op_j = shard_operator(lo.opSparse(Ab, format="bsr", block_shape=(2, 4)), mesh)
+    rng = np.random.default_rng(13)
+    for k in (1, 3, 8):
+        M = rng.standard_normal((32, k))
+        rk = r[k]
+        close(rk["y"], np.asarray(op_j.apply_matrix(M, "H")))
+        close(rk["y"], rk["y_un"], 1e-12)
+        close(rk["y_rows"].T, rk["y_un"], 1e-12)
+        assert rk["counts"] == dict(dict.fromkeys(rk["counts"], 0), **{"reduce-scatter": 1})
+        assert rk["counts_rows"] == dict(dict.fromkeys(rk["counts"], 0), **{"all-reduce": 1})
+    assert r["svds"] == dict(dict.fromkeys(r["svds"], 0), **{"all-gather": 1,
+                                                             "reduce-scatter": 1})
 
 
 def test_sharded_replication_warns(world):

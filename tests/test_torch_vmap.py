@@ -140,19 +140,36 @@ def kernels_on_cpu(monkeypatch):
     monkeypatch.setattr(TP.PermutationOperator, "_use_kernel", lambda self, x: True)
 
 
-def test_vmap_over_kernel_applies(rng, kernels_on_cpu):
-    """vmap over a kernel apply: BSR (N and T) and a permutation run the
-    vector apply once per member, bit for bit; a routed operator runs its
-    matrix kind on the batch (a row panel) and agrees with the vector applies;
-    a batch of BSR operators (batched blocks) runs once per member."""
+def test_vmap_over_kernel_applies(rng, kernels_on_cpu, monkeypatch):
+    """vmap over a kernel apply: BSR N and a permutation run the vector
+    apply once per member, bit for bit; BSR T runs its block transpose once
+    on the batch (a row panel, as the reference's vmap is one batched
+    kernel), bit for bit that row panel's apply and within f64 rounding of
+    the vector applies (on the CPU the plain panel sums in another order than
+    the plain vector transpose; on the card K2p is bit for bit K2's column
+    loop, ``tests/test_torch_gpu.py``); a routed operator runs its matrix
+    kind on the batch (a row panel) and agrees with the vector applies; a
+    batch of BSR operators (batched blocks) runs once per member."""
     import scipy.sparse as sps
+
+    from linops_tpu_torch.kernels import bsr_spmv as K
 
     A = np.where(rng.random((40, 48)) < 0.3, rng.standard_normal((40, 48)), 0.0)
     op = lt.BSROperator(lt.bsr_from_dense(A, (4, 8), device="cpu"))
+    panels = []
+    panel_kernel = K.bsr_rmatmat_kernel
+    monkeypatch.setattr(K, "bsr_rmatmat_kernel",
+                        lambda *a, **kw: panels.append(1) or panel_kernel(*a, **kw))
     for mode in ("N", "T"):
         V = t_(rng.standard_normal((5, op.in_dim(mode))))
         Y = torch.func.vmap(lambda v: op.apply(v, mode))(V)
-        assert torch.equal(Y, torch.stack([op.apply(v, mode) for v in V]))
+        vec = torch.stack([op.apply(v, mode) for v in V])
+        if mode == "N":
+            assert torch.equal(Y, vec) and panels == []
+        else:
+            assert panels == [1]
+            assert torch.equal(Y, op.apply_matrix_t(V, "T"))
+            assert float((Y - vec).abs().max()) <= 1e-12 * float(vec.abs().max())
     P = lt.opPermutation(rng.permutation(700), device="cpu")
     V = t_(rng.standard_normal((3, 700)))
     assert torch.equal(torch.func.vmap(lambda v: P @ v)(V), torch.stack([P @ v for v in V]))
