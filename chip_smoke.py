@@ -104,8 +104,8 @@ shows them run but can lose records).
    and the routed values' gradients (the forward program's through N, the
    derived transpose's through T: K7 and K8 in the backward) against the
    plain pipeline's autograd (max|Δ|/max ≤ 1e-5); (f) ``torch.func.vmap``
-   over 8 vectors of K1 (once per member) and of Aᵀ (one K2p launch on the
-   batch; both bit for bit 8 vector applies) and of the
+   over 8 vectors of A (one K1p launch on the batch) and of Aᵀ (one K2p
+   launch; both bit for bit 8 vector applies) and of the
    routed N apply (the matrix kind, ≤ 1e-6); (g) ``vmap(cg)`` over 4
    systems of slice 1's size against 4 solves (iterations ±1, |Δx|/|x| ≤
    1e-3); (d) the implicit backward of ``opIterativeInverse(cg, tol 1e-6)``
@@ -177,6 +177,23 @@ shows them run but can lose records).
    shard_operator at world size 1, bit for bit. (d) the gradient of
    ½‖Bᵀ M − Y‖² against the plain backend's. Its launches, counted over
    16's paths alone, must include K2p, K4p and K6p.
+   17 (after 16): a BSR operator's forward blocks in one launch (the N block
+   on the card, a symmetric operator's T block, ``torch.func.vmap`` of an N
+   vector apply), as the reference's vmapped K1/K3/K5 are one batched
+   kernel. (a) K1p, K3p and K5p on phase 5's operators and the 2^22 window
+   operators at k = 1, 3, 8, 12, 32: within 1e-5 of their plain versions,
+   the same bits on a rerun, bit for bit the vector kernel's column loop;
+   µs at k = 8 in a CUDA graph of 20 and by marginal events beside the
+   column loop, ``bsr_matmat``, the plain panel and cuSPARSE's SpMM on a CSR
+   of A; the window operators' N blocks through estimate_trace(A Aᵀ). (b)
+   svds(k = 4) of phase 4's B in cached captured blocks against the same
+   solve with its N block as ``bsr_matmat``; LOBPCG(k = 4) on slice 2's
+   I + L (K3p alone in its block, θ against the closed form); a symmetric
+   T block bit for bit its N block. (c) vmap of an N apply (one K1p
+   launch) and a vmapped CG (⌈I/4⌉ + 1 host reads, bit for bit the
+   per-iteration vmap loop). (d) a FunctionOperator's block in one call of
+   its function. (e) the gradient of ½‖A_sym M − Y‖². Its launches, counted
+   over 17's paths alone, must include K1p, K3p and K5p.
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
    each phase-10 solve (GMRES(30) and BiCGSTAB on auto_8m + 8I, damped LSQR,
@@ -497,6 +514,26 @@ def diagonal_qn_recursive(cls, pairs, d):
         else:
             d = y.abs() * (float(y.abs().sum()) * ss / sy)
     return d
+
+
+_LOOP_FUNCTION = []
+
+
+def loop_function(lt, *args, **kwargs):
+    """A ``FunctionOperator`` whose block applies are the column loop of its
+    vector applies (the base class's, one call of the function per column),
+    not one vmapped call: the yardsticks and twins the phases compare with a
+    loop of vector applies. One class for every such operator, so that a
+    captured block's key sees the same class."""
+    if not _LOOP_FUNCTION:
+        from linops_tpu_torch.core.base import LinearOperator
+
+        class LoopFunction(lt.FunctionOperator):
+            def apply_matrix(self, M, mode="N"):
+                return LinearOperator.apply_matrix(self, M, mode)
+
+        _LOOP_FUNCTION.append(LoopFunction)
+    return _LOOP_FUNCTION[0](*args, **kwargs)
 
 
 def free():
@@ -917,8 +954,8 @@ def phase9(lt, K, LG, dev):
     true_res = float(np.linalg.norm(b_host - A1.astype(np.float64) @ x_host)
                      / np.linalg.norm(b_host))
     check(true_res <= 1e-4, f"slice-3 cg f64 residual {true_res:.3e} > 1e-4")
-    plain = lt.FunctionOperator(N3, N3, lambda v: routed_matvec(p1, v, use_kernel=False),
-                                symmetric=True, hermitian=True, dtype=torch.float32)
+    plain = loop_function(lt, N3, N3, lambda v: routed_matvec(p1, v, use_kernel=False),
+                          symmetric=True, hermitian=True, dtype=torch.float32)
     x_p, k_p, _ = lt.cg(plain, b, tol=1e-5, maxiter=2000)
     dx = float(torch.linalg.vector_norm(x_p - x) / torch.linalg.vector_norm(x_p))
     check(sum(LG.launch_counts().values()) == 0, "the plain pipeline launched a kernel")
@@ -1684,8 +1721,8 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     n2 = A2.shape[0]
     S = lt.ShiftedOperator(op2, 8.0)
     p2 = op2.routed
-    S_plain = lt.ShiftedOperator(lt.FunctionOperator(
-        n2, n2, lambda v: routed_matvec(p2, v, use_kernel=False), dtype=torch.float32), 8.0)
+    S_plain = lt.ShiftedOperator(loop_function(
+        lt, n2, n2, lambda v: routed_matvec(p2, v, use_kernel=False), dtype=torch.float32), 8.0)
     b = dev_vec(n2, dev, SEED + 70)
     bh = b.double().cpu().numpy()
     S64 = A2.astype(np.float64) + 8.0 * sps.identity(n2)
@@ -1726,9 +1763,9 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
           f"10b: {type(op_l).__name__} without a derived transpose")
     pl, plt_ = op_l.routed, op_l.routed_t
     mrow, ncol = Al.shape
-    L_plain = lt.FunctionOperator(mrow, ncol, lambda v: routed_matvec(pl, v, use_kernel=False),
-                                  lambda u: routed_rmatvec(plt_, u, use_kernel=False),
-                                  dtype=torch.float32)
+    L_plain = loop_function(lt, mrow, ncol, lambda v: routed_matvec(pl, v, use_kernel=False),
+                            lambda u: routed_rmatvec(plt_, u, use_kernel=False),
+                            dtype=torch.float32)
     b = dev_vec(mrow, dev, SEED + 72)
     bh = b.double().cpu().numpy()
     damp = 1e-3
@@ -1805,8 +1842,8 @@ def phase10(lt, K, LG, dev, ops, laplacian_op):
     op1, A1 = ops["op1"], ops["A1"]
     p1 = op1.routed
     check(op1.matrix_path("N") == "routed", "10d: the matrix apply does not take the routed path")
-    P_plain = lt.FunctionOperator(N3, N3, lambda v: routed_matvec(p1, v, use_kernel=False),
-                                  symmetric=True, hermitian=True, dtype=torch.float32)
+    P_plain = loop_function(lt, N3, N3, lambda v: routed_matvec(p1, v, use_kernel=False),
+                            symmetric=True, hermitian=True, dtype=torch.float32)
     Bm = dev_vec(N3, dev, SEED + 75, k=8)
     take()
     (X, k, _), secs = timed_solve(lambda: lt.cg(op1, Bm, tol=1e-5, maxiter=2000))
@@ -3093,7 +3130,7 @@ def phase11(lt, K, LG, dev, card, ops, main):
     del A11, dg, dg_se
 
     A4, A4p, b4 = main["A"], main["A_plain"], main["b"]
-    herm = {tag: lt.FunctionOperator(N, N, op.apply, symmetric=True, hermitian=True, dtype=f32)
+    herm = {tag: loop_function(lt, N, N, op.apply, symmetric=True, hermitian=True, dtype=f32)
             for tag, op in (("kernels", A4), ("torch", A4p))}
     b_unit = b4 / torch.linalg.vector_norm(b4)
     fe = {tag: lt.funm_apply(op, lambda t: torch.exp(-t), b_unit, lanczos_steps=30)
@@ -3501,9 +3538,9 @@ def phase12(lt, K, LG, dev, card):
     blocks, cols = make_bsr("8x128", f32, dev, scale=(kmax * bn) ** -0.5)
     op = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
     V = torch.stack([dev_vec(N, dev, SEED + 110 + i) for i in range(8)])
-    # N: K1 once per member; T: one K2p launch on the batch (a row panel), as the
-    # reference's vmap is one batched kernel, bit for bit K2's column loop
-    for mode, want in (("N", {"bsr_matvec": 8}), ("T", {"bsr_rmatmat": 1})):
+    # N: one K1p launch, T: one K2p launch on the batch (a row panel), as the
+    # reference's vmap is one batched kernel, bit for bit K1's and K2's column loops
+    for mode, want in (("N", {"bsr_matmat": 1}), ("T", {"bsr_rmatmat": 1})):
         reset()
         Y = torch.func.vmap(lambda v, m=mode: op.apply(v, m))(V)
         torch.cuda.synchronize()
@@ -4113,8 +4150,8 @@ def phase13h(lt, loop, K, LG, dev, card, ops, main, rec14):
     # --- 13h c. funm_apply on a DTensor b ----------------------------------------------------
     A4, b4 = main["A"], main["b"]
     A4_sh = shard_operator(A4, mesh)
-    herm = lt.FunctionOperator(N, N, A4.apply, symmetric=True, hermitian=True, dtype=f32)
-    herm_sh = lt.FunctionOperator(N, N, A4_sh.apply, symmetric=True, hermitian=True, dtype=f32)
+    herm = loop_function(lt, N, N, A4.apply, symmetric=True, hermitian=True, dtype=f32)
+    herm_sh = loop_function(lt, N, N, A4_sh.apply, symmetric=True, hermitian=True, dtype=f32)
     b_unit = b4 / torch.linalg.vector_norm(b4)
     bu_sh = place(b_unit)
 
@@ -4271,10 +4308,9 @@ def loop_where(loop):
 def column_loop(lt, M, **flags):
     """``M``'s block apply as the column loop the port ran before its panel
     solve (one vector apply per column, stacked): a capture-safe
-    ``FunctionOperator`` over ``M.apply``, whose ``apply_matrix`` is the base
-    class's loop. Used only as the yardstick of 14i."""
-    return lt.FunctionOperator(M.nrow, M.ncol, lambda v: M.apply(v, "N"), dtype=M.dtype,
-                               capture_safe=True, **flags)
+    ``loop_function`` over ``M.apply``. Used only as the yardstick of 14i."""
+    return loop_function(lt, M.nrow, M.ncol, lambda v: M.apply(v, "N"), dtype=M.dtype,
+                         capture_safe=True, **flags)
 
 
 def phase14i(lt, loop, mods, dev, card, ops):
@@ -4504,8 +4540,8 @@ def phase14i(lt, loop, mods, dev, card, ops):
     # --- 14i c. the same on stencil_partition_2d (a 1x1 mesh) -------------------------------
     L2 = stencil_partition_2d(torch.tensor([4.0, -1.0, -1.0, -1.0, -1.0], device=dev), g, g,
                               make_mesh2d(1, 1))
-    twin = lt.FunctionOperator(n, n, lambda v: L2.apply(v).to_local(), symmetric=True,
-                               hermitian=True, dtype=f32, capture_safe=True)
+    twin = loop_function(lt, n, n, lambda v: L2.apply(v).to_local(), symmetric=True,
+                         hermitian=True, dtype=f32, capture_safe=True)
     M2, Mt = lt.opIterativeInverse(L2, **inner), lt.opIterativeInverse(twin, **inner)
 
     def solve2():
@@ -4644,8 +4680,8 @@ def phase13i(lt, loop, E1, K, LG, dev, card, ops, main, rec15):
     n = g * g
     L2 = stencil_partition_2d(torch.tensor([4.0, -1.0, -1.0, -1.0, -1.0], device=dev), g, g,
                               make_mesh2d(1, 1))
-    twin = lt.FunctionOperator(n, n, lambda v: L2.apply(v).to_local(), symmetric=True,
-                               hermitian=True, dtype=f32, capture_safe=True)
+    twin = loop_function(lt, n, n, lambda v: L2.apply(v).to_local(), symmetric=True,
+                         hermitian=True, dtype=f32, capture_safe=True)
 
     def lob(op, k=2, iters=LOB_ITERS):
         gen.manual_seed(SEED + 112)  # 15b's seed
@@ -5628,10 +5664,13 @@ def few_ms(fn, short=2, long_=6):
 def column_transposes(lt, B):
     """B with its T and H blocks as the column loop the port ran before K2p
     (a stack of vector applies, one K2 launch a column) and its N block B's
-    own (``bsr_matmat``): 16b's yardstick, capture-safe."""
+    own (K1p since phase 17's slice): 16b's yardstick, capture-safe."""
+    from linops_tpu_torch.core.base import LinearOperator
+
     class ColumnTransposes(lt.FunctionOperator):
         def apply_matrix(self, M, mode="N"):
-            return B.apply_matrix(M, "N") if mode == "N" else super().apply_matrix(M, mode)
+            return B.apply_matrix(M, "N") if mode == "N" else \
+                LinearOperator.apply_matrix(self, M, mode)
 
     return ColumnTransposes(B.nrow, B.ncol, lambda v: B.apply(v, "N"),
                             lambda u: B.apply(u, "T"), dtype=B.dtype, capture_safe=True)
@@ -5726,8 +5765,8 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
     U and λ bit for bit. (d) the gradient of ½‖Bᵀ M − Y‖² in the blocks and
     in M (8 columns) against the plain backend's autograd within
     KERNEL_RTOL: one K2p launch forward; the backward's M-gradient one N
-    block (``bsr_matmat``, no kernel), the blocks' gradient a gather and an
-    outer product. Launches are counted over 16's paths alone (``on_path``:
+    block (one K1p launch, since phase 17's slice), the blocks' gradient a
+    gather and an outer product. Launches are counted over 16's paths alone (``on_path``:
     (a)'s estimates, (b)'s panel solves, (c), (d)); 16a's checks and the
     yardsticks stay out. Returns (kernel records, launches)."""
     from linops_tpu_torch.kernels import bsr_spmv as K
@@ -5924,18 +5963,408 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
         del leaf, Bg, Mg, loss
     (gM, gB), (gM_p, gB_p) = grads["auto"], grads["torch"]
     e_M, e_B = rel_err(gM, gM_p), rel_err(gB, gB_p)
-    check(fwd == {"bsr_rmatmat": 1} and bwd == {} and calls == [1]
+    check(fwd == {"bsr_rmatmat": 1} and bwd == {"bsr_matmat": 1} and calls == [1]
           and e_M <= KERNEL_RTOL and e_B <= KERNEL_RTOL,
           f"16d: forward launches {fwd}, backward {bwd} with {len(calls)} N blocks; gradients "
           f"{e_M:.2e} (M), {e_B:.2e} (blocks) from the plain backend's (limit {KERNEL_RTOL:g})")
     print(f"[16d panel gradient] ½‖Bᵀ M − Y‖², M (n, 8): forward launches {fwd}; backward: one "
-          f"N block (bsr_matmat, no kernel) for M, a gather and an outer product for the "
+          f"N block (K1p) for M, a gather and an outer product for the "
           f"blocks, launches {bwd or 'none'}; against the plain backend's autograd: M "
           f"{e_M:.2e}, blocks {e_B:.2e} (limit {KERNEL_RTOL:g}); {card}", flush=True)
     del grads, gM, gB, gM_p, gB_p, M, Y
     free()
     seconds = time.perf_counter() - t_phase
     print(f"[16 block transposes] launches on 16's paths {launches}; {seconds:.1f} s", flush=True)
+    return rec, launches
+
+
+# ----------------------------------------------------------------------------
+# Slice 21: a BSR operator's forward blocks in one launch (K1p, K3p, K5p)
+# ----------------------------------------------------------------------------
+
+PANEL17_KS = (1, 3, 8, 12, 32)  # 17a: block widths checked (8 timed)
+LOB17_K, LOB17_ITERS = 4, 20  # 17b: LOBPCG block and timed iterations (and twice as many)
+PANEL17_KERNELS = {  # kernel -> (source, the TPU kernel its vmap batches, 17a's case of record)
+    "bsr_matmat": (K1_SOURCE, K1_REPLACES, "8x128 float32"),  # K1p
+    "bsr_matmat_windowed": (WIN_SOURCE, WIN_KERNELS["bsr_matvec_windowed"][0],
+                            "banded float32"),  # K3p
+    "bsr_matmat_multiwin": (WIN_SOURCE, WIN_KERNELS["bsr_matvec_multiwin"][0],
+                            "band+cluster float32"),  # K5p
+}
+
+
+def matmat_n_block(lt, B):
+    """B with its N block as the port ran it before K1p (``bsr_matmat``'s
+    gather and einsum, cuBLAS inside) and its T/H blocks B's own (K2p): 17b's
+    yardstick, capture-safe."""
+    from linops_tpu_torch.kernels import bsr_spmv as K
+
+    d = B.data
+    bn = d.block_shape[1]
+
+    class MatmatN(lt.FunctionOperator):
+        def apply_matrix(self, M, mode="N"):
+            if mode != "N":
+                return B.apply_matrix(M, mode)
+            Y = K.bsr_matmat_plain(d.blocks, d.block_cols, M.reshape(-1, bn, M.shape[1]))
+            return Y.reshape(-1, M.shape[1])[: B.nrow]
+
+    return MatmatN(B.nrow, B.ncol, lambda v: B.apply(v, "N"), lambda u: B.apply(u, "T"),
+                   dtype=B.dtype, capture_safe=True)
+
+
+def panel17_cases(lt, K, dev):
+    """17a's operators, one at a time (tag, kernel name, panel(X), plain(X),
+    vector(x), bsr_matmat(X), rows of X, blocks, the plan tensors the
+    kernel reads, the CSR of A maker, the operator or None): phase 5's 8x128
+    (f32, bf16) and 128x128 (f32) operators (K1p), the 2^22 banded (K3p) and
+    band + far cluster (K5p) window operators (f32)."""
+    for name, dtype in (("8x128", torch.float32), ("8x128", torch.bfloat16),
+                        ("128x128", torch.float32)):
+        bm, bn, _ = SHAPES[name]
+        blocks, cols = make_bsr(name, dtype, dev)
+        yield (f"{name} {str(dtype)[6:]}", "bsr_matmat",
+               lambda X: K.bsr_matmat_kernel(blocks, cols, X),
+               lambda X: K._fwd_plain(K.bsr_matmat_plain, X, bn, blocks, cols),
+               lambda x: K.bsr_matvec_kernel(blocks, cols, x.reshape(-1, bn)).reshape(-1),
+               lambda X: K.bsr_matmat_plain(blocks, cols, X.reshape(-1, bn, X.shape[1])),
+               N, blocks, (cols,), lambda: csr_of_bsr(blocks, cols, N), None)
+        del blocks, cols
+        free()
+    for wname in ("banded", "band+cluster"):
+        op = win_operator(lt, wname, torch.float32, dev, SEED + 31)
+        d = op.data
+        win = dict(wb=op._wb, x_pad_blocks=op._x_pad_blocks)
+        if op.cols_local is not None:
+            kern, args = "bsr_matmat_windowed", (d.blocks, op.cols_local, op.win_q)
+            panel = lambda X: K.bsr_matmat_windowed_kernel(*args, X, **win)  # noqa: E731
+            plain1 = lambda X: K._fwd_plain(  # noqa: E731
+                K.bsr_matvec_windowed_plain, X, 128, *args, **win)
+            reads = (op.cols_local, op.win_q)
+        else:
+            kern, args = "bsr_matmat_multiwin", (d.blocks, d.block_cols, op.win_q)
+            panel = lambda X: K.bsr_matmat_multiwin_kernel(  # noqa: E731
+                *args, X, index=op.lane_rows, **win)
+            plain1 = lambda X: K._fwd_plain(  # noqa: E731
+                K.bsr_matvec_multiwin_plain, X, 128, *args, **win)
+            reads = (op.lane_rows, op.win_q)
+
+        def pieces(X, plain=plain1):  # the plain panel, PLAIN16_COLS columns at a time
+            return torch.cat([plain(X[:, j:j + PLAIN16_COLS])
+                              for j in range(0, X.shape[1], PLAIN16_COLS)], dim=1)
+
+        yield (f"{wname} float32", kern, panel, pieces,
+               lambda x, op=op: win_kernel(K, op, xb=x.reshape(-1, 128)).reshape(-1),
+               lambda X, d=d: K.bsr_matmat_plain(d.blocks, d.block_cols,
+                                                 X.reshape(-1, 128, X.shape[1])),
+               WIN_N, d.blocks, reads, lambda d=d: csr_of_bsr(d.blocks, d.block_cols, WIN_N), op)
+        del op, d, args, panel, plain1, pieces
+        free()
+
+
+def phase17(lt, loop, mods, dev, card, main):
+    """A BSR operator's forward blocks in one launch (f32 unless named): the
+    N block on the card, a symmetric operator's T block and
+    ``torch.func.vmap`` of an N vector apply, as the reference's vmapped
+    K1/K3/K5 are one batched kernel. (a) K1p, K3p and K5p
+    (``bsr_matmat*_kernel``) on ``panel17_cases`` at k in PANEL17_KS: within
+    KERNEL_RTOL of the plain panel (the 2^22 operators' PLAIN16_COLS columns
+    at a time), the same bits on a rerun, bit for bit the vector kernel's
+    column loop, a row panel's transposed view the same bits, laid out in
+    rows; at k = 8 µs per call in a CUDA graph of 20 and by marginal CUDA
+    events beside the column loop, ``bsr_matmat`` on the same X (the N block
+    before K1p), the plain panel and cuSPARSE's SpMM on a CSR of A; the
+    bound: bytes of the blocks, X, the result and the plan read once (the
+    kernels' own: the blocks once per tile of PANEL_TILE columns) against 2
+    nnz k f32 operations. The window operators' N blocks also through
+    ``estimate_trace(A Aᵀ)`` (8 probes: one forward panel launch), within 6
+    standard errors of ‖A‖_F². (b) svds(k = 4, tol 1e-4) of phase 4's B in
+    cached captured blocks (``loop_modes``) and the same with its N block as
+    ``bsr_matmat`` (``matmat_n_block``): s within 1e-5, iterations ±1,
+    launches per cached block, wall and CUDA-event µs per iteration both
+    ways; LOBPCG(k = 4) on slice 2's symmetric I + L (1536², K3's plan) in
+    cached blocks: K3p launches and no K3 in its block, θ within its f64
+    residual of the closed-form eigenvalues, µs per iteration; the
+    operator's T block the same bits and launches as its N block. (c)
+    ``torch.func.vmap`` of an N vector apply of phase 5's 8x128 operator: one
+    K1p launch, bit for bit the column loop; a vmapped CG over 8 right-hand
+    sides of slice 1's graph: at most ⌈I/BLOCK⌉ + 1 host reads, x and counts
+    bit for bit the per-iteration vmap loop's (BLOCK 1). (d) a
+    ``FunctionOperator`` over a dense matmul: a block of 8 columns in one
+    call of the function, within KERNEL_RTOL of the column loop's 8 calls
+    (a matrix product against 8 matrix-vector products). (e) the
+    gradient of ½‖A_sym M − Y‖² (the T block of a symmetric 8x128 operator,
+    8 columns) in the blocks and in M against the plain backend's autograd
+    within KERNEL_RTOL: one K1p launch forward, one K2p in the backward.
+    Launches are counted over 17's paths alone (``on_path``: (a)'s
+    estimates, (b)'s solves, (c), (d), (e)). Returns (records, launches)."""
+    from linops_tpu_torch.kernels import bsr_spmv as K
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    launches, rec = {}, {}
+
+    def on_path(fn):
+        for m_ in mods:
+            m_.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, c_ in all_launches(mods).items():
+            launches[name] = launches.get(name, 0) + c_
+        return out
+
+    # --- 17a. the forward panels against their plain versions and column loops ----------
+    for tag, kern, panel, plain, vector, matmat, rows, blocks, reads, csr, op in panel17_cases(
+            lt, K, dev):
+        errs, worst, long_call = {}, 0.0, blocks.numel() > 1 << 28  # the 2^22 operators
+        for k in PANEL17_KS:
+            X = torch.randn((rows, k), device=dev)
+            P = panel(X)
+            P2 = panel(X)
+            torch.cuda.synchronize()
+            loop_ = torch.stack([vector(X[:, j].contiguous()) for j in range(k)], dim=1)
+            Pr = panel(X.t().contiguous().t())
+            ref = plain(X)
+            errs[k] = rel_err(P, ref)
+            check(torch.isfinite(P).all() and tuple(P.shape) == (loop_.shape[0], k)
+                  and errs[k] <= KERNEL_RTOL and torch.equal(P, P2) and torch.equal(P, loop_)
+                  and torch.equal(Pr, P) and Pr.t().is_contiguous(),
+                  f"17a {kern} {tag} k={k}: {errs[k]:.2e} from the plain panel (limit "
+                  f"{KERNEL_RTOL:g}), rerun {torch.equal(P, P2)}, column loop "
+                  f"{torch.equal(P, loop_)}, row panel {torch.equal(Pr, P)} "
+                  f"(in rows: {Pr.t().is_contiguous()})")
+            if k == 8:
+                worst = float((P - ref).abs().max())
+            del X, P, P2, loop_, Pr, ref
+        k = 8
+        timer = few_ms if long_call else marginal_ms
+        X = torch.randn((rows, k), device=dev)
+        t_ = dict(graph=graph_ms(lambda: panel(X)), events=timer(lambda: panel(X)),
+                  loop_graph=graph_ms(lambda: [vector(X[:, j]) for j in range(k)]),
+                  loop_events=timer(lambda: [vector(X[:, j]) for j in range(k)]),
+                  matmat=timer(lambda: matmat(X)))
+        P = panel(X)
+        ref = plain(X)
+        t_["bound"] = bound_ms(nbytes(blocks, X, P, *reads), 2 * blocks.numel() * k)
+        t_["design_bound"] = bound_ms(nbytes(blocks) * -(-k // PANEL_TILE)
+                                      + nbytes(X, P, *reads), 2 * blocks.numel() * k)
+        t_["plain"] = few_ms(lambda: plain(X), 1, 3) if long_call else marginal_ms(lambda: plain(X))
+        t_["library"], t_["library_err"], t_["library_note"] = spmm_time(csr, X, ref, timer)
+        del X, P, ref
+        if op is not None:  # the window operator's N block on a path: estimate_trace(A Aᵀ)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 170)
+            before = launches.get(kern, 0)
+            tr, se = on_path(lambda: lt.estimate_trace(op @ op.T, probes=8, method="hutchinson",
+                                                       generator=gen))
+            fro2 = float(op.data.blocks.double().pow(2).sum())
+            check(launches.get(kern, 0) - before == 1 and abs(float(tr) - fro2) <= 6 * float(se),
+                  f"17a {tag}: estimate_trace(A Aᵀ) {float(tr)} ± {float(se)} against ‖A‖_F² "
+                  f"{fro2}, {launches.get(kern, 0) - before} {kern} launches")
+            t_["trace"] = (float(tr), float(se), fro2)
+        rec[(kern, tag)] = dict(errs=errs, max_abs_err=worst, times=t_)
+        print(f"[17a forward panels] {kern} {tag}: max|Δ|/max|y| against the plain panel "
+              + ", ".join(f"k={k_} {e:.2e}" for k_, e in errs.items())
+              + f" (limit {KERNEL_RTOL:g}); every k bit for bit the vector kernel's column loop, "
+              f"the same bits on a rerun and through a row panel's view (its result in rows); "
+              f"k=8: {t_['graph'] * 1e3:.1f} us in a graph of 20, {t_['events'] * 1e3:.1f} us by "
+              f"events, column loop {t_['loop_graph'] * 1e3:.1f} / "
+              f"{t_['loop_events'] * 1e3:.1f} us, bsr_matmat {t_['matmat'] * 1e3:.1f} us, "
+              f"bound {t_['bound'][0] * 1e3:.1f} us ({t_['bound'][1]}; blocks once per "
+              f"{PANEL_TILE} columns: {t_['design_bound'][0] * 1e3:.1f} us), plain "
+              f"{t_['plain'] * 1e3:.1f} us"
+              + (f" ({PLAIN16_COLS} columns at a time)" if op is not None else "")
+              + ", cuSPARSE SpMM on a CSR of A "
+              + ("null" if t_["library"] is None else f"{t_['library'] * 1e3:.1f} us")
+              + f" ({t_['library_note']})"
+              + (f"; estimate_trace(A Aᵀ, 8 probes) {t_['trace'][0]:.6e} ± "
+                 f"{t_['trace'][1]:.2e} against ‖A‖_F² {t_['trace'][2]:.6e}, one {kern} launch"
+                 if op is not None else "")
+              + f"; {card}", flush=True)
+        del panel, plain, vector, matmat, blocks, reads, csr, op
+        free()
+
+    # --- 17b. blocks on the solve paths, in cached captured blocks --------------------------
+    B = lt.BSROperator(lt.BSR(main["blocks"], main["cols"], (N, N)))
+    Bm = matmat_n_block(lt, B)
+    gen = torch.Generator(device=dev)
+
+    def svd(op, tol=1e-4, maxiter=150):
+        gen.manual_seed(SEED + 113)
+        _, s_, V_, sres, it_ = lt.svds(op, k=4, tol=tol, maxiter=maxiter, generator=gen)
+        return torch.cat([s_, V_.reshape(-1)]), it_, sres
+
+    out_b = {}
+    for name, op in (("panel", B), ("bsr_matmat", Bm)):
+        tag = (f"17b svds(k=4, tol 1e-4) of phase 4's B (n = {N})"
+               + (" with its N block as bsr_matmat" if name == "bsr_matmat" else ""))
+        run = on_path if name == "panel" else (lambda f: f())
+        r = run(lambda op=op, tag=tag: loop_modes(loop, tag, lambda: svd(op), phase="17b"))
+        x, it, _ = svd(op)
+        for it_ in (SVDS16_ITERS, 2 * SVDS16_ITERS):  # each length's plain solve and capture
+            got = [svd(op, 0.0, it_)[1] for _ in range(2)]
+            check(got == [it_, it_], f"17b {name}: svds ran {got} iterations, not {it_}")
+        r["marginal"] = marginal_us(lambda n_, op=op: svd(op, 0.0, n_), SVDS16_ITERS,
+                                    2 * SVDS16_ITERS)
+        out_b[name] = dict(r, x=x, it=it)
+    rp, rm = out_b["panel"], out_b["bsr_matmat"]
+    hp, hm = rp["held"], rm["held"]
+    ds = rel_err(rp["x"][:4], rm["x"][:4])
+    check(ds <= 1e-5 and abs(rp["it"] - rm["it"]) <= 1 and hp.get("bsr_matmat", 0) > 0
+          and hp.get("bsr_matvec", 0) == 0 and hm.get("bsr_matmat", 0) == 0,
+          f"17b: s {ds:.2e} from bsr_matmat's N block ({rp['it']} against {rm['it']} "
+          f"iterations); the cached blocks recorded {hp} (K1p) and {hm} (bsr_matmat)")
+    (wp, ep), (wm, em) = rp["marginal"], rm["marginal"]
+    print(f"[17b svds forward panels] svds(k=4, tol 1e-4) of phase 4's B: {rp['it']} iterations, "
+          f"s within {ds:.2e} of the same solve with its N block as bsr_matmat "
+          f"({rm['it']} iterations); per cached block of {loop.BLOCK} iterations K1p "
+          f"{hp.get('bsr_matmat', 0)} launches, K2p {hp.get('bsr_rmatmat', 0)} (bsr_matmat's: "
+          f"{ {k_: v_ for k_, v_ in hm.items() if k_.startswith('bsr')} }); per iteration "
+          f"(marginal over {SVDS16_ITERS} and {2 * SVDS16_ITERS}): K1p wall {wp:.1f} us, CUDA "
+          f"events {ep:.1f} us; bsr_matmat wall {wm:.1f} us, events {em:.1f} us (event ratio "
+          f"{ep / em:.3f}); trace readings (loop_modes): busy {rp['busy'][1]:.2f} K1p, "
+          f"{rm['busy'][1]:.2f} bsr_matmat; {card}", flush=True)
+    rec["17b svds"] = dict(panel=rp, matmat=rm)
+    del B, Bm, out_b
+    free()
+
+    A_il = laplacian(GRID)
+    L_op = lt.opSparse(A_il, format="bsr", block_shape=(8, 128), symmetric=True, hermitian=True)
+    check(L_op.cols_local is not None, "17b: slice 2's I + L got no banded window plan")
+    n_il = A_il.shape[0]
+
+    def lob(iters=LOB17_ITERS):
+        gen.manual_seed(SEED + 171)
+        th_, X_, res_, it_ = lt.lobpcg(L_op, k=LOB17_K, tol=0.0, maxiter=iters, generator=gen)
+        return torch.cat([th_, X_.reshape(-1)]), it_, res_
+
+    r = on_path(lambda: loop_modes(loop, f"17b lobpcg(k={LOB17_K}) on I + L ({GRID}²)",
+                                   lob, phase="17b"))
+    for it_ in (LOB17_ITERS, 2 * LOB17_ITERS):
+        got = [lob(it_)[1] for _ in range(2)]
+        check(got == [it_, it_], f"17b lobpcg ran {got} iterations, not {it_}")
+    r["marginal"] = marginal_us(lambda n_: lob(n_), LOB17_ITERS, 2 * LOB17_ITERS)
+    gen.manual_seed(SEED + 171)
+    theta, X, res, _ = lt.lobpcg(L_op, k=LOB17_K, tol=0.0, maxiter=LOB17_ITERS, generator=gen)
+    r64, gaps = closed_form_gaps(five_point(GRID), GRID, theta - 1.0, X)  # I + L: θ − 1 for L
+    hl = r["held"]
+    check(hl.get("bsr_matmat_windowed", 0) > 0 and hl.get("bsr_matvec_windowed", 0) == 0,
+          f"17b lobpcg: the cached block recorded {hl}, not K3p alone")
+    Z = dev_vec(n_il, dev, SEED + 172, k=8)
+    for m_ in mods:
+        m_.reset_launch_counts()
+    YN = L_op.apply_matrix(Z, "N")
+    cN = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+    for m_ in mods:
+        m_.reset_launch_counts()
+    YT = L_op.apply_matrix(Z, "T")
+    cT = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+    check(torch.equal(YN, YT) and cN == cT == {"bsr_matmat_windowed": 1},
+          f"17b: the symmetric T block launched {cT} (N block {cN}), bit-equal "
+          f"{torch.equal(YN, YT)}")
+    wl, el = r["marginal"]
+    print(f"[17b lobpcg forward panels] lobpcg(k={LOB17_K}, tol 0) on I + L ({GRID}², K3's "
+          f"banded plan): per cached block of {loop.BLOCK} iterations K3p "
+          f"{hl.get('bsr_matmat_windowed', 0)} launches, no K3; θ − 1 "
+          f"{[round(float(t_) - 1.0, 8) for t_ in theta]}, f64 residuals "
+          f"{[float(f'{v:.3e}') for v in r64]}, distance to the nearest closed-form eigenvalue "
+          f"{[float(f'{v:.3e}') for v in gaps]}; per iteration (marginal over {LOB17_ITERS} and "
+          f"{2 * LOB17_ITERS}): wall {wl:.1f} us, CUDA events {el:.1f} us; its T block (k = 8) "
+          f"bit for bit its N block, one K3p launch each; {card}", flush=True)
+    rec["17b lobpcg"] = r
+    del L_op, A_il, Z, YN, YT, X, theta
+    free()
+
+    # --- 17c. vmap: an N vector apply, and a vmapped CG ---------------------------------
+    blocks, cols = make_bsr("8x128", f32, dev, scale=(8 * 128) ** -0.5)
+    B8 = lt.BSROperator(lt.BSR(blocks, cols, (N, N)))
+    V = torch.stack([dev_vec(N, dev, SEED + 173 + i) for i in range(8)])
+    Yv = on_path(lambda: torch.func.vmap(lambda v: B8.apply(v, "N"))(V))
+    c_v = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+    with torch.no_grad():
+        ref = torch.stack([B8.apply(v, "N") for v in V])
+    check(torch.equal(Yv, ref) and c_v == {"bsr_matmat": 1},
+          f"17c vmap N: bit-equal {torch.equal(Yv, ref)}, launches {c_v}")
+    A1 = main["A"]
+    Bs = torch.stack([dev_vec(N, dev, SEED + 181 + i) for i in range(8)])
+
+    def vcg():
+        xs_, ks_, _ = torch.func.vmap(lambda b_: lt.cg(A1, b_, tol=1e-5, maxiter=500))(Bs)
+        return xs_, ks_, dict(loop.stats)
+
+    xs, ks, st = on_path(vcg)
+    block = loop.BLOCK
+    loop.BLOCK = 1
+    try:
+        xs1, ks1, st1 = vcg()
+    finally:
+        loop.BLOCK = block
+    top = int(ks.max())
+    check(torch.equal(xs, xs1) and torch.equal(ks, ks1) and st["path"] == "vmap"
+          and st["reads"] <= -(-top // block) + 1 and st1["reads"] == top + 1,
+          f"17c vmap(cg): x bit-equal {torch.equal(xs, xs1)}, counts {ks.tolist()} against "
+          f"{ks1.tolist()}, reads {st['reads']} (per iteration {st1['reads']}) for {top} "
+          f"iterations")
+    print(f"[17c vmap] torch.func.vmap over 8 vectors of A x (8x128, n = {N}): one K1p launch "
+          f"{c_v}, bit for bit 8 vector applies; vmap(cg) over 8 right-hand sides of slice 1's "
+          f"graph: per-member iterations {ks.tolist()}, host reads {st['reads']} in blocks of "
+          f"{block} (the per-iteration vmap loop: {st1['reads']}), x and counts bit for bit; "
+          f"{card}", flush=True)
+    rec["17c"] = dict(reads=st["reads"], reads_per_iteration=st1["reads"], iters=top)
+    del B8, V, Yv, ref, Bs, xs, xs1
+
+    # --- 17d. a FunctionOperator's block: one call of the function ----------------------
+    nf = 4096
+    gd = torch.Generator(device=dev).manual_seed(SEED + 175)
+    Ad = torch.randn((nf, nf), generator=gd, device=dev) / nf ** 0.5
+    calls = []
+    F = lt.FunctionOperator(nf, nf, lambda v: calls.append(1) or Ad @ v, dtype=f32)
+    Md = torch.randn((nf, 8), generator=gd, device=dev)
+    Yf = on_path(lambda: F.apply_matrix(Md))
+    n_block = len(calls)
+    loop_f = torch.stack([F.apply(Md[:, j]) for j in range(8)], dim=1)
+    e_f = rel_err(Yf, loop_f)
+    check(n_block == 1 and len(calls) == 9 and e_f <= KERNEL_RTOL,
+          f"17d: {n_block} calls for the block (the loop {len(calls) - n_block}), {e_f:.2e} from "
+          f"the column loop")
+    print(f"[17d function blocks] a FunctionOperator over a dense {nf}² matmul: a block of 8 "
+          f"columns in {n_block} call of the function (the column loop: {len(calls) - n_block}), "
+          f"{e_f:.2e} from the column loop (limit {KERNEL_RTOL:g}: f32 sums of {nf} terms in "
+          f"cuBLAS's orders); {card}", flush=True)
+    del Ad, F, Md, Yf, loop_f
+
+    # --- 17e. the gradient of ½‖A_sym M − Y‖² (a symmetric operator's T block) ---------------
+    g17 = torch.Generator(device=dev).manual_seed(SEED + 176)
+    M = torch.randn((N, 8), generator=g17, device=dev)
+    Y = torch.randn((N, 8), generator=g17, device=dev)
+    grads = {}
+    for backend in ("auto", "torch"):
+        leaf = blocks.detach().clone().requires_grad_(True)
+        As = lt.BSROperator(lt.BSR(leaf, cols, (N, N)), symmetric=True, backend=backend)
+        Mg = M.clone().requires_grad_(True)
+        if backend == "auto":
+            loss = on_path(lambda: 0.5 * (As.apply_matrix(Mg, "T") - Y).pow(2).sum())
+            fwd = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+            grads[backend] = on_path(lambda: torch.autograd.grad(loss, (Mg, leaf)))
+            bwd = {k_: v_ for k_, v_ in all_launches(mods).items() if v_}
+        else:
+            loss = 0.5 * (As.apply_matrix(Mg, "T") - Y).pow(2).sum()
+            grads[backend] = torch.autograd.grad(loss, (Mg, leaf))
+        del leaf, As, Mg, loss
+    (gM, gB), (gM_p, gB_p) = grads["auto"], grads["torch"]
+    e_M, e_B = rel_err(gM, gM_p), rel_err(gB, gB_p)
+    check(fwd == {"bsr_matmat": 1} and bwd == {"bsr_rmatmat": 1}
+          and e_M <= KERNEL_RTOL and e_B <= KERNEL_RTOL,
+          f"17e: forward launches {fwd}, backward {bwd}; gradients {e_M:.2e} (M), {e_B:.2e} "
+          f"(blocks) from the plain backend's (limit {KERNEL_RTOL:g})")
+    print(f"[17e forward panel gradient] ½‖A_sym M − Y‖² (the T block of a symmetric 8x128 "
+          f"operator), M (n, 8): forward launches {fwd}; backward launches {bwd} (the M-gradient "
+          f"one K2p, the blocks' a gather and an outer product); against the plain backend's "
+          f"autograd: M {e_M:.2e}, blocks {e_B:.2e} (limit {KERNEL_RTOL:g}); {card}", flush=True)
+    del grads, gM, gB, gM_p, gB_p, M, Y, blocks, cols
+    free()
+    seconds = time.perf_counter() - t_phase
+    print(f"[17 forward panels] launches on 17's paths {launches}; {seconds:.1f} s", flush=True)
     return rec, launches
 
 
@@ -6380,6 +6809,11 @@ def main() -> int:
                        {"blocks": blocks, "cols": cols, "A": A}, slice6["spectra"])
     for name in PANEL16_KERNELS:
         check(l16.get(name, 0) > 0, f"{name} never ran on the 16 path (block transposes)")
+    # --- 17. a BSR operator's forward blocks in one launch (K1p, K3p, K5p) ------------------
+    r17, l17 = phase17(lt, loop_mod, (K, LG, E1, E2, GC), dev, card,
+                       {"blocks": blocks, "cols": cols, "A": A})
+    for name in PANEL17_KERNELS:
+        check(l17.get(name, 0) > 0, f"{name} never ran on the 17 path (forward blocks)")
 
     # the slice-1 CG by kernel: a profiled run of I_LONG iterations (its trace
     # comes after phase 5's profiler readings, as phase 10's do), its blocks
@@ -6506,12 +6940,33 @@ def main() -> int:
         if t["library_note"]:
             row["library_note"] = t["library_note"]
         kernels.append(row)
-    for row in kernels:  # launches inside phase 12's backward passes, on 13h's, 13i's, 14i's and 16's paths
+    for name, (source, replaces, case) in PANEL17_KERNELS.items():
+        r_ = r17[(name, case)]
+        t = r_["times"]
+        kernels.append({**entry(name, source, replaces, l17[name], r_["max_abs_err"], t["events"],
+                                t["plain"], t["bound"], t["library"]),
+                        "timing": "marginal CUDA events", "graph_ms": t["graph"],
+                        "column_loop_ms": t["loop_events"], "column_loop_graph_ms": t["loop_graph"],
+                        "bsr_matmat_ms": t["matmat"], "design_bound_ms": t["design_bound"][0],
+                        "shape": f"{case}, a block of k = 8 columns",
+                        "launches_from": "phase 17: 17a's estimate_trace of the window operators, "
+                                         "17b's svds and LOBPCG, 17c's vmap, 17e's gradient",
+                        "library_call": "torch.sparse.mm on a CSR of A built once, X dense (n, 8), "
+                                        "row-major and column-major: the faster",
+                        "library_max_rel_err": t["library_err"],
+                        "replaces_note": "the reference applies a block in this mode as jax.vmap "
+                                         "of the vector kernel: one batched pallas_call of the "
+                                         "site named",
+                        **({"plain_note": f"the plain panel {PLAIN16_COLS} columns at a time "
+                                          "(memory)"} if name != "bsr_matmat" else {}),
+                        **({"library_note": t["library_note"]} if t["library_note"] else {})})
+    for row in kernels:  # launches inside phase 12's backward passes, on 13h's, 13i's, 14i's, 16's and 17's paths
         row["backward_launches"] = ad_launches[row["name"]] if row["name"] in ad_launches else 0
         row["launches_13h"] = sum(c_.get(row["name"], 0) for c_ in dt_launches.values())
         row["launches_13i"] = l13i.get(row["name"], 0)
         row["launches_14i"] = l14i.get(row["name"], 0)
         row["launches_16"] = l16.get(row["name"], 0)
+        row["launches_17"] = l17.get(row["name"], 0)
     tally = collections.Counter(n for n, _ in TRACES_TAKEN)
     lossy = collections.Counter((h, t) for h, t, _ in SPINS_LOST if h or t)
     missed = [(h, t) for h, t, hit in SPINS_LOST if hit is False]

@@ -5,11 +5,12 @@ Counterpart of ``linops_tpu/core/dense.py``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import torch
 
-from .base import LinearOperator, LinearOperatorException, default_device
+from .base import LinearOperator, LinearOperatorException, _is_dtensor, default_device
 from .precision import pmatmul
 
 __all__ = ["MatrixOperator", "FunctionOperator", "make_operator", "aslinearoperator"]
@@ -94,7 +95,22 @@ class FunctionOperator(LinearOperator):
     tensors they hold that stay alive and change only in place (a replay
     reads those at the addresses it captured), and on no Python value that
     changes between calls (a capture bakes it in). The default, False, runs
-    solves over the operator in the per-iteration loop."""
+    solves over the operator in the per-iteration loop.
+
+    A block apply (``apply_matrix`` of an (n, k) block, ``apply_matrix_t``
+    of a (k, n) one) is one ``torch.func.vmap`` of the vector apply over
+    the k vectors, in every mode the vector apply infers: one call of the
+    function for the block, as the reference's ``jax.vmap``. The fallback:
+    a function ``torch.func.vmap`` cannot batch (one that calls ``.item()``
+    or builds a tensor from a number it reads, branches on a tensor's value,
+    or reads a tensor's storage, as ``.numpy()`` does) takes the column
+    loop, one call per vector. Its first block warns once, with a
+    ``UserWarning`` that names the operator and the error, and the operator
+    remembers it, so later blocks go straight to the loop. Only the errors
+    vmap raises for what it cannot batch are caught; any other propagates.
+    The function runs on the device it was given either way. A DTensor
+    block also takes the column loop: vmap would hand the function a
+    batched wrapper in place of the DTensor."""
 
     _fields_tensors = ()
     _fields_static = ("_nrow", "_ncol", "_symmetric", "_hermitian", "_dtype",
@@ -123,6 +139,7 @@ class FunctionOperator(LinearOperator):
         self._prod_fn = prod
         self._tprod_fn = tprod
         self._ctprod_fn = ctprod
+        self._unbatchable = None  # the vmap error of the first block that fell back
 
     @property
     def nrow(self):
@@ -164,11 +181,51 @@ class FunctionOperator(LinearOperator):
     def _has_tprod(self):
         return self._tprod_fn is not None
 
+    def apply_matrix(self, M, mode: str = "N"):
+        """Column block (n, k) → (m, k): one vmapped vector apply (see the
+        class docstring)."""
+        return self._block_apply(M, mode, 1)
+
+    def apply_matrix_t(self, Mt, mode: str = "N"):
+        """Row panel (k, n) → (k, m): one vmapped vector apply over its rows
+        (through a subclass's own ``apply_matrix`` where it has one)."""
+        if type(self).apply_matrix is not FunctionOperator.apply_matrix:
+            return super().apply_matrix_t(Mt, mode)
+        return self._block_apply(Mt, mode, 0)
+
+    def _block_apply(self, X, mode: str, dim: int):
+        if getattr(self, "_unbatchable", None) is None and not _is_dtensor(X):
+            try:
+                return torch.func.vmap(lambda v: self.apply(v, mode), in_dims=dim,
+                                       out_dims=dim)(X)
+            except RuntimeError as e:
+                if not _cannot_batch(e):
+                    raise
+                object.__setattr__(self, "_unbatchable", str(e))
+                warnings.warn(f"{self._name()} {self.nrow}x{self.ncol}: torch.func.vmap cannot "
+                              f"batch its function ({e}); its block applies take the column "
+                              "loop, one call per vector", UserWarning, stacklevel=3)
+        if dim == 0:
+            return super().apply_matrix(X.t(), mode).t()
+        return super().apply_matrix(X, mode)
+
     def _has_ctprod(self):
         return self._ctprod_fn is not None
 
     def _name(self):
         return "Function operator"
+
+
+# what torch.func.vmap raises for an operation it cannot batch: its own
+# errors ("vmap: ..."), a missing batching rule, and a read of a batched
+# tensor's storage (which it does not have)
+_UNBATCHABLE = ("vmap:", "Batching rule not implemented",
+                "Cannot access data pointer of Tensor that doesn't have storage")
+
+
+def _cannot_batch(e: RuntimeError) -> bool:
+    msg = str(e)
+    return any(m in msg for m in _UNBATCHABLE)
 
 
 def make_operator(*args, **kwargs) -> LinearOperator:

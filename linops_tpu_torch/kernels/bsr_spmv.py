@@ -13,14 +13,19 @@ Their panel forms, the block apply of a transpose (the reference runs
 ``jax.vmap`` of the vector kernel there, one batched ``pallas_call``):
 ``bsr_rmatmat_kernel`` (K2p), ``bsr_rmatmat_windowed_kernel`` (K4p) and
 ``bsr_rmatmat_multiwin_kernel`` (K6p), each on the plan of its vector kernel,
-column j bit for bit the vector kernel applied to column j.
+column j bit for bit the vector kernel applied to column j. The forward's
+(the block apply of N, and of a symmetric T or hermitian H):
+``bsr_matmat_kernel`` (K1p), ``bsr_matmat_windowed_kernel`` (K3p) and
+``bsr_matmat_multiwin_kernel`` (K5p), the same way; their plain versions are
+``bsr_matmat_plain`` and the K3/K5 plain versions given a trailing column
+axis.
 
 K3-K6 consume the reference's window plans (``bsr_window_plan``,
 ``bsr_window_plan_multi``, ``bsr_window_plan_multi_t``: host numpy, copied
 from the reference so the same operator gets the same plan).
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` in ``csrc/bsr_spmv.cu``
-(K1, K2, K2p) and ``csrc/bsr_window.cu`` (K3-K6, K4p, K6p), design notes there, built with
+(K1, K2, K1p, K2p) and ``csrc/bsr_window.cu`` (K3-K6, K3p-K6p), design notes there, built with
 ``nvcc`` at first use (``build.py``). Each
 wrapper dispatches on the device of the tensors it is given: CPU tensors take
 the plain PyTorch version beside it; CUDA tensors launch the kernel or raise.
@@ -57,6 +62,9 @@ __all__ = [
     "bsr_rmatmat_kernel",
     "bsr_rmatmat_windowed_kernel",
     "bsr_rmatmat_multiwin_kernel",
+    "bsr_matmat_kernel",
+    "bsr_matmat_windowed_kernel",
+    "bsr_matmat_multiwin_kernel",
     "bsr_matvec_plain",
     "bsr_rmatvec_plain",
     "bsr_matmat_plain",
@@ -94,7 +102,8 @@ __all__ = [
 _LAUNCHES = {"bsr_matvec": 0, "bsr_rmatvec": 0, "bsr_matvec_windowed": 0,
              "bsr_rmatvec_windowed": 0, "bsr_matvec_multiwin": 0,
              "bsr_rmatvec_multiwin": 0, "bsr_rmatmat": 0, "bsr_rmatmat_windowed": 0,
-             "bsr_rmatmat_multiwin": 0}
+             "bsr_rmatmat_multiwin": 0, "bsr_matmat": 0, "bsr_matmat_windowed": 0,
+             "bsr_matmat_multiwin": 0}
 loop.register_launches(_LAUNCHES)
 # kernel name -> the device function each of its launches runs once: the name
 # a profiler trace or a CUDA graph's kernel node gives it (K2, K4, K6 and
@@ -106,7 +115,10 @@ LAUNCH_SYMBOLS = {"bsr_matvec": "bsr_matvec_kernel", "bsr_rmatvec": "rmatvec_chu
                   "bsr_rmatvec_multiwin": "multiwin_chunk_kernel",
                   "bsr_rmatmat": "rmatmat_chunk_kernel",
                   "bsr_rmatmat_windowed": "windowed_panel_combine_kernel",
-                  "bsr_rmatmat_multiwin": "multiwin_panel_chunk_kernel"}
+                  "bsr_rmatmat_multiwin": "multiwin_panel_chunk_kernel",
+                  "bsr_matmat": "bsr_matmat_kernel",
+                  "bsr_matmat_windowed": "bsr_matmat_windowed_kernel",
+                  "bsr_matmat_multiwin": "bsr_matmat_multiwin_kernel"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (block dtype, vector/output dtype) pairs the kernels are instantiated for
@@ -187,7 +199,8 @@ def bsr_matvec_plain(blocks, block_cols, x_blocks):
 
 
 def bsr_matmat_plain(blocks, block_cols, X_blocks):
-    """Multi-RHS: Y (nbrow, bm, k) = Σ_j blocks[r,j] @ X_blocks[block_cols[r,j]]."""
+    """Multi-RHS: Y (nbrow, bm, k) = Σ_j blocks[r,j] @ X_blocks[block_cols[r,j]]
+    (the N block of both packages' ``bsr_matmat``; K1p's plain version)."""
     check_f32_exact(blocks, X_blocks)
     res = torch.promote_types(blocks.dtype, X_blocks.dtype)
     acc = _acc_dtype(res)
@@ -321,6 +334,9 @@ def _lib():
         lib.linops_bsr_rmatmat.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32,
                                            i32, i64, i64, i64, i64, i32, i32, i32, p]
         lib.linops_bsr_rmatmat.restype = ctypes.c_int
+        lib.linops_bsr_matmat.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64,
+                                          i64, i64, i32, i32, i32, p]
+        lib.linops_bsr_matmat.restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
         lib._linops_typed = True
@@ -484,6 +500,57 @@ def bsr_rmatmat_kernel(blocks, block_cols, U, nbcol: int, *, plan=None):
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out
+
+
+def _fwd_panel_args(blocks, block_cols, X, what: str):
+    """Validate a forward panel's CUDA inputs; return (X in the kernel's
+    dtype, its block rows, dtypes). X is (rows, k), rows a multiple of bn,
+    with any strides (a cast copies it)."""
+    pair = _check_blocks(blocks, block_cols, X, what)
+    bn = blocks.shape[3]
+    if X.dim() != 2 or X.shape[0] % bn:
+        raise ValueError(f"{what}: the panel must be (rows, k) with rows a multiple of "
+                         f"{bn}, got {tuple(X.shape)}")
+    return X.to(pair[1]), X.shape[0] // bn, pair
+
+
+def _fwd_plain(fn, X, bn: int, *args, **kw):
+    """A forward's plain version on a panel X (rows, k): X as (rows/bn, bn,
+    k) block rows in, (nbrow·bm, k) out."""
+    k = X.shape[1]
+    Y = fn(*args, X.reshape(X.shape[0] // bn, bn, k), **kw)
+    return Y.reshape(Y.shape[0] * Y.shape[1], k)
+
+
+def bsr_matmat_kernel(blocks, block_cols, X):
+    """K1p: K1 over a panel, Y (nbrow·bm, k) = A X for X (rows, k) (rows a
+    multiple of bn, every block column below rows / bn), in
+    ``promote(blocks, X)``: one launch for every column, each stored block
+    read once per 8 columns, column j bit for bit ``bsr_matvec_kernel`` of
+    column j. X is read through its strides (a column panel, or a row
+    panel's ``.t()``, without a copy; a dtype cast copies it), and Y is laid
+    out as X (``bsr_rmatmat_kernel``'s rule). CPU tensors take
+    ``bsr_matmat_plain`` (row-major); CUDA tensors launch the kernel
+    (f32/bf16 only) or raise."""
+    bn = blocks.shape[3]
+    if blocks.device.type == "cpu":
+        return _fwd_plain(bsr_matmat_plain, X, bn, blocks, block_cols)
+    what = "bsr_matmat"
+    _on_cuda(blocks, what)
+    nbrow, kmax, bm, _ = blocks.shape
+    X, x_rows, (bdt, vdt) = _fwd_panel_args(blocks, block_cols, X, what)
+    k = X.shape[1]
+    Y = _panel_out(X, nbrow * bm, vdt)
+    if k == 0:
+        return Y
+    lib = _lib()
+    rc = lib.linops_bsr_matmat(
+        blocks.data_ptr(), block_cols.data_ptr(), X.data_ptr(), Y.data_ptr(), x_rows, nbrow,
+        kmax, bm, bn, k, *_strides(X, Y), _DTYPE_CODE[bdt], _DTYPE_CODE[vdt],
+        *_device_stream(blocks))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return Y
 
 
 def _column_plan_tensors(plan, blocks, nbcol: int, slots_ok: bool, what: str, maker: str):
@@ -710,7 +777,10 @@ def _row_groups(nbrow: int, ngroups: int, device):
 
 
 def _pad_rows(t, rows: int):
-    return torch.nn.functional.pad(t, (0, 0, 0, rows - t.shape[0])) if t.shape[0] < rows else t
+    """t with zero rows appended along its first axis up to ``rows``."""
+    if t.shape[0] >= rows:
+        return t
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1) + (0, rows - t.shape[0]))
 
 
 def _windowed_cols(cols_local, win_q, wb: int):
@@ -734,32 +804,46 @@ def _lane_weights(block_cols, win_q, wb: int, valid=None):
     return hit.sum(0)
 
 
+def _fwd_eq(x_blocks) -> str:
+    """The forward's einsum for x (nbcol, bn), or a panel (nbcol, bn, k)."""
+    return "rkmn,rkn->rm" if x_blocks.dim() == 2 else "rkmn,rknj->rmj"
+
+
+def _slot_weight(w, xg):
+    """A per-slot weight (nbrow, kmax) broadcast over a gathered x's trailing axes."""
+    return w.reshape(w.shape + (1,) * (xg.dim() - 2))
+
+
 def bsr_matvec_windowed_plain(blocks, cols_local, win_q, x_blocks, *, wb: int,
                               x_pad_blocks: int, fast: bool = False, t_out: bool = False):
     """K3's product: y[r] = Σ_k blocks[r,k] @ x[q[g]·wb + cols_local[r,k]],
-    x zero-padded to ``x_pad_blocks`` block rows; R = nbrow // len(win_q)."""
+    x zero-padded to ``x_pad_blocks`` block rows; R = nbrow // len(win_q).
+    x (nbcol, bn) gives y (nbrow, bm); a panel (nbcol, bn, k) gives
+    (nbrow, bm, k), K3p's plain version."""
     del fast, t_out
     gcols, inside = _windowed_cols(cols_local, win_q, wb)
     check_f32_exact(blocks, x_blocks)
     res = torch.promote_types(blocks.dtype, x_blocks.dtype)
     acc = _acc_dtype(res)
     xg = _pad_rows(x_blocks, x_pad_blocks)[gcols].to(acc)
-    xg = torch.where(inside[..., None], xg, torch.zeros((), dtype=acc, device=xg.device))
-    return torch.einsum("rkmn,rkn->rm", blocks.to(acc), xg).to(res)
+    xg = torch.where(_slot_weight(inside, xg), xg, torch.zeros((), dtype=acc, device=xg.device))
+    return torch.einsum(_fwd_eq(x_blocks), blocks.to(acc), xg).to(res)
 
 
 def bsr_matvec_multiwin_plain(blocks, block_cols, win_q, x_blocks, *, wb: int,
                               x_pad_blocks: int, fast: bool = False, t_out: bool = False):
     """K5's product: K1's sum, each slot counted once for every window
     [q[w,g]·wb, (q[w,g]+1)·wb) that holds its block column (once for a real
-    slot; never for a dump window)."""
+    slot; never for a dump window). A panel x (nbcol, bn, k) gives (nbrow,
+    bm, k), K5p's plain version."""
     del fast, t_out
     check_f32_exact(blocks, x_blocks)
     res = torch.promote_types(blocks.dtype, x_blocks.dtype)
     acc = _acc_dtype(res)
     weight = _lane_weights(block_cols, win_q, wb).to(acc)
-    xg = _pad_rows(x_blocks, x_pad_blocks)[block_cols.long()].to(acc) * weight[..., None]
-    return torch.einsum("rkmn,rkn->rm", blocks.to(acc), xg).to(res)
+    xg = _pad_rows(x_blocks, x_pad_blocks)[block_cols.long()].to(acc)
+    xg = xg * _slot_weight(weight, xg)
+    return torch.einsum(_fwd_eq(x_blocks), blocks.to(acc), xg).to(res)
 
 
 def _scatter(blocks, u_blocks, targets, weight, rows: int, sum_plan=None):
@@ -950,9 +1034,16 @@ def _win_lib():
         lib.linops_bsr_rmatmat_multiwin.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32,
                                                     i32, i32, i32, i64, i64, i64, i64, i32,
                                                     i32, i32, p]
+        lib.linops_bsr_matmat_windowed.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32,
+                                                   i32, i32, i64, i64, i64, i64, i32, i32, i32,
+                                                   p]
+        lib.linops_bsr_matmat_multiwin.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32,
+                                                   i32, i32, i32, i64, i64, i64, i64, i32, i32,
+                                                   i32, p]
         for f in (lib.linops_bsr_matvec_windowed, lib.linops_bsr_matvec_multiwin,
                   lib.linops_bsr_rmatvec_windowed, lib.linops_bsr_rmatvec_multiwin,
-                  lib.linops_bsr_rmatmat_windowed, lib.linops_bsr_rmatmat_multiwin):
+                  lib.linops_bsr_rmatmat_windowed, lib.linops_bsr_rmatmat_multiwin,
+                  lib.linops_bsr_matmat_windowed, lib.linops_bsr_matmat_multiwin):
             f.restype = ctypes.c_int
         lib.linops_cuda_error_string.argtypes = [ctypes.c_int]
         lib.linops_cuda_error_string.restype = ctypes.c_char_p
@@ -1205,3 +1296,71 @@ def bsr_rmatmat_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, U, *, 
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out
+
+
+def bsr_matmat_windowed_kernel(blocks, cols_local, win_q, X, *, wb: int, x_pad_blocks: int):
+    """K3p: K3 over a panel, Y (nbrow·bm, k) for X (rows, k) (rows a multiple
+    of bn; window rows past it read as zeros, so X is not padded to
+    ``x_pad_blocks``), one launch for every column, each stored block read
+    once per 8 columns, column j bit for bit ``bsr_matvec_windowed_kernel``
+    of column j. X, its layout and the dispatch as ``bsr_matmat_kernel``'s;
+    CPU tensors take ``bsr_matvec_windowed_plain`` on the panel."""
+    bn = blocks.shape[3]
+    if blocks.device.type == "cpu":
+        return _fwd_plain(bsr_matvec_windowed_plain, X, bn, blocks, cols_local, win_q, wb=wb,
+                          x_pad_blocks=x_pad_blocks)
+    what = "bsr_matmat_windowed"
+    _on_cuda(blocks, what)
+    nbrow, kmax, bm, _ = blocks.shape
+    X, x_rows, (bdt, vdt) = _fwd_panel_args(blocks, cols_local, X, what)
+    _check_plan_tensor(win_q, blocks, 1, "win_q", what)
+    ngroups = _check_windows(what, blocks, win_q, wb, 2, 0)
+    k = X.shape[1]
+    Y = _panel_out(X, nbrow * bm, vdt)
+    if k == 0:
+        return Y
+    lib = _win_lib()
+    rc = lib.linops_bsr_matmat_windowed(
+        blocks.data_ptr(), cols_local.data_ptr(), win_q.data_ptr(), X.data_ptr(), Y.data_ptr(),
+        x_rows, nbrow, ngroups, kmax, bm, bn, wb, k, *_strides(X, Y), _DTYPE_CODE[bdt],
+        _DTYPE_CODE[vdt], *_device_stream(blocks))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return Y
+
+
+def bsr_matmat_multiwin_kernel(blocks, block_cols, win_q, X, *, wb: int, x_pad_blocks: int,
+                               index=None):
+    """K5p: K5 over a panel, Y (nbrow·bm, k) for X (rows, k), one launch for
+    every column, each stored block read once per 8 columns, column j bit
+    for bit ``bsr_matvec_multiwin_kernel`` of column j. X, its layout and
+    the dispatch as ``bsr_matmat_kernel``'s; ``index`` as K5's
+    (``bsr_multiwin_index``, built here when not given). CPU tensors take
+    ``bsr_matvec_multiwin_plain`` on the panel."""
+    bn = blocks.shape[3]
+    if blocks.device.type == "cpu":
+        return _fwd_plain(bsr_matvec_multiwin_plain, X, bn, blocks, block_cols, win_q, wb=wb,
+                          x_pad_blocks=x_pad_blocks)
+    what = "bsr_matmat_multiwin"
+    _on_cuda(blocks, what)
+    nbrow, kmax, bm, _ = blocks.shape
+    X, x_rows, (bdt, vdt) = _fwd_panel_args(blocks, block_cols, X, what)
+    _check_plan_tensor(win_q, blocks, 2, "win_q", what)
+    W = win_q.shape[0]
+    ngroups = _check_windows(what, blocks, win_q, wb, W, 0)
+    if index is None:
+        index = bsr_multiwin_index(block_cols, win_q, wb)
+    if index.dtype != torch.int32 or index.shape != block_cols.shape or index.device != blocks.device:
+        raise ValueError(f"{what}: index does not fit these blocks (see bsr_multiwin_index)")
+    k = X.shape[1]
+    Y = _panel_out(X, nbrow * bm, vdt)
+    if k == 0:
+        return Y
+    lib = _win_lib()
+    rc = lib.linops_bsr_matmat_multiwin(
+        blocks.data_ptr(), index.data_ptr(), win_q.data_ptr(), X.data_ptr(), Y.data_ptr(),
+        x_rows, nbrow, ngroups, W, kmax, bm, bn, wb, k, *_strides(X, Y), _DTYPE_CODE[bdt],
+        _DTYPE_CODE[vdt], *_device_stream(blocks))
+    _check_launch(lib, rc, what)
+    _LAUNCHES[what] += 1
+    return Y

@@ -527,6 +527,170 @@ int launch_panel_plan(PanelChunkKernel<TB, TX> by_slot, PanelChunkKernel<TB, TX>
   return 0;
 }
 
+
+// ---- the forward over a panel of columns (K1p, K3p, K5p) ----
+//
+// y[r bm + m, j] = sum over the slots of block row r of sum_n
+// blocks[r, k, m, n] * x[row(slot) bn + n, j], for every column j < k of x:
+// the block apply of a forward (the reference runs jax.vmap of the vector
+// kernel there, one batched pallas_call). x and y are addressed through
+// (row, column) strides (PanelIO: u is x, out is y), so a column panel
+// (n, k) and the transposed view of a row panel (k, n) both run without a
+// copy. `row` maps a slot to the block row of x it reads, or -1 when the
+// slot adds nothing (K1: its block column; K3, K5: the window row the
+// vector kernel stages, addressed in x itself).
+//
+// Work: a warp takes a chunk of kFwdRows m values of one block row (a
+// thread block, kFwdWarps consecutive chunks: 8 block rows at bm = 8) and a
+// tile of kPanel columns (blockIdx.y). Lanes walk n (n = lane, lane + 32,
+// ...) over the slots in order, as the vector kernels' warps do; each lane
+// keeps kFwdRows x kPanel f32 chains, one per (m, j). A step loads the
+// chunk's kFwdRows block values and the kPanel x values of its n once and
+// makes kFwdRows x kPanel multiply-adds: a stored block is read once per
+// tile of kPanel columns, and an x value once per chunk (the first design,
+// a warp per m row as K1, read each x value bm times from L1/L2 and ran at
+// a sixth of the bytes bound on the H100).
+//
+// The end of a chunk adds each chain over the warp by warp_sum's butterfly
+// (lane offsets 16, 8, 4, 2, 1), each lane sending half of the values it
+// holds at each level and keeping the other half: 62 shuffles for the 64
+// sums, where 64 warp_sums take 320, and lane l ends with sums 2l and
+// 2l + 1 (m = l / 4, j = 2 (l % 4) + {0, 1}). Each level adds the same two
+// partial sums as warp_sum's (a + b or b + a: the same bits), so each sum
+// is warp_sum's.
+//
+// Order: the chain of (m, j) is the vector kernel's chain of row m for
+// column j (the same slots, n values and order), and its warp sum is
+// warp_sum's, so column j is bit for bit K1 (K3, K5) applied to column j. A
+// window row past x, which K3 and K5 stage as zeros, is read as zeros here
+// (a multiply-add by 0, as there).
+//
+// What the windows become here: K3 and K5 stage a row group's windows of
+// one vector in shared memory (2 wb or W wb rows of bn values, up to 192
+// KiB); a panel's windows are kPanel times larger and do not fit. So the
+// panel kernels read the window rows of x from L2, as K1 reads x: the
+// chunks of one thread block are consecutive block rows, which a banded
+// plan points at the same windows, and the block rows of one group read the
+// same windows, so L1 and L2 hold them. The plan is unchanged: the same
+// slots count, in the same order.
+//
+// x is read as two 4-value loads a row when its columns are contiguous
+// (u_cs == 1, u_rs a multiple of 4, x aligned, a full tile), else one
+// value per column.
+
+constexpr int kFwdWarps = 8;  // K1p, K3p, K5p: warps (chunks) per thread block
+constexpr int kFwdRows = 8;   // m values per chunk
+static_assert(kFwdRows * kPanel == 64, "a lane ends with two of a chunk's 64 sums");
+
+template <typename TX>
+__device__ __forceinline__ void load_panel_row(const TX* __restrict__ p, int64_t cs, int kw,
+                                               bool vec, float v[kPanel]) {
+  if (vec) {
+    load4(p, v);
+    load4(p + 4, v + 4);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) v[j] = j < kw ? widen(p[j * cs]) : 0.f;
+}
+
+// One level of the chunk's butterfly: N values a lane to N / 2, pairs at
+// lane offset o.
+template <int N>
+__device__ __forceinline__ void sum_level(float* v, int o) {
+  const bool up = (threadIdx.x & 31) & o;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? v[i] : v[i + N / 2];
+    const float keep = up ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// The chunk's chunk-th kFwdRows m values of block row r over the column tile
+// blockIdx.y; x_rows is x's block rows (a row at or past it reads as zeros).
+template <typename TB, typename TX, typename Row>
+__device__ __forceinline__ void forward_panel_chunk(const TB* __restrict__ blocks,
+                                                    const TX* __restrict__ x,
+                                                    TX* __restrict__ y, int64_t r, int m0,
+                                                    int kmax, int bm, int bn, int64_t x_rows,
+                                                    const Row& row, PanelIO io) {
+  static_assert(kPanel == 8, "load_panel_row loads a tile as two 4-value pieces");
+  const int lane = threadIdx.x & 31;
+  const int j0 = blockIdx.y * kPanel;
+  const int kw = min(kPanel, io.k - j0);
+  const int mw = min(kFwdRows, bm - m0);
+  const TX* xj = x + j0 * io.u_cs;
+  const bool vec = io.u_cs == 1 && io.u_rs % 4 == 0 && kw == kPanel &&
+                   reinterpret_cast<uintptr_t>(xj) % (4 * sizeof(TX)) == 0;
+  float acc[kFwdRows * kPanel];
+#pragma unroll
+  for (int i = 0; i < kFwdRows * kPanel; ++i) acc[i] = 0.f;
+  for (int k = 0; k < kmax; ++k) {
+    const int64_t slot = r * kmax + k;
+    const int64_t xr = row(slot);
+    if (xr < 0) continue;  // the same for the whole warp
+    const bool inside = xr < x_rows;
+    const TB* brow = blocks + (slot * bm + m0) * static_cast<int64_t>(bn);
+    const TX* xrow = xj + xr * bn * io.u_rs;
+#pragma unroll 2
+    for (int n = lane; n < bn; n += 32) {
+      float b[kFwdRows], xv[kPanel];
+#pragma unroll
+      for (int i = 0; i < kFwdRows; ++i)
+        b[i] = i < mw ? widen(brow[static_cast<int64_t>(i) * bn + n]) : 0.f;
+      if (inside) {
+        load_panel_row(xrow + n * io.u_rs, io.u_cs, kw, vec, xv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPanel; ++j) xv[j] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kFwdRows; ++i) {
+        if (i < mw) {  // the same for the whole warp
+#pragma unroll
+          for (int j = 0; j < kPanel; ++j)
+            acc[i * kPanel + j] = fmaf(b[i], xv[j], acc[i * kPanel + j]);
+        }
+      }
+    }
+  }
+  sum_level<64>(acc, 16);
+  sum_level<32>(acc, 8);
+  sum_level<16>(acc, 4);
+  sum_level<8>(acc, 2);
+  sum_level<4>(acc, 1);
+  const int m = lane >> 2;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int j = 2 * (lane & 3) + t;
+    if (m < mw && j < kw)
+      y[(r * bm + m0 + m) * io.o_rs + (j0 + j) * io.o_cs] = narrow<TX>(acc[t]);
+  }
+}
+
+// The chunk a warp takes: blockIdx.x kFwdWarps chunks, chunk c = block row
+// c / mchunks, m values from (c % mchunks) kFwdRows; false past the last.
+__device__ __forceinline__ bool forward_chunk(int64_t nbrow, int bm, int64_t* r, int* m0) {
+  const int mchunks = (bm + kFwdRows - 1) / kFwdRows;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
+  *r = c / mchunks;
+  *m0 = static_cast<int>(c % mchunks) * kFwdRows;
+  return *r < nbrow;
+}
+
+// The grid of a forward panel: blockIdx.x = kFwdWarps chunks, blockIdx.y =
+// column tile.
+inline int forward_panel_grid(int64_t nbrow, int bm, int k, dim3* grid) {
+  const int64_t chunks = nbrow * ((bm + kFwdRows - 1) / kFwdRows);
+  const int64_t gx = (chunks + kFwdWarps - 1) / kFwdWarps;
+  const int64_t gy = (k + kPanel - 1) / kPanel;
+  if (k <= 0 || gx > 0x7fffffffLL || gy > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  *grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  return 0;
+}
+
 }  // namespace
 
 extern "C" const char* linops_cuda_error_string(int code) {

@@ -49,6 +49,14 @@
 // every stored block once per tile of kPanel columns, where k vector applies
 // read it k times; column j is bit for bit K2 applied to column j.
 //
+// K1p `linops_bsr_matmat` is K1 over a panel of k columns, the block apply
+// of a forward (the reference runs jax.vmap of bsr_matvec_pallas there, one
+// batched pallas_call): y[r, m, j] = sum blocks[r, k, m, n] * x[cols[r, k], n, j].
+// Its body (forward_panel_chunk, bsr_common.cuh) keeps K1's FMA chain per
+// lane, output row and column and its warp sum, and reads every stored block
+// once per tile of kPanel columns, every x value once per 8 output rows;
+// column j is bit for bit K1 applied to column j.
+//
 // Accumulation is f32 for f32 and bf16 blocks; bf16 is widened per element.
 // Element offsets are 64-bit (nbrow*kmax*bm*bn passes 2^31 soon after the
 // 67M-value benchmark shape). Each entry point launches on the caller's stream,
@@ -129,6 +137,19 @@ rmatmat_combine_kernel(const float* __restrict__ partial, const int32_t* __restr
   panel_combine_pass<TX>(partial, cols, col_chunk, out, bn, io);
 }
 
+// K1p: forward_panel_chunk with x read at the slot's block column.
+template <typename TB, typename TX>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+bsr_matmat_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ cols,
+                  const TX* __restrict__ x, TX* __restrict__ y, int64_t x_rows, int64_t nbrow,
+                  int kmax, int bm, int bn, PanelIO io) {
+  int64_t r;
+  int m0;
+  if (!forward_chunk(nbrow, bm, &r, &m0)) return;  // whole warps; nothing below synchronises
+  forward_panel_chunk(blocks, x, y, r, m0, kmax, bm, bn, x_rows,
+                      [cols](int64_t slot) -> int64_t { return cols[slot]; }, io);
+}
+
 template <typename TB, typename TX>
 int launch_matvec(const void* blocks, const void* cols, const void* x, void* y,
                   int64_t nbrow, int kmax, int bm, int bn, cudaStream_t stream) {
@@ -162,6 +183,18 @@ int launch_rmatmat(const void* blocks, const void* perm, const void* chunk_ptr,
       rmatmat_chunk_kernel<TB, TX, kUnroll, 1>, rmatmat_chunk_kernel<TB, TX, 1, kUnroll>,
       rmatmat_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
       u, partial, out, nchunks, ncombine, kmax, bm, bn, io, stream);
+}
+
+template <typename TB, typename TX>
+int launch_matmat(const void* blocks, const void* cols, const void* x, void* y, int64_t x_rows,
+                  int64_t nbrow, int kmax, int bm, int bn, PanelIO io, cudaStream_t stream) {
+  dim3 grid;
+  if (int rc = forward_panel_grid(nbrow, bm, io.k, &grid)) return rc;
+  if (grid.x == 0) return 0;
+  bsr_matmat_kernel<TB, TX><<<grid, kFwdWarps * 32, 0, stream>>>(
+      static_cast<const TB*>(blocks), static_cast<const int32_t*>(cols),
+      static_cast<const TX*>(x), static_cast<TX*>(y), x_rows, nbrow, kmax, bm, bn, io);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -219,6 +252,24 @@ int linops_bsr_rmatmat(const void* blocks, const void* perm, const void* chunk_p
     using TX = typename decltype(tx)::type;
     return launch_rmatmat<TB, TX>(blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
                                   u, partial, out, nchunks, ncombine, kmax, bm, bn, io, s);
+  });
+}
+
+// K1p. K1 over k columns: x[row, j] at x[row * x_rs + j * x_cs] (row <
+// x_rows bn), y[row, j] at y[row * y_rs + j * y_cs] (row < nbrow bm); every
+// block column below x_rows.
+int linops_bsr_matmat(const void* blocks, const void* cols, const void* x, void* y,
+                      int64_t x_rows, int64_t nbrow, int kmax, int bm, int bn, int k,
+                      int64_t x_rs, int64_t x_cs, int64_t y_rs, int64_t y_cs, int block_dtype,
+                      int vec_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PanelIO io{x_rs, x_cs, y_rs, y_cs, k};
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    return launch_matmat<TB, TX>(blocks, cols, x, y, x_rows, nbrow, kmax, bm, bn, io, s);
   });
 }
 

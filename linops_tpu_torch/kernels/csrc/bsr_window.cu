@@ -84,6 +84,20 @@
 // vector kernel's order per column: column j is bit for bit K4 (K6)
 // applied to column j.
 //
+// Forward panel forms (the block apply of a forward, jax.vmap of the vector
+// kernel in the reference): K3p `linops_bsr_matmat_windowed` and K5p
+// `linops_bsr_matmat_multiwin` give y[r, m, j] for every column j < k of x,
+// x and y addressed through (row, column) strides. They run K1p's body
+// (forward_panel_chunk, bsr_common.cuh) with a slot's x row found through the
+// plan as K3 and K5 find it (K3: q[g] wb + cols_local, none outside both
+// windows; K5: the lane row's window, none for -1), read from L2 where the
+// vector kernels stage one vector's windows in shared memory: a panel's
+// windows are kPanel times larger than shared memory holds at the plans'
+// widths (design notes in bsr_common.cuh). A warp per 8 output rows, as
+// K1p, so a thread block's working set does not grow with the group. Both
+// keep the vector kernel's order per column: column j is bit for bit K3
+// (K5) applied to column j.
+//
 // f32 accumulation for f32 and bf16 blocks, also across groups (the TPU's
 // bf16 transposes accumulated across groups in bf16; this does not). 64-bit
 // element offsets. Each entry point launches on the caller's stream, does
@@ -180,6 +194,52 @@ bsr_matvec_multiwin_kernel(const TB* __restrict__ blocks,
   __syncthreads();
   window_rows(blocks, lane_rows, xs, y, g * R + r0, min(slice_rows, R - r0), kmax, bm, bn,
               nwin * wb);
+}
+
+// K3p: forward_panel_chunk with slot (r, k) of group g = r / R reading x's
+// block row q[g] wb + cols_local[slot], and nothing outside both windows.
+template <typename TB, typename TX>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+bsr_matmat_windowed_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ cols_local,
+                           const int32_t* __restrict__ win_q, const TX* __restrict__ x,
+                           TX* __restrict__ y, int64_t x_rows, int64_t nbrow, int R, int kmax,
+                           int bm, int bn, int wb, PanelIO io) {
+  int64_t r;
+  int m0;
+  if (!forward_chunk(nbrow, bm, &r, &m0)) return;  // whole warps; nothing below synchronises
+  const int64_t base = static_cast<int64_t>(win_q[r / R]) * wb;
+  const int span = 2 * wb;
+  forward_panel_chunk(blocks, x, y, r, m0, kmax, bm, bn, x_rows,
+                      [cols_local, base, span](int64_t slot) -> int64_t {
+                        const int l = cols_local[slot];
+                        return l < 0 || l >= span ? -1 : base + l;
+                      },
+                      io);
+}
+
+// K5p: forward_panel_chunk with a slot's lane row l = w wb + c % wb
+// (bsr_multiwin_index) reading x's block row q[w, g] wb + l % wb, and
+// nothing for l = -1.
+template <typename TB, typename TX>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+bsr_matmat_multiwin_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ lane_rows,
+                           const int32_t* __restrict__ win_q, const TX* __restrict__ x,
+                           TX* __restrict__ y, int64_t x_rows, int64_t nbrow, int ngroups,
+                           int nwin, int R, int kmax, int bm, int bn, int wb, PanelIO io) {
+  int64_t r;
+  int m0;
+  if (!forward_chunk(nbrow, bm, &r, &m0)) return;  // whole warps; nothing below synchronises
+  const int64_t g = r / R;
+  const int span = nwin * wb;
+  forward_panel_chunk(blocks, x, y, r, m0, kmax, bm, bn, x_rows,
+                      [lane_rows, win_q, g, ngroups, span, wb](int64_t slot) -> int64_t {
+                        const int l = lane_rows[slot];
+                        if (l < 0 || l >= span) return -1;
+                        const int w = l / wb;
+                        return static_cast<int64_t>(win_q[static_cast<int64_t>(w) * ngroups + g]) *
+                                   wb + (l - w * wb);
+                      },
+                      io);
 }
 
 // Adds U listed slots (perm[e .. e+U)) to a lane's accumulators, slot by
@@ -636,6 +696,62 @@ int linops_bsr_rmatmat_multiwin(const void* blocks, const void* perm, const void
         multiwin_panel_chunk_kernel<TB, TX, 1, kUnroll>, multiwin_panel_combine_kernel<TX>,
         blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols, u, partial, out, nchunks,
         ncombine, kmax, bm, bn, io, s);
+  });
+}
+
+// K3p. K3's plan over k columns: x[row, j] at x[row * x_rs + j * x_cs]
+// (row < x_rows bn; window rows past it read as zeros), y[row, j] at
+// y[row * y_rs + j * y_cs] (row < nbrow bm). nbrow = ngroups * R.
+int linops_bsr_matmat_windowed(const void* blocks, const void* cols_local, const void* win_q,
+                               const void* x, void* y, int64_t x_rows, int64_t nbrow,
+                               int ngroups, int kmax, int bm, int bn, int wb, int k,
+                               int64_t x_rs, int64_t x_cs, int64_t y_rs, int64_t y_cs,
+                               int block_dtype, int vec_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ngroups <= 0 || nbrow % ngroups || wb <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (int rc = forward_panel_grid(nbrow, bm, k, &grid)) return rc;
+  if (grid.x == 0) return 0;
+  const PanelIO io{x_rs, x_cs, y_rs, y_cs, k};
+  const int R = static_cast<int>(nbrow / ngroups);
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    bsr_matmat_windowed_kernel<TB, TX><<<grid, kFwdWarps * 32, 0, s>>>(
+        static_cast<const TB*>(blocks), static_cast<const int32_t*>(cols_local),
+        static_cast<const int32_t*>(win_q), static_cast<const TX*>(x), static_cast<TX*>(y),
+        x_rows, nbrow, R, kmax, bm, bn, wb, io);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K5p. K5's plan over k columns; win_q is (nwin, ngroups), lane_rows (nbrow,
+// kmax) (bsr_multiwin_index); x, y as K3p's.
+int linops_bsr_matmat_multiwin(const void* blocks, const void* lane_rows, const void* win_q,
+                               const void* x, void* y, int64_t x_rows, int64_t nbrow,
+                               int ngroups, int nwin, int kmax, int bm, int bn, int wb, int k,
+                               int64_t x_rs, int64_t x_cs, int64_t y_rs, int64_t y_cs,
+                               int block_dtype, int vec_dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ngroups <= 0 || nbrow % ngroups || wb <= 0 || nwin < 1 || nwin > kMaxWindows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (int rc = forward_panel_grid(nbrow, bm, k, &grid)) return rc;
+  if (grid.x == 0) return 0;
+  const PanelIO io{x_rs, x_cs, y_rs, y_cs, k};
+  const int R = static_cast<int>(nbrow / ngroups);
+  return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
+    using TB = typename decltype(tb)::type;
+    using TX = typename decltype(tx)::type;
+    bsr_matmat_multiwin_kernel<TB, TX><<<grid, kFwdWarps * 32, 0, s>>>(
+        static_cast<const TB*>(blocks), static_cast<const int32_t*>(lane_rows),
+        static_cast<const int32_t*>(win_q), static_cast<const TX*>(x), static_cast<TX*>(y),
+        x_rows, nbrow, ngroups, nwin, R, kmax, bm, bn, wb, io);
+    return static_cast<int>(cudaGetLastError());
   });
 }
 

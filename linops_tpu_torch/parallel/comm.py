@@ -102,12 +102,20 @@ def _whole_sums(value):
     runs where it is read."""
     if type(value) is tuple:
         return tuple(_whole_sums(v) for v in value)
-    if is_dtensor(value) and value.ndim and any(p.is_partial() for p in value.placements):
+    return made_whole(value) if is_dtensor(value) and value.ndim else value
+
+
+def made_whole(t):
+    """``t`` with the reduction it holds pending (a DTensor dot, norm or
+    stack of dots) run now: one all-reduce on each mesh dimension it is
+    partial on, so that it meets a split vector whole (DTensor would pay an
+    all-gather and a reduce-scatter there). Anything else as it is."""
+    if is_dtensor(t) and any(p.is_partial() for p in t.placements):
         from torch.distributed.tensor import Replicate
 
-        return value.redistribute(value.device_mesh, [Replicate() if p.is_partial() else p
-                                                      for p in value.placements])
-    return value
+        return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in t.placements])
+    return t
 
 
 class Layout:

@@ -600,12 +600,17 @@ class BSROperator(_SparseBase):
     ``convert.bsr_operator_from_reference``.
 
     Block applies (``apply_matrix``, (n, k); ``apply_matrix_t``, (k, n)),
-    as the reference's vmapped vector apply runs them: N with the gather
-    and einsum of ``bsr_matmat`` (both packages); T and H (real blocks) in
-    one launch of the plan's panel transpose for all k columns (K2p, K4p or
-    K6p; their plain versions on the CPU, and for complex blocks, H on the
-    conjugate); C as conj(N(conj M)); a symmetric (hermitian) operator's T
-    (H) block is its N block, as ``apply`` maps the modes.
+    as the reference's vmapped vector apply runs them, one pass over the
+    blocks for all k columns: N on the card in one launch of the plan's
+    forward panel (K1p, K3p or K5p), elsewhere with the gather and einsum of
+    ``bsr_matmat`` (the reference's N block); T and H (real blocks) in one
+    launch of the plan's panel transpose (K2p, K4p or K6p; their plain
+    versions on the CPU, and for complex blocks, H on the conjugate); C as
+    conj(N(conj M)). A symmetric (hermitian) operator's T (H) block is its
+    N block, as ``apply`` maps the modes, on the plan's forward panel (its
+    plain version off the card), as the reference's vmapped T apply runs its
+    forward kernel. ``torch.func.vmap`` of a vector apply in any mode runs
+    the block apply of that mode once, on the vectors as a row panel.
 
     Construction builds K2's column plan, K5's lane rows for a multi
     plan and, with a transpose plan, K4's slot index or K6's column plan,
@@ -882,8 +887,9 @@ class BSROperator(_SparseBase):
         """The apply of x in ``how`` = (mode, kind) with ``tensors`` =
         (blocks,): for a vector (kind ``"vec"``) K1/K3/K5 for N, K2/K4/K6 for
         T on the card (their plain versions on the CPU); for a block (kind
-        ``"mat"``, columns, or ``"panel"``, rows) the N block (``bsr_matmat``)
-        or the T block (K2p/K4p/K6p); ``KernelApply`` runs it."""
+        ``"mat"``, columns, or ``"panel"``, rows) the N block (K1p/K3p/K5p
+        on the card, ``bsr_matmat`` elsewhere) or the T block
+        (K2p/K4p/K6p); ``KernelApply`` runs it."""
         mode, kind = how
         (blocks,) = tensors
         if kind != "vec":
@@ -900,16 +906,15 @@ class BSROperator(_SparseBase):
             return self._tprod_impl(_conj(blocks), x)
         return _conj(self._prod_impl(blocks, _conj(x)))
 
-    def _slot_columns(self, transpose: bool, block: bool = False):
+    def _slot_columns(self, transpose: bool):
         """Per block slot, what the apply in this direction reads or writes:
         (block column (nbrow, kmax), weight (nbrow, kmax) or None for 1, the
-        block rows of the padded x or output). The windowed kernels address
-        columns through their plan (K3/K4: window base + local column, 0
-        outside both windows; K5/K6: the block column, once per lane window
-        that holds it); an N block (``block``) reads every slot's own
-        column, as ``bsr_matmat`` does."""
+        block rows of the padded x or output). The windowed kernels and
+        their panel forms address columns through their plan (K3/K4: window
+        base + local column, 0 outside both windows; K5/K6: the block
+        column, once per lane window that holds it)."""
         d = self.data
-        if not self._windowed(transpose) or (block and not transpose):
+        if not self._windowed(transpose):
             return d.block_cols.long(), None, self._nbcol
         if self.cols_local is not None:
             gcols, inside = K._windowed_cols(self.cols_local, self.win_q, self._wb)
@@ -933,7 +938,7 @@ class BSROperator(_SparseBase):
         bm, bn = self.data.block_shape
         nbrow = blocks.shape[0]
         transpose = mode_transposed(mode)
-        cols, weight, xrows = self._slot_columns(transpose, kind != "vec")
+        cols, weight, xrows = self._slot_columns(transpose)
         rows_vec, cols_vec = (x, g) if transpose else (g, x)
         acc = torch.promote_types(torch.promote_types(blocks.dtype, g.dtype), torch.float32)
 
@@ -950,9 +955,10 @@ class BSROperator(_SparseBase):
             grad = _conj(grad)
         return (grad.to(blocks.dtype),)
 
-    # torch.func.vmap over a T vector apply runs the T block once, on the B
-    # vectors as a row panel (``KernelApply.vmap``); an N vmap runs K1 per member
-    _kernel_batch_kind = {"T": "panel"}
+    # torch.func.vmap over a vector apply runs the block apply of its mode
+    # once, on the B vectors as a row panel (``KernelApply.vmap``): the
+    # forward panel for N (and C), the panel transpose for T (and H)
+    _kernel_batch_kind = "panel"
 
     def apply_matrix(self, M, mode: str = "N"):
         """Column block (n, k) → (m, k): see the class docstring."""
@@ -968,28 +974,56 @@ class BSROperator(_SparseBase):
     def _block_apply(self, X, mode: str, kind: str):
         """A block apply of kind ``"mat"`` or ``"panel"`` (``_kernel_apply``),
         through ``KernelApply`` where a panel kernel runs and the graph is
-        wanted."""
-        if (mode == "T" and self._symmetric) or (mode == "H" and self._hermitian):
+        wanted. A symmetric T (hermitian H) block is the N block on the
+        plan's forward panel (``folded``), as the reference's vmapped apply
+        runs it."""
+        folded = (mode == "T" and self._symmetric) or (mode == "H" and self._hermitian)
+        if folded:
             mode = "N"
         blocks = self.data.blocks
         if mode_transposed(mode) and not blocks.is_complex():
             mode = "T"  # H of real blocks
-            if self._use_kernel(X) and kernel_graph_wanted(X, blocks):
-                return KernelApply.apply(self, (mode, kind), X, blocks)
+        kern = not blocks.is_complex() and self._use_kernel(X)
+        if kern and kernel_graph_wanted(X, blocks):
+            return KernelApply.apply(self, (mode, kind), X, blocks)
+        if folded and not kern:
+            return self._nmat_impl(blocks, X, kind, planned=True)
         return self._kernel_apply(X, (mode, kind), (blocks,))
 
-    def _nmat_impl(self, blocks, X, kind: str):
-        """The N block: ``bsr_matmat``'s gather and einsum over the columns
-        (a row panel transposed around it), as the reference's N block."""
+    def _nmat_impl(self, blocks, X, kind: str, planned: bool = False):
+        """The N block for every column (a row panel goes in as its
+        transposed view and comes out in rows: no copy unless it is padded).
+        On the card one launch of the plan's forward panel (K1p, K3p or
+        K5p), as the reference's vmapped vector apply runs its forward
+        kernel; elsewhere ``bsr_matmat``'s gather and einsum, the
+        reference's N block, or with ``planned`` (a symmetric T or hermitian
+        H block, the reference's vmapped apply) the plain version of the
+        plan's forward panel."""
         d = self.data
         bm, bn = d.block_shape
         nbrow, nbcol = blocks.shape[0], self._nbcol
-        M = X.t() if kind == "panel" else X
+        rows = kind == "panel"
+        M = K._pad_rows(X.t() if rows else X, nbcol * bn)
         k = M.shape[1]
-        M = K._pad_rows(M, nbcol * bn)
-        Y = bsr_matmat(blocks, d.block_cols, M.reshape(nbcol, bn, k))
-        Y = Y.reshape(nbrow * bm, k)[: d.shape[0]]
-        return Y.t() if kind == "panel" else Y
+        kern = not blocks.is_complex() and self._use_kernel(X)
+        if (kern or planned) and self._windowed(transpose=False):
+            plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks)
+            if self.cols_local is not None:
+                args = (blocks, self.cols_local, self.win_q)
+                Y = (K.bsr_matmat_windowed_kernel(*args, M, **plan) if kern else
+                     K._fwd_plain(K.bsr_matvec_windowed_plain, M, bn, *args, **plan))
+            elif kern:
+                Y = K.bsr_matmat_multiwin_kernel(blocks, d.block_cols, self.win_q, M,
+                                                 index=self.lane_rows, **plan)
+            else:
+                Y = K._fwd_plain(K.bsr_matvec_multiwin_plain, M, bn, blocks, d.block_cols,
+                                 self.win_q, **plan)
+        elif kern:
+            Y = K.bsr_matmat_kernel(blocks, d.block_cols, M)
+        else:
+            Y = bsr_matmat(blocks, d.block_cols, M.reshape(nbcol, bn, k)).reshape(nbrow * bm, k)
+        Y = Y[: d.shape[0]]
+        return Y.t() if rows else Y
 
     def _tmat_impl(self, blocks, X, kind: str):
         """The T block: one call of the plan's panel transpose (K2p, K4p or

@@ -91,6 +91,22 @@ def _setup(op, b, M=None):
     return b.to(dt), dt, rdt, prec
 
 
+def _dots(*pairs) -> tuple:
+    """⟨a, b⟩ (conjugating a) of the vector pairs of one point of a
+    recurrence. On DTensor vectors their pending sums are stacked and made
+    whole in one all-reduce (``comm.made_whole``; as XLA combines the
+    reference's reductions of one point), so no scalar meets a split vector
+    with a sum pending; on plain tensors each is ``pvdot``'s, unchanged."""
+    d = [pvdot(a, b) for a, b in pairs]
+    if not comm.is_dtensor(d[0]):
+        return tuple(d)
+    return tuple(comm.made_whole(torch.stack(d)).unbind(0))
+
+
+def _dot(a, b):
+    return _dots((a, b))[0]
+
+
 def _nonzero(x):
     """x, with exact zeros replaced by 1 (the reference's guarded divisor)."""
     return torch.where(x == 0, torch.ones_like(x), x)
@@ -113,20 +129,20 @@ def cg(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 100,
     r = b - op.apply(x, "N")
     z = prec(r)
     p = z
-    rz = pvdot(r, z)
+    rz, rr = _dots((r, z), (r, r))
     tol2 = (tol * torch.linalg.vector_norm(b)) ** 2
-    rr = pvdot(r, r).real
+    rr = rr.real
 
     def body(state, consts, _):
         x, r, p, rz, _ = state
         Ap = op.apply(p, "N")
-        alpha = rz / pvdot(p, Ap)
+        alpha = rz / _dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = prec(r)
-        rz_new = pvdot(r, z)
+        rz_new, rr = _dots((r, z), (r, r))
         p = z + (rz_new / rz) * p
-        return x, r, p, rz_new, pvdot(r, r).real
+        return x, r, p, rz_new, rr.real
 
     (x, _, _, _, rr), k = loop.device_while(lambda s, c: s[4] > c[0], body, (x, r, p, rz, rr),
                                             maxiter, consts=(tol2,), ops=(op, M), key=("cg",))
@@ -338,7 +354,7 @@ def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 
     eps = torch.finfo(rdt).eps
     R1 = b - op.apply(x, "N")
     Y = prec(R1)
-    beta1 = torch.sqrt(torch.clamp_min(pvdot(R1, Y).real, 0.0))
+    beta1 = torch.sqrt(torch.clamp_min(_dot(R1, Y).real, 0.0))
     tol_abs = tol * _nonzero(beta1)
     s0 = _MinresState(beta1, rdt)
 
@@ -347,7 +363,7 @@ def minres(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int = 
         s = _MinresState.of(scalars)
         V = Y / _nonzero(s.beta).to(dt)
         Y, R1, R2, W, W2, phi = _minres_step(lambda V: op.apply(V, "N"), s, V, R1, R2, W, W2,
-                                             k, dt, eps, prec, pvdot, lambda t: t)
+                                             k, dt, eps, prec, _dot, lambda t: t)
         return (x + phi * W, Y, R1, R2, W, W2, *s.fields())
 
     init = (x, Y, R1, R1, torch.zeros_like(b), torch.zeros_like(b), *s0.fields())
@@ -409,19 +425,19 @@ def bicgstab(op: LinearOperator, b, x0=None, *, tol: float = 1e-8, maxiter: int 
     def body(state, consts, _):
         x, r, p, v, rho, alpha, omega, brk = state
         rhat, _, one = consts
-        rho_new = pvdot(rhat, r)
+        rho_new = _dot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p_new = r + beta * (p - omega * v)
         phat = prec(p_new)
         v_new = op.apply(phat, "N")
-        rhv = pvdot(rhat, v_new)
+        rhv = _dot(rhat, v_new)
         brk = (rho_new.abs() <= tiny) | (rhv.abs() <= tiny)
         alpha_new = rho_new / torch.where(brk, one, rhv)
         s = r - alpha_new * v_new
         shat = prec(s)
         t = op.apply(shat, "N")
-        tt = pvdot(t, t)
-        omega_new = pvdot(t, s) / _nonzero(tt)
+        tt, ts = _dots((t, t), (t, s))
+        omega_new = ts / _nonzero(tt)
         brk = brk | (omega_new.abs() <= tiny)
         # on a breakdown the iterate freezes (the loop test ends the solve)
         return (torch.where(brk, x, x + alpha_new * phat + omega_new * shat),
@@ -677,11 +693,10 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
     the N and adjoint applies. Stops when the ‖Aᴴr‖ estimate ≤ tol·‖Aᴴb‖ or
     after ``maxiter`` iterations. Returns (x, iterations, ‖Aᴴr‖ estimate)."""
     b, dt, rdt, _ = _setup(op, b)
-    n = op.shape[1]
     dampf = torch.tensor(damp, dtype=rdt, device=b.device)
 
-    def nrm(v):
-        return torch.linalg.vector_norm(v).to(rdt)
+    def nrm(v):  # whole on DTensor vectors before it meets one
+        return comm.made_whole(torch.linalg.vector_norm(v)).to(rdt)
 
     beta = nrm(b)
     u = b / _nonzero(beta).to(dt)
@@ -690,7 +705,7 @@ def lsqr(op: LinearOperator, b, *, damp: float = 0.0, tol: float = 1e-8, maxiter
     v = v / _nonzero(alpha).to(dt)
     arnorm = alpha * beta  # ‖Aᴴb‖, the scale of the stopping test
     tol_abs = tol * _nonzero(arnorm)
-    x = torch.zeros((n,), dtype=dt, device=b.device)
+    x = torch.zeros_like(v)  # in v's layout: x comes back split as the reference's
 
     def body(state, consts, _):
         x, u, v, w, phibar, rhobar, alpha, _ = state

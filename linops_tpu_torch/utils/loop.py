@@ -77,10 +77,13 @@ them, its mirrors. Distributed solves have an LRU of their own (see below).
 
 On the CPU the same masked blocks run eagerly, and each signature they run
 is recorded in the cache as a card's first solve records it, so the
-counters mean the same on both devices. Under ``torch.func.vmap``,
-when a gradient is wanted, or when an operator is not ``capture_safe`` (a
-host factorization, a timer, a ``FunctionOperator`` not declared safe), the
-plain per-iteration loop runs (``stats["path"]`` says which path ran).
+counters mean the same on both devices. Under ``torch.func.vmap`` the
+iterations run as eager masked blocks of the loop's block, one host read
+(is any member still active) per block, never captured (``stats["path"]``
+is "vmap"). When a gradient is wanted, or when an operator is not
+``capture_safe`` (a host factorization, a timer, a ``FunctionOperator`` not
+declared safe), the plain per-iteration loop runs (``stats["path"]`` says
+which path ran).
 ``CAPTURE = False`` is a test hook: the card then runs eager blocks, as the
 CPU does.
 
@@ -929,21 +932,29 @@ def _while_block(cond, body, state, consts, k, act, lim, n: int, keeps: bool = F
     return state, k, act
 
 
-def _plain_while(cond, body, state, consts, maxiter, go, path):
+def _plain_while(cond, body, state, consts, maxiter, go, path, block: int = 1):
     """The plain loop: one host read per iteration. Under vmap (``path``
     "vmap") every member runs until all have stopped, each frozen once its
-    own test fails, and the count is a per-member tensor."""
+    own test fails, and the count is a per-member tensor; the iterations run
+    in masked blocks of ``block``, with one host read (is any member still
+    active) before the first and after each block, and none past
+    ``maxiter``: a member's state and count are those of a read after every
+    iteration, since a frozen member stays frozen (its state, and so its
+    test, no longer moves)."""
     dev = state[0].device
     j = torch.zeros((), dtype=torch.int64, device=dev)
     with _Loop(path) as st:
         if path == "vmap":
             k = torch.zeros_like(go, dtype=torch.int64)
             act = go & (k < maxiter)
-            while _any_member(act):
-                state = _select(act, _call_body(body, state, consts, j, None), state)
-                k = k + act.long()
-                act = cond(state, consts) & (k < maxiter)
-                j = j + 1
+            it = 0
+            while it < maxiter and _any_member(act):
+                for _ in range(min(block, maxiter - it)):
+                    state = _select(act, _call_body(body, state, consts, j, None), state)
+                    k = k + act.long()
+                    act = cond(state, consts) & (k < maxiter)
+                    j = j + 1
+                    it += 1
                 st["blocks"] += 1
             return state, k
         k = 0
@@ -974,7 +985,8 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
 
     Returns (state, iterations): an ``int``, or under ``torch.func.vmap`` a
     per-member tensor (every member runs until all have stopped, each frozen
-    once its own test fails, as ``jax.vmap`` of a ``lax.while_loop``), or
+    once its own test fails, as ``jax.vmap`` of a ``lax.while_loop``; in
+    eager masked blocks of ``block``, one host read per block), or
     inside a capture (a loop nested in a captured block's iteration) a 0-dim
     int64 tensor on the device, the loop then being one CUDA while node.
 
@@ -988,7 +1000,7 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
         state = _carry(state, state)  # DTensor state: pending partial sums reduced
         go = cond(state, consts)
         if _batched(go):
-            return _plain_while(cond, body, state, consts, maxiter, go, "vmap")
+            return _plain_while(cond, body, state, consts, maxiter, go, "vmap", block)
         if outer is not None:
             go = go & outer
         if state[0].is_cuda and torch.cuda.is_current_stream_capturing():

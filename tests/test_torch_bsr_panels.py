@@ -23,6 +23,24 @@ K4p, K6p on the card, their plain versions here) and ``bsr_matmat`` for N.
   against the reference's vmapped apply under ``jax.vjp`` in torch's
   convention (``conj(jax_vjp(conj(g)))``), 1e-10 in f64.
 - ``torch.func.vmap`` of a T vector apply runs the panel once.
+
+The forward panels (K1p, K3p, K5p on the card; here their plain versions:
+``bsr_matmat`` and the K3/K5 plain versions on a panel) serve the N block
+on the card, a symmetric (hermitian) operator's T (H) block, whose
+reference is ``jax.vmap`` of its forward kernel, and ``torch.func.vmap`` of
+an N apply:
+
+- values of symmetric and hermitian operators on every plan, f64 and c128
+  at 1e-10 (a square band + far cluster pattern for the multi-window plan);
+  f32 against the reference's vmapped Pallas K1/K3/K5 in interpret mode,
+  whose jaxpr holds one ``pallas_call``, at 1e-5, one plain forward panel
+  per block apply;
+- one forward wrapper call per N block, symmetric T block, row panel and N
+  vmap on the kernel branch, and no vector kernel;
+- gradients of the N and symmetric T blocks in the blocks and in M against
+  the reference's, on the windowed plans too (the blocks' gradient weighs
+  each slot as the plan's forward reads it), and gradcheck of the node;
+- each plain forward panel's column j its vector plain version's.
 """
 
 import jax
@@ -109,7 +127,7 @@ def make_ops(rng, caps, plan, dtype, **flags):
         blocks, cols, shape = banded(rng, n=24 * 128, slope=21)
     else:
         caps(window_blocks=16, tile=65536)
-        blocks, cols, shape = band_cluster(rng)
+        blocks, cols, shape = square_multi(rng) if flags else band_cluster(rng)
     blocks = blocks.astype(dtype)
     if cplx:
         blocks = blocks + 1j * rng.standard_normal(blocks.shape)
@@ -120,6 +138,20 @@ def make_ops(rng, caps, plan, dtype, **flags):
     assert op_t.win_q is not None and (op_t.cols_local is None) == (plan == "multi")
     assert plan == "banded" or op_t.win_q_t is not None
     return op_t, op_j
+
+
+def square_multi(rng, nbcol=32, kmax=4):
+    """A square band + far cluster pattern (8x128 blocks, groups of 16 block
+    rows): a 3-wide band sliding over [0, 23] and block column 30, which one
+    group skips; multi-window planned under ``caps(16, 65536)``."""
+    nbrow = nbcol * 16
+    cols = np.zeros((nbrow, kmax), np.int32)
+    for bi in range(nbrow):
+        g = bi // 16
+        band = g * 22 // nbcol
+        cols[bi] = list(range(band, band + kmax - 1)) + [30 if g != 2 else band + kmax - 1]
+    blocks = rng.standard_normal((nbrow, kmax, 8, 128)).astype(np.float32)
+    return blocks, cols, (nbrow * 8, nbrow * 8)
 
 
 def block_input(rng, op, mode, k, dtype):
@@ -305,7 +337,7 @@ def test_panel_node_gradcheck(rng, kind):
 def test_vmap_of_a_transpose_runs_the_panel_once(rng, caps, monkeypatch, kernels_on_cpu, plan):
     """``torch.func.vmap`` of a T vector apply takes the panel kind once
     (the reference's vmap is one batched ``pallas_call``); of an N apply,
-    the vector kernel per member."""
+    the forward panel once and no vector kernel."""
     op_t, _ = make_ops(rng, caps, plan, np.float64)
     wrapper = "bsr_rmatmat_kernel" if plan == "plain" else "bsr_rmatmat_multiwin_kernel"
     calls = spy(monkeypatch, K, wrapper)
@@ -315,9 +347,12 @@ def test_vmap_of_a_transpose_runs_the_panel_once(rng, caps, monkeypatch, kernels
     assert rel_err(Y, torch.stack([op_t.apply(v, "T") for v in V])) <= 1e-12
     fwd = spy(monkeypatch, TO, "bsr_matvec_kernel") if plan == "plain" else \
         spy(monkeypatch, K, "bsr_matvec_multiwin_kernel")
+    panel = spy(monkeypatch, K, "bsr_matmat_kernel" if plan == "plain" else
+                "bsr_matmat_multiwin_kernel")
     X = torch.from_numpy(rng.standard_normal((5, op_t.ncol)))
-    torch.func.vmap(lambda v: op_t.apply(v, "N"))(X)
-    assert len(fwd) == 5 and len(calls) == 1
+    Y = torch.func.vmap(lambda v: op_t.apply(v, "N"))(X)
+    assert len(fwd) == 0 and len(panel) == 1 and len(calls) == 1
+    assert rel_err(Y, torch.stack([op_t.apply(v, "N") for v in X])) <= 1e-12
 
 
 def test_panel_plain_versions_equal_their_column_loops(rng, caps):
@@ -351,3 +386,201 @@ def test_panel_wrappers_have_no_kernel_off_cuda():
     U = torch.zeros((8, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         K.bsr_rmatmat_kernel(blocks, cols, U, 1)
+
+
+# ---------------------------------------------------------------------------
+# The forward panels (K1p, K3p, K5p)
+# ---------------------------------------------------------------------------
+
+# the plain forward of each plan, as ``BSROperator`` calls it off the card
+# (the plain plan's is the name ops imported)
+FWD_PLAIN = {"plain": (TO, "bsr_matmat"), "banded": (K, "bsr_matvec_windowed_plain"),
+             "multi": (K, "bsr_matvec_multiwin_plain")}
+FWD_WRAPPER = {"plain": "bsr_matmat_kernel", "banded": "bsr_matmat_windowed_kernel",
+               "multi": "bsr_matmat_multiwin_kernel"}
+FWD_VECTOR = ((TO, "bsr_matvec_kernel"), (K, "bsr_matvec_windowed_kernel"),
+              (K, "bsr_matvec_multiwin_kernel"))
+PANEL_WRAPPERS = ("bsr_rmatmat_kernel", "bsr_rmatmat_windowed_kernel",
+                  "bsr_rmatmat_multiwin_kernel")
+
+
+@pytest.mark.parametrize("plan,flags,dtype", [
+    ("plain", dict(symmetric=True), np.float64),
+    ("plain", dict(hermitian=True), np.complex128),
+    ("banded", dict(symmetric=True), np.float64),
+    ("multi", dict(symmetric=True), np.float64),
+])
+def test_symmetric_blocks_run_the_forward_panel(rng, caps, monkeypatch, plan, flags, dtype):
+    """A symmetric (hermitian) operator's blocks in every mode against the
+    reference's at 1e-10, the multi-window plan included; its T (H) block,
+    column and row forms, is one pass of the plan's plain forward on the
+    panel and no transpose."""
+    op_t, op_j = make_ops(rng, caps, plan, dtype, **flags)
+    assert (op_t.win_q is not None) == (plan != "plain")
+    check_block_values(rng, op_t, op_j, dtype, 1e-10)
+    mod, name = FWD_PLAIN[plan]
+    calls = spy(monkeypatch, mod, name)
+    panels = [spy(monkeypatch, K, n_) for n_ in PANEL_PLAIN.values()]
+    folded = "T" if flags.get("symmetric") else "H"
+    M = torch.from_numpy(block_input(rng, op_t, folded, 5, dtype))
+    Y = op_t.apply_matrix(M, folded)
+    assert len(calls) == 1
+    assert torch.equal(op_t.apply_matrix_t(M.t(), folded), Y.t()) and len(calls) == 2
+    assert not any(panels)
+
+
+def f32_symmetric_ops(rng, caps, plan):
+    """Symmetric f32 operators for the interpret-mode comparison of the
+    forward: the plain plan a symmetric 256² matrix in 8x128 blocks (Pallas
+    K1), the window plans as ``make_ops`` makes them (K3, K5)."""
+    if plan == "plain":
+        A = sprand(rng, 256, 256, 0.1)
+        A = (A + A.T).astype(np.float32)
+        op_j = lo.BSROperator(jax_bsr_from_dense(A, (8, 128)), backend="pallas", symmetric=True)
+        return lt.BSROperator(lt.bsr_from_dense(A, (8, 128), device="cpu"), symmetric=True), op_j
+    return make_ops(rng, caps, plan, np.float32, symmetric=True)
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_f32_forward_panels_match_pallas_interpret(rng, caps, monkeypatch, plan):
+    """A symmetric operator's T block (k = 5): the reference's vmapped Pallas
+    forward in interpret mode, one ``pallas_call`` in its jaxpr; the port's
+    one plain forward panel within 1e-5 of it (f32 sums in other orders),
+    column j within 1e-6 of the port's vector N apply of column j."""
+    op_t, op_j = f32_symmetric_ops(rng, caps, plan)
+    M = block_input(rng, op_t, "T", 5, np.float32)
+    jaxpr = str(jax.make_jaxpr(lambda M_: op_j.apply_matrix(M_, "T"))(jnp.asarray(M)))
+    assert jaxpr.count("pallas_call") == 1
+    ref = np.asarray(op_j.apply_matrix(jnp.asarray(M), "T"))
+    mod, name = FWD_PLAIN[plan]
+    calls = spy(monkeypatch, mod, name)
+    Y = op_t.apply_matrix(torch.from_numpy(M), "T")
+    assert len(calls) == 1 and Y.dtype == torch.float32
+    assert rel_err(Y, ref) <= 1e-5
+    cols = torch.stack([op_t.apply(torch.from_numpy(M[:, j].copy()), "N") for j in range(5)], 1)
+    assert rel_err(Y, cols) <= 1e-6
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_one_forward_panel_per_block_apply(rng, caps, monkeypatch, kernels_on_cpu, plan):
+    """On the kernel branch: an N block, an N row panel, a symmetric
+    operator's T block and ``torch.func.vmap`` of its N and T vector applies
+    each call the plan's forward panel wrapper once, and no vector kernel
+    and no panel transpose."""
+    op_t, _ = make_ops(rng, caps, plan, np.float64, symmetric=True)
+    calls = spy(monkeypatch, K, FWD_WRAPPER[plan])
+    vec = [spy(monkeypatch, m_, n_) for m_, n_ in FWD_VECTOR]
+    panels = [spy(monkeypatch, K, n_) for n_ in PANEL_WRAPPERS]
+    M = torch.from_numpy(block_input(rng, op_t, "N", 6, np.float64))
+    Y = op_t.apply_matrix(M, "N")
+    assert len(calls) == 1
+    assert torch.equal(op_t.apply_matrix_t(M.t(), "N"), Y.t()) and len(calls) == 2
+    assert torch.equal(op_t.apply_matrix(M, "T"), Y) and len(calls) == 3
+    V = torch.func.vmap(lambda v: op_t.apply(v, "N"))(M.t())
+    assert torch.equal(V, Y.t()) and len(calls) == 4
+    Vt = torch.func.vmap(lambda v: op_t.apply(v, "T"))(M.t())
+    assert torch.equal(Vt, Y.t()) and len(calls) == 5
+    assert not any(vec) and not any(panels)
+    cols = torch.stack([op_t.apply(M[:, j], "N") for j in range(6)], 1)
+    assert rel_err(Y, cols) <= 1e-12
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_forward_block_gradients_match_reference(rng, caps, kernels_on_cpu, plan):
+    """M and block gradients of a symmetric operator's N and T blocks,
+    column and row forms, through the forward panel node (its backward: the
+    T panel for M, Σ_j g ⊗ x over the slots the plan reads for the blocks)
+    against the reference's vmapped apply under ``jax.vjp``, 1e-10."""
+    op_t, op_j = make_ops(rng, caps, plan, np.float64, symmetric=True)
+    leaf = op_t.data.blocks.requires_grad_(True)
+    leaf_j = op_j.data.blocks
+    leaves, tdef = jax.tree_util.tree_flatten(op_j)
+    at = next(i for i, v in enumerate(leaves) if v is leaf_j)
+
+    def with_blocks(b, M_, mode):
+        ls = list(leaves)
+        ls[at] = b
+        return jax.tree_util.tree_unflatten(tdef, ls).apply_matrix(M_, mode)
+
+    for mode in ("N", "T"):
+        M = block_input(rng, op_t, mode, 3, np.float64)
+        G = block_input(rng, op_t, "T" if mode == "N" else "N", 3, np.float64)
+        Mt = torch.from_numpy(M).requires_grad_(True)
+        Y = op_t.apply_matrix(Mt, mode)
+        assert type(Y.grad_fn).__name__ == "KernelApplyBackward"
+        gM, gB = torch.autograd.grad(Y, (Mt, leaf), torch.from_numpy(G))
+        ref_M = jax_vjp(lambda M_: op_j.apply_matrix(M_, mode), jnp.asarray(M), G)
+        ref_B = jax_vjp(lambda b: with_blocks(b, jnp.asarray(M), mode), leaf_j, G)
+        assert rel_err(gM, ref_M) <= 1e-10 and rel_err(gB, ref_B) <= 1e-10, mode
+        Mr = torch.from_numpy(M.T.copy()).requires_grad_(True)
+        gMr, gBr = torch.autograd.grad(op_t.apply_matrix_t(Mr, mode), (Mr, leaf),
+                                       torch.from_numpy(G.T.copy()))
+        assert rel_err(gMr.t(), ref_M) <= 1e-10 and rel_err(gBr, ref_B) <= 1e-10, mode
+
+
+@pytest.mark.parametrize("kind", ["mat", "panel"])
+def test_forward_panel_node_gradcheck(rng, kind):
+    """gradcheck and gradgradcheck of the forward panel node in x and blocks
+    (a padded operator; the plain K1p and T panel inside)."""
+    op = lt.BSROperator(lt.bsr_from_dense(sprand(rng, 10, 13, 0.4), (4, 4), device="cpu"))
+    blocks = op.data.blocks.clone().requires_grad_(True)
+    X = torch.from_numpy(rng.standard_normal((13, 2) if kind == "mat" else (2, 13)))
+    X.requires_grad_(True)
+
+    def f(x_, b_):
+        return KernelApply.apply(op, ("N", kind), x_, b_)
+
+    assert torch.autograd.gradcheck(f, (X, blocks))
+    assert torch.autograd.gradgradcheck(f, (X, blocks))
+
+
+def test_forward_plain_panels_equal_their_column_loops(rng, caps):
+    """Each forward wrapper's plain version (CPU tensors) gives column j of
+    its vector plain version of column j (f64, 1e-12), the same values
+    through a row panel's view, and an empty result for a width-0 panel."""
+    caps(window_blocks=16, tile=65536)
+    blocks, cols, shape = band_cluster(rng)
+    op = lt.BSROperator(lt.BSR(torch.from_numpy(blocks).double(), torch.from_numpy(cols), shape))
+    caps()
+    blocks_b, cols_b, shape_b = banded(rng, n=24 * 128, slope=21)
+    op_b = lt.BSROperator(lt.BSR(torch.from_numpy(blocks_b).double(), torch.from_numpy(cols_b),
+                                 shape_b))
+    assert op.cols_local is None and op_b.cols_local is not None
+    cases = []
+    for o in (op, op_b):
+        d = o.data
+        plan = dict(wb=o._wb, x_pad_blocks=o._x_pad_blocks)
+        if o.cols_local is None:
+            args = (d.blocks, d.block_cols, o.win_q)
+            cases.append((lambda X, a=args, p=plan: K.bsr_matmat_multiwin_kernel(*a, X, **p),
+                          lambda x, a=args, p=plan: K.bsr_matvec_multiwin_plain(*a, x, **p), o))
+        else:
+            args = (d.blocks, o.cols_local, o.win_q)
+            cases.append((lambda X, a=args, p=plan: K.bsr_matmat_windowed_kernel(*a, X, **p),
+                          lambda x, a=args, p=plan: K.bsr_matvec_windowed_plain(*a, x, **p), o))
+        cases.append((lambda X, d=d: K.bsr_matmat_kernel(d.blocks, d.block_cols, X),
+                      lambda x, d=d: K.bsr_matvec_plain(d.blocks, d.block_cols, x), o))
+    for panel, vector, o in cases:
+        X = torch.from_numpy(rng.standard_normal((o.ncol, 4)))
+        P = panel(X)
+        assert P.shape == (o.data.blocks.shape[0] * 8, 4)
+        assert torch.equal(P, panel(X.t().contiguous().t()))
+        for j in range(4):
+            y = vector(X[:, j].reshape(-1, 128)).reshape(-1)
+            assert rel_err(P[:, j], y) <= 1e-12, j
+        assert panel(X[:, :0]).shape == (o.data.blocks.shape[0] * 8, 0)
+
+
+def test_forward_wrappers_have_no_kernel_off_cuda():
+    """A forward panel wrapper given tensors on a device with no kernel
+    raises (no fallback to the plain version but on the CPU)."""
+    blocks = torch.zeros((2, 1, 4, 8), device="meta")
+    cols = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    X = torch.zeros((8, 3), device="meta")
+    q = torch.zeros((1,), dtype=torch.int32, device="meta")
+    for call in (lambda: K.bsr_matmat_kernel(blocks, cols, X),
+                 lambda: K.bsr_matmat_windowed_kernel(blocks, cols, q, X, wb=8, x_pad_blocks=16),
+                 lambda: K.bsr_matmat_multiwin_kernel(blocks, cols, q[None], X, wb=8,
+                                                      x_pad_blocks=16)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()

@@ -1031,9 +1031,10 @@ def test_permutation_gradient_on_card(dev):
 
 def test_vmap_over_a_kernel_apply_raises_on_card(dev):
     """(The name is kept from when vmap over a kernel apply raised; it now
-    runs.) vmap over 8 vectors: K1 once per member, the T apply as one K2p
-    launch on the batch (a row panel), bit for bit the vector applies (K2p
-    keeps K2's order per column); the routed N apply as a row panel (rep-8 kernels)
+    runs.) vmap over 8 vectors: the N apply as one K1p launch, the T apply
+    as one K2p launch on the batch (a row panel), bit for bit the vector
+    applies (K1p and K2p keep K1's and K2's order per column); the routed N
+    apply as a row panel (rep-8 kernels)
     within 1e-6 of the vector applies; a batch of operators (batched
     blocks) once per member through K1."""
     import scipy.sparse as sps
@@ -1041,10 +1042,11 @@ def test_vmap_over_a_kernel_apply_raises_on_card(dev):
     blocks, cols = random_bsr(dev, 512, 4, 8, 128, 32, torch.float32, seed=13)
     op = lt.BSROperator(lt.BSR(blocks, cols, (4096, 4096)))
     V = torch.randn(8, 4096, device=dev)
-    for mode, kernel, count in (("N", "bsr_matvec", 8), ("T", "bsr_rmatmat", 1)):
+    for mode, kernel, count in (("N", "bsr_matmat", 1), ("T", "bsr_rmatmat", 1)):
         reset_launches()
         Y = torch.func.vmap(lambda v: op.apply(v, mode))(V)
         assert launches().get(kernel) == count and launches().get("bsr_rmatvec", 0) == 0
+        assert launches().get("bsr_matvec", 0) == 0
         assert torch.equal(Y, torch.stack([op.apply(v, mode) for v in V]))
     A = sps.random(6000, 5000, density=0.004, format="csr", random_state=8, dtype=np.float32)
     routed = lt.opSparse(A, format="routed", device=dev)
@@ -2517,3 +2519,103 @@ def test_block_transpose_raises_rather_than_falls_back(dev, monkeypatch):
         op.apply_matrix(torch.ones((1, 3), device=dev), "T")
     monkeypatch.setattr(K, "_lib", lambda: lib)
     assert K.launch_counts()["bsr_rmatvec"] == 0 and K.launch_counts()["bsr_rmatmat"] == 0
+
+
+# --------------------------------------------------------------------------
+# The BSR operators' forward blocks: K1p, K3p, K5p
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", [(40, 3, 8, 128, 7), (6, 4, 128, 128, 3), (33, 5, 16, 16, 40),
+                                  (64, 8, 9, 33, 20)])
+@pytest.mark.parametrize("dtypes", PAIRS)
+def test_k1p_matches_plain_and_its_column_loop(dev, dims, dtypes):
+    nbrow, kmax, bm, bn, nbcol = dims
+    bdt, vdt = dtypes
+    blocks, cols = random_bsr(dev, nbrow, kmax, bm, bn, nbcol, bdt)
+    check_panel(lambda X: K.bsr_matmat_kernel(blocks, cols, X),
+                lambda X: K._fwd_plain(K.bsr_matmat_plain, X, bn, blocks, cols),
+                lambda x: K.bsr_matvec_kernel(blocks, cols, x.reshape(nbcol, bn)).reshape(-1),
+                nbcol * bn, vdt, dev)
+
+
+@pytest.mark.parametrize("dims", WINDOW_DIMS)
+@pytest.mark.parametrize("dtypes", PAIRS)
+def test_k3p_k5p_match_plain_and_their_column_loops(dev, dims, dtypes):
+    _, _, _, bn = dims
+    bdt, vdt = dtypes
+    blocks, cols, nbcol = window_case(dims, multi=False)
+    q, cl, wb, xpb = K.bsr_window_plan(cols, 32, nbcol, wb_max=64, blocks=blocks)
+    b = torch.from_numpy(blocks).to(dev, bdt)
+    cl_t, q_t = (torch.from_numpy(a).to(dev) for a in (cl, q))
+    win = dict(wb=wb, x_pad_blocks=xpb)
+    check_panel(lambda X: K.bsr_matmat_windowed_kernel(b, cl_t, q_t, X, **win),
+                lambda X: K._fwd_plain(K.bsr_matvec_windowed_plain, X, bn, b, cl_t, q_t, **win),
+                lambda x: K.bsr_matvec_windowed_kernel(b, cl_t, q_t, x.reshape(nbcol, bn), **win)
+                .reshape(-1), nbcol * bn, vdt, dev)
+    blocks, cols, nbcol = window_case(dims, multi=True)
+    qm, wb, xpb = K.bsr_window_plan_multi(cols, 32, nbcol, wb_max=16, blocks=blocks)
+    b = torch.from_numpy(blocks).to(dev, bdt)
+    c_t, qm_t = (torch.from_numpy(a).to(dev) for a in (cols, qm))
+    win = dict(wb=wb, x_pad_blocks=xpb)
+    check_panel(lambda X: K.bsr_matmat_multiwin_kernel(b, c_t, qm_t, X, **win),
+                lambda X: K._fwd_plain(K.bsr_matvec_multiwin_plain, X, bn, b, c_t, qm_t, **win),
+                lambda x: K.bsr_matvec_multiwin_kernel(b, c_t, qm_t, x.reshape(nbcol, bn), **win)
+                .reshape(-1), nbcol * bn, vdt, dev)
+
+
+def test_forward_blocks_launch_once_and_capture(dev):
+    """An N block, an N row panel, a symmetric operator's T block and vmap of
+    its N vector apply on the card launch K1p once each and K1 never, bit
+    for bit the column loop; K1p recorded in a CUDA graph replays the eager
+    bits."""
+    rng = np.random.default_rng(5)
+    A = (rng.standard_normal((320, 320)) * (rng.random((320, 320)) < 0.1)).astype(np.float32)
+    op = lt.BSROperator(lt.bsr_from_dense(A + A.T, (8, 64)), symmetric=True)
+    M = torch.randn((320, 6), device=dev)
+    K.reset_launch_counts()
+    Y = op.apply_matrix(M, "N")
+    assert torch.equal(op.apply_matrix_t(M.t().contiguous(), "N"), Y.t())
+    assert torch.equal(op.apply_matrix(M, "T"), Y)
+    assert torch.equal(torch.func.vmap(lambda v: op.apply(v, "N"))(M.t()), Y.t())
+    counts = K.launch_counts()
+    assert counts["bsr_matmat"] == 4 and counts["bsr_matvec"] == 0
+    assert counts["bsr_rmatmat"] == 0
+    assert torch.equal(Y, column_loop(lambda m: op.apply(m, "N"), M))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op.apply_matrix(M, "N")
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        Yg = op.apply_matrix(M, "N")
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(Yg, Y)
+
+
+def test_forward_block_raises_rather_than_falls_back(dev, monkeypatch):
+    """An N block whose panel kernel cannot launch (more column tiles than a
+    grid takes) raises from the operator; so does a launch the library
+    refuses; neither runs the column loop or the plain version."""
+    op = lt.BSROperator(lt.BSR(torch.ones((1, 1, 1, 1), device=dev),
+                               torch.zeros((1, 1), dtype=torch.int32, device=dev), (1, 1)))
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="bsr_matmat kernel launch failed"):
+        op.apply_matrix(torch.ones((1, 8 * 65536), device=dev), "N")
+    assert K.launch_counts()["bsr_matvec"] == 0
+
+    lib = K._lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "linops_bsr_matmat":
+                return lambda *a: 1  # cudaErrorInvalidValue
+            return getattr(lib, name)
+
+    monkeypatch.setattr(K, "_lib", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="bsr_matmat kernel launch failed"):
+        op.apply_matrix(torch.ones((1, 3), device=dev), "N")
+    monkeypatch.setattr(K, "_lib", lambda: lib)
+    assert K.launch_counts()["bsr_matvec"] == 0 and K.launch_counts()["bsr_matmat"] == 0

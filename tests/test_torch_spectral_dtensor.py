@@ -561,6 +561,18 @@ def truth(kind):
     return A, lam
 
 
+def residual_floor(A, X, theta):
+    """The rounding of one residual column ‖A x − x θ‖ evaluated in f64, by
+    column: n eps (‖|A|‖₂ + |θ|) ‖x‖ (Higham's γ_n bound). LOBPCG reports
+    the residual of its recurrence's A X, the check takes a fresh product,
+    and near convergence the two differ by up to this much whatever the
+    algorithm: the reference's LOBPCG misses ``1.01 res`` alone on the same
+    starting blocks as the port's (``tests/torch_lobpcg_reference_draws.py``)."""
+    eps = np.finfo(np.float64).eps
+    return (A.shape[0] * eps * (np.linalg.norm(np.abs(A), 2) + np.abs(theta))
+            * np.linalg.norm(X, axis=0))
+
+
 @pytest.mark.parametrize("name", ROUTINES)
 @pytest.mark.parametrize("kind", KINDS)
 def test_default_generator_is_one_draw_for_every_rank(world, kind, name):
@@ -575,7 +587,8 @@ def test_default_generator_is_one_draw_for_every_rank(world, kind, name):
     if name == "lobpcg":  # converged to tol 1e-6: residual and θ within it
         theta, X, res, it = vals
         assert it < MAXITER and np.all(res <= 1e-6 * np.maximum(np.abs(theta), 1.0))
-        assert np.all(np.linalg.norm(A @ X - X * theta, axis=0) <= 1.01 * res)
+        assert np.all(np.linalg.norm(A @ X - X * theta, axis=0)
+                      <= 1.01 * res + residual_floor(A, X, theta))
         assert np.all(np.abs(theta - lam[:2]) <= res)
     elif name == "svds":
         U, s, V, res, _ = vals

@@ -126,6 +126,49 @@ def test_vmap_batched_gmres(rng):
     np.testing.assert_allclose(np.einsum("bij,bj->bi", As, xs_t.numpy()), bs, atol=1e-8)
 
 
+@pytest.mark.parametrize("solver", ["cg", "minres", "bicgstab", "gmres"])
+def test_vmap_solves_read_the_host_once_per_block(rng, monkeypatch, solver):
+    """A vmapped solve runs masked blocks of its loop's block (``loop.BLOCK``,
+    GMRES one restart, ``krylov.GMRES_BLOCK``), one host read before the
+    first and after each: at most ⌈I/block⌉ + 1 reads for I the largest
+    member's count (iterations; GMRES restarts), where the per-iteration
+    loop (a block of 1) makes I + 1. x and the per-member counts are bit for
+    bit the per-iteration loop's."""
+    from linops_tpu_torch.utils import krylov, loop
+
+    if solver == "gmres":
+        B, n = 4, 14
+        As = 4.0 * np.eye(n)[None] + rng.standard_normal((B, n, n)) / np.sqrt(n)
+        As[0] += 2.0 * np.eye(n)
+        bs = rng.standard_normal((B, n))
+        block = krylov.GMRES_BLOCK
+
+        def solve(A, b):
+            return lt.gmres(lt.MatrixOperator(A), b, tol=1e-10, restart=4, maxiter=30)
+    else:
+        As, bs = spd_batch(rng)
+        As[0] += 40.0 * np.eye(As.shape[1])  # members stop after different counts
+        block = loop.BLOCK
+
+        def solve(A, b):
+            op = lt.MatrixOperator(A, symmetric=True, hermitian=True)
+            return getattr(lt, solver)(op, b, tol=1e-10, maxiter=200)
+
+    def run():
+        x, k, _ = torch.func.vmap(solve)(t_(As), t_(bs))
+        assert loop.stats["path"] == "vmap"
+        return x, k, loop.stats["reads"], loop.stats["blocks"]
+
+    x, k, reads, blocks = run()
+    monkeypatch.setattr(loop, "BLOCK", 1)
+    monkeypatch.setattr(krylov, "GMRES_BLOCK", 1)
+    x1, k1, reads1, _ = run()
+    top = int(k.max())
+    assert torch.equal(x, x1) and torch.equal(k, k1) and len(set(k.tolist())) > 1
+    assert reads <= -(-top // block) + 1 and blocks == -(-top // block), (reads, blocks, top)
+    assert reads1 == top + 1
+
+
 @pytest.fixture
 def kernels_on_cpu(monkeypatch):
     """The operators' kernel branches on CPU tensors (their wrappers take the
@@ -141,13 +184,14 @@ def kernels_on_cpu(monkeypatch):
 
 
 def test_vmap_over_kernel_applies(rng, kernels_on_cpu, monkeypatch):
-    """vmap over a kernel apply: BSR N and a permutation run the vector
-    apply once per member, bit for bit; BSR T runs its block transpose once
-    on the batch (a row panel, as the reference's vmap is one batched
-    kernel), bit for bit that row panel's apply and within f64 rounding of
-    the vector applies (on the CPU the plain panel sums in another order than
-    the plain vector transpose; on the card K2p is bit for bit K2's column
-    loop, ``tests/test_torch_gpu.py``); a routed operator runs its matrix
+    """vmap over a kernel apply: a permutation runs the vector apply once
+    per member, bit for bit; BSR N and T run their block apply once on the
+    batch (a row panel: the forward panel, the block transpose; as the
+    reference's vmap is one batched kernel), bit for bit that row panel's
+    apply and within f64 rounding of the vector applies (on the CPU the
+    plain panels sum in other orders than the plain vector applies; on the
+    card K1p and K2p are bit for bit K1's and K2's column loops,
+    ``tests/test_torch_gpu.py``); a routed operator runs its matrix
     kind on the batch (a row panel) and agrees with the vector applies; a
     batch of BSR operators (batched blocks) runs once per member."""
     import scipy.sparse as sps
@@ -156,20 +200,16 @@ def test_vmap_over_kernel_applies(rng, kernels_on_cpu, monkeypatch):
 
     A = np.where(rng.random((40, 48)) < 0.3, rng.standard_normal((40, 48)), 0.0)
     op = lt.BSROperator(lt.bsr_from_dense(A, (4, 8), device="cpu"))
-    panels = []
-    panel_kernel = K.bsr_rmatmat_kernel
-    monkeypatch.setattr(K, "bsr_rmatmat_kernel",
-                        lambda *a, **kw: panels.append(1) or panel_kernel(*a, **kw))
-    for mode in ("N", "T"):
+    for mode, name in (("N", "bsr_matmat_kernel"), ("T", "bsr_rmatmat_kernel")):
+        panels = []
+        panel_kernel = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, f=panel_kernel, **kw: panels.append(1) or f(*a, **kw))
         V = t_(rng.standard_normal((5, op.in_dim(mode))))
         Y = torch.func.vmap(lambda v: op.apply(v, mode))(V)
+        assert panels == [1], mode
         vec = torch.stack([op.apply(v, mode) for v in V])
-        if mode == "N":
-            assert torch.equal(Y, vec) and panels == []
-        else:
-            assert panels == [1]
-            assert torch.equal(Y, op.apply_matrix_t(V, "T"))
-            assert float((Y - vec).abs().max()) <= 1e-12 * float(vec.abs().max())
+        assert torch.equal(Y, op.apply_matrix_t(V, mode))
+        assert float((Y - vec).abs().max()) <= 1e-12 * float(vec.abs().max())
     P = lt.opPermutation(rng.permutation(700), device="cpu")
     V = t_(rng.standard_normal((3, 700)))
     assert torch.equal(torch.func.vmap(lambda v: P @ v)(V), torch.stack([P @ v for v in V]))

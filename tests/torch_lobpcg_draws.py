@@ -7,7 +7,8 @@ Each of WORLDS 4-rank gloo worlds makes DRAWS calls of that file's LOBPCG
 routine, with no generator, on each of its distributed operators: every
 call seeds itself from OS entropy (``utils/rng.py::fresh_generator``), so
 each is a fresh draw. Each result is held to the test's checks (iterations,
-residual against tol, ‖A X − X θ‖ within 1.01 times the reported residual,
+residual against tol, ‖A X − X θ‖ within 1.01 times the reported residual
+and the rounding floor of its evaluation (``residual_floor``),
 θ within it of the true eigenvalues). ``--root`` names the tree whose
 package and test file are loaded (default: this checkout), so two commits
 can be compared. One JSON line per world: draws so far and misses per
@@ -54,7 +55,8 @@ def misses(sd, kind, got):
     theta, X, res, it = sd.values_of(got)
     checks = {"iterations": it < sd.MAXITER,
               "tol": np.all(res <= 1e-6 * np.maximum(np.abs(theta), 1.0)),
-              "residual": np.all(np.linalg.norm(A @ X - X * theta, axis=0) <= 1.01 * res),
+              "residual": np.all(np.linalg.norm(A @ X - X * theta, axis=0)
+                                 <= 1.01 * res + sd.residual_floor(A, X, theta)),
               "theta": np.all(np.abs(theta - lam[:2]) <= res)}
     return [name for name, ok in checks.items() if not ok]
 
