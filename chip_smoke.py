@@ -190,9 +190,9 @@ shows them run but can lose records).
    solve with its N block as ``bsr_matmat``; LOBPCG(k = 4) on slice 2's
    I + L (K3p alone in its block, θ against the closed form); a symmetric
    T block bit for bit its N block. (c) vmap of an N apply (one K1p
-   launch) and a vmapped CG (⌈I/4⌉ + 1 host reads, bit for bit the
-   per-iteration vmap loop). (d) a FunctionOperator's block in one call of
-   its function. (e) the gradient of ½‖A_sym M − Y‖². Its launches, counted
+   launch) and a vmapped CG in captured blocks (⌈I/4⌉ host reads cached,
+   bit for bit the per-iteration vmap loop). (d) a FunctionOperator's block
+   in one call of its function, also as a DTensor block. (e) the gradient of ½‖A_sym M − Y‖². Its launches, counted
    over 17's paths alone, must include K1p, K3p and K5p.
 
 14. main path of slice 9, the device-resident solve loop: slice 1's CG and
@@ -5639,8 +5639,9 @@ def phase15d(dev, card):
 # ----------------------------------------------------------------------------
 
 PANEL16_KS = (1, 3, 8, 12, 32)  # 16a: block widths checked
-PANEL16_TIMED = (1, 8, 32)  # 16a: widths timed on the main path's operator (8 elsewhere)
-PANEL_TILE = 8  # the panel kernels' columns per tile (kPanel, csrc/bsr_common.cuh)
+PANEL16_TIMED = (1, 8, 12, 32)  # 16a: widths timed
+LOOP16_TIMED = (1, 8)  # 16a: widths whose column loop of vector applies is timed too
+PANEL_TILE = 8  # the forward panel kernels' columns per tile (kPanel, csrc/bsr_common.cuh)
 PLAIN16_COLS = 4  # 16a: a 2^22 operator's plain panel computed 4 columns at a time (memory)
 SVDS16_ITERS = 20  # 16b: LOBPCG iterations per timed svds (tol 0), and twice as many
 PANEL16_KERNELS = {  # kernel -> (source, the TPU kernel its vmap batches, 16a's case of record)
@@ -5686,7 +5687,7 @@ def panel16_cases(lt, K, dev):
     plain(U), vector(u), rows of U, blocks, the plan tensors the kernel
     reads, the CSR of Aᵀ maker, the operator or None): phase 5's 8x128 (f32,
     bf16) and 128x128 (f32) operators (K2p), the 2^22 banded (K4p) and band
-    + far cluster (K6p) window operators (f32)."""
+    + far cluster (K6p) window operators (f32, bf16)."""
     from linops_tpu_torch.core.segsum import segment_plan
 
     for name, dtype in (("8x128", torch.float32), ("8x128", torch.bfloat16),
@@ -5705,8 +5706,9 @@ def panel16_cases(lt, K, dev):
                None)
         del blocks, cols, plan, seg
         free()
-    for wname in ("banded", "band+cluster"):
-        op = win_operator(lt, wname, torch.float32, dev, SEED + 30)
+    for wname, wdt in (("banded", torch.float32), ("banded", torch.bfloat16),
+                       ("band+cluster", torch.float32), ("band+cluster", torch.bfloat16)):
+        op = win_operator(lt, wname, wdt, dev, SEED + 30)
         d, nbcol = op.data, WIN_N // 128
         if op.cols_local is not None:
             kern, win = "bsr_rmatmat_windowed", dict(wb=op._wb, x_pad_blocks=op._x_pad_blocks,
@@ -5731,12 +5733,59 @@ def panel16_cases(lt, K, dev):
             return torch.cat([plain(U[:, j:j + PLAIN16_COLS])
                               for j in range(0, U.shape[1], PLAIN16_COLS)], dim=1)
 
-        yield (f"{wname} float32", kern, panel, pieces,
+        yield (f"{wname} {str(wdt)[6:]}", kern, panel, pieces,
                lambda u, op=op: win_kernel(K, op, ub=u.reshape(-1, 8)).reshape(-1),
                d.blocks.shape[0] * 8, d.blocks, reads,
                lambda d=d, nbcol=nbcol: csr_t_of_bsr(K, d.blocks, d.block_cols, nbcol), op)
         del op, d, args, panel, plain, pieces
         free()
+
+
+def panel_times(tree: str, out: str) -> int:
+    """``python3 chip_smoke.py --panels TREE OUT.json``: 16a's panel
+    transposes (K2p, K4p, K6p) of the package in TREE (this checkout, or
+    another one such as a parent commit unpacked by ``git archive``), built
+    from TREE's sources, on ``panel16_cases`` at PANEL16_TIMED: µs by
+    marginal CUDA events, the bound, whether the result is its vector
+    kernel's column loop bit for bit, and a digest of its bits (two trees'
+    digests agree when their kernels give the same bits); one JSON object
+    to OUT and a line per case. To compare two trees, run them in turns in
+    one call (A, B, B, A): a card's clocks move between calls."""
+    import hashlib
+    import json
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import linops_tpu_torch as lt
+    from linops_tpu_torch.kernels import bsr_spmv as K
+    from linops_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    build.build_all(["bsr_spmv", "bsr_window"])
+    res = {"tree": os.path.abspath(tree), "card": card_line()}
+    for tag, kern, panel, _, vector, rows, blocks, reads, _, _ in panel16_cases(lt, K, dev):
+        timer = few_ms if blocks.numel() > 1 << 28 else marginal_ms
+        path = getattr(K, "transpose_panel_path", lambda b: "registers")(blocks)
+        for k in PANEL16_TIMED:
+            g = torch.Generator(device=dev).manual_seed(SEED + 220 + k)
+            U = torch.randn((rows, k), device=dev, generator=g)
+            P = panel(U)
+            same = torch.equal(P, torch.stack([vector(U[:, j].contiguous()) for j in range(k)],
+                                              dim=1))
+            ms = timer(lambda: panel(U))
+            bound = bound_ms(nbytes(blocks, U, P, *reads), 2 * blocks.numel() * k)[0]
+            digest = hashlib.sha256(P.float().cpu().numpy().tobytes()).hexdigest()[:16]
+            res[f"{kern}|{tag}|k={k}"] = dict(us=ms * 1e3, bound_us=bound * 1e3, loop_bits=same,
+                                              digest=digest, staging=path)
+            print(f"[panels] {kern} {tag} k={k}: {ms * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+                  f"({bound / ms:.0%}), column loop's bits {same}, digest {digest}, {path}",
+                  flush=True)
+            del U, P
+        free()
+    with open(out, "w") as f:
+        json.dump(res, f, indent=1)
+    bad = [key for key, r in res.items() if isinstance(r, dict) and not r["loop_bits"]]
+    print(f"[panels] {len(res) - 2} cases, {card_line()}; not the column loop's bits: {bad}")
+    return 1 if bad else 0
 
 
 def phase16(lt, loop, mods, dev, card, main, spectra):
@@ -5746,11 +5795,11 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
     operators' PLAIN16_COLS columns at a time), the same bits on a rerun,
     bit for bit the vector kernel's column loop, a row panel's transposed
     view the same bits, laid out in rows; µs per call in a CUDA graph of 20
-    and by marginal CUDA events beside the column loop's, the plain panel's
-    and cuSPARSE's SpMM (``spmm_time``) at k = 8 (the main path's operator
-    also at 1 and 32); the bound: bytes of
+    and by marginal CUDA events at PANEL16_TIMED, beside the column loop's
+    (at LOOP16_TIMED), the plain panel's and cuSPARSE's SpMM (``spmm_time``)
+    at k = 8; the bound: bytes of
     the blocks, U, the result and the plan read once (the kernels' own: the
-    blocks once per tile of PANEL_TILE columns) against 2 nnz k f32
+    blocks once per column tile, ``transpose_panel_tile``) against 2 nnz k f32
     operations. The window operators' T blocks also through
     ``estimate_trace(AᵀA)`` (8 Hutchinson probes: one panel launch), within
     6 standard errors of ‖A‖_F². (b) svds(k = 4, tol 1e-4) of phase 4's B in
@@ -5810,17 +5859,18 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
                 worst = float((P - ref).abs().max())
             del U, P, P2, loop_, Pr, ref
         times = {}
-        for k in (PANEL16_TIMED if kern == "bsr_rmatmat" and tag == "8x128 float32" else (8,)):
+        for k in PANEL16_TIMED:
             U = torch.randn((rows, k), device=dev)
             long_call = blocks.numel() > 1 << 28  # the 2^22 operators
             t_ = dict(graph=graph_ms(lambda: panel(U)),
-                      events=(few_ms if long_call else marginal_ms)(lambda: panel(U)),
-                      loop_graph=graph_ms(lambda: [vector(U[:, j]) for j in range(k)]),
-                      loop_events=(few_ms if long_call else marginal_ms)(
-                          lambda: [vector(U[:, j]) for j in range(k)]))
+                      events=(few_ms if long_call else marginal_ms)(lambda: panel(U)))
+            if k in LOOP16_TIMED:
+                t_["loop_graph"] = graph_ms(lambda: [vector(U[:, j]) for j in range(k)])
+                t_["loop_events"] = (few_ms if long_call else marginal_ms)(
+                    lambda: [vector(U[:, j]) for j in range(k)])
             P = panel(U)
             t_["bound"] = bound_ms(nbytes(blocks, U, P, *reads), 2 * blocks.numel() * k)
-            t_["design_bound"] = bound_ms(nbytes(blocks) * -(-k // PANEL_TILE)
+            t_["design_bound"] = bound_ms(nbytes(blocks) * -(-k // K.transpose_panel_tile(k))
                                           + nbytes(U, P, *reads), 2 * blocks.numel() * k)
             if k == 8:
                 t_["plain"] = few_ms(lambda: plain(U), 1, 3) if long_call else \
@@ -5829,7 +5879,8 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
                     csr_t, U, plain(U), few_ms if long_call else marginal_ms)
             times[k] = t_
             del U, P
-        if op is not None:  # the window operator's T block on a path: estimate_trace(AᵀA)
+        if op is not None and op.dtype == f32:  # the window operator's T block on a path:
+            # estimate_trace(AᵀA) (f32: a bf16 operator's Hutchinson sums round in bf16)
             gen = torch.Generator(device=dev)
             gen.manual_seed(SEED + 160)
             before = launches.get(kern, 0)
@@ -5840,17 +5891,20 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
                   f"16a {tag}: estimate_trace(AᵀA) {float(tr)} ± {float(se)} against ‖A‖_F² "
                   f"{fro2}, {launches.get(kern, 0) - before} {kern} launches")
             times["trace"] = (float(tr), float(se), fro2)
-        rec[(kern, tag)] = dict(errs=errs, max_abs_err=worst, times=times)
+        path = K.transpose_panel_path(blocks)
+        rec[(kern, tag)] = dict(errs=errs, max_abs_err=worst, times=times, path=path)
         t8 = times[8]
         print(f"[16a panel kernels] {kern} {tag}: max|Δ|/max|y| against the plain panel "
               + ", ".join(f"k={k} {e:.2e}" for k, e in errs.items())
               + f" (limit {KERNEL_RTOL:g}); every k bit for bit the vector kernel's column loop, "
               f"the same bits on a rerun and through a row panel's view (its result in rows); "
+              f"staging: {path}; "
               + "; ".join(f"k={k}: {t_['graph'] * 1e3:.1f} us in a graph of 20, "
-                          f"{t_['events'] * 1e3:.1f} us by events, column loop "
-                          f"{t_['loop_graph'] * 1e3:.1f} / {t_['loop_events'] * 1e3:.1f} us, "
-                          f"bound {t_['bound'][0] * 1e3:.1f} us ({t_['bound'][1]}; "
-                          f"blocks once per {PANEL_TILE} columns: "
+                          f"{t_['events'] * 1e3:.1f} us by events, "
+                          + (f"column loop {t_['loop_graph'] * 1e3:.1f} / "
+                             f"{t_['loop_events'] * 1e3:.1f} us, " if "loop_graph" in t_ else "")
+                          + f"bound {t_['bound'][0] * 1e3:.1f} us ({t_['bound'][1]}; "
+                          f"blocks once per {K.transpose_panel_tile(k)} columns: "
                           f"{t_['design_bound'][0] * 1e3:.1f} us)"
                           for k, t_ in times.items() if k != "trace")
               + f"; k=8 plain {t8['plain'] * 1e3:.1f} us"
@@ -5860,7 +5914,7 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
               + f" ({t8['library_note']})"
               + (f"; estimate_trace(AᵀA, 8 probes) {times['trace'][0]:.6e} ± "
                  f"{times['trace'][1]:.2e} against ‖A‖_F² {times['trace'][2]:.6e}, one {kern} "
-                 "launch" if op is not None else "")
+                 "launch" if "trace" in times else "")
               + f"; {card}", flush=True)
         del panel, plain, vector, blocks, reads, csr_t, op
         free()
@@ -5984,6 +6038,7 @@ def phase16(lt, loop, mods, dev, card, main, spectra):
 
 PANEL17_KS = (1, 3, 8, 12, 32)  # 17a: block widths checked (8 timed)
 LOB17_K, LOB17_ITERS = 4, 20  # 17b: LOBPCG block and timed iterations (and twice as many)
+VCG17_ITERS = 20  # 17c: vmapped CG iterations timed (tol 0), and twice as many
 PANEL17_KERNELS = {  # kernel -> (source, the TPU kernel its vmap batches, 17a's case of record)
     "bsr_matmat": (K1_SOURCE, K1_REPLACES, "8x128 float32"),  # K1p
     "bsr_matmat_windowed": (WIN_SOURCE, WIN_KERNELS["bsr_matvec_windowed"][0],
@@ -6089,10 +6144,13 @@ def phase17(lt, loop, mods, dev, card, main):
     ``torch.func.vmap`` of an N vector apply of phase 5's 8x128 operator: one
     K1p launch, bit for bit the column loop; a vmapped CG over 8 right-hand
     sides of slice 1's graph: at most ⌈I/BLOCK⌉ + 1 host reads, x and counts
-    bit for bit the per-iteration vmap loop's (BLOCK 1). (d) a
-    ``FunctionOperator`` over a dense matmul: a block of 8 columns in one
-    call of the function, within KERNEL_RTOL of the column loop's 8 calls
-    (a matrix product against 8 matrix-vector products). (e) the
+    bit for bit the per-iteration vmap loop's (BLOCK 1), captured and
+    cached (reads, captures, replays), timed against the eager vmap blocks.
+    (d) a ``FunctionOperator`` over a dense matmul: a block of 8 columns in
+    one call of the function, within KERNEL_RTOL of the column loop's 8
+    calls (a matrix product against 8 matrix-vector products); the same
+    over DTensors split by rows at world size 1, one call, the column
+    loop's placements. (e) the
     gradient of ½‖A_sym M − Y‖² (the T block of a symmetric 8x128 operator,
     8 columns) in the blocks and in M against the plain backend's autograd
     within KERNEL_RTOL: one K1p launch forward, one K2p in the backward.
@@ -6288,30 +6346,63 @@ def phase17(lt, loop, mods, dev, card, main):
     A1 = main["A"]
     Bs = torch.stack([dev_vec(N, dev, SEED + 181 + i) for i in range(8)])
 
-    def vcg():
-        xs_, ks_, _ = torch.func.vmap(lambda b_: lt.cg(A1, b_, tol=1e-5, maxiter=500))(Bs)
+    def vcg(tol=1e-5, maxiter=500):
+        xs_, ks_, _ = torch.func.vmap(lambda b_: lt.cg(A1, b_, tol=tol, maxiter=maxiter))(Bs)
         return xs_, ks_, dict(loop.stats)
 
-    xs, ks, st = on_path(vcg)
+    def eager(fn):  # the eager vmap blocks the members' path replaced (loop._members refused)
+        members = loop._members
+        loop._members = lambda *a: False
+        try:
+            return fn()
+        finally:
+            loop._members = members
+
+    xs, ks, st = on_path(vcg)  # the signature's first solve: eager masked blocks
+    xs_c, ks_c, st_c = vcg()  # its second: captured (a signature cached before: replays)
+    xs_r, ks_r, st_r = vcg()  # cached: replays
     block = loop.BLOCK
     loop.BLOCK = 1
     try:
-        xs1, ks1, st1 = vcg()
+        xs1, ks1, st1 = eager(vcg)  # the per-iteration vmap loop
     finally:
         loop.BLOCK = block
+    xs_e, ks_e, st_e = eager(vcg)
     top = int(ks.max())
-    check(torch.equal(xs, xs1) and torch.equal(ks, ks1) and st["path"] == "vmap"
-          and st["reads"] <= -(-top // block) + 1 and st1["reads"] == top + 1,
-          f"17c vmap(cg): x bit-equal {torch.equal(xs, xs1)}, counts {ks.tolist()} against "
-          f"{ks1.tolist()}, reads {st['reads']} (per iteration {st1['reads']}) for {top} "
-          f"iterations")
+    same = all(torch.equal(x_, xs1) for x_ in (xs, xs_c, xs_r, xs_e)) and \
+        all(torch.equal(k_, ks1) for k_ in (ks, ks_c, ks_r, ks_e))
+    blocks_ = -(-top // block)
+
+    def reads_ok(r):  # an eager or capturing solve reads once before its blocks; a replay not
+        return r["reads"] == blocks_ + int(r["path"] == "vmap_blocks" or r["captures"] > 0)
+
+    check(same and st["path"] in ("vmap_blocks", "vmap_graph") and st_c["path"] == "vmap_graph"
+          and st_r["path"] == "vmap_graph" and st["captures"] + st_c["captures"] <= 1
+          and st_r["captures"] == 0 and all(reads_ok(r) for r in (st, st_c, st_r))
+          and st_r["replays"] == blocks_ and st_e["path"] == "vmap" and st1["reads"] == top + 1,
+          f"17c vmap(cg): x and counts bit-equal {same} ({ks.tolist()} against {ks1.tolist()}); "
+          f"paths {st['path']}, {st_c['path']}, {st_r['path']} (eager {st_e['path']}); reads "
+          f"{st['reads']}, {st_c['reads']}, {st_r['reads']} (per iteration {st1['reads']}) for "
+          f"{top} iterations; captures {st_c['captures']}, {st_r['captures']}; replays "
+          f"{st_r['replays']}")
+    for n_ in (VCG17_ITERS, 2 * VCG17_ITERS):  # each length's first solve and capture
+        vcg(0.0, n_), vcg(0.0, n_)
+    w_c, e_c = marginal_us(lambda n_: vcg(0.0, n_), VCG17_ITERS, 2 * VCG17_ITERS)
+    w_e, e_e = eager(lambda: marginal_us(lambda n_: vcg(0.0, n_), VCG17_ITERS,
+                                         2 * VCG17_ITERS))
     print(f"[17c vmap] torch.func.vmap over 8 vectors of A x (8x128, n = {N}): one K1p launch "
           f"{c_v}, bit for bit 8 vector applies; vmap(cg) over 8 right-hand sides of slice 1's "
-          f"graph: per-member iterations {ks.tolist()}, host reads {st['reads']} in blocks of "
-          f"{block} (the per-iteration vmap loop: {st1['reads']}), x and counts bit for bit; "
-          f"{card}", flush=True)
-    rec["17c"] = dict(reads=st["reads"], reads_per_iteration=st1["reads"], iters=top)
-    del B8, V, Yv, ref, Bs, xs, xs1
+          f"graph: per-member iterations {ks.tolist()}; host reads in blocks of {block}: "
+          f"{st['reads']} on the signature's first solve (eager blocks), {st_c['reads']} on its "
+          f"second (captures {st_c['captures']}), {st_r['reads']} cached (replays "
+          f"{st_r['replays']}), the per-iteration vmap loop {st1['reads']}; x and counts bit for "
+          f"bit in every mode; per iteration (tol 0, marginal over {VCG17_ITERS} and "
+          f"{2 * VCG17_ITERS}): captured wall {w_c:.1f} us, CUDA events {e_c:.1f} us; the eager "
+          f"vmap blocks wall {w_e:.1f} us, events {e_e:.1f} us; {card}", flush=True)
+    rec["17c"] = dict(reads=st_r["reads"], reads_first=st["reads"], reads_capture=st_c["reads"],
+                      reads_per_iteration=st1["reads"], iters=top, replays=st_r["replays"],
+                      wall_us=w_c, events_us=e_c, eager_wall_us=w_e, eager_events_us=e_e)
+    del B8, V, Yv, ref, Bs, xs, xs1, xs_c, xs_r, xs_e
 
     # --- 17d. a FunctionOperator's block: one call of the function ----------------------
     nf = 4096
@@ -6331,7 +6422,33 @@ def phase17(lt, loop, mods, dev, card, main):
           f"columns in {n_block} call of the function (the column loop: {len(calls) - n_block}), "
           f"{e_f:.2e} from the column loop (limit {KERNEL_RTOL:g}: f32 sums of {nf} terms in "
           f"cuBLAS's orders); {card}", flush=True)
-    del Ad, F, Md, Yf, loop_f
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from linops_tpu_torch.core.base import LinearOperator
+    from linops_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    Ad_s = distribute_tensor(Ad, mesh, [Shard(0)])
+    Md_s = distribute_tensor(Md, mesh, [Shard(0)])
+    calls_s = []
+    Fs = lt.FunctionOperator(nf, nf, lambda v: calls_s.append(1) or Ad_s @ v, dtype=f32)
+    Ys = on_path(lambda: Fs.apply_matrix(Md_s))
+    n_block_s = len(calls_s)
+    loop_s = LinearOperator.apply_matrix(Fs, Md_s)
+    Ys_, loop_s_ = Ys.full_tensor(), loop_s.full_tensor()
+    e_s = rel_err(Ys_, loop_s_)  # a block's product is cuBLAS's gemm, a column's its gemv
+    bits_s = (torch.equal(Ys_, Yf), torch.equal(Ys_, loop_s_))
+    check(n_block_s == 1 and len(calls_s) == 9 and e_s <= KERNEL_RTOL
+          and Ys.placements == loop_s.placements,
+          f"17d DTensor: {n_block_s} calls for the block (the loop {len(calls_s) - n_block_s}), "
+          f"{e_s:.2e} from the column loop, placements {Ys.placements} against "
+          f"{loop_s.placements}")
+    print(f"[17d function blocks] the same function over DTensors at world size 1 (A and the "
+          f"block split by rows): {n_block_s} call for the block (the column loop: "
+          f"{len(calls_s) - n_block_s}), {e_s:.2e} from the column loop (limit {KERNEL_RTOL:g}); "
+          f"bit for bit the plain block {bits_s[0]}, the column loop {bits_s[1]}; placements "
+          f"{Ys.placements} as the loop's; torch {torch.__version__}; {card}", flush=True)
+    del Ad, F, Md, Yf, loop_f, Ad_s, Md_s, Fs, Ys, loop_s, Ys_, loop_s_
 
     # --- 17e. the gradient of ½‖A_sym M − Y‖² (a symmetric operator's T block) ---------------
     g17 = torch.Generator(device=dev).manual_seed(SEED + 176)
@@ -6497,6 +6614,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--panels"]:
+        return panel_times(*sys.argv[2:4])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import linops_tpu_torch as lt
     from linops_tpu_torch.kernels import bsr_spmv as K
@@ -6927,6 +7046,10 @@ def main() -> int:
                        t["plain"], t["bound"], t["library"]),
                "timing": "marginal CUDA events", "graph_ms": t["graph"],
                "column_loop_ms": t["loop_events"], "column_loop_graph_ms": t["loop_graph"],
+               "ms_by_k": {str(k): r_["times"][k]["events"] for k in PANEL16_TIMED},
+               "bound_ms_by_k": {str(k): r_["times"][k]["bound"][0] for k in PANEL16_TIMED},
+               "staging": {key[1]: v_["path"] for key, v_ in r16.items()
+                           if isinstance(key, tuple) and key[0] == name},
                "shape": f"{case}, a block of k = 8 columns",
                "launches_from": "phase 16: 16a's estimate_trace of the window operators, 16b's "
                                 "svds, 16c's Nyström sketches, 16d's gradient",

@@ -108,9 +108,19 @@ class FunctionOperator(LinearOperator):
     ``UserWarning`` that names the operator and the error, and the operator
     remembers it, so later blocks go straight to the loop. Only the errors
     vmap raises for what it cannot batch are caught; any other propagates.
-    The function runs on the device it was given either way. A DTensor
-    block also takes the column loop: vmap would hand the function a
-    batched wrapper in place of the DTensor."""
+    The function runs on the device it was given either way.
+
+    A DTensor block is vmapped as it is, as the reference vmaps the
+    function over a sharded array: the function gets a batched wrapper of
+    the DTensor block, on which DTensor's own operations (pointwise ones,
+    products with DTensor operands, reductions) run with the block's
+    placements, in one call, and the result keeps the placements they
+    propagate (a column loop's stack of the vectors' placements). A DTensor
+    method called on the vector (``full_tensor``, ``redistribute``) finds a
+    plain tensor there, and vmap refuses ``DTensor.from_local`` and
+    ``to_local`` (autograd Functions without ``setup_context``) and DTensor
+    operations on a batched local tensor: such a function takes the column
+    loop, with the same warning (ROADMAP §3, fault 25)."""
 
     _fields_tensors = ()
     _fields_static = ("_nrow", "_ncol", "_symmetric", "_hermitian", "_dtype",
@@ -194,12 +204,12 @@ class FunctionOperator(LinearOperator):
         return self._block_apply(Mt, mode, 0)
 
     def _block_apply(self, X, mode: str, dim: int):
-        if getattr(self, "_unbatchable", None) is None and not _is_dtensor(X):
+        if getattr(self, "_unbatchable", None) is None:
             try:
                 return torch.func.vmap(lambda v: self.apply(v, mode), in_dims=dim,
                                        out_dims=dim)(X)
-            except RuntimeError as e:
-                if not _cannot_batch(e):
+            except (RuntimeError, NotImplementedError, AttributeError) as e:
+                if not _cannot_batch(e, _is_dtensor(X)):
                     raise
                 object.__setattr__(self, "_unbatchable", str(e))
                 warnings.warn(f"{self._name()} {self.nrow}x{self.ncol}: torch.func.vmap cannot "
@@ -217,14 +227,24 @@ class FunctionOperator(LinearOperator):
 
 
 # what torch.func.vmap raises for an operation it cannot batch: its own
-# errors ("vmap: ..."), a missing batching rule, and a read of a batched
-# tensor's storage (which it does not have)
+# errors ("vmap: ..."), a missing batching rule, a read of a batched
+# tensor's storage (which it does not have), an autograd Function without
+# setup_context (DTensor.from_local, to_local) and a property it cannot
+# query on a batched tensor (DTensor's sharding propagation asks for one)
 _UNBATCHABLE = ("vmap:", "Batching rule not implemented",
-                "Cannot access data pointer of Tensor that doesn't have storage")
+                "Cannot access data pointer of Tensor that doesn't have storage",
+                "Cannot access storage of BatchedTensorImpl",
+                "it must override the setup_context staticmethod",
+                "inside of vmap")
+# what a DTensor block's vector raises for a DTensor method: vmap hands the
+# function a plain tensor wrapper
+_DTENSOR_METHOD = "'Tensor' object has no attribute"
 
 
-def _cannot_batch(e: RuntimeError) -> bool:
+def _cannot_batch(e: Exception, dtensor: bool = False) -> bool:
     msg = str(e)
+    if isinstance(e, AttributeError):
+        return dtensor and _DTENSOR_METHOD in msg
     return any(m in msg for m in _UNBATCHABLE)
 
 

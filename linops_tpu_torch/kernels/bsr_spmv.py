@@ -92,6 +92,8 @@ __all__ = [
     "BSR_PALLAS_MAX_WINDOWS",
     "launch_counts",
     "reset_launch_counts",
+    "transpose_panel_tile",
+    "transpose_panel_path",
     "kernel_dtypes",
 ]
 
@@ -332,7 +334,7 @@ def _lib():
                                            i32, i32, i32, i32, p]
         lib.linops_bsr_rmatvec.restype = ctypes.c_int
         lib.linops_bsr_rmatmat.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32,
-                                           i32, i64, i64, i64, i64, i32, i32, i32, p]
+                                           i32, i32, i32, i64, i64, i64, i64, i32, i32, i32, p]
         lib.linops_bsr_rmatmat.restype = ctypes.c_int
         lib.linops_bsr_matmat.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i64, i64,
                                           i64, i64, i32, i32, i32, p]
@@ -465,11 +467,34 @@ def _strides(U, out):
     return (*U.stride(), *out.stride())
 
 
+def transpose_panel_tile(k: int) -> int:
+    """The column tile of K2p, K4p and K6p's first pass for a k-column
+    panel: 8 for k <= 8, else 16 (a stored block is read once per tile; on
+    the H100 16 was 1.2-1.7x faster than two tiles of 8 at k = 12, and
+    slower at k = 8: PERF.md). The wrappers pass it to the kernels."""
+    return 8 if k <= 8 else 16
+
+
+def transpose_panel_path(blocks) -> str:
+    """Which staging K2p, K4p and K6p run for these blocks: ``"ring"``
+    (bulk copies, when a row of bn values is a multiple of 16 bytes and the
+    blocks start on 16) or ``"ragged"`` (the same kernels' plain-load path).
+    The wrappers pass it to the kernels, which refuse bulk copies the rows
+    cannot take."""
+    row = blocks.shape[-1] * blocks.element_size()
+    return "ring" if row % 16 == 0 and blocks.data_ptr() % 16 == 0 else "ragged"
+
+
+def _staging(blocks, k: int) -> tuple:
+    """(column tile, bulk copies) of a transpose panel's launch."""
+    return transpose_panel_tile(k), int(transpose_panel_path(blocks) == "ring")
+
+
 def bsr_rmatmat_kernel(blocks, block_cols, U, nbcol: int, *, plan=None):
     """K2p: K2 over a panel, out (nbcol·bn, k) = Aᵀ U for U (nbrow·bm, k), in
     ``promote(blocks, U)``: one launch for every column, each stored block
-    read once per 8 columns, column j bit for bit ``bsr_rmatvec_kernel`` of
-    column j. U is read through its strides (a column panel, or a row
+    read once per column tile (``transpose_panel_tile``), column j bit for
+    bit ``bsr_rmatvec_kernel`` of column j. U is read through its strides (a column panel, or a row
     panel's ``.t()``, without a copy; a dtype cast copies it), and the
     result is laid out as U: a row panel's view gives the transposed view
     of a row-major (k, nbcol·bn). CPU tensors take ``bsr_rmatmat_plain``
@@ -495,8 +520,9 @@ def bsr_rmatmat_kernel(blocks, block_cols, U, nbcol: int, *, plan=None):
     lib = _lib()
     rc = lib.linops_bsr_rmatmat(
         blocks.data_ptr(), *(t.data_ptr() for t in tensors), U.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn, k, *_strides(U, out),
-        _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn, k,
+        *_staging(blocks, k), *_strides(U, out), _DTYPE_CODE[bdt], _DTYPE_CODE[vdt],
+        *_device_stream(blocks))
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out
@@ -1029,11 +1055,11 @@ def _win_lib():
         lib.linops_bsr_rmatvec_multiwin.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32,
                                                     i32, i32, i32, i32, i32, p]
         lib.linops_bsr_rmatmat_windowed.argtypes = [p, p, p, p, p, p, p, i64, i32, i32, i32,
-                                                    i32, i32, i32, i64, i64, i64, i64, i32,
-                                                    i32, i32, p]
+                                                    i32, i32, i32, i32, i32, i64, i64, i64,
+                                                    i64, i32, i32, i32, p]
         lib.linops_bsr_rmatmat_multiwin.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i32,
-                                                    i32, i32, i32, i64, i64, i64, i64, i32,
-                                                    i32, i32, p]
+                                                    i32, i32, i32, i32, i32, i64, i64, i64,
+                                                    i64, i32, i32, i32, p]
         lib.linops_bsr_matmat_windowed.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32,
                                                    i32, i32, i64, i64, i64, i64, i32, i32, i32,
                                                    p]
@@ -1230,7 +1256,7 @@ def _window_t_checks(what, blocks, win_q_t, win_valid_t, wb: int):
 def bsr_rmatmat_windowed_kernel(blocks, cols_local, win_q, U, *, wb: int, x_pad_blocks: int,
                                 nbcol: int, index=None):
     """K4p: K4 over a panel, out (nbcol·bn, k) for U (nbrow·bm, k), one
-    launch for every column, each stored block read once per 8 columns,
+    launch for every column, each stored block read once per column tile,
     column j bit for bit ``bsr_rmatvec_windowed_kernel`` of column j. U,
     its layout and the dispatch as ``bsr_rmatmat_kernel``'s; ``index`` as
     K4's (``bsr_window_t_index``, built here when not given)."""
@@ -1255,7 +1281,8 @@ def bsr_rmatmat_windowed_kernel(blocks, cols_local, win_q, U, *, wb: int, x_pad_
     rc = lib.linops_bsr_rmatmat_windowed(
         blocks.data_ptr(), perm.data_ptr(), ptr.data_ptr(), U.data_ptr(), win_q.data_ptr(),
         partial.data_ptr(), out.data_ptr(), nbcol, ngroups, kmax, bm, bn, wb, k,
-        *_strides(U, out), _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+        *_staging(blocks, k), *_strides(U, out), _DTYPE_CODE[bdt], _DTYPE_CODE[vdt],
+        *_device_stream(blocks))
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out
@@ -1264,7 +1291,7 @@ def bsr_rmatmat_windowed_kernel(blocks, cols_local, win_q, U, *, wb: int, x_pad_
 def bsr_rmatmat_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, U, *, wb: int,
                                 x_pad_blocks: int, nbcol: int, index=None):
     """K6p: K6 over a panel, out (nbcol·bn, k) for U (nbrow·bm, k), one
-    launch for every column, each stored block read once per 8 columns,
+    launch for every column, each stored block read once per column tile,
     column j bit for bit ``bsr_rmatvec_multiwin_kernel`` of column j. U,
     its layout and the dispatch as ``bsr_rmatmat_kernel``'s; ``index`` as
     K6's (``bsr_multiwin_t_plan``, built here when not given)."""
@@ -1291,8 +1318,9 @@ def bsr_rmatmat_multiwin_kernel(blocks, block_cols, win_q_t, win_valid_t, U, *, 
     lib = _win_lib()
     rc = lib.linops_bsr_rmatmat_multiwin(
         blocks.data_ptr(), *(t.data_ptr() for t in tensors), U.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn, k, *_strides(U, out),
-        _DTYPE_CODE[bdt], _DTYPE_CODE[vdt], *_device_stream(blocks))
+        out.data_ptr(), nchunks, plan.combine_cols.numel(), kmax, bm, bn, k,
+        *_staging(blocks, k), *_strides(U, out), _DTYPE_CODE[bdt], _DTYPE_CODE[vdt],
+        *_device_stream(blocks))
     _check_launch(lib, rc, what)
     _LAUNCHES[what] += 1
     return out

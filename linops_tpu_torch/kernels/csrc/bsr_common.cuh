@@ -13,7 +13,10 @@
 //   48 KB default when a launch needs more.
 // - column_chunk_pass / column_combine_pass / launch_column_plan: the two
 //   passes of a transpose over a column plan, which K2 (bsr_spmv.cu) and K6
-//   (bsr_window.cu) launch under kernels of their own names.
+//   (bsr_window.cu) launch under kernels of their own names; their panel
+//   forms (K2p, K6p), whose chunk pass stages block rows in a ring of
+//   shared memory by bulk copies (mbarriers, cp.async.bulk: sm_90), which
+//   K4p's per-warp rings (bsr_window.cu) use too.
 // - linops_cuda_error_string: the message of a CUDA error code, for the
 //   wrappers' exceptions.
 //
@@ -24,6 +27,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -290,36 +294,60 @@ int launch_column_plan(ChunkKernel<TB, TX> by_slot, ChunkKernel<TB, TX> by_m,
 // out[c bn + n, j] = the sum above for every column j < k of u: the block
 // apply of a transpose. u and out are addressed through (row, column)
 // strides (PanelIO), so a column panel (n, k) and the transposed view of a
-// row panel (k, n) both run without a copy. blockIdx.z picks a tile of
-// kPanel columns, and each lane keeps kPanel x 4 accumulators (its four n
-// values for every column of the tile): a stored block is read once per
-// tile, so once for k <= kPanel, where k vector applies read it k times.
+// row panel (k, n) both run without a copy. The chunk pass's work items are
+// (chunk, 128-wide n tile, tile of TJ columns: 8 for k <= 8, else 16, as
+// the caller passes it, bsr_spmv.py::transpose_panel_tile), and each lane
+// keeps TJ x 4 f32 accumulators (its four n values for every column of the
+// tile): a stored block is read once per column tile, where k vector
+// applies read it k times.
 //
-// What the panel adds to K2's loop is u: every lane needs the same kPanel
-// values of each loaded block row. The warp loads them together with the
-// block rows, kUnroll rows x kPanel columns spread over its lanes (two
-// values a lane), and hands each to the lanes by a shuffle; so no u load
-// waits in the multiply-adds, whatever u's strides. The warps' sums are
-// added by all warps at once, warp j taking column j of the tile (K2's
-// combine of four values would be kPanel times longer here), and the
-// partial rows are f32 (nchunks, k, bn), so that a warp writes and reads a
-// column's row in 16-byte pieces.
+// The ring. An item's block rows (slot i of the chunk, m), taken slot by
+// slot and m ascending, are cut into stages of Ring::rows (at most 32) rows
+// of its n tile, about 16 KB; a thread block holds kRingStages stages in
+// dynamic shared memory and is persistent: as many blocks as fit the card
+// walk the items, and the ring runs on from one item's stages to the next,
+// so a chunk's start is not paid before its rows stream. kRingProducers
+// producer warps fill the stages in turn: with bulk copies (cp.async.bulk,
+// completing on the stage's `full` mbarrier by bytes) when every staged
+// row starts on 16 bytes (bn x the value size a multiple of 16, an aligned
+// base: one copy per slot when the n tile is the whole row, 4 KB for an
+// 8x128 f32 block, else one per row), and with the stage's u values, a row
+// a lane, widened to f32. A producer loads the perm entries of its next
+// stage and the u values of the current one before it waits for the
+// current stage's `empty` mbarrier, so that when a stage frees only its
+// copies remain to be issued (a producer that loaded them after the wait
+// left a 16-column tile 1.2-1.4x slower on the H100). The eight consumer warps
+// wait on `full`, multiply, and release the stage on `empty`. The copies
+// cost the consumers no registers and no instructions, and u reaches every
+// lane as a shared-memory broadcast (the first panel pass loaded 8 rows
+// into registers and handed out u by 64 shuffles).
 //
-// Column j's multiply-adds are those of the vector pass for column j, in
-// its order (the same slots, m values and unrolled groups), its warps are
-// added in warp order and its partial rows in the combine's order: column
-// j is bit for bit K2 (K6) applied to column j of u.
+// The ragged path: a shape the bulk copy cannot take (bn x the value size
+// not a multiple of 16, or an unaligned base) runs the same kernel with the
+// producer's lanes copying the rows by plain loads, zeros past bn; the
+// consumers do not change (Ring::bulk).
 //
-// kPanel = 8: the chunk pass holds 32 accumulators beside the 32 block
-// values of its kUnroll loaded rows, about 98 registers; its kernels cap
-// them at 85 (three 256-thread blocks an SM, where the vector pass fits
-// four): a few spill, and the pass ran 10 % faster on the H100 than with two
-// blocks an SM, the same bits. Its block loads wait in registers, so the
-// blocks an SM set the bytes in flight.
+// The bits contract: column j's multiply-adds are the vector pass's for
+// column j in its order (warp w takes m = w, w + 8, ...; slots in the
+// chunk's perm order, m ascending within a slot; fmaf(block, u, acc)), its
+// warps are added in warp order and its partial rows in the combine's
+// order: column j is bit for bit K2 (K6) applied to column j of u, whatever
+// the tile width, the stage size or the path. The number of consumer warps
+// and which warp owns which m are therefore fixed at K2's.
+//
+// At an item's end the consumers write their sums to shared memory (red),
+// kPanel columns a round, and consumer warp j adds column j over the warps
+// in warp order; they synchronise among themselves (a named barrier), not
+// with the producers, which run on into the next item.
 
-constexpr int kPanel = 8;  // K2p, K4p, K6p: columns per tile
+constexpr int kPanel = 8;       // K1p, K3p, K5p, and the panel combines: columns per tile
+constexpr int kRingStages = 4;     // K2p, K6p: stages in a thread block's ring
+constexpr int kRingProducers = 2;  // K2p, K6p: producer warps, each a stage in turn
+constexpr int kRingBytes = 16384;  // block bytes a stage holds, about
+constexpr int kRingMaxRows = 32;   // block rows a stage holds, at most: one a producer lane
+constexpr int kRingThreads = (kT2Warps + kRingProducers) * 32;
+static_assert(kRingStages % kRingProducers == 0, "a ring stage belongs to one producer warp");
 static_assert(kPanel <= kT2Warps, "warp j adds column j of a tile");
-static_assert(kUnroll * kPanel == 64, "a lane holds two of a warp's u values");
 
 struct PanelIO {  // u[row, j] = u[row * u_rs + j * u_cs]; out likewise; k columns
   int64_t u_rs, u_cs, o_rs, o_cs;
@@ -358,91 +386,353 @@ __device__ __forceinline__ void store_column(TX* __restrict__ out, int64_t row0,
     if (n0 + q < bn) out[(row0 + n0 + q) * rs] = narrow<TX>(v[q]);
 }
 
-// Pass 1 of a column plan's panel transpose: blockIdx.x = chunk, blockIdx.y
-// = n tile, blockIdx.z = column tile. column_chunk_pass's loads and order;
-// each loaded block row is multiplied into every column of the tile.
-template <typename TB, typename TX, int US, int UM>
+// ---- mbarriers and bulk copies (sm_90) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the barriers' initialisation visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's earlier shared-memory reads before later bulk copies
+// into the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// four consecutive staged values (16 or 8 bytes, aligned), widened
+__device__ __forceinline__ void lds4(const float* p, float v[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// The staging of a transpose panel's block rows, set by the host.
+struct Ring {
+  int rows;     // block rows a stage holds
+  int pitch;    // values from one staged row to the next
+  bool bulk;    // bulk copies; else the ragged path's plain loads
+  bool whole;   // the n tile is the whole row (bn <= 128)
+  int u_off;    // byte offset of the staged u values in dynamic shared memory
+  int red_off;  // byte offset of the warps' sums (the chunk pass)
+};
+
+// The column tile and the staging of a transpose panel are the caller's
+// (bsr_spmv.py::transpose_panel_tile, transpose_panel_path): tj 8 or 16,
+// and bulk copies only where every staged row starts on 16 bytes, which a
+// launch checks (a bulk copy from another address faults).
+template <typename TB>
+inline bool panel_staging_ok(const void* blocks, int bn, int tj, bool bulk) {
+  const bool aligned = (static_cast<int64_t>(bn) * sizeof(TB)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(blocks) % 16 == 0;
+  return (tj == 8 || tj == 16) && (aligned || !bulk);
+}
+
+// Multiplies one staged block row into a lane's TJ x 4 accumulators.
+template <typename TB, int TJ>
+__device__ __forceinline__ void ring_row(const TB* brow, const float* urow, int n0, int width,
+                                         int kw, float acc[TJ][4]) {
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (n0 < width) lds4(brow + n0, v);  // rows are zero-filled to a multiple of 4
+#pragma unroll
+  for (int j4 = 0; j4 < TJ; j4 += 4) {
+    if (j4 < kw) {  // the same for the whole block
+      const float4 w = *reinterpret_cast<const float4*>(urow + j4);
+      const float uw[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (j4 + jj < kw) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[j4 + jj][q] = fmaf(v[q], uw[jj], acc[j4 + jj][q]);
+        }
+      }
+    }
+  }
+}
+
+// Stages rows [0, nr) of block rows `row_of(r)` (element offsets of the n
+// tile's first value) by plain loads, width values each, zeros to the pitch.
+template <typename TB, typename RowOf>
+__device__ __forceinline__ void stage_rows_plain(TB* dst, const TB* __restrict__ blocks, int nr,
+                                                 int width, int pitch, const RowOf& row_of) {
+  for (int r = 0; r < nr; ++r) {
+    const TB* src = blocks + row_of(r);
+    for (int n = threadIdx.x & 31; n < pitch; n += 32)
+      dst[r * pitch + n] = n < width ? src[n] : narrow<TB>(0.f);
+  }
+}
+
+// The work items of a panel plan: (chunk, n tile, column tile), item w =
+// (w / (ntiles ktiles), (w / ktiles) % ntiles, w % ktiles).
+struct PanelItems {
+  int64_t n;   // items
+  int ntiles;  // 128-wide n tiles
+  int ktiles;  // column tiles
+};
+
+__device__ __forceinline__ void consumer_sync() {  // the kT2Warps consumer warps alone
+  asm volatile("bar.sync 1, %0;" ::"n"(kT2Warps * 32) : "memory");
+}
+
+// Pass 1 of a column plan's panel transpose, persistent: a thread block
+// walks items blockIdx.x, blockIdx.x + gridDim.x, ... with kT2Warps consumer
+// warps and kRingProducers producer warps (the last), its ring running on
+// from one item's stages to the next's, so that an item's first stages
+// stream in while the one before it is summed and written.
+template <typename TB, typename TX, int TJ>
 __device__ __forceinline__ void
 panel_chunk_pass(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
                  const int32_t* __restrict__ chunk_ptr, const int32_t* __restrict__ chunk_col,
                  const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
                  float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm, int bn,
-                 bool vec, PanelIO io) {
-  static_assert(US * UM == kUnroll, "a warp loads kUnroll block rows at once");
-  __shared__ int64_t slot_s[kStage];  // element offset of each staged slot's block
-  __shared__ int64_t urow_s[kStage];  // its block row's first row of u
-  __shared__ __align__(16) float red[kT2Warps][kPanel][kT2Tile];
+                 Ring ring, PanelIO io, PanelItems items) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t full[kRingStages], empty[kRingStages];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t ch = blockIdx.x;
-  const int n0 = blockIdx.y * kT2Tile + 4 * lane;
-  const int j0 = blockIdx.z * kPanel;
-  const int kw = min(kPanel, io.k - j0);
-  // this lane's two u values of a loaded group: row r = lane / 4 of the
-  // kUnroll rows (slot a = r / UM, m step b = r % UM), columns 2 (lane % 4) + {0, 1}
-  const int ur = lane >> 2, ua = ur / UM, ub = ur % UM, uc = 2 * (lane & 3);
-  const TX* uj = u + (j0 + uc) * io.u_cs;
+  const int stage_vals = ring.rows * ring.pitch;
   const int64_t bsize = static_cast<int64_t>(bm) * bn;
-  const int s0 = chunk_ptr[ch], s1 = chunk_ptr[ch + 1];
-  const int mw = warp < bm ? (bm - warp + kT2Warps - 1) / kT2Warps : 0;  // this warp's m values
-  float acc[kPanel][4];
-#pragma unroll
-  for (int j = 0; j < kPanel; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int b0 = s0; b0 < s1; b0 += kStage) {
-    const int nb = min(kStage, s1 - b0);
-    __syncthreads();  // the previous stage's reads are done
-    if (threadIdx.x < nb) {
-      const int64_t slot = perm[b0 + threadIdx.x];
-      slot_s[threadIdx.x] = slot * bsize;
-      urow_s[threadIdx.x] = (slot / kmax) * bm;
+  TB* ring_b = reinterpret_cast<TB*>(smem);
+  float* ring_u = reinterpret_cast<float*>(smem + ring.u_off);
+  float(*red)[kPanel][kT2Tile] = reinterpret_cast<float(*)[kPanel][kT2Tile]>(smem + ring.red_off);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kT2Warps);
     }
-    __syncthreads();
-    for (int i0 = 0; i0 < nb; i0 += US) {
-      for (int jm = 0; jm < mw; jm += UM) {
-        float v[US][UM][4];
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int per_chunk = items.ntiles * items.ktiles;
+  if (warp >= kT2Warps) {  // producer p fills the ring's stages g with g % kRingProducers == p
+    const int p = warp - kT2Warps;
+    // the item w, the stages of the block's items before it (g), and its geometry
+    int64_t w = blockIdx.x, g = 0;
+    int s0 = 0, rows = 0, nst = 0, t0 = 0, j0 = 0, width = 0, kw = 0;
+    auto load_item = [&]() {
+      const int64_t ch = w / per_chunk;
+      const int rem = static_cast<int>(w % per_chunk);
+      t0 = (rem / items.ktiles) * kT2Tile;
+      j0 = (rem % items.ktiles) * TJ;
+      width = min(kT2Tile, bn - t0);
+      kw = min(TJ, io.k - j0);
+      s0 = chunk_ptr[ch];
+      rows = (chunk_ptr[ch + 1] - s0) * bm;
+      nst = (rows + ring.rows - 1) / ring.rows;
+    };
+    int t = p;  // the stage of item w this producer fills next
+    auto settle = [&]() {  // move on to the item that holds stage t
+      while (w < items.n && t >= nst) {
+        t -= nst;
+        g += nst;
+        w += gridDim.x;
+        if (w < items.n) load_item();
+      }
+    };
+    // which slots of the chunk a lane's copy (ic) and its u row (iu) read
+    // at stage t, -1 for none; their perm entries are loaded a stage ahead
+    auto slots = [&](int& ic, int& iu) {
+      const int r0 = t * ring.rows, nr = min(ring.rows, rows - r0);
+      if (ring.whole)
+        ic = r0 / bm + lane <= (r0 + nr - 1) / bm ? r0 / bm + lane : -1;
+      else
+        ic = lane < nr ? (r0 + lane) / bm : -1;
+      iu = lane < nr ? (r0 + lane) / bm : -1;
+    };
+    if (w < items.n) load_item();
+    settle();
+    int ic = -1, iu = -1, pc = 0, pu = 0;
+    if (w < items.n) {
+      slots(ic, iu);
+      pc = ic >= 0 ? perm[s0 + ic] : 0;
+      pu = iu >= 0 ? perm[s0 + iu] : 0;
+    }
+    while (w < items.n) {
+      // stage t of item w: its u row and its copy, from the perm entries in hand
+      const int64_t gs = g + t;
+      const int st = static_cast<int>(gs % kRingStages);
+      const int r0 = t * ring.rows, nr = min(ring.rows, rows - r0);
+      float uw[TJ];
 #pragma unroll
-        for (int a = 0; a < US; ++a) {
+      for (int j = 0; j < TJ; ++j) uw[j] = 0.f;
+      if (iu >= 0) {
+        const TX* pu_row = u + (static_cast<int64_t>(pu) / kmax * bm + (r0 + lane - iu * bm)) *
+                                   io.u_rs + j0 * io.u_cs;
 #pragma unroll
-          for (int b = 0; b < UM; ++b) {
-            if (i0 + a < nb && jm + b < mw) {
-              const int m = warp + (jm + b) * kT2Warps;
-              load_n4(blocks + slot_s[i0 + a] + static_cast<int64_t>(m) * bn, n0, bn, vec,
-                      v[a][b]);
-            }
+        for (int j = 0; j < TJ; ++j)
+          if (j < kw) uw[j] = widen(pu_row[j * io.u_cs]);
+      }
+      const TB* src = nullptr;
+      int drow = 0;
+      unsigned nbytes = 0;
+      if (ic >= 0) {
+        if (ring.whole) {
+          const int ma = max(r0 - ic * bm, 0), mb = min(r0 + nr - ic * bm, bm);
+          src = blocks + pc * bsize + static_cast<int64_t>(ma) * bn;
+          drow = ic * bm + ma - r0;
+          nbytes = (mb - ma) * bn * static_cast<unsigned>(sizeof(TB));
+        } else {
+          src = blocks + pc * bsize + static_cast<int64_t>(r0 + lane - ic * bm) * bn + t0;
+          drow = lane;
+          nbytes = width * static_cast<unsigned>(sizeof(TB));
+        }
+      }
+      const int cur_s0 = s0, cur_t0 = t0, cur_width = width;
+      const unsigned stage_bytes = nr * width * static_cast<unsigned>(sizeof(TB));
+      // the next stage's perm entries, in flight while this one waits for its slot
+      t += kRingProducers;
+      settle();
+      if (w < items.n) {
+        slots(ic, iu);
+        pc = ic >= 0 ? perm[s0 + ic] : 0;
+        pu = iu >= 0 ? perm[s0 + iu] : 0;
+      }
+      if (gs >= kRingStages)
+        mbar_wait(&empty[st], static_cast<unsigned>((gs / kRingStages - 1) & 1));
+      TB* dst = ring_b + st * stage_vals;
+      if (ring.bulk) {
+        if (lane == 0) mbar_expect_tx(&full[st], stage_bytes);
+        __syncwarp();
+        if (nbytes) bulk_load(dst + drow * ring.pitch, src, nbytes, &full[st]);
+      } else {
+        stage_rows_plain(dst, blocks, nr, cur_width, ring.pitch, [&](int r) -> int64_t {
+          const int i = (r0 + r) / bm, m = r0 + r - i * bm;
+          return perm[cur_s0 + i] * bsize + static_cast<int64_t>(m) * bn + cur_t0;
+        });
+      }
+      if (lane < nr) {
+        float* du = ring_u + (st * ring.rows + lane) * TJ;
+#pragma unroll
+        for (int j = 0; j < TJ; j += 4)
+          *reinterpret_cast<float4*>(du + j) = make_float4(uw[j], uw[j + 1], uw[j + 2], uw[j + 3]);
+      }
+      mbar_arrive(&full[st]);  // each lane's stores, and the copies' bytes
+    }
+    return;
+  }
+  // a consumer: m = warp, warp + kT2Warps, ... of every slot
+  int64_t g = 0;
+  const int n0 = 4 * lane;
+  for (int64_t w = blockIdx.x; w < items.n; w += gridDim.x) {
+    const int64_t ch = w / per_chunk;
+    const int rem = static_cast<int>(w % per_chunk);
+    const int t0 = (rem / items.ktiles) * kT2Tile, j0 = (rem % items.ktiles) * TJ;
+    const int width = min(kT2Tile, bn - t0), kw = min(TJ, io.k - j0);
+    const int rows = (chunk_ptr[ch + 1] - chunk_ptr[ch]) * bm;
+    const int nst = (rows + ring.rows - 1) / ring.rows;
+    float acc[TJ][4];
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int t = 0; t < nst; ++t) {
+      const int64_t gs = g + t;
+      const int st = static_cast<int>(gs % kRingStages);
+      mbar_wait(&full[st], static_cast<unsigned>((gs / kRingStages) & 1));
+      const int r0 = t * ring.rows, r1 = min(r0 + ring.rows, rows);
+      if (warp < bm) {
+        int i = r0 / bm, m = r0 - i * bm;
+        m += (warp - m) & (kT2Warps - 1);  // the first m of this warp at or after r0
+        if (m >= bm) {
+          ++i;
+          m = warp;
+        }
+        const TB* sb = ring_b + st * stage_vals;
+        const float* su = ring_u + st * ring.rows * TJ;
+        for (int r = i * bm + m; r < r1; r = i * bm + m) {
+          ring_row<TB, TJ>(sb + (r - r0) * ring.pitch, su + (r - r0) * TJ, n0, width, kw, acc);
+          m += kT2Warps;
+          if (m >= bm) {
+            ++i;
+            m = warp;
           }
         }
-        float u0 = 0.f, u1 = 0.f;
-        if (i0 + ua < nb && jm + ub < mw) {
-          const TX* row = uj + (urow_s[i0 + ua] + warp + (jm + ub) * kT2Warps) * io.u_rs;
-          if (uc < kw) u0 = widen(row[0]);
-          if (uc + 1 < kw) u1 = widen(row[io.u_cs]);
-        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    g += nst;
+    // the warps' sums, kPanel columns a round: warp j adds column j over the
+    // warps in warp order
+    const int64_t c = chunk_col[ch];
+    const bool single = col_chunk[c + 1] - col_chunk[c] == 1;
 #pragma unroll
-        for (int a = 0; a < US; ++a) {
+    for (int jr = 0; jr < TJ; jr += kPanel) {
+      if (jr < kw) {  // the same for the whole block
+        consumer_sync();  // the last round's reads are done
 #pragma unroll
-          for (int b = 0; b < UM; ++b) {
-            if (i0 + a < nb && jm + b < mw) {  // the same for the whole warp
-#pragma unroll
-              for (int j = 0; j < kPanel; ++j) {
-                if (j < kw) {
-                  const float um = __shfl_sync(0xffffffffu, (j & 1) ? u1 : u0,
-                                               4 * (a * UM + b) + (j >> 1));
-#pragma unroll
-                  for (int q = 0; q < 4; ++q) acc[j][q] = fmaf(v[a][b][q], um, acc[j][q]);
-                }
-              }
-            }
+        for (int j = 0; j < kPanel; ++j)
+          if (jr + j < kw)
+            *reinterpret_cast<float4*>(&red[warp][j][n0]) =
+                make_float4(acc[jr + j][0], acc[jr + j][1], acc[jr + j][2], acc[jr + j][3]);
+        consumer_sync();
+        if (jr + warp < kw) {
+          float4 sum = *reinterpret_cast<const float4*>(&red[0][warp][n0]);
+          float v[4] = {sum.x, sum.y, sum.z, sum.w};
+          for (int w2 = 1; w2 < kT2Warps; ++w2) {
+            sum = *reinterpret_cast<const float4*>(&red[w2][warp][n0]);
+            v[0] += sum.x; v[1] += sum.y; v[2] += sum.z; v[3] += sum.w;
           }
+          const int j = j0 + jr + warp;
+          if (single)
+            store_column(out + j * io.o_cs, c * bn, t0 + n0, bn, io.o_rs, v);
+          else  // partial row (ch, j): a column's row, contiguous in n
+            store_n4(partial + (ch * io.k + j) * bn, t0 + n0, bn, bn % 4 == 0, v);
         }
       }
     }
   }
-  float v[4];
-  if (!sum_warps_panel(red, acc, kw, v)) return;
-  const int64_t c = chunk_col[ch];
-  if (col_chunk[c + 1] - col_chunk[c] == 1)
-    store_column(out + (j0 + warp) * io.o_cs, c * bn, n0, bn, io.o_rs, v);
-  else  // partial row (ch, j0 + warp): a column's row, contiguous in n
-    store_n4(partial + (ch * io.k + j0 + warp) * bn, n0, bn, bn % 4 == 0, v);
 }
 
 // Pass 2: blockIdx.x = a column with no chunk or several, blockIdx.y = n
@@ -487,38 +777,77 @@ panel_combine_pass(const float* __restrict__ partial, const int32_t* __restrict_
 
 template <typename TB, typename TX>
 using PanelChunkKernel = void (*)(const TB*, const int32_t*, const int32_t*, const int32_t*,
-                                  const int32_t*, const TX*, float*, TX*, int, int, int, bool,
-                                  PanelIO);
+                                  const int32_t*, const TX*, float*, TX*, int, int, int, Ring,
+                                  PanelIO, PanelItems);
 template <typename TX>
 using PanelCombineKernel = void (*)(const float*, const int32_t*, const int32_t*, TX*, int,
                                     PanelIO);
 
-// Launches a column plan's two panel passes, as launch_column_plan does,
-// over ceil(k / kPanel) column tiles. partial is (nchunks, k, bn) f32.
+// The ring of a chunk pass over rows of bn values and a tile of tj columns;
+// its dynamic shared memory (the ring, the staged u values, the warps'
+// sums) in *bytes.
+template <typename TB>
+Ring chunk_ring(bool bulk, int bn, int tj, size_t* bytes) {
+  Ring g;
+  g.bulk = bulk;
+  g.whole = bn <= kT2Tile;
+  g.pitch = g.whole ? (bn + 3) / 4 * 4 : kT2Tile;
+  g.rows = kRingBytes / (g.pitch * static_cast<int>(sizeof(TB)));
+  g.rows = g.rows < 1 ? 1 : (g.rows > kRingMaxRows ? kRingMaxRows : g.rows);
+  const size_t ring_bytes = static_cast<size_t>(kRingStages) * g.rows * g.pitch * sizeof(TB);
+  const size_t u_off = (ring_bytes + 15) / 16 * 16;
+  const size_t red_off = u_off + static_cast<size_t>(kRingStages) * g.rows * tj * sizeof(float);
+  g.u_off = static_cast<int>(u_off);
+  g.red_off = static_cast<int>(red_off);
+  *bytes = red_off + static_cast<size_t>(kT2Warps) * kPanel * kT2Tile * sizeof(float);
+  return g;
+}
+
+// Launches a column plan's two panel passes, as launch_column_plan does:
+// the chunk pass (`chunk8` or `chunk16`, by the column tile tj; bulk
+// copies or the ragged path, by `bulk`) persistent,
+// as many thread blocks as fit the card at once over the items (chunk, n
+// tile, column tile), then the combine over ceil(k / kPanel) column tiles.
+// partial is (nchunks, k, bn) f32.
 template <typename TB, typename TX>
-int launch_panel_plan(PanelChunkKernel<TB, TX> by_slot, PanelChunkKernel<TB, TX> by_m,
+int launch_panel_plan(PanelChunkKernel<TB, TX> chunk8, PanelChunkKernel<TB, TX> chunk16,
                       PanelCombineKernel<TX> combine, const void* blocks, const void* perm,
                       const void* chunk_ptr, const void* chunk_col, const void* col_chunk,
                       const void* combine_cols, const void* u, float* partial, void* out,
                       int64_t nchunks, int64_t ncombine, int kmax, int bm, int bn,
-                      PanelIO io, cudaStream_t stream) {
+                      PanelIO io, int tj, bool bulk, cudaStream_t stream) {
   if (nchunks > 0x7fffffffLL || ncombine > 0x7fffffffLL || io.k <= 0 ||
       (io.k + kPanel - 1) / kPanel > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (!panel_staging_ok<TB>(blocks, bn, tj, bulk))
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned tiles = static_cast<unsigned>((bn + kT2Tile - 1) / kT2Tile);
-  const unsigned ktiles = static_cast<unsigned>((io.k + kPanel - 1) / kPanel);
-  const bool vec = bn % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % (4 * sizeof(TB)) == 0;
   if (nchunks > 0) {
-    const dim3 grid(static_cast<unsigned>(nchunks), tiles, ktiles);
-    auto kernel = bm <= kT2Warps ? by_slot : by_m;
-    kernel<<<grid, kT2Warps * 32, 0, stream>>>(
+    size_t smem;
+    const Ring ring = chunk_ring<TB>(bulk, bn, tj, &smem);
+    auto kernel = tj == 8 ? chunk8 : chunk16;
+    if (int rc = set_dynamic_smem(kernel, smem)) return rc;
+    const PanelItems items{nchunks * tiles * ((io.k + tj - 1) / tj), static_cast<int>(tiles),
+                           (io.k + tj - 1) / tj};
+    int device, sms, per_sm;
+    if (int rc = static_cast<int>(cudaGetDevice(&device))) return rc;
+    if (int rc = static_cast<int>(
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)))
+      return rc;
+    if (int rc = static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRingThreads, smem)))
+      return rc;
+    const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+    const unsigned grid = static_cast<unsigned>(items.n < resident ? items.n : resident);
+    kernel<<<grid, kRingThreads, smem, stream>>>(
         static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
         static_cast<const int32_t*>(chunk_ptr), static_cast<const int32_t*>(chunk_col),
         static_cast<const int32_t*>(col_chunk), static_cast<const TX*>(u), partial,
-        static_cast<TX*>(out), kmax, bm, bn, vec, io);
+        static_cast<TX*>(out), kmax, bm, bn, ring, io, items);
     if (int rc = static_cast<int>(cudaGetLastError())) return rc;
   }
   if (ncombine > 0) {
+    const unsigned ktiles = static_cast<unsigned>((io.k + kPanel - 1) / kPanel);
     combine<<<dim3(static_cast<unsigned>(ncombine), tiles, ktiles), kT2Warps * 32, 0, stream>>>(
         partial, static_cast<const int32_t*>(combine_cols),
         static_cast<const int32_t*>(col_chunk), static_cast<TX*>(out), bn, io);

@@ -46,8 +46,11 @@
 // of a transpose (the reference runs jax.vmap of bsr_rmatvec_pallas there,
 // one batched pallas_call): out[c, n, j] = sum blocks[r, k, m, n] * u[r, m, j].
 // Its passes (bsr_common.cuh) keep K2's plan and order per column and read
-// every stored block once per tile of kPanel columns, where k vector applies
-// read it k times; column j is bit for bit K2 applied to column j.
+// every stored block once per column tile (8 columns for k <= 8, else 16),
+// where k vector applies read it k times: persistent thread blocks whose
+// producer warps stage each chunk's block rows in a ring of shared memory by
+// bulk copies a stage ahead, and whose eight consumer warps multiply them
+// as K2's warps do; column j is bit for bit K2 applied to column j.
 //
 // K1p `linops_bsr_matmat` is K1 over a panel of k columns, the block apply
 // of a forward (the reference runs jax.vmap of bsr_matvec_pallas there, one
@@ -115,18 +118,20 @@ rmatvec_combine_kernel(const float* __restrict__ partial, const int32_t* __restr
 }
 
 // K2p pass 1 and pass 2 (panel_chunk_pass, panel_combine_pass; bsr_common.cuh):
-// K2 over a panel of columns, under names of their own. The chunk pass's
-// registers are capped at 85 (three thread blocks an SM; see bsr_common.cuh).
-template <typename TB, typename TX, int US, int UM>
-__global__ void __launch_bounds__(kT2Warps * 32, 3)
+// K2 over a panel of columns, under names of their own. The chunk pass runs
+// eight consumer warps and two producer warps, two thread blocks an SM (its
+// ring, u values and sums take about 100 KB; 80 registers at a tile of 8
+// columns, 94 at 16, no spills on the H100).
+template <typename TB, typename TX, int TJ>
+__global__ void __launch_bounds__(kRingThreads, 2)
 rmatmat_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
                      const int32_t* __restrict__ chunk_ptr,
                      const int32_t* __restrict__ chunk_col,
                      const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
                      float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
-                     int bn, bool vec, PanelIO io) {
-  panel_chunk_pass<TB, TX, US, UM>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial,
-                                   out, kmax, bm, bn, vec, io);
+                     int bn, Ring ring, PanelIO io, PanelItems items) {
+  panel_chunk_pass<TB, TX, TJ>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial, out,
+                               kmax, bm, bn, ring, io, items);
 }
 
 template <typename TX>
@@ -178,11 +183,12 @@ template <typename TB, typename TX>
 int launch_rmatmat(const void* blocks, const void* perm, const void* chunk_ptr,
                    const void* chunk_col, const void* col_chunk, const void* combine_cols,
                    const void* u, float* partial, void* out, int64_t nchunks,
-                   int64_t ncombine, int kmax, int bm, int bn, PanelIO io, cudaStream_t stream) {
+                   int64_t ncombine, int kmax, int bm, int bn, PanelIO io, int tj,
+                   bool bulk, cudaStream_t stream) {
   return launch_panel_plan<TB, TX>(
-      rmatmat_chunk_kernel<TB, TX, kUnroll, 1>, rmatmat_chunk_kernel<TB, TX, 1, kUnroll>,
+      rmatmat_chunk_kernel<TB, TX, 8>, rmatmat_chunk_kernel<TB, TX, 16>,
       rmatmat_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
-      u, partial, out, nchunks, ncombine, kmax, bm, bn, io, stream);
+      u, partial, out, nchunks, ncombine, kmax, bm, bn, io, tj, bulk, stream);
 }
 
 template <typename TB, typename TX>
@@ -240,9 +246,9 @@ int linops_bsr_rmatvec(const void* blocks, const void* perm, const void* chunk_p
 int linops_bsr_rmatmat(const void* blocks, const void* perm, const void* chunk_ptr,
                        const void* chunk_col, const void* col_chunk, const void* combine_cols,
                        const void* u, float* partial, void* out, int64_t nchunks,
-                       int64_t ncombine, int kmax, int bm, int bn, int k, int64_t u_rs,
-                       int64_t u_cs, int64_t o_rs, int64_t o_cs, int block_dtype,
-                       int vec_dtype, int device, void* stream) {
+                       int64_t ncombine, int kmax, int bm, int bn, int k, int tile,
+                       int bulk, int64_t u_rs, int64_t u_cs, int64_t o_rs, int64_t o_cs,
+                       int block_dtype, int vec_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -251,7 +257,8 @@ int linops_bsr_rmatmat(const void* blocks, const void* perm, const void* chunk_p
     using TB = typename decltype(tb)::type;
     using TX = typename decltype(tx)::type;
     return launch_rmatmat<TB, TX>(blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols,
-                                  u, partial, out, nchunks, ncombine, kmax, bm, bn, io, s);
+                                  u, partial, out, nchunks, ncombine, kmax, bm, bn, io, tile,
+                                  bulk != 0, s);
   });
 }
 

@@ -72,17 +72,28 @@
 // of the vector kernel there, one batched pallas_call): K4p
 // `linops_bsr_rmatmat_windowed` and K6p `linops_bsr_rmatmat_multiwin` give
 // out[c, n, j] for every column j < k of u, u and out addressed through
-// (row, column) strides. K4p's phase 1 (window_panel_partial_kernel) is
-// window_partial_kernel with kPanel (8) accumulators per n value, so a
-// stored block is read once per tile of kPanel columns; a lane holds four
-// consecutive n values (one vector load a block row, where K4 loads them one
-// by one), a warp loads kUnroll block rows at a time and their u values two
-// a lane, handed out by shuffles. Its partials are
-// (ngroups 2 wb, k, bn) f32, and its combine takes one thread per (c, n),
-// as K4's, with K4's binary searches once and strided_sum for every column. K6p runs
-// K2p's panel passes (bsr_common.cuh) over K6's column plan. Both keep the
-// vector kernel's order per column: column j is bit for bit K4 (K6)
-// applied to column j.
+// (row, column) strides, a stored block read once per column tile (8
+// columns for k <= 8, else 16, as the caller passes it). K4p's phase 1
+// (window_panel_partial_kernel) is window_partial_kernel over a tile: a
+// warp per (partial row, 128-wide n tile) walks its slot list's block rows
+// (slot by slot, m ascending) through a ring of its own in shared memory,
+// kWinStages stages of 8 rows: lane 0 issues the bulk copies
+// (cp.async.bulk on the stage's mbarrier) of the stage kWinStages - 1
+// ahead while the warp multiplies the current one, and the lanes load that
+// stage's u values into registers then and store them after, so each lane
+// reads u as a shared-memory broadcast and holds only its accumulators (the
+// first panel walk held 8 loaded rows and handed out u by shuffles: two
+// thread blocks an SM, no loads in flight while it multiplied). A row the bulk copy
+// cannot take (bn x the value size not a multiple of 16, an unaligned base)
+// is staged by the lanes' plain loads just before it is multiplied: the
+// ragged path of the same kernel. Its partials are (ngroups 2 wb, k, bn)
+// f32, and its combine takes one thread per (c, n), as K4's, with K4's
+// binary searches once and strided_sum for every column. K6p runs K2p's
+// panel passes (bsr_common.cuh: the chunk pass's ring, a producer per
+// stage) over K6's column plan. Both keep the vector kernel's order per
+// column (K4p: slots in list order, m ascending, per n value; K6p: K2p's
+// contract): column j is bit for bit K4 (K6) applied to column j, whatever
+// the tile or the path.
 //
 // Forward panel forms (the block apply of a forward, jax.vmap of the vector
 // kernel in the reference): K3p `linops_bsr_matmat_windowed` and K5p
@@ -299,75 +310,147 @@ window_partial_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__
   }
 }
 
-// One listed slot added to a lane's panel accumulators, in add_slots' order
-// (m ascending). A lane holds four consecutive n values (where K4's lane
-// holds n0 + 32 t: which lane holds an output does not change its sum), so
-// a block row is one 16-byte (f32) or 8-byte (bf16) load; the warp loads
-// kUnroll rows at a time, with their u values two a lane (row m0 + lane / 4,
-// columns 2 (lane % 4) + {0, 1} of the tile), handed out by shuffles.
-template <typename TB, typename TX>
-__device__ __forceinline__ void add_slot_panel(const TB* __restrict__ blk,
-                                               const TX* __restrict__ urow,
-                                               float acc[kPanel][4], int bm, int bn, int n0,
-                                               bool vec, int64_t u_rs, int64_t u_cs, int kw) {
-  const int lane = threadIdx.x & 31;
-  const int uc = 2 * (lane & 3);
-  for (int m0 = 0; m0 < bm; m0 += kUnroll) {
-    const int mu = m0 + (lane >> 2);
-    float u0 = 0.f, u1 = 0.f;
-    if (mu < bm) {
-      if (uc < kw) u0 = widen(urow[mu * u_rs + uc * u_cs]);
-      if (uc + 1 < kw) u1 = widen(urow[mu * u_rs + (uc + 1) * u_cs]);
-    }
-    float b[kUnroll][4];
-#pragma unroll
-    for (int mm = 0; mm < kUnroll; ++mm)
-      if (m0 + mm < bm) load_n4(blk + static_cast<int64_t>(m0 + mm) * bn, n0, bn, vec, b[mm]);
-#pragma unroll
-    for (int mm = 0; mm < kUnroll; ++mm) {
-      if (m0 + mm < bm) {  // the same for the whole warp
-#pragma unroll
-        for (int j = 0; j < kPanel; ++j) {
-          if (j < kw) {
-            const float um = __shfl_sync(0xffffffffu, (j & 1) ? u1 : u0, 4 * mm + (j >> 1));
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (n0 + q < bn) acc[j][q] = fmaf(b[mm][q], um, acc[j][q]);
-          }
-        }
-      }
-    }
-  }
+// K4p's per-warp ring: kWinStages stages of kWinRows block rows of one n
+// tile, then their u values (kWinRows x TJ, f32), in the warp's own slice of
+// dynamic shared memory (warp_bytes each).
+constexpr int kWinStages = 3;  // K4p: stages in a warp's ring
+constexpr int kWinRows = 8;    // K4p: block rows a stage holds (one 8x128 block)
+
+template <typename TB>
+Ring window_ring(bool bulk, int bn, int tj, size_t* warp_bytes) {
+  Ring g;
+  g.bulk = bulk;
+  g.whole = bn <= kTile;
+  g.pitch = g.whole ? (bn + 3) / 4 * 4 : kTile;
+  g.rows = kWinRows;
+  g.red_off = 0;  // K4p keeps its sums in registers
+  const size_t ring_bytes = static_cast<size_t>(kWinStages) * kWinRows * g.pitch * sizeof(TB);
+  const size_t u_off = (ring_bytes + 15) / 16 * 16;
+  g.u_off = static_cast<int>(u_off);
+  *warp_bytes = u_off + static_cast<size_t>(kWinStages) * kWinRows * tj * sizeof(float);
+  return g;
 }
 
-// K4p phase 1: window_partial_kernel over a panel; blockIdx.y = column tile.
-// partial[(i k + j) bn + n] for partial row i, f32. Registers capped at 128
-// (a cap of 85 spilled and ran 1.4x slower on the H100).
-template <typename TB, typename TX>
+// K4p phase 1: window_partial_kernel over a panel; blockIdx.y = column tile
+// of TJ columns. A warp takes partial row i and a 128-wide n tile, as K4's,
+// and walks the rows (slot, m) of its list perm[ptr[i] .. ptr[i+1]], slot by
+// slot and m ascending, through its own ring: lane 0 issues the bulk copies
+// of stage t + kWinStages - 1 and the lanes load its u values into
+// registers while the warp multiplies stage t, then store them. The ragged
+// path (Ring::bulk false) copies each stage by plain loads just before it is
+// multiplied. A lane holds four consecutive n values (where K4's lane holds
+// n0 + 32 t: which lane holds an output does not change its sum), and
+// partial[(i k + j) bn + n] is written in f32.
+template <typename TB, typename TX, int TJ>
 __global__ void __launch_bounds__(kPartialWarps * 32, 2)
 window_panel_partial_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
                             const int32_t* __restrict__ ptr, const TX* __restrict__ u,
                             float* __restrict__ partial, int64_t nrows, int ntiles, int kmax,
-                            int bm, int bn, bool vec, PanelIO io) {
-  const int64_t wid = static_cast<int64_t>(blockIdx.x) * kPartialWarps + (threadIdx.x >> 5);
-  if (wid >= nrows * ntiles) return;  // whole warps leave; nothing below syncs
+                            int bm, int bn, Ring ring, int warp_bytes, PanelIO io) {
+  static_assert(kWinRows * TJ == 32 * (TJ / 4), "a lane stages TJ / 4 u values of a stage");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t full[kPartialWarps][kWinStages];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t wid = static_cast<int64_t>(blockIdx.x) * kPartialWarps + warp;
+  if (wid >= nrows * ntiles) return;  // whole warps leave; nothing below syncs the block
   const int64_t i = wid / ntiles;
-  const int n0 = static_cast<int>(wid % ntiles) * kTile + 4 * (threadIdx.x & 31);
-  const int j0 = blockIdx.y * kPanel;
-  const int kw = min(kPanel, io.k - j0);
-  const TX* uj = u + j0 * io.u_cs;
-  float acc[kPanel][4];
+  const int t0 = static_cast<int>(wid % ntiles) * kTile;
+  const int width = min(kTile, bn - t0);
+  const int n0 = 4 * lane;
+  const int j0 = blockIdx.y * TJ;
+  const int kw = min(TJ, io.k - j0);
+  const int e0 = ptr[i];
+  const int rows = (ptr[i + 1] - e0) * bm;
+  const int nst = (rows + kWinRows - 1) / kWinRows;
+  const int stage_vals = kWinRows * ring.pitch;
+  const int64_t bsize = static_cast<int64_t>(bm) * bn;
+  unsigned char* mine = smem + static_cast<int64_t>(warp) * warp_bytes;
+  TB* ring_b = reinterpret_cast<TB*>(mine);
+  float* ring_u = reinterpret_cast<float*>(mine + ring.u_off);
+  uint64_t* bar = full[warp];
+  if (lane == 0) {
+    for (int s = 0; s < kWinStages; ++s) mbar_init(&bar[s], 1);
+    mbar_init_fence();
+  }
+  __syncwarp();
+  // element offset of the n tile of list row r
+  auto row_of = [&](int r) -> int64_t {
+    const int e = r / bm, m = r - e * bm;
+    return perm[e0 + e] * bsize + static_cast<int64_t>(m) * bn + t0;
+  };
+  auto issue = [&](int t) {  // stage t's bulk copies, by lane 0
+    if (lane != 0) return;
+    const int st = t % kWinStages, r0 = t * kWinRows, nr = min(kWinRows, rows - r0);
+    TB* dst = ring_b + st * stage_vals;
+    fence_proxy_async();  // the warp's reads of this stage (before the __syncwarp) come first
+    mbar_arrive_tx(&bar[st], nr * width * static_cast<unsigned>(sizeof(TB)));
+    if (ring.whole) {  // one copy per slot's run of rows
+      for (int r = 0; r < nr;) {
+        const int e = (r0 + r) / bm, m = r0 + r - e * bm, n = min(bm - m, nr - r);
+        bulk_load(dst + r * ring.pitch, blocks + perm[e0 + e] * bsize + static_cast<int64_t>(m) * bn,
+                  n * bn * static_cast<unsigned>(sizeof(TB)), &bar[st]);
+        r += n;
+      }
+    } else {
+      for (int r = 0; r < nr; ++r)
+        bulk_load(dst + r * ring.pitch, blocks + row_of(r0 + r),
+                  width * static_cast<unsigned>(sizeof(TB)), &bar[st]);
+    }
+  };
+  // a lane's TJ / 4 u values of stage t: row lane / 4, columns (lane % 4) TJ / 4 + c
+  const int ur = lane >> 2, uc = (lane & 3) * (TJ / 4);
+  auto load_u = [&](int t, float up[TJ / 4]) {
+    const int r = t * kWinRows + ur;
 #pragma unroll
-  for (int j = 0; j < kPanel; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int e = ptr[i]; e < ptr[i + 1]; ++e) {
-    const int64_t slot = perm[e];
-    add_slot_panel(blocks + slot * bm * static_cast<int64_t>(bn),
-                   uj + (slot / kmax) * bm * io.u_rs, acc, bm, bn, n0, vec, io.u_rs, io.u_cs,
-                   kw);
+    for (int c = 0; c < TJ / 4; ++c) up[c] = 0.f;
+    if (r < rows) {
+      const int e = r / bm, m = r - e * bm;
+      const TX* p = u + (static_cast<int64_t>(perm[e0 + e]) / kmax * bm + m) * io.u_rs +
+                    (j0 + uc) * io.u_cs;
+#pragma unroll
+      for (int c = 0; c < TJ / 4; ++c)
+        if (uc + c < kw) up[c] = widen(p[c * io.u_cs]);
+    }
+  };
+  auto store_u = [&](int t, const float up[TJ / 4]) {
+    float* d = ring_u + (t % kWinStages) * kWinRows * TJ + ur * TJ + uc;
+#pragma unroll
+    for (int c = 0; c < TJ / 4; ++c) d[c] = up[c];
+  };
+  float acc[TJ][4];
+#pragma unroll
+  for (int j = 0; j < TJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int t = 0; t < kWinStages - 1 && t < nst; ++t) {
+    if (ring.bulk) issue(t);
+    float up[TJ / 4];
+    load_u(t, up);
+    store_u(t, up);
+  }
+  __syncwarp();
+  for (int t = 0; t < nst; ++t) {
+    const int st = t % kWinStages, tp = t + kWinStages - 1;
+    float up[TJ / 4];
+    if (tp < nst) {
+      if (ring.bulk) issue(tp);  // into the stage the warp finished at t - 1
+      load_u(tp, up);
+    }
+    const int r0 = t * kWinRows, nr = min(kWinRows, rows - r0);
+    TB* sb = ring_b + st * stage_vals;
+    if (ring.bulk) {
+      mbar_wait(&bar[st], (t / kWinStages) & 1);
+    } else {
+      stage_rows_plain(sb, blocks, nr, width, ring.pitch, [&](int r) { return row_of(r0 + r); });
+      __syncwarp();
+    }
+    const float* su = ring_u + st * kWinRows * TJ;
+    for (int r = 0; r < nr; ++r)
+      ring_row<TB, TJ>(sb + r * ring.pitch, su + r * TJ, n0, width, kw, acc);
+    if (tp < nst) store_u(tp, up);
+    __syncwarp();
   }
 #pragma unroll
-  for (int j = 0; j < kPanel; ++j)
-    if (j < kw) store_n4(partial + (i * io.k + j0 + j) * bn, n0, bn, bn % 4 == 0, acc[j]);
+  for (int j = 0; j < TJ; ++j)
+    if (j < kw) store_n4(partial + (i * io.k + j0 + j) * bn, t0 + n0, bn, bn % 4 == 0, acc[j]);
 }
 
 // first index in the nondecreasing a[0..len) with a[idx] >= v (upper: > v)
@@ -480,16 +563,16 @@ multiwin_combine_kernel(const float* __restrict__ partial, const int32_t* __rest
 
 // K6p pass 1 and pass 2: K2p's panel passes over K6's column plan, under
 // K6p's names. Registers capped as K2p's.
-template <typename TB, typename TX, int US, int UM>
-__global__ void __launch_bounds__(kT2Warps * 32, 3)
+template <typename TB, typename TX, int TJ>
+__global__ void __launch_bounds__(kRingThreads, 2)
 multiwin_panel_chunk_kernel(const TB* __restrict__ blocks, const int32_t* __restrict__ perm,
                             const int32_t* __restrict__ chunk_ptr,
                             const int32_t* __restrict__ chunk_col,
                             const int32_t* __restrict__ col_chunk, const TX* __restrict__ u,
                             float* __restrict__ partial, TX* __restrict__ out, int kmax, int bm,
-                            int bn, bool vec, PanelIO io) {
-  panel_chunk_pass<TB, TX, US, UM>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial,
-                                   out, kmax, bm, bn, vec, io);
+                            int bn, Ring ring, PanelIO io, PanelItems items) {
+  panel_chunk_pass<TB, TX, TJ>(blocks, perm, chunk_ptr, chunk_col, col_chunk, u, partial, out,
+                               kmax, bm, bn, ring, io, items);
 }
 
 template <typename TX>
@@ -640,8 +723,9 @@ int linops_bsr_rmatvec_multiwin(const void* blocks, const void* perm, const void
 int linops_bsr_rmatmat_windowed(const void* blocks, const void* perm, const void* ptr,
                                 const void* u, const void* win_q, float* partial, void* out,
                                 int64_t nbcol, int ngroups, int kmax, int bm, int bn, int wb,
-                                int k, int64_t u_rs, int64_t u_cs, int64_t o_rs, int64_t o_cs,
-                                int block_dtype, int vec_dtype, int device, void* stream) {
+                                int k, int tile, int bulk, int64_t u_rs, int64_t u_cs,
+                                int64_t o_rs, int64_t o_cs, int block_dtype, int vec_dtype,
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -651,19 +735,25 @@ int linops_bsr_rmatmat_windowed(const void* blocks, const void* perm, const void
   return dispatch_dtypes(block_dtype, vec_dtype, [&](auto tb, auto tx) {
     using TB = typename decltype(tb)::type;
     using TX = typename decltype(tx)::type;
+    if (!panel_staging_ok<TB>(blocks, bn, tile, bulk))
+      return static_cast<int>(cudaErrorInvalidValue);
     const int64_t nrows = static_cast<int64_t>(ngroups) * 2 * wb;
     const int ntiles = (bn + kTile - 1) / kTile;
     unsigned grid;
     if (int rc = grid_or_error((nrows * ntiles + kPartialWarps - 1) / kPartialWarps, &grid))
       return rc;
     if (grid > 0) {
-      const dim3 g2(grid, static_cast<unsigned>((k + kPanel - 1) / kPanel));
-      const bool vec =
-          bn % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % (4 * sizeof(TB)) == 0;
-      window_panel_partial_kernel<TB, TX><<<g2, kPartialWarps * 32, 0, s>>>(
+      size_t warp_bytes;
+      const Ring ring = window_ring<TB>(bulk != 0, bn, tile, &warp_bytes);
+      const size_t smem = warp_bytes * kPartialWarps;
+      auto kernel = tile == 8 ? window_panel_partial_kernel<TB, TX, 8>
+                              : window_panel_partial_kernel<TB, TX, 16>;
+      if (int rc = set_dynamic_smem(kernel, smem)) return rc;
+      const dim3 g2(grid, static_cast<unsigned>((k + tile - 1) / tile));
+      kernel<<<g2, kPartialWarps * 32, smem, s>>>(
           static_cast<const TB*>(blocks), static_cast<const int32_t*>(perm),
           static_cast<const int32_t*>(ptr), static_cast<const TX*>(u), partial, nrows, ntiles,
-          kmax, bm, bn, vec, io);
+          kmax, bm, bn, ring, static_cast<int>(warp_bytes), io);
       if (int rc = static_cast<int>(cudaGetLastError())) return rc;
     }
     if (int rc = combine_grid(nbcol, bn, &grid)) return rc;
@@ -681,9 +771,9 @@ int linops_bsr_rmatmat_multiwin(const void* blocks, const void* perm, const void
                                 const void* chunk_col, const void* col_chunk,
                                 const void* combine_cols, const void* u, float* partial,
                                 void* out, int64_t nchunks, int64_t ncombine, int kmax, int bm,
-                                int bn, int k, int64_t u_rs, int64_t u_cs, int64_t o_rs,
-                                int64_t o_cs, int block_dtype, int vec_dtype, int device,
-                                void* stream) {
+                                int bn, int k, int tile, int bulk, int64_t u_rs, int64_t u_cs,
+                                int64_t o_rs, int64_t o_cs, int block_dtype, int vec_dtype,
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -692,10 +782,9 @@ int linops_bsr_rmatmat_multiwin(const void* blocks, const void* perm, const void
     using TB = typename decltype(tb)::type;
     using TX = typename decltype(tx)::type;
     return launch_panel_plan<TB, TX>(
-        multiwin_panel_chunk_kernel<TB, TX, kUnroll, 1>,
-        multiwin_panel_chunk_kernel<TB, TX, 1, kUnroll>, multiwin_panel_combine_kernel<TX>,
-        blocks, perm, chunk_ptr, chunk_col, col_chunk, combine_cols, u, partial, out, nchunks,
-        ncombine, kmax, bm, bn, io, s);
+        multiwin_panel_chunk_kernel<TB, TX, 8>, multiwin_panel_chunk_kernel<TB, TX, 16>,
+        multiwin_panel_combine_kernel<TX>, blocks, perm, chunk_ptr, chunk_col, col_chunk,
+        combine_cols, u, partial, out, nchunks, ncombine, kmax, bm, bn, io, tile, bulk != 0, s);
   });
 }
 

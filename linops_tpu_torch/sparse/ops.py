@@ -1027,17 +1027,21 @@ class BSROperator(_SparseBase):
 
     def _tmat_impl(self, blocks, X, kind: str):
         """The T block: one call of the plan's panel transpose (K2p, K4p or
-        K6p on the card, its plain version otherwise) for every column. A
-        row panel goes in as its transposed view and the kernel writes it
-        out in rows (the wrappers lay the result out as U): no copy unless
-        it is padded."""
+        K6p on the card, its plain version otherwise) for every column; on
+        the card a one-column block takes the vector kernel (K2, K4 or K6),
+        the same bits (the panels are slower for one column on the H100:
+        PERF.md §6). A row panel goes in as its transposed view and the
+        kernel writes it out in rows (the wrappers lay the result out as
+        U): no copy unless it is padded."""
         d = self.data
         bm, bn = d.block_shape
         nbrow, nbcol = blocks.shape[0], self._nbcol
         rows = kind == "panel"
         U = K._pad_rows(X.t() if rows else X, nbrow * bm)
         kern = not blocks.is_complex() and self._use_kernel(X)
-        if self._windowed(transpose=True):
+        if kern and U.shape[1] == 1:  # the vector kernel: the panel's bits, faster on the card
+            out = self._tprod_impl(blocks, U[:, 0])[:, None]
+        elif self._windowed(transpose=True):
             if self.cols_local is not None:
                 plan = dict(wb=self._wb, x_pad_blocks=self._x_pad_blocks, nbcol=nbcol)
                 args = (blocks, self.cols_local, self.win_q, U)

@@ -77,10 +77,24 @@ them, its mirrors. Distributed solves have an LRU of their own (see below).
 
 On the CPU the same masked blocks run eagerly, and each signature they run
 is recorded in the cache as a card's first solve records it, so the
-counters mean the same on both devices. Under ``torch.func.vmap`` the
-iterations run as eager masked blocks of the loop's block, one host read
-(is any member still active) per block, never captured (``stats["path"]``
-is "vmap"). When a gradient is wanted, or when an operator is not
+counters mean the same on both devices.
+
+Under ``torch.func.vmap`` the loop runs as ``jax.vmap`` of a
+``lax.while_loop`` compiles one loop (``_vmapped_while``): the state and the
+consts are unwrapped from the vmap level to plain tensors with the members
+leading, and the loop runs over them as an unbatched loop does, its
+``cond`` and ``body`` each one ``torch.func.vmap`` over the members, with a
+per-member count and mask (a member freezes once its own test fails) and
+one host read per block (is any member active, the largest count). On the
+card a signature's first solve runs eager masked blocks
+(``stats["path"]`` "vmap_blocks", as on the CPU), its next captures a block
+and later ones replay it ("vmap_graph"); the members' count is part of the
+signature through the state's shapes. A loop nested in a member's
+iteration is a while node of the captured block that repeats while any
+member is active. A vmap over an operator's own data (a batch of
+operators), nested vmap levels, DTensor state or a wanted gradient keep the
+eager masked blocks over the batched tensors ("vmap", ``_plain_while``):
+the same counts and bits, never captured. When a gradient is wanted, or when an operator is not
 ``capture_safe`` (a host factorization, a timer, a ``FunctionOperator`` not
 declared safe), the plain per-iteration loop runs (``stats["path"]`` says
 which path ran).
@@ -178,7 +192,7 @@ MIRROR_SHARE = 0.25
 FREE_SHARE = 0.5
 
 # what the last loop to finish did: its path ("graph", "blocks",
-# "per_iteration", "vmap"), host reads, blocks run, captures, replays,
+# "per_iteration", "vmap_graph", "vmap_blocks", "vmap"), host reads, blocks run, captures, replays,
 # capture milliseconds, the bytes copied into a captured block's mirrors
 # before its first replay, the bytes its mirrors hold and the while nodes
 # its capture recorded (a nested loop keeps its own)
@@ -896,13 +910,17 @@ def _carry(new, old) -> tuple:
 
 
 def _select(act, new, old):
+    """``where(act, new, old)`` entry by entry; a per-member ``act`` (B,)
+    (a loop over members, ``_vmapped_while``) selects along each entry's
+    leading batch dimension."""
     new = _carry(new, old)
     out = []
     for a, b in zip(new, old):
         if a.dtype != b.dtype or a.shape != b.shape:
             raise TypeError(f"loop body changed a state entry from {b.dtype}{tuple(b.shape)} "
                             f"to {a.dtype}{tuple(a.shape)}")
-        out.append(torch.where(act, a, b))
+        mask = act.reshape(act.shape + (1,) * (a.ndim - act.ndim)) if act.ndim else act
+        out.append(torch.where(mask, a, b))
     return tuple(out)
 
 
@@ -934,7 +952,9 @@ def _while_block(cond, body, state, consts, k, act, lim, n: int, keeps: bool = F
 
 def _plain_while(cond, body, state, consts, maxiter, go, path, block: int = 1):
     """The plain loop: one host read per iteration. Under vmap (``path``
-    "vmap") every member runs until all have stopped, each frozen once its
+    "vmap": a batch of operators, nested vmap levels, DTensor state or a
+    wanted gradient, where ``_members`` refuses the members' path) every
+    member runs until all have stopped, each frozen once its
     own test fails, and the count is a per-member tensor; the iterations run
     in masked blocks of ``block``, with one host read (is any member still
     active) before the first and after each block, and none past
@@ -986,7 +1006,8 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
     Returns (state, iterations): an ``int``, or under ``torch.func.vmap`` a
     per-member tensor (every member runs until all have stopped, each frozen
     once its own test fails, as ``jax.vmap`` of a ``lax.while_loop``; in
-    eager masked blocks of ``block``, one host read per block), or
+    masked blocks of ``block``, one host read per block, captured on the
+    card as an unbatched loop's: ``_vmapped_while``), or
     inside a capture (a loop nested in a captured block's iteration) a 0-dim
     int64 tensor on the device, the loop then being one CUDA while node.
 
@@ -1000,11 +1021,15 @@ def device_while(cond, body, state: tuple, maxiter: int, *, consts: tuple = (), 
         state = _carry(state, state)  # DTensor state: pending partial sums reduced
         go = cond(state, consts)
         if _batched(go):
+            if outer is not None:  # a loop inside a member's iteration (``_vmapped_while``)
+                go = go & outer
+            level = torch._C._functorch.maybe_get_level(go)
+            if _members(state, consts, ops, level):
+                return _vmapped_while(cond, body, state, consts, maxiter, go, ops, key, block,
+                                      keeps, level)
             return _plain_while(cond, body, state, consts, maxiter, go, "vmap", block)
         if outer is not None:
             go = go & outer
-        if state[0].is_cuda and torch.cuda.is_current_stream_capturing():
-            return _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps)
         return _device_while(cond, body, state, consts, maxiter, go, ops, key, block, keeps)
 
 
@@ -1016,7 +1041,9 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
     until the test fails or ``maxiter`` is reached, and nothing is read on
     the host. The state, the count and the test live in buffers made before
     the node (captured, so each replay starts them afresh). Returns (state,
-    iterations as a 0-dim int64 tensor)."""
+    iterations as a 0-dim int64 tensor). Over members (``_vmapped_while``:
+    ``go`` (B,)) the count and the test are per member and the node repeats
+    while any member is active; the count comes back (B,)."""
     from ..kernels import graph_cond
 
     if not _CAPTURING:
@@ -1024,13 +1051,15 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
                            "utils/loop.py did not start; a while node needs its block's memory")
     owner = _CAPTURING[-1]
     dev = state[0].device
-    k = torch.zeros((), dtype=torch.int64, device=dev)
+    go = _whole(go)
+    k = torch.zeros(go.shape, dtype=torch.int64, device=dev)
     lim = torch.full((), maxiter, dtype=torch.int64, device=dev)
-    act = _whole(go) & (k < lim)
+    act = go & (k < lim)
+    flag = act.any() if act.ndim else act  # the node's condition
     bufs = tuple(s.clone() for s in state)
     depth = len(graph_cond.open_bodies())
     try:
-        with graph_cond.while_node(act, _body_stream(dev, depth),
+        with graph_cond.while_node(flag, _body_stream(dev, depth),
                                    owner.body_memory(depth)) as body_graph:
             owner.bodies.append(body_graph)
             s_out, k_out, a_out = _while_block(cond, body, bufs, consts, k, act, lim, block,
@@ -1039,6 +1068,8 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
                 b.copy_(b2)
             k.copy_(k_out)
             act.copy_(a_out)
+            if flag is not act:
+                flag.copy_(a_out.any())
     except Exception as e:
         names = ", ".join(_describe(op) for op in ops if op is not None)
         raise RuntimeError(f"device_while{key!r}: capturing the loop as a CUDA while node "
@@ -1048,62 +1079,167 @@ def _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
 
 
 def _device_while(cond, body, state, consts, maxiter, go, ops, key, block, keeps):
+    """The loop outside a capture: masked blocks of ``block`` iterations,
+    one host read after each, of (is the loop active, its count). On the
+    card a signature's first solve runs the per-iteration loop on the
+    capture stream, its next one captures a block and replays it ("graph");
+    on the CPU (or with ``CAPTURE`` off) the blocks run eagerly ("blocks").
+    Inside a capture (a loop nested in a captured block's iteration) it is a
+    while node (``_while_node``). Returns (state, iterations as an int).
+
+    Over members (``_vmapped_while``: the members leading in every state
+    and const entry, ``go`` (B,)) the count and the mask are per member,
+    each member frozen once its own test fails (``_select``), and a block's
+    read is of (is any member active, the largest count); a signature's
+    first solve on the card runs eager masked blocks on the capture stream,
+    not the per-iteration loop; the paths are "vmap_blocks" and "vmap_graph"
+    (the key leads with "vmap"; the signature holds the members' count
+    through the state's shapes); the count comes back per member, (B,)
+    int64."""
+    if state[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        return _while_node(cond, body, state, consts, maxiter, go, ops, key, block, keeps)
+    members = go.ndim > 0
     path, sig, dist = _path(state + consts, ops)
-    if path == "per_iteration":
+    if path == "per_iteration":  # never over members (``_members`` refuses them)
         return _plain_while(cond, body, state, consts, maxiter, go, path)
     dev = state[0].device
+    if members:
+        key = ("vmap",) + tuple(key)
     ckey, seen, g = (_find("while", key, sig, state + consts, dist, block) if path == "graph"
                      else (None, False, None))
-    if path == "graph" and not seen:  # a signature's first solve: the plain loop
+    if path == "graph" and not seen and not members:  # a first solve: the plain loop
         with _on_capture_stream(dev):
             state, count = _plain_while(cond, body, state, consts, maxiter, go, "per_iteration")
         _remember("while", key, ops, state + consts, block)
         return state, count
-    k = torch.zeros((), dtype=torch.int64, device=dev)
+    k = torch.zeros(go.shape, dtype=torch.int64, device=dev)
     lim = torch.full((), maxiter, dtype=torch.int64, device=dev)
     act = _whole(go) & (k < lim)
-    with _Loop(path) as st:
-        if g is None and not _read(act):  # a cached block runs first and reads after
+
+    def status(a, k_):
+        if members:
+            return torch.stack((a.any().to(torch.int64), k_.max()))
+        return torch.stack((a.to(torch.int64), k_))
+
+    eager = path == "blocks" or not seen
+    name = ("vmap_" if members else "") + ("blocks" if eager else "graph")
+    where = _on_capture_stream(dev) if path == "graph" and eager else contextlib.nullcontext()
+    with _Loop(name) as st, where:
+        if g is None and not _read(act.any()):  # a cached block runs first and reads after
             st["iterations"] = 0
-            if path == "blocks":
+            if eager:
                 _remember("while", key, ops, state + consts, block)
-            return state, 0
-        if path == "blocks":  # the CPU (or CAPTURE off): eager blocks
+            return state, (k if members else 0)
+        if eager:
             while True:
                 state, k, act = _while_block(cond, body, state, consts, k, act, lim, block,
                                              keeps)
                 st["blocks"] += 1
-                more, count = _read(torch.stack((act.to(torch.int64), k)))
+                more, top = _read(status(act, k))
                 if not more:
-                    st["iterations"] = count
+                    st["iterations"] = top
                     _remember("while", key, ops, state + consts, block)
-                    return state, count
+                    return state, (k if members else top)
+        ns, nc = len(state), len(consts)
         if g is None:
-            ns, nc, n = len(state), len(consts), block
+            n = block
 
-            def block(*bufs):
+            def block_fn(*bufs):
                 s_in, c_in, (k_in, a_in, l_in) = bufs[:ns], bufs[ns:ns + nc], bufs[ns + nc:]
                 s_out, k_out, a_out = _while_block(cond, body, s_in, c_in, k_in, a_in, l_in, n,
                                                    keeps)
-                for s, s2 in zip(s_in, s_out):
-                    s.copy_(s2)
+                for s_, s2 in zip(s_in, s_out):
+                    s_.copy_(s2)
                 k_in.copy_(k_out)
                 a_in.copy_(a_out)
-                return torch.stack((a_out.to(torch.int64), k_out))
+                return status(a_out, k_out)
 
-            g, status = _capture(ckey, block, state + consts + (k, act, lim), ops,
-                                 f"device_while{key!r}", sig, dist)
+            g, out = _capture(ckey, block_fn, state + consts + (k, act, lim), ops,
+                              f"device_while{key!r}", sig, dist)
         else:
-            status = g.run(state + consts + (k, act, lim), sig.tensors)
+            out = g.run(state + consts + (k, act, lim), sig.tensors)
         while True:
             st["blocks"] += 1
-            more, count = _read(status)
+            more, top = _read(out)
             if not more:
                 break
-            status = g.run()
+            out = g.run()
         g.finish(sig.tensors)
-        st["iterations"] = count
-        return tuple(s.clone() for s in g.inputs[:len(state)]), count
+        st["iterations"] = top
+        state = tuple(s_.clone() for s_ in g.inputs[:ns])
+        return state, (g.inputs[ns + nc].clone() if members else top)
+
+
+# ----------------------------------------------------------------------------
+# while under vmap: the members as a leading batch dimension
+# ----------------------------------------------------------------------------
+
+
+def _members(state, consts, ops, level: int) -> bool:
+    """Whether a loop under ``torch.func.vmap`` can run over its members as
+    plain tensors (``_vmapped_while``): every state and const entry plain or
+    batched at ``level`` alone (one vmap level: a nested vmap's tensors
+    keep the eager path), none a DTensor, no gradient wanted, and the
+    operators ``capture_safe`` with plain tensors (a vmap over an operator's
+    own data, a batch of operators, keeps the eager path)."""
+    F = torch._C._functorch
+    grad = torch.is_grad_enabled()
+    for t in state + consts:
+        if F.is_functorch_wrapped_tensor(t):
+            if not F.is_batchedtensor(t) or F.maybe_get_level(t) != level:
+                return False
+            t = F.get_unwrapped(t)
+            if F.is_functorch_wrapped_tensor(t):
+                return False
+        if _is_dtensor(t) or (grad and t.requires_grad):
+            return False
+    if not all(op is None or op.capture_safe for op in ops):
+        return False
+    return not any(F.is_functorch_wrapped_tensor(t) or (grad and t.requires_grad)
+                   for t in _walk_ops(ops).tensors)
+
+
+def _unbatched(t, level: int, size: int):
+    """``t`` as a plain tensor with the members leading: its batch at
+    ``level`` moved to dimension 0, or a plain ``t`` copied for each of the
+    ``size`` members."""
+    F = torch._C._functorch
+    if F.is_functorch_wrapped_tensor(t):
+        v, bdim = F._unwrap_batched(t, level)
+        if bdim is not None:
+            return v.movedim(bdim, 0)
+        t = v
+    return t.expand((size,) + tuple(t.shape)).clone()
+
+
+def _vmapped_while(cond, body, state, consts, maxiter, go, ops, key, block, keeps, level):
+    """``device_while`` under ``torch.func.vmap``, as ``jax.vmap`` of a
+    ``lax.while_loop`` compiles one loop: the state and the consts are
+    unwrapped from the vmap level to plain tensors with the members leading
+    (``_unbatched``), and the loop runs over them as an unbatched loop runs
+    (``_device_while``), its ``cond`` and ``body`` each one
+    ``torch.func.vmap`` over the members; the results are wrapped at the
+    caller's level again, the count a per-member tensor."""
+    F = torch._C._functorch
+    v, bdim = F._unwrap_batched(go, level)
+    size = v.shape[bdim]
+    state = tuple(_unbatched(t, level, size) for t in state)
+    consts = tuple(_unbatched(t, level, size) for t in consts)
+    go = v.movedim(bdim, 0)
+
+    def vcond(s, c):
+        return torch.func.vmap(cond)(s, c)
+
+    def vbody(s, c, k):
+        act = _OUTER[-1]  # the block's per-member mask (``_call_body``)
+
+        def one(s_, c_, k_, a_):  # a member's mask is the test a loop inside it ANDs
+            return _call_body(body, s_, c_, k_, a_)
+
+        return torch.func.vmap(one)(s, c, k, act)
+
+    state, k = _device_while(vcond, vbody, state, consts, maxiter, go, ops, key, block, keeps)
+    return tuple(F._add_batch_dim(t, 0, level) for t in state), F._add_batch_dim(k, 0, level)
 
 
 def _fori_block(body, state, consts, n: int):

@@ -23,6 +23,10 @@ K4p, K6p on the card, their plain versions here) and ``bsr_matmat`` for N.
   against the reference's vmapped apply under ``jax.vjp`` in torch's
   convention (``conj(jax_vjp(conj(g)))``), 1e-10 in f64.
 - ``torch.func.vmap`` of a T vector apply runs the panel once.
+- A one-column T block of the column plan takes K2 (the vector kernel), the
+  window plans their panels; the column tile and the staging path the
+  card's panel transposes take (``transpose_panel_tile``,
+  ``transpose_panel_path``).
 
 The forward panels (K1p, K3p, K5p on the card; here their plain versions:
 ``bsr_matmat`` and the K3/K5 plain versions on a panel) serve the N block
@@ -386,6 +390,47 @@ def test_panel_wrappers_have_no_kernel_off_cuda():
     U = torch.zeros((8, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         K.bsr_rmatmat_kernel(blocks, cols, U, 1)
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_one_column_transpose_block_takes_the_vector_kernel(rng, caps, monkeypatch,
+                                                           kernels_on_cpu, plan):
+    """On the kernel branch a one-column T block (and an H row panel of one
+    row) calls its plan's vector wrapper (K2, K4 or K6), bit for bit the
+    vector apply, and no panel wrapper (the panels are slower than their
+    vector kernels for one column on the card); k = 2 takes the panel on
+    every plan."""
+    op_t, _ = make_ops(rng, caps, plan, np.float64)
+    panel = spy(monkeypatch, K, {"plain": "bsr_rmatmat_kernel",
+                                 "banded": "bsr_rmatmat_windowed_kernel",
+                                 "multi": "bsr_rmatmat_multiwin_kernel"}[plan])
+    vector = spy(monkeypatch, K, {"plain": "bsr_rmatvec_kernel",
+                                  "banded": "bsr_rmatvec_windowed_kernel",
+                                  "multi": "bsr_rmatvec_multiwin_kernel"}[plan])
+    monkeypatch.setattr(TO, "bsr_rmatvec_kernel", K.bsr_rmatvec_kernel)
+    M = torch.from_numpy(block_input(rng, op_t, "T", 2, np.float64))
+    Y = op_t.apply_matrix(M[:, :1], "T")
+    Yh = op_t.apply_matrix_t(M[:, :1].t(), "H")
+    assert len(panel) == 0 and len(vector) == 2
+    assert torch.equal(Y[:, 0], op_t.apply(M[:, 0], "T")) and torch.equal(Yh, Y.t())
+    op_t.apply_matrix(M, "T")
+    assert len(panel) == 1 and len(vector) == 3
+
+
+def test_transpose_panel_tile_and_path():
+    """The column tile K2p, K4p and K6p take (8 columns for k <= 8, else 16)
+    and the staging they run: bulk copies when a row
+    of bn values is a multiple of 16 bytes on a 16-byte aligned base, else
+    the ragged path's plain loads."""
+    assert [K.transpose_panel_tile(k) for k in (1, 8, 9, 12, 16, 17, 32)] == [8, 8, 16, 16, 16,
+                                                                               16, 16]
+    f32 = torch.zeros((2, 3, 8, 128))
+    assert K.transpose_panel_path(f32) == "ring"
+    assert K.transpose_panel_path(torch.zeros((2, 3, 8, 12), dtype=torch.bfloat16)) == "ragged"
+    assert K.transpose_panel_path(torch.zeros((2, 3, 8, 8), dtype=torch.bfloat16)) == "ring"
+    assert K.transpose_panel_path(torch.zeros((2, 3, 8, 33))) == "ragged"
+    shifted = torch.zeros(2 * 3 * 8 * 128 + 1)[1:].view(2, 3, 8, 128)
+    assert K.transpose_panel_path(shifted) == "ragged"
 
 
 # ---------------------------------------------------------------------------

@@ -1285,6 +1285,64 @@ def test_graph_blocks_match_eager_blocks_bit_for_bit(dev, loop_mod, case):
     assert tables.launch_counts() == setup  # the replays added nothing
 
 
+def vmapped_modes(loop, solve, bs):
+    """(x, counts, stats) of ``torch.func.vmap(solve)(bs)`` in the eager
+    per-iteration vmap loop (the members' path refused, blocks of 1), as the
+    first solve of its signature (eager blocks), the second (it captures)
+    and cached."""
+    out = {}
+    members = loop._members
+    for name in ("per_iteration", "first", "capture", "cached"):
+        saved = loop.BLOCK
+        if name == "per_iteration":
+            loop.BLOCK, loop._members = 1, (lambda *a: False)
+        if name == "first":
+            loop.clear_cache()
+        try:
+            x, k, _ = torch.func.vmap(solve)(bs)
+        finally:
+            loop.BLOCK, loop._members = saved, members
+        out[name] = (x, k, dict(loop.stats))
+    return out
+
+
+@pytest.mark.parametrize("case", ["cg", "minres", "bicgstab", "gmres", "nested"])
+def test_vmapped_solves_run_captured_blocks(dev, loop_mod, case):
+    """torch.func.vmap of a solve over 6 right-hand sides of slice 1's graph
+    (GMRES: restarts of 8; "nested": CG preconditioned by an inexact CG
+    inverse, whose inner loop is a CUDA while node in the captured block):
+    the members as a leading batch dimension, captured on the signature's
+    second solve and replayed on the third ("vmap_graph", ⌈I/block⌉ reads,
+    GMRES one a restart), x and counts bit for bit the eager per-iteration
+    vmap loop's."""
+    A, H, b = slice1_graph(dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    bs = torch.randn((6, b.numel()), generator=g, device=dev)
+    bs[0] = A @ torch.ones_like(b)
+    if case == "gmres":
+        solve = lambda v: lt.gmres(A, v, M=H, tol=1e-5, restart=8, maxiter=30)  # noqa: E731
+    elif case == "nested":
+        M = lt.opIterativeInverse(A, tol=1e-2, maxiter=4)
+        solve = lambda v: lt.cg(A, v, M=M, tol=1e-5, maxiter=100)  # noqa: E731
+    else:
+        solve = lambda v: getattr(lt, case)(A, v, M=H, tol=1e-5, maxiter=300)  # noqa: E731
+    solve(b)  # warm-up: plans and builds
+    runs = vmapped_modes(loop_mod, solve, bs)
+    x0, k0, st0 = runs["per_iteration"]
+    assert st0["path"] == "vmap" and k0.shape == (6,)
+    for name, (x, k, st) in runs.items():
+        assert torch.equal(k, k0) and torch.equal(x, x0), name
+    block = 1 if case == "gmres" else loop_mod.BLOCK
+    top = int(k0.max())
+    first, cap, cached = runs["first"][2], runs["capture"][2], runs["cached"][2]
+    assert first["path"] == "vmap_blocks" and first["reads"] == -(-top // block) + 1
+    assert cap["path"] == "vmap_graph" and cap["captures"] == 1
+    assert cached["path"] == "vmap_graph" and cached["captures"] == 0
+    assert cached["reads"] == cached["replays"] == -(-top // block)
+    if case == "nested":
+        assert loop_mod.last_graph().bodies
+
+
 def test_replay_raises_nothing_under_sync_debug_error(dev, loop_mod):
     """A captured block holds no host synchronisation: a replay under
     ``set_sync_debug_mode("error")`` raises nothing; so does a shifted
@@ -2400,7 +2458,7 @@ def test_gmres_panel_launches_e2_once_per_restart(dev, loop_mod):
 # The BSR operators' block transposes: K2p, K4p, K6p
 # --------------------------------------------------------------------------
 
-PANEL_KS = (1, 8, 33)
+PANEL_KS = (1, 8, 12, 16, 17, 33)
 
 
 def column_loop(vector_apply, U):
@@ -2410,7 +2468,8 @@ def column_loop(vector_apply, U):
 
 
 def check_panel(panel, plain, vector_apply, rows: int, vdt, dev):
-    """A panel wrapper at k = 1, 8, 33: within tol of its plain version, the
+    """A panel wrapper at k in PANEL_KS (one and two column tiles of 8 and
+    16, and more): within tol of its plain version, the
     same bits on a rerun, bit for bit its vector kernel's column loop, and
     the same bits for a row panel's transposed view, which the result
     takes as its layout (rows of a row-major (k, n))."""
@@ -2464,6 +2523,85 @@ def test_k4p_k6p_match_plain_and_their_column_loops(dev, dims, dtypes):
                 lambda U: K.bsr_rmatmat_multiwin_plain(b, *t_args, U, **win),
                 lambda u: K.bsr_rmatvec_multiwin_kernel(b, *t_args, u.reshape(nbrow, bm), **win)
                 .reshape(-1), nbrow * bm, vdt, dev)
+
+
+def offset_copy(blocks, offset: int):
+    """blocks copied into a buffer ``offset`` elements past its start: the
+    same values on a base that is not 16-byte aligned when offset > 0."""
+    if not offset:
+        return blocks
+    store = torch.empty(blocks.numel() + offset, dtype=blocks.dtype, device=blocks.device)
+    view = store[offset:].view(blocks.shape)
+    view.copy_(blocks)
+    return view
+
+
+@pytest.mark.parametrize("dims", [(20, 3, 8, 160, 9), (24, 2, 4, 12, 15), (30, 3, 8, 128, 11)])
+@pytest.mark.parametrize("dtypes", PAIRS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k2p_ring_and_ragged_paths(dev, dims, dtypes, offset):
+    """K2p's chunk pass on both stagings: bulk copies a row at a time (bn =
+    160, two n tiles), a slot at a time (bn = 12 and 128), and the ragged
+    path (bf16 rows of 12 values, 24 bytes; any base off 16 bytes): the
+    path the wrapper names, the column loop's bits at every k (column tiles
+    of 8 and 16)."""
+    nbrow, kmax, bm, bn, nbcol = dims
+    bdt, vdt = dtypes
+    blocks, cols = random_bsr(dev, nbrow, kmax, bm, bn, nbcol, bdt)
+    blocks = offset_copy(blocks, offset)
+    ring = offset == 0 and bn * blocks.element_size() % 16 == 0
+    assert K.transpose_panel_path(blocks) == ("ring" if ring else "ragged")
+    vector = lambda u: K.bsr_rmatvec_kernel(blocks, cols, u.reshape(nbrow, bm),  # noqa: E731
+                                            nbcol).reshape(-1)
+    check_panel(lambda U: K.bsr_rmatmat_kernel(blocks, cols, U, nbcol),
+                lambda U: K.bsr_rmatmat_plain(blocks, cols, U, nbcol), vector, nbrow * bm, vdt,
+                dev)
+
+
+@pytest.mark.parametrize("dims", [(64, 2, 8, 160), (64, 3, 4, 12)])
+@pytest.mark.parametrize("dtypes", PAIRS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k4p_k6p_ring_and_ragged_paths(dev, dims, dtypes, offset):
+    """K4p's per-warp rings and K6p's chunk pass on both stagings (as
+    ``test_k2p_ring_and_ragged_paths``): the column loop's bits at every
+    k."""
+    nbrow, _, bm, _ = dims
+    bdt, vdt = dtypes
+    blocks, cols, nbcol = window_case(dims, multi=False)
+    q, cl, wb, xpb = K.bsr_window_plan(cols, 32, nbcol, wb_max=64, blocks=blocks)
+    b = offset_copy(torch.from_numpy(blocks).to(dev, bdt), offset)
+    ring = offset == 0 and dims[3] * b.element_size() % 16 == 0
+    assert K.transpose_panel_path(b) == ("ring" if ring else "ragged")
+    cl_t, q_t = (torch.from_numpy(a).to(dev) for a in (cl, q))
+    win = dict(wb=wb, x_pad_blocks=xpb, nbcol=nbcol)
+    cases = [(lambda U: K.bsr_rmatmat_windowed_kernel(b, cl_t, q_t, U, **win),
+              lambda U: K.bsr_rmatmat_windowed_plain(b, cl_t, q_t, U, **win),
+              lambda u: K.bsr_rmatvec_windowed_kernel(b, cl_t, q_t, u.reshape(nbrow, bm), **win)
+              .reshape(-1))]
+    blocks, cols, nbcol = window_case(dims, multi=True)
+    qm, wb, _ = K.bsr_window_plan_multi(cols, 32, nbcol, wb_max=16, blocks=blocks)
+    qt, vt, xpbt = K.bsr_window_plan_multi_t(cols, 32, nbcol, wb, 4, blocks=blocks)
+    bm_ = offset_copy(torch.from_numpy(blocks).to(dev, bdt), offset)
+    t_args = tuple(torch.from_numpy(a).to(dev) for a in (cols, qt, vt))
+    winm = dict(wb=wb, x_pad_blocks=xpbt, nbcol=nbcol)
+    cases.append((lambda U: K.bsr_rmatmat_multiwin_kernel(bm_, *t_args, U, **winm),
+                  lambda U: K.bsr_rmatmat_multiwin_plain(bm_, *t_args, U, **winm),
+                  lambda u: K.bsr_rmatvec_multiwin_kernel(bm_, *t_args, u.reshape(nbrow, bm),
+                                                          **winm).reshape(-1)))
+    for panel, plain, vector in cases:
+        check_panel(panel, plain, vector, nbrow * bm, vdt, dev)
+
+
+@pytest.mark.parametrize("staging", [(8, 1), (12, 0)])
+def test_panel_transposes_refuse_a_staging_the_rows_cannot_take(dev, monkeypatch, staging):
+    """The column tile and the staging are the wrapper's to choose; the
+    kernels refuse bulk copies of rows off 16 bytes and a tile other than 8
+    or 16, and the wrapper raises."""
+    blocks, cols = random_bsr(dev, 20, 3, 8, 128, 9, torch.float32)
+    blocks = offset_copy(blocks, 1)
+    monkeypatch.setattr(K, "_staging", lambda b, k: staging)
+    with pytest.raises(RuntimeError, match="bsr_rmatmat kernel launch failed"):
+        K.bsr_rmatmat_kernel(blocks, cols, torch.ones((160, 3), device=dev), 9)
 
 
 def test_block_transposes_launch_once_and_capture(dev):

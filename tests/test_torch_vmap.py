@@ -126,47 +126,129 @@ def test_vmap_batched_gmres(rng):
     np.testing.assert_allclose(np.einsum("bij,bj->bi", As, xs_t.numpy()), bs, atol=1e-8)
 
 
+def shared_operator_batch(rng, solver, B=6, n=14):
+    """One operator and B right-hand sides whose solves stop after different
+    counts (the first lies in a 2-dimensional invariant subspace): (A, bs,
+    the solve, its loop's block). GMRES: a non-symmetric A, restarts of 4."""
+    from linops_tpu_torch.utils import krylov, loop
+
+    if solver == "gmres":
+        A = 4.0 * np.eye(n) + rng.standard_normal((n, n)) / np.sqrt(n)
+        w, V = np.linalg.eig(A)
+        real = np.flatnonzero(np.abs(w.imag) < 1e-12)[:2]
+        bs = rng.standard_normal((B, n))
+        bs[0] = V[:, real].real.sum(axis=1) if len(real) == 2 else bs[0]
+        return A, bs, lambda pkg, op_, b: pkg.gmres(op_, b, tol=1e-10, restart=4, maxiter=30), \
+            krylov.GMRES_BLOCK
+    Q = rng.standard_normal((n, n))
+    A = Q @ Q.T + 10.0 * np.eye(n)
+    V = np.linalg.eigh(A)[1]
+    bs = rng.standard_normal((B, n))
+    bs[0] = V[:, 0] + V[:, 3]
+    return A, bs, lambda pkg, op_, b: getattr(pkg, solver)(op_, b, tol=1e-10, maxiter=200), \
+        loop.BLOCK
+
+
+@pytest.mark.parametrize("batch", ["rhs", "operator"])
 @pytest.mark.parametrize("solver", ["cg", "minres", "bicgstab", "gmres"])
-def test_vmap_solves_read_the_host_once_per_block(rng, monkeypatch, solver):
+def test_vmap_solves_read_the_host_once_per_block(rng, monkeypatch, solver, batch):
     """A vmapped solve runs masked blocks of its loop's block (``loop.BLOCK``,
     GMRES one restart, ``krylov.GMRES_BLOCK``), one host read before the
     first and after each: at most ⌈I/block⌉ + 1 reads for I the largest
     member's count (iterations; GMRES restarts), where the per-iteration
-    loop (a block of 1) makes I + 1. x and the per-member counts are bit for
-    bit the per-iteration loop's."""
+    loop (a block of 1) makes I + 1. A vmap over the right-hand sides of one
+    operator runs the members as a leading batch dimension
+    (``stats["path"]`` "vmap_blocks": on the card these blocks are captured,
+    "vmap_graph"); a vmap over the operators' own data (a batch of
+    operators) keeps the eager path ("vmap"). x and the per-member counts
+    are bit for bit the eager per-iteration loop's."""
     from linops_tpu_torch.utils import krylov, loop
 
-    if solver == "gmres":
-        B, n = 4, 14
-        As = 4.0 * np.eye(n)[None] + rng.standard_normal((B, n, n)) / np.sqrt(n)
-        As[0] += 2.0 * np.eye(n)
-        bs = rng.standard_normal((B, n))
-        block = krylov.GMRES_BLOCK
+    if batch == "rhs":
+        A, bs, solve_with, block = shared_operator_batch(rng, solver)
+        herm = {} if solver == "gmres" else dict(symmetric=True, hermitian=True)
 
-        def solve(A, b):
-            return lt.gmres(lt.MatrixOperator(A), b, tol=1e-10, restart=4, maxiter=30)
+        def solve(b):
+            return solve_with(lt, lt.MatrixOperator(t_(A), **herm), b)
+
+        args = (t_(bs),)
     else:
-        As, bs = spd_batch(rng)
-        As[0] += 40.0 * np.eye(As.shape[1])  # members stop after different counts
-        block = loop.BLOCK
+        if solver == "gmres":
+            B, n = 4, 14
+            As = 4.0 * np.eye(n)[None] + rng.standard_normal((B, n, n)) / np.sqrt(n)
+            As[0] += 2.0 * np.eye(n)
+            bs = rng.standard_normal((B, n))
+            block = krylov.GMRES_BLOCK
 
-        def solve(A, b):
-            op = lt.MatrixOperator(A, symmetric=True, hermitian=True)
-            return getattr(lt, solver)(op, b, tol=1e-10, maxiter=200)
+            def solve(A, b):
+                return lt.gmres(lt.MatrixOperator(A), b, tol=1e-10, restart=4, maxiter=30)
+        else:
+            As, bs = spd_batch(rng)
+            As[0] += 40.0 * np.eye(As.shape[1])  # members stop after different counts
+            block = loop.BLOCK
 
-    def run():
-        x, k, _ = torch.func.vmap(solve)(t_(As), t_(bs))
-        assert loop.stats["path"] == "vmap"
+            def solve(A, b):
+                op = lt.MatrixOperator(A, symmetric=True, hermitian=True)
+                return getattr(lt, solver)(op, b, tol=1e-10, maxiter=200)
+
+        args = (t_(As), t_(bs))
+    path = "vmap_blocks" if batch == "rhs" else "vmap"
+
+    def run(want):
+        x, k, _ = torch.func.vmap(solve)(*args)
+        assert loop.stats["path"] == want, loop.stats["path"]
         return x, k, loop.stats["reads"], loop.stats["blocks"]
 
-    x, k, reads, blocks = run()
+    x, k, reads, blocks = run(path)
     monkeypatch.setattr(loop, "BLOCK", 1)
     monkeypatch.setattr(krylov, "GMRES_BLOCK", 1)
-    x1, k1, reads1, _ = run()
+    x1, k1, reads1, _ = run(path)
+    monkeypatch.setattr(loop, "_members", lambda *a: False)  # the eager per-iteration loop
+    x0, k0, reads0, _ = run("vmap")
     top = int(k.max())
     assert torch.equal(x, x1) and torch.equal(k, k1) and len(set(k.tolist())) > 1
+    assert torch.equal(x, x0) and torch.equal(k, k0)
     assert reads <= -(-top // block) + 1 and blocks == -(-top // block), (reads, blocks, top)
-    assert reads1 == top + 1
+    assert reads1 == top + 1 and reads0 == top + 1
+
+
+@pytest.mark.parametrize("solver", ["cg", "minres", "bicgstab", "gmres"])
+def test_vmap_over_right_hand_sides_matches_the_reference(rng, solver):
+    """vmap of a solve over the right-hand sides of one operator (the
+    members as a leading batch dimension, "vmap_blocks") against jax.vmap
+    of the reference's solver under x64: x within 1e-8 relative, the same
+    per-member counts; the count a per-member tensor."""
+    from linops_tpu_torch.utils import loop
+
+    A, bs, solve_with, _ = shared_operator_batch(rng, solver)
+    herm = {} if solver == "gmres" else dict(symmetric=True, hermitian=True)
+    op_t = lt.MatrixOperator(t_(A), **herm)
+    op_j = lo.MatrixOperator(jnp.asarray(A), **herm)
+    xs_t, ks_t, res_t = torch.func.vmap(lambda b: solve_with(lt, op_t, b))(t_(bs))
+    assert loop.stats["path"] == "vmap_blocks"
+    xs_j, ks_j, _ = jax.vmap(lambda b: solve_with(lo, op_j, b))(jnp.asarray(bs))
+    xs_j = np.asarray(xs_j)
+    assert np.abs(xs_t.numpy() - xs_j).max() <= 1e-8 * np.abs(xs_j).max()
+    np.testing.assert_array_equal(ks_t.numpy(), np.asarray(ks_j))
+    assert ks_t.shape == (len(bs),) and res_t.shape == (len(bs),)
+
+
+def test_nested_vmap_keeps_the_eager_path(rng):
+    """vmap of vmap of cg over right-hand sides: the inner loop's tensors
+    are batched at two levels, so it runs the eager masked blocks ("vmap"),
+    each member's x and count those of its own solve."""
+    from linops_tpu_torch.utils import loop
+
+    A, bs, solve_with, _ = shared_operator_batch(rng, "cg")
+    op = lt.MatrixOperator(t_(A), symmetric=True, hermitian=True)
+    bb = t_(np.stack([bs, 2.0 * bs[::-1]]))
+    xs, ks, _ = torch.func.vmap(torch.func.vmap(lambda b: lt.cg(op, b, tol=1e-10, maxiter=200)))(bb)
+    assert loop.stats["path"] == "vmap"
+    for i in range(2):
+        for j in range(len(bs)):
+            x1, k1, _ = lt.cg(op, bb[i, j], tol=1e-10, maxiter=200)
+            assert int(ks[i, j]) == k1
+            assert torch.allclose(xs[i, j], x1, rtol=0, atol=1e-12 * float(x1.abs().max()))
 
 
 @pytest.fixture
